@@ -1,0 +1,65 @@
+"""The port stands alone: no module of paddle_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package; and its entry points run on
+the card unless the caller asks for the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+
+
+def _port_files():
+    files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) \
+                and getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__") \
+                and node.args and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str):
+            yield node.args[0].value.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_jax_package_import(path):
+    assert path.exists(), path
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_scan_sees_a_forbidden_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\nfrom paddle_tpu.ops import x\n"
+                 "import importlib\nimportlib.import_module('jax.numpy')\n")
+    assert {r for r, _ in _imported_roots(f)} & FORBIDDEN \
+        == {"paddle_tpu", "jax"}
+
+
+def test_engine_without_device_needs_a_card(monkeypatch):
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.inference.paged import ServingEngine
+    from paddle_tpu_torch.models.llama import (init_llama_params,
+                                               llama_config_tiny)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama_config_tiny(vocab=64, hidden=32, layers=1, heads=2, seq=32)
+    params = init_llama_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
