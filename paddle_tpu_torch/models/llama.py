@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..nn.functional.norm import rms_norm_ref
 from ..ops.paged_attention import (ragged_paged_attention,
                                    ragged_paged_attention_ref)
@@ -63,11 +64,12 @@ def init_llama_params(config: LlamaConfig, dtype=torch.float32, device=None,
     """Random dense parameters with the shapes and scales of the JAX
     ``build_functional_llama`` initialiser (normal / sqrt(fan_in) for block
     weights, 0.02 for the embedding and LM head, ones for the norms), drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device``.  Each
-    layer is drawn and cast on its own, so a 7B model never holds a second
-    f32 copy of its weights."""
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``
+    (``None``: the CUDA device, raising without one).  Each layer is drawn
+    and cast on its own, so a 7B model never holds a second f32 copy of its
+    weights."""
     c = config
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     head_dim = c.hidden_size // c.num_attention_heads
     kv_dim = c.num_key_value_heads * head_dim
@@ -145,7 +147,7 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
         else ragged_paged_attention
     c = config
     d = torch.float32 if dtype is None else dtype
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve_device(device)
     head_dim = c.hidden_size // c.num_attention_heads
     L = c.num_hidden_layers
     nkv = c.num_key_value_heads

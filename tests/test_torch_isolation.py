@@ -63,3 +63,22 @@ def test_engine_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_functions_without_device_need_a_card(monkeypatch):
+    """init_llama_params and build_llama_paged_decode resolve device=None
+    to the card too, and run on the CPU only when asked."""
+    from paddle_tpu_torch.models.llama import (build_llama_paged_decode,
+                                               init_llama_params,
+                                               llama_config_tiny)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama_config_tiny(vocab=64, hidden=32, layers=1, heads=2, seq=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_llama_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_llama_paged_decode(cfg, page_size=4, num_pages=4)
+    params = init_llama_params(cfg, device="cpu")
+    assert params[0]["tok"].device == torch.device("cpu")
+    init_pages, *_ = build_llama_paged_decode(cfg, page_size=4, num_pages=4,
+                                              device="cpu")
+    assert init_pages()["k"].device == torch.device("cpu")
