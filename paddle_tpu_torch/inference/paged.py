@@ -15,6 +15,11 @@ in ``ops/paged_attention`` (CUDA, ``ops/csrc/ragged_paged_attention.cu``).
     cache and queued requests are admitted into the freed slots (dense
     prefill with the first token sampled, or suffix / chunked prefill
     after a cache hit or for a prompt longer than ``prefill_chunk``).
+    ``speculative=K`` adds lossless self-speculative decoding: n-gram
+    drafts (``_NgramDraft``) verified K + 1 positions at a time.
+    ``kv_dtype="int8"|"fp8"`` stores the pages quantized with per-row
+    scales; ``quantize=8`` snaps the weights onto the per-channel int8
+    grid.
 
 Pages are allocated lazily, one page at a time as decode crosses page
 boundaries.  When the pool runs short the engine walks the degradation
@@ -23,14 +28,15 @@ ladder: evict unreferenced cached pages, then preempt the youngest slot
 re-prefill of prompt + emitted tokens, so greedy outputs stay step-exact).
 
 Device state: the page pool ``[L, Hkv, NP + 1, ps, D]`` (the last page is
-the trash page) lives on the engine's device and is updated IN PLACE by
-every prefill, chunk, decode step and copy-on-write copy; the JAX engine
-donated and rebound it instead.  Host state (slot table, page tables,
-lengths) is numpy, mirrored to the device once per dispatch.
+the trash page; a ``{"q": codes, "s": scales}`` dict per side with
+``kv_dtype``) lives on the engine's device and is updated IN PLACE by
+every prefill, chunk, decode or verify step and copy-on-write copy; the
+JAX engine donated and rebound it instead.  Host state (slot table, page
+tables, lengths) is numpy, mirrored to the device once per dispatch.
 
-Not ported yet (later slices): speculative decoding, the overlapped host
-loop, telemetry, snapshot/restore, KV export/import, quantized KV and
-weights, tensor-parallel meshes, deadlines and cancellation.
+Not ported yet (later slices): the overlapped host loop, telemetry,
+snapshot/restore, KV export/import, tensor-parallel meshes, deadlines and
+cancellation.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ import torch
 from .. import resolve_device
 from ..models.llama import (_sample_per_request, build_llama_paged_decode,
                             make_paged_decode_horizon)
+from ..serving.quant import page_bytes as _page_bytes
+from ..serving.quant import quantize_params
 
 __all__ = ["PagePool", "PrefixCache", "Request", "ServingEngine",
            "serve_requests", "prefix_chain_hashes", "PoolCapacityError",
@@ -324,6 +332,57 @@ class PrefixCache:
         self.pool.free([e.page])
 
 
+class _NgramDraft:
+    """Prompt-lookup n-gram draft proposer (self-speculative decoding — no
+    draft model): a suffix-match index over the request's prompt + emitted
+    tokens.  Each (min_n..max_n)-gram maps to the start of its most recent
+    continuation; ``propose(k)`` returns up to k tokens that followed the
+    LONGEST matching suffix n-gram the last time it occurred, extended
+    periodically at the match lag when the match runs off the end."""
+
+    __slots__ = ("toks", "min_n", "max_n", "_idx")
+
+    def __init__(self, tokens, min_n: int = 1, max_n: int = 3):
+        self.min_n, self.max_n = int(min_n), int(max_n)
+        self._idx = [dict() for _ in range(self.max_n - self.min_n + 1)]
+        self.toks: list[int] = []
+        for t in np.asarray(tokens, np.int32).reshape(-1):
+            self.append(int(t))
+
+    def append(self, tok: int):
+        self.toks.append(int(tok))
+        # index the n-grams ending at the PREVIOUS position: every indexed
+        # occurrence has a continuation, and the current suffix can never
+        # match itself
+        e = len(self.toks) - 1            # continuation start
+        if e <= 0:
+            return
+        for j in range(len(self._idx)):
+            n = self.min_n + j
+            if e >= n:
+                self._idx[j][tuple(self.toks[e - n:e])] = e
+
+    def propose(self, k: int) -> list:
+        """Up to k draft tokens continuing the longest-matching suffix
+        n-gram's most recent earlier occurrence; [] when nothing matches."""
+        if k <= 0:
+            return []
+        T = len(self.toks)
+        for j in range(len(self._idx) - 1, -1, -1):   # longest n first
+            n = self.min_n + j
+            if T < n:
+                continue
+            pos = self._idx[j].get(tuple(self.toks[-n:]))
+            if pos is None:
+                continue
+            out = []
+            for i in range(k):
+                src = pos + i
+                out.append(self.toks[src] if src < T else out[src - T])
+            return out
+        return []
+
+
 @dataclass
 class Request:
     """One serving request: prompt + generation budget + sampling params."""
@@ -341,6 +400,15 @@ class Request:
     finish_time: float = 0.0
     preemptions: int = 0               # times evicted + requeued mid-flight
     cached_prefix_tokens: int = 0      # prefix-cache tokens attached
+    draft_proposed: int = 0            # speculative draft tokens proposed
+    draft_accepted: int = 0            #   ... verified AND emitted
+
+    @property
+    def draft_accept_rate(self) -> float:
+        """Fraction of this request's proposed draft tokens that were
+        accepted (0.0 when nothing was proposed)."""
+        return self.draft_accepted / self.draft_proposed \
+            if self.draft_proposed else 0.0
 
     @property
     def ttft(self) -> float:
@@ -351,7 +419,7 @@ class Request:
 
 class _Slot:
     __slots__ = ("req", "pages", "pending", "admit_seq", "prefill_pos",
-                 "ctx", "resuming", "chunk_step")
+                 "ctx", "resuming", "chunk_step", "draft", "spec_k")
 
     def __init__(self, req, pages, pending, admit_seq=0):
         self.req = req
@@ -362,6 +430,8 @@ class _Slot:
         self.ctx = None                #   decoding (chunked-prefill state)
         self.resuming = False          # re-admission after preemption
         self.chunk_step = -1           # engine step of the last chunk run
+        self.draft = None              # _NgramDraft (speculative greedy)
+        self.spec_k = 0                # adaptive per-slot draft length
 
 
 # every live engine, for the tests' page-refcount leak guard
@@ -380,7 +450,13 @@ class ServingEngine:
     ``prefill_chunk=N`` bounds any one prefill dispatch to N tokens,
     interleaving long prompts with decode horizons; ``decode_horizon=K``
     runs K decode steps per dispatch with per-slot freeze on EOS / budget.
-    ``attention_impl``: "auto" (the CUDA kernel on the card, the plain
+    ``speculative=K`` verifies n-gram drafts (n up to ``spec_max_ngram``)
+    of greedy requests K + 1 positions per dispatch, lossless under greedy
+    decoding; steps with no draft run the decode horizon.
+    ``kv_dtype="int8"|"fp8"`` stores the KV pages quantized with one f32
+    absmax scale per (page, kv head, token row); ``quantize=8`` (or True /
+    "int8") snaps the weights onto the per-channel int grid.
+    ``attention_impl``: "auto" (the CUDA kernels on the card, the plain
     version on the CPU), "kernel", or "ref" (the plain version always).
     Sampling draws from one ``torch.Generator`` seeded with ``seed`` on the
     engine's device."""
@@ -391,11 +467,20 @@ class ServingEngine:
                  attention_impl: str = "auto", prompt_bucket: int = 32,
                  decode_horizon: int = 8, seed: int = 0,
                  max_queue: int | None = None, prefix_cache: bool = True,
-                 prefill_chunk: int | None = None, device=None):
+                 prefill_chunk: int | None = None,
+                 speculative: int | None = None, spec_max_ngram: int = 3,
+                 kv_dtype: str | None = None, quantize=None, device=None):
         self.device = resolve_device(device)
         self.config = config
         self.params = tuple({k: v.to(self.device) for k, v in tree.items()}
                             for tree in params)
+        self.kv_dtype = None if kv_dtype is None else str(kv_dtype)
+        self.quantize_bits = None
+        if quantize:
+            self.quantize_bits = 8 if quantize is True or quantize == "int8" \
+                else int(quantize)
+            self.params = quantize_params(self.params,
+                                          bits=self.quantize_bits)
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         cap_pages = math.ceil(config.max_position_embeddings / page_size)
@@ -409,11 +494,14 @@ class ServingEngine:
             else max(1, int(prefill_chunk))
         self.prompt_bucket = int(prompt_bucket)
         self.decode_horizon = max(1, int(decode_horizon))
-        init_pages, self._prefill, self._prefill_chunk_fn, decode_step = \
-            build_llama_paged_decode(config, page_size=page_size,
-                                     num_pages=num_pages, dtype=dtype,
-                                     attention_impl=attention_impl,
-                                     device=self.device)
+        self.speculative = 0 if not speculative else int(speculative)
+        self.spec_max_ngram = max(1, int(spec_max_ngram))
+        self._dtype = dtype
+        (init_pages, self._prefill, self._prefill_chunk_fn, decode_step,
+         self._verify_fn) = build_llama_paged_decode(
+            config, page_size=page_size, num_pages=num_pages, dtype=dtype,
+            attention_impl=attention_impl, device=self.device,
+            kv_dtype=self.kv_dtype)
         pages = init_pages()
         self._pages_k, self._pages_v = pages["k"], pages["v"]
         self._horizon = make_paged_decode_horizon(decode_step)
@@ -432,8 +520,12 @@ class ServingEngine:
         self.max_queue = None if max_queue is None else int(max_queue)
         self._admit_seq = 0
         self._step_seq = 0             # step() invocations (chunk pacing)
-        self.steps_run = 0             # decode-horizon dispatches
+        self.steps_run = 0             # decode-horizon + verify dispatches
         self.decode_model_steps = 0    # decode_step calls (K per horizon)
+        self.prefill_chunks = 0        # prefill_chunk dispatches
+        self.verify_steps = 0          # speculative verify dispatches
+        self.draft_tokens_proposed = 0  # draft tokens sent to verify
+        self.draft_tokens_accepted = 0  # ... accepted and emitted
         self.tokens_generated = 0
         self.preemptions = 0
         self.rejections = 0
@@ -551,6 +643,8 @@ class ServingEngine:
         slot = self._slots[s]
         req = slot.req
         req.generated.append(tok)
+        if slot.draft is not None:
+            slot.draft.append(tok)
         if req.first_token_time == 0.0:
             req.first_token_time = time.perf_counter()
         self.tokens_generated += 1
@@ -573,8 +667,10 @@ class ServingEngine:
         if src is None:
             src = dst
             dst = self.pool.alloc(1)[0]
-        self._pages_k[:, :, dst] = self._pages_k[:, :, src]
-        self._pages_v[:, :, dst] = self._pages_v[:, :, src]
+        for store in (self._pages_k, self._pages_v):
+            # a quantized store copies its code pages and its scale pages
+            for a in (store.values() if isinstance(store, dict) else (store,)):
+                a[:, :, dst] = a[:, :, src]
         if slot.pages[idx] != dst:
             self.pool.free([slot.pages[idx]])
             slot.pages[idx] = dst
@@ -625,6 +721,14 @@ class ServingEngine:
             slot.resuming = resuming
             self._admit_seq += 1
             self._slots[s] = slot
+            if self.speculative and req.temperature <= 0.0:
+                # n-gram index over prompt + every emitted token (a
+                # preemption victim's index rebuilds from its history)
+                slot.spec_k = self.speculative
+                slot.draft = _NgramDraft(
+                    req.prompt if not resuming else np.concatenate(
+                        [req.prompt, np.asarray(req.generated, np.int32)]),
+                    max_n=self.spec_max_ngram)
             row = np.zeros((self.max_pages_per_seq,), np.int32)
             row[:len(pages)] = pages
             self._page_tables[s] = row
@@ -704,6 +808,7 @@ class ServingEngine:
             self.params, self._tensor(ids), pos, c,
             self._tensor(self._page_tables[s, :Pb].copy()),
             self._pages_k, self._pages_v)
+        self.prefill_chunks += 1
         slot.chunk_step = self._step_seq
         pos += c
         slot.prefill_pos = pos
@@ -725,17 +830,21 @@ class ServingEngine:
         slot = self._slots[s]
         return slot.req.max_new_tokens - len(slot.req.generated)
 
-    def _provision(self, steps: int):
+    def _provision(self, steps):
         """Lazy page growth for up to ``steps`` decode steps ahead: every
         decoding slot gets pages covering write positions < lengths +
-        min(steps, remaining).  A short pool evicts cached pages first; a
-        slot that still cannot be covered stalls this horizon.  A shared
-        page about to receive a write is copied first.  Returns the
+        min(steps, remaining).  ``steps`` is an int, or a {slot: tokens}
+        dict of per-slot needs (the verify path: 1 + draft length; slots
+        absent from it write one token).  A short pool evicts cached pages
+        first; a slot that still cannot be covered stalls this horizon.  A
+        shared page about to receive a write is copied first.  Returns the
         runnable slot indices."""
+        per_slot = steps if isinstance(steps, dict) else None
         run = []
         for s, slot in enumerate(self._slots):
             if slot is None or slot.prefill_pos is not None:
                 continue
+            want = per_slot.get(s, 1) if per_slot is not None else steps
             w0 = int(self._lengths[s]) // self.page_size
             if w0 < len(slot.pages) \
                     and self.pool.refcount(slot.pages[w0]) > 1:
@@ -744,7 +853,7 @@ class ServingEngine:
                 if self.pool.num_free < 1:
                     continue
                 self._cow(s, w0)
-            m = min(steps, self._remaining(s))
+            m = min(want, self._remaining(s))
             need = math.ceil((int(self._lengths[s]) + m) / self.page_size)
             grow = need - len(slot.pages)
             if grow > 0:
@@ -758,6 +867,89 @@ class ServingEngine:
                 self._page_tables[s, start:start + grow] = pages
             run.append(s)
         return run
+
+    # -- speculative decoding ----------------------------------------------
+    def _propose_drafts(self) -> dict:
+        """{slot -> draft tokens} for every decoding greedy slot whose n-gram
+        index matches this step.  Draft length is clamped to the slot's
+        adaptive spec_k and to remaining - 1, so an accepted run plus the
+        bonus token never overruns the request's budget."""
+        drafts = {}
+        for s, slot in enumerate(self._slots):
+            if slot is None or slot.prefill_pos is not None \
+                    or slot.draft is None:
+                continue
+            k = min(slot.spec_k, self.speculative, self._remaining(s) - 1)
+            if k <= 0:
+                continue
+            d = slot.draft.propose(k)
+            if d:
+                drafts[s] = d
+        return drafts
+
+    def _verify(self, run, drafts):
+        """One verify dispatch over the runnable slots: score pending +
+        draft tokens at K + 1 positions, accept the longest draft prefix
+        whose argmax matches (lossless under greedy decoding), emit the
+        accepted tokens + the bonus token, and rewind ``lengths`` past
+        rejected positions — their stale K/V sits at or past the rewound
+        length, is never attended and is overwritten by the next write
+        there.  EOS / budget freeze mid-run as in the decode horizon.
+        Sampled slots ride along as one-token lanes drawn from the
+        position-0 logits with the engine's generator."""
+        Q = self.speculative + 1
+        S = self.num_slots
+        toks = np.zeros((S, Q), np.int32)
+        n_q = np.zeros((S,), np.int32)
+        for s in run:
+            d = drafts.get(s, ())
+            toks[s, 0] = self._slots[s].pending
+            toks[s, 1:1 + len(d)] = d
+            n_q[s] = 1 + len(d)
+        logits0, gtoks, _, _ = self._verify_fn(
+            self.params, self._tensor(toks), self._tensor(self._lengths),
+            self._tensor(self._page_tables), self._pages_k, self._pages_v,
+            self._tensor(n_q))
+        gtoks = gtoks.cpu().numpy()    # the one per-verify sync
+        self.steps_run += 1
+        self.verify_steps += 1
+        lens = self._lengths.tolist()
+        for s in run:
+            slot = self._slots[s]
+            req = slot.req
+            d = list(drafts.get(s, ()))
+            nd = len(d)
+            old = lens[s]
+            if req.temperature > 0.0:
+                emitted = [int(self._sample_one(logits0[s], req))]
+                acc = 0
+            else:
+                g = gtoks[s].tolist()
+                acc = 0
+                while acc < nd and g[acc] == d[acc]:
+                    acc += 1
+                emitted = d[:acc] + [g[acc]]
+            if nd:
+                if acc == nd:          # fully accepted: regrow toward K
+                    slot.spec_k = min(self.speculative, slot.spec_k + 1)
+                elif acc == 0:         # missed: back off (floor 1)
+                    slot.spec_k = max(1, slot.spec_k // 2)
+            n_emitted = 0
+            for i, tok in enumerate(emitted, 1):
+                # the cache now holds the pending token plus i - 1 accepted
+                # drafts past the old length
+                self._lengths[s] = old + i
+                n_emitted = i
+                if self._record_token(s, tok):
+                    break
+            if nd:
+                # credit only drafts that were emitted: an EOS / budget
+                # freeze mid-run discards the tail uncounted
+                used = min(acc, n_emitted)
+                self.draft_tokens_proposed += nd
+                self.draft_tokens_accepted += used
+                req.draft_proposed += nd
+                req.draft_accepted += used
 
     def _decode(self, run, K: int, greedy: bool):
         """One K-step decode horizon over the runnable lanes, then ONE
@@ -822,6 +1014,17 @@ class ServingEngine:
                 prefilled = True
         if prefilled:
             self._admit()              # a 1-token request may have retired
+        if self.speculative:
+            # one verify dispatch when any slot has a draft; slots without
+            # one ride along as single-token lanes.  Draftless or pool-tight
+            # steps fall through to the decode horizon.
+            drafts = self._propose_drafts()
+            if drafts:
+                run = self._provision(
+                    {s: 1 + len(d) for s, d in drafts.items()})
+                if run:
+                    self._verify(run, drafts)
+                    return True
         K = self.decode_horizon
         run = self._provision(K)
         if not run and K > 1:
@@ -866,12 +1069,28 @@ class ServingEngine:
         return dict(self._finished)
 
     # -- accounting / invariants -------------------------------------------
+    @property
+    def page_bytes(self) -> int:
+        """Bytes one pool page costs on the device: K + V across all
+        layers, with the per-row scales of a quantized ``kv_dtype``."""
+        return _page_bytes(self.config, self.page_size,
+                           kv_dtype=self.kv_dtype, dtype=self._dtype)
+
     def stats(self) -> dict:
-        """Monotonically increasing engine counters."""
+        """Monotonically increasing engine counters.  ``decode_steps``
+        (decode horizons) and ``verify_steps`` are disjoint dispatch
+        counts; ``prefill_chunks`` counts chunked / suffix prefills."""
+        prop = self.draft_tokens_proposed
+        acc = self.draft_tokens_accepted
         return {
             "tokens_generated": self.tokens_generated,
-            "decode_steps": self.steps_run,
+            "decode_steps": self.steps_run - self.verify_steps,
+            "verify_steps": self.verify_steps,
+            "draft_tokens_proposed": prop,
+            "draft_tokens_accepted": acc,
+            "draft_accept_rate": round(acc / prop, 4) if prop else 0.0,
             "decode_model_steps": self.decode_model_steps,
+            "prefill_chunks": self.prefill_chunks,
             "prefill_tokens_executed": self.prefill_tokens,
             "cached_prefix_tokens": self.cache_hit_tokens,
             "cache_hits": self.cache_hits,

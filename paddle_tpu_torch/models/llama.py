@@ -17,8 +17,9 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..nn.functional.norm import rms_norm_ref
-from ..ops.paged_attention import (ragged_paged_attention,
+from ..ops.paged_attention import (_byte_view, ragged_paged_attention,
                                    ragged_paged_attention_ref)
+from ..serving.quant import dequantize_kv, kv_spec, quantize_kv
 from ..tensor.search import _top_p_mask
 
 __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
@@ -100,20 +101,25 @@ def init_llama_params(config: LlamaConfig, dtype=torch.float32, device=None,
 
 def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
                              num_pages: int = 64, dtype=None,
-                             attention_impl: str = "auto", device=None):
+                             attention_impl: str = "auto", device=None,
+                             kv_dtype=None):
     """Paged-KV serving functions; returns
-    ``(init_pages, prefill, prefill_chunk, decode_step)``.
+    ``(init_pages, prefill, prefill_chunk, decode_step, verify_step)``.
 
       pages = init_pages()
           {"k","v": [L, Hkv, num_pages + 1, page_size, head_dim]} — the last
           page is the TRASH page inactive lanes and padding write into.
+          With ``kv_dtype`` ("int8" / "fp8") each side is a dict
+          {"q": codes [L, Hkv, NP + 1, ps, D] int8 | float8_e4m3fn,
+           "s": scales [L, Hkv, NP + 1, ps] f32}.
 
       logits, pages_k, pages_v = prefill(params, ids, true_len, page_row,
                                          pages_k, pages_v)
           Dense causal prefill of the right-padded prompt ``ids [1, T_pad]``
           (``true_len`` real tokens, ``page_row [P]`` its page table);
           post-RoPE K/V scatter into the pages; logits [vocab] (f32) of the
-          last real token.
+          last real token.  A quantized store attends over the dequantized
+          round trip of its own K/V, as a chunk reading them back would.
 
       logits, greedy_tok, pages_k, pages_v = prefill_chunk(
               params, ids, start, chunk_len, page_row, pages_k, pages_v)
@@ -128,14 +134,27 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
           One token per slot at position ``lengths[s]``; inactive slots
           write the trash page and return logits the engine discards.
 
+      logits0, greedy, pages_k, pages_v = verify_step(
+              params, toks, lengths, page_tables, pages_k, pages_v, n_q)
+          Speculative verify: ``toks [S, K+1]`` holds each slot's pending
+          token and its drafts, ``n_q [S]`` the valid queries (0 = idle
+          slot).  Valid queries scatter their K/V at ``lengths[s] + i`` and
+          each slot attends as one ragged segment of ``q_len = n_q[s]``.
+          Returns the position-0 logits [S, vocab] f32 and the argmax of
+          every position [S, K+1] int32.  K/V written for drafts the engine
+          then rejects sits at or past the rewound length, where every
+          attention path masks it until a later write replaces it.
+
     The page tensors are updated IN PLACE (the JAX functions donated and
     rebound them) and returned for symmetry with the JAX signatures.
-    Decode and chunked prefill both attend through
+    Decode, verify and chunked prefill all attend through
     :func:`~paddle_tpu_torch.ops.paged_attention.ragged_paged_attention`
     (``attention_impl`` "auto" or "kernel": the CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors) or always through the plain
-    version (``"ref"``).  The dense prefill masks with -inf, the paged
-    kernel and its plain version with NEG_INF = -1e30, as in JAX.
+    tensors — the fused-dequant one on a quantized store — its plain
+    version for CPU tensors) or always through the plain version
+    (``"ref"``).  The dense prefill masks with -inf, the paged kernel and
+    its plain version with NEG_INF = -1e30, as in JAX.  ``device=None``
+    means the CUDA device and raises without one.
 
     Every gather whose result the JAX code masks afterwards is clamped
     here: JAX clips or fills an out-of-range index where torch raises, and
@@ -148,6 +167,8 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
     c = config
     d = torch.float32 if dtype is None else dtype
     dev = resolve_device(device)
+    if kv_dtype is not None:
+        kv_storage, kv_qmax = kv_spec(kv_dtype)
     head_dim = c.hidden_size // c.num_attention_heads
     L = c.num_hidden_layers
     nkv = c.num_key_value_heads
@@ -160,8 +181,17 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
 
     def init_pages():
         shape = (L, nkv, num_pages + 1, page_size, head_dim)
-        return {"k": torch.zeros(shape, dtype=d, device=dev),
-                "v": torch.zeros(shape, dtype=d, device=dev)}
+        if kv_dtype is None:
+            return {"k": torch.zeros(shape, dtype=d, device=dev),
+                    "v": torch.zeros(shape, dtype=d, device=dev)}
+
+        def side():
+            # zero bytes are the zero code of both int8 and e4m3
+            return {"q": torch.zeros(shape, dtype=torch.uint8, device=dev)
+                    .view(kv_storage),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=dev)}
+        return {"k": side(), "v": side()}
 
     def _rope_at(x, sin_p, cos_p):
         # x: [..., H, D]; sin_p/cos_p: [..., D] per-row positions
@@ -174,11 +204,11 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
         return (h @ hp["lm"]).float()
 
     def _qkv(x, lp, sin, cos):
-        n = x.shape[0]
+        lead = x.shape[:-1]
         h = rms_norm_ref(x, lp["ln1"], eps)
-        q = (h @ lp["wq"]).reshape(n, nh, head_dim)
-        k = (h @ lp["wk"]).reshape(n, nkv, head_dim)
-        v = (h @ lp["wv"]).reshape(n, nkv, head_dim)
+        q = (h @ lp["wq"]).reshape(*lead, nh, head_dim)
+        k = (h @ lp["wk"]).reshape(*lead, nkv, head_dim)
+        v = (h @ lp["wv"]).reshape(*lead, nkv, head_dim)
         return _rope_at(q, sin, cos), _rope_at(k, sin, cos), v
 
     def _mlp(x, lp):
@@ -187,11 +217,35 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
         return x + ff @ lp["wdown"]
 
     def _scatter(store_l, vals, page, off):
-        # store_l [Hkv, NP+1, ps, D] <- vals [N, Hkv, D] at (page, off)
-        store_l[:, page, off] = vals.to(d).transpose(0, 1)
+        """Write rows ``vals [..., Hkv, D]`` into the layer's store at
+        ``[:, page, off]`` (``page``/``off`` of vals' leading shape);
+        returns what a later gather will read back: ``vals`` on an f32/bf16
+        store, the dequantized round trip in the compute dtype on a
+        quantized one."""
+        if kv_dtype is None:
+            store_l[:, page, off] = vals.to(d).movedim(-2, 0)
+            return vals
+        codes, scales = quantize_kv(vals, qmax=kv_qmax, dtype=kv_storage)
+        _byte_view(store_l["q"])[:, page, off] = \
+            _byte_view(codes).movedim(-2, 0)
+        store_l["s"][:, page, off] = scales.movedim(-1, 0)
+        return dequantize_kv(codes, scales).to(d)
 
-    def _layer(bp, l):
-        return {k: v[l] for k, v in bp.items()}
+    def _layer(bp, pages_k, pages_v, l):
+        lp = {k: v[l] for k, v in bp.items()}
+        if kv_dtype is None:
+            return lp, pages_k[l], pages_v[l]
+        return (lp, {k: v[l] for k, v in pages_k.items()},
+                {k: v[l] for k, v in pages_v.items()})
+
+    def _attn(q, kc_l, vc_l, tables, q_start, q_len, kv_len):
+        # every paged path attends through this one call; a quantized
+        # store passes its codes and scale pages straight through
+        if kv_dtype is None:
+            return attend(q.contiguous(), kc_l, vc_l, tables, q_start,
+                          q_len, kv_len)
+        return attend(q.contiguous(), kc_l["q"], vc_l["q"], tables, q_start,
+                      q_len, kv_len, k_scales=kc_l["s"], v_scales=vc_l["s"])
 
     def prefill(params, ids, true_len, page_row, pages_k, pages_v):
         ep, bp, hp = params
@@ -206,10 +260,10 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
         sin, cos = sin_t[:T], cos_t[:T]
         mask = (t_idx[None, :] <= t_idx[:, None]) & valid[None, :]
         for l in range(L):
-            lp = _layer(bp, l)
+            lp, kc_l, vc_l = _layer(bp, pages_k, pages_v, l)
             q, k, v = _qkv(x, lp, sin, cos)
-            _scatter(pages_k[l], k, page, off)
-            _scatter(pages_v[l], v, page, off)
+            k = _scatter(kc_l, k, page, off)
+            v = _scatter(vc_l, v, page, off)
             kf = k.repeat_interleave(rep, dim=1) if rep > 1 else k
             vf = v.repeat_interleave(rep, dim=1) if rep > 1 else v
             s = torch.einsum("qhd,khd->hqk", q.float(), kf.float()) \
@@ -243,12 +297,12 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
         kvlen_r = start_r + clen_r
         page_tab = page_row.to(torch.int32).reshape(1, -1).contiguous()
         for l in range(L):
-            lp = _layer(bp, l)
+            lp, kc_l, vc_l = _layer(bp, pages_k, pages_v, l)
             q, k, v = _qkv(x, lp, sin, cos)
-            _scatter(pages_k[l], k, page, off)
-            _scatter(pages_v[l], v, page, off)
-            o = attend(q[None].contiguous(), pages_k[l], pages_v[l],
-                       page_tab, start_r, clen_r, kvlen_r)[0]
+            _scatter(kc_l, k, page, off)
+            _scatter(vc_l, v, page, off)
+            o = _attn(q[None], kc_l, vc_l, page_tab, start_r, clen_r,
+                      kvlen_r)[0]
             x = x + o.reshape(C, nh * head_dim) @ lp["wo"]
             x = _mlp(x, lp)
         logits = _head(hp, x[int(chunk_len) - 1])
@@ -274,17 +328,50 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
         sin_p, cos_p = sin_t[pos_c], cos_t[pos_c]          # [S, D]
         tables = page_tables.to(torch.int32).contiguous()
         for l in range(L):
-            lp = _layer(bp, l)
+            lp, kc_l, vc_l = _layer(bp, pages_k, pages_v, l)
             q, k, v = _qkv(x, lp, sin_p, cos_p)
-            _scatter(pages_k[l], k, page, off)
-            _scatter(pages_v[l], v, page, off)
-            o = attend(q[:, None].contiguous(), pages_k[l], pages_v[l],
-                       tables, pos32, n_q, eff_len)[:, 0]
+            _scatter(kc_l, k, page, off)
+            _scatter(vc_l, v, page, off)
+            o = _attn(q[:, None], kc_l, vc_l, tables, pos32, n_q,
+                      eff_len)[:, 0]
             x = x + o.reshape(S, nh * head_dim) @ lp["wo"]
             x = _mlp(x, lp)
         return _head(hp, x), pages_k, pages_v
 
-    return init_pages, prefill, prefill_chunk, decode_step
+    def verify_step(params, toks, lengths, page_tables, pages_k, pages_v,
+                    n_q):
+        ep, bp, hp = params
+        S, Q = toks.shape
+        P = page_tables.shape[1]
+        x = ep["tok"][toks.long()].to(d)                   # [S, Q, H]
+        q_idx = torch.arange(Q, device=dev)
+        valid = q_idx[None, :] < n_q[:, None]              # [S, Q]
+        pos = lengths.long()[:, None] + q_idx[None, :]     # absolute
+        # padding lanes may index past the page row and the rope table
+        # (JAX clips); they only ever reach the trash page
+        page = torch.where(valid, torch.gather(
+            page_tables, 1, (pos // page_size).clamp(max=P - 1)).long(),
+            TRASH)
+        off = pos % page_size
+        pos_c = pos.clamp(max=max_pos - 1)
+        sin, cos = sin_t[pos_c], cos_t[pos_c]              # [S, Q, D]
+        q_start = lengths.to(torch.int32).contiguous()
+        q_len = n_q.to(torch.int32).contiguous()
+        kv_len = q_start + q_len
+        tables = page_tables.to(torch.int32).contiguous()
+        for l in range(L):
+            lp, kc_l, vc_l = _layer(bp, pages_k, pages_v, l)
+            q, k, v = _qkv(x, lp, sin, cos)
+            _scatter(kc_l, k, page, off)
+            _scatter(vc_l, v, page, off)
+            o = _attn(q, kc_l, vc_l, tables, q_start, q_len, kv_len)
+            x = x + o.reshape(S, Q, nh * head_dim) @ lp["wo"]
+            x = _mlp(x, lp)
+        logits = _head(hp, x)                              # [S, Q, V] f32
+        return (logits[:, 0], torch.argmax(logits, dim=-1).to(torch.int32),
+                pages_k, pages_v)
+
+    return init_pages, prefill, prefill_chunk, decode_step, verify_step
 
 
 def _sample_per_request(logits, generator, temps, top_ps):

@@ -6,9 +6,9 @@ with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-and is loaded with ``ctypes``.  ``<hash>`` covers the source and the flags,
-so an edited source rebuilds and an unchanged one loads the library it
-already built.  Nothing here runs at import time: the CPU tests import the
+and is loaded with ``ctypes``.  ``<hash>`` covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads the library it already built.  Nothing here runs at import time: the CPU tests import the
 package on machines with no ``nvcc``.  :func:`build_all` starts one ``nvcc``
 per source, all at once, and waits for them together.
 """
@@ -45,7 +45,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

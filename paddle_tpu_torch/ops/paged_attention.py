@@ -21,9 +21,15 @@ Layout (the JAX package's, so the tests compare like with like)::
 (``csrc/ragged_paged_attention.cu``) for CUDA tensors and runs the plain
 PyTorch version :func:`ragged_paged_attention_ref` for CPU tensors — the
 device of the tensors is the only thing that picks.  On a CUDA tensor it
-launches or raises; nothing falls back.  Quantized pages
-(``k_scales``/``v_scales``) are rejected here: the fused-dequant body is a
-later port.
+launches or raises; nothing falls back.
+
+Quantized pages: with ``k_scales``/``v_scales`` (``[Hkv, NP, ps]`` f32, both
+or neither) the pages hold int8 or float8_e4m3fn codes and every row
+dequantizes as ``code * scale`` — inside the kernel
+(``csrc/ragged_paged_attention_quant.cu``, counted by
+``ragged_paged_attention.quant_launches``) for CUDA tensors, on the
+gathered rows in the plain version, which then rounds them to ``q.dtype``
+as the JAX reference does.
 """
 from __future__ import annotations
 
@@ -36,18 +42,23 @@ from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
            "ragged_paged_attention_decode", "paged_attention_decode_ref",
-           "paged_gather_kv", "NEG_INF"]
+           "paged_gather_kv", "paged_gather_scales", "NEG_INF"]
 
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _HEAD_DIMS = (64, 128)
 
 
 def _check_common(q, k_pages, v_pages, k_scales, v_scales):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized KV pages (k_scales/v_scales) are not ported yet")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if k_scales is not None and (k_scales.shape != k_pages.shape[:3]
+                                 or v_scales.shape != v_pages.shape[:3]):
+        raise ValueError(
+            f"scale pages must be [Hkv, NP, ps] = {tuple(k_pages.shape[:3])}, "
+            f"got {tuple(k_scales.shape)}, {tuple(v_scales.shape)}")
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"want q [S, Qmax, Hq, D] and k/v pages [Hkv, NP, ps, D] of one "
@@ -63,20 +74,32 @@ def _check_common(q, k_pages, v_pages, k_scales, v_scales):
 
 
 def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
-                   sm_scale, out_dtype):
+                   sm_scale, out_dtype, k_scales=None, v_scales=None):
     s_slots, qmax, hq, d = q.shape
     hkv, num_pages, page_size, _ = k_pages.shape
     dev = q.device
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("q_start", q_start),
-                    ("q_len", q_len), ("kv_len", kv_len)):
+    quant = k_scales is not None
+    scales = (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ()
+    index = (("page_table", page_table), ("q_start", q_start),
+             ("q_len", q_len), ("kv_len", kv_len))
+    pages = (("k_pages", k_pages), ("v_pages", v_pages))
+    for name, t in pages + scales + index:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise TypeError(f"the kernel takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}, {k_pages.dtype}, "
-                        f"{v_pages.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, "
+                        f"got {q.dtype}")
+    if quant:
+        if k_pages.dtype not in _KV_CODE or v_pages.dtype != k_pages.dtype:
+            raise TypeError(f"quantized pages must both be int8 or "
+                            f"float8_e4m3fn, got {k_pages.dtype}, "
+                            f"{v_pages.dtype}")
+        for name, t in scales:
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+    elif k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"the kernel takes q/k/v of one dtype, got "
+                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, "
                         f"got {out_dtype}")
@@ -88,37 +111,39 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     if page_table.dim() != 2 or page_table.shape[0] != s_slots:
         raise ValueError(f"page_table must be [S={s_slots}, P], "
                          f"got {tuple(page_table.shape)}")
-    for name, t in (("page_table", page_table), ("q_start", q_start),
-                    ("q_len", q_len), ("kv_len", kv_len)):
+    for name, t in index:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q_start", q_start), ("q_len", q_len),
-                    ("kv_len", kv_len)):
+    for name, t in index[1:]:
         if t.shape != (s_slots,):
             raise ValueError(f"{name} must be [S={s_slots}], "
                              f"got {tuple(t.shape)}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("q_start", q_start),
-                    ("q_len", q_len), ("kv_len", kv_len)):
+    for name, t in (("q", q),) + pages + scales + index:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q),) + pages:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              f"loads 16-byte vectors)")
     out = torch.empty(q.shape, dtype=out_dtype, device=dev)
-    fn = _build.library("ragged_paged_attention").ragged_paged_attention_launch
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    ints = [s_slots, qmax, hq, hkv, num_pages, page_size, page_table.shape[1],
+            d, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype]]
+    if quant:
+        fn = _build.library("ragged_paged_attention_quant") \
+            .ragged_paged_attention_quant_launch
+        ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
+        ints.append(_KV_CODE[k_pages.dtype])
+    else:
+        fn = _build.library("ragged_paged_attention") \
+            .ragged_paged_attention_launch
+    ptrs += [t.data_ptr() for _, t in index] + [out.data_ptr()]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) \
         + [ctypes.c_float, ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
-                 kv_len.data_ptr(), out.data_ptr(), s_slots, qmax, hq, hkv,
-                 num_pages, page_size, page_table.shape[1], d,
-                 _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], sm_scale,
-                 stream)
+        err = fn(*ptrs, *ints, sm_scale, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention: CUDA error {err} at "
                            f"launch")
@@ -136,12 +161,17 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
     o [S, Qmax, Hq, D] in ``out_dtype`` (default ``q.dtype``).  Query j of
     slot s at position q_start[s] + j attends positions <= its own and
     < kv_len[s]; rows past q_len[s] — every row of a q_len = 0 slot — come
-    back exactly zero.  Accumulation is f32.
+    back exactly zero.  Accumulation is f32.  ``k_scales``/``v_scales``
+    ``[Hkv, NP, ps]`` f32 (both or neither) mark int8 / float8_e4m3fn pages
+    dequantized by their per-row scale.
 
-    CUDA tensors launch ``csrc/ragged_paged_attention.cu`` (f32 or bf16,
-    D in {64, 128}, page_size a multiple of 8, every tensor contiguous,
-    index tensors int32) and add one to ``ragged_paged_attention.launches``;
-    CPU tensors run :func:`ragged_paged_attention_ref`."""
+    CUDA tensors launch ``csrc/ragged_paged_attention.cu`` (f32 or bf16
+    pages of q's dtype) or, with scales, ``csrc/
+    ragged_paged_attention_quant.cu`` (int8 or fp8 pages, f32 or bf16 q),
+    for D in {64, 128}, page_size a multiple of 8, every tensor contiguous,
+    index tensors int32, and add one to ``ragged_paged_attention.launches``
+    or ``.quant_launches``; CPU tensors run
+    :func:`ragged_paged_attention_ref`."""
     _check_common(q, k_pages, v_pages, k_scales, v_scales)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -150,36 +180,60 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
         return ragged_paged_attention_ref(q, k_pages, v_pages, page_table,
                                           q_start, q_len, kv_len,
                                           sm_scale=sm_scale,
-                                          out_dtype=out_dtype)
+                                          out_dtype=out_dtype,
+                                          k_scales=k_scales,
+                                          v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
     out = _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len,
-                         kv_len, float(sm_scale), out_dtype)
-    ragged_paged_attention.launches += 1
+                         kv_len, float(sm_scale), out_dtype, k_scales,
+                         v_scales)
+    if k_scales is None:
+        ragged_paged_attention.launches += 1
+    else:
+        ragged_paged_attention.quant_launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.quant_launches = 0
+
+
+def _byte_view(t):
+    """A 1-byte page store as uint8: gathers and scatters move the codes
+    bit for bit without needing float8 support in the index kernels."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
 def paged_gather_kv(pages, page_table):
     """Gather a slot-major dense view [S, P*ps, Hkv, D] out of the page pool
     (pages [Hkv, NP, ps, D], page_table [S, P]) — the plain version's dense
     reconstruction."""
-    g = pages[:, page_table.long()]               # [Hkv, S, P, ps, D]
+    g = _byte_view(pages)[:, page_table.long()]    # [Hkv, S, P, ps, D]
     hkv, s, p, ps, d = g.shape
-    return g.permute(1, 2, 3, 0, 4).reshape(s, p * ps, hkv, d)
+    return g.permute(1, 2, 3, 0, 4).reshape(s, p * ps, hkv, d) \
+        .view(pages.dtype)
+
+
+def paged_gather_scales(scales, page_table):
+    """Scale-page analog of :func:`paged_gather_kv`: [Hkv, NP, ps] pages +
+    [S, P] table -> slot-major [S, P*ps, Hkv] per-row scales."""
+    g = scales[:, page_table.long()]              # [Hkv, S, P, ps]
+    hkv, s, p, ps = g.shape
+    return g.permute(1, 2, 3, 0).reshape(s, p * ps, hkv)
 
 
 def ragged_paged_attention_ref(q, k_pages, v_pages, page_table, q_start,
                                q_len, kv_len, sm_scale=None, out_dtype=None,
                                k_scales=None, v_scales=None):
     """Plain PyTorch version with the kernel's semantics: gather the pages
-    dense, mask causally inside each slot's segment, zero padding query
-    rows and q_len = 0 slots.  Masks with ``NEG_INF`` (not -inf), so a fully
-    masked row softmaxes to a finite value that the q_len mask then zeroes.
-    Each call adds one to ``ragged_paged_attention_ref.calls``."""
+    dense (dequantizing them by their scales and rounding to ``q.dtype``
+    when scales are given), mask causally inside each slot's segment, zero
+    padding query rows and q_len = 0 slots.  Masks with ``NEG_INF`` (not
+    -inf), so a fully masked row softmaxes to a finite value that the q_len
+    mask then zeroes.  Each call adds one to
+    ``ragged_paged_attention_ref.calls``."""
     _check_common(q, k_pages, v_pages, k_scales, v_scales)
     ragged_paged_attention_ref.calls += 1
     s_slots, qmax, hq, d = q.shape
@@ -188,6 +242,13 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, page_table, q_start,
         sm_scale = 1.0 / math.sqrt(d)
     k = paged_gather_kv(k_pages, page_table)      # [S, T, Hkv, D]
     v = paged_gather_kv(v_pages, page_table)
+    if k_scales is not None:
+        ks = paged_gather_scales(k_scales, page_table)   # [S, T, Hkv]
+        vs = paged_gather_scales(v_scales, page_table)
+        # one rounded value per stored row on every path of an engine,
+        # as in the JAX reference (a no-op at f32)
+        k = (k.float() * ks.float()[..., None]).to(q.dtype)
+        v = (v.float() * vs.float()[..., None]).to(q.dtype)
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=2)
         v = v.repeat_interleave(hq // hkv, dim=2)

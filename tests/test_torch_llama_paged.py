@@ -3,12 +3,21 @@ against the JAX package's ``build_llama_paged_decode`` at f32 on the CPU.
 
 The JAX model is built from a seed; its parameters go through
 ``params_from_numpy`` into the port, so both compute with the same weights.
-Each case runs dense prefill, a three-chunk prefill and a decode step with
-an inactive lane, and compares logits (rtol = atol = 1e-4: f32 products
-summed in another order) and the page pools (atol 1e-5) after every call.
-The trash page (index num_pages) is left out of the page comparison: JAX
-fills out-of-range rope lookups of padding rows with NaN where the port
-clamps, and only the trash page ever receives those rows."""
+Each case runs dense prefill, a three-chunk prefill, a decode step with
+an inactive lane and a speculative verify step, and compares logits (rtol =
+atol = 1e-4: f32 products summed in another order) and the page pools
+after every call.  The trash page (index num_pages) is left out of the
+page comparison: JAX fills out-of-range rope lookups of padding rows with
+NaN where the port clamps, and only the trash page ever receives those rows.
+
+f32 / bf16 pools are compared at atol 1e-5.  Quantized pools (kv_dtype
+int8 / fp8) store codes and f32 scales.  The K/V rows they quantize
+differ between the two frameworks by f32 rounding (the f32 pools differ by
+up to ~2e-6), so the scales are compared at rtol 1e-5, and a code may sit
+one grid step away where the two rows straddle a rounding boundary: codes
+are equal except for such one-step flips, which must stay rare (at most
+0.1% of the codes).  The codec itself is bit-equal to JAX on equal inputs
+(tests/test_torch_quant.py)."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +34,8 @@ from paddle_tpu_torch.models.llama import (LlamaConfig as TConfig,
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 PAGE_TOL = dict(rtol=1e-5, atol=1e-5)
+SCALE_TOL = dict(rtol=1e-5, atol=0)
+MAX_CODE_FLIPS = 1e-3
 CFG = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
            num_hidden_layers=2, num_attention_heads=4,
            max_position_embeddings=64)
@@ -34,7 +45,8 @@ class _Pair:
     """One JAX and one port instance of the paged functions over the same
     weights, each with its own page pool."""
 
-    def __init__(self, kv_heads, impl, page_size=4, num_pages=24, seed=3):
+    def __init__(self, kv_heads, impl, page_size=4, num_pages=24, seed=3,
+                 kv_dtype=None):
         cfg = dict(CFG, num_key_value_heads=kv_heads)
         jcfg, tcfg = JConfig(**cfg), TConfig(**cfg)
         ep, bp, hp, *_ = build_functional_llama(
@@ -42,26 +54,47 @@ class _Pair:
         self.jparams = (ep, bp, hp)
         self.tparams = params_from_numpy(
             *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)])
-        jfns = jbuild(jcfg, page_size=page_size, num_pages=num_pages,
-                      attention_impl="pallas" if impl == "pallas" else "ref",
-                      interpret=True)
-        self.jinit, self.jprefill, self.jchunk, self.jdecode = jfns[:4]
-        (self.tinit, self.tprefill, self.tchunk,
-         self.tdecode) = tbuild(tcfg, page_size=page_size,
+        (self.jinit, self.jprefill, self.jchunk, self.jdecode,
+         self.jverify) = jbuild(jcfg, page_size=page_size,
+                                num_pages=num_pages,
+                                attention_impl="pallas" if impl == "pallas"
+                                else "ref", interpret=True,
+                                kv_dtype=kv_dtype)
+        (self.tinit, self.tprefill, self.tchunk, self.tdecode,
+         self.tverify) = tbuild(tcfg, page_size=page_size,
                                 num_pages=num_pages,
                                 attention_impl="kernel" if impl == "pallas"
-                                else "ref", device="cpu")
+                                else "ref", device="cpu", kv_dtype=kv_dtype)
         jp, tp = self.jinit(), self.tinit()
         self.jk, self.jv = jp["k"], jp["v"]
         self.tk, self.tv = tp["k"], tp["v"]
         self.num_pages = num_pages
+        self.kv_dtype = kv_dtype
 
     def check_pages(self):
         n = self.num_pages
-        np.testing.assert_allclose(self.tk[:, :, :n].numpy(),
-                                   np.asarray(self.jk)[:, :, :n], **PAGE_TOL)
-        np.testing.assert_allclose(self.tv[:, :, :n].numpy(),
-                                   np.asarray(self.jv)[:, :, :n], **PAGE_TOL)
+        for t, j in ((self.tk, self.jk), (self.tv, self.jv)):
+            if self.kv_dtype is None:
+                np.testing.assert_allclose(t[:, :, :n].numpy(),
+                                           np.asarray(j)[:, :, :n],
+                                           **PAGE_TOL)
+                continue
+            np.testing.assert_allclose(t["s"][:, :, :n].numpy(),
+                                       np.asarray(j["s"])[:, :, :n],
+                                       **SCALE_TOL)
+            # codes by value: a flipped int8 code is one integer away, a
+            # flipped fp8 code one e4m3 step
+            tc = t["q"][:, :, :n].float().numpy()
+            jc = np.asarray(j["q"])[:, :, :n].astype(np.float32)
+            flips = tc != jc
+            if flips.any():
+                step = np.abs(tc - jc)[flips]
+                # an e4m3 step is at most 1/8 of the value, 2**-9 below the
+                # normal range
+                grid = 1.0 if self.kv_dtype == "int8" else np.maximum(
+                    np.maximum(np.abs(tc), np.abs(jc))[flips] / 8, 2.0 ** -9)
+                assert np.all(step <= grid), "a code moved more than a step"
+            assert flips.mean() <= MAX_CODE_FLIPS, flips.mean()
 
     def prefill(self, ids, true_len, page_row):
         jl, self.jk, self.jv = self.jprefill(
@@ -98,12 +131,26 @@ class _Pair:
                                    **LOGIT_TOL)
         self.check_pages()
 
+    def verify(self, toks, lengths, tables, n_q):
+        jl, jg, self.jk, self.jv = self.jverify(
+            self.jparams, jnp.asarray(toks), jnp.asarray(lengths),
+            jnp.asarray(tables), self.jk, self.jv, jnp.asarray(n_q))
+        tl, tg, self.tk, self.tv = self.tverify(
+            self.tparams, torch.from_numpy(toks), torch.from_numpy(lengths),
+            torch.from_numpy(tables), self.tk, self.tv,
+            torch.from_numpy(n_q))
+        live = np.asarray(n_q) > 0
+        np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                                   **LOGIT_TOL)
+        for s in np.flatnonzero(live):
+            np.testing.assert_array_equal(tg.numpy()[s, :n_q[s]],
+                                          np.asarray(jg)[s, :n_q[s]])
+        self.check_pages()
 
-@pytest.mark.parametrize("impl", ["ref", "pallas"])
-@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
-def test_paged_functions_match_jax(kv_heads, impl):
-    pair = _Pair(kv_heads, impl)
-    r = np.random.default_rng(kv_heads)
+
+def _drive(pair, r):
+    """Dense prefill, three chunks, a decode step and a verify step; the
+    verify step's segments straddle page boundaries."""
     P = 8
     # slot 0: dense prefill of an 11-token prompt padded to 16
     prompt0 = r.integers(1, 256, 11).astype(np.int32)
@@ -124,6 +171,26 @@ def test_paged_functions_match_jax(kv_heads, impl):
     pair.decode(np.array([17, 42, 0], np.int32),
                 np.array([11, 20, 0], np.int32), tables,
                 np.array([True, True, False]))
+    # speculative verify at K = 4: slot 0 with three drafts from position
+    # 12, slot 1 with four from 21, an idle lane
+    pair.verify(np.array([[5, 6, 7, 8, 0], [9, 10, 11, 12, 13],
+                          [0, 0, 0, 0, 0]], np.int32),
+                np.array([12, 21, 0], np.int32), tables,
+                np.array([4, 5, 0], np.int32))
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
+def test_paged_functions_match_jax(kv_heads, impl):
+    _drive(_Pair(kv_heads, impl), np.random.default_rng(kv_heads))
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_paged_functions_match_jax(kv_dtype, impl):
+    """The kv_dtype page store: logits of every function at 1e-4, scales
+    and codes as the module docstring states.  GQA 4:2."""
+    _drive(_Pair(2, impl, kv_dtype=kv_dtype), np.random.default_rng(7))
 
 
 def test_prefill_bucket_overrunning_the_page_table():

@@ -7,9 +7,17 @@ bench.py builds them): greedy argmax margins then sit far above the f32
 noise between the two frameworks, so the greedy token streams must be
 EQUAL, token for token — and since the port mirrors the scheduler, so must
 the scheduling counters.  After every test each port engine must pass
-``check_invariants()`` and ``release_cache()`` must return every page."""
+``check_invariants()`` and ``release_cache()`` must return every page.
+
+The same holds for the int8 / fp8 page stores (``kv_dtype``), quantized
+weights (``quantize=8``) and speculative decoding (``speculative=4``, whose
+verify and draft counters must equal JAX's too).  Traffic for speculation
+repeats a segment, so the n-gram index proposes drafts; the K = 2
+random-prompt scenario of the JAX suite, which fails on the JAX side
+alone, is not used as an oracle."""
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -37,25 +45,34 @@ def _port_engines_stay_consistent():
         tpaged._LIVE_ENGINES.discard(eng)
 
 
-def _models(kv_heads):
+# the successor model's LM head: greedy decoding maps token t to SUCC[t]
+SUCC = np.random.default_rng(0).permutation(CFG["vocab_size"])
+
+
+def _models(kv_heads, succ=False):
     """(jax params, port params, jax config, port config), margin-engineered
-    from one seed."""
-    if kv_heads not in _PARAMS:
+    from one seed.  ``succ``: the LM head is the embedding of the token
+    permuted by SUCC's inverse, so the greedy continuation of t is SUCC[t]
+    with a wide margin — traffic can then be built whose drafts are
+    accepted or rejected on purpose."""
+    if (kv_heads, succ) not in _PARAMS:
         cfg = dict(CFG, num_key_value_heads=kv_heads)
         jcfg = JConfig(**cfg)
         ep, bp, hp, *_ = build_functional_llama(
             jcfg, n_micro=1, key=jax.random.PRNGKey(7))
         bp = {k: (v * 0.15 if k.startswith("w") else v)
               for k, v in bp.items()}
-        hp = dict(hp, lm=(ep["tok"].T * 4.0).astype(hp["lm"].dtype))
+        tok = ep["tok"][np.argsort(SUCC)] if succ else ep["tok"]
+        hp = dict(hp, lm=(tok.T * 4.0).astype(hp["lm"].dtype))
         tparams = params_from_numpy(
             *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)])
-        _PARAMS[kv_heads] = ((ep, bp, hp), tparams, jcfg, TConfig(**cfg))
-    return _PARAMS[kv_heads]
+        _PARAMS[kv_heads, succ] = ((ep, bp, hp), tparams, jcfg,
+                                   TConfig(**cfg))
+    return _PARAMS[kv_heads, succ]
 
 
-def _engines(kv_heads=4, **kw):
-    jp, tp, jcfg, tcfg = _models(kv_heads)
+def _engines(kv_heads=4, succ=False, **kw):
+    jp, tp, jcfg, tcfg = _models(kv_heads, succ)
     kw = dict(dict(num_slots=3, page_size=4, prompt_bucket=16,
                    decode_horizon=4), **kw)
     return (JEngine(jp, jcfg, attention_impl="ref", **kw),
@@ -224,3 +241,136 @@ def test_page_pool_refuses_double_free():
     assert pool.refcount(a) == 1 and pool.num_free == 3
     with pytest.raises(tpaged.PageDoubleFreeError):
         pool.free([b])
+
+
+def _chain(t, n):
+    """n tokens of the successor model's greedy path from t."""
+    out = [int(t)]
+    for _ in range(n - 1):
+        out.append(int(SUCC[out[-1]]))
+    return out
+
+
+def _spec_prompts():
+    """Traffic for the successor model.  Prompt 0 holds a stretch of the
+    greedy path and ends on its start, so drafts copied from it are
+    accepted until the stretch runs into junk; prompt 1 holds the token it
+    will emit first followed by junk, so its first drafts are rejected;
+    prompt 2 gives the n-gram index nothing to match at first."""
+    r = np.random.default_rng(23)
+    x, z = (int(t) for t in r.integers(1, CFG["vocab_size"], 2))
+    junk = [int(t) for t in r.integers(1, CFG["vocab_size"], 4)]
+    return [np.array(_chain(x, 9) + junk[:3] + [x], np.int32),
+            np.array([int(SUCC[z])] + junk + [z], np.int32),
+            r.integers(1, CFG["vocab_size"], 9).astype(np.int32)]
+
+
+SPEC_COUNTERS = ("tokens_generated", "decode_steps", "verify_steps",
+                 "draft_tokens_proposed", "draft_tokens_accepted")
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_kv_engine_matches_jax(kv_dtype):
+    """int8 / fp8 page stores, GQA, chunked prefill, staggered arrivals."""
+    jeng, teng = _engines(2, kv_dtype=kv_dtype, prefill_chunk=8)
+    ps = _prompts(5, 3, 30, seed=21)
+    batches = [[(p, {}) for p in ps[:3]], [(p, {}) for p in ps[3:]]]
+    _same(jeng, teng, batches,
+          counters=("tokens_generated", "decode_steps",
+                    "prefill_tokens_executed", "cache_hits"),
+          max_new_tokens=8)
+    assert teng._pages_k["q"].dtype == {"int8": torch.int8,
+                                        "fp8": torch.float8_e4m3fn}[kv_dtype]
+    assert teng._pages_v["s"].dtype == torch.float32
+    assert teng.page_bytes == jeng.page_bytes
+
+
+def test_quantized_kv_prefix_hit_with_copy_on_write():
+    """Copy-on-write under an int8 store: the copied page carries its codes
+    and its scales, so the suffix prefill after the hit matches JAX."""
+    ps = _prompts(1, 10, 11, seed=9)
+    jeng, teng = _engines(num_slots=2, kv_dtype="int8")
+    got_a, _ = _same(jeng, teng, [[(ps[0], {})]], max_new_tokens=5)
+    b = np.concatenate([ps[0], np.asarray(got_a[0][:3], np.int32),
+                        np.array([77, 78, 79], np.int32)])
+    _, ts = _same(jeng, teng, [[(b, {})]],
+                  counters=("cache_hits", "cached_prefix_tokens",
+                            "cow_copies", "prefill_tokens_executed"),
+                  max_new_tokens=6)
+    assert ts["cache_hits"] >= 1 and ts["cow_copies"] >= 1
+
+
+def test_quantized_weights_engine_matches_jax():
+    """quantize=8 snaps the weights to the per-channel int8 grid, here with
+    an int8 page store."""
+    jeng, teng = _engines(4, quantize=8, kv_dtype="int8")
+    ps = _prompts(3, 4, 20, seed=29)
+    _same(jeng, teng, [[(p, {}) for p in ps]],
+          counters=("tokens_generated",), max_new_tokens=8)
+    assert teng.quantize_bits == 8
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_speculative_engine_matches_jax_and_spec_off(kv_dtype):
+    """speculative=4: the same streams and verify / draft counters as the
+    JAX speculative engine, and the same streams as the port's engine
+    without speculation."""
+    ps = _spec_prompts()
+    jeng, teng = _engines(4, succ=True, speculative=4, kv_dtype=kv_dtype)
+    got, ts = _same(jeng, teng, [[(p, {}) for p in ps]],
+                    counters=SPEC_COUNTERS, max_new_tokens=12)
+    assert 0 < ts["draft_tokens_accepted"] < ts["draft_tokens_proposed"]
+    assert ts["decode_steps"] + ts["verify_steps"] == teng.steps_run
+    for p, g in zip(ps, got):
+        assert g == _chain(SUCC[p[-1]], 12)
+    _, tp, _, tcfg = _models(4, succ=True)
+    off = tpaged.ServingEngine(tp, tcfg, device="cpu", num_slots=3,
+                               page_size=4, prompt_bucket=16,
+                               decode_horizon=4, kv_dtype=kv_dtype)
+    assert _serve(off, [[(p, {}) for p in ps]], max_new_tokens=12) == got
+    assert off.stats()["verify_steps"] == 0
+
+
+def test_speculative_eos_budget_and_preemption_match_jax():
+    """An EOS inside an accepted run, budgets that end mid-run, and a tight
+    pool that preempts and re-prefills a speculating slot: streams,
+    counters and per-request acceptance equal to JAX."""
+    ps = _spec_prompts()
+    # prompt 0's first verify accepts drafts 2..5 of its path: stop at 4
+    eos = _chain(SUCC[ps[0][-1]], 12)[3]
+    jeng, teng = _engines(4, succ=True, speculative=4, num_pages=10)
+    batch = [(ps[0], {"eos_token_id": eos}),
+             (ps[1], {"max_new_tokens": 7}), (ps[2], {}),
+             (np.concatenate([ps[2][:4], ps[0]]), {})]
+    got, ts = _same(jeng, teng, [batch],
+                    counters=SPEC_COUNTERS + ("preemptions",),
+                    max_new_tokens=14)
+    assert got[0][-1] == eos and len(got[0]) == 4 and len(got[1]) == 7
+    assert ts["preemptions"] > 0
+    for rid in range(len(batch)):
+        assert teng._finished[rid].draft_accepted \
+            == jeng._finished[rid].draft_accepted
+
+
+def test_speculative_with_sampled_ride_along():
+    """A sampled request rides verify dispatches as a one-token lane drawn
+    from the position-0 logits: seeded, and the greedy requests' streams
+    equal the engine's without speculation."""
+    ps = _spec_prompts()
+    _, tp, _, tcfg = _models(4, succ=True)
+    reqs = [[(ps[0], {}), (ps[1], {"temperature": 1.0, "top_p": 0.9}),
+             (ps[2], {})]]
+
+    def run(spec, seed=3):
+        eng = tpaged.ServingEngine(tp, tcfg, device="cpu", num_slots=3,
+                                   page_size=4, prompt_bucket=16,
+                                   decode_horizon=4, seed=seed,
+                                   speculative=spec)
+        out = _serve(eng, reqs, max_new_tokens=10)
+        return out, eng.stats()
+
+    a, st = run(4)
+    assert run(4)[0] == a and st["verify_steps"] > 0
+    off, _ = run(None)
+    assert [a[0], a[2]] == [off[0], off[2]]
+    assert len(a[1]) == 10
