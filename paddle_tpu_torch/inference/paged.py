@@ -335,16 +335,15 @@ class PrefixCache:
 class _NgramDraft:
     """Prompt-lookup n-gram draft proposer (self-speculative decoding — no
     draft model): a suffix-match index over the request's prompt + emitted
-    tokens.  Each (min_n..max_n)-gram maps to the start of its most recent
+    tokens.  Each 1..max_n-gram maps to the start of its most recent
     continuation; ``propose(k)`` returns up to k tokens that followed the
     LONGEST matching suffix n-gram the last time it occurred, extended
     periodically at the match lag when the match runs off the end."""
 
-    __slots__ = ("toks", "min_n", "max_n", "_idx")
+    __slots__ = ("toks", "_idx")
 
-    def __init__(self, tokens, min_n: int = 1, max_n: int = 3):
-        self.min_n, self.max_n = int(min_n), int(max_n)
-        self._idx = [dict() for _ in range(self.max_n - self.min_n + 1)]
+    def __init__(self, tokens, max_n: int = 3):
+        self._idx = [dict() for _ in range(int(max_n))]  # n-grams, n = j + 1
         self.toks: list[int] = []
         for t in np.asarray(tokens, np.int32).reshape(-1):
             self.append(int(t))
@@ -357,10 +356,8 @@ class _NgramDraft:
         e = len(self.toks) - 1            # continuation start
         if e <= 0:
             return
-        for j in range(len(self._idx)):
-            n = self.min_n + j
-            if e >= n:
-                self._idx[j][tuple(self.toks[e - n:e])] = e
+        for n in range(1, min(e, len(self._idx)) + 1):
+            self._idx[n - 1][tuple(self.toks[e - n:e])] = e
 
     def propose(self, k: int) -> list:
         """Up to k draft tokens continuing the longest-matching suffix
@@ -368,11 +365,8 @@ class _NgramDraft:
         if k <= 0:
             return []
         T = len(self.toks)
-        for j in range(len(self._idx) - 1, -1, -1):   # longest n first
-            n = self.min_n + j
-            if T < n:
-                continue
-            pos = self._idx[j].get(tuple(self.toks[-n:]))
+        for n in range(min(T, len(self._idx)), 0, -1):  # longest n first
+            pos = self._idx[n - 1].get(tuple(self.toks[-n:]))
             if pos is None:
                 continue
             out = []
@@ -402,13 +396,6 @@ class Request:
     cached_prefix_tokens: int = 0      # prefix-cache tokens attached
     draft_proposed: int = 0            # speculative draft tokens proposed
     draft_accepted: int = 0            #   ... verified AND emitted
-
-    @property
-    def draft_accept_rate(self) -> float:
-        """Fraction of this request's proposed draft tokens that were
-        accepted (0.0 when nothing was proposed)."""
-        return self.draft_accepted / self.draft_proposed \
-            if self.draft_proposed else 0.0
 
     @property
     def ttft(self) -> float:

@@ -8,8 +8,9 @@ with a plain C interface::
 
 and is loaded with ``ctypes``.  ``<hash>`` covers the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source or header
-rebuilds and an unchanged one loads the library it already built.  Nothing here runs at import time: the CPU tests import the
-package on machines with no ``nvcc``.  :func:`build_all` starts one ``nvcc``
+rebuilds and an unchanged one loads the library it already built.  Nothing
+here runs at import time: the CPU tests import the package on machines
+with no ``nvcc``.  :func:`build_all` starts one ``nvcc``
 per source, all at once, and waits for them together.
 """
 from __future__ import annotations

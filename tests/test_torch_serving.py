@@ -374,3 +374,21 @@ def test_speculative_with_sampled_ride_along():
     off, _ = run(None)
     assert [a[0], a[2]] == [off[0], off[2]]
     assert len(a[1]) == 10
+
+
+@pytest.mark.parametrize("max_n", [1, 3])
+def test_ngram_draft_matches_jax(max_n):
+    """The n-gram proposer on token streams with heavy repetition (a
+    4-token alphabet): every proposal along the stream equals JAX's, for
+    incremental appends and a rebuild from the whole stream."""
+    from paddle_tpu.inference.paged import _NgramDraft as JDraft
+    r = np.random.default_rng(max_n)
+    toks = [int(t) for t in r.integers(0, 4, 80)]
+    jd, td = JDraft(toks[:10], max_n=max_n), tpaged._NgramDraft(
+        toks[:10], max_n=max_n)
+    for t in toks[10:]:
+        jd.append(t)
+        td.append(t)
+        for k in (0, 1, 4, 7):
+            assert td.propose(k) == jd.propose(k)
+    assert tpaged._NgramDraft(toks, max_n=max_n).propose(6) == jd.propose(6)
