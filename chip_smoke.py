@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc`` and drives
 the port's main paths — the paged continuous-batching LLaMA server with a
-bf16 KV cache, and with an int8 KV cache and speculative decoding — at the
-full width of LLaMA-2 7B with random weights made from a seed:
+bf16 KV cache, and with an int8 KV cache and speculative decoding, at the
+full width of LLaMA-2 7B; and the train step of the repo's 271M LLaMA at
+B 8 x S 2048 — with random weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together;
   2. kernel    both kernels against their plain PyTorch version on the
@@ -15,6 +16,13 @@ full width of LLaMA-2 7B with random weights made from a seed:
                inputs, bf16 and f32 outputs; the quantized kernel over int8
                and fp8 pages, and its fp8 -> f32 code table against
                torch's over all 256 codes;
+               (b) the train kernels (flash-attention forward with its
+               lse, the lse repack, the dK/dV and dQ backward, RMSNorm
+               forward and backward) against their plain versions: the
+               train shape
+               (bf16, causal), GQA 16:4 at D = 128, f32, s_q < s_k causal
+               and not, the standalone repack on strided stats, RMSNorm
+               rows at 16,384 x 1,024 bf16 and f32;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
                suffix prefill, greedy decode; the plain kernel's launch
@@ -28,13 +36,22 @@ full width of LLaMA-2 7B with random weights made from a seed:
                (decode steps + verify steps + prefill chunks), the plain
                kernel and the plain version must not run, and drafts must
                be proposed and verified;
+               (c) the 271M LLaMA train step (bf16, B 8, S 2048,
+               head_chunks 8, AdamW): 3 warm-up and 10 timed steps, the
+               loss of each (finite and falling: labels equal the inputs),
+               tokens/s, the mfu share, peak memory, launches per step of
+               each train kernel (asserted), one step under torch.profiler;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, for f32, int8 and fp8 pages, and with
-               speculative=4 as without;
+               speculative=4 as without; (b) one f32 train step at full
+               width and 2 layers gives the same loss, gradients and
+               updated parameters with the kernels as with the plain
+               versions;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
-               verify and chunk shapes of phase 3;
+               verify and chunk shapes of phase 3, and the train kernels at
+               the phase-3c shape beside SDPA and F.rms_norm;
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
 
@@ -96,10 +113,24 @@ def make_case(gen, S, Qmax, Hq, Hkv, D, ps, NP, P, q_start, q_len, kv_len,
     return q, k, v, pt, *seg
 
 
+def train_wrappers():
+    """Rows 3-8's wrappers, each with its ``launches`` count, by key."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused as fu
+    return {"fa_fwd": fa.flash_attention_fwd, "pack_lse": fa.pack_lse,
+            "fa_dkv": fa.flash_attention_bwd_dkv,
+            "fa_dq": fa.flash_attention_bwd_dq,
+            "rms_fwd": fu.rms_norm_fwd, "rms_bwd": fu.rms_norm_bwd}
+
+
 def reset_counts(pa):
+    """Every kernel's launch count (rows 1-8) and the paged plain version's
+    call count to 0."""
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.quant_launches = 0
     pa.ragged_paged_attention_ref.calls = 0
+    for fn in train_wrappers().values():
+        fn.launches = 0
 
 
 def counts(pa):
@@ -203,6 +234,128 @@ def fp8_code_table(pa):
                 f"{int((~same).sum())} of 256 codes convert differently")
         print(f"  {kv_dtype} -> f32 over all 256 codes: equal to torch's "
               f"({int(want.isnan().sum())} NaN codes)")
+
+
+# -- phase 2b: the train kernels against their plain versions ----------------
+# (B, S_q, S_k, Hq, Hkv, D), causal, dtype
+TRAIN_ATTN_CASES = [
+    ("train shape", (8, 2048, 2048, 16, 16, 64), True, torch.bfloat16),
+    ("GQA 16:4 D=128", (2, 512, 512, 16, 4, 128), True, torch.bfloat16),
+    ("f32 GQA 4:2", (2, 256, 256, 4, 2, 64), True, torch.float32),
+    ("s_q < s_k non-causal", (2, 128, 384, 8, 4, 64), False, torch.float32),
+    ("s_q < s_k causal", (1, 128, 384, 4, 4, 128), True, torch.float32),
+]
+TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
+                   ("f32 rows", 4096, 1024, torch.float32)]
+# f32 kernels against f32 plain versions differ only in summation order;
+# bf16 outputs round once more, one bf16 ulp (2**-8 relative) at most
+TRAIN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+TRAIN_ROWS = [
+    dict(key="fa_fwd", name="flash_attention_fwd", route="cuda",
+         source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:64"),
+    dict(key="pack_lse", name="pack_lse", route="cuda",
+         source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:134"),
+    dict(key="fa_dkv", name="flash_attention_bwd_dkv", route="cuda",
+         source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:268"),
+    dict(key="fa_dq", name="flash_attention_bwd_dq", route="cuda",
+         source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:347"),
+    dict(key="rms_fwd", name="rms_norm_fwd", route="cuda",
+         source=CSRC + "rms_norm.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:58"),
+    dict(key="rms_bwd", name="rms_norm_bwd", route="cuda",
+         source=CSRC + "rms_norm.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:66"),
+]
+
+
+def held(name, got, want, tol):
+    """Kernel output against the plain version's, elementwise within
+    atol + rtol * |plain|; returns the max abs error."""
+    torch.cuda.synchronize()
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_err = err.max().item()
+    require(bool(torch.isfinite(got).all())
+            and bool((err <= atol + rtol * want.abs()).all()),
+            f"{name}: kernel vs plain max abs err {max_err:.3e} (atol "
+            f"{atol}, rtol {rtol})")
+    print(f"  {name:<58} max_abs_err={max_err:.3e} (tol {atol:g} + "
+          f"{rtol:g}*|ref|)")
+    return max_err
+
+
+def attn_inputs(gen, shape, dtype):
+    b, s_q, s_k, hq, hkv, d = shape
+    mk = lambda s, h: torch.randn(b, s, h, d, generator=gen,
+                                  device="cuda").to(dtype)
+    return mk(s_q, hq), mk(s_k, hkv), mk(s_k, hkv), mk(s_q, hq)
+
+
+def delta_of(do, o):
+    b, s_q, hq, _ = o.shape
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * hq, s_q).contiguous()
+
+
+def phase_train_kernels(fa, fu):
+    """Rows 3-8 against their plain versions; returns the worst absolute
+    error of each."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {r["key"]: 0.0 for r in TRAIN_ROWS}
+    for name, shape, causal, dt in TRAIN_ATTN_CASES:
+        q, k, v, do = attn_inputs(gen, shape, dt)
+        sc = 1.0 / np.sqrt(shape[-1])
+        tag = f"{name} {shape} causal={causal} [{str(dt)[6:]}]"
+        tol = TRAIN_TOL[dt]
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
+        ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+        worst["fa_fwd"] = max(worst["fa_fwd"], held(f"fwd o   {tag}", o, ro, tol),
+                              held(f"fwd lse {tag}", lse, rlse,
+                                   TRAIN_TOL[torch.float32]))
+        del ro, rlse
+        delta = delta_of(do, o)
+        got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+        want = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                              causal, sc)
+        worst["fa_dkv"] = max(worst["fa_dkv"],
+                              held(f"dk {tag}", got[0], want[0], tol),
+                              held(f"dv {tag}", got[1], want[1], tol))
+        del got, want
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+        rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
+                                            sc)
+        worst["fa_dq"] = max(worst["fa_dq"], held(f"dq {tag}", dq, rdq, tol))
+        del q, k, v, do, o, lse, delta, dq, rdq
+        torch.cuda.empty_cache()
+    # the standalone repack on strided [BH, S, 1] stats
+    lse3 = torch.randn(128, 2048, 2, generator=gen, device="cuda")[..., 1:]
+    worst["pack_lse"] = held("pack_lse [128, 2048, 1] strided",
+                             fa.pack_lse(lse3), fa.pack_lse_ref(lse3),
+                             (0.0, 0.0))
+    for name, n, h, dt in TRAIN_RMS_CASES:
+        x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        g = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+        tol, tag = TRAIN_TOL[dt], f"{name} [{n}, {h}] [{str(dt)[6:]}]"
+        out, inv = fu.rms_norm_fwd(x, w, 1e-5)
+        rout, rinv = fu.rms_norm_fwd_ref(x, w, 1e-5)
+        worst["rms_fwd"] = max(worst["rms_fwd"],
+                               held(f"rms out {tag}", out, rout, tol),
+                               held(f"rms inv {tag}", inv, rinv,
+                                    TRAIN_TOL[torch.float32]))
+        dx, dw = fu.rms_norm_bwd(x, w, inv, g)
+        rdx, rdw = fu.rms_norm_bwd_ref(x, w, inv, g)
+        # f32 dw sums n rows in another order than torch.sum does
+        dw_tol = tol if dt == torch.bfloat16 else (1e-4, 1e-5)
+        worst["rms_bwd"] = max(worst["rms_bwd"],
+                               held(f"rms dx {tag}", dx, rdx, tol),
+                               held(f"rms dw {tag}", dw, rdw, dw_tol))
+    return worst
 
 
 # -- phase 3: serving at 7B widths -------------------------------------------
@@ -535,6 +688,186 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
                                 for i in range(4)])
 
 
+# -- phase 3c: the train step -------------------------------------------------
+def train_config(layers=16):
+    """The repo's training model (bench.py bench_llama on the chip): vocab
+    32,000, hidden 1,024, MLP 2,816, 16 heads of 64, context 2,048."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=1024,
+                       intermediate_size=2816, num_hidden_layers=layers,
+                       num_attention_heads=16, num_key_value_heads=16,
+                       max_position_embeddings=2048)
+
+
+def make_train_step(cfg, dtype, kernels, seed=0):
+    """bench.py's step: build_functional_llama(n_micro=1, head_chunks=8),
+    loss = embed -> L blocks -> chunked head, gradients of every leaf, then
+    one AdamW(lr=1e-4, weight_decay=0.01) update per parameter tree.
+    Returns (step(batch) -> (loss, grads), trees, n_params)."""
+    from paddle_tpu_torch.models.llama import build_functional_llama
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import _flatten
+
+    ep, bp, hp, ea, ba, hl = build_functional_llama(
+        cfg, dtype=dtype, n_micro=1, head_chunks=8, device="cuda", seed=seed,
+        kernels=kernels)
+    trees = (ep, bp, hp)
+    leaves = [v.requires_grad_(True) for t in trees for v in t.values()]
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    states = [opt.init_opt_state(_flatten(t), device="cuda") for t in trees]
+
+    def step(batch):
+        x = ea(ep, batch)[0]
+        for i in range(cfg.num_hidden_layers):
+            x = ba({k: v[i] for k, v in bp.items()}, x)
+        loss = hl(hp, x[None], batch)
+        grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        for t, st in zip(trees, states):
+            opt.apply_gradients_functional(
+                _flatten(t), _flatten({k: next(it) for k in t}), st)
+        return loss.detach(), grads
+
+    return step, trees, sum(v.numel() for v in leaves)
+
+
+def train_batch(cfg, B, S, seed=0):
+    """bench.py's batch: random ids, labels = ids."""
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    return ids, ids
+
+
+def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
+    """The 271M train step in bf16 at B x S: warm-up and timed steps with
+    the loss of each, tokens/s, the mfu share, peak memory, launches per
+    step of rows 3-8 (asserted), then one step under torch.profiler."""
+    cfg = train_config()
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    torch.cuda.reset_peak_memory_stats()
+    step, _, n_params = make_train_step(cfg, torch.bfloat16, kernels=True)
+    batch = train_batch(cfg, B, S)
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(step(batch)[0]))
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    t0 = time.perf_counter()
+    out = [step(batch)[0] for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {k: fn.launches / steps for k, fn in train_wrappers().items()}
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    paged = counts(pa)
+    losses += [float(x) for x in out]
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = {"fa_fwd": L, "fa_dkv": L, "fa_dq": L, "rms_fwd": 2 * L + 1,
+            "rms_bwd": 2 * L + 1, "pack_lse": 0}
+    require(per_step == want, f"launches per step {per_step} != {want}")
+    require(paged == (0, 0, 0), f"paged attention ran in the train step: "
+            f"{paged}")
+    tokens_per_s = B * S * steps / wall
+    flop_per_token = 6.0 * n_params + 6.0 * L * S * H
+    mfu = flop_per_token * tokens_per_s / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params / 1e6:.1f}M parameters, B={B} S={S} bf16, "
+          f"head_chunks=8, AdamW(lr=1e-4, wd=0.01)")
+    print(f"  loss per step ({warmup} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {tokens_per_s:.1f} tokens/s, mfu_share "
+          f"{mfu:.4f} (({flop_per_token / 1e9:.3f} GFLOP per token) x "
+          f"tokens/s / 989 TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  launches per step: {json.dumps(per_step)} (rows 3/5/6 = {L} "
+          f"layers, rows 7/8 = 2 x {L} + 1 norms, row 4 in the forward's "
+          f"epilogue)")
+    breakdown = train_breakdown(step, batch, wall / steps)
+    return dict(launches=launches, tokens_per_s=tokens_per_s, mfu=mfu,
+                step_ms=wall / steps * 1e3, peak_gib=peak / 2**30,
+                losses=losses, n_params=n_params, breakdown=breakdown)
+
+
+TRAIN_GROUPS = (("fa_fwd", ("fa_fwd_kernel",)),
+                ("fa_bwd", ("fa_bwd_dkv_kernel", "fa_bwd_dq_kernel")),
+                ("rmsnorm", ("rms_fwd_kernel", "rms_bwd_kernel",
+                             "rms_dw_reduce_kernel")),
+                ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")))
+
+
+def train_breakdown(step, batch, step_s):
+    """One train step under torch.profiler: device ms by group, the kernel
+    count, and the device busy share of an unprofiled step's wall time.
+    Only device events count: the autograd Functions that launch the
+    kernels carry the same device time as CPU events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
+    groups["other"] = 0.0
+    kernels = 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if not dev_us or ev.device_type != DeviceType.CUDA:
+            continue
+        kernels += ev.count
+        key = ev.key.lower()
+        g = next((g for g, names in TRAIN_GROUPS
+                  if any(n in key for n in names)), "other")
+        groups[g] += dev_us / 1e3
+    busy = sum(groups.values())
+    require(groups["fa_fwd"] > 0 and groups["fa_bwd"] > 0
+            and groups["rmsnorm"] > 0, f"profiler saw no train kernel: "
+            f"{groups}")
+    print(f"  one step under torch.profiler: device busy {busy:.2f} ms of an "
+          f"unprofiled {step_s * 1e3:.2f} ms step ("
+          f"{busy / (step_s * 1e3) * 100:.1f}%): "
+          + ", ".join(f"{g} {v:.2f}" for g, v in groups.items())
+          + f" ms; {kernels} kernels")
+    return dict(groups, busy_ms=busy, kernels=kernels)
+
+
+# -- phase 4b: kernel train step == plain train step -------------------------
+def phase_train_check(B=8, S=2048):
+    """One f32 train step at full width and 2 layers with the kernels and
+    one with the plain versions, from the same seeded weights and batch:
+    loss, every gradient and every updated parameter must agree."""
+    cfg = train_config(layers=2)
+    batch = train_batch(cfg, B, S, seed=1)
+    runs = []
+    for kernels in (False, True):
+        step, trees, _ = make_train_step(cfg, torch.float32, kernels, seed=2)
+        loss, grads = step(batch)
+        runs.append((float(loss), [g.detach() for g in grads],
+                     [v.detach() for t in trees for v in t.values()]))
+        del step, trees
+    (l0, g0, p0), (l1, g1, p1) = runs
+    print(f"  2-layer f32 step at full width, B={B} S={S}: loss plain "
+          f"{l0:.7f}, kernels {l1:.7f}")
+    require(abs(l1 - l0) <= 1e-5 * abs(l0), "loss differs (rtol 1e-5)")
+    # gradients: max abs difference within 1e-4 of the tensor's max |grad|
+    # (f32 sums in other orders through two layers)
+    g_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(g1, g0))
+    # updated parameters: a first AdamW step moves a weight by about +-lr,
+    # so a near-zero gradient whose sign differs moves it by up to 2 lr
+    p_err = max((a - b).abs().max().item() for a, b in zip(p1, p0))
+    p_mean = max((a - b).abs().mean().item() for a, b in zip(p1, p0))
+    print(f"  grads: max |kernel - plain| / max |plain| {g_err:.3e} (tol "
+          f"1e-4); updated params: max abs diff {p_err:.3e} (tol 2.1e-4 = "
+          f"2 lr + decay), largest mean abs diff {p_mean:.3e} (tol 1e-6)")
+    require(g_err <= 1e-4, "gradients differ")
+    require(p_err <= 2.1e-4 and p_mean <= 1e-6, "updated parameters differ")
+
+
 # -- phase 4: kernel engine == plain engine ----------------------------------
 def engine_tokens(params, cfg, prompts, **kw):
     from paddle_tpu_torch.inference.paged import ServingEngine
@@ -721,12 +1054,123 @@ def phase_timing(pa, layers, plain_kv, quant_kv):
     return res
 
 
+def causal_pairs(s_q, s_k):
+    """Visible (query, key) pairs of one causal head, bottom-right aligned."""
+    off = s_k - s_q
+    return sum(min(s_k, i + off + 1) for i in range(s_q))
+
+
+def report(name, ms, plain_ms, library_ms, nbytes, flops, library_what):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    b_ms = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"  {name:<24} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} "
+          f"GFLOP), {b_ms / ms * 100:.2f}% of bound; library {lib} "
+          f"({library_what})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=library_ms)
+
+
+def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024):
+    """Rows 3-8 at the train shape (bf16, causal; RMSNorm rows N x H): the
+    kernel, its plain version, the bound and the library call (timed here
+    only; the port never calls it)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dt = torch.bfloat16
+    q, k, v, do = attn_inputs(gen, (B, S, S, Hq, Hq, D), dt)
+    sc = 1.0 / np.sqrt(D)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, sc)
+    delta = delta_of(do, o)
+    pairs = B * Hq * causal_pairs(S, S)
+    elt = 2
+    qkv_bytes = B * S * Hq * D * elt
+    stats_bytes = B * Hq * S * 4
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
+    res = {}
+    res["fa_fwd"] = report(
+        "flash_attention_fwd",
+        time_ms(lambda i: fa.flash_attention_fwd(q, k, v, True, sc), 10),
+        time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, True, sc), 3,
+                warmup=1),
+        time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20),
+        4 * qkv_bytes + stats_bytes, 4 * D * pairs,
+        "SDPA is_causal forward")
+
+    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd(i):
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    lib_bwd = time_ms(sdpa_fwd_bwd, 10)
+    res["fa_dkv"] = report(
+        "flash_attention_bwd_dkv",
+        time_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     True, sc), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, True, sc), 3, warmup=1), lib_bwd,
+        6 * qkv_bytes + 2 * stats_bytes, 8 * D * pairs,
+        "SDPA forward + backward")
+    res["fa_dq"] = report(
+        "flash_attention_bwd_dq",
+        time_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    True, sc), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta, True, sc), 3, warmup=1), lib_bwd,
+        5 * qkv_bytes + 2 * stats_bytes, 6 * D * pairs,
+        "SDPA forward + backward")
+    del q, k, v, do, o, qt, kt, vt, qg, kg, vg, dot
+    torch.cuda.empty_cache()
+
+    # the standalone repack: 4 strided stats buffers in rotation
+    lse3s = [torch.randn(B * Hq, S, 2, generator=gen, device="cuda")[..., 1:]
+             for _ in range(4)]
+    res["pack_lse"] = report(
+        "pack_lse", time_ms(lambda i: fa.pack_lse(lse3s[i % 4]), 200),
+        time_ms(lambda i: fa.pack_lse_ref(lse3s[i % 4]), 200), None,
+        2 * stats_bytes, 0, "none: the plain version is that one copy")
+
+    x = torch.randn(N, H, generator=gen, device="cuda").to(dt)
+    w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)
+    g = torch.randn(N, H, generator=gen, device="cuda").to(dt)
+    out, inv = fu.rms_norm_fwd(x, w, 1e-5)
+    row_bytes = N * H * elt
+    res["rms_fwd"] = report(
+        "rms_norm_fwd", time_ms(lambda i: fu.rms_norm_fwd(x, w, 1e-5), 200),
+        time_ms(lambda i: fu.rms_norm_fwd_ref(x, w, 1e-5), 50),
+        time_ms(lambda i: F.rms_norm(x, (H,), w, 1e-5), 200),
+        2 * row_bytes + H * elt + N * 4, 4 * N * H, "F.rms_norm forward")
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+
+    def rms_fwd_bwd(i):
+        torch.autograd.grad(F.rms_norm(xg, (H,), wg, 1e-5), (xg, wg), g)
+
+    res["rms_bwd"] = report(
+        "rms_norm_bwd", time_ms(lambda i: fu.rms_norm_bwd(x, w, inv, g), 200),
+        time_ms(lambda i: fu.rms_norm_bwd_ref(x, w, inv, g), 50),
+        time_ms(rms_fwd_bwd, 100), 3 * row_bytes + 2 * H * elt + N * 4,
+        8 * N * H, "F.rms_norm forward + backward")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
     from paddle_tpu_torch.models.llama import (init_llama_params,
                                                llama_config_7b)
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused as fu
     from paddle_tpu_torch.ops import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -744,6 +1188,8 @@ def main():
 
     print("phase 2: kernels vs plain version on the card")
     max_err = phase_kernel(pa)
+    print("phase 2b: train kernels vs plain version on the card")
+    max_err.update(phase_train_kernels(fa, fu))
 
     print("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
     cfg = llama_config_7b()
@@ -758,13 +1204,21 @@ def main():
     serve_q = phase_serving_quant(pa, cfg, params, serve["kv_bytes"])
     del params
     torch.cuda.empty_cache()
+    print("phase 3c: train step of the 271M LLaMA (bf16, B=8, S=2048, "
+          "16 layers)")
+    train = phase_train(pa)
+    torch.cuda.empty_cache()
 
     print("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
+    print("phase 4b: train step, kernels vs plain versions")
+    phase_train_check()
 
     print("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
                           serve["decode_kv_lens"], serve_q["decode_kv_lens"])
+    print("phase 5b: train kernel timing at the phase-3c shapes")
+    timing.update(phase_train_timing())
 
     print("phase 6: summary")
     for name, sv in (("bf16 KV", serve), ("int8 KV + speculative=4", serve_q)):
@@ -772,6 +1226,10 @@ def main():
               f"p50 {sv['ttft_p50_ms']:.1f} ms, p95 {sv['ttft_p95_ms']:.1f} "
               f"ms on {card}")
     print(f"  draft acceptance {serve_q['acceptance']:.3f}")
+    print(f"  train step: {train['tokens_per_s']:.1f} tokens/s, mfu_share "
+          f"{train['mfu']:.4f}, {train['step_ms']:.1f} ms per step, loss "
+          f"{train['losses'][0]:.4f} -> {train['losses'][-1]:.4f}, peak "
+          f"{train['peak_gib']:.2f} GiB on {card}")
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     rows = []
     for meta, key, launches in ((PLAIN, "plain", serve["launches"]),
@@ -781,6 +1239,11 @@ def main():
                          ms=dec["ms"], plain_ms=dec["plain_ms"],
                          bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                          library_ms=None))
+    for meta in TRAIN_ROWS:
+        key = meta["key"]
+        rows.append(dict({k: v for k, v in meta.items() if k != "key"},
+                         launches=train["launches"][key],
+                         max_abs_err=max_err[key], **timing[key]))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

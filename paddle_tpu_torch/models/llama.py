@@ -1,4 +1,6 @@
-"""LLaMA paged-KV serving functions (port of ``paddle_tpu.models.llama``).
+"""LLaMA train and paged-KV serving functions (port of
+``paddle_tpu.models.llama``: ``build_functional_llama`` and
+``build_llama_paged_decode``).
 
 Parameters are the JAX package's ``(embed, block, head)`` dicts with the
 same leaf names — ``tok``; ``ln1 wq wk wv wo ln2 wgate wup wdown`` stacked
@@ -23,8 +25,8 @@ from ..serving.quant import dequantize_kv, kv_spec, quantize_kv
 from ..tensor.search import _top_p_mask
 
 __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
-           "init_llama_params", "build_llama_paged_decode",
-           "make_paged_decode_horizon"]
+           "init_llama_params", "build_functional_llama",
+           "build_llama_paged_decode", "make_paged_decode_horizon"]
 
 
 @dataclass
@@ -97,6 +99,119 @@ def init_llama_params(config: LlamaConfig, dtype=torch.float32, device=None,
     hp = {"ln_f": torch.ones((H,), dtype=dtype, device=dev),
           "lm": draw((H, c.vocab_size), 0.02)}
     return ep, bp, hp
+
+
+def _apply_rope(x, sin, cos):
+    # x: [B, S, H, D]; sin/cos: [S, D]
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return x * cos[None, :, None, :] + rot * sin[None, :, None, :]
+
+
+def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
+                           mp_axis: str = None, ep_axis: str = None,
+                           init_params: bool = True, head_chunks: int = 0,
+                           device=None, seed: int = 0, kernels: bool = True):
+    """The train path's functions; returns ``(embed_params,
+    block_params_stacked, head_params, embed_apply, block_apply,
+    head_loss_apply)`` like the JAX function, with parameters from
+    :func:`init_llama_params` (seeded ``torch.Generator``; ``None`` each
+    when ``init_params`` is False).
+
+      x = embed_apply(ep, (ids, labels))       [n_micro, B / n_micro, S, H]
+      x = block_apply(lp, x_mb)                one layer, lp = {k: v[l]}
+      loss = head_loss_apply(hp, y, batch)     mean NLL, f32 scalar
+
+    Each block runs RMSNorm, QKV, RoPE, causal (GQA) attention, wo,
+    RMSNorm and a SwiGLU MLP; the head runs RMSNorm and the LM head, dense
+    or (``head_chunks`` > 0) vocab-chunked so the [T, V] logits never
+    exist.  With ``kernels`` (the counterpart of the JAX flag
+    ``use_pallas_kernels``) attention and RMSNorm go through
+    :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention` and
+    :func:`~paddle_tpu_torch.ops.fused.rms_norm` — the CUDA kernels for
+    CUDA tensors, their plain versions for CPU tensors — and fall back to
+    plain attention / ``rms_norm_ref`` on the shapes those decline, as the
+    JAX dispatch does; ``kernels=False`` runs plain attention and
+    ``rms_norm_ref`` under autograd everywhere.  ``device=None`` means the
+    CUDA device and raises without one.  Tensor / expert parallelism
+    (``mp_axis``, ``ep_axis``) and MoE blocks are not ported yet."""
+    if mp_axis is not None or ep_axis is not None \
+            or getattr(config, "num_experts", 1) > 1:
+        raise NotImplementedError(
+            "build_functional_llama: tensor/expert parallelism and MoE "
+            "blocks are not ported yet")
+    from ..incubate.nn.functional import fused_linear_cross_entropy_impl
+    from ..ops.flash_attention import flash_attention
+    from ..ops.fused import rms_norm
+
+    c = config
+    d = torch.float32 if dtype is None else dtype
+    dev = resolve_device(device)
+    head_dim = c.hidden_size // c.num_attention_heads
+    eps = c.rms_norm_eps
+    if init_params:
+        ep, bp, hp = init_llama_params(c, dtype=d, device=dev, seed=seed)
+    else:
+        ep = bp = hp = None
+    sin_t, cos_t = _rope_tables(c.max_position_embeddings, head_dim,
+                                c.rope_theta, d, dev)
+
+    def rms(x, w):
+        if kernels:
+            out = rms_norm(x, w, eps)
+            if out is not None:
+                return out
+        return rms_norm_ref(x, w, eps)
+
+    def embed_apply(p, batch):
+        ids, _ = batch
+        x = p["tok"][ids.long()]
+        mbs = x.shape[0] // n_micro
+        return x.reshape((n_micro, mbs) + tuple(x.shape[1:]))
+
+    def block_apply(lp, x):
+        B, S, _ = x.shape
+        nh = lp["wq"].shape[-1] // head_dim
+        nkv = lp["wk"].shape[-1] // head_dim
+        h = rms(x, lp["ln1"])
+        q = (h @ lp["wq"]).reshape(B, S, nh, head_dim)
+        k = (h @ lp["wk"]).reshape(B, S, nkv, head_dim)
+        v = (h @ lp["wv"]).reshape(B, S, nkv, head_dim)
+        sin, cos = sin_t[:S], cos_t[:S]
+        q = _apply_rope(q, sin, cos)
+        k = _apply_rope(k, sin, cos)
+        # GQA: the kernel indexes KV heads natively; only the plain
+        # fallback repeats them
+        o = flash_attention(q, k, v, causal=True) if kernels else None
+        if o is None:
+            if nh != nkv:
+                k = k.repeat_interleave(nh // nkv, dim=2)
+                v = v.repeat_interleave(nh // nkv, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) \
+                / math.sqrt(head_dim)
+            mask = torch.ones((S, S), dtype=torch.bool, device=x.device) \
+                .tril()
+            logits = logits.float().masked_fill(~mask, float("-inf"))
+            w = torch.softmax(logits, dim=-1).to(x.dtype)
+            o = torch.einsum("bhqk,bkhd->bqhd", w, v)
+        x = x + o.reshape(B, S, nh * head_dim) @ lp["wo"]
+        h = rms(x, lp["ln2"])
+        ff = F.silu(h @ lp["wgate"]) * (h @ lp["wup"])
+        return x + ff @ lp["wdown"]
+
+    def head_loss_apply(p, y, batch):
+        # y: [n_micro, mbs, S, H]
+        _, labels = batch
+        lab = labels.reshape(-1).long()
+        h = rms(y, p["ln_f"])
+        if head_chunks:
+            return fused_linear_cross_entropy_impl(
+                h.reshape(-1, c.hidden_size), p["lm"], lab,
+                n_chunks=head_chunks).mean()
+        logp = torch.log_softmax((h @ p["lm"]).float(), dim=-1)
+        return -logp.reshape(-1, c.vocab_size).gather(1, lab[:, None]).mean()
+
+    return ep, bp, hp, embed_apply, block_apply, head_loss_apply
 
 
 def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,

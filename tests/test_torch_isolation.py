@@ -82,3 +82,32 @@ def test_model_functions_without_device_need_a_card(monkeypatch):
     init_pages, *_ = build_llama_paged_decode(cfg, page_size=4, num_pages=4,
                                               device="cpu")
     assert init_pages()["k"].device == torch.device("cpu")
+
+
+def test_train_entry_points_without_device_need_a_card(monkeypatch):
+    """build_functional_llama and the optimizer's init_opt_state resolve
+    device=None to the card too, and run on the CPU only when asked."""
+    from paddle_tpu_torch.models.llama import (build_functional_llama,
+                                               llama_config_tiny)
+    from paddle_tpu_torch.optimizer import AdamW
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama_config_tiny(vocab=64, hidden=32, layers=1, heads=2, seq=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_functional_llama(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_functional_llama(cfg, init_params=False)
+    ep, bp, hp, *_ = build_functional_llama(cfg, device="cpu")
+    assert bp["wq"].device == torch.device("cpu")
+    opt = AdamW()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt.init_opt_state(hp)
+    st = opt.init_opt_state(hp, device="cpu")
+    assert st["lm"]["moment1"].device == torch.device("cpu")
+
+
+def test_the_scan_covers_the_train_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("ops/flash_attention.py", "ops/fused.py",
+                "optimizer/optimizers.py", "incubate/nn/functional.py",
+                "parallel/pipeline.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
