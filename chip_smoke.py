@@ -247,9 +247,11 @@ TRAIN_ATTN_CASES = [
 ]
 TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
                    ("f32 rows", 4096, 1024, torch.float32)]
-# f32 kernels against f32 plain versions differ only in summation order;
-# bf16 outputs round once more, one bf16 ulp (2**-8 relative) at most
-TRAIN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# f32 kernels against f32 plain versions differ only in summation order.
+# The bf16 kernels round p (and ds in the backward) to bf16 before their
+# tensor-core products, 2**-9 relative per term, where the plain versions
+# keep f32; with the bf16 output rounding that is a few bf16 ulps
+TRAIN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 TRAIN_ROWS = [
     dict(key="fa_fwd", name="flash_attention_fwd", route="cuda",
          source=CSRC + "flash_attention.cu",
@@ -789,8 +791,8 @@ def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
                 losses=losses, n_params=n_params, breakdown=breakdown)
 
 
-TRAIN_GROUPS = (("fa_fwd", ("fa_fwd_kernel",)),
-                ("fa_bwd", ("fa_bwd_dkv_kernel", "fa_bwd_dq_kernel")),
+TRAIN_GROUPS = (("fa_fwd", ("fa_fwd_",)),
+                ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
                 ("rmsnorm", ("rms_fwd_kernel", "rms_bwd_kernel",
                              "rms_dw_reduce_kernel")),
                 ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")))

@@ -32,22 +32,30 @@
 // What bounds it on this card: at the train shape (S = 2048, D = 64) each
 // (q tile, k tile) pair does 2-4 products of 64 x 64 x D multiply-adds for
 // 2 x 64 x D elements loaded, so the kernels are bound by operations, not
-// by bytes.  This version runs those products on the CUDA cores in f32
-// (bf16 inputs are widened when a tile is staged): 64-row tiles of q, k, v
-// and dO staged in shared memory (rows padded to D + 1 floats so that the
-// threads of a warp hit distinct banks), each of the 256 threads owning a
-// 4 x 4 micro-tile of a 64 x 64 score block and a 4 x D/16 slice of a
-// 64 x D accumulator kept in registers.  The TPU's 512 x 1024 blocks do not
-// fit Hopper's 227 KB of shared memory; 64 x 64 tiles keep every kernel
-// under 170 KB at D = 128 and give 4,096 forward blocks at the train shape.
-// Tensor cores (mma.sync / wgmma) and TMA staging are left for later work.
+// by bytes.  The TPU's 512 x 1024 blocks do not fit Hopper's 227 KB of
+// shared memory; 64 x 64 tiles keep every kernel under 170 KB at D = 128
+// and give 4,096 forward blocks at the train shape.  Two bodies share the
+// tiling, the masking and the softmax code:
+//   * bf16 inputs (the train step) run their products on the tensor cores
+//     (WMMA 16 x 16 x 16, f32 accumulators; see the *_tc kernels below);
+//   * f32 inputs run them on the CUDA cores in f32, which keeps f32 inputs
+//     exact to f32 rounding (a TF32 tensor-core product would not): tiles
+//     staged in shared memory as f32 (rows padded to D + 1 floats so that
+//     the threads of a warp hit distinct banks), each of the 256 threads
+//     owning a 4 x 4 micro-tile of a 64 x 64 score block and a 4 x D/16
+//     slice of a 64 x D accumulator kept in registers.
+// Keeping scores and the softmax in registers (mma.sync fragments or
+// wgmma), TMA staging and warp specialisation are left for later work.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -178,6 +186,36 @@ __device__ __forceinline__ float masked_score(float s, float sm_scale,
   return causal && qrow + offset < kcol ? kNegInf : s;
 }
 
+// One online-softmax step over a 64 x 64 score tile (raw q . k products in
+// s, row stride LDS): scale and mask, update each row's running max m and
+// denominator l (warp w owns rows 8w .. 8w + 7, lanes own columns lane and
+// lane + 32), write p = exp(s - m_new) to p (row stride LDP; may alias s)
+// and the row's rescale factor exp(m_old - m_new) to alpha_s.
+template <int LDS, int LDP, typename P>
+__device__ __forceinline__ void softmax_step(const float* s, P* p,
+                                             float* alpha_s, float m[8],
+                                             float l[8], int row0, int col0,
+                                             int offset, int causal,
+                                             float sm_scale) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) {
+    const int r = warp * 8 + rr;
+    const float s0 = masked_score(s[r * LDS + lane], sm_scale, row0 + r,
+                                  col0 + lane, offset, causal);
+    const float s1 = masked_score(s[r * LDS + lane + 32], sm_scale, row0 + r,
+                                  col0 + lane + 32, offset, causal);
+    const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
+    const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+    const float alpha = expf(m[rr] - m_new);
+    l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
+    m[rr] = m_new;
+    store(p + r * LDP + lane, p0);
+    store(p + r * LDP + lane + 32, p1);
+    if (lane == 0) alpha_s[r] = alpha;
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -228,23 +266,11 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        p_s[r * kLDS + c] = masked_score(sc[i][j], sm_scale, row0 + r,
-                                         kt * kTile + c, offset, causal);
+        p_s[r * kLDS + c] = sc[i][j];
       }
     __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = warp * 8 + rr;
-      const float s0 = p_s[r * kLDS + lane], s1 = p_s[r * kLDS + lane + 32];
-      const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float alpha = expf(m[rr] - m_new);
-      l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
-      m[rr] = m_new;
-      p_s[r * kLDS + lane] = p0;
-      p_s[r * kLDS + lane + 32] = p1;
-      if (lane == 0) alpha_s[r] = alpha;
-    }
+    softmax_step<kLDS, kLDS>(p_s, p_s, alpha_s, m, l, row0, kt * kTile,
+                             offset, causal, sm_scale);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -455,16 +481,367 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// [BH, S, 1] stats with (row, seq) strides -> compact [BH, S] f32
-__global__ void pack_lse_kernel(const float* __restrict__ src,
-                                float* __restrict__ dst, long long bh,
-                                long long s, long long s_row, long long s_seq) {
-  const long long n = bh * s;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / s, c = i % s;
-    dst[i] = src[r * s_row + c * s_seq];
+// ---------------------------------------------------------------------------
+// bf16 inputs: the same three kernels with their products on the tensor
+// cores (WMMA 16 x 16 x 16, bf16 operands, f32 accumulators).  Tiles stay
+// bf16 in shared memory; every 64 x 64 score block lands in shared memory
+// as f32, where the softmax and the elementwise backward terms run as in
+// the f32 kernels above; the probabilities p (and ds in the backward) are
+// rounded to bf16 to enter the next product — the forward exactly as the
+// TPU kernel does (`pd.astype(v.dtype)`), the backward one rounding more
+// than the TPU kernel's f32 products.  Each warp owns fixed 16 x 16 tiles
+// of the 64 x D outputs: dK, dV and dQ stay in accumulator registers
+// across the whole loop; the forward's O, which the online softmax rescales
+// per row, lives in shared memory as f32.
+// ---------------------------------------------------------------------------
+namespace wmma = nvcuda::wmma;
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kLDF = kTile + 4;        // f32 score tile row (16-byte multiple)
+constexpr int kLDP = kTile + 8;        // bf16 probability tile row
+
+template <int D> __host__ __device__ constexpr int ldb() { return D + 8; }  // bf16 row
+template <int D> __host__ __device__ constexpr int ldo() { return D + 4; }  // f32 64 x D
+
+// rows [row0, row0 + 64) of one (batch, head) -> dst [64][D + 8] bf16 in
+// 16-byte vectors; rows past `rows` are zero.  The wrapper guarantees
+// 16-byte aligned rows (base and strides).
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long ss, int row0,
+                                               int rows) {
+  constexpr int V = D / 8;                  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < kTile * V; i += kThreads) {
+    const int r = i / V, c = (i % V) * 8;
+    const int row = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows)
+      val = __ldg(reinterpret_cast<const uint4*>(src + (long long)row * ss + c));
+    *reinterpret_cast<uint4*>(dst + r * ldb<D>() + c) = val;
   }
+}
+
+// out [64][kLDF] f32 = A [64][D] . B [64][D]^T, both bf16 row tiles; the
+// 16 output tiles are split over the 8 warps
+template <int D>
+__device__ __forceinline__ void scores_tc(const __nv_bfloat16* A,
+                                          const __nv_bfloat16* B, float* out) {
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int u = 0; u < 16 / kWarps; ++u) {
+    const int t = warp + kWarps * u, ti = t / 4, tj = t % 4;
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      FragA a;
+      FragBT b;
+      wmma::load_matrix_sync(a, A + ti * 16 * ldb<D>() + kk * 16, ldb<D>());
+      wmma::load_matrix_sync(b, B + tj * 16 * ldb<D>() + kk * 16, ldb<D>());
+      wmma::mma_sync(c, a, b, c);
+    }
+    wmma::store_matrix_sync(out + ti * 16 * kLDF + tj * 16, c, kLDF,
+                            wmma::mem_row_major);
+  }
+}
+
+// acc[u] (the warp's 16 x 16 tiles of a 64 x D output) += P . B, with P a
+// [64][kLDP] bf16 tile (transposed when TRANS) and B a [64][D + 8] row tile
+template <int D, bool TRANS>
+__device__ __forceinline__ void accumulate_tc(FragC* acc,
+                                              const __nv_bfloat16* P,
+                                              const __nv_bfloat16* B) {
+  constexpr int NT = D / 16;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int u = 0; u < 4 * NT / kWarps; ++u) {
+    const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      FragB b;
+      wmma::load_matrix_sync(b, B + kk * 16 * ldb<D>() + tj * 16, ldb<D>());
+      if constexpr (TRANS) {
+        FragAT a;                           // A(row, k) = P[k][row]
+        wmma::load_matrix_sync(a, P + kk * 16 * kLDP + ti * 16, kLDP);
+        wmma::mma_sync(acc[u], a, b, acc[u]);
+      } else {
+        FragA a;
+        wmma::load_matrix_sync(a, P + ti * 16 * kLDP + kk * 16, kLDP);
+        wmma::mma_sync(acc[u], a, b, acc[u]);
+      }
+    }
+  }
+}
+
+// write the warps' accumulator tiles of a 64 x D output, through the f32
+// staging tile, to rows [row0, row0 + 64) of one (batch, head)
+template <int D>
+__device__ __forceinline__ void write_acc_tc(const FragC* acc, float* stage,
+                                             __nv_bfloat16* dst, long long ss,
+                                             int row0, int rows) {
+  constexpr int NT = D / 16;
+  const int warp = threadIdx.x / 32;
+  __syncthreads();                          // stage is free
+#pragma unroll
+  for (int u = 0; u < 4 * NT / kWarps; ++u) {
+    const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
+    wmma::store_matrix_sync(stage + ti * 16 * ldo<D>() + tj * 16, acc[u],
+                            ldo<D>(), wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    if (row0 + r < rows)
+      dst[(long long)(row0 + r) * ss + d] = __float2bfloat16(stage[r * ldo<D>() + d]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 View qv, View kv, View vv, View ov, int hq, int hkv, int s_q,
+                 int s_k, int causal, float sm_scale) {
+  constexpr int NT = D / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_b = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_b = q_b + kTile * ldb<D>();
+  __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
+  __nv_bfloat16* p_b = v_b + kTile * ldb<D>();        // [64][kLDP]
+  float* s_s = reinterpret_cast<float*>(p_b + kTile * kLDP);  // [64][kLDF]
+  float* o_s = s_s + kTile * kLDF;                    // [64][D + 4]
+  float* alpha_s = o_s + kTile * ldo<D>();
+  float* m_s = alpha_s + kTile;
+  float* l_s = m_s + kTile;
+
+  const int row0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int offset = s_k - s_q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
+  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
+
+  load_tile_bf16<D>(q_b, q + qv.at(b, 0, h), qv.ss, row0, s_q);
+  for (int i = threadIdx.x; i < kTile * ldo<D>(); i += kThreads) o_s[i] = 0.f;
+  float m[8], l[8];                         // rows warp * 8 + rr
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) { m[rr] = kNegInf; l[rr] = 0.f; }
+
+  const int n_kt = k_tiles_for(row0, s_q, s_k, causal);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    __syncthreads();                        // last tile's readers are done
+    load_tile_bf16<D>(k_b, kb, kv.ss, kt * kTile, s_k);
+    load_tile_bf16<D>(v_b, vb, vv.ss, kt * kTile, s_k);
+    __syncthreads();
+    scores_tc<D>(q_b, k_b, s_s);
+    __syncthreads();
+    softmax_step<kLDF, kLDP>(s_s, p_b, alpha_s, m, l, row0, kt * kTile,
+                             offset, causal, sm_scale);
+    __syncthreads();
+    // the warp rescales the rows of its own O tiles, then adds P V to them
+#pragma unroll
+    for (int u = 0; u < 4 * NT / kWarps; ++u) {
+      const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
+      float* ot = o_s + ti * 16 * ldo<D>() + tj * 16;
+      for (int e = lane; e < 256; e += 32)
+        ot[(e / 16) * ldo<D>() + e % 16] *= alpha_s[ti * 16 + e / 16];
+      __syncwarp();
+      FragC c;
+      wmma::load_matrix_sync(c, ot, ldo<D>(), wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragA a;
+        FragB bv;
+        wmma::load_matrix_sync(a, p_b + ti * 16 * kLDP + kk * 16, kLDP);
+        wmma::load_matrix_sync(bv, v_b + kk * 16 * ldb<D>() + tj * 16, ldb<D>());
+        wmma::mma_sync(c, a, bv, c);
+      }
+      wmma::store_matrix_sync(ot, c, ldo<D>(), wmma::mem_row_major);
+    }
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      m_s[warp * 8 + rr] = m[rr];
+      l_s[warp * 8 + rr] = l[rr];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    if (row0 + r < s_q) {
+      const float lr = l_s[r];
+      const float inv = lr > 0.f ? 1.f / lr : 0.f;
+      o[ov.at(b, row0 + r, h) + d] = __float2bfloat16(o_s[r * ldo<D>() + d] * inv);
+    }
+  }
+  if (threadIdx.x < kTile && row0 + threadIdx.x < s_q) {
+    const int r = threadIdx.x;
+    lse[((long long)b * hq + h) * s_q + row0 + r] =
+        m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+// p and ds of a (q tile, k tile) pair from the f32 scores and dP tiles;
+// rounds them to bf16 for the next products (p only when p_b is set)
+__device__ __forceinline__ void p_and_ds_tc(const float* s_s, const float* dp_s,
+                                            const float* lse_s,
+                                            const float* delta_s,
+                                            __nv_bfloat16* p_b,
+                                            __nv_bfloat16* ds_b, int qrow0,
+                                            int kcol0, int offset, int causal,
+                                            float sm_scale) {
+  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+    const int r = i / kTile, c = i % kTile;
+    const float s = masked_score(s_s[r * kLDF + c], sm_scale, qrow0 + r,
+                                 kcol0 + c, offset, causal);
+    const float p = expf(s - lse_s[r]);
+    if (p_b != nullptr) p_b[r * kLDP + c] = __float2bfloat16(p);
+    ds_b[r * kLDP + c] =
+        __float2bfloat16(p * (dp_s[r * kLDF + c] - delta_s[r]) * sm_scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, View qv, View kv,
+                     View vv, View dov, View dkv, View dvv, int hq, int hkv,
+                     int s_q, int s_k, int causal, float sm_scale) {
+  constexpr int NU = 4 * (D / 16) / kWarps;   // output tiles per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* k_b = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
+  __nv_bfloat16* q_b = v_b + kTile * ldb<D>();
+  __nv_bfloat16* do_b = q_b + kTile * ldb<D>();
+  __nv_bfloat16* p_b = do_b + kTile * ldb<D>();       // [64][kLDP] each
+  __nv_bfloat16* ds_b = p_b + kTile * kLDP;
+  float* s_s = reinterpret_cast<float*>(ds_b + kTile * kLDP);  // [64][kLDF]
+  float* dp_s = s_s + kTile * kLDF;
+  float* stage = dp_s + kTile * kLDF;                 // [64][D + 4]
+  float* lse_s = stage + kTile * ldo<D>();
+  float* delta_s = lse_s + kTile;
+
+  const int col0 = blockIdx.x * kTile;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int rep = hq / hkv;
+  const int offset = s_k - s_q;
+
+  load_tile_bf16<D>(k_b, k + kv.at(b, 0, hk), kv.ss, col0, s_k);
+  load_tile_bf16<D>(v_b, v + vv.at(b, 0, hk), vv.ss, col0, s_k);
+  FragC dk_acc[NU], dv_acc[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    wmma::fill_fragment(dk_acc[u], 0.f);
+    wmma::fill_fragment(dv_acc[u], 0.f);
+  }
+
+  const int n_qt = (s_q + kTile - 1) / kTile;
+  for (int rr = 0; rr < rep; ++rr) {
+    const int h = hk * rep + rr;
+    const long long row_base = ((long long)b * hq + h) * s_q;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int row0 = qt * kTile;
+      if (causal && row0 + kTile - 1 + offset < col0) continue;
+      __syncthreads();
+      load_tile_bf16<D>(q_b, q + qv.at(b, 0, h), qv.ss, row0, s_q);
+      load_tile_bf16<D>(do_b, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
+      load_stats(lse_s, delta_s, lse, delta, row_base, row0, s_q);
+      __syncthreads();
+      scores_tc<D>(q_b, k_b, s_s);
+      scores_tc<D>(do_b, v_b, dp_s);
+      __syncthreads();
+      p_and_ds_tc(s_s, dp_s, lse_s, delta_s, p_b, ds_b, row0, col0, offset,
+                  causal, sm_scale);
+      __syncthreads();
+      accumulate_tc<D, true>(dv_acc, p_b, do_b);    // dv += p^T do
+      accumulate_tc<D, true>(dk_acc, ds_b, q_b);    // dk += ds^T q
+    }
+  }
+  write_acc_tc<D>(dk_acc, stage, dk + dkv.at(b, 0, hk), dkv.ss, col0, s_k);
+  write_acc_tc<D>(dv_acc, stage, dv + dvv.at(b, 0, hk), dvv.ss, col0, s_k);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, View qv, View kv, View vv,
+                    View dov, View dqv, int hq, int hkv, int s_q, int s_k,
+                    int causal, float sm_scale) {
+  constexpr int NU = 4 * (D / 16) / kWarps;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_b = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* do_b = q_b + kTile * ldb<D>();
+  __nv_bfloat16* k_b = do_b + kTile * ldb<D>();
+  __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
+  __nv_bfloat16* ds_b = v_b + kTile * ldb<D>();       // [64][kLDP]
+  float* s_s = reinterpret_cast<float*>(ds_b + kTile * kLDP);
+  float* dp_s = s_s + kTile * kLDF;
+  float* stage = dp_s + kTile * kLDF;
+  float* lse_s = stage + kTile * ldo<D>();
+  float* delta_s = lse_s + kTile;
+
+  const int row0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int offset = s_k - s_q;
+  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
+  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
+
+  load_tile_bf16<D>(q_b, q + qv.at(b, 0, h), qv.ss, row0, s_q);
+  load_tile_bf16<D>(do_b, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
+  load_stats(lse_s, delta_s, lse, delta, ((long long)b * hq + h) * s_q, row0,
+             s_q);
+  FragC acc[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) wmma::fill_fragment(acc[u], 0.f);
+
+  const int n_kt = k_tiles_for(row0, s_q, s_k, causal);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    __syncthreads();
+    load_tile_bf16<D>(k_b, kb, kv.ss, kt * kTile, s_k);
+    load_tile_bf16<D>(v_b, vb, vv.ss, kt * kTile, s_k);
+    __syncthreads();
+    scores_tc<D>(q_b, k_b, s_s);
+    scores_tc<D>(do_b, v_b, dp_s);
+    __syncthreads();
+    p_and_ds_tc(s_s, dp_s, lse_s, delta_s, nullptr, ds_b, row0, kt * kTile,
+                offset, causal, sm_scale);
+    __syncthreads();
+    accumulate_tc<D, false>(acc, ds_b, k_b);        // dq += ds k
+  }
+  write_acc_tc<D>(acc, stage, dq + dqv.at(b, 0, h), dqv.ss, row0, s_q);
+}
+
+// [BH, S, 1] stats with (row, seq) strides -> compact [BH, S] f32; one
+// block row per stats row, one thread per element
+__global__ void pack_lse_kernel(const float* __restrict__ src,
+                                float* __restrict__ dst, int s,
+                                long long s_row, long long s_seq) {
+  const long long r = blockIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c < s) dst[r * s + c] = src[r * s_row + c * s_seq];
 }
 
 struct Geometry {
@@ -483,6 +860,25 @@ constexpr int dkv_smem() { return (4 * kTile * (D + 1) + 2 * kTile * kLDS + 2 * 
 template <int D>
 constexpr int dq_smem() { return (4 * kTile * (D + 1) + kTile * kLDS + 2 * kTile) * 4; }
 
+template <int D>
+constexpr int fwd_tc_smem() {
+  return 3 * kTile * ldb<D>() * 2 + kTile * kLDP * 2 + kTile * kLDF * 4 +
+         kTile * ldo<D>() * 4 + 3 * kTile * 4;
+}
+template <int D>
+constexpr int dkv_tc_smem() {
+  return 4 * kTile * ldb<D>() * 2 + 2 * kTile * kLDP * 2 +
+         2 * kTile * kLDF * 4 + kTile * ldo<D>() * 4 + 2 * kTile * 4;
+}
+template <int D>
+constexpr int dq_tc_smem() {
+  return 4 * kTile * ldb<D>() * 2 + kTile * kLDP * 2 + 2 * kTile * kLDF * 4 +
+         kTile * ldo<D>() * 4 + 2 * kTile * 4;
+}
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -493,16 +889,28 @@ template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, const long long* st, const Geometry& g,
                 cudaStream_t stream) {
-  constexpr int smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(fa_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
-  fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
-      view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-      g.s_k, g.causal, g.sm_scale);
-  return cudaGetLastError();
+  if constexpr (kTensorCores<T>) {
+    constexpr int smem = fwd_tc_smem<D>();
+    cudaError_t err = allow_smem(fa_fwd_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    fa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
+        view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
+        g.s_k, g.causal, g.sm_scale);
+    return cudaGetLastError();
+  } else {
+    constexpr int smem = fwd_smem<D>();
+    cudaError_t err = allow_smem(fa_fwd_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
+        view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
+        g.s_k, g.causal, g.sm_scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -510,17 +918,30 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, const long long* st,
                     const Geometry& g, cudaStream_t stream) {
-  constexpr int smem = dkv_smem<D>();
-  cudaError_t err = allow_smem(fa_bwd_dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
-  fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
-      view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-      view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale);
-  return cudaGetLastError();
+  if constexpr (kTensorCores<T>) {
+    constexpr int smem = dkv_tc_smem<D>();
+    cudaError_t err = allow_smem(fa_bwd_dkv_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    fa_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
+        view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
+        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale);
+    return cudaGetLastError();
+  } else {
+    constexpr int smem = dkv_smem<D>();
+    cudaError_t err = allow_smem(fa_bwd_dkv_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
+        view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
+        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -528,17 +949,30 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, const long long* st, const Geometry& g,
                    cudaStream_t stream) {
-  constexpr int smem = dq_smem<D>();
-  cudaError_t err = allow_smem(fa_bwd_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
-  fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
-      view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-      g.sm_scale);
-  return cudaGetLastError();
+  if constexpr (kTensorCores<T>) {
+    constexpr int smem = dq_tc_smem<D>();
+    cudaError_t err = allow_smem(fa_bwd_dq_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    fa_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
+        view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
+        g.sm_scale);
+    return cudaGetLastError();
+  } else {
+    constexpr int smem = dq_smem<D>();
+    cudaError_t err = allow_smem(fa_bwd_dq_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
+        view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
+        g.sm_scale);
+    return cudaGetLastError();
+  }
 }
 
 inline bool valid(const Geometry& g) {
@@ -606,10 +1040,10 @@ extern "C" int pack_lse_launch(const void* src, void* dst, long long bh,
                                long long s, long long s_row, long long s_seq,
                                void* stream) {
   if (bh <= 0 || s <= 0) return cudaSuccess;
-  const long long n = bh * s;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  pack_lse_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst), bh, s, s_row,
+  if (bh > 0x7fffffffLL || (s + 255) / 256 > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bh, (unsigned)((s + 255) / 256));
+  pack_lse_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), (int)s, s_row,
       s_seq);
   return cudaGetLastError();
 }

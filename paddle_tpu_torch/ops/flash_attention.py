@@ -173,8 +173,13 @@ def flash_attention_ref(q, k, v, causal=False):
 
 # -- kernel launches ---------------------------------------------------------
 def _as_rows(x):
-    """Unit stride along D, as the kernels read it; other strides stay."""
-    return x if x.stride(-1) == 1 else x.contiguous()
+    """Rows as the kernels read them: unit stride along D, and 16-byte
+    aligned rows (the bf16 kernels stage them in 16-byte vectors); other
+    strides stay."""
+    vec = 16 // x.element_size()
+    aligned = x.data_ptr() % 16 == 0 and all(s % vec == 0
+                                             for s in x.stride()[:3])
+    return x if x.stride(-1) == 1 and aligned else x.contiguous()
 
 
 def _check(name, tensors, dtype=None):
