@@ -12,6 +12,10 @@ rebuilds and an unchanged one loads the library it already built.  Nothing
 here runs at import time: the CPU tests import the package on machines
 with no ``nvcc``.  :func:`build_all` starts one ``nvcc``
 per source, all at once, and waits for them together.
+
+Every C entry takes the caller's CUDA stream as its last argument and
+returns ``cudaGetLastError()``; :func:`launch` passes the stream and raises
+on an error.
 """
 from __future__ import annotations
 
@@ -22,12 +26,18 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "build_all",
+           "library", "on_card", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+# the kernels' dtype codes for q / x / out
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -88,3 +98,25 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
     return lib
+
+
+def on_card(name: str, x) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    return x.device.type == "cuda"
+
+
+def launch(lib_name: str, fn_name: str, argtypes, args, device) -> None:
+    """Call the C entry ``fn_name`` of ``csrc/<lib_name>.cu`` with ``args``
+    and the current stream of ``device``; raise if it returns a CUDA
+    error."""
+    fn = getattr(library(lib_name), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")

@@ -41,7 +41,6 @@ __all__ = ["NEG_INF", "flash_attention", "flash_attention_ref",
 
 NEG_INF = -1e30
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
@@ -185,7 +184,7 @@ def _as_rows(x):
 def _check(name, tensors, dtype=None):
     dev = tensors[0].device
     dtype = tensors[0].dtype if dtype is None else dtype
-    if dtype not in _DTYPE_CODE:
+    if dtype not in _build.DTYPE_CODE:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
                         f"got {dtype}")
     for t in tensors:
@@ -226,23 +225,11 @@ def _stats(x, bh, s_q, name):
 
 
 def _call(fn_name, ptrs, strides, ints, sm_scale, dev):
-    fn = getattr(_build.library("flash_attention"), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_void_p] \
-        + [ctypes.c_int] * len(ints) + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, ctypes.cast(strides, ctypes.c_void_p), *ints,
-                 float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
-
-
-def _device_of(name, x):
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
-                         f"{x.device}")
-    return x.device.type == "cuda"
+    _build.launch("flash_attention", fn_name,
+                  [ctypes.c_void_p] * (len(ptrs) + 1)
+                  + [ctypes.c_int] * len(ints) + [ctypes.c_float],
+                  [*ptrs, ctypes.cast(strides, ctypes.c_void_p), *ints,
+                   float(sm_scale)], dev)
 
 
 def flash_attention_fwd(q, k, v, causal, sm_scale):
@@ -251,7 +238,7 @@ def flash_attention_fwd(q, k, v, causal, sm_scale):
     {64, 128}) launch ``flash_attention_fwd_launch`` and add one to
     ``flash_attention_fwd.launches``; CPU tensors run
     :func:`flash_attention_fwd_ref`."""
-    if not _device_of("flash_attention_fwd", q):
+    if not _build.on_card("flash_attention_fwd", q):
         return flash_attention_fwd_ref(q, k, v, causal, sm_scale)
     q, k, v = _as_rows(q), _as_rows(k), _as_rows(v)
     dev = _check("flash_attention_fwd", (q, k, v))
@@ -261,7 +248,8 @@ def flash_attention_fwd(q, k, v, causal, sm_scale):
     _call("flash_attention_fwd_launch",
           [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            lse.data_ptr()], _strides(q, k, v, o),
-          [b, hq, hkv, s_q, s_k, d, _DTYPE_CODE[q.dtype], int(bool(causal))],
+          [b, hq, hkv, s_q, s_k, d, _build.DTYPE_CODE[q.dtype],
+           int(bool(causal))],
           sm_scale, dev)
     flash_attention_fwd.launches += 1
     return o, lse
@@ -276,22 +264,16 @@ def pack_lse(lse3):
     if lse3.dim() != 3 or lse3.shape[-1] != 1:
         raise ValueError(f"pack_lse wants [BH, S, 1], got "
                          f"{tuple(lse3.shape)}")
-    if not _device_of("pack_lse", lse3):
+    if not _build.on_card("pack_lse", lse3):
         return pack_lse_ref(lse3)
     if lse3.dtype != torch.float32:
         raise TypeError(f"pack_lse takes float32 stats, got {lse3.dtype}")
     bh, s, _ = lse3.shape
     out = torch.empty((bh, s), dtype=torch.float32, device=lse3.device)
-    fn = _build.library("flash_attention").pack_lse_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
-        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    with torch.cuda.device(lse3.device):
-        stream = torch.cuda.current_stream(lse3.device).cuda_stream
-        err = fn(lse3.data_ptr(), out.data_ptr(), bh, s, lse3.stride(0),
-                 lse3.stride(1), stream)
-    if err != 0:
-        raise RuntimeError(f"pack_lse_launch: CUDA error {err} at launch")
+    _build.launch("flash_attention", "pack_lse_launch",
+                  [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4,
+                  [lse3.data_ptr(), out.data_ptr(), bh, s, lse3.stride(0),
+                   lse3.stride(1)], lse3.device)
     pack_lse.launches += 1
     return out
 
@@ -307,7 +289,8 @@ def _bwd_launch(fn_name, q, k, v, do, lse, delta, causal, sm_scale, outs):
     _call(fn_name,
           [t.data_ptr() for t in (q, k, v, do, lse, delta, *grads)],
           _strides(q, k, v, do, *grads),
-          [b, hq, hkv, s_q, s_k, d, _DTYPE_CODE[q.dtype], int(bool(causal))],
+          [b, hq, hkv, s_q, s_k, d, _build.DTYPE_CODE[q.dtype],
+           int(bool(causal))],
           sm_scale, dev)
     return grads
 
@@ -318,7 +301,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
     ``flash_attention_bwd_dkv_launch`` and add one to
     ``flash_attention_bwd_dkv.launches``; CPU tensors run
     :func:`flash_attention_bwd_dkv_ref`."""
-    if not _device_of("flash_attention_bwd_dkv", q):
+    if not _build.on_card("flash_attention_bwd_dkv", q):
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
                                            sm_scale)
     dk, dv = _bwd_launch("flash_attention_bwd_dkv_launch", q, k, v, do, lse,
@@ -332,7 +315,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
     CUDA tensors launch ``flash_attention_bwd_dq_launch`` and add one to
     ``flash_attention_bwd_dq.launches``; CPU tensors run
     :func:`flash_attention_bwd_dq_ref`."""
-    if not _device_of("flash_attention_bwd_dq", q):
+    if not _build.on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
                                           sm_scale)
     (dq,) = _bwd_launch("flash_attention_bwd_dq_launch", q, k, v, do, lse,

@@ -25,8 +25,6 @@ from . import _build
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_fwd_ref", "rms_norm_bwd",
            "rms_norm_bwd_ref"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def rms_norm_fwd_ref(x, w, eps):
     """out = x * inv * w (f32 math, cast to x's dtype) and inv [N] f32."""
@@ -53,43 +51,28 @@ def _check(x, w, *more):
     for name, t in (("x", x), ("w", w)) + more:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
+    if not {x.dtype, w.dtype} <= _build.DTYPE_CODE.keys():
         raise TypeError(f"the kernel takes float32 or bfloat16 x and w, got "
                         f"{x.dtype}, {w.dtype}")
     return x.contiguous(), w.contiguous()
-
-
-def _is_cuda(name, x):
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
-                         f"{x.device}")
-    return x.device.type == "cuda"
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def rms_norm_fwd(x, w, eps):
     """x [N, H], w [H] -> (out [N, H] in x's dtype, inv [N] f32).  CUDA
     tensors launch ``rms_norm_fwd_launch`` and add one to
     ``rms_norm_fwd.launches``; CPU tensors run :func:`rms_norm_fwd_ref`."""
-    if not _is_cuda("rms_norm_fwd", x):
+    if not _build.on_card("rms_norm_fwd", x):
         return rms_norm_fwd_ref(x, w, eps)
     x, w = _check(x, w)
     n, h = x.shape
     out = torch.empty_like(x)
     inv = torch.empty((n,), dtype=torch.float32, device=x.device)
-    fn = _build.library("rms_norm").rms_norm_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), inv.data_ptr(),
-                 n, h, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
-                 float(eps), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"rms_norm_fwd_launch: CUDA error {err} at launch")
+    _build.launch("rms_norm", "rms_norm_fwd_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                  + [ctypes.c_float],
+                  [x.data_ptr(), w.data_ptr(), out.data_ptr(), inv.data_ptr(),
+                   n, h, _build.DTYPE_CODE[x.dtype],
+                   _build.DTYPE_CODE[w.dtype], float(eps)], x.device)
     rms_norm_fwd.launches += 1
     return out, inv
 
@@ -100,7 +83,7 @@ def rms_norm_bwd(x, w, inv, g):
     ``rms_norm_bwd_launch`` (row pass with per-block dw partials, then an
     ordered sum of the partials) and add one to ``rms_norm_bwd.launches``;
     CPU tensors run :func:`rms_norm_bwd_ref`."""
-    if not _is_cuda("rms_norm_bwd", x):
+    if not _build.on_card("rms_norm_bwd", x):
         return rms_norm_bwd_ref(x, w, inv, g)
     x, w = _check(x, w, ("inv", inv), ("g", g))
     n, h = x.shape
@@ -109,23 +92,17 @@ def rms_norm_bwd(x, w, inv, g):
     if inv.shape != (n,) or inv.dtype != torch.float32:
         raise ValueError(f"inv must be f32 [N={n}]")
     g, inv = g.contiguous(), inv.contiguous()
-    lib = _build.library("rms_norm")
-    rows = lib.rms_norm_partial_rows()
+    rows = _build.library("rms_norm").rms_norm_partial_rows()
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     partial = torch.empty((-(-n // rows), h), dtype=torch.float32,
                           device=x.device)
-    fn = lib.rms_norm_bwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), inv.data_ptr(), g.data_ptr(),
-                 dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h,
-                 _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
-                 _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"rms_norm_bwd_launch: CUDA error {err} at launch")
+    _build.launch("rms_norm", "rms_norm_bwd_launch",
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4,
+                  [x.data_ptr(), w.data_ptr(), inv.data_ptr(), g.data_ptr(),
+                   dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h,
+                   _build.DTYPE_CODE[x.dtype], _build.DTYPE_CODE[w.dtype]],
+                  x.device)
     rms_norm_bwd.launches += 1
     return dx, dw
 

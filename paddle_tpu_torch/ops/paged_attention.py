@@ -46,7 +46,6 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
 
 NEG_INF = -1e30
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _HEAD_DIMS = (64, 128)
 
@@ -86,7 +85,7 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     for name, t in pages + scales + index:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16 q, "
                         f"got {q.dtype}")
     if quant:
@@ -100,7 +99,7 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     elif k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"the kernel takes q/k/v of one dtype, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if out_dtype not in _DTYPE_CODE:
+    if out_dtype not in _build.DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, "
                         f"got {out_dtype}")
     if d not in _HEAD_DIMS:
@@ -128,25 +127,15 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     out = torch.empty(q.shape, dtype=out_dtype, device=dev)
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     ints = [s_slots, qmax, hq, hkv, num_pages, page_size, page_table.shape[1],
-            d, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype]]
+            d, _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[out_dtype]]
+    lib = "ragged_paged_attention_quant" if quant else "ragged_paged_attention"
     if quant:
-        fn = _build.library("ragged_paged_attention_quant") \
-            .ragged_paged_attention_quant_launch
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
         ints.append(_KV_CODE[k_pages.dtype])
-    else:
-        fn = _build.library("ragged_paged_attention") \
-            .ragged_paged_attention_launch
     ptrs += [t.data_ptr() for _, t in index] + [out.data_ptr()]
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) \
-        + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, *ints, sm_scale, stream)
-    if err != 0:
-        raise RuntimeError(f"ragged_paged_attention: CUDA error {err} at "
-                           f"launch")
+    _build.launch(lib, f"{lib}_launch",
+                  [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                  + [ctypes.c_float], [*ptrs, *ints, sm_scale], dev)
     return out
 
 
@@ -176,16 +165,13 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     out_dtype = out_dtype or q.dtype
-    if q.device.type == "cpu":
+    if not _build.on_card("ragged_paged_attention", q):
         return ragged_paged_attention_ref(q, k_pages, v_pages, page_table,
                                           q_start, q_len, kv_len,
                                           sm_scale=sm_scale,
                                           out_dtype=out_dtype,
                                           k_scales=k_scales,
                                           v_scales=v_scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
-                         f"tensors, got {q.device}")
     out = _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len,
                          kv_len, float(sm_scale), out_dtype, k_scales,
                          v_scales)

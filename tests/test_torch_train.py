@@ -8,6 +8,7 @@ side runs its jnp attention and ``rms_norm_ref``; the port runs the plain
 versions of its kernels (``kernels=True``) or plain attention and
 ``rms_norm_ref`` under autograd (``kernels=False``)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama import build_functional_llama as tbuild
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import fused as tfu
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.parallel import _flatten, _unflatten
 
 B, S, VOCAB = 2, 128, 256
@@ -46,7 +47,12 @@ def _batch(seed=0):
     return ids
 
 
-def _jax_loss_and_grads(jcfg, ids, head_chunks):
+@functools.lru_cache(maxsize=None)
+def _jax_loss_and_grads(kv_heads, seed, head_chunks):
+    """The JAX oracle for one config and batch (shared by the kernels-on
+    and kernels-off cases)."""
+    jcfg, _ = _configs(kv_heads)
+    ids = _batch(seed)
     ep, bp, hp, ea, ba, hl = jbuild(jcfg, key=jax.random.PRNGKey(3),
                                     head_chunks=head_chunks)
     L = jcfg.num_hidden_layers
@@ -83,9 +89,9 @@ def _port_loss_and_grads(tcfg, params_np, ids, head_chunks, kernels):
 @pytest.mark.parametrize("kernels", [True, False], ids=["kernels", "plain"])
 @pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa4:2"])
 def test_loss_and_grads_match_jax_value_and_grad(kv_heads, kernels):
-    jcfg, tcfg = _configs(kv_heads)
+    _, tcfg = _configs(kv_heads)
     ids = _batch()
-    jloss, params, jgrads = _jax_loss_and_grads(jcfg, ids, head_chunks=8)
+    jloss, params, jgrads = _jax_loss_and_grads(kv_heads, 0, head_chunks=8)
     counts = (tfa.flash_attention_fwd.launches, tfu.rms_norm_fwd.launches)
     tloss, tgrads = _port_loss_and_grads(tcfg, params, ids, 8, kernels)
     assert counts == (tfa.flash_attention_fwd.launches,
@@ -98,10 +104,10 @@ def test_loss_and_grads_match_jax_value_and_grad(kv_heads, kernels):
 
 
 def test_chunked_head_equals_dense_head_in_both_frameworks():
-    jcfg, tcfg = _configs(4)
+    _, tcfg = _configs(4)
     ids = _batch(1)
-    jdense, params, jgd = _jax_loss_and_grads(jcfg, ids, head_chunks=0)
-    jchunk, _, jgc = _jax_loss_and_grads(jcfg, ids, head_chunks=8)
+    jdense, params, jgd = _jax_loss_and_grads(4, 1, head_chunks=0)
+    jchunk, _, jgc = _jax_loss_and_grads(4, 1, head_chunks=8)
     tdense, tgd = _port_loss_and_grads(tcfg, params, ids, 0, True)
     tchunk, tgc = _port_loss_and_grads(tcfg, params, ids, 8, True)
     np.testing.assert_allclose(jchunk, jdense, rtol=2e-5)
@@ -144,14 +150,12 @@ def _adam_case(seed, step, shape=(8, 16)):
     return p, g, m, v, pows
 
 
-@pytest.mark.parametrize("step", [0, 1, 2])
-def test_adamw_update_matches_jax_on_equal_inputs(step):
+def _check_update_on_equal_inputs(jopt, topt, step):
     """One update from the same parameter, gradient and state, at the beta
     powers of steps 1-3 (not a chain: Adam's first step is +-lr wherever
     |g| is tiny, so a chain would magnify rounding)."""
     names = ("a", "b.c")
     cases = {n: _adam_case(10 * step + i, step) for i, n in enumerate(names)}
-    jopt = joptim.AdamW(learning_rate=1e-4, parameters=[], weight_decay=0.01)
     jp = {n: jnp.asarray(c[0]) for n, c in cases.items()}
     jg = {n: jnp.asarray(c[1]) for n, c in cases.items()}
     jst = {n: {"moment1": jnp.asarray(c[2]), "moment2": jnp.asarray(c[3]),
@@ -160,7 +164,6 @@ def test_adamw_update_matches_jax_on_equal_inputs(step):
     jnew, jnst = jopt.apply_gradients_functional(
         jp, jg, jst, lr=jnp.asarray(1e-4, jnp.float32))
 
-    topt = AdamW(learning_rate=1e-4, weight_decay=0.01)
     tp = {n: torch.from_numpy(c[0].copy()) for n, c in cases.items()}
     tg = {n: torch.from_numpy(c[1]) for n, c in cases.items()}
     tst = {n: {"moment1": torch.from_numpy(c[2].copy()),
@@ -176,6 +179,22 @@ def test_adamw_update_matches_jax_on_equal_inputs(step):
             np.testing.assert_allclose(tnst[n][key].numpy(),
                                        np.asarray(jnst[n][key]),
                                        rtol=1e-6, atol=1e-9, err_msg=key)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_adamw_update_matches_jax_on_equal_inputs(step):
+    """Decoupled decay: p * (1 - lr * wd) before the Adam step."""
+    _check_update_on_equal_inputs(
+        joptim.AdamW(learning_rate=1e-4, parameters=[], weight_decay=0.01),
+        AdamW(learning_rate=1e-4, weight_decay=0.01), step)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_adam_l2_update_matches_jax_on_equal_inputs(step):
+    """Adam's weight decay is L2 on the gradient: g + wd * p."""
+    _check_update_on_equal_inputs(
+        joptim.Adam(learning_rate=1e-4, parameters=[], weight_decay=0.01),
+        Adam(learning_rate=1e-4, weight_decay=0.01), step)
 
 
 def test_adamw_state_and_dtypes():
