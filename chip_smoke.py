@@ -21,7 +21,8 @@ B 8 x S 2048 — with random weights made from a seed:
                forward and backward) against their plain versions: the
                train shape
                (bf16, causal), GQA 16:4 at D = 128, f32, s_q < s_k causal
-               and not, the standalone repack on strided stats, RMSNorm
+               and not, lengths of 200 (partial tiles) causal and not, f32
+               and bf16, the standalone repack on strided stats, RMSNorm
                rows at 16,384 x 1,024 bf16 and f32;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
@@ -244,14 +245,28 @@ TRAIN_ATTN_CASES = [
     ("f32 GQA 4:2", (2, 256, 256, 4, 2, 64), True, torch.float32),
     ("s_q < s_k non-causal", (2, 128, 384, 8, 4, 64), False, torch.float32),
     ("s_q < s_k causal", (1, 128, 384, 4, 4, 128), True, torch.float32),
+    # lengths off the 64-row tile: a partial last q tile and k tile
+    ("s_k = 200 non-causal", (2, 128, 200, 4, 2, 64), False, torch.float32),
+    ("s_k = 200 non-causal", (2, 128, 200, 8, 4, 128), False, torch.bfloat16),
+    ("s_q = s_k = 200 causal", (2, 200, 200, 8, 8, 64), True, torch.bfloat16),
 ]
 TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
                    ("f32 rows", 4096, 1024, torch.float32)]
-# f32 kernels against f32 plain versions differ only in summation order.
-# The bf16 kernels round p (and ds in the backward) to bf16 before their
-# tensor-core products, 2**-9 relative per term, where the plain versions
-# keep f32; with the bf16 output rounding that is a few bf16 ulps
-TRAIN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+# (atol, rtol, row_rtol) of the train kernels against their plain versions.
+# f32 kernels and f32 plain versions differ only in summation order.  In
+# bf16 both sides round their outputs to bf16 (one ulp is at most 2**-7
+# relative); the forward kernel also rounds p to bf16 before P V, as the
+# TPU kernel does (2**-8 relative per term), where the plain version keeps
+# f32, and the backward kernels carry p and ds to 2**-16.  So bf16 is held
+# elementwise to two ulps of |plain| plus 2e-3 (plus, for the forward's o,
+# 2**-8 sum_j p_j |v_j| / l: the p rounding's own bound), and every row
+# (the last axis: one head's D values, one RMSNorm row) to 1.6e-2 of its
+# plain norm, which a mis-weighted key tile in a long row would break.
+# Rows whose plain norm is under 1% of the median row's are what is left
+# of a cancellation (dQ of a query that sees one key is 0 up to rounding)
+# and are held by the elementwise bound alone.
+TRAIN_TOL = {torch.float32: (1e-5, 1e-5, None),
+             torch.bfloat16: (2e-3, 1.6e-2, 1.6e-2)}
 TRAIN_ROWS = [
     dict(key="fa_fwd", name="flash_attention_fwd", route="cuda",
          source=CSRC + "flash_attention.cu",
@@ -274,20 +289,37 @@ TRAIN_ROWS = [
 ]
 
 
-def held(name, got, want, tol):
-    """Kernel output against the plain version's, elementwise within
-    atol + rtol * |plain|; returns the max abs error."""
+def held(name, got, want, tol, extra=None):
+    """Kernel output against the plain version's: elementwise within
+    atol + rtol * |plain| (+ ``extra``, an elementwise allowance), and,
+    where row_rtol is set, every row (the last axis) whose plain norm is at
+    least 1% of the median row's within row_rtol of that norm.  Prints the
+    max abs error, the max over the elements whose |plain| is at most the
+    median, and the worst row's relative error; returns the max abs
+    error."""
     torch.cuda.synchronize()
-    atol, rtol = tol
+    atol, rtol, row_rtol = tol
     got, want = got.float(), want.float()
     err = (got - want).abs()
     max_err = err.max().item()
+    mag = want.abs()
+    small_err = err[mag <= mag.flatten().median()].max().item()
+    bound = atol + rtol * mag if extra is None else atol + rtol * mag + extra
+    rows = (got - want).reshape(-1, want.shape[-1])
+    ref_norm = want.reshape(rows.shape).norm(dim=-1)
+    big = ref_norm >= 0.01 * ref_norm.median()
+    worst_row = (rows[big].norm(dim=-1) / ref_norm[big]).max().item() \
+        if bool(big.any()) else 0.0
     require(bool(torch.isfinite(got).all())
-            and bool((err <= atol + rtol * want.abs()).all()),
-            f"{name}: kernel vs plain max abs err {max_err:.3e} (atol "
-            f"{atol}, rtol {rtol})")
-    print(f"  {name:<58} max_abs_err={max_err:.3e} (tol {atol:g} + "
-          f"{rtol:g}*|ref|)")
+            and bool((err <= bound).all())
+            and (row_rtol is None or worst_row <= row_rtol),
+            f"{name}: kernel vs plain max abs err {max_err:.3e}, worst row "
+            f"{worst_row:.3e} (atol {atol}, rtol {rtol}, row {row_rtol})")
+    row_tol = "" if row_rtol is None else f", row {row_rtol:g}"
+    row_tol = row_tol if extra is None else " + p rounding" + row_tol
+    print(f"  {name:<50} max_abs_err={max_err:.3e} at small |ref| "
+          f"{small_err:.3e}, worst row {worst_row:.2e} (tol {atol:g} + "
+          f"{rtol:g}*|ref|{row_tol})")
     return max_err
 
 
@@ -316,11 +348,16 @@ def phase_train_kernels(fa, fu):
         tol = TRAIN_TOL[dt]
         o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
         ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+        # the bf16 kernel rounds p to bf16 before P V, as the TPU kernel
+        # does: term j may move by 2**-8 p_j |v_j|, so o by 2**-8 times the
+        # plain forward of |v|
+        p_round = None if dt == torch.float32 else 2.0 ** -8 * \
+            fa.flash_attention_fwd_ref(q, k, v.abs(), causal, sc)[0].float()
         worst["fa_fwd"] = max(worst["fa_fwd"],
-                              held(f"fwd o   {tag}", o, ro, tol),
+                              held(f"fwd o   {tag}", o, ro, tol, p_round),
                               held(f"fwd lse {tag}", lse, rlse,
                                    TRAIN_TOL[torch.float32]))
-        del ro, rlse
+        del ro, rlse, p_round
         delta = delta_of(do, o)
         got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
         want = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -339,7 +376,7 @@ def phase_train_kernels(fa, fu):
     lse3 = torch.randn(128, 2048, 2, generator=gen, device="cuda")[..., 1:]
     worst["pack_lse"] = held("pack_lse [128, 2048, 1] strided",
                              fa.pack_lse(lse3), fa.pack_lse_ref(lse3),
-                             (0.0, 0.0))
+                             (0.0, 0.0, None))
     for name, n, h, dt in TRAIN_RMS_CASES:
         x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
         w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
@@ -354,7 +391,7 @@ def phase_train_kernels(fa, fu):
         dx, dw = fu.rms_norm_bwd(x, w, inv, g)
         rdx, rdw = fu.rms_norm_bwd_ref(x, w, inv, g)
         # f32 dw sums n rows in another order than torch.sum does
-        dw_tol = tol if dt == torch.bfloat16 else (1e-4, 1e-5)
+        dw_tol = tol if dt == torch.bfloat16 else (1e-4, 1e-5, None)
         worst["rms_bwd"] = max(worst["rms_bwd"],
                                held(f"rms dx {tag}", dx, rdx, tol),
                                held(f"rms dw {tag}", dw, rdw, dw_tol))
@@ -1179,8 +1216,9 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024):
              for _ in range(4)]
     res["pack_lse"] = report(
         "pack_lse", graph_ms(lambda i: fa.pack_lse(lse3s[i % 4]), 200),
-        graph_ms(lambda i: fa.pack_lse_ref(lse3s[i % 4]), 200), None,
-        2 * stats_bytes, 0, "none: the plain version is that one copy")
+        graph_ms(lambda i: fa.pack_lse_ref(lse3s[i % 4]), 200),
+        graph_ms(lambda i: lse3s[i % 4][..., 0].contiguous(), 200),
+        2 * stats_bytes, 0, "lse3[..., 0].contiguous()")
 
     x = torch.randn(N, H, generator=gen, device="cuda").to(dt)
     w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)

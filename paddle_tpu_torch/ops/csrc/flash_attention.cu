@@ -28,9 +28,13 @@
 // delta = rowsum(dO * O) computed by the caller, and sums dK, dV over the
 // Hq / Hkv q heads of a kv head inside one block (no atomics, so the
 // result is deterministic, as the TPU grid's sequential axes were).
+// S_q and S_k need not be multiples of the 64-row tile: a partial tile's
+// missing rows load as zeros, are never written, and its missing key
+// columns score -inf, so they add nothing.
 //
 // What bounds it on this card: at the train shape (S = 2048, D = 64) each
-// (q tile, k tile) pair does 2-4 products of 64 x 64 x D multiply-adds for
+// (q tile, k tile) pair does 2-4 products (4-6 in the bf16 backward, see
+// below) of 64 x 64 x D multiply-adds for
 // 2 x 64 x D elements loaded, so the kernels are bound by operations, not
 // by bytes.  The TPU's 512 x 1024 blocks do not fit Hopper's 227 KB of
 // shared memory; 64 x 64 tiles keep every kernel under 170 KB at D = 128
@@ -55,6 +59,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -178,10 +183,14 @@ __device__ __forceinline__ int k_tiles_for(int row0, int s_q, int s_k,
   return last < 0 ? 0 : min(n, last / kTile + 1);
 }
 
-// 64 x 64 scores of a (q tile, k tile) pair, scaled and causally masked
+// one score of a (q tile, k tile) pair, scaled and causally masked.  Key
+// columns at or past s_k (the zero rows of a partial last k tile) score
+// -inf, so that they add exactly nothing to a row's sum and to the
+// backward's p and ds; the causal mask keeps the TPU kernel's NEG_INF.
 __device__ __forceinline__ float masked_score(float s, float sm_scale,
                                               int qrow, int kcol, int offset,
-                                              int causal) {
+                                              int causal, int s_k) {
+  if (kcol >= s_k) return __int_as_float(0xff800000);   // -inf
   s *= sm_scale;
   return causal && qrow + offset < kcol ? kNegInf : s;
 }
@@ -195,16 +204,16 @@ template <int LDS, int LDP, typename P>
 __device__ __forceinline__ void softmax_step(const float* s, P* p,
                                              float* alpha_s, float m[8],
                                              float l[8], int row0, int col0,
-                                             int offset, int causal,
+                                             int offset, int causal, int s_k,
                                              float sm_scale) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int rr = 0; rr < 8; ++rr) {
     const int r = warp * 8 + rr;
     const float s0 = masked_score(s[r * LDS + lane], sm_scale, row0 + r,
-                                  col0 + lane, offset, causal);
+                                  col0 + lane, offset, causal, s_k);
     const float s1 = masked_score(s[r * LDS + lane + 32], sm_scale, row0 + r,
-                                  col0 + lane + 32, offset, causal);
+                                  col0 + lane + 32, offset, causal, s_k);
     const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
     const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
     const float alpha = expf(m[rr] - m_new);
@@ -270,7 +279,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     __syncthreads();
     softmax_step<kLDS, kLDS>(p_s, p_s, alpha_s, m, l, row0, kt * kTile,
-                             offset, causal, sm_scale);
+                             offset, causal, s_k, sm_scale);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -329,7 +338,7 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
                                          const float* lse_s,
                                          const float* delta_s, float* p_s,
                                          float* ds_s, int qrow0, int kcol0,
-                                         int offset, int causal,
+                                         int offset, int causal, int s_k,
                                          float sm_scale) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float sc[4][4], dp[4][4];
@@ -341,7 +350,7 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
     for (int j = 0; j < 4; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
       const float s = masked_score(sc[i][j], sm_scale, qrow0 + r, kcol0 + c,
-                                   offset, causal);
+                                   offset, causal, s_k);
       const float p = expf(s - lse_s[r]);
       if (p_s != nullptr) p_s[r * kLDS + c] = p;
       ds_s[r * kLDS + c] = p * (dp[i][j] - delta_s[r]) * sm_scale;
@@ -398,7 +407,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_stats(lse_s, delta_s, lse, delta, row_base, row0, s_q);
       __syncthreads();
       p_and_ds<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, row0, col0,
-                  offset, causal, sm_scale);
+                  offset, causal, s_k, sm_scale);
       __syncthreads();
       mm_atb<D>(p_s, do_s, dv_acc);         // dv += p^T do
       mm_atb<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
@@ -465,7 +474,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(v_s, vb, vv.ss, kt * kTile, s_k);
     __syncthreads();
     p_and_ds<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, row0,
-                kt * kTile, offset, causal, sm_scale);
+                kt * kTile, offset, causal, s_k, sm_scale);
     __syncthreads();
     mm_ab<D>(ds_s, k_s, acc);               // dq += ds k
   }
@@ -486,11 +495,15 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // cores (WMMA 16 x 16 x 16, bf16 operands, f32 accumulators).  Tiles stay
 // bf16 in shared memory; every 64 x 64 score block lands in shared memory
 // as f32, where the softmax and the elementwise backward terms run as in
-// the f32 kernels above; the probabilities p (and ds in the backward) are
-// rounded to bf16 to enter the next product — the forward exactly as the
-// TPU kernel does (`pd.astype(v.dtype)`), the backward one rounding more
-// than the TPU kernel's f32 products.  Each warp owns fixed 16 x 16 tiles
-// of the 64 x D outputs: dK, dV and dQ stay in accumulator registers
+// the f32 kernels above.  The forward rounds p to bf16 for the P V product,
+// as the TPU kernel does (`pd.astype(v.dtype)`).  The TPU backward keeps p
+// and ds in f32 for its products; here each enters as two bf16 tiles,
+// hi = bf16(x) and lo = bf16(x - hi), which carry x to 2^-16 relative, and
+// every product with p or ds runs twice (hi, then lo, into the same f32
+// accumulator): dK / dV do 6 tile products per tile pair instead of 4, dQ
+// 4 instead of 3.  q, k, v and dO are bf16 values already, so the products
+// are then f32-accurate up to that 2^-16.  Each warp owns fixed 16 x 16
+// tiles of the 64 x D outputs: dK, dV and dQ stay in accumulator registers
 // across the whole loop; the forward's O, which the online softmax rescales
 // per row, lives in shared memory as f32.
 // ---------------------------------------------------------------------------
@@ -551,14 +564,17 @@ __device__ __forceinline__ void scores_tc(const __nv_bfloat16* A,
   }
 }
 
-// acc[u] (the warp's 16 x 16 tiles of a 64 x D output) += P . B, with P a
-// [64][kLDP] bf16 tile (transposed when TRANS) and B a [64][D + 8] row tile
+// acc[u] (the warp's 16 x 16 tiles of a 64 x D output) += (P_hi + P_lo) . B,
+// with P_hi, P_lo [64][kLDP] bf16 tiles (transposed when TRANS) and B a
+// [64][D + 8] row tile
 template <int D, bool TRANS>
 __device__ __forceinline__ void accumulate_tc(FragC* acc,
-                                              const __nv_bfloat16* P,
+                                              const __nv_bfloat16* P_hi,
+                                              const __nv_bfloat16* P_lo,
                                               const __nv_bfloat16* B) {
   constexpr int NT = D / 16;
   const int warp = threadIdx.x / 32;
+  const __nv_bfloat16* parts[2] = {P_hi, P_lo};
 #pragma unroll
   for (int u = 0; u < 4 * NT / kWarps; ++u) {
     const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
@@ -566,14 +582,17 @@ __device__ __forceinline__ void accumulate_tc(FragC* acc,
     for (int kk = 0; kk < kTile / 16; ++kk) {
       FragB b;
       wmma::load_matrix_sync(b, B + kk * 16 * ldb<D>() + tj * 16, ldb<D>());
-      if constexpr (TRANS) {
-        FragAT a;                           // A(row, k) = P[k][row]
-        wmma::load_matrix_sync(a, P + kk * 16 * kLDP + ti * 16, kLDP);
-        wmma::mma_sync(acc[u], a, b, acc[u]);
-      } else {
-        FragA a;
-        wmma::load_matrix_sync(a, P + ti * 16 * kLDP + kk * 16, kLDP);
-        wmma::mma_sync(acc[u], a, b, acc[u]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (TRANS) {
+          FragAT a;                         // A(row, k) = P[k][row]
+          wmma::load_matrix_sync(a, parts[h] + kk * 16 * kLDP + ti * 16, kLDP);
+          wmma::mma_sync(acc[u], a, b, acc[u]);
+        } else {
+          FragA a;
+          wmma::load_matrix_sync(a, parts[h] + ti * 16 * kLDP + kk * 16, kLDP);
+          wmma::mma_sync(acc[u], a, b, acc[u]);
+        }
       }
     }
   }
@@ -645,7 +664,7 @@ fa_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     scores_tc<D>(q_b, k_b, s_s);
     __syncthreads();
     softmax_step<kLDF, kLDP>(s_s, p_b, alpha_s, m, l, row0, kt * kTile,
-                             offset, causal, sm_scale);
+                             offset, causal, s_k, sm_scale);
     __syncthreads();
     // the warp rescales the rows of its own O tiles, then adds P V to them
 #pragma unroll
@@ -692,23 +711,34 @@ fa_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// p and ds of a (q tile, k tile) pair from the f32 scores and dP tiles;
-// rounds them to bf16 for the next products (p only when p_b is set)
+// x as two bf16 values, hi = bf16(x) and lo = bf16(x - hi): x - hi is
+// exact in f32 and at most 2^-8 |x|, so hi + lo is x to 2^-16 relative
+__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
+                                           __nv_bfloat16* lo) {
+  const __nv_bfloat16 h = __float2bfloat16(x);
+  *hi = h;
+  *lo = __float2bfloat16(x - __bfloat162float(h));
+}
+
+// p and ds of a (q tile, k tile) pair from the f32 scores and dP tiles,
+// each split into hi / lo bf16 tiles for the next products (p only when
+// p_hi is set; the lo tile of a [64][kLDP] pair follows its hi tile)
 __device__ __forceinline__ void p_and_ds_tc(const float* s_s, const float* dp_s,
                                             const float* lse_s,
                                             const float* delta_s,
-                                            __nv_bfloat16* p_b,
-                                            __nv_bfloat16* ds_b, int qrow0,
+                                            __nv_bfloat16* p_hi,
+                                            __nv_bfloat16* ds_hi, int qrow0,
                                             int kcol0, int offset, int causal,
-                                            float sm_scale) {
+                                            int s_k, float sm_scale) {
+  constexpr int kLo = kTile * kLDP;
   for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile;
+    const int r = i / kTile, c = i % kTile, e = r * kLDP + c;
     const float s = masked_score(s_s[r * kLDF + c], sm_scale, qrow0 + r,
-                                 kcol0 + c, offset, causal);
+                                 kcol0 + c, offset, causal, s_k);
     const float p = expf(s - lse_s[r]);
-    if (p_b != nullptr) p_b[r * kLDP + c] = __float2bfloat16(p);
-    ds_b[r * kLDP + c] =
-        __float2bfloat16(p * (dp_s[r * kLDF + c] - delta_s[r]) * sm_scale);
+    if (p_hi != nullptr) split_bf16(p, p_hi + e, p_hi + kLo + e);
+    split_bf16(p * (dp_s[r * kLDF + c] - delta_s[r]) * sm_scale, ds_hi + e,
+               ds_hi + kLo + e);
   }
 }
 
@@ -730,12 +760,12 @@ fa_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
   __nv_bfloat16* q_b = v_b + kTile * ldb<D>();
   __nv_bfloat16* do_b = q_b + kTile * ldb<D>();
-  __nv_bfloat16* p_b = do_b + kTile * ldb<D>();       // [64][kLDP] each
-  __nv_bfloat16* ds_b = p_b + kTile * kLDP;
-  float* s_s = reinterpret_cast<float*>(ds_b + kTile * kLDP);  // [64][kLDF]
+  __nv_bfloat16* p_b = do_b + kTile * ldb<D>();       // hi, lo [64][kLDP]
+  __nv_bfloat16* ds_b = p_b + 2 * kTile * kLDP;       // hi, lo [64][kLDP]
+  float* s_s = reinterpret_cast<float*>(ds_b + 2 * kTile * kLDP);  // [64][kLDF]
   float* dp_s = s_s + kTile * kLDF;
-  float* stage = dp_s + kTile * kLDF;                 // [64][D + 4]
-  float* lse_s = stage + kTile * ldo<D>();
+  float* stage = s_s;                       // [64][D + 4], after the loop
+  float* lse_s = dp_s + kTile * kLDF;
   float* delta_s = lse_s + kTile;
 
   const int col0 = blockIdx.x * kTile;
@@ -768,10 +798,11 @@ fa_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       scores_tc<D>(do_b, v_b, dp_s);
       __syncthreads();
       p_and_ds_tc(s_s, dp_s, lse_s, delta_s, p_b, ds_b, row0, col0, offset,
-                  causal, sm_scale);
+                  causal, s_k, sm_scale);
       __syncthreads();
-      accumulate_tc<D, true>(dv_acc, p_b, do_b);    // dv += p^T do
-      accumulate_tc<D, true>(dk_acc, ds_b, q_b);    // dk += ds^T q
+      // dv += p^T do, dk += ds^T q
+      accumulate_tc<D, true>(dv_acc, p_b, p_b + kTile * kLDP, do_b);
+      accumulate_tc<D, true>(dk_acc, ds_b, ds_b + kTile * kLDP, q_b);
     }
   }
   write_acc_tc<D>(dk_acc, stage, dk + dkv.at(b, 0, hk), dkv.ss, col0, s_k);
@@ -795,11 +826,11 @@ fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* do_b = q_b + kTile * ldb<D>();
   __nv_bfloat16* k_b = do_b + kTile * ldb<D>();
   __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
-  __nv_bfloat16* ds_b = v_b + kTile * ldb<D>();       // [64][kLDP]
-  float* s_s = reinterpret_cast<float*>(ds_b + kTile * kLDP);
+  __nv_bfloat16* ds_b = v_b + kTile * ldb<D>();       // hi, lo [64][kLDP]
+  float* s_s = reinterpret_cast<float*>(ds_b + 2 * kTile * kLDP);
   float* dp_s = s_s + kTile * kLDF;
-  float* stage = dp_s + kTile * kLDF;
-  float* lse_s = stage + kTile * ldo<D>();
+  float* stage = s_s;                       // [64][D + 4], after the loop
+  float* lse_s = dp_s + kTile * kLDF;
   float* delta_s = lse_s + kTile;
 
   const int row0 = blockIdx.x * kTile;
@@ -827,9 +858,9 @@ fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     scores_tc<D>(do_b, v_b, dp_s);
     __syncthreads();
     p_and_ds_tc(s_s, dp_s, lse_s, delta_s, nullptr, ds_b, row0, kt * kTile,
-                offset, causal, sm_scale);
+                offset, causal, s_k, sm_scale);
     __syncthreads();
-    accumulate_tc<D, false>(acc, ds_b, k_b);        // dq += ds k
+    accumulate_tc<D, false>(acc, ds_b, ds_b + kTile * kLDP, k_b);  // dq += ds k
   }
   write_acc_tc<D>(acc, stage, dq + dqv.at(b, 0, h), dqv.ss, row0, s_q);
 }
@@ -865,24 +896,37 @@ constexpr int fwd_tc_smem() {
   return 3 * kTile * ldb<D>() * 2 + kTile * kLDP * 2 + kTile * kLDF * 4 +
          kTile * ldo<D>() * 4 + 3 * kTile * 4;
 }
+// the backward kernels' output staging tile reuses the two f32 score tiles
+static_assert(kTile * ldo<128>() <= 2 * kTile * kLDF, "staging tile too big");
 template <int D>
 constexpr int dkv_tc_smem() {
-  return 4 * kTile * ldb<D>() * 2 + 2 * kTile * kLDP * 2 +
-         2 * kTile * kLDF * 4 + kTile * ldo<D>() * 4 + 2 * kTile * 4;
+  return 4 * kTile * ldb<D>() * 2 + 4 * kTile * kLDP * 2 +
+         2 * kTile * kLDF * 4 + 2 * kTile * 4;
 }
 template <int D>
 constexpr int dq_tc_smem() {
-  return 4 * kTile * ldb<D>() * 2 + kTile * kLDP * 2 + 2 * kTile * kLDF * 4 +
-         kTile * ldo<D>() * 4 + 2 * kTile * 4;
+  return 4 * kTile * ldb<D>() * 2 + 2 * kTile * kLDP * 2 +
+         2 * kTile * kLDF * 4 + 2 * kTile * 4;
 }
 
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
+// A kernel's dynamic shared-memory limit, set once per device: `done` is
+// the call site's own flag word (one bit per device), so that
+// cudaFuncSetAttribute's host cost is not paid on every launch.
 template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+cudaError_t allow_smem(std::atomic<unsigned long long>& done, K kernel,
+                       int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 template <typename T, int D>
@@ -892,7 +936,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
   if constexpr (kTensorCores<T>) {
     constexpr int smem = fwd_tc_smem<D>();
-    cudaError_t err = allow_smem(fa_fwd_tc_kernel<D>, smem);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem(done, fa_fwd_tc_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     fa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -902,7 +947,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
   } else {
     constexpr int smem = fwd_smem<D>();
-    cudaError_t err = allow_smem(fa_fwd_kernel<T, D>, smem);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
     fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -921,7 +967,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
   if constexpr (kTensorCores<T>) {
     constexpr int smem = dkv_tc_smem<D>();
-    cudaError_t err = allow_smem(fa_bwd_dkv_tc_kernel<D>, smem);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem(done, fa_bwd_dkv_tc_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     fa_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -932,7 +979,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
     return cudaGetLastError();
   } else {
     constexpr int smem = dkv_smem<D>();
-    cudaError_t err = allow_smem(fa_bwd_dkv_kernel<T, D>, smem);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem(done, fa_bwd_dkv_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
     fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -952,7 +1000,8 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
   if constexpr (kTensorCores<T>) {
     constexpr int smem = dq_tc_smem<D>();
-    cudaError_t err = allow_smem(fa_bwd_dq_tc_kernel<D>, smem);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem(done, fa_bwd_dq_tc_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     fa_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -963,7 +1012,8 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
     return cudaGetLastError();
   } else {
     constexpr int smem = dq_smem<D>();
-    cudaError_t err = allow_smem(fa_bwd_dq_kernel<T, D>, smem);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem(done, fa_bwd_dq_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
     fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),

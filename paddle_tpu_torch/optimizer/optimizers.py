@@ -19,10 +19,8 @@ __all__ = ["Adam", "AdamW"]
 
 
 class Adam:
-    _decoupled_wd = False
-
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=None):
+                 epsilon=1e-8, weight_decay=None):
         self._learning_rate = learning_rate
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._weight_decay = weight_decay
@@ -88,12 +86,9 @@ class AdamW(Adam):
     """Decoupled weight decay: ``p32 * (1 - lr * weight_decay)`` before the
     Adam step (reference python/paddle/optimizer/adamw.py)."""
 
-    _decoupled_wd = True
-
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=0.01):
-        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None)
+                 epsilon=1e-8, weight_decay=0.01):
+        super().__init__(learning_rate, beta1, beta2, epsilon, None)
         self._wd = float(weight_decay)
 
     def _update(self, p, g, state, lr):

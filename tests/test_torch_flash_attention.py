@@ -184,12 +184,15 @@ def test_ref_matches_jax_ref():
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """Forward, both backward kernels and the repack against their plain
-    versions on the card, f32, causal GQA and s_q < s_k."""
+    versions on the card, f32, causal GQA, s_q < s_k, and lengths that end
+    inside a 64-row tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     for shape, causal in (((2, 128, 128, 4, 2, 64), True),
-                          ((1, 128, 256, 2, 2, 128), False)):
+                          ((1, 128, 256, 2, 2, 128), False),
+                          ((2, 128, 200, 4, 2, 64), False),
+                          ((1, 200, 200, 2, 2, 64), True)):
         q, k, v, do = (torch.from_numpy(x).cuda()
                        for x in _inputs(shape, seed=6))
         scale = 1.0 / math.sqrt(shape[-1])
