@@ -5,8 +5,9 @@
 Builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc`` and drives
 the port's main paths — the paged continuous-batching LLaMA server with a
 bf16 KV cache, and with an int8 KV cache and speculative decoding, at the
-full width of LLaMA-2 7B; and the train step of the repo's 271M LLaMA at
-B 8 x S 2048 — with random weights made from a seed:
+full width of LLaMA-2 7B; the train step of the repo's 271M LLaMA at
+B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
+``nn.functional.softmax`` entry — with random weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together;
   2. kernel    both kernels against their plain PyTorch version on the
@@ -24,6 +25,11 @@ B 8 x S 2048 — with random weights made from a seed:
                and not, lengths of 200 (partial tiles) causal and not, f32
                and bf16, the standalone repack on strided stats, RMSNorm
                rows at 16,384 x 1,024 bf16 and f32;
+               (c) the LayerNorm, softmax and AdamW kernels at ERNIE's
+               shapes (32,768 x 768 rows; [8, 12, 512, 512]; the 40,000 x
+               768 embedding and tensors of 768 and 40,000), bf16 and f32,
+               and the flash-attention kernels non-causal at ERNIE's
+               attention shape;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
                suffix prefill, greedy decode; the plain kernel's launch
@@ -42,17 +48,26 @@ B 8 x S 2048 — with random weights made from a seed:
                loss of each (finite and falling: labels equal the inputs),
                tokens/s, the mfu share, peak memory, launches per step of
                each train kernel (asserted), one step under torch.profiler;
+               (d) ERNIE-3.0-base MLM training (bf16, f32 moments, B 64,
+               S 512, dropout 0) with flash attention, the LayerNorm
+               kernels and the fused AdamW: the same measures, launches per
+               step of rows 3/5/6/9/12/13 asserted, no plain version run;
+               (e) nn.functional.softmax through the softmax kernels,
+               forward and backward, and the shapes that take the plain op;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, for f32, int8 and fp8 pages, and with
                speculative=4 as without; (b) one f32 train step at full
                width and 2 layers gives the same loss, gradients and
                updated parameters with the kernels as with the plain
-               versions;
+               versions; (c) the same for a 2-layer f32 ERNIE step;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
-               verify and chunk shapes of phase 3, and the train kernels at
-               the phase-3c shape beside SDPA and F.rms_norm;
+               verify and chunk shapes of phase 3, the train kernels at
+               the phase-3c shape beside SDPA and F.rms_norm, and the
+               LayerNorm, softmax and AdamW kernels at the phase-3d/3e
+               shapes beside F.layer_norm, torch.softmax and
+               torch._fused_adamw_;
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
 
@@ -72,6 +87,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+ERNIE_BASE_PARAMS = 149_294_656    # ERNIE-3.0-base, 205 tensors
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # quantized pages at bf16: the plain version rounds each dequantized K/V row
 # to bf16 before attending (as the JAX reference does) and the kernel keeps
@@ -115,23 +132,56 @@ def make_case(gen, S, Qmax, Hq, Hkv, D, ps, NP, P, q_start, q_len, kv_len,
 
 
 def train_wrappers():
-    """Rows 3-8's wrappers, each with its ``launches`` count, by key."""
+    """Rows 3-13's wrappers, each with its ``launches`` count, by key."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused as fu
     return {"fa_fwd": fa.flash_attention_fwd, "pack_lse": fa.pack_lse,
             "fa_dkv": fa.flash_attention_bwd_dkv,
             "fa_dq": fa.flash_attention_bwd_dq,
-            "rms_fwd": fu.rms_norm_fwd, "rms_bwd": fu.rms_norm_bwd}
+            "rms_fwd": fu.rms_norm_fwd, "rms_bwd": fu.rms_norm_bwd,
+            "adamw": fu.adamw_update, "softmax_fwd": fu.softmax_fwd,
+            "softmax_bwd": fu.softmax_bwd, "ln_fwd": fu.layer_norm_fwd,
+            "ln_bwd": fu.layer_norm_bwd}
 
 
 def reset_counts(pa):
-    """Every kernel's launch count (rows 1-8) and the paged plain version's
-    call count to 0."""
+    """Every kernel's launch count (rows 1-13) and the paged plain
+    version's call count to 0."""
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.quant_launches = 0
     pa.ragged_paged_attention_ref.calls = 0
     for fn in train_wrappers().values():
         fn.launches = 0
+
+
+class CountPlainCalls:
+    """Within the block, count every call of the plain versions a train
+    path could fall back to — each kernel's ``*_ref`` and the plain ops
+    (``layer_norm_ref``, ``_sdpa_ref``, ``torch.softmax`` through the
+    functional ``softmax``) — by wrapping them where the port looks them up;
+    ``calls`` holds the count by name."""
+
+    def __init__(self):
+        from paddle_tpu_torch.nn.functional import attention, norm
+        from paddle_tpu_torch.ops import flash_attention as fa
+        from paddle_tpu_torch.ops import fused as fu
+        self.sites = [(m, n) for m in (fa, fu) for n in dir(m)
+                      if n.endswith("_ref")]
+        self.sites += [(norm, "layer_norm_ref"), (attention, "_sdpa_ref")]
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.sites]
+        for m, n, fn in self.saved:
+            def counted(*a, _fn=fn, _n=n, **kw):
+                self.calls[_n] = self.calls.get(_n, 0) + 1
+                return _fn(*a, **kw)
+            setattr(m, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
 
 def counts(pa):
@@ -252,6 +302,15 @@ TRAIN_ATTN_CASES = [
 ]
 TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
                    ("f32 rows", 4096, 1024, torch.float32)]
+# phase 2c: ERNIE-base's attention (non-causal, S 512, 12 heads of 64), its
+# LayerNorm rows (B 64 x S 512 tokens of 768), its attention-probability
+# rows for the softmax entry ([8, 12, 512, 512]) and AdamW over its largest
+# tensor (the 40,000 x 768 word embedding) and two short ones
+ERNIE_ATTN_CASES = [("ERNIE shape", (8, 512, 512, 12, 12, 64), False,
+                     torch.bfloat16)]
+ERNIE_LN_ROWS = (32768, 768)
+SOFTMAX_SHAPE = (8, 12, 512, 512)
+ADAMW_LENGTHS = (40000 * 768, 768, 40000)
 # (atol, rtol, row_rtol) of the train kernels against their plain versions.
 # f32 kernels and f32 plain versions differ only in summation order.  In
 # bf16 both sides round their outputs to bf16 (one ulp is at most 2**-7
@@ -287,6 +346,27 @@ TRAIN_ROWS = [
          source=CSRC + "rms_norm.cu",
          replaces="paddle_tpu/ops/pallas/fused.py:66"),
 ]
+FUSED_ROWS = [
+    dict(key="adamw", name="adamw_update", route="cuda",
+         source=CSRC + "adamw.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:165"),
+    dict(key="softmax_fwd", name="softmax_fwd", route="cuda",
+         source=CSRC + "softmax.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:246"),
+    dict(key="softmax_bwd", name="softmax_bwd", route="cuda",
+         source=CSRC + "softmax.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:253"),
+    dict(key="ln_fwd", name="layer_norm_fwd", route="cuda",
+         source=CSRC + "layer_norm.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:312"),
+    dict(key="ln_bwd", name="layer_norm_bwd", route="cuda",
+         source=CSRC + "layer_norm.cu",
+         replaces="paddle_tpu/ops/pallas/fused.py:324"),
+]
+# AdamW: every operation of the kernel rounds on its own in the plain
+# version's order, so the two agree bit for bit; held to one ulp of |plain|
+ADAMW_TOL = {torch.float32: (0.0, 2.0 ** -23, None),
+             torch.bfloat16: (0.0, 2.0 ** -8, None)}
 
 
 def held(name, got, want, tol, extra=None):
@@ -336,12 +416,10 @@ def delta_of(do, o):
         .reshape(b * hq, s_q).contiguous()
 
 
-def phase_train_kernels(fa, fu):
-    """Rows 3-8 against their plain versions; returns the worst absolute
-    error of each."""
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    worst = {r["key"]: 0.0 for r in TRAIN_ROWS}
-    for name, shape, causal, dt in TRAIN_ATTN_CASES:
+def attention_checks(fa, gen, cases, worst):
+    """Rows 3, 5 and 6 against their plain versions over ``cases``; the
+    worst absolute error of each goes into ``worst``."""
+    for name, shape, causal, dt in cases:
         q, k, v, do = attn_inputs(gen, shape, dt)
         sc = 1.0 / np.sqrt(shape[-1])
         tag = f"{name} {shape} causal={causal} [{str(dt)[6:]}]"
@@ -372,6 +450,14 @@ def phase_train_kernels(fa, fu):
         worst["fa_dq"] = max(worst["fa_dq"], held(f"dq {tag}", dq, rdq, tol))
         del q, k, v, do, o, lse, delta, dq, rdq
         torch.cuda.empty_cache()
+
+
+def phase_train_kernels(fa, fu):
+    """Rows 3-8 against their plain versions; returns the worst absolute
+    error of each."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {r["key"]: 0.0 for r in TRAIN_ROWS}
+    attention_checks(fa, gen, TRAIN_ATTN_CASES, worst)
     # the standalone repack on strided [BH, S, 1] stats
     lse3 = torch.randn(128, 2048, 2, generator=gen, device="cuda")[..., 1:]
     worst["pack_lse"] = held("pack_lse [128, 2048, 1] strided",
@@ -396,6 +482,81 @@ def phase_train_kernels(fa, fu):
                                held(f"rms dx {tag}", dx, rdx, tol),
                                held(f"rms dw {tag}", dw, rdw, dw_tol))
     return worst
+
+
+def phase_fused_kernels(fa, fu, worst):
+    """Phase 2c: rows 9-13 against their plain versions at the ERNIE
+    shapes, bf16 and f32, and rows 3/5/6 non-causal at ERNIE's attention
+    shape; the worst absolute error of each row goes into ``worst``."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    attention_checks(fa, gen, ERNIE_ATTN_CASES, worst)
+    for key in ("adamw", "softmax_fwd", "softmax_bwd", "ln_fwd", "ln_bwd"):
+        worst[key] = 0.0
+    n, h = ERNIE_LN_ROWS
+    rows = int(np.prod(SOFTMAX_SHAPE[:-1]))
+    f32 = TRAIN_TOL[torch.float32]
+    for dt in (torch.bfloat16, torch.float32):
+        tol, tag = TRAIN_TOL[dt], f"[{str(dt)[6:]}]"
+        x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        g = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+        out, mu, inv = fu.layer_norm_fwd(x, w, b, 1e-12)
+        rout, rmu, rinv = fu.layer_norm_fwd_ref(x, w, b, 1e-12)
+        worst["ln_fwd"] = max(worst["ln_fwd"],
+                              held(f"ln out [{n}, {h}] {tag}", out, rout, tol),
+                              held(f"ln mu {tag}", mu, rmu, f32),
+                              held(f"ln inv {tag}", inv, rinv, f32))
+        dx, dw, db = fu.layer_norm_bwd(x, w, mu, inv, g)
+        rdx, rdw, rdb = fu.layer_norm_bwd_ref(x, w, mu, inv, g)
+        # f32 dw and db sum 32,768 rows in another order than torch.sum
+        dwb_tol = tol if dt == torch.bfloat16 else (1e-4, 1e-5, None)
+        worst["ln_bwd"] = max(worst["ln_bwd"],
+                              held(f"ln dx [{n}, {h}] {tag}", dx, rdx, tol),
+                              held(f"ln dw {tag}", dw, rdw, dwb_tol),
+                              held(f"ln db {tag}", db, rdb, dwb_tol))
+        del x, g, out, rout, dx, rdx
+        s_in = (2 * torch.randn(rows, SOFTMAX_SHAPE[-1], generator=gen,
+                                device="cuda")).to(dt)
+        gs = torch.randn(rows, SOFTMAX_SHAPE[-1], generator=gen,
+                         device="cuda").to(dt)
+        o = fu.softmax_fwd(s_in)
+        worst["softmax_fwd"] = max(worst["softmax_fwd"], held(
+            f"softmax o {list(SOFTMAX_SHAPE)} {tag}", o, fu.softmax_fwd_ref(
+                s_in), tol))
+        worst["softmax_bwd"] = max(worst["softmax_bwd"], held(
+            f"softmax dx {list(SOFTMAX_SHAPE)} {tag}", fu.softmax_bwd(o, gs),
+            fu.softmax_bwd_ref(o, gs), tol))
+        # the same rows under a causal -inf mask (query i sees keys <= i),
+        # as masked attention scores reach the softmax entry
+        s = SOFTMAX_SHAPE[-1]
+        q_pos = torch.arange(rows, device="cuda")[:, None] % s
+        s_in.masked_fill_(torch.arange(s, device="cuda") > q_pos,
+                          float("-inf"))
+        o = fu.softmax_fwd(s_in)
+        worst["softmax_fwd"] = max(worst["softmax_fwd"], held(
+            f"softmax o causal -inf mask {tag}", o, fu.softmax_fwd_ref(s_in),
+            tol))
+        worst["softmax_bwd"] = max(worst["softmax_bwd"], held(
+            f"softmax dx causal -inf mask {tag}", fu.softmax_bwd(o, gs),
+            fu.softmax_bwd_ref(o, gs), tol))
+        del s_in, gs, o, q_pos
+        for length in ADAMW_LENGTHS:
+            p = torch.randn(length, generator=gen, device="cuda").to(dt)
+            gp = torch.randn(length, generator=gen, device="cuda").to(dt)
+            m = 0.1 * torch.randn(length, generator=gen, device="cuda")
+            v = 0.01 * torch.rand(length, generator=gen, device="cuda")
+            pows = dict(beta1_pow=torch.tensor(0.9 ** 3, device="cuda"),
+                        beta2_pow=torch.tensor(0.999 ** 3, device="cuda"))
+            want = fu.adamw_update_ref(p, gp, m, v, lr=1e-4,
+                                       weight_decay=0.01, **pows)
+            fu.adamw_update(p, gp, m, v, lr=1e-4, weight_decay=0.01, **pows)
+            for what, got, ref in zip("pmv", (p, m, v), want):
+                worst["adamw"] = max(worst["adamw"], held(
+                    f"adamw {what} [{length}] {tag}", got, ref,
+                    ADAMW_TOL[dt if what == "p" else torch.float32]))
+            del p, gp, m, v, want
+        torch.cuda.empty_cache()
 
 
 # -- phase 3: serving at 7B widths -------------------------------------------
@@ -810,8 +971,8 @@ def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
     losses += [float(x) for x in out]
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = {"fa_fwd": L, "fa_dkv": L, "fa_dq": L, "rms_fwd": 2 * L + 1,
-            "rms_bwd": 2 * L + 1, "pack_lse": 0}
+    want = dict({k: 0 for k in per_step}, fa_fwd=L, fa_dkv=L, fa_dq=L,
+                rms_fwd=2 * L + 1, rms_bwd=2 * L + 1)
     require(per_step == want, f"launches per step {per_step} != {want}")
     require(paged == (0, 0, 0), f"paged attention ran in the train step: "
             f"{paged}")
@@ -837,14 +998,21 @@ def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
                 losses=losses, n_params=n_params, breakdown=breakdown)
 
 
+MATMUL_NAMES = ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")
 TRAIN_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
                 ("rmsnorm", ("rms_fwd_kernel", "rms_bwd_kernel",
                              "rms_dw_reduce_kernel")),
-                ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")))
+                ("matmul", MATMUL_NAMES))
+ERNIE_GROUPS = (("fa_fwd", ("fa_fwd_",)),
+                ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
+                ("layernorm", ("ln_fwd_kernel", "ln_bwd_kernel",
+                               "ln_dwb_reduce_kernel")),
+                ("adamw", ("adamw_kernel",)),
+                ("matmul", MATMUL_NAMES))
 
 
-def train_breakdown(step, batch, step_s):
+def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS):
     """One train step under torch.profiler: device ms by group, the kernel
     count, and the device busy share of an unprofiled step's wall time.
     Only device events count: the autograd Functions that launch the
@@ -864,7 +1032,7 @@ def train_breakdown(step, batch, step_s):
                              ProfilerActivity.CUDA]) as prof:
         step(batch)
         torch.cuda.synchronize()
-    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
+    groups = {g: 0.0 for g, _ in groups_of}
     groups["other"] = 0.0
     kernels, other = 0, []
     for ev in prof.key_averages():
@@ -875,15 +1043,14 @@ def train_breakdown(step, batch, step_s):
             continue
         kernels += ev.count
         key = ev.key.lower()
-        g = next((g for g, names in TRAIN_GROUPS
+        g = next((g for g, names in groups_of
                   if any(n in key for n in names)), "other")
         groups[g] += dev_us / 1e3
         if g == "other":
             other.append((dev_us / 1e3, ev.count, ev.key))
     busy = sum(groups.values())
-    require(groups["fa_fwd"] > 0 and groups["fa_bwd"] > 0
-            and groups["rmsnorm"] > 0, f"profiler saw no train kernel: "
-            f"{groups}")
+    require(all(groups[g] > 0 for g, _ in groups_of if g != "matmul"),
+            f"profiler saw no train kernel: {groups}")
     print(f"  one step under torch.profiler: device busy {busy:.2f} ms of an "
           f"unprofiled {step_s * 1e3:.2f} ms step ("
           f"{busy / (step_s * 1e3) * 100:.1f}%): "
@@ -893,6 +1060,165 @@ def train_breakdown(step, batch, step_s):
         f"{ms:.2f} ms x{n} {key[:60]}" for ms, n, key in
         sorted(other, reverse=True)[:6]))
     return dict(groups, busy_ms=busy, kernels=kernels, **stages)
+
+
+# -- phase 3d: the ERNIE-base MLM train step ---------------------------------
+def ernie_config(layers=12):
+    """ERNIE-3.0-base at its published widths (``models/ernie.py``: vocab
+    40,000, hidden 768, 12 heads of 64, MLP 3,072, 2,048 positions, 4 token
+    types, LayerNorm eps 1e-12) with both dropouts 0."""
+    from paddle_tpu_torch.models import ernie_config_base
+    return dataclasses.replace(ernie_config_base(), num_hidden_layers=layers,
+                               hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+
+
+def make_ernie_step(cfg, dtype, kernels, seed=0):
+    """bench.py's ERNIE MLM loss (``ErnieForMaskedLM(ids, labels=labels)``,
+    the chunked head with the decoder bias and ignore_index -100) and one
+    AdamW(lr 1e-4, weight_decay 0.01) update of every parameter.  With
+    ``kernels`` all three knobs are on (flash attention, the LayerNorm
+    kernels, the fused AdamW kernel); without, all three are off.  Every
+    parameter gets a gradient, zeros for those the loss never reaches (the
+    pooler), as ``jax.value_and_grad`` hands them to the JAX optimizer.
+    Returns (step(batch) -> (loss, grads), params, n_params)."""
+    from paddle_tpu_torch.models import ErnieForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = ErnieForMaskedLM(cfg, dtype=dtype, device="cuda", seed=seed,
+                             kernels=kernels, norm_kernels=kernels)
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, fused=kernels)
+    state = opt.init_opt_state(params, device="cuda")
+
+    def step(batch, marks=None):
+        mark = (lambda i: marks[i].record()) if marks else (lambda i: None)
+        ids, labels = batch
+        mark(0)
+        loss, _ = model(ids, labels=labels)
+        mark(1)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    materialize_grads=True)
+        mark(2)
+        opt.apply_gradients_functional(params, dict(zip(params, grads)),
+                                       state)
+        mark(3)
+        return loss.detach(), grads
+
+    return step, params, sum(v.numel() for v in params.values())
+
+
+def phase_ernie(pa, B=64, S=512, warmup=3, steps=10):
+    """ERNIE-3.0-base MLM training in bf16 (f32 moments) at B x S with all
+    three knobs on: warm-up and timed steps with the loss of each,
+    tokens/s, the mfu share, peak memory, launches per step of rows
+    3/5/6/9/12/13 (asserted), no plain version called, the stage split and
+    one step under torch.profiler."""
+    cfg = ernie_config()
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    torch.cuda.reset_peak_memory_stats()
+    step, params, n_params = make_ernie_step(cfg, torch.bfloat16, True)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    batch = (ids, ids)
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(step(batch)[0]))
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    with CountPlainCalls() as plain:
+        t0 = time.perf_counter()
+        out = [step(batch)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    per_step = {k: n / steps for k, n in launches.items()}
+    losses += [float(x) for x in out]
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    n_norms = 2 * L + 2
+    want = {"fa_fwd": L, "fa_dkv": L, "fa_dq": L, "pack_lse": 0,
+            "rms_fwd": 0, "rms_bwd": 0, "adamw": len(params),
+            "softmax_fwd": 0, "softmax_bwd": 0, "ln_fwd": n_norms,
+            "ln_bwd": n_norms}
+    require(per_step == want, f"launches per step {per_step} != {want}")
+    require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
+    require(not plain.calls, f"plain versions ran: {plain.calls}")
+    tokens_per_s = B * S * steps / wall
+    flop_per_token = 6.0 * n_params + 6.0 * L * S * H
+    mfu = flop_per_token * tokens_per_s / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params:,} parameters in {len(params)} tensors, B={B} "
+          f"S={S} bf16 (f32 moments), dropout 0, AdamW(lr=1e-4, wd=0.01) "
+          f"fused")
+    print(f"  loss per step ({warmup} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {tokens_per_s:.1f} tokens/s, mfu_share {mfu:.4f} "
+          f"(({flop_per_token / 1e9:.3f} GFLOP per token) x tokens/s / "
+          f"989 TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  launches per step: {json.dumps(per_step)} (rows 3/5/6 = {L} "
+          f"layers, row 9 = {len(params)} tensors, rows 12/13 = 2 x {L} + 2 "
+          f"norms); plain-version calls 0")
+    breakdown = train_breakdown(step, batch, wall / steps, ERNIE_GROUPS)
+    return dict(launches=launches, tokens_per_s=tokens_per_s, mfu=mfu,
+                step_ms=wall / steps * 1e3, peak_gib=peak / 2**30,
+                losses=losses, n_params=n_params, breakdown=breakdown)
+
+
+# -- phase 3e: the softmax entry ----------------------------------------------
+def phase_softmax_entry():
+    """``nn.functional.softmax`` with the norm kernels on at ERNIE's
+    attention-probability shape, forward and backward under autograd: one
+    launch of each softmax kernel, the results against the kernels' plain
+    versions; then an
+    untileable last axis (500), ``axis=1`` and the knob off, which take the
+    plain op (no launch)."""
+    from paddle_tpu_torch.nn.functional import softmax
+    from paddle_tpu_torch.ops import fused as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = (2 * torch.randn(SOFTMAX_SHAPE, generator=gen, device="cuda")) \
+        .bfloat16().requires_grad_(True)
+    g = torch.randn(SOFTMAX_SHAPE, generator=gen, device="cuda").bfloat16()
+    for fn in (fu.softmax_fwd, fu.softmax_bwd):
+        fn.launches = 0
+    with CountPlainCalls() as plain:
+        out = softmax(x, norm_kernels=True)
+        (dx,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+    launches = {"softmax_fwd": fu.softmax_fwd.launches,
+                "softmax_bwd": fu.softmax_bwd.launches}
+    require(launches == {"softmax_fwd": 1, "softmax_bwd": 1},
+            f"softmax entry launches {launches}")
+    require(not plain.calls, f"plain versions ran: {plain.calls}")
+    # the kernels' plain versions on the same bf16 rows: the backward reads
+    # the forward's bf16 output, as the kernel's does
+    rows = (-1, SOFTMAX_SHAPE[-1])
+    ref = fu.softmax_fwd_ref(x.detach().reshape(rows))
+    rdx = fu.softmax_bwd_ref(ref, g.reshape(rows))
+    held(f"softmax entry o {list(SOFTMAX_SHAPE)} [bfloat16]", out,
+         ref.reshape(SOFTMAX_SHAPE), TRAIN_TOL[torch.bfloat16])
+    held(f"softmax entry dx {list(SOFTMAX_SHAPE)} [bfloat16]", dx,
+         rdx.reshape(SOFTMAX_SHAPE), TRAIN_TOL[torch.bfloat16])
+    x500 = torch.randn(8, 12, 64, 500, generator=gen, device="cuda").bfloat16()
+    for what, args, kw in (("last axis 500", (x500,), {}),
+                           ("axis=1", (x.detach(),), dict(axis=1)),
+                           ("knob off", (x.detach(),), dict(norm_kernels=False
+                                                            ))):
+        kw.setdefault("norm_kernels", True)
+        got = softmax(*args, **kw)
+        require(fu.softmax_fwd.launches == 1,
+                f"softmax entry, {what}: the kernel ran")
+        want = torch.softmax(args[0], dim=kw.get("axis", -1))
+        require(torch.equal(got, want), f"softmax entry, {what}: not the "
+                f"plain op's result")
+    print(f"  nn.functional.softmax {list(SOFTMAX_SHAPE)} bf16 forward + "
+          f"backward: launches {json.dumps(launches)}, plain-version calls "
+          f"0; last axis 500, axis=1 and norm_kernels=False take "
+          f"torch.softmax (no launch)")
+    return launches
 
 
 # -- phase 4b: kernel train step == plain train step -------------------------
@@ -924,6 +1250,52 @@ def phase_train_check(B=8, S=2048):
     print(f"  grads: max |kernel - plain| / max |plain| {g_err:.3e} (tol "
           f"1e-4); updated params: max abs diff {p_err:.3e} (tol 2.1e-4 = "
           f"2 lr + decay), largest mean abs diff {p_mean:.3e} (tol 1e-6)")
+    require(g_err <= 1e-4, "gradients differ")
+    require(p_err <= 2.1e-4 and p_mean <= 1e-6, "updated parameters differ")
+
+
+def phase_ernie_check(B=16, S=512):
+    """Phase 4c: one f32 ERNIE step at full width and 2 layers with the
+    kernels (flash attention, LayerNorm, fused AdamW) and one with all three
+    knobs off, from the same seeded weights and batch: loss, every gradient
+    and every updated parameter must agree."""
+    cfg = ernie_config(layers=2)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    runs = []
+    for kernels in (False, True):
+        step, params, _ = make_ernie_step(cfg, torch.float32, kernels, seed=2)
+        loss, grads = step((ids, ids))
+        runs.append((float(loss), [g.detach() for g in grads],
+                     [v.detach() for v in params.values()]))
+        del step, params
+    (l0, g0, p0), (l1, g1, p1) = runs
+    print(f"  2-layer f32 ERNIE step at full width, B={B} S={S}: loss plain "
+          f"{l0:.7f}, kernels {l1:.7f}")
+    require(abs(l1 - l0) <= 1e-5 * abs(l0), "loss differs (rtol 1e-5)")
+    # gradients: max abs difference within 1e-4 of the tensor's max |grad|.
+    # The k biases' gradient is zero in exact arithmetic (it shifts a whole
+    # row of scores: what is left is rounding noise) and the pooler's is
+    # zeros, so each tensor's max |grad| is floored at 1e-3 of the step's
+    # largest
+    g_max = max(b.abs().max().item() for b in g0)
+    noise = [b.abs().max().item() < 1e-3 * g_max for b in g0]
+    g_err = max(((a - b).abs().max().item()
+                 / max(b.abs().max().item(), 1e-3 * g_max))
+                for a, b in zip(g1, g0))
+    # updated parameters: the fused update rounds the same function once
+    # differently, and a first AdamW step moves a weight by about +-lr, so
+    # a near-zero gradient whose sign differs moves it by up to 2 lr; the
+    # mean gate leaves out the tensors whose gradient is rounding noise,
+    # whose first step is +-lr by the noise's sign on either side
+    p_err = max((a - b).abs().max().item() for a, b in zip(p1, p0))
+    p_mean = max((a - b).abs().mean().item()
+                 for a, b, z in zip(p1, p0, noise) if not z)
+    print(f"  grads: max |kernel - plain| / max |plain| {g_err:.3e} (tol "
+          f"1e-4); updated params: max abs diff {p_err:.3e} (tol 2.1e-4 = "
+          f"2 lr + decay), largest mean abs diff {p_mean:.3e} (tol 1e-6; "
+          f"{sum(noise)} tensors with a gradient of rounding noise left "
+          f"out)")
     require(g_err <= 1e-4, "gradients differ")
     require(p_err <= 2.1e-4 and p_mean <= 1e-6, "updated parameters differ")
 
@@ -1137,8 +1509,9 @@ def causal_pairs(s_q, s_k):
     return sum(min(s_k, i + off + 1) for i in range(s_q))
 
 
-def report(name, ms, plain_ms, library_ms, nbytes, flops, library_what):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def report(name, ms, plain_ms, library_ms, nbytes, flops, library_what,
+           flop_rate=BF16_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     b_ms = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
@@ -1244,6 +1617,122 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024):
     return res
 
 
+def library_adamw_takes_mixed(lib_args):
+    """Whether ``torch._fused_adamw_`` computes AdamW right on a bf16
+    parameter with f32 moments: one first step on a short tensor, against
+    the port's plain version (a refusal or a wrong answer both say no)."""
+    from paddle_tpu_torch.ops import fused as fu
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    p = torch.randn(4096, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(4096, generator=gen, device="cuda").bfloat16()
+    m, v = torch.zeros(4096, device="cuda"), torch.zeros(4096, device="cuda")
+    want = fu.adamw_update_ref(p, g, m, v, lr=lib_args["lr"], step=1,
+                               weight_decay=lib_args["weight_decay"])
+    try:
+        torch._fused_adamw_([p], [g], [m], [v], [],
+                            [torch.tensor(1.0, device="cuda")], **lib_args)
+    except RuntimeError:
+        return False
+    return bool(torch.allclose(p.float(), want[0].float(), rtol=1e-2,
+                               atol=1e-3)
+                and torch.allclose(m, want[1], rtol=1e-5, atol=1e-7)
+                and torch.allclose(v, want[2], rtol=1e-5, atol=1e-9))
+
+
+def phase_fused_timing():
+    """Phase 5c: rows 9-13 at the phase-3d/3e shapes (bf16): the kernel,
+    its plain version, the bound (bytes over 3.35 TB/s; operations, f32 on
+    the CUDA cores, over 67 TFLOP/s) and the library call for the same
+    function (timed here only; the port never calls it).  The row kernels
+    run for tens of us, so they and their plain and library calls are
+    timed as CUDA-graph replays; AdamW over all 149.3M parameters, as one
+    flat tensor, is timed eager."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fused as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    dt, elt, res = torch.bfloat16, 2, {}
+    n, h = ERNIE_LN_ROWS
+    x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+    g = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+    _, mu, inv = fu.layer_norm_fwd(x, w, b, 1e-12)
+    row_bytes = n * h * elt
+    res["ln_fwd"] = report(
+        "layer_norm_fwd", graph_ms(lambda i: fu.layer_norm_fwd(
+            x, w, b, 1e-12), 100),
+        graph_ms(lambda i: fu.layer_norm_fwd_ref(x, w, b, 1e-12), 20),
+        graph_ms(lambda i: F.layer_norm(x, (h,), w, b, 1e-12), 100),
+        2 * row_bytes + 2 * h * elt + 2 * n * 4, 8 * n * h,
+        "F.layer_norm forward", F32_FLOP_PER_S)
+    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+
+    def ln_fwd_bwd(i):
+        torch.autograd.grad(F.layer_norm(xg, (h,), wg, bg, 1e-12),
+                            (xg, wg, bg), g)
+
+    res["ln_bwd"] = report(
+        "layer_norm_bwd", graph_ms(lambda i: fu.layer_norm_bwd(
+            x, w, mu, inv, g), 100),
+        graph_ms(lambda i: fu.layer_norm_bwd_ref(x, w, mu, inv, g), 20),
+        graph_ms(ln_fwd_bwd, 50),
+        3 * row_bytes + 3 * h * elt + 2 * n * 4, 12 * n * h,
+        "F.layer_norm forward + backward", F32_FLOP_PER_S)
+    del x, g, xg, mu, inv
+
+    rows, hs = int(np.prod(SOFTMAX_SHAPE[:-1])), SOFTMAX_SHAPE[-1]
+    xs = (2 * torch.randn(rows, hs, generator=gen, device="cuda")).to(dt)
+    gs = torch.randn(rows, hs, generator=gen, device="cuda").to(dt)
+    o = fu.softmax_fwd(xs)
+    s_bytes = rows * hs * elt
+    res["softmax_fwd"] = report(
+        "softmax_fwd", graph_ms(lambda i: fu.softmax_fwd(xs), 100),
+        graph_ms(lambda i: fu.softmax_fwd_ref(xs), 20),
+        graph_ms(lambda i: torch.softmax(xs, dim=-1), 100),
+        2 * s_bytes, 5 * rows * hs, "torch.softmax forward", F32_FLOP_PER_S)
+    xsg = xs.detach().requires_grad_(True)
+
+    def softmax_fwd_bwd(i):
+        torch.autograd.grad(torch.softmax(xsg, dim=-1), xsg, gs)
+
+    res["softmax_bwd"] = report(
+        "softmax_bwd", graph_ms(lambda i: fu.softmax_bwd(o, gs), 100),
+        graph_ms(lambda i: fu.softmax_bwd_ref(o, gs), 20),
+        graph_ms(softmax_fwd_bwd, 50), 3 * s_bytes, 4 * rows * hs,
+        "torch.softmax forward + backward", F32_FLOP_PER_S)
+    del xs, gs, o, xsg
+    torch.cuda.empty_cache()
+
+    N = ERNIE_BASE_PARAMS
+    p = (0.02 * torch.randn(N, generator=gen, device="cuda")).to(dt)
+    gp = (1e-3 * torch.randn(N, generator=gen, device="cuda")).to(dt)
+    m = torch.zeros(N, device="cuda")
+    v = torch.zeros(N, device="cuda")
+    pows = dict(beta1_pow=torch.tensor(0.9, device="cuda"),
+                beta2_pow=torch.tensor(0.999, device="cuda"))
+    hyper = dict(lr=1e-4, weight_decay=0.01)
+    kern = time_ms(lambda i: fu.adamw_update(p, gp, m, v, **hyper, **pows), 20)
+    plain = time_ms(lambda i: fu.adamw_update_ref(p, gp, m, v, **hyper,
+                                                  **pows), 3, warmup=1)
+    step = torch.tensor(1.0, device="cuda")
+    lib_args = dict(lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
+                    eps=1e-8, amsgrad=False, maximize=False)
+    if library_adamw_takes_mixed(lib_args):
+        lib_what = "torch._fused_adamw_, bf16 p and g, f32 m and v"
+        lib_t = ([p], [gp], [m], [v])
+    else:
+        lib_what = "torch._fused_adamw_ over f32 copies of p and g (it " \
+                   "does not take bf16 p with f32 moments)"
+        lib_t = ([p.float()], [gp.float()], [m], [v])
+    lib = time_ms(lambda i: torch._fused_adamw_(*lib_t, [], [step],
+                                                **lib_args), 20)
+    res["adamw"] = report(
+        f"adamw_update [{N:,}]", kern, plain, lib, 22 * N, 15 * N, lib_what,
+        F32_FLOP_PER_S)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -1271,6 +1760,9 @@ def main():
     max_err = phase_kernel(pa)
     print("phase 2b: train kernels vs plain version on the card")
     max_err.update(phase_train_kernels(fa, fu))
+    print("phase 2c: LayerNorm, softmax and AdamW kernels, and flash "
+          "attention at ERNIE's shape, vs plain version on the card")
+    phase_fused_kernels(fa, fu, max_err)
 
     print("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
     cfg = llama_config_7b()
@@ -1289,17 +1781,29 @@ def main():
           "16 layers)")
     train = phase_train(pa)
     torch.cuda.empty_cache()
+    print("phase 3d: ERNIE-3.0-base MLM train step (bf16, B=64, S=512, "
+          "12 layers, dropout 0)")
+    ernie = phase_ernie(pa)
+    torch.cuda.empty_cache()
+    print("phase 3e: nn.functional.softmax through the softmax kernels")
+    softmax_launches = phase_softmax_entry()
 
     print("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
     print("phase 4b: train step, kernels vs plain versions")
     phase_train_check()
+    print("phase 4c: ERNIE train step, kernels vs plain versions")
+    phase_ernie_check()
+    torch.cuda.empty_cache()
 
     print("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
                           serve["decode_kv_lens"], serve_q["decode_kv_lens"])
     print("phase 5b: train kernel timing at the phase-3c shapes")
     timing.update(phase_train_timing())
+    print("phase 5c: LayerNorm, softmax and AdamW timing at the phase-3d/3e "
+          "shapes")
+    timing.update(phase_fused_timing())
 
     print("phase 6: summary")
     for name, sv in (("bf16 KV", serve), ("int8 KV + speculative=4", serve_q)):
@@ -1311,6 +1815,10 @@ def main():
           f"{train['mfu']:.4f}, {train['step_ms']:.1f} ms per step, loss "
           f"{train['losses'][0]:.4f} -> {train['losses'][-1]:.4f}, peak "
           f"{train['peak_gib']:.2f} GiB on {card}")
+    print(f"  ERNIE-base MLM step: {ernie['tokens_per_s']:.1f} tokens/s, "
+          f"mfu_share {ernie['mfu']:.4f}, {ernie['step_ms']:.1f} ms per "
+          f"step, loss {ernie['losses'][0]:.4f} -> {ernie['losses'][-1]:.4f}"
+          f", peak {ernie['peak_gib']:.2f} GiB on {card}")
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     rows = []
     for meta, key, launches in ((PLAIN, "plain", serve["launches"]),
@@ -1325,6 +1833,13 @@ def main():
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=train["launches"][key],
                          max_abs_err=max_err[key], **timing[key]))
+    for meta in FUSED_ROWS:
+        key = meta["key"]
+        launches = softmax_launches[key] if key.startswith("softmax") \
+            else ernie["launches"][key]
+        rows.append(dict({k: v for k, v in meta.items() if k != "key"},
+                         launches=launches, max_abs_err=max_err[key],
+                         **timing[key]))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

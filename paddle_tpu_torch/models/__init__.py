@@ -1,10 +1,13 @@
-from .convert import params_from_numpy
+from .convert import ernie_params_from_numpy, params_from_numpy
+from .ernie import (ErnieConfig, ErnieForMaskedLM, ErnieModel,
+                    ernie_config_base, ernie_config_tiny)
 from .llama import (LlamaConfig, build_functional_llama,
                     build_llama_paged_decode, init_llama_params,
                     llama_config_7b, llama_config_tiny,
                     make_paged_decode_horizon)
 
-__all__ = ["LlamaConfig", "build_functional_llama",
-           "build_llama_paged_decode", "init_llama_params",
-           "llama_config_7b", "llama_config_tiny", "make_paged_decode_horizon",
-           "params_from_numpy"]
+__all__ = ["ErnieConfig", "ErnieForMaskedLM", "ErnieModel", "LlamaConfig",
+           "build_functional_llama", "build_llama_paged_decode",
+           "ernie_config_base", "ernie_config_tiny", "ernie_params_from_numpy",
+           "init_llama_params", "llama_config_7b", "llama_config_tiny",
+           "make_paged_decode_horizon", "params_from_numpy"]

@@ -4,7 +4,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy"]
+from .. import resolve_device
+
+__all__ = ["params_from_numpy", "ernie_params_from_numpy"]
+
+
+def _tensor(v, dev, dtype):
+    # through float32, so that bfloat16 arrays convert too
+    return torch.from_numpy(np.asarray(v, np.float32).copy()).to(
+        device=dev, dtype=dtype)
 
 
 def params_from_numpy(ep, bp, hp, device=None, dtype=torch.float32):
@@ -12,12 +20,18 @@ def params_from_numpy(ep, bp, hp, device=None, dtype=torch.float32):
     package's parameters passed through ``np.asarray``) into the port's
     dicts of tensors on ``device`` in ``dtype``.  The two packages share leaf
     names, stacking and the ``[in, out]`` weight layout, so each leaf is a
-    plain copy; values go through float32 so that bfloat16 arrays convert
-    too."""
+    plain copy."""
     dev = torch.device("cpu" if device is None else device)
+    return tuple({k: _tensor(v, dev, dtype) for k, v in tree.items()}
+                 for tree in (ep, bp, hp))
 
-    def conv(tree):
-        return {k: torch.from_numpy(np.asarray(v, np.float32).copy())
-                .to(device=dev, dtype=dtype) for k, v in tree.items()}
 
-    return conv(ep), conv(bp), conv(hp)
+def ernie_params_from_numpy(named, device=None, dtype=torch.float32):
+    """``{name: np.ndarray}`` from the JAX ERNIE model's
+    ``named_parameters()`` -> a state dict that the port's ERNIE module of
+    the same config loads with ``load_state_dict``: the names and the
+    ``[in, out]`` Linear layout are the same, so each entry is a plain copy,
+    on ``device`` (``None``: the CUDA device, raising without one) in
+    ``dtype``."""
+    dev = resolve_device(device)
+    return {name: _tensor(v, dev, dtype) for name, v in named.items()}

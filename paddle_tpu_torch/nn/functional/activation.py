@@ -1,0 +1,35 @@
+"""Activations (port of ``paddle_tpu.nn.functional.activation``: ``gelu``
+and ``softmax`` with the ``softmax`` override of
+``paddle_tpu/ops/pallas/__init__.py``)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["gelu", "softmax"]
+
+
+def gelu(x, approximate=False):
+    """GELU, exact (erf) unless ``approximate`` (JAX ``jax.nn.gelu``)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def softmax(x, axis=-1, dtype=None, kernels=True, norm_kernels=False):
+    """Softmax over ``axis`` after the optional cast to ``dtype`` (JAX
+    ``activation.py:142``).  With ``kernels`` and ``norm_kernels`` (the
+    counterparts of the JAX flags ``use_pallas_kernels`` and
+    ``use_pallas_norm_kernels``) the last axis of a shape whose rows tile
+    goes to :func:`paddle_tpu_torch.ops.fused.softmax` — the CUDA kernels
+    for CUDA tensors, forward and backward — as the JAX dispatch
+    (``ops/pallas/__init__.py:32``) sends it to the Pallas kernel; every
+    other case is ``torch.softmax``, the counterpart of ``jax.nn.softmax``."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype.replace("paddle.", ""))
+    if dtype is not None:
+        x = x.to(dtype)
+    if kernels and norm_kernels and axis in (-1, x.dim() - 1):
+        from ...ops.fused import softmax as fused_softmax
+        out = fused_softmax(x)
+        if out is not None:
+            return out
+    return torch.softmax(x, dim=axis)

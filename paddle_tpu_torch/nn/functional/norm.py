@@ -1,9 +1,10 @@
-"""RMSNorm, plain PyTorch (port of ``paddle_tpu.nn.functional.norm``)."""
+"""RMSNorm and LayerNorm (port of ``paddle_tpu.nn.functional.norm`` and of
+the ``layer_norm`` override in ``paddle_tpu/ops/pallas/__init__.py``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm_ref"]
+__all__ = ["rms_norm_ref", "layer_norm_ref", "layer_norm"]
 
 
 def rms_norm_ref(v, w=None, epsilon=1e-6):
@@ -17,3 +18,43 @@ def rms_norm_ref(v, w=None, epsilon=1e-6):
     if w is not None:
         out = out * w.float()
     return out.to(v.dtype)
+
+
+def layer_norm_ref(v, w=None, b=None, n_axes=1, epsilon=1e-5):
+    """LayerNorm over the last ``n_axes`` axes with f32 statistics (JAX
+    ``layer_norm_ref``, ``norm.py:77``): the normalised value is cast to
+    ``v.dtype`` first, then the weight and bias apply in that dtype."""
+    dims = tuple(range(v.dim() - n_axes, v.dim()))
+    vf = v.float()
+    mean = vf.mean(dim=dims, keepdim=True)
+    var = vf.var(dim=dims, unbiased=False, keepdim=True)
+    out = ((v - mean) * torch.rsqrt(var + epsilon)).to(v.dtype)
+    if w is not None:
+        out = out * w
+    if b is not None:
+        out = out + b
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               kernels=True, norm_kernels=False):
+    """The public ``layer_norm`` (JAX ``norm.py:91``) with its dispatch
+    (``ops/pallas/__init__.py:45``).  ``kernels`` and ``norm_kernels`` are
+    the counterparts of the JAX flags ``use_pallas_kernels`` and
+    ``use_pallas_norm_kernels``: with both on, an affine LayerNorm over one
+    axis goes to :func:`paddle_tpu_torch.ops.fused.layer_norm` (the CUDA
+    kernels for CUDA tensors), and to :func:`layer_norm_ref` where that
+    declines the shape; otherwise it is :func:`layer_norm_ref`."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    n_axes = len(tuple(normalized_shape))
+    if weight is None and bias is not None:
+        # the bias applies without a weight (paddle semantics)
+        weight = torch.ones_like(bias)
+    if kernels and norm_kernels and n_axes == 1 and weight is not None \
+            and bias is not None:
+        from ...ops.fused import layer_norm as fused_layer_norm
+        out = fused_layer_norm(x, weight, bias, eps=epsilon)
+        if out is not None:
+            return out
+    return layer_norm_ref(x, weight, bias, n_axes, epsilon)

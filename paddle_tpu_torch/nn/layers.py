@@ -1,0 +1,74 @@
+"""Linear, Embedding and LayerNorm modules with the JAX package's parameter
+names, layouts and initialisers (``paddle_tpu/nn/common.py`` ``Linear``,
+``Embedding``; ``paddle_tpu/nn/norm.py`` ``LayerNorm``).
+
+They are plain ``torch.nn.Module``s, not a port of the eager ``Layer``
+framework.  Linear weights keep the ``[in, out]`` layout (``x @ W + b``), so
+weights cross from JAX by name and value.  Initialisers draw from the
+``torch.Generator`` the caller passes: Xavier-uniform Linear weights, zero
+biases, N(0, 1) embeddings, LayerNorm weight 1 and bias 0 — the JAX
+package's defaults, though not its ``jax.random`` draws.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .functional.norm import layer_norm
+
+__all__ = ["Linear", "Embedding", "LayerNorm"]
+
+
+class Linear(nn.Module):
+    """y = x @ weight + bias, weight [in_features, out_features]."""
+
+    def __init__(self, in_features, out_features, *, dtype, device,
+                 generator):
+        super().__init__()
+        bound = math.sqrt(6.0 / (in_features + out_features))
+        w = torch.rand((in_features, out_features), generator=generator,
+                       device=device) * (2 * bound) - bound
+        self.weight = nn.Parameter(w.to(dtype))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
+
+class Embedding(nn.Module):
+    """weight [num_embeddings, embedding_dim] looked up by integer ids."""
+
+    def __init__(self, num_embeddings, embedding_dim, *, dtype, device,
+                 generator):
+        super().__init__()
+        w = torch.randn((num_embeddings, embedding_dim), generator=generator,
+                        device=device)
+        self.weight = nn.Parameter(w.to(dtype))
+
+    def forward(self, ids):
+        return self.weight[ids.long()]
+
+
+class LayerNorm(nn.Module):
+    """Affine LayerNorm over the last axis through
+    :func:`~paddle_tpu_torch.nn.functional.norm.layer_norm`; ``kernels``
+    and ``norm_kernels`` are that function's knobs (the JAX flags
+    ``use_pallas_kernels`` and ``use_pallas_norm_kernels``)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, *, dtype, device,
+                 kernels=True, norm_kernels=False):
+        super().__init__()
+        self.epsilon = epsilon
+        self.kernels, self.norm_kernels = kernels, norm_kernels
+        self.weight = nn.Parameter(torch.ones(normalized_shape, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(normalized_shape, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight.shape, self.weight, self.bias,
+                          self.epsilon, kernels=self.kernels,
+                          norm_kernels=self.norm_kernels)

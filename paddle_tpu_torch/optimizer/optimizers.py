@@ -1,6 +1,6 @@
 """Adam and AdamW, functional form (port of
 ``paddle_tpu.optimizer.Optimizer.apply_gradients_functional`` /
-``init_opt_state`` and the jnp branch of ``Adam._adam_core``).
+``init_opt_state`` and ``Adam._adam_core``, both its branches).
 
 State per parameter: f32 ``moment1`` / ``moment2`` of the parameter's shape
 and 0-d f32 ``beta1_pow`` / ``beta2_pow``.  The update runs in f32 and
@@ -8,6 +8,15 @@ casts the parameter back to its own dtype.  Unlike the pure JAX functions
 it updates IN PLACE — the parameter tensors and the state tensors passed in
 are overwritten and returned — so a step never holds a second copy of the
 weights or of the moments.
+
+``fused`` is the counterpart of the JAX flag ``use_pallas_adamw`` (off by
+default, as there): with it on, every parameter tensor goes through
+:func:`paddle_tpu_torch.ops.fused.adamw_update` — one CUDA kernel per
+tensor on the card.  The JAX wrapper declines tensors whose size does not
+tile its ``(rows, 1024)`` blocks and those take the eager update; the CUDA
+kernel has no such tile, so here every tensor takes the kernel, which
+computes the same function rounded once differently
+(``p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``).
 """
 from __future__ import annotations
 
@@ -20,10 +29,11 @@ __all__ = ["Adam", "AdamW"]
 
 class Adam:
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, weight_decay=None):
+                 epsilon=1e-8, weight_decay=None, fused=False):
         self._learning_rate = learning_rate
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._weight_decay = weight_decay
+        self._fused = fused
 
     def get_lr(self):
         return self._learning_rate
@@ -43,9 +53,17 @@ class Adam:
     @torch.no_grad()
     def _adam_core(self, p, g, state, lr, decoupled_wd=0.0):
         b1, b2 = self._beta1, self._beta2
-        g32 = g.float()
         state["beta1_pow"].mul_(b1)
         state["beta2_pow"].mul_(b2)
+        if self._fused:
+            from ..ops.fused import adamw_update
+            adamw_update(p, g, state["moment1"], state["moment2"], lr=lr,
+                         beta1=b1, beta2=b2, eps=self._eps,
+                         weight_decay=decoupled_wd,
+                         beta1_pow=state["beta1_pow"],
+                         beta2_pow=state["beta2_pow"])
+            return p, state
+        g32 = g.float()
         m1 = state["moment1"].mul_(b1).add_(g32 * (1 - b1))
         m2 = state["moment2"].mul_(b2).add_(g32 * g32 * (1 - b2))
         m1h = m1 / (1 - state["beta1_pow"])
@@ -87,8 +105,8 @@ class AdamW(Adam):
     Adam step (reference python/paddle/optimizer/adamw.py)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, weight_decay=0.01):
-        super().__init__(learning_rate, beta1, beta2, epsilon, None)
+                 epsilon=1e-8, weight_decay=0.01, fused=False):
+        super().__init__(learning_rate, beta1, beta2, epsilon, None, fused)
         self._wd = float(weight_decay)
 
     def _update(self, p, g, state, lr):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu_torch.ops import flash_attention as tfa
@@ -40,9 +41,29 @@ def _inputs(shape, seed):
 
 
 def _rows(x):
-    """[B, S, H, D] numpy -> the JAX kernels' [B*H, S, D]."""
+    """[B, S, H, D] numpy -> the JAX kernels' [B*H, S, D], in a buffer of
+    JAX's own: ``jnp.asarray`` would alias a 64-byte-aligned numpy buffer
+    (at B = H = 1 the reshape is a view of the array the torch side reads
+    too), and whether it is aligned depends on what the worker allocated
+    before."""
     b, s, h, d = x.shape
-    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+    return jnp.array(x.transpose(0, 2, 1, 3).reshape(b * h, s, d), copy=True)
+
+
+@pytest.fixture(autouse=True)
+def _pinned_numerics():
+    """Pin the process-wide settings the f32 comparisons depend on, whatever
+    ran before on the worker: torch's f32 matmul precision and default
+    dtype, and JAX's default matmul precision."""
+    prec, dtype = torch.get_float32_matmul_precision(), torch.get_default_dtype()
+    torch.set_float32_matmul_precision("highest")
+    torch.set_default_dtype(torch.float32)
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.set_default_dtype(dtype)
 
 
 def _bshd(x, b):
@@ -64,9 +85,9 @@ def test_forward_matches_pallas_interpret(shape, causal):
     b, s_q, s_k, hq, hkv, d = shape
     q, k, v, _ = _inputs(shape, seed=1)
     scale = 1.0 / math.sqrt(d)
-    jo, jlse = jfa.flash_attention_fwd_kernel_call(
+    jo, jlse = jax.block_until_ready(jfa.flash_attention_fwd_kernel_call(
         _rows(q), _rows(k), _rows(v), causal, scale, interpret=True,
-        n_q_heads=hq, n_kv_heads=hkv)
+        n_q_heads=hq, n_kv_heads=hkv))
     before = _counts()
     o, lse = tfa.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)),
                                      causal, scale)
@@ -88,8 +109,9 @@ def test_backward_matches_pallas_interpret(shape, causal):
     jo, jlse = jfa.flash_attention_fwd_kernel_call(
         jq, jk, jv, causal, scale, interpret=True, n_q_heads=hq,
         n_kv_heads=hkv)
-    jdq, jdk, jdv = jfa._bwd_call((jq, jk, jv, jo, jlse), _rows(do), causal,
-                                  scale, True, n_q_heads=hq, n_kv_heads=hkv)
+    jdq, jdk, jdv = jax.block_until_ready(jfa._bwd_call(
+        (jq, jk, jv, jo, jlse), _rows(do), causal, scale, True,
+        n_q_heads=hq, n_kv_heads=hkv))
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal, scale)
     before = _counts()
@@ -118,7 +140,6 @@ def test_pack_lse_matches_pallas_interpret():
 def test_autograd_matches_jax_vjp():
     """The differentiable op: forward and all three gradients through
     ``torch.autograd`` equal ``jax.vjp`` of the Pallas op (interpret)."""
-    import jax
     shape = (1, 128, 128, 4, 2, 64)
     q, k, v, do = _inputs(shape, seed=4)
     jout, vjp = jax.vjp(

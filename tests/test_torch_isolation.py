@@ -4,6 +4,7 @@ the card unless the caller asks for the CPU."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,6 +104,34 @@ def test_train_entry_points_without_device_need_a_card(monkeypatch):
         opt.init_opt_state(hp)
     st = opt.init_opt_state(hp, device="cpu")
     assert st["lm"]["moment1"].device == torch.device("cpu")
+
+
+def test_ernie_entry_points_without_device_need_a_card(monkeypatch):
+    """The ERNIE constructors and ``ernie_params_from_numpy`` resolve
+    device=None to the card, and run on the CPU only when asked."""
+    from paddle_tpu_torch.models import (ErnieForMaskedLM, ErnieModel,
+                                         ernie_config_tiny,
+                                         ernie_params_from_numpy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ernie_config_tiny(vocab=64, hidden=32, layers=1, heads=2, seq=16)
+    for cls in (ErnieModel, ErnieForMaskedLM):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(cfg)
+        model = cls(cfg, device="cpu")
+        assert {p.device for p in model.parameters()} == {torch.device("cpu")}
+    named = {"w": np.zeros((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ernie_params_from_numpy(named)
+    assert ernie_params_from_numpy(named, device="cpu")["w"].device \
+        == torch.device("cpu")
+
+
+def test_the_scan_covers_the_ernie_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("models/ernie.py", "models/convert.py", "nn/layers.py",
+                "nn/functional/activation.py", "nn/functional/attention.py",
+                "nn/functional/norm.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
 
 
 def test_the_scan_covers_the_train_modules():

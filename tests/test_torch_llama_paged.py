@@ -41,6 +41,20 @@ CFG = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
            max_position_embeddings=64)
 
 
+@pytest.fixture(autouse=True)
+def _jax_plain_dispatch():
+    """The JAX oracle runs its plain ops, as on a CPU where no Pallas
+    override is registered, even after an earlier test on this worker
+    registered them (``paddle_tpu.ops.pallas.register_all(force=True)``):
+    a registered override would call a Pallas kernel outside interpret
+    mode."""
+    import paddle_tpu
+    prev = paddle_tpu.get_flags(["use_pallas_kernels"])
+    paddle_tpu.set_flags({"use_pallas_kernels": False})
+    yield
+    paddle_tpu.set_flags(prev)
+
+
 class _Pair:
     """One JAX and one port instance of the paged functions over the same
     weights, each with its own page pool."""

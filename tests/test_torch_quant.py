@@ -23,6 +23,20 @@ from paddle_tpu_torch.quantization import dequantize_weight, quantize_weight
 from paddle_tpu_torch.serving import quant as tq
 
 
+@pytest.fixture(autouse=True)
+def _jax_plain_dispatch():
+    """The JAX oracle runs its plain ops, as on a CPU where no Pallas
+    override is registered, even after an earlier test on this worker
+    registered them (``paddle_tpu.ops.pallas.register_all(force=True)``):
+    a registered override would call a Pallas kernel outside interpret
+    mode."""
+    import paddle_tpu
+    prev = paddle_tpu.get_flags(["use_pallas_kernels"])
+    paddle_tpu.set_flags({"use_pallas_kernels": False})
+    yield
+    paddle_tpu.set_flags(prev)
+
+
 def _bytes(a):
     """Raw bytes of a jax array or torch tensor, as a numpy array."""
     if isinstance(a, torch.Tensor):

@@ -35,6 +35,20 @@ _PARAMS = {}
 
 
 @pytest.fixture(autouse=True)
+def _jax_plain_dispatch():
+    """The JAX oracle runs its plain ops, as on a CPU where no Pallas
+    override is registered, even after an earlier test on this worker
+    registered them (``paddle_tpu.ops.pallas.register_all(force=True)``):
+    a registered override would call a Pallas kernel outside interpret
+    mode."""
+    import paddle_tpu
+    prev = paddle_tpu.get_flags(["use_pallas_kernels"])
+    paddle_tpu.set_flags({"use_pallas_kernels": False})
+    yield
+    paddle_tpu.set_flags(prev)
+
+
+@pytest.fixture(autouse=True)
 def _port_engines_stay_consistent():
     yield
     for eng in list(tpaged._LIVE_ENGINES):

@@ -34,6 +34,20 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True)
+def _jax_plain_dispatch():
+    """The JAX oracle runs its plain ops, as on a CPU where no Pallas
+    override is registered, even after an earlier test on this worker
+    registered them (``paddle_tpu.ops.pallas.register_all(force=True)``):
+    a registered override would call a Pallas kernel outside interpret
+    mode."""
+    import paddle_tpu
+    prev = paddle_tpu.get_flags(["use_pallas_kernels"])
+    paddle_tpu.set_flags({"use_pallas_kernels": False})
+    yield
+    paddle_tpu.set_flags(prev)
+
+
 def _configs(kv_heads):
     kw = dict(vocab_size=VOCAB, hidden_size=128, intermediate_size=384,
               num_hidden_layers=2, num_attention_heads=4,
