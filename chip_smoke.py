@@ -23,8 +23,11 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                train shape
                (bf16, causal), GQA 16:4 at D = 128, f32, s_q < s_k causal
                and not, lengths of 200 (partial tiles) causal and not, f32
-               and bf16, the standalone repack on strided stats, RMSNorm
-               rows at 16,384 x 1,024 bf16 and f32;
+               and bf16; for the bf16 kernels' own tiling, s_q < s_k
+               causal, GQA 16:4 at S 320 (a partial 128-row q tile), S 200
+               causal at D = 128 and one 64-row q tile against 2,048 keys;
+               the standalone repack on strided stats, RMSNorm rows at
+               16,384 x 1,024 bf16 and f32;
                (c) the LayerNorm, softmax and AdamW kernels at ERNIE's
                shapes (32,768 x 768 rows; [8, 12, 512, 512]; the 40,000 x
                768 embedding and tensors of 768 and 40,000), bf16 and f32,
@@ -64,7 +67,11 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3, the train kernels at
-               the phase-3c shape beside SDPA and F.rms_norm, and the
+               the phase-3c shape beside SDPA (forward; backward alone, and
+               forward + backward) and F.rms_norm, rows 3, 5 and 6 at
+               phase 3d's attention shape, one line per design step of
+               rows 3 and 5 (variants of their tiles, ring depth and
+               occupancy, each held against the plain version), and the
                LayerNorm, softmax and AdamW kernels at the phase-3d/3e
                shapes beside F.layer_norm, torch.softmax and
                torch._fused_adamw_;
@@ -299,6 +306,13 @@ TRAIN_ATTN_CASES = [
     ("s_k = 200 non-causal", (2, 128, 200, 4, 2, 64), False, torch.float32),
     ("s_k = 200 non-causal", (2, 128, 200, 8, 4, 128), False, torch.bfloat16),
     ("s_q = s_k = 200 causal", (2, 200, 200, 8, 8, 64), True, torch.bfloat16),
+    # the bf16 kernels' own tiling: 128-row forward q tiles, 128-key dK/dV
+    # blocks and 64-row (32 at D = 128) streamed q tiles
+    ("s_q < s_k causal", (2, 128, 384, 8, 4, 64), True, torch.bfloat16),
+    ("GQA 16:4 S=320 (partial 128-row tile)", (2, 320, 320, 16, 4, 64), True,
+     torch.bfloat16),
+    ("S=200 causal D=128", (2, 200, 200, 8, 8, 128), True, torch.bfloat16),
+    ("one short q tile", (2, 64, 2048, 16, 16, 64), True, torch.bfloat16),
 ]
 TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
                    ("f32 rows", 4096, 1024, torch.float32)]
@@ -308,6 +322,7 @@ TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
 # tensor (the 40,000 x 768 word embedding) and two short ones
 ERNIE_ATTN_CASES = [("ERNIE shape", (8, 512, 512, 12, 12, 64), False,
                      torch.bfloat16)]
+ERNIE_ATTN_SHAPE = (64, 512, 512, 12, 12, 64)   # phase 3d's B 64 x S 512
 ERNIE_LN_ROWS = (32768, 768)
 SOFTMAX_SHAPE = (8, 12, 512, 512)
 ADAMW_LENGTHS = (40000 * 768, 768, 40000)
@@ -1523,63 +1538,152 @@ def report(name, ms, plain_ms, library_ms, nbytes, flops, library_what,
                 library_ms=library_ms)
 
 
+def attention_timing(fa, gen, shape, causal, label=""):
+    """Rows 3, 5 and 6 at one bf16 shape: the kernel, its plain version, the
+    bound and the library calls (timed here only; the port never calls
+    them): SDPA's forward for row 3, and for rows 5 and 6 SDPA's backward
+    alone (``autograd.grad`` on a retained forward graph), with its forward
+    + backward printed beside it."""
+    import torch.nn.functional as F
+    b, s_q, s_k, hq, hkv, d = shape
+    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    sc = 1.0 / np.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
+    delta = delta_of(do, o)
+    pairs = b * hq * (causal_pairs(s_q, s_k) if causal else s_q * s_k)
+    q_bytes, kv_bytes = b * s_q * hq * d * 2, b * s_k * hkv * d * 2
+    stats_bytes = b * hq * s_q * 4
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
+    lib_fwd = time_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), 20)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    lib_bwd = time_ms(lambda i: torch.autograd.grad(
+        out, (qg, kg, vg), dot, retain_graph=True), 10)
+
+    def sdpa_fwd_bwd(i):
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal), (qg, kg, vg), dot)
+
+    lib_both = time_ms(sdpa_fwd_bwd, 10)
+    mode = "causal" if causal else "non-causal"
+    bwd_what = (f"SDPA {mode} backward alone; forward + backward "
+                f"{lib_both:.4f} ms")
+    res = {}
+    res["fa_fwd"] = report(
+        f"flash_attention_fwd{label}",
+        time_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal, sc), 10),
+        time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, causal, sc), 3,
+                warmup=1), lib_fwd,
+        2 * q_bytes + 2 * kv_bytes + stats_bytes, 4 * d * pairs,
+        f"SDPA {mode} forward")
+    res["fa_dkv"] = report(
+        f"flash_attention_bwd_dkv{label}",
+        time_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     causal, sc), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, causal, sc), 3, warmup=1), lib_bwd,
+        2 * q_bytes + 4 * kv_bytes + 2 * stats_bytes, 8 * d * pairs,
+        bwd_what)
+    res["fa_dq"] = report(
+        f"flash_attention_bwd_dq{label}",
+        time_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    causal, sc), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta, causal, sc), 3, warmup=1), lib_bwd,
+        3 * q_bytes + 2 * kv_bytes + 2 * stats_bytes, 6 * d * pairs,
+        bwd_what)
+    del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, dot, out
+    torch.cuda.empty_cache()
+    return res
+
+
+# Design steps of the bf16 forward and dK/dV kernels: compile-time settings
+# of flash_attention.cu, each built into a library of its own and timed
+# against the shipped build (the first entry) in one run.
+FA_VARIANTS = (
+    ("shipped: fwd 128 q rows, 2 blocks/SM; dK/dV 64 keys, 3 blocks/SM; "
+     "rings of 2", ()),
+    ("ring depth 1 (no copy overlaps the products)", ("-DFA_STAGES=1",)),
+    ("ring depth 3", ("-DFA_STAGES=3",)),
+    ("first mma.sync version: 1 block/SM, dK/dV 128 keys",
+     ("-DFA_FWD_MINB=1", "-DFA_DKV_WARPS=8", "-DFA_DKV_MINB=1")),
+    ("fwd 64 q rows (4 warps), 4 blocks/SM",
+     ("-DFA_FWD_WARPS=4", "-DFA_FWD_MINB=4")),
+    ("dK/dV q tile 32", ("-DFA_DKV_BQ64=32",)),
+)
+
+
+def design_steps(fa, gen, shape, causal):
+    """One line per entry of ``FA_VARIANTS``: the variant's forward and
+    dK/dV held against the plain versions and timed at ``shape``, then the
+    shipped build again.  A measurement only: the port loads the shipped
+    build, which is put back however this ends."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(FA_VARIANTS)) as pool:
+        paths = list(pool.map(
+            lambda var: _build.build_all(["flash_attention"], var[1])[
+                "flash_attention"], FA_VARIANTS))
+    print(f"  built {len(paths)} variants in {time.perf_counter() - t0:.1f} s")
+    d = shape[-1]
+    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    sc = 1.0 / np.sqrt(d)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+    p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
+        q, k, v.abs(), causal, sc)[0].float()
+    delta = delta_of(do, ro)
+    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
+                                              causal, sc)
+    tol = TRAIN_TOL[torch.bfloat16]
+    shipped = _build.library("flash_attention")
+    runs = list(zip(FA_VARIANTS, paths)) + [(FA_VARIANTS[0], paths[0])]
+    try:
+        for (what, _), path in runs:
+            # the wrappers launch through the library registered under the
+            # source's name
+            _build._LIBS["flash_attention"] = ctypes.CDLL(str(path))
+            o, _ = fa.flash_attention_fwd(q, k, v, causal, sc)
+            held(f"fwd o   [{what}]", o, ro, tol, p_round)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, rlse, delta,
+                                                causal, sc)
+            held(f"dk [{what}]", dk, rdk, tol)
+            held(f"dv [{what}]", dv, rdv, tol)
+            fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(
+                q, k, v, causal, sc), 10)
+            dkv_ms = time_ms(lambda i: fa.flash_attention_bwd_dkv(
+                q, k, v, do, rlse, delta, causal, sc), 10)
+            print(f"  design step {what}: fwd {fwd_ms:.4f} ms, dK/dV "
+                  f"{dkv_ms:.4f} ms")
+    finally:
+        _build._LIBS["flash_attention"] = shipped
+    del q, k, v, do, ro, rlse, p_round, delta, rdk, rdv
+    torch.cuda.empty_cache()
+
+
 def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024):
     """Rows 3-8 at the train shape (bf16, causal; RMSNorm rows N x H): the
     kernel, its plain version, the bound and the library call (timed here
-    only; the port never calls it)."""
+    only; the port never calls it); rows 3, 5 and 6 also at ERNIE's
+    attention shape (phase 3d, non-causal), and the design steps of rows 3
+    and 5 at the train shape."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused as fu
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     dt = torch.bfloat16
-    q, k, v, do = attn_inputs(gen, (B, S, S, Hq, Hq, D), dt)
-    sc = 1.0 / np.sqrt(D)
-    o, lse = fa.flash_attention_fwd(q, k, v, True, sc)
-    delta = delta_of(do, o)
-    pairs = B * Hq * causal_pairs(S, S)
+    res = attention_timing(fa, gen, (B, S, S, Hq, Hq, D), True)
+    print("  at ERNIE's attention shape (phase 3d):")
+    attention_timing(fa, gen, ERNIE_ATTN_SHAPE, False, " (ERNIE)")
+    print("  design steps of rows 3 and 5 at the train shape:")
+    design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
     elt = 2
-    qkv_bytes = B * S * Hq * D * elt
     stats_bytes = B * Hq * S * 4
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
-    res = {}
-    res["fa_fwd"] = report(
-        "flash_attention_fwd",
-        time_ms(lambda i: fa.flash_attention_fwd(q, k, v, True, sc), 10),
-        time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, True, sc), 3,
-                warmup=1),
-        time_ms(lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20),
-        4 * qkv_bytes + stats_bytes, 4 * D * pairs,
-        "SDPA is_causal forward")
-
-    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2)
-
-    def sdpa_fwd_bwd(i):
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(out, (qg, kg, vg), dot)
-
-    lib_bwd = time_ms(sdpa_fwd_bwd, 10)
-    res["fa_dkv"] = report(
-        "flash_attention_bwd_dkv",
-        time_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                     True, sc), 5),
-        time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
-            q, k, v, do, lse, delta, True, sc), 3, warmup=1), lib_bwd,
-        6 * qkv_bytes + 2 * stats_bytes, 8 * D * pairs,
-        "SDPA forward + backward")
-    res["fa_dq"] = report(
-        "flash_attention_bwd_dq",
-        time_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                    True, sc), 5),
-        time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
-            q, k, v, do, lse, delta, True, sc), 3, warmup=1), lib_bwd,
-        5 * qkv_bytes + 2 * stats_bytes, 6 * D * pairs,
-        "SDPA forward + backward")
-    del q, k, v, do, o, qt, kt, vt, qg, kg, vg, dot
-    torch.cuda.empty_cache()
 
     # rows 4, 7 and 8 run for tens of us, less than a wrapper's host cost:
     # they, their plain versions and the library calls are timed as CUDA

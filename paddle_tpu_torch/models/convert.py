@@ -18,10 +18,10 @@ def _tensor(v, dev, dtype):
 def params_from_numpy(ep, bp, hp, device=None, dtype=torch.float32):
     """Turn ``(embed, block, head)`` dicts of numpy arrays (the JAX
     package's parameters passed through ``np.asarray``) into the port's
-    dicts of tensors on ``device`` in ``dtype``.  The two packages share leaf
-    names, stacking and the ``[in, out]`` weight layout, so each leaf is a
-    plain copy."""
-    dev = torch.device("cpu" if device is None else device)
+    dicts of tensors on ``device`` (``None``: the CUDA device, raising
+    without one) in ``dtype``.  The two packages share leaf names, stacking
+    and the ``[in, out]`` weight layout, so each leaf is a plain copy."""
+    dev = resolve_device(device)
     return tuple({k: _tensor(v, dev, dtype) for k, v in tree.items()}
                  for tree in (ep, bp, hp))
 

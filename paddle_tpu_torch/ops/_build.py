@@ -55,29 +55,32 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _target(name: str, flags) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names=None) -> dict[str, Path]:
+def build_all(names=None, defines=()) -> dict[str, Path]:
     """Compile every named source (default: all of ``csrc/*.cu``) whose
     library is missing — one ``nvcc`` process per source, started together
-    — and return ``{name: library path}``.  Raises with the compiler's
-    output when any build fails."""
+    — and return ``{name: library path}``.  ``defines`` (``-DNAME=value``
+    flags) build a variant of the sources' compile-time settings into a
+    library of its own; the port loads the default build.  Raises with the
+    compiler's output when any build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    flags = (*NVCC_FLAGS, *defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {n: _target(n, flags) for n in names}
     procs = {}
     for n, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".tmp{os.getpid()}")
         procs[n] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
     for n, (proc, tmp) in procs.items():

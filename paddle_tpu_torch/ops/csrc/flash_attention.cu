@@ -2,11 +2,14 @@
 // lse repack.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   flash_attention_fwd_kernel_call -> _fwd_kernel      (fa_fwd_kernel)
+//   flash_attention_fwd_kernel_call -> _fwd_kernel      (fa_fwd_mma_kernel,
+//                                                         fa_fwd_kernel)
 //   _pack_lse                                            (the forward's lse
 //        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
-//   _bwd_call -> _bwd_dkv_kernel                         (fa_bwd_dkv_kernel)
-//   _bwd_call -> _bwd_dq_kernel                          (fa_bwd_dq_kernel)
+//   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_mma_kernel,
+//                                                fa_bwd_dkv_kernel)
+//   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_tc_kernel,
+//                                                fa_bwd_dq_kernel)
 //
 // Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
 // each is read or written through its (batch, seq, head) strides with unit
@@ -28,28 +31,46 @@
 // delta = rowsum(dO * O) computed by the caller, and sums dK, dV over the
 // Hq / Hkv q heads of a kv head inside one block (no atomics, so the
 // result is deterministic, as the TPU grid's sequential axes were).
-// S_q and S_k need not be multiples of the 64-row tile: a partial tile's
+// S_q and S_k need not be multiples of a tile: a partial tile's
 // missing rows load as zeros, are never written, and its missing key
 // columns score -inf, so they add nothing.
 //
 // What bounds it on this card: at the train shape (S = 2048, D = 64) each
-// (q tile, k tile) pair does 2-4 products (4-6 in the bf16 backward, see
-// below) of 64 x 64 x D multiply-adds for
-// 2 x 64 x D elements loaded, so the kernels are bound by operations, not
-// by bytes.  The TPU's 512 x 1024 blocks do not fit Hopper's 227 KB of
-// shared memory; 64 x 64 tiles keep every kernel under 170 KB at D = 128
-// and give 4,096 forward blocks at the train shape.  Two bodies share the
-// tiling, the masking and the softmax code:
-//   * bf16 inputs (the train step) run their products on the tensor cores
-//     (WMMA 16 x 16 x 16, f32 accumulators; see the *_tc kernels below);
-//   * f32 inputs run them on the CUDA cores in f32, which keeps f32 inputs
-//     exact to f32 rounding (a TF32 tensor-core product would not): tiles
-//     staged in shared memory as f32 (rows padded to D + 1 floats so that
-//     the threads of a warp hit distinct banks), each of the 256 threads
-//     owning a 4 x 4 micro-tile of a 64 x 64 score block and a 4 x D/16
-//     slice of a 64 x D accumulator kept in registers.
-// Keeping scores and the softmax in registers (mma.sync fragments or
-// wgmma), TMA staging and warp specialisation are left for later work.
+// (q tile, key tile) pair does 2 products (forward), 4 plus the hi / lo
+// repeats (dK / dV, see below) or 3 plus repeats (dQ) of tile x tile x D
+// multiply-adds for 2 tiles of rows loaded, so the kernels are bound by
+// operations, not by bytes: 989 TFLOP/s of bf16 tensor-core products
+// against 3.35 TB/s.  What keeps a kernel from that rate is what stands
+// between the products: shared-memory round trips of the score tiles, block
+// barriers, and loads that the products wait for.  The TPU's 512 x 1024
+// blocks do not fit Hopper's 227 KB of shared memory; the tiles here are
+// 64 to 128 rows.  Three bodies:
+//   * bf16 forward and dK / dV (the train step; fa_fwd_mma_kernel,
+//     fa_bwd_dkv_mma_kernel): mma.sync.m16n8k16 fed by ldmatrix, with every
+//     score, p, dP, ds and accumulator in registers and K / V (forward) or
+//     Q / dO / lse / delta (dK / dV) arriving through a cp.async ring while
+//     the previous tile's products run; one block barrier per tile.  The
+//     forward's block takes 128 q rows (8 warps of 16), so that each K / V
+//     tile it loads feeds twice the products of a 64-row tile; dK / dV's
+//     takes 64 keys (4 warps) and streams 64-row q tiles (32 at D = 128,
+//     where dK and dV take twice the registers).  Registers bound the warps
+//     an SM holds, so the launch bounds cap them (128 and 168 at D = 64)
+//     to fit 16 and 12 warps per SM.  Causal launches put the longest
+//     blocks first, and only the tiles that cross the causal frontier or
+//     the end of the keys are masked.
+//   * bf16 dQ: WMMA 16 x 16 x 16 through shared-memory score tiles (the
+//     design the two above replaced; its redesign is later work);
+//   * f32 inputs run their products on the CUDA cores in f32, which keeps
+//     f32 inputs exact to f32 rounding (a TF32 tensor-core product would
+//     not): tiles staged in shared memory as f32 (rows padded to D + 1
+//     floats so that the threads of a warp hit distinct banks), each of the
+//     256 threads owning a 4 x 4 micro-tile of a 64 x 64 score block and a
+//     4 x D/16 slice of a 64 x D accumulator kept in registers.
+// The bf16 forward rounds p to bf16 for P V, as the TPU kernel does
+// (`pd.astype(v.dtype)`).  The TPU backward keeps p and ds in f32; here each
+// enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
+// 2^-16 relative, with two products into one f32 accumulator.  wgmma, TMA
+// and warp specialisation are left for later work.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().
@@ -491,25 +512,17 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: the same three kernels with their products on the tensor
-// cores (WMMA 16 x 16 x 16, bf16 operands, f32 accumulators).  Tiles stay
-// bf16 in shared memory; every 64 x 64 score block lands in shared memory
-// as f32, where the softmax and the elementwise backward terms run as in
-// the f32 kernels above.  The forward rounds p to bf16 for the P V product,
-// as the TPU kernel does (`pd.astype(v.dtype)`).  The TPU backward keeps p
-// and ds in f32 for its products; here each enters as two bf16 tiles,
-// hi = bf16(x) and lo = bf16(x - hi), which carry x to 2^-16 relative, and
-// every product with p or ds runs twice (hi, then lo, into the same f32
-// accumulator): dK / dV do 6 tile products per tile pair instead of 4, dQ
-// 4 instead of 3.  q, k, v and dO are bf16 values already, so the products
-// are then f32-accurate up to that 2^-16.  Each warp owns fixed 16 x 16
-// tiles of the 64 x D outputs: dK, dV and dQ stay in accumulator registers
-// across the whole loop; the forward's O, which the online softmax rescales
-// per row, lives in shared memory as f32.
+// bf16 dQ (row 6; its redesign is later work): WMMA 16 x 16 x 16, bf16
+// operands, f32 accumulators.  Tiles stay bf16 in shared memory; every
+// 64 x 64 score block lands in shared memory as f32, where p and ds run
+// elementwise.  The TPU backward keeps ds in f32 for its product; here it
+// enters as two bf16 tiles, hi = bf16(x) and lo = bf16(x - hi), which carry
+// x to 2^-16 relative, and its product runs twice (hi, then lo, into the
+// same f32 accumulator).  Each warp owns fixed 16 x 16 tiles of the 64 x D
+// dQ, which stays in accumulator registers across the whole loop.
 // ---------------------------------------------------------------------------
 namespace wmma = nvcuda::wmma;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -565,9 +578,8 @@ __device__ __forceinline__ void scores_tc(const __nv_bfloat16* A,
 }
 
 // acc[u] (the warp's 16 x 16 tiles of a 64 x D output) += (P_hi + P_lo) . B,
-// with P_hi, P_lo [64][kLDP] bf16 tiles (transposed when TRANS) and B a
-// [64][D + 8] row tile
-template <int D, bool TRANS>
+// with P_hi, P_lo [64][kLDP] bf16 tiles and B a [64][D + 8] row tile
+template <int D>
 __device__ __forceinline__ void accumulate_tc(FragC* acc,
                                               const __nv_bfloat16* P_hi,
                                               const __nv_bfloat16* P_lo,
@@ -584,15 +596,9 @@ __device__ __forceinline__ void accumulate_tc(FragC* acc,
       wmma::load_matrix_sync(b, B + kk * 16 * ldb<D>() + tj * 16, ldb<D>());
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if constexpr (TRANS) {
-          FragAT a;                         // A(row, k) = P[k][row]
-          wmma::load_matrix_sync(a, parts[h] + kk * 16 * kLDP + ti * 16, kLDP);
-          wmma::mma_sync(acc[u], a, b, acc[u]);
-        } else {
-          FragA a;
-          wmma::load_matrix_sync(a, parts[h] + ti * 16 * kLDP + kk * 16, kLDP);
-          wmma::mma_sync(acc[u], a, b, acc[u]);
-        }
+        FragA a;
+        wmma::load_matrix_sync(a, parts[h] + ti * 16 * kLDP + kk * 16, kLDP);
+        wmma::mma_sync(acc[u], a, b, acc[u]);
       }
     }
   }
@@ -621,96 +627,6 @@ __device__ __forceinline__ void write_acc_tc(const FragC* acc, float* stage,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 View qv, View kv, View vv, View ov, int hq, int hkv, int s_q,
-                 int s_k, int causal, float sm_scale) {
-  constexpr int NT = D / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_b = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_b = q_b + kTile * ldb<D>();
-  __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
-  __nv_bfloat16* p_b = v_b + kTile * ldb<D>();        // [64][kLDP]
-  float* s_s = reinterpret_cast<float*>(p_b + kTile * kLDP);  // [64][kLDF]
-  float* o_s = s_s + kTile * kLDF;                    // [64][D + 4]
-  float* alpha_s = o_s + kTile * ldo<D>();
-  float* m_s = alpha_s + kTile;
-  float* l_s = m_s + kTile;
-
-  const int row0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
-  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
-
-  load_tile_bf16<D>(q_b, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-  for (int i = threadIdx.x; i < kTile * ldo<D>(); i += kThreads) o_s[i] = 0.f;
-  float m[8], l[8];                         // rows warp * 8 + rr
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) { m[rr] = kNegInf; l[rr] = 0.f; }
-
-  const int n_kt = k_tiles_for(row0, s_q, s_k, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();                        // last tile's readers are done
-    load_tile_bf16<D>(k_b, kb, kv.ss, kt * kTile, s_k);
-    load_tile_bf16<D>(v_b, vb, vv.ss, kt * kTile, s_k);
-    __syncthreads();
-    scores_tc<D>(q_b, k_b, s_s);
-    __syncthreads();
-    softmax_step<kLDF, kLDP>(s_s, p_b, alpha_s, m, l, row0, kt * kTile,
-                             offset, causal, s_k, sm_scale);
-    __syncthreads();
-    // the warp rescales the rows of its own O tiles, then adds P V to them
-#pragma unroll
-    for (int u = 0; u < 4 * NT / kWarps; ++u) {
-      const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
-      float* ot = o_s + ti * 16 * ldo<D>() + tj * 16;
-      for (int e = lane; e < 256; e += 32)
-        ot[(e / 16) * ldo<D>() + e % 16] *= alpha_s[ti * 16 + e / 16];
-      __syncwarp();
-      FragC c;
-      wmma::load_matrix_sync(c, ot, ldo<D>(), wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA a;
-        FragB bv;
-        wmma::load_matrix_sync(a, p_b + ti * 16 * kLDP + kk * 16, kLDP);
-        wmma::load_matrix_sync(bv, v_b + kk * 16 * ldb<D>() + tj * 16, ldb<D>());
-        wmma::mma_sync(c, a, bv, c);
-      }
-      wmma::store_matrix_sync(ot, c, ldo<D>(), wmma::mem_row_major);
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      m_s[warp * 8 + rr] = m[rr];
-      l_s[warp * 8 + rr] = l[rr];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    if (row0 + r < s_q) {
-      const float lr = l_s[r];
-      const float inv = lr > 0.f ? 1.f / lr : 0.f;
-      o[ov.at(b, row0 + r, h) + d] = __float2bfloat16(o_s[r * ldo<D>() + d] * inv);
-    }
-  }
-  if (threadIdx.x < kTile && row0 + threadIdx.x < s_q) {
-    const int r = threadIdx.x;
-    lse[((long long)b * hq + h) * s_q + row0 + r] =
-        m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
-  }
-}
-
 // x as two bf16 values, hi = bf16(x) and lo = bf16(x - hi): x - hi is
 // exact in f32 and at most 2^-8 |x|, so hi + lo is x to 2^-16 relative
 __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
@@ -720,93 +636,23 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
   *lo = __float2bfloat16(x - __bfloat162float(h));
 }
 
-// p and ds of a (q tile, k tile) pair from the f32 scores and dP tiles,
-// each split into hi / lo bf16 tiles for the next products (p only when
-// p_hi is set; the lo tile of a [64][kLDP] pair follows its hi tile)
-__device__ __forceinline__ void p_and_ds_tc(const float* s_s, const float* dp_s,
-                                            const float* lse_s,
-                                            const float* delta_s,
-                                            __nv_bfloat16* p_hi,
-                                            __nv_bfloat16* ds_hi, int qrow0,
-                                            int kcol0, int offset, int causal,
-                                            int s_k, float sm_scale) {
+// ds of a (q tile, k tile) pair from the f32 scores and dP tiles, split
+// into hi / lo bf16 tiles for the next product (the lo tile of the
+// [64][kLDP] pair follows its hi tile)
+__device__ __forceinline__ void ds_tc(const float* s_s, const float* dp_s,
+                                      const float* lse_s, const float* delta_s,
+                                      __nv_bfloat16* ds_hi, int qrow0,
+                                      int kcol0, int offset, int causal,
+                                      int s_k, float sm_scale) {
   constexpr int kLo = kTile * kLDP;
   for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
     const int r = i / kTile, c = i % kTile, e = r * kLDP + c;
     const float s = masked_score(s_s[r * kLDF + c], sm_scale, qrow0 + r,
                                  kcol0 + c, offset, causal, s_k);
     const float p = expf(s - lse_s[r]);
-    if (p_hi != nullptr) split_bf16(p, p_hi + e, p_hi + kLo + e);
     split_bf16(p * (dp_s[r * kLDF + c] - delta_s[r]) * sm_scale, ds_hi + e,
                ds_hi + kLo + e);
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, View qv, View kv,
-                     View vv, View dov, View dkv, View dvv, int hq, int hkv,
-                     int s_q, int s_k, int causal, float sm_scale) {
-  constexpr int NU = 4 * (D / 16) / kWarps;   // output tiles per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* k_b = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
-  __nv_bfloat16* q_b = v_b + kTile * ldb<D>();
-  __nv_bfloat16* do_b = q_b + kTile * ldb<D>();
-  __nv_bfloat16* p_b = do_b + kTile * ldb<D>();       // hi, lo [64][kLDP]
-  __nv_bfloat16* ds_b = p_b + 2 * kTile * kLDP;       // hi, lo [64][kLDP]
-  float* s_s = reinterpret_cast<float*>(ds_b + 2 * kTile * kLDP);  // [64][kLDF]
-  float* dp_s = s_s + kTile * kLDF;
-  float* stage = s_s;                       // [64][D + 4], after the loop
-  float* lse_s = dp_s + kTile * kLDF;
-  float* delta_s = lse_s + kTile;
-
-  const int col0 = blockIdx.x * kTile;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int rep = hq / hkv;
-  const int offset = s_k - s_q;
-
-  load_tile_bf16<D>(k_b, k + kv.at(b, 0, hk), kv.ss, col0, s_k);
-  load_tile_bf16<D>(v_b, v + vv.at(b, 0, hk), vv.ss, col0, s_k);
-  FragC dk_acc[NU], dv_acc[NU];
-#pragma unroll
-  for (int u = 0; u < NU; ++u) {
-    wmma::fill_fragment(dk_acc[u], 0.f);
-    wmma::fill_fragment(dv_acc[u], 0.f);
-  }
-
-  const int n_qt = (s_q + kTile - 1) / kTile;
-  for (int rr = 0; rr < rep; ++rr) {
-    const int h = hk * rep + rr;
-    const long long row_base = ((long long)b * hq + h) * s_q;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int row0 = qt * kTile;
-      if (causal && row0 + kTile - 1 + offset < col0) continue;
-      __syncthreads();
-      load_tile_bf16<D>(q_b, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-      load_tile_bf16<D>(do_b, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
-      load_stats(lse_s, delta_s, lse, delta, row_base, row0, s_q);
-      __syncthreads();
-      scores_tc<D>(q_b, k_b, s_s);
-      scores_tc<D>(do_b, v_b, dp_s);
-      __syncthreads();
-      p_and_ds_tc(s_s, dp_s, lse_s, delta_s, p_b, ds_b, row0, col0, offset,
-                  causal, s_k, sm_scale);
-      __syncthreads();
-      // dv += p^T do, dk += ds^T q
-      accumulate_tc<D, true>(dv_acc, p_b, p_b + kTile * kLDP, do_b);
-      accumulate_tc<D, true>(dk_acc, ds_b, ds_b + kTile * kLDP, q_b);
-    }
-  }
-  write_acc_tc<D>(dk_acc, stage, dk + dkv.at(b, 0, hk), dkv.ss, col0, s_k);
-  write_acc_tc<D>(dv_acc, stage, dv + dvv.at(b, 0, hk), dvv.ss, col0, s_k);
 }
 
 template <int D>
@@ -857,12 +703,572 @@ fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     scores_tc<D>(q_b, k_b, s_s);
     scores_tc<D>(do_b, v_b, dp_s);
     __syncthreads();
-    p_and_ds_tc(s_s, dp_s, lse_s, delta_s, nullptr, ds_b, row0, kt * kTile,
-                offset, causal, s_k, sm_scale);
+    ds_tc(s_s, dp_s, lse_s, delta_s, ds_b, row0, kt * kTile, offset, causal,
+          s_k, sm_scale);
     __syncthreads();
-    accumulate_tc<D, false>(acc, ds_b, ds_b + kTile * kLDP, k_b);  // dq += ds k
+    accumulate_tc<D>(acc, ds_b, ds_b + kTile * kLDP, k_b);  // dq += ds k
   }
   write_acc_tc<D>(acc, stage, dq + dqv.at(b, 0, h), dqv.ss, row0, s_q);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward and dK / dV, written for Hopper's tensor cores through
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  Every score, p,
+// dP, ds and output accumulator lives in registers: a warp owns 16 rows
+// (q rows in the forward, key rows in dK / dV), an S = A . B^T product comes
+// out as accumulator fragments (thread (g, t) = (lane / 4, lane % 4) holds
+// rows g and g + 8, columns 2t and 2t + 1 of each 8-column n-tile), and
+// those fragments are, with no data movement, the A operand of the next
+// product (P . V; p^T . dO and ds^T . Q).  Row statistics reduce over the 4
+// lanes of a row by shuffles.  Tiles reach shared memory by cp.async
+// through a ring of stages (the copy of tile j + 1 runs while the products
+// of tile j do), with one block barrier per tile; their rows are
+// stored with their 16-byte chunks XOR-swizzled by (row % 8), so that every
+// ldmatrix phase reads 8 distinct bank groups.  The softmax runs in base 2
+// (scores times sm_scale * log2 e, ex2.approx), which is the same function.
+// ---------------------------------------------------------------------------
+// Compile-time settings, measured on phase 5b of chip_smoke.py (which
+// builds variants of them for that measurement only; the port loads the
+// defaults).  At D = 64 the forward holds 16 warps on an SM and dK / dV 12:
+// the register cap of the launch bounds is what lets a second (third) block
+// in, and occupancy, more than the ring's depth, hides the loads.
+#ifndef FA_FWD_WARPS
+#define FA_FWD_WARPS 8         // forward q rows per block = 16 x warps
+#endif
+#ifndef FA_STAGES
+#define FA_STAGES 2            // depth of the K / V (forward) and Q / dO
+#endif                         // (dK / dV) rings; 1 = no copy overlaps
+#ifndef FA_FWD_MINB
+#define FA_FWD_MINB 2          // forward blocks per SM at D = 64
+#endif
+#ifndef FA_DKV_WARPS
+#define FA_DKV_WARPS 4         // dK / dV key rows per block = 16 x warps
+#endif
+#ifndef FA_DKV_MINB
+#define FA_DKV_MINB 3          // dK / dV blocks per SM at D = 64
+#endif
+#ifndef FA_DKV_BQ64
+#define FA_DKV_BQ64 64         // dK / dV q tile at D = 64 (32 at D = 128)
+#endif
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kKeyTile = 64;           // keys per forward k tile
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !full (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma16816(float c[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x, y) as a hi and a lo bf16 pair, as split_bf16 does for one value
+__device__ __forceinline__ void split_pair(float x, float y, unsigned& hi,
+                                          unsigned& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<unsigned*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// element offset of 16-byte chunk c of row r in a swizzled [rows][D] tile
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// rows [row0, row0 + R) of a [.., D] row tile (row stride ss) -> swizzled
+// shared tile, 16 bytes per cp.async; rows at or past `rows` are zeros
+template <int D, int R, int NTHR>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int row0, int rows) {
+  constexpr int NC = D / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < R * NC; i += NTHR) {
+    const int r = i / NC, c = i % NC, row = row0 + r;
+    cp_async16(dst + swz<D>(r, c),
+               src + (long long)min(row, rows - 1) * ss + c * 8, row < rows);
+  }
+}
+
+// the A fragments (16 x 16 bf16 per k-step) of rows [r0, r0 + 16) of a
+// swizzled tile, k-step kk
+template <int D>
+__device__ __forceinline__ void load_a(unsigned a[4],
+                                       const __nv_bfloat16* tile, int r0,
+                                       int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(a, tile + swz<D>(r0 + (lane & 15), kk * 2 + (lane >> 4)));
+}
+
+// B fragments of two n-tiles (rows n0 .. n0 + 15 of a row tile read as
+// B^T: B[k][n] = tile[n][k]) at k-step kk: b[0], b[1] for n0, b[2], b[3]
+// for n0 + 8
+template <int D>
+__device__ __forceinline__ void load_bt(unsigned b[4],
+                                        const __nv_bfloat16* tile, int n0,
+                                        int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(b, tile + swz<D>(n0 + ((lane >> 4) << 3) + (lane & 7),
+                           kk * 2 + ((lane >> 3) & 1)));
+}
+
+// B fragments of two n-tiles of a row tile read as B: B[k][n] = tile[k][n],
+// k = k0 .. k0 + 15, n = chunk pair dp: b[0], b[1] for columns 16 dp ..,
+// b[2], b[3] for 16 dp + 8 ..
+template <int D>
+__device__ __forceinline__ void load_b(unsigned b[4],
+                                       const __nv_bfloat16* tile, int k0,
+                                       int dp) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_t(b, tile + swz<D>(k0 + (((lane >> 3) & 1) << 3) + (lane & 7),
+                             dp * 2 + (lane >> 4)));
+}
+
+// number of 64-key tiles that a q tile of rows [row0, row0 + R) visits
+__device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
+                                         int causal) {
+  const int n = (s_k + kKeyTile - 1) / kKeyTile;
+  if (!causal) return n;
+  const int last = min(row0 + R, s_q) - 1 + (s_k - s_q);
+  return last < 0 ? 0 : min(n, last / kKeyTile + 1);
+}
+
+// Forward, bf16.  A block takes 16 x NW q rows of one (batch, q head);
+// warp w owns rows 16 w .. 16 w + 15 and keeps their Q fragments, S, P and
+// the O accumulator in registers.  The q tiles with the most key tiles are
+// launched first (grid y counts down), so the causal tail is short.
+template <int D, int NW, int NS>
+__global__ void __launch_bounds__(NW * 32, D == 64 ? FA_FWD_MINB : 1)
+fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  View qv, View kv, View vv, View ov, int hq, int hkv,
+                  int s_q, int s_k, int causal, float sm_scale) {
+  constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
+  constexpr int KS = D / 16;                // k-steps of Q K^T
+  constexpr int NO = D / 8;                 // n-tiles of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][D]
+  __nv_bfloat16* k_s = q_s + BM * D;        // NS x [BN][D]
+  __nv_bfloat16* v_s = k_s + NS * BN * D;   // NS x [BN][D]
+
+  const int n_qt = (s_q + BM - 1) / BM;
+  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
+  const int hk = h / (hq / hkv);
+  const int offset = s_k - s_q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = row0 + warp * 16;        // the warp's first q row
+  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
+  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
+  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
+  auto load_kv = [&](int kt) {
+    const int st = kt % NS;
+    copy_rows<D, BN, NTHR>(k_s + st * BN * D, kb, kv.ss, kt * BN, s_k);
+    copy_rows<D, BN, NTHR>(v_s + st * BN * D, vb, vv.ss, kt * BN, s_k);
+  };
+
+  // group 0: Q and key tile 0; groups 1 .. NS - 2: key tiles 1 .. NS - 2
+  copy_rows<D, BM, NTHR>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
+#pragma unroll
+  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  const float scale2 = sm_scale * kLog2e;
+  const float neg2 = kNegInf * kLog2e;      // NEG_INF in base-2 units
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};   // rows g, g + 8 (l: this
+                                                 // lane's columns only)
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if constexpr (NS == 1) {
+      if (kt > 0) {
+        __syncthreads();                    // every warp is done with kt - 1
+        load_kv(kt);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<NS - 2>();              // tile kt (and Q) have landed
+      __syncthreads();                      // ... for every thread, and tile
+                                            // kt - 1's stage is free
+      if (kt + NS - 1 < n_kt) load_kv(kt + NS - 1);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ks = k_s + (kt % NS) * BN * D;
+    const __nv_bfloat16* vs = v_s + (kt % NS) * BN * D;
+
+    float s[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned qa[4];                       // reloaded: registers are the
+      load_a<D>(qa, q_s, warp * 16, kk);    // scarcer resource
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        unsigned bf[4];
+        load_bt<D>(bf, ks, np * 16, kk);
+        mma16816(s[2 * np], qa, bf[0], bf[1]);
+        mma16816(s[2 * np + 1], qa, bf[2], bf[3]);
+      }
+    }
+
+    // mask only a tile that crosses the warp's causal frontier or the end
+    // of the keys (its scores are scaled here, and a masked one is NEG_INF
+    // exactly); a full tile stays raw and takes the scale in the exponent's
+    // FFMA (the scale is positive, so the max commutes with it)
+    const int kcol0 = kt * BN;
+    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
+                        kcol0 + BN > s_k;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kcol0 + 8 * j + 2 * t + (e & 1);
+          const int row = wrow + g + 8 * (e >> 1);
+          float x = s[j][e] * scale2;
+          if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
+          else if (causal && row + offset < col) x = neg2;
+          s[j][e] = x;
+        }
+    }
+    float mx[2] = {s[0][0], s[0][2]};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    const float sc = masked ? 1.f : scale2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      mx[r] = fmaxf(m[r], mx[r] * sc);
+      const float alpha = fast_exp2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(s[j][e], sc, -m[e >> 1]));
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+
+    // O += P V: P (rounded to bf16, as the TPU kernel does) is the A
+    // operand straight from the score fragments
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const unsigned pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned bf[4];
+        load_b<D>(bf, vs, kk * 16, dp);
+        mma16816(acc[2 * dp], pa, bf[0], bf[1]);
+        mma16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // finalize: o = acc / l where l > 0 (else 0), lse = m + log(max(l, 1e-30))
+  // into the compact (= TPU-packed) [B*Hq, S_q] row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int row = wrow + g + 8 * r;
+    if (row >= s_q) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    __nv_bfloat16* orow = o + ov.at(b, row, h);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (t == 0)
+      lse[((long long)b * hq + h) * s_q + row] =
+          m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
+// dK / dV, bf16.  A block takes 16 x NW key rows of one (batch, kv head)
+// and keeps them (K, V) in shared memory; warp w owns keys 16 w .. 16 w + 15
+// and their dK, dV accumulators in registers, across every (q head of the
+// GQA group, q tile) pair, so the sum over the group needs no atomics.  Per
+// q tile of BQ rows it computes the transposed tiles S^T = K Q^T and
+// dP^T = V dO^T, whose fragments (rows = keys) are already the A operand of
+// dV += p^T dO and dK += ds^T Q; lse and delta index q rows, so they are
+// read per fragment column.  p and ds enter those products as hi + lo bf16
+// pairs (2^-16 relative, as the TPU kernel's f32).  Q, dO, lse and delta
+// tiles stream through the cp.async ring.  The key blocks with the most q
+// tiles (the first ones, when causal) are launched first.
+template <int D, int NW, int BQ, int NS>
+__global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DKV_MINB : 1)
+fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, View qv, View kv,
+                      View vv, View dov, View dkv, View dvv, int hq, int hkv,
+                      int s_q, int s_k, int causal, float sm_scale) {
+  constexpr int BK = 16 * NW, NTHR = NW * 32;
+  constexpr int KS = D / 16;                // k-steps of K Q^T
+  constexpr int NQ = BQ / 8;                // n-tiles of S^T (q columns)
+  constexpr int NO = D / 8;                 // n-tiles of dK, dV
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][D]
+  __nv_bfloat16* v_s = k_s + BK * D;
+  __nv_bfloat16* ring = v_s + BK * D;       // NS x {Q, dO} [BQ][D]
+  float* stats = reinterpret_cast<float*>(ring + NS * 2 * BQ * D);
+                                            // NS x {lse, delta} [BQ]
+
+  const int col0 = blockIdx.y * BK;
+  const int hk = blockIdx.x % hkv, b = blockIdx.x / hkv;
+  const int rep = hq / hkv;
+  const int offset = s_k - s_q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk0 = col0 + warp * 16;         // the warp's first key
+
+  // q tiles wholly before the block's causal frontier add nothing
+  const int n_qt = (s_q + BQ - 1) / BQ;
+  int qt0 = 0;
+  if (causal) {
+    const int x = col0 - offset - BQ + 1;   // first row0 that can see col0
+    qt0 = x <= 0 ? 0 : (x + BQ - 1) / BQ;
+  }
+  const int nq = max(n_qt - qt0, 0);
+  const int n_it = rep * nq;
+  auto load_q = [&](int it) {
+    const int st = it % NS;
+    const int h = hk * rep + it / nq, row0 = (qt0 + it % nq) * BQ;
+    __nv_bfloat16* qs = ring + st * 2 * BQ * D;
+    copy_rows<D, BQ, NTHR>(qs, q + qv.at(b, 0, h), qv.ss, row0, s_q);
+    copy_rows<D, BQ, NTHR>(qs + BQ * D, dout + dov.at(b, 0, h), dov.ss, row0,
+                           s_q);
+    if (threadIdx.x < BQ) {
+      const int row = row0 + threadIdx.x;
+      const long long at = ((long long)b * hq + h) * s_q + min(row, s_q - 1);
+      float* ls = stats + st * 2 * BQ;
+      cp_async4(ls + threadIdx.x, lse + at, row < s_q);
+      cp_async4(ls + BQ + threadIdx.x, delta + at, row < s_q);
+    }
+  };
+
+  // group 0: K, V and q tile 0; groups 1 .. NS - 2: q tiles 1 .. NS - 2
+  copy_rows<D, BK, NTHR>(k_s, k + kv.at(b, 0, hk), kv.ss, col0, s_k);
+  copy_rows<D, BK, NTHR>(v_s, v + vv.at(b, 0, hk), vv.ss, col0, s_k);
+#pragma unroll
+  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
+    if (s < n_it) load_q(s);
+    cp_async_commit();
+  }
+
+  const float scale2 = sm_scale * kLog2e;
+  const float neg2 = kNegInf * kLog2e;
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { dk_acc[n][e] = 0.f; dv_acc[n][e] = 0.f; }
+
+  for (int it = 0; it < n_it; ++it) {
+    if constexpr (NS == 1) {
+      if (it > 0) {
+        __syncthreads();
+        load_q(it);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<NS - 2>();
+      __syncthreads();
+      if (it + NS - 1 < n_it) load_q(it + NS - 1);
+      cp_async_commit();
+    }
+    const int row0 = (qt0 + it % nq) * BQ;
+    // a warp whose keys no row of this tile can see adds nothing
+    if (causal && row0 + BQ - 1 + offset < wk0) continue;
+    const int st = it % NS;
+    const __nv_bfloat16* qs = ring + st * 2 * BQ * D;
+    const __nv_bfloat16* dos = qs + BQ * D;
+    const float* ls = stats + st * 2 * BQ;
+
+    float sc[NQ][4], dp[NQ][4];             // S^T and dP^T: keys x q rows
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) { sc[j][e] = 0.f; dp[j][e] = 0.f; }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned ka[4], va[4];
+      load_a<D>(ka, k_s, warp * 16, kk);
+      load_a<D>(va, v_s, warp * 16, kk);
+#pragma unroll
+      for (int np = 0; np < BQ / 16; ++np) {
+        unsigned bf[4];
+        load_bt<D>(bf, qs, np * 16, kk);
+        mma16816(sc[2 * np], ka, bf[0], bf[1]);
+        mma16816(sc[2 * np + 1], ka, bf[2], bf[3]);
+        load_bt<D>(bf, dos, np * 16, kk);
+        mma16816(dp[2 * np], va, bf[0], bf[1]);
+        mma16816(dp[2 * np + 1], va, bf[2], bf[3]);
+      }
+    }
+
+    // p = exp(s - lse) and ds = p (dP - delta) sm_scale; only a tile that
+    // crosses the warp's causal frontier is masked (NEG_INF, as the TPU)
+    const bool masked = causal && row0 + offset < wk0 + 15;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(ls + BQ + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
+        const float dl = (e & 1) ? d2.y : d2.x;
+        float x = sc[j][e] * scale2;
+        if (masked && row0 + 8 * j + 2 * t + (e & 1) + offset <
+                          wk0 + g + 8 * (e >> 1))
+          x = neg2;
+        const float p = fast_exp2(x - lse2);
+        sc[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dl) * sm_scale;
+      }
+    }
+
+    // dV += p^T dO and dK += ds^T Q, each factor as hi + lo
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      unsigned ph[4], pl[4], dh[4], dl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * kq + (i >> 1), e = 2 * (i & 1);
+        split_pair(sc[j][e], sc[j][e + 1], ph[i], pl[i]);
+        split_pair(dp[j][e], dp[j][e + 1], dh[i], dl[i]);
+      }
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        unsigned bf[4];
+        load_b<D>(bf, dos, kq * 16, np);
+        mma16816(dv_acc[2 * np], ph, bf[0], bf[1]);
+        mma16816(dv_acc[2 * np], pl, bf[0], bf[1]);
+        mma16816(dv_acc[2 * np + 1], ph, bf[2], bf[3]);
+        mma16816(dv_acc[2 * np + 1], pl, bf[2], bf[3]);
+        load_b<D>(bf, qs, kq * 16, np);
+        mma16816(dk_acc[2 * np], dh, bf[0], bf[1]);
+        mma16816(dk_acc[2 * np], dl, bf[0], bf[1]);
+        mma16816(dk_acc[2 * np + 1], dh, bf[2], bf[3]);
+        mma16816(dk_acc[2 * np + 1], dl, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wk0 + g + 8 * r;
+    if (row >= s_k) continue;
+    __nv_bfloat16* dkr = dk + dkv.at(b, row, hk);
+    __nv_bfloat16* dvr = dv + dvv.at(b, row, hk);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<unsigned*>(dkr + 8 * n + 2 * t) =
+          pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<unsigned*>(dvr + 8 * n + 2 * t) =
+          pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
 }
 
 // [BH, S, 1] stats with (row, seq) strides -> compact [BH, S] f32; one
@@ -892,16 +1298,17 @@ template <int D>
 constexpr int dq_smem() { return (4 * kTile * (D + 1) + kTile * kLDS + 2 * kTile) * 4; }
 
 template <int D>
-constexpr int fwd_tc_smem() {
-  return 3 * kTile * ldb<D>() * 2 + kTile * kLDP * 2 + kTile * kLDF * 4 +
-         kTile * ldo<D>() * 4 + 3 * kTile * 4;
+constexpr int fwd_mma_smem() {
+  return (16 * FA_FWD_WARPS * D + 2 * FA_STAGES * kKeyTile * D) * 2;
 }
-// the backward kernels' output staging tile reuses the two f32 score tiles
+// the dQ kernel's output staging tile reuses the two f32 score tiles
 static_assert(kTile * ldo<128>() <= 2 * kTile * kLDF, "staging tile too big");
 template <int D>
-constexpr int dkv_tc_smem() {
-  return 4 * kTile * ldb<D>() * 2 + 4 * kTile * kLDP * 2 +
-         2 * kTile * kLDF * 4 + 2 * kTile * 4;
+constexpr int dkv_bq() { return D == 64 ? FA_DKV_BQ64 : 32; }
+template <int D>
+constexpr int dkv_mma_smem() {
+  return (2 * 16 * FA_DKV_WARPS * D + FA_STAGES * 2 * dkv_bq<D>() * D) * 2 +
+         FA_STAGES * 2 * dkv_bq<D>() * 4;
 }
 template <int D>
 constexpr int dq_tc_smem() {
@@ -933,19 +1340,22 @@ template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, const long long* st, const Geometry& g,
                 cudaStream_t stream) {
-  const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
   if constexpr (kTensorCores<T>) {
-    constexpr int smem = fwd_tc_smem<D>();
+    constexpr int rows = 16 * FA_FWD_WARPS;
+    constexpr int smem = fwd_mma_smem<D>();
+    const auto kernel = fa_fwd_mma_kernel<D, FA_FWD_WARPS, FA_STAGES>;
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_fwd_tc_kernel<D>, smem);
+    cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
-    fa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+    const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows);
+    kernel<<<grid, 32 * FA_FWD_WARPS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
         g.s_k, g.causal, g.sm_scale);
     return cudaGetLastError();
   } else {
+    const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
     constexpr int smem = fwd_smem<D>();
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D>, smem);
@@ -964,13 +1374,16 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, const long long* st,
                     const Geometry& g, cudaStream_t stream) {
-  const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
   if constexpr (kTensorCores<T>) {
-    constexpr int smem = dkv_tc_smem<D>();
+    constexpr int keys = 16 * FA_DKV_WARPS;
+    constexpr int smem = dkv_mma_smem<D>();
+    const auto kernel =
+        fa_bwd_dkv_mma_kernel<D, FA_DKV_WARPS, dkv_bq<D>(), FA_STAGES>;
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_bwd_dkv_tc_kernel<D>, smem);
+    cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
-    fa_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+    const dim3 grid(g.hkv * g.batch, (g.s_k + keys - 1) / keys);
+    kernel<<<grid, 32 * FA_DKV_WARPS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
@@ -978,6 +1391,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
         view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale);
     return cudaGetLastError();
   } else {
+    const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
     constexpr int smem = dkv_smem<D>();
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, fa_bwd_dkv_kernel<T, D>, smem);

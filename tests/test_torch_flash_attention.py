@@ -202,11 +202,35 @@ def test_ref_matches_jax_ref():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
+def _held_bf16(got, want, extra=None):
+    """A bf16 kernel output against its plain version, as ``chip_smoke.py``
+    holds it (``TRAIN_TOL``): elementwise within 2e-3 + 1.6e-2 |plain|
+    (+ ``extra``), and each row whose plain norm is at least 1% of the
+    median row's within 1.6e-2 of that norm."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = 2e-3 + 1.6e-2 * want.abs() + (0 if extra is None else extra)
+    assert bool((err <= bound).all()), float(err.max())
+    rows = (got - want).reshape(-1, want.shape[-1]).norm(dim=-1)
+    ref = want.reshape(-1, want.shape[-1]).norm(dim=-1)
+    big = ref >= 0.01 * ref.median()
+    assert bool((rows[big] <= 1.6e-2 * ref[big]).all())
+
+
+# bf16 cases for the tensor-core kernels' tiling: s_q < s_k causal, a
+# partial 128-row forward q tile with GQA 16:4, S = 200 causal at D = 128,
+# and one short q tile against a long key range
+BF16_CARD_CASES = [((2, 128, 384, 8, 4, 64), True),
+                   ((2, 320, 320, 16, 4, 64), True),
+                   ((2, 200, 200, 8, 8, 128), True),
+                   ((2, 64, 2048, 16, 16, 64), True)]
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """Forward, both backward kernels and the repack against their plain
     versions on the card, f32, causal GQA, s_q < s_k, and lengths that end
-    inside a 64-row tile."""
+    inside a 64-row tile; and the bf16 kernels on ``BF16_CARD_CASES``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -231,6 +255,30 @@ def test_kernels_match_plain_versions_on_card():
         torch.cuda.synchronize()
         for a, b_ in ((o, ro), (lse, rlse)) + tuple(zip(got, want)):
             torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+    for shape, causal in BF16_CARD_CASES:
+        q, k, v, do = (torch.from_numpy(x).cuda().bfloat16()
+                       for x in _inputs(shape, seed=7))
+        scale = 1.0 / math.sqrt(shape[-1])
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+        ro, rlse = tfa.flash_attention_fwd_ref(q, k, v, causal, scale)
+        # the kernel rounds p to bf16 before P V, as the TPU kernel does
+        p_round = 2.0 ** -8 * tfa.flash_attention_fwd_ref(
+            q, k, v.abs(), causal, scale)[0].float()
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(lse.shape).contiguous()
+        got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                          scale)
+        got += (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                           scale),)
+        want = tfa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               causal, scale)
+        want += (tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                causal, scale),)
+        torch.cuda.synchronize()
+        _held_bf16(o, ro, p_round)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+        for a, b_ in zip(got, want):
+            _held_bf16(a, b_)
     lse3 = torch.randn(4, 256, 3, device="cuda")[..., 1:2]
     torch.testing.assert_close(tfa.pack_lse(lse3), tfa.pack_lse_ref(lse3),
                                rtol=0, atol=0)

@@ -85,6 +85,21 @@ def test_model_functions_without_device_need_a_card(monkeypatch):
     assert init_pages()["k"].device == torch.device("cpu")
 
 
+def test_params_from_numpy_without_device_needs_a_card(monkeypatch):
+    """``params_from_numpy`` resolves device=None to the card, as its ERNIE
+    sibling does, and lands on the CPU only when asked."""
+    from paddle_tpu_torch.models.convert import params_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trees = ({"tok": np.zeros((4, 2), np.float32)},
+             {"wq": np.zeros((1, 2, 2), np.float32)},
+             {"lm": np.zeros((2, 4), np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(*trees)
+    ep, bp, hp = params_from_numpy(*trees, device="cpu")
+    assert {t.device for t in (ep["tok"], bp["wq"], hp["lm"])} \
+        == {torch.device("cpu")}
+
+
 def test_train_entry_points_without_device_need_a_card(monkeypatch):
     """build_functional_llama and the optimizer's init_opt_state resolve
     device=None to the card too, and run on the CPU only when asked."""

@@ -67,7 +67,8 @@ class _Pair:
             jcfg, n_micro=1, key=jax.random.PRNGKey(seed))
         self.jparams = (ep, bp, hp)
         self.tparams = params_from_numpy(
-            *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)])
+            *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)],
+            device="cpu")
         (self.jinit, self.jprefill, self.jchunk, self.jdecode,
          self.jverify) = jbuild(jcfg, page_size=page_size,
                                 num_pages=num_pages,

@@ -140,7 +140,8 @@ def test_quantize_params_bit_equal_at_f32():
     ep, bp, hp, *_ = build_functional_llama(jcfg, n_micro=1,
                                             key=jax.random.PRNGKey(0))
     tparams = params_from_numpy(
-        *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)])
+        *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)],
+        device="cpu")
     want = jq.quantize_params((ep, bp, hp), bits=8)
     got = tq.quantize_params(tparams, bits=8)
     for wt, gt, orig in zip(want, got, tparams):

@@ -79,7 +79,8 @@ def _models(kv_heads, succ=False):
         tok = ep["tok"][np.argsort(SUCC)] if succ else ep["tok"]
         hp = dict(hp, lm=(tok.T * 4.0).astype(hp["lm"].dtype))
         tparams = params_from_numpy(
-            *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)])
+            *[{k: np.asarray(v) for k, v in t.items()} for t in (ep, bp, hp)],
+            device="cpu")
         _PARAMS[kv_heads, succ] = ((ep, bp, hp), tparams, jcfg,
                                    TConfig(**cfg))
     return _PARAMS[kv_heads, succ]
