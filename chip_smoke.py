@@ -1,6 +1,6 @@
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc`` and drives
 the port's main paths — the paged continuous-batching LLaMA server with a
@@ -9,7 +9,10 @@ full width of LLaMA-2 7B; the train step of the repo's 271M LLaMA at
 B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
 ``nn.functional.softmax`` entry — with random weights made from a seed:
 
-  1. build     nvcc for every kernel source, all started together;
+  1. build     nvcc for every kernel source, all started together, and
+               ptxas's registers and spills of the mma.sync attention
+               kernels and the RMSNorm backward (the dQ kernel must not
+               spill);
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
@@ -26,8 +29,12 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                and bf16; for the bf16 kernels' own tiling, s_q < s_k
                causal, GQA 16:4 at S 320 (a partial 128-row q tile), S 200
                causal at D = 128 and one 64-row q tile against 2,048 keys;
-               the standalone repack on strided stats, RMSNorm rows at
-               16,384 x 1,024 bf16 and f32;
+               for dQ's 64-row blocks, D = 128 with GQA 16:4, a q length
+               of 136, s_q < s_k causal with GQA 16:4 and S 200
+               non-causal; the standalone repack on strided stats, RMSNorm
+               rows at 16,384 x 1,024 bf16 and f32, N off the backward's
+               row runs with f32 w, H = 768, H = 1,000 (the backward's
+               general loop) and f32 x with bf16 w;
                (c) the LayerNorm, softmax and AdamW kernels at ERNIE's
                shapes (32,768 x 768 rows; [8, 12, 512, 512]; the 40,000 x
                768 embedding and tensors of 768 and 40,000), bf16 and f32,
@@ -70,8 +77,10 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                the phase-3c shape beside SDPA (forward; backward alone, and
                forward + backward) and F.rms_norm, rows 3, 5 and 6 at
                phase 3d's attention shape, one line per design step of
-               rows 3 and 5 (variants of their tiles, ring depth and
-               occupancy, each held against the plain version), and the
+               rows 3, 5 and 6 (variants of their tiles, ring depth and
+               occupancy, each held against the plain version), with
+               ``--parent DIR`` (another commit's ``csrc``) that build's dQ
+               and RMSNorm backward timed in turns with these, and the
                LayerNorm, softmax and AdamW kernels at the phase-3d/3e
                shapes beside F.layer_norm, torch.softmax and
                torch._fused_adamw_;
@@ -122,6 +131,45 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# -- phase 1: build ----------------------------------------------------------
+REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
+                    "fa_bwd_dq_mma_kernel", "rms_bwd_vec_kernel")
+
+
+def ptxas_lines(path):
+    """(kernel, template arguments as mangled, registers, spill stores,
+    spill loads) of every instantiation of ``REPORTED_KERNELS`` in the
+    ptxas report kept beside the library at ``path``."""
+    import re
+    entry = re.compile(
+        r"Compiling entry function '(\w+)'[^\n]*\n[^\n]*\n\s*(\d+) bytes "
+        r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n"
+        r"[^\n]*Used (\d+) registers")
+    out = []
+    for mangled, _, stores, loads, regs in entry.findall(
+            path.with_suffix(".log").read_text()):
+        kernel = next((k for k in REPORTED_KERNELS if k in mangled), None)
+        if kernel is not None:
+            args = mangled[mangled.index(kernel) + len(kernel):]
+            out.append((kernel, args.split("EEv")[0] + "E", int(regs),
+                        int(stores), int(loads)))
+    return out
+
+
+def register_report(built):
+    """ptxas's registers and spills for the mma.sync flash-attention kernels
+    and the RMSNorm backward's register pass (one line per instantiation);
+    the dQ kernel, which holds its operands in registers by design, must
+    not spill."""
+    for lib in ("flash_attention", "rms_norm"):
+        for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
+            print(f"  ptxas {kernel}{args}: {regs} registers, spill "
+                  f"stores {stores} B, loads {loads} B")
+            if kernel == "fa_bwd_dq_mma_kernel":
+                require(stores == 0 and loads == 0,
+                        f"{kernel}{args} spills ({stores} B stores)")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -313,9 +361,29 @@ TRAIN_ATTN_CASES = [
      torch.bfloat16),
     ("S=200 causal D=128", (2, 200, 200, 8, 8, 128), True, torch.bfloat16),
     ("one short q tile", (2, 64, 2048, 16, 16, 64), True, torch.bfloat16),
+    # the bf16 dQ kernel's tiling: 64-row q blocks holding Q and dO in
+    # registers, 64-key K / V tiles worked 16 keys at a time
+    ("dQ D=128 GQA 16:4 S=320", (2, 320, 320, 16, 4, 128), True,
+     torch.bfloat16),
+    ("dQ q length 136 (inside a q block)", (2, 136, 136, 8, 8, 64), True,
+     torch.bfloat16),
+    ("dQ s_q < s_k causal GQA 16:4", (2, 136, 520, 16, 4, 64), True,
+     torch.bfloat16),
+    ("dQ S=200 non-causal GQA 16:4", (2, 200, 200, 16, 4, 64), False,
+     torch.bfloat16),
 ]
-TRAIN_RMS_CASES = [("train rows", 16384, 1024, torch.bfloat16),
-                   ("f32 rows", 4096, 1024, torch.float32)]
+# (name, N, H, x dtype, w dtype): the backward's register pass (bf16 rows of
+# up to 1,024), N off its blocks' row runs, and its general loop (H not a
+# multiple of 8, f32 x)
+TRAIN_RMS_CASES = [
+    ("train rows", 16384, 1024, torch.bfloat16, torch.bfloat16),
+    ("f32 rows", 4096, 1024, torch.float32, torch.float32),
+    ("N off the row runs, f32 w", 16411, 1024, torch.bfloat16,
+     torch.float32),
+    ("H=768 rows", 1003, 768, torch.bfloat16, torch.bfloat16),
+    ("H=1000 (general loop)", 4096, 1000, torch.bfloat16, torch.bfloat16),
+    ("f32 x, bf16 w", 4096, 1024, torch.float32, torch.bfloat16),
+]
 # phase 2c: ERNIE-base's attention (non-causal, S 512, 12 heads of 64), its
 # LayerNorm rows (B 64 x S 512 tokens of 768), its attention-probability
 # rows for the softmax entry ([8, 12, 512, 512]) and AdamW over its largest
@@ -478,11 +546,12 @@ def phase_train_kernels(fa, fu):
     worst["pack_lse"] = held("pack_lse [128, 2048, 1] strided",
                              fa.pack_lse(lse3), fa.pack_lse_ref(lse3),
                              (0.0, 0.0, None))
-    for name, n, h, dt in TRAIN_RMS_CASES:
+    for name, n, h, dt, wdt in TRAIN_RMS_CASES:
         x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
-        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(wdt)
         g = torch.randn(n, h, generator=gen, device="cuda").to(dt)
-        tol, tag = TRAIN_TOL[dt], f"{name} [{n}, {h}] [{str(dt)[6:]}]"
+        tol = TRAIN_TOL[dt]
+        tag = f"{name} [{n}, {h}] [{str(dt)[6:]}, w {str(wdt)[6:]}]"
         out, inv = fu.rms_norm_fwd(x, w, 1e-5)
         rout, rinv = fu.rms_norm_fwd_ref(x, w, 1e-5)
         worst["rms_fwd"] = max(worst["rms_fwd"],
@@ -491,8 +560,10 @@ def phase_train_kernels(fa, fu):
                                     TRAIN_TOL[torch.float32]))
         dx, dw = fu.rms_norm_bwd(x, w, inv, g)
         rdx, rdw = fu.rms_norm_bwd_ref(x, w, inv, g)
-        # f32 dw sums n rows in another order than torch.sum does
-        dw_tol = tol if dt == torch.bfloat16 else (1e-4, 1e-5, None)
+        # dw is rounded to w's dtype; f32 dw sums n rows in another order
+        # than torch.sum does
+        dw_tol = TRAIN_TOL[wdt] if wdt == torch.bfloat16 \
+            else (1e-4, 1e-5, None)
         worst["rms_bwd"] = max(worst["rms_bwd"],
                                held(f"rms dx {tag}", dx, rdx, tol),
                                held(f"rms dw {tag}", dw, rdw, dw_tol))
@@ -1016,8 +1087,8 @@ def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
 MATMUL_NAMES = ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")
 TRAIN_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
-                ("rmsnorm", ("rms_fwd_kernel", "rms_bwd_kernel",
-                             "rms_dw_reduce_kernel")),
+                ("rmsnorm", ("rms_fwd_kernel", "rms_bwd_vec_kernel",
+                             "rms_bwd_kernel", "rms_dw_reduce_kernel")),
                 ("matmul", MATMUL_NAMES))
 ERNIE_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
@@ -1599,12 +1670,12 @@ def attention_timing(fa, gen, shape, causal, label=""):
     return res
 
 
-# Design steps of the bf16 forward and dK/dV kernels: compile-time settings
-# of flash_attention.cu, each built into a library of its own and timed
-# against the shipped build (the first entry) in one run.
+# Design steps of the bf16 forward, dK/dV and dQ kernels: compile-time
+# settings of flash_attention.cu, each built into a library of its own and
+# timed against the shipped build (the first entry) in one run.
 FA_VARIANTS = (
     ("shipped: fwd 128 q rows, 2 blocks/SM; dK/dV 64 keys, 3 blocks/SM; "
-     "rings of 2", ()),
+     "dQ 64 q rows, 3 blocks/SM; rings of 2", ()),
     ("ring depth 1 (no copy overlaps the products)", ("-DFA_STAGES=1",)),
     ("ring depth 3", ("-DFA_STAGES=3",)),
     ("first mma.sync version: 1 block/SM, dK/dV 128 keys",
@@ -1612,12 +1683,20 @@ FA_VARIANTS = (
     ("fwd 64 q rows (4 warps), 4 blocks/SM",
      ("-DFA_FWD_WARPS=4", "-DFA_FWD_MINB=4")),
     ("dK/dV q tile 32", ("-DFA_DKV_BQ64=32",)),
+    ("dQ 2 blocks/SM (no register cap)", ("-DFA_DQ_MINB=2",)),
+    ("dQ 4 blocks/SM", ("-DFA_DQ_MINB=4",)),
+    ("dQ Q, dO reloaded per k-step, 4 blocks/SM",
+     ("-DFA_DQ_REGA64=0", "-DFA_DQ_MINB=4")),
+    ("dQ 96 q rows (6 warps), 2 blocks/SM",
+     ("-DFA_DQ_WARPS=6", "-DFA_DQ_MINB=2")),
+    ("dQ 128 q rows (8 warps), 2 blocks/SM",
+     ("-DFA_DQ_WARPS=8", "-DFA_DQ_MINB=2")),
 )
 
 
 def design_steps(fa, gen, shape, causal):
-    """One line per entry of ``FA_VARIANTS``: the variant's forward and
-    dK/dV held against the plain versions and timed at ``shape``, then the
+    """One line per entry of ``FA_VARIANTS``: the variant's forward, dK/dV
+    and dQ held against the plain versions and timed at ``shape``, then the
     shipped build again.  A measurement only: the port loads the shipped
     build, which is put back however this ends."""
     import ctypes
@@ -1639,6 +1718,7 @@ def design_steps(fa, gen, shape, causal):
     delta = delta_of(do, ro)
     rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
                                               causal, sc)
+    rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta, causal, sc)
     tol = TRAIN_TOL[torch.bfloat16]
     shipped = _build.library("flash_attention")
     runs = list(zip(FA_VARIANTS, paths)) + [(FA_VARIANTS[0], paths[0])]
@@ -1653,24 +1733,115 @@ def design_steps(fa, gen, shape, causal):
                                                 causal, sc)
             held(f"dk [{what}]", dk, rdk, tol)
             held(f"dv [{what}]", dv, rdv, tol)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, rlse, delta, causal,
+                                           sc)
+            held(f"dq [{what}]", dq, rdq, tol)
+            del o, dk, dv, dq
             fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(
                 q, k, v, causal, sc), 10)
             dkv_ms = time_ms(lambda i: fa.flash_attention_bwd_dkv(
                 q, k, v, do, rlse, delta, causal, sc), 10)
+            dq_ms = time_ms(lambda i: fa.flash_attention_bwd_dq(
+                q, k, v, do, rlse, delta, causal, sc), 10)
+            regs = ", ".join(
+                f"{r} registers, {st} B spilled" for kern, args, r, st, _
+                in ptxas_lines(path)
+                if kern == "fa_bwd_dq_mma_kernel" and args.startswith(
+                    f"ILi{d}E"))
             print(f"  design step {what}: fwd {fwd_ms:.4f} ms, dK/dV "
-                  f"{dkv_ms:.4f} ms")
+                  f"{dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms (dQ at D {d}: "
+                  f"{regs})")
     finally:
         _build._LIBS["flash_attention"] = shipped
-    del q, k, v, do, ro, rlse, p_round, delta, rdk, rdv
+    del q, k, v, do, ro, rlse, p_round, delta, rdk, rdv, rdq
     torch.cuda.empty_cache()
 
 
-def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024):
+def rms_bwd_direct(lib, x, w, inv, g, partial):
+    """One launch of ``rms_norm_bwd_launch`` from ``lib`` on bf16 rows, with
+    a partials buffer of ``partial``'s rows (enough for any build's grid):
+    the C entry alone, for timing builds against each other."""
+    import ctypes
+    n, h = x.shape
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    fn = lib.rms_norm_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    err = fn(x.data_ptr(), w.data_ptr(), inv.data_ptr(), g.data_ptr(),
+             dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h, 1, 1,
+             torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"rms_norm_bwd_launch: CUDA error {err}")
+    return dx, dw
+
+
+def parent_turns(parent, fa, fu, gen, B=8, S=2048, Hq=16, D=64, N=16384,
+                 H=1024):
+    """``--parent DIR``: ``flash_attention.cu`` and ``rms_norm.cu`` of
+    another commit (DIR holds its ``csrc``), built with the same flags and
+    timed in turns with the shipped build — parent, new, new, parent — on
+    the same inputs: dQ at the phase-3c shape and at ERNIE's attention
+    shape, and the RMSNorm backward at N x H bf16 (CUDA-graph replays of
+    the C entry).  Every output is held against the plain version first."""
+    import ctypes
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    names = ["flash_attention", "rms_norm"]
+    old = _build.build_all(names, csrc=Path(parent))
+    new = _build.build_all(names)
+    tol = TRAIN_TOL[torch.bfloat16]
+    attn = []
+    for shape, causal in (((B, S, S, Hq, Hq, D), True),
+                          (ERNIE_ATTN_SHAPE, False)):
+        q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+        sc = 1.0 / np.sqrt(shape[-1])
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
+        delta = delta_of(do, o)
+        rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
+                                            sc)
+        attn.append((shape, causal, (q, k, v, do, lse, delta, causal, sc),
+                     rdq))
+    x = torch.randn(N, H, generator=gen, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).bfloat16()
+    g = torch.randn(N, H, generator=gen, device="cuda").bfloat16()
+    _, inv = fu.rms_norm_fwd(x, w, 1e-5)
+    rdx, rdw = fu.rms_norm_bwd_ref(x, w, inv, g)
+    partial = torch.empty(-(-N // 8), H, dtype=torch.float32, device="cuda")
+    libs = {side: {n: ctypes.CDLL(str(paths[n])) for n in names}
+            for side, paths in (("parent", old), ("new", new))}
+    shipped = _build.library("flash_attention")
+    try:
+        for side in ("parent", "new", "new", "parent"):
+            _build._LIBS["flash_attention"] = libs[side]["flash_attention"]
+            line = []
+            for shape, causal, args, rdq in attn:
+                held(f"dq [{side}] {shape} causal={causal}",
+                     fa.flash_attention_bwd_dq(*args), rdq, tol)
+                ms = time_ms(lambda i: fa.flash_attention_bwd_dq(*args), 10)
+                line.append(f"dQ {shape} {ms:.4f} ms")
+            lib = libs[side]["rms_norm"]
+            dx, dw = rms_bwd_direct(lib, x, w, inv, g, partial)
+            held(f"rms dx [{side}]", dx, rdx, tol)
+            held(f"rms dw [{side}]", dw, rdw, tol)
+            ms = graph_ms(lambda i: rms_bwd_direct(lib, x, w, inv, g,
+                                                   partial), 100)
+            print(f"  turn {side}: {', '.join(line)}, RMSNorm bwd "
+                  f"[{N}, {H}] {ms:.4f} ms")
+    finally:
+        _build._LIBS["flash_attention"] = shipped
+    del attn, x, w, g, inv, rdx, rdw, partial, libs
+    torch.cuda.empty_cache()
+
+
+def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
+                       parent=None):
     """Rows 3-8 at the train shape (bf16, causal; RMSNorm rows N x H): the
     kernel, its plain version, the bound and the library call (timed here
     only; the port never calls it); rows 3, 5 and 6 also at ERNIE's
-    attention shape (phase 3d, non-causal), and the design steps of rows 3
-    and 5 at the train shape."""
+    attention shape (phase 3d, non-causal), the design steps of rows 3, 5
+    and 6 at the train shape, and with ``parent`` the turns of
+    :func:`parent_turns`."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused as fu
@@ -1680,8 +1851,11 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024):
     res = attention_timing(fa, gen, (B, S, S, Hq, Hq, D), True)
     print("  at ERNIE's attention shape (phase 3d):")
     attention_timing(fa, gen, ERNIE_ATTN_SHAPE, False, " (ERNIE)")
-    print("  design steps of rows 3 and 5 at the train shape:")
+    print("  design steps of rows 3, 5 and 6 at the train shape:")
     design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
+    if parent is not None:
+        print(f"  rows 6 and 8 against the build of {parent}, in turns:")
+        parent_turns(parent, fa, fu, gen, B, S, Hq, D, N, H)
     elt = 2
     stats_bytes = B * Hq * S * 4
 
@@ -1838,6 +2012,12 @@ def phase_fused_timing():
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="csrc directory of another commit: phase 5b times "
+                         "its dQ and RMSNorm backward in turns with these")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
     from paddle_tpu_torch.models.llama import (init_llama_params,
@@ -1859,6 +2039,7 @@ def main():
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    register_report(built)
 
     print("phase 2: kernels vs plain version on the card")
     max_err = phase_kernel(pa)
@@ -1904,7 +2085,7 @@ def main():
     timing = phase_timing(pa, cfg.num_hidden_layers,
                           serve["decode_kv_lens"], serve_q["decode_kv_lens"])
     print("phase 5b: train kernel timing at the phase-3c shapes")
-    timing.update(phase_train_timing())
+    timing.update(phase_train_timing(parent=args.parent))
     print("phase 5c: LayerNorm, softmax and AdamW timing at the phase-3d/3e "
           "shapes")
     timing.update(phase_fused_timing())

@@ -4,9 +4,11 @@ Every ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-and is loaded with ``ctypes``.  ``<hash>`` covers the source, the shared
+and is loaded with ``ctypes``; the compiler's output, with ptxas's report of
+each kernel's registers and spills, is kept beside it as
+``<name>-<hash>.log``.  ``<hash>`` covers the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source or header
 rebuilds and an unchanged one loads the library it already built.  Nothing
 here runs at import time: the CPU tests import the package on machines
@@ -34,7 +36,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "build_all",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # the kernels' dtype codes for q / x / out
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,32 +57,33 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str, flags) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def _target(name: str, flags, csrc: Path) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names=None, defines=()) -> dict[str, Path]:
+def build_all(names=None, defines=(), csrc=CSRC) -> dict[str, Path]:
     """Compile every named source (default: all of ``csrc/*.cu``) whose
     library is missing — one ``nvcc`` process per source, started together
     — and return ``{name: library path}``.  ``defines`` (``-DNAME=value``
-    flags) build a variant of the sources' compile-time settings into a
-    library of its own; the port loads the default build.  Raises with the
-    compiler's output when any build fails."""
+    flags) build a variant of the sources' compile-time settings, and
+    ``csrc`` another directory's sources (another commit's, for timing
+    against them), into libraries of their own; the port loads the default
+    build.  Raises with the compiler's output when any build fails."""
     if names is None:
-        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+        names = sorted(p.stem for p in csrc.glob("*.cu"))
     flags = (*NVCC_FLAGS, *defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n, flags) for n in names}
+    targets = {n: _target(n, flags, csrc) for n in names}
     procs = {}
     for n, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".tmp{os.getpid()}")
         procs[n] = (subprocess.Popen(
-            [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [_nvcc(), *flags, "-o", str(tmp), str(csrc / f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
     for n, (proc, tmp) in procs.items():
@@ -89,6 +92,7 @@ def build_all(names=None, defines=()) -> dict[str, Path]:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            targets[n].with_suffix(".log").write_text(log)
             os.replace(tmp, targets[n])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

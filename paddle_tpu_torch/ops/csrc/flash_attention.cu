@@ -8,7 +8,7 @@
 //        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
 //   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_mma_kernel,
 //                                                fa_bwd_dkv_kernel)
-//   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_tc_kernel,
+//   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_mma_kernel,
 //                                                fa_bwd_dq_kernel)
 //
 // Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
@@ -44,22 +44,26 @@
 // between the products: shared-memory round trips of the score tiles, block
 // barriers, and loads that the products wait for.  The TPU's 512 x 1024
 // blocks do not fit Hopper's 227 KB of shared memory; the tiles here are
-// 64 to 128 rows.  Three bodies:
-//   * bf16 forward and dK / dV (the train step; fa_fwd_mma_kernel,
-//     fa_bwd_dkv_mma_kernel): mma.sync.m16n8k16 fed by ldmatrix, with every
-//     score, p, dP, ds and accumulator in registers and K / V (forward) or
-//     Q / dO / lse / delta (dK / dV) arriving through a cp.async ring while
-//     the previous tile's products run; one block barrier per tile.  The
-//     forward's block takes 128 q rows (8 warps of 16), so that each K / V
-//     tile it loads feeds twice the products of a 64-row tile; dK / dV's
-//     takes 64 keys (4 warps) and streams 64-row q tiles (32 at D = 128,
-//     where dK and dV take twice the registers).  Registers bound the warps
-//     an SM holds, so the launch bounds cap them (128 and 168 at D = 64)
-//     to fit 16 and 12 warps per SM.  Causal launches put the longest
-//     blocks first, and only the tiles that cross the causal frontier or
-//     the end of the keys are masked.
-//   * bf16 dQ: WMMA 16 x 16 x 16 through shared-memory score tiles (the
-//     design the two above replaced; its redesign is later work);
+// 64 to 128 rows.  Two bodies:
+//   * bf16 (the train steps; fa_fwd_mma_kernel, fa_bwd_dkv_mma_kernel,
+//     fa_bwd_dq_mma_kernel): mma.sync.m16n8k16 fed by ldmatrix, with every
+//     score, p, dP, ds and accumulator in registers, so no score tile
+//     touches shared memory, and the streamed operand arriving through a
+//     cp.async ring while the previous tile's products run, with one block
+//     barrier per tile: K / V for the forward and dQ, Q / dO / lse / delta
+//     for dK / dV.  The forward's block takes 128 q rows (8 warps of 16),
+//     so that each K / V tile it loads feeds twice the products of a
+//     64-row tile; dK / dV's takes 64 keys (4 warps) and streams 64-row q
+//     tiles (32 at D = 128, where dK and dV take twice the registers);
+//     dQ's takes 64 q rows (4 warps), keeps each warp's Q and dO fragments
+//     in registers for the whole key loop (at D = 64; at D = 128 they are
+//     reloaded from shared memory per k-step, which keeps dQ from
+//     spilling) and works 16 keys at a time, so that S and dP take 16
+//     registers, not 64.  Registers bound the warps an SM holds, so the
+//     launch bounds cap them (128, 168 and 168 at D = 64) to fit 16, 12
+//     and 12 warps per SM.  Causal launches put the
+//     longest blocks first, and only the tiles that cross the causal
+//     frontier or the end of the keys are masked.
 //   * f32 inputs run their products on the CUDA cores in f32, which keeps
 //     f32 inputs exact to f32 rounding (a TF32 tensor-core product would
 //     not): tiles staged in shared memory as f32 (rows padded to D + 1
@@ -77,7 +81,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -512,215 +515,16 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ (row 6; its redesign is later work): WMMA 16 x 16 x 16, bf16
-// operands, f32 accumulators.  Tiles stay bf16 in shared memory; every
-// 64 x 64 score block lands in shared memory as f32, where p and ds run
-// elementwise.  The TPU backward keeps ds in f32 for its product; here it
-// enters as two bf16 tiles, hi = bf16(x) and lo = bf16(x - hi), which carry
-// x to 2^-16 relative, and its product runs twice (hi, then lo, into the
-// same f32 accumulator).  Each warp owns fixed 16 x 16 tiles of the 64 x D
-// dQ, which stays in accumulator registers across the whole loop.
-// ---------------------------------------------------------------------------
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kWarps = kThreads / 32;
-constexpr int kLDF = kTile + 4;        // f32 score tile row (16-byte multiple)
-constexpr int kLDP = kTile + 8;        // bf16 probability tile row
-
-template <int D> __host__ __device__ constexpr int ldb() { return D + 8; }  // bf16 row
-template <int D> __host__ __device__ constexpr int ldo() { return D + 4; }  // f32 64 x D
-
-// rows [row0, row0 + 64) of one (batch, head) -> dst [64][D + 8] bf16 in
-// 16-byte vectors; rows past `rows` are zero.  The wrapper guarantees
-// 16-byte aligned rows (base and strides).
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long ss, int row0,
-                                               int rows) {
-  constexpr int V = D / 8;                  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < kTile * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (long long)row * ss + c));
-    *reinterpret_cast<uint4*>(dst + r * ldb<D>() + c) = val;
-  }
-}
-
-// out [64][kLDF] f32 = A [64][D] . B [64][D]^T, both bf16 row tiles; the
-// 16 output tiles are split over the 8 warps
-template <int D>
-__device__ __forceinline__ void scores_tc(const __nv_bfloat16* A,
-                                          const __nv_bfloat16* B, float* out) {
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int u = 0; u < 16 / kWarps; ++u) {
-    const int t = warp + kWarps * u, ti = t / 4, tj = t % 4;
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA a;
-      FragBT b;
-      wmma::load_matrix_sync(a, A + ti * 16 * ldb<D>() + kk * 16, ldb<D>());
-      wmma::load_matrix_sync(b, B + tj * 16 * ldb<D>() + kk * 16, ldb<D>());
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(out + ti * 16 * kLDF + tj * 16, c, kLDF,
-                            wmma::mem_row_major);
-  }
-}
-
-// acc[u] (the warp's 16 x 16 tiles of a 64 x D output) += (P_hi + P_lo) . B,
-// with P_hi, P_lo [64][kLDP] bf16 tiles and B a [64][D + 8] row tile
-template <int D>
-__device__ __forceinline__ void accumulate_tc(FragC* acc,
-                                              const __nv_bfloat16* P_hi,
-                                              const __nv_bfloat16* P_lo,
-                                              const __nv_bfloat16* B) {
-  constexpr int NT = D / 16;
-  const int warp = threadIdx.x / 32;
-  const __nv_bfloat16* parts[2] = {P_hi, P_lo};
-#pragma unroll
-  for (int u = 0; u < 4 * NT / kWarps; ++u) {
-    const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragB b;
-      wmma::load_matrix_sync(b, B + kk * 16 * ldb<D>() + tj * 16, ldb<D>());
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        FragA a;
-        wmma::load_matrix_sync(a, parts[h] + ti * 16 * kLDP + kk * 16, kLDP);
-        wmma::mma_sync(acc[u], a, b, acc[u]);
-      }
-    }
-  }
-}
-
-// write the warps' accumulator tiles of a 64 x D output, through the f32
-// staging tile, to rows [row0, row0 + 64) of one (batch, head)
-template <int D>
-__device__ __forceinline__ void write_acc_tc(const FragC* acc, float* stage,
-                                             __nv_bfloat16* dst, long long ss,
-                                             int row0, int rows) {
-  constexpr int NT = D / 16;
-  const int warp = threadIdx.x / 32;
-  __syncthreads();                          // stage is free
-#pragma unroll
-  for (int u = 0; u < 4 * NT / kWarps; ++u) {
-    const int t = warp + kWarps * u, ti = t / NT, tj = t % NT;
-    wmma::store_matrix_sync(stage + ti * 16 * ldo<D>() + tj * 16, acc[u],
-                            ldo<D>(), wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    if (row0 + r < rows)
-      dst[(long long)(row0 + r) * ss + d] = __float2bfloat16(stage[r * ldo<D>() + d]);
-  }
-}
-
-// x as two bf16 values, hi = bf16(x) and lo = bf16(x - hi): x - hi is
-// exact in f32 and at most 2^-8 |x|, so hi + lo is x to 2^-16 relative
-__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
-                                           __nv_bfloat16* lo) {
-  const __nv_bfloat16 h = __float2bfloat16(x);
-  *hi = h;
-  *lo = __float2bfloat16(x - __bfloat162float(h));
-}
-
-// ds of a (q tile, k tile) pair from the f32 scores and dP tiles, split
-// into hi / lo bf16 tiles for the next product (the lo tile of the
-// [64][kLDP] pair follows its hi tile)
-__device__ __forceinline__ void ds_tc(const float* s_s, const float* dp_s,
-                                      const float* lse_s, const float* delta_s,
-                                      __nv_bfloat16* ds_hi, int qrow0,
-                                      int kcol0, int offset, int causal,
-                                      int s_k, float sm_scale) {
-  constexpr int kLo = kTile * kLDP;
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile, e = r * kLDP + c;
-    const float s = masked_score(s_s[r * kLDF + c], sm_scale, qrow0 + r,
-                                 kcol0 + c, offset, causal, s_k);
-    const float p = expf(s - lse_s[r]);
-    split_bf16(p * (dp_s[r * kLDF + c] - delta_s[r]) * sm_scale, ds_hi + e,
-               ds_hi + kLo + e);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, View qv, View kv, View vv,
-                    View dov, View dqv, int hq, int hkv, int s_q, int s_k,
-                    int causal, float sm_scale) {
-  constexpr int NU = 4 * (D / 16) / kWarps;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_b = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_b = q_b + kTile * ldb<D>();
-  __nv_bfloat16* k_b = do_b + kTile * ldb<D>();
-  __nv_bfloat16* v_b = k_b + kTile * ldb<D>();
-  __nv_bfloat16* ds_b = v_b + kTile * ldb<D>();       // hi, lo [64][kLDP]
-  float* s_s = reinterpret_cast<float*>(ds_b + 2 * kTile * kLDP);
-  float* dp_s = s_s + kTile * kLDF;
-  float* stage = s_s;                       // [64][D + 4], after the loop
-  float* lse_s = dp_s + kTile * kLDF;
-  float* delta_s = lse_s + kTile;
-
-  const int row0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
-  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
-
-  load_tile_bf16<D>(q_b, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-  load_tile_bf16<D>(do_b, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
-  load_stats(lse_s, delta_s, lse, delta, ((long long)b * hq + h) * s_q, row0,
-             s_q);
-  FragC acc[NU];
-#pragma unroll
-  for (int u = 0; u < NU; ++u) wmma::fill_fragment(acc[u], 0.f);
-
-  const int n_kt = k_tiles_for(row0, s_q, s_k, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile_bf16<D>(k_b, kb, kv.ss, kt * kTile, s_k);
-    load_tile_bf16<D>(v_b, vb, vv.ss, kt * kTile, s_k);
-    __syncthreads();
-    scores_tc<D>(q_b, k_b, s_s);
-    scores_tc<D>(do_b, v_b, dp_s);
-    __syncthreads();
-    ds_tc(s_s, dp_s, lse_s, delta_s, ds_b, row0, kt * kTile, offset, causal,
-          s_k, sm_scale);
-    __syncthreads();
-    accumulate_tc<D>(acc, ds_b, ds_b + kTile * kLDP, k_b);  // dq += ds k
-  }
-  write_acc_tc<D>(acc, stage, dq + dqv.at(b, 0, h), dqv.ss, row0, s_q);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 forward and dK / dV, written for Hopper's tensor cores through
+// bf16 forward, dK / dV and dQ, written for Hopper's tensor cores through
 // mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  Every score, p,
 // dP, ds and output accumulator lives in registers: a warp owns 16 rows
-// (q rows in the forward, key rows in dK / dV), an S = A . B^T product comes
-// out as accumulator fragments (thread (g, t) = (lane / 4, lane % 4) holds
-// rows g and g + 8, columns 2t and 2t + 1 of each 8-column n-tile), and
-// those fragments are, with no data movement, the A operand of the next
-// product (P . V; p^T . dO and ds^T . Q).  Row statistics reduce over the 4
-// lanes of a row by shuffles.  Tiles reach shared memory by cp.async
+// (q rows in the forward and dQ, key rows in dK / dV), an S = A . B^T
+// product comes out as accumulator fragments (thread (g, t) =
+// (lane / 4, lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of
+// each 8-column n-tile), and those fragments are, with no data movement,
+// the A operand of the next product (P . V; p^T . dO and ds^T . Q; ds . K).
+// Row statistics reduce over the 4 lanes of a row by shuffles.  Tiles
+// reach shared memory by cp.async
 // through a ring of stages (the copy of tile j + 1 runs while the products
 // of tile j do), with one block barrier per tile; their rows are
 // stored with their 16-byte chunks XOR-swizzled by (row % 8), so that every
@@ -729,14 +533,14 @@ fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 // Compile-time settings, measured on phase 5b of chip_smoke.py (which
 // builds variants of them for that measurement only; the port loads the
-// defaults).  At D = 64 the forward holds 16 warps on an SM and dK / dV 12:
-// the register cap of the launch bounds is what lets a second (third) block
-// in, and occupancy, more than the ring's depth, hides the loads.
+// defaults).  At D = 64 the forward holds 16 warps on an SM, dK / dV and
+// dQ 12: the register cap of the launch bounds is what lets more than one
+// block in, and occupancy, more than the ring's depth, hides the loads.
 #ifndef FA_FWD_WARPS
 #define FA_FWD_WARPS 8         // forward q rows per block = 16 x warps
 #endif
 #ifndef FA_STAGES
-#define FA_STAGES 2            // depth of the K / V (forward) and Q / dO
+#define FA_STAGES 2            // depth of the K / V (forward, dQ) and Q / dO
 #endif                         // (dK / dV) rings; 1 = no copy overlaps
 #ifndef FA_FWD_MINB
 #define FA_FWD_MINB 2          // forward blocks per SM at D = 64
@@ -750,6 +554,16 @@ fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #ifndef FA_DKV_BQ64
 #define FA_DKV_BQ64 64         // dK / dV q tile at D = 64 (32 at D = 128)
 #endif
+#ifndef FA_DQ_WARPS
+#define FA_DQ_WARPS 4          // dQ q rows per block = 16 x warps
+#endif
+#ifndef FA_DQ_MINB
+#define FA_DQ_MINB 3           // dQ blocks per SM at D = 64 (4 spills)
+#endif
+#ifndef FA_DQ_REGA64
+#define FA_DQ_REGA64 1         // dQ at D = 64 holds each warp's Q and dO
+#endif                         // fragments in registers (0: reloads them
+                               // per k-step, as it always does at D = 128)
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -822,7 +636,9 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// (x, y) as a hi and a lo bf16 pair, as split_bf16 does for one value
+// (x, y) as a hi and a lo bf16 pair: hi = bf16(x) and lo = bf16(x - hi);
+// x - hi is exact in f32 and at most 2^-8 |x|, so hi + lo is x to 2^-16
+// relative
 __device__ __forceinline__ void split_pair(float x, float y, unsigned& hi,
                                           unsigned& lo) {
   __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
@@ -1271,6 +1087,206 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// dQ, bf16.  A block takes 16 x NW q rows of one (batch, q head); warp w
+// owns rows 16 w .. 16 w + 15.  With RA their Q and dO A fragments are
+// read once from the swizzled staging tile and then stay in registers
+// (without, they are reloaded from it per k-step), as do the rows' lse and
+// delta (rows g and g + 8 of each fragment) and the dQ accumulator.
+// K and V tiles of 64 keys stream through the cp.async ring.  Per 16 keys
+// of a tile the warp computes S = Q K^T and dP = dO V^T (K and V read as
+// B^T), p = exp(s - lse) and ds = p (dP - delta) sm_scale in registers, and
+// ds — split hi + lo, its accumulator fragments already in the A layout —
+// enters dQ += ds K with K read as B (k x n, the transposed ldmatrix), so S
+// and dP live 16 keys at a time.  The q blocks with the most key tiles are
+// launched first.  dQ is rounded to bf16 once, staged in the warp's own rows
+// of the Q tile and written as 16-byte row chunks.
+template <int D, int NW, int NS, bool RA>
+__global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DQ_MINB : 1)
+fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, View qv, View kv,
+                     View vv, View dov, View dqv, int hq, int hkv, int s_q,
+                     int s_k, int causal, float sm_scale) {
+  constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
+  constexpr int KS = D / 16;                // k-steps of Q K^T and dO V^T
+  constexpr int NO = D / 8;                 // n-tiles of dQ
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][D]
+  __nv_bfloat16* do_s = q_s + BM * D;       // [BM][D]
+  __nv_bfloat16* k_s = do_s + BM * D;       // NS x [BN][D]
+  __nv_bfloat16* v_s = k_s + NS * BN * D;   // NS x [BN][D]
+
+  const int n_qt = (s_q + BM - 1) / BM;
+  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
+  const int hk = h / (hq / hkv);
+  const int offset = s_k - s_q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = row0 + warp * 16;        // the warp's first q row
+  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
+  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
+  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
+  auto load_kv = [&](int kt) {
+    const int st = kt % NS;
+    copy_rows<D, BN, NTHR>(k_s + st * BN * D, kb, kv.ss, kt * BN, s_k);
+    copy_rows<D, BN, NTHR>(v_s + st * BN * D, vb, vv.ss, kt * BN, s_k);
+  };
+
+  // group 0: Q and dO; groups 1 .. max(NS - 1, 1): key tiles 0 .. NS - 2
+  copy_rows<D, BM, NTHR>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
+  copy_rows<D, BM, NTHR>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
+    if (s < n_kt) load_kv(s);
+    cp_async_commit();
+  }
+
+  // the rows' statistics in base 2: lse2 = lse log2 e; rows past s_q read
+  // as 0 (their q and dO rows are zeros, so their ds is 0) and are not
+  // written
+  const float scale2 = sm_scale * kLog2e;
+  const float neg2 = kNegInf * kLog2e;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    const long long at = ((long long)b * hq + h) * s_q + row;
+    lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
+    dlt[r] = row < s_q ? delta[at] : 0.f;
+  }
+
+  cp_async_wait<(NS > 1 ? NS - 1 : 1)>();   // Q and dO have landed
+  __syncthreads();
+  unsigned qa[RA ? KS : 1][4], da[RA ? KS : 1][4];
+  if constexpr (RA) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      load_a<D>(qa[kk], q_s, warp * 16, kk);
+      load_a<D>(da[kk], do_s, warp * 16, kk);
+    }
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if constexpr (NS == 1) {
+      if (kt > 0) {
+        __syncthreads();                    // every warp is done with kt - 1
+        load_kv(kt);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<NS - 2>();              // tile kt has landed
+      __syncthreads();                      // ... for every thread, and tile
+                                            // kt - 1's stage is free
+      if (kt + NS - 1 < n_kt) load_kv(kt + NS - 1);
+      cp_async_commit();
+    }
+    const int kcol0 = kt * BN;
+    // a tile wholly past the warp's causal frontier adds nothing
+    if (causal && kcol0 > wrow + 15 + offset) continue;
+    const __nv_bfloat16* ks = k_s + (kt % NS) * BN * D;
+    const __nv_bfloat16* vs = v_s + (kt % NS) * BN * D;
+    // mask only a tile that crosses the warp's causal frontier or the end
+    // of the keys: its scores are scaled first and a masked one is NEG_INF
+    // exactly (-inf past the keys); a full tile takes the scale in the
+    // exponent's FFMA
+    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
+                        kcol0 + BN > s_k;
+
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {  // keys kcol0 + 16 np .. + 15
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned qf[4], df[4], bf[4];
+        if constexpr (RA) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) { qf[i] = qa[kk][i]; df[i] = da[kk][i]; }
+        } else {
+          load_a<D>(qf, q_s, warp * 16, kk);
+          load_a<D>(df, do_s, warp * 16, kk);
+        }
+        load_bt<D>(bf, ks, np * 16, kk);
+        mma16816(s[0], qf, bf[0], bf[1]);
+        mma16816(s[1], qf, bf[2], bf[3]);
+        load_bt<D>(bf, vs, np * 16, kk);
+        mma16816(dp[0], df, bf[0], bf[1]);
+        mma16816(dp[1], df, bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x;
+          if (masked) {
+            const int col = kcol0 + 16 * np + 8 * j + 2 * t + (e & 1);
+            const int row = wrow + g + 8 * (e >> 1);
+            x = s[j][e] * scale2;
+            if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
+            else if (causal && row + offset < col) x = neg2;
+            x -= lse2[e >> 1];
+          } else {
+            x = fmaf(s[j][e], scale2, -lse2[e >> 1]);
+          }
+          const float p = fast_exp2(x);
+          dp[j][e] = p * (dp[j][e] - dlt[e >> 1]) * sm_scale;
+        }
+      // dQ += ds K: ds (hi + lo) is the A operand of k-step np as it lies
+      unsigned dh[4], dl[4];
+      split_pair(dp[0][0], dp[0][1], dh[0], dl[0]);
+      split_pair(dp[0][2], dp[0][3], dh[1], dl[1]);
+      split_pair(dp[1][0], dp[1][1], dh[2], dl[2]);
+      split_pair(dp[1][2], dp[1][3], dh[3], dl[3]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        unsigned bf[4];
+        load_b<D>(bf, ks, np * 16, dn);
+        mma16816(acc[2 * dn], dh, bf[0], bf[1]);
+        mma16816(acc[2 * dn + 1], dh, bf[2], bf[3]);
+        mma16816(acc[2 * dn], dl, bf[0], bf[1]);
+        mma16816(acc[2 * dn + 1], dl, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: the warp's 16 rows of dQ, rounded once to bf16, into its own
+  // rows of the Q tile (no other warp reads them), then out as 16-byte
+  // chunks of each row
+  __nv_bfloat16* stage = q_s + warp * 16 * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<unsigned*>(stage + swz<D>(g + 8 * r, n) + 2 * t) =
+          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  __syncwarp();
+  constexpr int NC = D / 8;                 // 16-byte chunks per row
+#pragma unroll
+  for (int i = lane; i < 16 * NC; i += 32) {
+    const int r = i / NC, c = i % NC, row = wrow + r;
+    if (row < s_q)
+      *reinterpret_cast<uint4*>(dq + dqv.at(b, row, h) + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + swz<D>(r, c));
+  }
+}
+
 // [BH, S, 1] stats with (row, seq) strides -> compact [BH, S] f32; one
 // block row per stats row, one thread per element
 __global__ void pack_lse_kernel(const float* __restrict__ src,
@@ -1301,8 +1317,6 @@ template <int D>
 constexpr int fwd_mma_smem() {
   return (16 * FA_FWD_WARPS * D + 2 * FA_STAGES * kKeyTile * D) * 2;
 }
-// the dQ kernel's output staging tile reuses the two f32 score tiles
-static_assert(kTile * ldo<128>() <= 2 * kTile * kLDF, "staging tile too big");
 template <int D>
 constexpr int dkv_bq() { return D == 64 ? FA_DKV_BQ64 : 32; }
 template <int D>
@@ -1311,9 +1325,8 @@ constexpr int dkv_mma_smem() {
          FA_STAGES * 2 * dkv_bq<D>() * 4;
 }
 template <int D>
-constexpr int dq_tc_smem() {
-  return 4 * kTile * ldb<D>() * 2 + 2 * kTile * kLDP * 2 +
-         2 * kTile * kLDF * 4 + 2 * kTile * 4;
+constexpr int dq_mma_smem() {
+  return (2 * 16 * FA_DQ_WARPS * D + 2 * FA_STAGES * kKeyTile * D) * 2;
 }
 
 template <typename T>
@@ -1411,13 +1424,16 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, const long long* st, const Geometry& g,
                    cudaStream_t stream) {
-  const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
   if constexpr (kTensorCores<T>) {
-    constexpr int smem = dq_tc_smem<D>();
+    constexpr int rows = 16 * FA_DQ_WARPS;
+    constexpr int smem = dq_mma_smem<D>();
+    const auto kernel = fa_bwd_dq_mma_kernel<D, FA_DQ_WARPS, FA_STAGES,
+                                             D == 64 && FA_DQ_REGA64>;
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_bwd_dq_tc_kernel<D>, smem);
+    cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
-    fa_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+    const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows);
+    kernel<<<grid, 32 * FA_DQ_WARPS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
@@ -1425,6 +1441,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
         g.sm_scale);
     return cudaGetLastError();
   } else {
+    const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
     constexpr int smem = dq_smem<D>();
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, fa_bwd_dq_kernel<T, D>, smem);

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/fused.py:
 //   _make_rms fwd -> _rms_fwd_kernel   (rms_fwd_kernel)
-//   _make_rms bwd -> _rms_bwd_kernel   (rms_bwd_kernel + rms_dw_reduce_kernel)
+//   _make_rms bwd -> _rms_bwd_kernel   (rms_bwd_vec_kernel or rms_bwd_kernel,
+//                                       + rms_dw_reduce_kernel)
 //
 //   x, out, g, dx  [N, H]  T = f32 | bf16, contiguous rows
 //   w, dw          [H]     W = f32 | bf16
@@ -15,13 +16,26 @@
 //
 // What bounds it on this card: a row pass reads each element once or twice
 // and does a handful of operations on it, so both kernels are bound by the
-// bytes they move (3.35 TB/s on an H100 SXM).  One warp per row: the
-// lanes stride the row (neighbouring lanes on neighbouring elements), reduce
-// with shuffles, and a second sweep of the same row finds it in L1/L2.
-// dw sums across rows, which on the TPU was a scratch carried along the
-// sequential grid; here blocks run in parallel, so each block writes an f32
-// partial over its 64 rows and a second kernel sums the partials in a fixed
-// order — deterministic, no float atomics.
+// bytes they move (3.35 TB/s on an H100 SXM).  The forward runs one warp
+// per row: the lanes stride the row (neighbouring lanes on neighbouring
+// elements), reduce with shuffles, and a second sweep of the same row finds
+// it in L1/L2.  The backward moves three bytes for each one the forward
+// reads (x and g in, dx out), so it touches each element once: for bf16
+// rows of up to 1,024 elements (H a multiple of 8, 16-byte aligned rows)
+// each lane holds its slice of a row in registers as 16-byte vectors (x
+// and g, 4 + 4 vectors at H = 1,024; w is read again per row, from L1),
+// takes the row's dot product from them, writes dx as 16-byte vectors, and
+// adds g * xhat into f32 dw sums for its fixed columns across the rows its
+// warp walks, so dw needs no second read of x and g.  dw sums across rows,
+// which on the TPU was a scratch carried along the sequential grid; here
+// blocks run in parallel, so the grid is sized to the card (2 blocks of 8
+// warps per SM, each a contiguous run of rows), each block adds its warps'
+// sums through shared memory in warp order into one f32 partial row, and a
+// second kernel sums the partial rows in a fixed order: deterministic, no
+// float atomics, about 1 MB of partials at H = 1,024.  Other rows (f32 x,
+// H not a multiple of 8 or above 1,024, unaligned rows) take a general loop
+// over the same blocks: one warp per row with element-wise loads, then one
+// thread per column of the block's dw partial walks the block's rows.
 //
 // The C entries allocate nothing (the caller passes the partials buffer),
 // launch on the caller's stream and return cudaGetLastError().
@@ -30,11 +44,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 64;      // rows of one dw partial
+constexpr int kBwdBlocksPerSM = 2;     // backward blocks per SM
+constexpr int kMaxVectors = 4;         // 16-byte vectors of a row per lane
+                                       // in the register pass (H <= 1,024)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -69,16 +87,122 @@ rms_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   if (lane == 0) inv[row] = r;
 }
 
+// w[8 c .. 8 c + 7] as f32 in 16-byte loads (zeros when c >= nc); w is read
+// again for every row, from L1, so that it takes no registers across rows
+__device__ __forceinline__ void load8(float out[8],
+                                      const __nv_bfloat16* __restrict__ w,
+                                      int c, int nc) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (c < nc) v = __ldg(reinterpret_cast<const uint4*>(w) + c);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+}
+
+__device__ __forceinline__ void load8(float out[8],
+                                      const float* __restrict__ w, int c,
+                                      int nc) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  if (c < nc) {
+    a = __ldg(reinterpret_cast<const float4*>(w) + 2 * c);
+    b = __ldg(reinterpret_cast<const float4*>(w) + 2 * c + 1);
+  }
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// the bf16 backward row pass: NV 16-byte vectors (8 elements) of each
+// row per lane; the block takes rows [row0, row0 + rows_per_block) and its
+// warp w rows row0 + w, row0 + w + 8, ...
+template <typename W, int NV>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
+rms_bwd_vec_kernel(const __nv_bfloat16* __restrict__ x,
+                   const W* __restrict__ w, const float* __restrict__ inv,
+                   const __nv_bfloat16* __restrict__ g,
+                   __nv_bfloat16* __restrict__ dx,
+                   float* __restrict__ partial, int n, int h,
+                   int rows_per_block) {
+  __shared__ __align__(16) float sums[kWarps][NV * 32 * 8];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = h / 8;                     // 16-byte vectors per row
+  const int row0 = blockIdx.x * rows_per_block;
+  const int row1 = min(row0 + rows_per_block, n);
+  float dw[NV][8];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dw[i][e] = 0.f;
+  for (int row = row0 + warp; row < row1; row += kWarps) {
+    const long long base = (long long)row * h;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + base);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + base);
+    uint4 xv[NV], gv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      xv[i] = c < nc ? __ldg(xr + c) : make_uint4(0u, 0u, 0u, 0u);
+      gv[i] = c < nc ? __ldg(gr + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    const float r = inv[row];
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xv[i]);
+      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv[i]);
+      float wf[8];
+      load8(wf, w, lane + 32 * i, nc);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dot = fmaf(to_f32(ge[e]) * wf[e], to_f32(xe[e]) * r, dot);
+    }
+    const float mean = warp_sum(dot) / h;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + base);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xv[i]);
+      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv[i]);
+      float wf[8];
+      load8(wf, w, c, nc);
+      uint4 out;
+      __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xhat = to_f32(xe[e]) * r, gf = to_f32(ge[e]);
+        oe[e] = __float2bfloat16(r * (gf * wf[e] - xhat * mean));
+        dw[i][e] = fmaf(gf, xhat, dw[i][e]);
+      }
+      if (c < nc) dxr[c] = out;
+    }
+  }
+  // the block's dw partial: its warps' sums added in warp order
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float4* dst = reinterpret_cast<float4*>(&sums[warp][8 * (lane + 32 * i)]);
+    dst[0] = make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
+    dst[1] = make_float4(dw[i][4], dw[i][5], dw[i][6], dw[i][7]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < h; c += kThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) acc += sums[v][c];
+    partial[(long long)blockIdx.x * h + c] = acc;
+  }
+}
+
+// the general backward row pass (any T, any H, any alignment): one warp per
+// row with element-wise loads, then one thread per column of the block's
+// dw partial walks the block's rows in order
 template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
 rms_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
                const float* __restrict__ inv, const T* __restrict__ g,
-               T* __restrict__ dx, float* __restrict__ partial, int n,
-               int h) {
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, n - row0);
+               T* __restrict__ dx, float* __restrict__ partial, int n, int h,
+               int rows_per_block) {
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, n - row0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // dx: one warp per row
   for (int rr = warp; rr < rows; rr += kWarps) {
     const long long base = (long long)(row0 + rr) * h;
     const float r = inv[row0 + rr];
@@ -93,7 +217,6 @@ rms_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
       store(dx + base + c, r * (gw - xhat * mean));
     }
   }
-  // this block's dw partial: one thread per column, rows in order
   for (int c = threadIdx.x; c < h; c += kThreads) {
     float acc = 0.f;
     for (int rr = 0; rr < rows; ++rr) {
@@ -104,14 +227,49 @@ rms_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
 }
 
+// dw[c] = sum of the partial rows in row order; a block takes 32 columns,
+// its 8 warps sum every 8th partial row and then add their sums in warp
+// order
 template <typename W>
-__global__ void rms_dw_reduce_kernel(const float* __restrict__ partial,
-                                     W* __restrict__ dw, int blocks, int h) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= h) return;
+__global__ void __launch_bounds__(kThreads)
+rms_dw_reduce_kernel(const float* __restrict__ partial, W* __restrict__ dw,
+                     int blocks, int h) {
+  __shared__ float sums[kWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
   float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partial[(long long)b * h + c];
-  store(dw + c, acc);
+  if (c < h)
+    for (int b = warp; b < blocks; b += kWarps)
+      acc += partial[(long long)b * h + c];
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && c < h) {
+    float total = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) total += sums[v][lane];
+    store(dw + c, total);
+  }
+}
+
+// The backward's grid: about kBwdBlocksPerSM blocks per SM of the current
+// device (fewer for short inputs: at least one row per warp), each a
+// contiguous run of rows_per_block rows; *blocks is the number of dw
+// partial rows.
+cudaError_t bwd_grid(int n, int* blocks, int* rows_per_block) {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int& count = sms[dev & 63];
+  if (count == 0) {
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int most = kBwdBlocksPerSM * count, least = (n + kWarps - 1) / kWarps;
+  const int want = least < most ? least : most;
+  *rows_per_block = (n + want - 1) / want;
+  *blocks = (n + *rows_per_block - 1) / *rows_per_block;
+  return cudaSuccess;
 }
 
 template <typename T, typename W>
@@ -127,13 +285,36 @@ template <typename T, typename W>
 cudaError_t bwd(const void* x, const void* w, const float* inv, const void* g,
                 void* dx, void* dw, float* partial, int n, int h,
                 cudaStream_t s) {
-  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  rms_bwd_kernel<T, W><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), inv,
-      static_cast<const T*>(g), static_cast<T*>(dx), partial, n, h);
-  cudaError_t err = cudaGetLastError();
+  int blocks = 0, rows = 0;
+  cudaError_t err = bwd_grid(n, &blocks, &rows);
   if (err != cudaSuccess) return err;
-  rms_dw_reduce_kernel<W><<<(h + 255) / 256, 256, 0, s>>>(
+  const int nv = (h / 8 + 31) / 32;         // 16-byte vectors per lane
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+        reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(w)) &
+       15) == 0;
+  if (std::is_same<T, __nv_bfloat16>::value && h % 8 == 0 &&
+      nv <= kMaxVectors && aligned) {
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* gb = static_cast<const __nv_bfloat16*>(g);
+    auto* dxb = static_cast<__nv_bfloat16*>(dx);
+    const W* wt = static_cast<const W*>(w);
+#define RMS_VEC(NV)                                                          \
+  rms_bwd_vec_kernel<W, NV><<<blocks, kThreads, 0, s>>>(xb, wt, inv, gb, dxb, \
+                                                        partial, n, h, rows)
+    if (nv == 1) RMS_VEC(1);
+    else if (nv == 2) RMS_VEC(2);
+    else if (nv == 3) RMS_VEC(3);
+    else RMS_VEC(4);
+#undef RMS_VEC
+  } else {
+    rms_bwd_kernel<T, W><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const W*>(w), inv,
+        static_cast<const T*>(g), static_cast<T*>(dx), partial, n, h, rows);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_dw_reduce_kernel<W><<<(h + 31) / 32, kThreads, 0, s>>>(
       partial, static_cast<W*>(dw), blocks, h);
   return cudaGetLastError();
 }
@@ -148,7 +329,13 @@ cudaError_t bwd(const void* x, const void* w, const float* inv, const void* g,
 
 }  // namespace
 
-extern "C" int rms_norm_partial_rows() { return kRowsPerBlock; }
+// the number of dw partial rows that the backward of n rows writes on the
+// current device, or -1 on a CUDA error
+extern "C" int rms_norm_bwd_partials(int n) {
+  int blocks = 0, rows = 0;
+  if (n <= 0 || bwd_grid(n, &blocks, &rows) != cudaSuccess) return -1;
+  return blocks;
+}
 
 extern "C" int rms_norm_fwd_launch(const void* x, const void* w, void* out,
                                    void* inv, int n, int h, int x_dtype,
@@ -162,7 +349,7 @@ extern "C" int rms_norm_fwd_launch(const void* x, const void* w, void* out,
 #undef RMS_FWD
 }
 
-// partial: f32 scratch of ceil(n / rms_norm_partial_rows()) x h
+// partial: f32 scratch of rms_norm_bwd_partials(n) x h
 extern "C" int rms_norm_bwd_launch(const void* x, const void* w,
                                    const void* inv, const void* g, void* dx,
                                    void* dw, void* partial, int n, int h,

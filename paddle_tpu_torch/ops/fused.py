@@ -91,8 +91,9 @@ def rms_norm_fwd(x, w, eps):
 def rms_norm_bwd(x, w, inv, g):
     """(dx [N, H] in x's dtype, dw [H] in w's dtype) from the forward's x,
     w, inv and the output cotangent g.  CUDA tensors launch
-    ``rms_norm_bwd_launch`` (row pass with per-block dw partials, then an
-    ordered sum of the partials) and add one to ``rms_norm_bwd.launches``;
+    ``rms_norm_bwd_launch`` (one row pass over a grid sized to the card,
+    each block writing one dw partial row, then an ordered sum of the
+    partials) and add one to ``rms_norm_bwd.launches``;
     CPU tensors run :func:`rms_norm_bwd_ref`."""
     if not _build.on_card("rms_norm_bwd", x):
         return rms_norm_bwd_ref(x, w, inv, g)
@@ -103,11 +104,13 @@ def rms_norm_bwd(x, w, inv, g):
     if inv.shape != (n,) or inv.dtype != torch.float32:
         raise ValueError(f"inv must be f32 [N={n}]")
     g, inv = g.contiguous(), inv.contiguous()
-    rows = _build.library("rms_norm").rms_norm_partial_rows()
+    with torch.cuda.device(x.device):
+        parts = _build.library("rms_norm").rms_norm_bwd_partials(n)
+    if parts < 1:
+        raise RuntimeError(f"rms_norm_bwd_partials({n}) failed: {parts}")
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
-    partial = torch.empty((-(-n // rows), h), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((parts, h), dtype=torch.float32, device=x.device)
     _build.launch("rms_norm", "rms_norm_bwd_launch",
                   [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4,
                   [x.data_ptr(), w.data_ptr(), inv.data_ptr(), g.data_ptr(),

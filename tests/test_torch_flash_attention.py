@@ -219,11 +219,17 @@ def _held_bf16(got, want, extra=None):
 
 # bf16 cases for the tensor-core kernels' tiling: s_q < s_k causal, a
 # partial 128-row forward q tile with GQA 16:4, S = 200 causal at D = 128,
-# and one short q tile against a long key range
+# and one short q tile against a long key range; for dQ's 64-row q blocks
+# and 16-key steps: D = 128 with GQA 16:4, a q length of 136 (inside a
+# block), s_q < s_k causal with GQA 16:4, and S = 200 non-causal
 BF16_CARD_CASES = [((2, 128, 384, 8, 4, 64), True),
                    ((2, 320, 320, 16, 4, 64), True),
                    ((2, 200, 200, 8, 8, 128), True),
-                   ((2, 64, 2048, 16, 16, 64), True)]
+                   ((2, 64, 2048, 16, 16, 64), True),
+                   ((2, 320, 320, 16, 4, 128), True),
+                   ((2, 136, 136, 8, 8, 64), True),
+                   ((2, 136, 520, 16, 4, 64), True),
+                   ((2, 200, 200, 16, 4, 64), False)]
 
 
 @pytest.mark.cuda

@@ -94,6 +94,26 @@ def test_bf16_rows_keep_their_dtypes():
     torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
 
 
+def _held_bf16(got, want):
+    """A bf16 kernel output against its plain version, as ``chip_smoke.py``
+    holds it: elementwise within 2e-3 + 1.6e-2 |plain|, and each row within
+    1.6e-2 of its plain norm."""
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= 2e-3 + 1.6e-2 * want.abs()).all())
+    rows = (got - want).reshape(-1, want.shape[-1]).norm(dim=-1)
+    assert bool((rows <= 1.6e-2 * want.reshape(rows.shape[0], -1)
+                 .norm(dim=-1)).all())
+
+
+# (N, H, x dtype, w dtype) on the card beyond the f32 rows: the backward's
+# register pass at H = 1,024 with N off its blocks' row runs, and its
+# general loop (H = 1,000; f32 x with bf16 w)
+CARD_CASES = [(16411, 1024, torch.bfloat16, torch.bfloat16),
+              (1003, 1024, torch.bfloat16, torch.float32),
+              (4096, 1000, torch.bfloat16, torch.bfloat16),
+              (1000, 1024, torch.float32, torch.bfloat16)]
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
@@ -108,3 +128,19 @@ def test_kernels_match_plain_versions_on_card():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     # dw sums 1000 rows in another order than torch.sum
     torch.testing.assert_close(dw, rdw, rtol=1e-5, atol=1e-4)
+    for n, h, dt, wdt in CARD_CASES:
+        x, w, g = _inputs((n, h), 5)
+        x, g = (torch.from_numpy(a).cuda().to(dt) for a in (x, g))
+        w = torch.from_numpy(1 + 0.1 * w).cuda().to(wdt)
+        _, inv = tfu.rms_norm_fwd(x, w, EPS)
+        dx, dw = tfu.rms_norm_bwd(x, w, inv, g)
+        rdx, rdw = tfu.rms_norm_bwd_ref(x, w, inv, g)
+        torch.cuda.synchronize()
+        if dt == torch.bfloat16:
+            _held_bf16(dx, rdx)
+        else:
+            torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-5)
+        if wdt == torch.bfloat16:
+            _held_bf16(dw, rdw)
+        else:
+            torch.testing.assert_close(dw, rdw, rtol=1e-5, atol=1e-4)
