@@ -11,15 +11,21 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
-               kernels and the RMSNorm backward (the dQ kernel must not
-               spill);
+               kernels, the RMSNorm backward, the ragged paged-attention
+               kernels and the softmax forward's register pass (dQ, the
+               ragged kernels and the register pass must not spill);
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
-               ragged q_len 0/1/3/5 mix (the verify shape); f32 and bf16
-               inputs, bf16 and f32 outputs; the quantized kernel over int8
-               and fp8 pages, and its fp8 -> f32 code table against
-               torch's over all 256 codes;
+               ragged q_len 0/1/3/5 mix (the verify shape), one split (a
+               4-page table), GQA 16:4 decode over 1-page splits, a 37-row
+               chunk with a q_len = 0 slot, and at the split length L of
+               the wrapper's plan kv_len 1 / L - 1 / L / L + 1 / 0 and
+               verify rows whose frontier crosses or falls inside a split;
+               f32 and bf16 inputs, bf16 and f32 outputs; the quantized
+               kernel over int8 and fp8 pages, its fp8 -> f32 code table
+               against torch's over all 256 codes, and the split merge
+               against its plain version;
                (b) the train kernels (flash-attention forward with its
                lse, the lse repack, the dK/dV and dQ backward, RMSNorm
                forward and backward) against their plain versions: the
@@ -38,6 +44,8 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                (c) the LayerNorm, softmax and AdamW kernels at ERNIE's
                shapes (32,768 x 768 rows; [8, 12, 512, 512]; the 40,000 x
                768 embedding and tensors of 768 and 40,000), bf16 and f32,
+               the softmax forward's register pass at 2,048 and its looped
+               kernel at 4,096 and 1,002 (and rows of -inf throughout),
                and the flash-attention kernels non-causal at ERNIE's
                attention shape;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
@@ -73,7 +81,13 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                versions; (c) the same for a 2-layer f32 ERNIE step;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
-               verify and chunk shapes of phase 3, the train kernels at
+               verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
+               replays, the eager time on its own line), the split merge
+               alone, one line per design step of rows 1-2 (split count,
+               ring depth, warps, the tensor-core tile's row threshold),
+               with ``--parent DIR`` that
+               build's rows 1, 2 and 10 timed in turns with these, the
+               train kernels at
                the phase-3c shape beside SDPA (forward; backward alone, and
                forward + backward) and F.rms_norm, rows 3, 5 and 6 at
                phase 3d's attention shape, one line per design step of
@@ -118,6 +132,12 @@ PLAIN = dict(name="ragged_paged_attention", route="cuda",
 QUANT = dict(name="ragged_paged_attention_quant", route="cuda",
              source=CSRC + "ragged_paged_attention_quant.cu",
              replaces="paddle_tpu/ops/pallas/paged_attention.py:147")
+# the split merge that follows rows 1-2 when a launch's plan splits its KV
+# range; the TPU kernel carries its running softmax across the page grid
+# axis instead, so the merge replaces that carry
+COMBINE = dict(name="ragged_paged_attention_combine", route="cuda",
+               source=CSRC + "ragged_paged_attention.cuh",
+               replaces="paddle_tpu/ops/pallas/paged_attention.py:124")
 KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
@@ -135,7 +155,15 @@ def card_line():
 
 # -- phase 1: build ----------------------------------------------------------
 REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
-                    "fa_bwd_dq_mma_kernel", "rms_bwd_vec_kernel")
+                    "fa_bwd_dq_mma_kernel", "rms_bwd_vec_kernel",
+                    "ragged_paged_attention_kernel",
+                    "ragged_paged_attention_mma_kernel",
+                    "ragged_paged_attention_combine_kernel",
+                    "softmax_fwd_reg_kernel")
+# kernels that hold their working set in registers by design: none may spill
+NO_SPILL = ("fa_bwd_dq_mma_kernel", "ragged_paged_attention_kernel",
+            "ragged_paged_attention_mma_kernel",
+            "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel")
 
 
 def ptxas_lines(path):
@@ -159,17 +187,20 @@ def ptxas_lines(path):
 
 
 def register_report(built):
-    """ptxas's registers and spills for the mma.sync flash-attention kernels
-    and the RMSNorm backward's register pass (one line per instantiation);
-    the dQ kernel, which holds its operands in registers by design, must
-    not spill."""
-    for lib in ("flash_attention", "rms_norm"):
+    """ptxas's registers and spills for the mma.sync flash-attention kernels,
+    the RMSNorm backward's register pass, the ragged paged-attention
+    kernels and the softmax forward's register pass (one line per
+    instantiation; the ragged kernels' as their most); the kernels of
+    ``NO_SPILL`` must not spill."""
+    for lib in ("flash_attention", "rms_norm", "softmax"):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             print(f"  ptxas {kernel}{args}: {regs} registers, spill "
                   f"stores {stores} B, loads {loads} B")
-            if kernel == "fa_bwd_dq_mma_kernel":
-                require(stores == 0 and loads == 0,
-                        f"{kernel}{args} spills ({stores} B stores)")
+    print(f"  ptxas ragged paged attention: {ragged_ptxas(built)}")
+    for lib in ("flash_attention", "rms_norm", "softmax", *RPA_LIBS):
+        for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
+            require(kernel not in NO_SPILL or (stores == 0 and loads == 0),
+                    f"{kernel}{args} spills ({stores} B stores)")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -204,6 +235,7 @@ def reset_counts(pa):
     version's call count to 0."""
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.quant_launches = 0
+    pa.ragged_paged_attention.combine_launches = 0
     pa.ragged_paged_attention_ref.calls = 0
     for fn in train_wrappers().values():
         fn.launches = 0
@@ -292,18 +324,53 @@ KERNEL_CASES = [
          dict(S=4, Qmax=5, Hq=32, Hkv=32, D=128, ps=16, NP=20, P=8,
               q_start=[10, 100, 63, 0], q_len=[0, 1, 3, 5],
               kv_len=[10, 101, 66, 5])),
+        ("one split: a 4-page table, no combine",
+         dict(S=3, Qmax=1, Hq=32, Hkv=32, D=128, ps=16, NP=16, P=4,
+              q_start=[63, 29, 0], q_len=[1, 1, 1], kv_len=[64, 30, 1])),
+        ("GQA 16:4 D=64 ps=64 decode, 1-page splits",
+         dict(S=3, Qmax=1, Hq=16, Hkv=4, D=64, ps=64, NP=20, P=6,
+              q_start=[299, 63, 64], q_len=[1, 1, 1], kv_len=[300, 64, 65])),
+        ("chunk of 37 rows (not a multiple of 16), q_len 0 slot",
+         dict(S=2, Qmax=40, Hq=32, Hkv=32, D=128, ps=16, NP=40, P=12,
+              q_start=[100, 0], q_len=[37, 0], kv_len=[137, 0])),
 ]
 DTYPE_PAIRS = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
                (torch.bfloat16, torch.float32))
 
 
+def split_cases(pa):
+    """Cases at the split grid's edges, their lengths taken from the split
+    length L that the wrapper's plan gives their shapes on this card: decode
+    kv_len 1, L - 1, L, L + 1 with a kv_len = 0 slot, and verify rows whose
+    causal frontier crosses a split boundary or falls inside a split."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dec = dict(S=5, Qmax=1, Hq=32, Hkv=32, D=128, ps=16, NP=160, P=24)
+    L = pa.split_plan(dec["S"], 1, 32, 32, 128, dec["P"], 16, True,
+                      sms=sms).split_len
+    ver = dict(S=4, Qmax=5, Hq=32, Hkv=32, D=128, ps=16, NP=120, P=24)
+    V = pa.split_plan(ver["S"], 5, 32, 32, 128, ver["P"], 16, True,
+                      sms=sms).split_len
+    require(L < 24 * 16 and V < 24 * 16, f"split cases: splits of {L} / {V} "
+            f"tokens leave one split")
+    return [
+        (f"split edges kv_len 1/L-1/L/L+1/0 (L={L})",
+         dict(dec, q_start=[0, L - 2, L - 1, L, 0], q_len=[1, 1, 1, 1, 0],
+              kv_len=[1, L - 1, L, L + 1, 0])),
+        (f"verify frontier across / inside a split (L={V})",
+         dict(ver, q_start=[V - 2, V - 5, V + V // 2, 0], q_len=[5, 5, 5, 0],
+              kv_len=[V + 3, V, V + V // 2 + 5, 7])),
+    ]
+
+
 def phase_kernel(pa):
-    """Both kernels against the plain version; returns the worst absolute
-    error of each."""
+    """Both kernels against the plain version, and the split merge against
+    its plain version on random partials; returns the worst absolute error
+    of each."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"plain": 0.0, "quant": 0.0}
-    for name, kw in KERNEL_CASES:
+    n0 = pa.ragged_paged_attention.combine_launches
+    for name, kw in KERNEL_CASES + split_cases(pa):
         for dtype, out_dtype in DTYPE_PAIRS:
             args = make_case(gen, dtype=dtype, **kw)
             err = compare(pa, f"{name} [{str(dtype)[6:]}]", args, out_dtype)
@@ -313,8 +380,46 @@ def phase_kernel(pa):
                 err = compare(pa, f"{name} [{str(dtype)[6:]}, {kv_dtype}]",
                               qargs, out_dtype, **scales)
                 worst["quant"] = max(worst["quant"], err)
+    require(pa.ragged_paged_attention.combine_launches > n0,
+            "no case ran a split grid")
     fp8_code_table(pa)
+    worst["combine"] = combine_check(pa, gen)
     return worst
+
+
+def random_partials(gen, n, S, hkv, rows, d, live):
+    """Split partials as the main kernel leaves them: m (base 2) and l per
+    row, l = 0 (and m = NEG_INF) where ``live`` [n, S] is false, and an
+    accumulator of NaN there, which the merge must never read."""
+    m = 4 * torch.randn(n, S, hkv, rows, generator=gen, device="cuda")
+    l = 0.5 + torch.rand(n, S, hkv, rows, generator=gen, device="cuda")
+    acc = torch.randn(n, S, hkv, rows, d, generator=gen, device="cuda") \
+        * l[..., None]
+    dead = ~live[:, :, None, None]
+    m = torch.where(dead, torch.full_like(m, -1e30), m)
+    l = torch.where(dead, torch.zeros_like(l), l)
+    acc = torch.where(dead[..., None], torch.full_like(acc, float("nan")),
+                      acc)
+    return torch.stack([m, l], -1).contiguous(), acc.contiguous()
+
+
+def combine_check(pa, gen):
+    """The merge kernel alone against its plain version: GQA 32:8 with 5
+    query rows, D 128, 4 splits, some splits empty, a q_len = 0 slot."""
+    live = torch.tensor([[1, 1, 0, 1], [1, 0, 0, 0], [1, 1, 1, 1],
+                         [0, 1, 1, 0]], dtype=torch.bool, device="cuda").T
+    ml, acc = random_partials(gen, 4, 4, 8, 5 * 4, 128, live)
+    q_len = torch.tensor([5, 3, 0, 1], dtype=torch.int32, device="cuda")
+    err = 0.0
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = pa.ragged_paged_attention_combine(ml, acc, q_len, 32, out_dtype)
+        want = pa.ragged_paged_attention_combine_ref(ml, acc, q_len, 32,
+                                                     out_dtype)
+        # elementwise only: most rows here are zeros (q_len), which the
+        # row check's median cannot take
+        err = max(err, held(f"combine 4 splits GQA 32:8 [{str(out_dtype)[6:]}]",
+                            got, want, TRAIN_TOL[out_dtype][:2] + (None,)))
+    return err
 
 
 def fp8_code_table(pa):
@@ -393,6 +498,9 @@ ERNIE_ATTN_CASES = [("ERNIE shape", (8, 512, 512, 12, 12, 64), False,
 ERNIE_ATTN_SHAPE = (64, 512, 512, 12, 12, 64)   # phase 3d's B 64 x S 512
 ERNIE_LN_ROWS = (32768, 768)
 SOFTMAX_SHAPE = (8, 12, 512, 512)
+# the softmax forward's register pass at its longest row (2,048), and its
+# looped kernel past that and at a row that is not a whole 16-byte vector
+SOFTMAX_BRANCH_ROWS = ((4096, 2048), (2048, 4096), (4096, 1002))
 ADAMW_LENGTHS = (40000 * 768, 768, 40000)
 # (atol, rtol, row_rtol) of the train kernels against their plain versions.
 # f32 kernels and f32 plain versions differ only in summation order.  In
@@ -627,6 +735,25 @@ def phase_fused_kernels(fa, fu, worst):
             f"softmax dx causal -inf mask {tag}", fu.softmax_bwd(o, gs),
             fu.softmax_bwd_ref(o, gs), tol))
         del s_in, gs, o, q_pos
+        # the forward's other branches: the register pass at its longest
+        # row, and the looped kernel past it and off the 16-byte vector;
+        # then a row that is -inf throughout (NaN, as in the plain version)
+        for n_rows, h_len in SOFTMAX_BRANCH_ROWS:
+            s_in = (2 * torch.randn(n_rows, h_len, generator=gen,
+                                    device="cuda")).to(dt)
+            s_in[1, : h_len // 2] = float("-inf")
+            worst["softmax_fwd"] = max(worst["softmax_fwd"], held(
+                f"softmax o [{n_rows}, {h_len}] {tag}", fu.softmax_fwd(s_in),
+                fu.softmax_fwd_ref(s_in), tol))
+            s_in[2] = float("-inf")
+            got, want = fu.softmax_fwd(s_in)[2], fu.softmax_fwd_ref(s_in)[2]
+            require(torch.equal(got.isnan(), want.isnan())
+                    and bool(torch.isnan(got).all()),
+                    f"softmax [{n_rows}, {h_len}] {tag}: an all -inf row "
+                    f"differs from the plain version")
+        print(f"  softmax rows of -inf throughout {tag}: NaN, as the plain "
+              f"version, in every branch")
+        del s_in
         for length in ADAMW_LENGTHS:
             p = torch.randn(length, generator=gen, device="cuda").to(dt)
             gp = torch.randn(length, generator=gen, device="cuda").to(dt)
@@ -728,6 +855,9 @@ def phase_serving(pa, cfg, params):
     require(ref_calls == 0 and quant_launches == 0,
             f"plain version ran {ref_calls} times, quantized kernel "
             f"{quant_launches}")
+    combines = pa.ragged_paged_attention.combine_launches
+    require(0 < combines <= launches, f"split merges {combines} (want 1 to "
+            f"{launches}: one after each split launch)")
     eng.check_invariants()
 
     n_tok = sum(len(r.generated) for r in out)
@@ -740,11 +870,12 @@ def phase_serving(pa, cfg, params):
     print(f"  kernel launches {launches} (= {L} layers x ("
           f"{delta['decode_model_steps']} decode steps + "
           f"{delta['prefill_chunks']} chunks)), plain-version calls "
-          f"{ref_calls}")
+          f"{ref_calls}, split merges {combines}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
     decode_breakdown(eng, cfg)
-    return dict(launches=launches, tokens=n_tok, wall_s=wall,
+    return dict(launches=launches, combines=combines, tokens=n_tok,
+                wall_s=wall,
                 kv_bytes=eng.pool.num_pages * eng.page_bytes,
                 tokens_per_s=n_tok / wall,
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
@@ -945,6 +1076,9 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
             f"attention dispatches {L} x {dispatches}")
     require(launches == 0 and ref_calls == 0,
             f"plain kernel ran {launches} times, plain version {ref_calls}")
+    combines = pa.ragged_paged_attention.combine_launches
+    require(0 < combines <= quant_launches, f"split merges {combines} (want 1"
+            f" to {quant_launches}: one after each split launch)")
     require(delta["verify_steps"] > 0 and delta["draft_tokens_proposed"] > 0,
             "no draft was proposed and verified")
     eng.check_invariants()
@@ -964,11 +1098,13 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
     print(f"  quantized kernel launches {quant_launches} (= {L} layers x ("
           f"{delta['decode_model_steps']} decode steps + "
           f"{delta['verify_steps']} verify steps + {delta['prefill_chunks']}"
-          f" chunks)), plain kernel {launches}, plain version {ref_calls}")
+          f" chunks)), plain kernel {launches}, plain version {ref_calls}, "
+          f"split merges {combines}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
     verify_breakdown(eng, cfg, succ)
-    return dict(quant_launches=quant_launches, tokens_per_s=n_tok / wall,
+    return dict(quant_launches=quant_launches, combines=combines,
+                tokens_per_s=n_tok / wall,
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 ttft_p95_ms=float(np.percentile(ttft, 95)), acceptance=acc,
                 decode_kv_lens=[len(reqs[i][0]) + reqs[i][1] // 2
@@ -1511,15 +1647,15 @@ def bound(q_len, q_start, kv_len, Hq, Hkv, D, ps, elt, flop_rate,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def time_shape(pa, gen, sh, kv_dtype):
-    """Kernel and plain-version ms at one segment shape (bf16 q, 32 heads,
-    D = 128, page 16), rotating over 4 page pools (> the 50 MB L2)."""
+def shape_inputs(gen, sh, kv_dtype, n_copies=4):
+    """bf16 q (32 heads, D = 128, page 16) at one segment shape, and
+    ``n_copies`` page pools (> the 50 MB L2 together) of bf16 pages or of
+    int8 / fp8 codes with their scales; the slots' pages in a random order."""
     from paddle_tpu_torch.serving.quant import kv_spec, quantize_kv
     dt, Hq, Hkv, D, ps = torch.bfloat16, 32, 32, 128, 16
     S, Qmax = sh["S"], sh["Qmax"]
     P = max(-(-k // ps) for k in sh["kv_len"])
     NP = S * P
-    n_copies = 4
     q = torch.randn(S, Qmax, Hq, D, generator=gen, device="cuda").to(dt)
     pools = []
     for _ in range(n_copies):
@@ -1536,6 +1672,18 @@ def time_shape(pa, gen, sh, kv_dtype):
         .to(torch.int32).reshape(S, P)
     seg = [torch.tensor(sh[k], dtype=torch.int32, device="cuda")
            for k in ("q_start", "q_len", "kv_len")]
+    return q, pools, pt, seg
+
+
+def time_shape(pa, gen, sh, kv_dtype):
+    """Kernel ms at one segment shape as a CUDA-graph replay (the device's
+    time: the wrapper's host cost, tens of us per call, would hide it),
+    its eager ms on a line of its own, the plain version's ms (eager), and
+    the bound.  The kernel's time includes the split merge where the plan
+    splits."""
+    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype)
+    Hq, Hkv, D, ps = 32, 32, 128, 16
+    n_copies = len(pools)
 
     def kern(i):
         (k, v), sc = pools[i % n_copies]
@@ -1545,17 +1693,26 @@ def time_shape(pa, gen, sh, kv_dtype):
         (k, v), sc = pools[i % n_copies]
         pa.ragged_paged_attention_ref(q, k, v, pt, *seg, **sc)
 
-    ms = time_ms(kern, 200)
+    ms = graph_ms(kern, 200)
+    eager_ms = time_ms(kern, 200)
     plain_ms = time_ms(plain, 20)
     b_ms, b_by, nbytes, flops = bound(sh["q_len"], sh["q_start"],
                                       sh["kv_len"], Hq, Hkv, D, ps, 2,
                                       BF16_FLOP_PER_S, kv_dtype)
-    print(f"  {kv_dtype or 'bf16':<5} {sh['name']:<6} S={S} Qmax={Qmax} "
-          f"kv_len={sh['kv_len']}: kernel {ms:.4f} ms, plain "
+    plan = pa.split_plan(sh["S"], sh["Qmax"], Hq, Hkv, D, pt.shape[1], ps,
+                         True, sms=torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    tag = f"{kv_dtype or 'bf16':<5} {sh['name']:<6}"
+    print(f"  {tag} S={sh['S']} Qmax={sh['Qmax']} kv_len={sh['kv_len']}: "
+          f"kernel {ms:.4f} ms (graph replay; {plan.n_splits} splits of "
+          f"{plan.split_len} tokens, {plan.blocks} blocks), plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
           f"{b_ms / ms * 100:.1f}% of bound; library_ms null")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"  {tag} eager (one wrapper call each, host cost included): "
+          f"{eager_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                eager_ms=eager_ms)
 
 
 def shapes(kv_lens):
@@ -1569,24 +1726,248 @@ def shapes(kv_lens):
                  kv_len=[512])]
 
 
-def phase_timing(pa, layers, plain_kv, quant_kv):
-    """Row 1 at phase 3a's decode and chunk shapes (and the verify shape of
-    phase 3b's lengths), row 2 over int8 pages at phase 3b's decode, verify
-    and chunk shapes, and over fp8 pages at its decode shape."""
+def timing_shapes(plain_kv, quant_kv):
+    """(pages, shape) of every timed rows-1/2 shape: row 1 at phase 3a's
+    decode and chunk shapes and at the verify shape of phase 3b's lengths,
+    row 2 over int8 pages at phase 3b's decode, verify and chunk shapes, and
+    over fp8 pages at its decode shape."""
+    plain, quant = shapes(plain_kv), shapes(quant_kv)
+    return ([(None, sh) for sh in (plain[0], quant[1], plain[2])]
+            + [("int8", sh) for sh in quant] + [("fp8", quant[0])])
+
+
+def phase_timing(pa, layers, plain_kv, quant_kv, parent=None):
+    """Rows 1-2 at the phase-3 shapes (:func:`timing_shapes`), the split
+    merge alone at phase 3a's decode shape, one line per design step (the
+    split count, the ring depth, the warps of a CUDA-core block), and with
+    ``parent`` (another commit's ``csrc``) that build's kernels timed in
+    turns with these."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    plain_shapes = shapes(plain_kv)
     res = {"plain": {}, "quant": {}}
-    for sh in (plain_shapes[0], shapes(quant_kv)[1], plain_shapes[2]):
-        res["plain"][sh["name"]] = time_shape(pa, gen, sh, None)
-    for sh in shapes(quant_kv):
-        res["quant"][sh["name"]] = time_shape(pa, gen, sh, "int8")
-    time_shape(pa, gen, shapes(quant_kv)[0], "fp8")
+    for kv_dtype, sh in timing_shapes(plain_kv, quant_kv):
+        r = time_shape(pa, gen, sh, kv_dtype)
+        if kv_dtype != "fp8":
+            res["plain" if kv_dtype is None else "quant"][sh["name"]] = r
+    res["combine"] = combine_timing(pa, gen, plain_kv)
     print(f"  launches: {layers} per decode step, per verify step and per "
           f"prefill chunk (one per layer), of row 1 on an f32/bf16 store "
-          f"and of row 2 on an int8/fp8 store")
+          f"and of row 2 on an int8/fp8 store, each followed by the merge "
+          f"when its plan splits")
     print("  library_ms is null: no single PyTorch call attends over a paged,"
           " ragged KV cache (SDPA needs the pages gathered dense first)")
+    print("  design steps of rows 1-2 (each variant held against the plain "
+          "version first):")
+    ragged_design_steps(pa, gen, timing_shapes(plain_kv, quant_kv)[:5])
+    if parent is not None:
+        print(f"  rows 1, 2 and 10 against the build of {parent}, in turns:")
+        parent_serving_turns(parent, pa, gen,
+                             timing_shapes(plain_kv, quant_kv))
     return res
+
+
+def combine_timing(pa, gen, kv_lens):
+    """The split merge alone on the partials phase 3a's decode shape leaves
+    (splits past a slot's tokens empty): held against its plain version,
+    then its graph-replay ms, plain ms and bound (the partials it reads —
+    m and l of every split, the accumulators of the live ones — and the
+    bf16 rows it writes)."""
+    Hq, D, ps = 32, 128, 16
+    P = max(-(-k // ps) for k in kv_lens)
+    plan = pa.split_plan(len(kv_lens), 1, Hq, Hq, D, P, ps, True,
+                         sms=torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    live = torch.tensor([[sp * plan.split_len < k for k in kv_lens]
+                         for sp in range(plan.n_splits)], device="cuda")
+    ml, acc = random_partials(gen, plan.n_splits, len(kv_lens), Hq, 1, D,
+                              live)
+    q_len = torch.ones(len(kv_lens), dtype=torch.int32, device="cuda")
+    args = (ml, acc, q_len, Hq, torch.bfloat16)
+    held(f"combine at the decode shape ({plan.n_splits} splits)",
+         pa.ragged_paged_attention_combine(*args),
+         pa.ragged_paged_attention_combine_ref(*args),
+         TRAIN_TOL[torch.bfloat16])
+    n_live = int(live.sum()) * Hq
+    nbytes = ml.numel() * 4 + n_live * D * 4 + len(kv_lens) * Hq * D * 2 \
+        + 4 * len(kv_lens)
+    return report(f"combine ({plan.n_splits} splits)",
+                  graph_ms(lambda i: pa.ragged_paged_attention_combine(*args),
+                           200),
+                  time_ms(lambda i: pa.ragged_paged_attention_combine_ref(
+                      *args), 20),
+                  None, nbytes, 2 * n_live * D, "none", F32_FLOP_PER_S)
+
+
+# Design steps of rows 1-2: compile-time settings of
+# ragged_paged_attention.cuh, each built into libraries of their own and
+# timed against the shipped build (the first entry) in one run; then the
+# split count (the blocks per SM the plan aims at) on the shipped build.
+RPA_VARIANTS = (
+    ("shipped: 4 warps per CUDA-core block, rings of 2", ()),
+    ("ring depth 3", ("-DRPA_STAGES=3",)),
+    ("2 warps per CUDA-core block", ("-DRPA_WARPS=2",)),
+    ("8 warps per CUDA-core block", ("-DRPA_WARPS=8",)),
+)
+# (blocks per SM the plan aims at for CUDA-core tiles, for tensor-core
+# tiles (0: one split), the fewest rows that take the tensor-core tile)
+SPLIT_STEPS = ((2, 2, 2), (8, 2, 2), (4, 1, 2), (4, 4, 2), (4, 2, 16))
+RPA_LIBS = ("ragged_paged_attention", "ragged_paged_attention_quant")
+
+
+def ragged_ptxas(paths):
+    """The most registers and spill stores over the instantiations of each
+    ragged kernel in the ptxas reports of ``paths``."""
+    most = {}
+    for lib in RPA_LIBS:
+        for kern, _, regs, stores, _ in ptxas_lines(paths[lib]):
+            key = kern[len("ragged_paged_attention_"):] + (
+                " (quant)" if lib.endswith("quant") else "")
+            r, st = most.get(key, (0, 0))
+            most[key] = (max(r, regs), max(st, stores))
+    return ", ".join(f"{k} {r} registers, {st} B spilled"
+                     for k, (r, st) in most.items())
+
+
+def ragged_design_steps(pa, gen, timed):
+    """One line per entry of ``RPA_VARIANTS`` and of ``SPLIT_STEPS``: each
+    variant's output at every ``timed`` (pages, shape) held against the
+    plain version, then its graph-replay ms there.  A measurement only: the
+    port loads the shipped build and plan, which are put back however this
+    ends."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(RPA_VARIANTS)) as pool:
+        paths = list(pool.map(
+            lambda var: _build.build_all(list(RPA_LIBS), var[1]),
+            RPA_VARIANTS))
+    print(f"  built {len(paths)} variants in {time.perf_counter() - t0:.1f} s")
+    cases = []
+    for kv_dtype, sh in timed:
+        q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype)
+        (k, v), sc = pools[0]
+        want = pa.ragged_paged_attention_ref(q, k, v, pt, *seg, **sc)
+        cases.append((f"{kv_dtype or 'bf16'} {sh['name']}", q, pools, pt,
+                      seg, want))
+    shipped = {n: _build.library(n) for n in RPA_LIBS}
+    blocks = (pa.BLOCKS_PER_SM, pa.MMA_BLOCKS_PER_SM, pa.MMA_MIN_ROWS)
+    runs = [(what, path, blocks) for (what, _), path in zip(RPA_VARIANTS,
+                                                           paths)]
+    runs += [(f"split plan for {b} (CUDA-core) / {m} (tensor-core) blocks "
+              f"per SM, tensor cores from {r} rows", paths[0], (b, m, r))
+             for b, m, r in SPLIT_STEPS]
+    runs.append((RPA_VARIANTS[0][0], paths[0], blocks))
+    try:
+        for what, path, b in runs:
+            for n in RPA_LIBS:
+                _build._LIBS[n] = ctypes.CDLL(str(path[n]))
+            pa.BLOCKS_PER_SM, pa.MMA_BLOCKS_PER_SM, pa.MMA_MIN_ROWS = b
+            line = []
+            for name, q, pools, pt, seg, want in cases:
+                (k, v), sc = pools[0]
+                hold_ragged(f"{name} [{what}]", pa.ragged_paged_attention(
+                    q, k, v, pt, *seg, **sc), want, bool(sc))
+                ms = graph_ms(lambda i: pa.ragged_paged_attention(
+                    q, *pools[i % len(pools)][0], pt, *seg,
+                    **pools[i % len(pools)][1]), 200)
+                line.append(f"{name} {ms:.4f}")
+            print(f"  design step {what}: {', '.join(line)} ms ("
+                  f"{ragged_ptxas(path)})")
+    finally:
+        _build._LIBS.update(shipped)
+        pa.BLOCKS_PER_SM, pa.MMA_BLOCKS_PER_SM, pa.MMA_MIN_ROWS = blocks
+    del cases
+    torch.cuda.empty_cache()
+
+
+def hold_ragged(name, got, want, quant):
+    """A ragged kernel's bf16 output against the plain version's, at
+    phase 2's tolerance for it."""
+    torch.cuda.synchronize()
+    atol, rtol = TOL_QUANT_BF16 if quant else TOL[torch.bfloat16]
+    err = (got.float() - want.float()).abs()
+    require(bool((err <= atol + rtol * want.float().abs()).all()),
+            f"{name}: kernel vs plain max abs err {err.max().item():.3e}")
+
+
+def parent_ragged(libs, q, k, v, pt, seg, k_scales=None, v_scales=None):
+    """One launch of a ragged entry built before the split grid (its C
+    signature, with no split plan; bf16 q and out), allocating its
+    output."""
+    import ctypes
+    out = torch.empty_like(q)
+    s_slots, qmax, hq, d = q.shape
+    hkv, num_pages, ps, _ = k.shape
+    quant = k_scales is not None
+    ptrs = [q, k, v] + ([k_scales, v_scales] if quant else []) + [pt, *seg,
+                                                                 out]
+    ints = [s_slots, qmax, hq, hkv, num_pages, ps, pt.shape[1], d, 1, 1]
+    name = "ragged_paged_attention"
+    if quant:
+        ints.append(0 if k.dtype == torch.int8 else 1)
+        name += "_quant"
+    fn = getattr(libs[name], f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) \
+        + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(*[t.data_ptr() for t in ptrs], *ints, 1.0 / np.sqrt(d),
+             torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"{name}_launch (parent): CUDA error {err}")
+    return out
+
+
+def parent_serving_turns(parent, pa, gen, timed):
+    """``--parent DIR``: the ragged entries and ``softmax.cu`` of another
+    commit (DIR holds its ``csrc``), built with the same flags and timed in
+    turns with the shipped build — parent, new, new, parent — on the same
+    inputs: rows 1-2 at every ``timed`` shape (through :func:`parent_ragged`
+    when the parent predates the split grid), and row 10 at
+    ``SOFTMAX_SHAPE`` bf16 (CUDA-graph replays).
+    Every output is held against the plain version first."""
+    import ctypes
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused as fu
+    names = [*RPA_LIBS, "softmax"]
+    old = {n: ctypes.CDLL(str(p)) for n, p in
+           _build.build_all(names, csrc=Path(parent)).items()}
+    cases = []
+    for kv_dtype, sh in timed:
+        q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype)
+        (k, v), sc = pools[0]
+        want = pa.ragged_paged_attention_ref(q, k, v, pt, *seg, **sc)
+        cases.append((f"{kv_dtype or 'bf16'} {sh['name']}", q, pools, pt,
+                      seg, want))
+    rows, hs = int(np.prod(SOFTMAX_SHAPE[:-1])), SOFTMAX_SHAPE[-1]
+    xs = (2 * torch.randn(rows, hs, generator=gen, device="cuda")).bfloat16()
+    want_s = fu.softmax_fwd_ref(xs)
+    # a parent with the split grid takes the wrapper's own call
+    split_grid = hasattr(old["ragged_paged_attention"],
+                         "ragged_paged_attention_combine_launch")
+    shipped = {n: _build.library(n) for n in names}
+    try:
+        for side in ("parent", "new", "new", "parent"):
+            _build._LIBS.update(old if side == "parent" else shipped)
+            line = []
+            for name, q, pools, pt, seg, want in cases:
+                def run(i):
+                    (k, v), sc = pools[i % len(pools)]
+                    if side == "parent" and not split_grid:
+                        return parent_ragged(old, q, k, v, pt, seg, **sc)
+                    return pa.ragged_paged_attention(q, k, v, pt, *seg, **sc)
+                hold_ragged(f"{name} [{side}]", run(0), want,
+                            bool(pools[0][1]))
+                line.append(f"{name} {graph_ms(run, 200):.4f}")
+            held(f"softmax o [{side}]", fu.softmax_fwd(xs), want_s,
+                 TRAIN_TOL[torch.bfloat16])
+            line.append(f"softmax fwd {graph_ms(lambda i: fu.softmax_fwd(xs), 100):.4f}")
+            print(f"  turn {side}: {', '.join(line)} ms")
+    finally:
+        _build._LIBS.update(shipped)
+    del cases, xs, want_s
+    torch.cuda.empty_cache()
 
 
 def causal_pairs(s_q, s_k):
@@ -2015,8 +2396,10 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="csrc directory of another commit: phase 5b times "
-                         "its dQ and RMSNorm backward in turns with these")
+                    help="csrc directory of another commit: phase 5 times "
+                         "its ragged paged attention and softmax forward, "
+                         "phase 5b its dQ and RMSNorm backward, in turns "
+                         "with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -2083,7 +2466,8 @@ def main():
 
     print("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
-                          serve["decode_kv_lens"], serve_q["decode_kv_lens"])
+                          serve["decode_kv_lens"], serve_q["decode_kv_lens"],
+                          parent=args.parent)
     print("phase 5b: train kernel timing at the phase-3c shapes")
     timing.update(phase_train_timing(parent=args.parent))
     print("phase 5c: LayerNorm, softmax and AdamW timing at the phase-3d/3e "
@@ -2113,6 +2497,8 @@ def main():
                          ms=dec["ms"], plain_ms=dec["plain_ms"],
                          bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                          library_ms=None))
+    rows.append(dict(COMBINE, launches=serve["combines"] + serve_q["combines"],
+                     max_abs_err=max_err["combine"], **timing["combine"]))
     for meta in TRAIN_ROWS:
         key = meta["key"]
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},

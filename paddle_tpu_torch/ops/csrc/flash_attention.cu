@@ -83,8 +83,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -565,93 +566,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #endif                         // fragments in registers (0: reloads them
                                // per k-step, as it always does at D = 128)
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kKeyTile = 64;           // keys per forward k tile
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !full (the
-// source is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma16816(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x, y) as a hi and a lo bf16 pair: hi = bf16(x) and lo = bf16(x - hi);
-// x - hi is exact in f32 and at most 2^-8 |x|, so hi + lo is x to 2^-16
-// relative
-__device__ __forceinline__ void split_pair(float x, float y, unsigned& hi,
-                                          unsigned& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<unsigned*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
-}
-
-// element offset of 16-byte chunk c of row r in a swizzled [rows][D] tile
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
 
 // rows [row0, row0 + R) of a [.., D] row tile (row stride ss) -> swizzled
 // shared tile, 16 bytes per cp.async; rows at or past `rows` are zeros
@@ -666,40 +582,6 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
     cp_async16(dst + swz<D>(r, c),
                src + (long long)min(row, rows - 1) * ss + c * 8, row < rows);
   }
-}
-
-// the A fragments (16 x 16 bf16 per k-step) of rows [r0, r0 + 16) of a
-// swizzled tile, k-step kk
-template <int D>
-__device__ __forceinline__ void load_a(unsigned a[4],
-                                       const __nv_bfloat16* tile, int r0,
-                                       int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(a, tile + swz<D>(r0 + (lane & 15), kk * 2 + (lane >> 4)));
-}
-
-// B fragments of two n-tiles (rows n0 .. n0 + 15 of a row tile read as
-// B^T: B[k][n] = tile[n][k]) at k-step kk: b[0], b[1] for n0, b[2], b[3]
-// for n0 + 8
-template <int D>
-__device__ __forceinline__ void load_bt(unsigned b[4],
-                                        const __nv_bfloat16* tile, int n0,
-                                        int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(b, tile + swz<D>(n0 + ((lane >> 4) << 3) + (lane & 7),
-                           kk * 2 + ((lane >> 3) & 1)));
-}
-
-// B fragments of two n-tiles of a row tile read as B: B[k][n] = tile[k][n],
-// k = k0 .. k0 + 15, n = chunk pair dp: b[0], b[1] for columns 16 dp ..,
-// b[2], b[3] for 16 dp + 8 ..
-template <int D>
-__device__ __forceinline__ void load_b(unsigned b[4],
-                                       const __nv_bfloat16* tile, int k0,
-                                       int dp) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4_t(b, tile + swz<D>(k0 + (((lane >> 3) & 1) << 3) + (lane & 7),
-                             dp * 2 + (lane >> 4)));
 }
 
 // number of 64-key tiles that a q tile of rows [row0, row0 + R) visits
@@ -1331,23 +1213,6 @@ constexpr int dq_mma_smem() {
 
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-
-// A kernel's dynamic shared-memory limit, set once per device: `done` is
-// the call site's own flag word (one bit per device), so that
-// cudaFuncSetAttribute's host cost is not paid on every launch.
-template <typename K>
-cudaError_t allow_smem(std::atomic<unsigned long long>& done, K kernel,
-                       int bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,

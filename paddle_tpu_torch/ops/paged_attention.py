@@ -23,6 +23,14 @@ PyTorch version :func:`ragged_paged_attention_ref` for CPU tensors — the
 device of the tensors is the only thing that picks.  On a CUDA tensor it
 launches or raises; nothing falls back.
 
+Split-KV: :func:`split_plan` (a host function of shapes alone, never of
+``kv_len``) picks how many blocks share a slot's token range; with more than
+one split the kernel writes per-split partial softmax states to a workspace
+the wrapper allocates and a second kernel merges them
+(:func:`ragged_paged_attention_combine`, plain version
+:func:`ragged_paged_attention_combine_ref`), counted by
+``ragged_paged_attention.combine_launches``.
+
 Quantized pages: with ``k_scales``/``v_scales`` (``[Hkv, NP, ps]`` f32, both
 or neither) the pages hold int8 or float8_e4m3fn codes and every row
 dequantizes as ``code * scale`` — inside the kernel
@@ -35,12 +43,15 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
+           "ragged_paged_attention_combine",
+           "ragged_paged_attention_combine_ref", "split_plan", "SplitPlan",
            "ragged_paged_attention_decode", "paged_attention_decode_ref",
            "paged_gather_kv", "paged_gather_scales", "NEG_INF"]
 
@@ -48,6 +59,64 @@ NEG_INF = -1e30
 
 _KV_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _HEAD_DIMS = (64, 128)
+# query rows of a block: the CUDA-core tile (one row for a one-row group:
+# decode without GQA), and the tensor-core tile that bf16 q takes once a
+# (slot, kv head) group has MMA_MIN_ROWS rows
+CORE_ROWS, MMA_ROWS = 8, 64
+MMA_MIN_ROWS = 2
+# the split grid aims at this many blocks per SM for CUDA-core and for
+# tensor-core tiles (measured in phase 5 of chip_smoke.py), with no more
+# splits than the table holds pieces of MIN_SPLIT_TOKENS tokens and of
+# SPLIT_TOKENS_PER_ROW tokens per query row of a group, so that the
+# partials (f32 rows) stay small beside the K/V rows a split reads
+BLOCKS_PER_SM = 4
+MMA_BLOCKS_PER_SM = 2
+MIN_SPLIT_TOKENS = 64
+SPLIT_TOKENS_PER_ROW = 4
+H100_SMS = 132
+
+
+class SplitPlan(NamedTuple):
+    """How one launch cuts its work: query rows per block, ``n_splits``
+    splits of ``split_len`` tokens (whole pages), the grid's block count,
+    and the partials' workspace shapes (``ml``: m and l per row, ``acc``:
+    the f32 accumulator; both unused with one split)."""
+    row_tile: int
+    n_splits: int
+    split_len: int
+    blocks: int
+    ml_shape: tuple
+    acc_shape: tuple
+
+
+def split_plan(s_slots, qmax, hq, hkv, head_dim, table_width, page_size,
+               tensor_cores, sms=H100_SMS):
+    """The split-KV plan of a launch, from shapes alone (never ``kv_len``,
+    so it needs nothing from the device): the row tile (``MMA_ROWS`` when
+    ``tensor_cores`` — bf16 q — and a group has ``MMA_MIN_ROWS`` rows,
+    else ``CORE_ROWS``, or 1 for a one-row group), then enough splits of
+    the table's ``table_width`` pages for ``BLOCKS_PER_SM`` blocks
+    (``MMA_BLOCKS_PER_SM`` for the tensor-core tile) on each of ``sms``
+    SMs, but no more splits than the table holds pieces of
+    ``MIN_SPLIT_TOKENS`` tokens and of ``SPLIT_TOKENS_PER_ROW`` tokens per
+    group row — one split for a short table, never more splits than
+    pages."""
+    rows = qmax * (hq // hkv)
+    row_tile = MMA_ROWS if tensor_cores and rows >= MMA_MIN_ROWS else \
+        CORE_ROWS if rows > 1 else 1
+    base = -(-rows // row_tile) * hkv * s_slots
+    per_split = -(-max(MIN_SPLIT_TOKENS, SPLIT_TOKENS_PER_ROW * rows)
+                  // page_size)                         # pages, at least
+    most = max(1, -(-table_width // per_split))
+    blocks_per_sm = MMA_BLOCKS_PER_SM if row_tile == MMA_ROWS \
+        else BLOCKS_PER_SM
+    want = math.ceil(sms * blocks_per_sm / max(base, 1))
+    n = max(1, min(want, most))
+    split_pages = max(1, -(-table_width // n))
+    n = max(1, -(-table_width // split_pages))
+    return SplitPlan(row_tile, n, split_pages * page_size, n * base,
+                     (n, s_slots, hkv, rows, 2),
+                     (n, s_slots, hkv, rows, head_dim))
 
 
 def _check_common(q, k_pages, v_pages, k_scales, v_scales):
@@ -120,11 +189,18 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     for name, t in (("q", q),) + pages + scales + index:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q),) + pages:
+    for name, t in (("q", q),) + pages + scales:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"loads 16-byte vectors)")
+                             f"copies 16-byte vectors)")
+    plan = split_plan(s_slots, qmax, hq, hkv, d, page_table.shape[1],
+                      page_size, q.dtype == torch.bfloat16,
+                      sms=_sm_count(dev))
     out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    ml = acc = None
+    if plan.n_splits > 1:
+        ml = torch.empty(plan.ml_shape, dtype=torch.float32, device=dev)
+        acc = torch.empty(plan.acc_shape, dtype=torch.float32, device=dev)
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     ints = [s_slots, qmax, hq, hkv, num_pages, page_size, page_table.shape[1],
             d, _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[out_dtype]]
@@ -132,11 +208,18 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     if quant:
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
         ints.append(_KV_CODE[k_pages.dtype])
-    ptrs += [t.data_ptr() for _, t in index] + [out.data_ptr()]
+    ptrs += [t.data_ptr() for _, t in index]
+    ptrs += [0 if t is None else t.data_ptr() for t in (ml, acc)]
+    ptrs.append(out.data_ptr())
+    ints += [plan.row_tile, plan.n_splits, plan.split_len]
     _build.launch(lib, f"{lib}_launch",
                   [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
                   + [ctypes.c_float], [*ptrs, *ints, sm_scale], dev)
-    return out
+    return out, plan.n_splits > 1
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
@@ -172,18 +255,77 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
                                           out_dtype=out_dtype,
                                           k_scales=k_scales,
                                           v_scales=v_scales)
-    out = _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len,
-                         kv_len, float(sm_scale), out_dtype, k_scales,
-                         v_scales)
+    out, combined = _launch_kernel(q, k_pages, v_pages, page_table, q_start,
+                                   q_len, kv_len, float(sm_scale), out_dtype,
+                                   k_scales, v_scales)
     if k_scales is None:
         ragged_paged_attention.launches += 1
     else:
         ragged_paged_attention.quant_launches += 1
+    ragged_paged_attention.combine_launches += combined
     return out
 
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.quant_launches = 0
+ragged_paged_attention.combine_launches = 0
+
+
+def ragged_paged_attention_combine(ml, acc, q_len, hq, out_dtype):
+    """The split-KV merge alone: partials ``ml [n, S, Hkv, R, 2]`` (m in
+    base-2 units, l) and ``acc [n, S, Hkv, R, D]`` f32 (R = Qmax * rep rows
+    of a (slot, kv head) group) -> ``out [S, Qmax, hq, D]`` in
+    ``out_dtype``, rows past ``q_len`` zero.  The main kernel launches it
+    itself after a split grid; this entry holds and times it alone.  CUDA
+    tensors launch ``ragged_paged_attention_combine_launch`` and add one to
+    ``ragged_paged_attention.combine_launches``; CPU tensors run
+    :func:`ragged_paged_attention_combine_ref`."""
+    if not _build.on_card("ragged_paged_attention_combine", acc):
+        return ragged_paged_attention_combine_ref(ml, acc, q_len, hq,
+                                                  out_dtype)
+    n, s_slots, hkv, rows, d = acc.shape
+    qmax = rows // (hq // hkv)
+    if ml.shape != (n, s_slots, hkv, rows, 2) or d not in _HEAD_DIMS \
+            or out_dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"combine: ml {tuple(ml.shape)}, acc "
+                         f"{tuple(acc.shape)}, out {out_dtype}")
+    for t in (ml, acc, q_len):
+        if not t.is_contiguous() or t.device != acc.device:
+            raise ValueError("combine: ml, acc and q_len contiguous, on one "
+                             "device")
+    out = torch.empty(s_slots, qmax, hq, d, dtype=out_dtype,
+                      device=acc.device)
+    _build.launch("ragged_paged_attention",
+                  "ragged_paged_attention_combine_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7,
+                  [ml.data_ptr(), acc.data_ptr(), q_len.data_ptr(),
+                   out.data_ptr(), s_slots, qmax, hq, hkv, n, d,
+                   _build.DTYPE_CODE[out_dtype]], acc.device)
+    ragged_paged_attention.combine_launches += 1
+    return out
+
+
+def ragged_paged_attention_combine_ref(ml, acc, q_len, hq, out_dtype):
+    """Plain version of the merge: per row, the splits with l > 0 weighted
+    by exp2(m - max m), divided by their summed l (rows with none, and rows
+    past ``q_len``, zero)."""
+    n, s_slots, hkv, rows, d = acc.shape
+    rep = hq // hkv
+    qmax = rows // rep
+    m, l = ml[..., 0], ml[..., 1]
+    live = l > 0
+    mx = torch.where(live, m, torch.full_like(m, -math.inf)).amax(0)
+    w = torch.where(live, torch.exp2(m - mx), torch.zeros_like(m))
+    den = (l * w).sum(0)
+    o = torch.where(live[..., None], acc * w[..., None],
+                    torch.zeros_like(acc)).sum(0)
+    o = torch.where(den[..., None] > 0, o / den[..., None],
+                    torch.zeros_like(o))
+    o = o.reshape(s_slots, hkv, qmax, rep, d).permute(0, 2, 1, 3, 4) \
+        .reshape(s_slots, qmax, hq, d)
+    keep = torch.arange(qmax, device=o.device)[None, :, None, None] \
+        < q_len.long()[:, None, None, None]
+    return torch.where(keep, o, torch.zeros_like(o)).to(out_dtype)
 
 
 def _byte_view(t):

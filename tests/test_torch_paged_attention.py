@@ -238,3 +238,161 @@ def test_quant_kernel_matches_plain_version_on_card():
         torch.cuda.synchronize()
         assert tpa.ragged_paged_attention.quant_launches == n + 1
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# -- split-KV: the host plan, the merge, and the split edges on the card ------
+def test_split_plan_fills_the_card_from_shapes_alone():
+    """The plan of phase 3a's decode launch (4 slots, one query row, 32 kv
+    heads, a 72-page table of page 16) puts at least two blocks on each of
+    an H100's 132 SMs; a short table gets one split; no plan has more
+    splits than pages; the workspace holds m, l and D accumulators per
+    split, slot, kv head and group row."""
+    plan = tpa.split_plan(4, 1, 32, 32, 128, 72, 16, True)
+    assert plan.row_tile == 1
+    assert plan.blocks >= 264 and plan.n_splits > 1
+    assert plan.n_splits * plan.split_len >= 72 * 16
+    assert plan.split_len % 16 == 0
+    assert plan.ml_shape == (plan.n_splits, 4, 32, 1, 2)
+    assert plan.acc_shape == (plan.n_splits, 4, 32, 1, 128)
+    assert tpa.split_plan(4, 1, 32, 32, 128, 4, 16, True).n_splits == 1
+    for width, ps in ((1, 16), (3, 8), (5, 64), (65, 16), (200, 16)):
+        for s_slots in (1, 4, 64):
+            p = tpa.split_plan(s_slots, 1, 8, 8, 64, width, ps, False)
+            assert 1 <= p.n_splits <= width
+            assert (p.n_splits - 1) * p.split_len < width * ps \
+                <= p.n_splits * p.split_len
+    # a group of several rows (verify, GQA) with bf16 q takes the
+    # tensor-core tile, with f32 q the CUDA-core one; the prefill chunk's
+    # 256 rows keep their table in one split (its partials would outweigh
+    # the K/V it reads)
+    assert tpa.split_plan(4, 5, 16, 4, 128, 72, 16, True).row_tile \
+        == tpa.MMA_ROWS
+    assert tpa.split_plan(4, 5, 32, 32, 128, 72, 16, True).row_tile \
+        == tpa.MMA_ROWS
+    assert tpa.split_plan(4, 5, 16, 4, 128, 72, 16, False).row_tile \
+        == tpa.CORE_ROWS
+    assert tpa.split_plan(1, 256, 32, 32, 128, 40, 16, True).n_splits == 1
+
+
+def _partials(q, kp, vp, pt, qs, ql, kl, n_splits, split_len, kv=None):
+    """What the kernel's split blocks leave: per split, each group row's max
+    m of its visible scores in the split (base 2, NEG_INF where none), l and
+    the unnormalized accumulator."""
+    S, Qmax, Hq, D = q.shape
+    hkv = kp.shape[0]
+    rep = Hq // hkv
+    k = tpa.paged_gather_kv(kp, pt).float()
+    v = tpa.paged_gather_kv(vp, pt).float()
+    if kv is not None:
+        k = k * tpa.paged_gather_scales(kv[0], pt)[..., None]
+        v = v * tpa.paged_gather_scales(kv[1], pt)[..., None]
+    qg = q.float().reshape(S, Qmax, hkv, rep, D).permute(0, 2, 1, 3, 4) \
+        .reshape(S, hkv, Qmax * rep, D)
+    s = torch.einsum("shrd,sthd->shrt", qg, k) / np.sqrt(D) * np.log2(np.e)
+    t = torch.arange(s.shape[-1])
+    qi = (torch.arange(Qmax * rep) // rep)[:, None]
+    vis = (t <= qs.long()[:, None, None, None] + qi) \
+        & (t < kl.long()[:, None, None, None]) \
+        & (qi < ql.long()[:, None, None, None])
+    ml, acc = [], []
+    for sp in range(n_splits):
+        mask = vis & (t >= sp * split_len) & (t < (sp + 1) * split_len)
+        m = torch.where(mask, s, torch.full_like(s, -np.inf)).amax(-1)
+        p = torch.where(mask, torch.exp2(s - m[..., None]),
+                        torch.zeros_like(s))
+        l = p.sum(-1)
+        m = torch.where(l > 0, m, torch.full_like(m, tpa.NEG_INF))
+        ml.append(torch.stack([m, l], -1))
+        acc.append(torch.einsum("shrt,sthd->shrd", p, v))
+    return torch.stack(ml), torch.stack(acc)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 6])
+def test_split_partials_merge_to_jax(n_splits, kv_dtype):
+    """Split partials merged by the plain merge equal the JAX kernel (in
+    interpret mode) on a mix of a split edge, a verify span across a split
+    boundary, a q_len = 0 slot and a GQA group — the kernel's split
+    algorithm, checked on the CPU."""
+    S, Qmax, Hq, Hkv, D, ps, NP, P = 4, 5, 8, 2, 64, 8, 30, 6
+    q, kp, vp, pt = _inputs(S, Qmax, Hq, Hkv, D, ps, NP, P, seed=21)
+    split_len = -(-P // n_splits) * ps
+    seg = ([split_len - 1, split_len - 3, 0, 2], [1, 5, 0, 3],
+           [split_len, split_len + 2, 0, 5])
+    arrays = (q, kp, vp, pt, *(np.asarray(x, np.int32) for x in seg))
+    ja, ta = _both(arrays)
+    jkw, kv = {}, None
+    if kv_dtype is not None:
+        jkw, tkw, (ja[1], ta[1]), (ja[2], ta[2]) = _quantized(kp, vp, kv_dtype)
+        kv = (tkw["k_scales"], tkw["v_scales"])
+    want = np.asarray(jpa.ragged_paged_attention(*ja, interpret=True, **jkw))
+    ml, acc = _partials(*ta, n_splits, split_len, kv)
+    got = tpa.ragged_paged_attention_combine_ref(ml, acc, ta[5], Hq,
+                                                 torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the CPU wrapper of the merge is its plain version
+    n = tpa.ragged_paged_attention.combine_launches
+    torch.testing.assert_close(
+        tpa.ragged_paged_attention_combine(ml, acc, ta[5], Hq, torch.float32),
+        got, rtol=0, atol=0)
+    assert tpa.ragged_paged_attention.combine_launches == n
+
+
+def _split_edge_cases(sms):
+    """(name, S, Qmax, Hq, Hkv, D, ps, NP, P, q_start, q_len, kv_len) at the
+    split edges the plan gives on a card of ``sms`` SMs."""
+    L = tpa.split_plan(5, 1, 32, 32, 128, 24, 16, True, sms=sms).split_len
+    V = tpa.split_plan(4, 5, 32, 32, 128, 24, 16, True, sms=sms).split_len
+    return [
+        ("split edges", 5, 1, 32, 32, 128, 16, 160, 24,
+         [0, L - 2, L - 1, L, 0], [1, 1, 1, 1, 0], [1, L - 1, L, L + 1, 0]),
+        ("verify frontier in a split", 4, 5, 32, 32, 128, 16, 120, 24,
+         [V - 2, V - 5, V + V // 2, 0], [5, 5, 5, 0],
+         [V + 3, V, V + V // 2 + 5, 7]),
+        ("one split", 3, 1, 32, 32, 128, 16, 16, 4, [63, 29, 0], [1, 1, 1],
+         [64, 30, 1]),
+        ("GQA 16:4 D=64 ps=64", 3, 1, 16, 4, 64, 64, 20, 6, [299, 63, 64],
+         [1, 1, 1], [300, 64, 65]),
+        ("37-row chunk", 2, 40, 32, 32, 128, 16, 40, 12, [100, 0], [37, 0],
+         [137, 0]),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("case", range(5))
+def test_split_edges_match_plain_version_on_card(case, kv_dtype):
+    """The kernels at the split grid's edges (kv_len 1, L - 1, L, L + 1 and
+    0; a verify frontier across and inside a split; one split; GQA 16:4 at
+    D 64 and page 64; a 37-row chunk on the tensor cores with a q_len = 0
+    slot) against the plain version, f32 and bf16 q, f32 out, within 1e-4
+    — 2e-2 where bf16 q meets quantized pages, since the plain version
+    rounds each dequantized row to bf16 and the CUDA-core tile keeps it
+    f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    (_, S, Qmax, Hq, Hkv, D, ps, NP, P,
+     qs, ql, kl) = _split_edge_cases(sms)[case]
+    q, kp, vp, pt = _inputs(S, Qmax, Hq, Hkv, D, ps, NP, P, seed=case)
+    kw = {}
+    if kv_dtype is not None:
+        _, tkw, (_, kq), (_, vq) = _quantized(kp, vp, kv_dtype)
+        kw = {k: v.cuda() for k, v in tkw.items()}
+        pages = [kq.cuda(), vq.cuda()]
+    idx = [torch.from_numpy(pt).cuda()] + [
+        torch.tensor(x, dtype=torch.int32, device="cuda") for x in (qs, ql, kl)]
+    for dt in (torch.float32, torch.bfloat16):
+        tol = 2e-2 if dt == torch.bfloat16 and kv_dtype else 1e-4
+        qd = torch.from_numpy(q).cuda().to(dt)
+        if kv_dtype is None:
+            pages = [torch.from_numpy(a).cuda().to(dt) for a in (kp, vp)]
+        got = tpa.ragged_paged_attention(qd, *pages, *idx,
+                                         out_dtype=torch.float32, **kw)
+        want = tpa.ragged_paged_attention_ref(qd, *pages, *idx,
+                                              out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        for s, n in enumerate(ql):
+            assert not got[s, n:].any()

@@ -125,3 +125,31 @@ def test_kernels_match_plain_versions_on_card():
         assert _counts() == (before[0] + 1, before[1] + 1)
         torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [512, 2048, 1002, 4096],
+                         ids=["reg-512", "reg-2048", "loop-1002", "loop-4096"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_branches_match_plain_version_on_card(h, dtype):
+    """Both forward branches — the register pass (rows of whole 16-byte
+    vectors up to 2,048 long) and the looped kernel (1,002 is off both
+    vector widths, 4,096 past the register pass) — against the plain
+    version: a row that begins with -inf, and a row of -inf throughout,
+    which gives NaN in both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    xn, _ = _inputs((64, h), 7)
+    xn[1, : h // 2] = -np.inf
+    xn[2] = -np.inf
+    x = torch.from_numpy(xn).cuda().to(dtype)
+    before = _counts()
+    o = tfu.softmax_fwd(x)
+    ro = tfu.softmax_fwd_ref(x)
+    torch.cuda.synchronize()
+    assert _counts()[0] == before[0] + 1
+    assert bool(o[2].isnan().all()) and bool(ro[2].isnan().all())
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
+        else dict(rtol=1.6e-2, atol=2e-3)
+    keep = torch.arange(64, device="cuda") != 2
+    torch.testing.assert_close(o[keep].float(), ro[keep].float(), **tol)
