@@ -11,9 +11,11 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
-               kernels, the RMSNorm backward, the ragged paged-attention
-               kernels and the softmax forward's register pass (dQ, the
-               ragged kernels and the register pass must not spill);
+               kernels, the RMSNorm and LayerNorm register passes, the
+               ragged paged-attention kernels and the softmax forward's
+               register pass (dQ, the ragged kernels and the register
+               passes of the softmax forward, the RMSNorm forward and the
+               LayerNorm backward must not spill);
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
@@ -39,11 +41,15 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                of 136, s_q < s_k causal with GQA 16:4 and S 200
                non-causal; the standalone repack on strided stats, RMSNorm
                rows at 16,384 x 1,024 bf16 and f32, N off the backward's
-               row runs with f32 w, H = 768, H = 1,000 (the backward's
-               general loop) and f32 x with bf16 w;
-               (c) the LayerNorm, softmax and AdamW kernels at ERNIE's
-               shapes (32,768 x 768 rows; [8, 12, 512, 512]; the 40,000 x
-               768 embedding and tensors of 768 and 40,000), bf16 and f32,
+               row runs with f32 w, H = 768, N = 5, H = 1,000 and 4,096
+               (the general loops) and f32 x with bf16 w;
+               (c) the LayerNorm kernels at ERNIE's 32,768 x 768 rows, bf16
+               and f32, at H 1,024, N 32,771 with f32 w, N 5, H 1,000 and
+               4,096 (the backward's general loop) and bf16 x with f32 w,
+               with the f32 dw / db sums' distance from a float64 sum
+               beside torch.sum's; the softmax and AdamW kernels at ERNIE's
+               shapes ([8, 12, 512, 512]; the 40,000 x 768 embedding and
+               tensors of 768 and 40,000), bf16 and f32,
                the softmax forward's register pass at 2,048 and its looped
                kernel at 4,096 and 1,002 (and rows of -inf throughout),
                and the flash-attention kernels non-causal at ERNIE's
@@ -89,15 +95,20 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                build's rows 1, 2 and 10 timed in turns with these, the
                train kernels at
                the phase-3c shape beside SDPA (forward; backward alone, and
-               forward + backward) and F.rms_norm, rows 3, 5 and 6 at
+               forward + backward), F.rms_norm and
+               aten._fused_rms_norm_backward, rows 3, 5 and 6 at
                phase 3d's attention shape, one line per design step of
                rows 3, 5 and 6 (variants of their tiles, ring depth and
                occupancy, each held against the plain version), with
-               ``--parent DIR`` (another commit's ``csrc``) that build's dQ
-               and RMSNorm backward timed in turns with these, and the
-               LayerNorm, softmax and AdamW kernels at the phase-3d/3e
-               shapes beside F.layer_norm, torch.softmax and
-               torch._fused_adamw_;
+               ``--parent DIR`` (another commit's ``csrc``) that build's
+               RMSNorm forward and LayerNorm backward timed in turns with
+               these on rotated inputs, and the LayerNorm, softmax and
+               AdamW kernels at the phase-3d/3e shapes beside F.layer_norm,
+               aten.native_layer_norm_backward, torch.softmax,
+               aten._softmax_backward_data and torch._fused_adamw_ (the
+               backward-only calls held against the plain version first;
+               the forward + backward through autograd printed beside
+               them);
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
 
@@ -155,7 +166,8 @@ def card_line():
 
 # -- phase 1: build ----------------------------------------------------------
 REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
-                    "fa_bwd_dq_mma_kernel", "rms_bwd_vec_kernel",
+                    "fa_bwd_dq_mma_kernel", "rms_fwd_vec_kernel",
+                    "rms_bwd_vec_kernel", "ln_bwd_vec_kernel",
                     "ragged_paged_attention_kernel",
                     "ragged_paged_attention_mma_kernel",
                     "ragged_paged_attention_combine_kernel",
@@ -163,7 +175,8 @@ REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
 # kernels that hold their working set in registers by design: none may spill
 NO_SPILL = ("fa_bwd_dq_mma_kernel", "ragged_paged_attention_kernel",
             "ragged_paged_attention_mma_kernel",
-            "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel")
+            "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel",
+            "rms_fwd_vec_kernel", "ln_bwd_vec_kernel")
 
 
 def ptxas_lines(path):
@@ -188,16 +201,18 @@ def ptxas_lines(path):
 
 def register_report(built):
     """ptxas's registers and spills for the mma.sync flash-attention kernels,
-    the RMSNorm backward's register pass, the ragged paged-attention
-    kernels and the softmax forward's register pass (one line per
-    instantiation; the ragged kernels' as their most); the kernels of
-    ``NO_SPILL`` must not spill."""
-    for lib in ("flash_attention", "rms_norm", "softmax"):
+    the RMSNorm forward and backward register passes, the LayerNorm
+    backward's register pass, the ragged paged-attention kernels and the
+    softmax forward's register pass (one line per instantiation; the
+    ragged kernels' as their most); the kernels of ``NO_SPILL`` must not
+    spill."""
+    for lib in ("flash_attention", "rms_norm", "layer_norm", "softmax"):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             print(f"  ptxas {kernel}{args}: {regs} registers, spill "
                   f"stores {stores} B, loads {loads} B")
     print(f"  ptxas ragged paged attention: {ragged_ptxas(built)}")
-    for lib in ("flash_attention", "rms_norm", "softmax", *RPA_LIBS):
+    for lib in ("flash_attention", "rms_norm", "layer_norm", "softmax",
+                *RPA_LIBS):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             require(kernel not in NO_SPILL or (stores == 0 and loads == 0),
                     f"{kernel}{args} spills ({stores} B stores)")
@@ -477,16 +492,19 @@ TRAIN_ATTN_CASES = [
     ("dQ S=200 non-causal GQA 16:4", (2, 200, 200, 16, 4, 64), False,
      torch.bfloat16),
 ]
-# (name, N, H, x dtype, w dtype): the backward's register pass (bf16 rows of
-# up to 1,024), N off its blocks' row runs, and its general loop (H not a
-# multiple of 8, f32 x)
+# (name, N, H, x dtype, w dtype): the forward's and backward's register
+# passes (bf16 rows of up to 1,024), N off the backward's row runs and
+# below a block's 8 rows, and the general loops (H not a multiple of 8, H
+# above 1,024, f32 x)
 TRAIN_RMS_CASES = [
     ("train rows", 16384, 1024, torch.bfloat16, torch.bfloat16),
     ("f32 rows", 4096, 1024, torch.float32, torch.float32),
     ("N off the row runs, f32 w", 16411, 1024, torch.bfloat16,
      torch.float32),
     ("H=768 rows", 1003, 768, torch.bfloat16, torch.bfloat16),
+    ("N below 8 rows", 5, 1024, torch.bfloat16, torch.bfloat16),
     ("H=1000 (general loop)", 4096, 1000, torch.bfloat16, torch.bfloat16),
+    ("H=4096 (general loop)", 1024, 4096, torch.bfloat16, torch.bfloat16),
     ("f32 x, bf16 w", 4096, 1024, torch.float32, torch.bfloat16),
 ]
 # phase 2c: ERNIE-base's attention (non-causal, S 512, 12 heads of 64), its
@@ -497,6 +515,21 @@ ERNIE_ATTN_CASES = [("ERNIE shape", (8, 512, 512, 12, 12, 64), False,
                      torch.bfloat16)]
 ERNIE_ATTN_SHAPE = (64, 512, 512, 12, 12, 64)   # phase 3d's B 64 x S 512
 ERNIE_LN_ROWS = (32768, 768)
+# (name, N, H, x dtype, w dtype) of the LayerNorm kernels: the backward's
+# register pass (bf16 rows of up to 1,024) at ERNIE's rows and at H 1,024,
+# N off its grid's row runs and below a block's 8 rows, and its general
+# loop (H not a multiple of 8, H above 1,024, f32 x).  The cases with f32 w
+# hold f32 dw and db summed over 32,768+ rows by both passes
+ERNIE_LN_CASES = [
+    ("ERNIE rows", *ERNIE_LN_ROWS, torch.bfloat16, torch.bfloat16),
+    ("H=1024 rows", 4096, 1024, torch.bfloat16, torch.bfloat16),
+    ("N off the row runs, f32 w", 32771, 768, torch.bfloat16, torch.float32),
+    ("N below 8 rows", 5, 768, torch.bfloat16, torch.bfloat16),
+    ("H=1000 (general loop)", 4096, 1000, torch.bfloat16, torch.bfloat16),
+    ("H=4096 (general loop)", 2048, 4096, torch.bfloat16, torch.bfloat16),
+    ("f32 rows (general loop)", *ERNIE_LN_ROWS, torch.float32, torch.float32),
+    ("bf16 x, f32 w", 4096, 1024, torch.bfloat16, torch.float32),
+]
 SOFTMAX_SHAPE = (8, 12, 512, 512)
 # the softmax forward's register pass at its longest row (2,048), and its
 # looped kernel past that and at a row that is not a whole 16-byte vector
@@ -678,38 +711,63 @@ def phase_train_kernels(fa, fu):
     return worst
 
 
-def phase_fused_kernels(fa, fu, worst):
-    """Phase 2c: rows 9-13 against their plain versions at the ERNIE
-    shapes, bf16 and f32, and rows 3/5/6 non-causal at ERNIE's attention
-    shape; the worst absolute error of each row goes into ``worst``."""
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    attention_checks(fa, gen, ERNIE_ATTN_CASES, worst)
-    for key in ("adamw", "softmax_fwd", "softmax_bwd", "ln_fwd", "ln_bwd"):
-        worst[key] = 0.0
-    n, h = ERNIE_LN_ROWS
-    rows = int(np.prod(SOFTMAX_SHAPE[:-1]))
+def layer_norm_checks(fu, gen, worst):
+    """Rows 12-13 against their plain versions over ``ERNIE_LN_CASES``; for
+    f32 dw and db, also the kernel's and torch.sum's distance from a
+    float64 sum of the same f32 products (the gate holds the two f32 sums
+    against each other); the worst absolute error of each row goes into
+    ``worst``."""
+    worst["ln_fwd"] = worst["ln_bwd"] = 0.0
     f32 = TRAIN_TOL[torch.float32]
-    for dt in (torch.bfloat16, torch.float32):
-        tol, tag = TRAIN_TOL[dt], f"[{str(dt)[6:]}]"
+    for name, n, h, dt, wdt in ERNIE_LN_CASES:
+        tol = TRAIN_TOL[dt]
+        tag = f"{name} [{n}, {h}] [{str(dt)[6:]}, w {str(wdt)[6:]}]"
         x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
-        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
-        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(wdt)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(wdt)
         g = torch.randn(n, h, generator=gen, device="cuda").to(dt)
         out, mu, inv = fu.layer_norm_fwd(x, w, b, 1e-12)
         rout, rmu, rinv = fu.layer_norm_fwd_ref(x, w, b, 1e-12)
         worst["ln_fwd"] = max(worst["ln_fwd"],
-                              held(f"ln out [{n}, {h}] {tag}", out, rout, tol),
+                              held(f"ln out {tag}", out, rout, tol),
                               held(f"ln mu {tag}", mu, rmu, f32),
                               held(f"ln inv {tag}", inv, rinv, f32))
         dx, dw, db = fu.layer_norm_bwd(x, w, mu, inv, g)
         rdx, rdw, rdb = fu.layer_norm_bwd_ref(x, w, mu, inv, g)
-        # f32 dw and db sum 32,768 rows in another order than torch.sum
-        dwb_tol = tol if dt == torch.bfloat16 else (1e-4, 1e-5, None)
+        # dw and db are rounded to w's dtype; f32 dw and db sum n rows in
+        # another order than torch.sum does
+        dwb_tol = TRAIN_TOL[wdt] if wdt == torch.bfloat16 \
+            else (1e-4, 1e-5, None)
         worst["ln_bwd"] = max(worst["ln_bwd"],
-                              held(f"ln dx [{n}, {h}] {tag}", dx, rdx, tol),
+                              held(f"ln dx {tag}", dx, rdx, tol),
                               held(f"ln dw {tag}", dw, rdw, dwb_tol),
                               held(f"ln db {tag}", db, rdb, dwb_tol))
+        if wdt == torch.float32:
+            xhat = (x.float() - mu[:, None]) * inv[:, None]
+            gf = g.float()
+            exact = [(gf * xhat).double().sum(0), gf.double().sum(0)]
+            dist = [(t.double() - e).abs().max().item()
+                    for t, e in zip((dw, db, rdw, rdb), exact * 2)]
+            print(f"  ln dw, db {tag} from a float64 sum of the same f32 "
+                  f"terms: kernel {dist[0]:.3e}, {dist[1]:.3e}; torch.sum "
+                  f"{dist[2]:.3e}, {dist[3]:.3e}")
         del x, g, out, rout, dx, rdx
+    torch.cuda.empty_cache()
+
+
+def phase_fused_kernels(fa, fu, worst):
+    """Phase 2c: rows 12-13 against their plain versions over
+    ``ERNIE_LN_CASES``, rows 9-11 at the ERNIE shapes, bf16 and f32, and
+    rows 3/5/6 non-causal at ERNIE's attention shape; the worst absolute
+    error of each row goes into ``worst``."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    attention_checks(fa, gen, ERNIE_ATTN_CASES, worst)
+    for key in ("adamw", "softmax_fwd", "softmax_bwd"):
+        worst[key] = 0.0
+    layer_norm_checks(fu, gen, worst)
+    rows = int(np.prod(SOFTMAX_SHAPE[:-1]))
+    for dt in (torch.bfloat16, torch.float32):
+        tol, tag = TRAIN_TOL[dt], f"[{str(dt)[6:]}]"
         s_in = (2 * torch.randn(rows, SOFTMAX_SHAPE[-1], generator=gen,
                                 device="cuda")).to(dt)
         gs = torch.randn(rows, SOFTMAX_SHAPE[-1], generator=gen,
@@ -1223,13 +1281,14 @@ def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
 MATMUL_NAMES = ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")
 TRAIN_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
-                ("rmsnorm", ("rms_fwd_kernel", "rms_bwd_vec_kernel",
-                             "rms_bwd_kernel", "rms_dw_reduce_kernel")),
+                ("rmsnorm", ("rms_fwd_kernel", "rms_fwd_vec_kernel",
+                             "rms_bwd_vec_kernel", "rms_bwd_kernel",
+                             "rms_dw_reduce_kernel")),
                 ("matmul", MATMUL_NAMES))
 ERNIE_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
-                ("layernorm", ("ln_fwd_kernel", "ln_bwd_kernel",
-                               "ln_dwb_reduce_kernel")),
+                ("layernorm", ("ln_fwd_kernel", "ln_bwd_vec_kernel",
+                               "ln_bwd_kernel", "ln_dwb_reduce_kernel")),
                 ("adamw", ("adamw_kernel",)),
                 ("matmul", MATMUL_NAMES))
 
@@ -1891,39 +1950,12 @@ def hold_ragged(name, got, want, quant):
             f"{name}: kernel vs plain max abs err {err.max().item():.3e}")
 
 
-def parent_ragged(libs, q, k, v, pt, seg, k_scales=None, v_scales=None):
-    """One launch of a ragged entry built before the split grid (its C
-    signature, with no split plan; bf16 q and out), allocating its
-    output."""
-    import ctypes
-    out = torch.empty_like(q)
-    s_slots, qmax, hq, d = q.shape
-    hkv, num_pages, ps, _ = k.shape
-    quant = k_scales is not None
-    ptrs = [q, k, v] + ([k_scales, v_scales] if quant else []) + [pt, *seg,
-                                                                 out]
-    ints = [s_slots, qmax, hq, hkv, num_pages, ps, pt.shape[1], d, 1, 1]
-    name = "ragged_paged_attention"
-    if quant:
-        ints.append(0 if k.dtype == torch.int8 else 1)
-        name += "_quant"
-    fn = getattr(libs[name], f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) \
-        + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(*[t.data_ptr() for t in ptrs], *ints, 1.0 / np.sqrt(d),
-             torch.cuda.current_stream().cuda_stream)
-    require(err == 0, f"{name}_launch (parent): CUDA error {err}")
-    return out
-
-
 def parent_serving_turns(parent, pa, gen, timed):
     """``--parent DIR``: the ragged entries and ``softmax.cu`` of another
     commit (DIR holds its ``csrc``), built with the same flags and timed in
     turns with the shipped build — parent, new, new, parent — on the same
-    inputs: rows 1-2 at every ``timed`` shape (through :func:`parent_ragged`
-    when the parent predates the split grid), and row 10 at
-    ``SOFTMAX_SHAPE`` bf16 (CUDA-graph replays).
+    inputs: rows 1-2 at every ``timed`` shape through the wrapper, and row
+    10 at ``SOFTMAX_SHAPE`` bf16 (CUDA-graph replays).
     Every output is held against the plain version first."""
     import ctypes
     from pathlib import Path
@@ -1943,9 +1975,6 @@ def parent_serving_turns(parent, pa, gen, timed):
     rows, hs = int(np.prod(SOFTMAX_SHAPE[:-1])), SOFTMAX_SHAPE[-1]
     xs = (2 * torch.randn(rows, hs, generator=gen, device="cuda")).bfloat16()
     want_s = fu.softmax_fwd_ref(xs)
-    # a parent with the split grid takes the wrapper's own call
-    split_grid = hasattr(old["ragged_paged_attention"],
-                         "ragged_paged_attention_combine_launch")
     shipped = {n: _build.library(n) for n in names}
     try:
         for side in ("parent", "new", "new", "parent"):
@@ -1954,8 +1983,6 @@ def parent_serving_turns(parent, pa, gen, timed):
             for name, q, pools, pt, seg, want in cases:
                 def run(i):
                     (k, v), sc = pools[i % len(pools)]
-                    if side == "parent" and not split_grid:
-                        return parent_ragged(old, q, k, v, pt, seg, **sc)
                     return pa.ragged_paged_attention(q, k, v, pt, *seg, **sc)
                 hold_ragged(f"{name} [{side}]", run(0), want,
                             bool(pools[0][1]))
@@ -2138,81 +2165,125 @@ def design_steps(fa, gen, shape, causal):
     torch.cuda.empty_cache()
 
 
-def rms_bwd_direct(lib, x, w, inv, g, partial):
-    """One launch of ``rms_norm_bwd_launch`` from ``lib`` on bf16 rows, with
-    a partials buffer of ``partial``'s rows (enough for any build's grid):
-    the C entry alone, for timing builds against each other."""
+def c_entry(lib, name, n_ptrs, n_ints, n_floats=0):
+    """The C entry ``name`` of a loaded kernel library, with its argument
+    types (pointers, ints, floats, then the stream) set."""
     import ctypes
-    n, h = x.shape
-    dx, dw = torch.empty_like(x), torch.empty_like(w)
-    fn = lib.rms_norm_bwd_launch
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    err = fn(x.data_ptr(), w.data_ptr(), inv.data_ptr(), g.data_ptr(),
-             dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h, 1, 1,
-             torch.cuda.current_stream().cuda_stream)
-    require(err == 0, f"rms_norm_bwd_launch: CUDA error {err}")
-    return dx, dw
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
+        [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+    return fn
 
 
-def parent_turns(parent, fa, fu, gen, B=8, S=2048, Hq=16, D=64, N=16384,
-                 H=1024):
-    """``--parent DIR``: ``flash_attention.cu`` and ``rms_norm.cu`` of
-    another commit (DIR holds its ``csrc``), built with the same flags and
-    timed in turns with the shipped build — parent, new, new, parent — on
-    the same inputs: dQ at the phase-3c shape and at ERNIE's attention
-    shape, and the RMSNorm backward at N x H bf16 (CUDA-graph replays of
-    the C entry).  Every output is held against the plain version first."""
+def rms_fwd_direct(lib, x, w, eps=1e-5):
+    """One launch of ``rms_norm_fwd_launch`` from ``lib`` on bf16 rows and
+    weight: the C entry alone, for timing builds against each other."""
+    n, h = x.shape
+    out = torch.empty_like(x)
+    inv = torch.empty(n, dtype=torch.float32, device=x.device)
+    err = c_entry(lib, "rms_norm_fwd_launch", 4, 4, 1)(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), inv.data_ptr(), n, h, 1,
+        1, eps, torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"rms_norm_fwd_launch: CUDA error {err}")
+    return out, inv
+
+
+def ln_bwd_direct(lib, x, w, mu, inv, g, partial):
+    """One launch of ``layer_norm_bwd_launch`` from ``lib`` on bf16 rows and
+    weight, with a partials buffer of ``partial``'s rows (enough for either
+    build's grid): the C entry alone, for timing builds against each
+    other."""
+    n, h = x.shape
+    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
+    err = c_entry(lib, "layer_norm_bwd_launch", 9, 4)(
+        x.data_ptr(), w.data_ptr(), mu.data_ptr(), inv.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        partial.data_ptr(), n, h, 1, 1,
+        torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"layer_norm_bwd_launch: CUDA error {err}")
+    return dx, dw, db
+
+
+def rotated(gen, n_copies, *shape):
+    """``n_copies`` bf16 tensors of random normal values: inputs that timed
+    replays take in turn, so that no replay finds its rows in the 50 MB L2
+    where the previous one left them."""
+    return [torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+            for _ in range(n_copies)]
+
+
+def parent_norm_turns(parent, fu, gen, N=16384, H=1024):
+    """``--parent DIR``: ``rms_norm.cu`` and ``layer_norm.cu`` of another
+    commit (DIR holds its ``csrc``), built with the same flags and timed in
+    turns with the shipped build — parent, new, new, parent — on the same
+    rotated inputs: the RMSNorm forward at N x H and the LayerNorm backward
+    at ``ERNIE_LN_ROWS`` (bf16, CUDA-graph replays of the C entry).  Every
+    output is held against the plain version first."""
     import ctypes
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
-    names = ["flash_attention", "rms_norm"]
-    old = _build.build_all(names, csrc=Path(parent))
-    new = _build.build_all(names)
+    names = ["rms_norm", "layer_norm"]
+    paths = {"parent": _build.build_all(names, csrc=Path(parent)),
+             "new": _build.build_all(names)}
+    libs = {side: {n: ctypes.CDLL(str(p[n])) for n in names}
+            for side, p in paths.items()}
     tol = TRAIN_TOL[torch.bfloat16]
-    attn = []
-    for shape, causal in (((B, S, S, Hq, Hq, D), True),
-                          (ERNIE_ATTN_SHAPE, False)):
-        q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
-        sc = 1.0 / np.sqrt(shape[-1])
-        o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
-        delta = delta_of(do, o)
-        rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
-                                            sc)
-        attn.append((shape, causal, (q, k, v, do, lse, delta, causal, sc),
-                     rdq))
-    x = torch.randn(N, H, generator=gen, device="cuda").bfloat16()
-    w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).bfloat16()
-    g = torch.randn(N, H, generator=gen, device="cuda").bfloat16()
-    _, inv = fu.rms_norm_fwd(x, w, 1e-5)
-    rdx, rdw = fu.rms_norm_bwd_ref(x, w, inv, g)
-    partial = torch.empty(-(-N // 8), H, dtype=torch.float32, device="cuda")
-    libs = {side: {n: ctypes.CDLL(str(paths[n])) for n in names}
-            for side, paths in (("parent", old), ("new", new))}
-    shipped = _build.library("flash_attention")
-    try:
-        for side in ("parent", "new", "new", "parent"):
-            _build._LIBS["flash_attention"] = libs[side]["flash_attention"]
-            line = []
-            for shape, causal, args, rdq in attn:
-                held(f"dq [{side}] {shape} causal={causal}",
-                     fa.flash_attention_bwd_dq(*args), rdq, tol)
-                ms = time_ms(lambda i: fa.flash_attention_bwd_dq(*args), 10)
-                line.append(f"dQ {shape} {ms:.4f} ms")
-            lib = libs[side]["rms_norm"]
-            dx, dw = rms_bwd_direct(lib, x, w, inv, g, partial)
-            held(f"rms dx [{side}]", dx, rdx, tol)
-            held(f"rms dw [{side}]", dw, rdw, tol)
-            ms = graph_ms(lambda i: rms_bwd_direct(lib, x, w, inv, g,
-                                                   partial), 100)
-            print(f"  turn {side}: {', '.join(line)}, RMSNorm bwd "
-                  f"[{N}, {H}] {ms:.4f} ms")
-    finally:
-        _build._LIBS["flash_attention"] = shipped
-    del attn, x, w, g, inv, rdx, rdw, partial, libs
+    xr = rotated(gen, 2, N, H)
+    wr = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).bfloat16()
+    want_r = fu.rms_norm_fwd_ref(xr[0], wr, 1e-5)
+    n, h = ERNIE_LN_ROWS
+    xl, gl = rotated(gen, 2, n, h), rotated(gen, 2, n, h)
+    wl = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).bfloat16()
+    stats = [fu.layer_norm_fwd_ref(x, wl, wl, 1e-12)[1:] for x in xl]
+    want_l = fu.layer_norm_bwd_ref(xl[0], wl, *stats[0], gl[0])
+    # the parent's grid writes 2 ceil(n / 64) partial rows, this one 2 per
+    # block of a grid sized to the card
+    parts = max(2 * -(-n // 64), 2 * _build.library(
+        "layer_norm").layer_norm_bwd_partials(n))
+    partial = torch.empty(parts, h, dtype=torch.float32, device="cuda")
+    for side in ("parent", "new", "new", "parent"):
+        rms, ln = libs[side]["rms_norm"], libs[side]["layer_norm"]
+        out, inv = rms_fwd_direct(rms, xr[0], wr)
+        held(f"rms out [{side}]", out, want_r[0], tol)
+        held(f"rms inv [{side}]", inv, want_r[1], TRAIN_TOL[torch.float32])
+        got = ln_bwd_direct(ln, xl[0], wl, *stats[0], gl[0], partial)
+        for what, a, b in zip(("dx", "dw", "db"), got, want_l):
+            held(f"ln {what} [{side}]", a, b, tol)
+        rms_ms = graph_ms(lambda i: rms_fwd_direct(rms, xr[i % 2], wr), 100)
+        ln_ms = graph_ms(lambda i: ln_bwd_direct(
+            ln, xl[i % 2], wl, *stats[i % 2], gl[i % 2], partial), 100)
+        print(f"  turn {side}: RMSNorm fwd [{N}, {H}] {rms_ms:.4f} ms, "
+              f"LayerNorm bwd [{n}, {h}] {ln_ms:.4f} ms")
+    del xr, xl, gl, stats, want_r, want_l, partial, libs
     torch.cuda.empty_cache()
+
+
+def library_call(what, fn, want, tol):
+    """A PyTorch call for the same function as a kernel, to be timed as its
+    ``library_ms``: its outputs held against the kernel's plain version
+    first (at the kernel's own tolerance).  Returns ``fn``, or None, with
+    the reason printed, when the card's torch lacks the op, refuses these
+    inputs or computes something else."""
+    try:
+        got = fn(0)
+        torch.cuda.synchronize()
+    except (AttributeError, NotImplementedError, RuntimeError) as e:
+        print(f"  library {what}: this torch does not run it on these "
+              f"inputs ({type(e).__name__}: "
+              f"{str(e).splitlines()[0][:100]})")
+        return None
+    atol, rtol, _ = tol
+    errs = [(a.float() - b.float()).abs() for a, b in zip(got, want)]
+    ok = all(bool((e <= atol + rtol * b.float().abs()).all())
+             for e, b in zip(errs, want))
+    print(f"  library {what}: "
+          + ("equals" if ok else "DIFFERS from")
+          + " the plain version (max abs err "
+          + ", ".join(f"{e.max().item():.3e}" for e in errs)
+          + f"; tol {atol:g} + {rtol:g}*|ref|)")
+    return fn if ok else None
 
 
 def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
@@ -2222,7 +2293,9 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     only; the port never calls it); rows 3, 5 and 6 also at ERNIE's
     attention shape (phase 3d, non-causal), the design steps of rows 3, 5
     and 6 at the train shape, and with ``parent`` the turns of
-    :func:`parent_turns`."""
+    :func:`parent_norm_turns`.  Row 8's library call is the backward alone
+    (``aten._fused_rms_norm_backward``), with ``F.rms_norm`` forward +
+    backward printed beside it."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused as fu
@@ -2235,8 +2308,8 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     print("  design steps of rows 3, 5 and 6 at the train shape:")
     design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
     if parent is not None:
-        print(f"  rows 6 and 8 against the build of {parent}, in turns:")
-        parent_turns(parent, fa, fu, gen, B, S, Hq, D, N, H)
+        print(f"  rows 7 and 13 against the build of {parent}, in turns:")
+        parent_norm_turns(parent, fu, gen, N, H)
     elt = 2
     stats_bytes = B * Hq * S * 4
 
@@ -2252,27 +2325,44 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
         graph_ms(lambda i: lse3s[i % 4][..., 0].contiguous(), 200),
         2 * stats_bytes, 0, "lse3[..., 0].contiguous()")
 
-    x = torch.randn(N, H, generator=gen, device="cuda").to(dt)
+    # row 7's x (33.6 MB) in 2 rotated copies, for it and its plain and
+    # library calls
+    xs = rotated(gen, 2, N, H)
+    x = xs[0]
     w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)
     g = torch.randn(N, H, generator=gen, device="cuda").to(dt)
     out, inv = fu.rms_norm_fwd(x, w, 1e-5)
     row_bytes = N * H * elt
     res["rms_fwd"] = report(
-        "rms_norm_fwd", graph_ms(lambda i: fu.rms_norm_fwd(x, w, 1e-5), 100),
-        graph_ms(lambda i: fu.rms_norm_fwd_ref(x, w, 1e-5), 20),
-        graph_ms(lambda i: F.rms_norm(x, (H,), w, 1e-5), 100),
-        2 * row_bytes + H * elt + N * 4, 4 * N * H, "F.rms_norm forward")
+        "rms_norm_fwd", graph_ms(lambda i: fu.rms_norm_fwd(xs[i % 2], w,
+                                                             1e-5), 100),
+        graph_ms(lambda i: fu.rms_norm_fwd_ref(xs[i % 2], w, 1e-5), 20),
+        graph_ms(lambda i: F.rms_norm(xs[i % 2], (H,), w, 1e-5), 100),
+        2 * row_bytes + H * elt + N * 4, 4 * N * H,
+        "F.rms_norm forward, rotated x")
     xg = x.detach().requires_grad_(True)
     wg = w.detach().requires_grad_(True)
 
     def rms_fwd_bwd(i):
         torch.autograd.grad(F.rms_norm(xg, (H,), wg, 1e-5), (xg, wg), g)
 
+    fwd_bwd = graph_ms(rms_fwd_bwd, 50)
+    print(f"  rms_norm_bwd: F.rms_norm forward + backward through autograd "
+          f"{fwd_bwd:.4f} ms")
+    lib = library_call(
+        "aten._fused_rms_norm_backward (row 8)",
+        lambda i: torch.ops.aten._fused_rms_norm_backward(
+            g, x, [H], inv.view(N, 1), w, [True, True]),
+        fu.rms_norm_bwd_ref(x, w, inv, g), TRAIN_TOL[dt])
     res["rms_bwd"] = report(
         "rms_norm_bwd", graph_ms(lambda i: fu.rms_norm_bwd(x, w, inv, g), 100),
         graph_ms(lambda i: fu.rms_norm_bwd_ref(x, w, inv, g), 20),
-        graph_ms(rms_fwd_bwd, 50), 3 * row_bytes + 2 * H * elt + N * 4,
-        8 * N * H, "F.rms_norm forward + backward")
+        fwd_bwd if lib is None else graph_ms(lib, 100),
+        3 * row_bytes + 2 * H * elt + N * 4, 8 * N * H,
+        "F.rms_norm forward + backward" if lib is None
+        else "aten._fused_rms_norm_backward")
+    del xs, x, g, out, inv, xg
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2302,21 +2392,25 @@ def phase_fused_timing():
     """Phase 5c: rows 9-13 at the phase-3d/3e shapes (bf16): the kernel,
     its plain version, the bound (bytes over 3.35 TB/s; operations, f32 on
     the CUDA cores, over 67 TFLOP/s) and the library call for the same
-    function (timed here only; the port never calls it).  The row kernels
-    run for tens of us, so they and their plain and library calls are
-    timed as CUDA-graph replays; AdamW over all 149.3M parameters, as one
-    flat tensor, is timed eager."""
+    function (timed here only; the port never calls it): for the backward
+    kernels (rows 11, 13) the backward alone (``aten._softmax_backward_data``,
+    ``aten.native_layer_norm_backward``), with ``torch.softmax`` /
+    ``F.layer_norm`` forward + backward printed beside it.  Row 13 and its
+    plain and library calls take 2 rotated copies of x and g.  The row
+    kernels run for tens of us, so they and their plain and library calls
+    are timed as CUDA-graph replays; AdamW over all 149.3M parameters, as
+    one flat tensor, is timed eager."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import fused as fu
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     dt, elt, res = torch.bfloat16, 2, {}
     n, h = ERNIE_LN_ROWS
-    x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
+    xs, gs = rotated(gen, 2, n, h), rotated(gen, 2, n, h)
+    x, g = xs[0], gs[0]
     w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
     b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
-    g = torch.randn(n, h, generator=gen, device="cuda").to(dt)
-    _, mu, inv = fu.layer_norm_fwd(x, w, b, 1e-12)
+    stats = [fu.layer_norm_fwd(t, w, b, 1e-12)[1:] for t in xs]
     row_bytes = n * h * elt
     res["ln_fwd"] = report(
         "layer_norm_fwd", graph_ms(lambda i: fu.layer_norm_fwd(
@@ -2331,14 +2425,26 @@ def phase_fused_timing():
         torch.autograd.grad(F.layer_norm(xg, (h,), wg, bg, 1e-12),
                             (xg, wg, bg), g)
 
+    fwd_bwd = graph_ms(ln_fwd_bwd, 50)
+    print(f"  layer_norm_bwd: F.layer_norm forward + backward through "
+          f"autograd {fwd_bwd:.4f} ms")
+    lib = library_call(
+        "aten.native_layer_norm_backward (row 13)",
+        lambda i: torch.ops.aten.native_layer_norm_backward(
+            gs[i % 2], xs[i % 2], [h], stats[i % 2][0].view(n, 1),
+            stats[i % 2][1].view(n, 1), w, b, [True, True, True]),
+        fu.layer_norm_bwd_ref(x, w, *stats[0], g), TRAIN_TOL[dt])
     res["ln_bwd"] = report(
         "layer_norm_bwd", graph_ms(lambda i: fu.layer_norm_bwd(
-            x, w, mu, inv, g), 100),
-        graph_ms(lambda i: fu.layer_norm_bwd_ref(x, w, mu, inv, g), 20),
-        graph_ms(ln_fwd_bwd, 50),
+            xs[i % 2], w, *stats[i % 2], gs[i % 2]), 100),
+        graph_ms(lambda i: fu.layer_norm_bwd_ref(
+            xs[i % 2], w, *stats[i % 2], gs[i % 2]), 20),
+        fwd_bwd if lib is None else graph_ms(lib, 100),
         3 * row_bytes + 3 * h * elt + 2 * n * 4, 12 * n * h,
-        "F.layer_norm forward + backward", F32_FLOP_PER_S)
-    del x, g, xg, mu, inv
+        "F.layer_norm forward + backward" if lib is None
+        else "aten.native_layer_norm_backward, rotated x and g",
+        F32_FLOP_PER_S)
+    del xs, gs, x, g, xg, stats
 
     rows, hs = int(np.prod(SOFTMAX_SHAPE[:-1])), SOFTMAX_SHAPE[-1]
     xs = (2 * torch.randn(rows, hs, generator=gen, device="cuda")).to(dt)
@@ -2355,11 +2461,19 @@ def phase_fused_timing():
     def softmax_fwd_bwd(i):
         torch.autograd.grad(torch.softmax(xsg, dim=-1), xsg, gs)
 
+    fwd_bwd = graph_ms(softmax_fwd_bwd, 50)
+    print(f"  softmax_bwd: torch.softmax forward + backward through autograd "
+          f"{fwd_bwd:.4f} ms")
+    lib = library_call(
+        "aten._softmax_backward_data (row 11)",
+        lambda i: (torch.ops.aten._softmax_backward_data(gs, o, -1, dt),),
+        (fu.softmax_bwd_ref(o, gs),), TRAIN_TOL[dt])
     res["softmax_bwd"] = report(
         "softmax_bwd", graph_ms(lambda i: fu.softmax_bwd(o, gs), 100),
         graph_ms(lambda i: fu.softmax_bwd_ref(o, gs), 20),
-        graph_ms(softmax_fwd_bwd, 50), 3 * s_bytes, 4 * rows * hs,
-        "torch.softmax forward + backward", F32_FLOP_PER_S)
+        fwd_bwd if lib is None else graph_ms(lib, 100), 3 * s_bytes,
+        4 * rows * hs, "torch.softmax forward + backward" if lib is None
+        else "aten._softmax_backward_data", F32_FLOP_PER_S)
     del xs, gs, o, xsg
     torch.cuda.empty_cache()
 
@@ -2398,8 +2512,8 @@ def main():
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="csrc directory of another commit: phase 5 times "
                          "its ragged paged attention and softmax forward, "
-                         "phase 5b its dQ and RMSNorm backward, in turns "
-                         "with these")
+                         "phase 5b its RMSNorm forward and LayerNorm "
+                         "backward, in turns with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")

@@ -14,28 +14,33 @@
 // dx = inv * (gw - xhat * mean(gw * xhat)) cast to T, and
 // dw = sum over rows of g * xhat in f32, cast to W.
 //
-// What bounds it on this card: a row pass reads each element once or twice
-// and does a handful of operations on it, so both kernels are bound by the
-// bytes they move (3.35 TB/s on an H100 SXM).  The forward runs one warp
-// per row: the lanes stride the row (neighbouring lanes on neighbouring
-// elements), reduce with shuffles, and a second sweep of the same row finds
-// it in L1/L2.  The backward moves three bytes for each one the forward
-// reads (x and g in, dx out), so it touches each element once: for bf16
-// rows of up to 1,024 elements (H a multiple of 8, 16-byte aligned rows)
-// each lane holds its slice of a row in registers as 16-byte vectors (x
-// and g, 4 + 4 vectors at H = 1,024; w is read again per row, from L1),
-// takes the row's dot product from them, writes dx as 16-byte vectors, and
-// adds g * xhat into f32 dw sums for its fixed columns across the rows its
-// warp walks, so dw needs no second read of x and g.  dw sums across rows,
-// which on the TPU was a scratch carried along the sequential grid; here
-// blocks run in parallel, so the grid is sized to the card (2 blocks of 8
-// warps per SM, each a contiguous run of rows), each block adds its warps'
-// sums through shared memory in warp order into one f32 partial row, and a
-// second kernel sums the partial rows in a fixed order: deterministic, no
-// float atomics, about 1 MB of partials at H = 1,024.  Other rows (f32 x,
-// H not a multiple of 8 or above 1,024, unaligned rows) take a general loop
-// over the same blocks: one warp per row with element-wise loads, then one
-// thread per column of the block's dw partial walks the block's rows.
+// What bounds it on this card: a row pass reads each element once and does
+// a handful of operations on it, so both kernels are bound by the bytes
+// they move (3.35 TB/s on an H100 SXM).  bf16 rows of up to 1,024 elements
+// (H a multiple of 8, 16-byte aligned rows) take register passes: each lane
+// holds its slice of a row in registers as 16-byte vectors, neighbouring
+// lanes on neighbouring addresses (4 vectors at H = 1,024; w is read again
+// per row, from L1), takes the row's sums by shuffles from them and writes
+// its outputs as 16-byte vectors, so each element is read once.
+//   * The forward (rms_fwd_vec_kernel) runs one warp per row and one block
+//     of 8 warps per 8 rows, and computes out as x * inv * w in that order,
+//     as the TPU kernel and the plain version round it.  The previous
+//     version read the row twice in lane-strided 2-byte loads, the second
+//     sweep finding it in L1/L2.
+//   * The backward (rms_bwd_vec_kernel) moves three bytes for each one the
+//     forward reads (x and g in, dx out).  It adds g * xhat into f32 dw
+//     sums for the lane's fixed columns across the rows its warp walks, so
+//     dw needs no second read of x and g.  dw sums across rows, which on
+//     the TPU was a scratch carried along the sequential grid; here blocks
+//     run in parallel, so the grid is sized to the card (2 blocks of 8
+//     warps per SM, each a contiguous run of rows), each block adds its
+//     warps' sums through shared memory in warp order into one f32 partial
+//     row, and a second kernel sums the partial rows in a fixed order:
+//     deterministic, no float atomics, about 1 MB of partials at H = 1,024.
+// Other rows (f32 x, H not a multiple of 8 or above 1,024, unaligned rows)
+// take general loops: one warp per row with element-wise loads, and in the
+// backward, over the same grid, one thread per column of the block's dw
+// partial walking the block's rows.
 //
 // The C entries allocate nothing (the caller passes the partials buffer),
 // launch on the caller's stream and return cudaGetLastError().
@@ -46,25 +51,13 @@
 
 #include <type_traits>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kBwdBlocksPerSM = 2;     // backward blocks per SM
 constexpr int kMaxVectors = 4;         // 16-byte vectors of a row per lane
-                                       // in the register pass (H <= 1,024)
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+                                       // in the register passes (H <= 1,024)
 
 template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
@@ -87,28 +80,48 @@ rms_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   if (lane == 0) inv[row] = r;
 }
 
-// w[8 c .. 8 c + 7] as f32 in 16-byte loads (zeros when c >= nc); w is read
-// again for every row, from L1, so that it takes no registers across rows
-__device__ __forceinline__ void load8(float out[8],
-                                      const __nv_bfloat16* __restrict__ w,
-                                      int c, int nc) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (c < nc) v = __ldg(reinterpret_cast<const uint4*>(w) + c);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+// the bf16 forward register pass: NV 16-byte vectors (8 elements) of the
+// row per lane, one warp per row
+template <typename W, int NV>
+__global__ void __launch_bounds__(kThreads)
+rms_fwd_vec_kernel(const __nv_bfloat16* __restrict__ x,
+                   const W* __restrict__ w, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ inv, int n, int h, float eps) {
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const int nc = h / 8;                     // 16-byte vectors per row
+  const long long base = (long long)row * h;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + base);
+  uint4 xv[NV];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
-}
-
-__device__ __forceinline__ void load8(float out[8],
-                                      const float* __restrict__ w, int c,
-                                      int nc) {
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-  if (c < nc) {
-    a = __ldg(reinterpret_cast<const float4*>(w) + 2 * c);
-    b = __ldg(reinterpret_cast<const float4*>(w) + 2 * c + 1);
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    xv[i] = c < nc ? __ldg(xr + c) : make_uint4(0u, 0u, 0u, 0u);
   }
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float xf[8];
+    unpack8(xf, xv[i]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ss = fmaf(xf[e], xf[e], ss);
+  }
+  const float r = rsqrtf(warp_sum(ss) / h + eps);
+  uint4* orow = reinterpret_cast<uint4*>(out + base);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nc) {
+      float xf[8], wf[8];
+      unpack8(xf, xv[i]);
+      load8(wf, w, c, nc);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xf[e] = xf[e] * r * wf[e];
+      orow[c] = pack8(xf);
+    }
+  }
+  if (lane == 0) inv[row] = r;
 }
 
 // the bf16 backward row pass: NV 16-byte vectors (8 elements) of each
@@ -176,19 +189,7 @@ rms_bwd_vec_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
   // the block's dw partial: its warps' sums added in warp order
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float4* dst = reinterpret_cast<float4*>(&sums[warp][8 * (lane + 32 * i)]);
-    dst[0] = make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
-    dst[1] = make_float4(dw[i][4], dw[i][5], dw[i][6], dw[i][7]);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < h; c += kThreads) {
-    float acc = 0.f;
-#pragma unroll
-    for (int v = 0; v < kWarps; ++v) acc += sums[v][c];
-    partial[(long long)blockIdx.x * h + c] = acc;
-  }
+  block_partial<NV>(sums, dw, partial + (long long)blockIdx.x * h, h);
 }
 
 // the general backward row pass (any T, any H, any alignment): one warp per
@@ -251,33 +252,29 @@ rms_dw_reduce_kernel(const float* __restrict__ partial, W* __restrict__ dw,
   }
 }
 
-// The backward's grid: about kBwdBlocksPerSM blocks per SM of the current
-// device (fewer for short inputs: at least one row per warp), each a
-// contiguous run of rows_per_block rows; *blocks is the number of dw
-// partial rows.
-cudaError_t bwd_grid(int n, int* blocks, int* rows_per_block) {
-  static int sms[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int& count = sms[dev & 63];
-  if (count == 0) {
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  const int most = kBwdBlocksPerSM * count, least = (n + kWarps - 1) / kWarps;
-  const int want = least < most ? least : most;
-  *rows_per_block = (n + want - 1) / want;
-  *blocks = (n + *rows_per_block - 1) / *rows_per_block;
-  return cudaSuccess;
-}
-
 template <typename T, typename W>
 cudaError_t fwd(const void* x, const void* w, void* out, float* inv, int n,
                 int h, float eps, cudaStream_t s) {
-  rms_fwd_kernel<T, W><<<(n + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w),
-      static_cast<T*>(out), inv, n, h, eps);
+  const int blocks = (n + kWarps - 1) / kWarps;
+  const int nv = (h / 8 + 31) / 32;         // 16-byte vectors per lane
+  if (std::is_same<T, __nv_bfloat16>::value && h % 8 == 0 &&
+      nv <= kMaxVectors && aligned16(x, w, out)) {
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    auto* ob = static_cast<__nv_bfloat16*>(out);
+    const W* wt = static_cast<const W*>(w);
+#define RMS_FWD_VEC(NV)                                                   \
+  rms_fwd_vec_kernel<W, NV><<<blocks, kThreads, 0, s>>>(xb, wt, ob, inv, n, \
+                                                        h, eps)
+    if (nv == 1) RMS_FWD_VEC(1);
+    else if (nv == 2) RMS_FWD_VEC(2);
+    else if (nv == 3) RMS_FWD_VEC(3);
+    else RMS_FWD_VEC(4);
+#undef RMS_FWD_VEC
+  } else {
+    rms_fwd_kernel<T, W><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const W*>(w),
+        static_cast<T*>(out), inv, n, h, eps);
+  }
   return cudaGetLastError();
 }
 
@@ -286,15 +283,11 @@ cudaError_t bwd(const void* x, const void* w, const float* inv, const void* g,
                 void* dx, void* dw, float* partial, int n, int h,
                 cudaStream_t s) {
   int blocks = 0, rows = 0;
-  cudaError_t err = bwd_grid(n, &blocks, &rows);
+  cudaError_t err = card_grid(n, kBwdBlocksPerSM, &blocks, &rows);
   if (err != cudaSuccess) return err;
   const int nv = (h / 8 + 31) / 32;         // 16-byte vectors per lane
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
-        reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(w)) &
-       15) == 0;
   if (std::is_same<T, __nv_bfloat16>::value && h % 8 == 0 &&
-      nv <= kMaxVectors && aligned) {
+      nv <= kMaxVectors && aligned16(x, g, dx, w)) {
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     const auto* gb = static_cast<const __nv_bfloat16*>(g);
     auto* dxb = static_cast<__nv_bfloat16*>(dx);
@@ -333,7 +326,8 @@ cudaError_t bwd(const void* x, const void* w, const float* inv, const void* g,
 // current device, or -1 on a CUDA error
 extern "C" int rms_norm_bwd_partials(int n) {
   int blocks = 0, rows = 0;
-  if (n <= 0 || bwd_grid(n, &blocks, &rows) != cudaSuccess) return -1;
+  if (n <= 0 || card_grid(n, kBwdBlocksPerSM, &blocks, &rows) != cudaSuccess)
+    return -1;
   return blocks;
 }
 

@@ -47,30 +47,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kRegMax = 2048;          // longest row the register pass holds
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // 16 bytes of T <-> f32: 4 floats, or 8 bf16 values
 template <typename T>
@@ -95,22 +83,14 @@ struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               float* o) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x; o[2 * i + 1] = f.y;
-    }
+    unpack8(o, __ldg(reinterpret_cast<const uint4*>(p)));
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p,
                                                const float* v, float s) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    float scaled[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2bfloat162_rn(v[2 * i] * s, v[2 * i + 1] * s);
-    *reinterpret_cast<uint4*>(p) = u;
+    for (int i = 0; i < 8; ++i) scaled[i] = v[i] * s;
+    *reinterpret_cast<uint4*>(p) = pack8(scaled);
   }
 };
 
@@ -217,9 +197,7 @@ cudaError_t softmax_fwd(const void* x, void* o, int n, int h,
   const T* xi = static_cast<const T*>(x);
   T* oo = static_cast<T*>(o);
   constexpr int vec = Vec16<T>::N;
-  const bool aligned =
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16 == 0;
-  if (h % vec != 0 || h > kRegMax || !aligned) {
+  if (h % vec != 0 || h > kRegMax || !aligned16(x, o)) {
     softmax_fwd_kernel<T><<<blocks, kThreads, 0, s>>>(xi, oo, n, h);
   } else if (h <= 32 * vec) {
     softmax_fwd_reg_kernel<T, 1><<<blocks, kThreads, 0, s>>>(xi, oo, n, h);

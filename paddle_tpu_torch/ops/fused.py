@@ -224,10 +224,10 @@ def layer_norm_fwd(x, w, b, eps):
 def layer_norm_bwd(x, w, mu, inv, g):
     """(dx [N, H] in x's dtype, dw [H], db [H] in w's dtype) from the
     forward's x, w, mu, inv and the output cotangent g.  CUDA tensors launch
-    ``layer_norm_bwd_launch`` (row pass with per-block dw / db partials,
-    then an ordered sum of the partials) and add one to
-    ``layer_norm_bwd.launches``; CPU tensors run
-    :func:`layer_norm_bwd_ref`."""
+    ``layer_norm_bwd_launch`` (one row pass over a grid sized to the card,
+    each block writing one dw and one db partial row, then an ordered sum
+    of the partials) and add one to ``layer_norm_bwd.launches``; CPU
+    tensors run :func:`layer_norm_bwd_ref`."""
     if not _build.on_card("layer_norm_bwd", x):
         return layer_norm_bwd_ref(x, w, mu, inv, g)
     x, w = _check(x, w, ("mu", mu), ("inv", inv), ("g", g))
@@ -235,11 +235,14 @@ def layer_norm_bwd(x, w, mu, inv, g):
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g must match x: {g.dtype} {tuple(g.shape)}")
     mu, inv, g = _stats("mu", mu, n), _stats("inv", inv, n), g.contiguous()
-    rows = _build.library("layer_norm").layer_norm_partial_rows()
+    with torch.cuda.device(x.device):
+        parts = _build.library("layer_norm").layer_norm_bwd_partials(n)
+    if parts < 1:
+        raise RuntimeError(f"layer_norm_bwd_partials({n}) failed: {parts}")
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     db = torch.empty_like(w)
-    partial = torch.empty((2 * -(-n // rows), h), dtype=torch.float32,
+    partial = torch.empty((2 * parts, h), dtype=torch.float32,
                           device=x.device)
     _build.launch("layer_norm", "layer_norm_bwd_launch",
                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4,

@@ -144,6 +144,45 @@ def test_bf16_rows_keep_their_dtypes():
     torch.testing.assert_close(out.float(), ref, rtol=1.6e-2, atol=1.6e-2)
 
 
+@pytest.mark.parametrize("shape", [(64, 768), (16, 1024)],
+                         ids=["64x768", "16x1024"])
+def test_library_backward_is_the_plain_versions_function(shape):
+    """``aten.native_layer_norm_backward``, which ``chip_smoke.py`` times as
+    the backward kernel's library yardstick, computes the function of
+    :func:`layer_norm_bwd_ref` (dx, dw and db from the same x, w, mu, inv
+    and g): f32, to 1e-5."""
+    x, w, b, g = (torch.from_numpy(a) for a in _inputs(shape, seed=7))
+    n, h = shape
+    _, mu, inv = tfu.layer_norm_fwd_ref(x, w, b, EPS)
+    got = torch.ops.aten.native_layer_norm_backward(
+        g, x, [h], mu.view(n, 1), inv.view(n, 1), w, b, [True, True, True])
+    for a, c in zip(got, tfu.layer_norm_bwd_ref(x, w, mu, inv, g)):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+def _held_bf16(got, want):
+    """A bf16 kernel output against its plain version, as ``chip_smoke.py``
+    holds it: elementwise within 2e-3 + 1.6e-2 |plain|, and each row within
+    1.6e-2 of its plain norm."""
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= 2e-3 + 1.6e-2 * want.abs()).all())
+    rows = (got - want).reshape(-1, want.shape[-1]).norm(dim=-1)
+    assert bool((rows <= 1.6e-2 * want.reshape(rows.shape[0], -1)
+                 .norm(dim=-1)).all())
+
+
+# (N, H, x dtype, w dtype) on the card beyond the f32 rows: the backward's
+# register pass at ERNIE's rows and at H = 1,024, N off its grid's row runs
+# (with f32 w) and below a block's 8 rows, and its general loop (H = 1,000
+# and 4,096)
+CARD_CASES = [(32768, 768, torch.bfloat16, torch.bfloat16),
+              (4096, 1024, torch.bfloat16, torch.bfloat16),
+              (16411, 768, torch.bfloat16, torch.float32),
+              (5, 768, torch.bfloat16, torch.bfloat16),
+              (4096, 1000, torch.bfloat16, torch.bfloat16),
+              (2048, 4096, torch.bfloat16, torch.bfloat16)]
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
@@ -161,3 +200,20 @@ def test_kernels_match_plain_versions_on_card():
     # dw and db sum 1000 rows in another order than torch.sum
     for a, c in ((dw, rdw), (db, rdb)):
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-4)
+    for n, h, dt, wdt in CARD_CASES:
+        x, w, b, g = _inputs((n, h), 8)
+        x, g = (torch.from_numpy(a).cuda().to(dt) for a in (x, g))
+        w, b = (torch.from_numpy(a).cuda().to(wdt) for a in (1 + 0.1 * w,
+                                                            0.1 * b))
+        out, mu, inv = tfu.layer_norm_fwd(x, w, b, EPS)
+        rout, _, _ = tfu.layer_norm_fwd_ref(x, w, b, EPS)
+        dx, dw, db = tfu.layer_norm_bwd(x, w, mu, inv, g)
+        rdx, rdw, rdb = tfu.layer_norm_bwd_ref(x, w, mu, inv, g)
+        torch.cuda.synchronize()
+        _held_bf16(out, rout)
+        _held_bf16(dx, rdx)
+        for a, c in ((dw, rdw), (db, rdb)):
+            if wdt == torch.bfloat16:
+                _held_bf16(a, c)
+            else:
+                torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-4)

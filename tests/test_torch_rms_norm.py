@@ -105,12 +105,16 @@ def _held_bf16(got, want):
                  .norm(dim=-1)).all())
 
 
-# (N, H, x dtype, w dtype) on the card beyond the f32 rows: the backward's
-# register pass at H = 1,024 with N off its blocks' row runs, and its
-# general loop (H = 1,000; f32 x with bf16 w)
+# (N, H, x dtype, w dtype) on the card beyond the f32 rows: the forward's
+# and backward's register passes at H = 1,024 and 768, with N off the
+# backward's row runs and below a block's 8 rows, and the general loops (H
+# = 1,000 and 4,096; f32 x with bf16 w)
 CARD_CASES = [(16411, 1024, torch.bfloat16, torch.bfloat16),
               (1003, 1024, torch.bfloat16, torch.float32),
+              (4096, 768, torch.bfloat16, torch.bfloat16),
+              (5, 1024, torch.bfloat16, torch.bfloat16),
               (4096, 1000, torch.bfloat16, torch.bfloat16),
+              (1024, 4096, torch.bfloat16, torch.bfloat16),
               (1000, 1024, torch.float32, torch.bfloat16)]
 
 
@@ -132,13 +136,17 @@ def test_kernels_match_plain_versions_on_card():
         x, w, g = _inputs((n, h), 5)
         x, g = (torch.from_numpy(a).cuda().to(dt) for a in (x, g))
         w = torch.from_numpy(1 + 0.1 * w).cuda().to(wdt)
-        _, inv = tfu.rms_norm_fwd(x, w, EPS)
+        out, inv = tfu.rms_norm_fwd(x, w, EPS)
+        rout, rinv = tfu.rms_norm_fwd_ref(x, w, EPS)
         dx, dw = tfu.rms_norm_bwd(x, w, inv, g)
         rdx, rdw = tfu.rms_norm_bwd_ref(x, w, inv, g)
         torch.cuda.synchronize()
+        torch.testing.assert_close(inv, rinv, rtol=1e-5, atol=1e-5)
         if dt == torch.bfloat16:
+            _held_bf16(out, rout)
             _held_bf16(dx, rdx)
         else:
+            torch.testing.assert_close(out, rout, rtol=1e-5, atol=1e-5)
             torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-5)
         if wdt == torch.bfloat16:
             _held_bf16(dw, rdw)

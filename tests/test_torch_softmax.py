@@ -107,6 +107,20 @@ def test_bf16_rows_keep_their_dtype():
                                rtol=1.6e-2, atol=2e-3)
 
 
+@pytest.mark.parametrize("shape", [(64, 512), (16, 384)],
+                         ids=["64x512", "16x384"])
+def test_library_backward_is_the_plain_versions_function(shape):
+    """``aten._softmax_backward_data``, which ``chip_smoke.py`` times as the
+    backward kernel's library yardstick, computes the function of
+    :func:`softmax_bwd_ref` (dx from the forward's output and g): f32, to
+    1e-5."""
+    x, g = (torch.from_numpy(a) for a in _inputs(shape, seed=8))
+    o = tfu.softmax_fwd_ref(x)
+    got = torch.ops.aten._softmax_backward_data(g, o, -1, torch.float32)
+    torch.testing.assert_close(got, tfu.softmax_bwd_ref(o, g), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
