@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc`` and drives
 the port's main paths — the paged continuous-batching LLaMA server with a
 bf16 KV cache, and with an int8 KV cache and speculative decoding, at the
 full width of LLaMA-2 7B; the train step of the repo's 271M LLaMA at
-B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
-``nn.functional.softmax`` entry — with random weights made from a seed:
+B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512 at its published
+dropout 0.1; its sequence-classification fine-tuning at B 32 x S 128; and
+the ``nn.functional.softmax`` entry — with random weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
@@ -15,7 +16,9 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                ragged paged-attention kernels and the softmax forward's
                register pass (dQ, the ragged kernels and the register
                passes of the softmax forward, the RMSNorm forward and the
-               LayerNorm backward must not spill);
+               LayerNorm backward must not spill), and the SASS that the
+               dropout branch adds to each mma.sync attention kernel
+               (``cuobjdump``; instructions per Philox call);
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
@@ -53,7 +56,14 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                the softmax forward's register pass at 2,048 and its looped
                kernel at 4,096 and 1,002 (and rows of -inf throughout),
                and the flash-attention kernels non-causal at ERNIE's
-               attention shape;
+               attention shape; their dropout branch at rate 0.1 against
+               the plain versions under the same seed (ERNIE's shape, bf16
+               and f32, D 64 and 128, causal and not, GQA 8:2, s_k off the
+               tile, s_q < s_k, S 200 causal), and the masks of o, dQ, dK
+               and dV read out through one-hot inputs (bf16 and f32, D 64
+               and 128, GQA, lengths off the tile): every bit equal to
+               ``dropout_keep``, causal and not, and the keep rate over
+               10.5M scores within 5 sigma of 0.9;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
                suffix prefill, greedy decode; the plain kernel's launch
@@ -73,9 +83,16 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                tokens/s, the mfu share, peak memory, launches per step of
                each train kernel (asserted), one step under torch.profiler;
                (d) ERNIE-3.0-base MLM training (bf16, f32 moments, B 64,
-               S 512, dropout 0) with flash attention, the LayerNorm
-               kernels and the fused AdamW: the same measures, launches per
-               step of rows 3/5/6/9/12/13 asserted, no plain version run;
+               S 512, dropout 0.1 on both probabilities) with flash
+               attention and its in-kernel dropout, the LayerNorm kernels
+               and the fused AdamW: the same measures, launches per step of
+               rows 3/5/6/9/12/13 and of the dropout branch of rows 3/5/6
+               asserted, no plain version run; then the same step at
+               dropout 0 (5 timed steps), for the cost of dropout;
+               (f) ERNIE-3.0-base sequence classification (2 classes,
+               bf16, B 32, S 128, dropout 0.1, fused AdamW lr 2e-5, random
+               ids and labels): a few steps, finite losses, launches per
+               step asserted;
                (e) nn.functional.softmax through the softmax kernels,
                forward and backward, and the shapes that take the plain op;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
@@ -84,7 +101,10 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                speculative=4 as without; (b) one f32 train step at full
                width and 2 layers gives the same loss, gradients and
                updated parameters with the kernels as with the plain
-               versions; (c) the same for a 2-layer f32 ERNIE step;
+               versions; (c) the same for a 2-layer f32 ERNIE step at
+               dropout 0, and at dropout 0.1 the kernels against the same
+               step with rows 3/5/6 replaced by their plain versions (the
+               same seeds and generator states);
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -97,11 +117,14 @@ B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512; and the
                the phase-3c shape beside SDPA (forward; backward alone, and
                forward + backward), F.rms_norm and
                aten._fused_rms_norm_backward, rows 3, 5 and 6 at
-               phase 3d's attention shape, one line per design step of
+               phase 3d's attention shape at rate 0 and at dropout 0.1
+               (beside SDPA with dropout_p=0.1; the bound counts the mask's
+               Philox work), one line per design step of
                rows 3, 5 and 6 (variants of their tiles, ring depth and
                occupancy, each held against the plain version), with
                ``--parent DIR`` (another commit's ``csrc``) that build's
-               RMSNorm forward and LayerNorm backward timed in turns with
+               rows 3, 5 and 6 at rate 0 (the train shape), RMSNorm forward
+               and LayerNorm backward timed in turns with
                these on rotated inputs, and the LayerNorm, softmax and
                AdamW kernels at the phase-3d/3e shapes beside F.layer_norm,
                aten.native_layer_norm_backward, torch.softmax,
@@ -129,6 +152,14 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+# 32-bit integer operations: the 67 TFLOP/s above is 132 SMs x 128 f32
+# lanes x 2 (an FMA) x 1.98 GHz, and an SM has 64 INT32 lanes of its 128
+INT32_OP_PER_S = 132 * 64 * 1.98e9
+# what one Philox4x32-10 call (4 mask words) needs: 10 rounds of 2 wide
+# 32 x 32 -> 64-bit multiplies (one IMAD.WIDE.U32 each gives the hi and lo
+# words) and 2 three-input xors (one LOP3 each); the key schedule is the
+# same for every call of a launch and is left out
+PHILOX_OPS = 40
 ERNIE_BASE_PARAMS = 149_294_656    # ERNIE-3.0-base, 205 tensors
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # quantized pages at bf16: the plain version rounds each dequantized K/V row
@@ -199,6 +230,58 @@ def ptxas_lines(path):
     return out
 
 
+def sass_opcodes(path):
+    """{mangled kernel name: Counter of its SASS opcodes} of the library at
+    ``path``, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+    import collections
+    import re
+    from pathlib import Path
+    from paddle_tpu_torch.ops import _build
+    dump = subprocess.run(
+        [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+         str(path)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+    out, cur = {}, None
+    for line in dump.splitlines():
+        if "Function : " in line:
+            cur = out.setdefault(line.split("Function : ")[1].strip(),
+                                 collections.Counter())
+        elif cur is not None and (m := op.search(line)):
+            cur[m.group(1)] += 1
+    return out
+
+
+def philox_sass_report(path):
+    """What the dropout branch adds to each tensor-core flash-attention
+    kernel, as compiled: the SASS of every DROP = true instantiation less
+    its DROP = false twin, opcode by opcode.  Every mask word meets one
+    unsigned compare with the threshold (ISETP.GE.U32), so the compares it
+    adds over the 4 words of a Philox4x32-10 call give the calls in the
+    code, and the added instructions over those calls the instructions per
+    call (the bound counts ``PHILOX_OPS`` of them)."""
+    ops = sass_opcodes(path)
+    for mangled, drop in sorted(ops.items()):
+        kernel = next((k for k in REPORTED_KERNELS[:3] if k in mangled), None)
+        if kernel is None or "Lb1EEEv" not in mangled:
+            continue
+        base = ops.get(mangled.replace("Lb1EEEv", "Lb0EEEv"))
+        require(base is not None, f"no DROP = false twin of {mangled}")
+        delta = {o: drop[o] - base[o] for o in drop | base
+                 if drop[o] != base[o]}
+        calls = sum(n for o, n in delta.items()
+                    if o.startswith("ISETP.GE.U32")) / 4
+        added = sum(delta.values())
+        top = ", ".join(f"{o} {n:+d}" for o, n in sorted(
+            delta.items(), key=lambda x: -abs(x[1]))[:8])
+        args = mangled[mangled.index(kernel) + len(kernel):].split("EEEv")[0]
+        per_call = f"{added / calls:.1f}" if calls else "n/a"
+        print(f"  SASS {kernel}{args}E: dropout adds {added:+d} instructions "
+              f"({sum(base.values())} -> {sum(drop.values())}); {calls:g} "
+              f"Philox calls in the code, {per_call} instructions per call; "
+              f"{top}")
+
+
 def register_report(built):
     """ptxas's registers and spills for the mma.sync flash-attention kernels,
     the RMSNorm forward and backward register passes, the LayerNorm
@@ -211,6 +294,7 @@ def register_report(built):
             print(f"  ptxas {kernel}{args}: {regs} registers, spill "
                   f"stores {stores} B, loads {loads} B")
     print(f"  ptxas ragged paged attention: {ragged_ptxas(built)}")
+    philox_sass_report(built["flash_attention"])
     for lib in ("flash_attention", "rms_norm", "layer_norm", "softmax",
                 *RPA_LIBS):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
@@ -246,14 +330,23 @@ def train_wrappers():
 
 
 def reset_counts(pa):
-    """Every kernel's launch count (rows 1-13) and the paged plain
-    version's call count to 0."""
+    """Every kernel's launch count (rows 1-13, and the dropout launches of
+    rows 3/5/6) and the paged plain version's call count to 0."""
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.quant_launches = 0
     pa.ragged_paged_attention.combine_launches = 0
     pa.ragged_paged_attention_ref.calls = 0
     for fn in train_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "dropout_launches"):
+            fn.dropout_launches = 0
+
+
+def dropout_counts():
+    """The dropout launches of rows 3/5/6, by the dropout rows' keys."""
+    w = train_wrappers()
+    return {key: w[key.removesuffix("_drop")].dropout_launches
+            for key in DROP_KEYS}
 
 
 class CountPlainCalls:
@@ -513,6 +606,35 @@ TRAIN_RMS_CASES = [
 # tensor (the 40,000 x 768 word embedding) and two short ones
 ERNIE_ATTN_CASES = [("ERNIE shape", (8, 512, 512, 12, 12, 64), False,
                      torch.bfloat16)]
+# phase 2c: the dropout branch of rows 3/5/6 at ERNIE's rate, against the
+# plain versions under the same seed: ERNIE's shape, bf16 and f32, D 64
+# and 128, causal and not, GQA 8:2, s_k off the 64-row tile, s_q < s_k
+# causal (dK/dV's first visible q tile) and S 200 causal (partial q tiles)
+DROPOUT_RATE = 0.1                 # ERNIE-3.0-base's published rates
+DROPOUT_ATTN_CASES = [
+    ("ERNIE shape", (8, 512, 512, 12, 12, 64), False, torch.bfloat16),
+    ("causal D=128", (2, 256, 256, 8, 8, 128), True, torch.bfloat16),
+    ("GQA 8:2 causal", (2, 256, 256, 8, 2, 64), True, torch.bfloat16),
+    ("s_k = 200 non-causal D=128", (2, 128, 200, 8, 4, 128), False,
+     torch.bfloat16),
+    ("s_q < s_k causal", (2, 128, 384, 8, 4, 64), True, torch.bfloat16),
+    ("S=200 causal", (2, 200, 200, 8, 8, 64), True, torch.bfloat16),
+    ("f32 GQA 8:2 causal", (2, 128, 128, 8, 2, 64), True, torch.float32),
+    ("f32 D=128 s_k = 200", (2, 128, 200, 4, 4, 128), False, torch.float32),
+]
+# (name, (B, S_q, S_k, Hq, Hkv, D), dtype) of the masks read out of every
+# dropout kernel (``check_masks``), causal and not: the bf16 tensor-core
+# kernels at ERNIE's D 64 with GQA 8:2 and lengths off the 64-row tile and
+# at D 128 with s_q < s_k, the f32 kernels likewise, and last the f32
+# kernels over B x Hq x 128 x 128 scores (over 10^7) for the keep rate
+MASK_READOUTS = [
+    ("bf16 D=64 GQA 8:2 S=200", (2, 200, 200, 8, 2, 64), torch.bfloat16),
+    ("bf16 D=128 s_q 136 < s_k 200", (2, 136, 200, 4, 4, 128),
+     torch.bfloat16),
+    ("f32 D=64 GQA 8:2 s_q 136 < s_k 200", (2, 136, 200, 8, 2, 64),
+     torch.float32),
+    ("f32 D=128 GQA 16:4 S=128", (40, 128, 128, 16, 4, 128), torch.float32),
+]
 ERNIE_ATTN_SHAPE = (64, 512, 512, 12, 12, 64)   # phase 3d's B 64 x S 512
 ERNIE_LN_ROWS = (32768, 768)
 # (name, N, H, x dtype, w dtype) of the LayerNorm kernels: the backward's
@@ -550,6 +672,19 @@ ADAMW_LENGTHS = (40000 * 768, 768, 40000)
 # and are held by the elementwise bound alone.
 TRAIN_TOL = {torch.float32: (1e-5, 1e-5, None),
              torch.bfloat16: (2e-3, 1.6e-2, 1.6e-2)}
+# the dropout branch of rows 3, 5 and 6: its own entries of the kernels line
+DROP_KEYS = ("fa_fwd_drop", "fa_dkv_drop", "fa_dq_drop")
+DROP_ROWS = [
+    dict(key="fa_fwd_drop", name="flash_attention_fwd (dropout)",
+         route="cuda", source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:115"),
+    dict(key="fa_dkv_drop", name="flash_attention_bwd_dkv (dropout)",
+         route="cuda", source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:317"),
+    dict(key="fa_dq_drop", name="flash_attention_bwd_dq (dropout)",
+         route="cuda", source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:391"),
+]
 TRAIN_ROWS = [
     dict(key="fa_fwd", name="flash_attention_fwd", route="cuda",
          source=CSRC + "flash_attention.cu",
@@ -640,38 +775,44 @@ def delta_of(do, o):
         .reshape(b * hq, s_q).contiguous()
 
 
-def attention_checks(fa, gen, cases, worst):
-    """Rows 3, 5 and 6 against their plain versions over ``cases``; the
-    worst absolute error of each goes into ``worst``."""
-    for name, shape, causal, dt in cases:
+def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
+    """Rows 3, 5 and 6 against their plain versions over ``cases``, with
+    ``rate`` > 0 the dropout branch under one seed per case (the plain
+    versions rebuild the mask from it); the worst absolute error of each
+    goes into ``worst`` under ``keys`` (default: fa_fwd, fa_dkv, fa_dq)."""
+    k_fwd, k_dkv, k_dq = keys or ("fa_fwd", "fa_dkv", "fa_dq")
+    for key in (k_fwd, k_dkv, k_dq):
+        worst.setdefault(key, 0.0)
+    for i, (name, shape, causal, dt) in enumerate(cases):
         q, k, v, do = attn_inputs(gen, shape, dt)
         sc = 1.0 / np.sqrt(shape[-1])
+        seed = (i + 1) << 33 | 12345 if rate > 0 else 0
         tag = f"{name} {shape} causal={causal} [{str(dt)[6:]}]"
+        tag += f" rate {rate}" if rate > 0 else ""
         tol = TRAIN_TOL[dt]
-        o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
-        ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
-        # the bf16 kernel rounds p to bf16 before P V, as the TPU kernel
-        # does: term j may move by 2**-8 p_j |v_j|, so o by 2**-8 times the
-        # plain forward of |v|
+        args = (causal, sc, rate, seed)
+        o, lse = fa.flash_attention_fwd(q, k, v, *args)
+        ro, rlse = fa.flash_attention_fwd_ref(q, k, v, *args)
+        # the bf16 kernel rounds p (dropped, under dropout) to bf16 before
+        # P V, as the TPU kernel does: term j may move by 2**-8 p_j |v_j|,
+        # so o by 2**-8 times the plain forward of |v|
         p_round = None if dt == torch.float32 else 2.0 ** -8 * \
-            fa.flash_attention_fwd_ref(q, k, v.abs(), causal, sc)[0].float()
-        worst["fa_fwd"] = max(worst["fa_fwd"],
-                              held(f"fwd o   {tag}", o, ro, tol, p_round),
-                              held(f"fwd lse {tag}", lse, rlse,
-                                   TRAIN_TOL[torch.float32]))
+            fa.flash_attention_fwd_ref(q, k, v.abs(), *args)[0].float()
+        worst[k_fwd] = max(worst[k_fwd],
+                           held(f"fwd o   {tag}", o, ro, tol, p_round),
+                           held(f"fwd lse {tag}", lse, rlse,
+                                TRAIN_TOL[torch.float32]))
         del ro, rlse, p_round
         delta = delta_of(do, o)
-        got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
-        want = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                              causal, sc)
-        worst["fa_dkv"] = max(worst["fa_dkv"],
-                              held(f"dk {tag}", got[0], want[0], tol),
-                              held(f"dv {tag}", got[1], want[1], tol))
+        got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+        want = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+        worst[k_dkv] = max(worst[k_dkv],
+                           held(f"dk {tag}", got[0], want[0], tol),
+                           held(f"dv {tag}", got[1], want[1], tol))
         del got, want
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sc)
-        rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
-                                            sc)
-        worst["fa_dq"] = max(worst["fa_dq"], held(f"dq {tag}", dq, rdq, tol))
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
+        rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *args)
+        worst[k_dq] = max(worst[k_dq], held(f"dq {tag}", dq, rdq, tol))
         del q, k, v, do, o, lse, delta, dq, rdq
         torch.cuda.empty_cache()
 
@@ -762,6 +903,9 @@ def phase_fused_kernels(fa, fu, worst):
     error of each row goes into ``worst``."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     attention_checks(fa, gen, ERNIE_ATTN_CASES, worst)
+    attention_checks(fa, gen, DROPOUT_ATTN_CASES, worst, DROPOUT_RATE,
+                     DROP_KEYS)
+    mask_readout(fa)
     for key in ("adamw", "softmax_fwd", "softmax_bwd"):
         worst[key] = 0.0
     layer_norm_checks(fu, gen, worst)
@@ -828,6 +972,117 @@ def phase_fused_kernels(fa, fu, worst):
                     ADAMW_TOL[dt if what == "p" else torch.float32]))
             del p, gp, m, v, want
         torch.cuda.empty_cache()
+
+
+def read_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
+               device="cuda"):
+    """The keep bits of each dropout kernel, read out through one-hot inputs
+    beside the same kernel at rate 0.  By key chunks of D (k = v = one-hot
+    on the chunk, 0 elsewhere; dO = 1, so dP = 1 on the chunk; delta = 0),
+    o / o0 and dq / dq0 are keep / (1 - rate) of (q row, key); by q chunks
+    of D, one q head of each GQA group at a time (q = dO = one-hot on the
+    chunk in those heads, 0 elsewhere; v = 1; delta = 0), dv / dv0 and
+    dk / dk0 are that of (key, q row).  Returns {output: (bits, seen)},
+    both bool [B, Hq, S_q, S_k]; ``seen`` marks the scores whose rate-0
+    output is non-zero."""
+    b, s_q, s_k, hq, hkv, d = shape
+    g = hq // hkv
+    gen = torch.Generator(device=device).manual_seed(5)
+    sc = 1.0 / np.sqrt(d)
+    out = {n: [torch.zeros(b, hq, s_q, s_k, dtype=torch.bool, device=device)
+               for _ in range(2)] for n in ("o", "dq", "dk", "dv")}
+    delta = torch.zeros(b * hq, s_q, device=device)
+
+    def one_hot(s, h, off, heads):
+        t = torch.zeros(b, s, h, d, device=device)
+        j = torch.arange(min(d, s - off), device=device)[:, None]
+        t[:, off + j, heads[None, :], j] = 1.0
+        return t.to(dtype)
+
+    def record(name, x, x0, where):
+        seen = x0 != 0
+        out[name][0][where] = x.float() / torch.where(seen, x0.float(),
+                                                      1.0) > 0.5
+        out[name][1][where] = seen
+
+    q = (0.5 * torch.randn(b, s_q, hq, d, generator=gen,
+                           device=device)).to(dtype)
+    ones_q = torch.ones(b, s_q, hq, d, device=device).to(dtype)
+    for off in range(0, s_k, d):
+        w = min(d, s_k - off)
+        kv = one_hot(s_k, hkv, off, torch.arange(hkv, device=device))
+        o, _ = fa.flash_attention_fwd(q, kv, kv, causal, sc, rate, seed)
+        o0, lse = fa.flash_attention_fwd(q, kv, kv, causal, sc)
+        dq, dq0 = (fa.flash_attention_bwd_dq(q, kv, kv, ones_q, lse, delta,
+                                             causal, sc, r, seed)
+                   for r in (rate, 0.0))
+        for name, x, x0 in (("o", o, o0), ("dq", dq, dq0)):
+            record(name, *(t[..., :w].permute(0, 2, 1, 3) for t in (x, x0)),
+                   (Ellipsis, slice(off, off + w)))
+    k = (0.5 * torch.randn(b, s_k, hkv, d, generator=gen,
+                           device=device)).to(dtype)
+    v = torch.ones(b, s_k, hkv, d, device=device).to(dtype)
+    for off in range(0, s_q, d):
+        w = min(d, s_q - off)
+        for j in range(g):
+            heads = torch.arange(hkv, device=device) * g + j
+            qd = one_hot(s_q, hq, off, heads)
+            _, lse = fa.flash_attention_fwd(qd, k, v, causal, sc)
+            (dk, dv), (dk0, dv0) = (
+                fa.flash_attention_bwd_dkv(qd, k, v, qd, lse, delta, causal,
+                                           sc, r, seed)
+                for r in (rate, 0.0))
+            for name, x, x0 in (("dk", dk, dk0), ("dv", dv, dv0)):
+                record(name, *(t[..., :w].permute(0, 2, 3, 1)
+                               for t in (x, x0)),
+                       (slice(None), heads, slice(off, off + w)))
+    return {n: tuple(x) for n, x in out.items()}
+
+
+def check_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
+                device="cuda"):
+    """Every kernel's keep bits (``read_masks``) equal ``dropout_keep``'s,
+    and each kernel saw exactly the visible scores; returns the number of
+    visible scores and the share of them kept."""
+    b, s_q, s_k, hq, hkv, d = shape
+    want = fa.dropout_keep(seed, torch.arange(b * hq, device=device),
+                           torch.arange(s_q, device=device),
+                           torch.arange(s_k, device=device), rate) \
+        .reshape(b, hq, s_q, s_k)
+    rows = torch.arange(s_q, device=device)[:, None]
+    visible = (rows + (s_k - s_q if causal else s_k)
+               >= torch.arange(s_k, device=device)).expand(b, hq, s_q, s_k)
+    tag = f"{list(shape)} {str(dtype)[6:]} causal={causal}"
+    for name, (bits, seen) in read_masks(fa, shape, dtype, causal, seed,
+                                         rate, device).items():
+        require(torch.equal(seen, visible), f"mask read-out {name} {tag}: "
+                f"{int((seen != visible).sum())} scores seen where not "
+                f"visible or not seen where visible")
+        wrong = int((bits[seen] != want[seen]).sum())
+        require(wrong == 0, f"mask read-out {name} {tag}: {wrong} of "
+                f"{int(seen.sum())} keep bits differ from dropout_keep")
+    n = int(visible.sum())
+    return n, float(want[visible].float().mean())
+
+
+def mask_readout(fa):
+    """The dropout masks of the forward, dK/dV and dQ kernels read out
+    (``check_masks``) over ``MASK_READOUTS``, causal and not: every bit
+    must equal ``dropout_keep``, and over the last non-causal case's
+    scores (over 10^7) the keep rate must lie within 5 sigma of 1 -
+    rate."""
+    seed = (7 << 32) | 2024
+    for name, shape, dt in MASK_READOUTS:
+        for causal in (False, True):
+            n, kept = check_masks(fa, shape, dt, causal, seed)
+            sigma = (DROPOUT_RATE * (1 - DROPOUT_RATE) / n) ** 0.5
+            print(f"  dropout masks read out of o, dq, dk and dv ({name}, "
+                  f"causal={causal}): {n:,} scores each, every bit equal "
+                  f"to dropout_keep; kept {kept:.6f} (1 - rate = "
+                  f"{1 - DROPOUT_RATE:g}, sigma {sigma:.2e})")
+            if name == MASK_READOUTS[-1][0] and not causal:
+                require(n >= 10 ** 7 and abs(kept - (1 - DROPOUT_RATE))
+                        <= 5 * sigma, f"keep rate {kept} over {n} scores")
 
 
 # -- phase 3: serving at 7B widths -------------------------------------------
@@ -1344,17 +1599,18 @@ def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS):
 
 
 # -- phase 3d: the ERNIE-base MLM train step ---------------------------------
-def ernie_config(layers=12):
+def ernie_config(layers=12, dropout=DROPOUT_RATE):
     """ERNIE-3.0-base at its published widths (``models/ernie.py``: vocab
     40,000, hidden 768, 12 heads of 64, MLP 3,072, 2,048 positions, 4 token
-    types, LayerNorm eps 1e-12) with both dropouts 0."""
+    types, LayerNorm eps 1e-12) and its published dropout 0.1 on both
+    probabilities (``dropout`` sets both)."""
     from paddle_tpu_torch.models import ernie_config_base
     return dataclasses.replace(ernie_config_base(), num_hidden_layers=layers,
-                               hidden_dropout_prob=0.0,
-                               attention_probs_dropout_prob=0.0)
+                               hidden_dropout_prob=dropout,
+                               attention_probs_dropout_prob=dropout)
 
 
-def make_ernie_step(cfg, dtype, kernels, seed=0):
+def make_ernie_step(cfg, dtype, kernels, seed=0, classes=0, lr=1e-4):
     """bench.py's ERNIE MLM loss (``ErnieForMaskedLM(ids, labels=labels)``,
     the chunked head with the decoder bias and ignore_index -100) and one
     AdamW(lr 1e-4, weight_decay 0.01) update of every parameter.  With
@@ -1362,21 +1618,35 @@ def make_ernie_step(cfg, dtype, kernels, seed=0):
     kernels, the fused AdamW kernel); without, all three are off.  Every
     parameter gets a gradient, zeros for those the loss never reaches (the
     pooler), as ``jax.value_and_grad`` hands them to the JAX optimizer.
+    With ``classes`` the model is ``ErnieForSequenceClassification`` with
+    that many classes, its loss the cross-entropy of the logits against the
+    batch's labels [B], and ``lr`` its learning rate (fine-tuning).  The
+    masks come from the model's generators, seeded from ``seed``.
     Returns (step(batch) -> (loss, grads), params, n_params)."""
-    from paddle_tpu_torch.models import ErnieForMaskedLM
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models import (ErnieForMaskedLM,
+                                         ErnieForSequenceClassification)
     from paddle_tpu_torch.optimizer import AdamW
 
-    model = ErnieForMaskedLM(cfg, dtype=dtype, device="cuda", seed=seed,
-                             kernels=kernels, norm_kernels=kernels)
+    if classes:
+        model = ErnieForSequenceClassification(
+            cfg, classes, dtype=dtype, device="cuda", seed=seed,
+            kernels=kernels, norm_kernels=kernels)
+    else:
+        model = ErnieForMaskedLM(cfg, dtype=dtype, device="cuda", seed=seed,
+                                 kernels=kernels, norm_kernels=kernels)
     params = dict(model.named_parameters())
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, fused=kernels)
+    opt = AdamW(learning_rate=lr, weight_decay=0.01, fused=kernels)
     state = opt.init_opt_state(params, device="cuda")
 
     def step(batch, marks=None):
         mark = (lambda i: marks[i].record()) if marks else (lambda i: None)
         ids, labels = batch
         mark(0)
-        loss, _ = model(ids, labels=labels)
+        if classes:
+            loss = F.cross_entropy(model(ids).float(), labels.long())
+        else:
+            loss, _ = model(ids, labels=labels)
         mark(1)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     materialize_grads=True)
@@ -1389,19 +1659,26 @@ def make_ernie_step(cfg, dtype, kernels, seed=0):
     return step, params, sum(v.numel() for v in params.values())
 
 
-def phase_ernie(pa, B=64, S=512, warmup=3, steps=10):
-    """ERNIE-3.0-base MLM training in bf16 (f32 moments) at B x S with all
-    three knobs on: warm-up and timed steps with the loss of each,
-    tokens/s, the mfu share, peak memory, launches per step of rows
-    3/5/6/9/12/13 (asserted), no plain version called, the stage split and
-    one step under torch.profiler."""
-    cfg = ernie_config()
+def phase_ernie(pa, B=64, S=512, warmup=3, steps=10, dropout=DROPOUT_RATE,
+                classes=0, lr=1e-4):
+    """ERNIE-3.0-base training in bf16 (f32 moments) at B x S with all
+    three knobs on and both dropouts at ``dropout``: the MLM step, or with
+    ``classes`` the sequence-classification step on random labels.
+    Warm-up and timed steps with the loss of each, tokens/s, the mfu share,
+    peak memory, launches per step of rows 3/5/6/9/12/13 and of the
+    dropout branch of rows 3/5/6 (asserted), no plain version called, the
+    stage split and one step under torch.profiler."""
+    cfg = ernie_config(dropout=dropout)
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     torch.cuda.reset_peak_memory_stats()
-    step, params, n_params = make_ernie_step(cfg, torch.bfloat16, True)
-    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
-    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
-    batch = (ids, ids)
+    step, params, n_params = make_ernie_step(cfg, torch.bfloat16, True,
+                                             classes=classes, lr=lr)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                           .astype(np.int32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, classes, (B,)).astype(
+        np.int32)).cuda() if classes else ids
+    batch = (ids, labels)
     losses = []
     for _ in range(warmup):
         losses.append(float(step(batch)[0]))
@@ -1413,15 +1690,19 @@ def phase_ernie(pa, B=64, S=512, warmup=3, steps=10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    launches.update(dropout_counts())
     per_step = {k: n / steps for k, n in launches.items()}
     losses += [float(x) for x in out]
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    n_norms = 2 * L + 2
+    if not classes:
+        require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    n_norms = 2 * L + (1 if classes else 2)
+    n_drop = L if dropout > 0 else 0
     want = {"fa_fwd": L, "fa_dkv": L, "fa_dq": L, "pack_lse": 0,
             "rms_fwd": 0, "rms_bwd": 0, "adamw": len(params),
             "softmax_fwd": 0, "softmax_bwd": 0, "ln_fwd": n_norms,
-            "ln_bwd": n_norms}
+            "ln_bwd": n_norms, "fa_fwd_drop": n_drop, "fa_dkv_drop": n_drop,
+            "fa_dq_drop": n_drop}
     require(per_step == want, f"launches per step {per_step} != {want}")
     require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
     require(not plain.calls, f"plain versions ran: {plain.calls}")
@@ -1429,9 +1710,10 @@ def phase_ernie(pa, B=64, S=512, warmup=3, steps=10):
     flop_per_token = 6.0 * n_params + 6.0 * L * S * H
     mfu = flop_per_token * tokens_per_s / BF16_FLOP_PER_S
     peak = torch.cuda.max_memory_allocated()
-    print(f"  {n_params:,} parameters in {len(params)} tensors, B={B} "
-          f"S={S} bf16 (f32 moments), dropout 0, AdamW(lr=1e-4, wd=0.01) "
-          f"fused")
+    head = f"{classes}-class head, lr {lr:g}" if classes else "MLM"
+    print(f"  {n_params:,} parameters in {len(params)} tensors, {head}, "
+          f"B={B} S={S} bf16 (f32 moments), dropout {dropout:g} (hidden "
+          f"and attention), AdamW(lr={lr:g}, wd=0.01) fused")
     print(f"  loss per step ({warmup} warm-up + {steps} timed): "
           + " ".join(f"{x:.4f}" for x in losses))
     print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
@@ -1440,8 +1722,8 @@ def phase_ernie(pa, B=64, S=512, warmup=3, steps=10):
           f"989 TFLOP/s)")
     print(f"  peak device memory {peak / 2**30:.2f} GiB")
     print(f"  launches per step: {json.dumps(per_step)} (rows 3/5/6 = {L} "
-          f"layers, row 9 = {len(params)} tensors, rows 12/13 = 2 x {L} + 2 "
-          f"norms); plain-version calls 0")
+          f"layers, their dropout branch {n_drop}, row 9 = {len(params)} "
+          f"tensors, rows 12/13 = {n_norms} norms); plain-version calls 0")
     breakdown = train_breakdown(step, batch, wall / steps, ERNIE_GROUPS)
     return dict(launches=launches, tokens_per_s=tokens_per_s, mfu=mfu,
                 step_ms=wall / steps * 1e3, peak_gib=peak / 2**30,
@@ -1535,24 +1817,46 @@ def phase_train_check(B=8, S=2048):
     require(p_err <= 2.1e-4 and p_mean <= 1e-6, "updated parameters differ")
 
 
-def phase_ernie_check(B=16, S=512):
-    """Phase 4c: one f32 ERNIE step at full width and 2 layers with the
-    kernels (flash attention, LayerNorm, fused AdamW) and one with all three
-    knobs off, from the same seeded weights and batch: loss, every gradient
-    and every updated parameter must agree."""
-    cfg = ernie_config(layers=2)
-    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
-    runs = []
-    for kernels in (False, True):
-        step, params, _ = make_ernie_step(cfg, torch.float32, kernels, seed=2)
+class PlainAttention:
+    """Within the block, rows 3/5/6's wrappers run their plain versions on
+    the card (the same function, the same dropout mask from the same seed):
+    phase 4c's reference for the dropout kernels inside a train step."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+        self.fa = fa
+        self.saved = {n: getattr(fa, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(fa, n, getattr(fa, n + "_ref"))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.fa, n, fn)
+
+
+def ernie_step_once(cfg, ids, kernels, plain_attention=False):
+    """One f32 step (loss, gradients, updated parameters) of the model
+    seeded with 2, so two calls draw the same weights and the same dropout
+    masks."""
+    step, params, _ = make_ernie_step(cfg, torch.float32, kernels, seed=2)
+    if plain_attention:
+        with PlainAttention():
+            loss, grads = step((ids, ids))
+    else:
         loss, grads = step((ids, ids))
-        runs.append((float(loss), [g.detach() for g in grads],
-                     [v.detach() for v in params.values()]))
-        del step, params
-    (l0, g0, p0), (l1, g1, p1) = runs
-    print(f"  2-layer f32 ERNIE step at full width, B={B} S={S}: loss plain "
-          f"{l0:.7f}, kernels {l1:.7f}")
+    return (float(loss), [g.detach() for g in grads],
+            [v.detach() for v in params.values()])
+
+
+def hold_ernie_pair(what, plain, kern):
+    """Phase 4c's gates on two ERNIE steps: loss, every gradient and every
+    updated parameter."""
+    (l0, g0, p0), (l1, g1, p1) = plain, kern
+    print(f"  {what}: loss plain {l0:.7f}, kernels {l1:.7f}")
     require(abs(l1 - l0) <= 1e-5 * abs(l0), "loss differs (rtol 1e-5)")
     # gradients: max abs difference within 1e-4 of the tensor's max |grad|.
     # The k biases' gradient is zero in exact arithmetic (it shifts a whole
@@ -1579,6 +1883,29 @@ def phase_ernie_check(B=16, S=512):
           f"out)")
     require(g_err <= 1e-4, "gradients differ")
     require(p_err <= 2.1e-4 and p_mean <= 1e-6, "updated parameters differ")
+
+
+def phase_ernie_check(B=16, S=512):
+    """Phase 4c: f32 ERNIE steps at full width and 2 layers from the same
+    seeded weights and batch.  At dropout 0, the kernels (flash attention,
+    LayerNorm, fused AdamW) against all three knobs off; at the published
+    dropout 0.1, the kernels against the same step with rows 3/5/6 replaced
+    by their plain versions (the same seeds and the same generator states
+    for every mask).  Loss, every gradient and every updated parameter
+    must agree."""
+    cfg = ernie_config(layers=2, dropout=0.0)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    hold_ernie_pair(f"2-layer f32 ERNIE step at full width, B={B} S={S}, "
+                    f"dropout 0, all knobs off against on",
+                    ernie_step_once(cfg, ids, False),
+                    ernie_step_once(cfg, ids, True))
+    torch.cuda.empty_cache()
+    cfg = ernie_config(layers=2)
+    hold_ernie_pair(f"2-layer f32 ERNIE step, B={B} S={S}, dropout "
+                    f"{DROPOUT_RATE}, rows 3/5/6 plain against kernels",
+                    ernie_step_once(cfg, ids, True, plain_attention=True),
+                    ernie_step_once(cfg, ids, True))
 
 
 # -- phase 4: kernel engine == plain engine ----------------------------------
@@ -2004,75 +2331,86 @@ def causal_pairs(s_q, s_k):
 
 
 def report(name, ms, plain_ms, library_ms, nbytes, flops, library_what,
-           flop_rate=BF16_FLOP_PER_S):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+           flop_rate=BF16_FLOP_PER_S, int_ops=0):
+    """One kernel's time beside its bound: the larger of its bytes over
+    3.35 TB/s, its floating-point operations over ``flop_rate`` and its
+    integer operations (the dropout mask's) over ``INT32_OP_PER_S``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / flop_rate, int_ops / INT32_OP_PER_S)
     b_ms = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+    ints = f", {int_ops / 1e9:.2f} G int32 ops" if int_ops else ""
     print(f"  {name:<24} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} "
-          f"GFLOP), {b_ms / ms * 100:.2f}% of bound; library {lib} "
+          f"GFLOP{ints}), {b_ms / ms * 100:.2f}% of bound; library {lib} "
           f"({library_what})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=library_ms)
 
 
-def attention_timing(fa, gen, shape, causal, label=""):
-    """Rows 3, 5 and 6 at one bf16 shape: the kernel, its plain version, the
-    bound and the library calls (timed here only; the port never calls
-    them): SDPA's forward for row 3, and for rows 5 and 6 SDPA's backward
-    alone (``autograd.grad`` on a retained forward graph), with its forward
-    + backward printed beside it."""
+def attention_timing(fa, gen, shape, causal, label="", rate=0.0):
+    """Rows 3, 5 and 6 at one bf16 shape, at dropout ``rate``: the kernel,
+    its plain version, the bound (with the mask's Philox work under
+    dropout) and the library calls (timed here only; the port never calls
+    them): SDPA's forward for row 3 (with ``dropout_p=rate``), and for rows
+    5 and 6 SDPA's backward alone (``autograd.grad`` on a retained forward
+    graph), with its forward + backward printed beside it."""
     import torch.nn.functional as F
     b, s_q, s_k, hq, hkv, d = shape
     q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
     sc = 1.0 / np.sqrt(d)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal, sc)
+    args = (causal, sc, rate, 1234)
+    o, lse = fa.flash_attention_fwd(q, k, v, *args)
     delta = delta_of(do, o)
     pairs = b * hq * (causal_pairs(s_q, s_k) if causal else s_q * s_k)
     q_bytes, kv_bytes = b * s_q * hq * d * 2, b * s_k * hkv * d * 2
     stats_bytes = b * hq * s_q * 4
+    # the mask needs one 32-bit word per visible score: a Philox call per 4
+    mask_ops = PHILOX_OPS * pairs / 4 if rate > 0 else 0
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
     lib_fwd = time_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal), 20)
+        qt, kt, vt, dropout_p=rate, is_causal=causal), 20)
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
     dot = do.transpose(1, 2)
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate,
+                                         is_causal=causal)
     lib_bwd = time_ms(lambda i: torch.autograd.grad(
         out, (qg, kg, vg), dot, retain_graph=True), 10)
 
     def sdpa_fwd_bwd(i):
         torch.autograd.grad(F.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=causal), (qg, kg, vg), dot)
+            qg, kg, vg, dropout_p=rate, is_causal=causal), (qg, kg, vg), dot)
 
     lib_both = time_ms(sdpa_fwd_bwd, 10)
     mode = "causal" if causal else "non-causal"
+    mode += f", dropout_p={rate:g}" if rate > 0 else ""
     bwd_what = (f"SDPA {mode} backward alone; forward + backward "
                 f"{lib_both:.4f} ms")
     res = {}
     res["fa_fwd"] = report(
         f"flash_attention_fwd{label}",
-        time_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal, sc), 10),
-        time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, causal, sc), 3,
+        time_ms(lambda i: fa.flash_attention_fwd(q, k, v, *args), 10),
+        time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, *args), 3,
                 warmup=1), lib_fwd,
         2 * q_bytes + 2 * kv_bytes + stats_bytes, 4 * d * pairs,
-        f"SDPA {mode} forward")
+        f"SDPA {mode} forward", int_ops=mask_ops)
     res["fa_dkv"] = report(
         f"flash_attention_bwd_dkv{label}",
         time_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                     causal, sc), 5),
+                                                     *args), 5),
         time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
-            q, k, v, do, lse, delta, causal, sc), 3, warmup=1), lib_bwd,
+            q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
         2 * q_bytes + 4 * kv_bytes + 2 * stats_bytes, 8 * d * pairs,
-        bwd_what)
+        bwd_what, int_ops=mask_ops)
     res["fa_dq"] = report(
         f"flash_attention_bwd_dq{label}",
         time_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                    causal, sc), 5),
+                                                    *args), 5),
         time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
-            q, k, v, do, lse, delta, causal, sc), 3, warmup=1), lib_bwd,
+            q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
         3 * q_bytes + 2 * kv_bytes + 2 * stats_bytes, 6 * d * pairs,
-        bwd_what)
+        bwd_what, int_ops=mask_ops)
     del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, dot, out
     torch.cuda.empty_cache()
     return res
@@ -2260,6 +2598,85 @@ def parent_norm_turns(parent, fu, gen, N=16384, H=1024):
     torch.cuda.empty_cache()
 
 
+def fa_direct(lib, which, tensors, geometry, causal, sc, dropout_args):
+    """One launch of ``flash_attention_<which>_launch`` from ``lib`` on
+    bf16 [B, S, H, D] tensors (inputs, then the outputs it fills); the C
+    entry alone, with the dropout arguments when ``dropout_args`` is not
+    None (a build from before the dropout branch takes none)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    fn = getattr(lib, f"flash_attention_{which}_launch")
+    fn.restype = ctypes.c_int
+    four_d = [t for t in tensors if t.dim() == 4]
+    strides = fa._strides(*four_d)
+    extra = [] if dropout_args is None else list(dropout_args)
+    fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1)
+                   + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + ([] if dropout_args is None else
+                      [ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
+                       ctypes.c_uint]) + [ctypes.c_void_p])
+    err = fn(*[t.data_ptr() for t in tensors],
+             ctypes.cast(strides, ctypes.c_void_p), *geometry, 1,
+             int(causal), sc, *extra,
+             torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"flash_attention_{which}_launch: CUDA error {err}")
+
+
+def parent_attention_turns(parent, fa, gen, shape, causal):
+    """``--parent DIR``: ``flash_attention.cu`` of another commit (DIR holds
+    its ``csrc``), built with the same flags and timed in turns with the
+    shipped build — parent, new, new, parent — at rate 0 on the same
+    inputs: rows 3, 5 and 6 through their C entries (a parent from before
+    the dropout branch takes no dropout arguments).  Every output is held
+    against the plain version first."""
+    import ctypes
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    libs = {"parent": ctypes.CDLL(str(_build.build_all(
+        ["flash_attention"], csrc=Path(parent))["flash_attention"])),
+        "new": _build.library("flash_attention")}
+    b, s_q, s_k, hq, hkv, d = shape
+    geometry = (b, hq, hkv, s_q, s_k, d)
+    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    sc = 1.0 / np.sqrt(d)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+    p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
+        q, k, v.abs(), causal, sc)[0].float()
+    delta = delta_of(do, ro)
+    want = (*fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta, causal,
+                                            sc),
+            fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta, causal,
+                                          sc))
+    o, lse = torch.empty_like(q), torch.empty_like(rlse)
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    tol = TRAIN_TOL[torch.bfloat16]
+    for side in ("parent", "new", "new", "parent"):
+        lib = libs[side]
+        drop = None if side == "parent" else (0, 1.0, 0, 0)
+        calls = {
+            "fwd": lambda i: fa_direct(lib, "fwd", (q, k, v, o, lse),
+                                       geometry, causal, sc, drop),
+            "bwd_dkv": lambda i: fa_direct(
+                lib, "bwd_dkv", (q, k, v, do, rlse, delta, dk, dv), geometry,
+                causal, sc, drop),
+            "bwd_dq": lambda i: fa_direct(
+                lib, "bwd_dq", (q, k, v, do, rlse, delta, dq), geometry,
+                causal, sc, drop)}
+        for fn in calls.values():
+            fn(0)
+        held(f"fwd o   [{side}]", o, ro, tol, p_round)
+        held(f"fwd lse [{side}]", lse, rlse, TRAIN_TOL[torch.float32])
+        for what, got, ref in zip(("dk", "dv", "dq"), (dk, dv, dq), want):
+            held(f"{what} [{side}]", got, ref, tol)
+        line = ", ".join(f"{what} {time_ms(fn, 10):.4f} ms"
+                         for what, fn in calls.items())
+        print(f"  turn {side}: rows 3/5/6 at rate 0 {shape}: {line}")
+    del q, k, v, do, ro, rlse, p_round, delta, want, o, lse, dk, dv, dq
+    torch.cuda.empty_cache()
+
+
 def library_call(what, fn, want, tol):
     """A PyTorch call for the same function as a kernel, to be timed as its
     ``library_ms``: its outputs held against the kernel's plain version
@@ -2303,11 +2720,20 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     gen = torch.Generator(device="cuda").manual_seed(21)
     dt = torch.bfloat16
     res = attention_timing(fa, gen, (B, S, S, Hq, Hq, D), True)
-    print("  at ERNIE's attention shape (phase 3d):")
+    print("  at ERNIE's attention shape (phase 3d), rate 0:")
     attention_timing(fa, gen, ERNIE_ATTN_SHAPE, False, " (ERNIE)")
+    print(f"  at ERNIE's attention shape (phase 3d), dropout rate "
+          f"{DROPOUT_RATE} (the dropout rows), beside SDPA with dropout_p="
+          f"{DROPOUT_RATE}:")
+    drop = attention_timing(fa, gen, ERNIE_ATTN_SHAPE, False,
+                            f" (ERNIE, dropout {DROPOUT_RATE})", DROPOUT_RATE)
+    res.update({k + "_drop": v for k, v in drop.items()})
     print("  design steps of rows 3, 5 and 6 at the train shape:")
     design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
     if parent is not None:
+        print(f"  rows 3, 5 and 6 at rate 0 against the build of {parent}, "
+              f"in turns:")
+        parent_attention_turns(parent, fa, gen, (B, S, S, Hq, Hq, D), True)
         print(f"  rows 7 and 13 against the build of {parent}, in turns:")
         parent_norm_turns(parent, fu, gen, N, H)
     elt = 2
@@ -2512,8 +2938,9 @@ def main():
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="csrc directory of another commit: phase 5 times "
                          "its ragged paged attention and softmax forward, "
-                         "phase 5b its RMSNorm forward and LayerNorm "
-                         "backward, in turns with these")
+                         "phase 5b its flash-attention kernels at rate 0, "
+                         "RMSNorm forward and LayerNorm backward, in turns "
+                         "with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -2542,8 +2969,9 @@ def main():
     max_err = phase_kernel(pa)
     print("phase 2b: train kernels vs plain version on the card")
     max_err.update(phase_train_kernels(fa, fu))
-    print("phase 2c: LayerNorm, softmax and AdamW kernels, and flash "
-          "attention at ERNIE's shape, vs plain version on the card")
+    print("phase 2c: LayerNorm, softmax and AdamW kernels, flash attention "
+          "at ERNIE's shape, and its dropout branch, vs plain version on the "
+          "card; the dropout mask read out of the kernel")
     phase_fused_kernels(fa, fu, max_err)
 
     print("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
@@ -2563,9 +2991,19 @@ def main():
           "16 layers)")
     train = phase_train(pa)
     torch.cuda.empty_cache()
-    print("phase 3d: ERNIE-3.0-base MLM train step (bf16, B=64, S=512, "
-          "12 layers, dropout 0)")
+    print(f"phase 3d: ERNIE-3.0-base MLM train step (bf16, B=64, S=512, "
+          f"12 layers, dropout {DROPOUT_RATE})")
     ernie = phase_ernie(pa)
+    torch.cuda.empty_cache()
+    print("phase 3d, the same step at dropout 0 (the cost of dropout on this "
+          "card)")
+    ernie0 = phase_ernie(pa, warmup=2, steps=5, dropout=0.0)
+    torch.cuda.empty_cache()
+    print(f"phase 3f: ERNIE-3.0-base sequence classification fine-tuning "
+          f"step (2 classes, bf16, B=32, S=128, dropout {DROPOUT_RATE}, "
+          f"AdamW lr 2e-5)")
+    cls = phase_ernie(pa, B=32, S=128, warmup=2, steps=10, classes=2,
+                      lr=2e-5)
     torch.cuda.empty_cache()
     print("phase 3e: nn.functional.softmax through the softmax kernels")
     softmax_launches = phase_softmax_entry()
@@ -2574,7 +3012,8 @@ def main():
     phase_engine(pa, cfg)
     print("phase 4b: train step, kernels vs plain versions")
     phase_train_check()
-    print("phase 4c: ERNIE train step, kernels vs plain versions")
+    print("phase 4c: ERNIE train step, kernels vs plain versions, at "
+          "dropout 0 and 0.1")
     phase_ernie_check()
     torch.cuda.empty_cache()
 
@@ -2598,10 +3037,17 @@ def main():
           f"{train['mfu']:.4f}, {train['step_ms']:.1f} ms per step, loss "
           f"{train['losses'][0]:.4f} -> {train['losses'][-1]:.4f}, peak "
           f"{train['peak_gib']:.2f} GiB on {card}")
-    print(f"  ERNIE-base MLM step: {ernie['tokens_per_s']:.1f} tokens/s, "
-          f"mfu_share {ernie['mfu']:.4f}, {ernie['step_ms']:.1f} ms per "
-          f"step, loss {ernie['losses'][0]:.4f} -> {ernie['losses'][-1]:.4f}"
-          f", peak {ernie['peak_gib']:.2f} GiB on {card}")
+    for what, er in ((f"ERNIE-base MLM step, dropout {DROPOUT_RATE}", ernie),
+                     ("ERNIE-base MLM step, dropout 0", ernie0),
+                     ("ERNIE-base 2-class fine-tuning step, B 32 x S 128",
+                      cls)):
+        print(f"  {what}: {er['tokens_per_s']:.1f} tokens/s, mfu_share "
+              f"{er['mfu']:.4f}, {er['step_ms']:.1f} ms per step, loss "
+              f"{er['losses'][0]:.4f} -> {er['losses'][-1]:.4f}, peak "
+              f"{er['peak_gib']:.2f} GiB on {card}")
+    cost = ernie["step_ms"] - ernie0["step_ms"]
+    print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
+          f"({cost / ernie0['step_ms']:+.1%})")
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     rows = []
     for meta, key, launches in ((PLAIN, "plain", serve["launches"]),
@@ -2617,6 +3063,11 @@ def main():
         key = meta["key"]
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=train["launches"][key],
+                         max_abs_err=max_err[key], **timing[key]))
+    for meta in DROP_ROWS:
+        key = meta["key"]
+        rows.append(dict({k: v for k, v in meta.items() if k != "key"},
+                         launches=ernie["launches"][key],
                          max_abs_err=max_err[key], **timing[key]))
     for meta in FUSED_ROWS:
         key = meta["key"]

@@ -1,12 +1,14 @@
 from .convert import ernie_params_from_numpy, params_from_numpy
-from .ernie import (ErnieConfig, ErnieForMaskedLM, ErnieModel,
+from .ernie import (ErnieConfig, ErnieForMaskedLM,
+                    ErnieForSequenceClassification, ErnieModel,
                     ernie_config_base, ernie_config_tiny)
 from .llama import (LlamaConfig, build_functional_llama,
                     build_llama_paged_decode, init_llama_params,
                     llama_config_7b, llama_config_tiny,
                     make_paged_decode_horizon)
 
-__all__ = ["ErnieConfig", "ErnieForMaskedLM", "ErnieModel", "LlamaConfig",
+__all__ = ["ErnieConfig", "ErnieForMaskedLM",
+           "ErnieForSequenceClassification", "ErnieModel", "LlamaConfig",
            "build_functional_llama", "build_llama_paged_decode",
            "ernie_config_base", "ernie_config_tiny", "ernie_params_from_numpy",
            "init_llama_params", "llama_config_7b", "llama_config_tiny",

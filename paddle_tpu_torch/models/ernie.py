@@ -1,6 +1,6 @@
-"""ERNIE-3.0 encoder and its masked-LM head (port of
-``paddle_tpu.models.ernie``: ``ErnieConfig``, ``ErnieModel``,
-``ErnieForMaskedLM``).
+"""ERNIE-3.0 encoder, its masked-LM head and its sequence-classification
+head (port of ``paddle_tpu.models.ernie``: ``ErnieConfig``, ``ErnieModel``,
+``ErnieForMaskedLM``, ``ErnieForSequenceClassification``).
 
 A post-LN transformer encoder with learned positions and token types.  The
 modules are ``torch.nn.Module``s whose ``named_parameters()`` names are the
@@ -9,15 +9,25 @@ weights in the JAX ``[in, out]`` layout, so weights cross by name
 (:func:`~paddle_tpu_torch.models.convert.ernie_params_from_numpy`).
 Parameters are drawn from a ``torch.Generator`` seeded with ``seed`` on
 ``device`` (``None``: the CUDA device, raising without one), or from the
-``generator`` an outer module passes.
+one an outer head shares with it.
 
 Three knobs mirror the JAX flags, with their defaults: ``kernels``
 (``use_pallas_kernels``) sends unmasked attention to the flash-attention
 kernels; ``norm_kernels`` (``use_pallas_norm_kernels``, off) also sends
 every LayerNorm to the LayerNorm kernels.  The third, the fused AdamW
-update, is the optimizer's (``optimizer.AdamW(fused=...)``).  Dropout above
-0 in training raises: attention dropout needs the flash kernels' in-kernel
-dropout, which is not ported yet.
+update, is the optimizer's (``optimizer.AdamW(fused=...)``).
+
+Dropout is where JAX has it, at the config's rates (0.1 in ERNIE-3.0-base):
+hidden dropout after the embeddings' LayerNorm, on the attention output and
+on the MLP output, and attention-probability dropout inside the
+flash-attention kernels (or on the plain path's probabilities).  The
+model owns two generators, both seeded from ``seed`` and handed to every
+dropout and attention layer as it is built: ``dropout_generator`` on the
+model's device draws the hidden masks (and the plain attention path's),
+``attention_seed_generator`` on the host draws a seed per attention call
+for the in-kernel mask, so a step never waits for the card.  The heads
+share them with their ``.ernie``.  ``.eval()`` turns every dropout off, as
+in JAX.
 """
 from __future__ import annotations
 
@@ -30,10 +40,11 @@ from .. import resolve_device
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional.activation import gelu
 from ..nn.functional.attention import scaled_dot_product_attention
-from ..nn.layers import Embedding, LayerNorm, Linear
+from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 __all__ = ["ErnieConfig", "ErnieModel", "ErnieForMaskedLM",
-           "ernie_config_base", "ernie_config_tiny"]
+           "ErnieForSequenceClassification", "ernie_config_base",
+           "ernie_config_tiny"]
 
 
 @dataclass
@@ -64,25 +75,24 @@ def ernie_config_tiny(vocab=1000, hidden=64, layers=2, heads=4, seq=64):
                        attention_probs_dropout_prob=0.0)
 
 
-def _no_dropout(p, training, what):
-    if p > 0.0 and training:
-        raise NotImplementedError(
-            f"{what} dropout is not ported yet: build the model with a "
-            f"dropout probability of 0 or call .eval()")
-
-
 class _Parts:
-    """What every submodule needs to build its parameters."""
+    """What every submodule needs at construction: the parameters'
+    generator (seeded with ``seed``) and the two dropout generators (seeded
+    from it, apart from the parameters' stream), one set per model, shared
+    by a head and its ``ErnieModel``."""
 
-    def __init__(self, c, dtype, device, seed, generator, kernels,
-                 norm_kernels):
+    def __init__(self, c, dtype, device, seed, kernels, norm_kernels):
         dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(int(seed))
         self.c, self.kernels = c, kernels
-        self.mk = dict(dtype=dtype, device=dev, generator=generator)
+        self.mk = dict(dtype=dtype, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           int(seed)))
         self.ln = dict(dtype=dtype, device=dev, kernels=kernels,
                        norm_kernels=norm_kernels)
+        self.dropout_generator = torch.Generator(device=dev).manual_seed(
+            int(seed) + 1)
+        self.attention_seed_generator = torch.Generator().manual_seed(
+            int(seed) + 2)
 
     def linear(self, n_in, n_out):
         return Linear(n_in, n_out, **self.mk)
@@ -90,6 +100,9 @@ class _Parts:
     def norm(self):
         return LayerNorm(self.c.hidden_size, self.c.layer_norm_eps,
                          **self.ln)
+
+    def dropout(self, p):
+        return Dropout(p, generator=self.dropout_generator)
 
 
 class ErnieEmbeddings(nn.Module):
@@ -103,10 +116,9 @@ class ErnieEmbeddings(nn.Module):
         self.token_type_embeddings = Embedding(c.type_vocab_size,
                                                c.hidden_size, **parts.mk)
         self.layer_norm = parts.norm()
-        self.dropout_p = c.hidden_dropout_prob
+        self.dropout = parts.dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
-        _no_dropout(self.dropout_p, self.training, "hidden")
         B, S = input_ids.shape
         dev = input_ids.device
         if position_ids is None:
@@ -117,7 +129,7 @@ class ErnieEmbeddings(nn.Module):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))
-        return self.layer_norm(x)
+        return self.dropout(self.layer_norm(x))
 
 
 class ErnieSelfAttention(nn.Module):
@@ -132,6 +144,8 @@ class ErnieSelfAttention(nn.Module):
         self.out = parts.linear(c.hidden_size, c.hidden_size)
         self.dropout_p = c.attention_probs_dropout_prob
         self.kernels = parts.kernels
+        self.generator = parts.dropout_generator
+        self.seed_generator = parts.attention_seed_generator
 
     def forward(self, x, attn_mask=None):
         b, s, _ = x.shape
@@ -140,7 +154,8 @@ class ErnieSelfAttention(nn.Module):
             self.q(x).reshape(shape), self.k(x).reshape(shape),
             self.v(x).reshape(shape), attn_mask=attn_mask,
             dropout_p=self.dropout_p, is_causal=False,
-            training=self.training, kernels=self.kernels)
+            training=self.training, kernels=self.kernels,
+            generator=self.generator, seed_generator=self.seed_generator)
         return self.out(o.reshape(b, s, -1))
 
 
@@ -158,29 +173,34 @@ class ErnieLayer(nn.Module):
         self.fc1 = parts.linear(c.hidden_size, c.intermediate_size)
         self.fc2 = parts.linear(c.intermediate_size, c.hidden_size)
         self.norm2 = parts.norm()
-        self.dropout_p = c.hidden_dropout_prob
+        self.dropout = parts.dropout(c.hidden_dropout_prob)
 
     def forward(self, x, attn_mask=None):
-        _no_dropout(self.dropout_p, self.training, "hidden")
-        x = self.norm1(x + self.attention(x, attn_mask))
-        return self.norm2(x + self.fc2(gelu(self.fc1(x))))
+        x = self.norm1(x + self.dropout(self.attention(x, attn_mask)))
+        return self.norm2(x + self.dropout(self.fc2(gelu(self.fc1(x)))))
 
 
 class ErnieModel(nn.Module):
     """Embeddings, the encoder layers and the pooler; returns the sequence
-    output [B, S, H] and the pooled first token [B, H]."""
+    output [B, S, H] and the pooled first token [B, H].  Parameters and the
+    dropout generators (``dropout_generator``, ``attention_seed_generator``)
+    come from ``seed``; a head passes its own ``parts`` instead (built from
+    the same arguments), so that its layers draw from the same streams."""
 
     def __init__(self, config: ErnieConfig, dtype=torch.float32, device=None,
                  seed: int = 0, kernels: bool = True,
-                 norm_kernels: bool = False, generator=None):
+                 norm_kernels: bool = False, parts: _Parts | None = None):
         super().__init__()
-        parts = _Parts(config, dtype, device, seed, generator, kernels,
-                       norm_kernels)
+        if parts is None:
+            parts = _Parts(config, dtype, device, seed, kernels,
+                           norm_kernels)
         self.config = config
         self.embeddings = ErnieEmbeddings(parts)
         self.encoder = nn.ModuleList(ErnieLayer(parts)
                                      for _ in range(config.num_hidden_layers))
         self.pooler = parts.linear(config.hidden_size, config.hidden_size)
+        self.dropout_generator = parts.dropout_generator
+        self.attention_seed_generator = parts.attention_seed_generator
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
@@ -203,11 +223,8 @@ class ErnieForMaskedLM(nn.Module):
                  seed: int = 0, kernels: bool = True,
                  norm_kernels: bool = False):
         super().__init__()
-        parts = _Parts(config, dtype, device, seed, None, kernels,
-                       norm_kernels)
-        self.ernie = ErnieModel(config, dtype, parts.mk["device"],
-                                kernels=kernels, norm_kernels=norm_kernels,
-                                generator=parts.mk["generator"])
+        parts = _Parts(config, dtype, device, seed, kernels, norm_kernels)
+        self.ernie = ErnieModel(config, parts=parts)
         self.config = config
         c = config
         self.transform = parts.linear(c.hidden_size, c.hidden_size)
@@ -240,3 +257,24 @@ class ErnieForMaskedLM(nn.Module):
             h, self.decoder.weight, labels, n_chunks=8,
             bias=self.decoder.bias, ignore_index=ignore_index)
         return loss, None
+
+
+class ErnieForSequenceClassification(nn.Module):
+    """JAX ``ErnieForSequenceClassification`` (``models/ernie.py:186``): the
+    pooled first token, hidden dropout and a Linear to ``num_classes``;
+    returns the logits [B, num_classes] (the loss is the caller's, as in
+    JAX: cross-entropy against the labels in fine-tuning)."""
+
+    def __init__(self, config: ErnieConfig, num_classes=2,
+                 dtype=torch.float32, device=None, seed: int = 0,
+                 kernels: bool = True, norm_kernels: bool = False):
+        super().__init__()
+        parts = _Parts(config, dtype, device, seed, kernels, norm_kernels)
+        self.ernie = ErnieModel(config, parts=parts)
+        self.dropout = parts.dropout(config.hidden_dropout_prob)
+        self.classifier = parts.linear(config.hidden_size, num_classes)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        _, pooled = self.ernie(input_ids, token_type_ids,
+                               attention_mask=attention_mask)
+        return self.classifier(self.dropout(pooled))

@@ -1,6 +1,7 @@
-"""Linear, Embedding and LayerNorm modules with the JAX package's parameter
-names, layouts and initialisers (``paddle_tpu/nn/common.py`` ``Linear``,
-``Embedding``; ``paddle_tpu/nn/norm.py`` ``LayerNorm``).
+"""Linear, Embedding, Dropout and LayerNorm modules with the JAX package's
+parameter names, layouts and initialisers (``paddle_tpu/nn/common.py``
+``Linear``, ``Embedding``, ``Dropout``; ``paddle_tpu/nn/norm.py``
+``LayerNorm``).
 
 They are plain ``torch.nn.Module``s, not a port of the eager ``Layer``
 framework.  Linear weights keep the ``[in, out]`` layout (``x @ W + b``), so
@@ -16,9 +17,10 @@ import math
 import torch
 from torch import nn
 
+from .functional.common import dropout
 from .functional.norm import layer_norm
 
-__all__ = ["Linear", "Embedding", "LayerNorm"]
+__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm"]
 
 
 class Linear(nn.Module):
@@ -50,6 +52,24 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return self.weight[ids.long()]
+
+
+class Dropout(nn.Module):
+    """JAX ``Dropout`` (``nn/common.py:50``): :func:`~paddle_tpu_torch.nn.
+    functional.common.dropout` in training mode, the identity in eval mode.
+    ``generator`` (a ``torch.Generator`` on the device of the tensors)
+    draws the masks; the model that owns the module passes its own.  It has
+    no parameters."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 generator=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+        self.generator = generator
+
+    def forward(self, x):
+        return dropout(x, self.p, axis=self.axis, training=self.training,
+                       mode=self.mode, generator=self.generator)
 
 
 class LayerNorm(nn.Module):

@@ -76,6 +76,24 @@
 // 2^-16 relative, with two products into one f32 accumulator.  wgmma, TMA
 // and warp specialisation are left for later work.
 //
+// Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
+// template flag DROP of all six bodies; the DROP = false instantiations are
+// the kernels as they were.  Each score's keep word is drawn in registers
+// from Philox4x32-10 keyed by the seed and counted by the score's global
+// (q-head row, q row, key) coordinates (philox.cuh), right where the
+// score's p meets P V or dP, so every kernel rebuilds the same mask from
+// the seed whatever its tiling, and the mask never reaches device memory
+// (the TPU kernel reseeds its core PRNG per block to the same end).  As on
+// the TPU: l and lse sum the undropped p, P V takes p * keep / (1 - rate)
+// (rounded to bf16 in the bf16 forward), dK / dV and dQ take
+// dP * keep / (1 - rate) into ds = p (dP' - delta) sm_scale, and dV the
+// dropped p.  The bf16 bodies draw one call per 4 scores: a forward or dQ
+// thread's 4 scores of a 16-key group in one q row are one call's 4 words,
+// and dK / dV's transposed fragment splits each call between a lane pair
+// that swaps halves by one shuffle.  The f32 bodies draw one call per
+// score.  The mask costs integer work (some 100 operations per call), not
+// bytes; a fully masked causal tile draws nothing.
+//
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().
 
@@ -85,6 +103,7 @@
 
 #include <type_traits>
 
+#include "philox.cuh"
 #include "sm90_mma.cuh"
 
 namespace {
@@ -224,13 +243,16 @@ __device__ __forceinline__ float masked_score(float s, float sm_scale,
 // s, row stride LDS): scale and mask, update each row's running max m and
 // denominator l (warp w owns rows 8w .. 8w + 7, lanes own columns lane and
 // lane + 32), write p = exp(s - m_new) to p (row stride LDP; may alias s)
-// and the row's rescale factor exp(m_old - m_new) to alpha_s.
-template <int LDS, int LDP, typename P>
+// and the row's rescale factor exp(m_old - m_new) to alpha_s.  With DROP
+// the p written for P V is the dropped one; l sums the undropped p.
+template <int LDS, int LDP, bool DROP, typename P>
 __device__ __forceinline__ void softmax_step(const float* s, P* p,
                                              float* alpha_s, float m[8],
                                              float l[8], int row0, int col0,
                                              int offset, int causal, int s_k,
-                                             float sm_scale) {
+                                             float sm_scale,
+                                             const Dropout& dr,
+                                             unsigned bhq) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int rr = 0; rr < 8; ++rr) {
@@ -240,22 +262,28 @@ __device__ __forceinline__ void softmax_step(const float* s, P* p,
     const float s1 = masked_score(s[r * LDS + lane + 32], sm_scale, row0 + r,
                                   col0 + lane + 32, offset, causal, s_k);
     const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
-    const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+    float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
     const float alpha = expf(m[rr] - m_new);
     l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
     m[rr] = m_new;
+    if constexpr (DROP) {
+      p0 = dropped(dr, dropout_word_at(dr, row0 + r, col0 + lane, bhq), p0);
+      p1 = dropped(dr, dropout_word_at(dr, row0 + r, col0 + lane + 32, bhq),
+                   p1);
+    }
     store(p + r * LDP + lane, p0);
     store(p + r * LDP + lane + 32, p1);
     if (lane == 0) alpha_s[r] = alpha;
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, View qv, View kv, View vv, View ov,
-              int hq, int hkv, int s_q, int s_k, int causal, float sm_scale) {
+              int hq, int hkv, int s_q, int s_k, int causal, float sm_scale,
+              Dropout dr) {
   constexpr int LD = D + 1;
   constexpr int JD = D / 16;
   extern __shared__ float smem[];
@@ -303,8 +331,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_s[r * kLDS + c] = sc[i][j];
       }
     __syncthreads();
-    softmax_step<kLDS, kLDS>(p_s, p_s, alpha_s, m, l, row0, kt * kTile,
-                             offset, causal, s_k, sm_scale);
+    softmax_step<kLDS, kLDS, DROP>(p_s, p_s, alpha_s, m, l, row0,
+                                   kt * kTile, offset, causal, s_k, sm_scale,
+                                   dr, (unsigned)(b * hq + h));
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -356,15 +385,17 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* delta_s,
 }
 
 // p = exp(s - lse) and ds = p * (dp - delta) * sm_scale of a tile pair
-// (q rows ty + 16 i, k cols tx + 16 j); writes ds, and p when p_s is set
-template <int D>
+// (q rows ty + 16 i, k cols tx + 16 j); writes ds, and p when p_s is set.
+// With DROP, dp and the p written (dV's) are the dropped ones.
+template <int D, bool DROP>
 __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
                                          const float* k_s, const float* v_s,
                                          const float* lse_s,
                                          const float* delta_s, float* p_s,
                                          float* ds_s, int qrow0, int kcol0,
                                          int offset, int causal, int s_k,
-                                         float sm_scale) {
+                                         float sm_scale, const Dropout& dr,
+                                         unsigned bhq) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float sc[4][4], dp[4][4];
   mm_abt<D>(q_s, k_s, sc);
@@ -377,12 +408,18 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
       const float s = masked_score(sc[i][j], sm_scale, qrow0 + r, kcol0 + c,
                                    offset, causal, s_k);
       const float p = expf(s - lse_s[r]);
-      if (p_s != nullptr) p_s[r * kLDS + c] = p;
-      ds_s[r * kLDS + c] = p * (dp[i][j] - delta_s[r]) * sm_scale;
+      float pd = p, dpd = dp[i][j];
+      if constexpr (DROP) {
+        const unsigned word = dropout_word_at(dr, qrow0 + r, kcol0 + c, bhq);
+        pd = dropped(dr, word, p);
+        dpd = dropped(dr, word, dpd);
+      }
+      if (p_s != nullptr) p_s[r * kLDS + c] = pd;
+      ds_s[r * kLDS + c] = p * (dpd - delta_s[r]) * sm_scale;
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
@@ -390,7 +427,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, View qv, View kv, View vv, View dov,
                   View dkv, View dvv, int hq, int hkv, int s_q, int s_k,
-                  int causal, float sm_scale) {
+                  int causal, float sm_scale, Dropout dr) {
   constexpr int LD = D + 1;
   constexpr int JD = D / 16;
   extern __shared__ float smem[];
@@ -431,8 +468,9 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_tile<T, D>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
       load_stats(lse_s, delta_s, lse, delta, row_base, row0, s_q);
       __syncthreads();
-      p_and_ds<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, row0, col0,
-                  offset, causal, s_k, sm_scale);
+      p_and_ds<D, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, row0,
+                        col0, offset, causal, s_k, sm_scale, dr,
+                        (unsigned)(b * hq + h));
       __syncthreads();
       mm_atb<D>(p_s, do_s, dv_acc);         // dv += p^T do
       mm_atb<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
@@ -454,14 +492,15 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dq,
                  View qv, View kv, View vv, View dov, View dqv, int hq,
-                 int hkv, int s_q, int s_k, int causal, float sm_scale) {
+                 int hkv, int s_q, int s_k, int causal, float sm_scale,
+                 Dropout dr) {
   constexpr int LD = D + 1;
   constexpr int JD = D / 16;
   extern __shared__ float smem[];
@@ -498,8 +537,9 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(k_s, kb, kv.ss, kt * kTile, s_k);
     load_tile<T, D>(v_s, vb, vv.ss, kt * kTile, s_k);
     __syncthreads();
-    p_and_ds<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, row0,
-                kt * kTile, offset, causal, s_k, sm_scale);
+    p_and_ds<D, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s,
+                      row0, kt * kTile, offset, causal, s_k, sm_scale, dr,
+                      (unsigned)(b * hq + h));
     __syncthreads();
     mm_ab<D>(ds_s, k_s, acc);               // dq += ds k
   }
@@ -597,14 +637,14 @@ __device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
 // warp w owns rows 16 w .. 16 w + 15 and keeps their Q fragments, S, P and
 // the O accumulator in registers.  The q tiles with the most key tiles are
 // launched first (grid y counts down), so the causal tail is short.
-template <int D, int NW, int NS>
+template <int D, int NW, int NS, bool DROP>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? FA_FWD_MINB : 1)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   View qv, View kv, View vv, View ov, int hq, int hkv,
-                  int s_q, int s_k, int causal, float sm_scale) {
+                  int s_q, int s_k, int causal, float sm_scale, Dropout dr) {
   constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
   constexpr int KS = D / 16;                // k-steps of Q K^T
   constexpr int NO = D / 8;                 // n-tiles of O
@@ -734,10 +774,15 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         s[j][e] = p;
       }
 
-    // O += P V: P (rounded to bf16, as the TPU kernel does) is the A
-    // operand straight from the score fragments
+    // O += P V: P (dropped, then rounded to bf16, as the TPU kernel does)
+    // is the A operand straight from the score fragments; each 16-key
+    // group's keep words are drawn here, two calls for its 8 scores
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
+      if constexpr (DROP)
+        drop_group(dr, s[2 * kk], s[2 * kk + 1],
+                   (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
+                   (unsigned)(b * hq + h));
       const unsigned pa[4] = {
           pack_bf16(s[2 * kk][0], s[2 * kk][1]),
           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
@@ -785,7 +830,7 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // pairs (2^-16 relative, as the TPU kernel's f32).  Q, dO, lse and delta
 // tiles stream through the cp.async ring.  The key blocks with the most q
 // tiles (the first ones, when causal) are launched first.
-template <int D, int NW, int BQ, int NS>
+template <int D, int NW, int BQ, int NS, bool DROP>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DKV_MINB : 1)
 fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -796,7 +841,8 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, View qv, View kv,
                       View vv, View dov, View dkv, View dvv, int hq, int hkv,
-                      int s_q, int s_k, int causal, float sm_scale) {
+                      int s_q, int s_k, int causal, float sm_scale,
+                      Dropout dr) {
   constexpr int BK = 16 * NW, NTHR = NW * 32;
   constexpr int KS = D / 16;                // k-steps of K Q^T
   constexpr int NQ = BQ / 8;                // n-tiles of S^T (q columns)
@@ -904,13 +950,33 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // p = exp(s - lse) and ds = p (dP - delta) sm_scale; only a tile that
-    // crosses the warp's causal frontier is masked (NEG_INF, as the TPU)
+    // crosses the warp's causal frontier is masked (NEG_INF, as the TPU).
+    // With DROP, dV takes the dropped p and ds the dropped dP.  The
+    // fragment is transposed (rows = keys), so a thread's scores of one q
+    // column lie in one call, but use 2 of its words: lanes g and g ^ 1
+    // (lane ^ 4) hold the same q columns and the other 2 words, so each
+    // draws the call of one of their 2 columns and they swap halves.
+    const unsigned bhq = b * hq + hk * rep + it / nq;
+    const unsigned kcell = (unsigned)(wk0 >> 4) * 4u + (g >> 1);
+    const bool odd = g & 1;
     const bool masked = causal && row0 + offset < wk0 + 15;
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
       const float2 d2 =
           *reinterpret_cast<const float2*>(ls + BQ + 8 * j + 2 * t);
+      unsigned kw[4];                       // element e's word: q column
+      if constexpr (DROP) {                 // 2t + (e & 1), key g + 8 (e >> 1)
+        const uint4 w =
+            dropout_words(dr, kcell, row0 + 8 * j + 2 * t + odd, bhq);
+        const unsigned ra = __shfl_xor_sync(kFull, odd ? w.x : w.y, 4);
+        const unsigned rb = __shfl_xor_sync(kFull, odd ? w.z : w.w, 4);
+        const unsigned ma = odd ? w.y : w.x, mb = odd ? w.w : w.z;
+        kw[0] = odd ? ra : ma;
+        kw[1] = odd ? ma : ra;
+        kw[2] = odd ? rb : mb;
+        kw[3] = odd ? mb : rb;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
@@ -920,8 +986,13 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           wk0 + g + 8 * (e >> 1))
           x = neg2;
         const float p = fast_exp2(x - lse2);
-        sc[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dl) * sm_scale;
+        if constexpr (DROP) {
+          sc[j][e] = dropped(dr, kw[e], p);
+          dp[j][e] = p * (dropped(dr, kw[e], dp[j][e]) - dl) * sm_scale;
+        } else {
+          sc[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl) * sm_scale;
+        }
       }
     }
 
@@ -982,7 +1053,7 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // and dP live 16 keys at a time.  The q blocks with the most key tiles are
 // launched first.  dQ is rounded to bf16 once, staged in the warp's own rows
 // of the Q tile and written as 16-byte row chunks.
-template <int D, int NW, int NS, bool RA>
+template <int D, int NW, int NS, bool RA, bool DROP>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DQ_MINB : 1)
 fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -992,7 +1063,7 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dq, View qv, View kv,
                      View vv, View dov, View dqv, int hq, int hkv, int s_q,
-                     int s_k, int causal, float sm_scale) {
+                     int s_k, int causal, float sm_scale, Dropout dr) {
   constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
   constexpr int KS = D / 16;                // k-steps of Q K^T and dO V^T
   constexpr int NO = D / 8;                 // n-tiles of dQ
@@ -1111,6 +1182,9 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma16816(dp[0], df, bf[0], bf[1]);
         mma16816(dp[1], df, bf[2], bf[3]);
       }
+      if constexpr (DROP)                   // ds takes the dropped dP
+        drop_group(dr, dp[0], dp[1], (unsigned)(kcol0 / 16 + np) * 4u + t,
+                   wrow + g, (unsigned)(b * hq + h));
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -1214,14 +1288,14 @@ constexpr int dq_mma_smem() {
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, const long long* st, const Geometry& g,
-                cudaStream_t stream) {
+                const Dropout& dr, cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_FWD_WARPS;
     constexpr int smem = fwd_mma_smem<D>();
-    const auto kernel = fa_fwd_mma_kernel<D, FA_FWD_WARPS, FA_STAGES>;
+    const auto kernel = fa_fwd_mma_kernel<D, FA_FWD_WARPS, FA_STAGES, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1230,33 +1304,34 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale);
+        g.s_k, g.causal, g.sm_scale, dr);
     return cudaGetLastError();
   } else {
     const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
     constexpr int smem = fwd_smem<D>();
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D>, smem);
+    cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D, DROP>, smem);
     if (err != cudaSuccess) return err;
-    fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    fa_fwd_kernel<T, D, DROP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale);
+        g.s_k, g.causal, g.sm_scale, dr);
     return cudaGetLastError();
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, const long long* st,
-                    const Geometry& g, cudaStream_t stream) {
+                    const Geometry& g, const Dropout& dr,
+                    cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     constexpr int keys = 16 * FA_DKV_WARPS;
     constexpr int smem = dkv_mma_smem<D>();
     const auto kernel =
-        fa_bwd_dkv_mma_kernel<D, FA_DKV_WARPS, dkv_bq<D>(), FA_STAGES>;
+        fa_bwd_dkv_mma_kernel<D, FA_DKV_WARPS, dkv_bq<D>(), FA_STAGES, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1266,34 +1341,34 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale);
+        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr);
     return cudaGetLastError();
   } else {
     const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
     constexpr int smem = dkv_smem<D>();
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_bwd_dkv_kernel<T, D>, smem);
+    cudaError_t err = allow_smem(done, fa_bwd_dkv_kernel<T, D, DROP>, smem);
     if (err != cudaSuccess) return err;
-    fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    fa_bwd_dkv_kernel<T, D, DROP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale);
+        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr);
     return cudaGetLastError();
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, const long long* st, const Geometry& g,
-                   cudaStream_t stream) {
+                   const Dropout& dr, cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_DQ_WARPS;
     constexpr int smem = dq_mma_smem<D>();
     const auto kernel = fa_bwd_dq_mma_kernel<D, FA_DQ_WARPS, FA_STAGES,
-                                             D == 64 && FA_DQ_REGA64>;
+                                             D == 64 && FA_DQ_REGA64, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1303,20 +1378,20 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
         view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale);
+        g.sm_scale, dr);
     return cudaGetLastError();
   } else {
     const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
     constexpr int smem = dq_smem<D>();
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_bwd_dq_kernel<T, D>, smem);
+    cudaError_t err = allow_smem(done, fa_bwd_dq_kernel<T, D, DROP>, smem);
     if (err != cudaSuccess) return err;
-    fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    fa_bwd_dq_kernel<T, D, DROP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
         view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale);
+        g.sm_scale, dr);
     return cudaGetLastError();
   }
 }
@@ -1326,26 +1401,35 @@ inline bool valid(const Geometry& g) {
          g.s_k > 0;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128
+// dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128; a dropout
+// threshold of 0 takes the instantiation without the dropout branch
+#define FA_DISPATCH_D(CALL, T)                                              \
+  if (head_dim == 64)                                                       \
+    return dr.thresh ? CALL(T, 64, true) : CALL(T, 64, false);              \
+  if (head_dim == 128)                                                      \
+    return dr.thresh ? CALL(T, 128, true) : CALL(T, 128, false);
 #define FA_DISPATCH(CALL)                                                   \
-  if (dtype == 0 && head_dim == 64) return CALL(float, 64);                 \
-  if (dtype == 0 && head_dim == 128) return CALL(float, 128);               \
-  if (dtype == 1 && head_dim == 64) return CALL(__nv_bfloat16, 64);         \
-  if (dtype == 1 && head_dim == 128) return CALL(__nv_bfloat16, 128);       \
+  if (dtype == 0) { FA_DISPATCH_D(CALL, float) }                            \
+  if (dtype == 1) { FA_DISPATCH_D(CALL, __nv_bfloat16) }                    \
   return cudaErrorInvalidValue;
 
 }  // namespace
 
 // strides: q, k, v, o as (batch, seq, head) element strides, 12 values.
+// Every entry ends with the dropout arguments: the keep threshold
+// (uint32(rate * 2^32); 0 = no dropout), 1 / (1 - rate) and the seed's low
+// and high words.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
-    int head_dim, int dtype, int causal, float sm_scale, void* stream) {
+    int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
+    float drop_scale, unsigned seed_lo, unsigned seed_hi, void* stream) {
   const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
   if (!valid(g)) return cudaErrorInvalidValue;
+  const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define FA_FWD(T, D) fwd<T, D>(q, k, v, o, l, strides, g, s)
+#define FA_FWD(T, D, DROP) fwd<T, D, DROP>(q, k, v, o, l, strides, g, dr, s)
   FA_DISPATCH(FA_FWD)
 #undef FA_FWD
 }
@@ -1355,13 +1439,16 @@ extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
-    int head_dim, int dtype, int causal, float sm_scale, void* stream) {
+    int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
+    float drop_scale, unsigned seed_lo, unsigned seed_hi, void* stream) {
   const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
   if (!valid(g)) return cudaErrorInvalidValue;
+  const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define FA_DKV(T, D) bwd_dkv<T, D>(q, k, v, dout, l, dl, dk, dv, strides, g, s)
+#define FA_DKV(T, D, DROP) \
+  bwd_dkv<T, D, DROP>(q, k, v, dout, l, dl, dk, dv, strides, g, dr, s)
   FA_DISPATCH(FA_DKV)
 #undef FA_DKV
 }
@@ -1371,13 +1458,16 @@ extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const long long* strides,
     int batch, int hq, int hkv, int s_q, int s_k, int head_dim, int dtype,
-    int causal, float sm_scale, void* stream) {
+    int causal, float sm_scale, unsigned thresh, float drop_scale,
+    unsigned seed_lo, unsigned seed_hi, void* stream) {
   const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
   if (!valid(g)) return cudaErrorInvalidValue;
+  const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define FA_DQ(T, D) bwd_dq<T, D>(q, k, v, dout, l, dl, dq, strides, g, s)
+#define FA_DQ(T, D, DROP) \
+  bwd_dq<T, D, DROP>(q, k, v, dout, l, dl, dq, strides, g, dr, s)
   FA_DISPATCH(FA_DQ)
 #undef FA_DQ
 }

@@ -20,24 +20,36 @@ tensors — the device of the tensors is the only thing that picks:
 :func:`flash_attention` is the differentiable op (a ``torch.autograd.Function``
 that saves ``(q, k, v, o, lse)`` and never reruns the forward).  It returns
 ``None`` for shapes the kernels do not take (:func:`_supported`), so that
-the caller runs plain attention, as the JAX dispatch does.  Segment ids,
-in-kernel dropout and the pad-to-tile path of the JAX op are not ported
-yet and raise ``NotImplementedError``.
+the caller runs plain attention, as the JAX dispatch does.  Segment ids
+and the pad-to-tile path of the JAX op are not ported yet and raise
+``NotImplementedError``.
+
+Attention dropout (the TPU kernels' ``dropout_rate > 0`` branch) runs
+inside all three kernels: each score's keep bit is one 32-bit word of
+Philox4x32-10 (:func:`philox4x32_10`), keyed by the 64-bit seed and
+counted by the score's global coordinates (:func:`dropout_keep`), so the
+backward kernels rebuild the forward's mask and the mask never reaches
+device memory.  JAX's rule stays: keep iff ``word >= uint32(rate * 2**32)``
+and kept probabilities scale by ``1 / (1 - rate)``; only ``P V`` and
+``dP`` see the mask, ``l`` and ``lse`` keep the undropped ``p``.  The bits
+are not the TPU PRNG's, which no other device can reproduce.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_ref",
+__all__ = ["NEG_INF", "dropout_keep", "dropout_scale", "dropout_threshold",
+           "flash_attention", "flash_attention_ref",
            "flash_attention_fwd", "flash_attention_fwd_ref",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
-           "pack_lse", "pack_lse_ref"]
+           "pack_lse", "pack_lse_ref", "philox4x32_10"]
 
 NEG_INF = -1e30
 
@@ -96,16 +108,113 @@ def _scores(q, k, causal, sm_scale):
     return s
 
 
+# -- the dropout mask --------------------------------------------------------
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)      # Random123's Philox4x32 constants
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK_CHUNK = 1 << 24                     # Philox calls per pass of the mask
+
+
+def _mulhilo(a, m):
+    """(hi, lo) 32-bit words of a * m for int64 a in [0, 2**32) and a
+    constant m < 2**32, through m's 16-bit halves so that no product passes
+    2**49 (int64 has no unsigned 64-bit product)."""
+    x, y = a * (m >> 16), a * (m & 0xFFFF)
+    return (x + (y >> 16)) >> 16, (((x & 0xFFFF) << 16) + y) & _M32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11; Random123's ``philox4x32``):
+    four counter words (int64 tensors, broadcastable, or ints) and two key
+    words (ints) -> the four 32-bit output words as int64 tensors in
+    [0, 2**32).  Runs on whatever device the counter lies on."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) & _M32
+                      for c in counter)
+    k0, k1 = (int(k) & _M32 for k in key)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate):
+    """The keep threshold: a score is kept iff its word >= this (JAX's
+    ``uint32(rate * 2**32)``), so P(keep) = 1 - rate."""
+    return int(rate * 4294967296.0)
+
+
+def dropout_scale(rate):
+    """The kept probabilities' factor, 1 / (1 - rate) rounded as f32 (JAX's
+    ``keep.astype(float32) / (1 - rate)``)."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def _seed_words(seed):
+    seed = int(seed)
+    return seed & _M32, (seed >> 32) & _M32
+
+
+def dropout_keep(seed, bhq, rows, cols, rate):
+    """The attention-dropout keep mask, bool [len(bhq), len(rows),
+    len(cols)], of the scores of q-head rows ``bhq`` (b * Hq + h), query
+    indices ``rows`` and key indices ``cols`` (1-D int sequences or
+    tensors; the mask lies on their device).
+
+    Each score takes one full 32-bit word of Philox4x32-10 keyed by the
+    64-bit ``seed`` (low word, high word).  Key columns come in groups of
+    16, and the columns {2t, 2t+1, 8+2t, 9+2t} of a group share one call
+    (the 4 score columns one thread holds in an m16n8k16 fragment), which
+    takes the counter (4 * (col // 16) + t, row, bhq, 0) and gives them its
+    words 0, 1, 2, 3 in that order.  The mask is a function of the
+    coordinates alone, so every kernel rebuilds it however it tiles."""
+    dev = torch.as_tensor(cols).device
+    bhq, rows, cols = (torch.as_tensor(x, dtype=torch.int64,
+                                       device=dev).reshape(-1)
+                       for x in (bhq, rows, cols))
+    out = torch.empty((len(bhq), len(rows), len(cols)), dtype=torch.bool,
+                      device=dev)
+    if rate <= 0.0:
+        return out.fill_(True)
+    cell = (cols >> 4) * 4 + ((cols & 7) >> 1)
+    word = ((cols >> 3) & 1) * 2 + (cols & 1)
+    ucell, inv = torch.unique(cell, return_inverse=True)
+    thresh, key = dropout_threshold(rate), _seed_words(seed)
+    step = max(1, _MASK_CHUNK // max(1, len(rows) * len(ucell)))
+    for i in range(0, len(bhq), step):
+        words = torch.stack(philox4x32_10(
+            (ucell[None, None, :], rows[None, :, None],
+             bhq[i:i + step, None, None], 0), key), dim=-1)
+        out[i:i + step] = words[:, :, inv, word] >= thresh
+    return out
+
+
+def _drop_factor(seed, b, hq, s_q, s_k, rate, device):
+    """[B*Hq, S_q, S_k] f32: 1 / (1 - rate) where the score is kept, else
+    0."""
+    keep = dropout_keep(seed, torch.arange(b * hq, device=device),
+                        torch.arange(s_q, device=device),
+                        torch.arange(s_k, device=device), rate)
+    return torch.where(keep, dropout_scale(rate), 0.0)
+
+
 # -- plain versions ----------------------------------------------------------
-def flash_attention_fwd_ref(q, k, v, causal, sm_scale):
+def flash_attention_fwd_ref(q, k, v, causal, sm_scale, dropout_rate=0.0,
+                            seed=0):
     """The forward kernel's function in plain PyTorch: o [B, S_q, Hq, D] in
     q's dtype and lse [B*Hq, S_q] f32, with the kernel's finalize rules
-    (o = acc / l where l > 0, lse = m + log(max(l, 1e-30)))."""
+    (o = acc / l where l > 0, lse = m + log(max(l, 1e-30))).  With
+    dropout, P V takes p * keep / (1 - rate) under :func:`dropout_keep`;
+    l and lse keep the undropped p (the TPU kernel's rule)."""
     b, _, hq, _ = q.shape
     s = _scores(q, k, causal, sm_scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        p = p * _drop_factor(seed, b, hq, q.shape[1], k.shape[1],
+                             dropout_rate, q.device)
     acc = torch.einsum("bqk,bkd->bqd", p, _heads_first(_rep_kv(v, hq)))
     o = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
                     torch.zeros_like(acc))
@@ -118,14 +227,22 @@ def pack_lse_ref(lse3):
     return lse3[..., 0].float().contiguous()
 
 
-def _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale):
-    """The backward's recomputed p = exp(s - lse) and
-    ds = p * (dp - delta) * sm_scale, [B*Hq, S_q, S_k] f32."""
-    hq = q.shape[2]
+def _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale, dropout_rate,
+              seed):
+    """The backward's recomputed p = exp(s - lse) (times the keep factor
+    under dropout: dV's p) and ds = p * (dp * factor - delta) * sm_scale
+    (delta = rowsum(do * o) keeps its form: o holds the mask),
+    [B*Hq, S_q, S_k] f32."""
+    b, _, hq, _ = q.shape
     p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
     dp = torch.einsum("bqd,bkd->bqk", _heads_first(do),
                       _heads_first(_rep_kv(v, hq)))
-    return p, p * (dp - delta[..., None]) * sm_scale
+    pd = p
+    if dropout_rate > 0.0:
+        f = _drop_factor(seed, b, hq, q.shape[1], k.shape[1], dropout_rate,
+                         q.device)
+        pd, dp = p * f, dp * f
+    return pd, p * (dp - delta[..., None]) * sm_scale
 
 
 def _sum_groups(x, b, hq, hkv):
@@ -135,12 +252,16 @@ def _sum_groups(x, b, hq, hkv):
     return x.reshape(b, hkv, hq // hkv, s, d).sum(dim=2).reshape(b * hkv, s, d)
 
 
-def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale):
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale,
+                                dropout_rate=0.0, seed=0):
     """dK and dV (FA2 formulas from the saved lse and delta, summed over the
-    GQA group) in k's and v's dtypes, [B, S_k, Hkv, D]."""
+    GQA group) in k's and v's dtypes, [B, S_k, Hkv, D]; under dropout dV
+    takes the masked p and ds the masked dp (the forward's mask, rebuilt
+    from the seed)."""
     b, _, hq, _ = q.shape
     hkv = k.shape[2]
-    p, ds = _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale)
+    p, ds = _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale,
+                      dropout_rate, seed)
     dv = _sum_groups(torch.einsum("bqk,bqd->bkd", p, _heads_first(do)),
                      b, hq, hkv)
     dk = _sum_groups(torch.einsum("bqk,bqd->bkd", ds, _heads_first(q)),
@@ -148,10 +269,13 @@ def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale):
     return _seq_first(dk, b, hkv, k.dtype), _seq_first(dv, b, hkv, v.dtype)
 
 
-def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, sm_scale):
-    """dQ (FA2 formula from the saved lse and delta) in q's dtype."""
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, sm_scale,
+                               dropout_rate=0.0, seed=0):
+    """dQ (FA2 formula from the saved lse and delta, the masked dp under
+    dropout) in q's dtype."""
     b, _, hq, _ = q.shape
-    _, ds = _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale)
+    _, ds = _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale,
+                      dropout_rate, seed)
     dq = torch.einsum("bqk,bkd->bqd", ds, _heads_first(_rep_kv(k, hq)))
     return _seq_first(dq, b, hq, q.dtype)
 
@@ -224,22 +348,43 @@ def _stats(x, bh, s_q, name):
     return x.contiguous()
 
 
-def _call(fn_name, ptrs, strides, ints, sm_scale, dev):
+def _dropout_args(rate, seed):
+    """The C entries' dropout arguments: (threshold, 1 / (1 - rate), seed
+    low word, seed high word); a threshold of 0 launches the kernels
+    without the dropout branch."""
+    if rate <= 0.0:
+        return 0, 1.0, 0, 0
+    return (dropout_threshold(rate), dropout_scale(rate), *_seed_words(seed))
+
+
+def _call(fn_name, ptrs, strides, ints, sm_scale, dropout, dev):
     _build.launch("flash_attention", fn_name,
                   [ctypes.c_void_p] * (len(ptrs) + 1)
-                  + [ctypes.c_int] * len(ints) + [ctypes.c_float],
+                  + [ctypes.c_int] * len(ints)
+                  + [ctypes.c_float, ctypes.c_uint, ctypes.c_float,
+                     ctypes.c_uint, ctypes.c_uint],
                   [*ptrs, ctypes.cast(strides, ctypes.c_void_p), *ints,
-                   float(sm_scale)], dev)
+                   float(sm_scale), *dropout], dev)
 
 
-def flash_attention_fwd(q, k, v, causal, sm_scale):
+def _count(fn, dropout_rate):
+    fn.launches += 1
+    if dropout_rate > 0.0:
+        fn.dropout_launches += 1
+
+
+def flash_attention_fwd(q, k, v, causal, sm_scale, dropout_rate=0.0,
+                        seed=0):
     """q [B, S_q, Hq, D], k/v [B, S_k, Hkv, D] -> (o [B, S_q, Hq, D] in q's
     dtype, lse [B*Hq, S_q] f32).  CUDA tensors (f32 or bf16, D in
     {64, 128}) launch ``flash_attention_fwd_launch`` and add one to
-    ``flash_attention_fwd.launches``; CPU tensors run
+    ``flash_attention_fwd.launches`` (and, with ``dropout_rate`` > 0, to
+    ``.dropout_launches``: the kernel's dropout branch, masked by
+    :func:`dropout_keep` of ``seed``); CPU tensors run
     :func:`flash_attention_fwd_ref`."""
     if not _build.on_card("flash_attention_fwd", q):
-        return flash_attention_fwd_ref(q, k, v, causal, sm_scale)
+        return flash_attention_fwd_ref(q, k, v, causal, sm_scale,
+                                       dropout_rate, seed)
     q, k, v = _as_rows(q), _as_rows(k), _as_rows(v)
     dev = _check("flash_attention_fwd", (q, k, v))
     b, hq, hkv, s_q, s_k, d = _geometry(q, k)
@@ -250,8 +395,8 @@ def flash_attention_fwd(q, k, v, causal, sm_scale):
            lse.data_ptr()], _strides(q, k, v, o),
           [b, hq, hkv, s_q, s_k, d, _build.DTYPE_CODE[q.dtype],
            int(bool(causal))],
-          sm_scale, dev)
-    flash_attention_fwd.launches += 1
+          sm_scale, _dropout_args(dropout_rate, seed), dev)
+    _count(flash_attention_fwd, dropout_rate)
     return o, lse
 
 
@@ -278,7 +423,8 @@ def pack_lse(lse3):
     return out
 
 
-def _bwd_launch(fn_name, q, k, v, do, lse, delta, causal, sm_scale, outs):
+def _bwd_launch(fn_name, q, k, v, do, lse, delta, causal, sm_scale,
+                dropout_rate, seed, outs):
     q, k, v, do = (_as_rows(t) for t in (q, k, v, do))
     dev = _check(fn_name, (q, k, v, do))
     b, hq, hkv, s_q, s_k, d = _geometry(q, k)
@@ -291,48 +437,53 @@ def _bwd_launch(fn_name, q, k, v, do, lse, delta, causal, sm_scale, outs):
           _strides(q, k, v, do, *grads),
           [b, hq, hkv, s_q, s_k, d, _build.DTYPE_CODE[q.dtype],
            int(bool(causal))],
-          sm_scale, dev)
+          sm_scale, _dropout_args(dropout_rate, seed), dev)
     return grads
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale,
+                            dropout_rate=0.0, seed=0):
     """(dk, dv) [B, S_k, Hkv, D] from the saved lse and
-    ``delta = rowsum(do * o)`` (both [B*Hq, S_q] f32).  CUDA tensors launch
-    ``flash_attention_bwd_dkv_launch`` and add one to
-    ``flash_attention_bwd_dkv.launches``; CPU tensors run
-    :func:`flash_attention_bwd_dkv_ref`."""
+    ``delta = rowsum(do * o)`` (both [B*Hq, S_q] f32), under the forward's
+    dropout mask when ``dropout_rate`` > 0 (rebuilt from ``seed``).  CUDA
+    tensors launch ``flash_attention_bwd_dkv_launch`` and add one to
+    ``flash_attention_bwd_dkv.launches`` (and ``.dropout_launches``); CPU
+    tensors run :func:`flash_attention_bwd_dkv_ref`."""
     if not _build.on_card("flash_attention_bwd_dkv", q):
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
-                                           sm_scale)
+                                           sm_scale, dropout_rate, seed)
     dk, dv = _bwd_launch("flash_attention_bwd_dkv_launch", q, k, v, do, lse,
-                         delta, causal, sm_scale, (k, v))
-    flash_attention_bwd_dkv.launches += 1
+                         delta, causal, sm_scale, dropout_rate, seed, (k, v))
+    _count(flash_attention_bwd_dkv, dropout_rate)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                           dropout_rate=0.0, seed=0):
     """dq [B, S_q, Hq, D]; arguments as :func:`flash_attention_bwd_dkv`.
     CUDA tensors launch ``flash_attention_bwd_dq_launch`` and add one to
-    ``flash_attention_bwd_dq.launches``; CPU tensors run
-    :func:`flash_attention_bwd_dq_ref`."""
+    ``flash_attention_bwd_dq.launches`` (and ``.dropout_launches``); CPU
+    tensors run :func:`flash_attention_bwd_dq_ref`."""
     if not _build.on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
-                                          sm_scale)
+                                          sm_scale, dropout_rate, seed)
     (dq,) = _bwd_launch("flash_attention_bwd_dq_launch", q, k, v, do, lse,
-                        delta, causal, sm_scale, (q,))
-    flash_attention_bwd_dq.launches += 1
+                        delta, causal, sm_scale, dropout_rate, seed, (q,))
+    _count(flash_attention_bwd_dq, dropout_rate)
     return dq
 
 
-flash_attention_fwd.launches = 0
+for _fn in (flash_attention_fwd, flash_attention_bwd_dkv,
+            flash_attention_bwd_dq):
+    _fn.launches = _fn.dropout_launches = 0
 pack_lse.launches = 0
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dq.launches = 0
 
 
-def _bwd_call(res, g, causal, sm_scale, delta=None):
+def _bwd_call(res, g, causal, sm_scale, delta=None, dropout_rate=0.0,
+              seed=0):
     """The JAX ``_bwd_call``: (dq, dk, dv) from the forward's residuals
-    ``(q, k, v, o, lse)`` and the output cotangent ``g``.  delta =
+    ``(q, k, v, o, lse)`` and the output cotangent ``g``, under the
+    forward's dropout mask (rate and seed) when it had one.  delta =
     rowsum(g * o) in f32 unless the caller passes it; 3-D [BH, S, 1] stats
     are packed first."""
     q, k, v, o, lse = res
@@ -345,41 +496,65 @@ def _bwd_call(res, g, causal, sm_scale, delta=None):
     if delta.dim() == 3:
         delta = pack_lse(delta)
     dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal,
-                                     sm_scale)
-    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale)
+                                     sm_scale, dropout_rate, seed)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale,
+                                dropout_rate, seed)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """The JAX ``_make_op`` custom VJP: the forward saves (q, k, v, o, lse)
-    and the backward runs the two backward kernels on them — the forward
-    is never rerun."""
+    and, under dropout, the rate and the seed; the backward runs the two
+    backward kernels on them, which rebuild the mask — the forward is never
+    rerun and the mask is never stored."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, dropout_rate, seed):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale, dropout_rate,
+                                     seed)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.dropout_rate, ctx.seed = dropout_rate, seed
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd_call((q, k, v, o, lse), g.contiguous(), ctx.causal,
-                               ctx.sm_scale)
-        return dq, dk, dv, None
+                               ctx.sm_scale, dropout_rate=ctx.dropout_rate,
+                               seed=ctx.seed)
+        return dq, dk, dv, None, None, None
+
+
+def _draw_seed(generator):
+    """A 64-bit dropout seed from a host ``torch.Generator`` (a CPU draw:
+    the step never waits for the card)."""
+    if generator is None or generator.device.type != "cpu":
+        raise ValueError("attention dropout draws its seed from an explicit "
+                         "host (CPU) torch.Generator; got "
+                         f"{None if generator is None else generator.device}")
+    return int(torch.empty((), dtype=torch.int64).random_(
+        generator=generator))
 
 
 def flash_attention(q, k, v, causal=False, segment_ids=None,
-                    dropout_rate=0.0):
+                    dropout_rate=0.0, dropout_seed=None, generator=None):
     """[B, S, H, D] flash attention (GQA when k/v carry fewer heads);
     returns ``None`` for shapes the JAX package does not send to its kernel
-    (:func:`_supported`), so that the caller runs plain attention."""
-    if segment_ids is not None or dropout_rate:
+    (:func:`_supported`), so that the caller runs plain attention.
+
+    ``dropout_rate`` > 0 drops attention probabilities inside the kernels
+    under :func:`dropout_keep` of ``dropout_seed`` (an int; ``None`` draws
+    one from ``generator``, a host ``torch.Generator``, so that every call
+    gets a fresh mask, as JAX's draws a fresh seed); a rate of 1 or more
+    returns zeros, as JAX's does."""
+    drop = float(dropout_rate or 0.0)
+    if drop >= 1.0:
+        return torch.zeros_like(q)
+    if segment_ids is not None:
         raise NotImplementedError(
-            "flash_attention: segment ids and in-kernel dropout are not "
-            "ported yet")
+            "flash_attention: segment ids are not ported yet")
     if not _supported(q.shape, k.shape, causal):
         s_q, s_k = q.shape[1], k.shape[1]
         if s_q == s_k and s_q % 128 and s_q >= 384 and _supported(
@@ -389,4 +564,8 @@ def flash_attention(q, k, v, causal=False, segment_ids=None,
                 "flash_attention: padding an untileable sequence to the "
                 "128-row tile is not ported yet")
         return None
-    return _FlashAttention.apply(q, k, v, bool(causal))
+    seed = 0
+    if drop > 0.0:
+        seed = _draw_seed(generator) if dropout_seed is None \
+            else int(dropout_seed)
+    return _FlashAttention.apply(q, k, v, bool(causal), drop, seed)

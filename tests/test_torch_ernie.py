@@ -5,7 +5,11 @@ config (hidden 128, 2 layers, 2 heads of 64, MLP 512, vocab 1,024, S 128,
 B 2, dropout 0) with the JAX weights crossed over through numpy by name;
 one AdamW step, the port's fused kernel against JAX's eager update; labels
 with ``-100``; a 2-D attention mask; the dense head against the chunked
-one; and ``nn.functional.softmax`` against the JAX one.  On the CPU the JAX
+one; and ``nn.functional.softmax`` against the JAX one.  At the published
+dropout 0.1: eval logits against JAX's, a loss that is a function of the
+seed, and gradients that reach every parameter; and
+``ErnieForSequenceClassification``'s eval logits and (at rate 0) loss and
+gradients against JAX.  On the CPU the JAX
 side runs its plain ops (no Pallas kernel is registered there); the port
 runs the plain versions of its kernels."""
 import functools
@@ -22,9 +26,12 @@ from paddle_tpu import optimizer as joptim
 from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.models.ernie import ErnieConfig as JConfig
 from paddle_tpu.models.ernie import ErnieForMaskedLM as JMaskedLM
+from paddle_tpu.models.ernie import \
+    ErnieForSequenceClassification as JSeqCls
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.nn.layer import functional_state
 from paddle_tpu_torch.models import (ErnieConfig, ErnieForMaskedLM,
+                                     ErnieForSequenceClassification,
                                      ernie_params_from_numpy)
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import flash_attention as tfa
@@ -234,3 +241,133 @@ def test_functional_softmax_matches_jax(case, norm_kernels):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+DROP_KW = dict(KW, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+
+
+def _crossed(jmodel, tmodel):
+    """Load the JAX model's weights into the port's by name; returns the
+    JAX parameters."""
+    params = {n: p._value for n, p in jmodel.named_parameters()}
+    tmodel.load_state_dict(ernie_params_from_numpy(
+        {k: np.asarray(v) for k, v in params.items()}, device="cpu"))
+    return params
+
+
+def test_eval_logits_at_dropout_0_1_match_jax():
+    """The tiny ERNIE built with dropout 0.1 in eval mode: every dropout is
+    off in both packages, and the MLM logits agree within 1e-4."""
+    paddle.seed(0)
+    jmodel = JMaskedLM(JConfig(**DROP_KW))
+    jmodel.eval()
+    tmodel = ErnieForMaskedLM(ErnieConfig(**DROP_KW), device="cpu",
+                              norm_kernels=True)
+    _crossed(jmodel, tmodel)
+    tmodel.eval()
+    ids, _, _ = _batch("plain")
+    want = np.asarray(jmodel(Tensor(jnp.asarray(ids))).numpy())
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernels", [True, False],
+                         ids=["flash dropout", "plain dropout"])
+def test_dropout_loss_follows_the_seed_and_grads_reach_every_parameter(
+        kernels):
+    """At dropout 0.1 in training: the same seed gives the same loss (the
+    model's two generators), another seed another, the loss differs from
+    eval's, and every parameter but the MLM head's unused pooler gets a
+    non-zero gradient.  ``kernels`` sends attention through the flash op's
+    in-kernel dropout (its plain versions here), else through the plain
+    path's materialised mask."""
+    ids, labels, _ = _batch("plain")
+    ids, labels = torch.from_numpy(ids), torch.from_numpy(labels)
+
+    def loss_of(seed, train=True):
+        model = ErnieForMaskedLM(ErnieConfig(**DROP_KW), device="cpu",
+                                 seed=0, kernels=kernels)
+        model.ernie.dropout_generator.manual_seed(seed)
+        model.ernie.attention_seed_generator.manual_seed(seed)
+        model.train(train)
+        return model, model(ids, labels=labels)[0]
+
+    model, a = loss_of(5)
+    _, b = loss_of(5)
+    _, c = loss_of(6)
+    _, e = loss_of(5, train=False)
+    a_, b_, c_, e_ = (float(x.detach()) for x in (a, b, c, e))
+    assert a_ == b_
+    assert a_ != c_ and a_ != e_
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(a, list(model.parameters()),
+                                materialize_grads=True)
+    for n, g in zip(names, grads):
+        assert bool(torch.isfinite(g).all()), n
+        assert bool(g.any()) != n.startswith("ernie.pooler."), n
+
+
+def test_generators_are_owned_by_the_model():
+    """One device generator for the hidden masks and one host generator
+    for the attention seeds, shared by every Dropout and attention layer
+    of the model and its head."""
+    model = ErnieForSequenceClassification(ErnieConfig(**DROP_KW),
+                                           device="cpu", seed=3)
+    dg = model.ernie.dropout_generator
+    sg = model.ernie.attention_seed_generator
+    assert sg.device.type == "cpu" and dg is not sg
+    layer = model.ernie.encoder[0]
+    assert model.dropout.generator is dg
+    assert model.ernie.embeddings.dropout.generator is dg
+    assert layer.dropout.generator is dg
+    assert layer.attention.seed_generator is sg
+
+
+def _cls_batch():
+    r = np.random.default_rng(5)
+    return (r.integers(0, VOCAB, (B, S)).astype(np.int32),
+            r.integers(0, 2, (B,)).astype(np.int32))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["rate0", "eval0.1"])
+def test_sequence_classification_matches_jax(dropout):
+    """``ErnieForSequenceClassification`` (2 classes): at rate 0 in
+    training, the cross-entropy loss and every gradient against
+    ``jax.value_and_grad``; built at 0.1, the eval logits."""
+    kw = dict(KW, hidden_dropout_prob=dropout,
+              attention_probs_dropout_prob=dropout)
+    paddle.seed(1)
+    jmodel = JSeqCls(JConfig(**kw), num_classes=2)
+    tmodel = ErnieForSequenceClassification(ErnieConfig(**kw), num_classes=2,
+                                            device="cpu", norm_kernels=True)
+    params = _crossed(jmodel, tmodel)
+    ids, labels = _cls_batch()
+    if dropout:
+        jmodel.eval()
+        tmodel.eval()
+        want = np.asarray(jmodel(Tensor(jnp.asarray(ids))).numpy())
+        with torch.no_grad():
+            got = tmodel(torch.from_numpy(ids))
+        assert got.shape == (B, 2)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+        return
+
+    def loss_fn(params):
+        with functional_state(jmodel, params):
+            logits = jmodel(Tensor(jnp.asarray(ids)))
+        loss = JF.cross_entropy(logits, Tensor(jnp.asarray(labels)))
+        return loss._value.astype(jnp.float32)
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(params)
+    logits = tmodel(torch.from_numpy(ids))
+    tloss = torch.nn.functional.cross_entropy(logits.float(),
+                                              torch.from_numpy(labels).long())
+    names = [n for n, _ in tmodel.named_parameters()]
+    assert set(names) == set(jgrads)
+    tgrads = torch.autograd.grad(tloss, list(tmodel.parameters()),
+                                 materialize_grads=True)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_RTOL)
+    for n, g in zip(names, tgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[n]),
+                                   err_msg=n, **GRAD_TOL)

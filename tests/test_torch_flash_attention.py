@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from paddle_tpu_torch.ops import flash_attention as tfa
 
 # the JAX package's ops.pallas re-exports a function under the module's name
@@ -181,14 +182,155 @@ def test_unsupported_shape_returns_none():
 
 
 def test_paths_not_ported_raise():
+    """Segment ids and pad-to-tile still raise; in-kernel dropout is
+    ported and runs (a seed, or one drawn from a host generator)."""
     q = torch.zeros((1, 128, 1, 64))
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q, q, q, segment_ids=torch.zeros((1, 128)))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, dropout_rate=0.1)
+    out = tfa.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    out = tfa.flash_attention(q, q, q, dropout_rate=0.1,
+                              generator=torch.Generator().manual_seed(0))
+    assert out.shape == q.shape
     long = torch.zeros((1, 400, 1, 64))               # JAX pads it to 512
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(long, long, long)
+
+
+# -- attention dropout ---------------------------------------------------------
+DROP_SHAPES = [(1, 128, 128, 2, 2, 64), (2, 128, 128, 4, 2, 32),
+               (1, 128, 256, 4, 1, 64)]
+DROP_IDS = ["mha", "gqa4:2", "gqa4:1 sq<sk"]
+
+
+def _jax_masked_attention(q, k, v, factor, causal):
+    """JAX's masked formula (the TPU kernel's, as
+    ``test_pallas_kernels.py``'s dropout test writes it): softmax(s) times
+    the factor keep / (1 - rate), then @ v; [B, S, H, D], GQA by repeating
+    K/V, f32."""
+    hq = q.shape[2]
+    k = jnp.repeat(k, hq // k.shape[2], axis=2)
+    v = jnp.repeat(v, hq // v.shape[2], axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        s = jnp.where(jnp.tril(jnp.ones((sq, sk), bool), k=sk - sq), s,
+                      -jnp.inf)
+    p = jax.nn.softmax(s, axis=-1)
+    return jnp.einsum("bhqk,bkhd->bqhd", p * factor, v)
+
+
+def _factor(seed, shape, rate):
+    """keep / (1 - rate) of the port's mask as numpy [B, Hq, S_q, S_k]."""
+    b, s_q, s_k, hq, _, _ = shape
+    keep = tfa.dropout_keep(seed, range(b * hq), range(s_q), range(s_k),
+                            rate).numpy().reshape(b, hq, s_q, s_k)
+    return np.where(keep, np.float32(tfa.dropout_scale(rate)),
+                    np.float32(0.0))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", DROP_SHAPES, ids=DROP_IDS)
+def test_dropout_matches_jax_masked_formula(shape, causal):
+    """The differentiable op at rate 0.1 (the plain versions on the CPU)
+    against ``jax.vjp`` of JAX's masked formula under the same mask,
+    crossed through numpy: o within 2e-5, dq / dk / dv within 1e-4 of the
+    tensor's max |grad|."""
+    rate, seed = 0.1, 1234567
+    b, s_q, s_k, hq, hkv, d = shape
+    q, k, v, do = _inputs(shape, seed=8)
+    factor = _factor(seed, shape, rate)
+    jout, vjp = jax.vjp(
+        lambda a, b_, c: _jax_masked_attention(a, b_, c, factor, causal),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    before = _counts()
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, dropout_rate=rate,
+                              dropout_seed=seed)
+    out.backward(torch.from_numpy(do))
+    assert _counts() == before
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    for t, want in zip((tq, tk, tv), jgrads):
+        want = np.asarray(want)
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+    # the mask is not a no-op: o moved from the undropped output
+    plain = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                causal=causal)
+    assert not torch.allclose(out.detach(), plain, atol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dropout_lse_is_the_undropped_lse(causal):
+    """Under dropout lse keeps the undropped p: the plain forward's lse at
+    rate 0.1 equals the Pallas kernel's at rate 0 (interpret mode)."""
+    shape = (1, 128, 256, 4, 2, 64)
+    b, s_q, s_k, hq, hkv, d = shape
+    q, k, v, _ = _inputs(shape, seed=9)
+    scale = 1.0 / math.sqrt(d)
+    _, jlse = jax.block_until_ready(jfa.flash_attention_fwd_kernel_call(
+        _rows(q), _rows(k), _rows(v), causal, scale, interpret=True,
+        n_q_heads=hq, n_kv_heads=hkv))
+    _, lse = tfa.flash_attention_fwd(*(torch.from_numpy(x)
+                                       for x in (q, k, v)), causal, scale,
+                                     dropout_rate=0.1, seed=77)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+
+
+def test_dropout_rate_zero_is_the_undropped_path():
+    """Rate 0 is bit-equal to no dropout, forward and gradients, in the op
+    and in each plain version."""
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs((1, 128, 128, 4, 2, 64), seed=10))
+    scale = 1.0 / 8.0
+    a = tfa.flash_attention_fwd_ref(q, k, v, True, scale)
+    b = tfa.flash_attention_fwd_ref(q, k, v, True, scale, 0.0, 99)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    delta = (do * a[0]).sum(-1).permute(0, 2, 1).reshape(a[1].shape)
+    for fn in (tfa.flash_attention_bwd_dkv_ref,
+               tfa.flash_attention_bwd_dq_ref):
+        x = fn(q, k, v, do, a[1], delta, True, scale)
+        y = fn(q, k, v, do, a[1], delta, True, scale, 0.0, 99)
+        x, y = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+        assert all(torch.equal(i, j) for i, j in zip(x, y))
+    grads = []
+    for rate in (None, 0.0):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kw = {} if rate is None else dict(dropout_rate=rate, dropout_seed=5)
+        out = tfa.flash_attention(*ts, causal=True, **kw)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in ts])
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+def test_dropout_rate_one_returns_zeros():
+    """A rate of 1 or more returns zeros of q's shape, before the shape
+    check (so an untileable shape gets zeros too), as JAX's op does."""
+    for s in (128, 197):
+        q = torch.randn(1, s, 2, 64)
+        for rate in (1.0, 1.5):
+            out = tfa.flash_attention(q, q, q, dropout_rate=rate)
+            assert out is not None and torch.equal(out, torch.zeros_like(q))
+    jq = jnp.ones((1, 197, 2, 64))
+    assert not np.asarray(jfa.flash_attention(jq, jq, jq,
+                                              dropout_rate=1.0)).any()
+
+
+def test_dropout_seed_comes_from_the_host_generator():
+    """A None seed is drawn from the explicit host generator: equal
+    generator states give equal outputs, and successive calls differ; no
+    generator, or one on another device, raises."""
+    q, k, v, _ = (torch.from_numpy(x) for x in
+                  _inputs((1, 128, 128, 2, 2, 64), seed=11))
+    g1, g2 = (torch.Generator().manual_seed(3) for _ in range(2))
+    a = tfa.flash_attention(q, k, v, dropout_rate=0.1, generator=g1)
+    b = tfa.flash_attention(q, k, v, dropout_rate=0.1, generator=g2)
+    c = tfa.flash_attention(q, k, v, dropout_rate=0.1, generator=g1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match="host"):
+        tfa.flash_attention(q, k, v, dropout_rate=0.1)
 
 
 def test_ref_matches_jax_ref():
@@ -288,3 +430,65 @@ def test_kernels_match_plain_versions_on_card():
     lse3 = torch.randn(4, 256, 3, device="cuda")[..., 1:2]
     torch.testing.assert_close(tfa.pack_lse(lse3), tfa.pack_lse_ref(lse3),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dropout_mask_read_out_of_each_plain_version(causal):
+    """The read-out ``chip_smoke.py`` applies to the kernels on the card,
+    applied to the plain versions: one-hot inputs beside rate 0 give back
+    every keep bit of o, dq, dk and dv, equal to ``dropout_keep``'s, with
+    GQA (each q head of a group read alone through dK/dV) and lengths off
+    the chunk."""
+    for dt in (torch.float32, torch.bfloat16):
+        n, kept = chip_smoke.check_masks(tfa, (2, 72, 136, 4, 2, 32), dt,
+                                         causal, (3 << 32) + 17, 0.1, "cpu")
+        assert n == 2 * 4 * (72 * 136 if not causal else
+                             sum(min(136, i + 65) for i in range(72)))
+        assert abs(kept - 0.9) <= 5 * (0.09 / n) ** 0.5
+
+
+@pytest.mark.cuda
+def test_dropout_kernels_match_plain_versions_on_card():
+    """The dropout branch of the three kernels at rate 0.1 against their
+    plain versions under the same seed, f32 (1e-5) and bf16 (as
+    ``chip_smoke.py`` holds it), causal GQA and a key length off the tile;
+    then the masks of all three kernels themselves, read out through
+    one-hot inputs (``chip_smoke.check_masks``), equal to ``dropout_keep``
+    bit for bit, bf16 and f32, causal and not, with GQA and lengths off the
+    64-row tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rate, seed = 0.1, (3 << 32) + 17
+    for dt in (torch.float32, torch.bfloat16):
+        for shape, causal in (((2, 128, 128, 4, 2, 64), True),
+                              ((1, 128, 200, 2, 2, 128), False)):
+            q, k, v, do = (torch.from_numpy(x).cuda().to(dt)
+                           for x in _inputs(shape, seed=12))
+            scale = 1.0 / math.sqrt(shape[-1])
+            args = (causal, scale, rate, seed)
+            o, lse = tfa.flash_attention_fwd(q, k, v, *args)
+            ro, rlse = tfa.flash_attention_fwd_ref(q, k, v, *args)
+            delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+                .reshape(lse.shape).contiguous()
+            got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+            got += (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               *args),)
+            want = tfa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   *args)
+            want += (tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                    *args),)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+            if dt == torch.float32:
+                for a, b_ in ((o, ro),) + tuple(zip(got, want)):
+                    torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+            else:
+                _held_bf16(o, ro, 2.0 ** -8 * tfa.flash_attention_fwd_ref(
+                    q, k, v.abs(), *args)[0].float())
+                for a, b_ in zip(got, want):
+                    _held_bf16(a, b_)
+    for shape in ((2, 136, 200, 8, 2, 64), (1, 128, 200, 4, 4, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                chip_smoke.check_masks(tfa, shape, dt, causal, seed, rate)

@@ -124,12 +124,14 @@ def test_train_entry_points_without_device_need_a_card(monkeypatch):
 def test_ernie_entry_points_without_device_need_a_card(monkeypatch):
     """The ERNIE constructors and ``ernie_params_from_numpy`` resolve
     device=None to the card, and run on the CPU only when asked."""
-    from paddle_tpu_torch.models import (ErnieForMaskedLM, ErnieModel,
-                                         ernie_config_tiny,
+    from paddle_tpu_torch.models import (ErnieForMaskedLM,
+                                         ErnieForSequenceClassification,
+                                         ErnieModel, ernie_config_tiny,
                                          ernie_params_from_numpy)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ernie_config_tiny(vocab=64, hidden=32, layers=1, heads=2, seq=16)
-    for cls in (ErnieModel, ErnieForMaskedLM):
+    for cls in (ErnieModel, ErnieForMaskedLM,
+                ErnieForSequenceClassification):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(cfg)
         model = cls(cfg, device="cpu")
@@ -155,3 +157,15 @@ def test_the_scan_covers_the_train_modules():
                 "optimizer/optimizers.py", "incubate/nn/functional.py",
                 "parallel/pipeline.py"):
         assert f"paddle_tpu_torch/{mod}" in names
+
+
+def test_the_scan_covers_the_dropout_modules():
+    """The dropout slice's modules: the functional and the layer, the
+    attention functionals with dropout, and the flash kernels' sources
+    (a ``.cu`` / ``.cuh`` is not Python, so the scan reads the wrapper)."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("nn/functional/common.py", "nn/layers.py",
+                "nn/functional/attention.py", "ops/flash_attention.py",
+                "models/ernie.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
+    assert (REPO / "paddle_tpu_torch/ops/csrc/philox.cuh").exists()
