@@ -7,8 +7,10 @@ the port's main paths — the paged continuous-batching LLaMA server with a
 bf16 KV cache, and with an int8 KV cache and speculative decoding, at the
 full width of LLaMA-2 7B; the train step of the repo's 271M LLaMA at
 B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512 at its published
-dropout 0.1; its sequence-classification fine-tuning at B 32 x S 128; and
-the ``nn.functional.softmax`` entry — with random weights made from a seed:
+dropout 0.1; its sequence-classification fine-tuning at B 32 x S 128; the
+``nn.functional.softmax`` entry; and ViT-L/16 training at 384 px (577
+tokens, which attention pads to the 128 tile) and at 224 px — with random
+weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
@@ -64,6 +66,16 @@ the ``nn.functional.softmax`` entry — with random weights made from a seed:
                and 128, GQA, lengths off the tile): every bit equal to
                ``dropout_keep``, causal and not, and the keep rate over
                10.5M scores within 5 sigma of 0.9;
+               (d) their segment branch (the varlen mask, and the padding
+               of an untileable sequence, which takes a segment of its
+               own) against the plain versions: bf16 and f32, D 64 and
+               128, causal and not, GQA 8:2, boundaries on and off the
+               64 / 128 tiles (the JAX suite's [0]*100 + [1]*156, a
+               segment inside one tile), packed rows of segments of
+               5..300, the op's pad-to-tile inputs at S 390, 453 and 577,
+               and at dropout 0.1; the masks read out with segments (no
+               kept score outside its segment); and the op's pad path at
+               S 577 end to end, f32, against ``flash_attention_ref``;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
                suffix prefill, greedy decode; the plain kernel's launch
@@ -95,6 +107,15 @@ the ``nn.functional.softmax`` entry — with random weights made from a seed:
                step asserted;
                (e) nn.functional.softmax through the softmax kernels,
                forward and backward, and the shapes that take the plain op;
+               (g) ViT-L/16 training at 384 px (bf16, f32 moments, B 32,
+               full width and depth, fused AdamW, random images and labels
+               on one fixed batch): 3 warm-up and 10 timed steps, images/s,
+               the mfu share, peak memory, launches per step asserted (the
+               segment branch of rows 3/5/6 once per layer through the pad
+               path, rows 12/13 per norm, row 9 per tensor, no plain
+               version) and one step under torch.profiler; (g') the same
+               at 224 px, B 64 (197 tokens: no flash-attention kernel, the
+               plain path once per layer, as the JAX dispatch sends it);
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, for f32, int8 and fp8 pages, and with
@@ -104,7 +125,8 @@ the ``nn.functional.softmax`` entry — with random weights made from a seed:
                versions; (c) the same for a 2-layer f32 ERNIE step at
                dropout 0, and at dropout 0.1 the kernels against the same
                step with rows 3/5/6 replaced by their plain versions (the
-               same seeds and generator states);
+               same seeds and generator states); (d) the same for a 2-layer
+               f32 ViT-L/16 step at 384 px, kernels against all knobs off;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -131,7 +153,13 @@ the ``nn.functional.softmax`` entry — with random weights made from a seed:
                aten._softmax_backward_data and torch._fused_adamw_ (the
                backward-only calls held against the plain version first;
                the forward + backward through autograd printed beside
-               them);
+               them); (d) the segment branch of rows 3, 5 and 6 at
+               phase 3g's attention shape (577 rows padded to 640) beside
+               SDPA on the unpadded inputs, and at a packed varlen shape
+               beside SDPA with the block-diagonal mask, the bounds counting
+               the function's (unpadded, in-segment) work, and one line per
+               design step of dQ's segment branch (register cap, Q and dO
+               in registers or reloaded);
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
 
@@ -330,8 +358,9 @@ def train_wrappers():
 
 
 def reset_counts(pa):
-    """Every kernel's launch count (rows 1-13, and the dropout launches of
-    rows 3/5/6) and the paged plain version's call count to 0."""
+    """Every kernel's launch count (rows 1-13, and the dropout and segment
+    launches of rows 3/5/6) and the paged plain version's call count to
+    0."""
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.quant_launches = 0
     pa.ragged_paged_attention.combine_launches = 0
@@ -339,14 +368,18 @@ def reset_counts(pa):
     for fn in train_wrappers().values():
         fn.launches = 0
         if hasattr(fn, "dropout_launches"):
-            fn.dropout_launches = 0
+            fn.dropout_launches = fn.segment_launches = 0
 
 
-def dropout_counts():
-    """The dropout launches of rows 3/5/6, by the dropout rows' keys."""
+def branch_counts():
+    """The dropout and the segment launches of rows 3/5/6, by the dropout
+    and segment rows' keys."""
     w = train_wrappers()
-    return {key: w[key.removesuffix("_drop")].dropout_launches
-            for key in DROP_KEYS}
+    out = {key: w[key.removesuffix("_drop")].dropout_launches
+           for key in DROP_KEYS}
+    out.update({key: w[key.removesuffix("_seg")].segment_launches
+                for key in SEG_KEYS})
+    return out
 
 
 class CountPlainCalls:
@@ -685,6 +718,20 @@ DROP_ROWS = [
          route="cuda", source=CSRC + "flash_attention.cu",
          replaces="paddle_tpu/ops/pallas/flash_attention.py:391"),
 ]
+# the segment branch of rows 3, 5 and 6 (the varlen mask, and the padding of
+# an untileable sequence): its own entries of the kernels line
+SEG_KEYS = ("fa_fwd_seg", "fa_dkv_seg", "fa_dq_seg")
+SEG_ROWS = [
+    dict(key="fa_fwd_seg", name="flash_attention_fwd (segments)",
+         route="cuda", source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:102"),
+    dict(key="fa_dkv_seg", name="flash_attention_bwd_dkv (segments)",
+         route="cuda", source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:310"),
+    dict(key="fa_dq_seg", name="flash_attention_bwd_dq (segments)",
+         route="cuda", source=CSRC + "flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas/flash_attention.py:384"),
+]
 TRAIN_ROWS = [
     dict(key="fa_fwd", name="flash_attention_fwd", route="cuda",
          source=CSRC + "flash_attention.cu",
@@ -775,22 +822,52 @@ def delta_of(do, o):
         .reshape(b * hq, s_q).contiguous()
 
 
+def segment_ids(lens, b, device="cuda"):
+    """[B, S] segment ids of the lengths ``lens`` (summing to S), rotated
+    by one segment per batch row so that the rows' boundaries differ."""
+    rows = [torch.repeat_interleave(torch.arange(len(lens)), torch.tensor(
+        lens[r % len(lens):] + lens[:r % len(lens)])) for r in range(b)]
+    return torch.stack(rows).to(device)
+
+
+def packed_lengths(total, lo=5, hi=300, seed=3):
+    """Lengths drawn uniformly from [lo, hi] until they fill ``total``
+    tokens (the last one cut to fit): a packed varlen batch row."""
+    rng = np.random.default_rng(seed)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.integers(lo, hi + 1)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
 def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
     """Rows 3, 5 and 6 against their plain versions over ``cases``, with
     ``rate`` > 0 the dropout branch under one seed per case (the plain
-    versions rebuild the mask from it); the worst absolute error of each
-    goes into ``worst`` under ``keys`` (default: fa_fwd, fa_dkv, fa_dq)."""
+    versions rebuild the mask from it); a case's optional fifth entry
+    takes the segment branch: segment lengths (``segment_ids``), or "pad"
+    for inputs of S rows padded to the tile by the op's ``_pad_to_tile``
+    (dO's padding rows zero, as the op's backward gets them).  The worst
+    absolute error of each goes into ``worst`` under ``keys`` (default:
+    fa_fwd, fa_dkv, fa_dq)."""
     k_fwd, k_dkv, k_dq = keys or ("fa_fwd", "fa_dkv", "fa_dq")
     for key in (k_fwd, k_dkv, k_dq):
         worst.setdefault(key, 0.0)
-    for i, (name, shape, causal, dt) in enumerate(cases):
+    for i, (name, shape, causal, dt, *lens) in enumerate(cases):
         q, k, v, do = attn_inputs(gen, shape, dt)
+        seg = None
+        if lens == ["pad"]:
+            q, k, v, seg, s = fa._pad_to_tile(q, k, v, None)
+            do = torch.nn.functional.pad(do, (0, 0, 0, 0, 0,
+                                              q.shape[1] - s))
+        elif lens:
+            seg = segment_ids(lens[0], shape[0])
         sc = 1.0 / np.sqrt(shape[-1])
         seed = (i + 1) << 33 | 12345 if rate > 0 else 0
         tag = f"{name} {shape} causal={causal} [{str(dt)[6:]}]"
         tag += f" rate {rate}" if rate > 0 else ""
         tol = TRAIN_TOL[dt]
-        args = (causal, sc, rate, seed)
+        args = (causal, sc, rate, seed, seg)
         o, lse = fa.flash_attention_fwd(q, k, v, *args)
         ro, rlse = fa.flash_attention_fwd_ref(q, k, v, *args)
         # the bf16 kernel rounds p (dropped, under dropout) to bf16 before
@@ -975,7 +1052,7 @@ def phase_fused_kernels(fa, fu, worst):
 
 
 def read_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
-               device="cuda"):
+               device="cuda", seg=None):
     """The keep bits of each dropout kernel, read out through one-hot inputs
     beside the same kernel at rate 0.  By key chunks of D (k = v = one-hot
     on the chunk, 0 elsewhere; dO = 1, so dP = 1 on the chunk; delta = 0),
@@ -984,7 +1061,8 @@ def read_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
     chunk in those heads, 0 elsewhere; v = 1; delta = 0), dv / dv0 and
     dk / dk0 are that of (key, q row).  Returns {output: (bits, seen)},
     both bool [B, Hq, S_q, S_k]; ``seen`` marks the scores whose rate-0
-    output is non-zero."""
+    output is non-zero.  ``seg`` [B, S] runs every kernel with segment
+    ids."""
     b, s_q, s_k, hq, hkv, d = shape
     g = hq // hkv
     gen = torch.Generator(device=device).manual_seed(5)
@@ -1011,10 +1089,10 @@ def read_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
     for off in range(0, s_k, d):
         w = min(d, s_k - off)
         kv = one_hot(s_k, hkv, off, torch.arange(hkv, device=device))
-        o, _ = fa.flash_attention_fwd(q, kv, kv, causal, sc, rate, seed)
-        o0, lse = fa.flash_attention_fwd(q, kv, kv, causal, sc)
+        o, _ = fa.flash_attention_fwd(q, kv, kv, causal, sc, rate, seed, seg)
+        o0, lse = fa.flash_attention_fwd(q, kv, kv, causal, sc, 0.0, 0, seg)
         dq, dq0 = (fa.flash_attention_bwd_dq(q, kv, kv, ones_q, lse, delta,
-                                             causal, sc, r, seed)
+                                             causal, sc, r, seed, seg)
                    for r in (rate, 0.0))
         for name, x, x0 in (("o", o, o0), ("dq", dq, dq0)):
             record(name, *(t[..., :w].permute(0, 2, 1, 3) for t in (x, x0)),
@@ -1027,10 +1105,10 @@ def read_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
         for j in range(g):
             heads = torch.arange(hkv, device=device) * g + j
             qd = one_hot(s_q, hq, off, heads)
-            _, lse = fa.flash_attention_fwd(qd, k, v, causal, sc)
+            _, lse = fa.flash_attention_fwd(qd, k, v, causal, sc, 0.0, 0, seg)
             (dk, dv), (dk0, dv0) = (
                 fa.flash_attention_bwd_dkv(qd, k, v, qd, lse, delta, causal,
-                                           sc, r, seed)
+                                           sc, r, seed, seg)
                 for r in (rate, 0.0))
             for name, x, x0 in (("dk", dk, dk0), ("dv", dv, dv0)):
                 record(name, *(t[..., :w].permute(0, 2, 3, 1)
@@ -1040,9 +1118,10 @@ def read_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
 
 
 def check_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
-                device="cuda"):
+                device="cuda", seg=None):
     """Every kernel's keep bits (``read_masks``) equal ``dropout_keep``'s,
-    and each kernel saw exactly the visible scores; returns the number of
+    and each kernel saw exactly the visible scores (with ``seg``, only
+    those whose q row and key share a segment); returns the number of
     visible scores and the share of them kept."""
     b, s_q, s_k, hq, hkv, d = shape
     want = fa.dropout_keep(seed, torch.arange(b * hq, device=device),
@@ -1052,9 +1131,12 @@ def check_masks(fa, shape, dtype, causal, seed, rate=DROPOUT_RATE,
     rows = torch.arange(s_q, device=device)[:, None]
     visible = (rows + (s_k - s_q if causal else s_k)
                >= torch.arange(s_k, device=device)).expand(b, hq, s_q, s_k)
+    if seg is not None:
+        visible = visible & (seg[:, None, :, None] == seg[:, None, None, :])
     tag = f"{list(shape)} {str(dtype)[6:]} causal={causal}"
+    tag += "" if seg is None else " segments"
     for name, (bits, seen) in read_masks(fa, shape, dtype, causal, seed,
-                                         rate, device).items():
+                                         rate, device, seg).items():
         require(torch.equal(seen, visible), f"mask read-out {name} {tag}: "
                 f"{int((seen != visible).sum())} scores seen where not "
                 f"visible or not seen where visible")
@@ -1083,6 +1165,93 @@ def mask_readout(fa):
             if name == MASK_READOUTS[-1][0] and not causal:
                 require(n >= 10 ** 7 and abs(kept - (1 - DROPOUT_RATE))
                         <= 5 * sigma, f"keep rate {kept} over {n} scores")
+
+
+# -- phase 2d: the segment branch of rows 3/5/6 -------------------------------
+# (name, (B, S, S, Hq, Hkv, D), causal, dtype, segment lengths or "pad"):
+# the JAX suite's [0]*100 + [1]*156 (a boundary inside a 64-row tile),
+# boundaries on and off the 64 and 128 tiles with a segment wholly inside
+# one tile, packed varlen rows of lengths 5..300, GQA 8:2, D 64 and 128,
+# causal and not, bf16 and f32; and the op's pad-to-tile inputs at S 390,
+# 453 and ViT-L/16's 577 (16 heads of 64)
+SEG_ATTN_CASES = [
+    ("[0]*100 + [1]*156", (4, 256, 256, 8, 8, 64), False, torch.bfloat16,
+     [100, 156]),
+    ("[0]*100 + [1]*156", (4, 256, 256, 8, 8, 64), True, torch.bfloat16,
+     [100, 156]),
+    ("[0]*100 + [1]*156 GQA 8:2", (2, 256, 256, 8, 2, 64), True,
+     torch.bfloat16, [100, 156]),
+    ("64/10/118/128 D=128", (2, 320, 320, 8, 8, 128), True, torch.bfloat16,
+     [64, 10, 118, 128]),
+    ("packed varlen 5..300", (2, 2048, 2048, 8, 8, 64), False,
+     torch.bfloat16, packed_lengths(2048)),
+    ("packed varlen 5..300 D=128 GQA 8:4", (2, 1024, 1024, 8, 4, 128), True,
+     torch.bfloat16, packed_lengths(1024, seed=4)),
+    ("f32 [0]*100 + [1]*156 GQA 4:2", (2, 256, 256, 4, 2, 64), True,
+     torch.float32, [100, 156]),
+    ("f32 packed varlen D=128", (1, 512, 512, 4, 4, 128), False,
+     torch.float32, packed_lengths(512, seed=5)),
+    ("pad to tile S=390", (2, 390, 390, 16, 16, 64), False, torch.bfloat16,
+     "pad"),
+    ("pad to tile S=453", (2, 453, 453, 16, 16, 64), True, torch.bfloat16,
+     "pad"),
+    ("pad to tile S=577 (ViT-L/16, 384 px)", (8, 577, 577, 16, 16, 64),
+     False, torch.bfloat16, "pad"),
+    ("f32 pad to tile S=453 D=128", (1, 453, 453, 4, 4, 128), True,
+     torch.float32, "pad"),
+]
+# the segment branch under dropout 0.1 (the SEG and DROP instantiations)
+SEG_DROPOUT_CASES = [
+    ("packed varlen", (2, 1024, 1024, 8, 2, 64), True, torch.bfloat16,
+     packed_lengths(1024, seed=6)),
+    ("pad to tile S=577", (4, 577, 577, 16, 16, 64), False, torch.bfloat16,
+     "pad"),
+    ("f32 [0]*100 + [1]*156 D=128", (1, 256, 256, 4, 4, 128), True,
+     torch.float32, [100, 156]),
+]
+# (name, (B, S, S, Hq, Hkv, D), dtype, segment lengths) of the masks read
+# out of the segment and dropout kernels, causal and not
+SEG_MASK_READOUTS = [
+    ("bf16 D=64 GQA 8:2 segments 37/100/63", (2, 200, 200, 8, 2, 64),
+     torch.bfloat16, [37, 100, 63]),
+    ("f32 D=128 segments 100/156", (1, 256, 256, 4, 4, 128), torch.float32,
+     [100, 156]),
+]
+
+
+def phase_segment_kernels(fa, worst):
+    """Phase 2d: the segment branch of rows 3/5/6 against the plain
+    versions over ``SEG_ATTN_CASES`` and, at dropout 0.1,
+    ``SEG_DROPOUT_CASES``; the masks read out of the kernels with segments
+    (every kept score inside its segment, every bit ``dropout_keep``'s);
+    and the op's pad path end to end at S 577, f32, output and gradients
+    against ``flash_attention_ref``.  The worst absolute errors go into
+    ``worst`` under the segment rows' keys."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    attention_checks(fa, gen, SEG_ATTN_CASES, worst, keys=SEG_KEYS)
+    attention_checks(fa, gen, SEG_DROPOUT_CASES, worst, DROPOUT_RATE,
+                     SEG_KEYS)
+    seed = (9 << 32) | 77
+    for name, shape, dt, lens in SEG_MASK_READOUTS:
+        for causal in (False, True):
+            n, kept = check_masks(fa, shape, dt, causal, seed,
+                                  seg=segment_ids(lens, shape[0]))
+            print(f"  dropout masks read out of o, dq, dk and dv ({name}, "
+                  f"causal={causal}): {n:,} scores inside the segments, "
+                  f"none outside, every bit equal to dropout_keep; kept "
+                  f"{kept:.6f}")
+    q, k, v, do = (x.requires_grad_(True) for x in attn_inputs(
+        gen, (2, 577, 577, 4, 4, 64), torch.float32))
+    out = fa.flash_attention(q, k, v)
+    got = (out, *torch.autograd.grad(out, (q, k, v), do))
+    ref = fa.flash_attention_ref(q, k, v)
+    want = (ref, *torch.autograd.grad(ref, (q, k, v), do))
+    for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        held(f"op {what} pad to tile S=577 [2, 577, 4, 64] f32 against "
+             f"flash_attention_ref", g.detach(), w.detach(),
+             TRAIN_TOL[torch.float32])
+    del q, k, v, do, out, got, ref, want
+    torch.cuda.empty_cache()
 
 
 # -- phase 3: serving at 7B widths -------------------------------------------
@@ -1690,7 +1859,7 @@ def phase_ernie(pa, B=64, S=512, warmup=3, steps=10, dropout=DROPOUT_RATE,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in train_wrappers().items()}
-    launches.update(dropout_counts())
+    launches.update(branch_counts())
     per_step = {k: n / steps for k, n in launches.items()}
     losses += [float(x) for x in out]
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
@@ -1702,7 +1871,8 @@ def phase_ernie(pa, B=64, S=512, warmup=3, steps=10, dropout=DROPOUT_RATE,
             "rms_fwd": 0, "rms_bwd": 0, "adamw": len(params),
             "softmax_fwd": 0, "softmax_bwd": 0, "ln_fwd": n_norms,
             "ln_bwd": n_norms, "fa_fwd_drop": n_drop, "fa_dkv_drop": n_drop,
-            "fa_dq_drop": n_drop}
+            "fa_dq_drop": n_drop, "fa_fwd_seg": 0, "fa_dkv_seg": 0,
+            "fa_dq_seg": 0}
     require(per_step == want, f"launches per step {per_step} != {want}")
     require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
     require(not plain.calls, f"plain versions ran: {plain.calls}")
@@ -1852,9 +2022,9 @@ def ernie_step_once(cfg, ids, kernels, plain_attention=False):
             [v.detach() for v in params.values()])
 
 
-def hold_ernie_pair(what, plain, kern):
-    """Phase 4c's gates on two ERNIE steps: loss, every gradient and every
-    updated parameter."""
+def hold_step_pair(what, plain, kern):
+    """Phase 4c's and 4d's gates on two train steps (the ERNIE or ViT
+    model): loss, every gradient and every updated parameter."""
     (l0, g0, p0), (l1, g1, p1) = plain, kern
     print(f"  {what}: loss plain {l0:.7f}, kernels {l1:.7f}")
     require(abs(l1 - l0) <= 1e-5 * abs(l0), "loss differs (rtol 1e-5)")
@@ -1896,16 +2066,175 @@ def phase_ernie_check(B=16, S=512):
     cfg = ernie_config(layers=2, dropout=0.0)
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     ids = torch.from_numpy(ids.astype(np.int32)).cuda()
-    hold_ernie_pair(f"2-layer f32 ERNIE step at full width, B={B} S={S}, "
+    hold_step_pair(f"2-layer f32 ERNIE step at full width, B={B} S={S}, "
                     f"dropout 0, all knobs off against on",
                     ernie_step_once(cfg, ids, False),
                     ernie_step_once(cfg, ids, True))
     torch.cuda.empty_cache()
     cfg = ernie_config(layers=2)
-    hold_ernie_pair(f"2-layer f32 ERNIE step, B={B} S={S}, dropout "
+    hold_step_pair(f"2-layer f32 ERNIE step, B={B} S={S}, dropout "
                     f"{DROPOUT_RATE}, rows 3/5/6 plain against kernels",
                     ernie_step_once(cfg, ids, True, plain_attention=True),
                     ernie_step_once(cfg, ids, True))
+
+
+# -- phase 3g: ViT-L/16 training ---------------------------------------------
+# ViT's step has ERNIE's groups; at 224 px no flash-attention kernel runs
+# (the JAX dispatch's plain path)
+VIT224_GROUPS = ERNIE_GROUPS[2:]
+VIT_L = dict(embed_dim=1024, num_heads=16, mlp_ratio=4.0, patch_size=16)
+
+
+def vit_flop(B, img, layers=24, E=1024, classes=1000):
+    """Model FLOP of one ViT-L/16 train step (forward and backward, no
+    recomputation): 6 per multiply-add-carrying weight and token for the
+    blocks' four products (12 E^2 weights each), the patch projection
+    (3 x 16 x 16 x E, once per patch) and the head (once per image), and
+    12 S^2 E per layer and image for the two attention products (4 S^2 E
+    forward, twice that backward)."""
+    s = (img // 16) ** 2 + 1
+    mm = layers * 12 * E * E * s + 3 * 16 * 16 * E * (s - 1) + E * classes
+    return 6.0 * B * mm + 12.0 * B * layers * s * s * E
+
+
+def make_vit_step(img, dtype, kernels, seed=0, layers=24):
+    """bench.py bench_vit_l16's step on the port: ViT-L/16 at ``img`` px
+    (``vit_l_16``; the class at ViT-L's widths with ``layers`` blocks when
+    cut), 1,000 classes, cross-entropy through ``log_softmax`` in f32, and
+    one AdamW(lr 1e-4, weight decay 0.01: the JAX default) update of every
+    parameter.  With ``kernels`` all three knobs are on (flash attention,
+    the LayerNorm kernels, the fused AdamW kernel); without, all three are
+    off.  Returns (step(batch) -> (loss, grads), params, n_params)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.vision.models import VisionTransformer, vit_l_16
+
+    kw = dict(img_size=img, num_classes=1000, dtype=dtype, device="cuda",
+              seed=seed, kernels=kernels, norm_kernels=kernels)
+    model = vit_l_16(**kw) if layers == 24 else VisionTransformer(
+        **VIT_L, depth=layers, **kw)
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=1e-4, fused=kernels)
+    state = opt.init_opt_state(params, device="cuda")
+
+    def step(batch, marks=None):
+        mark = (lambda i: marks[i].record()) if marks else (lambda i: None)
+        x, y = batch
+        mark(0)
+        logp = torch.log_softmax(model(x).float(), dim=-1)
+        loss = -logp.gather(1, y[:, None]).mean()
+        mark(1)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        mark(2)
+        opt.apply_gradients_functional(params, dict(zip(params, grads)),
+                                       state)
+        mark(3)
+        return loss.detach(), grads
+
+    return step, params, sum(v.numel() for v in params.values())
+
+
+def vit_batch(B, img, dtype, seed=0):
+    """bench_vit_l16's batch: N(0, 1) images and random labels of 1,000
+    classes from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (B, 3, img, img)).astype(
+        np.float32)).cuda().to(dtype)
+    y = torch.from_numpy(rng.integers(0, 1000, (B,))).cuda()
+    return x, y
+
+
+def phase_vit(pa, img=384, B=32, warmup=3, steps=10):
+    """ViT-L/16 training in bf16 (f32 moments) at ``img`` px, batch B,
+    full width and depth, all three knobs on: warm-up and timed steps on
+    one fixed batch with the loss of each (finite and falling), images/s,
+    the mfu share (``vit_flop`` over 989 TFLOP/s), peak memory, launches
+    per step (asserted: at 577 tokens the segment branch of rows 3/5/6
+    once per layer through the op's pad path; at 197 no flash-attention
+    kernel, the plain path once per layer as the JAX dispatch sends it;
+    rows 12/13 per norm, row 9 per parameter tensor; no other plain
+    version), the stage split and one step under torch.profiler."""
+    L = 24
+    S = (img // 16) ** 2 + 1
+    torch.cuda.reset_peak_memory_stats()
+    step, params, n_params = make_vit_step(img, torch.bfloat16, True)
+    batch = vit_batch(B, img, torch.bfloat16)
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(step(batch)[0]))
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    with CountPlainCalls() as plain:
+        t0 = time.perf_counter()
+        out = [step(batch)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    launches.update(branch_counts())
+    per_step = {k: n / steps for k, n in launches.items()}
+    losses += [float(x) for x in out]
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    flash = L if S >= 384 else 0
+    want = dict({k: 0 for k in per_step}, fa_fwd=flash, fa_dkv=flash,
+                fa_dq=flash, fa_fwd_seg=flash, fa_dkv_seg=flash,
+                fa_dq_seg=flash, adamw=len(params), ln_fwd=2 * L + 1,
+                ln_bwd=2 * L + 1)
+    require(per_step == want, f"launches per step {per_step} != {want}")
+    require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
+    plain_want = {} if flash else {"flash_attention_ref": L * steps}
+    require(plain.calls == plain_want,
+            f"plain calls {plain.calls} != {plain_want}")
+    images_per_s = B * steps / wall
+    flop = vit_flop(B, img)
+    mfu = flop * steps / wall / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params:,} parameters in {len(params)} tensors, {S} tokens "
+          f"({S - 1} patches + the class token"
+          + (f", padded to {-(-S // 128) * 128} in attention" if flash
+             else ", attention on the plain path") + f"), B={B} bf16 (f32 "
+          f"moments), 1,000 classes, AdamW(lr=1e-4, wd=0.01) fused")
+    print(f"  loss per step ({warmup} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {images_per_s:.1f} images/s, mfu_share {mfu:.4f} "
+          f"({flop / 1e12:.2f} TFLOP per step / 989 TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  launches per step: {json.dumps(per_step)}; plain calls "
+          f"{json.dumps(plain.calls)}")
+    breakdown = train_breakdown(step, batch, wall / steps,
+                                ERNIE_GROUPS if flash else VIT224_GROUPS)
+    return dict(launches=launches, images_per_s=images_per_s, mfu=mfu,
+                step_ms=wall / steps * 1e3, peak_gib=peak / 2**30,
+                losses=losses, n_params=n_params, breakdown=breakdown)
+
+
+def phase_vit_check(B=8, img=384):
+    """Phase 4d: one f32 ViT-L/16 step at ``img`` px, full width, 2 layers,
+    with all three knobs on (the segment branch of rows 3/5/6 through the
+    pad path, the LayerNorm kernels, the fused AdamW) and one with all off,
+    from the same seeded weights and batch: loss, every gradient and every
+    updated parameter must agree.  Each qkv bias enters the gates as its
+    q, k and v thirds, the tensors ERNIE keeps apart: the k bias's gradient
+    is rounding noise (it shifts a whole row of scores), which the gates
+    treat tensor by tensor."""
+    batch = vit_batch(B, img, torch.float32, seed=1)
+
+    def split(names, tensors):
+        return [part for n, t in zip(names, tensors) for part in
+                (t.detach().chunk(3) if n.endswith("attn.qkv.bias")
+                 else (t.detach(),))]
+
+    runs = []
+    for kernels in (False, True):
+        step, params, _ = make_vit_step(img, torch.float32, kernels, seed=2,
+                                        layers=2)
+        loss, grads = step(batch)
+        runs.append((float(loss), split(params, grads),
+                     split(params, params.values())))
+        del step, params
+    hold_step_pair(f"2-layer f32 ViT-L/16 step at {img} px, full width, "
+                   f"B={B}, all knobs off against on", *runs)
+    torch.cuda.empty_cache()
 
 
 # -- phase 4: kernel engine == plain engine ----------------------------------
@@ -2356,7 +2685,6 @@ def attention_timing(fa, gen, shape, causal, label="", rate=0.0):
     them): SDPA's forward for row 3 (with ``dropout_p=rate``), and for rows
     5 and 6 SDPA's backward alone (``autograd.grad`` on a retained forward
     graph), with its forward + backward printed beside it."""
-    import torch.nn.functional as F
     b, s_q, s_k, hq, hkv, d = shape
     q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
     sc = 1.0 / np.sqrt(d)
@@ -2368,21 +2696,8 @@ def attention_timing(fa, gen, shape, causal, label="", rate=0.0):
     stats_bytes = b * hq * s_q * 4
     # the mask needs one 32-bit word per visible score: a Philox call per 4
     mask_ops = PHILOX_OPS * pairs / 4 if rate > 0 else 0
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
-    lib_fwd = time_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, dropout_p=rate, is_causal=causal), 20)
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-    dot = do.transpose(1, 2)
-    out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate,
-                                         is_causal=causal)
-    lib_bwd = time_ms(lambda i: torch.autograd.grad(
-        out, (qg, kg, vg), dot, retain_graph=True), 10)
-
-    def sdpa_fwd_bwd(i):
-        torch.autograd.grad(F.scaled_dot_product_attention(
-            qg, kg, vg, dropout_p=rate, is_causal=causal), (qg, kg, vg), dot)
-
-    lib_both = time_ms(sdpa_fwd_bwd, 10)
+    lib_fwd, lib_bwd, lib_both = sdpa_times(q, k, v, do, dropout_p=rate,
+                                            is_causal=causal)
     mode = "causal" if causal else "non-causal"
     mode += f", dropout_p={rate:g}" if rate > 0 else ""
     bwd_what = (f"SDPA {mode} backward alone; forward + backward "
@@ -2411,8 +2726,167 @@ def attention_timing(fa, gen, shape, causal, label="", rate=0.0):
             q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
         3 * q_bytes + 2 * kv_bytes + 2 * stats_bytes, 6 * d * pairs,
         bwd_what, int_ops=mask_ops)
-    del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, dot, out
+    del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
+    return res
+
+
+def sdpa_times(q, k, v, do, **sdpa):
+    """SDPA (the library call for the same function; timed here only, the
+    port never calls it) on [B, S, H, D] q, k, v with the keyword
+    arguments ``sdpa`` (``dropout_p``, ``is_causal``, ``attn_mask``): the
+    forward, the backward alone (``autograd.grad`` on a retained forward
+    graph) and forward + backward, in ms."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
+    fwd = time_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, **sdpa), 20)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+    out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
+    bwd = time_ms(lambda i: torch.autograd.grad(
+        out, (qg, kg, vg), dot, retain_graph=True), 10)
+    both = time_ms(lambda i: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, **sdpa), (qg, kg, vg),
+        dot), 10)
+    return fwd, bwd, both
+
+
+def segment_timing(fa, gen, shape, lens, label, lib_what):
+    """The segment branch of rows 3, 5 and 6 in bf16, non-causal: the
+    kernel and its plain version on the segment inputs — ``lens`` "pad":
+    ``shape``'s S rows padded to the tile by the op's ``_pad_to_tile``;
+    else segment lengths (``segment_ids``) — beside SDPA on the same
+    function (the unpadded inputs; for segments, with the block-diagonal
+    boolean mask).  The bound counts the work of the function: the
+    unpadded bytes (and the ids) and the (query, key) pairs inside the
+    segments; the work the kernels do is printed beside it."""
+    import torch.nn.functional as F
+    b, s, _, h, _, d = shape
+    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    mask = None
+    if lens == "pad":
+        qp, kp, vp, seg, _ = fa._pad_to_tile(q, k, v, None)
+        dop = F.pad(do, (0, 0, 0, 0, 0, qp.shape[1] - s))
+        pairs = b * h * s * s
+    else:
+        qp, kp, vp, dop = q, k, v, do
+        seg = segment_ids(lens, b)
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+        pairs = h * int(mask.sum())
+    sp = qp.shape[1]
+    print(f"  {label.strip()}: the kernels score {b * h * sp * sp / 1e6:.1f}M "
+          f"pairs ({4 * d * b * h * sp * sp / 1e9:.1f} GFLOP forward), the "
+          f"function needs {pairs / 1e6:.1f}M ({4 * d * pairs / 1e9:.1f})")
+    args = (False, 1.0 / np.sqrt(d), 0.0, 0, seg)
+    o, lse = fa.flash_attention_fwd(qp, kp, vp, *args)
+    delta = delta_of(dop, o)
+    lib_fwd, lib_bwd, lib_both = sdpa_times(q, k, v, do, attn_mask=mask)
+    q_bytes = b * s * h * d * 2
+    stats_bytes, seg_bytes = b * h * s * 4, b * s * 4
+    bwd_what = f"{lib_what} backward alone; forward + backward " \
+        f"{lib_both:.4f} ms"
+    res = {}
+    res["fa_fwd_seg"] = report(
+        f"flash_attention_fwd{label}",
+        time_ms(lambda i: fa.flash_attention_fwd(qp, kp, vp, *args), 10),
+        time_ms(lambda i: fa.flash_attention_fwd_ref(qp, kp, vp, *args), 3,
+                warmup=1), lib_fwd,
+        4 * q_bytes + stats_bytes + seg_bytes, 4 * d * pairs,
+        f"{lib_what} forward")
+    res["fa_dkv_seg"] = report(
+        f"flash_attention_bwd_dkv{label}",
+        time_ms(lambda i: fa.flash_attention_bwd_dkv(
+            qp, kp, vp, dop, lse, delta, *args), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
+            qp, kp, vp, dop, lse, delta, *args), 3, warmup=1), lib_bwd,
+        6 * q_bytes + 2 * stats_bytes + seg_bytes, 8 * d * pairs, bwd_what)
+    res["fa_dq_seg"] = report(
+        f"flash_attention_bwd_dq{label}",
+        time_ms(lambda i: fa.flash_attention_bwd_dq(
+            qp, kp, vp, dop, lse, delta, *args), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
+            qp, kp, vp, dop, lse, delta, *args), 3, warmup=1), lib_bwd,
+        5 * q_bytes + 2 * stats_bytes + seg_bytes, 6 * d * pairs, bwd_what)
+    del q, k, v, do, qp, kp, vp, dop, o, lse, delta, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+# ViT-L/16's attention at 384 px (phase 3g): B 32, 577 tokens, 16 heads of
+# 64; and a packed varlen batch of 2 rows of 4,096 tokens in segments of
+# 5..300
+VIT_ATTN_SHAPE = (32, 577, 577, 16, 16, 64)
+VARLEN_SHAPE = (2, 4096, 4096, 16, 16, 64)
+
+
+# Design steps of dQ's segment branch at D 64 (compile-time settings of
+# flash_attention.cu, as ``FA_VARIANTS``): its register cap (blocks per SM)
+# and whether Q and dO stay in registers; the shipped build is the first
+SEG_DQ_VARIANTS = (
+    ("shipped: Q, dO in registers, 2 blocks/SM", ()),
+    ("Q, dO in registers, 3 blocks/SM", ("-DFA_DQ_SEG_MINB=3",)),
+    ("Q, dO reloaded, 3 blocks/SM", ("-DFA_DQ_SEG_REGA64=0",
+                                     "-DFA_DQ_SEG_MINB=3")),
+    ("Q, dO reloaded, 2 blocks/SM", ("-DFA_DQ_SEG_REGA64=0",)),
+    ("Q, dO reloaded, 4 blocks/SM", ("-DFA_DQ_SEG_REGA64=0",
+                                     "-DFA_DQ_SEG_MINB=4")),
+)
+
+
+def segment_design_steps(fa, gen, shape=VIT_ATTN_SHAPE):
+    """One line per entry of ``SEG_DQ_VARIANTS``: the variant's dQ segment
+    branch held against the plain version and timed on ``shape``'s padded
+    inputs, with ptxas's registers and spills of its D 64 instantiation,
+    in two turns.  A measurement only: the port loads the shipped build,
+    which is put back however this ends."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+    paths = build_variants(SEG_DQ_VARIANTS)
+    b, s, _, h, _, d = shape
+    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    qp, kp, vp, seg, _ = fa._pad_to_tile(q, k, v, None)
+    dop = torch.nn.functional.pad(do, (0, 0, 0, 0, 0, qp.shape[1] - s))
+    args = (False, 1.0 / np.sqrt(d), 0.0, 0, seg)
+    ro, rlse = fa.flash_attention_fwd_ref(qp, kp, vp, *args)
+    delta = delta_of(dop, ro)
+    rdq = fa.flash_attention_bwd_dq_ref(qp, kp, vp, dop, rlse, delta, *args)
+    shipped = _build.library("flash_attention")
+    try:
+        for turn in (1, 2):
+            for (what, _), path in zip(SEG_DQ_VARIANTS, paths):
+                _build._LIBS["flash_attention"] = ctypes.CDLL(str(path))
+                held(f"dq [{what}]", fa.flash_attention_bwd_dq(
+                    qp, kp, vp, dop, rlse, delta, *args), rdq,
+                    TRAIN_TOL[torch.bfloat16])
+                ms = time_ms(lambda i: fa.flash_attention_bwd_dq(
+                    qp, kp, vp, dop, rlse, delta, *args), 20)
+                regs = ", ".join(
+                    f"{r} registers, {st} B spilled" for kern, a, r, st, _
+                    in ptxas_lines(path) if kern == "fa_bwd_dq_mma_kernel"
+                    and a.startswith("ILi64E") and a.endswith("Lb1ELb0EE"))
+                print(f"  design step of dQ's segment branch, turn {turn}, "
+                      f"{what}: {ms:.4f} ms ({regs})")
+    finally:
+        _build._LIBS["flash_attention"] = shipped
+    del q, k, v, do, qp, kp, vp, dop, ro, rlse, delta, rdq
+    torch.cuda.empty_cache()
+
+
+def phase_segment_timing():
+    """Phase 5d: the segment branch of rows 3, 5 and 6 at ViT-L/16's
+    attention shape (phase 3g: 577 rows padded to 640), and at a packed
+    varlen shape beside SDPA with the block-diagonal mask, then the design
+    steps of dQ's segment branch; returns the ViT shape's numbers."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    res = segment_timing(fa, gen, VIT_ATTN_SHAPE, "pad", " (segments, ViT)",
+                         "SDPA on the unpadded [32, 577, 16, 64]")
+    segment_timing(fa, gen, VARLEN_SHAPE, packed_lengths(VARLEN_SHAPE[1]),
+                   " (segments, varlen)",
+                   "SDPA with the block-diagonal boolean mask")
+    segment_design_steps(fa, gen)
     return res
 
 
@@ -2440,20 +2914,28 @@ FA_VARIANTS = (
 )
 
 
+def build_variants(variants):
+    """The ``flash_attention`` library of each (what, defines) entry, one
+    ``nvcc`` each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.ops import _build
+    with ThreadPoolExecutor(len(variants)) as pool:
+        return list(pool.map(
+            lambda var: _build.build_all(["flash_attention"], var[1])[
+                "flash_attention"], variants))
+
+
 def design_steps(fa, gen, shape, causal):
     """One line per entry of ``FA_VARIANTS``: the variant's forward, dK/dV
     and dQ held against the plain versions and timed at ``shape``, then the
     shipped build again.  A measurement only: the port loads the shipped
     build, which is put back however this ends."""
     import ctypes
-    from concurrent.futures import ThreadPoolExecutor
 
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(FA_VARIANTS)) as pool:
-        paths = list(pool.map(
-            lambda var: _build.build_all(["flash_attention"], var[1])[
-                "flash_attention"], FA_VARIANTS))
+    paths = build_variants(FA_VARIANTS)
     print(f"  built {len(paths)} variants in {time.perf_counter() - t0:.1f} s")
     d = shape[-1]
     q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
@@ -2493,7 +2975,8 @@ def design_steps(fa, gen, shape, causal):
                 f"{r} registers, {st} B spilled" for kern, args, r, st, _
                 in ptxas_lines(path)
                 if kern == "fa_bwd_dq_mma_kernel" and args.startswith(
-                    f"ILi{d}E"))
+                    f"ILi{d}E") and args.endswith(("Lb0ELb0EE",
+                                                   "Lb0ELb1EE")))
             print(f"  design step {what}: fwd {fwd_ms:.4f} ms, dK/dV "
                   f"{dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms (dQ at D {d}: "
                   f"{regs})")
@@ -2598,11 +3081,28 @@ def parent_norm_turns(parent, fu, gen, N=16384, H=1024):
     torch.cuda.empty_cache()
 
 
-def fa_direct(lib, which, tensors, geometry, causal, sc, dropout_args):
+def entry_tail(source):
+    """(ctypes types, values) of the arguments that the C entries of a
+    ``flash_attention.cu`` take after sm_scale, read off its source: the
+    dropout arguments (rate 0) from the dropout branch on, then a null
+    segment pointer from the segment branch on."""
+    import ctypes
+    types, values = [], []
+    if "unsigned thresh" in source:
+        types += [ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
+                  ctypes.c_uint]
+        values += [0, 1.0, 0, 0]
+    if "const void* seg" in source:
+        types.append(ctypes.c_void_p)
+        values.append(None)
+    return types, values
+
+
+def fa_direct(lib, which, tensors, geometry, causal, sc, tail):
     """One launch of ``flash_attention_<which>_launch`` from ``lib`` on
     bf16 [B, S, H, D] tensors (inputs, then the outputs it fills); the C
-    entry alone, with the dropout arguments when ``dropout_args`` is not
-    None (a build from before the dropout branch takes none)."""
+    entry alone, with the trailing arguments ``tail`` of that build
+    (``entry_tail``)."""
     import ctypes
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -2610,15 +3110,13 @@ def fa_direct(lib, which, tensors, geometry, causal, sc, dropout_args):
     fn.restype = ctypes.c_int
     four_d = [t for t in tensors if t.dim() == 4]
     strides = fa._strides(*four_d)
-    extra = [] if dropout_args is None else list(dropout_args)
+    types, values = tail
     fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1)
-                   + [ctypes.c_int] * 8 + [ctypes.c_float]
-                   + ([] if dropout_args is None else
-                      [ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
-                       ctypes.c_uint]) + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_float] + types
+                   + [ctypes.c_void_p])
     err = fn(*[t.data_ptr() for t in tensors],
              ctypes.cast(strides, ctypes.c_void_p), *geometry, 1,
-             int(causal), sc, *extra,
+             int(causal), sc, *values,
              torch.cuda.current_stream().cuda_stream)
     require(err == 0, f"flash_attention_{which}_launch: CUDA error {err}")
 
@@ -2627,9 +3125,9 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
     """``--parent DIR``: ``flash_attention.cu`` of another commit (DIR holds
     its ``csrc``), built with the same flags and timed in turns with the
     shipped build — parent, new, new, parent — at rate 0 on the same
-    inputs: rows 3, 5 and 6 through their C entries (a parent from before
-    the dropout branch takes no dropout arguments).  Every output is held
-    against the plain version first."""
+    inputs: rows 3, 5 and 6 through their C entries (each build with the
+    trailing arguments its source takes, ``entry_tail``).  Every output is
+    held against the plain version first."""
     import ctypes
     from pathlib import Path
 
@@ -2637,6 +3135,9 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
     libs = {"parent": ctypes.CDLL(str(_build.build_all(
         ["flash_attention"], csrc=Path(parent))["flash_attention"])),
         "new": _build.library("flash_attention")}
+    tails = {side: entry_tail((path / "flash_attention.cu").read_text())
+             for side, path in (("parent", Path(parent)),
+                                ("new", _build.CSRC))}
     b, s_q, s_k, hq, hkv, d = shape
     geometry = (b, hq, hkv, s_q, s_k, d)
     q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
@@ -2653,8 +3154,7 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     tol = TRAIN_TOL[torch.bfloat16]
     for side in ("parent", "new", "new", "parent"):
-        lib = libs[side]
-        drop = None if side == "parent" else (0, 1.0, 0, 0)
+        lib, drop = libs[side], tails[side]
         calls = {
             "fwd": lambda i: fa_direct(lib, "fwd", (q, k, v, o, lse),
                                        geometry, causal, sc, drop),
@@ -2973,6 +3473,9 @@ def main():
           "at ERNIE's shape, and its dropout branch, vs plain version on the "
           "card; the dropout mask read out of the kernel")
     phase_fused_kernels(fa, fu, max_err)
+    print("phase 2d: the segment branch of flash attention (varlen, and the "
+          "padding of untileable sequences) vs plain version on the card")
+    phase_segment_kernels(fa, max_err)
 
     print("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
     cfg = llama_config_7b()
@@ -3007,6 +3510,14 @@ def main():
     torch.cuda.empty_cache()
     print("phase 3e: nn.functional.softmax through the softmax kernels")
     softmax_launches = phase_softmax_entry()
+    print("phase 3g: ViT-L/16 train step at 384 px (bf16, B=32, 577 tokens, "
+          "24 layers)")
+    vit = phase_vit(pa)
+    torch.cuda.empty_cache()
+    print("phase 3g': ViT-L/16 train step at 224 px (bf16, B=64, 197 "
+          "tokens), as bench.py's bench_vit_l16 runs it")
+    vit224 = phase_vit(pa, img=224, B=64, warmup=2, steps=3)
+    torch.cuda.empty_cache()
 
     print("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
@@ -3016,6 +3527,9 @@ def main():
           "dropout 0 and 0.1")
     phase_ernie_check()
     torch.cuda.empty_cache()
+    print("phase 4d: ViT-L/16 train step at 384 px, kernels vs plain "
+          "versions")
+    phase_vit_check()
 
     print("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
@@ -3026,6 +3540,9 @@ def main():
     print("phase 5c: LayerNorm, softmax and AdamW timing at the phase-3d/3e "
           "shapes")
     timing.update(phase_fused_timing())
+    print("phase 5d: the segment branch of flash attention at the phase-3g "
+          "shape and at a packed varlen shape")
+    timing.update(phase_segment_timing())
 
     print("phase 6: summary")
     for name, sv in (("bf16 KV", serve), ("int8 KV + speculative=4", serve_q)):
@@ -3045,6 +3562,12 @@ def main():
               f"{er['mfu']:.4f}, {er['step_ms']:.1f} ms per step, loss "
               f"{er['losses'][0]:.4f} -> {er['losses'][-1]:.4f}, peak "
               f"{er['peak_gib']:.2f} GiB on {card}")
+    for what, v in (("ViT-L/16 at 384 px, B 32", vit),
+                    ("ViT-L/16 at 224 px, B 64", vit224)):
+        print(f"  {what}: {v['images_per_s']:.1f} images/s, mfu_share "
+              f"{v['mfu']:.4f}, {v['step_ms']:.1f} ms per step, loss "
+              f"{v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}, peak "
+              f"{v['peak_gib']:.2f} GiB on {card}")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")
@@ -3068,6 +3591,11 @@ def main():
         key = meta["key"]
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=ernie["launches"][key],
+                         max_abs_err=max_err[key], **timing[key]))
+    for meta in SEG_ROWS:
+        key = meta["key"]
+        rows.append(dict({k: v for k, v in meta.items() if k != "key"},
+                         launches=vit["launches"][key],
                          max_abs_err=max_err[key], **timing[key]))
     for meta in FUSED_ROWS:
         key = meta["key"]

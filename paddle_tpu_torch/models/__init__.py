@@ -1,4 +1,5 @@
-from .convert import ernie_params_from_numpy, params_from_numpy
+from .convert import (ernie_params_from_numpy, params_from_numpy,
+                      vit_params_from_numpy)
 from .ernie import (ErnieConfig, ErnieForMaskedLM,
                     ErnieForSequenceClassification, ErnieModel,
                     ernie_config_base, ernie_config_tiny)
@@ -12,4 +13,5 @@ __all__ = ["ErnieConfig", "ErnieForMaskedLM",
            "build_functional_llama", "build_llama_paged_decode",
            "ernie_config_base", "ernie_config_tiny", "ernie_params_from_numpy",
            "init_llama_params", "llama_config_7b", "llama_config_tiny",
-           "make_paged_decode_horizon", "params_from_numpy"]
+           "make_paged_decode_horizon", "params_from_numpy",
+           "vit_params_from_numpy"]

@@ -6,7 +6,8 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["params_from_numpy", "ernie_params_from_numpy"]
+__all__ = ["params_from_numpy", "ernie_params_from_numpy",
+           "vit_params_from_numpy"]
 
 
 def _tensor(v, dev, dtype):
@@ -27,11 +28,14 @@ def params_from_numpy(ep, bp, hp, device=None, dtype=torch.float32):
 
 
 def ernie_params_from_numpy(named, device=None, dtype=torch.float32):
-    """``{name: np.ndarray}`` from the JAX ERNIE model's
-    ``named_parameters()`` -> a state dict that the port's ERNIE module of
-    the same config loads with ``load_state_dict``: the names and the
-    ``[in, out]`` Linear layout are the same, so each entry is a plain copy,
-    on ``device`` (``None``: the CUDA device, raising without one) in
-    ``dtype``."""
+    """``{name: np.ndarray}`` from the JAX ERNIE or ViT model's
+    ``named_parameters()`` -> a state dict that the port's module of the
+    same config loads with ``load_state_dict``: the names, the ``[in, out]``
+    Linear layout and the ``[out, in, kh, kw]`` convolution layout are the
+    same, so each entry is a plain copy, on ``device`` (``None``: the CUDA
+    device, raising without one) in ``dtype``."""
     dev = resolve_device(device)
     return {name: _tensor(v, dev, dtype) for name, v in named.items()}
+
+
+vit_params_from_numpy = ernie_params_from_numpy

@@ -1,14 +1,16 @@
-"""Linear, Embedding, Dropout and LayerNorm modules with the JAX package's
-parameter names, layouts and initialisers (``paddle_tpu/nn/common.py``
-``Linear``, ``Embedding``, ``Dropout``; ``paddle_tpu/nn/norm.py``
-``LayerNorm``).
+"""Linear, Embedding, Dropout, LayerNorm, Conv2D and GELU modules with the
+JAX package's parameter names, layouts and initialisers
+(``paddle_tpu/nn/common.py`` ``Linear``, ``Embedding``, ``Dropout``;
+``paddle_tpu/nn/norm.py`` ``LayerNorm``; ``paddle_tpu/nn/conv.py``
+``Conv2D``; ``paddle_tpu/nn/activation.py`` ``GELU``).
 
 They are plain ``torch.nn.Module``s, not a port of the eager ``Layer``
 framework.  Linear weights keep the ``[in, out]`` layout (``x @ W + b``), so
 weights cross from JAX by name and value.  Initialisers draw from the
 ``torch.Generator`` the caller passes: Xavier-uniform Linear weights, zero
-biases, N(0, 1) embeddings, LayerNorm weight 1 and bias 0 — the JAX
-package's defaults, though not its ``jax.random`` draws.
+biases, N(0, 1) embeddings, LayerNorm weight 1 and bias 0, convolution
+weights and biases uniform in +-sqrt(1 / fan_in) — the JAX package's
+defaults, though not its ``jax.random`` draws.
 """
 from __future__ import annotations
 
@@ -17,10 +19,11 @@ import math
 import torch
 from torch import nn
 
+from .functional.activation import gelu
 from .functional.common import dropout
 from .functional.norm import layer_norm
 
-__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm"]
+__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "Conv2D", "GELU"]
 
 
 class Linear(nn.Module):
@@ -92,3 +95,37 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight.shape, self.weight, self.bias,
                           self.epsilon, kernels=self.kernels,
                           norm_kernels=self.norm_kernels)
+
+
+class Conv2D(nn.Module):
+    """JAX ``Conv2D`` (``nn/conv.py:78``) in NCHW: weight [out_channels,
+    in_channels, kh, kw] (Paddle's layout, which is also torch's) and bias
+    [out_channels].  The convolution is ``torch.nn.functional.conv2d``: the
+    JAX package leaves it to XLA, outside any kernel of its own."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, *, dtype, device, generator):
+        super().__init__()
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) \
+            else kernel_size
+        self.stride, self.padding = stride, padding
+        bound = math.sqrt(1.0 / (in_channels * kh * kw))
+
+        def uniform(*shape):
+            u = torch.rand(shape, generator=generator, device=device)
+            return nn.Parameter((u * (2 * bound) - bound).to(dtype))
+
+        self.weight = uniform(out_channels, in_channels, kh, kw)
+        self.bias = uniform(out_channels)
+
+    def forward(self, x):
+        return torch.nn.functional.conv2d(x, self.weight, self.bias,
+                                          self.stride, self.padding)
+
+
+class GELU(nn.Module):
+    """JAX ``GELU`` (``nn/activation.py:34``): the exact (erf) GELU through
+    :func:`~paddle_tpu_torch.nn.functional.activation.gelu`."""
+
+    def forward(self, x):
+        return gelu(x, approximate=False)

@@ -94,6 +94,24 @@
 // score.  The mask costs integer work (some 100 operations per call), not
 // bytes; a fully masked causal tile draws nothing.
 //
+// Segment ids (the TPU kernels' has_segments branch: the varlen mask, and
+// the padding of an untileable sequence, which takes a segment of its own)
+// are the template flag SEG of all six bodies, beside DROP; the SEG = false
+// instantiations are the kernels as they were.  The ids of one batch row,
+// f32 [S] (S = S_q = S_k), are read from device memory where a score is
+// masked, and a score whose q row and key lie in different segments is
+// NEG_INF, as on the TPU: it composes with the causal mask and the dropout
+// mask, and l, lse and delta keep their forms.  A row whose first key
+// tiles hold no key of its segment runs its max at NEG_INF until one
+// arrives, whose rescale exp(NEG_INF - m) then clears what those tiles
+// summed (the TPU kernel's behaviour; a true -inf there would give NaN).
+// The forward and dQ bodies, which mask only the tiles that cross the
+// causal frontier or the end of the keys, mask every tile with SEG; dK /
+// dV masks each score anyway.  Per tile each thread turns the ids of its
+// scores' rows and columns into a bit per score (segment_bits), so that the
+// segment mask costs one register in the loop over the scores.  No tile is
+// skipped for its segments, as the TPU kernel skips none.
+//
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().
 
@@ -230,13 +248,20 @@ __device__ __forceinline__ int k_tiles_for(int row0, int s_q, int s_k,
 // one score of a (q tile, k tile) pair, scaled and causally masked.  Key
 // columns at or past s_k (the zero rows of a partial last k tile) score
 // -inf, so that they add exactly nothing to a row's sum and to the
-// backward's p and ds; the causal mask keeps the TPU kernel's NEG_INF.
+// backward's p and ds; the causal mask keeps the TPU kernel's NEG_INF, and
+// so does the segment mask with SEG (segb: the batch row's ids; rows past
+// S read the last id, and are never written).
+template <bool SEG>
 __device__ __forceinline__ float masked_score(float s, float sm_scale,
                                               int qrow, int kcol, int offset,
-                                              int causal, int s_k) {
+                                              int causal, int s_k,
+                                              const float* segb) {
   if (kcol >= s_k) return __int_as_float(0xff800000);   // -inf
   s *= sm_scale;
-  return causal && qrow + offset < kcol ? kNegInf : s;
+  if (causal && qrow + offset < kcol) return kNegInf;
+  if constexpr (SEG)
+    if (segb[min(qrow, s_k - 1)] != segb[kcol]) return kNegInf;
+  return s;
 }
 
 // One online-softmax step over a 64 x 64 score tile (raw q . k products in
@@ -245,22 +270,25 @@ __device__ __forceinline__ float masked_score(float s, float sm_scale,
 // lane + 32), write p = exp(s - m_new) to p (row stride LDP; may alias s)
 // and the row's rescale factor exp(m_old - m_new) to alpha_s.  With DROP
 // the p written for P V is the dropped one; l sums the undropped p.
-template <int LDS, int LDP, bool DROP, typename P>
+template <int LDS, int LDP, bool SEG, bool DROP, typename P>
 __device__ __forceinline__ void softmax_step(const float* s, P* p,
                                              float* alpha_s, float m[8],
                                              float l[8], int row0, int col0,
                                              int offset, int causal, int s_k,
                                              float sm_scale,
                                              const Dropout& dr,
-                                             unsigned bhq) {
+                                             unsigned bhq,
+                                             const float* segb) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int rr = 0; rr < 8; ++rr) {
     const int r = warp * 8 + rr;
-    const float s0 = masked_score(s[r * LDS + lane], sm_scale, row0 + r,
-                                  col0 + lane, offset, causal, s_k);
-    const float s1 = masked_score(s[r * LDS + lane + 32], sm_scale, row0 + r,
-                                  col0 + lane + 32, offset, causal, s_k);
+    const float s0 = masked_score<SEG>(s[r * LDS + lane], sm_scale, row0 + r,
+                                       col0 + lane, offset, causal, s_k,
+                                       segb);
+    const float s1 = masked_score<SEG>(s[r * LDS + lane + 32], sm_scale,
+                                       row0 + r, col0 + lane + 32, offset,
+                                       causal, s_k, segb);
     const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
     float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
     const float alpha = expf(m[rr] - m_new);
@@ -277,13 +305,13 @@ __device__ __forceinline__ void softmax_step(const float* s, P* p,
   }
 }
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, View qv, View kv, View vv, View ov,
               int hq, int hkv, int s_q, int s_k, int causal, float sm_scale,
-              Dropout dr) {
+              Dropout dr, const float* __restrict__ seg) {
   constexpr int LD = D + 1;
   constexpr int JD = D / 16;
   extern __shared__ float smem[];
@@ -303,6 +331,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* kb = k + kv.at(b, 0, hk);
   const T* vb = v + vv.at(b, 0, hk);
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
 
   load_tile<T, D>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
 
@@ -331,9 +360,10 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_s[r * kLDS + c] = sc[i][j];
       }
     __syncthreads();
-    softmax_step<kLDS, kLDS, DROP>(p_s, p_s, alpha_s, m, l, row0,
-                                   kt * kTile, offset, causal, s_k, sm_scale,
-                                   dr, (unsigned)(b * hq + h));
+    softmax_step<kLDS, kLDS, SEG, DROP>(p_s, p_s, alpha_s, m, l, row0,
+                                        kt * kTile, offset, causal, s_k,
+                                        sm_scale, dr, (unsigned)(b * hq + h),
+                                        segb);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -387,7 +417,7 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* delta_s,
 // p = exp(s - lse) and ds = p * (dp - delta) * sm_scale of a tile pair
 // (q rows ty + 16 i, k cols tx + 16 j); writes ds, and p when p_s is set.
 // With DROP, dp and the p written (dV's) are the dropped ones.
-template <int D, bool DROP>
+template <int D, bool SEG, bool DROP>
 __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
                                          const float* k_s, const float* v_s,
                                          const float* lse_s,
@@ -395,7 +425,7 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
                                          float* ds_s, int qrow0, int kcol0,
                                          int offset, int causal, int s_k,
                                          float sm_scale, const Dropout& dr,
-                                         unsigned bhq) {
+                                         unsigned bhq, const float* segb) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float sc[4][4], dp[4][4];
   mm_abt<D>(q_s, k_s, sc);
@@ -405,8 +435,8 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
-      const float s = masked_score(sc[i][j], sm_scale, qrow0 + r, kcol0 + c,
-                                   offset, causal, s_k);
+      const float s = masked_score<SEG>(sc[i][j], sm_scale, qrow0 + r,
+                                        kcol0 + c, offset, causal, s_k, segb);
       const float p = expf(s - lse_s[r]);
       float pd = p, dpd = dp[i][j];
       if constexpr (DROP) {
@@ -419,7 +449,7 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
     }
 }
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
@@ -427,7 +457,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, View qv, View kv, View vv, View dov,
                   View dkv, View dvv, int hq, int hkv, int s_q, int s_k,
-                  int causal, float sm_scale, Dropout dr) {
+                  int causal, float sm_scale, Dropout dr,
+                  const float* __restrict__ seg) {
   constexpr int LD = D + 1;
   constexpr int JD = D / 16;
   extern __shared__ float smem[];
@@ -445,6 +476,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rep = hq / hkv;
   const int offset = s_k - s_q;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
 
   load_tile<T, D>(k_s, k + kv.at(b, 0, hk), kv.ss, col0, s_k);
   load_tile<T, D>(v_s, v + vv.at(b, 0, hk), vv.ss, col0, s_k);
@@ -468,9 +500,9 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_tile<T, D>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
       load_stats(lse_s, delta_s, lse, delta, row_base, row0, s_q);
       __syncthreads();
-      p_and_ds<D, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, row0,
-                        col0, offset, causal, s_k, sm_scale, dr,
-                        (unsigned)(b * hq + h));
+      p_and_ds<D, SEG, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s,
+                             row0, col0, offset, causal, s_k, sm_scale, dr,
+                             (unsigned)(b * hq + h), segb);
       __syncthreads();
       mm_atb<D>(p_s, do_s, dv_acc);         // dv += p^T do
       mm_atb<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
@@ -492,7 +524,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -500,7 +532,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ delta, T* __restrict__ dq,
                  View qv, View kv, View vv, View dov, View dqv, int hq,
                  int hkv, int s_q, int s_k, int causal, float sm_scale,
-                 Dropout dr) {
+                 Dropout dr, const float* __restrict__ seg) {
   constexpr int LD = D + 1;
   constexpr int JD = D / 16;
   extern __shared__ float smem[];
@@ -519,6 +551,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const T* kb = k + kv.at(b, 0, hk);
   const T* vb = v + vv.at(b, 0, hk);
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
 
   load_tile<T, D>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
   load_tile<T, D>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
@@ -537,9 +570,9 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(k_s, kb, kv.ss, kt * kTile, s_k);
     load_tile<T, D>(v_s, vb, vv.ss, kt * kTile, s_k);
     __syncthreads();
-    p_and_ds<D, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s,
-                      row0, kt * kTile, offset, causal, s_k, sm_scale, dr,
-                      (unsigned)(b * hq + h));
+    p_and_ds<D, SEG, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr,
+                           ds_s, row0, kt * kTile, offset, causal, s_k,
+                           sm_scale, dr, (unsigned)(b * hq + h), segb);
     __syncthreads();
     mm_ab<D>(ds_s, k_s, acc);               // dq += ds k
   }
@@ -605,6 +638,13 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #define FA_DQ_REGA64 1         // dQ at D = 64 holds each warp's Q and dO
 #endif                         // fragments in registers (0: reloads them
                                // per k-step, as it always does at D = 128)
+#ifndef FA_DQ_SEG_REGA64
+#define FA_DQ_SEG_REGA64 1     // the same for dQ's segment branch
+#endif
+#ifndef FA_DQ_SEG_MINB
+#define FA_DQ_SEG_MINB 2       // dQ's segment branch: blocks per SM at D = 64
+#endif                         // (at 3 or 4 it spills, with or without the
+                               // fragments in registers)
 
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kKeyTile = 64;           // keys per forward k tile
@@ -624,6 +664,32 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
   }
 }
 
+// With SEG, which of a thread's scores of one tile stay inside a segment, as
+// bits: bit 4 i + 2 r + c is set where fragment row row0 + 8 r and column
+// col0 + 8 i + c (i < N: the thread's n-tiles, c: its 2 columns of each)
+// hold the same id.  Built once per tile from the ids in device memory (a
+// tile's ids are L1-resident across the block), so that the loop over the
+// scores holds one register for the segment mask (n = S, the clamp for
+// rows and columns past it, which are never kept or written).
+template <int N>
+__device__ __forceinline__ unsigned segment_bits(const float* segb, int row0,
+                                                 int col0, int n) {
+  float rs[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rs[r] = segb[min(row0 + 8 * r, n - 1)];
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float cs = segb[min(col0 + 8 * i + c, n - 1)];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bits |= (unsigned)(rs[r] == cs) << (4 * i + 2 * r + c);
+    }
+  return bits;
+}
+
 // number of 64-key tiles that a q tile of rows [row0, row0 + R) visits
 __device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
                                          int causal) {
@@ -636,15 +702,17 @@ __device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
 // Forward, bf16.  A block takes 16 x NW q rows of one (batch, q head);
 // warp w owns rows 16 w .. 16 w + 15 and keeps their Q fragments, S, P and
 // the O accumulator in registers.  The q tiles with the most key tiles are
-// launched first (grid y counts down), so the causal tail is short.
-template <int D, int NW, int NS, bool DROP>
+// launched first (grid y counts down), so the causal tail is short.  With
+// SEG every tile is masked, under the tile's segment bits.
+template <int D, int NW, int NS, bool SEG, bool DROP>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? FA_FWD_MINB : 1)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   View qv, View kv, View vv, View ov, int hq, int hkv,
-                  int s_q, int s_k, int causal, float sm_scale, Dropout dr) {
+                  int s_q, int s_k, int causal, float sm_scale, Dropout dr,
+                  const float* __restrict__ seg) {
   constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
   constexpr int KS = D / 16;                // k-steps of Q K^T
   constexpr int NO = D / 8;                 // n-tiles of O
@@ -687,6 +755,7 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};   // rows g, g + 8 (l: this
                                                  // lane's columns only)
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
   for (int kt = 0; kt < n_kt; ++kt) {
     if constexpr (NS == 1) {
       if (kt > 0) {
@@ -725,13 +794,17 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys (its scores are scaled here, and a masked one is NEG_INF
-    // exactly); a full tile stays raw and takes the scale in the exponent's
-    // FFMA (the scale is positive, so the max commutes with it)
+    // of the keys, or every tile with SEG (its scores are scaled here, and a
+    // masked one is NEG_INF exactly); a full tile stays raw and takes the
+    // scale in the exponent's FFMA (the scale is positive, so the max
+    // commutes with it)
     const int kcol0 = kt * BN;
-    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
+    const bool masked = SEG || (causal && kcol0 + BN - 1 > wrow + offset) ||
                         kcol0 + BN > s_k;
     if (masked) {
+      unsigned same = 0;
+      if constexpr (SEG)
+        same = segment_bits<BN / 8>(segb, wrow + g, kcol0 + 2 * t, s_k);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -741,6 +814,7 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           float x = s[j][e] * scale2;
           if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
           else if (causal && row + offset < col) x = neg2;
+          else if (SEG && !((same >> (4 * j + e)) & 1u)) x = neg2;
           s[j][e] = x;
         }
     }
@@ -830,7 +904,7 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // pairs (2^-16 relative, as the TPU kernel's f32).  Q, dO, lse and delta
 // tiles stream through the cp.async ring.  The key blocks with the most q
 // tiles (the first ones, when causal) are launched first.
-template <int D, int NW, int BQ, int NS, bool DROP>
+template <int D, int NW, int BQ, int NS, bool SEG, bool DROP>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DKV_MINB : 1)
 fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -842,7 +916,7 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dv, View qv, View kv,
                       View vv, View dov, View dkv, View dvv, int hq, int hkv,
                       int s_q, int s_k, int causal, float sm_scale,
-                      Dropout dr) {
+                      Dropout dr, const float* __restrict__ seg) {
   constexpr int BK = 16 * NW, NTHR = NW * 32;
   constexpr int KS = D / 16;                // k-steps of K Q^T
   constexpr int NQ = BQ / 8;                // n-tiles of S^T (q columns)
@@ -898,6 +972,7 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const float scale2 = sm_scale * kLog2e;
   const float neg2 = kNegInf * kLog2e;
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
   float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -960,6 +1035,11 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const unsigned kcell = (unsigned)(wk0 >> 4) * 4u + (g >> 1);
     const bool odd = g & 1;
     const bool masked = causal && row0 + offset < wk0 + 15;
+    // with SEG: the tile's segment bits, fragment rows = the thread's keys
+    // g and g + 8, columns = its q rows
+    unsigned same = 0;
+    if constexpr (SEG)
+      same = segment_bits<NQ>(segb, wk0 + g, row0 + 2 * t, s_k);
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
@@ -985,6 +1065,7 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (masked && row0 + 8 * j + 2 * t + (e & 1) + offset <
                           wk0 + g + 8 * (e >> 1))
           x = neg2;
+        if (SEG && !((same >> (4 * j + e)) & 1u)) x = neg2;
         const float p = fast_exp2(x - lse2);
         if constexpr (DROP) {
           sc[j][e] = dropped(dr, kw[e], p);
@@ -1052,9 +1133,12 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // enters dQ += ds K with K read as B (k x n, the transposed ldmatrix), so S
 // and dP live 16 keys at a time.  The q blocks with the most key tiles are
 // launched first.  dQ is rounded to bf16 once, staged in the warp's own rows
-// of the Q tile and written as 16-byte row chunks.
-template <int D, int NW, int NS, bool RA, bool DROP>
-__global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DQ_MINB : 1)
+// of the Q tile and written as 16-byte row chunks.  With SEG every tile is
+// masked, under the tile's segment bits.
+template <int D, int NW, int NS, bool RA, bool SEG, bool DROP>
+__global__ void __launch_bounds__(NW * 32,
+                                  D == 64 ? (SEG ? FA_DQ_SEG_MINB
+                                                 : FA_DQ_MINB) : 1)
 fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -1063,7 +1147,8 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dq, View qv, View kv,
                      View vv, View dov, View dqv, int hq, int hkv, int s_q,
-                     int s_k, int causal, float sm_scale, Dropout dr) {
+                     int s_k, int causal, float sm_scale, Dropout dr,
+                     const float* __restrict__ seg) {
   constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
   constexpr int KS = D / 16;                // k-steps of Q K^T and dO V^T
   constexpr int NO = D / 8;                 // n-tiles of dQ
@@ -1113,6 +1198,7 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
     dlt[r] = row < s_q ? delta[at] : 0.f;
   }
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
 
   cp_async_wait<(NS > 1 ? NS - 1 : 1)>();   // Q and dO have landed
   __syncthreads();
@@ -1152,11 +1238,14 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* ks = k_s + (kt % NS) * BN * D;
     const __nv_bfloat16* vs = v_s + (kt % NS) * BN * D;
     // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys: its scores are scaled first and a masked one is NEG_INF
-    // exactly (-inf past the keys); a full tile takes the scale in the
-    // exponent's FFMA
-    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
+    // of the keys, or every tile with SEG: its scores are scaled first and a
+    // masked one is NEG_INF exactly (-inf past the keys); a full tile takes
+    // the scale in the exponent's FFMA
+    const bool masked = SEG || (causal && kcol0 + BN - 1 > wrow + offset) ||
                         kcol0 + BN > s_k;
+    unsigned same = 0;                      // n-tile 2 np + j of the tile
+    if constexpr (SEG)
+      same = segment_bits<BN / 8>(segb, wrow + g, kcol0 + 2 * t, s_k);
 
 #pragma unroll
     for (int np = 0; np < BN / 16; ++np) {  // keys kcol0 + 16 np .. + 15
@@ -1196,6 +1285,8 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
             x = s[j][e] * scale2;
             if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
             else if (causal && row + offset < col) x = neg2;
+            else if (SEG && !((same >> (4 * (2 * np + j) + e)) & 1u))
+              x = neg2;
             x -= lse2[e >> 1];
           } else {
             x = fmaf(s[j][e], scale2, -lse2[e >> 1]);
@@ -1288,14 +1379,15 @@ constexpr int dq_mma_smem() {
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool SEG, bool DROP>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, const long long* st, const Geometry& g,
-                const Dropout& dr, cudaStream_t stream) {
+                const Dropout& dr, const float* seg, cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_FWD_WARPS;
     constexpr int smem = fwd_mma_smem<D>();
-    const auto kernel = fa_fwd_mma_kernel<D, FA_FWD_WARPS, FA_STAGES, DROP>;
+    const auto kernel =
+        fa_fwd_mma_kernel<D, FA_FWD_WARPS, FA_STAGES, SEG, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1304,34 +1396,34 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale, dr);
+        g.s_k, g.causal, g.sm_scale, dr, seg);
     return cudaGetLastError();
   } else {
     const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
     constexpr int smem = fwd_smem<D>();
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D, DROP>, smem);
+    cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D, SEG, DROP>, smem);
     if (err != cudaSuccess) return err;
-    fa_fwd_kernel<T, D, DROP><<<grid, kThreads, smem, stream>>>(
+    fa_fwd_kernel<T, D, SEG, DROP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale, dr);
+        g.s_k, g.causal, g.sm_scale, dr, seg);
     return cudaGetLastError();
   }
 }
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool SEG, bool DROP>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, const long long* st,
-                    const Geometry& g, const Dropout& dr,
+                    const Geometry& g, const Dropout& dr, const float* seg,
                     cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     constexpr int keys = 16 * FA_DKV_WARPS;
     constexpr int smem = dkv_mma_smem<D>();
-    const auto kernel =
-        fa_bwd_dkv_mma_kernel<D, FA_DKV_WARPS, dkv_bq<D>(), FA_STAGES, DROP>;
+    const auto kernel = fa_bwd_dkv_mma_kernel<D, FA_DKV_WARPS, dkv_bq<D>(),
+                                              FA_STAGES, SEG, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1341,34 +1433,38 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr);
+        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr,
+        seg);
     return cudaGetLastError();
   } else {
     const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
     constexpr int smem = dkv_smem<D>();
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_bwd_dkv_kernel<T, D, DROP>, smem);
+    cudaError_t err =
+        allow_smem(done, fa_bwd_dkv_kernel<T, D, SEG, DROP>, smem);
     if (err != cudaSuccess) return err;
-    fa_bwd_dkv_kernel<T, D, DROP><<<grid, kThreads, smem, stream>>>(
+    fa_bwd_dkv_kernel<T, D, SEG, DROP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr);
+        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr,
+        seg);
     return cudaGetLastError();
   }
 }
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool SEG, bool DROP>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, const long long* st, const Geometry& g,
-                   const Dropout& dr, cudaStream_t stream) {
+                   const Dropout& dr, const float* seg, cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_DQ_WARPS;
     constexpr int smem = dq_mma_smem<D>();
-    const auto kernel = fa_bwd_dq_mma_kernel<D, FA_DQ_WARPS, FA_STAGES,
-                                             D == 64 && FA_DQ_REGA64, DROP>;
+    const auto kernel = fa_bwd_dq_mma_kernel<
+        D, FA_DQ_WARPS, FA_STAGES,
+        D == 64 && (SEG ? FA_DQ_SEG_REGA64 : FA_DQ_REGA64), SEG, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1378,36 +1474,40 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
         view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale, dr);
+        g.sm_scale, dr, seg);
     return cudaGetLastError();
   } else {
     const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
     constexpr int smem = dq_smem<D>();
     static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_bwd_dq_kernel<T, D, DROP>, smem);
+    cudaError_t err =
+        allow_smem(done, fa_bwd_dq_kernel<T, D, SEG, DROP>, smem);
     if (err != cudaSuccess) return err;
-    fa_bwd_dq_kernel<T, D, DROP><<<grid, kThreads, smem, stream>>>(
+    fa_bwd_dq_kernel<T, D, SEG, DROP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
         view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale, dr);
+        g.sm_scale, dr, seg);
     return cudaGetLastError();
   }
 }
 
-inline bool valid(const Geometry& g) {
+// segment ids need one sequence length for the q rows and the keys
+inline bool valid(const Geometry& g, const void* seg) {
   return g.batch > 0 && g.hkv > 0 && g.hq % g.hkv == 0 && g.s_q > 0 &&
-         g.s_k > 0;
+         g.s_k > 0 && (seg == nullptr || g.s_q == g.s_k);
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128; a dropout
-// threshold of 0 takes the instantiation without the dropout branch
+// threshold of 0 takes the instantiation without the dropout branch, and a
+// null segment pointer the one without the segment branch
+#define FA_DISPATCH_SD(CALL, T, D)                                          \
+  if (sg) return dr.thresh ? CALL(T, D, true, true) : CALL(T, D, true, false); \
+  return dr.thresh ? CALL(T, D, false, true) : CALL(T, D, false, false);
 #define FA_DISPATCH_D(CALL, T)                                              \
-  if (head_dim == 64)                                                       \
-    return dr.thresh ? CALL(T, 64, true) : CALL(T, 64, false);              \
-  if (head_dim == 128)                                                      \
-    return dr.thresh ? CALL(T, 128, true) : CALL(T, 128, false);
+  if (head_dim == 64) { FA_DISPATCH_SD(CALL, T, 64) }                       \
+  if (head_dim == 128) { FA_DISPATCH_SD(CALL, T, 128) }
 #define FA_DISPATCH(CALL)                                                   \
   if (dtype == 0) { FA_DISPATCH_D(CALL, float) }                            \
   if (dtype == 1) { FA_DISPATCH_D(CALL, __nv_bfloat16) }                    \
@@ -1418,18 +1518,22 @@ inline bool valid(const Geometry& g) {
 // strides: q, k, v, o as (batch, seq, head) element strides, 12 values.
 // Every entry ends with the dropout arguments: the keep threshold
 // (uint32(rate * 2^32); 0 = no dropout), 1 / (1 - rate) and the seed's low
-// and high words.
+// and high words; then the segment ids, f32 [B, S] with S = s_q = s_k, or
+// null for none.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
     int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
-    float drop_scale, unsigned seed_lo, unsigned seed_hi, void* stream) {
+    float drop_scale, unsigned seed_lo, unsigned seed_hi, const void* seg,
+    void* stream) {
   const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
-  if (!valid(g)) return cudaErrorInvalidValue;
+  if (!valid(g, seg)) return cudaErrorInvalidValue;
   const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sg = static_cast<const float*>(seg);
   float* l = static_cast<float*>(lse);
-#define FA_FWD(T, D, DROP) fwd<T, D, DROP>(q, k, v, o, l, strides, g, dr, s)
+#define FA_FWD(T, D, SEG, DROP) \
+  fwd<T, D, SEG, DROP>(q, k, v, o, l, strides, g, dr, sg, s)
   FA_DISPATCH(FA_FWD)
 #undef FA_FWD
 }
@@ -1440,15 +1544,17 @@ extern "C" int flash_attention_bwd_dkv_launch(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
     int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
-    float drop_scale, unsigned seed_lo, unsigned seed_hi, void* stream) {
+    float drop_scale, unsigned seed_lo, unsigned seed_hi, const void* seg,
+    void* stream) {
   const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
-  if (!valid(g)) return cudaErrorInvalidValue;
+  if (!valid(g, seg)) return cudaErrorInvalidValue;
   const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sg = static_cast<const float*>(seg);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define FA_DKV(T, D, DROP) \
-  bwd_dkv<T, D, DROP>(q, k, v, dout, l, dl, dk, dv, strides, g, dr, s)
+#define FA_DKV(T, D, SEG, DROP) \
+  bwd_dkv<T, D, SEG, DROP>(q, k, v, dout, l, dl, dk, dv, strides, g, dr, sg, s)
   FA_DISPATCH(FA_DKV)
 #undef FA_DKV
 }
@@ -1459,15 +1565,16 @@ extern "C" int flash_attention_bwd_dq_launch(
     const void* lse, const void* delta, void* dq, const long long* strides,
     int batch, int hq, int hkv, int s_q, int s_k, int head_dim, int dtype,
     int causal, float sm_scale, unsigned thresh, float drop_scale,
-    unsigned seed_lo, unsigned seed_hi, void* stream) {
+    unsigned seed_lo, unsigned seed_hi, const void* seg, void* stream) {
   const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
-  if (!valid(g)) return cudaErrorInvalidValue;
+  if (!valid(g, seg)) return cudaErrorInvalidValue;
   const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sg = static_cast<const float*>(seg);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define FA_DQ(T, D, DROP) \
-  bwd_dq<T, D, DROP>(q, k, v, dout, l, dl, dq, strides, g, dr, s)
+#define FA_DQ(T, D, SEG, DROP) \
+  bwd_dq<T, D, SEG, DROP>(q, k, v, dout, l, dl, dq, strides, g, dr, sg, s)
   FA_DISPATCH(FA_DQ)
 #undef FA_DQ
 }

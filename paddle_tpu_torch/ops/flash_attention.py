@@ -20,9 +20,16 @@ tensors — the device of the tensors is the only thing that picks:
 :func:`flash_attention` is the differentiable op (a ``torch.autograd.Function``
 that saves ``(q, k, v, o, lse)`` and never reruns the forward).  It returns
 ``None`` for shapes the kernels do not take (:func:`_supported`), so that
-the caller runs plain attention, as the JAX dispatch does.  Segment ids
-and the pad-to-tile path of the JAX op are not ported yet and raise
-``NotImplementedError``.
+the caller runs plain attention, as the JAX dispatch does.
+
+Segment ids (the TPU kernels' ``has_segments`` branch) run inside all
+three kernels: with ``segment_ids`` [B, S] (s_q == s_k), a score whose q
+row and key lie in different segments is NEG_INF, as in JAX; each
+wrapper also counts those launches in ``.segment_launches``.  They are
+how :func:`flash_attention` takes a long untileable sequence
+(:func:`_pad_to_tile`: S >= 384 padded to the 128 tile, the padding in a
+segment of its own) and how ``nn.functional.flash_attn_unpadded`` runs
+packed varlen attention.
 
 Attention dropout (the TPU kernels' ``dropout_rate > 0`` branch) runs
 inside all three kernels: each score's keep bit is one 32-bit word of
@@ -97,14 +104,21 @@ def _seq_first(x, b, h, dtype):
     return x.reshape(b, h, s, d).permute(0, 2, 1, 3).to(dtype).contiguous()
 
 
-def _scores(q, k, causal, sm_scale):
-    """f32 scores [B*Hq, S_q, S_k] with masked entries at NEG_INF."""
+def _scores(q, k, causal, sm_scale, segment_ids=None):
+    """f32 scores [B*Hq, S_q, S_k] with masked entries at NEG_INF: past the
+    causal frontier, and, with ``segment_ids`` [B, S], between a q row and
+    a key of different segments (the ids compared as f32, as JAX does)."""
     hq = q.shape[2]
     s = torch.einsum("bqd,bkd->bqk", _heads_first(q),
                      _heads_first(_rep_kv(k, hq))) * sm_scale
     if causal:
         s = torch.where(_mask(q.shape[1], k.shape[1], q.device), s,
                         torch.full_like(s, NEG_INF))
+    if segment_ids is not None:
+        seg = segment_ids.float()
+        same = (seg[:, :, None] == seg[:, None, :]).repeat_interleave(hq,
+                                                                      dim=0)
+        s = torch.where(same, s, torch.full_like(s, NEG_INF))
     return s
 
 
@@ -201,14 +215,15 @@ def _drop_factor(seed, b, hq, s_q, s_k, rate, device):
 
 # -- plain versions ----------------------------------------------------------
 def flash_attention_fwd_ref(q, k, v, causal, sm_scale, dropout_rate=0.0,
-                            seed=0):
+                            seed=0, segment_ids=None):
     """The forward kernel's function in plain PyTorch: o [B, S_q, Hq, D] in
     q's dtype and lse [B*Hq, S_q] f32, with the kernel's finalize rules
     (o = acc / l where l > 0, lse = m + log(max(l, 1e-30))).  With
     dropout, P V takes p * keep / (1 - rate) under :func:`dropout_keep`;
-    l and lse keep the undropped p (the TPU kernel's rule)."""
+    l and lse keep the undropped p (the TPU kernel's rule).  With
+    ``segment_ids`` [B, S], attention stays within equal ids."""
     b, _, hq, _ = q.shape
-    s = _scores(q, k, causal, sm_scale)
+    s = _scores(q, k, causal, sm_scale, segment_ids)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -228,13 +243,14 @@ def pack_lse_ref(lse3):
 
 
 def _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale, dropout_rate,
-              seed):
+              seed, segment_ids):
     """The backward's recomputed p = exp(s - lse) (times the keep factor
     under dropout: dV's p) and ds = p * (dp * factor - delta) * sm_scale
-    (delta = rowsum(do * o) keeps its form: o holds the mask),
-    [B*Hq, S_q, S_k] f32."""
+    (delta = rowsum(do * o) keeps its form: o holds the mask), s masked
+    as the forward's, [B*Hq, S_q, S_k] f32."""
     b, _, hq, _ = q.shape
-    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    p = torch.exp(_scores(q, k, causal, sm_scale, segment_ids)
+                  - lse[..., None])
     dp = torch.einsum("bqd,bkd->bqk", _heads_first(do),
                       _heads_first(_rep_kv(v, hq)))
     pd = p
@@ -253,15 +269,15 @@ def _sum_groups(x, b, hq, hkv):
 
 
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale,
-                                dropout_rate=0.0, seed=0):
+                                dropout_rate=0.0, seed=0, segment_ids=None):
     """dK and dV (FA2 formulas from the saved lse and delta, summed over the
     GQA group) in k's and v's dtypes, [B, S_k, Hkv, D]; under dropout dV
     takes the masked p and ds the masked dp (the forward's mask, rebuilt
-    from the seed)."""
+    from the seed); ``segment_ids`` mask as in the forward."""
     b, _, hq, _ = q.shape
     hkv = k.shape[2]
     p, ds = _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale,
-                      dropout_rate, seed)
+                      dropout_rate, seed, segment_ids)
     dv = _sum_groups(torch.einsum("bqk,bqd->bkd", p, _heads_first(do)),
                      b, hq, hkv)
     dk = _sum_groups(torch.einsum("bqk,bqd->bkd", ds, _heads_first(q)),
@@ -270,12 +286,12 @@ def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale,
 
 
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, sm_scale,
-                               dropout_rate=0.0, seed=0):
+                               dropout_rate=0.0, seed=0, segment_ids=None):
     """dQ (FA2 formula from the saved lse and delta, the masked dp under
-    dropout) in q's dtype."""
+    dropout, ``segment_ids`` masking as in the forward) in q's dtype."""
     b, _, hq, _ = q.shape
     _, ds = _p_and_ds(q, k, v, do, lse, delta, causal, sm_scale,
-                      dropout_rate, seed)
+                      dropout_rate, seed, segment_ids)
     dq = torch.einsum("bqk,bkd->bqd", ds, _heads_first(_rep_kv(k, hq)))
     return _seq_first(dq, b, hq, q.dtype)
 
@@ -357,37 +373,55 @@ def _dropout_args(rate, seed):
     return (dropout_threshold(rate), dropout_scale(rate), *_seed_words(seed))
 
 
-def _call(fn_name, ptrs, strides, ints, sm_scale, dropout, dev):
+def _segments(segment_ids, b, s_q, s_k, dev):
+    """(buffer, pointer) of the segment ids as the C entries take them: a
+    contiguous f32 [B, S] buffer on the card (compared as f32, as JAX
+    compares them), or (None, 0) without segments, which launches the
+    kernels without the segment branch."""
+    if segment_ids is None:
+        return None, 0
+    if s_q != s_k or tuple(segment_ids.shape) != (b, s_q):
+        raise ValueError(f"segment_ids must be [B={b}, S={s_q}] with s_q == "
+                         f"s_k ({s_k}), got {tuple(segment_ids.shape)}")
+    seg = segment_ids.to(device=dev, dtype=torch.float32).contiguous()
+    return seg, seg.data_ptr()
+
+
+def _call(fn_name, ptrs, strides, ints, sm_scale, dropout, seg, dev):
     _build.launch("flash_attention", fn_name,
                   [ctypes.c_void_p] * (len(ptrs) + 1)
                   + [ctypes.c_int] * len(ints)
                   + [ctypes.c_float, ctypes.c_uint, ctypes.c_float,
-                     ctypes.c_uint, ctypes.c_uint],
+                     ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
                   [*ptrs, ctypes.cast(strides, ctypes.c_void_p), *ints,
-                   float(sm_scale), *dropout], dev)
+                   float(sm_scale), *dropout, seg], dev)
 
 
-def _count(fn, dropout_rate):
+def _count(fn, dropout_rate, segment_ids):
     fn.launches += 1
     if dropout_rate > 0.0:
         fn.dropout_launches += 1
+    if segment_ids is not None:
+        fn.segment_launches += 1
 
 
 def flash_attention_fwd(q, k, v, causal, sm_scale, dropout_rate=0.0,
-                        seed=0):
+                        seed=0, segment_ids=None):
     """q [B, S_q, Hq, D], k/v [B, S_k, Hkv, D] -> (o [B, S_q, Hq, D] in q's
     dtype, lse [B*Hq, S_q] f32).  CUDA tensors (f32 or bf16, D in
     {64, 128}) launch ``flash_attention_fwd_launch`` and add one to
     ``flash_attention_fwd.launches`` (and, with ``dropout_rate`` > 0, to
     ``.dropout_launches``: the kernel's dropout branch, masked by
-    :func:`dropout_keep` of ``seed``); CPU tensors run
+    :func:`dropout_keep` of ``seed``; with ``segment_ids`` [B, S], to
+    ``.segment_launches``: its segment branch); CPU tensors run
     :func:`flash_attention_fwd_ref`."""
     if not _build.on_card("flash_attention_fwd", q):
         return flash_attention_fwd_ref(q, k, v, causal, sm_scale,
-                                       dropout_rate, seed)
+                                       dropout_rate, seed, segment_ids)
     q, k, v = _as_rows(q), _as_rows(k), _as_rows(v)
     dev = _check("flash_attention_fwd", (q, k, v))
     b, hq, hkv, s_q, s_k, d = _geometry(q, k)
+    seg, seg_ptr = _segments(segment_ids, b, s_q, s_k, dev)
     o = torch.empty(q.shape, dtype=q.dtype, device=dev)
     lse = torch.empty((b * hq, s_q), dtype=torch.float32, device=dev)
     _call("flash_attention_fwd_launch",
@@ -395,8 +429,8 @@ def flash_attention_fwd(q, k, v, causal, sm_scale, dropout_rate=0.0,
            lse.data_ptr()], _strides(q, k, v, o),
           [b, hq, hkv, s_q, s_k, d, _build.DTYPE_CODE[q.dtype],
            int(bool(causal))],
-          sm_scale, _dropout_args(dropout_rate, seed), dev)
-    _count(flash_attention_fwd, dropout_rate)
+          sm_scale, _dropout_args(dropout_rate, seed), seg_ptr, dev)
+    _count(flash_attention_fwd, dropout_rate, seg)
     return o, lse
 
 
@@ -424,10 +458,11 @@ def pack_lse(lse3):
 
 
 def _bwd_launch(fn_name, q, k, v, do, lse, delta, causal, sm_scale,
-                dropout_rate, seed, outs):
+                dropout_rate, seed, segment_ids, outs):
     q, k, v, do = (_as_rows(t) for t in (q, k, v, do))
     dev = _check(fn_name, (q, k, v, do))
     b, hq, hkv, s_q, s_k, d = _geometry(q, k)
+    seg, seg_ptr = _segments(segment_ids, b, s_q, s_k, dev)
     lse = _stats(lse, b * hq, s_q, "lse")
     delta = _stats(delta, b * hq, s_q, "delta")
     grads = [torch.empty(like.shape, dtype=like.dtype, device=dev)
@@ -437,55 +472,61 @@ def _bwd_launch(fn_name, q, k, v, do, lse, delta, causal, sm_scale,
           _strides(q, k, v, do, *grads),
           [b, hq, hkv, s_q, s_k, d, _build.DTYPE_CODE[q.dtype],
            int(bool(causal))],
-          sm_scale, _dropout_args(dropout_rate, seed), dev)
-    return grads
+          sm_scale, _dropout_args(dropout_rate, seed), seg_ptr, dev)
+    return grads, seg
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale,
-                            dropout_rate=0.0, seed=0):
+                            dropout_rate=0.0, seed=0, segment_ids=None):
     """(dk, dv) [B, S_k, Hkv, D] from the saved lse and
     ``delta = rowsum(do * o)`` (both [B*Hq, S_q] f32), under the forward's
-    dropout mask when ``dropout_rate`` > 0 (rebuilt from ``seed``).  CUDA
-    tensors launch ``flash_attention_bwd_dkv_launch`` and add one to
-    ``flash_attention_bwd_dkv.launches`` (and ``.dropout_launches``); CPU
-    tensors run :func:`flash_attention_bwd_dkv_ref`."""
+    dropout mask when ``dropout_rate`` > 0 (rebuilt from ``seed``) and its
+    segments.  CUDA tensors launch ``flash_attention_bwd_dkv_launch`` and
+    add one to ``flash_attention_bwd_dkv.launches`` (and
+    ``.dropout_launches``, ``.segment_launches``); CPU tensors run
+    :func:`flash_attention_bwd_dkv_ref`."""
     if not _build.on_card("flash_attention_bwd_dkv", q):
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
-                                           sm_scale, dropout_rate, seed)
-    dk, dv = _bwd_launch("flash_attention_bwd_dkv_launch", q, k, v, do, lse,
-                         delta, causal, sm_scale, dropout_rate, seed, (k, v))
-    _count(flash_attention_bwd_dkv, dropout_rate)
+                                           sm_scale, dropout_rate, seed,
+                                           segment_ids)
+    (dk, dv), seg = _bwd_launch("flash_attention_bwd_dkv_launch", q, k, v,
+                                do, lse, delta, causal, sm_scale,
+                                dropout_rate, seed, segment_ids, (k, v))
+    _count(flash_attention_bwd_dkv, dropout_rate, seg)
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
-                           dropout_rate=0.0, seed=0):
+                           dropout_rate=0.0, seed=0, segment_ids=None):
     """dq [B, S_q, Hq, D]; arguments as :func:`flash_attention_bwd_dkv`.
     CUDA tensors launch ``flash_attention_bwd_dq_launch`` and add one to
-    ``flash_attention_bwd_dq.launches`` (and ``.dropout_launches``); CPU
-    tensors run :func:`flash_attention_bwd_dq_ref`."""
+    ``flash_attention_bwd_dq.launches`` (and ``.dropout_launches``,
+    ``.segment_launches``); CPU tensors run
+    :func:`flash_attention_bwd_dq_ref`."""
     if not _build.on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
-                                          sm_scale, dropout_rate, seed)
-    (dq,) = _bwd_launch("flash_attention_bwd_dq_launch", q, k, v, do, lse,
-                        delta, causal, sm_scale, dropout_rate, seed, (q,))
-    _count(flash_attention_bwd_dq, dropout_rate)
+                                          sm_scale, dropout_rate, seed,
+                                          segment_ids)
+    (dq,), seg = _bwd_launch("flash_attention_bwd_dq_launch", q, k, v, do,
+                             lse, delta, causal, sm_scale, dropout_rate, seed,
+                             segment_ids, (q,))
+    _count(flash_attention_bwd_dq, dropout_rate, seg)
     return dq
 
 
 for _fn in (flash_attention_fwd, flash_attention_bwd_dkv,
             flash_attention_bwd_dq):
-    _fn.launches = _fn.dropout_launches = 0
+    _fn.launches = _fn.dropout_launches = _fn.segment_launches = 0
 pack_lse.launches = 0
 
 
 def _bwd_call(res, g, causal, sm_scale, delta=None, dropout_rate=0.0,
-              seed=0):
+              seed=0, segment_ids=None):
     """The JAX ``_bwd_call``: (dq, dk, dv) from the forward's residuals
     ``(q, k, v, o, lse)`` and the output cotangent ``g``, under the
-    forward's dropout mask (rate and seed) when it had one.  delta =
-    rowsum(g * o) in f32 unless the caller passes it; 3-D [BH, S, 1] stats
-    are packed first."""
+    forward's dropout mask (rate and seed) and segments when it had them.
+    delta = rowsum(g * o) in f32 unless the caller passes it; 3-D
+    [BH, S, 1] stats are packed first."""
     q, k, v, o, lse = res
     b, s_q, hq, _ = q.shape
     if delta is None:
@@ -496,26 +537,29 @@ def _bwd_call(res, g, causal, sm_scale, delta=None, dropout_rate=0.0,
     if delta.dim() == 3:
         delta = pack_lse(delta)
     dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal,
-                                     sm_scale, dropout_rate, seed)
+                                     sm_scale, dropout_rate, seed,
+                                     segment_ids)
     dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale,
-                                dropout_rate, seed)
+                                dropout_rate, seed, segment_ids)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """The JAX ``_make_op`` custom VJP: the forward saves (q, k, v, o, lse)
-    and, under dropout, the rate and the seed; the backward runs the two
-    backward kernels on them, which rebuild the mask — the forward is never
-    rerun and the mask is never stored."""
+    and, under dropout, the rate and the seed, and the segment ids; the
+    backward runs the two backward kernels on them, which rebuild the mask
+    — the forward is never rerun and the mask is never stored.  The segment
+    ids are not differentiable (their gradient is None)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, dropout_rate, seed):
+    def forward(ctx, q, k, v, causal, dropout_rate, seed, segment_ids):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
         o, lse = flash_attention_fwd(q, k, v, causal, sm_scale, dropout_rate,
-                                     seed)
+                                     seed, segment_ids)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.dropout_rate, ctx.seed = dropout_rate, seed
+        ctx.segment_ids = segment_ids
         return o
 
     @staticmethod
@@ -523,8 +567,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd_call((q, k, v, o, lse), g.contiguous(), ctx.causal,
                                ctx.sm_scale, dropout_rate=ctx.dropout_rate,
-                               seed=ctx.seed)
-        return dq, dk, dv, None, None, None
+                               seed=ctx.seed, segment_ids=ctx.segment_ids)
+        return dq, dk, dv, None, None, None, None
 
 
 def _draw_seed(generator):
@@ -538,11 +582,32 @@ def _draw_seed(generator):
         generator=generator))
 
 
+def _pad_to_tile(q, k, v, segment_ids):
+    """The JAX ``_pad_to_tile``: q, k, v [B, S, H, D] padded with zero rows
+    to the next multiple of 128, and the segment ids (zeros when None) as
+    f32 [B, S_padded] with the padding in segment -1, which no real id
+    takes, so real rows never attend it.  Returns (q, k, v, segment ids,
+    S)."""
+    s = q.shape[1]
+    pad = (-s) % 128
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                  for x in (q, k, v))
+    seg = torch.zeros((q.shape[0], s), dtype=torch.float32, device=q.device) \
+        if segment_ids is None else segment_ids.float()
+    segp = torch.nn.functional.pad(seg, (0, pad), value=-1.0)
+    return qp, kp, vp, segp, s
+
+
 def flash_attention(q, k, v, causal=False, segment_ids=None,
                     dropout_rate=0.0, dropout_seed=None, generator=None):
     """[B, S, H, D] flash attention (GQA when k/v carry fewer heads);
     returns ``None`` for shapes the JAX package does not send to its kernel
-    (:func:`_supported`), so that the caller runs plain attention.
+    (:func:`_supported`), so that the caller runs plain attention.  An
+    untileable S = s_q = s_k of at least 384 is padded to the 128 tile
+    (:func:`_pad_to_tile`) and the output cut back to S.
+
+    ``segment_ids`` [B, S] (any numeric dtype) keeps attention within equal
+    ids, the varlen mask; it needs s_q == s_k (else ``None``).
 
     ``dropout_rate`` > 0 drops attention probabilities inside the kernels
     under :func:`dropout_keep` of ``dropout_seed`` (an int; ``None`` draws
@@ -552,20 +617,26 @@ def flash_attention(q, k, v, causal=False, segment_ids=None,
     drop = float(dropout_rate or 0.0)
     if drop >= 1.0:
         return torch.zeros_like(q)
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "flash_attention: segment ids are not ported yet")
+    unpad_to = None
     if not _supported(q.shape, k.shape, causal):
         s_q, s_k = q.shape[1], k.shape[1]
-        if s_q == s_k and s_q % 128 and s_q >= 384 and _supported(
-                q.shape[:1] + (128,) + q.shape[2:],
-                k.shape[:1] + (128,) + k.shape[2:], causal):
-            raise NotImplementedError(
-                "flash_attention: padding an untileable sequence to the "
-                "128-row tile is not ported yet")
-        return None
+        # the JAX rule: pad only long sequences; at short S its padded
+        # kernel lost to plain attention
+        tileable = (s_q == s_k and s_q % 128 != 0 and s_q >= 384
+                    and _supported(q.shape[:1] + (128,) + q.shape[2:],
+                                   k.shape[:1] + (128,) + k.shape[2:],
+                                   causal))
+        if not tileable:
+            return None
+        q, k, v, segment_ids, unpad_to = _pad_to_tile(q, k, v, segment_ids)
+    if segment_ids is not None:
+        if q.shape[1] != k.shape[1]:
+            return None
+        segment_ids = segment_ids.float()
     seed = 0
     if drop > 0.0:
         seed = _draw_seed(generator) if dropout_seed is None \
             else int(dropout_seed)
-    return _FlashAttention.apply(q, k, v, bool(causal), drop, seed)
+    out = _FlashAttention.apply(q, k, v, bool(causal), drop, seed,
+                                segment_ids)
+    return out if unpad_to is None else out[:, :unpad_to]

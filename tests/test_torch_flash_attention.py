@@ -4,7 +4,8 @@ f32.  The same numpy inputs feed both packages; the JAX kernels take
 [B*H, S, D] rows, the port [B, S, H, D].  Tolerances are the JAX suite's
 own: o and lse 2e-5, gradients 2e-4, the lse repack exact.  On CPU
 tensors the port's wrappers run their plain versions, so the kernel launch
-counters must not move."""
+counters must not move.  Segment ids (the varlen mask) and the pad-to-tile
+path of long untileable sequences are held the same way."""
 import importlib
 import math
 
@@ -160,6 +161,8 @@ def test_autograd_matches_jax_vjp():
 
 @pytest.mark.parametrize("q_shape,k_shape,causal", [
     ((1, 197, 1, 64), (1, 197, 1, 64), False),      # short untileable S
+    ((2, 577, 16, 64), (2, 577, 16, 64), False),    # ViT-L/16 at 384 px
+    ((2, 640, 16, 64), (2, 640, 16, 64), False),    # ... padded to the tile
     ((1, 128, 1, 300), (1, 128, 1, 300), False),    # head_dim > 256
     ((1, 128, 3, 64), (1, 128, 2, 64), False),      # heads not a multiple
     ((1, 256, 2, 64), (1, 128, 2, 64), True),       # causal s_q > s_k
@@ -182,19 +185,21 @@ def test_unsupported_shape_returns_none():
 
 
 def test_paths_not_ported_raise():
-    """Segment ids and pad-to-tile still raise; in-kernel dropout is
-    ported and runs (a seed, or one drawn from a host generator)."""
+    """Every path of the JAX op is ported and runs: segment ids and the
+    pad-to-tile path (S 400, which JAX pads to 512) return a finite output
+    of q's shape, and so does in-kernel dropout (a seed, or one drawn from
+    a host generator)."""
     q = torch.zeros((1, 128, 1, 64))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, segment_ids=torch.zeros((1, 128)))
+    out = tfa.flash_attention(q, q, q, segment_ids=torch.zeros((1, 128)))
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
     out = tfa.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
     out = tfa.flash_attention(q, q, q, dropout_rate=0.1,
                               generator=torch.Generator().manual_seed(0))
     assert out.shape == q.shape
     long = torch.zeros((1, 400, 1, 64))               # JAX pads it to 512
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(long, long, long)
+    out = tfa.flash_attention(long, long, long)
+    assert out.shape == long.shape and bool(torch.isfinite(out).all())
 
 
 # -- attention dropout ---------------------------------------------------------
@@ -203,11 +208,12 @@ DROP_SHAPES = [(1, 128, 128, 2, 2, 64), (2, 128, 128, 4, 2, 32),
 DROP_IDS = ["mha", "gqa4:2", "gqa4:1 sq<sk"]
 
 
-def _jax_masked_attention(q, k, v, factor, causal):
+def _jax_masked_attention(q, k, v, factor, causal, seg=None):
     """JAX's masked formula (the TPU kernel's, as
     ``test_pallas_kernels.py``'s dropout test writes it): softmax(s) times
     the factor keep / (1 - rate), then @ v; [B, S, H, D], GQA by repeating
-    K/V, f32."""
+    K/V, f32; with ``seg`` [B, S] the scores across segments are masked,
+    as ``test_pallas_kernels.py``'s ``_ref_sdpa_segments`` masks them."""
     hq = q.shape[2]
     k = jnp.repeat(k, hq // k.shape[2], axis=2)
     v = jnp.repeat(v, hq // v.shape[2], axis=2)
@@ -215,6 +221,9 @@ def _jax_masked_attention(q, k, v, factor, causal):
     if causal:
         sq, sk = s.shape[-2], s.shape[-1]
         s = jnp.where(jnp.tril(jnp.ones((sq, sk), bool), k=sk - sq), s,
+                      -jnp.inf)
+    if seg is not None:
+        s = jnp.where(seg[:, None, :, None] == seg[:, None, None, :], s,
                       -jnp.inf)
     p = jax.nn.softmax(s, axis=-1)
     return jnp.einsum("bhqk,bkhd->bqhd", p * factor, v)
@@ -492,3 +501,206 @@ def test_dropout_kernels_match_plain_versions_on_card():
         for dt in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 chip_smoke.check_masks(tfa, shape, dt, causal, seed, rate)
+
+
+# -- segment ids (the varlen mask) and the pad-to-tile path -------------------
+def _two_segments(b, s, first):
+    """[B, S] int32 ids: ``first`` rows of segment 0, the rest segment 1
+    (the JAX suite's packed pair)."""
+    return np.concatenate([np.zeros(first), np.ones(s - first)])[None] \
+        .repeat(b, 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_segment_forward_matches_pallas_interpret(causal):
+    """The JAX suite's case (``test_pallas_kernels.py:214``): S 256, ids
+    [0]*100 + [1]*156 (the boundary inside a tile), o and lse of the plain
+    forward against ``flash_attention_fwd_kernel_call(segment_ids=...)``
+    in interpret mode, and the op against the Pallas op, within 2e-5."""
+    b, s, h, d = 2, 256, 2, 64
+    q, k, v, _ = _inputs((b, s, s, h, h, d), seed=13)
+    seg = _two_segments(b, s, 100)
+    scale = 1.0 / math.sqrt(d)
+    jo, jlse = jax.block_until_ready(jfa.flash_attention_fwd_kernel_call(
+        _rows(q), _rows(k), _rows(v), causal, scale, interpret=True,
+        n_q_heads=h, n_kv_heads=h,
+        segment_ids=jnp.asarray(seg, jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    before = _counts()
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal, scale,
+                                     segment_ids=torch.from_numpy(seg))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal,
+                              segment_ids=torch.from_numpy(seg))
+    assert _counts() == before
+    np.testing.assert_allclose(o.numpy(), _bshd(jo, b), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+    want = jfa.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                               causal=causal, interpret=True,
+                               segment_ids=jnp.asarray(seg))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_segment_backward_matches_pallas_interpret(causal):
+    """dq / dk / dv of the plain backward versions with segment ids
+    ([0]*48 + [1]*80, the JAX suite's gradient case) against ``_bwd_call``
+    with the same ids in interpret mode at S 128, GQA 4:2, within 2e-4."""
+    b, s, hq, hkv, d = 1, 128, 4, 2, 64
+    q, k, v, do = _inputs((b, s, s, hq, hkv, d), seed=14)
+    seg = _two_segments(b, s, 48)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = _rows(q), _rows(k), _rows(v)
+    jseg = jnp.asarray(seg, jnp.float32)
+    jo, jlse = jfa.flash_attention_fwd_kernel_call(
+        jq, jk, jv, causal, scale, interpret=True, n_q_heads=hq,
+        n_kv_heads=hkv, segment_ids=jseg)
+    jdq, jdk, jdv = jax.block_until_ready(jfa._bwd_call(
+        (jq, jk, jv, jo, jlse), _rows(do), causal, scale, True,
+        n_q_heads=hq, n_kv_heads=hkv, segment_ids=jseg))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tseg = torch.from_numpy(seg)
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal, scale,
+                                     segment_ids=tseg)
+    before = _counts()
+    dq, dk, dv = tfa._bwd_call((tq, tk, tv, o, lse), tdo, causal, scale,
+                               segment_ids=tseg)
+    assert _counts() == before
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), _bshd(want, b), **BWD_TOL)
+
+
+@pytest.mark.parametrize("with_ids", [False, True])
+def test_pad_to_tile_equals_jax(with_ids):
+    """``_pad_to_tile`` bit for bit against JAX's: q, k, v padded with zero
+    rows to the next 128, the ids (zeros when none) as f32 with the padding
+    in segment -1, and the unpadded length."""
+    b, s, h, d = 2, 453, 2, 64
+    q, k, v, _ = _inputs((b, s, s, h, h, d), seed=15)
+    ids = np.random.default_rng(16).integers(0, 3, (b, s)).astype(np.int32) \
+        if with_ids else None
+    want = jfa._pad_to_tile(*(jnp.asarray(x) for x in (q, k, v)),
+                            None if ids is None else jnp.asarray(ids))
+    got = tfa._pad_to_tile(*(torch.from_numpy(x) for x in (q, k, v)),
+                           None if ids is None else torch.from_numpy(ids))
+    assert got[4] == want[4] == s
+    for g, w in zip(got[:4], want[:4]):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[3].shape == (b, 512) and bool((got[3][:, s:] == -1).all())
+
+
+@pytest.mark.parametrize("s", [390, 577])
+def test_pad_to_tile_matches_jax_ref(s):
+    """An untileable S >= 384 (390, and ViT-L/16's 577 at 384 px) takes the
+    pad path through the plain versions: the output and the three
+    gradients against ``jax.vjp`` of JAX's ``flash_attention_ref`` on the
+    unpadded inputs, within 2e-5 and 2e-4."""
+    b, h, d = 1, 2, 64
+    q, k, v, do = _inputs((b, s, s, h, h, d), seed=17)
+    jout, vjp = jax.vjp(lambda a, b_, c: jfa.flash_attention_ref(a, b_, c),
+                        *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    before = _counts()
+    out = tfa.flash_attention(tq, tk, tv)
+    out.backward(torch.from_numpy(do))
+    assert _counts() == before
+    assert out.shape == (b, s, h, d)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    for t, want in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_segments_with_dropout_match_jax_masked_formula(causal):
+    """Segment ids and dropout together (rate 0.1): the op against
+    ``jax.vjp`` of JAX's masked formula with the same segments, fed the
+    port's mask through numpy; o within 2e-5, gradients within 1e-4 of the
+    tensor's max |grad|."""
+    rate, seed = 0.1, 99991
+    shape = (2, 128, 128, 4, 2, 32)
+    q, k, v, do = _inputs(shape, seed=18)
+    seg = np.random.default_rng(19).integers(0, 3, (2, 128)).astype(np.int32)
+    seg.sort(axis=1)
+    factor = _factor(seed, shape, rate)
+    jout, vjp = jax.vjp(
+        lambda a, b_, c: _jax_masked_attention(a, b_, c, factor, causal,
+                                               jnp.asarray(seg)),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal,
+                              segment_ids=torch.from_numpy(seg),
+                              dropout_rate=rate, dropout_seed=seed)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    for t, want in zip((tq, tk, tv), jgrads):
+        want = np.asarray(want)
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_segment_ids_need_equal_lengths():
+    """As in JAX, segment ids with s_q != s_k give None from the op; the
+    wrappers raise on ids of another shape."""
+    q, k = torch.zeros((1, 128, 2, 64)), torch.zeros((1, 256, 2, 64))
+    assert tfa.flash_attention(q, k, k, segment_ids=torch.zeros((1, 128))) \
+        is None
+    jq, jk = jnp.zeros((1, 128, 2, 64)), jnp.zeros((1, 256, 2, 64))
+    assert jfa.flash_attention(jq, jk, jk, interpret=True,
+                               segment_ids=jnp.zeros((1, 128))) is None
+
+
+# (B, S, Hq, Hkv, D), causal, the segment lengths of each batch row
+SEG_CARD_CASES = [((2, 256, 8, 8, 64), False, [100, 156]),
+                  ((2, 256, 8, 2, 64), True, [100, 156]),
+                  ((1, 320, 4, 4, 128), True, [64, 10, 118, 128]),
+                  ((1, 512, 4, 4, 64), False, [5, 37, 300, 9, 161]),
+                  ((2, 640, 4, 4, 64), False, [577, 63])]
+
+
+@pytest.mark.cuda
+def test_segment_kernels_match_plain_versions_on_card():
+    """The segment branch of the forward and both backward kernels against
+    their plain versions on the card, f32 (1e-5) and bf16 (as
+    ``chip_smoke.py`` holds it), at rate 0 and 0.1: boundaries on and off
+    the 64-row tile, a segment inside one tile, many short segments, GQA,
+    causal and not, and the pad-to-tile shape (577 real rows of 640)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (b, s, hq, hkv, d), causal, lens in SEG_CARD_CASES:
+        seg = torch.repeat_interleave(
+            torch.arange(len(lens)), torch.tensor(lens))[None] \
+            .repeat(b, 1).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.1):
+                q, k, v, do = (torch.from_numpy(x).cuda().to(dt) for x in
+                               _inputs((b, s, s, hq, hkv, d), seed=20))
+                args = (causal, 1.0 / math.sqrt(d), rate, 4321, seg)
+                o, lse = tfa.flash_attention_fwd(q, k, v, *args)
+                ro, rlse = tfa.flash_attention_fwd_ref(q, k, v, *args)
+                delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+                    .reshape(lse.shape).contiguous()
+                got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  *args)
+                got += (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   *args),)
+                want = tfa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                       delta, *args)
+                want += (tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse,
+                                                        delta, *args),)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+                if dt == torch.float32:
+                    for a, b_ in ((o, ro),) + tuple(zip(got, want)):
+                        torch.testing.assert_close(a, b_, rtol=1e-5,
+                                                   atol=1e-5)
+                else:
+                    _held_bf16(o, ro, 2.0 ** -8 * tfa.flash_attention_fwd_ref(
+                        q, k, v.abs(), *args)[0].float())
+                    for a, b_ in zip(got, want):
+                        _held_bf16(a, b_)

@@ -169,3 +169,46 @@ def test_the_scan_covers_the_dropout_modules():
                 "models/ernie.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert (REPO / "paddle_tpu_torch/ops/csrc/philox.cuh").exists()
+
+
+def test_vit_entry_points_without_device_need_a_card(monkeypatch):
+    """The ViT constructors and ``vit_params_from_numpy`` resolve
+    device=None to the card, and run on the CPU only when asked;
+    ``flash_attn_unpadded`` runs where its tensors lie, and on CPU tensors
+    launches no kernel."""
+    from paddle_tpu_torch.models import vit_params_from_numpy
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.vision.models import (VisionTransformer, vit_b_16,
+                                                vit_l_16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (vit_b_16, vit_l_16):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    tiny = dict(img_size=16, patch_size=8, embed_dim=32, depth=1,
+                num_heads=1, num_classes=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VisionTransformer(**tiny)
+    model = VisionTransformer(**tiny, device="cpu")
+    assert {p.device for p in model.parameters()} == {torch.device("cpu")}
+    named = {"w": np.zeros((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vit_params_from_numpy(named)
+    assert vit_params_from_numpy(named, device="cpu")["w"].device \
+        == torch.device("cpu")
+    x = torch.zeros((256, 2, 64))
+    cu = torch.tensor([0, 100, 256])
+    before = tfa.flash_attention_fwd.launches
+    out, _ = flash_attn_unpadded(x, x, x, cu, cu, 156, 156)
+    assert out.device == torch.device("cpu") and out.shape == x.shape
+    assert tfa.flash_attention_fwd.launches == before
+
+
+def test_the_scan_covers_the_vit_modules():
+    """The ViT slice's modules: the vision package, the layers it adds and
+    the varlen functional."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("vision/__init__.py", "vision/models/__init__.py",
+                "vision/models/vit.py", "nn/layers.py",
+                "nn/functional/attention.py", "models/convert.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
