@@ -8,8 +8,9 @@ bf16 KV cache, and with an int8 KV cache and speculative decoding, at the
 full width of LLaMA-2 7B; the train step of the repo's 271M LLaMA at
 B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512 at its published
 dropout 0.1; its sequence-classification fine-tuning at B 32 x S 128; the
-``nn.functional.softmax`` entry; and ViT-L/16 training at 384 px (577
-tokens, which attention pads to the 128 tile) and at 224 px — with random
+``nn.functional.softmax`` entry; ViT-L/16 training at 384 px (577
+tokens, which attention pads to the 128 tile) and at 224 px; and the
+SD-1.5 UNet's train step at B 8 over 64 x 64 latents — with random
 weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
@@ -20,7 +21,13 @@ weights made from a seed:
                passes of the softmax forward, the RMSNorm forward and the
                LayerNorm backward must not spill), and the SASS that the
                dropout branch adds to each mma.sync attention kernel
-               (``cuobjdump``; instructions per Philox call);
+               (``cuobjdump``; instructions per Philox call); the flash-
+               attention kernels build as one library per group of head
+               widths (``flash_attention.cu`` at 64 and 128, and at each of
+               32, 48, 80, 96, 160, 192, 256 with ``-DFA_TU_WIDTHS=W``),
+               each reported and held to the same no-spill gate, and
+               with ``--parent DIR`` the D 64 / 128 bodies' registers and
+               spills are held equal to that build's;
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
@@ -76,6 +83,16 @@ weights made from a seed:
                and at dropout 0.1; the masks read out with segments (no
                kept score outside its segment); and the op's pad path at
                S 577 end to end, f32, against ``flash_attention_ref``;
+               (e) rows 3/5/6 at head dims 24, 40, 56, 72, 80, 96, 112,
+               160, 176, 200 and 256 (every compiled width, off-width dims
+               included), bf16 and f32, causal and not, GQA 8:2 at 40 / 80
+               / 160, and their dropout and segment branches at 40 and
+               160, and bf16 non-causal at the UNet's three attention
+               shapes (phase 3h's B 8, 8 heads; S 4,096 / 1,024 / 256 at
+               d 40 / 80 / 160); rows 1-2 at head dims 40, 80, 96 and 256
+               over bf16, f32, int8 and fp8 pages (decode with a split,
+               verify with GQA, a prefill chunk); rows 12/13 at the UNet's
+               LayerNorm rows (8,192 x 640, 2,048 x 1,280) are phase 2c's;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
                suffix prefill, greedy decode; the plain kernel's launch
@@ -116,6 +133,16 @@ weights made from a seed:
                version) and one step under torch.profiler; (g') the same
                at 224 px, B 64 (197 tokens: no flash-attention kernel, the
                plain path once per layer, as the JAX dispatch sends it);
+               (h) the SD-1.5 UNet train step (bf16, B 8, 4 x 64 x 64
+               latents, a 77 x 768 context, MSE against the noise, SGD lr
+               1e-4, as bench.py's bench_sd_unet): 3 warm-up and 10 timed
+               steps on one batch, images/s, the mfu share (unet_flop),
+               peak memory, launches per step asserted (rows 3/5/6 four
+               times at each of head dims 40 / 80 / 160, rows 12/13 at
+               widths 640 and 1,280; plain attention for the
+               cross-attentions and the 8 x 8 middle block, the plain
+               LayerNorm at width 320), the forward / backward / SGD split
+               and one step under torch.profiler;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, for f32, int8 and fp8 pages, and with
@@ -127,6 +154,9 @@ weights made from a seed:
                step with rows 3/5/6 replaced by their plain versions (the
                same seeds and generator states); (d) the same for a 2-layer
                f32 ViT-L/16 step at 384 px, kernels against all knobs off;
+               (e) one f32 SD-1.5 UNet step at full width, B 1, both knobs
+               on against off: loss to 1e-5, gradients to 1e-4 of max
+               |grad|;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -159,7 +189,14 @@ weights made from a seed:
                beside SDPA with the block-diagonal mask, the bounds counting
                the function's (unpadded, in-segment) work, and one line per
                design step of dQ's segment branch (register cap, Q and dO
-               in registers or reloaded);
+               in registers or reloaded); (e) rows 3/5/6 at the UNet's
+               three attention shapes ([8, S, 8, d], (S, d) = (4,096, 40),
+               (1,024, 80), (256, 160), non-causal) beside the bound
+               counted at d, the plain version and SDPA's forward and
+               backward (the kernels and SDPA alike as CUDA-graph replays
+               over input copies that together exceed the L2), and rows
+               1-2 at head dim 80 at phase 3a's decode
+               shape beside their byte bound;
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
 
@@ -310,24 +347,81 @@ def philox_sass_report(path):
               f"{top}")
 
 
-def register_report(built):
-    """ptxas's registers and spills for the mma.sync flash-attention kernels,
-    the RMSNorm forward and backward register passes, the LayerNorm
-    backward's register pass, the ragged paged-attention kernels and the
-    softmax forward's register pass (one line per instantiation; the
-    ragged kernels' as their most); the kernels of ``NO_SPILL`` must not
-    spill."""
-    for lib in ("flash_attention", "rms_norm", "layer_norm", "softmax"):
+def fa_libs(built):
+    """The flash-attention libraries (one per group of head widths)."""
+    return sorted(n for n in built if n.startswith("flash_attention"))
+
+
+def rpa_libs(built):
+    """The ragged paged-attention libraries (f32 / bf16 and int8 / fp8
+    pages, one per group of head widths)."""
+    return sorted(n for n in built if n.startswith("ragged_paged_attention"))
+
+
+def register_report(built, parent=None):
+    """ptxas's registers and spills for the mma.sync flash-attention kernels
+    at every head width, the RMSNorm forward and backward register passes,
+    the LayerNorm backward's register pass, the ragged paged-attention
+    kernels and the softmax forward's register pass (one line per
+    instantiation; the ragged kernels' as their most); the kernels of
+    ``NO_SPILL`` must not spill.  With ``parent`` (another commit's
+    ``csrc``), the full-width D 64 and 128 instantiations of rows 3/5/6
+    are held to that build's registers and spills."""
+    for lib in (*fa_libs(built), "rms_norm", "layer_norm", "softmax"):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             print(f"  ptxas {kernel}{args}: {regs} registers, spill "
                   f"stores {stores} B, loads {loads} B")
     print(f"  ptxas ragged paged attention: {ragged_ptxas(built)}")
     philox_sass_report(built["flash_attention"])
-    for lib in ("flash_attention", "rms_norm", "layer_norm", "softmax",
-                *RPA_LIBS):
+    for lib in (*fa_libs(built), "rms_norm", "layer_norm", "softmax",
+                *rpa_libs(built)):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             require(kernel not in NO_SPILL or (stores == 0 and loads == 0),
                     f"{kernel}{args} spills ({stores} B stores)")
+    if parent is not None:
+        compare_parent_ptxas(built, parent)
+
+
+def template_args(args):
+    """The integer and bool template arguments of a mangled instantiation,
+    in order (``ILi64ELb0E...`` -> [64, 0, ...])."""
+    import re
+    return [int(x) for x in re.findall(r"L[ib](\d+)E", args)]
+
+
+def compare_parent_ptxas(built, parent):
+    """The D 64 and 128 bodies of rows 3/5/6 against another commit's
+    build of ``flash_attention.cu``: each parent instantiation (template
+    arguments D, ...) is matched to this build's full-width twin (W = D,
+    PART = false, the same other arguments) and their registers and spills
+    must be equal."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    path = _build.build_all(["flash_attention"],
+                            csrc=Path(parent))["flash_attention"]
+    new = {}
+    for kernel, args, regs, stores, loads in ptxas_lines(
+            built["flash_attention"]):
+        ta = template_args(args)
+        if kernel in REPORTED_KERNELS[:3] and ta[1] == 0:
+            new[(kernel, tuple(ta[:1] + ta[2:]))] = (regs, stores, loads)
+    n = 0
+    for kernel, args, regs, stores, loads in ptxas_lines(path):
+        if kernel not in REPORTED_KERNELS[:3]:
+            continue
+        key = (kernel, tuple(template_args(args)))
+        require(key in new, f"no full-width twin of the parent's {key}")
+        print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
+              f"stores {stores} B, loads {loads} B; this build "
+              f"{new[key][0]} registers, {new[key][1]} / {new[key][2]} B")
+        require(new[key] == (regs, stores, loads),
+                f"{key}: registers / spills {new[key]} != the parent's "
+                f"{(regs, stores, loads)}")
+        n += 1
+    require(n > 0, "no parent instantiation of rows 3/5/6 in its report")
+    print(f"  {n} parent instantiations of rows 3/5/6 at D 64 / 128: "
+          f"registers and spills equal to this build's")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -673,9 +767,10 @@ ERNIE_LN_ROWS = (32768, 768)
 # (name, N, H, x dtype, w dtype) of the LayerNorm kernels: the backward's
 # register pass (bf16 rows of up to 1,024) at ERNIE's rows and at H 1,024,
 # N off its grid's row runs and below a block's 8 rows, and its general
-# loop (H not a multiple of 8, H above 1,024, f32 x).  The cases with f32 w
-# hold f32 dw and db summed over 32,768+ rows by both passes
-ERNIE_LN_CASES = [
+# loop (H not a multiple of 8, H above 1,024, f32 x); the rows of phase 3h's
+# UNet (B 8: 32 x 32 tokens of 640 and 16 x 16 of 1,280).  The cases with
+# f32 w hold f32 dw and db summed over 32,768+ rows by both passes
+LN_CASES = [
     ("ERNIE rows", *ERNIE_LN_ROWS, torch.bfloat16, torch.bfloat16),
     ("H=1024 rows", 4096, 1024, torch.bfloat16, torch.bfloat16),
     ("N off the row runs, f32 w", 32771, 768, torch.bfloat16, torch.float32),
@@ -684,6 +779,8 @@ ERNIE_LN_CASES = [
     ("H=4096 (general loop)", 2048, 4096, torch.bfloat16, torch.bfloat16),
     ("f32 rows (general loop)", *ERNIE_LN_ROWS, torch.float32, torch.float32),
     ("bf16 x, f32 w", 4096, 1024, torch.bfloat16, torch.float32),
+    ("UNet level 1 rows", 8192, 640, torch.bfloat16, torch.bfloat16),
+    ("UNet level 2 rows", 2048, 1280, torch.bfloat16, torch.bfloat16),
 ]
 SOFTMAX_SHAPE = (8, 12, 512, 512)
 # the softmax forward's register pass at its longest row (2,048), and its
@@ -930,14 +1027,14 @@ def phase_train_kernels(fa, fu):
 
 
 def layer_norm_checks(fu, gen, worst):
-    """Rows 12-13 against their plain versions over ``ERNIE_LN_CASES``; for
+    """Rows 12-13 against their plain versions over ``LN_CASES``; for
     f32 dw and db, also the kernel's and torch.sum's distance from a
     float64 sum of the same f32 products (the gate holds the two f32 sums
     against each other); the worst absolute error of each row goes into
     ``worst``."""
     worst["ln_fwd"] = worst["ln_bwd"] = 0.0
     f32 = TRAIN_TOL[torch.float32]
-    for name, n, h, dt, wdt in ERNIE_LN_CASES:
+    for name, n, h, dt, wdt in LN_CASES:
         tol = TRAIN_TOL[dt]
         tag = f"{name} [{n}, {h}] [{str(dt)[6:]}, w {str(wdt)[6:]}]"
         x = torch.randn(n, h, generator=gen, device="cuda").to(dt)
@@ -975,7 +1072,7 @@ def layer_norm_checks(fu, gen, worst):
 
 def phase_fused_kernels(fa, fu, worst):
     """Phase 2c: rows 12-13 against their plain versions over
-    ``ERNIE_LN_CASES``, rows 9-11 at the ERNIE shapes, bf16 and f32, and
+    ``LN_CASES``, rows 9-11 at the ERNIE shapes, bf16 and f32, and
     rows 3/5/6 non-causal at ERNIE's attention shape; the worst absolute
     error of each row goes into ``worst``."""
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -1717,11 +1814,15 @@ ERNIE_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("matmul", MATMUL_NAMES))
 
 
-def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS):
+def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS,
+                    stages=("forward", "backward", "adamw"), required=None):
     """One train step under torch.profiler: device ms by group, the kernel
-    count, and the device busy share of an unprofiled step's wall time.
+    count, and the device busy share of an unprofiled step's wall time;
+    before it, one unprofiled step's split into ``stages`` by CUDA events.
     Only device events count: the autograd Functions that launch the
-    kernels carry the same device time as CPU events."""
+    kernels carry the same device time as CPU events.  Each group of
+    ``required`` (default: every group but matmul) must have seen device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1730,7 +1831,7 @@ def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS):
     step(batch, marks)
     marks[3].synchronize()
     stages = {name: marks[i].elapsed_time(marks[i + 1])
-              for i, name in enumerate(("forward", "backward", "adamw"))}
+              for i, name in enumerate(stages)}
     print("  one unprofiled step by stage (CUDA events): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + " ms")
     with profile(activities=[ProfilerActivity.CPU,
@@ -1754,7 +1855,9 @@ def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS):
         if g == "other":
             other.append((dev_us / 1e3, ev.count, ev.key))
     busy = sum(groups.values())
-    require(all(groups[g] > 0 for g, _ in groups_of if g != "matmul"),
+    if required is None:
+        required = [g for g, _ in groups_of if g != "matmul"]
+    require(all(groups[g] > 0 for g in required),
             f"profiler saw no train kernel: {groups}")
     print(f"  one step under torch.profiler: device busy {busy:.2f} ms of an "
           f"unprofiled {step_s * 1e3:.2f} ms step ("
@@ -2321,18 +2424,20 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def graph_ms(fn, iters):
+def graph_ms(fn, iters, side=None):
     """Device ms per call of fn: ``iters`` calls captured in one CUDA graph
     and replayed, so the wrapper's host cost (tens of us per eager call)
-    does not hide a kernel that is faster than it."""
-    side = torch.cuda.Stream()
+    does not hide a kernel that is faster than it.  The warm-up calls and
+    the capture run on the stream ``side`` (a new one by default): an
+    autograd backward is captured when its forward ran on that stream."""
+    side = side or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(3):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i)
     return time_ms(lambda i: graph.replay(), 5, warmup=1) / iters
@@ -2362,12 +2467,12 @@ def bound(q_len, q_start, kv_len, Hq, Hkv, D, ps, elt, flop_rate,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def shape_inputs(gen, sh, kv_dtype, n_copies=4):
-    """bf16 q (32 heads, D = 128, page 16) at one segment shape, and
+def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128):
+    """bf16 q (32 heads of D, page 16) at one segment shape, and
     ``n_copies`` page pools (> the 50 MB L2 together) of bf16 pages or of
     int8 / fp8 codes with their scales; the slots' pages in a random order."""
     from paddle_tpu_torch.serving.quant import kv_spec, quantize_kv
-    dt, Hq, Hkv, D, ps = torch.bfloat16, 32, 32, 128, 16
+    dt, Hq, Hkv, ps = torch.bfloat16, 32, 32, 16
     S, Qmax = sh["S"], sh["Qmax"]
     P = max(-(-k // ps) for k in sh["kv_len"])
     NP = S * P
@@ -2390,14 +2495,14 @@ def shape_inputs(gen, sh, kv_dtype, n_copies=4):
     return q, pools, pt, seg
 
 
-def time_shape(pa, gen, sh, kv_dtype):
-    """Kernel ms at one segment shape as a CUDA-graph replay (the device's
-    time: the wrapper's host cost, tens of us per call, would hide it),
-    its eager ms on a line of its own, the plain version's ms (eager), and
-    the bound.  The kernel's time includes the split merge where the plan
-    splits."""
-    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype)
-    Hq, Hkv, D, ps = 32, 32, 128, 16
+def time_shape(pa, gen, sh, kv_dtype, D=128):
+    """Kernel ms at one segment shape (32 heads of D) as a CUDA-graph
+    replay (the device's time: the wrapper's host cost, tens of us per
+    call, would hide it), its eager ms on a line of its own, the plain
+    version's ms (eager), and the bound.  The kernel's time includes the
+    split merge where the plan splits."""
+    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype, D=D)
+    Hq, Hkv, ps = 32, 32, 16
     n_copies = len(pools)
 
     def kern(i):
@@ -2417,7 +2522,8 @@ def time_shape(pa, gen, sh, kv_dtype):
     plan = pa.split_plan(sh["S"], sh["Qmax"], Hq, Hkv, D, pt.shape[1], ps,
                          True, sms=torch.cuda.get_device_properties(0)
                          .multi_processor_count)
-    tag = f"{kv_dtype or 'bf16':<5} {sh['name']:<6}"
+    tag = f"{kv_dtype or 'bf16':<5} {sh['name']:<6}" + \
+        ("" if D == 128 else f" D={D}")
     print(f"  {tag} S={sh['S']} Qmax={sh['Qmax']} kv_len={sh['kv_len']}: "
           f"kernel {ms:.4f} ms (graph replay; {plan.n_splits} splits of "
           f"{plan.split_len} tokens, {plan.blocks} blocks), plain "
@@ -2530,12 +2636,12 @@ RPA_LIBS = ("ragged_paged_attention", "ragged_paged_attention_quant")
 
 def ragged_ptxas(paths):
     """The most registers and spill stores over the instantiations of each
-    ragged kernel in the ptxas reports of ``paths``."""
+    ragged kernel in the ptxas reports of ``paths`` (every head width)."""
     most = {}
-    for lib in RPA_LIBS:
+    for lib in rpa_libs(paths):
         for kern, _, regs, stores, _ in ptxas_lines(paths[lib]):
             key = kern[len("ragged_paged_attention_"):] + (
-                " (quant)" if lib.endswith("quant") else "")
+                " (quant)" if "quant" in lib else "")
             r, st = most.get(key, (0, 0))
             most[key] = (max(r, regs), max(st, stores))
     return ", ".join(f"{k} {r} registers, {st} B spilled"
@@ -2712,16 +2818,16 @@ def attention_timing(fa, gen, shape, causal, label="", rate=0.0):
         f"SDPA {mode} forward", int_ops=mask_ops)
     res["fa_dkv"] = report(
         f"flash_attention_bwd_dkv{label}",
-        time_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                     *args), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                     delta, *args), 5),
         time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
             q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
         2 * q_bytes + 4 * kv_bytes + 2 * stats_bytes, 8 * d * pairs,
         bwd_what, int_ops=mask_ops)
     res["fa_dq"] = report(
         f"flash_attention_bwd_dq{label}",
-        time_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                    *args), 5),
+        time_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                    delta, *args), 5),
         time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
             q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
         3 * q_bytes + 2 * kv_bytes + 2 * stats_bytes, 6 * d * pairs,
@@ -3081,12 +3187,16 @@ def parent_norm_turns(parent, fu, gen, N=16384, H=1024):
     torch.cuda.empty_cache()
 
 
-def entry_tail(source):
-    """(ctypes types, values) of the arguments that the C entries of a
-    ``flash_attention.cu`` take after sm_scale, read off its source: the
-    dropout arguments (rate 0) from the dropout branch on, then a null
-    segment pointer from the segment branch on."""
+def entry_tail(csrc):
+    """(ctypes types, values) of the arguments that the C entries of the
+    ``flash_attention.cu`` in ``csrc`` take after sm_scale, read off its
+    source (and ``flash_attention.cuh``, where the entries live from the
+    head-width slice on): the dropout arguments (rate 0) from the dropout
+    branch on, then a null segment pointer from the segment branch on."""
     import ctypes
+    source = "".join((csrc / f).read_text()
+                     for f in ("flash_attention.cu", "flash_attention.cuh")
+                     if (csrc / f).exists())
     types, values = [], []
     if "unsigned thresh" in source:
         types += [ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
@@ -3135,9 +3245,8 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
     libs = {"parent": ctypes.CDLL(str(_build.build_all(
         ["flash_attention"], csrc=Path(parent))["flash_attention"])),
         "new": _build.library("flash_attention")}
-    tails = {side: entry_tail((path / "flash_attention.cu").read_text())
-             for side, path in (("parent", Path(parent)),
-                                ("new", _build.CSRC))}
+    tails = {side: entry_tail(path) for side, path in
+             (("parent", Path(parent)), ("new", _build.CSRC))}
     b, s_q, s_k, hq, hkv, d = shape
     geometry = (b, hq, hkv, s_q, s_k, d)
     q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
@@ -3432,15 +3541,542 @@ def phase_fused_timing():
     return res
 
 
+# -- phase 2e: rows 1-6 at every head width ----------------------------------
+# head dims of rows 3/5/6 that reach every compiled width of
+# ``flash_attention.cuh`` (32, 48, 64, 80, 96, 128, 160, 192, 256), off-width
+# ones included (24, 40, 56, 72, 112, 176, 200; 64 and 128 themselves are
+# phase 2b's), and SD-1.5's 40 / 80 / 160
+HEAD_DIMS_2E = (24, 40, 56, 72, 80, 96, 112, 160, 176, 200, 256)
+UNET_HEAD_DIMS = (40, 80, 160)
+# [B, S, S, heads, heads, d] of SD-1.5's self-attention at B 8 (phase 3h)
+UNET_ATTN_SHAPES = ((8, 4096, 4096, 8, 8, 40), (8, 1024, 1024, 8, 8, 80),
+                    (8, 256, 256, 8, 8, 160))
+# rows 1-2 at head dims off 64 / 128 (40 and 256 also take the 8-byte copies
+# of int8 / fp8 rows and the widest tile)
+RAGGED_HEAD_DIMS = (40, 80, 96, 256)
+
+
+def head_keys(d):
+    return tuple(f"{k}_d{d}" for k in ("fa_fwd", "fa_dkv", "fa_dq"))
+
+
+def head_dim_cases(d):
+    """Rows 3/5/6 at head dim d: bf16 and f32, causal at S 200 (partial
+    tiles) and non-causal with s_q < s_k; GQA 8:2 at the UNet's dims."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        cases += [(f"D={d} S=200", (2, 200, 200, 4, 4, d), True, dt),
+                  (f"D={d} s_q 128 < s_k 256", (2, 128, 256, 4, 4, d), False,
+                   dt)]
+    if d in UNET_HEAD_DIMS:
+        cases.append((f"D={d} GQA 8:2", (2, 256, 256, 8, 2, d), True,
+                      torch.bfloat16))
+    return cases
+
+
+def head_dim_checks(fa, gen, worst=None):
+    """Phase 2e for rows 3/5/6: every head dim of ``HEAD_DIMS_2E`` against
+    the plain versions under ``TRAIN_TOL``, and the dropout (rate 0.1) and
+    segment branches at head dims 40 and 160 (SD-1.5's level 0 and 2),
+    bf16 and f32, and bf16 non-causal at ``UNET_ATTN_SHAPES`` (the shapes
+    phase 3h gives the kernels); the worst error of each head dim under
+    ``head_keys``."""
+    worst = {} if worst is None else worst
+    for d in HEAD_DIMS_2E:
+        attention_checks(fa, gen, head_dim_cases(d), worst, keys=head_keys(d))
+    for shape in UNET_ATTN_SHAPES:
+        attention_checks(fa, gen, [(f"UNet D={shape[-1]}", shape, False,
+                                    torch.bfloat16)], worst,
+                         keys=head_keys(shape[-1]))
+    for d in (40, 160):
+        drop = [(f"D={d} dropout", (2, 256, 256, 4, 2, d), True, dt)
+                for dt in (torch.bfloat16, torch.float32)]
+        attention_checks(fa, gen, drop, worst, DROPOUT_RATE, head_keys(d))
+        seg = [(f"D={d} segments", (2, 256, 256, 4, 4, d), causal, dt,
+                [100, 156]) for dt in (torch.bfloat16, torch.float32)
+               for causal in (False, True)]
+        attention_checks(fa, gen, seg, worst, keys=head_keys(d))
+    return worst
+
+
+def ragged_head_cases(d):
+    """Rows 1-2 at head dim d: a decode launch long enough to split (so the
+    merge runs at d too), a ragged verify mix with GQA 8:2 (the tensor-core
+    tile for bf16 q) and a 90-row prefill chunk over a cached prefix."""
+    return [
+        (f"D={d} decode kv_len 1/100/512/1001 (split)",
+         dict(S=4, Qmax=1, Hq=8, Hkv=8, D=d, ps=16, NP=300, P=64,
+              q_start=[0, 99, 511, 1000], q_len=[1, 1, 1, 1],
+              kv_len=[1, 100, 512, 1001])),
+        (f"D={d} verify q_len 0/1/3/5 GQA 8:2",
+         dict(S=4, Qmax=5, Hq=8, Hkv=2, D=d, ps=16, NP=40, P=8,
+              q_start=[10, 100, 63, 0], q_len=[0, 1, 3, 5],
+              kv_len=[10, 101, 66, 5])),
+        (f"D={d} chunk of 90 rows over 64 cached",
+         dict(S=1, Qmax=96, Hq=8, Hkv=8, D=d, ps=16, NP=16, P=12,
+              q_start=[64], q_len=[90], kv_len=[154])),
+    ]
+
+
+def ragged_head_dim_checks(pa):
+    """Phase 2e for rows 1-2: ``RAGGED_HEAD_DIMS`` over bf16 and f32 pages
+    (f32, bf16 and bf16 -> f32 in and out) and int8 / fp8 pages, against the
+    plain version under phase 2's tolerances; returns the worst errors."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    worst = {"plain": 0.0, "quant": 0.0}
+    n0 = pa.ragged_paged_attention.combine_launches
+    for d in RAGGED_HEAD_DIMS:
+        for name, kw in ragged_head_cases(d):
+            for dtype, out_dtype in DTYPE_PAIRS:
+                args = make_case(gen, dtype=dtype, **kw)
+                worst["plain"] = max(worst["plain"], compare(
+                    pa, f"{name} [{str(dtype)[6:]}]", args, out_dtype))
+                for kv_dtype in KV_DTYPES:
+                    qargs, scales = quantize_pages(args, kv_dtype)
+                    worst["quant"] = max(worst["quant"], compare(
+                        pa, f"{name} [{str(dtype)[6:]}, {kv_dtype}]", qargs,
+                        out_dtype, **scales))
+    require(pa.ragged_paged_attention.combine_launches > n0,
+            "no head-dim case ran a split grid")
+    return worst
+
+
+# -- phase 3h: the SD-1.5 UNet train step ------------------------------------
+UNET_CTX_LEN = 77                   # CLIP's text tokens
+UNET_LR = 1e-4
+
+
+def unet_config():
+    from paddle_tpu_torch.models.unet import unet_config_sd15
+    return unet_config_sd15()
+
+
+def unet_flop(B, c=None, hw=64, ctx_len=UNET_CTX_LEN):
+    """Model FLOP of one UNet train step (forward and backward, no
+    recomputation), walking the model as its forward does: 6 per weight
+    and use for every convolution (uses: output positions) and Linear
+    (uses: tokens; the context's for cross-attention's k and v), and
+    12 S_q S_k d heads per attention per image (4 forward, 8 backward).
+    Norms, activations, the upsampling and the biases are left out."""
+    c = c or unet_config()
+    ch, t_dim = c.block_channels, c.block_channels[0] * c.time_embed_mult
+    mm = ch[0] * t_dim + t_dim * t_dim          # the time MLP, once an image
+    attn = 0
+
+    def conv(cin, cout, k, r):
+        return cin * cout * k * k * r * r
+
+    def res(cin, cout, r):
+        return (conv(cin, cout, 3, r) + t_dim * cout + conv(cout, cout, 3, r)
+                + (conv(cin, cout, 1, r) if cin != cout else 0))
+
+    def block(dim, r):
+        n = r * r
+        lin = (2 * conv(dim, dim, 1, r) + n * 4 * dim * dim
+               + n * 2 * dim * dim + ctx_len * 2 * c.cross_attention_dim * dim
+               + n * 12 * dim * dim)            # proj, attn1, attn2, GEGLU
+        return lin, 12 * n * n * dim + 12 * n * ctx_len * dim
+
+    r, cur = hw, ch[0]
+    mm += conv(c.in_channels, ch[0], 3, r)
+    skips = []
+    for lvl, cout in enumerate(ch):
+        for _ in range(c.layers_per_block):
+            mm += res(cur, cout, r)
+            cur = cout
+            if lvl in c.attn_levels:
+                lin, a = block(cout, r)
+                mm, attn = mm + lin, attn + a
+            skips.append(cur)
+        if lvl < len(ch) - 1:
+            mm += conv(cur, cur, 3, r // 2)
+            r //= 2
+    lin, a = block(cur, r)
+    mm, attn = mm + 2 * res(cur, cur, r) + lin, attn + a
+    for lvl in reversed(range(len(ch))):
+        cout = ch[lvl]
+        for _ in range(c.layers_per_block):
+            mm += res(cur + skips.pop(), cout, r)
+            cur = cout
+            if lvl in c.attn_levels:
+                lin, a = block(cout, r)
+                mm, attn = mm + lin, attn + a
+        if lvl > 0:
+            r *= 2
+            mm += conv(cur, cur, 3, r)
+    mm += conv(cur, c.out_channels, 3, r)
+    return 6.0 * B * mm + B * attn
+
+
+def make_unet_step(dtype, kernels, seed=0, cfg=None, lr=UNET_LR):
+    """bench.py bench_sd_unet's step on the port: the UNet (``cfg``, SD
+    1.5's by default) predicts the noise, the loss is the MSE against it in
+    f32, and plain SGD at ``lr`` updates every parameter in place.  With
+    ``kernels`` both knobs are on (flash attention, the LayerNorm
+    kernels); without, both are off.  Returns (step(batch) -> (loss,
+    grads), params, n_params)."""
+    from paddle_tpu_torch.models.unet import UNet2DConditionModel
+    model = UNet2DConditionModel(cfg or unet_config(), dtype=dtype,
+                                 device="cuda", seed=seed, kernels=kernels,
+                                 norm_kernels=kernels)
+    params = dict(model.named_parameters())
+    plist = list(params.values())
+
+    def step(batch, marks=None):
+        mark = (lambda i: marks[i].record()) if marks else (lambda i: None)
+        lat, t, ctx, noise = batch
+        mark(0)
+        pred = model(lat, t, ctx)
+        loss = ((pred.float() - noise.float()) ** 2).mean()
+        mark(1)
+        grads = torch.autograd.grad(loss, plist)
+        mark(2)
+        with torch.no_grad():
+            torch._foreach_add_(plist, [g.to(p.dtype) for p, g in
+                                        zip(plist, grads)], alpha=-lr)
+        mark(3)
+        return loss.detach(), grads
+
+    return step, params, sum(v.numel() for v in plist)
+
+
+def unet_batch(B, dtype, seed=0, hw=64, ctx_dim=768):
+    """bench_sd_unet's batch: N(0, 1) latents [B, 4, 64, 64], timesteps in
+    [0, 1000), a N(0, 1) context [B, 77, 768] and the noise, from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).cuda().to(dtype)
+    lat = normal(B, 4, hw, hw)
+    t = torch.from_numpy(rng.integers(0, 1000, (B,)).astype(np.int32)).cuda()
+    ctx = normal(B, UNET_CTX_LEN, ctx_dim)
+    return lat, t, ctx, normal(B, 4, hw, hw)
+
+
+class CountByHeadDim:
+    """Within the block, count rows 3/5/6's launches by head dim: each
+    wrapper is swapped in its module (where the op looks it up, as
+    PlainAttention swaps them) for one that calls it and reads its
+    counts.  A wrapper counts itself through its module name, so the
+    counts land on the stand-in and are handed back on exit."""
+
+    NAMES = PlainAttention.NAMES
+    COUNTS = ("launches", "dropout_launches", "segment_launches")
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+        self.fa, self.by_d = fa, {}
+        self.saved = {n: getattr(fa, n) for n in self.NAMES}
+        for key, n in zip(("fa_fwd", "fa_dkv", "fa_dq"), self.NAMES):
+            def counted(q, *a, _fn=self.saved[n], _key=key, _n=n, **kw):
+                me = getattr(self.fa, _n)
+                before = me.launches
+                out = _fn(q, *a, **kw)
+                k = f"{_key}_d{q.shape[-1]}"
+                self.by_d[k] = self.by_d.get(k, 0) + me.launches - before
+                return out
+            for c in self.COUNTS:
+                setattr(counted, c, 0)
+            setattr(fa, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            stand_in = getattr(self.fa, n)
+            for c in self.COUNTS:
+                setattr(fn, c, getattr(fn, c) + getattr(stand_in, c))
+            setattr(self.fa, n, fn)
+
+
+UNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                         "nchwtonhwc", "nhwctonchw", "implicit")),
+               ("fa_fwd", ("fa_fwd_",)),
+               ("fa_bwd", ("fa_bwd_dkv_", "fa_bwd_dq_")),
+               ("plain attention softmax", ("softmax",)),
+               ("groupnorm", ("groupnorm", "group_norm", "rowwisemoments",
+                              "computefusedparams", "computeinternalgrad",
+                              "computebackwardfusedparams",
+                              "gammabetabackward", "groupnorm1d")),
+               ("layernorm", ("ln_fwd_kernel", "ln_bwd_vec_kernel",
+                              "ln_bwd_kernel", "ln_dwb_reduce_kernel")),
+               ("matmul", MATMUL_NAMES))
+
+
+def unet_attention_plan(c, B, hw):
+    """The level of each down and up TransformerBlock, and the levels whose
+    self-attention the flash-attention op takes at B x hw x hw latents (all
+    three of SD-1.5's at 64 x 64; the middle block's and every
+    cross-attention take the plain path)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    blocks = [lvl for lvl in c.attn_levels
+              for _ in range(2 * c.layers_per_block)]
+    routed = {lvl for lvl in c.attn_levels if fa._supported(
+        *[(B, (hw >> lvl) ** 2, c.num_heads,
+           c.block_channels[lvl] // c.num_heads)] * 2)}
+    return blocks, routed
+
+
+def phase_unet(pa, B=8, warmup=3, steps=10):
+    """Phase 3h: the SD-1.5 UNet train step (``unet_config_sd15``, 4 x 64
+    x 64 latents, a 77 x 768 context, t in [0, 1000), bf16 parameters,
+    MSE against the noise in f32, SGD at lr 1e-4, as bench_sd_unet steps)
+    at batch B: warm-up and timed steps on one batch with the loss of each
+    (finite and falling), images/s, the mfu share (``unet_flop`` over 989
+    TFLOP/s), peak memory, launches per step (asserted: rows 3/5/6 four
+    times at each of head dims 40 / 80 / 160, rows 12/13 at every
+    LayerNorm of width 640 and 1,280; the plain attention for the 13
+    cross-attentions and the 8 x 8 middle block, and the plain LayerNorm at
+    width 320, which the kernels decline as JAX's do; no other plain
+    version), the forward / backward / SGD split and one step under
+    torch.profiler."""
+    c = unet_config()
+    torch.cuda.reset_peak_memory_stats()
+    step, params, n_params = make_unet_step(torch.bfloat16, True)
+    batch = unet_batch(B, torch.bfloat16)
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(step(batch)[0]))
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    with CountPlainCalls() as plain, CountByHeadDim() as by_d:
+        t0 = time.perf_counter()
+        out = [step(batch)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    launches.update(branch_counts())
+    launches.update(by_d.by_d)
+    per_step = {k: n / steps for k, n in launches.items()}
+    losses += [float(x) for x in out]
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    hw = batch[0].shape[-1]
+    blocks, routed = unet_attention_plan(c, B, hw)
+    want = {k: 0 for k in per_step}
+    for key in ("fa_fwd", "fa_dkv", "fa_dq"):
+        want[key] = sum(lvl in routed for lvl in blocks)
+        for lvl in routed:
+            want[f"{key}_d{c.block_channels[lvl] // c.num_heads}"] = \
+                2 * c.layers_per_block
+    wide = [lvl for lvl in blocks if c.block_channels[lvl] % 128 == 0]
+    narrow = len(blocks) - len(wide)
+    want["ln_fwd"] = want["ln_bwd"] = 3 * (len(wide) + 1)  # + the middle
+    require(per_step == want, f"launches per step {per_step} != {want}")
+    require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
+    # the cross-attentions, the middle block's and the self-attentions the
+    # op declines take the plain path
+    plain_want = {"flash_attention_ref": (len(blocks) + 2 + sum(
+        lvl not in routed for lvl in blocks)) * steps,
+        "layer_norm_ref": 3 * narrow * steps}
+    require(plain.calls == plain_want,
+            f"plain calls {plain.calls} != {plain_want}")
+    images_per_s = B * steps / wall
+    flop = unet_flop(B, c)
+    mfu = flop * steps / wall / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params:,} parameters in {len(params)} tensors; latents "
+          f"{list(batch[0].shape)}, context {list(batch[2].shape)}, bf16; "
+          f"self-attention at " + ", ".join(
+              f"{(hw >> lvl) ** 2} tokens x head dim "
+              f"{c.block_channels[lvl] // c.num_heads}"
+              + ("" if lvl in routed else " (plain)")
+              for lvl in c.attn_levels)
+          + f"; MSE against the noise, SGD lr {UNET_LR}")
+    print(f"  model FLOP per step (unet_flop): {flop / 1e12:.3f} T")
+    print(f"  loss per step ({warmup} warm-up + {steps} timed): "
+          + " ".join(f"{x:.5f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {images_per_s:.2f} images/s, mfu_share {mfu:.4f} "
+          f"({flop / 1e12:.2f} TFLOP per step / 989 TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  launches per step: {json.dumps(per_step)}; plain calls "
+          f"{json.dumps(plain.calls)}")
+    breakdown = train_breakdown(step, batch, wall / steps, UNET_GROUPS,
+                                stages=("forward", "backward", "sgd"),
+                                required=("fa_fwd", "fa_bwd"))
+    return dict(launches=launches, images_per_s=images_per_s, mfu=mfu,
+                step_ms=wall / steps * 1e3, peak_gib=peak / 2**30,
+                losses=losses, n_params=n_params, breakdown=breakdown)
+
+
+def phase_unet_check(B=1):
+    """Phase 4e: one f32 step of the SD-1.5 UNet at full widths (64 x 64
+    latents) with both knobs on (rows 3/5/6 at head dims 40 / 80 / 160,
+    rows 12/13) and one with both off, from the same seeded weights and
+    batch: the loss within 1e-5 relative, every gradient within 1e-4 of
+    its tensor's max |grad| (floored at 1e-3 of the step's largest)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    batch = unet_batch(B, torch.float32, seed=1)
+    blocks, routed = unet_attention_plan(unet_config(), B,
+                                         batch[0].shape[-1])
+    runs = []
+    for kernels in (False, True):
+        step, params, _ = make_unet_step(torch.float32, kernels, seed=2)
+        n0 = fa.flash_attention_fwd.launches
+        loss, grads = step(batch)
+        launched = fa.flash_attention_fwd.launches - n0
+        require(launched == (sum(lvl in routed for lvl in blocks)
+                             if kernels else 0),
+                f"f32 step with kernels={kernels}: {launched} forward "
+                f"launches")
+        runs.append((float(loss), [g.detach() for g in grads]))
+        del step, params, grads
+        torch.cuda.empty_cache()
+    (l0, g0), (l1, g1) = runs
+    g_max = max(g.abs().max().item() for g in g0)
+    g_err = max((a - b).abs().max().item()
+                / max(b.abs().max().item(), 1e-3 * g_max)
+                for a, b in zip(g1, g0))
+    print(f"  f32 SD-1.5 UNet step at full width, B={B}, knobs off against "
+          f"on: loss {l0:.7f} / {l1:.7f}; grads max |kernel - plain| / max "
+          f"|plain| {g_err:.3e} over {len(g0)} tensors (tol 1e-4)")
+    require(abs(l1 - l0) <= 1e-5 * abs(l0), "loss differs (rtol 1e-5)")
+    require(g_err <= 1e-4, "gradients differ")
+    del runs, g0, g1
+    torch.cuda.empty_cache()
+
+
+# -- phase 5e: rows 3/5/6 at the UNet's shapes, rows 1-2 at d 80 -------------
+L2_BYTES = 50e6                    # H100 SXM
+
+
+def attention_copies(gen, shape):
+    """bf16 (q, k, v, dO) at one attention shape, in as many copies as
+    together exceed twice the L2 (at least 2): inputs that timed replays
+    take in turn, so that no replay finds them where the one before left
+    them."""
+    b, s_q, s_k, hq, hkv, d = shape
+    set_bytes = 2 * (2 * b * s_q * hq * d + 2 * b * s_k * hkv * d)
+    n = max(2, -(-int(2 * L2_BYTES) // set_bytes))
+    return [attn_inputs(gen, shape, torch.bfloat16) for _ in range(n)]
+
+
+def sdpa_graph_times(copies, iters):
+    """SDPA, non-causal, on ``copies`` of [B, S, H, D] q, k, v, dO taken in
+    turn, each as a CUDA-graph replay (``graph_ms``): the forward, the
+    backward alone (``autograd.grad`` on one forward kept per copy, run on
+    the capture stream so that its backward is captured) and forward +
+    backward, in ms."""
+    import torch.nn.functional as F
+    n = len(copies)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plain = [tuple(t.transpose(1, 2) for t in c[:3]) for c in copies]
+        leaves = [tuple(t.detach().requires_grad_(True) for t in p)
+                  for p in plain]
+        dots = [c[3].transpose(1, 2) for c in copies]
+        outs = [F.scaled_dot_product_attention(*lv) for lv in leaves]
+    fwd = graph_ms(lambda i: F.scaled_dot_product_attention(*plain[i % n]),
+                   iters, side)
+    bwd = graph_ms(lambda i: torch.autograd.grad(
+        outs[i % n], leaves[i % n], dots[i % n], retain_graph=True), iters,
+        side)
+    both = graph_ms(lambda i: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves[i % n]), leaves[i % n],
+        dots[i % n]), iters, side)
+    return fwd, bwd, both
+
+
+def graph_attention_timing(fa, gen, shape, label, iters=10):
+    """Rows 3, 5 and 6 at one bf16 non-causal shape, the kernels and SDPA
+    (``sdpa_graph_times``) alike as CUDA-graph replays over
+    ``attention_copies`` taken in turn: the device's time, with no input
+    left in the L2 by the call before (the kernels at 256 tokens take about
+    a call's host cost, which an eager timing would measure instead).  The
+    plain versions are timed eagerly; the bounds are ``attention_timing``'s."""
+    b, s_q, s_k, hq, hkv, d = shape
+    copies = attention_copies(gen, shape)
+    n = len(copies)
+    args = (False, 1.0 / np.sqrt(d), 0.0, 0)
+    stats = []
+    for q, k, v, do in copies:
+        o, lse = fa.flash_attention_fwd(q, k, v, *args)
+        stats.append((lse, delta_of(do, o)))
+    lib_fwd, lib_bwd, lib_both = sdpa_graph_times(copies, iters)
+    q, k, v, do = copies[0]
+    lse, delta = stats[0]
+    pairs = b * hq * s_q * s_k
+    q_bytes, kv_bytes = b * s_q * hq * d * 2, b * s_k * hkv * d * 2
+    stats_bytes = b * hq * s_q * 4
+    print(f"  {n} input copies of {4 * q_bytes / 1e6:.1f} MB, taken in turn "
+          f"by kernels and SDPA alike")
+    bwd_what = (f"SDPA non-causal backward alone, graph replay; forward + "
+                f"backward {lib_both:.4f} ms")
+
+    def kernel(fn):
+        return graph_ms(lambda i: fn(*copies[i % n], *stats[i % n]), iters)
+    res = {}
+    res["fa_fwd"] = report(
+        f"flash_attention_fwd{label}",
+        kernel(lambda q, k, v, do, lse, delta: fa.flash_attention_fwd(
+            q, k, v, *args)),
+        time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, *args), 3,
+                warmup=1), lib_fwd,
+        2 * q_bytes + 2 * kv_bytes + stats_bytes, 4 * d * pairs,
+        "SDPA non-causal forward, graph replay")
+    res["fa_dkv"] = report(
+        f"flash_attention_bwd_dkv{label}",
+        kernel(lambda *t: fa.flash_attention_bwd_dkv(*t, *args)),
+        time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
+        2 * q_bytes + 4 * kv_bytes + 2 * stats_bytes, 8 * d * pairs,
+        bwd_what)
+    res["fa_dq"] = report(
+        f"flash_attention_bwd_dq{label}",
+        kernel(lambda *t: fa.flash_attention_bwd_dq(*t, *args)),
+        time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta, *args), 3, warmup=1), lib_bwd,
+        3 * q_bytes + 2 * kv_bytes + 2 * stats_bytes, 6 * d * pairs,
+        bwd_what)
+    del copies, stats, q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_unet_timing(pa, decode_kv_lens):
+    """Phase 5e: rows 3/5/6 at the three UNet shapes (non-causal,
+    ``graph_attention_timing``), each beside its bound (counted at the head
+    dim, not the padded width), the plain version's time and SDPA's forward
+    and backward at the same shape; then rows 1-2 at head dim 80 at phase
+    3a's decode shape (32 heads, pages of 16) beside their byte bound.
+    Returns the timings by the UNet rows' keys."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    res = {}
+    for shape in UNET_ATTN_SHAPES:
+        d = shape[-1]
+        print(f"  {list(shape)} (S {shape[1]}, head dim {d} at width "
+              f"{fa.head_width(d)}), non-causal:")
+        t = graph_attention_timing(fa, gen, shape, f" (d {d})")
+        res.update({f"{k}_d{d}": v for k, v in t.items()})
+    sh = shapes(decode_kv_lens)[0]
+    for kv_dtype in (None, "int8"):
+        time_shape(pa, gen, sh, kv_dtype, D=80)
+    return res
+
+
+UNET_ROWS = [
+    dict(key=f"{k}_d{d}", name=f"{n} (head dim {d})", route="cuda",
+         source=CSRC + "flash_attention.cu",
+         replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}")
+    for d in UNET_HEAD_DIMS
+    for k, n, line in (("fa_fwd", "flash_attention_fwd", 64),
+                       ("fa_dkv", "flash_attention_bwd_dkv", 268),
+                       ("fa_dq", "flash_attention_bwd_dq", 347))]
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="csrc directory of another commit: phase 5 times "
-                         "its ragged paged attention and softmax forward, "
-                         "phase 5b its flash-attention kernels at rate 0, "
-                         "RMSNorm forward and LayerNorm backward, in turns "
-                         "with these")
+                    help="csrc directory of another commit: phase 1 holds "
+                         "its D 64 / 128 flash-attention registers against "
+                         "these, phase 5 times its ragged paged attention "
+                         "and softmax forward, phase 5b its flash-attention "
+                         "kernels at rate 0, RMSNorm forward and LayerNorm "
+                         "backward, in turns with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -3452,6 +4088,11 @@ def main():
     from paddle_tpu_torch.ops import paged_attention as pa
 
     t_start = time.perf_counter()
+
+    def say(header):
+        print(f"{header} [{time.perf_counter() - t_start:.0f} s]",
+              flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3459,25 +4100,34 @@ def main():
           f"{torch.cuda.device_count()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {card}")
 
-    print("phase 1: build")
+    say("phase 1: build")
     t0 = time.perf_counter()
     built = _build.build_all()
-    print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    register_report(built)
+    print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc per source, all started together); seconds to each: "
+          + ", ".join(f"{n} {s:.1f}" for n, s in sorted(
+              _build.BUILD_SECONDS.items(), key=lambda x: x[1])))
+    register_report(built, args.parent)
 
-    print("phase 2: kernels vs plain version on the card")
+    say("phase 2: kernels vs plain version on the card")
     max_err = phase_kernel(pa)
-    print("phase 2b: train kernels vs plain version on the card")
+    say("phase 2b: train kernels vs plain version on the card")
     max_err.update(phase_train_kernels(fa, fu))
-    print("phase 2c: LayerNorm, softmax and AdamW kernels, flash attention "
+    say("phase 2c: LayerNorm, softmax and AdamW kernels, flash attention "
           "at ERNIE's shape, and its dropout branch, vs plain version on the "
           "card; the dropout mask read out of the kernel")
     phase_fused_kernels(fa, fu, max_err)
-    print("phase 2d: the segment branch of flash attention (varlen, and the "
+    say("phase 2d: the segment branch of flash attention (varlen, and the "
           "padding of untileable sequences) vs plain version on the card")
     phase_segment_kernels(fa, max_err)
+    say("phase 2e: flash attention at every head width and ragged paged "
+          "attention at head dims 40 / 80 / 96 / 256 vs plain version on the "
+          "card")
+    head_dim_checks(fa, torch.Generator(device="cuda").manual_seed(29),
+                    max_err)
+    ragged_head_dim_checks(pa)
 
-    print("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
+    say("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
     cfg = llama_config_7b()
     t0 = time.perf_counter()
     params = init_llama_params(cfg, dtype=torch.bfloat16, device="cuda",
@@ -3485,66 +4135,76 @@ def main():
     torch.cuda.synchronize()
     print(f"  random weights on the card in {time.perf_counter() - t0:.1f} s")
     serve = phase_serving(pa, cfg, params)
-    print("phase 3b: serving at LLaMA-2 7B widths (int8 KV, speculative=4, "
+    say("phase 3b: serving at LLaMA-2 7B widths (int8 KV, speculative=4, "
           "32 layers)")
     serve_q = phase_serving_quant(pa, cfg, params, serve["kv_bytes"])
     del params
     torch.cuda.empty_cache()
-    print("phase 3c: train step of the 271M LLaMA (bf16, B=8, S=2048, "
+    say("phase 3c: train step of the 271M LLaMA (bf16, B=8, S=2048, "
           "16 layers)")
     train = phase_train(pa)
     torch.cuda.empty_cache()
-    print(f"phase 3d: ERNIE-3.0-base MLM train step (bf16, B=64, S=512, "
+    say(f"phase 3d: ERNIE-3.0-base MLM train step (bf16, B=64, S=512, "
           f"12 layers, dropout {DROPOUT_RATE})")
     ernie = phase_ernie(pa)
     torch.cuda.empty_cache()
-    print("phase 3d, the same step at dropout 0 (the cost of dropout on this "
+    say("phase 3d, the same step at dropout 0 (the cost of dropout on this "
           "card)")
     ernie0 = phase_ernie(pa, warmup=2, steps=5, dropout=0.0)
     torch.cuda.empty_cache()
-    print(f"phase 3f: ERNIE-3.0-base sequence classification fine-tuning "
+    say(f"phase 3f: ERNIE-3.0-base sequence classification fine-tuning "
           f"step (2 classes, bf16, B=32, S=128, dropout {DROPOUT_RATE}, "
           f"AdamW lr 2e-5)")
     cls = phase_ernie(pa, B=32, S=128, warmup=2, steps=10, classes=2,
                       lr=2e-5)
     torch.cuda.empty_cache()
-    print("phase 3e: nn.functional.softmax through the softmax kernels")
+    say("phase 3e: nn.functional.softmax through the softmax kernels")
     softmax_launches = phase_softmax_entry()
-    print("phase 3g: ViT-L/16 train step at 384 px (bf16, B=32, 577 tokens, "
+    say("phase 3g: ViT-L/16 train step at 384 px (bf16, B=32, 577 tokens, "
           "24 layers)")
     vit = phase_vit(pa)
     torch.cuda.empty_cache()
-    print("phase 3g': ViT-L/16 train step at 224 px (bf16, B=64, 197 "
+    say("phase 3g': ViT-L/16 train step at 224 px (bf16, B=64, 197 "
           "tokens), as bench.py's bench_vit_l16 runs it")
     vit224 = phase_vit(pa, img=224, B=64, warmup=2, steps=3)
     torch.cuda.empty_cache()
+    say("phase 3h: SD-1.5 UNet train step (bf16, B=8, 64 x 64 latents, "
+          "77-token context, SGD lr 1e-4)")
+    unet = phase_unet(pa)
+    torch.cuda.empty_cache()
 
-    print("phase 4: engine checks, kernels vs plain version")
+    say("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
-    print("phase 4b: train step, kernels vs plain versions")
+    say("phase 4b: train step, kernels vs plain versions")
     phase_train_check()
-    print("phase 4c: ERNIE train step, kernels vs plain versions, at "
+    say("phase 4c: ERNIE train step, kernels vs plain versions, at "
           "dropout 0 and 0.1")
     phase_ernie_check()
     torch.cuda.empty_cache()
-    print("phase 4d: ViT-L/16 train step at 384 px, kernels vs plain "
+    say("phase 4d: ViT-L/16 train step at 384 px, kernels vs plain "
           "versions")
     phase_vit_check()
+    say("phase 4e: SD-1.5 UNet train step (f32, B=1), kernels vs plain "
+          "versions")
+    phase_unet_check()
 
-    print("phase 5: kernel timing at the phase-3 shapes")
+    say("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
                           serve["decode_kv_lens"], serve_q["decode_kv_lens"],
                           parent=args.parent)
-    print("phase 5b: train kernel timing at the phase-3c shapes")
+    say("phase 5b: train kernel timing at the phase-3c shapes")
     timing.update(phase_train_timing(parent=args.parent))
-    print("phase 5c: LayerNorm, softmax and AdamW timing at the phase-3d/3e "
+    say("phase 5c: LayerNorm, softmax and AdamW timing at the phase-3d/3e "
           "shapes")
     timing.update(phase_fused_timing())
-    print("phase 5d: the segment branch of flash attention at the phase-3g "
+    say("phase 5d: the segment branch of flash attention at the phase-3g "
           "shape and at a packed varlen shape")
     timing.update(phase_segment_timing())
+    say("phase 5e: flash attention at the SD-1.5 UNet's shapes (head dims "
+          "40 / 80 / 160) and ragged paged attention at head dim 80")
+    timing.update(phase_unet_timing(pa, serve["decode_kv_lens"]))
 
-    print("phase 6: summary")
+    say("phase 6: summary")
     for name, sv in (("bf16 KV", serve), ("int8 KV + speculative=4", serve_q)):
         print(f"  serving, {name}: {sv['tokens_per_s']:.1f} tokens/s, TTFT "
               f"p50 {sv['ttft_p50_ms']:.1f} ms, p95 {sv['ttft_p95_ms']:.1f} "
@@ -3563,7 +4223,8 @@ def main():
               f"{er['losses'][0]:.4f} -> {er['losses'][-1]:.4f}, peak "
               f"{er['peak_gib']:.2f} GiB on {card}")
     for what, v in (("ViT-L/16 at 384 px, B 32", vit),
-                    ("ViT-L/16 at 224 px, B 64", vit224)):
+                    ("ViT-L/16 at 224 px, B 64", vit224),
+                    ("SD-1.5 UNet at 64 x 64 latents, B 8", unet)):
         print(f"  {what}: {v['images_per_s']:.1f} images/s, mfu_share "
               f"{v['mfu']:.4f}, {v['step_ms']:.1f} ms per step, loss "
               f"{v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}, peak "
@@ -3596,6 +4257,11 @@ def main():
         key = meta["key"]
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=vit["launches"][key],
+                         max_abs_err=max_err[key], **timing[key]))
+    for meta in UNET_ROWS:
+        key = meta["key"]
+        rows.append(dict({k: v for k, v in meta.items() if k != "key"},
+                         launches=unet["launches"][key],
                          max_abs_err=max_err[key], **timing[key]))
     for meta in FUSED_ROWS:
         key = meta["key"]

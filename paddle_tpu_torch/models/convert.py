@@ -7,7 +7,7 @@ import torch
 from .. import resolve_device
 
 __all__ = ["params_from_numpy", "ernie_params_from_numpy",
-           "vit_params_from_numpy"]
+           "unet_params_from_numpy", "vit_params_from_numpy"]
 
 
 def _tensor(v, dev, dtype):
@@ -38,4 +38,18 @@ def ernie_params_from_numpy(named, device=None, dtype=torch.float32):
     return {name: _tensor(v, dev, dtype) for name, v in named.items()}
 
 
+# ViT's names are the JAX model's too; a qkv projection without a bias
+# (``qkv_bias=False``) has no ``qkv.bias`` on either side
 vit_params_from_numpy = ernie_params_from_numpy
+
+
+def unet_params_from_numpy(named, device=None, dtype=torch.float32):
+    """``{name: np.ndarray}`` from the JAX ``UNet2DConditionModel``'s
+    ``named_parameters()`` -> a state dict that the port's
+    :class:`~paddle_tpu_torch.models.unet.UNet2DConditionModel` of the same
+    config loads with ``load_state_dict``: the names (``down_res.0.conv1.
+    weight``, ``up_attn.2.attn1.to_q.weight`` ...), the ``[in, out]`` Linear
+    layout and the ``[out, in, kh, kw]`` convolution layout are the same,
+    so each entry is a plain copy, on ``device`` (``None``: the CUDA device,
+    raising without one) in ``dtype``."""
+    return ernie_params_from_numpy(named, device, dtype)

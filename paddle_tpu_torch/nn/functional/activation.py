@@ -1,17 +1,23 @@
-"""Activations (port of ``paddle_tpu.nn.functional.activation``: ``gelu``
-and ``softmax`` with the ``softmax`` override of
+"""Activations (port of ``paddle_tpu.nn.functional.activation``: ``gelu``,
+``silu`` and ``softmax`` with the ``softmax`` override of
 ``paddle_tpu/ops/pallas/__init__.py``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gelu", "softmax"]
+__all__ = ["gelu", "silu", "softmax"]
 
 
 def gelu(x, approximate=False):
     """GELU, exact (erf) unless ``approximate`` (JAX ``jax.nn.gelu``)."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def silu(x):
+    """SiLU, x * sigmoid(x) (JAX ``activation.py:42``, ``jax.nn.silu``),
+    computed outside any kernel there as here."""
+    return F.silu(x)
 
 
 def softmax(x, axis=-1, dtype=None, kernels=True, norm_kernels=False):

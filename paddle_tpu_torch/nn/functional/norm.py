@@ -1,10 +1,11 @@
-"""RMSNorm and LayerNorm (port of ``paddle_tpu.nn.functional.norm`` and of
-the ``layer_norm`` override in ``paddle_tpu/ops/pallas/__init__.py``)."""
+"""RMSNorm, LayerNorm and GroupNorm (port of
+``paddle_tpu.nn.functional.norm`` and of the ``layer_norm`` override in
+``paddle_tpu/ops/pallas/__init__.py``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm_ref", "layer_norm_ref", "layer_norm"]
+__all__ = ["rms_norm_ref", "layer_norm_ref", "layer_norm", "group_norm"]
 
 
 def rms_norm_ref(v, w=None, epsilon=1e-6):
@@ -58,3 +59,20 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
         if out is not None:
             return out
     return layer_norm_ref(x, weight, bias, n_axes, epsilon)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW"):
+    """GroupNorm (JAX ``norm.py:163``): the channels fall into
+    ``num_groups`` groups, each normalised over its channels and every
+    spatial position with the biased variance, then the per-channel weight
+    and bias.  Channels are axis 1, or the last axis for a channel-last
+    ``data_format`` (``NHWC``, ``NLC``, ``NDHWC``).  JAX computes it
+    outside any Pallas kernel, so here it is
+    ``torch.nn.functional.group_norm``."""
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    out = torch.nn.functional.group_norm(x, num_groups, weight, bias,
+                                         epsilon)
+    return out.movedim(1, -1) if channel_last else out

@@ -1,14 +1,16 @@
-"""Linear, Embedding, Dropout, LayerNorm, Conv2D and GELU modules with the
-JAX package's parameter names, layouts and initialisers
+"""Linear, Embedding, Dropout, LayerNorm, GroupNorm, Conv2D and GELU
+modules with the JAX package's parameter names, layouts and initialisers
 (``paddle_tpu/nn/common.py`` ``Linear``, ``Embedding``, ``Dropout``;
-``paddle_tpu/nn/norm.py`` ``LayerNorm``; ``paddle_tpu/nn/conv.py``
-``Conv2D``; ``paddle_tpu/nn/activation.py`` ``GELU``).
+``paddle_tpu/nn/norm.py`` ``LayerNorm``, ``GroupNorm``;
+``paddle_tpu/nn/conv.py`` ``Conv2D``; ``paddle_tpu/nn/activation.py``
+``GELU``).
 
 They are plain ``torch.nn.Module``s, not a port of the eager ``Layer``
 framework.  Linear weights keep the ``[in, out]`` layout (``x @ W + b``), so
 weights cross from JAX by name and value.  Initialisers draw from the
 ``torch.Generator`` the caller passes: Xavier-uniform Linear weights, zero
-biases, N(0, 1) embeddings, LayerNorm weight 1 and bias 0, convolution
+biases, N(0, 1) embeddings, LayerNorm and GroupNorm weight 1 and bias 0,
+convolution
 weights and biases uniform in +-sqrt(1 / fan_in) — the JAX package's
 defaults, though not its ``jax.random`` draws.
 """
@@ -21,26 +23,29 @@ from torch import nn
 
 from .functional.activation import gelu
 from .functional.common import dropout
-from .functional.norm import layer_norm
+from .functional.norm import group_norm, layer_norm
 
-__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "Conv2D", "GELU"]
+__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "GroupNorm",
+           "Conv2D", "GELU"]
 
 
 class Linear(nn.Module):
-    """y = x @ weight + bias, weight [in_features, out_features]."""
+    """y = x @ weight + bias, weight [in_features, out_features]; with
+    ``bias=False`` (JAX ``bias_attr=False``) there is no bias parameter."""
 
-    def __init__(self, in_features, out_features, *, dtype, device,
-                 generator):
+    def __init__(self, in_features, out_features, bias=True, *, dtype,
+                 device, generator):
         super().__init__()
         bound = math.sqrt(6.0 / (in_features + out_features))
         w = torch.rand((in_features, out_features), generator=generator,
                        device=device) * (2 * bound) - bound
         self.weight = nn.Parameter(w.to(dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype,
-                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            out_features, dtype=dtype, device=device)) if bias else None
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        y = x @ self.weight
+        return y if self.bias is None else y + self.bias
 
 
 class Embedding(nn.Module):
@@ -95,6 +100,26 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight.shape, self.weight, self.bias,
                           self.epsilon, kernels=self.kernels,
                           norm_kernels=self.norm_kernels)
+
+
+class GroupNorm(nn.Module):
+    """JAX ``GroupNorm`` (``nn/norm.py:141``): affine GroupNorm over
+    ``num_groups`` groups of the channels (axis 1) through
+    :func:`~paddle_tpu_torch.nn.functional.norm.group_norm`; weight 1 and
+    bias 0 of ``num_channels`` each."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5, *, dtype,
+                 device):
+        super().__init__()
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.weight = nn.Parameter(torch.ones(num_channels, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return group_norm(x, self.num_groups, self.epsilon, self.weight,
+                          self.bias)
 
 
 class Conv2D(nn.Module):

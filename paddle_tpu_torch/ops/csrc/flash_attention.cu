@@ -1,1338 +1,21 @@
-// FlashAttention-2 forward and backward for NVIDIA Hopper (sm_90a), plus the
-// lse repack.
+// FlashAttention-2 forward and backward for NVIDIA Hopper (sm_90a) at head
+// widths 64 and 128 (head dims 56-64 and 104-128), and the lse repack.
 //
-// Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   flash_attention_fwd_kernel_call -> _fwd_kernel      (fa_fwd_mma_kernel,
-//                                                         fa_fwd_kernel)
-//   _pack_lse                                            (the forward's lse
-//        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
-//   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_mma_kernel,
-//                                                fa_bwd_dkv_kernel)
-//   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_mma_kernel,
-//                                                fa_bwd_dq_kernel)
-//
-// Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
-// each is read or written through its (batch, seq, head) strides with unit
-// stride along D, so the [B, S, H, D] tensors of the model are used as they
-// are (the TPU wrapper transposed them to [B*H, S, D] first).  lse and
-// delta are compact [B*Hq, S_q] f32 rows: on Hopper device memory has no
-// 128-lane tile padding, so this is byte for byte the TPU's packed
-// [B*Hq, S_q/128, 128] layout, and the forward writes it directly.
-//
-// Semantics kept from the TPU kernels: s = (q . k) * sm_scale in f32;
-// causal masking is bottom-right aligned (query row i sees key j iff
-// i + S_k - S_q >= j) with masked scores set to NEG_INF = -1e30, not -inf;
-// the online softmax walks the key tiles in order from the first, so a
-// row's running max is finite after tile 0 and later fully masked tiles add
-// exactly zero; the finalize step writes o = acc / l where l > 0 (else 0)
-// and lse = m + log(max(l, 1e-30)).  GQA: q head h reads kv head
-// h / (Hq / Hkv), never a repeated copy.  The backward recomputes
-// p = exp(s - lse) from the saved lse, takes dO in f32, uses
-// delta = rowsum(dO * O) computed by the caller, and sums dK, dV over the
-// Hq / Hkv q heads of a kv head inside one block (no atomics, so the
-// result is deterministic, as the TPU grid's sequential axes were).
-// S_q and S_k need not be multiples of a tile: a partial tile's
-// missing rows load as zeros, are never written, and its missing key
-// columns score -inf, so they add nothing.
-//
-// What bounds it on this card: at the train shape (S = 2048, D = 64) each
-// (q tile, key tile) pair does 2 products (forward), 4 plus the hi / lo
-// repeats (dK / dV, see below) or 3 plus repeats (dQ) of tile x tile x D
-// multiply-adds for 2 tiles of rows loaded, so the kernels are bound by
-// operations, not by bytes: 989 TFLOP/s of bf16 tensor-core products
-// against 3.35 TB/s.  What keeps a kernel from that rate is what stands
-// between the products: shared-memory round trips of the score tiles, block
-// barriers, and loads that the products wait for.  The TPU's 512 x 1024
-// blocks do not fit Hopper's 227 KB of shared memory; the tiles here are
-// 64 to 128 rows.  Two bodies:
-//   * bf16 (the train steps; fa_fwd_mma_kernel, fa_bwd_dkv_mma_kernel,
-//     fa_bwd_dq_mma_kernel): mma.sync.m16n8k16 fed by ldmatrix, with every
-//     score, p, dP, ds and accumulator in registers, so no score tile
-//     touches shared memory, and the streamed operand arriving through a
-//     cp.async ring while the previous tile's products run, with one block
-//     barrier per tile: K / V for the forward and dQ, Q / dO / lse / delta
-//     for dK / dV.  The forward's block takes 128 q rows (8 warps of 16),
-//     so that each K / V tile it loads feeds twice the products of a
-//     64-row tile; dK / dV's takes 64 keys (4 warps) and streams 64-row q
-//     tiles (32 at D = 128, where dK and dV take twice the registers);
-//     dQ's takes 64 q rows (4 warps), keeps each warp's Q and dO fragments
-//     in registers for the whole key loop (at D = 64; at D = 128 they are
-//     reloaded from shared memory per k-step, which keeps dQ from
-//     spilling) and works 16 keys at a time, so that S and dP take 16
-//     registers, not 64.  Registers bound the warps an SM holds, so the
-//     launch bounds cap them (128, 168 and 168 at D = 64) to fit 16, 12
-//     and 12 warps per SM.  Causal launches put the
-//     longest blocks first, and only the tiles that cross the causal
-//     frontier or the end of the keys are masked.
-//   * f32 inputs run their products on the CUDA cores in f32, which keeps
-//     f32 inputs exact to f32 rounding (a TF32 tensor-core product would
-//     not): tiles staged in shared memory as f32 (rows padded to D + 1
-//     floats so that the threads of a warp hit distinct banks), each of the
-//     256 threads owning a 4 x 4 micro-tile of a 64 x 64 score block and a
-//     4 x D/16 slice of a 64 x D accumulator kept in registers.
-// The bf16 forward rounds p to bf16 for P V, as the TPU kernel does
-// (`pd.astype(v.dtype)`).  The TPU backward keeps p and ds in f32; here each
-// enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
-// 2^-16 relative, with two products into one f32 accumulator.  wgmma, TMA
-// and warp specialisation are left for later work.
-//
-// Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
-// template flag DROP of all six bodies; the DROP = false instantiations are
-// the kernels as they were.  Each score's keep word is drawn in registers
-// from Philox4x32-10 keyed by the seed and counted by the score's global
-// (q-head row, q row, key) coordinates (philox.cuh), right where the
-// score's p meets P V or dP, so every kernel rebuilds the same mask from
-// the seed whatever its tiling, and the mask never reaches device memory
-// (the TPU kernel reseeds its core PRNG per block to the same end).  As on
-// the TPU: l and lse sum the undropped p, P V takes p * keep / (1 - rate)
-// (rounded to bf16 in the bf16 forward), dK / dV and dQ take
-// dP * keep / (1 - rate) into ds = p (dP' - delta) sm_scale, and dV the
-// dropped p.  The bf16 bodies draw one call per 4 scores: a forward or dQ
-// thread's 4 scores of a 16-key group in one q row are one call's 4 words,
-// and dK / dV's transposed fragment splits each call between a lane pair
-// that swaps halves by one shuffle.  The f32 bodies draw one call per
-// score.  The mask costs integer work (some 100 operations per call), not
-// bytes; a fully masked causal tile draws nothing.
-//
-// Segment ids (the TPU kernels' has_segments branch: the varlen mask, and
-// the padding of an untileable sequence, which takes a segment of its own)
-// are the template flag SEG of all six bodies, beside DROP; the SEG = false
-// instantiations are the kernels as they were.  The ids of one batch row,
-// f32 [S] (S = S_q = S_k), are read from device memory where a score is
-// masked, and a score whose q row and key lie in different segments is
-// NEG_INF, as on the TPU: it composes with the causal mask and the dropout
-// mask, and l, lse and delta keep their forms.  A row whose first key
-// tiles hold no key of its segment runs its max at NEG_INF until one
-// arrives, whose rescale exp(NEG_INF - m) then clears what those tiles
-// summed (the TPU kernel's behaviour; a true -inf there would give NaN).
-// The forward and dQ bodies, which mask only the tiles that cross the
-// causal frontier or the end of the keys, mask every tile with SEG; dK /
-// dV masks each score anyway.  Per tile each thread turns the ids of its
-// scores' rows and columns into a bit per score (segment_bits), so that the
-// segment mask costs one register in the loop over the scores.  No tile is
-// skipped for its segments, as the TPU kernel skips none.
-//
-// The C entries allocate nothing, launch on the caller's stream and return
-// cudaGetLastError().
+// Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
+// (_fwd_kernel, _bwd_dkv_kernel, _bwd_dq_kernel at these head dims, and
+// _pack_lse).  The bodies, what bounds them and their design are in
+// flash_attention.cuh; the other widths are this source built with
+// -DFA_TU_WIDTHS=<W>, one library each, in parallel with this one
+// (ops/_build.py WIDTH_LIBRARIES).  At D = 64 and 128 this library holds
+// the full-width (PART = false) bodies, the kernels the train steps of the
+// port were tuned with.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "philox.cuh"
-#include "sm90_mma.cuh"
+#ifndef FA_TU_WIDTHS
+#define FA_TU_WIDTHS 64, 128
+#endif
+#include "flash_attention.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 64;              // rows of a q tile and of a k tile
-constexpr int kLDS = kTile + 1;        // padded row of a 64 x 64 score tile
-constexpr float kNegInf = -1e30f;      // the Pallas kernels' NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// strides (in elements) of a [B, S, H, D] tensor with unit stride along D
-struct View {
-  long long sb, ss, sh;
-  __device__ __forceinline__ long long at(int b, int s, int h) const {
-    return b * sb + s * ss + h * sh;
-  }
-};
-
-// rows [row0, row0 + 64) of one (batch, head) -> dst [64][D + 1] f32; rows
-// past `rows` are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long ss, int row0, int rows) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int row = row0 + r;
-    dst[r * LD + d] = row < rows ? to_f32(src[(long long)row * ss + d]) : 0.f;
-  }
-}
-
-// c[i][j] = sum_d A[r][d] * B[c][d],  r = ty + 16 i,  c = tx + 16 j
-template <int D>
-__device__ __forceinline__ void mm_abt(const float* A, const float* B,
-                                       float c[4][4]) {
-  constexpr int LD = D + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-  }
-}
-
-// acc[i][j] += sum_k P[r][k] * B[k][e],  r = ty + 16 i,  e = tx + 16 j;
-// P is a [64][65] score tile, B a [64][D + 1] row tile
-template <int D>
-__device__ __forceinline__ void mm_ab(const float* P, const float* B,
-                                      float acc[4][D / 16]) {
-  constexpr int LD = D + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float a[4], b[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[(ty + 16 * i) * kLDS + k];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) b[j] = B[k * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_r P[r][c] * B[r][e],  c = ty + 16 i,  e = tx + 16 j
-template <int D>
-__device__ __forceinline__ void mm_atb(const float* P, const float* B,
-                                       float acc[4][D / 16]) {
-  constexpr int LD = D + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float a[4], b[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[r * kLDS + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) b[j] = B[r * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// number of k tiles a q tile starting at row0 visits: all of them, or up to
-// its causal frontier (the TPU kernel's `run` condition per tile)
-__device__ __forceinline__ int k_tiles_for(int row0, int s_q, int s_k,
-                                           int causal) {
-  const int n = (s_k + kTile - 1) / kTile;
-  if (!causal) return n;
-  const int last = row0 + kTile - 1 + (s_k - s_q);
-  return last < 0 ? 0 : min(n, last / kTile + 1);
-}
-
-// one score of a (q tile, k tile) pair, scaled and causally masked.  Key
-// columns at or past s_k (the zero rows of a partial last k tile) score
-// -inf, so that they add exactly nothing to a row's sum and to the
-// backward's p and ds; the causal mask keeps the TPU kernel's NEG_INF, and
-// so does the segment mask with SEG (segb: the batch row's ids; rows past
-// S read the last id, and are never written).
-template <bool SEG>
-__device__ __forceinline__ float masked_score(float s, float sm_scale,
-                                              int qrow, int kcol, int offset,
-                                              int causal, int s_k,
-                                              const float* segb) {
-  if (kcol >= s_k) return __int_as_float(0xff800000);   // -inf
-  s *= sm_scale;
-  if (causal && qrow + offset < kcol) return kNegInf;
-  if constexpr (SEG)
-    if (segb[min(qrow, s_k - 1)] != segb[kcol]) return kNegInf;
-  return s;
-}
-
-// One online-softmax step over a 64 x 64 score tile (raw q . k products in
-// s, row stride LDS): scale and mask, update each row's running max m and
-// denominator l (warp w owns rows 8w .. 8w + 7, lanes own columns lane and
-// lane + 32), write p = exp(s - m_new) to p (row stride LDP; may alias s)
-// and the row's rescale factor exp(m_old - m_new) to alpha_s.  With DROP
-// the p written for P V is the dropped one; l sums the undropped p.
-template <int LDS, int LDP, bool SEG, bool DROP, typename P>
-__device__ __forceinline__ void softmax_step(const float* s, P* p,
-                                             float* alpha_s, float m[8],
-                                             float l[8], int row0, int col0,
-                                             int offset, int causal, int s_k,
-                                             float sm_scale,
-                                             const Dropout& dr,
-                                             unsigned bhq,
-                                             const float* segb) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) {
-    const int r = warp * 8 + rr;
-    const float s0 = masked_score<SEG>(s[r * LDS + lane], sm_scale, row0 + r,
-                                       col0 + lane, offset, causal, s_k,
-                                       segb);
-    const float s1 = masked_score<SEG>(s[r * LDS + lane + 32], sm_scale,
-                                       row0 + r, col0 + lane + 32, offset,
-                                       causal, s_k, segb);
-    const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
-    float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-    const float alpha = expf(m[rr] - m_new);
-    l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
-    m[rr] = m_new;
-    if constexpr (DROP) {
-      p0 = dropped(dr, dropout_word_at(dr, row0 + r, col0 + lane, bhq), p0);
-      p1 = dropped(dr, dropout_word_at(dr, row0 + r, col0 + lane + 32, bhq),
-                   p1);
-    }
-    store(p + r * LDP + lane, p0);
-    store(p + r * LDP + lane + 32, p1);
-    if (lane == 0) alpha_s[r] = alpha;
-  }
-}
-
-template <typename T, int D, bool SEG, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, View qv, View kv, View vv, View ov,
-              int hq, int hkv, int s_q, int s_k, int causal, float sm_scale,
-              Dropout dr, const float* __restrict__ seg) {
-  constexpr int LD = D + 1;
-  constexpr int JD = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                        // [64][D + 1]
-  float* k_s = q_s + kTile * LD;
-  float* v_s = k_s + kTile * LD;
-  float* p_s = v_s + kTile * LD;            // [64][65] scores, then p
-  float* alpha_s = p_s + kTile * kLDS;      // [64] per-row rescale
-  float* m_s = alpha_s + kTile;
-  float* l_s = m_s + kTile;
-
-  const int row0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* kb = k + kv.at(b, 0, hk);
-  const T* vb = v + vv.at(b, 0, hk);
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
-
-  load_tile<T, D>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-
-  float acc[4][JD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) acc[i][j] = 0.f;
-  float m[8], l[8];                         // rows warp * 8 + rr, warp-uniform
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) { m[rr] = kNegInf; l[rr] = 0.f; }
-
-  const int n_kt = k_tiles_for(row0, s_q, s_k, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();                        // last tile's readers are done
-    load_tile<T, D>(k_s, kb, kv.ss, kt * kTile, s_k);
-    load_tile<T, D>(v_s, vb, vv.ss, kt * kTile, s_k);
-    __syncthreads();
-    float sc[4][4];
-    mm_abt<D>(q_s, k_s, sc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        p_s[r * kLDS + c] = sc[i][j];
-      }
-    __syncthreads();
-    softmax_step<kLDS, kLDS, SEG, DROP>(p_s, p_s, alpha_s, m, l, row0,
-                                        kt * kTile, offset, causal, s_k,
-                                        sm_scale, dr, (unsigned)(b * hq + h),
-                                        segb);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = alpha_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < JD; ++j) acc[i][j] *= a;
-    }
-    mm_ab<D>(p_s, v_s, acc);
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      m_s[warp * 8 + rr] = m[rr];
-      l_s[warp * 8 + rr] = l[rr];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = row0 + r;
-    if (row < s_q) {
-      const float lr = l_s[r];
-      const float inv = lr > 0.f ? 1.f / lr : 0.f;
-      T* orow = o + ov.at(b, row, h);
-#pragma unroll
-      for (int j = 0; j < JD; ++j) store(orow + tx + 16 * j, acc[i][j] * inv);
-    }
-  }
-  // the lse epilogue writes the compact (= TPU-packed) [B*Hq, S_q] row
-  if (threadIdx.x < kTile && row0 + threadIdx.x < s_q) {
-    const int r = threadIdx.x;
-    lse[((long long)b * hq + h) * s_q + row0 + r] =
-        m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
-  }
-}
-
-// per-row stats of one (batch, q head) q tile -> shared memory
-__device__ __forceinline__ void load_stats(float* lse_s, float* delta_s,
-                                           const float* lse,
-                                           const float* delta,
-                                           long long row_base, int row0,
-                                           int s_q) {
-  if (threadIdx.x < kTile) {
-    const int row = row0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < s_q ? lse[row_base + row] : 0.f;
-    delta_s[threadIdx.x] = row < s_q ? delta[row_base + row] : 0.f;
-  }
-}
-
-// p = exp(s - lse) and ds = p * (dp - delta) * sm_scale of a tile pair
-// (q rows ty + 16 i, k cols tx + 16 j); writes ds, and p when p_s is set.
-// With DROP, dp and the p written (dV's) are the dropped ones.
-template <int D, bool SEG, bool DROP>
-__device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
-                                         const float* k_s, const float* v_s,
-                                         const float* lse_s,
-                                         const float* delta_s, float* p_s,
-                                         float* ds_s, int qrow0, int kcol0,
-                                         int offset, int causal, int s_k,
-                                         float sm_scale, const Dropout& dr,
-                                         unsigned bhq, const float* segb) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float sc[4][4], dp[4][4];
-  mm_abt<D>(q_s, k_s, sc);
-  mm_abt<D>(do_s, v_s, dp);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      const float s = masked_score<SEG>(sc[i][j], sm_scale, qrow0 + r,
-                                        kcol0 + c, offset, causal, s_k, segb);
-      const float p = expf(s - lse_s[r]);
-      float pd = p, dpd = dp[i][j];
-      if constexpr (DROP) {
-        const unsigned word = dropout_word_at(dr, qrow0 + r, kcol0 + c, bhq);
-        pd = dropped(dr, word, p);
-        dpd = dropped(dr, word, dpd);
-      }
-      if (p_s != nullptr) p_s[r * kLDS + c] = pd;
-      ds_s[r * kLDS + c] = p * (dpd - delta_s[r]) * sm_scale;
-    }
-}
-
-template <typename T, int D, bool SEG, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, View qv, View kv, View vv, View dov,
-                  View dkv, View dvv, int hq, int hkv, int s_q, int s_k,
-                  int causal, float sm_scale, Dropout dr,
-                  const float* __restrict__ seg) {
-  constexpr int LD = D + 1;
-  constexpr int JD = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;                        // [64][D + 1] each
-  float* v_s = k_s + kTile * LD;
-  float* q_s = v_s + kTile * LD;
-  float* do_s = q_s + kTile * LD;
-  float* p_s = do_s + kTile * LD;           // [64][65] each
-  float* ds_s = p_s + kTile * kLDS;
-  float* lse_s = ds_s + kTile * kLDS;       // [64] each
-  float* delta_s = lse_s + kTile;
-
-  const int col0 = blockIdx.x * kTile;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int rep = hq / hkv;
-  const int offset = s_k - s_q;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
-
-  load_tile<T, D>(k_s, k + kv.at(b, 0, hk), kv.ss, col0, s_k);
-  load_tile<T, D>(v_s, v + vv.at(b, 0, hk), vv.ss, col0, s_k);
-
-  float dk_acc[4][JD], dv_acc[4][JD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) { dk_acc[i][j] = 0.f; dv_acc[i][j] = 0.f; }
-
-  const int n_qt = (s_q + kTile - 1) / kTile;
-  for (int rr = 0; rr < rep; ++rr) {        // the q heads of this kv head
-    const int h = hk * rep + rr;
-    const long long row_base = ((long long)b * hq + h) * s_q;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int row0 = qt * kTile;
-      // tiles wholly before the causal frontier add nothing
-      if (causal && row0 + kTile - 1 + offset < col0) continue;
-      __syncthreads();
-      load_tile<T, D>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-      load_tile<T, D>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
-      load_stats(lse_s, delta_s, lse, delta, row_base, row0, s_q);
-      __syncthreads();
-      p_and_ds<D, SEG, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s,
-                             row0, col0, offset, causal, s_k, sm_scale, dr,
-                             (unsigned)(b * hq + h), segb);
-      __syncthreads();
-      mm_atb<D>(p_s, do_s, dv_acc);         // dv += p^T do
-      mm_atb<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = col0 + ty + 16 * i;
-    if (row < s_k) {
-      T* dkr = dk + dkv.at(b, row, hk);
-      T* dvr = dv + dvv.at(b, row, hk);
-#pragma unroll
-      for (int j = 0; j < JD; ++j) {
-        store(dkr + tx + 16 * j, dk_acc[i][j]);
-        store(dvr + tx + 16 * j, dv_acc[i][j]);
-      }
-    }
-  }
-}
-
-template <typename T, int D, bool SEG, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq,
-                 View qv, View kv, View vv, View dov, View dqv, int hq,
-                 int hkv, int s_q, int s_k, int causal, float sm_scale,
-                 Dropout dr, const float* __restrict__ seg) {
-  constexpr int LD = D + 1;
-  constexpr int JD = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                        // [64][D + 1] each
-  float* do_s = q_s + kTile * LD;
-  float* k_s = do_s + kTile * LD;
-  float* v_s = k_s + kTile * LD;
-  float* ds_s = v_s + kTile * LD;           // [64][65]
-  float* lse_s = ds_s + kTile * kLDS;
-  float* delta_s = lse_s + kTile;
-
-  const int row0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* kb = k + kv.at(b, 0, hk);
-  const T* vb = v + vv.at(b, 0, hk);
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
-
-  load_tile<T, D>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-  load_tile<T, D>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
-  load_stats(lse_s, delta_s, lse, delta, ((long long)b * hq + h) * s_q, row0,
-             s_q);
-
-  float acc[4][JD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) acc[i][j] = 0.f;
-
-  const int n_kt = k_tiles_for(row0, s_q, s_k, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile<T, D>(k_s, kb, kv.ss, kt * kTile, s_k);
-    load_tile<T, D>(v_s, vb, vv.ss, kt * kTile, s_k);
-    __syncthreads();
-    p_and_ds<D, SEG, DROP>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr,
-                           ds_s, row0, kt * kTile, offset, causal, s_k,
-                           sm_scale, dr, (unsigned)(b * hq + h), segb);
-    __syncthreads();
-    mm_ab<D>(ds_s, k_s, acc);               // dq += ds k
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row < s_q) {
-      T* dqr = dq + dqv.at(b, row, h);
-#pragma unroll
-      for (int j = 0; j < JD; ++j) store(dqr + tx + 16 * j, acc[i][j]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 forward, dK / dV and dQ, written for Hopper's tensor cores through
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  Every score, p,
-// dP, ds and output accumulator lives in registers: a warp owns 16 rows
-// (q rows in the forward and dQ, key rows in dK / dV), an S = A . B^T
-// product comes out as accumulator fragments (thread (g, t) =
-// (lane / 4, lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of
-// each 8-column n-tile), and those fragments are, with no data movement,
-// the A operand of the next product (P . V; p^T . dO and ds^T . Q; ds . K).
-// Row statistics reduce over the 4 lanes of a row by shuffles.  Tiles
-// reach shared memory by cp.async
-// through a ring of stages (the copy of tile j + 1 runs while the products
-// of tile j do), with one block barrier per tile; their rows are
-// stored with their 16-byte chunks XOR-swizzled by (row % 8), so that every
-// ldmatrix phase reads 8 distinct bank groups.  The softmax runs in base 2
-// (scores times sm_scale * log2 e, ex2.approx), which is the same function.
-// ---------------------------------------------------------------------------
-// Compile-time settings, measured on phase 5b of chip_smoke.py (which
-// builds variants of them for that measurement only; the port loads the
-// defaults).  At D = 64 the forward holds 16 warps on an SM, dK / dV and
-// dQ 12: the register cap of the launch bounds is what lets more than one
-// block in, and occupancy, more than the ring's depth, hides the loads.
-#ifndef FA_FWD_WARPS
-#define FA_FWD_WARPS 8         // forward q rows per block = 16 x warps
-#endif
-#ifndef FA_STAGES
-#define FA_STAGES 2            // depth of the K / V (forward, dQ) and Q / dO
-#endif                         // (dK / dV) rings; 1 = no copy overlaps
-#ifndef FA_FWD_MINB
-#define FA_FWD_MINB 2          // forward blocks per SM at D = 64
-#endif
-#ifndef FA_DKV_WARPS
-#define FA_DKV_WARPS 4         // dK / dV key rows per block = 16 x warps
-#endif
-#ifndef FA_DKV_MINB
-#define FA_DKV_MINB 3          // dK / dV blocks per SM at D = 64
-#endif
-#ifndef FA_DKV_BQ64
-#define FA_DKV_BQ64 64         // dK / dV q tile at D = 64 (32 at D = 128)
-#endif
-#ifndef FA_DQ_WARPS
-#define FA_DQ_WARPS 4          // dQ q rows per block = 16 x warps
-#endif
-#ifndef FA_DQ_MINB
-#define FA_DQ_MINB 3           // dQ blocks per SM at D = 64 (4 spills)
-#endif
-#ifndef FA_DQ_REGA64
-#define FA_DQ_REGA64 1         // dQ at D = 64 holds each warp's Q and dO
-#endif                         // fragments in registers (0: reloads them
-                               // per k-step, as it always does at D = 128)
-#ifndef FA_DQ_SEG_REGA64
-#define FA_DQ_SEG_REGA64 1     // the same for dQ's segment branch
-#endif
-#ifndef FA_DQ_SEG_MINB
-#define FA_DQ_SEG_MINB 2       // dQ's segment branch: blocks per SM at D = 64
-#endif                         // (at 3 or 4 it spills, with or without the
-                               // fragments in registers)
-
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kKeyTile = 64;           // keys per forward k tile
-
-// rows [row0, row0 + R) of a [.., D] row tile (row stride ss) -> swizzled
-// shared tile, 16 bytes per cp.async; rows at or past `rows` are zeros
-template <int D, int R, int NTHR>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int row0, int rows) {
-  constexpr int NC = D / 8;
-#pragma unroll
-  for (int i = threadIdx.x; i < R * NC; i += NTHR) {
-    const int r = i / NC, c = i % NC, row = row0 + r;
-    cp_async16(dst + swz<D>(r, c),
-               src + (long long)min(row, rows - 1) * ss + c * 8, row < rows);
-  }
-}
-
-// With SEG, which of a thread's scores of one tile stay inside a segment, as
-// bits: bit 4 i + 2 r + c is set where fragment row row0 + 8 r and column
-// col0 + 8 i + c (i < N: the thread's n-tiles, c: its 2 columns of each)
-// hold the same id.  Built once per tile from the ids in device memory (a
-// tile's ids are L1-resident across the block), so that the loop over the
-// scores holds one register for the segment mask (n = S, the clamp for
-// rows and columns past it, which are never kept or written).
-template <int N>
-__device__ __forceinline__ unsigned segment_bits(const float* segb, int row0,
-                                                 int col0, int n) {
-  float rs[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) rs[r] = segb[min(row0 + 8 * r, n - 1)];
-  unsigned bits = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float cs = segb[min(col0 + 8 * i + c, n - 1)];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        bits |= (unsigned)(rs[r] == cs) << (4 * i + 2 * r + c);
-    }
-  return bits;
-}
-
-// number of 64-key tiles that a q tile of rows [row0, row0 + R) visits
-__device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
-                                         int causal) {
-  const int n = (s_k + kKeyTile - 1) / kKeyTile;
-  if (!causal) return n;
-  const int last = min(row0 + R, s_q) - 1 + (s_k - s_q);
-  return last < 0 ? 0 : min(n, last / kKeyTile + 1);
-}
-
-// Forward, bf16.  A block takes 16 x NW q rows of one (batch, q head);
-// warp w owns rows 16 w .. 16 w + 15 and keeps their Q fragments, S, P and
-// the O accumulator in registers.  The q tiles with the most key tiles are
-// launched first (grid y counts down), so the causal tail is short.  With
-// SEG every tile is masked, under the tile's segment bits.
-template <int D, int NW, int NS, bool SEG, bool DROP>
-__global__ void __launch_bounds__(NW * 32, D == 64 ? FA_FWD_MINB : 1)
-fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  View qv, View kv, View vv, View ov, int hq, int hkv,
-                  int s_q, int s_k, int causal, float sm_scale, Dropout dr,
-                  const float* __restrict__ seg) {
-  constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
-  constexpr int KS = D / 16;                // k-steps of Q K^T
-  constexpr int NO = D / 8;                 // n-tiles of O
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][D]
-  __nv_bfloat16* k_s = q_s + BM * D;        // NS x [BN][D]
-  __nv_bfloat16* v_s = k_s + NS * BN * D;   // NS x [BN][D]
-
-  const int n_qt = (s_q + BM - 1) / BM;
-  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
-  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = row0 + warp * 16;        // the warp's first q row
-  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
-  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
-  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
-  auto load_kv = [&](int kt) {
-    const int st = kt % NS;
-    copy_rows<D, BN, NTHR>(k_s + st * BN * D, kb, kv.ss, kt * BN, s_k);
-    copy_rows<D, BN, NTHR>(v_s + st * BN * D, vb, vv.ss, kt * BN, s_k);
-  };
-
-  // group 0: Q and key tile 0; groups 1 .. NS - 2: key tiles 1 .. NS - 2
-  copy_rows<D, BM, NTHR>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-#pragma unroll
-  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
-    if (s < n_kt) load_kv(s);
-    cp_async_commit();
-  }
-
-  const float scale2 = sm_scale * kLog2e;
-  const float neg2 = kNegInf * kLog2e;      // NEG_INF in base-2 units
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};   // rows g, g + 8 (l: this
-                                                 // lane's columns only)
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if constexpr (NS == 1) {
-      if (kt > 0) {
-        __syncthreads();                    // every warp is done with kt - 1
-        load_kv(kt);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      cp_async_wait<NS - 2>();              // tile kt (and Q) have landed
-      __syncthreads();                      // ... for every thread, and tile
-                                            // kt - 1's stage is free
-      if (kt + NS - 1 < n_kt) load_kv(kt + NS - 1);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* ks = k_s + (kt % NS) * BN * D;
-    const __nv_bfloat16* vs = v_s + (kt % NS) * BN * D;
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      unsigned qa[4];                       // reloaded: registers are the
-      load_a<D>(qa, q_s, warp * 16, kk);    // scarcer resource
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        unsigned bf[4];
-        load_bt<D>(bf, ks, np * 16, kk);
-        mma16816(s[2 * np], qa, bf[0], bf[1]);
-        mma16816(s[2 * np + 1], qa, bf[2], bf[3]);
-      }
-    }
-
-    // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys, or every tile with SEG (its scores are scaled here, and a
-    // masked one is NEG_INF exactly); a full tile stays raw and takes the
-    // scale in the exponent's FFMA (the scale is positive, so the max
-    // commutes with it)
-    const int kcol0 = kt * BN;
-    const bool masked = SEG || (causal && kcol0 + BN - 1 > wrow + offset) ||
-                        kcol0 + BN > s_k;
-    if (masked) {
-      unsigned same = 0;
-      if constexpr (SEG)
-        same = segment_bits<BN / 8>(segb, wrow + g, kcol0 + 2 * t, s_k);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kcol0 + 8 * j + 2 * t + (e & 1);
-          const int row = wrow + g + 8 * (e >> 1);
-          float x = s[j][e] * scale2;
-          if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
-          else if (causal && row + offset < col) x = neg2;
-          else if (SEG && !((same >> (4 * j + e)) & 1u)) x = neg2;
-          s[j][e] = x;
-        }
-    }
-    float mx[2] = {s[0][0], s[0][2]};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    const float sc = masked ? 1.f : scale2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      mx[r] = fmaxf(m[r], mx[r] * sc);
-      const float alpha = fast_exp2(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(fmaf(s[j][e], sc, -m[e >> 1]));
-        l[e >> 1] += p;
-        s[j][e] = p;
-      }
-
-    // O += P V: P (dropped, then rounded to bf16, as the TPU kernel does)
-    // is the A operand straight from the score fragments; each 16-key
-    // group's keep words are drawn here, two calls for its 8 scores
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      if constexpr (DROP)
-        drop_group(dr, s[2 * kk], s[2 * kk + 1],
-                   (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
-                   (unsigned)(b * hq + h));
-      const unsigned pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        unsigned bf[4];
-        load_b<D>(bf, vs, kk * 16, dp);
-        mma16816(acc[2 * dp], pa, bf[0], bf[1]);
-        mma16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // finalize: o = acc / l where l > 0 (else 0), lse = m + log(max(l, 1e-30))
-  // into the compact (= TPU-packed) [B*Hq, S_q] row
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    const int row = wrow + g + 8 * r;
-    if (row >= s_q) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* orow = o + ov.at(b, row, h);
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t == 0)
-      lse[((long long)b * hq + h) * s_q + row] =
-          m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
-  }
-}
-
-// dK / dV, bf16.  A block takes 16 x NW key rows of one (batch, kv head)
-// and keeps them (K, V) in shared memory; warp w owns keys 16 w .. 16 w + 15
-// and their dK, dV accumulators in registers, across every (q head of the
-// GQA group, q tile) pair, so the sum over the group needs no atomics.  Per
-// q tile of BQ rows it computes the transposed tiles S^T = K Q^T and
-// dP^T = V dO^T, whose fragments (rows = keys) are already the A operand of
-// dV += p^T dO and dK += ds^T Q; lse and delta index q rows, so they are
-// read per fragment column.  p and ds enter those products as hi + lo bf16
-// pairs (2^-16 relative, as the TPU kernel's f32).  Q, dO, lse and delta
-// tiles stream through the cp.async ring.  The key blocks with the most q
-// tiles (the first ones, when causal) are launched first.
-template <int D, int NW, int BQ, int NS, bool SEG, bool DROP>
-__global__ void __launch_bounds__(NW * 32, D == 64 ? FA_DKV_MINB : 1)
-fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, View qv, View kv,
-                      View vv, View dov, View dkv, View dvv, int hq, int hkv,
-                      int s_q, int s_k, int causal, float sm_scale,
-                      Dropout dr, const float* __restrict__ seg) {
-  constexpr int BK = 16 * NW, NTHR = NW * 32;
-  constexpr int KS = D / 16;                // k-steps of K Q^T
-  constexpr int NQ = BQ / 8;                // n-tiles of S^T (q columns)
-  constexpr int NO = D / 8;                 // n-tiles of dK, dV
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][D]
-  __nv_bfloat16* v_s = k_s + BK * D;
-  __nv_bfloat16* ring = v_s + BK * D;       // NS x {Q, dO} [BQ][D]
-  float* stats = reinterpret_cast<float*>(ring + NS * 2 * BQ * D);
-                                            // NS x {lse, delta} [BQ]
-
-  const int col0 = blockIdx.y * BK;
-  const int hk = blockIdx.x % hkv, b = blockIdx.x / hkv;
-  const int rep = hq / hkv;
-  const int offset = s_k - s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wk0 = col0 + warp * 16;         // the warp's first key
-
-  // q tiles wholly before the block's causal frontier add nothing
-  const int n_qt = (s_q + BQ - 1) / BQ;
-  int qt0 = 0;
-  if (causal) {
-    const int x = col0 - offset - BQ + 1;   // first row0 that can see col0
-    qt0 = x <= 0 ? 0 : (x + BQ - 1) / BQ;
-  }
-  const int nq = max(n_qt - qt0, 0);
-  const int n_it = rep * nq;
-  auto load_q = [&](int it) {
-    const int st = it % NS;
-    const int h = hk * rep + it / nq, row0 = (qt0 + it % nq) * BQ;
-    __nv_bfloat16* qs = ring + st * 2 * BQ * D;
-    copy_rows<D, BQ, NTHR>(qs, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-    copy_rows<D, BQ, NTHR>(qs + BQ * D, dout + dov.at(b, 0, h), dov.ss, row0,
-                           s_q);
-    if (threadIdx.x < BQ) {
-      const int row = row0 + threadIdx.x;
-      const long long at = ((long long)b * hq + h) * s_q + min(row, s_q - 1);
-      float* ls = stats + st * 2 * BQ;
-      cp_async4(ls + threadIdx.x, lse + at, row < s_q);
-      cp_async4(ls + BQ + threadIdx.x, delta + at, row < s_q);
-    }
-  };
-
-  // group 0: K, V and q tile 0; groups 1 .. NS - 2: q tiles 1 .. NS - 2
-  copy_rows<D, BK, NTHR>(k_s, k + kv.at(b, 0, hk), kv.ss, col0, s_k);
-  copy_rows<D, BK, NTHR>(v_s, v + vv.at(b, 0, hk), vv.ss, col0, s_k);
-#pragma unroll
-  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
-    if (s < n_it) load_q(s);
-    cp_async_commit();
-  }
-
-  const float scale2 = sm_scale * kLog2e;
-  const float neg2 = kNegInf * kLog2e;
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
-  float dk_acc[NO][4], dv_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) { dk_acc[n][e] = 0.f; dv_acc[n][e] = 0.f; }
-
-  for (int it = 0; it < n_it; ++it) {
-    if constexpr (NS == 1) {
-      if (it > 0) {
-        __syncthreads();
-        load_q(it);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      cp_async_wait<NS - 2>();
-      __syncthreads();
-      if (it + NS - 1 < n_it) load_q(it + NS - 1);
-      cp_async_commit();
-    }
-    const int row0 = (qt0 + it % nq) * BQ;
-    // a warp whose keys no row of this tile can see adds nothing
-    if (causal && row0 + BQ - 1 + offset < wk0) continue;
-    const int st = it % NS;
-    const __nv_bfloat16* qs = ring + st * 2 * BQ * D;
-    const __nv_bfloat16* dos = qs + BQ * D;
-    const float* ls = stats + st * 2 * BQ;
-
-    float sc[NQ][4], dp[NQ][4];             // S^T and dP^T: keys x q rows
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) { sc[j][e] = 0.f; dp[j][e] = 0.f; }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      unsigned ka[4], va[4];
-      load_a<D>(ka, k_s, warp * 16, kk);
-      load_a<D>(va, v_s, warp * 16, kk);
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        unsigned bf[4];
-        load_bt<D>(bf, qs, np * 16, kk);
-        mma16816(sc[2 * np], ka, bf[0], bf[1]);
-        mma16816(sc[2 * np + 1], ka, bf[2], bf[3]);
-        load_bt<D>(bf, dos, np * 16, kk);
-        mma16816(dp[2 * np], va, bf[0], bf[1]);
-        mma16816(dp[2 * np + 1], va, bf[2], bf[3]);
-      }
-    }
-
-    // p = exp(s - lse) and ds = p (dP - delta) sm_scale; only a tile that
-    // crosses the warp's causal frontier is masked (NEG_INF, as the TPU).
-    // With DROP, dV takes the dropped p and ds the dropped dP.  The
-    // fragment is transposed (rows = keys), so a thread's scores of one q
-    // column lie in one call, but use 2 of its words: lanes g and g ^ 1
-    // (lane ^ 4) hold the same q columns and the other 2 words, so each
-    // draws the call of one of their 2 columns and they swap halves.
-    const unsigned bhq = b * hq + hk * rep + it / nq;
-    const unsigned kcell = (unsigned)(wk0 >> 4) * 4u + (g >> 1);
-    const bool odd = g & 1;
-    const bool masked = causal && row0 + offset < wk0 + 15;
-    // with SEG: the tile's segment bits, fragment rows = the thread's keys
-    // g and g + 8, columns = its q rows
-    unsigned same = 0;
-    if constexpr (SEG)
-      same = segment_bits<NQ>(segb, wk0 + g, row0 + 2 * t, s_k);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
-      const float2 d2 =
-          *reinterpret_cast<const float2*>(ls + BQ + 8 * j + 2 * t);
-      unsigned kw[4];                       // element e's word: q column
-      if constexpr (DROP) {                 // 2t + (e & 1), key g + 8 (e >> 1)
-        const uint4 w =
-            dropout_words(dr, kcell, row0 + 8 * j + 2 * t + odd, bhq);
-        const unsigned ra = __shfl_xor_sync(kFull, odd ? w.x : w.y, 4);
-        const unsigned rb = __shfl_xor_sync(kFull, odd ? w.z : w.w, 4);
-        const unsigned ma = odd ? w.y : w.x, mb = odd ? w.w : w.z;
-        kw[0] = odd ? ra : ma;
-        kw[1] = odd ? ma : ra;
-        kw[2] = odd ? rb : mb;
-        kw[3] = odd ? mb : rb;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
-        const float dl = (e & 1) ? d2.y : d2.x;
-        float x = sc[j][e] * scale2;
-        if (masked && row0 + 8 * j + 2 * t + (e & 1) + offset <
-                          wk0 + g + 8 * (e >> 1))
-          x = neg2;
-        if (SEG && !((same >> (4 * j + e)) & 1u)) x = neg2;
-        const float p = fast_exp2(x - lse2);
-        if constexpr (DROP) {
-          sc[j][e] = dropped(dr, kw[e], p);
-          dp[j][e] = p * (dropped(dr, kw[e], dp[j][e]) - dl) * sm_scale;
-        } else {
-          sc[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dl) * sm_scale;
-        }
-      }
-    }
-
-    // dV += p^T dO and dK += ds^T Q, each factor as hi + lo
-#pragma unroll
-    for (int kq = 0; kq < BQ / 16; ++kq) {
-      unsigned ph[4], pl[4], dh[4], dl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = 2 * kq + (i >> 1), e = 2 * (i & 1);
-        split_pair(sc[j][e], sc[j][e + 1], ph[i], pl[i]);
-        split_pair(dp[j][e], dp[j][e + 1], dh[i], dl[i]);
-      }
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        unsigned bf[4];
-        load_b<D>(bf, dos, kq * 16, np);
-        mma16816(dv_acc[2 * np], ph, bf[0], bf[1]);
-        mma16816(dv_acc[2 * np], pl, bf[0], bf[1]);
-        mma16816(dv_acc[2 * np + 1], ph, bf[2], bf[3]);
-        mma16816(dv_acc[2 * np + 1], pl, bf[2], bf[3]);
-        load_b<D>(bf, qs, kq * 16, np);
-        mma16816(dk_acc[2 * np], dh, bf[0], bf[1]);
-        mma16816(dk_acc[2 * np], dl, bf[0], bf[1]);
-        mma16816(dk_acc[2 * np + 1], dh, bf[2], bf[3]);
-        mma16816(dk_acc[2 * np + 1], dl, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wk0 + g + 8 * r;
-    if (row >= s_k) continue;
-    __nv_bfloat16* dkr = dk + dkv.at(b, row, hk);
-    __nv_bfloat16* dvr = dv + dvv.at(b, row, hk);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<unsigned*>(dkr + 8 * n + 2 * t) =
-          pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<unsigned*>(dvr + 8 * n + 2 * t) =
-          pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// dQ, bf16.  A block takes 16 x NW q rows of one (batch, q head); warp w
-// owns rows 16 w .. 16 w + 15.  With RA their Q and dO A fragments are
-// read once from the swizzled staging tile and then stay in registers
-// (without, they are reloaded from it per k-step), as do the rows' lse and
-// delta (rows g and g + 8 of each fragment) and the dQ accumulator.
-// K and V tiles of 64 keys stream through the cp.async ring.  Per 16 keys
-// of a tile the warp computes S = Q K^T and dP = dO V^T (K and V read as
-// B^T), p = exp(s - lse) and ds = p (dP - delta) sm_scale in registers, and
-// ds — split hi + lo, its accumulator fragments already in the A layout —
-// enters dQ += ds K with K read as B (k x n, the transposed ldmatrix), so S
-// and dP live 16 keys at a time.  The q blocks with the most key tiles are
-// launched first.  dQ is rounded to bf16 once, staged in the warp's own rows
-// of the Q tile and written as 16-byte row chunks.  With SEG every tile is
-// masked, under the tile's segment bits.
-template <int D, int NW, int NS, bool RA, bool SEG, bool DROP>
-__global__ void __launch_bounds__(NW * 32,
-                                  D == 64 ? (SEG ? FA_DQ_SEG_MINB
-                                                 : FA_DQ_MINB) : 1)
-fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dq, View qv, View kv,
-                     View vv, View dov, View dqv, int hq, int hkv, int s_q,
-                     int s_k, int causal, float sm_scale, Dropout dr,
-                     const float* __restrict__ seg) {
-  constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
-  constexpr int KS = D / 16;                // k-steps of Q K^T and dO V^T
-  constexpr int NO = D / 8;                 // n-tiles of dQ
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][D]
-  __nv_bfloat16* do_s = q_s + BM * D;       // [BM][D]
-  __nv_bfloat16* k_s = do_s + BM * D;       // NS x [BN][D]
-  __nv_bfloat16* v_s = k_s + NS * BN * D;   // NS x [BN][D]
-
-  const int n_qt = (s_q + BM - 1) / BM;
-  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
-  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = row0 + warp * 16;        // the warp's first q row
-  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
-  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
-  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
-  auto load_kv = [&](int kt) {
-    const int st = kt % NS;
-    copy_rows<D, BN, NTHR>(k_s + st * BN * D, kb, kv.ss, kt * BN, s_k);
-    copy_rows<D, BN, NTHR>(v_s + st * BN * D, vb, vv.ss, kt * BN, s_k);
-  };
-
-  // group 0: Q and dO; groups 1 .. max(NS - 1, 1): key tiles 0 .. NS - 2
-  copy_rows<D, BM, NTHR>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q);
-  copy_rows<D, BM, NTHR>(do_s, dout + dov.at(b, 0, h), dov.ss, row0, s_q);
-  cp_async_commit();
-#pragma unroll
-  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
-    if (s < n_kt) load_kv(s);
-    cp_async_commit();
-  }
-
-  // the rows' statistics in base 2: lse2 = lse log2 e; rows past s_q read
-  // as 0 (their q and dO rows are zeros, so their ds is 0) and are not
-  // written
-  const float scale2 = sm_scale * kLog2e;
-  const float neg2 = kNegInf * kLog2e;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wrow + g + 8 * r;
-    const long long at = ((long long)b * hq + h) * s_q + row;
-    lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
-    dlt[r] = row < s_q ? delta[at] : 0.f;
-  }
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
-
-  cp_async_wait<(NS > 1 ? NS - 1 : 1)>();   // Q and dO have landed
-  __syncthreads();
-  unsigned qa[RA ? KS : 1][4], da[RA ? KS : 1][4];
-  if constexpr (RA) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      load_a<D>(qa[kk], q_s, warp * 16, kk);
-      load_a<D>(da[kk], do_s, warp * 16, kk);
-    }
-  }
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if constexpr (NS == 1) {
-      if (kt > 0) {
-        __syncthreads();                    // every warp is done with kt - 1
-        load_kv(kt);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      cp_async_wait<NS - 2>();              // tile kt has landed
-      __syncthreads();                      // ... for every thread, and tile
-                                            // kt - 1's stage is free
-      if (kt + NS - 1 < n_kt) load_kv(kt + NS - 1);
-      cp_async_commit();
-    }
-    const int kcol0 = kt * BN;
-    // a tile wholly past the warp's causal frontier adds nothing
-    if (causal && kcol0 > wrow + 15 + offset) continue;
-    const __nv_bfloat16* ks = k_s + (kt % NS) * BN * D;
-    const __nv_bfloat16* vs = v_s + (kt % NS) * BN * D;
-    // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys, or every tile with SEG: its scores are scaled first and a
-    // masked one is NEG_INF exactly (-inf past the keys); a full tile takes
-    // the scale in the exponent's FFMA
-    const bool masked = SEG || (causal && kcol0 + BN - 1 > wrow + offset) ||
-                        kcol0 + BN > s_k;
-    unsigned same = 0;                      // n-tile 2 np + j of the tile
-    if constexpr (SEG)
-      same = segment_bits<BN / 8>(segb, wrow + g, kcol0 + 2 * t, s_k);
-
-#pragma unroll
-    for (int np = 0; np < BN / 16; ++np) {  // keys kcol0 + 16 np .. + 15
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        unsigned qf[4], df[4], bf[4];
-        if constexpr (RA) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) { qf[i] = qa[kk][i]; df[i] = da[kk][i]; }
-        } else {
-          load_a<D>(qf, q_s, warp * 16, kk);
-          load_a<D>(df, do_s, warp * 16, kk);
-        }
-        load_bt<D>(bf, ks, np * 16, kk);
-        mma16816(s[0], qf, bf[0], bf[1]);
-        mma16816(s[1], qf, bf[2], bf[3]);
-        load_bt<D>(bf, vs, np * 16, kk);
-        mma16816(dp[0], df, bf[0], bf[1]);
-        mma16816(dp[1], df, bf[2], bf[3]);
-      }
-      if constexpr (DROP)                   // ds takes the dropped dP
-        drop_group(dr, dp[0], dp[1], (unsigned)(kcol0 / 16 + np) * 4u + t,
-                   wrow + g, (unsigned)(b * hq + h));
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x;
-          if (masked) {
-            const int col = kcol0 + 16 * np + 8 * j + 2 * t + (e & 1);
-            const int row = wrow + g + 8 * (e >> 1);
-            x = s[j][e] * scale2;
-            if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
-            else if (causal && row + offset < col) x = neg2;
-            else if (SEG && !((same >> (4 * (2 * np + j) + e)) & 1u))
-              x = neg2;
-            x -= lse2[e >> 1];
-          } else {
-            x = fmaf(s[j][e], scale2, -lse2[e >> 1]);
-          }
-          const float p = fast_exp2(x);
-          dp[j][e] = p * (dp[j][e] - dlt[e >> 1]) * sm_scale;
-        }
-      // dQ += ds K: ds (hi + lo) is the A operand of k-step np as it lies
-      unsigned dh[4], dl[4];
-      split_pair(dp[0][0], dp[0][1], dh[0], dl[0]);
-      split_pair(dp[0][2], dp[0][3], dh[1], dl[1]);
-      split_pair(dp[1][0], dp[1][1], dh[2], dl[2]);
-      split_pair(dp[1][2], dp[1][3], dh[3], dl[3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        unsigned bf[4];
-        load_b<D>(bf, ks, np * 16, dn);
-        mma16816(acc[2 * dn], dh, bf[0], bf[1]);
-        mma16816(acc[2 * dn + 1], dh, bf[2], bf[3]);
-        mma16816(acc[2 * dn], dl, bf[0], bf[1]);
-        mma16816(acc[2 * dn + 1], dl, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the warp's 16 rows of dQ, rounded once to bf16, into its own
-  // rows of the Q tile (no other warp reads them), then out as 16-byte
-  // chunks of each row
-  __nv_bfloat16* stage = q_s + warp * 16 * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<unsigned*>(stage + swz<D>(g + 8 * r, n) + 2 * t) =
-          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-  __syncwarp();
-  constexpr int NC = D / 8;                 // 16-byte chunks per row
-#pragma unroll
-  for (int i = lane; i < 16 * NC; i += 32) {
-    const int r = i / NC, c = i % NC, row = wrow + r;
-    if (row < s_q)
-      *reinterpret_cast<uint4*>(dq + dqv.at(b, row, h) + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + swz<D>(r, c));
-  }
-}
 
 // [BH, S, 1] stats with (row, seq) strides -> compact [BH, S] f32; one
 // block row per stats row, one thread per element
@@ -1344,240 +27,7 @@ __global__ void pack_lse_kernel(const float* __restrict__ src,
   if (c < s) dst[r * s + c] = src[r * s_row + c * s_seq];
 }
 
-struct Geometry {
-  int batch, hq, hkv, s_q, s_k, causal;
-  float sm_scale;
-};
-
-inline View view_at(const long long* strides, int i) {
-  return View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-}
-
-template <int D>
-constexpr int fwd_smem() { return (3 * kTile * (D + 1) + kTile * kLDS + 3 * kTile) * 4; }
-template <int D>
-constexpr int dkv_smem() { return (4 * kTile * (D + 1) + 2 * kTile * kLDS + 2 * kTile) * 4; }
-template <int D>
-constexpr int dq_smem() { return (4 * kTile * (D + 1) + kTile * kLDS + 2 * kTile) * 4; }
-
-template <int D>
-constexpr int fwd_mma_smem() {
-  return (16 * FA_FWD_WARPS * D + 2 * FA_STAGES * kKeyTile * D) * 2;
-}
-template <int D>
-constexpr int dkv_bq() { return D == 64 ? FA_DKV_BQ64 : 32; }
-template <int D>
-constexpr int dkv_mma_smem() {
-  return (2 * 16 * FA_DKV_WARPS * D + FA_STAGES * 2 * dkv_bq<D>() * D) * 2 +
-         FA_STAGES * 2 * dkv_bq<D>() * 4;
-}
-template <int D>
-constexpr int dq_mma_smem() {
-  return (2 * 16 * FA_DQ_WARPS * D + 2 * FA_STAGES * kKeyTile * D) * 2;
-}
-
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-
-template <typename T, int D, bool SEG, bool DROP>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                float* lse, const long long* st, const Geometry& g,
-                const Dropout& dr, const float* seg, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    constexpr int rows = 16 * FA_FWD_WARPS;
-    constexpr int smem = fwd_mma_smem<D>();
-    const auto kernel =
-        fa_fwd_mma_kernel<D, FA_FWD_WARPS, FA_STAGES, SEG, DROP>;
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows);
-    kernel<<<grid, 32 * FA_FWD_WARPS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
-        view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale, dr, seg);
-    return cudaGetLastError();
-  } else {
-    const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
-    constexpr int smem = fwd_smem<D>();
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, fa_fwd_kernel<T, D, SEG, DROP>, smem);
-    if (err != cudaSuccess) return err;
-    fa_fwd_kernel<T, D, SEG, DROP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
-        view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale, dr, seg);
-    return cudaGetLastError();
-  }
-}
-
-template <typename T, int D, bool SEG, bool DROP>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, const long long* st,
-                    const Geometry& g, const Dropout& dr, const float* seg,
-                    cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    constexpr int keys = 16 * FA_DKV_WARPS;
-    constexpr int smem = dkv_mma_smem<D>();
-    const auto kernel = fa_bwd_dkv_mma_kernel<D, FA_DKV_WARPS, dkv_bq<D>(),
-                                              FA_STAGES, SEG, DROP>;
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(g.hkv * g.batch, (g.s_k + keys - 1) / keys);
-    kernel<<<grid, 32 * FA_DKV_WARPS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
-        view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr,
-        seg);
-    return cudaGetLastError();
-  } else {
-    const dim3 grid((g.s_k + kTile - 1) / kTile, g.hkv, g.batch);
-    constexpr int smem = dkv_smem<D>();
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err =
-        allow_smem(done, fa_bwd_dkv_kernel<T, D, SEG, DROP>, smem);
-    if (err != cudaSuccess) return err;
-    fa_bwd_dkv_kernel<T, D, SEG, DROP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
-        view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-        view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr,
-        seg);
-    return cudaGetLastError();
-  }
-}
-
-template <typename T, int D, bool SEG, bool DROP>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, const long long* st, const Geometry& g,
-                   const Dropout& dr, const float* seg, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    constexpr int rows = 16 * FA_DQ_WARPS;
-    constexpr int smem = dq_mma_smem<D>();
-    const auto kernel = fa_bwd_dq_mma_kernel<
-        D, FA_DQ_WARPS, FA_STAGES,
-        D == 64 && (SEG ? FA_DQ_SEG_REGA64 : FA_DQ_REGA64), SEG, DROP>;
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows);
-    kernel<<<grid, 32 * FA_DQ_WARPS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
-        view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale, dr, seg);
-    return cudaGetLastError();
-  } else {
-    const dim3 grid((g.s_q + kTile - 1) / kTile, g.hq, g.batch);
-    constexpr int smem = dq_smem<D>();
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err =
-        allow_smem(done, fa_bwd_dq_kernel<T, D, SEG, DROP>, smem);
-    if (err != cudaSuccess) return err;
-    fa_bwd_dq_kernel<T, D, SEG, DROP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
-        view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale, dr, seg);
-    return cudaGetLastError();
-  }
-}
-
-// segment ids need one sequence length for the q rows and the keys
-inline bool valid(const Geometry& g, const void* seg) {
-  return g.batch > 0 && g.hkv > 0 && g.hq % g.hkv == 0 && g.s_q > 0 &&
-         g.s_k > 0 && (seg == nullptr || g.s_q == g.s_k);
-}
-
-// dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128; a dropout
-// threshold of 0 takes the instantiation without the dropout branch, and a
-// null segment pointer the one without the segment branch
-#define FA_DISPATCH_SD(CALL, T, D)                                          \
-  if (sg) return dr.thresh ? CALL(T, D, true, true) : CALL(T, D, true, false); \
-  return dr.thresh ? CALL(T, D, false, true) : CALL(T, D, false, false);
-#define FA_DISPATCH_D(CALL, T)                                              \
-  if (head_dim == 64) { FA_DISPATCH_SD(CALL, T, 64) }                       \
-  if (head_dim == 128) { FA_DISPATCH_SD(CALL, T, 128) }
-#define FA_DISPATCH(CALL)                                                   \
-  if (dtype == 0) { FA_DISPATCH_D(CALL, float) }                            \
-  if (dtype == 1) { FA_DISPATCH_D(CALL, __nv_bfloat16) }                    \
-  return cudaErrorInvalidValue;
-
 }  // namespace
-
-// strides: q, k, v, o as (batch, seq, head) element strides, 12 values.
-// Every entry ends with the dropout arguments: the keep threshold
-// (uint32(rate * 2^32); 0 = no dropout), 1 / (1 - rate) and the seed's low
-// and high words; then the segment ids, f32 [B, S] with S = s_q = s_k, or
-// null for none.
-extern "C" int flash_attention_fwd_launch(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
-    int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
-    float drop_scale, unsigned seed_lo, unsigned seed_hi, const void* seg,
-    void* stream) {
-  const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
-  if (!valid(g, seg)) return cudaErrorInvalidValue;
-  const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(seg);
-  float* l = static_cast<float*>(lse);
-#define FA_FWD(T, D, SEG, DROP) \
-  fwd<T, D, SEG, DROP>(q, k, v, o, l, strides, g, dr, sg, s)
-  FA_DISPATCH(FA_FWD)
-#undef FA_FWD
-}
-
-// strides: q, k, v, dout, dk, dv, 18 values; lse / delta compact [B*Hq, S_q].
-extern "C" int flash_attention_bwd_dkv_launch(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv,
-    const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
-    int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
-    float drop_scale, unsigned seed_lo, unsigned seed_hi, const void* seg,
-    void* stream) {
-  const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
-  if (!valid(g, seg)) return cudaErrorInvalidValue;
-  const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define FA_DKV(T, D, SEG, DROP) \
-  bwd_dkv<T, D, SEG, DROP>(q, k, v, dout, l, dl, dk, dv, strides, g, dr, sg, s)
-  FA_DISPATCH(FA_DKV)
-#undef FA_DKV
-}
-
-// strides: q, k, v, dout, dq, 15 values.
-extern "C" int flash_attention_bwd_dq_launch(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, const long long* strides,
-    int batch, int hq, int hkv, int s_q, int s_k, int head_dim, int dtype,
-    int causal, float sm_scale, unsigned thresh, float drop_scale,
-    unsigned seed_lo, unsigned seed_hi, const void* seg, void* stream) {
-  const Geometry g{batch, hq, hkv, s_q, s_k, causal, sm_scale};
-  if (!valid(g, seg)) return cudaErrorInvalidValue;
-  const Dropout dr{thresh, drop_scale, seed_lo, seed_hi};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define FA_DQ(T, D, SEG, DROP) \
-  bwd_dq<T, D, SEG, DROP>(q, k, v, dout, l, dl, dq, strides, g, dr, sg, s)
-  FA_DISPATCH(FA_DQ)
-#undef FA_DQ
-}
 
 extern "C" int pack_lse_launch(const void* src, void* dst, long long bh,
                                long long s, long long s_row, long long s_seq,

@@ -63,7 +63,7 @@
 //     barrier; lane pair (j, j + 16) scores token j, each lane over half
 //     of D (K rows XOR-swizzled in 16-byte units, so the 8 lanes of a
 //     shared-memory phase hit distinct banks, and q is a broadcast), and
-//     each lane owns D / 32 output dims of P V.  A quantized element
+//     each lane owns W / 32 output dims of P V.  A quantized element
 //     becomes float(code) * scale[row] in registers right before use, the
 //     TPU kernel's f32 dequant expression (int8 converted by a byte
 //     permute and an add, not the quarter-rate I2F).  The warps'
@@ -82,9 +82,27 @@
 //     version and JAX's reference make) before ldmatrix.  p enters P V as
 //     a hi + lo bf16 pair (2^-16 relative), so an f32 output keeps f32
 //     accuracy.
+//
+// Head dims: as the TPU kernel, any D that is a multiple of 8 up to 256.
+// The bodies are compiled at a padded width W (rpa_width: D rounded up to
+// a multiple of 32, 224 to 256; a CUDA-core lane owns W / 32 output dims)
+// and take the true D at run time: rows are read D elements long from the
+// pages, q and out, staged rows are zero-filled from D to W in shared
+// memory (scores and P V run over W; the zeros add nothing), and only D
+// columns are stored.  A row of one-byte codes whose D is not a multiple
+// of 16 is only 8-byte aligned in the pool, so its copies go 8 bytes at a
+// time.  Staged rows whose 16-byte chunk count is not a multiple of 8 (nor
+// 1, 2 or 4) are padded by one chunk instead of XOR-swizzled, so that no
+// chunk leaves its row (sm90_mma.cuh swz for the tensor-core tiles,
+// KeyRows for the CUDA-core K stages).  A D that is not a multiple of 8
+// would break the 16-byte q and bf16 row copies and is refused.
 
 // The C entries allocate nothing, launch on the caller's stream and return
-// cudaGetLastError().
+// cudaGetLastError().  A translation unit defines RPA_TU_WIDTHS (its
+// widths) and RPA_PLAIN_ENTRIES or RPA_QUANT_ENTRIES, then includes this
+// header: ragged_paged_attention{,_quant}.cu hold W 64 and 128, and built
+// with -DRPA_TU_WIDTHS=<W> one other width each (ops/_build.py
+// WIDTH_LIBRARIES), so that the widths build in parallel.
 
 #pragma once
 
@@ -108,6 +126,7 @@
 #ifndef RPA_STAGES
 #define RPA_STAGES 2           // depth of the K / V rings (>= 2)
 #endif
+
 
 namespace {
 
@@ -135,6 +154,12 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<unsigned*>(p) = pack_bf16(x, y);
 }
+
+// One element of S as f32
+__device__ __forceinline__ float elem_f32(float x) { return x; }
+__device__ __forceinline__ float elem_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float elem_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float elem_f32(__nv_fp8_e4m3 x) { return float(x); }
 
 // Element k of a 32-bit word holding 4 / sizeof(S) elements of S, as f32
 // (exact: bf16 by a shift, int8 by a byte permute and an add, e4m3
@@ -166,13 +191,21 @@ __device__ __forceinline__ float word_f32<__nv_fp8_e4m3>(unsigned w, int k) {
   return __half2float(__half(r));
 }
 
-// N elements of S at p (aligned to N * sizeof(S): 2, 4, 8 or 16 bytes) ->
-// f32, with no local array in memory
+// N elements of S at p -> f32, with no local array in memory: one vector
+// load when N * sizeof(S) is 2, 4, 8 or 16 bytes (p aligned to it), 16-byte
+// loads when it is a multiple of 16, else one element at a time
 template <typename S, int N>
 __device__ __forceinline__ void load_f32(const S* p, float* o) {
   constexpr int B = N * (int)sizeof(S);
   constexpr int PW = 4 / (int)sizeof(S);    // elements of a 32-bit word
-  static_assert(B == 16 || B == 8 || B == 4 || B == 2, "vector width");
+  if constexpr (B > 16 && B % 16 == 0) {
+    constexpr int V = 16 / (int)sizeof(S);
+#pragma unroll
+    for (int i = 0; i < N / V; ++i) load_f32<S, V>(p + i * V, o + i * V);
+  } else if constexpr (B != 16 && B != 8 && B != 4 && B != 2) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = elem_f32(p[i]);
+  } else {
   unsigned w[(B + 3) / 4];
   if constexpr (B == 16) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -187,11 +220,41 @@ __device__ __forceinline__ void load_f32(const S* p, float* o) {
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) o[i] = word_f32<S>(w[i / PW], i % PW);
+  }
+}
+
+// the first n of N elements (n may pass N) as load_f32, zeros after them
+template <typename S, int N>
+__device__ __forceinline__ void load_f32_n(const S* p, float* o, int n) {
+  if (n >= N) {
+    load_f32<S, N>(p, o);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] = i < n ? elem_f32(p[i]) : 0.f;
+}
+
+// the width the bodies are compiled at for a head dim d (a multiple of 8
+// up to 256; 0 for any other d)
+inline constexpr int rpa_width(int d) {
+  return d <= 0 || d % 8 != 0 || d > 256 ? 0
+         : d > 192                       ? 256
+                                         : (d + 31) / 32 * 32;
 }
 
 // The XOR swizzle of a K row's 16-byte chunks in a CUDA-core stage: chunk
 // c of token row j sits at chunk c ^ key_swizzle(j), so that the 8 lanes of
 // a phase (tokens j .. j + 7, the same logical chunk) hit 8 bank groups.
+// It keeps a chunk inside its row when the row has 1, 2 or 4 chunks or a
+// multiple of 8; other rows (6, 10, 12, 14 or 20 chunks) are padded by one
+// chunk instead, an odd stride that spreads 8 rows over 8 bank groups.
+template <int NCH>
+constexpr bool kKeyXor = NCH % 8 == 0 || NCH == 1 || NCH == 2 || NCH == 4;
+template <int NCH>
+__host__ __device__ constexpr int key_ld() {
+  return kKeyXor<NCH> ? NCH : NCH + 1;
+}
+
 template <int NCH>
 __device__ __forceinline__ int key_swizzle(int j) {
   constexpr int rpl = NCH >= 8 ? 1 : 8 / NCH;    // rows per 128-byte line
@@ -200,8 +263,8 @@ __device__ __forceinline__ int key_swizzle(int j) {
 }
 
 // Where chunk c of row r of a staged tile sits, in 16-byte chunks: plain;
-// a CUDA-core K stage (key_swizzle); a tensor-core tile (swz<D>'s
-// swizzle, as ldmatrix reads it)
+// a CUDA-core K stage (key_swizzle, or a padded row); a tensor-core tile
+// of width W (swz<W>, as ldmatrix reads it)
 template <int NCH>
 struct PlainRows {
   __device__ int operator()(int r, int c) const { return r * NCH + c; }
@@ -209,12 +272,13 @@ struct PlainRows {
 template <int NCH>
 struct KeyRows {
   __device__ int operator()(int r, int c) const {
-    return r * NCH + (c ^ key_swizzle<NCH>(r));
+    if constexpr (kKeyXor<NCH>) return r * NCH + (c ^ key_swizzle<NCH>(r));
+    else return r * (NCH + 1) + c;
   }
 };
-template <int NC>
+template <int W>
 struct MmaRows {
-  __device__ int operator()(int r, int c) const { return r * NC + (c ^ (r & 7)); }
+  __device__ int operator()(int r, int c) const { return swz<W>(r, c) / 8; }
 };
 
 // Where a block's rows and tokens are: the tile's real rows (query index <
@@ -302,25 +366,48 @@ struct GroupRows {
 // One warp copies token rows [t0, t0 + 16) (the groups at pool rows g0 and
 // g1) of the block's kv head into shared memory by 16-byte cp.async: chunk
 // c of K row r at chunk kswz(r, c), of V row r at vswz(r, c), and (quant)
-// the two scales of each row.  Rows at or past t_end are zero-filled.
-template <typename S, int D, typename KSwz, typename VSwz>
+// the two scales of each row.  A pool row holds d elements; rows at or
+// past t_end, and the chunks of a staged row past d, are zero-filled.
+// One-byte rows whose d is not a multiple of 16 are 8-byte aligned only,
+// and go by two 8-byte copies a chunk.
+template <typename S, int W, typename KSwz, typename VSwz>
 __device__ __forceinline__ void copy_chunk16(
     unsigned char* k_dst, unsigned char* v_dst, float* ks_dst, float* vs_dst,
     const S* k_head, const S* v_head, const float* ks_head,
     const float* vs_head, long long g0, long long g1, int t0, int t_end,
-    KSwz kswz, VSwz vswz) {
-  constexpr int NCH = D * (int)sizeof(S) / 16;   // 16-byte chunks of a row
+    int d, KSwz kswz, VSwz vswz) {
+  constexpr int NCH = W * (int)sizeof(S) / 16;   // 16-byte chunks of a row
   const int lane = threadIdx.x % 32;
+  const int row_bytes = d * (int)sizeof(S);
+  const unsigned char* kh = reinterpret_cast<const unsigned char*>(k_head);
+  const unsigned char* vh = reinterpret_cast<const unsigned char*>(v_head);
+  if (sizeof(S) == 1 && (row_bytes & 15)) {
+#pragma unroll 4
+    for (int i = lane; i < 16 * NCH; i += 32) {
+      const int r = i / NCH, c = i % NCH;
+      const bool ok = t0 + r < t_end;
+      const size_t row = (size_t)((r < 8 ? g0 : g1) + (r & 7)) * row_bytes;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = c * 16 + 8 * hh;
+        const bool in = at < row_bytes;
+        cp_async8(k_dst + kswz(r, c) * 16 + 8 * hh, kh + row + (in ? at : 0),
+                  ok && in);
+        cp_async8(v_dst + vswz(r, c) * 16 + 8 * hh, vh + row + (in ? at : 0),
+                  ok && in);
+      }
+    }
+  } else {
 #pragma unroll 8
-  for (int i = lane; i < 16 * NCH; i += 32) {
-    const int r = i / NCH, c = i % NCH;
-    const bool ok = t0 + r < t_end;
-    const size_t off =
-        ((size_t)((r < 8 ? g0 : g1) + (r & 7)) * D) * sizeof(S) + c * 16;
-    cp_async16(k_dst + kswz(r, c) * 16,
-               reinterpret_cast<const unsigned char*>(k_head) + off, ok);
-    cp_async16(v_dst + vswz(r, c) * 16,
-               reinterpret_cast<const unsigned char*>(v_head) + off, ok);
+    for (int i = lane; i < 16 * NCH; i += 32) {
+      const int r = i / NCH, c = i % NCH;
+      const bool ok = t0 + r < t_end;
+      const bool in = c * 16 < row_bytes;
+      const size_t off = (size_t)((r < 8 ? g0 : g1) + (r & 7)) * row_bytes +
+                         (in ? c * 16 : 0);
+      cp_async16(k_dst + kswz(r, c) * 16, kh + off, ok && in);
+      cp_async16(v_dst + vswz(r, c) * 16, vh + off, ok && in);
+    }
   }
   if constexpr (sizeof(S) == 1) {
     // 8 scales of a group are 32 bytes, 32-byte aligned: lanes 0-3 copy the
@@ -341,22 +428,33 @@ __device__ __forceinline__ void copy_chunk16(
 // rows a block (kRows, or 1 when a group has one row, so that decode keeps
 // no registers for rows it does not have); NW warps, rings of NS 16-token
 // stages, one ring a warp.
-template <typename S, int D>
+template <typename S, int W>
 struct CoreStage {
-  static constexpr int NCH = D * (int)sizeof(S) / 16;     // chunks of a row
-  static constexpr int KB = kChunk * D * (int)sizeof(S);  // K (or V) rows
-  static constexpr int BYTES = 2 * KB + (sizeof(S) == 1 ? 2 * kChunk * 4 : 0);
+  static constexpr int NCH = W * (int)sizeof(S) / 16;     // chunks of a row
+  static constexpr int KB = kChunk * key_ld<NCH>() * 16;  // K rows
+  static constexpr int VB = kChunk * W * (int)sizeof(S);  // V rows
+  static constexpr int BYTES = KB + VB + (sizeof(S) == 1 ? 2 * kChunk * 4 : 0);
 };
 
-template <typename T, typename S, int D, int NW, int NS, int R>
+// the warps of a CUDA-core block: RPA_WARPS, halved while their rings
+// would pass 192 KB of shared memory (f32 pages at W 256)
+template <typename S, int W>
+constexpr int core_warps() {
+  int nw = RPA_WARPS;
+  while (nw > 1 && nw * RPA_STAGES * CoreStage<S, W>::BYTES > 192 * 1024)
+    nw /= 2;
+  return nw;
+}
+
+template <typename T, typename S, int W, int NW, int NS, int R>
 constexpr int core_smem() {
-  constexpr int ring = NW * NS * CoreStage<S, D>::BYTES;
-  constexpr int merge = NW * R * (D + 2) * 4;
-  return R * D * (int)sizeof(T) + NW * R * kChunk * 4 +
+  constexpr int ring = NW * NS * CoreStage<S, W>::BYTES;
+  constexpr int merge = NW * R * (W + 2) * 4;
+  return R * W * (int)sizeof(T) + NW * R * kChunk * 4 +
          (ring > merge ? ring : merge);
 }
 
-template <typename T, typename S, typename TO, int D, int NW, int NS, int R>
+template <typename T, typename S, typename TO, int W, int NW, int NS, int R>
 __global__ void __launch_bounds__(NW * 32, 1)
 ragged_paged_attention_kernel(const T* __restrict__ q,
                               const S* __restrict__ k_pages,
@@ -371,16 +469,16 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
                               float* __restrict__ acc_ws, int qmax, int hq,
                               int hkv, int num_pages, int page_size,
                               int table_width, int split_len, int n_splits,
-                              float sm_scale) {
-  using St = CoreStage<S, D>;
+                              float sm_scale, int d) {
+  using St = CoreStage<S, W>;
   constexpr bool kQuant = sizeof(S) == 1;
-  constexpr int DPL = D / 32;               // output dims owned by a lane
+  constexpr int DPL = W / 32;               // output dims owned by a lane
   constexpr int NCH = St::NCH;
   constexpr int E = 16 / (int)sizeof(S);    // elements of a 16-byte chunk
   constexpr int QV = 16 / (int)sizeof(T);   // q elements of a 16-byte load
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);                 // [R][D]
-  float* p_s = reinterpret_cast<float*>(q_s + R * D);  // [NW][R][16]
+  T* q_s = reinterpret_cast<T*>(smem_raw);                 // [R][W]
+  float* p_s = reinterpret_cast<float*>(q_s + R * W);  // [NW][R][16]
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       p_s + NW * R * kChunk);               // [NW][NS] stages
 
@@ -400,8 +498,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   // pool rows of this kv head start here, in the pages and (one f32 per
   // row) in the scale pages
   const size_t scale_base = (size_t)tl.h * num_pages * page_size;
-  const S* k_head = k_pages + scale_base * D;
-  const S* v_head = v_pages + scale_base * D;
+  const S* k_head = k_pages + scale_base * d;
+  const S* v_head = v_pages + scale_base * d;
   const float* ks_head = kQuant ? k_scales + scale_base : nullptr;
   const float* vs_head = kQuant ? v_scales + scale_base : nullptr;
   const int* pt = page_table + (size_t)tl.s * table_width;
@@ -412,11 +510,11 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   GroupRows groups(pt, page_size, chunk_t0(0), NW * kChunk, tl.t_table);
   auto fetch = [&](int i) {
     unsigned char* st = wring + (i % NS) * St::BYTES;
-    float* sc = reinterpret_cast<float*>(st + 2 * St::KB);
+    float* sc = reinterpret_cast<float*>(st + St::KB + St::VB);
     long long g0, g1;
     groups.rows(i, g0, g1);
-    copy_chunk16<S, D>(st, st + St::KB, sc, sc + kChunk, k_head, v_head,
-                       ks_head, vs_head, g0, g1, chunk_t0(i), tl.t_end,
+    copy_chunk16<S, W>(st, st + St::KB, sc, sc + kChunk, k_head, v_head,
+                       ks_head, vs_head, g0, g1, chunk_t0(i), tl.t_end, d,
                        KeyRows<NCH>(), PlainRows<NCH>());
   };
   // the K / V copies go first: the q rows' load overlaps them
@@ -425,11 +523,13 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     if (i < mine) fetch(i);
     cp_async_commit();
   }
-  for (int i = threadIdx.x; i < tl.nvalid * D / QV; i += NW * 32) {
-    const int r = i / (D / QV), c = i % (D / QV);
-    *reinterpret_cast<uint4*>(q_s + r * D + c * QV) =
-        *reinterpret_cast<const uint4*>(
-            q + lay.out_row(tl.s, tl.h, tl.row0 + r) * D + c * QV);
+  for (int i = threadIdx.x; i < tl.nvalid * (W / QV); i += NW * 32) {
+    const int r = i / (W / QV), c = i % (W / QV);
+    *reinterpret_cast<uint4*>(q_s + r * W + c * QV) =
+        c * QV < d ? *reinterpret_cast<const uint4*>(
+                         q + lay.out_row(tl.s, tl.h, tl.row0 + r) * d +
+                         c * QV)
+                   : make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
 
@@ -454,7 +554,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     const unsigned char* st = wring + (i % NS) * St::BYTES;
     const S* ks = reinterpret_cast<const S*>(st);
     const S* vs = reinterpret_cast<const S*>(st + St::KB);
-    const float* k_sc = reinterpret_cast<const float*>(st + 2 * St::KB);
+    const float* k_sc = reinterpret_cast<const float*>(st + St::KB + St::VB);
     const float* v_sc = k_sc + kChunk;
 
     // scores of token j over this lane's half of D
@@ -466,7 +566,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     for (int cc = 0; cc < NCH / 2; ++cc) {
       const int c = half * (NCH / 2) + cc;
       float kv[E];
-      load_f32<S, E>(ks + (j * NCH + (c ^ key_swizzle<NCH>(j))) * E, kv);
+      load_f32<S, E>(ks + KeyRows<NCH>()(j, c) * E, kv);
       if constexpr (kQuant) {
 #pragma unroll
         for (int e = 0; e < E; ++e) kv[e] *= ksj;
@@ -477,7 +577,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
 #pragma unroll
           for (int e0 = 0; e0 < E; e0 += QV) {
             float qv[QV];
-            load_f32<T, QV>(q_s + r * D + c * E + e0, qv);
+            load_f32<T, QV>(q_s + r * W + c * E + e0, qv);
 #pragma unroll
             for (int e = 0; e < QV; ++e)
               sc[r] = fmaf(qv[e], kv[e0 + e], sc[r]);
@@ -509,12 +609,12 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       }
     }
     __syncwarp();
-    // P V: this lane's D / 32 dims of each token's V row (zero-filled
-    // past the range, where p is 0)
+    // P V: this lane's W / 32 dims of each token's V row (zero-filled
+    // past the range, where p is 0, and past d)
 #pragma unroll 4
     for (int v = 0; v < kChunk; ++v) {
       float vv[DPL];
-      load_f32<S, DPL>(vs + v * D + lane * DPL, vv);
+      load_f32<S, DPL>(vs + v * W + lane * DPL, vv);
       if constexpr (kQuant) {
         const float vsv = v_sc[v];
 #pragma unroll
@@ -536,7 +636,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   // merge the warps' online-softmax states
   float* red_m = reinterpret_cast<float*>(ring);          // [NW][R]
   float* red_l = red_m + NW * R;                      // [NW][R]
-  float* red_acc = red_l + NW * R;                    // [NW][R][D]
+  float* red_acc = red_l + NW * R;                    // [NW][R][W]
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r < tl.nvalid) {
@@ -547,7 +647,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       }
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
-        red_acc[(warp * R + r) * D + lane * DPL + e] = acc[r][e];
+        red_acc[(warp * R + r) * W + lane * DPL + e] = acc[r][e];
     }
   }
   __syncthreads();
@@ -566,39 +666,53 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
         den += red_l[w * R + r] * scale;
 #pragma unroll
         for (int e = 0; e < DPL; ++e)
-          res[e] = fmaf(red_acc[(w * R + r) * D + lane * DPL + e], scale,
+          res[e] = fmaf(red_acc[(w * R + r) * W + lane * DPL + e], scale,
                         res[e]);
       }
     }
     if (!split) {
       const float inv = den > 0.f ? 1.f / den : 0.f;
-      TO* o = out + lay.out_row(tl.s, tl.h, rg) * D + lane * DPL;
+      TO* o = out + lay.out_row(tl.s, tl.h, rg) * d + lane * DPL;
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) store(o + e, res[e] * inv);
+      for (int e = 0; e < DPL; ++e)
+        if (lane * DPL + e < d) store(o + e, res[e] * inv);
     } else if (r < tl.nvalid) {
       const long long p = lay.partial(blockIdx.x, tl.s, tl.h, rg);
       if (lane == 0) ml[p] = make_float2(mx, den);
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) acc_ws[p * D + lane * DPL + e] = res[e];
+      for (int e = 0; e < DPL; ++e)
+        if (lane * DPL + e < d) acc_ws[p * d + lane * DPL + e] = res[e];
     }
   }
 }
 
 // -- 64-row tiles, tensor cores (bf16 q) -------------------------------------
-template <typename S, int D>
+// a staged K (or V) tile: one-byte codes land in plain rows of W codes,
+// bf16 rows in the tensor-core layout of width W (swz<W>)
+template <typename S, int W>
 struct MmaStage {
-  static constexpr int RAW = kKeyTile * D * (int)sizeof(S);  // K (or V) tile
+  static constexpr int ROW = sizeof(S) == 1 ? W : tile_ld<W>() * 2;  // bytes
+  static constexpr int RAW = kKeyTile * ROW;                // K (or V) tile
   static constexpr int BYTES = 2 * RAW + (sizeof(S) == 1 ? 2 * kKeyTile * 4 : 0);
 };
 
-template <typename S, int D, int NS>
+// blocks sharing the output columns of one tensor-core tile: above W 128
+// the O accumulator of the whole width would not fit the registers (it
+// spilled at W 256), so block h of a pair recomputes the scores and takes
+// columns [h W / 2, (h + 1) W / 2) of P V
+template <int W>
+__host__ __device__ constexpr int mma_split() { return W > 128 ? 2 : 1; }
+
+template <typename S, int W, int NS>
 constexpr int mma_smem() {
-  return kMmaRows * D * 2 + NS * MmaStage<S, D>::BYTES +
-         (sizeof(S) == 1 ? 2 * kKeyTile * D * 2 : 0);
+  return kMmaRows * tile_ld<W>() * 2 + NS * MmaStage<S, W>::BYTES +
+         (sizeof(S) == 1 ? 2 * kKeyTile * tile_ld<W>() * 2 : 0);
 }
 
-template <typename S, typename TO, int D, int NS>
-__global__ void __launch_bounds__(kMmaWarps * 32)
+// one block per SM at least: without the minimum, ptxas aims at 3 blocks
+// per SM (168 registers) and spills at W 160 / 192 over one-byte pages
+template <typename S, typename TO, int W, int NS>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
 ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   const S* __restrict__ k_pages,
                                   const S* __restrict__ v_pages,
@@ -614,29 +728,35 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   int hq, int hkv, int num_pages,
                                   int page_size, int table_width,
                                   int split_len, int n_splits,
-                                  float sm_scale) {
-  using St = MmaStage<S, D>;
+                                  float sm_scale, int d) {
+  using St = MmaStage<S, W>;
   constexpr bool kQuant = sizeof(S) == 1;
   constexpr int NTHR = kMmaWarps * 32, BN = kKeyTile;
-  constexpr int KS = D / 16;                // k-steps of Q K^T
-  constexpr int NO = D / 8;                 // n-tiles of O
-  constexpr int NC = D / 8;                 // 16-byte chunks of a bf16 row
-  constexpr int NCH = D * (int)sizeof(S) / 16;
+  constexpr int LD = tile_ld<W>();          // row stride of a bf16 tile
+  constexpr int KS = W / 16;                // k-steps of Q K^T
+  constexpr int NH = mma_split<W>();        // blocks sharing the columns
+  constexpr int WO = W / NH;                // output columns of a block
+  constexpr int NO = WO / 8;                // its n-tiles of O
+  constexpr int NC = W / 8;                 // 16-byte chunks of a bf16 row
+  constexpr int NCH = W * (int)sizeof(S) / 16;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D]
-  unsigned char* ring = smem_raw + kMmaRows * D * 2;                // NS stages
-  // quant: the stage's codes dequantized to bf16, [BN][D] K then V
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][W]
+  unsigned char* ring = smem_raw + kMmaRows * LD * 2;               // NS stages
+  // quant: the stage's codes dequantized to bf16, [BN][W] K then V
   __nv_bfloat16* kd_s = reinterpret_cast<__nv_bfloat16*>(ring + NS * St::BYTES);
-  __nv_bfloat16* vd_s = kd_s + BN * D;
+  __nv_bfloat16* vd_s = kd_s + BN * LD;
 
   const int rep = hq / hkv;
-  const Tile tl(blockIdx.x, kMmaRows, qmax, rep, hkv, q_start, q_len, kv_len,
+  // grid x: the KV split, and with NH > 1 the block's half of the columns
+  const int sp = NH > 1 ? blockIdx.x / NH : blockIdx.x;
+  const int c0 = NH > 1 ? (blockIdx.x % NH) * WO : 0;
+  const Tile tl(sp, kMmaRows, qmax, rep, hkv, q_start, q_len, kv_len,
                 table_width, page_size, split_len);
   const Layout lay{qmax, hq, hkv, rep, (int)gridDim.z};
   const bool split = n_splits > 1;
   if (split && tl.t_begin >= tl.t_end) {    // nothing here: an empty partial
     for (int r = threadIdx.x; r < tl.nvalid; r += NTHR)
-      ml[lay.partial(blockIdx.x, tl.s, tl.h, tl.row0 + r)] =
+      ml[lay.partial(sp, tl.s, tl.h, tl.row0 + r)] =
           make_float2(kNegInf, 0.f);
     return;
   }
@@ -645,8 +765,8 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int wrow = warp * 16;               // the warp's first row of the tile
 
   const size_t scale_base = (size_t)tl.h * num_pages * page_size;
-  const S* k_head = k_pages + scale_base * D;
-  const S* v_head = v_pages + scale_base * D;
+  const S* k_head = k_pages + scale_base * d;
+  const S* v_head = v_pages + scale_base * d;
   const float* ks_head = kQuant ? k_scales + scale_base : nullptr;
   const float* vs_head = kQuant ? v_scales + scale_base : nullptr;
   const int* pt = page_table + (size_t)tl.s * table_width;
@@ -657,16 +777,16 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto fetch = [&](int kt) {
     unsigned char* st = ring + (kt % NS) * St::BYTES;
     float* sc = reinterpret_cast<float*>(st + 2 * St::RAW) + 16 * warp;
-    const int off = 16 * warp * D * (int)sizeof(S);
+    const int off = 16 * warp * St::ROW;
     const int t0 = tl.t_begin + kt * BN + 16 * warp;
     long long g0, g1;
     groups.rows(kt, g0, g1);
     // codes land plain (the dequant pass swizzles); bf16 rows swizzled,
     // as ldmatrix reads them
     using Rows = typename std::conditional<kQuant, PlainRows<NCH>,
-                                           MmaRows<NC>>::type;
-    copy_chunk16<S, D>(st + off, st + St::RAW + off, sc, sc + BN, k_head,
-                       v_head, ks_head, vs_head, g0, g1, t0, tl.t_end,
+                                           MmaRows<W>>::type;
+    copy_chunk16<S, W>(st + off, st + St::RAW + off, sc, sc + BN, k_head,
+                       v_head, ks_head, vs_head, g0, g1, t0, tl.t_end, d,
                        Rows(), Rows());
   };
 
@@ -674,9 +794,10 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // groups 1 .. NS - 2: key tiles 1 .. NS - 2
   for (int i = threadIdx.x; i < kMmaRows * NC; i += NTHR) {
     const int r = i / NC, c = i % NC;
-    const bool ok = r < tl.nvalid;
-    cp_async16(q_s + swz<D>(r, c),
-               q + lay.out_row(tl.s, tl.h, tl.row0 + (ok ? r : 0)) * D + c * 8,
+    const bool ok = r < tl.nvalid && c * 8 < d;
+    cp_async16(q_s + swz<W>(r, c),
+               q + lay.out_row(tl.s, tl.h, tl.row0 + (ok ? r : 0)) * d +
+                   (ok ? c * 8 : 0),
                ok);
   }
 #pragma unroll
@@ -705,12 +826,12 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (kQuant) {
       // codes x scale -> bf16 (the plain version's rounding), swizzled
       const float* k_sc = reinterpret_cast<const float*>(st + 2 * St::RAW);
-      for (int i = threadIdx.x; i < 2 * BN * (D / 16); i += NTHR) {
-        const int which = i / (BN * (D / 16)), ii = i % (BN * (D / 16));
-        const int r = ii / (D / 16), c = ii % (D / 16);
+      for (int i = threadIdx.x; i < 2 * BN * (W / 16); i += NTHR) {
+        const int which = i / (BN * (W / 16)), ii = i % (BN * (W / 16));
+        const int r = ii / (W / 16), c = ii % (W / 16);
         float f[16];
         load_f32<S, 16>(reinterpret_cast<const S*>(st + which * St::RAW) +
-                            r * D + c * 16, f);
+                            r * W + c * 16, f);
         const float sc = k_sc[which * BN + r];
         uint4 lo, hi;
         lo.x = pack_bf16(f[0] * sc, f[1] * sc);
@@ -722,8 +843,8 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         hi.z = pack_bf16(f[12] * sc, f[13] * sc);
         hi.w = pack_bf16(f[14] * sc, f[15] * sc);
         __nv_bfloat16* dst = which ? vd_s : kd_s;
-        *reinterpret_cast<uint4*>(dst + swz<D>(r, 2 * c)) = lo;
-        *reinterpret_cast<uint4*>(dst + swz<D>(r, 2 * c + 1)) = hi;
+        *reinterpret_cast<uint4*>(dst + swz<W>(r, 2 * c)) = lo;
+        *reinterpret_cast<uint4*>(dst + swz<W>(r, 2 * c + 1)) = hi;
       }
       __syncthreads();
       ks = kd_s;
@@ -743,11 +864,11 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       unsigned qa[4];
-      load_a<D>(qa, q_s, wrow, kk);
+      load_a<W>(qa, q_s, wrow, kk);
 #pragma unroll
       for (int np = 0; np < BN / 16; ++np) {
         unsigned bf[4];
-        load_bt<D>(bf, ks, np * 16, kk);
+        load_bt<W>(bf, ks, np * 16, kk);
         mma16816(s[2 * np], qa, bf[0], bf[1]);
         mma16816(s[2 * np + 1], qa, bf[2], bf[3]);
       }
@@ -813,9 +934,9 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < WO / 16; ++dp) {
         unsigned bf[4];
-        load_b<D>(bf, vs, kk * 16, dp);
+        load_b<W>(bf, vs, kk * 16, c0 / 16 + dp);
         mma16816(acc[2 * dp], ph, bf[0], bf[1]);
         mma16816(acc[2 * dp + 1], ph, bf[2], bf[3]);
         mma16816(acc[2 * dp], pl, bf[0], bf[1]);
@@ -835,17 +956,21 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int rg = tl.row0 + row;
     if (!split) {
       const float inv = row < tl.nvalid && l[r] > 0.f ? 1.f / l[r] : 0.f;
-      TO* o = out + lay.out_row(tl.s, tl.h, rg) * D;
+      TO* o = out + lay.out_row(tl.s, tl.h, rg) * d + c0;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
-        store2(o + 8 * n + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+        if (c0 + 8 * n < d)
+          store2(o + 8 * n + 2 * t, acc[n][2 * r] * inv,
+                 acc[n][2 * r + 1] * inv);
     } else if (row < tl.nvalid) {
-      const long long p = lay.partial(blockIdx.x, tl.s, tl.h, rg);
+      // both halves of a column pair write the same (m, l)
+      const long long p = lay.partial(sp, tl.s, tl.h, rg);
       if (t == 0) ml[p] = make_float2(l[r] > 0.f ? m[r] : kNegInf, l[r]);
 #pragma unroll
       for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<float2*>(acc_ws + p * D + 8 * n + 2 * t) =
-            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+        if (c0 + 8 * n < d)
+          *reinterpret_cast<float2*>(acc_ws + p * d + c0 + 8 * n + 2 * t) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
 }
@@ -854,15 +979,15 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // One warp per output row (slot, query, q head), in a fixed split order;
 // splits with l = 0 (nothing visible there) are skipped without reading
 // their accumulator; rows past q_len come out as zeros.
-template <typename TO, int D>
+template <typename TO, int W>
 __global__ void __launch_bounds__(256)
 ragged_paged_attention_combine_kernel(const float2* __restrict__ ml,
                                       const float* __restrict__ acc_ws,
                                       const int* __restrict__ q_len,
                                       TO* __restrict__ out, int s_slots,
                                       int qmax, int hq, int hkv,
-                                      int n_splits) {
-  constexpr int DPL = D / 32;
+                                      int n_splits, int d) {
+  constexpr int DPL = W / 32;
   const long long o = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (o >= (long long)s_slots * qmax * hq) return;
   const int lane = threadIdx.x % 32;
@@ -886,7 +1011,8 @@ ragged_paged_attention_combine_kernel(const float2* __restrict__ ml,
         const float w = exp2f(v.x - mx);
         den = fmaf(v.y, w, den);
         float a[DPL];
-        load_f32<float, DPL>(acc_ws + p * D + lane * DPL, a);
+        load_f32_n<float, DPL>(acc_ws + p * d + lane * DPL, a,
+                               d - lane * DPL);
 #pragma unroll
         for (int e = 0; e < DPL; ++e) res[e] = fmaf(a[e], w, res[e]);
       }
@@ -895,9 +1021,10 @@ ragged_paged_attention_combine_kernel(const float2* __restrict__ ml,
 #pragma unroll
     for (int e = 0; e < DPL; ++e) res[e] *= inv;
   }
-  TO* po = out + o * D + lane * DPL;
+  TO* po = out + o * d + lane * DPL;
 #pragma unroll
-  for (int e = 0; e < DPL; ++e) store(po + e, res[e]);
+  for (int e = 0; e < DPL; ++e)
+    if (lane * DPL + e < d) store(po + e, res[e]);
 }
 
 // -- host side -----------------------------------------------------------------
@@ -918,40 +1045,42 @@ struct Args {
   int row_tile, n_splits, split_len;
   float sm_scale;
   cudaStream_t stream;
+  int d;                                    // head dim
 };
 
-template <typename TO, int D>
+template <typename TO, int W>
 cudaError_t launch_combine(const Args& a) {
   const long long rows = (long long)a.s_slots * a.qmax * a.hq;
-  ragged_paged_attention_combine_kernel<TO, D>
+  ragged_paged_attention_combine_kernel<TO, W>
       <<<(unsigned)((rows + 7) / 8), 256, 0, a.stream>>>(
           a.ml, a.acc, a.q_len, static_cast<TO*>(a.out), a.s_slots, a.qmax,
-          a.hq, a.hkv, a.n_splits);
+          a.hq, a.hkv, a.n_splits, a.d);
   return cudaGetLastError();
 }
 
-template <typename T, typename S, typename TO, int D, int R>
+template <typename T, typename S, typename TO, int W, int R>
 cudaError_t launch_core(const Args& a, dim3 grid) {
-  constexpr int smem = core_smem<T, S, D, RPA_WARPS, RPA_STAGES, R>();
+  constexpr int NW = core_warps<S, W>();
+  constexpr int smem = core_smem<T, S, W, NW, RPA_STAGES, R>();
   const auto kernel =
-      ragged_paged_attention_kernel<T, S, TO, D, RPA_WARPS, RPA_STAGES, R>;
+      ragged_paged_attention_kernel<T, S, TO, W, NW, RPA_STAGES, R>;
   static std::atomic<unsigned long long> done{0};
   const cudaError_t err = allow_smem(done, kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, RPA_WARPS * 32, smem, a.stream>>>(
+  kernel<<<grid, NW * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const S*>(a.k),
       static_cast<const S*>(a.v), a.k_scales, a.v_scales, a.page_table,
       a.q_start, a.q_len, a.kv_len, static_cast<TO*>(a.out), a.ml, a.acc,
       a.qmax, a.hq, a.hkv, a.num_pages, a.page_size, a.table_width,
-      a.split_len, a.n_splits, a.sm_scale);
+      a.split_len, a.n_splits, a.sm_scale, a.d);
   return cudaGetLastError();
 }
 
-template <typename T, typename S, typename TO, int D>
+template <typename T, typename S, typename TO, int W>
 cudaError_t launch_mma(const Args& a, dim3 grid) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int smem = mma_smem<S, D, RPA_STAGES>();
-    const auto kernel = ragged_paged_attention_mma_kernel<S, TO, D, RPA_STAGES>;
+    constexpr int smem = mma_smem<S, W, RPA_STAGES>();
+    const auto kernel = ragged_paged_attention_mma_kernel<S, TO, W, RPA_STAGES>;
     static std::atomic<unsigned long long> done{0};
     const cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -960,7 +1089,7 @@ cudaError_t launch_mma(const Args& a, dim3 grid) {
         static_cast<const S*>(a.v), a.k_scales, a.v_scales, a.page_table,
         a.q_start, a.q_len, a.kv_len, static_cast<TO*>(a.out), a.ml, a.acc,
         a.qmax, a.hq, a.hkv, a.num_pages, a.page_size, a.table_width,
-        a.split_len, a.n_splits, a.sm_scale);
+        a.split_len, a.n_splits, a.sm_scale, a.d);
     return cudaGetLastError();
   } else {
     return cudaErrorInvalidValue;           // the tensor-core tile takes bf16 q
@@ -968,37 +1097,52 @@ cudaError_t launch_mma(const Args& a, dim3 grid) {
 }
 
 // row_tile: kMmaRows (tensor cores, bf16 q), kRows or 1 (CUDA cores)
-template <typename T, typename S, typename TO, int D>
+template <typename T, typename S, typename TO, int W>
 cudaError_t launch(const Args& a) {
   const int rows = a.qmax * (a.hq / a.hkv);
   const dim3 grid(a.n_splits, (rows + a.row_tile - 1) / a.row_tile * a.hkv,
                   a.s_slots);
   cudaError_t err;
-  if (a.row_tile == kMmaRows) err = launch_mma<T, S, TO, D>(a, grid);
-  else if (a.row_tile == kRows) err = launch_core<T, S, TO, D, kRows>(a, grid);
-  else if (a.row_tile == 1) err = launch_core<T, S, TO, D, 1>(a, grid);
+  if (a.row_tile == kMmaRows)
+    err = launch_mma<T, S, TO, W>(
+        a, dim3(grid.x * mma_split<W>(), grid.y, grid.z));
+  else if (a.row_tile == kRows) err = launch_core<T, S, TO, W, kRows>(a, grid);
+  else if (a.row_tile == 1) err = launch_core<T, S, TO, W, 1>(a, grid);
   else return cudaErrorInvalidValue;
   if (err != cudaSuccess || a.n_splits == 1) return err;
-  return launch_combine<TO, D>(a);
+  return launch_combine<TO, W>(a);
+}
+
+// f(integral_constant<W>) at whichever of this unit's widths Ws (its
+// RPA_TU_WIDTHS) holds head dim d (rpa_width); an error for any other d
+template <int... Ws, typename F>
+cudaError_t at_width(int d, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((rpa_width(d) == Ws &&
+          ((err = f(std::integral_constant<int, Ws>{})), true)) ||
+         ...);
+  return err;
+}
+
+template <typename T, typename S, typename TO>
+cudaError_t launch_width(const Args& a) {
+  return at_width<RPA_TU_WIDTHS>(
+      a.d, [&](auto w) { return launch<T, S, TO, decltype(w)::value>(a); });
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16.
 template <typename T, typename S>
-cudaError_t launch_out(int head_dim, int out_dtype, const Args& a) {
-  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
-  if (out_dtype == 0)
-    return head_dim == 64 ? launch<T, S, float, 64>(a)
-                          : launch<T, S, float, 128>(a);
-  if (out_dtype == 1)
-    return head_dim == 64 ? launch<T, S, __nv_bfloat16, 64>(a)
-                          : launch<T, S, __nv_bfloat16, 128>(a);
+cudaError_t launch_out(int out_dtype, const Args& a) {
+  if (out_dtype == 0) return launch_width<T, S, float>(a);
+  if (out_dtype == 1) return launch_width<T, S, __nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }
 
 // the checks every entry makes before it launches anything: the splits
 // (split_len tokens each, a multiple of 8 and of the page) cover the table
 inline bool valid_geometry(const Args& a) {
-  return a.hkv > 0 && a.hq % a.hkv == 0 && a.page_size > 0 &&
+  return rpa_width(a.d) != 0 && a.hkv > 0 && a.hq % a.hkv == 0 &&
+         a.page_size > 0 &&
          a.page_size % 8 == 0 && a.n_splits >= 1 && a.split_len > 0 &&
          a.split_len % a.page_size == 0 &&
          (long long)a.n_splits * a.split_len >=
@@ -1007,3 +1151,106 @@ inline bool valid_geometry(const Args& a) {
 }
 
 }  // namespace
+
+// The C entries, compiled by the translation units that define
+// RPA_PLAIN_ENTRIES (f32 / bf16 pages, and the split merge) or
+// RPA_QUANT_ENTRIES (int8 / fp8 pages), each at its RPA_TU_WIDTHS.
+#ifdef RPA_PLAIN_ENTRIES
+// dtype codes: 0 = float32, 1 = bfloat16; q, k and v share in_dtype.
+// head_dim: a multiple of 8 up to 256 (rpa_width) whose width this library
+// holds; row_tile: 8 or 1 (CUDA cores) or 64 (tensor cores, bf16 q); the
+// splits: n splits of split_len tokens, partials in ml [n, S, Hkv,
+// Qmax * rep] x 2 and acc [n, S, Hkv, Qmax * rep, D] f32 (unused, may be
+// null, with one split).
+extern "C" int ragged_paged_attention_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* q_start, const void* q_len,
+    const void* kv_len, void* ml, void* acc, void* out, int s_slots,
+    int qmax, int hq, int hkv, int num_pages, int page_size, int table_width,
+    int head_dim, int in_dtype, int out_dtype, int row_tile, int n_splits,
+    int split_len, float sm_scale, void* stream) {
+  if (s_slots <= 0 || qmax <= 0) return cudaSuccess;
+  const Args a{q, k_pages, v_pages, nullptr, nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(q_start),
+               static_cast<const int*>(q_len),
+               static_cast<const int*>(kv_len), out,
+               static_cast<float2*>(ml), static_cast<float*>(acc), s_slots,
+               qmax, hq, hkv, num_pages, page_size, table_width, row_tile,
+               n_splits, split_len, sm_scale,
+               static_cast<cudaStream_t>(stream), head_dim};
+  if (!valid_geometry(a)) return cudaErrorInvalidValue;
+  if (in_dtype == 0) return launch_out<float, float>(out_dtype, a);
+  if (in_dtype == 1)
+    return launch_out<__nv_bfloat16, __nv_bfloat16>(out_dtype, a);
+  return cudaErrorInvalidValue;
+}
+
+// The merge of n_splits partials (as above) into out [S, Qmax, Hq, D].
+extern "C" int ragged_paged_attention_combine_launch(
+    const void* ml, const void* acc, const void* q_len, void* out,
+    int s_slots, int qmax, int hq, int hkv, int n_splits, int head_dim,
+    int out_dtype, void* stream) {
+  if (s_slots <= 0 || qmax <= 0) return cudaSuccess;
+  if (hkv <= 0 || hq % hkv != 0 || n_splits < 1) return cudaErrorInvalidValue;
+  Args a{};
+  a.ml = static_cast<float2*>(const_cast<void*>(ml));
+  a.acc = static_cast<float*>(const_cast<void*>(acc));
+  a.q_len = static_cast<const int*>(q_len);
+  a.out = out;
+  a.s_slots = s_slots;
+  a.qmax = qmax;
+  a.hq = hq;
+  a.hkv = hkv;
+  a.n_splits = n_splits;
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.d = head_dim;
+  if (out_dtype != 0 && out_dtype != 1) return cudaErrorInvalidValue;
+  return at_width<RPA_TU_WIDTHS>(head_dim, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return out_dtype == 0 ? launch_combine<float, W>(a)
+                          : launch_combine<__nv_bfloat16, W>(a);
+  });
+}
+#endif  // RPA_PLAIN_ENTRIES
+
+#ifdef RPA_QUANT_ENTRIES
+namespace {
+
+template <typename S>
+cudaError_t launch_in(int in_dtype, int out_dtype, const Args& a) {
+  if (in_dtype == 0) return launch_out<float, S>(out_dtype, a);
+  if (in_dtype == 1) return launch_out<__nv_bfloat16, S>(out_dtype, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q and out); kv_dtype codes:
+// 0 = int8, 1 = float8_e4m3fn (both page arrays); head_dim, row_tile and
+// the splits as in ragged_paged_attention_launch.
+extern "C" int ragged_paged_attention_quant_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* page_table,
+    const void* q_start, const void* q_len, const void* kv_len, void* ml,
+    void* acc, void* out, int s_slots, int qmax, int hq, int hkv,
+    int num_pages, int page_size, int table_width, int head_dim,
+    int in_dtype, int out_dtype, int kv_dtype, int row_tile, int n_splits,
+    int split_len, float sm_scale, void* stream) {
+  if (s_slots <= 0 || qmax <= 0) return cudaSuccess;
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(q_start),
+               static_cast<const int*>(q_len),
+               static_cast<const int*>(kv_len), out,
+               static_cast<float2*>(ml), static_cast<float*>(acc), s_slots,
+               qmax, hq, hkv, num_pages, page_size, table_width, row_tile,
+               n_splits, split_len, sm_scale,
+               static_cast<cudaStream_t>(stream), head_dim};
+  if (!valid_geometry(a)) return cudaErrorInvalidValue;
+  if (kv_dtype == 0) return launch_in<int8_t>(in_dtype, out_dtype, a);
+  if (kv_dtype == 1) return launch_in<__nv_fp8_e4m3>(in_dtype, out_dtype, a);
+  return cudaErrorInvalidValue;
+}
+#endif  // RPA_QUANT_ENTRIES

@@ -19,50 +19,15 @@
 // ragged_paged_attention.cuh with a one-byte page type: a 16-byte chunk of
 // a K row carries 16 codes, and a 16-token stage is 2 KB of codes per
 // tensor at D = 128.  The wrapper asserts that the page and scale bases are
-// 16-byte aligned; rows of D >= 64 codes and 8-row groups of scales keep
-// that alignment.  After a split grid this entry launches the merge
-// (ragged_paged_attention_combine_kernel) itself.
+// 16-byte aligned; rows of a multiple of 16 codes and 8-row groups of
+// scales keep that alignment (rows of 8 mod 16 codes go by 8-byte copies).  After a split grid this entry launches the merge
+// (ragged_paged_attention_combine_kernel) itself.  This library holds head
+// widths 64 and 128 (the entry is in the header); each other width is
+// this source built with -DRPA_TU_WIDTHS=<W> into a library of its own
+// (ops/_build.py WIDTH_LIBRARIES).
 
+#ifndef RPA_TU_WIDTHS
+#define RPA_TU_WIDTHS 64, 128
+#endif
+#define RPA_QUANT_ENTRIES
 #include "ragged_paged_attention.cuh"
-
-namespace {
-
-template <typename S>
-cudaError_t launch_in(int in_dtype, int head_dim, int out_dtype,
-                      const Args& a) {
-  if (in_dtype == 0) return launch_out<float, S>(head_dim, out_dtype, a);
-  if (in_dtype == 1)
-    return launch_out<__nv_bfloat16, S>(head_dim, out_dtype, a);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// dtype codes: 0 = float32, 1 = bfloat16 (q and out); kv_dtype codes:
-// 0 = int8, 1 = float8_e4m3fn (both page arrays); row_tile and the splits
-// as in ragged_paged_attention_launch.
-extern "C" int ragged_paged_attention_quant_launch(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* k_scales, const void* v_scales, const void* page_table,
-    const void* q_start, const void* q_len, const void* kv_len, void* ml,
-    void* acc, void* out, int s_slots, int qmax, int hq, int hkv,
-    int num_pages, int page_size, int table_width, int head_dim,
-    int in_dtype, int out_dtype, int kv_dtype, int row_tile, int n_splits,
-    int split_len, float sm_scale, void* stream) {
-  if (s_slots <= 0 || qmax <= 0) return cudaSuccess;
-  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
-               static_cast<const float*>(v_scales),
-               static_cast<const int*>(page_table),
-               static_cast<const int*>(q_start),
-               static_cast<const int*>(q_len),
-               static_cast<const int*>(kv_len), out,
-               static_cast<float2*>(ml), static_cast<float*>(acc), s_slots,
-               qmax, hq, hkv, num_pages, page_size, table_width, row_tile,
-               n_splits, split_len, sm_scale,
-               static_cast<cudaStream_t>(stream)};
-  if (!valid_geometry(a)) return cudaErrorInvalidValue;
-  if (kv_dtype == 0) return launch_in<int8_t>(in_dtype, head_dim, out_dtype, a);
-  if (kv_dtype == 1)
-    return launch_in<__nv_fp8_e4m3>(in_dtype, head_dim, out_dtype, a);
-  return cudaErrorInvalidValue;
-}

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
 // kernels (flash_attention.cu, ragged_paged_attention.cuh): asynchronous
 // 16-byte copies into shared memory (cp.async), ldmatrix fragments of
-// XOR-swizzled bf16 row tiles, the mma.sync m16n8k16 bf16 product with f32
+// swizzled (or padded) bf16 row tiles, the mma.sync m16n8k16 bf16 product with f32
 // accumulation, and the once-per-device dynamic shared-memory opt-in.
 
 #pragma once
@@ -93,14 +93,43 @@ __device__ __forceinline__ void split_pair(float x, float y, unsigned& hi,
   lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
-// element offset of 16-byte chunk c of row r in a swizzled [rows][D] tile
-template <int D>
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 8 : 0)
+               : "memory");
+}
+
+// The shared-memory layout of a bf16 row tile [rows][W] (W a multiple of
+// 16, so W / 8 16-byte chunks a row).  An ldmatrix phase reads one chunk of
+// 8 consecutive rows, and it is conflict-free when those 8 chunks lie in 8
+// distinct 16-byte bank groups.  With W / 8 a multiple of 8 (W = 64, 128,
+// 192, 256) chunk c of row r sits at c ^ (r % 8): the XOR flips only the
+// low 3 bits of c, so every chunk stays inside its own group of 8 and its
+// own row.  Any other W (32, 48, 80, 96, 160: 4, 6, 10, 12, 20 chunks)
+// would XOR a chunk out of its row (chunk 8 of row 7 to chunk 15 of a
+// 10-chunk row), so those rows stay unswizzled and are padded by one chunk
+// instead: a stride of W / 8 + 1 chunks is odd, which puts 8 consecutive
+// rows in 8 distinct bank groups.
+template <int W>
+constexpr bool kSwizzled = (W / 8) % 8 == 0;
+
+// the row stride of such a tile, in elements
+template <int W>
+__host__ __device__ constexpr int tile_ld() {
+  return kSwizzled<W> ? W : W + 8;
+}
+
+// element offset of 16-byte chunk c of row r in a [rows][W] tile
+template <int W>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
+  if constexpr (kSwizzled<W>) return r * W + ((c ^ (r & 7)) << 3);
+  else return r * (W + 8) + (c << 3);
 }
 
 // the A fragments (16 x 16 bf16 per k-step) of rows [r0, r0 + 16) of a
-// swizzled tile, k-step kk
+// tile, k-step kk
 template <int D>
 __device__ __forceinline__ void load_a(unsigned a[4],
                                        const __nv_bfloat16* tile, int r0,
@@ -147,6 +176,7 @@ cudaError_t allow_smem(std::atomic<unsigned long long>& done, K kernel,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  else cudaGetLastError();  // the caller gets the error; later calls do not
   return err;
 }
 

@@ -7,7 +7,7 @@ f32, which on the card is byte for byte the TPU's packed
 ``[B*Hq, S_q/128, 128]`` layout.
 
 Each kernel has a wrapper that launches the hand-written CUDA kernel of
-``csrc/flash_attention.cu`` for CUDA tensors and adds one to its
+``csrc/flash_attention.cuh`` for CUDA tensors and adds one to its
 ``launches`` counter, and runs its plain PyTorch version (``*_ref``) for CPU
 tensors — the device of the tensors is the only thing that picks:
 
@@ -31,6 +31,13 @@ how :func:`flash_attention` takes a long untileable sequence
 segment of its own) and how ``nn.functional.flash_attn_unpadded`` runs
 packed varlen attention.
 
+Head dims: every D that the JAX kernels take (a multiple of 8 up to 256)
+runs on the card.  The kernels are compiled at the widths
+:data:`HEAD_WIDTHS` (``csrc/flash_attention.cu``, one library for 64 and
+128 and one for each other width: ``_build.WIDTH_LIBRARIES``); D runs at
+:func:`head_width` (the narrowest width that holds it: D 40 at 48), with
+columns D .. W zero in the kernels' shared tiles and never stored.
+
 Attention dropout (the TPU kernels' ``dropout_rate > 0`` branch) runs
 inside all three kernels: each score's keep bit is one 32-bit word of
 Philox4x32-10 (:func:`philox4x32_10`), keyed by the 64-bit seed and
@@ -51,7 +58,7 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "dropout_keep", "dropout_scale", "dropout_threshold",
+__all__ = ["HEAD_WIDTHS", "NEG_INF", "dropout_keep", "head_width", "dropout_scale", "dropout_threshold",
            "flash_attention", "flash_attention_ref",
            "flash_attention_fwd", "flash_attention_fwd_ref",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
@@ -60,7 +67,18 @@ __all__ = ["NEG_INF", "dropout_keep", "dropout_scale", "dropout_threshold",
 
 NEG_INF = -1e30
 
-_HEAD_DIMS = (64, 128)
+# the head widths the kernels are compiled at (csrc/flash_attention.cuh
+# fa_width); a head dim runs at the narrowest that holds it
+HEAD_WIDTHS = (32, 48, 64, 80, 96, 128, 160, 192, 256)
+
+
+def head_width(d):
+    """The width the kernels run head dim ``d`` at: the narrowest of
+    :data:`HEAD_WIDTHS` that holds it, for a multiple of 8 up to 256 (the
+    head dims the JAX kernels take); ``None`` for any other ``d``."""
+    if d <= 0 or d % 8 or d > 256:
+        return None
+    return next(w for w in HEAD_WIDTHS if w >= d)
 
 
 def _supported(q_shape, k_shape, causal=False):
@@ -337,9 +355,9 @@ def _check(name, tensors, dtype=None):
             raise ValueError(f"{name}: want [B, S, H, D], got "
                              f"{tuple(t.shape)}")
     d = tensors[0].shape[-1]
-    if d not in _HEAD_DIMS:
+    if head_width(d) is None:
         raise ValueError(f"{name}: head dim {d} not supported by the kernel "
-                         f"(one of {_HEAD_DIMS})")
+                         f"(a multiple of 8 up to 256, as the JAX kernels)")
     return dev
 
 
@@ -388,7 +406,9 @@ def _segments(segment_ids, b, s_q, s_k, dev):
 
 
 def _call(fn_name, ptrs, strides, ints, sm_scale, dropout, seg, dev):
-    _build.launch("flash_attention", fn_name,
+    # ints: b, hq, hkv, s_q, s_k, d, dtype, causal
+    _build.launch(_build.width_library("flash_attention",
+                                       head_width(ints[5])), fn_name,
                   [ctypes.c_void_p] * (len(ptrs) + 1)
                   + [ctypes.c_int] * len(ints)
                   + [ctypes.c_float, ctypes.c_uint, ctypes.c_float,
@@ -408,8 +428,9 @@ def _count(fn, dropout_rate, segment_ids):
 def flash_attention_fwd(q, k, v, causal, sm_scale, dropout_rate=0.0,
                         seed=0, segment_ids=None):
     """q [B, S_q, Hq, D], k/v [B, S_k, Hkv, D] -> (o [B, S_q, Hq, D] in q's
-    dtype, lse [B*Hq, S_q] f32).  CUDA tensors (f32 or bf16, D in
-    {64, 128}) launch ``flash_attention_fwd_launch`` and add one to
+    dtype, lse [B*Hq, S_q] f32).  CUDA tensors (f32 or bf16, D a multiple
+    of 8 up to 256) launch ``flash_attention_fwd_launch`` of the library of
+    D's width (:func:`head_width`) and add one to
     ``flash_attention_fwd.launches`` (and, with ``dropout_rate`` > 0, to
     ``.dropout_launches``: the kernel's dropout branch, masked by
     :func:`dropout_keep` of ``seed``; with ``segment_ids`` [B, S], to

@@ -52,13 +52,27 @@ from . import _build
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
            "ragged_paged_attention_combine",
            "ragged_paged_attention_combine_ref", "split_plan", "SplitPlan",
+           "head_width",
            "ragged_paged_attention_decode", "paged_attention_decode_ref",
            "paged_gather_kv", "paged_gather_scales", "NEG_INF"]
 
 NEG_INF = -1e30
 
 _KV_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
-_HEAD_DIMS = (64, 128)
+
+
+def head_width(d):
+    """The width the kernels run head dim ``d`` at
+    (``csrc/ragged_paged_attention.cuh rpa_width``): ``d`` rounded up to a
+    multiple of 32 (a CUDA-core lane owns width / 32 output dims), 224 up to
+    256, for a multiple of 8 up to 256 (the head dims the JAX kernel
+    takes); ``None`` for any other ``d``, which would break the kernels'
+    16-byte row copies."""
+    if d <= 0 or d % 8 or d > 256:
+        return None
+    return 256 if d > 192 else -(-d // 32) * 32
+
+
 # query rows of a block: the CUDA-core tile (one row for a one-row group:
 # decode without GQA), and the tensor-core tile that bf16 q takes once a
 # (slot, kv head) group has MMA_MIN_ROWS rows
@@ -171,8 +185,10 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     if out_dtype not in _build.DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, "
                         f"got {out_dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (one of {_HEAD_DIMS})")
+    if head_width(d) is None:
+        raise ValueError(f"head dim {d} not supported on the card (a multiple "
+                         f"of 8 up to 256: the kernels copy rows in 16-byte "
+                         f"vectors)")
     if page_size <= 0 or page_size % 8:
         raise ValueError(f"page_size {page_size} must be a positive "
                          f"multiple of 8")
@@ -204,7 +220,8 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     ints = [s_slots, qmax, hq, hkv, num_pages, page_size, page_table.shape[1],
             d, _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[out_dtype]]
-    lib = "ragged_paged_attention_quant" if quant else "ragged_paged_attention"
+    lib = _build.width_library("ragged_paged_attention_quant" if quant
+                               else "ragged_paged_attention", head_width(d))
     if quant:
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
         ints.append(_KV_CODE[k_pages.dtype])
@@ -212,7 +229,9 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
     ptrs += [0 if t is None else t.data_ptr() for t in (ml, acc)]
     ptrs.append(out.data_ptr())
     ints += [plan.row_tile, plan.n_splits, plan.split_len]
-    _build.launch(lib, f"{lib}_launch",
+    entry = "ragged_paged_attention_quant" if quant \
+        else "ragged_paged_attention"
+    _build.launch(lib, f"{entry}_launch",
                   [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
                   + [ctypes.c_float], [*ptrs, *ints, sm_scale], dev)
     return out, plan.n_splits > 1
@@ -240,7 +259,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
     CUDA tensors launch ``csrc/ragged_paged_attention.cu`` (f32 or bf16
     pages of q's dtype) or, with scales, ``csrc/
     ragged_paged_attention_quant.cu`` (int8 or fp8 pages, f32 or bf16 q),
-    for D in {64, 128}, page_size a multiple of 8, every tensor contiguous,
+    for D a multiple of 8 up to 256 (:func:`head_width`), page_size a
+    multiple of 8, every tensor contiguous,
     index tensors int32, and add one to ``ragged_paged_attention.launches``
     or ``.quant_launches``; CPU tensors run
     :func:`ragged_paged_attention_ref`."""
@@ -285,7 +305,7 @@ def ragged_paged_attention_combine(ml, acc, q_len, hq, out_dtype):
                                                   out_dtype)
     n, s_slots, hkv, rows, d = acc.shape
     qmax = rows // (hq // hkv)
-    if ml.shape != (n, s_slots, hkv, rows, 2) or d not in _HEAD_DIMS \
+    if ml.shape != (n, s_slots, hkv, rows, 2) or head_width(d) is None \
             or out_dtype not in _build.DTYPE_CODE:
         raise ValueError(f"combine: ml {tuple(ml.shape)}, acc "
                          f"{tuple(acc.shape)}, out {out_dtype}")
@@ -295,7 +315,8 @@ def ragged_paged_attention_combine(ml, acc, q_len, hq, out_dtype):
                              "device")
     out = torch.empty(s_slots, qmax, hq, d, dtype=out_dtype,
                       device=acc.device)
-    _build.launch("ragged_paged_attention",
+    _build.launch(_build.width_library("ragged_paged_attention",
+                                       head_width(d)),
                   "ragged_paged_attention_combine_launch",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7,
                   [ml.data_ptr(), acc.data_ptr(), q_len.data_ptr(),

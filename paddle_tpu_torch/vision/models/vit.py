@@ -89,11 +89,11 @@ class MLP(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim, num_heads, attn_drop, proj_drop, parts):
+    def __init__(self, dim, num_heads, attn_drop, proj_drop, qkv_bias, parts):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
-        self.qkv = Linear(dim, dim * 3, **parts.mk)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias, **parts.mk)
         self.proj = Linear(dim, dim, **parts.mk)
         self.attn_drop = attn_drop
         self.proj_drop = parts.dropout(proj_drop)
@@ -113,10 +113,12 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim, num_heads, mlp_ratio, drop, attn_drop, parts):
+    def __init__(self, dim, num_heads, mlp_ratio, drop, attn_drop, qkv_bias,
+                 parts):
         super().__init__()
         self.norm1 = parts.norm(dim)
-        self.attn = Attention(dim, num_heads, attn_drop, drop, parts)
+        self.attn = Attention(dim, num_heads, attn_drop, drop, qkv_bias,
+                              parts)
         self.norm2 = parts.norm(dim)
         self.mlp = MLP(dim, int(dim * mlp_ratio), drop, parts)
 
@@ -128,12 +130,13 @@ class Block(nn.Module):
 class VisionTransformer(nn.Module):
     """JAX ``VisionTransformer`` (``vit.py:83``): images [B, C, H, W] ->
     logits [B, num_classes] (the final norm's class token when
-    ``num_classes`` is 0).  Its qkv projection always has a bias, as in
-    every ``vit_*`` configuration."""
+    ``num_classes`` is 0).  ``qkv_bias=False`` builds the qkv projection
+    without a bias (no ``qkv.bias`` parameter), as JAX's does."""
 
     def __init__(self, img_size=224, patch_size=16, in_chans=3,
                  num_classes=1000, embed_dim=768, depth=12, num_heads=12,
-                 mlp_ratio=4.0, drop_rate=0.0, attn_drop_rate=0.0,
+                 mlp_ratio=4.0, qkv_bias=True, drop_rate=0.0,
+                 attn_drop_rate=0.0,
                  epsilon=1e-6, dtype=torch.float32, device=None,
                  seed: int = 0, kernels: bool = True,
                  norm_kernels: bool = False):
@@ -153,7 +156,7 @@ class VisionTransformer(nn.Module):
         self.pos_drop = parts.dropout(drop_rate)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, drop_rate, attn_drop_rate,
-                  parts) for _ in range(depth))
+                  qkv_bias, parts) for _ in range(depth))
         self.norm = parts.norm(embed_dim)
         self.head = Linear(embed_dim, num_classes, **parts.mk) \
             if num_classes > 0 else None

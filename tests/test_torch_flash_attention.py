@@ -704,3 +704,146 @@ def test_segment_kernels_match_plain_versions_on_card():
                         q, k, v.abs(), *args)[0].float())
                     for a, b_ in zip(got, want):
                         _held_bf16(a, b_)
+
+
+# -- every head dim the JAX kernels take --------------------------------------
+# head dims off and on the kernels' compiled widths (24 at 32, 40 at 48, 80,
+# 160, 200 at 256), S <= 256
+WIDE_DIMS = (24, 40, 80, 160, 200)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_head_dims_match_pallas_interpret(d, causal):
+    """o, lse and dq / dk / dv of the plain versions against the Pallas
+    forward and ``_bwd_call`` in interpret mode at head dims 24-200, GQA
+    2:1, S 128: o and lse within 2e-5, the gradients within 2e-4."""
+    shape = b, s_q, s_k, hq, hkv, _ = (1, 128, 128, 2, 1, d)
+    q, k, v, do = _inputs(shape, seed=20 + d)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = _rows(q), _rows(k), _rows(v)
+    jo, jlse = jfa.flash_attention_fwd_kernel_call(
+        jq, jk, jv, causal, scale, interpret=True, n_q_heads=hq,
+        n_kv_heads=hkv)
+    jdq, jdk, jdv = jax.block_until_ready(jfa._bwd_call(
+        (jq, jk, jv, jo, jlse), _rows(do), causal, scale, True,
+        n_q_heads=hq, n_kv_heads=hkv))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    before = _counts()
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal, scale)
+    dq, dk, dv = tfa._bwd_call((tq, tk, tv, o, lse), tdo, causal, scale)
+    assert _counts() == before
+    np.testing.assert_allclose(o.numpy(), _bshd(jo, b), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), _bshd(want, b), **BWD_TOL)
+
+
+def test_segments_at_head_dim_40_match_pallas_interpret():
+    """The segment branch at head dim 40 (SD-1.5's level 0): the JAX
+    suite's ids [0]*100 + [1]*156 at S 256, o and lse of the plain forward
+    and dq / dk / dv of the plain backward against the Pallas kernels in
+    interpret mode."""
+    b, s, h, d = 1, 256, 2, 40
+    q, k, v, do = _inputs((b, s, s, h, h, d), seed=15)
+    seg = _two_segments(b, s, 100)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = _rows(q), _rows(k), _rows(v)
+    jseg = jnp.asarray(seg, jnp.float32)
+    jo, jlse = jfa.flash_attention_fwd_kernel_call(
+        jq, jk, jv, False, scale, interpret=True, n_q_heads=h,
+        n_kv_heads=h, segment_ids=jseg)
+    jdq, jdk, jdv = jax.block_until_ready(jfa._bwd_call(
+        (jq, jk, jv, jo, jlse), _rows(do), False, scale, True,
+        n_q_heads=h, n_kv_heads=h, segment_ids=jseg))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tseg = torch.from_numpy(seg)
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, False, scale,
+                                     segment_ids=tseg)
+    dq, dk, dv = tfa._bwd_call((tq, tk, tv, o, lse), tdo, False, scale,
+                               segment_ids=tseg)
+    np.testing.assert_allclose(o.numpy(), _bshd(jo, b), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), _bshd(want, b), **BWD_TOL)
+
+
+def test_dropout_at_head_dim_160_matches_jax_masked_formula():
+    """The dropout branch at head dim 160 (SD-1.5's level 2), rate 0.1,
+    causal, GQA 2:1: the op against ``jax.vjp`` of JAX's masked formula
+    under the port's mask, o within 2e-5, the gradients within 1e-4 of
+    each tensor's max |grad|."""
+    rate, seed, causal = 0.1, 4321, True
+    shape = (1, 128, 128, 2, 1, 160)
+    q, k, v, do = _inputs(shape, seed=16)
+    factor = _factor(seed, shape, rate)
+    jout, vjp = jax.vjp(
+        lambda a, b_, c: _jax_masked_attention(a, b_, c, factor, causal),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, dropout_rate=rate,
+                              dropout_seed=seed)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    for t, want in zip((tq, tk, tv), jgrads):
+        want = np.asarray(want)
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_head_width_map_covers_every_head_dim_jax_takes():
+    """Every D that JAX's ``_supported`` takes (a multiple of 8 up to 256)
+    has a compiled width: the narrowest of ``HEAD_WIDTHS`` that holds it
+    (40 at 48, not 64; 80 and 160 at their own), a multiple of 16 (an
+    mma.sync k-step); the wrapper's check takes it, and refuses the head
+    dims JAX declines.  Every width has one library (``_build``'s
+    ``WIDTH_LIBRARIES``: the source's default ``FA_TU_WIDTHS``, and one
+    library for each other width), and the map is the one the CUDA
+    dispatch (``fa_width``) computes."""
+    import re
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    csrc = Path(tfa.__file__).parent / "csrc"
+    macro, own, more = _build.WIDTH_LIBRARIES["flash_attention"]
+    default = re.search(rf"#define {macro} ([\d, ]+)\n",
+                        (csrc / "flash_attention.cu").read_text()).group(1)
+    assert tuple(int(w) for w in default.split(",")) == own
+    compiled = {w: _build.width_library("flash_attention", w)
+                for w in own + more}
+    assert sorted(compiled) == list(tfa.HEAD_WIDTHS)
+    assert len(set(compiled.values())) == 1 + len(more)
+    assert set(compiled.values()) <= set(_build._sources(csrc))
+    header = (csrc / "flash_attention.cuh").read_text()
+    body = header[header.index("inline constexpr int fa_width"):]
+    cuts = [(int(a), int(b)) for a, b in
+            re.findall(r"d <= (\d+)\s+\? (\d+)", body[:600])]
+    assert cuts == [(w, w) for w in tfa.HEAD_WIDTHS[:-1]]
+    for d in range(1, 300):
+        q_shape = (1, 128, 2, d)
+        takes = jfa._supported(q_shape, q_shape)
+        w = tfa.head_width(d)
+        assert (w is not None) == takes, d
+        t = torch.zeros((1, 1, 1, d))
+        if takes:
+            assert w >= d and w % 16 == 0
+            assert w == min(x for x in tfa.HEAD_WIDTHS if x >= d)
+            assert tfa._check("fwd", (t, t, t)) == t.device
+        else:
+            with pytest.raises(ValueError, match="head dim"):
+                tfa._check("fwd", (t, t, t))
+    assert [tfa.head_width(d) for d in (8, 40, 56, 80, 112, 160, 200)] \
+        == [32, 48, 64, 80, 128, 160, 256]
+
+
+@pytest.mark.cuda
+def test_head_dim_kernels_match_plain_versions_on_card():
+    """Rows 3/5/6 at every compiled width (off-width head dims included),
+    bf16 and f32, causal and not, one GQA case, and the dropout and
+    segment branches at head dims 40 and 160, against their plain versions
+    on the card under the tolerances of ``chip_smoke.py`` phase 2e."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    chip_smoke.head_dim_checks(tfa, torch.Generator("cuda").manual_seed(0))

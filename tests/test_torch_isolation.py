@@ -212,3 +212,37 @@ def test_the_scan_covers_the_vit_modules():
                 "vision/models/vit.py", "nn/layers.py",
                 "nn/functional/attention.py", "models/convert.py"):
         assert f"paddle_tpu_torch/{mod}" in names
+
+
+def test_unet_entry_points_without_device_need_a_card(monkeypatch):
+    """The UNet constructor and ``unet_params_from_numpy`` resolve
+    device=None to the card, and run on the CPU only when asked; the scan
+    covers the UNet slice's modules, and every head width of the
+    attention kernels has a library."""
+    from paddle_tpu_torch.models import (UNet2DConditionModel,
+                                         unet_config_tiny,
+                                         unet_params_from_numpy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        UNet2DConditionModel(unet_config_tiny())
+    model = UNet2DConditionModel(unet_config_tiny(), device="cpu")
+    assert {p.device for p in model.parameters()} == {torch.device("cpu")}
+    named = {"w": np.zeros((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        unet_params_from_numpy(named)
+    assert unet_params_from_numpy(named, device="cpu")["w"].device \
+        == torch.device("cpu")
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("models/unet.py", "nn/functional/norm.py",
+                "nn/functional/common.py", "nn/functional/activation.py",
+                "nn/layers.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as tpa
+    from paddle_tpu_torch.ops.flash_attention import HEAD_WIDTHS
+    libraries = _build._sources(REPO / "paddle_tpu_torch/ops/csrc")
+    for w in HEAD_WIDTHS:
+        assert _build.width_library("flash_attention", w) in libraries, w
+    for d in range(8, 257, 8):
+        for src in ("ragged_paged_attention", "ragged_paged_attention_quant"):
+            assert _build.width_library(src, tpa.head_width(d)) in libraries

@@ -396,3 +396,51 @@ def test_split_edges_match_plain_version_on_card(case, kv_dtype):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         for s, n in enumerate(ql):
             assert not got[s, n:].any()
+
+
+# -- head dims off 64 / 128 -----------------------------------------------------
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["plain", "int8"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_head_dims_match_jax(d, kv_dtype):
+    """The plain version against JAX's kernel in interpret mode and its
+    reference at head dims 80 (a multiple of 16 that the kernels run at
+    width 96) and 96, GQA 8:2, a mix of decode, verify and chunk segments
+    and an inactive slot; f32 and int8 pages."""
+    S, Hq, Hkv, ps, NP, P = 4, 8, 2, 16, 13, 3
+    q, kp, vp, pt = _inputs(S, 8, Hq, Hkv, d, ps, NP, P, seed=17)
+    kp *= 3.0
+    _check_ragged(q, kp, vp, pt, [7, 14, 16, 0], [1, 5, 8, 0],
+                  [8, 19, 24, 0], kv_dtype=kv_dtype)
+
+
+def test_head_width_map_and_what_the_card_refuses():
+    """Every head dim that is a multiple of 8 up to 256 has a compiled
+    width (a multiple of 32 that holds it, 224 at 256; 40 at 64, 80 at 96);
+    the launch refuses any other head dim before it touches the card (a
+    row that is not a multiple of 8 elements would break the kernels'
+    16-byte copies)."""
+    for d in range(1, 300):
+        w = tpa.head_width(d)
+        if d % 8 == 0 and d <= 256:
+            assert w % 32 == 0 and d <= w <= 256 and (w - d < 32 or w == 256)
+        else:
+            assert w is None
+    assert [tpa.head_width(d) for d in (8, 40, 80, 96, 160, 200, 256)] \
+        == [32, 64, 96, 96, 160, 256, 256]
+    q, kp, vp, pt = _inputs(2, 2, 4, 2, 12, 16, 5, 2, seed=1)
+    ta = [torch.from_numpy(a) for a in (q, kp, vp, pt)]
+    seg = [torch.tensor(x, dtype=torch.int32) for x in ([0, 0], [1, 1],
+                                                         [1, 1])]
+    with pytest.raises(ValueError, match="head dim 12"):
+        tpa._launch_kernel(*ta, *seg, 1.0, torch.float32)
+
+
+@pytest.mark.cuda
+def test_head_dim_kernels_match_plain_version_on_card():
+    """Rows 1-2 at head dims 40, 80, 96 and 256 (bf16, int8 and fp8 pages;
+    decode, verify and chunk) against the plain version on the card, under
+    ``chip_smoke.py`` phase 2e's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+    chip_smoke.ragged_head_dim_checks(tpa)

@@ -244,3 +244,36 @@ def test_dropout_eval_matches_jax_and_training_follows_the_seed():
     assert float(loss_a) != eval_loss
     assert all(bool(g.abs().sum() > 0) for g in grads.values())
 
+
+
+def test_qkv_without_bias_matches_jax():
+    """``VisionTransformer(qkv_bias=False)``, which JAX builds with a qkv
+    projection without a bias: the port builds the same parameters (no
+    ``qkv.bias``), takes the JAX weights by name through
+    ``vit_params_from_numpy``, and its loss and gradients match
+    ``jax.value_and_grad`` of the JAX model's."""
+    paddle.seed(1)
+    jmodel = JViT(**SHORT, qkv_bias=False)
+    jparams = {n: p._value for n, p in jmodel.named_parameters()}
+    assert not any(n.endswith("qkv.bias") for n in jparams)
+    model = VisionTransformer(**SHORT, qkv_bias=False, device="cpu")
+    assert {n: tuple(p.shape) for n, p in model.named_parameters()} \
+        == {n: tuple(v.shape) for n, v in jparams.items()}
+    model.load_state_dict(vit_params_from_numpy(
+        {k: np.asarray(v) for k, v in jparams.items()}, device="cpu"))
+    x, y = _batch("short")
+
+    def loss_fn(params):
+        with functional_state(jmodel, params):
+            logits = jmodel(Tensor(jnp.asarray(x)))
+        logp = jax.nn.log_softmax(logits._value.astype(jnp.float32), -1)
+        return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(y)[:, None],
+                                             -1))
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jparams)
+    tloss, tgrads = _port_loss_and_grads(model, "short")
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_RTOL)
+    assert tgrads.keys() == jgrads.keys()
+    for k in jgrads:
+        np.testing.assert_allclose(tgrads[k].numpy(), np.asarray(jgrads[k]),
+                                   err_msg=k, **GRAD_TOL)
