@@ -1,6 +1,6 @@
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--parent-engine ROOT]
 
 Builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc`` and drives
 the port's main paths — the paged continuous-batching LLaMA server with a
@@ -95,17 +95,33 @@ weights made from a seed:
                LayerNorm rows (8,192 x 640, 2,048 x 1,280) are phase 2c's;
   3. serving   (a) a bf16 ServingEngine at 7B widths serves 8 requests in
                4 slots: chunked prefill, a prefix-cache hit served by a
-               suffix prefill, greedy decode; the plain kernel's launch
-               counter must cover every layer of every decode step and the
-               plain version must not run; then a decode step's wall time
-               against its kernels' device time (torch.profiler);
+               suffix prefill, greedy decode, each decode horizon a replay
+               of a captured CUDA graph; the plain kernel's launch
+               counter (graph replays included) must cover every layer of
+               every decode step and the plain version must not run; then
+               a decode step's wall time against its kernels' device time,
+               and the host's launch calls per step (torch.profiler);
+               (a') the same traffic through an overlap=True engine (the
+               double-buffered host loop): the same measures, and greedy
+               streams equal to (a)'s; (a'') the traffic again through
+               both engines in turns (sync, overlap, overlap, sync);
                (b) the same 7B model with kv_dtype="int8" and
                speculative=4, its pool the same KV bytes as (a), serves
-               traffic whose prompts repeat a segment: the quantized
-               kernel's launches must equal layers x attention dispatches
-               (decode steps + verify steps + prefill chunks), the plain
-               kernel and the plain version must not run, and drafts must
-               be proposed and verified;
+               traffic whose prompts repeat a segment, verify steps as
+               graph replays too: the quantized kernel's launches must
+               equal layers x attention dispatches (decode steps + verify
+               steps + prefill chunks), the plain kernel and the plain
+               version must not run, and drafts must be proposed and
+               verified;
+               (i) the request lifecycle on (b)'s successor weights, two
+               overlap=True engines sharing them: a snapshot taken with a
+               dispatch in flight restores into the second engine and
+               continues, a mid-decode request moves by export_kv /
+               import_kv, a cancel and a timeout=0.0 act with a dispatch in
+               flight; every stream on the model's greedy path, the page
+               accounting exact, every page back, no pool tensor moved;
+               with ``--parent-engine ROOT`` another commit's (a) and (b)
+               run in a process of their own before (a) and after (i);
                (c) the 271M LLaMA train step (bf16, B 8, S 2048,
                head_chunks 8, AdamW): 3 warm-up and 10 timed steps, the
                loss of each (finite and falling: labels equal the inputs),
@@ -145,8 +161,9 @@ weights made from a seed:
                and one step under torch.profiler;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
-               the plain version, for f32, int8 and fp8 pages, and with
-               speculative=4 as without; (b) one f32 train step at full
+               the plain version, and with overlap=True, for f32, int8 and
+               fp8 pages, and with speculative=4 as without (also with
+               overlap=True); (b) one f32 train step at full
                width and 2 layers gives the same loss, gradients and
                updated parameters with the kernels as with the plain
                versions; (c) the same for a 2-layer f32 ERNIE step at
@@ -207,6 +224,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1368,11 +1386,10 @@ def traffic(vocab):
             (toks(96), 64)]
 
 
-def phase_serving(pa, cfg, params):
-    from paddle_tpu_torch.inference.paged import ServingEngine
+def model_function_checks(cfg, params):
+    """Finite logits of the expected shape from the model functions."""
     from paddle_tpu_torch.models.llama import build_llama_paged_decode
 
-    # finite logits of the expected shape from the model functions
     init_pages, _, prefill_chunk, decode_step, _ = build_llama_paged_decode(
         cfg, page_size=16, num_pages=8, dtype=torch.bfloat16, device="cuda")
     pages = init_pages()
@@ -1391,14 +1408,32 @@ def phase_serving(pa, cfg, params):
         torch.tensor([True], device="cuda"))
     require(logits.shape == (1, cfg.vocab_size)
             and bool(torch.isfinite(logits).all()), "decode logits finite")
-    del pages
+
+
+def require_graphs(eng, verify=False):
+    """The engine's decode horizons (and verify step) ran as captured CUDA
+    graphs."""
+    runs = list(eng._horizon_runs.values())
+    if verify:
+        runs.append(eng._verify_run)
+    require(runs and all(r is not None and r.graph is not None
+                         for r in runs),
+            f"dispatches captured as CUDA graphs: {eng.jit_variants()}")
+
+
+def phase_serving(pa, cfg, params, overlap=False, want=None):
+    """3a: the bf16 engine serves ``traffic``; with ``overlap`` the same
+    traffic through ``overlap=True``, whose greedy streams must equal
+    ``want`` (3a's synchronous streams)."""
+    from paddle_tpu_torch.inference.paged import ServingEngine
 
     eng = ServingEngine(params, cfg, num_slots=4, page_size=16,
                         num_pages=320, max_pages_per_seq=72,
                         dtype=torch.bfloat16, prompt_bucket=32,
-                        decode_horizon=8, prefill_chunk=256, device="cuda")
-    # warm-up (cuBLAS handles, allocator, kernel load): one dense and one
-    # chunked prefill, a few horizons
+                        decode_horizon=8, prefill_chunk=256, overlap=overlap,
+                        device="cuda")
+    # warm-up (cuBLAS handles, allocator, kernel load, the graphs'
+    # captures): one dense and one chunked prefill, a few horizons
     warm = np.random.default_rng(1)
     for n in (64, 300):
         eng.submit(warm.integers(1, cfg.vocab_size, n), max_new_tokens=9)
@@ -1429,15 +1464,20 @@ def phase_serving(pa, cfg, params):
     L = cfg.num_hidden_layers
     dispatches = delta["decode_model_steps"] + delta["prefill_chunks"]
     require(launches == L * dispatches and launches > 0,
-            f"kernel launches {launches} != layers x attention dispatches "
-            f"{L} x {dispatches}")
+            f"kernel launches {launches} (graph replays included) != "
+            f"layers x attention dispatches {L} x {dispatches}")
     require(ref_calls == 0 and quant_launches == 0,
             f"plain version ran {ref_calls} times, quantized kernel "
             f"{quant_launches}")
     combines = pa.ragged_paged_attention.combine_launches
     require(0 < combines <= launches, f"split merges {combines} (want 1 to "
             f"{launches}: one after each split launch)")
+    require_graphs(eng)
     eng.check_invariants()
+    streams = [list(r.generated) for r in out]
+    if overlap:
+        require(delta["overlap_steps"] > 0, "the pipeline never overlapped")
+        require(streams == want, "overlap=True changed 3a's greedy streams")
 
     n_tok = sum(len(r.generated) for r in out)
     ttft = np.array([r.ttft for r in out]) * 1e3
@@ -1448,13 +1488,16 @@ def phase_serving(pa, cfg, params):
     print(f"  engine counters: {json.dumps(delta)}")
     print(f"  kernel launches {launches} (= {L} layers x ("
           f"{delta['decode_model_steps']} decode steps + "
-          f"{delta['prefill_chunks']} chunks)), plain-version calls "
-          f"{ref_calls}, split merges {combines}")
+          f"{delta['prefill_chunks']} chunks), graph replays included), "
+          f"plain-version calls {ref_calls}, split merges {combines}; "
+          f"captured graphs {eng.jit_variants()}")
+    if overlap:
+        print("  greedy streams equal to the synchronous engine's: True")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
-    decode_breakdown(eng, cfg)
+    step = decode_breakdown(eng, cfg)
     return dict(launches=launches, combines=combines, tokens=n_tok,
-                wall_s=wall,
+                wall_s=wall, streams=streams, step=step, engine=eng,
                 kv_bytes=eng.pool.num_pages * eng.page_bytes,
                 tokens_per_s=n_tok / wall,
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
@@ -1463,10 +1506,47 @@ def phase_serving(pa, cfg, params):
                                 for i in range(4)])
 
 
+def serving_turns(cfg, serve, serve_o):
+    """3a's traffic again through the synchronous engine and the
+    overlapped one, in turns (synchronous, overlap, overlap, synchronous),
+    each from an empty prefix cache: tokens/s and TTFT of each turn, the
+    streams held to 3a's."""
+    reqs = traffic(cfg.vocab_size)
+    out = {False: [], True: []}
+    for sv in (serve, serve_o, serve_o, serve):
+        eng = sv["engine"]
+        eng.release_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require([done[r].generated for r in rids] == serve["streams"],
+                "a turn changed 3a's greedy streams")
+        ttft = np.array([done[r].ttft for r in rids]) * 1e3
+        out[eng.overlap].append((sum(m for _, m in reqs) / wall,
+                                 np.percentile(ttft, 50),
+                                 np.percentile(ttft, 95)))
+    for overlap, turns in out.items():
+        print(f"  overlap={overlap}: " + "; ".join(
+            f"{t:.1f} tokens/s, TTFT p50 {p50:.1f} / p95 {p95:.1f} ms"
+            for t, p50, p95 in turns))
+    return out
+
+
+# the runtime calls by which the host puts work on the card
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
+
+
 def timed_steps(eng, steps):
     """Host wall time of ``steps`` engine steps, then the same number under
-    torch.profiler: the device time of their kernels in ms, split into the
-    attention kernels, matrix products and the rest, and the kernel count."""
+    torch.profiler: the device time of their kernels in ms (graph replays'
+    kernels included: CUPTI reports each by name), split into the
+    attention kernels, matrix products and the rest, the kernel count, and
+    the host's launch calls (kernel launches, graph launches, copies)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1481,24 +1561,29 @@ def timed_steps(eng, steps):
             eng.step()
         torch.cuda.synchronize()
     groups = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
-    launches = 0
+    kernels = host = 0
     for ev in prof.key_averages():
+        if ev.key in LAUNCH_APIS:
+            host += ev.count
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
         if not dev_us or ev.key.startswith(("cuda", "aten::")):
             continue
-        launches += ev.count
+        kernels += ev.count
         key = ev.key.lower()
         g = "attention" if "ragged_paged_attention" in key else \
             "matmul" if any(s in key for s in ("gemm", "gemv", "cutlass",
                                                "sm90_xmma", "nvjet")) \
             else "other"
         groups[g] += dev_us / 1e3
-    return wall, groups, launches
+    require(groups["attention"] > 0 and host > 0,
+            f"the profile saw the attention kernels and the host's launches "
+            f"({groups}, {host} launch calls)")
+    return wall, groups, kernels, host
 
 
-def print_breakdown(what, eng, wall, n, groups, launches):
+def print_breakdown(what, eng, wall, n, groups, kernels, host):
     busy = sum(groups.values())
     weights = sum(t.numel() * t.element_size()
                   for tree in eng.params for t in tree.values())
@@ -1506,29 +1591,33 @@ def print_breakdown(what, eng, wall, n, groups, launches):
     print(f"  {what}: wall {wall / n * 1e3:.2f} ms unprofiled, device busy "
           f"{busy / n:.2f} ms ({busy / (wall * 1e3) * 100:.1f}%: attention "
           f"{per['attention']:.3f}, matmul {per['matmul']:.3f}, other "
-          f"{per['other']:.3f} ms), {launches / n:.0f} kernels; weight "
-          f"bytes bound {weights / HBM_BYTES_PER_S * 1e3:.2f} ms")
+          f"{per['other']:.3f} ms), {kernels / n:.0f} kernels and "
+          f"{host / n:.2f} host launch calls per step; weight bytes bound "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    return dict(wall_ms=wall / n * 1e3, device_ms=busy / n,
+                busy=busy / (wall * 1e3), kernels=kernels / n,
+                host_launches=host / n)
 
 
 def decode_breakdown(eng, cfg, steps=2):
     """Where a decode step's time goes: four slots of 512-token contexts,
     pure decode horizons (K = 8 steps each) — first timed on the host
     clock, then the same number under torch.profiler for the device time
-    of their kernels."""
+    of their kernels.  Per decode model step (one of the K)."""
     r = np.random.default_rng(4)
     for _ in range(4):
         eng.submit(r.integers(1, cfg.vocab_size, 512),
-                   max_new_tokens=1 + eng.decode_horizon * (2 * steps + 1))
+                   max_new_tokens=1 + eng.decode_horizon * (2 * steps + 3))
     eng.step()                      # admissions: the first prefill chunks
     eng.step()                      # the second chunks, the first horizon
     n0, c0 = eng.decode_model_steps, eng.prefill_chunks
-    wall, groups, launches = timed_steps(eng, steps)
+    wall, groups, kernels, host = timed_steps(eng, steps)
     n = (eng.decode_model_steps - n0) // 2
     require(n == steps * eng.decode_horizon and eng.prefill_chunks == c0,
             "the timed windows ran pure decode horizons")
     eng.run()
-    print_breakdown(f"decode step ({eng.num_slots} slots, 512-token "
-                    f"contexts)", eng, wall, n, groups, launches)
+    return print_breakdown(f"decode step ({eng.num_slots} slots, 512-token "
+                           f"contexts)", eng, wall, n, groups, kernels, host)
 
 
 def verify_breakdown(eng, cfg, succ, steps=2):
@@ -1545,14 +1634,14 @@ def verify_breakdown(eng, cfg, succ, steps=2):
     eng.step()                      # admissions: the first prefill chunks
     eng.step()                      # the second chunks, the first verify
     v0, t0, c0 = eng.verify_steps, eng.tokens_generated, eng.prefill_chunks
-    wall, groups, launches = timed_steps(eng, steps)
+    wall, groups, kernels, host = timed_steps(eng, steps)
     require(eng.verify_steps - v0 == 2 * steps and eng.prefill_chunks == c0,
             "the timed windows ran verify steps only")
     tokens = (eng.tokens_generated - t0) / (2 * steps)
     eng.run()
-    print_breakdown(f"verify step ({eng.num_slots} slots, 512-token "
-                    f"contexts, {tokens:.1f} tokens per step)", eng, wall,
-                    steps, groups, launches)
+    return print_breakdown(f"verify step ({eng.num_slots} slots, 512-token "
+                           f"contexts, {tokens:.1f} tokens per step)", eng,
+                           wall, steps, groups, kernels, host)
 
 
 def successor_model(params, seed):
@@ -1660,6 +1749,7 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
             f" to {quant_launches}: one after each split launch)")
     require(delta["verify_steps"] > 0 and delta["draft_tokens_proposed"] > 0,
             "no draft was proposed and verified")
+    require_graphs(eng, verify=True)
     eng.check_invariants()
 
     n_tok = sum(len(r.generated) for r in out)
@@ -1677,17 +1767,109 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
     print(f"  quantized kernel launches {quant_launches} (= {L} layers x ("
           f"{delta['decode_model_steps']} decode steps + "
           f"{delta['verify_steps']} verify steps + {delta['prefill_chunks']}"
-          f" chunks)), plain kernel {launches}, plain version {ref_calls}, "
-          f"split merges {combines}")
+          f" chunks), graph replays included), plain kernel {launches}, "
+          f"plain version {ref_calls}, split merges {combines}; captured "
+          f"graphs {eng.jit_variants()}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
-    verify_breakdown(eng, cfg, succ)
-    return dict(quant_launches=quant_launches, combines=combines,
-                tokens_per_s=n_tok / wall,
+    step = verify_breakdown(eng, cfg, succ)
+    return dict(quant_launches=quant_launches, combines=combines, succ=succ,
+                tokens_per_s=n_tok / wall, step=step,
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 ttft_p95_ms=float(np.percentile(ttft, 95)), acceptance=acc,
                 decode_kv_lens=[len(reqs[i][0]) + reqs[i][1] // 2
                                 for i in range(4)])
+
+
+def lifecycle_traffic(vocab, succ):
+    """4 requests of 100-300 prompt tokens, 40-64 new tokens each, and
+    what the successor model emits for each: its greedy path."""
+    r = np.random.default_rng(12)
+    reqs = [(r.integers(1, vocab, n).astype(np.int32), m)
+            for n, m in ((100, 64), (300, 40), (180, 56), (240, 48))]
+    return [(p, m, path(succ, succ[p[-1]], m)) for p, m in reqs]
+
+
+def phase_lifecycle(cfg, params, succ):
+    """3i: the request lifecycle at 7B widths on the successor model, two
+    ``overlap=True`` engines sharing the weights: a snapshot taken with a
+    dispatch in flight restores into the second engine and continues; a
+    mid-decode request moves by ``export_kv`` / ``import_kv``; a cancel and
+    a ``timeout=0.0`` act while a dispatch is in flight.  Every stream must
+    be the model's greedy path, the page accounting exact, every page must
+    come back, and no pool tensor may move."""
+    from paddle_tpu_torch.inference.paged import ServingEngine
+
+    def engine():
+        return ServingEngine(params, cfg, num_slots=4, page_size=16,
+                             num_pages=96, max_pages_per_seq=24,
+                             dtype=torch.bfloat16, prompt_bucket=32,
+                             decode_horizon=8, prefill_chunk=256,
+                             overlap=True, device="cuda")
+
+    def ptrs(eng):
+        return [t.data_ptr() for t in (eng._pages_k, eng._pages_v)]
+
+    reqs = lifecycle_traffic(cfg.vocab_size, succ)
+    a, b = engine(), engine()
+    pa0, pb0 = ptrs(a), ptrs(b)
+    t0 = time.perf_counter()
+    rids = [a.submit(p, max_new_tokens=m) for p, m, _ in reqs]
+    for _ in range(4):
+        a.step()
+    require(a.inflight_depth == 1, "a dispatch in flight at the snapshot")
+    state = a.snapshot()
+    require(b.restore(state) == "full_kv", "full-KV restore")
+    done = b.run()
+    for rid, (_, _, want) in zip(rids, reqs):
+        require(done[rid].generated == want,
+                f"request {rid}: restored stream leaves the greedy path")
+    for rid in rids:                      # the source drops its copies
+        a.cancel(rid)
+    print(f"  snapshot with a dispatch in flight ({len(state['kv_pages'])} "
+          f"pages, {sum(v.nbytes for v in state.values() if hasattr(v, 'nbytes')) / 1e6:.1f}"
+          f" MB) -> restore -> {len(rids)} streams on the greedy path")
+
+    p, m, want = reqs[1]
+    rid = a.submit(p, max_new_tokens=m)
+    while len(a.lookup(rid).generated) < 9:
+        a.step()
+    packet = a.export_kv([rid])
+    a.cancel(rid)
+    rid2 = b.import_kv(packet)[rid]
+    got = b.run()[rid2].generated
+    require(got == want, "imported request leaves the greedy path")
+    print(f"  export_kv at token {len(packet['requests'][0]['req']['generated'])}"
+          f" ({len(packet['kv_pages'])} pages, {packet['bytes'] / 1e6:.1f} "
+          f"MB) -> import_kv -> continued on the greedy path")
+
+    rids = [a.submit(p, max_new_tokens=m) for p, m, _ in reqs[:3]]
+    a.step()
+    a.step()
+    late = a.submit(reqs[3][0], max_new_tokens=reqs[3][1], timeout=0.0)
+    a.step()
+    require(a.inflight_depth == 1 and a.lookup(late).timed_out,
+            "the overdue request timed out with a dispatch in flight")
+    require(a.cancel(rids[0]), "cancel found the request")
+    require(a.inflight_depth == 0, "cancel quiesced the pipeline")
+    done = a.run()
+    require(rids[0] not in done and done[late].timed_out
+            and a.stats()["timeouts"] >= 1, "cancel and timeout outcomes")
+    for rid, (_, _, want) in zip(rids[1:], reqs[1:3]):
+        require(done[rid].generated == want,
+                f"request {rid}: a survivor leaves the greedy path")
+    for eng, p0 in ((a, pa0), (b, pb0)):
+        eng.check_invariants()
+        eng.release_cache()
+        require(eng.pool.num_free == eng.pool.num_pages,
+                "every page came back")
+        require(ptrs(eng) == p0, "the page pools never moved")
+        require_graphs(eng)
+    torch.cuda.synchronize()
+    print(f"  cancel and timeout=0.0 with a dispatch in flight: cancelled "
+          f"request dropped, the overdue one timed out, survivors on the "
+          f"greedy path; invariants hold, every page back, pools unmoved "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 # -- phase 3c: the train step -------------------------------------------------
@@ -2374,6 +2556,8 @@ def phase_engine(pa, cfg7b):
         used = counts(pa)
         plain, _ = engine_tokens((ep, bp, hp), cfg, prompts,
                                  kv_dtype=kv_dtype, attention_impl="ref")
+        over, st_o = engine_tokens((ep, bp, hp), cfg, prompts,
+                                   kv_dtype=kv_dtype, overlap=True)
         require(used[0 if kv_dtype is None else 1] > 0 and used[2] == 0,
                 f"engine check [{kv_dtype}]: kernel launches / plain calls "
                 f"{used}")
@@ -2381,9 +2565,12 @@ def phase_engine(pa, cfg7b):
                 "engine check: the shared prefix hit the cache")
         print(f"  2-layer f32 engine at 7B widths, {kv_dtype or 'f32'} "
               f"pages: {len(prompts)} requests x 24 greedy tokens, kernel "
-              f"== plain: {kern == plain}")
+              f"== plain: {kern == plain}, overlap=True == kernel: "
+              f"{over == kern} ({st_o['overlap_steps']} overlapped steps)")
         require(kern == plain, f"greedy tokens differ between kernel and "
                 f"plain version [{kv_dtype}]")
+        require(over == kern and st_o["overlap_steps"] > 0,
+                f"overlap=True changed greedy tokens [{kv_dtype}]")
     # speculative=4 against no speculation, both through the quantized
     # kernel, on the successor model with prompts holding its path
     ep, bp, hp = init_llama_params(cfg, dtype=torch.float32, device="cuda",
@@ -2398,12 +2585,15 @@ def phase_engine(pa, cfg7b):
     spec, st = engine_tokens((ep, bp, hp), cfg, prompts, kv_dtype="int8",
                              speculative=4)
     nospec, _ = engine_tokens((ep, bp, hp), cfg, prompts, kv_dtype="int8")
+    spec_over, _ = engine_tokens((ep, bp, hp), cfg, prompts, kv_dtype="int8",
+                                 speculative=4, overlap=True)
     print(f"  speculative=4 vs none, int8 pages, through the kernel: "
           f"{st['verify_steps']} verify steps, drafts {st['draft_tokens_accepted']}"
           f"/{st['draft_tokens_proposed']} accepted, same tokens: "
-          f"{spec == nospec}")
+          f"{spec == nospec}, with overlap=True: {spec_over == spec}")
     require(st["verify_steps"] > 0, "engine check: no verify step ran")
     require(spec == nospec, "speculative decoding changed greedy tokens")
+    require(spec_over == spec, "overlap=True changed speculative tokens")
     require(all(t == path(succ, succ[p[-1]], 24)
                 for p, t in zip(prompts, spec)),
             "engine check: tokens leave the successor model's path")
@@ -4067,6 +4257,35 @@ UNET_ROWS = [
                        ("fa_dq", "flash_attention_bwd_dq", 347))]
 
 
+def parent_engine_turn(root):
+    """Phases 3a and 3b of another commit, from its checkout at ``root``, in
+    a process of their own (it imports that commit's ``paddle_tpu_torch``
+    and ``chip_smoke``): its ragged paged-attention libraries built from its
+    sources, then its ``phase_serving`` and ``phase_serving_quant`` on the
+    same seeded weights.  Prints its output."""
+    code = "\n".join((
+        "import torch, chip_smoke as c",
+        "from paddle_tpu_torch.ops import _build, paged_attention as pa",
+        "from paddle_tpu_torch.models.llama import (init_llama_params,",
+        "                                           llama_config_7b)",
+        "torch.backends.cuda.matmul.allow_tf32 = False",
+        "_build.build_all(['ragged_paged_attention',",
+        "                  'ragged_paged_attention_quant'])",
+        "cfg = llama_config_7b()",
+        "p = init_llama_params(cfg, dtype=torch.bfloat16, device='cuda',",
+        "                      seed=0)",
+        "s = c.phase_serving(pa, cfg, p)",
+        "c.phase_serving_quant(pa, cfg, p, s['kv_bytes'])"))
+    root = os.path.abspath(root)
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=900)
+    for line in res.stdout.splitlines():
+        print(f"  [parent] {line}")
+    require(res.returncode == 0,
+            f"the parent's serving phases failed: {res.stderr[-3000:]}")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4077,6 +4296,10 @@ def main():
                          "and softmax forward, phase 5b its flash-attention "
                          "kernels at rate 0, RMSNorm forward and LayerNorm "
                          "backward, in turns with these")
+    ap.add_argument("--parent-engine", metavar="ROOT", default=None,
+                    help="checkout of another commit: its phases 3a and 3b "
+                         "run in a process of their own before this "
+                         "commit's and again after phase 3i")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -4127,19 +4350,40 @@ def main():
                     max_err)
     ragged_head_dim_checks(pa)
 
-    say("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers)")
+    if args.parent_engine:
+        say("phase 3a/3b of the parent commit (turn 1 of 2)")
+        torch.cuda.empty_cache()
+        parent_engine_turn(args.parent_engine)
+    say("phase 3a: serving at LLaMA-2 7B widths (bf16 KV, 32 layers; decode "
+        "horizons as CUDA graphs)")
     cfg = llama_config_7b()
     t0 = time.perf_counter()
     params = init_llama_params(cfg, dtype=torch.bfloat16, device="cuda",
                                seed=0)
     torch.cuda.synchronize()
     print(f"  random weights on the card in {time.perf_counter() - t0:.1f} s")
+    model_function_checks(cfg, params)
     serve = phase_serving(pa, cfg, params)
+    say("phase 3a': the same traffic with overlap=True (the double-buffered "
+        "host loop)")
+    serve_o = phase_serving(pa, cfg, params, overlap=True,
+                            want=serve["streams"])
+    say("phase 3a'': 3a's traffic through both engines in turns (sync, "
+        "overlap, overlap, sync)")
+    turns = serving_turns(cfg, serve, serve_o)
+    del serve["engine"], serve_o["engine"]
     say("phase 3b: serving at LLaMA-2 7B widths (int8 KV, speculative=4, "
           "32 layers)")
     serve_q = phase_serving_quant(pa, cfg, params, serve["kv_bytes"])
+    say("phase 3i: the request lifecycle at LLaMA-2 7B widths (snapshot / "
+        "restore, export_kv / import_kv, cancel and timeout with a dispatch "
+        "in flight; two overlap=True engines sharing the weights)")
+    phase_lifecycle(cfg, params, serve_q["succ"])
     del params
     torch.cuda.empty_cache()
+    if args.parent_engine:
+        say("phase 3a/3b of the parent commit (turn 2 of 2)")
+        parent_engine_turn(args.parent_engine)
     say("phase 3c: train step of the 271M LLaMA (bf16, B=8, S=2048, "
           "16 layers)")
     train = phase_train(pa)
@@ -4205,10 +4449,19 @@ def main():
     timing.update(phase_unet_timing(pa, serve["decode_kv_lens"]))
 
     say("phase 6: summary")
-    for name, sv in (("bf16 KV", serve), ("int8 KV + speculative=4", serve_q)):
+    for name, sv, what in (("bf16 KV", serve, "decode"),
+                           ("bf16 KV, overlap=True", serve_o, "decode"),
+                           ("int8 KV + speculative=4", serve_q, "verify")):
+        st = sv["step"]
         print(f"  serving, {name}: {sv['tokens_per_s']:.1f} tokens/s, TTFT "
               f"p50 {sv['ttft_p50_ms']:.1f} ms, p95 {sv['ttft_p95_ms']:.1f} "
-              f"ms on {card}")
+              f"ms; {what} step wall {st['wall_ms']:.2f} ms, device "
+              f"{st['device_ms']:.2f} ms (busy {st['busy']:.1%}), "
+              f"{st['host_launches']:.2f} host launch calls per step on "
+              f"{card}")
+    for overlap, ts in turns.items():
+        print(f"  serving, bf16 KV, overlap={overlap}, in turns: "
+              + ", ".join(f"{t:.1f}" for t, _, _ in ts) + " tokens/s")
     print(f"  draft acceptance {serve_q['acceptance']:.3f}")
     print(f"  train step: {train['tokens_per_s']:.1f} tokens/s, mfu_share "
           f"{train['mfu']:.4f}, {train['step_ms']:.1f} ms per step, loss "
@@ -4234,14 +4487,16 @@ def main():
           f"({cost / ernie0['step_ms']:+.1%})")
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     rows = []
-    for meta, key, launches in ((PLAIN, "plain", serve["launches"]),
+    for meta, key, launches in ((PLAIN, "plain",
+                                 serve["launches"] + serve_o["launches"]),
                                 (QUANT, "quant", serve_q["quant_launches"])):
         dec = timing[key]["decode"]
         rows.append(dict(meta, launches=launches, max_abs_err=max_err[key],
                          ms=dec["ms"], plain_ms=dec["plain_ms"],
                          bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                          library_ms=None))
-    rows.append(dict(COMBINE, launches=serve["combines"] + serve_q["combines"],
+    rows.append(dict(COMBINE, launches=serve["combines"]
+                     + serve_o["combines"] + serve_q["combines"],
                      max_abs_err=max_err["combine"], **timing["combine"]))
     for meta in TRAIN_ROWS:
         key = meta["key"]

@@ -1,8 +1,8 @@
 """Paged-KV cache manager + continuous-batching serving engine.
 
-Port of ``paddle_tpu/inference/paged.py`` in its synchronous form.  The model
-math lives in ``models/llama.build_llama_paged_decode``, the attention kernel
-in ``ops/paged_attention`` (CUDA, ``ops/csrc/ragged_paged_attention.cu``).
+Port of ``paddle_tpu/inference/paged.py``.  The model math lives in
+``models/llama.build_llama_paged_decode``, the attention kernel in
+``ops/paged_attention`` (CUDA, ``ops/csrc/ragged_paged_attention.cu``).
 
   * ``PagePool`` — refcounted page allocator over the shared KV page pool.
   * ``PrefixCache`` — automatic prefix caching over a chained SHA-256
@@ -26,21 +26,53 @@ boundaries.  When the pool runs short the engine walks the degradation
 ladder: evict unreferenced cached pages, then preempt the youngest slot
 (its pages parked in the cache, the request requeued at the head for
 re-prefill of prompt + emitted tokens, so greedy outputs stay step-exact).
+Per-request deadlines (``submit(timeout=)``) retire overdue work wherever
+it is, with ``Request.timed_out`` set; ``cancel`` drops a request.
 
 Device state: the page pool ``[L, Hkv, NP + 1, ps, D]`` (the last page is
 the trash page; a ``{"q": codes, "s": scales}`` dict per side with
 ``kv_dtype``) lives on the engine's device and is updated IN PLACE by
-every prefill, chunk, decode or verify step and copy-on-write copy; the
-JAX engine donated and rebound it instead.  Host state (slot table, page
-tables, lengths) is numpy, mirrored to the device once per dispatch.
+every prefill, chunk, decode or verify step, copy-on-write copy, restore
+and KV import; the JAX engine donated and rebound it instead.  Host state
+(slot table, page tables, lengths) is numpy, written once per dispatch
+into static device buffers that every decode horizon and verify step
+reads.  On a CUDA device each decode horizon ``(K, greedy)`` and the
+verify step are captured once as CUDA graphs (one shared memory pool)
+and replayed — the counterpart of the JAX engine's one compiled
+executable per variant; prefill and prefill chunks stay eager, as their
+shapes vary.  On the CPU the same functions run eagerly.
 
-Not ported yet (later slices): the overlapped host loop, telemetry,
-snapshot/restore, KV export/import, tensor-parallel meshes, deadlines and
-cancellation.
+Double-buffered host loop (``overlap=True``): dispatch N's sampled token,
+length, budget and done state stay on the device and feed dispatch N + 1,
+which is enqueued before N's tokens are read; N's tokens reach the host
+by one non-blocking copy into pinned memory behind a CUDA event, and the
+drain waits on that event only.  CUDA launches are asynchronous, so no
+host thread is needed (the JAX engine's dispatch thread exists because
+buffer donation makes XLA's CPU dispatch synchronous): its ``_resolve``
+(waiting on the thread's future) is the event wait of ``_Fetch.numpy``,
+and stream order makes its ``_join_dispatch`` unnecessary — a prefill,
+chunk or page copy issued after a dispatch runs after it on the card.
+``quiesce()`` drains the pipeline to an exact host-visible boundary;
+snapshots, cancellation, deadline sweeps of in-flight work, speculative
+verify and the degradation ladder call it first.
+
+Streaming: ``submit(..., on_token=cb)`` calls ``cb(tok)`` for every
+emitted token in order, and ``Request.stream()`` iterates tokens as they
+reach the host, driving the engine until the request retires.
+``snapshot`` / ``restore`` serialize the engine (``"full_kv"``: the
+referenced KV pages ride along; ``"compact"``: token prefixes, restored
+by re-prefill), and ``export_kv`` / ``import_kv`` hand slot-resident
+requests with their pages to another engine; the state dict and packet
+keep the JAX engine's layout and numpy planes, so a packet crosses
+between the two packages.
+
+Not ported yet (later slices): telemetry, the fault points, tensor-
+parallel meshes and the durable snapshot writer.
 """
 from __future__ import annotations
 
 import hashlib
+import json
 import math
 import time
 import weakref
@@ -52,13 +84,17 @@ import torch
 
 from .. import resolve_device
 from ..models.llama import (_sample_per_request, build_llama_paged_decode,
-                            make_paged_decode_horizon)
+                            gather_kv_pages, make_paged_decode_horizon,
+                            scatter_kv_pages)
+from ..ops.paged_attention import (ragged_paged_attention,
+                                   ragged_paged_attention_ref)
 from ..serving.quant import page_bytes as _page_bytes
 from ..serving.quant import quantize_params
 
 __all__ = ["PagePool", "PrefixCache", "Request", "ServingEngine",
            "serve_requests", "prefix_chain_hashes", "PoolCapacityError",
-           "AdmissionRejected", "EngineStalledError", "PageDoubleFreeError"]
+           "AdmissionRejected", "EngineStalledError", "PageDoubleFreeError",
+           "KVHandoffError"]
 
 
 class PoolCapacityError(ValueError):
@@ -77,6 +113,12 @@ class EngineStalledError(RuntimeError):
 class PageDoubleFreeError(RuntimeError):
     """free()/share() saw a page holding no reference (double free or
     foreign page), or the same page id twice within one free() batch."""
+
+
+class KVHandoffError(RuntimeError):
+    """An ``export_kv`` packet cannot splice into this engine: mismatched
+    page geometry, KV dtype or tensor-parallel degree.  The caller's
+    fallback is re-prefill (``adopt``)."""
 
 
 class PagePool:
@@ -207,6 +249,8 @@ class PrefixCache:
         self._full: dict[bytes, _CacheEntry] = {}
         self._partial: dict[bytes, dict[bytes, _CacheEntry]] = {}
         self._tick = 0
+        self.insertions = 0           # entries ever inserted
+        self.evictions = 0            # entries ever evicted
 
     def __len__(self) -> int:
         return len(self._full) + sum(len(d) for d in self._partial.values())
@@ -279,6 +323,7 @@ class PrefixCache:
                 self._full[key] = e
                 if parent in self._full:
                     self._full[parent].children += 1
+                self.insertions += 1
             self._touch(e)
             parent = key
         if with_partial:
@@ -293,6 +338,7 @@ class PrefixCache:
                     tails[tb] = e
                     if parent in self._full:
                         self._full[parent].children += 1
+                    self.insertions += 1
                     self._touch(e)
 
     def _evictable(self):
@@ -317,6 +363,7 @@ class PrefixCache:
                 break
             self._drop(cand)
             freed += 1
+        self.evictions += freed
         return freed
 
     def _drop(self, e: _CacheEntry):
@@ -386,16 +433,41 @@ class Request:
     temperature: float = 0.0
     top_p: float = 1.0
     eos_token_id: int | None = None
+    deadline: float | None = None      # absolute engine-clock cutoff
     # filled by the engine
     generated: list = field(default_factory=list)
     submit_time: float = 0.0
-    admit_time: float = 0.0            # first admission into a slot
+    admit_time: float = 0.0            # first admission into a slot (kept
+                                       #   across preemption re-admissions)
     first_token_time: float = 0.0
     finish_time: float = 0.0
+    timed_out: bool = False            # retired overdue (possibly partial)
     preemptions: int = 0               # times evicted + requeued mid-flight
     cached_prefix_tokens: int = 0      # prefix-cache tokens attached
     draft_proposed: int = 0            # speculative draft tokens proposed
     draft_accepted: int = 0            #   ... verified AND emitted
+    trace_id: int | None = None        # fleet-wide stitching id (stored)
+    # streaming front end (not serialized; a restored request streams
+    # through a fresh subscription)
+    on_token: object | None = field(default=None, repr=False, compare=False)
+    _engine: object | None = field(default=None, repr=False, compare=False)
+
+    @property
+    def draft_accept_rate(self) -> float:
+        """Fraction of the proposed draft tokens that were accepted."""
+        return self.draft_accepted / self.draft_proposed \
+            if self.draft_proposed else 0.0
+
+    @property
+    def retire_time(self) -> float:
+        """When the request left the engine (finish, deadline or queued
+        timeout): an alias of finish_time."""
+        return self.finish_time
+
+    @property
+    def queue_time(self) -> float:
+        """Seconds waiting for the first admission (0.0 until admitted)."""
+        return self.admit_time - self.submit_time if self.admit_time else 0.0
 
     @property
     def ttft(self) -> float:
@@ -403,15 +475,77 @@ class Request:
         return self.first_token_time - self.submit_time \
             if self.first_token_time else 0.0
 
+    @property
+    def prefill_time(self) -> float:
+        """First-admission prefill latency: ttft minus the queue wait."""
+        if not (self.first_token_time and self.admit_time):
+            return 0.0
+        return self.first_token_time - self.admit_time
+
+    @property
+    def tpot(self) -> float:
+        """Mean seconds per output token after the first (0.0 until retired
+        with at least 2 tokens)."""
+        n = len(self.generated) - 1
+        if n <= 0 or not self.first_token_time or not self.finish_time:
+            return 0.0
+        return (self.finish_time - self.first_token_time) / n
+
+    @property
+    def output_ids(self) -> np.ndarray:
+        return np.concatenate([self.prompt,
+                               np.asarray(self.generated, np.int32)])
+
+    def stream(self, max_stall_steps: int = 1000,
+               cancel_on_close: bool = True):
+        """Iterate this request's tokens in emission order, driving the
+        owning engine between yields until the request retires.  The
+        streamed sequence is exactly the final ``generated`` record; after
+        retirement it replays the record.  Raises ``EngineStalledError``
+        after ``max_stall_steps`` consecutive no-progress engine steps.
+
+        A consumer that exits early (``break``, ``close()``, or the
+        generator being garbage-collected) cancels the request, unless
+        ``cancel_on_close=False``; normal exhaustion retires the request
+        first, so completion never cancels anything."""
+        i = 0
+        stalled = 0
+        try:
+            while True:
+                while i < len(self.generated):
+                    yield self.generated[i]
+                    i += 1
+                if self.finish_time:
+                    return
+                eng = self._engine() if self._engine is not None else None
+                if eng is None:
+                    raise RuntimeError(
+                        "Request.stream: the owning engine is gone and the "
+                        "request never retired")
+                stalled = 0 if eng.step() else stalled + 1
+                if stalled >= max_stall_steps:
+                    raise EngineStalledError(
+                        f"Request.stream: no engine progress for {stalled} "
+                        f"consecutive steps waiting on rid={self.rid}")
+        finally:
+            if cancel_on_close and not self.finish_time:
+                eng = self._engine() if self._engine is not None else None
+                if eng is not None:
+                    eng.cancel(self.rid)
+
 
 class _Slot:
-    __slots__ = ("req", "pages", "pending", "admit_seq", "prefill_pos",
-                 "ctx", "resuming", "chunk_step", "draft", "spec_k")
+    __slots__ = ("req", "pages", "pending", "pending_dev", "admit_seq",
+                 "prefill_pos", "ctx", "resuming", "chunk_step", "draft",
+                 "spec_k")
 
     def __init__(self, req, pages, pending, admit_seq=0):
         self.req = req
         self.pages = pages             # physical page ids, in order
         self.pending = pending         # last sampled token, not yet cached
+        self.pending_dev = None        # overlap mode: the admission-sampled
+                                       #   first token as a _Fetch, still
+                                       #   unrecorded (drained later)
         self.admit_seq = admit_seq     # monotonically increasing admit order
         self.prefill_pos = None        # tokens prefilled so far; None once
         self.ctx = None                #   decoding (chunked-prefill state)
@@ -419,6 +553,122 @@ class _Slot:
         self.chunk_step = -1           # engine step of the last chunk run
         self.draft = None              # _NgramDraft (speculative greedy)
         self.spec_k = 0                # adaptive per-slot draft length
+
+
+class _LaneRec:
+    """One lane of an in-flight decode dispatch: the slot it was dispatched
+    for, whether the drain also records the slot's admission-deferred first
+    token, and, for a budget-predicted retirement whose slot was already
+    handed to a successor, the detached state (``retiring`` and the cache
+    length the predecessor had when it was detached)."""
+    __slots__ = ("s", "slot", "take_first", "retiring", "base_len")
+
+    def __init__(self, s, slot, take_first):
+        self.s = s
+        self.slot = slot
+        self.take_first = take_first
+        self.retiring = False
+        self.base_len = 0
+
+
+class _Inflight:
+    """One decode dispatch not yet drained: its tokens on their way to the
+    host (``out``, a :class:`_Fetch`), its horizon ``K``, the lane records
+    the drain replays, and ``srcs`` — slot identity per lane at dispatch
+    time, so the next dispatch carries on the device only lanes whose slot
+    is unchanged."""
+    __slots__ = ("out", "K", "lanes", "srcs")
+
+    def __init__(self, out, K, lanes, srcs):
+        self.out = out
+        self.K = K
+        self.lanes = lanes
+        self.srcs = srcs
+
+
+class _Fetch:
+    """A device tensor on its way to the host.  On a CUDA device: a
+    non-blocking copy into pinned memory behind an event, so reading it
+    waits for the work that produced it and for nothing enqueued later.
+    On the CPU: a copy.  ``dev`` keeps the device tensor."""
+    __slots__ = ("dev", "host", "event")
+
+    def __init__(self, t):
+        self.dev = t
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t.clone()
+
+    def numpy(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+    def item(self) -> int:
+        return int(self.numpy())
+
+
+# the launch counters a dispatch can tick: a replay adds what its capture
+# added, since the wrappers' Python does not run on a replay
+_COUNTED = ((ragged_paged_attention, "launches"),
+            (ragged_paged_attention, "quant_launches"),
+            (ragged_paged_attention, "combine_launches"),
+            (ragged_paged_attention_ref, "calls"))
+
+
+def _counts():
+    return [getattr(fn, attr) for fn, attr in _COUNTED]
+
+
+class _Captured:
+    """A dispatch function ``fn()`` over an engine's static device buffers.
+    On the CPU every call runs ``fn``.  On a CUDA device the first call runs
+    it eagerly (this dispatch, and the warm-up: libraries load, cuBLAS
+    picks its kernels), then captures it as a ``torch.cuda.CUDAGraph`` in
+    the memory pool ``pool``; later calls replay the graph, whose outputs
+    (``out``) the next replay of any graph of the pool may overwrite, so
+    callers consume them first.  ``generator``: the torch.Generator a
+    sampling graph draws from.  A failed capture or replay raises."""
+
+    def __init__(self, fn, pool, generator=None):
+        self.fn = fn
+        self.pool = pool               # None: the CPU
+        self.generator = generator
+        self.graph = None
+        self.out = None
+        self.added = None              # launch counts one replay adds
+
+    def __call__(self):
+        if self.pool is None:
+            return self.fn()
+        if self.graph is None:
+            out = self.fn()
+            self._capture()
+            return out
+        self.graph.replay()
+        for (fn, attr), n in zip(_COUNTED, self.added):
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return self.out
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = _counts()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self.fn()
+        finally:
+            after = _counts()
+            for (fn, attr), n in zip(_COUNTED, before):
+                setattr(fn, attr, n)
+        self.added = [a - b for a, b in zip(after, before)]
+        self.graph, self.out = graph, out
 
 
 # every live engine, for the tests' page-refcount leak guard
@@ -443,10 +693,18 @@ class ServingEngine:
     ``kv_dtype="int8"|"fp8"`` stores the KV pages quantized with one f32
     absmax scale per (page, kv head, token row); ``quantize=8`` (or True /
     "int8") snaps the weights onto the per-channel int grid.
+    ``overlap=True`` double-buffers the host loop: step N + 1 is scheduled
+    and dispatched while step N's horizon is in flight, with the token /
+    length / budget / done state carried on the device, and N's tokens
+    drained one dispatch behind (``quiesce()`` forces an exact boundary);
+    greedy outputs equal ``overlap=False``'s.
     ``attention_impl``: "auto" (the CUDA kernels on the card, the plain
     version on the CPU), "kernel", or "ref" (the plain version always).
     Sampling draws from one ``torch.Generator`` seeded with ``seed`` on the
-    engine's device."""
+    engine's device; on a CUDA device the decode horizons and the verify
+    step run as captured CUDA graphs (module docstring), and a sampled
+    graph's replays advance that generator, so sampled streams differ from
+    an eager engine's draws (greedy streams are equal)."""
 
     def __init__(self, params, config, num_slots: int = 4,
                  page_size: int = 16, num_pages: int | None = None,
@@ -456,7 +714,8 @@ class ServingEngine:
                  max_queue: int | None = None, prefix_cache: bool = True,
                  prefill_chunk: int | None = None,
                  speculative: int | None = None, spec_max_ngram: int = 3,
-                 kv_dtype: str | None = None, quantize=None, device=None):
+                 overlap: bool = False, kv_dtype: str | None = None,
+                 quantize=None, device=None):
         self.device = resolve_device(device)
         self.config = config
         self.params = tuple({k: v.to(self.device) for k, v in tree.items()}
@@ -483,6 +742,9 @@ class ServingEngine:
         self.decode_horizon = max(1, int(decode_horizon))
         self.speculative = 0 if not speculative else int(speculative)
         self.spec_max_ngram = max(1, int(spec_max_ngram))
+        self.overlap = bool(overlap)
+        self._inflight: _Inflight | None = None
+        self._clock = time.perf_counter
         self._dtype = dtype
         (init_pages, self._prefill, self._prefill_chunk_fn, decode_step,
          self._verify_fn) = build_llama_paged_decode(
@@ -493,6 +755,12 @@ class ServingEngine:
         self._pages_k, self._pages_v = pages["k"], pages["v"]
         self._horizon = make_paged_decode_horizon(decode_step)
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        # the captured graphs' one memory pool (None: the CPU, eager)
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self._horizon_runs: dict = {}  # (K, greedy) -> _Captured
+        self._verify_run = None        # _Captured verify step
+        self._init_buffers()
 
         # host-side slot state
         S, P = self.num_slots, self.max_pages_per_seq
@@ -515,25 +783,175 @@ class ServingEngine:
         self.draft_tokens_accepted = 0  # ... accepted and emitted
         self.tokens_generated = 0
         self.preemptions = 0
+        self.timeouts = 0              # deadline retirements
         self.rejections = 0
         self.cache_hits = 0            # admissions that attached a prefix
         self.cache_hit_tokens = 0      # prefill tokens skipped via the cache
         self.prefill_tokens = 0        # prefill tokens actually executed
         self.cache_evictions = 0
         self.cow_copies = 0
+        self.overlap_steps = 0         # dispatches issued while the previous
+                                       #   one was still in flight
+        self.fused_sample_steps = 0    # dispatches whose tokens were chosen
+                                       #   on the device
+        self.quiesces = 0              # pipeline drains forced by an
+                                       #   exactness point
+        self.kv_exports = 0            # export_kv packets produced
+        self.kv_imports = 0            # import_kv packets spliced in
+        self.kv_pages_exported = 0     # pages shipped in those packets
+        self.kv_pages_imported = 0
         _LIVE_ENGINES.add(self)
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
+    def _init_buffers(self):
+        """The static device buffers every decode horizon and verify step
+        reads (a captured graph holds their addresses): one int32 and one
+        f32 tensor, filled from host staging arrays of the same layout by
+        one copy each per dispatch (``_upload``), plus the device-written
+        first tokens and the carried horizon state."""
+        S, P = self.num_slots, self.max_pages_per_seq
+        Q = self.speculative + 1 if self.speculative else 0
+        ints = (("tables", S * P), ("toks", S), ("lengths", S),
+                ("remaining", S), ("eos", S), ("active", S), ("carry", S),
+                ("defer", S), ("vtoks", S * Q), ("n_q", S))
+        n = sum(k for _, k in ints)
+        self._host_i = np.zeros((n,), np.int32)
+        self._host_f = np.zeros((2 * S,), np.float32)
+        self._dev_i = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        self._dev_f = torch.zeros((2 * S,), dtype=torch.float32,
+                                  device=self.device)
+        self._h, self._d = {}, {}
+        off = 0
+        for name, k in ints:
+            self._h[name] = self._host_i[off:off + k]
+            self._d[name] = self._dev_i[off:off + k]
+            off += k
+        for i, name in enumerate(("temps", "top_ps")):
+            self._h[name] = self._host_f[i * S:(i + 1) * S]
+            self._d[name] = self._dev_f[i * S:(i + 1) * S]
+        for name, shape in (("tables", (S, P)), ("vtoks", (S, Q))):
+            self._h[name] = self._h[name].reshape(shape)
+            self._d[name] = self._d[name].view(shape)
+        z = torch.zeros((S,), dtype=torch.int32, device=self.device)
+        self._d.update(first=z.clone(), c_toks=z.clone(), c_lengths=z.clone(),
+                       c_rem=z.clone(), c_done=z.clone().bool())
+
+    def _upload(self):
+        """Copy the host staging arrays into the static device buffers: on
+        a CUDA device through pinned memory, non-blocking (the host cache
+        keeps the pinned block until the copy has run)."""
+        for host, dev in ((self._host_i, self._dev_i),
+                          (self._host_f, self._dev_f)):
+            t = torch.from_numpy(host)
+            if dev.is_cuda:
+                t = t.pin_memory()
+            dev.copy_(t, non_blocking=True)
+
+    def _horizon_exec(self, K: int, greedy: bool) -> _Captured:
+        """The decode horizon ``(K, greedy)`` over the static buffers: lanes
+        marked ``carry`` take their token / length / budget / done from the
+        previous horizon's outputs (kept on the device), lanes marked
+        ``defer`` take the admission's device-sampled first token, the rest
+        the host values; the outputs are carried on for the next horizon.
+        Returns ``out [S, K]``.  The closure holds the tensors it reads,
+        not the engine."""
+        run = self._horizon_runs.get((K, greedy))
+        if run is None:
+            d, horizon, params, gen = self._d, self._horizon, self.params, \
+                self._gen
+            pk, pv = self._pages_k, self._pages_v
+
+            def fn():
+                cm = d["carry"] != 0
+                toks = torch.where(d["defer"] != 0, d["first"],
+                                   torch.where(cm, d["c_toks"], d["toks"]))
+                out, toks, lengths, rem, done, _, _ = horizon(
+                    params, toks,
+                    torch.where(cm, d["c_lengths"], d["lengths"]),
+                    d["tables"], pk, pv, d["active"] != 0, gen, d["temps"],
+                    d["top_ps"], torch.where(cm, d["c_rem"], d["remaining"]),
+                    d["eos"], cm & d["c_done"], K=K, greedy=greedy)
+                for name, t in (("c_toks", toks), ("c_lengths", lengths),
+                                ("c_rem", rem), ("c_done", done)):
+                    d[name].copy_(t)
+                return out
+
+            run = self._horizon_runs[K, greedy] = _Captured(
+                fn, self._graph_pool, None if greedy else gen)
+        return run
+
+    def _verify_exec(self) -> _Captured:
+        """The verify step over the static buffers (``[S, K + 1]`` queries:
+        one graph per engine K); returns ``(logits0, greedy tokens)``."""
+        if self._verify_run is None:
+            d, verify, params = self._d, self._verify_fn, self.params
+            pk, pv = self._pages_k, self._pages_v
+
+            def fn():
+                logits0, gtoks, _, _ = verify(params, d["vtoks"],
+                                              d["lengths"], d["tables"], pk,
+                                              pv, d["n_q"])
+                return logits0, gtoks
+
+            self._verify_run = _Captured(fn, self._graph_pool)
+        return self._verify_run
+
+    def jit_variants(self) -> dict:
+        """{model fn name: dispatch variants built}: the decode horizons
+        (one per ``(K, greedy)``) and the verify step (one per engine).  On
+        a CUDA device each is one captured CUDA graph."""
+        return {"decode_step": len(self._horizon_runs),
+                "verify_step": int(self._verify_run is not None)}
+
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32,
                temperature: float = 0.0, top_p: float = 1.0,
-               eos_token_id: int | None = None) -> int:
+               eos_token_id: int | None = None, timeout: float | None = None,
+               on_token=None, trace_id: int | None = None) -> int:
         """Queue one request; returns its rid.  Raises
         ``PoolCapacityError`` for a request that can never fit the pool
         geometry, ``AdmissionRejected`` when the bounded queue is full, and
-        ValueError for malformed input."""
+        ValueError for malformed input.  ``timeout`` (seconds from now)
+        retires the request wherever it is once overdue, with
+        ``Request.timed_out`` set.  ``on_token(tok)`` is called for every
+        emitted token in order, when the token reaches the host (the step's
+        sync, or the overlap drain).  ``trace_id`` is stored on the
+        request."""
+        now = self._clock()
+        return self._enqueue(
+            prompt, [], max_new_tokens, temperature, top_p, eos_token_id,
+            None if timeout is None else now + float(timeout), now,
+            on_token=on_token, trace_id=trace_id)
+
+    def adopt(self, prompt, generated=(), max_new_tokens: int = 32,
+              temperature: float = 0.0, top_p: float = 1.0,
+              eos_token_id: int | None = None,
+              deadline: float | None = None,
+              trace_id: int | None = None) -> int:
+        """Queue a request mid-flight: ``prompt`` with ``generated`` tokens
+        already emitted elsewhere, continued from exactly that point by the
+        preemption-resume path (re-prefill of prompt + generated[:-1], the
+        last token pending), so greedy continuation is bit-exact.
+        ``deadline`` is an absolute engine-clock cutoff."""
+        generated = [int(t) for t in generated]
+        if max_new_tokens >= 1 and len(generated) >= max_new_tokens:
+            raise ValueError(
+                f"adopt: {len(generated)} tokens already emitted >= "
+                f"max_new_tokens={max_new_tokens}: the request is complete")
+        if eos_token_id is not None and eos_token_id in generated:
+            raise ValueError("adopt: generated already contains "
+                             "eos_token_id: the request is complete")
+        return self._enqueue(prompt, generated, max_new_tokens, temperature,
+                             top_p, eos_token_id, deadline, self._clock(),
+                             trace_id=trace_id)
+
+    def _enqueue(self, prompt, generated, max_new_tokens, temperature,
+                 top_p, eos_token_id, deadline, now, on_token=None,
+                 trace_id=None) -> int:
+        """Validation, capacity check, backpressure and Request
+        construction, shared by submit and adopt."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("prompt must hold at least one token")
@@ -566,8 +984,56 @@ class ServingEngine:
         self._queue.append(Request(
             rid=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
             temperature=float(temperature), top_p=float(top_p),
-            eos_token_id=eos_token_id, submit_time=time.perf_counter()))
+            eos_token_id=eos_token_id, submit_time=now, deadline=deadline,
+            generated=list(generated), on_token=on_token,
+            _engine=weakref.ref(self),
+            trace_id=None if trace_id is None else int(trace_id)))
         return rid
+
+    def lookup(self, rid: int) -> Request | None:
+        """The live Request for ``rid`` wherever it is (slot, queue,
+        finished, or a detached retirement still in flight); None for an
+        unknown rid."""
+        r = self._finished.get(rid)
+        if r is not None:
+            return r
+        for slot in self._slots:
+            if slot is not None and slot.req.rid == rid:
+                return slot.req
+        for r in self._queue:
+            if r.rid == rid:
+                return r
+        if self._inflight is not None:
+            for lane in self._inflight.lanes:
+                if lane.retiring and lane.slot.req.rid == rid:
+                    return lane.slot.req
+        return None
+
+    def cancel(self, rid: int) -> bool:
+        """Drop a request wherever it is, recording no result: a queued
+        request leaves the queue, a running slot is released (its written
+        KV parks in the prefix cache first), a finished record is
+        forgotten.  A rid riding the pipeline quiesces it first.  Returns
+        True when the rid was found."""
+        if any(sl is not None and sl.req.rid == rid for sl in self._slots) \
+                or (self._inflight is not None
+                    and any(ln.slot.req.rid == rid
+                            for ln in self._inflight.lanes)):
+            self.quiesce()
+        live = False
+        for s, slot in enumerate(self._slots):
+            if slot is not None and slot.req.rid == rid:
+                self._register_slot(s, with_partial=True)
+                self._release_slot(s)
+                live = True
+                break
+        if not live:
+            for r in self._queue:
+                if r.rid == rid:
+                    self._queue.remove(r)
+                    live = True
+                    break
+        return live or self._finished.pop(rid, None) is not None
 
     # -- internals ---------------------------------------------------------
     def _evict(self, n: int) -> int:
@@ -579,17 +1045,19 @@ class ServingEngine:
         self.cache_evictions += freed
         return freed
 
-    def _register_slot(self, s: int, with_partial: bool):
-        """Index the slot's written-so-far KV (its first ``lengths[s]``
-        tokens) into the prefix cache."""
-        slot = self._slots[s]
-        valid = int(self._lengths[s])
+    def _register_pages(self, slot, valid: int, with_partial: bool):
+        """Index a slot's first ``valid`` written tokens into the prefix
+        cache."""
         if self.cache is None or valid <= 0:
             return
         seq = np.concatenate(
             [slot.req.prompt, np.asarray(slot.req.generated, np.int32)])
         self.cache.register(seq[:valid], slot.pages,
                             with_partial=with_partial)
+
+    def _register_slot(self, s: int, with_partial: bool):
+        self._register_pages(self._slots[s], int(self._lengths[s]),
+                             with_partial)
 
     def _release_slot(self, s: int):
         slot = self._slots[s]
@@ -603,7 +1071,7 @@ class ServingEngine:
         # retire INTO the cache: the pages stay indexed until evicted
         self._register_slot(s, with_partial=True)
         slot = self._release_slot(s)
-        slot.req.finish_time = time.perf_counter()
+        slot.req.finish_time = self._clock()
         self._finished[slot.req.rid] = slot.req
 
     def _preempt(self, s: int):
@@ -624,31 +1092,82 @@ class ServingEngine:
                    key=lambda s: (len(self._slots[s].req.generated),
                                   -self._slots[s].admit_seq))
 
-    def _record_token(self, s: int, tok: int) -> bool:
-        """Append one sampled token (a host int); returns True when the
-        request finished (EOS / budget) and retires it in place."""
-        slot = self._slots[s]
+    def _retire_overdue(self):
+        """Deadline enforcement: retire overdue requests wherever they are
+        (slot or queue) with ``timed_out`` set.  An overdue request riding
+        the in-flight dispatch quiesces it first, so the deadline acts on
+        the drained step."""
+        now = self._clock()
+        if self._inflight is not None:
+            live = [sl.req for sl in self._slots if sl is not None]
+            live += [ln.slot.req for ln in self._inflight.lanes
+                     if ln.retiring]
+            if any(r.deadline is not None and now > r.deadline
+                   for r in live):
+                self.quiesce()
+        for s, slot in enumerate(self._slots):
+            if slot is not None and slot.req.deadline is not None \
+                    and now > slot.req.deadline:
+                slot.req.timed_out = True
+                self.timeouts += 1
+                self._finish(s)
+        if any(r.deadline is not None and now > r.deadline
+               for r in self._queue):
+            keep: deque[Request] = deque()
+            for req in self._queue:
+                if req.deadline is not None and now > req.deadline:
+                    req.timed_out = True
+                    req.finish_time = now
+                    self.timeouts += 1
+                    self._finished[req.rid] = req
+                else:
+                    keep.append(req)
+            self._queue = keep
+
+    def _emit_token(self, slot, tok: int) -> bool:
+        """Append one sampled token (a host int), call the streaming hook,
+        and return True when the request just finished (EOS / budget); the
+        caller retires it (the slot may be attached or detached)."""
         req = slot.req
         req.generated.append(tok)
         if slot.draft is not None:
             slot.draft.append(tok)
         if req.first_token_time == 0.0:
-            req.first_token_time = time.perf_counter()
+            req.first_token_time = self._clock()
+        if req.on_token is not None:
+            req.on_token(tok)
         self.tokens_generated += 1
-        done = (req.eos_token_id is not None and tok == req.eos_token_id) \
+        return (req.eos_token_id is not None and tok == req.eos_token_id) \
             or len(req.generated) >= req.max_new_tokens
+
+    def _record_token(self, s: int, tok: int) -> bool:
+        """Append a sampled token; returns True when the request finished
+        (and retires it in place)."""
+        slot = self._slots[s]
+        done = self._emit_token(slot, tok)
         if done:
             self._finish(s)
         else:
             slot.pending = tok
         return done
 
+    def _finish_detached(self, slot, valid: int):
+        """Retire a slot already detached from the slot table (a budget-
+        predicted retirement whose lane was handed to a successor): park
+        the written KV in the prefix cache, return the page references,
+        record the result."""
+        self._register_pages(slot, valid, with_partial=True)
+        self.pool.free(slot.pages)
+        slot.req.finish_time = self._clock()
+        self._finished[slot.req.rid] = slot.req
+
     def _cow(self, s: int, idx: int, src: int | None = None):
         """Copy-on-write: give slot s its own copy of the (shared) page at
         table index idx before anything writes into it; ``src`` overrides
         the copy source (admission attaches a cached partial page without
         putting the shared id in the table).  The copy runs in place on the
-        page pool, before the write that needed it is issued."""
+        page pool, after any dispatch already issued and before the write
+        that needed it."""
         slot = self._slots[s]
         dst = slot.pages[idx]
         if src is None:
@@ -665,7 +1184,8 @@ class ServingEngine:
         self.cow_copies += 1
 
     def _sample_one(self, logits, req):
-        """First-token sample of a sampled (temperature > 0) request."""
+        """First-token sample of a sampled (temperature > 0) request, on
+        the device."""
         return _sample_per_request(
             logits[None], self._gen,
             self._tensor([req.temperature], torch.float32),
@@ -733,7 +1253,7 @@ class ServingEngine:
                 req.cached_prefix_tokens += matched
             self.prefill_tokens += T - matched
             if req.admit_time == 0.0:
-                req.admit_time = time.perf_counter()
+                req.admit_time = self._clock()
             chunked = self.prefill_chunk is not None \
                 and (T - matched) > self.prefill_chunk
             if matched == 0 and not chunked:
@@ -766,9 +1286,21 @@ class ServingEngine:
             # still the pending one
             slot.pending = req.generated[-1]
         elif req.temperature <= 0.0:
-            self._record_token(s, int(torch.argmax(logits)))
+            self._finish_admission(s, torch.argmax(logits).to(torch.int32))
         else:
-            self._record_token(s, int(self._sample_one(logits, req)))
+            self._finish_admission(s, self._sample_one(logits, req))
+
+    def _finish_admission(self, s: int, tok):
+        """Record the first token ``tok`` (a device scalar) of a completed
+        prefill.  In overlap mode it stays on the device: the next decode
+        dispatch consumes it there and the drain records it, so the
+        admission costs no host sync."""
+        slot = self._slots[s]
+        if self.overlap:
+            slot.pending = None
+            slot.pending_dev = _Fetch(tok)
+        else:
+            self._record_token(s, int(tok))
 
     def _prefill_advance(self, s: int):
         """Run ONE prefill chunk for slot s.  On the final chunk: index the
@@ -809,19 +1341,23 @@ class ServingEngine:
         if slot.resuming:
             slot.pending = req.generated[-1]
         elif req.temperature <= 0.0:
-            self._record_token(s, int(tok_g))
+            self._finish_admission(s, tok_g)
         else:
-            self._record_token(s, int(self._sample_one(logits, req)))
+            self._finish_admission(s, self._sample_one(logits, req))
 
     def _remaining(self, s: int) -> int:
         slot = self._slots[s]
-        return slot.req.max_new_tokens - len(slot.req.generated)
+        n = slot.req.max_new_tokens - len(slot.req.generated)
+        # an admission-deferred first token (overlap mode) is spoken for
+        # but not yet in `generated`
+        return n - 1 if slot.pending_dev is not None else n
 
     def _provision(self, steps):
         """Lazy page growth for up to ``steps`` decode steps ahead: every
         decoding slot gets pages covering write positions < lengths +
         min(steps, remaining).  ``steps`` is an int, or a {slot: tokens}
-        dict of per-slot needs (the verify path: 1 + draft length; slots
+        dict of per-slot needs (the verify path: 1 + draft length; the
+        overlap path: 2K for lanes the in-flight dispatch carries; slots
         absent from it write one token).  A short pool evicts cached pages
         first; a slot that still cannot be covered stalls this horizon.  A
         shared page about to receive a write is copied first.  Returns the
@@ -884,22 +1420,24 @@ class ServingEngine:
         there.  EOS / budget freeze mid-run as in the decode horizon.
         Sampled slots ride along as one-token lanes drawn from the
         position-0 logits with the engine's generator."""
-        Q = self.speculative + 1
-        S = self.num_slots
-        toks = np.zeros((S, Q), np.int32)
-        n_q = np.zeros((S,), np.int32)
+        h = self._h
+        h["vtoks"][:] = 0
+        h["n_q"][:] = 0
         for s in run:
             d = drafts.get(s, ())
-            toks[s, 0] = self._slots[s].pending
-            toks[s, 1:1 + len(d)] = d
-            n_q[s] = 1 + len(d)
-        logits0, gtoks, _, _ = self._verify_fn(
-            self.params, self._tensor(toks), self._tensor(self._lengths),
-            self._tensor(self._page_tables), self._pages_k, self._pages_v,
-            self._tensor(n_q))
+            h["vtoks"][s, 0] = self._slots[s].pending
+            h["vtoks"][s, 1:1 + len(d)] = d
+            h["n_q"][s] = 1 + len(d)
+        h["lengths"][:] = self._lengths
+        h["tables"][:] = self._page_tables
+        self._upload()
+        logits0, gtoks = self._verify_exec()()
         gtoks = gtoks.cpu().numpy()    # the one per-verify sync
         self.steps_run += 1
         self.verify_steps += 1
+        if all(self._slots[s].req.temperature <= 0.0 for s in run):
+            # every lane took the dispatch's own argmax row
+            self.fused_sample_steps += 1
         lens = self._lengths.tolist()
         for s in run:
             slot = self._slots[s]
@@ -908,6 +1446,7 @@ class ServingEngine:
             nd = len(d)
             old = lens[s]
             if req.temperature > 0.0:
+                # logits0 is the graph's output: sampled before any replay
                 emitted = [int(self._sample_one(logits0[s], req))]
                 acc = 0
             else:
@@ -938,41 +1477,162 @@ class ServingEngine:
                 req.draft_proposed += nd
                 req.draft_accepted += used
 
-    def _decode(self, run, K: int, greedy: bool):
-        """One K-step decode horizon over the runnable lanes, then ONE
-        device->host fetch of the emitted tokens, replayed on the host with
-        the horizon's freeze logic (EOS / budget)."""
+    # -- the double-buffered host loop (overlap=True) ----------------------
+    @property
+    def inflight_depth(self) -> int:
+        """Decode dispatches in flight and not yet drained (0 or 1)."""
+        return 0 if self._inflight is None else 1
+
+    def quiesce(self) -> bool:
+        """Drain the pipeline to an exact host-visible step boundary:
+        record any in-flight dispatch's tokens (retiring what finished) and
+        flush admission-deferred first tokens to host ints.  Afterwards
+        ``Request.generated``, slot pendings, the length mirror and the page
+        accounting are what a synchronous engine would hold.  Returns True
+        when anything was in flight; free on a synchronous engine."""
+        rec, self._inflight = self._inflight, None
+        flushed = False
+        if rec is not None:
+            self._drain(rec)
+            self.quiesces += 1
+            flushed = True
+        for s, slot in enumerate(self._slots):
+            if slot is not None and slot.pending_dev is not None:
+                tok0 = slot.pending_dev.item()
+                slot.pending_dev = None
+                if self._emit_token(slot, tok0):
+                    self._finish(s)
+                else:
+                    slot.pending = tok0
+                flushed = True
+        return flushed
+
+    def _flush_exhausted(self):
+        """Record admission-deferred first tokens that already exhaust their
+        request's budget (max_new_tokens == 1): such a lane never enters a
+        decode dispatch.  The fetch waits only on the admission's prefill."""
+        for s, slot in enumerate(self._slots):
+            if slot is not None and slot.pending_dev is not None \
+                    and slot.prefill_pos is None and self._remaining(s) <= 0:
+                tok0 = slot.pending_dev.item()
+                slot.pending_dev = None
+                self._emit_token(slot, tok0)
+                self._finish(s)      # budget-exhausted by construction
+
+    def _detach_predicted(self):
+        """Budget-predicted retirement: a lane whose in-flight dispatch is
+        sure to finish its request (remaining budget <= the dispatched
+        horizon; an EOS could only finish it sooner) hands its slot to the
+        admission queue now.  Its pages stay referenced by the lane record
+        until the drain registers and frees them; the successor's prefill
+        writes other pages."""
+        rec = self._inflight
+        if rec is None:
+            return
+        for lane in rec.lanes:
+            s, slot = lane.s, lane.slot
+            if lane.retiring or self._slots[s] is not slot \
+                    or slot.prefill_pos is not None:
+                continue
+            if self._remaining(s) <= rec.K:
+                lane.retiring = True
+                lane.base_len = int(self._lengths[s])
+                self._slots[s] = None
+                self._page_tables[s] = 0
+                self._lengths[s] = 0
+
+    def _dispatch_decode(self, run, K: int, greedy: bool) -> _Inflight:
+        """Issue one decode horizon over the runnable lanes and return its
+        :class:`_Inflight` record without waiting for it.  Lanes whose slot
+        rode the previous (possibly still in-flight) dispatch are carried:
+        their token / length / budget / done come from its outputs on the
+        device.  Freshly admitted lanes merge in host values, and an
+        admission-deferred first token joins as a device scalar."""
         S = self.num_slots
-        active = np.zeros((S,), bool)
-        active[run] = True
-        toks = np.zeros((S,), np.int32)
-        remaining = np.ones((S,), np.int32)
-        eos_ids = np.full((S,), -1, np.int32)
+        prev = self._inflight
+        h = self._h
+        h["toks"][:] = 0
+        h["remaining"][:] = 1
+        h["eos"][:] = -1
+        for name in ("active", "carry", "defer"):
+            h[name][:] = 0
+        lanes = []
         for s in run:
             slot = self._slots[s]
-            remaining[s] = self._remaining(s)
+            h["active"][s] = 1
+            h["remaining"][s] = self._remaining(s)
             if slot.req.eos_token_id is not None:
-                eos_ids[s] = slot.req.eos_token_id
-            toks[s] = slot.pending
-        out, *_ = self._horizon(
-            self.params, self._tensor(toks), self._tensor(self._lengths),
-            self._tensor(self._page_tables), self._pages_k, self._pages_v,
-            self._tensor(active), self._gen, self._tensor(self._temps),
-            self._tensor(self._top_ps), self._tensor(remaining),
-            self._tensor(eos_ids), torch.zeros(S, dtype=torch.bool,
-                                               device=self.device),
-            K=K, greedy=greedy)
+                h["eos"][s] = slot.req.eos_token_id
+            take_first = False
+            if prev is not None and prev.srcs.get(s) is slot:
+                h["carry"][s] = 1
+            elif slot.pending_dev is not None:
+                h["defer"][s] = 1
+                self._d["first"][s].copy_(slot.pending_dev.dev)
+                take_first = True
+            else:
+                h["toks"][s] = slot.pending
+            lanes.append(_LaneRec(s, slot, take_first))
+        h["lengths"][:] = self._lengths
+        h["tables"][:] = self._page_tables
+        h["temps"][:] = self._temps
+        h["top_ps"][:] = self._top_ps
+        self._upload()
+        out = self._horizon_exec(K, greedy)()
+        # the carry sources are exactly the dispatched lanes: a lane the
+        # provisioner skipped has filler rows in this dispatch and must
+        # fall back to its host state next time
+        rec = _Inflight(_Fetch(out), K, lanes,
+                        {ln.s: ln.slot for ln in lanes})
         self.steps_run += 1
         self.decode_model_steps += K
-        out = out.cpu().numpy()        # the one per-horizon sync
-        for s in run:
-            base = int(self._lengths[s])
+        self.fused_sample_steps += 1   # horizons choose tokens on the device
+        if prev is not None:
+            self.overlap_steps += 1
+        return rec
+
+    def _drain(self, rec):
+        """Fetch one dispatch's emitted tokens (one batched copy) and replay
+        the horizon's freeze logic on the host: record tokens until each
+        lane's EOS / budget stop, which rebuilds the host length mirror
+        without reading ``lengths`` back, then retire what finished.  Lanes
+        whose slot an earlier drain already retired are skipped: their rows
+        hold frozen ``eos_ids`` filler."""
+        out = rec.out.numpy()          # waits on this dispatch alone
+        lens = self._lengths.tolist()
+        for lane in rec.lanes:
+            s, slot = lane.s, lane.slot
+            if not lane.retiring and self._slots[s] is not slot:
+                continue           # retired by an earlier drain
+            if slot.req.finish_time:
+                continue
+            base = lane.base_len if lane.retiring else lens[s]
+            row = out[s].tolist()
+            done = False
+            if lane.take_first and slot.pending_dev is not None:
+                # the admission-deferred first token: its fetch waits only
+                # on the admission's prefill
+                tok0 = slot.pending_dev.item()
+                slot.pending_dev = None
+                done = self._emit_token(slot, tok0)
             emitted = 0
-            for tok in out[s].tolist():
-                emitted += 1
+            if not done:
+                for tok in row:
+                    emitted += 1
+                    done = self._emit_token(slot, tok)
+                    if done:
+                        break
+            if done:
+                if lane.retiring:
+                    self._finish_detached(slot, base + emitted)
+                else:
+                    self._lengths[s] = base + emitted
+                    self._finish(s)
+            else:
+                # still live: the lane's last emitted token is the next
+                # pending one; the device carry holds the same state
                 self._lengths[s] = base + emitted
-                if self._record_token(s, tok):
-                    break
+                slot.pending = row[emitted - 1]
 
     # -- the serving loop --------------------------------------------------
     @property
@@ -980,17 +1640,25 @@ class ServingEngine:
         return sum(1 for sl in self._slots if sl is not None)
 
     def step(self) -> bool:
-        """One engine step: admit queued requests into free slots
-        (attaching cached prefixes), advance each mid-prefill slot by one
-        chunk, provision pages for the decode horizon, run it, record the
-        tokens and retire finished requests into the prefix cache.  When
-        nobody can progress the engine evicts cached pages, then preempts
-        a victim.  Returns True when any slot made progress."""
+        """One engine step: retire overdue requests, admit queued requests
+        into free slots (attaching cached prefixes), advance each
+        mid-prefill slot by one chunk, provision pages for the decode
+        horizon, dispatch it, record the tokens and retire finished
+        requests into the prefix cache (in overlap mode: the previous
+        dispatch's tokens, while this one runs).  When nobody can progress
+        the engine evicts cached pages, then preempts a victim.  Returns
+        True when any slot made progress."""
         self._step_seq += 1
         pre_tokens = self.tokens_generated
         pre_finished = len(self._finished)
+        # overlap: hand budget-predicted retiring lanes to the admission
+        # queue before admitting
+        self._detach_predicted()
+        self._retire_overdue()
         pre_admit_seq = self._admit_seq
         self._admit()
+        if self.overlap:
+            self._flush_exhausted()
         # chunked prefill: each mid-prefill slot advances ONE chunk per
         # step (a slot admitted this step already ran its first chunk)
         prefilled = False
@@ -1003,9 +1671,16 @@ class ServingEngine:
             self._admit()              # a 1-token request may have retired
         if self.speculative:
             # one verify dispatch when any slot has a draft; slots without
-            # one ride along as single-token lanes.  Draftless or pool-tight
-            # steps fall through to the decode horizon.
+            # one ride along as single-token lanes.  Acceptance is host
+            # logic, so the pipeline drains first and drafts are proposed
+            # again on the drained state.  Draftless or pool-tight steps
+            # fall through to the decode horizon.
             drafts = self._propose_drafts()
+            if drafts and (self._inflight is not None or any(
+                    sl is not None and sl.pending_dev is not None
+                    for sl in self._slots)):
+                self.quiesce()
+                drafts = self._propose_drafts()
             if drafts:
                 run = self._provision(
                     {s: 1 + len(d) for s, d in drafts.items()})
@@ -1013,7 +1688,21 @@ class ServingEngine:
                     self._verify(run, drafts)
                     return True
         K = self.decode_horizon
-        run = self._provision(K)
+        prev = self._inflight
+        if prev is not None:
+            # host lengths lag the in-flight dispatch by up to K tokens:
+            # carried lanes provision for its writes and this dispatch's
+            want = {s: 2 * K if prev.srcs.get(s) is sl else K
+                    for s, sl in enumerate(self._slots)
+                    if sl is not None and sl.prefill_pos is None}
+            run = self._provision(want) if want else []
+        else:
+            run = self._provision(K)
+        if not run and self._inflight is not None:
+            # nobody fits while a step is in flight: drain it (its
+            # retirements may free pages) and act on exact state
+            self.quiesce()
+            run = self._provision(K)
         if not run and K > 1:
             # no slot can cover a full horizon — single-step pacing lets
             # retirements free pages
@@ -1032,7 +1721,14 @@ class ServingEngine:
                 or self.tokens_generated > pre_tokens \
                 or len(self._finished) > pre_finished
         greedy = all(self._temps[s] <= 0.0 for s in run)
-        self._decode(run, K, greedy)
+        rec = self._dispatch_decode(run, K, greedy)
+        prev, self._inflight = self._inflight, rec
+        if prev is not None:
+            # drain step N - 1's tokens while step N runs
+            self._drain(prev)
+        if not self.overlap:
+            self._inflight = None
+            self._drain(rec)
         return True
 
     def run(self, max_steps: int | None = None,
@@ -1042,7 +1738,7 @@ class ServingEngine:
         ``max_stall_steps`` consecutive no-progress steps."""
         steps = 0
         stalled = 0
-        while self._queue or self.num_active:
+        while self._queue or self.num_active or self._inflight is not None:
             stalled = 0 if self.step() else stalled + 1
             if stalled >= max_stall_steps:
                 raise EngineStalledError(
@@ -1054,6 +1750,448 @@ class ServingEngine:
             if max_steps is not None and steps >= max_steps:
                 break
         return dict(self._finished)
+
+    # -- snapshot / restore ------------------------------------------------
+    # Everything a restart would lose — requests with their emitted tokens,
+    # the generator state, deadlines, slot table, page tables, pool
+    # refcounts, the prefix-cache index and adaptive draft lengths —
+    # serializes into the JAX engine's state-dict layout: "meta" (one JSON
+    # string), "rng", and in "full_kv" mode the referenced pages as numpy
+    # planes.  "full_kv" restores by scattering the pages back (no
+    # re-prefill; same pool geometry); "compact" (or a geometry mismatch)
+    # requeues every in-flight request through the preemption-resume path.
+
+    SNAPSHOT_VERSION = 1
+
+    def _req_state(self, r: Request) -> dict:
+        eos = r.eos_token_id
+        return {
+            "rid": int(r.rid), "prompt": np.asarray(r.prompt).tolist(),
+            "max_new_tokens": int(r.max_new_tokens),
+            "temperature": float(r.temperature), "top_p": float(r.top_p),
+            "eos_token_id": None if eos is None else int(eos),
+            "deadline": None if r.deadline is None else float(r.deadline),
+            "generated": [int(t) for t in r.generated],
+            "submit_time": float(r.submit_time),
+            "admit_time": float(r.admit_time),
+            "first_token_time": float(r.first_token_time),
+            "finish_time": float(r.finish_time),
+            "timed_out": bool(r.timed_out),
+            "preemptions": int(r.preemptions),
+            "cached_prefix_tokens": int(r.cached_prefix_tokens),
+            "draft_proposed": int(r.draft_proposed),
+            "draft_accepted": int(r.draft_accepted),
+            "trace_id": None if r.trace_id is None else int(r.trace_id),
+        }
+
+    def _req_from_state(self, d: dict) -> Request:
+        return Request(
+            rid=int(d["rid"]),
+            prompt=np.asarray(d["prompt"], np.int32),
+            max_new_tokens=int(d["max_new_tokens"]),
+            temperature=float(d["temperature"]), top_p=float(d["top_p"]),
+            eos_token_id=d["eos_token_id"], deadline=d["deadline"],
+            generated=[int(t) for t in d["generated"]],
+            submit_time=d["submit_time"], admit_time=d["admit_time"],
+            first_token_time=d["first_token_time"],
+            finish_time=d["finish_time"], timed_out=bool(d["timed_out"]),
+            preemptions=int(d["preemptions"]),
+            cached_prefix_tokens=int(d["cached_prefix_tokens"]),
+            draft_proposed=int(d["draft_proposed"]),
+            draft_accepted=int(d["draft_accepted"]),
+            trace_id=d.get("trace_id"), _engine=weakref.ref(self))
+
+    _COUNTER_ATTRS = ("steps_run", "tokens_generated", "preemptions",
+                      "timeouts", "rejections", "cache_hits",
+                      "cache_hit_tokens", "prefill_tokens",
+                      "cache_evictions", "cow_copies", "verify_steps",
+                      "draft_tokens_proposed", "draft_tokens_accepted",
+                      "overlap_steps", "quiesces", "fused_sample_steps",
+                      "kv_exports", "kv_imports", "kv_pages_exported",
+                      "kv_pages_imported", "decode_model_steps",
+                      "prefill_chunks")
+
+    def snapshot(self, mode: str = "full_kv",
+                 include_finished: bool = True) -> dict:
+        """Serialize the engine state at a step boundary (the pipeline is
+        quiesced first): ``meta`` is one JSON string of host state, ``rng``
+        the generator state (uint8), and in ``full_kv`` mode ``kv_pages``
+        with ``kv_k``/``kv_v`` (or ``kv_{k,v}_{q,s}`` for a quantized
+        store) the referenced pages.  ``include_finished`` keeps retired
+        requests, so a restored engine's ``run()`` still returns them."""
+        if mode not in ("full_kv", "compact"):
+            raise ValueError(f"unknown snapshot mode {mode!r}")
+        self.quiesce()
+        requests: dict[str, dict] = {}
+
+        def _ref(r: Request) -> int:
+            requests.setdefault(str(r.rid), self._req_state(r))
+            return int(r.rid)
+
+        slots = []
+        for s, slot in enumerate(self._slots):
+            if slot is None:
+                slots.append(None)
+                continue
+            slots.append({
+                "rid": _ref(slot.req),
+                "pages": [int(p) for p in slot.pages],
+                "pending": int(slot.pending),
+                "admit_seq": int(slot.admit_seq),
+                "prefill_pos": None if slot.prefill_pos is None
+                else int(slot.prefill_pos),
+                "ctx": None if slot.ctx is None
+                else np.asarray(slot.ctx).tolist(),
+                "resuming": bool(slot.resuming),
+                "chunk_step": int(slot.chunk_step),
+                "spec_k": int(slot.spec_k),
+                "length": int(self._lengths[s]),
+            })
+        meta = {
+            "version": self.SNAPSHOT_VERSION,
+            "mode": mode,
+            "geometry": {
+                "num_slots": self.num_slots, "page_size": self.page_size,
+                "num_pages": self.pool.num_pages,
+                "max_pages_per_seq": self.max_pages_per_seq,
+                "prefix_cache": self.cache is not None,
+                "kv_dtype": self.kv_dtype,
+            },
+            "requests": requests,
+            "slots": slots,
+            "queue": [_ref(r) for r in self._queue],
+            "finished": [_ref(r) for r in self._finished.values()]
+            if include_finished else [],
+            "next_rid": int(self._next_rid),
+            "admit_seq": int(self._admit_seq),
+            "step_seq": int(self._step_seq),
+            "counters": {k: int(getattr(self, k))
+                         for k in self._COUNTER_ATTRS},
+            "pool": {"free": [int(p) for p in self.pool._free],
+                     "refs": [[int(p), int(c)]
+                              for p, c in sorted(self.pool._refs.items())]},
+        }
+        state: dict = {"rng": self._gen.get_state().numpy()}
+        if mode == "full_kv":
+            if self.cache is not None:
+                c = self.cache
+                meta["cache"] = {
+                    "tick": int(c._tick), "insertions": int(c.insertions),
+                    "evictions": int(c.evictions),
+                    "full": [[e.key.hex(), e.parent.hex(), int(e.page),
+                              int(e.tick)] for e in c._full.values()],
+                    "partial": [[e.parent.hex(),
+                                 np.frombuffer(e.tokens, np.int32).tolist(),
+                                 int(e.page), int(e.tick)]
+                                for d in c._partial.values()
+                                for e in d.values()],
+                }
+            else:
+                meta["cache"] = None
+            ids = sorted(self.pool._refs)
+            state["kv_pages"] = np.asarray(ids, np.int32)
+            state.update(self._gather_pages(ids))
+        state["meta"] = json.dumps(meta)
+        return state
+
+    def _gather_pages(self, ids) -> dict:
+        """Pages ``ids`` as named host planes (the read half of the
+        transfer snapshot and export_kv share), gathered on the device
+        first.  A quantized store ships its codes with their scales; fp8
+        codes travel as their uint8 bits and bf16 values as int16 bits
+        (numpy has neither type)."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+        def host(t):
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            elif t.dtype == torch.float8_e4m3fn:
+                t = t.view(torch.uint8)
+            return t.cpu().numpy()
+
+        gk = gather_kv_pages(self._pages_k, idx)
+        gv = gather_kv_pages(self._pages_v, idx)
+        if self.kv_dtype is not None:
+            return {"kv_k_q": host(gk["q"]), "kv_k_s": host(gk["s"]),
+                    "kv_v_q": host(gv["q"]), "kv_v_s": host(gv["s"])}
+        return {"kv_k": host(gk), "kv_v": host(gv)}
+
+    def _scatter_pages(self, ids, planes: dict):
+        """Write host planes (a ``_gather_pages`` result, same page order)
+        into this engine's pool at page ids ``ids``, in place — the write
+        half of the transfer restore and import_kv share."""
+        if self.kv_dtype is not None:
+            scatter_kv_pages(self._pages_k, ids,
+                             {"q": planes["kv_k_q"], "s": planes["kv_k_s"]})
+            scatter_kv_pages(self._pages_v, ids,
+                             {"q": planes["kv_v_q"], "s": planes["kv_v_s"]})
+        else:
+            scatter_kv_pages(self._pages_k, ids, planes["kv_k"])
+            scatter_kv_pages(self._pages_v, ids, planes["kv_v"])
+
+    # -- KV handoff (disaggregated prefill/decode) -------------------------
+    KV_HANDOFF_VERSION = 1
+
+    def handoff_ready(self, rid: int) -> bool:
+        """True when ``rid`` rides a slot whose prefill is complete and
+        whose first token is recorded: what a prefill replica hands to a
+        decode replica.  Host-only."""
+        for slot in self._slots:
+            if slot is not None and slot.req.rid == rid:
+                return (slot.prefill_pos is None and slot.ctx is None
+                        and len(slot.req.generated) > 0)
+        return False
+
+    def export_kv(self, rids) -> dict:
+        """The in-flight state of ``rids`` (slot-resident requests) plus
+        exactly the KV pages their page tables reference, as one packet for
+        :meth:`import_kv` on another engine (the JAX engine's keys, numpy
+        planes).  Read-only here: the caller decides whether to ``cancel``
+        the source requests.  Raises KeyError for a rid that holds no
+        slot."""
+        self.quiesce()
+        by_rid = {slot.req.rid: (s, slot)
+                  for s, slot in enumerate(self._slots) if slot is not None}
+        entries = []
+        for rid in rids:
+            if rid not in by_rid:
+                raise KeyError(
+                    f"export_kv: rid {rid} holds no slot (queued, finished "
+                    "or unknown) — nothing to hand off")
+            s, slot = by_rid[rid]
+            entries.append({
+                "req": self._req_state(slot.req),
+                "pages": [int(p) for p in slot.pages],
+                "pending": int(slot.pending),
+                "prefill_pos": None if slot.prefill_pos is None
+                else int(slot.prefill_pos),
+                "ctx": None if slot.ctx is None
+                else np.asarray(slot.ctx).tolist(),
+                "resuming": bool(slot.resuming),
+                "chunk_step": int(slot.chunk_step),
+                "length": int(self._lengths[s]),
+            })
+        ids = sorted({p for e in entries for p in e["pages"]})
+        planes = self._gather_pages(ids)
+        packet = {
+            "version": self.KV_HANDOFF_VERSION,
+            "page_size": self.page_size,
+            "kv_dtype": self.kv_dtype,
+            "tp": 1,
+            "kv_pages": [int(p) for p in ids],
+            "planes": planes,
+            "requests": entries,
+            "bytes": int(sum(v.nbytes for v in planes.values())),
+        }
+        self.kv_exports += 1
+        self.kv_pages_exported += len(ids)
+        return packet
+
+    def import_kv(self, packet: dict) -> dict:
+        """Splice an :meth:`export_kv` packet into this running engine:
+        allocate pages, write the shipped planes into them in place, remap
+        each request's page table and seat the requests in free slots to
+        continue from where the source stood (no re-prefill).  Raises
+        :class:`KVHandoffError` when the packet can never splice here
+        (version, page size, kv_dtype, tensor-parallel degree, page-table
+        width) and ``AdmissionRejected`` for want of free slots or pages.
+        Returns {source rid: rid here}."""
+        if packet.get("version") != self.KV_HANDOFF_VERSION:
+            raise KVHandoffError(
+                f"kv handoff version {packet.get('version')!r} != "
+                f"{self.KV_HANDOFF_VERSION}")
+        if packet["page_size"] != self.page_size:
+            raise KVHandoffError(
+                f"page_size {packet['page_size']} != {self.page_size}: "
+                "shipped pages cannot re-block without a device pass")
+        if packet["kv_dtype"] != self.kv_dtype:
+            raise KVHandoffError(
+                f"kv_dtype {packet['kv_dtype']!r} != {self.kv_dtype!r}: "
+                "stored codes/scales are the source dtype's — re-prefill "
+                "requantizes for this store")
+        if packet["tp"] != 1:
+            raise KVHandoffError(
+                f"mp degree {packet['tp']} != 1: head-sharded planes need "
+                "an engine of equal mp degree — re-prefill (adopt)")
+        entries = packet["requests"]
+        if any(len(e["pages"]) > self.max_pages_per_seq for e in entries):
+            raise KVHandoffError(
+                "request page table exceeds this engine's "
+                f"max_pages_per_seq={self.max_pages_per_seq}")
+        self.quiesce()
+        free_slots = [i for i, sl in enumerate(self._slots) if sl is None]
+        if len(entries) > len(free_slots):
+            raise AdmissionRejected(
+                f"import_kv: {len(entries)} requests > {len(free_slots)} "
+                "free slots")
+        old_ids = [int(p) for p in packet["kv_pages"]]
+        n = len(old_ids)
+        if n > self.pool.num_free:
+            self._evict(n - self.pool.num_free)
+        if n > self.pool.num_free:
+            raise AdmissionRejected(
+                f"import_kv: need {n} pages, {self.pool.num_free} free after "
+                "eviction")
+        new_ids = self.pool.alloc(n)
+        remap = dict(zip(old_ids, new_ids))
+        self._scatter_pages(new_ids, packet["planes"])
+        # extra references for pages several shipped tables share
+        nrefs: dict[int, int] = {}
+        for e in entries:
+            for p in e["pages"]:
+                nrefs[p] = nrefs.get(p, 0) + 1
+        extra = [remap[p] for p, c in nrefs.items() for _ in range(c - 1)]
+        if extra:
+            self.pool.share(extra)
+        mapping: dict[int, int] = {}
+        for e, s in zip(entries, free_slots):
+            d = dict(e["req"])
+            src_rid = int(d["rid"])
+            d["rid"] = self._next_rid
+            self._next_rid += 1
+            req = self._req_from_state(d)
+            mapping[src_rid] = req.rid
+            pages = [remap[p] for p in e["pages"]]
+            slot = _Slot(req, pages, int(e["pending"]),
+                         admit_seq=self._admit_seq)
+            self._admit_seq += 1
+            slot.prefill_pos = e["prefill_pos"]
+            slot.ctx = None if e["ctx"] is None \
+                else np.asarray(e["ctx"], np.int32)
+            slot.resuming = bool(e["resuming"])
+            slot.chunk_step = int(e["chunk_step"])
+            if self.speculative and req.temperature <= 0.0:
+                slot.spec_k = self.speculative
+                slot.draft = _NgramDraft(
+                    np.concatenate([req.prompt,
+                                    np.asarray(req.generated, np.int32)]),
+                    max_n=self.spec_max_ngram)
+            self._slots[s] = slot
+            row = np.zeros((self.max_pages_per_seq,), np.int32)
+            row[:len(pages)] = pages
+            self._page_tables[s] = row
+            self._lengths[s] = int(e["length"])
+            self._temps[s] = req.temperature
+            self._top_ps[s] = req.top_p
+        self.kv_imports += 1
+        self.kv_pages_imported += n
+        return mapping
+
+    def restore(self, state: dict) -> str:
+        """Load a :meth:`snapshot` state dict into this fresh engine (same
+        params and config; raises if it already ran work).  Returns
+        ``"full_kv"`` (geometry matched a full-KV snapshot: pages written
+        back in place, decode continues with no re-prefill) or
+        ``"reprefill"`` (a compact snapshot or another geometry: in-flight
+        requests requeue through the preemption-resume path).  Greedy
+        outputs are bit-exact against the uninterrupted engine either
+        way."""
+        meta = state["meta"]
+        if isinstance(meta, (bytes, np.ndarray)):
+            meta = bytes(meta).decode()
+        if isinstance(meta, str):
+            meta = json.loads(meta)
+        if meta.get("version") != self.SNAPSHOT_VERSION:
+            raise ValueError(
+                f"engine snapshot version {meta.get('version')!r} != "
+                f"{self.SNAPSHOT_VERSION}")
+        if self.num_active or self._queue or self._finished or self.steps_run:
+            raise RuntimeError(
+                "ServingEngine.restore: target engine already holds state — "
+                "restore into a freshly constructed engine")
+        self._gen.set_state(torch.from_numpy(
+            np.asarray(state["rng"], np.uint8).copy()))
+        reqs = {int(r): self._req_from_state(d)
+                for r, d in meta["requests"].items()}
+        for rid in meta["finished"]:
+            self._finished[rid] = reqs[rid]
+        self._next_rid = max(int(meta["next_rid"]), self._next_rid)
+        for k, v in meta["counters"].items():
+            setattr(self, k, int(v))
+        self._admit_seq = int(meta["admit_seq"])
+        g = meta["geometry"]
+        fast = (meta["mode"] == "full_kv"
+                and g["num_slots"] == self.num_slots
+                and g["page_size"] == self.page_size
+                and g["num_pages"] == self.pool.num_pages
+                and g["max_pages_per_seq"] == self.max_pages_per_seq
+                and bool(g["prefix_cache"]) == (self.cache is not None)
+                and g.get("kv_dtype") == self.kv_dtype)
+        if fast:
+            self._restore_full(meta, state, reqs)
+            return "full_kv"
+        self._restore_reprefill(meta, reqs)
+        return "reprefill"
+
+    def _restore_full(self, meta, state, reqs):
+        self._step_seq = int(meta["step_seq"])
+        pool = self.pool
+        pool._free = [int(p) for p in meta["pool"]["free"]]
+        pool._refs = {int(p): int(c) for p, c in meta["pool"]["refs"]}
+        ids = np.asarray(state["kv_pages"], np.int32)
+        if len(ids):
+            self._scatter_pages(ids, state)
+        for s, sd in enumerate(meta["slots"]):
+            if sd is None:
+                continue
+            req = reqs[sd["rid"]]
+            slot = _Slot(req, [int(p) for p in sd["pages"]],
+                         int(sd["pending"]), admit_seq=int(sd["admit_seq"]))
+            slot.prefill_pos = sd["prefill_pos"]
+            slot.ctx = None if sd["ctx"] is None \
+                else np.asarray(sd["ctx"], np.int32)
+            slot.resuming = bool(sd["resuming"])
+            slot.chunk_step = int(sd["chunk_step"])
+            slot.spec_k = int(sd["spec_k"])
+            if self.speculative and req.temperature <= 0.0:
+                # the n-gram index is a function of the token stream:
+                # rebuilt, not serialized
+                slot.draft = _NgramDraft(
+                    np.concatenate([req.prompt,
+                                    np.asarray(req.generated, np.int32)]),
+                    max_n=self.spec_max_ngram)
+            self._slots[s] = slot
+            row = np.zeros((self.max_pages_per_seq,), np.int32)
+            row[:len(slot.pages)] = slot.pages
+            self._page_tables[s] = row
+            self._lengths[s] = int(sd["length"])
+            self._temps[s] = req.temperature
+            self._top_ps[s] = req.top_p
+        for rid in meta["queue"]:
+            self._queue.append(reqs[rid])
+        if self.cache is not None and meta.get("cache"):
+            c = self.cache
+            cm = meta["cache"]
+            c._tick = int(cm["tick"])
+            c.insertions = int(cm["insertions"])
+            c.evictions = int(cm["evictions"])
+            for key_hex, parent_hex, page, tick in cm["full"]:
+                e = _CacheEntry(bytes.fromhex(key_hex),
+                                bytes.fromhex(parent_hex), int(page))
+                e.tick = int(tick)
+                c._full[e.key] = e
+            for parent_hex, toks, page, tick in cm["partial"]:
+                parent = bytes.fromhex(parent_hex)
+                tb = np.asarray(toks, np.int32).tobytes()
+                e = _CacheEntry(None, parent, int(page), tokens=tb)
+                e.tick = int(tick)
+                c._partial.setdefault(parent, {})[tb] = e
+            for e in list(c._full.values()) + [
+                    e for d in c._partial.values() for e in d.values()]:
+                if e.parent in c._full:
+                    c._full[e.parent].children += 1
+
+    def _restore_reprefill(self, meta, reqs):
+        """Compact-mode (or geometry-mismatch) restore: requeue every
+        in-flight request through the preemption-resume path, slots first
+        in admission order, then the parked queue in its order.  The prefix
+        cache starts empty and refills as re-prefills register blocks."""
+        inflight = sorted((sd for sd in meta["slots"] if sd is not None),
+                          key=lambda sd: sd["admit_seq"])
+        for sd in inflight:
+            self._queue.append(reqs[sd["rid"]])
+        for rid in meta["queue"]:
+            self._queue.append(reqs[rid])
 
     # -- accounting / invariants -------------------------------------------
     @property
@@ -1073,6 +2211,7 @@ class ServingEngine:
             "tokens_generated": self.tokens_generated,
             "decode_steps": self.steps_run - self.verify_steps,
             "verify_steps": self.verify_steps,
+            "fused_sample_steps": self.fused_sample_steps,
             "draft_tokens_proposed": prop,
             "draft_tokens_accepted": acc,
             "draft_accept_rate": round(acc / prop, 4) if prop else 0.0,
@@ -1084,7 +2223,14 @@ class ServingEngine:
             "cache_evictions": self.cache_evictions,
             "cow_copies": self.cow_copies,
             "preemptions": self.preemptions,
+            "timeouts": self.timeouts,
             "rejections": self.rejections,
+            "overlap_steps": self.overlap_steps,
+            "quiesces": self.quiesces,
+            "kv_exports": self.kv_exports,
+            "kv_imports": self.kv_imports,
+            "kv_pages_exported": self.kv_pages_exported,
+            "kv_pages_imported": self.kv_pages_imported,
         }
 
     def release_cache(self) -> int:
@@ -1097,14 +2243,20 @@ class ServingEngine:
         return freed
 
     def check_invariants(self):
-        """Page-refcount accounting must equal what the live page tables +
-        prefix cache reference; valid at any step boundary."""
+        """Page-refcount accounting must equal what the live page tables,
+        the detached retirements still in flight and the prefix cache
+        reference; valid at any step boundary."""
         expect: dict[int, int] = {}
         for slot in self._slots:
             if slot is None:
                 continue
             for p in slot.pages:
                 expect[p] = expect.get(p, 0) + 1
+        if self._inflight is not None:
+            for lane in self._inflight.lanes:
+                if lane.retiring:
+                    for p in lane.slot.pages:
+                        expect[p] = expect.get(p, 0) + 1
         if self.cache is not None:
             for p in self.cache.pages():
                 expect[p] = expect.get(p, 0) + 1
@@ -1126,7 +2278,8 @@ def serve_requests(params, config, prompts, **kw):
     """One-shot convenience: submit every prompt (a token array, or a
     ``(tokens, {request kwargs})`` pair) and run to completion; returns
     ``([Request, ...], engine)``.  Engine kwargs ride ``**kw``."""
-    req_kw_keys = ("max_new_tokens", "temperature", "top_p", "eos_token_id")
+    req_kw_keys = ("max_new_tokens", "temperature", "top_p", "eos_token_id",
+                   "timeout")
     default_req = {k: kw.pop(k) for k in req_kw_keys if k in kw}
     eng = ServingEngine(params, config, **kw)
     rids = []

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -26,7 +27,8 @@ from ..tensor.search import _top_p_mask
 
 __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
            "init_llama_params", "build_functional_llama",
-           "build_llama_paged_decode", "make_paged_decode_horizon"]
+           "build_llama_paged_decode", "make_paged_decode_horizon",
+           "gather_kv_pages", "scatter_kv_pages"]
 
 
 @dataclass
@@ -212,6 +214,46 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
         return -logp.reshape(-1, c.vocab_size).gather(1, lab[:, None]).mean()
 
     return ep, bp, hp, embed_apply, block_apply, head_loss_apply
+
+
+def gather_kv_pages(store, idx):
+    """Pages ``idx`` of one side of the paged-KV store (a raw tensor or a
+    quantized ``{"q", "s"}`` dict alike), in ``idx`` order.  The page axis
+    is axis 2 of the ``[L, Hkv, NP + 1, ps, D]`` data planes and of the
+    ``[L, Hkv, NP + 1, ps]`` scale planes; snapshot, restore and the KV
+    handoff all move pages through this function and
+    :func:`scatter_kv_pages`."""
+    if isinstance(store, dict):
+        return {k: v[:, :, idx] for k, v in store.items()}
+    return store[:, :, idx]
+
+
+def scatter_kv_pages(store, ids, planes):
+    """Write ``planes`` (a :func:`gather_kv_pages` result, same page order)
+    into the store at page ids ``ids`` IN PLACE (``index_copy_`` into the
+    existing tensors, whose addresses captured CUDA graphs hold; the JAX
+    function returned a new store).  A quantized store takes its codes and
+    scales together.  A plane whose dtype differs from its tensor's but has
+    the same item size (fp8 codes as uint8, bf16 as int16) is taken as that
+    tensor's bits; any other plane is cast.  Returns ``store``."""
+    if isinstance(store, dict):
+        for k, leaf in store.items():
+            _copy_pages(leaf, ids, planes[k])
+    else:
+        _copy_pages(store, ids, planes)
+    return store
+
+
+def _copy_pages(leaf, ids, plane):
+    a = np.asarray(plane)
+    if a.dtype.kind not in "biuf":            # ml_dtypes float8 / bfloat16
+        a = a.view({1: np.uint8, 2: np.int16}[a.dtype.itemsize])
+    t = torch.from_numpy(np.array(a)).to(leaf.device)
+    if t.dtype != leaf.dtype:
+        t = t.view(leaf.dtype) if not t.is_floating_point() \
+            and t.element_size() == leaf.element_size() else t.to(leaf.dtype)
+    idx = torch.as_tensor(ids, dtype=torch.long, device=leaf.device)
+    _byte_view(leaf).index_copy_(2, idx, _byte_view(t))
 
 
 def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
