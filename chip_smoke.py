@@ -15,7 +15,8 @@ weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
-               kernels, the RMSNorm and LayerNorm register passes, the
+               kernels and of the segment branch's wgmma forward and
+               dK/dV, the RMSNorm and LayerNorm register passes, the
                ragged paged-attention kernels and the softmax forward's
                register pass (dQ, the ragged kernels and the register
                passes of the softmax forward, the RMSNorm forward and the
@@ -83,10 +84,15 @@ weights made from a seed:
                and at dropout 0.1; the masks read out with segments (no
                kept score outside its segment); and the op's pad path at
                S 577 end to end, f32, against ``flash_attention_ref``;
+               cases aimed at the wgmma bodies' tile classes: segments on
+               the 64-row tiles (whole tiles skipped), a segment inside
+               one tile, ids out of order and ids that recur, GQA 8:2
+               causal, dropout 0.1 and a mask read-out over them;
                (e) rows 3/5/6 at head dims 24, 40, 56, 72, 80, 96, 112,
                160, 176, 200 and 256 (every compiled width, off-width dims
                included), bf16 and f32, causal and not, GQA 8:2 at 40 / 80
-               / 160, and their dropout and segment branches at 40 and
+               / 160, a bf16 segment case at each (the wgmma bodies at
+               every width), and their dropout and segment branches at 40 and
                160, and bf16 non-causal at the UNet's three attention
                shapes (phase 3h's B 8, 8 heads; S 4,096 / 1,024 / 256 at
                d 40 / 80 / 160); rows 1-2 at head dims 40, 80, 96 and 256
@@ -146,9 +152,11 @@ weights made from a seed:
                the mfu share, peak memory, launches per step asserted (the
                segment branch of rows 3/5/6 once per layer through the pad
                path, rows 12/13 per norm, row 9 per tensor, no plain
-               version) and one step under torch.profiler; (g') the same
-               at 224 px, B 64 (197 tokens: no flash-attention kernel, the
-               plain path once per layer, as the JAX dispatch sends it);
+               version), the body each segment launch ran
+               (``kernel_body``) and one step under torch.profiler; (g')
+               the same at 224 px, B 64 (197 tokens: no flash-attention
+               kernel, the plain path once per layer, as the JAX dispatch
+               sends it);
                (h) the SD-1.5 UNet train step (bf16, B 8, 4 x 64 x 64
                latents, a 77 x 768 context, MSE against the noise, SGD lr
                1e-4, as bench.py's bench_sd_unet): 3 warm-up and 10 timed
@@ -190,7 +198,9 @@ weights made from a seed:
                (beside SDPA with dropout_p=0.1; the bound counts the mask's
                Philox work), one line per design step of
                rows 3, 5 and 6 (variants of their tiles, ring depth and
-               occupancy, each held against the plain version), with
+               occupancy, each held against the plain version), the
+               wgmma forward and dK/dV without segments (built at D 64,
+               never routed) in turns with rows 3 and 5, with
                ``--parent DIR`` (another commit's ``csrc``) that build's
                rows 3, 5 and 6 at rate 0 (the train shape), RMSNorm forward
                and LayerNorm backward timed in turns with
@@ -204,7 +214,11 @@ weights made from a seed:
                phase 3g's attention shape (577 rows padded to 640) beside
                SDPA on the unpadded inputs, and at a packed varlen shape
                beside SDPA with the block-diagonal mask, the bounds counting
-               the function's (unpadded, in-segment) work, and one line per
+               the function's (unpadded, in-segment) work, the wgmma bodies'
+               skip / full / masked tile counts (``segment_tile_plan``), the
+               kernels as CUDA-graph replays, with ``--parent DIR`` that
+               build's rows 3s and 5s in turns with these at both shapes,
+               and one line per
                design step of dQ's segment branch (register cap, Q and dO
                in registers or reloaded); (e) rows 3/5/6 at the UNet's
                three attention shapes ([8, S, 8, d], (S, d) = (4,096, 40),
@@ -285,12 +299,14 @@ REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
                     "ragged_paged_attention_kernel",
                     "ragged_paged_attention_mma_kernel",
                     "ragged_paged_attention_combine_kernel",
-                    "softmax_fwd_reg_kernel")
+                    "softmax_fwd_reg_kernel", "fa_fwd_wgmma_kernel",
+                    "fa_bwd_dkv_wgmma_kernel")
 # kernels that hold their working set in registers by design: none may spill
 NO_SPILL = ("fa_bwd_dq_mma_kernel", "ragged_paged_attention_kernel",
             "ragged_paged_attention_mma_kernel",
             "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel",
-            "rms_fwd_vec_kernel", "ln_bwd_vec_kernel")
+            "rms_fwd_vec_kernel", "ln_bwd_vec_kernel", "fa_fwd_wgmma_kernel",
+            "fa_bwd_dkv_wgmma_kernel")
 
 
 def ptxas_lines(path):
@@ -383,8 +399,8 @@ def register_report(built, parent=None):
     kernels and the softmax forward's register pass (one line per
     instantiation; the ragged kernels' as their most); the kernels of
     ``NO_SPILL`` must not spill.  With ``parent`` (another commit's
-    ``csrc``), the full-width D 64 and 128 instantiations of rows 3/5/6
-    are held to that build's registers and spills."""
+    ``csrc``), the W 64 / 128 mma.sync instantiations of rows 3/5/6 are
+    held to that build's registers and spills."""
     for lib in (*fa_libs(built), "rms_norm", "layer_norm", "softmax"):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             print(f"  ptxas {kernel}{args}: {regs} registers, spill "
@@ -408,11 +424,13 @@ def template_args(args):
 
 
 def compare_parent_ptxas(built, parent):
-    """The D 64 and 128 bodies of rows 3/5/6 against another commit's
-    build of ``flash_attention.cu``: each parent instantiation (template
-    arguments D, ...) is matched to this build's full-width twin (W = D,
-    PART = false, the same other arguments) and their registers and spills
-    must be equal."""
+    """The mma.sync bodies of rows 3/5/6 in the W 64 / 128 library against
+    another commit's build of it (from the head-width slice on): each parent
+    instantiation is matched to this build's twin with the same template
+    arguments and their registers and spills must be equal.  A parent whose
+    mma.sync forward and dK/dV still took the segment flag has it dropped;
+    its segment instantiations are counted apart, since this build runs
+    those launches in the wgmma bodies."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
@@ -421,15 +439,21 @@ def compare_parent_ptxas(built, parent):
     new = {}
     for kernel, args, regs, stores, loads in ptxas_lines(
             built["flash_attention"]):
-        ta = template_args(args)
-        if kernel in REPORTED_KERNELS[:3] and ta[1] == 0:
-            new[(kernel, tuple(ta[:1] + ta[2:]))] = (regs, stores, loads)
-    n = 0
+        if kernel in REPORTED_KERNELS[:3]:
+            new[(kernel, tuple(template_args(args)))] = (regs, stores, loads)
+    arity = {kernel: len(ta) for kernel, ta in new}
+    n = moved = 0
     for kernel, args, regs, stores, loads in ptxas_lines(path):
         if kernel not in REPORTED_KERNELS[:3]:
             continue
-        key = (kernel, tuple(template_args(args)))
-        require(key in new, f"no full-width twin of the parent's {key}")
+        ta = template_args(args)
+        if kernel != "fa_bwd_dq_mma_kernel" and len(ta) == arity[kernel] + 1:
+            if ta[-2]:                      # its segment flag, then DROP
+                moved += 1
+                continue
+            del ta[-2]
+        key = (kernel, tuple(ta))
+        require(key in new, f"no twin of the parent's {key}")
         print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
               f"stores {stores} B, loads {loads} B; this build "
               f"{new[key][0]} registers, {new[key][1]} / {new[key][2]} B")
@@ -438,8 +462,10 @@ def compare_parent_ptxas(built, parent):
                 f"{(regs, stores, loads)}")
         n += 1
     require(n > 0, "no parent instantiation of rows 3/5/6 in its report")
-    print(f"  {n} parent instantiations of rows 3/5/6 at D 64 / 128: "
-          f"registers and spills equal to this build's")
+    print(f"  {n} parent instantiations of rows 3/5/6 at W 64 / 128: "
+          f"registers and spills equal to this build's; {moved} segment "
+          f"instantiations of its mma.sync forward and dK/dV run in the "
+          f"wgmma bodies here")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -939,10 +965,21 @@ def delta_of(do, o):
 
 def segment_ids(lens, b, device="cuda"):
     """[B, S] segment ids of the lengths ``lens`` (summing to S), rotated
-    by one segment per batch row so that the rows' boundaries differ."""
+    by one segment per batch row so that the rows' boundaries differ; or,
+    for ``lens`` a numpy array, those ids themselves (one per token, in any
+    order, an id free to recur), rolled by 17 tokens per batch row."""
+    if isinstance(lens, np.ndarray):
+        return torch.stack([torch.from_numpy(np.roll(lens, 17 * r))
+                            for r in range(b)]).to(device)
     rows = [torch.repeat_interleave(torch.arange(len(lens)), torch.tensor(
         lens[r % len(lens):] + lens[:r % len(lens)])) for r in range(b)]
     return torch.stack(rows).to(device)
+
+
+def spans(*pairs):
+    """Per-token ids of (id, length) spans in order: ids out of order and
+    ids that recur in two spans, as packed inputs may have them."""
+    return np.concatenate([np.full(n, i) for i, n in pairs]).astype(np.int32)
 
 
 def packed_lengths(total, lo=5, hi=300, seed=3):
@@ -971,7 +1008,7 @@ def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
     for i, (name, shape, causal, dt, *lens) in enumerate(cases):
         q, k, v, do = attn_inputs(gen, shape, dt)
         seg = None
-        if lens == ["pad"]:
+        if len(lens) == 1 and isinstance(lens[0], str):
             q, k, v, seg, s = fa._pad_to_tile(q, k, v, None)
             do = torch.nn.functional.pad(do, (0, 0, 0, 0, 0,
                                               q.shape[1] - s))
@@ -1283,12 +1320,24 @@ def mask_readout(fa):
 
 
 # -- phase 2d: the segment branch of rows 3/5/6 -------------------------------
-# (name, (B, S, S, Hq, Hkv, D), causal, dtype, segment lengths or "pad"):
-# the JAX suite's [0]*100 + [1]*156 (a boundary inside a 64-row tile),
-# boundaries on and off the 64 and 128 tiles with a segment wholly inside
-# one tile, packed varlen rows of lengths 5..300, GQA 8:2, D 64 and 128,
-# causal and not, bf16 and f32; and the op's pad-to-tile inputs at S 390,
-# 453 and ViT-L/16's 577 (16 heads of 64)
+# ids out of order, with id 3 at rows 0-99 and 160-199 and id 1 at 100-159
+# and 320-383: boundaries inside tiles, and tiles between the two spans of
+# an id that share no id with them; then ids 3 and 1 recurring on the
+# 64-row tiles, where whole tiles are skipped or full
+SPANS_RECUR = spans((3, 100), (1, 60), (3, 40), (0, 56), (2, 64), (1, 64))
+SPANS_ALIGNED = spans((3, 64), (1, 64), (2, 128), (3, 64), (1, 64))
+SPANS_READOUT = spans((3, 64), (1, 64), (3, 64), (0, 64))
+# (name, (B, S, S, Hq, Hkv, D), causal, dtype, segment lengths, per-token
+# ids (``spans``) or "pad"): the JAX suite's [0]*100 + [1]*156 (a boundary
+# inside a 64-row tile), boundaries on and off the 64 and 128 tiles with a
+# segment wholly inside one tile, packed varlen rows of lengths 5..300, GQA
+# 8:2, D 64 and 128, causal and not, bf16 and f32; and the op's pad-to-tile
+# inputs at S 390, 453 and ViT-L/16's 577 (16 heads of 64).  The bf16 cases
+# run the wgmma bodies of the forward and dK / dV, whose tile classes
+# (``segment_tile_plan``) the cases at the end aim at: segments on the
+# 64-row tiles, so that whole tiles are skipped; a segment inside one tile;
+# ids out of order, and an id that recurs in two spans (the [min, max]
+# rule must not skip a tile that shares an id); GQA 8:2 causal over them
 SEG_ATTN_CASES = [
     ("[0]*100 + [1]*156", (4, 256, 256, 8, 8, 64), False, torch.bfloat16,
      [100, 156]),
@@ -1314,9 +1363,25 @@ SEG_ATTN_CASES = [
      False, torch.bfloat16, "pad"),
     ("f32 pad to tile S=453 D=128", (1, 453, 453, 4, 4, 128), True,
      torch.float32, "pad"),
+    ("tile-aligned 128/128/64/192 (skipped tiles)", (2, 512, 512, 8, 8, 64),
+     False, torch.bfloat16, [128, 128, 64, 192]),
+    ("tile-aligned 128/128/64/192 GQA 8:2", (2, 512, 512, 8, 2, 64), True,
+     torch.bfloat16, [128, 128, 64, 192]),
+    ("70/20/38/128 (a segment inside one tile)", (2, 256, 256, 8, 8, 64),
+     False, torch.bfloat16, [70, 20, 38, 128]),
+    ("unsorted ids, ids 3 and 1 recur", (2, 384, 384, 8, 8, 64), False,
+     torch.bfloat16, SPANS_RECUR),
+    ("unsorted ids, ids 3 and 1 recur, GQA 8:2", (2, 384, 384, 8, 2, 64),
+     True, torch.bfloat16, SPANS_RECUR),
+    ("unsorted ids, tile-aligned recurrence D=128", (2, 384, 384, 8, 4, 128),
+     True, torch.bfloat16, SPANS_ALIGNED),
 ]
 # the segment branch under dropout 0.1 (the SEG and DROP instantiations)
 SEG_DROPOUT_CASES = [
+    ("unsorted ids, ids 3 and 1 recur", (2, 384, 384, 8, 2, 64), True,
+     torch.bfloat16, SPANS_RECUR),
+    ("tile-aligned 128/128/64/192", (2, 512, 512, 8, 8, 128), False,
+     torch.bfloat16, [128, 128, 64, 192]),
     ("packed varlen", (2, 1024, 1024, 8, 2, 64), True, torch.bfloat16,
      packed_lengths(1024, seed=6)),
     ("pad to tile S=577", (4, 577, 577, 16, 16, 64), False, torch.bfloat16,
@@ -1327,6 +1392,8 @@ SEG_DROPOUT_CASES = [
 # (name, (B, S, S, Hq, Hkv, D), dtype, segment lengths) of the masks read
 # out of the segment and dropout kernels, causal and not
 SEG_MASK_READOUTS = [
+    ("bf16 D=64 unsorted tile-aligned ids, id 3 recurs",
+     (2, 256, 256, 8, 2, 64), torch.bfloat16, SPANS_READOUT),
     ("bf16 D=64 GQA 8:2 segments 37/100/63", (2, 200, 200, 8, 2, 64),
      torch.bfloat16, [37, 100, 63]),
     ("f32 D=128 segments 100/156", (1, 256, 256, 4, 4, 128), torch.float32,
@@ -2469,6 +2536,14 @@ def phase_vit(pa, img=384, B=32, warmup=3, steps=10):
     plain_want = {} if flash else {"flash_attention_ref": L * steps}
     require(plain.calls == plain_want,
             f"plain calls {plain.calls} != {plain_want}")
+    if flash:
+        from paddle_tpu_torch.ops import flash_attention as fa
+        body = {w: fa.kernel_body(w, torch.bfloat16, VIT_L["embed_dim"]
+                                  // VIT_L["num_heads"], True, False)
+                for w in ("fwd", "bwd_dkv", "bwd_dq")}
+        print(f"  the segment launches ran the bodies: forward "
+              f"{body['fwd']}, dK/dV {body['bwd_dkv']}, dQ "
+              f"{body['bwd_dq']} (the library's dispatch, bf16, D 64)")
     images_per_s = B * steps / wall
     flop = vit_flop(B, img)
     mfu = flop * steps / wall / BF16_FLOP_PER_S
@@ -3048,32 +3123,62 @@ def sdpa_times(q, k, v, do, **sdpa):
     return fwd, bwd, both
 
 
-def segment_timing(fa, gen, shape, lens, label, lib_what):
-    """The segment branch of rows 3, 5 and 6 in bf16, non-causal: the
-    kernel and its plain version on the segment inputs — ``lens`` "pad":
-    ``shape``'s S rows padded to the tile by the op's ``_pad_to_tile``;
-    else segment lengths (``segment_ids``) — beside SDPA on the same
-    function (the unpadded inputs; for segments, with the block-diagonal
-    boolean mask).  The bound counts the work of the function: the
-    unpadded bytes (and the ids) and the (query, key) pairs inside the
-    segments; the work the kernels do is printed beside it."""
-    import torch.nn.functional as F
+def segment_inputs(fa, gen, shape, lens):
+    """bf16 inputs of the segment branch at ``shape`` (B, S, S, H, H, D):
+    ``lens`` "pad" pads the S rows to the tile by the op's ``_pad_to_tile``
+    (dO's padding rows zero, as the op's backward gets them), else segment
+    lengths (``segment_ids``).  Returns the unpadded (q, k, v, do), the
+    kernels' (q, k, v, do, ids), SDPA's boolean mask for the same function
+    (None for "pad": SDPA takes the unpadded inputs) and the (query, key)
+    pairs that the function needs."""
     b, s, _, h, _, d = shape
     q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
-    mask = None
     if lens == "pad":
         qp, kp, vp, seg, _ = fa._pad_to_tile(q, k, v, None)
-        dop = F.pad(do, (0, 0, 0, 0, 0, qp.shape[1] - s))
-        pairs = b * h * s * s
-    else:
-        qp, kp, vp, dop = q, k, v, do
-        seg = segment_ids(lens, b)
-        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
-        pairs = h * int(mask.sum())
+        dop = torch.nn.functional.pad(do, (0, 0, 0, 0, 0, qp.shape[1] - s))
+        return (q, k, v, do), (qp, kp, vp, dop, seg), None, b * h * s * s
+    seg = segment_ids(lens, b).float()       # as the C entries take them
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+    return (q, k, v, do), (q, k, v, do, seg), mask, h * int(mask.sum())
+
+
+def tile_counts(fa, seg, s, bq, bk=64):
+    """(skip, full, masked) tile pairs of ``segment_tile_plan`` at S = s,
+    non-causal, summed over the batch rows: the forward's with bq = 128,
+    dK/dV's with bq = 64 (its q tile at D 64)."""
+    plan = fa.segment_tile_plan(seg, s, s, bq, bk, False)
+    return tuple(int((plan == c).sum())
+                 for c in (fa.TILE_SKIP, fa.TILE_FULL, fa.TILE_MASKED))
+
+
+def segment_timing(fa, gen, shape, lens, label, lib_what):
+    """The segment branch of rows 3, 5 and 6 in bf16, non-causal: the
+    kernel and its plain version on ``segment_inputs`` beside SDPA on the
+    same function (the unpadded inputs; for segments, with the
+    block-diagonal boolean mask).  The bound counts the work of the
+    function: the unpadded bytes (and the ids) and the (query, key) pairs
+    inside the segments; the work the kernels do and the tile classes of
+    the wgmma bodies (``segment_tile_plan``: the forward's 128 x 64 tiles,
+    dK / dV's 64 x 64 at D 64) are printed beside it.  The kernels are timed as
+    CUDA-graph replays (the packed varlen launches run for less than the
+    wrappers' host cost), their plain versions and SDPA eagerly."""
+    b, s, _, h, _, d = shape
+    (q, k, v, do), (qp, kp, vp, dop, seg), mask, pairs = segment_inputs(
+        fa, gen, shape, lens)
     sp = qp.shape[1]
-    print(f"  {label.strip()}: the kernels score {b * h * sp * sp / 1e6:.1f}M "
-          f"pairs ({4 * d * b * h * sp * sp / 1e9:.1f} GFLOP forward), the "
-          f"function needs {pairs / 1e6:.1f}M ({4 * d * pairs / 1e9:.1f})")
+    tiles = []
+    for what, bq in (("forward", 128), ("dK/dV", 64)):
+        skip, full, masked = tile_counts(fa, seg, sp, bq)
+        done = (full + masked) * bq * 64 * h
+        tiles.append(f"{what}'s {bq} x 64 tiles {skip} skipped, {full} "
+                     f"full, {masked} masked ({done / 1e6:.1f}M pairs "
+                     f"computed)")
+    print(f"  {label.strip()}: the mma.sync bodies score "
+          f"{b * h * sp * sp / 1e6:.1f}M pairs "
+          f"({4 * d * b * h * sp * sp / 1e9:.1f} GFLOP forward), the "
+          f"function needs {pairs / 1e6:.1f}M ({4 * d * pairs / 1e9:.1f}); "
+          f"per head, summed over the batch rows, the wgmma bodies' "
+          + "; ".join(tiles))
     args = (False, 1.0 / np.sqrt(d), 0.0, 0, seg)
     o, lse = fa.flash_attention_fwd(qp, kp, vp, *args)
     delta = delta_of(dop, o)
@@ -3085,21 +3190,21 @@ def segment_timing(fa, gen, shape, lens, label, lib_what):
     res = {}
     res["fa_fwd_seg"] = report(
         f"flash_attention_fwd{label}",
-        time_ms(lambda i: fa.flash_attention_fwd(qp, kp, vp, *args), 10),
+        graph_ms(lambda i: fa.flash_attention_fwd(qp, kp, vp, *args), 10),
         time_ms(lambda i: fa.flash_attention_fwd_ref(qp, kp, vp, *args), 3,
                 warmup=1), lib_fwd,
         4 * q_bytes + stats_bytes + seg_bytes, 4 * d * pairs,
         f"{lib_what} forward")
     res["fa_dkv_seg"] = report(
         f"flash_attention_bwd_dkv{label}",
-        time_ms(lambda i: fa.flash_attention_bwd_dkv(
+        graph_ms(lambda i: fa.flash_attention_bwd_dkv(
             qp, kp, vp, dop, lse, delta, *args), 5),
         time_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
             qp, kp, vp, dop, lse, delta, *args), 3, warmup=1), lib_bwd,
         6 * q_bytes + 2 * stats_bytes + seg_bytes, 8 * d * pairs, bwd_what)
     res["fa_dq_seg"] = report(
         f"flash_attention_bwd_dq{label}",
-        time_ms(lambda i: fa.flash_attention_bwd_dq(
+        graph_ms(lambda i: fa.flash_attention_bwd_dq(
             qp, kp, vp, dop, lse, delta, *args), 5),
         time_ms(lambda i: fa.flash_attention_bwd_dq_ref(
             qp, kp, vp, dop, lse, delta, *args), 3, warmup=1), lib_bwd,
@@ -3107,6 +3212,63 @@ def segment_timing(fa, gen, shape, lens, label, lib_what):
     del q, k, v, do, qp, kp, vp, dop, o, lse, delta, mask
     torch.cuda.empty_cache()
     return res
+
+
+def parent_segment_turns(parent, fa, gen, shape, lens, label):
+    """``--parent DIR``: rows 3s and 5s of another commit's
+    ``flash_attention.cu`` (DIR holds its ``csrc``) timed in turns with this
+    build's — parent, new, new, parent — on ``segment_inputs``, through the
+    C entries (each build with the trailing arguments its source takes,
+    ``entry_tail``, and the ids); every output is held against the plain
+    version first."""
+    import ctypes
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    libs = {"parent": ctypes.CDLL(str(_build.build_all(
+        ["flash_attention"], csrc=Path(parent))["flash_attention"])),
+        "new": _build.library("flash_attention")}
+    tails = {}
+    for side, path in (("parent", Path(parent)), ("new", _build.CSRC)):
+        types, values = entry_tail(path)
+        require(types and types[-1] is ctypes.c_void_p,
+                f"the {side} build's C entries take no segment ids")
+        tails[side] = (types, values[:-1])
+    b, s, _, h, _, d = shape
+    _, (qp, kp, vp, dop, seg), _, _ = segment_inputs(fa, gen, shape, lens)
+    sp = qp.shape[1]
+    geometry = (b, h, h, sp, sp, d)
+    sc = 1.0 / np.sqrt(d)
+    args = (False, sc, 0.0, 0, seg)
+    ro, rlse = fa.flash_attention_fwd_ref(qp, kp, vp, *args)
+    p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
+        qp, kp, vp.abs(), *args)[0].float()
+    delta = delta_of(dop, ro)
+    rdk, rdv = fa.flash_attention_bwd_dkv_ref(qp, kp, vp, dop, rlse, delta,
+                                              *args)
+    o, lse = torch.empty_like(qp), torch.empty_like(rlse)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    tol = TRAIN_TOL[torch.bfloat16]
+    for side in ("parent", "new", "new", "parent"):
+        lib = libs[side]
+        tail = (tails[side][0], tails[side][1] + [seg.data_ptr()])
+        calls = {
+            "fwd": lambda i: fa_direct(lib, "fwd", (qp, kp, vp, o, lse),
+                                       geometry, False, sc, tail),
+            "bwd_dkv": lambda i: fa_direct(
+                lib, "bwd_dkv", (qp, kp, vp, dop, rlse, delta, dk, dv),
+                geometry, False, sc, tail)}
+        for fn in calls.values():
+            fn(0)
+        held(f"fwd o   [{side}{label}]", o, ro, tol, p_round)
+        held(f"fwd lse [{side}{label}]", lse, rlse, TRAIN_TOL[torch.float32])
+        held(f"dk [{side}{label}]", dk, rdk, tol)
+        held(f"dv [{side}{label}]", dv, rdv, tol)
+        fwd_ms, dkv_ms = (graph_ms(fn, 10) for fn in calls.values())
+        print(f"  turn {side}{label}: rows 3s / 5s {list(shape)}: forward "
+              f"{fwd_ms:.4f} ms, dK/dV {dkv_ms:.4f} ms")
+    del qp, kp, vp, dop, ro, rlse, p_round, delta, rdk, rdv, o, lse, dk, dv
+    torch.cuda.empty_cache()
 
 
 # ViT-L/16's attention at 384 px (phase 3g): B 32, 577 tokens, 16 heads of
@@ -3170,18 +3332,26 @@ def segment_design_steps(fa, gen, shape=VIT_ATTN_SHAPE):
     torch.cuda.empty_cache()
 
 
-def phase_segment_timing():
+def phase_segment_timing(parent=None):
     """Phase 5d: the segment branch of rows 3, 5 and 6 at ViT-L/16's
     attention shape (phase 3g: 577 rows padded to 640), and at a packed
-    varlen shape beside SDPA with the block-diagonal mask, then the design
-    steps of dQ's segment branch; returns the ViT shape's numbers."""
+    varlen shape beside SDPA with the block-diagonal mask; with ``parent``
+    (another commit's ``csrc``) that build's rows 3s and 5s in turns with
+    these at both shapes; then the design steps of dQ's segment branch.
+    Returns the ViT shape's numbers."""
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(22)
+    varlen = packed_lengths(VARLEN_SHAPE[1])
     res = segment_timing(fa, gen, VIT_ATTN_SHAPE, "pad", " (segments, ViT)",
                          "SDPA on the unpadded [32, 577, 16, 64]")
-    segment_timing(fa, gen, VARLEN_SHAPE, packed_lengths(VARLEN_SHAPE[1]),
-                   " (segments, varlen)",
+    segment_timing(fa, gen, VARLEN_SHAPE, varlen, " (segments, varlen)",
                    "SDPA with the block-diagonal boolean mask")
+    if parent is not None:
+        print(f"  rows 3s and 5s against the build of {parent}, in turns:")
+        parent_segment_turns(parent, fa, gen, VIT_ATTN_SHAPE, "pad",
+                             " (ViT)")
+        parent_segment_turns(parent, fa, gen, VARLEN_SHAPE, varlen,
+                             " (varlen)")
     segment_design_steps(fa, gen)
     return res
 
@@ -3476,6 +3646,54 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
     torch.cuda.empty_cache()
 
 
+def wgmma_design_turns(fa, gen, shape, causal):
+    """The wgmma forward and dK/dV bodies without segments — compiled at
+    D 64 beside rows 3 and 5 and never routed
+    (``flash_attention_fwd_wgmma_launch``,
+    ``flash_attention_bwd_dkv_wgmma_launch``) — held against the plain
+    versions and timed in turns with rows 3 and 5's mma.sync bodies —
+    mma.sync, wgmma, wgmma, mma.sync — through the C entries on the same
+    bf16 inputs.  A measurement only."""
+    from paddle_tpu_torch.ops import _build
+    lib = _build.library("flash_attention")
+    tail = entry_tail(_build.CSRC)
+    b, s_q, s_k, hq, hkv, d = shape
+    geometry = (b, hq, hkv, s_q, s_k, d)
+    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    sc = 1.0 / np.sqrt(d)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+    p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
+        q, k, v.abs(), causal, sc)[0].float()
+    delta = delta_of(do, ro)
+    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
+                                              causal, sc)
+    o, lse = torch.empty_like(q), torch.empty_like(rlse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    tol = TRAIN_TOL[torch.bfloat16]
+    for body in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+        suffix = "_wgmma" if body == "wgmma" else ""
+        calls = {
+            "forward": lambda i: fa_direct(lib, "fwd" + suffix,
+                                           (q, k, v, o, lse), geometry,
+                                           causal, sc, tail),
+            "dK/dV": lambda i: fa_direct(
+                lib, "bwd_dkv" + suffix, (q, k, v, do, rlse, delta, dk, dv),
+                geometry, causal, sc, tail)}
+        for fn in calls.values():
+            fn(0)
+        held(f"fwd o   [{body}, no segments]", o, ro, tol, p_round)
+        held(f"fwd lse [{body}, no segments]", lse, rlse,
+             TRAIN_TOL[torch.float32])
+        held(f"dk [{body}, no segments]", dk, rdk, tol)
+        held(f"dv [{body}, no segments]", dv, rdv, tol)
+        line = ", ".join(f"{what} {time_ms(fn, 10):.4f} ms"
+                         for what, fn in calls.items())
+        print(f"  turn {body}: rows 3 / 5 at rate 0 {list(shape)} "
+              f"causal={causal}: {line}")
+    del q, k, v, do, ro, rlse, p_round, delta, rdk, rdv, o, lse, dk, dv
+    torch.cuda.empty_cache()
+
+
 def library_call(what, fn, want, tol):
     """A PyTorch call for the same function as a kernel, to be timed as its
     ``library_ms``: its outputs held against the kernel's plain version
@@ -3529,6 +3747,9 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     res.update({k + "_drop": v for k, v in drop.items()})
     print("  design steps of rows 3, 5 and 6 at the train shape:")
     design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
+    print("  the wgmma forward and dK/dV bodies without segments (built at "
+          "D 64, not routed) in turns with rows 3 and 5 at the train shape:")
+    wgmma_design_turns(fa, gen, (B, S, S, Hq, Hq, D), True)
     if parent is not None:
         print(f"  rows 3, 5 and 6 at rate 0 against the build of {parent}, "
               f"in turns:")
@@ -3766,14 +3987,22 @@ def head_dim_cases(d):
 
 def head_dim_checks(fa, gen, worst=None):
     """Phase 2e for rows 3/5/6: every head dim of ``HEAD_DIMS_2E`` against
-    the plain versions under ``TRAIN_TOL``, and the dropout (rate 0.1) and
-    segment branches at head dims 40 and 160 (SD-1.5's level 0 and 2),
+    the plain versions under ``TRAIN_TOL`` (and a bf16 segment case each,
+    so that the wgmma bodies run at every width), and the dropout (rate
+    0.1) and segment branches at head dims 40 and 160 (SD-1.5's level 0 and
+    2),
     bf16 and f32, and bf16 non-causal at ``UNET_ATTN_SHAPES`` (the shapes
     phase 3h gives the kernels); the worst error of each head dim under
     ``head_keys``."""
     worst = {} if worst is None else worst
     for d in HEAD_DIMS_2E:
         attention_checks(fa, gen, head_dim_cases(d), worst, keys=head_keys(d))
+        # the segment branch's wgmma bodies at this width (GQA 4:2, causal
+        # at the odd multiples of 8), with a segment inside one tile
+        attention_checks(fa, gen, [(f"D={d} segments 64/10/118/128",
+                                    (2, 320, 320, 4, 2, d), d % 16 == 8,
+                                    torch.bfloat16, [64, 10, 118, 128])],
+                         worst, keys=head_keys(d))
     for shape in UNET_ATTN_SHAPES:
         attention_checks(fa, gen, [(f"UNet D={shape[-1]}", shape, False,
                                     torch.bfloat16)], worst,
@@ -4443,7 +4672,7 @@ def main():
     timing.update(phase_fused_timing())
     say("phase 5d: the segment branch of flash attention at the phase-3g "
           "shape and at a packed varlen shape")
-    timing.update(phase_segment_timing())
+    timing.update(phase_segment_timing(args.parent))
     say("phase 5e: flash attention at the SD-1.5 UNet's shapes (head dims "
           "40 / 80 / 160) and ragged paged attention at head dim 80")
     timing.update(phase_unet_timing(pa, serve["decode_kv_lens"]))

@@ -11,6 +11,8 @@
 //        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
 //   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_mma_kernel,
 //                                                fa_bwd_dkv_kernel)
+//   _fwd_kernel / _bwd_dkv_kernel, has_segments, bf16 (fa_fwd_wgmma_kernel,
+//                                                fa_bwd_dkv_wgmma_kernel)
 //   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_mma_kernel,
 //                                                fa_bwd_dq_kernel)
 //
@@ -96,8 +98,9 @@
 // The bf16 forward rounds p to bf16 for P V, as the TPU kernel does
 // (`pd.astype(v.dtype)`).  The TPU backward keeps p and ds in f32; here each
 // enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
-// 2^-16 relative, with two products into one f32 accumulator.  wgmma, TMA
-// and warp specialisation are left for later work.
+// 2^-16 relative, with two products into one f32 accumulator.  The
+// segment branch's bf16 forward and dK / dV are warp-specialised wgmma
+// bodies fed by TMA (below); every other bf16 launch takes mma.sync.
 //
 // Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
 // template flag DROP of all six bodies; the DROP = false instantiations are
@@ -119,8 +122,10 @@
 //
 // Segment ids (the TPU kernels' has_segments branch: the varlen mask, and
 // the padding of an untileable sequence, which takes a segment of its own)
-// are the template flag SEG of all six bodies, beside DROP; the SEG = false
-// instantiations are the kernels as they were.  The ids of one batch row,
+// are the template flag SEG beside DROP of the three f32 bodies, the bf16
+// dQ and the bf16 wgmma forward and dK / dV, which take every bf16 segment
+// launch of rows 3 and 5; the SEG = false instantiations are the kernels
+// as they were.  The ids of one batch row,
 // f32 [S] (S = S_q = S_k), are read from device memory where a score is
 // masked, and a score whose q row and key lie in different segments is
 // NEG_INF, as on the TPU: it composes with the causal mask and the dropout
@@ -128,12 +133,20 @@
 // tiles hold no key of its segment runs its max at NEG_INF until one
 // arrives, whose rescale exp(NEG_INF - m) then clears what those tiles
 // summed (the TPU kernel's behaviour; a true -inf there would give NaN).
-// The forward and dQ bodies, which mask only the tiles that cross the
-// causal frontier or the end of the keys, mask every tile with SEG; dK /
-// dV masks each score anyway.  Per tile each thread turns the ids of its
-// scores' rows and columns into a bit per score (segment_bits), so that the
-// segment mask costs one register in the loop over the scores.  No tile is
-// skipped for its segments, as the TPU kernel skips none.
+// The bf16 forward and dK / dV of the segment branch are their own bodies
+// (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel), written for what bounded
+// the mma.sync ones there (11.8% and 13.3% of their bound at ViT-L/16's
+// shape, 2.5x slower than SDPA): every tile masked per score from ids read
+// out of device memory, no tile ever skipped (23x the pairs a packed varlen
+// row needs), mma.sync products with a block barrier per tile.  They class
+// each (q tile, key tile) pair before its tile is loaded — skipped, full
+// (the unmasked path) or masked from ids staged in shared memory beside the
+// tile (tile_class; the TPU kernel skips none, and skipping changes no
+// value) — and run wgmma on TMA-loaded tiles, a producer warp feeding
+// consumer warpgroups.  dQ and the f32 bodies mask every tile with SEG:
+// per tile each thread turns the ids of its scores' rows and columns into a
+// bit per score (segment_bits), so that the segment mask costs one register
+// in the loop over the scores.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().  flash_attention.cu defines FA_TU_WIDTHS (its widths;
@@ -150,6 +163,7 @@
 
 #include "philox.cuh"
 #include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
@@ -765,13 +779,14 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
   }
 }
 
-// With SEG, which of a thread's scores of one tile stay inside a segment, as
-// bits: bit 4 i + 2 r + c is set where fragment row row0 + 8 r and column
-// col0 + 8 i + c (i < N: the thread's n-tiles, c: its 2 columns of each)
-// hold the same id.  Built once per tile from the ids in device memory (a
-// tile's ids are L1-resident across the block), so that the loop over the
-// scores holds one register for the segment mask (n = S, the clamp for
-// rows and columns past it, which are never kept or written).
+// With SEG (the bf16 dQ), which of a thread's scores of one tile stay
+// inside a segment, as bits: bit 4 i + 2 r + c is set where fragment row
+// row0 + 8 r and column col0 + 8 i + c (i < N: the thread's n-tiles, c:
+// its 2 columns of each) hold the same id.  Built once per tile from the
+// ids in device memory (a tile's ids are L1-resident across the block), so
+// that the loop over the scores holds one register for the segment mask
+// (n = S, the clamp for rows and columns past it, which are never kept or
+// written).
 template <int N>
 __device__ __forceinline__ unsigned segment_bits(const float* segb, int row0,
                                                  int col0, int n) {
@@ -803,9 +818,9 @@ __device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
 // Forward, bf16.  A block takes 16 x NW q rows of one (batch, q head);
 // warp w owns rows 16 w .. 16 w + 15 and keeps their Q fragments, S, P and
 // the O accumulator in registers.  The q tiles with the most key tiles are
-// launched first (grid y counts down), so the causal tail is short.  With
-// SEG every tile is masked, under the tile's segment bits.
-template <int W, bool PART, int NW, int NS, bool SEG, bool DROP>
+// launched first (grid y counts down), so the causal tail is short.  (The
+// segment branch is the wgmma forward's.)
+template <int W, bool PART, int NW, int NS, bool DROP>
 __global__ void __launch_bounds__(NW * 32,
                                   (fa_narrow(W, PART) ? FA_FWD_MINB : 1))
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -814,7 +829,7 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   View qv, View kv, View vv, View ov, int hq, int hkv,
                   int s_q, int s_k, int causal, float sm_scale, Dropout dr,
-                  const float* __restrict__ seg, int d) {
+                  int d) {
   constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
   constexpr int LD = tile_ld<W>();          // row stride of a shared tile
   constexpr int KS = W / 16;                // k-steps of Q K^T
@@ -860,7 +875,6 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};   // rows g, g + 8 (l: this
                                                  // lane's columns only)
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
   for (int kt = 0; kt < n_kt; ++kt) {
     if constexpr (NS == 1) {
       if (kt > 0) {
@@ -899,17 +913,13 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys, or every tile with SEG (its scores are scaled here, and a
-    // masked one is NEG_INF exactly); a full tile stays raw and takes the
-    // scale in the exponent's FFMA (the scale is positive, so the max
-    // commutes with it)
+    // of the keys (its scores are scaled here, and a masked one is NEG_INF
+    // exactly); a full tile stays raw and takes the scale in the exponent's
+    // FFMA (the scale is positive, so the max commutes with it)
     const int kcol0 = kt * BN;
-    const bool masked = SEG || (causal && kcol0 + BN - 1 > wrow + offset) ||
+    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
                         kcol0 + BN > s_k;
     if (masked) {
-      unsigned same = 0;
-      if constexpr (SEG)
-        same = segment_bits<BN / 8>(segb, wrow + g, kcol0 + 2 * t, s_k);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -919,7 +929,6 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           float x = s[j][e] * scale2;
           if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
           else if (causal && row + offset < col) x = neg2;
-          else if (SEG && !((same >> (4 * j + e)) & 1u)) x = neg2;
           s[j][e] = x;
         }
     }
@@ -1011,8 +1020,9 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // tiles stream through the cp.async ring.  The key blocks with the most q
 // tiles (the first ones, when causal) are launched first.  Above W 160,
 // grid z splits the output columns: block z accumulates columns
-// [z W / 2, (z + 1) W / 2) of dK and dV.
-template <int W, bool PART, int NW, int BQ, int NS, bool SEG, bool DROP>
+// [z W / 2, (z + 1) W / 2) of dK and dV.  (The segment branch is the
+// wgmma dK / dV's.)
+template <int W, bool PART, int NW, int BQ, int NS, bool DROP>
 __global__ void __launch_bounds__(NW * 32,
                                   (fa_narrow(W, PART) ? FA_DKV_MINB : 1))
 fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1025,7 +1035,7 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dv, View qv, View kv,
                       View vv, View dov, View dkv, View dvv, int hq, int hkv,
                       int s_q, int s_k, int causal, float sm_scale,
-                      Dropout dr, const float* __restrict__ seg, int d) {
+                      Dropout dr, int d) {
   constexpr int BK = 16 * NW, NTHR = NW * 32;
   constexpr int LD = tile_ld<W>();
   constexpr int KS = W / 16;                // k-steps of K Q^T
@@ -1087,7 +1097,6 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const float scale2 = sm_scale * kLog2e;
   const float neg2 = kNegInf * kLog2e;
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
   float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -1150,11 +1159,6 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const unsigned kcell = (unsigned)(wk0 >> 4) * 4u + (g >> 1);
     const bool odd = g & 1;
     const bool masked = causal && row0 + offset < wk0 + 15;
-    // with SEG: the tile's segment bits, fragment rows = the thread's keys
-    // g and g + 8, columns = its q rows
-    unsigned same = 0;
-    if constexpr (SEG)
-      same = segment_bits<NQ>(segb, wk0 + g, row0 + 2 * t, s_k);
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
@@ -1180,7 +1184,6 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (masked && row0 + 8 * j + 2 * t + (e & 1) + offset <
                           wk0 + g + 8 * (e >> 1))
           x = neg2;
-        if (SEG && !((same >> (4 * j + e)) & 1u)) x = neg2;
         const float p = fast_exp2(x - lse2);
         if constexpr (DROP) {
           sc[j][e] = dropped(dr, kw[e], p);
@@ -1461,6 +1464,776 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// The segment branch's bf16 forward and dK / dV, written for Hopper's
+// warpgroups (sm90_wgmma.cuh).  A block holds consumer warpgroups of 64
+// rows each (q rows in the forward, keys in dK / dV) and one producer warp
+// that keeps the block's ring of tiles full by TMA.  The products are
+// wgmma: S = Q K^T (and S^T = K Q^T, dP^T = V dO^T) from two shared tiles,
+// then O += P V (and dV += p^T dO, dK += ds^T Q, p and ds as hi + lo) with
+// the score fragments in registers as the A operand.  The output columns
+// run in 64-column panels, so W 32 / 48 / 80 / 96 / 160 carry zero columns
+// up to the next panel (W 160 runs three).  Above two panels, dK / dV
+// splits its output panels between two blocks (grid z), each with at most
+// two.
+//
+// Per-tile segment classes (tile_class): before the producer loads a
+// streamed tile it reads the tile's ids (one warp, from L2), takes their
+// [min, max] and compares it with the block's own rows (the forward: its
+// 128 q rows, for both consumers) or with each consumer's keys (dK / dV):
+//   disjoint ranges: no pair shares an id, and the tile is skipped (never
+//     loaded when every consumer skips it, never computed);
+//   both ranges one and the same value: the unmasked path;
+//   otherwise masked per score, from the ids staged beside the tile.
+// The causal frontier (a tile wholly past it is skipped, one that crosses
+// it masked) and the end of the keys mask as before.  A skipped tile's
+// scores would all be NEG_INF for rows that always meet their own key
+// (s_q = s_k with equal ids), so skipping changes no value: after a row's
+// first real score exp(NEG_INF - m) is 0 in f32, and before it the
+// rescale by exp(NEG_INF - m_real) clears whatever masked tiles summed.
+// ops/flash_attention.py segment_tile_plan is the same rule in PyTorch.
+//
+// The producer streams one entry per loaded tile through the ring: the
+// tile (TMA, counted in bytes on the stage's full barrier), its ids (and,
+// in dK / dV, the q rows' lse and delta), and a record of which tile it is
+// and each consumer's class; a last record with no tile ends the stream.
+// Each consumer warp releases a stage (its empty barrier counts them) once
+// its products on it are done.
+// A block: two consumer warpgroups and a producer warpgroup, of which one
+// warp works.  ptxas allocates 168 registers a thread at launch (three
+// warps share an SM sub-partition's 16,384), and the producer's 128 x
+// (168 - 40) equal the consumers' 256 x (232 - 168), so that
+// setmaxnreg.inc, which waits for the block's own released registers,
+// always completes.
+constexpr int kHpThreads = 384;
+constexpr int kHpConsumerRegs = 232, kHpProducerRegs = 40;
+enum TileClass : int { kTileSkip = 0, kTileFull = 1, kTileMasked = 2 };
+// 64-column panels of a width-W tile
+template <int W>
+__host__ __device__ constexpr int hp_panels() { return (W + 63) / 64; }
+// the forward's ring depth: three tiles up to two panels, else two (the
+// 128-row Q tile and the ring must fit the 227 KB)
+template <int W>
+__host__ __device__ constexpr int hp_fwd_stages() {
+  return hp_panels<W>() <= 2 ? 3 : 2;
+}
+// blocks sharing the output panels of a dK / dV key block, the panels each
+// takes (at most), its streamed q tile and its ring depth
+template <int W>
+__host__ __device__ constexpr int hp_dkv_split() {
+  return hp_panels<W>() > 2 ? 2 : 1;
+}
+template <int W>
+__host__ __device__ constexpr int hp_dkv_panels() {
+  return (hp_panels<W>() + hp_dkv_split<W>() - 1) / hp_dkv_split<W>();
+}
+template <int W>
+__host__ __device__ constexpr int hp_dkv_bq() {
+  return hp_dkv_panels<W>() > 1 ? 32 : 64;
+}
+template <int W>
+__host__ __device__ constexpr int hp_dkv_stages() {
+  return hp_panels<W>() > 2 ? 2 : 3;
+}
+
+// the tensor maps of a launch: q, k, v and, for dK / dV, dO
+struct HpMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// The class of a (q tile, key tile) pair: q rows [r0, r_last] that lie
+// inside S_q (none when r_last < r0), keys [c0, c0 + nk), and with seg the
+// [min, max] of the rows' ids and of the keys' (those inside S_k)
+__device__ __forceinline__ int tile_class(int r0, int r_last, int c0, int nk,
+                                          int s_k, int offset, int causal,
+                                          bool seg, float rlo, float rhi,
+                                          float klo, float khi) {
+  if (r_last < r0 || c0 >= s_k) return kTileSkip;
+  if (causal && c0 > r_last + offset) return kTileSkip;
+  if (seg && (khi < rlo || klo > rhi)) return kTileSkip;
+  const bool crossing = causal && c0 + nk - 1 > r0 + offset;
+  const bool partial = c0 + nk > s_k;
+  const bool uniform = !seg || (rlo == rhi && klo == khi && rlo == klo);
+  return crossing || partial || !uniform ? kTileMasked : kTileFull;
+}
+
+// the [min, max] of the ids at [r0, min(r0 + R, n)) by one warp
+// (+inf, -inf when the range is empty), into dst[0], dst[1] by lane 0
+template <int R>
+__device__ __forceinline__ void seg_range(float* dst, const float* segb,
+                                          int r0, int n) {
+  const int lane = threadIdx.x % 32;
+  float lo = __int_as_float(0x7f800000), hi = -lo;
+#pragma unroll
+  for (int i = 0; i < R; i += 32)
+    if (r0 + i + lane < n) {
+      const float x = segb[r0 + i + lane];
+      lo = fminf(lo, x);
+      hi = fmaxf(hi, x);
+    }
+  lo = -warp_max(-lo);
+  hi = warp_max(hi);
+  if (lane == 0) {
+    dst[0] = lo;
+    dst[1] = hi;
+  }
+}
+
+// the ids of `n` streamed rows or keys [r0, r0 + n) (n = 32 or 64) by one
+// warp: each lane's (n / 32) ids, clamped to the last one inside `len`,
+// and the [min, max] of those inside it
+template <int N>
+__device__ __forceinline__ void tile_ids(float (&id)[N / 32], float& lo,
+                                         float& hi, const float* segb, int r0,
+                                         int len) {
+  const int lane = threadIdx.x % 32;
+  lo = __int_as_float(0x7f800000);
+  hi = -lo;
+#pragma unroll
+  for (int i = 0; i < N / 32; ++i) {
+    const int r = r0 + 32 * i + lane;
+    id[i] = segb[min(r, len - 1)];
+    if (r < len) {
+      lo = fminf(lo, id[i]);
+      hi = fmaxf(hi, id[i]);
+    }
+  }
+  lo = -warp_max(-lo);
+  hi = warp_max(hi);
+}
+
+template <int W>
+constexpr int hp_fwd_smem() {
+  constexpr int NP = hp_panels<W>(), NS = hp_fwd_stages<W>();
+  return 1024 + (NP * 128 * 64 + 2 * NS * NP * kKeyTile * 64) * 2 +
+         NS * kKeyTile * 4 + 16 + NS * 16 + (2 * NS + 1) * 8;
+}
+
+// Forward.  A block takes 128 q rows of one (batch, q head); consumer
+// warpgroup w owns rows 64 w .. 64 w + 63, and its warp v rows 16 v ..
+// 16 v + 15 of those, with their S, P and O accumulators in registers.
+// The tiles are classed for the block's 128 rows (both consumers take
+// every streamed tile, each K / V tile feeds 128 rows), and the producer
+// streams the key tiles that the rows need, in order, so the online
+// softmax sees them as the mma.sync forward does.  Each consumer pipelines
+// them: it issues S = Q K^T of a tile and then P V of the tile before, so
+// that its softmax of the one runs while the tensor cores work on the
+// other, and rescales O once that P V is done.  Every wgmma is issued on
+// every pass (where no tile is pending, P is zero against the resident Q
+// tile), so that none sits on a branch, where the compiler would
+// serialise them.  The q tiles with the most key tiles are launched first.
+template <int W, bool SEG, bool DROP>
+__global__ void __launch_bounds__(kHpThreads, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ HpMaps maps,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    View ov, int hq, int hkv, int s_q, int s_k, int causal,
+                    float sm_scale, Dropout dr, const float* __restrict__ seg,
+                    int d) {
+  constexpr int NP = hp_panels<W>(), NS = hp_fwd_stages<W>();
+  constexpr int BM = 128, BN = kKeyTile, KS = W / 16;
+  constexpr int PQ = BM * 64, PK = BN * 64;  // elements of a Q / K panel
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);  // NP x PQ
+  __nv_bfloat16* k_s = q_s + NP * PQ;       // NS x NP x PK
+  __nv_bfloat16* v_s = k_s + NS * NP * PK;  // NS x NP x PK
+  float* ids_s = reinterpret_cast<float*>(v_s + NS * NP * PK);  // NS x BN
+  float* range_s = ids_s + NS * BN;         // the rows' ids [2]
+  int* meta = reinterpret_cast<int*>(range_s + 4);  // NS x {kt, class, end}
+  uint64_t* full = reinterpret_cast<uint64_t*>(meta + 4 * NS);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int n_qt = (s_q + BM - 1) / BM;
+  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
+  const int hk = h / (hq / hkv);
+  const int offset = s_k - s_q;
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  if constexpr (SEG)
+    if (threadIdx.x < 32) seg_range<BM>(range_s, segb, row0, s_q);
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: warp 8 loads Q, then classifies and streams the key tiles
+    // that the rows need
+    regs_dealloc<kHpProducerRegs>();
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, NP * PQ * 2);
+      for (int p = 0; p < NP; ++p)
+        tma_load(q_s + p * PQ, &maps.q, qbar, 64 * p, row0, h, b);
+    }
+    const float rlo = SEG ? range_s[0] : 0.f, rhi = SEG ? range_s[1] : 0.f;
+    const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
+    int stage = 0;
+    unsigned phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int c0 = kt * BN;
+      float id[2] = {0.f, 0.f}, klo = 0.f, khi = 0.f;
+      if constexpr (SEG) tile_ids<BN>(id, klo, khi, segb, c0, s_k);
+      const int cls = tile_class(row0, min(row0 + BM, s_q) - 1, c0, BN, s_k,
+                                 offset, causal, SEG, rlo, rhi, klo, khi);
+      if (cls == kTileSkip) continue;
+      mbar_wait(&empty[stage], phase ^ 1);
+      if constexpr (SEG) {
+        ids_s[stage * BN + lane] = id[0];
+        ids_s[stage * BN + 32 + lane] = id[1];
+      }
+      if (lane == 0) {
+        int* mt = meta + 4 * stage;
+        mt[0] = kt;
+        mt[1] = cls;
+        mt[2] = 0;
+        mbar_arrive_tx(&full[stage], 2 * NP * PK * 2);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(k_s + (stage * NP + p) * PK, &maps.k, &full[stage], 64 * p,
+                   c0, hk, b);
+          tma_load(v_s + (stage * NP + p) * PK, &maps.v, &full[stage], 64 * p,
+                   c0, hk, b);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) meta[4 * stage + 2] = 1;   // the end of the stream
+    mbar_arrive(&full[stage]);
+  } else {
+    regs_alloc<kHpConsumerRegs>();
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int wrow = row0 + 64 * wg + 16 * warp;   // the warp's first q row
+    const float scale2 = sm_scale * kLog2e;
+    const float neg2 = kNegInf * kLog2e;
+    float rid[2] = {0.f, 0.f};                // ids of rows g, g + 8
+    if constexpr (SEG)
+      for (int r = 0; r < 2; ++r) rid[r] = segb[min(wrow + g + 8 * r, s_k - 1)];
+    float acc[NP][8][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+    float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};
+    // the pending tile: its P (zero while none is) and its V panels (the
+    // Q tile while none is: any finite tile of that shape)
+    unsigned pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
+    const __nv_bfloat16* qw = q_s + 64 * 64 * wg;  // the group's Q rows
+    const __nv_bfloat16* vp = q_s;
+    int vpanel = PQ;                          // elements between its panels
+    int pend = -1;                            // its stage (-1: none)
+    auto issue_pv = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          wgmma_rs(acc[p], pa[kk], desc_mn(vp + p * vpanel, kk));
+    };
+    mbar_wait(qbar, 0);
+
+    int stage = 0;
+    unsigned phase = 0;
+    for (;;) {
+      mbar_wait(&full[stage], phase);
+      const int* mt = meta + 4 * stage;
+      if (mt[2]) break;
+      const int kcol0 = mt[0] * BN;
+      const bool masked = mt[1] == kTileMasked;
+      const __nv_bfloat16* ks = k_s + stage * NP * PK;
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      fence_acc(s);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_ss(s, desc_k(qw + (kk / 4) * PQ, kk % 4),
+                 desc_k(ks + (kk / 4) * PK, kk % 4), kk > 0);
+      wgmma_commit();
+      issue_pv();                             // the pending tile's P V
+      wgmma_commit();
+      wgmma_wait<1>();                        // S has landed, P V runs on
+      fence_acc(s);
+
+      // a masked tile's scores are scaled here (a masked one is NEG_INF
+      // exactly, -inf past the keys); a full tile stays raw and takes the
+      // scale in the exponent's FFMA
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 kid = make_float2(0.f, 0.f);
+          if constexpr (SEG)
+            kid = *reinterpret_cast<const float2*>(ids_s + stage * BN + 8 * j +
+                                                   2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kcol0 + 8 * j + 2 * t + (e & 1);
+            const int row = wrow + g + 8 * (e >> 1);
+            float x = s[j][e] * scale2;
+            if (col >= s_k) x = __int_as_float(0xff800000);
+            else if (causal && row + offset < col) x = neg2;
+            else if (SEG && rid[e >> 1] != ((e & 1) ? kid.y : kid.x))
+              x = neg2;
+            s[j][e] = x;
+          }
+        }
+      }
+      float mx[2] = {s[0][0], s[0][2]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+      const float sc = masked ? 1.f : scale2;
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r] * sc);
+        alpha[r] = fast_exp2(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(fmaf(s[j][e], sc, -m[e >> 1]));
+          l[e >> 1] += p;
+          s[j][e] = p;
+        }
+      wgmma_wait<0>();                        // the pending P V is done
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+      fence_frag(pa);
+      __syncwarp();
+      if (pend >= 0 && lane == 0) mbar_arrive(&empty[pend]);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            acc[p][j][2 * r] *= alpha[r];
+            acc[p][j][2 * r + 1] *= alpha[r];
+          }
+      // P (dropped, then rounded to bf16, as the TPU kernel does) is the A
+      // operand of this tile's P V, straight from the score fragments
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        if constexpr (DROP)
+          drop_group(dr, s[2 * kk], s[2 * kk + 1],
+                     (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
+                     (unsigned)(b * hq + h));
+        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+      pend = stage;
+      vp = v_s + stage * NP * PK;
+      vpanel = PK;
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+    wgmma_fence();
+    issue_pv();                               // the last tile's P V
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+    fence_frag(pa);
+
+    // finalize: o = acc / l where l > 0 (else 0), lse = m + log(max(l,
+    // 1e-30)) into the compact (= TPU-packed) [B*Hq, S_q] row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = wrow + g + 8 * r;
+      if (row >= s_q) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      __nv_bfloat16* orow = o + ov.at(b, row, h);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * p + 8 * j + 2 * t;
+          if (col < d)
+            *reinterpret_cast<unsigned*>(orow + col) =
+                pack_bf16(acc[p][j][2 * r] * inv, acc[p][j][2 * r + 1] * inv);
+        }
+      if (t == 0)
+        lse[((long long)b * hq + h) * s_q + row] =
+            m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
+}
+
+template <int W>
+constexpr int hp_dkv_smem() {
+  constexpr int NC = 2;
+  constexpr int NP = hp_panels<W>(), NS = hp_dkv_stages<W>();
+  constexpr int BQ = hp_dkv_bq<W>();
+  return 1024 + (2 * NP * 64 * NC * 64 + 2 * NS * NP * BQ * 64) * 2 +
+         NS * 3 * BQ * 4 + 16 + NS * 32 + (2 * NS + 1) * 8;
+}
+
+// dK / dV.  A block takes 128 keys of one (batch, kv head) and keeps K
+// and V in shared memory; consumer warpgroup w owns keys 64 w .. 64 w + 63
+// and their dK, dV accumulators in registers (its output panels), across
+// every (q head of the GQA group, q tile) pair that the producer streams,
+// so the sum over the group needs no atomics.  Per q tile of BQ rows it
+// computes the transposed tiles S^T = K Q^T and dP^T = V dO^T, whose
+// fragments (rows = keys) are the A operand of dV += p^T dO and dK +=
+// ds^T Q, p and ds each as hi + lo (2^-16 relative, as the TPU kernel's
+// f32).  The streamed record carries the tile's lse, delta and ids beside
+// its Q and dO tiles.  Above two panels grid z splits the output panels.
+template <int W, bool SEG, bool DROP>
+__global__ void __launch_bounds__(kHpThreads, 1)
+fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, View dkv, View dvv,
+                        int hq, int hkv, int s_q, int s_k, int causal,
+                        float sm_scale, Dropout dr,
+                        const float* __restrict__ seg, int d) {
+  constexpr int NP = hp_panels<W>(), NS = hp_dkv_stages<W>();
+  constexpr int NPB = hp_dkv_panels<W>(), BQ = hp_dkv_bq<W>();
+  constexpr int NC = 2, BK = 64 * NC, KS = W / 16, NQ = BQ / 8;
+  constexpr int PK = BK * 64, PQ = BQ * 64;  // elements of a K / Q panel
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(base);  // NP x PK
+  __nv_bfloat16* v_s = k_s + NP * PK;        // NP x PK
+  __nv_bfloat16* q_s = v_s + NP * PK;        // NS x NP x PQ
+  __nv_bfloat16* do_s = q_s + NS * NP * PQ;  // NS x NP x PQ
+  float* stats = reinterpret_cast<float*>(do_s + NS * NP * PQ);
+                                            // NS x {lse, delta, ids} [BQ]
+  float* range_s = stats + NS * 3 * BQ;     // the consumers' key ids [2][2]
+  int* meta = reinterpret_cast<int*>(range_s + 4);
+                                            // NS x {h, row0, cls 0, 1, end}
+  uint64_t* full = reinterpret_cast<uint64_t*>(meta + 8 * NS);
+  uint64_t* empty = full + NS;
+  uint64_t* kvbar = empty + NS;
+
+  const int col0 = blockIdx.y * BK;
+  const int hk = blockIdx.x % hkv, b = blockIdx.x / hkv;
+  const int pz0 = blockIdx.z * NPB;          // the block's first out panel
+  const int npb = min(NPB, NP - pz0);
+  const int rep = hq / hkv;
+  const int offset = s_k - s_q;
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4 * NC);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  if constexpr (SEG)
+    if (threadIdx.x < 32 * NC)
+      seg_range<64>(range_s + 2 * (threadIdx.x / 32), segb,
+                    col0 + 64 * (threadIdx.x / 32), s_k);
+  __syncthreads();
+
+  if (wg == NC) {
+    // producer: warp 8 loads K and V, then classifies and streams the
+    // (q head, q tile) pairs
+    regs_dealloc<kHpProducerRegs>();
+    if (threadIdx.x >= 128 * NC + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * NP * PK * 2);
+      for (int p = 0; p < NP; ++p) {
+        tma_load(k_s + p * PK, &maps.k, kvbar, 64 * p, col0, hk, b);
+        tma_load(v_s + p * PK, &maps.v, kvbar, 64 * p, col0, hk, b);
+      }
+    }
+    float klo[NC], khi[NC];
+    for (int w = 0; w < NC; ++w) {
+      klo[w] = SEG ? range_s[2 * w] : 0.f;
+      khi[w] = SEG ? range_s[2 * w + 1] : 0.f;
+    }
+    // q tiles wholly before the block's causal frontier add nothing
+    const int n_qt = (s_q + BQ - 1) / BQ;
+    int qt0 = 0;
+    if (causal) {
+      const int x = col0 - offset - BQ + 1;   // first row0 that can see col0
+      qt0 = x <= 0 ? 0 : (x + BQ - 1) / BQ;
+    }
+    const int nq = max(n_qt - qt0, 0);
+    int stage = 0;
+    unsigned phase = 0;
+    for (int it = 0; it < rep * nq; ++it) {
+      const int h = hk * rep + it / nq, row0 = (qt0 + it % nq) * BQ;
+      float id[BQ / 32], qlo = 0.f, qhi = 0.f;
+      if constexpr (SEG) tile_ids<BQ>(id, qlo, qhi, segb, row0, s_q);
+      int cls[NC];
+      bool any = false;
+      for (int w = 0; w < NC; ++w) {
+        cls[w] = tile_class(row0, min(row0 + BQ, s_q) - 1, col0 + 64 * w, 64,
+                            s_k, offset, causal, SEG, qlo, qhi, klo[w],
+                            khi[w]);
+        any |= cls[w] != kTileSkip;
+      }
+      if (!any) continue;
+      mbar_wait(&empty[stage], phase ^ 1);
+      float* st = stats + stage * 3 * BQ;
+#pragma unroll
+      for (int i = 0; i < BQ / 32; ++i) {
+        const int row = row0 + 32 * i + lane;
+        const long long at = ((long long)b * hq + h) * s_q + row;
+        st[32 * i + lane] = row < s_q ? lse[at] : 0.f;
+        st[BQ + 32 * i + lane] = row < s_q ? delta[at] : 0.f;
+        if constexpr (SEG) st[2 * BQ + 32 * i + lane] = id[i];
+      }
+      if (lane == 0) {
+        int* mt = meta + 8 * stage;
+        mt[0] = h;
+        mt[1] = row0;
+        for (int w = 0; w < NC; ++w) mt[2 + w] = cls[w];
+        mt[4] = 0;
+        mbar_arrive_tx(&full[stage], 2 * NP * PQ * 2);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(q_s + (stage * NP + p) * PQ, &maps.q, &full[stage],
+                   64 * p, row0, h, b);
+          tma_load(do_s + (stage * NP + p) * PQ, &maps.dout, &full[stage],
+                   64 * p, row0, h, b);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) meta[8 * stage + 4] = 1;   // the end of the stream
+    mbar_arrive(&full[stage]);
+  } else {
+    regs_alloc<kHpConsumerRegs>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int wk = col0 + 64 * wg + 16 * warp;   // the warp's first key
+    const float scale2 = sm_scale * kLog2e;
+    const float neg2 = kNegInf * kLog2e;
+    float kid[2] = {0.f, 0.f};                // ids of keys g, g + 8
+    if constexpr (SEG)
+      for (int r = 0; r < 2; ++r) kid[r] = segb[min(wk + g + 8 * r, s_k - 1)];
+    float dk_acc[NPB][8][4], dv_acc[NPB][8][4];
+#pragma unroll
+    for (int p = 0; p < NPB; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk_acc[p][j][e] = 0.f;
+          dv_acc[p][j][e] = 0.f;
+        }
+    const __nv_bfloat16* kw = k_s + 64 * 64 * wg;  // the group's keys
+    const __nv_bfloat16* vw = v_s + 64 * 64 * wg;
+    const unsigned kcell = (unsigned)(wk >> 4) * 4u + (g >> 1);
+    const bool odd = g & 1;
+    mbar_wait(kvbar, 0);
+
+    int stage = 0;
+    unsigned phase = 0;
+    for (;;) {
+      mbar_wait(&full[stage], phase);
+      const int* mt = meta + 8 * stage;
+      if (mt[4]) break;
+      const int cls = mt[2 + wg];
+      if (cls != kTileSkip) {
+        const int h = mt[0], row0 = mt[1];
+        const __nv_bfloat16* qs = q_s + stage * NP * PQ;
+        const __nv_bfloat16* dos = do_s + stage * NP * PQ;
+        const float* st = stats + stage * 3 * BQ;
+        float sc[NQ][4], dp[NQ][4];         // S^T and dP^T: keys x q rows
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[j][e] = 0.f;
+            dp[j][e] = 0.f;
+          }
+        fence_acc(sc);
+        fence_acc(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss(sc, desc_k(kw + (kk / 4) * PK, kk % 4),
+                   desc_k(qs + (kk / 4) * PQ, kk % 4), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss(dp, desc_k(vw + (kk / 4) * PK, kk % 4),
+                   desc_k(dos + (kk / 4) * PQ, kk % 4), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sc);
+        fence_acc(dp);
+
+        // p = exp(s - lse) and ds = p (dP - delta) sm_scale.  With DROP,
+        // dV takes the dropped p and ds the dropped dP; the fragment is
+        // transposed (rows = keys), so a thread's scores of one q column
+        // lie in one Philox call but use 2 of its words: lanes g and g ^ 1
+        // (lane ^ 4) hold the same q columns and the other 2 words, so
+        // each draws the call of one of their 2 columns and they swap
+        // halves
+        const bool masked = cls == kTileMasked;
+        const unsigned bhq = b * hq + h;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(st + BQ + 8 * j + 2 * t);
+          float2 qid = make_float2(0.f, 0.f);
+          if constexpr (SEG)
+            qid = *reinterpret_cast<const float2*>(st + 2 * BQ + 8 * j + 2 * t);
+          unsigned kw4[4];                  // element e's word: q column
+          if constexpr (DROP) {             // 2t + (e & 1), key g + 8 (e >> 1)
+            const uint4 w =
+                dropout_words(dr, kcell, row0 + 8 * j + 2 * t + odd, bhq);
+            const unsigned ra = __shfl_xor_sync(kFull, odd ? w.x : w.y, 4);
+            const unsigned rb = __shfl_xor_sync(kFull, odd ? w.z : w.w, 4);
+            const unsigned ma = odd ? w.y : w.x, mb = odd ? w.w : w.z;
+            kw4[0] = odd ? ra : ma;
+            kw4[1] = odd ? ma : ra;
+            kw4[2] = odd ? rb : mb;
+            kw4[3] = odd ? mb : rb;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
+            const float dl = (e & 1) ? d2.y : d2.x;
+            float x = sc[j][e] * scale2;
+            if (masked) {
+              const int qrow = row0 + 8 * j + 2 * t + (e & 1);
+              const int key = wk + g + 8 * (e >> 1);
+              if (key >= s_k) x = __int_as_float(0xff800000);
+              else if (causal && qrow + offset < key) x = neg2;
+              else if (SEG && kid[e >> 1] != ((e & 1) ? qid.y : qid.x))
+                x = neg2;
+            }
+            const float p = fast_exp2(x - lse2);
+            if constexpr (DROP) {
+              sc[j][e] = dropped(dr, kw4[e], p);
+              dp[j][e] = p * (dropped(dr, kw4[e], dp[j][e]) - dl) * sm_scale;
+            } else {
+              sc[j][e] = p;
+              dp[j][e] = p * (dp[j][e] - dl) * sm_scale;
+            }
+          }
+        }
+
+        // dV += p^T dO and dK += ds^T Q, each factor as hi + lo, over the
+        // block's output panels
+        unsigned ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4],
+            dlo[BQ / 16][4];
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 2 * kq + (i >> 1), e = 2 * (i & 1);
+            split_pair(sc[j][e], sc[j][e + 1], ph[kq][i], pl[kq][i]);
+            split_pair(dp[j][e], dp[j][e + 1], dh[kq][i], dlo[kq][i]);
+          }
+#pragma unroll
+        for (int p = 0; p < NPB; ++p) {
+          fence_acc(dk_acc[p]);
+          fence_acc(dv_acc[p]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)
+#pragma unroll
+          for (int p = 0; p < NPB; ++p)
+            if (p < npb) {
+              const int pz = pz0 + p;
+              wgmma_rs(dv_acc[p], ph[kq], desc_mn(dos + pz * PQ, kq));
+              wgmma_rs(dv_acc[p], pl[kq], desc_mn(dos + pz * PQ, kq));
+              wgmma_rs(dk_acc[p], dh[kq], desc_mn(qs + pz * PQ, kq));
+              wgmma_rs(dk_acc[p], dlo[kq], desc_mn(qs + pz * PQ, kq));
+            }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < NPB; ++p) {
+          fence_acc(dk_acc[p]);
+          fence_acc(dv_acc[p]);
+        }
+        fence_frag(ph);
+        fence_frag(pl);
+        fence_frag(dh);
+        fence_frag(dlo);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wk + g + 8 * r;
+      if (row >= s_k) continue;
+      __nv_bfloat16* dkr = dk + dkv.at(b, row, hk);
+      __nv_bfloat16* dvr = dv + dvv.at(b, row, hk);
+#pragma unroll
+      for (int p = 0; p < NPB; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * (pz0 + p) + 8 * j + 2 * t;
+          if (p >= npb || col >= d) continue;
+          *reinterpret_cast<unsigned*>(dkr + col) =
+              pack_bf16(dk_acc[p][j][2 * r], dk_acc[p][j][2 * r + 1]);
+          *reinterpret_cast<unsigned*>(dvr + col) =
+              pack_bf16(dv_acc[p][j][2 * r], dv_acc[p][j][2 * r + 1]);
+        }
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
 // host side
 struct Geometry {
   int batch, hq, hkv, s_q, s_k, causal, d;
@@ -1507,20 +2280,83 @@ constexpr int dq_mma_smem() {
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
+// the launches that take the wgmma bodies: the bf16 segment branch of the
+// forward and of dK / dV, at every width (dQ keeps its mma.sync body)
+template <typename T, bool SEG>
+constexpr bool kWgmmaBody = kTensorCores<T> && SEG;
+
 // one instantiation of the bodies: element type, width, PART and the flags
 template <typename T, int W, bool PART, bool SEG, bool DROP>
 struct Variant {};
+
+template <int W, bool SEG, bool DROP>
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                      float* lse, const long long* st, const Geometry& g,
+                      const Dropout& dr, const float* seg,
+                      cudaStream_t stream) {
+  HpMaps maps{};
+  cudaError_t err =
+      tile_map(&maps.q, q, st, g.batch, g.s_q, g.hq, g.d, 128);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.k, k, st + 3, g.batch, g.s_k, g.hkv, g.d, kKeyTile);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.v, v, st + 6, g.batch, g.s_k, g.hkv, g.d, kKeyTile);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = hp_fwd_smem<W>();
+  const auto kernel = fa_fwd_wgmma_kernel<W, SEG, DROP>;
+  static std::atomic<unsigned long long> done{0};
+  err = allow_smem(done, kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.hq * g.batch, (g.s_q + 127) / 128);
+  kernel<<<grid, kHpThreads, smem, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(o), lse, view_at(st, 3), g.hq, g.hkv,
+      g.s_q, g.s_k, g.causal, g.sm_scale, dr, seg, g.d);
+  return cudaGetLastError();
+}
+
+template <int W, bool SEG, bool DROP>
+cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dk, void* dv,
+                          const long long* st, const Geometry& g,
+                          const Dropout& dr, const float* seg,
+                          cudaStream_t stream) {
+  constexpr int keys = 128, BQ = hp_dkv_bq<W>();
+  HpMaps maps{};
+  cudaError_t err = tile_map(&maps.q, q, st, g.batch, g.s_q, g.hq, g.d, BQ);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.k, k, st + 3, g.batch, g.s_k, g.hkv, g.d, keys);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.v, v, st + 6, g.batch, g.s_k, g.hkv, g.d, keys);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.dout, dout, st + 9, g.batch, g.s_q, g.hq, g.d, BQ);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = hp_dkv_smem<W>();
+  const auto kernel = fa_bwd_dkv_wgmma_kernel<W, SEG, DROP>;
+  static std::atomic<unsigned long long> done{0};
+  err = allow_smem(done, kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.hkv * g.batch, (g.s_k + keys - 1) / keys,
+                  hp_dkv_split<W>());
+  kernel<<<grid, kHpThreads, smem, stream>>>(
+      maps, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), view_at(st, 4), view_at(st, 5), g.hq,
+      g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr, seg, g.d);
+  return cudaGetLastError();
+}
 
 template <typename T, int W, bool PART, bool SEG, bool DROP>
 cudaError_t fwd(Variant<T, W, PART, SEG, DROP>, const void* q, const void* k,
                 const void* v, void* o, float* lse, const long long* st,
                 const Geometry& g, const Dropout& dr, const float* seg,
                 cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
+  if constexpr (kWgmmaBody<T, SEG>) {
+    return fwd_wgmma<W, SEG, DROP>(q, k, v, o, lse, st, g, dr, seg, stream);
+  } else if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_FWD_WARPS;
     constexpr int smem = fwd_mma_smem<W>();
     const auto kernel =
-        fa_fwd_mma_kernel<W, PART, FA_FWD_WARPS, FA_STAGES, SEG, DROP>;
+        fa_fwd_mma_kernel<W, PART, FA_FWD_WARPS, FA_STAGES, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1529,7 +2365,7 @@ cudaError_t fwd(Variant<T, W, PART, SEG, DROP>, const void* q, const void* k,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale, dr, seg, g.d);
+        g.s_k, g.causal, g.sm_scale, dr, g.d);
     return cudaGetLastError();
   } else {
     constexpr int TR = f32_rows<W>();
@@ -1553,12 +2389,14 @@ cudaError_t bwd_dkv(Variant<T, W, PART, SEG, DROP>, const void* q,
                     const float* lse, const float* delta, void* dk, void* dv,
                     const long long* st, const Geometry& g, const Dropout& dr,
                     const float* seg, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
+  if constexpr (kWgmmaBody<T, SEG>) {
+    return bwd_dkv_wgmma<W, SEG, DROP>(q, k, v, dout, lse, delta, dk, dv, st,
+                                       g, dr, seg, stream);
+  } else if constexpr (kTensorCores<T>) {
     constexpr int keys = 16 * FA_DKV_WARPS;
     constexpr int smem = dkv_mma_smem<W>();
     const auto kernel = fa_bwd_dkv_mma_kernel<W, PART, FA_DKV_WARPS,
-                                              dkv_bq<W>(), FA_STAGES, SEG,
-                                              DROP>;
+                                              dkv_bq<W>(), FA_STAGES, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1570,7 +2408,7 @@ cudaError_t bwd_dkv(Variant<T, W, PART, SEG, DROP>, const void* q,
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
         view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
         view_at(st, 5), g.hq, g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr,
-        seg, g.d);
+        g.d);
     return cudaGetLastError();
   } else {
     constexpr int TR = f32_rows<W>();
@@ -1636,6 +2474,14 @@ cudaError_t bwd_dq(Variant<T, W, PART, SEG, DROP>, const void* q,
 inline bool valid(const Geometry& g, const void* seg) {
   return g.batch > 0 && g.hkv > 0 && g.hq % g.hkv == 0 && g.s_q > 0 &&
          g.s_k > 0 && (seg == nullptr || g.s_q == g.s_k);
+}
+
+// the body a launch of `which` (0 forward, 1 dK / dV, 2 dQ) takes at this
+// instantiation: 0 the f32 CUDA-core body, 1 mma.sync, 2 wgmma
+template <typename T, int W, bool PART, bool SEG, bool DROP>
+int body_of(Variant<T, W, PART, SEG, DROP>, int which) {
+  if constexpr (!kTensorCores<T>) return 0;
+  else return which < 2 && kWgmmaBody<T, SEG> ? 2 : 1;
 }
 
 // f(Variant<...>{}) for the instantiation a launch at width W takes: dtype
@@ -1740,4 +2586,17 @@ extern "C" int flash_attention_bwd_dq_launch(
       head_dim, dtype, sg != nullptr, thresh != 0, [&](auto var) {
         return bwd_dq(var, q, k, v, dout, l, dl, dq, strides, g, dr, sg, s);
       });
+}
+
+// which body a launch takes (body_of's codes), -1 for a head dim or dtype
+// this library does not hold
+extern "C" int flash_attention_body(int which, int head_dim, int dtype,
+                                    int seg, int drop) {
+  int body = -1;
+  at_width<FA_TU_WIDTHS>(head_dim, dtype, seg != 0, drop != 0,
+                         [&](auto var) {
+                           body = body_of(var, which);
+                           return cudaSuccess;
+                         });
+  return body;
 }

@@ -29,7 +29,10 @@ wrapper also counts those launches in ``.segment_launches``.  They are
 how :func:`flash_attention` takes a long untileable sequence
 (:func:`_pad_to_tile`: S >= 384 padded to the 128 tile, the padding in a
 segment of its own) and how ``nn.functional.flash_attn_unpadded`` runs
-packed varlen attention.
+packed varlen attention.  In bf16 the forward and dK/dV launches with
+segments run wgmma bodies that class every (q tile, key tile) pair before
+loading it — skipped, full or masked, :func:`segment_tile_plan` — and
+:func:`kernel_body` names the body a launch takes.
 
 Head dims: every D that the JAX kernels take (a multiple of 8 up to 256)
 runs on the card.  The kernels are compiled at the widths
@@ -63,7 +66,8 @@ __all__ = ["HEAD_WIDTHS", "NEG_INF", "dropout_keep", "head_width", "dropout_scal
            "flash_attention_fwd", "flash_attention_fwd_ref",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
-           "pack_lse", "pack_lse_ref", "philox4x32_10"]
+           "kernel_body", "pack_lse", "pack_lse_ref", "philox4x32_10",
+           "segment_tile_plan", "TILE_SKIP", "TILE_FULL", "TILE_MASKED"]
 
 NEG_INF = -1e30
 
@@ -403,6 +407,79 @@ def _segments(segment_ids, b, s_q, s_k, dev):
                          f"s_k ({s_k}), got {tuple(segment_ids.shape)}")
     seg = segment_ids.to(device=dev, dtype=torch.float32).contiguous()
     return seg, seg.data_ptr()
+
+
+# the classes of segment_tile_plan, as the kernels number them
+TILE_SKIP, TILE_FULL, TILE_MASKED = 0, 1, 2
+
+
+def segment_tile_plan(seg, s_q, s_k, bq, bk, causal):
+    """The class of every (q tile, key tile) pair, int64 [B, ceil(s_q / bq),
+    ceil(s_k / bk)], by the rule the bf16 segment kernels apply before they
+    load a tile (``csrc/flash_attention.cuh tile_class``): ``seg`` [B, S]
+    (or None: no segments), q tiles of ``bq`` rows, key tiles of ``bk``.
+
+    With the [min, max] of the tile's row ids and of its key ids (only rows
+    inside s_q and keys inside s_k count), a pair is
+    :data:`TILE_SKIP` when the ranges are disjoint (no pair shares an id) or
+    the key tile lies wholly past the causal frontier of the tile's last
+    row; :data:`TILE_FULL` when both ranges are one and the same value, no
+    key is past the frontier of the tile's first row and none past s_k;
+    else :data:`TILE_MASKED`.  The kernels compute no skipped tile (nor load
+    one that no consumer of the block needs), take the unmasked path on a
+    full one and mask a masked one per score: the forward at bq = 128, bk =
+    64; dK/dV at bk = 64 against q tiles of 64 rows (32 above W 64)."""
+    n_qt, n_kt = -(-s_q // bq), -(-s_k // bk)
+    b = 1 if seg is None else seg.shape[0]
+    r0 = torch.arange(n_qt)[:, None] * bq
+    r_last = torch.clamp(r0 + bq, max=s_q) - 1
+    c0 = torch.arange(n_kt)[None, :] * bk
+    offset = s_k - s_q
+    beyond = (c0 > r_last + offset) if causal \
+        else torch.zeros(n_qt, n_kt, dtype=torch.bool)
+    crossing = (c0 + bk - 1 > r0 + offset) if causal \
+        else torch.zeros(n_qt, n_kt, dtype=torch.bool)
+    masked = (crossing | (c0 + bk > s_k)).expand(b, n_qt, n_kt)
+    skip = beyond.expand(b, n_qt, n_kt)
+    if seg is not None:
+        seg = seg.detach().to("cpu", torch.float32)
+
+        def ranges(ids, n, t):
+            pad = (-n) % t
+            lo = torch.nn.functional.pad(ids[:, :n], (0, pad),
+                                         value=float("inf"))
+            hi = torch.nn.functional.pad(ids[:, :n], (0, pad),
+                                         value=float("-inf"))
+            return (lo.reshape(b, -1, t).amin(-1),
+                    hi.reshape(b, -1, t).amax(-1))
+
+        rlo, rhi = ranges(seg, s_q, bq)
+        klo, khi = ranges(seg, s_k, bk)
+        rlo, rhi = rlo[:, :, None], rhi[:, :, None]
+        klo, khi = klo[:, None, :], khi[:, None, :]
+        skip = skip | (khi < rlo) | (klo > rhi)
+        masked = masked | ~((rlo == rhi) & (klo == khi) & (rlo == klo))
+    return torch.where(skip, TILE_SKIP,
+                       torch.where(masked, TILE_MASKED, TILE_FULL))
+
+
+def kernel_body(which, dtype, head_dim, segments, dropout):
+    """The body that a launch of ``which`` ("fwd", "bwd_dkv" or "bwd_dq")
+    takes on the card for q's ``dtype``, ``head_dim`` and the two branches
+    (``segments``, ``dropout``: bools): "cuda cores" (f32), "mma.sync" or
+    "wgmma" — read from the library's own dispatch (the C entry
+    ``flash_attention_body``), so it names what the launch runs."""
+    code = getattr(_build.library(_build.width_library(
+        "flash_attention", head_width(head_dim))), "flash_attention_body")
+    code.restype = ctypes.c_int
+    code.argtypes = [ctypes.c_int] * 5
+    body = code(("fwd", "bwd_dkv", "bwd_dq").index(which), head_dim,
+                _build.DTYPE_CODE[dtype], int(bool(segments)),
+                int(bool(dropout)))
+    if body < 0:
+        raise ValueError(f"no {which} body for {dtype} at head dim "
+                         f"{head_dim}")
+    return ("cuda cores", "mma.sync", "wgmma")[body]
 
 
 def _call(fn_name, ptrs, strides, ints, sm_scale, dropout, seg, dev):
