@@ -15,13 +15,16 @@ weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
-               kernels and of the segment branch's wgmma forward and
-               dK/dV, the RMSNorm and LayerNorm register passes, the
+               kernels and of the segment branch's wgmma forward, dK/dV
+               and dQ, the RMSNorm and LayerNorm register passes, the
                ragged paged-attention kernels and the softmax forward's
-               register pass (dQ, the ragged kernels and the register
-               passes of the softmax forward, the RMSNorm forward and the
-               LayerNorm backward must not spill), and the SASS that the
-               dropout branch adds to each mma.sync attention kernel
+               register pass (dQ, the wgmma forward and dK/dV, the ragged
+               kernels and the register passes of the softmax forward, the
+               RMSNorm forward and the LayerNorm backward must not spill,
+               nor the wgmma dQ at W 64 and 128; no flash-attention
+               kernel may carry ptxas's C7520, a serialised wgmma), and
+               the SASS that the dropout branch adds to each mma.sync
+               attention kernel
                (``cuobjdump``; instructions per Philox call); the flash-
                attention kernels build as one library per group of head
                widths (``flash_attention.cu`` at 64 and 128, and at each of
@@ -74,9 +77,12 @@ weights made from a seed:
                and 128, GQA, lengths off the tile): every bit equal to
                ``dropout_keep``, causal and not, and the keep rate over
                10.5M scores within 5 sigma of 0.9;
-               (d) their segment branch (the varlen mask, and the padding
-               of an untileable sequence, which takes a segment of its
-               own) against the plain versions: bf16 and f32, D 64 and
+               (d) every bf16 segment launch of rows 3/5/6 takes a wgmma
+               body (the library's dispatch, at every width of (e) and
+               with and without dropout); their segment branch (the
+               varlen mask, and the padding of an untileable sequence,
+               which takes a segment of its own) against the plain
+               versions: bf16 and f32, D 64 and
                128, causal and not, GQA 8:2, boundaries on and off the
                64 / 128 tiles (the JAX suite's [0]*100 + [1]*156, a
                segment inside one tile), packed rows of segments of
@@ -215,12 +221,12 @@ weights made from a seed:
                SDPA on the unpadded inputs, and at a packed varlen shape
                beside SDPA with the block-diagonal mask, the bounds counting
                the function's (unpadded, in-segment) work, the wgmma bodies'
-               skip / full / masked tile counts (``segment_tile_plan``), the
+               skip / full / masked tile counts (``segment_tile_plan`` at
+               each body's tiles: the forward's, dK/dV's and dQ's), the
                kernels as CUDA-graph replays, with ``--parent DIR`` that
-               build's rows 3s and 5s in turns with these at both shapes,
-               and one line per
-               design step of dQ's segment branch (register cap, Q and dO
-               in registers or reloaded); (e) rows 3/5/6 at the UNet's
+               build's rows 3s, 5s and 6s in turns with these at both
+               shapes, and one line per design step of the wgmma dQ (the
+               depth of its K / V ring); (e) rows 3/5/6 at the UNet's
                three attention shapes ([8, S, 8, d], (S, d) = (4,096, 40),
                (1,024, 80), (256, 160), non-causal) beside the bound
                counted at d, the plain version and SDPA's forward and
@@ -300,13 +306,17 @@ REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
                     "ragged_paged_attention_mma_kernel",
                     "ragged_paged_attention_combine_kernel",
                     "softmax_fwd_reg_kernel", "fa_fwd_wgmma_kernel",
-                    "fa_bwd_dkv_wgmma_kernel")
+                    "fa_bwd_dkv_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
 # kernels that hold their working set in registers by design: none may spill
 NO_SPILL = ("fa_bwd_dq_mma_kernel", "ragged_paged_attention_kernel",
             "ragged_paged_attention_mma_kernel",
             "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel",
             "rms_fwd_vec_kernel", "ln_bwd_vec_kernel", "fa_fwd_wgmma_kernel",
             "fa_bwd_dkv_wgmma_kernel")
+# ... and the widths at which the wgmma dQ must not spill (its accumulators
+# and pipelined S, dP and ds fill the consumers' 232 registers; the other
+# widths are reported)
+NO_SPILL_DQ_WIDTHS = (64, 128)
 
 
 def ptxas_lines(path):
@@ -410,10 +420,33 @@ def register_report(built, parent=None):
     for lib in (*fa_libs(built), "rms_norm", "layer_norm", "softmax",
                 *rpa_libs(built)):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
-            require(kernel not in NO_SPILL or (stores == 0 and loads == 0),
+            gated = kernel in NO_SPILL or (
+                kernel == "fa_bwd_dq_wgmma_kernel"
+                and template_args(args)[0] in NO_SPILL_DQ_WIDTHS)
+            require(not gated or (stores == 0 and loads == 0),
                     f"{kernel}{args} spills ({stores} B stores)")
+    serialised_wgmma(built)
     if parent is not None:
         compare_parent_ptxas(built, parent)
+
+
+def serialised_wgmma(built):
+    """ptxas's C7520 warnings in the flash-attention libraries' reports: a
+    wgmma that the compiler serialises (one issued on a divergent path
+    makes it serialise every wgmma of the kernel).  Each is printed, and
+    any fails the build."""
+    import re
+    found = []
+    for lib in fa_libs(built):
+        for line in built[lib].with_suffix(".log").read_text().splitlines():
+            if "C7520" in line:
+                m = re.search(r"function '(\w+)'", line)
+                found.append(f"{lib}: {m.group(1) if m else line.strip()}")
+    for f in found:
+        print(f"  ptxas C7520 (serialised wgmma) in {f}")
+    require(not found, f"{len(found)} kernels with serialised wgmma (C7520)")
+    print(f"  no serialised wgmma (ptxas C7520) in {len(fa_libs(built))} "
+          f"flash-attention libraries")
 
 
 def template_args(args):
@@ -428,9 +461,9 @@ def compare_parent_ptxas(built, parent):
     another commit's build of it (from the head-width slice on): each parent
     instantiation is matched to this build's twin with the same template
     arguments and their registers and spills must be equal.  A parent whose
-    mma.sync forward and dK/dV still took the segment flag has it dropped;
-    its segment instantiations are counted apart, since this build runs
-    those launches in the wgmma bodies."""
+    mma.sync forward, dK/dV or dQ still took the segment flag has it
+    dropped; its segment instantiations are counted apart, since this build
+    runs those launches in the wgmma bodies."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
@@ -447,7 +480,7 @@ def compare_parent_ptxas(built, parent):
         if kernel not in REPORTED_KERNELS[:3]:
             continue
         ta = template_args(args)
-        if kernel != "fa_bwd_dq_mma_kernel" and len(ta) == arity[kernel] + 1:
+        if len(ta) == arity[kernel] + 1:
             if ta[-2]:                      # its segment flag, then DROP
                 moved += 1
                 continue
@@ -464,8 +497,8 @@ def compare_parent_ptxas(built, parent):
     require(n > 0, "no parent instantiation of rows 3/5/6 in its report")
     print(f"  {n} parent instantiations of rows 3/5/6 at W 64 / 128: "
           f"registers and spills equal to this build's; {moved} segment "
-          f"instantiations of its mma.sync forward and dK/dV run in the "
-          f"wgmma bodies here")
+          f"instantiations of its mma.sync bodies run in the wgmma bodies "
+          f"here")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -1402,13 +1435,29 @@ SEG_MASK_READOUTS = [
 
 
 def phase_segment_kernels(fa, worst):
-    """Phase 2d: the segment branch of rows 3/5/6 against the plain
-    versions over ``SEG_ATTN_CASES`` and, at dropout 0.1,
+    """Phase 2d: every bf16 segment launch of rows 3/5/6 takes a wgmma
+    body (``kernel_body``, at every head width of phase 2e and D 64 / 128,
+    with and without dropout); the segment branch of rows 3/5/6 against
+    the plain versions over ``SEG_ATTN_CASES`` and, at dropout 0.1,
     ``SEG_DROPOUT_CASES``; the masks read out of the kernels with segments
     (every kept score inside its segment, every bit ``dropout_keep``'s);
     and the op's pad path end to end at S 577, f32, output and gradients
     against ``flash_attention_ref``.  The worst absolute errors go into
     ``worst`` under the segment rows' keys."""
+    dims = sorted({64, 128, *HEAD_DIMS_2E})
+    for d in dims:
+        for drop in (False, True):
+            body = {w: fa.kernel_body(w, torch.bfloat16, d, True, drop)
+                    for w in ("fwd", "bwd_dkv", "bwd_dq")}
+            require(set(body.values()) == {"wgmma"},
+                    f"bf16 segment launches at D {d}, dropout {drop}: "
+                    f"{body}")
+    print(f"  every bf16 segment launch of rows 3/5/6 takes a wgmma body at "
+          f"head dims {dims}, with and without dropout")
+    rows = {d: fa.segment_tiles("bwd_dq", d)[0] for d in dims}
+    print(f"  the wgmma dQ's q rows per block (segment_tiles): {rows}; a "
+          f"64-row block's two consumers split the output panels (no grid-z "
+          f"split)")
     gen = torch.Generator(device="cuda").manual_seed(13)
     attention_checks(fa, gen, SEG_ATTN_CASES, worst, keys=SEG_KEYS)
     attention_checks(fa, gen, SEG_DROPOUT_CASES, worst, DROPOUT_RATE,
@@ -2544,6 +2593,8 @@ def phase_vit(pa, img=384, B=32, warmup=3, steps=10):
         print(f"  the segment launches ran the bodies: forward "
               f"{body['fwd']}, dK/dV {body['bwd_dkv']}, dQ "
               f"{body['bwd_dq']} (the library's dispatch, bf16, D 64)")
+        require(set(body.values()) == {"wgmma"},
+                f"ViT's segment launches ran {body}")
     images_per_s = B * steps / wall
     flop = vit_flop(B, img)
     mfu = flop * steps / wall / BF16_FLOP_PER_S
@@ -3144,8 +3195,9 @@ def segment_inputs(fa, gen, shape, lens):
 
 def tile_counts(fa, seg, s, bq, bk=64):
     """(skip, full, masked) tile pairs of ``segment_tile_plan`` at S = s,
-    non-causal, summed over the batch rows: the forward's with bq = 128,
-    dK/dV's with bq = 64 (its q tile at D 64)."""
+    non-causal, summed over the batch rows, at a body's tiles (bq, bk)
+    (``segment_tiles``: the forward's and dQ's 128 x 64 at D 64, dK/dV's
+    64 x 64)."""
     plan = fa.segment_tile_plan(seg, s, s, bq, bk, False)
     return tuple(int((plan == c).sum())
                  for c in (fa.TILE_SKIP, fa.TILE_FULL, fa.TILE_MASKED))
@@ -3158,8 +3210,9 @@ def segment_timing(fa, gen, shape, lens, label, lib_what):
     block-diagonal boolean mask).  The bound counts the work of the
     function: the unpadded bytes (and the ids) and the (query, key) pairs
     inside the segments; the work the kernels do and the tile classes of
-    the wgmma bodies (``segment_tile_plan``: the forward's 128 x 64 tiles,
-    dK / dV's 64 x 64 at D 64) are printed beside it.  The kernels are timed as
+    the wgmma bodies (``segment_tile_plan`` at each body's
+    ``segment_tiles``: the forward's and dQ's 128 x 64 tiles, dK / dV's
+    64 x 64 at D 64) are printed beside it.  The kernels are timed as
     CUDA-graph replays (the packed varlen launches run for less than the
     wrappers' host cost), their plain versions and SDPA eagerly."""
     b, s, _, h, _, d = shape
@@ -3167,10 +3220,12 @@ def segment_timing(fa, gen, shape, lens, label, lib_what):
         fa, gen, shape, lens)
     sp = qp.shape[1]
     tiles = []
-    for what, bq in (("forward", 128), ("dK/dV", 64)):
-        skip, full, masked = tile_counts(fa, seg, sp, bq)
-        done = (full + masked) * bq * 64 * h
-        tiles.append(f"{what}'s {bq} x 64 tiles {skip} skipped, {full} "
+    for what, which in (("forward", "fwd"), ("dK/dV", "bwd_dkv"),
+                        ("dQ", "bwd_dq")):
+        bq, bk = fa.segment_tiles(which, d)
+        skip, full, masked = tile_counts(fa, seg, sp, bq, bk)
+        done = (full + masked) * bq * bk * h
+        tiles.append(f"{what}'s {bq} x {bk} tiles {skip} skipped, {full} "
                      f"full, {masked} masked ({done / 1e6:.1f}M pairs "
                      f"computed)")
     print(f"  {label.strip()}: the mma.sync bodies score "
@@ -3215,7 +3270,7 @@ def segment_timing(fa, gen, shape, lens, label, lib_what):
 
 
 def parent_segment_turns(parent, fa, gen, shape, lens, label):
-    """``--parent DIR``: rows 3s and 5s of another commit's
+    """``--parent DIR``: rows 3s, 5s and 6s of another commit's
     ``flash_attention.cu`` (DIR holds its ``csrc``) timed in turns with this
     build's — parent, new, new, parent — on ``segment_inputs``, through the
     C entries (each build with the trailing arguments its source takes,
@@ -3246,8 +3301,9 @@ def parent_segment_turns(parent, fa, gen, shape, lens, label):
     delta = delta_of(dop, ro)
     rdk, rdv = fa.flash_attention_bwd_dkv_ref(qp, kp, vp, dop, rlse, delta,
                                               *args)
+    rdq = fa.flash_attention_bwd_dq_ref(qp, kp, vp, dop, rlse, delta, *args)
     o, lse = torch.empty_like(qp), torch.empty_like(rlse)
-    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    dk, dv, dq = (torch.empty_like(x) for x in (kp, vp, qp))
     tol = TRAIN_TOL[torch.bfloat16]
     for side in ("parent", "new", "new", "parent"):
         lib = libs[side]
@@ -3257,17 +3313,23 @@ def parent_segment_turns(parent, fa, gen, shape, lens, label):
                                        geometry, False, sc, tail),
             "bwd_dkv": lambda i: fa_direct(
                 lib, "bwd_dkv", (qp, kp, vp, dop, rlse, delta, dk, dv),
-                geometry, False, sc, tail)}
+                geometry, False, sc, tail),
+            "bwd_dq": lambda i: fa_direct(
+                lib, "bwd_dq", (qp, kp, vp, dop, rlse, delta, dq), geometry,
+                False, sc, tail)}
         for fn in calls.values():
             fn(0)
         held(f"fwd o   [{side}{label}]", o, ro, tol, p_round)
         held(f"fwd lse [{side}{label}]", lse, rlse, TRAIN_TOL[torch.float32])
         held(f"dk [{side}{label}]", dk, rdk, tol)
         held(f"dv [{side}{label}]", dv, rdv, tol)
-        fwd_ms, dkv_ms = (graph_ms(fn, 10) for fn in calls.values())
-        print(f"  turn {side}{label}: rows 3s / 5s {list(shape)}: forward "
-              f"{fwd_ms:.4f} ms, dK/dV {dkv_ms:.4f} ms")
-    del qp, kp, vp, dop, ro, rlse, p_round, delta, rdk, rdv, o, lse, dk, dv
+        held(f"dq [{side}{label}]", dq, rdq, tol)
+        fwd_ms, dkv_ms, dq_ms = (graph_ms(fn, 10) for fn in calls.values())
+        print(f"  turn {side}{label}: rows 3s / 5s / 6s {list(shape)}: "
+              f"forward {fwd_ms:.4f} ms, dK/dV {dkv_ms:.4f} ms, dQ "
+              f"{dq_ms:.4f} ms")
+    del qp, kp, vp, dop, ro, rlse, p_round, delta, rdk, rdv, rdq, o, lse
+    del dk, dv, dq
     torch.cuda.empty_cache()
 
 
@@ -3278,26 +3340,25 @@ VIT_ATTN_SHAPE = (32, 577, 577, 16, 16, 64)
 VARLEN_SHAPE = (2, 4096, 4096, 16, 16, 64)
 
 
-# Design steps of dQ's segment branch at D 64 (compile-time settings of
-# flash_attention.cu, as ``FA_VARIANTS``): its register cap (blocks per SM)
-# and whether Q and dO stay in registers; the shipped build is the first
+# Design steps of the segment branch's wgmma dQ at D 64 (compile-time
+# settings of flash_attention.cu, as ``FA_VARIANTS``): the depth of its
+# K / V ring (a consumer holds two stages, the tile it scores and the one
+# whose ds K is in flight, so a ring of 2 loads nothing ahead); the
+# shipped build is the first
 SEG_DQ_VARIANTS = (
-    ("shipped: Q, dO in registers, 2 blocks/SM", ()),
-    ("Q, dO in registers, 3 blocks/SM", ("-DFA_DQ_SEG_MINB=3",)),
-    ("Q, dO reloaded, 3 blocks/SM", ("-DFA_DQ_SEG_REGA64=0",
-                                     "-DFA_DQ_SEG_MINB=3")),
-    ("Q, dO reloaded, 2 blocks/SM", ("-DFA_DQ_SEG_REGA64=0",)),
-    ("Q, dO reloaded, 4 blocks/SM", ("-DFA_DQ_SEG_REGA64=0",
-                                     "-DFA_DQ_SEG_MINB=4")),
+    ("shipped: a ring of 4 K / V stages", ()),
+    ("a ring of 2", ("-DFA_DQ_HP_STAGES=2",)),
+    ("a ring of 3", ("-DFA_DQ_HP_STAGES=3",)),
+    ("a ring of 6", ("-DFA_DQ_HP_STAGES=6",)),
 )
 
 
 def segment_design_steps(fa, gen, shape=VIT_ATTN_SHAPE):
-    """One line per entry of ``SEG_DQ_VARIANTS``: the variant's dQ segment
-    branch held against the plain version and timed on ``shape``'s padded
-    inputs, with ptxas's registers and spills of its D 64 instantiation,
-    in two turns.  A measurement only: the port loads the shipped build,
-    which is put back however this ends."""
+    """One line per entry of ``SEG_DQ_VARIANTS``: the variant's wgmma dQ
+    held against the plain version and timed as CUDA-graph replays on
+    ``shape``'s padded inputs, with ptxas's registers and spills of its
+    D 64 instantiation, in two turns.  A measurement only: the port loads
+    the shipped build, which is put back however this ends."""
     import ctypes
 
     from paddle_tpu_torch.ops import _build
@@ -3318,13 +3379,13 @@ def segment_design_steps(fa, gen, shape=VIT_ATTN_SHAPE):
                 held(f"dq [{what}]", fa.flash_attention_bwd_dq(
                     qp, kp, vp, dop, rlse, delta, *args), rdq,
                     TRAIN_TOL[torch.bfloat16])
-                ms = time_ms(lambda i: fa.flash_attention_bwd_dq(
+                ms = graph_ms(lambda i: fa.flash_attention_bwd_dq(
                     qp, kp, vp, dop, rlse, delta, *args), 20)
                 regs = ", ".join(
                     f"{r} registers, {st} B spilled" for kern, a, r, st, _
-                    in ptxas_lines(path) if kern == "fa_bwd_dq_mma_kernel"
-                    and a.startswith("ILi64E") and a.endswith("Lb1ELb0EE"))
-                print(f"  design step of dQ's segment branch, turn {turn}, "
+                    in ptxas_lines(path) if kern == "fa_bwd_dq_wgmma_kernel"
+                    and template_args(a) == [64, 1, 0])
+                print(f"  design step of the wgmma dQ, turn {turn}, "
                       f"{what}: {ms:.4f} ms ({regs})")
     finally:
         _build._LIBS["flash_attention"] = shipped
@@ -3336,8 +3397,8 @@ def phase_segment_timing(parent=None):
     """Phase 5d: the segment branch of rows 3, 5 and 6 at ViT-L/16's
     attention shape (phase 3g: 577 rows padded to 640), and at a packed
     varlen shape beside SDPA with the block-diagonal mask; with ``parent``
-    (another commit's ``csrc``) that build's rows 3s and 5s in turns with
-    these at both shapes; then the design steps of dQ's segment branch.
+    (another commit's ``csrc``) that build's rows 3s, 5s and 6s in turns
+    with these at both shapes; then the design steps of the wgmma dQ.
     Returns the ViT shape's numbers."""
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(22)
@@ -3347,7 +3408,8 @@ def phase_segment_timing(parent=None):
     segment_timing(fa, gen, VARLEN_SHAPE, varlen, " (segments, varlen)",
                    "SDPA with the block-diagonal boolean mask")
     if parent is not None:
-        print(f"  rows 3s and 5s against the build of {parent}, in turns:")
+        print(f"  rows 3s, 5s and 6s against the build of {parent}, in "
+              f"turns:")
         parent_segment_turns(parent, fa, gen, VIT_ATTN_SHAPE, "pad",
                              " (ViT)")
         parent_segment_turns(parent, fa, gen, VARLEN_SHAPE, varlen,
@@ -3440,9 +3502,8 @@ def design_steps(fa, gen, shape, causal):
             regs = ", ".join(
                 f"{r} registers, {st} B spilled" for kern, args, r, st, _
                 in ptxas_lines(path)
-                if kern == "fa_bwd_dq_mma_kernel" and args.startswith(
-                    f"ILi{d}E") and args.endswith(("Lb0ELb0EE",
-                                                   "Lb0ELb1EE")))
+                if kern == "fa_bwd_dq_mma_kernel"
+                and template_args(args)[:2] == [d, 0])
             print(f"  design step {what}: fwd {fwd_ms:.4f} ms, dK/dV "
                   f"{dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms (dQ at D {d}: "
                   f"{regs})")

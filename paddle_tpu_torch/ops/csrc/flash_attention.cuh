@@ -11,10 +11,11 @@
 //        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
 //   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_mma_kernel,
 //                                                fa_bwd_dkv_kernel)
-//   _fwd_kernel / _bwd_dkv_kernel, has_segments, bf16 (fa_fwd_wgmma_kernel,
-//                                                fa_bwd_dkv_wgmma_kernel)
 //   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_mma_kernel,
 //                                                fa_bwd_dq_kernel)
+//   _fwd_kernel / _bwd_dkv_kernel / _bwd_dq_kernel, has_segments, bf16
+//        (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel,
+//         fa_bwd_dq_wgmma_kernel)
 //
 // Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
 // each is read or written through its (batch, seq, head) strides with unit
@@ -99,7 +100,7 @@
 // (`pd.astype(v.dtype)`).  The TPU backward keeps p and ds in f32; here each
 // enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
 // 2^-16 relative, with two products into one f32 accumulator.  The
-// segment branch's bf16 forward and dK / dV are warp-specialised wgmma
+// segment branch's bf16 forward, dK / dV and dQ are warp-specialised wgmma
 // bodies fed by TMA (below); every other bf16 launch takes mma.sync.
 //
 // Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
@@ -122,10 +123,10 @@
 //
 // Segment ids (the TPU kernels' has_segments branch: the varlen mask, and
 // the padding of an untileable sequence, which takes a segment of its own)
-// are the template flag SEG beside DROP of the three f32 bodies, the bf16
-// dQ and the bf16 wgmma forward and dK / dV, which take every bf16 segment
-// launch of rows 3 and 5; the SEG = false instantiations are the kernels
-// as they were.  The ids of one batch row,
+// are the template flag SEG beside DROP of the three f32 bodies and of the
+// three bf16 wgmma bodies, which take every bf16 segment launch of rows 3,
+// 5 and 6; the SEG = false instantiations are the kernels as they were.
+// The ids of one batch row,
 // f32 [S] (S = S_q = S_k), are read from device memory where a score is
 // masked, and a score whose q row and key lie in different segments is
 // NEG_INF, as on the TPU: it composes with the causal mask and the dropout
@@ -133,20 +134,18 @@
 // tiles hold no key of its segment runs its max at NEG_INF until one
 // arrives, whose rescale exp(NEG_INF - m) then clears what those tiles
 // summed (the TPU kernel's behaviour; a true -inf there would give NaN).
-// The bf16 forward and dK / dV of the segment branch are their own bodies
-// (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel), written for what bounded
-// the mma.sync ones there (11.8% and 13.3% of their bound at ViT-L/16's
-// shape, 2.5x slower than SDPA): every tile masked per score from ids read
-// out of device memory, no tile ever skipped (23x the pairs a packed varlen
-// row needs), mma.sync products with a block barrier per tile.  They class
-// each (q tile, key tile) pair before its tile is loaded — skipped, full
-// (the unmasked path) or masked from ids staged in shared memory beside the
-// tile (tile_class; the TPU kernel skips none, and skipping changes no
-// value) — and run wgmma on TMA-loaded tiles, a producer warp feeding
-// consumer warpgroups.  dQ and the f32 bodies mask every tile with SEG:
-// per tile each thread turns the ids of its scores' rows and columns into a
-// bit per score (segment_bits), so that the segment mask costs one register
-// in the loop over the scores.
+// The bf16 forward, dK / dV and dQ of the segment branch are their own
+// bodies (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel,
+// fa_bwd_dq_wgmma_kernel), written for what bounded the mma.sync ones
+// there (11.8%, 13.3% and 12.2% of their bound at ViT-L/16's shape, slower
+// than SDPA): every tile masked per score from ids read out of device
+// memory, no tile ever skipped (23x the pairs a packed varlen row needs),
+// mma.sync products with a block barrier per tile.  They class each (q
+// tile, key tile) pair before its tile is loaded — skipped, full (the
+// unmasked path) or masked from ids staged in shared memory beside the tile
+// (tile_class; the TPU kernel skips none, and skipping changes no value) —
+// and run wgmma on TMA-loaded tiles, a producer warp feeding consumer
+// warpgroups.  The f32 bodies mask every tile with SEG.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().  flash_attention.cu defines FA_TU_WIDTHS (its widths;
@@ -730,13 +729,6 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #define FA_DQ_REGA64 1         // dQ at D = 64 holds each warp's Q and dO
 #endif                         // fragments in registers (0: reloads them
                                // per k-step, as it always does at D = 128)
-#ifndef FA_DQ_SEG_REGA64
-#define FA_DQ_SEG_REGA64 1     // the same for dQ's segment branch
-#endif
-#ifndef FA_DQ_SEG_MINB
-#define FA_DQ_SEG_MINB 2       // dQ's segment branch: blocks per SM at D = 64
-#endif                         // (at 3 or 4 it spills, with or without the
-                               // fragments in registers)
 
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kKeyTile = 64;           // keys per forward k tile
@@ -777,33 +769,6 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
                  row < rows);
     }
   }
-}
-
-// With SEG (the bf16 dQ), which of a thread's scores of one tile stay
-// inside a segment, as bits: bit 4 i + 2 r + c is set where fragment row
-// row0 + 8 r and column col0 + 8 i + c (i < N: the thread's n-tiles, c:
-// its 2 columns of each) hold the same id.  Built once per tile from the
-// ids in device memory (a tile's ids are L1-resident across the block), so
-// that the loop over the scores holds one register for the segment mask
-// (n = S, the clamp for rows and columns past it, which are never kept or
-// written).
-template <int N>
-__device__ __forceinline__ unsigned segment_bits(const float* segb, int row0,
-                                                 int col0, int n) {
-  float rs[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) rs[r] = segb[min(row0 + 8 * r, n - 1)];
-  unsigned bits = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float cs = segb[min(col0 + 8 * i + c, n - 1)];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        bits |= (unsigned)(rs[r] == cs) << (4 * i + 2 * r + c);
-    }
-  return bits;
 }
 
 // number of 64-key tiles that a q tile of rows [row0, row0 + R) visits
@@ -1253,14 +1218,12 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // enters dQ += ds K with K read as B (k x n, the transposed ldmatrix), so S
 // and dP live 16 keys at a time.  The q blocks with the most key tiles are
 // launched first.  dQ is rounded to bf16 once, staged in the warp's own rows
-// of the Q tile and written as 16-byte row chunks.  With SEG every tile is
-// masked, under the tile's segment bits.  Above W 160, grid z splits the
-// output columns, as in dK / dV.
-template <int W, bool PART, int NW, int NS, bool RA, bool SEG, bool DROP>
+// of the Q tile and written as 16-byte row chunks.  Above W 160, grid z
+// splits the output columns, as in dK / dV.  (The segment branch is the
+// wgmma dQ's.)
+template <int W, bool PART, int NW, int NS, bool RA, bool DROP>
 __global__ void __launch_bounds__(NW * 32,
-                                  (fa_narrow(W, PART)
-                                       ? (SEG ? FA_DQ_SEG_MINB : FA_DQ_MINB)
-                                       : 1))
+                                  (fa_narrow(W, PART) ? FA_DQ_MINB : 1))
 fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -1269,8 +1232,7 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dq, View qv, View kv,
                      View vv, View dov, View dqv, int hq, int hkv, int s_q,
-                     int s_k, int causal, float sm_scale, Dropout dr,
-                     const float* __restrict__ seg, int d) {
+                     int s_k, int causal, float sm_scale, Dropout dr, int d) {
   constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
   constexpr int LD = tile_ld<W>();
   constexpr int KS = W / 16;                // k-steps of Q K^T and dO V^T
@@ -1326,7 +1288,6 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
     dlt[r] = row < s_q ? delta[at] : 0.f;
   }
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
 
   cp_async_wait<(NS > 1 ? NS - 1 : 1)>();   // Q and dO have landed
   __syncthreads();
@@ -1366,14 +1327,11 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* ks = k_s + (kt % NS) * BN * LD;
     const __nv_bfloat16* vs = v_s + (kt % NS) * BN * LD;
     // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys, or every tile with SEG: its scores are scaled first and a
-    // masked one is NEG_INF exactly (-inf past the keys); a full tile takes
-    // the scale in the exponent's FFMA
-    const bool masked = SEG || (causal && kcol0 + BN - 1 > wrow + offset) ||
+    // of the keys: its scores are scaled first and a masked one is NEG_INF
+    // exactly (-inf past the keys); a full tile takes the scale in the
+    // exponent's FFMA
+    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
                         kcol0 + BN > s_k;
-    unsigned same = 0;                      // n-tile 2 np + j of the tile
-    if constexpr (SEG)
-      same = segment_bits<BN / 8>(segb, wrow + g, kcol0 + 2 * t, s_k);
 
 #pragma unroll
     for (int np = 0; np < BN / 16; ++np) {  // keys kcol0 + 16 np .. + 15
@@ -1413,8 +1371,6 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
             x = s[j][e] * scale2;
             if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
             else if (causal && row + offset < col) x = neg2;
-            else if (SEG && !((same >> (4 * (2 * np + j) + e)) & 1u))
-              x = neg2;
             x -= lse2[e >> 1];
           } else {
             x = fmaf(s[j][e], scale2, -lse2[e >> 1]);
@@ -1464,22 +1420,24 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// The segment branch's bf16 forward and dK / dV, written for Hopper's
+// The segment branch's bf16 forward, dK / dV and dQ, written for Hopper's
 // warpgroups (sm90_wgmma.cuh).  A block holds consumer warpgroups of 64
-// rows each (q rows in the forward, keys in dK / dV) and one producer warp
-// that keeps the block's ring of tiles full by TMA.  The products are
-// wgmma: S = Q K^T (and S^T = K Q^T, dP^T = V dO^T) from two shared tiles,
-// then O += P V (and dV += p^T dO, dK += ds^T Q, p and ds as hi + lo) with
-// the score fragments in registers as the A operand.  The output columns
-// run in 64-column panels, so W 32 / 48 / 80 / 96 / 160 carry zero columns
-// up to the next panel (W 160 runs three).  Above two panels, dK / dV
-// splits its output panels between two blocks (grid z), each with at most
-// two.
+// rows each (q rows in the forward and dQ, keys in dK / dV) and one
+// producer warp that keeps the block's ring of tiles full by TMA.  The
+// products are wgmma: S = Q K^T (and S^T = K Q^T, dP^T = V dO^T, dP = dO
+// V^T) from two shared tiles, then O += P V (and dV += p^T dO, dK += ds^T
+// Q, dQ += ds K, p and ds as hi + lo) with the score fragments in registers
+// as the A operand.  The output columns run in 64-column panels, so W 32 /
+// 48 / 80 / 96 / 160 carry zero columns up to the next panel (W 160 runs
+// three).  Above two panels, dK / dV splits its output panels between two
+// blocks (grid z), each with at most two, and dQ between the two consumers
+// of a 64-row block.
 //
 // Per-tile segment classes (tile_class): before the producer loads a
 // streamed tile it reads the tile's ids (one warp, from L2), takes their
 // [min, max] and compares it with the block's own rows (the forward: its
-// 128 q rows, for both consumers) or with each consumer's keys (dK / dV):
+// q rows, for both consumers; dQ likewise) or with each consumer's keys
+// (dK / dV):
 //   disjoint ranges: no pair shares an id, and the tile is skipped (never
 //     loaded when every consumer skips it, never computed);
 //   both ranges one and the same value: the unmasked path;
@@ -1533,6 +1491,30 @@ __host__ __device__ constexpr int hp_dkv_bq() {
 template <int W>
 __host__ __device__ constexpr int hp_dkv_stages() {
   return hp_panels<W>() > 2 ? 2 : 3;
+}
+// dQ: the q rows of a block and the output panels of each consumer.  Up to
+// two panels a block takes 128 rows, 64 per consumer, each with every
+// output panel; above, the resident Q and dO of 128 rows would leave no
+// room for a ring, so a block takes 64 rows, both consumers compute their
+// S and dP, and each accumulates half of the output panels.  The ring
+// holds as many K / V stages as fit the 227 KB, at most FA_DQ_HP_STAGES.
+#ifndef FA_DQ_HP_STAGES
+#define FA_DQ_HP_STAGES 4
+#endif
+template <int W>
+__host__ __device__ constexpr int hp_dq_rows() {
+  return hp_panels<W>() <= 2 ? 128 : 64;
+}
+template <int W>
+__host__ __device__ constexpr int hp_dq_panels() {
+  return hp_panels<W>() <= 2 ? hp_panels<W>() : 2;
+}
+template <int W>
+__host__ __device__ constexpr int hp_dq_stages() {
+  constexpr int NP = hp_panels<W>();
+  constexpr int fit = (232448 - 4096 - 2 * NP * hp_dq_rows<W>() * 128) /
+                      (2 * NP * kKeyTile * 128 + 288);
+  return fit < FA_DQ_HP_STAGES ? fit : FA_DQ_HP_STAGES;
 }
 
 // the tensor maps of a launch: q, k, v and, for dK / dV, dO
@@ -1599,6 +1581,63 @@ __device__ __forceinline__ void tile_ids(float (&id)[N / 32], float& lo,
   }
   lo = -warp_max(-lo);
   hi = warp_max(hi);
+}
+
+// The producer warp's stream of the key tiles that q rows [row0, row0 + BM)
+// need, in order (the forward's and dQ's): each tile classed for those rows
+// (tile_class against their ids' [min, max] in range_s; a skipped tile is
+// never loaded), the others loaded into ring stage s once every consumer
+// warp has released it (empty[s]): the K and V panels by TMA, counted on
+// full[s], the tile's ids in ids_s and a {kt, class, end} record in meta;
+// then a record with the end flag.
+template <int BM, int NP, int NS, bool SEG>
+__device__ __forceinline__ void stream_key_tiles(
+    const HpMaps& maps, __nv_bfloat16* k_s, __nv_bfloat16* v_s,
+    float* ids_s, int* meta, uint64_t* full, uint64_t* empty,
+    const float* segb, const float* range_s, int row0, int hk, int b,
+    int s_q, int s_k, int causal) {
+  constexpr int BN = kKeyTile, PK = BN * 64;
+  const int lane = threadIdx.x % 32;
+  const int offset = s_k - s_q;
+  const float rlo = SEG ? range_s[0] : 0.f, rhi = SEG ? range_s[1] : 0.f;
+  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
+  int stage = 0;
+  unsigned phase = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int c0 = kt * BN;
+    float id[2] = {0.f, 0.f}, klo = 0.f, khi = 0.f;
+    if constexpr (SEG) tile_ids<BN>(id, klo, khi, segb, c0, s_k);
+    const int cls = tile_class(row0, min(row0 + BM, s_q) - 1, c0, BN, s_k,
+                               offset, causal, SEG, rlo, rhi, klo, khi);
+    if (cls == kTileSkip) continue;
+    mbar_wait(&empty[stage], phase ^ 1);
+    if constexpr (SEG) {
+      ids_s[stage * BN + lane] = id[0];
+      ids_s[stage * BN + 32 + lane] = id[1];
+    }
+    if (lane == 0) {
+      int* mt = meta + 4 * stage;
+      mt[0] = kt;
+      mt[1] = cls;
+      mt[2] = 0;
+      mbar_arrive_tx(&full[stage], 2 * NP * PK * 2);
+      for (int p = 0; p < NP; ++p) {
+        tma_load(k_s + (stage * NP + p) * PK, &maps.k, &full[stage], 64 * p,
+                 c0, hk, b);
+        tma_load(v_s + (stage * NP + p) * PK, &maps.v, &full[stage], 64 * p,
+                 c0, hk, b);
+      }
+    } else {
+      mbar_arrive(&full[stage]);
+    }
+    if (++stage == NS) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  mbar_wait(&empty[stage], phase ^ 1);
+  if (lane == 0) meta[4 * stage + 2] = 1;   // the end of the stream
+  mbar_arrive(&full[stage]);
 }
 
 template <int W>
@@ -1674,45 +1713,9 @@ fa_fwd_wgmma_kernel(const __grid_constant__ HpMaps maps,
       for (int p = 0; p < NP; ++p)
         tma_load(q_s + p * PQ, &maps.q, qbar, 64 * p, row0, h, b);
     }
-    const float rlo = SEG ? range_s[0] : 0.f, rhi = SEG ? range_s[1] : 0.f;
-    const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
-    int stage = 0;
-    unsigned phase = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int c0 = kt * BN;
-      float id[2] = {0.f, 0.f}, klo = 0.f, khi = 0.f;
-      if constexpr (SEG) tile_ids<BN>(id, klo, khi, segb, c0, s_k);
-      const int cls = tile_class(row0, min(row0 + BM, s_q) - 1, c0, BN, s_k,
-                                 offset, causal, SEG, rlo, rhi, klo, khi);
-      if (cls == kTileSkip) continue;
-      mbar_wait(&empty[stage], phase ^ 1);
-      if constexpr (SEG) {
-        ids_s[stage * BN + lane] = id[0];
-        ids_s[stage * BN + 32 + lane] = id[1];
-      }
-      if (lane == 0) {
-        int* mt = meta + 4 * stage;
-        mt[0] = kt;
-        mt[1] = cls;
-        mt[2] = 0;
-        mbar_arrive_tx(&full[stage], 2 * NP * PK * 2);
-        for (int p = 0; p < NP; ++p) {
-          tma_load(k_s + (stage * NP + p) * PK, &maps.k, &full[stage], 64 * p,
-                   c0, hk, b);
-          tma_load(v_s + (stage * NP + p) * PK, &maps.v, &full[stage], 64 * p,
-                   c0, hk, b);
-        }
-      } else {
-        mbar_arrive(&full[stage]);
-      }
-      if (++stage == NS) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    mbar_wait(&empty[stage], phase ^ 1);
-    if (lane == 0) meta[4 * stage + 2] = 1;   // the end of the stream
-    mbar_arrive(&full[stage]);
+    stream_key_tiles<BM, NP, NS, SEG>(maps, k_s, v_s, ids_s, meta, full,
+                                      empty, segb, range_s, row0, hk, b, s_q,
+                                      s_k, causal);
   } else {
     regs_alloc<kHpConsumerRegs>();
     const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
@@ -2233,6 +2236,285 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
 }
 
 
+template <int W>
+constexpr int hp_dq_smem() {
+  constexpr int NP = hp_panels<W>(), NS = hp_dq_stages<W>();
+  return 1024 +
+         (2 * NP * hp_dq_rows<W>() * 64 + 2 * NS * NP * kKeyTile * 64) * 2 +
+         NS * kKeyTile * 4 + 16 + NS * 16 + (2 * NS + 1) * 8;
+}
+
+// dQ.  A block takes BM q rows of one (batch, q head) and keeps their Q and
+// dO tiles resident (loaded once by TMA); consumer warpgroup w computes S =
+// Q K^T and dP = dO V^T for its 64 rows (rows 64 w .. at BM 128, the
+// block's rows at BM 64) and accumulates dQ += ds K over its output panels
+// in registers, with ds = p (dP - delta) as hi + lo (2^-16 relative, as the
+// TPU kernel's f32), the A operand straight from the score fragments, and
+// K read MN-major as the forward reads V.  The rows' lse and delta sit in
+// registers.  The producer classes the key tiles for the block's rows, as
+// the forward does, and streams the K / V tiles the rows need.  Each
+// consumer pipelines them: it issues S and dP of a tile, then ds K of the
+// tile before, so that its exponentials of the one run while the tensor
+// cores work on the other.  Every wgmma is issued on every pass (while no
+// tile is pending, ds is zero against the resident Q tile), so that none
+// sits on a branch; where a consumer has fewer panels than NPB (W 160 /
+// 192) it repeats its last and stores it once.  dQ is scaled by sm_scale
+// and rounded to bf16 once in the epilogue.  The q tiles with the most key
+// tiles are launched first.
+template <int W, bool SEG, bool DROP>
+__global__ void __launch_bounds__(kHpThreads, 1)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ HpMaps maps,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, View dqv, int hq,
+                       int hkv, int s_q, int s_k, int causal, float sm_scale,
+                       Dropout dr, const float* __restrict__ seg, int d) {
+  constexpr int NP = hp_panels<W>(), NS = hp_dq_stages<W>();
+  constexpr int BM = hp_dq_rows<W>(), NPB = hp_dq_panels<W>();
+  constexpr int BN = kKeyTile, KS = W / 16;
+  constexpr int PQ = BM * 64, PK = BN * 64;  // elements of a Q / K panel
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);  // NP x PQ
+  __nv_bfloat16* do_s = q_s + NP * PQ;      // NP x PQ
+  __nv_bfloat16* k_s = do_s + NP * PQ;      // NS x NP x PK
+  __nv_bfloat16* v_s = k_s + NS * NP * PK;  // NS x NP x PK
+  float* ids_s = reinterpret_cast<float*>(v_s + NS * NP * PK);  // NS x BN
+  float* range_s = ids_s + NS * BN;         // the rows' ids [2]
+  int* meta = reinterpret_cast<int*>(range_s + 4);  // NS x {kt, class, end}
+  uint64_t* full = reinterpret_cast<uint64_t*>(meta + 4 * NS);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int n_qt = (s_q + BM - 1) / BM;
+  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
+  const int hk = h / (hq / hkv);
+  const int offset = s_k - s_q;
+  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  if constexpr (SEG)
+    if (threadIdx.x < 32) seg_range<BM>(range_s, segb, row0, s_q);
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: warp 8 loads Q and dO, then classifies and streams the key
+    // tiles that the rows need
+    regs_dealloc<kHpProducerRegs>();
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 2 * NP * PQ * 2);
+      for (int p = 0; p < NP; ++p) {
+        tma_load(q_s + p * PQ, &maps.q, qbar, 64 * p, row0, h, b);
+        tma_load(do_s + p * PQ, &maps.dout, qbar, 64 * p, row0, h, b);
+      }
+    }
+    stream_key_tiles<BM, NP, NS, SEG>(maps, k_s, v_s, ids_s, meta, full,
+                                      empty, segb, range_s, row0, hk, b, s_q,
+                                      s_k, causal);
+  } else {
+    regs_alloc<kHpConsumerRegs>();
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int rg = BM == 128 ? wg : 0;        // the group's 64 rows
+    const int pz0 = BM == 128 ? 0 : NPB * wg; // its first output panel
+    const int wrow = row0 + 64 * rg + 16 * warp;   // the warp's first q row
+    const float scale2 = sm_scale * kLog2e;
+    const float neg2 = kNegInf * kLog2e;
+    // rows g, g + 8: ids, lse in base 2 and delta; rows past s_q read 0
+    // (their q and dO rows are zeros, so their ds is 0) and are not written
+    float rid[2] = {0.f, 0.f}, lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + g + 8 * r;
+      const long long at = ((long long)b * hq + h) * s_q + row;
+      lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
+      dlt[r] = row < s_q ? delta[at] : 0.f;
+      if constexpr (SEG) rid[r] = segb[min(row, s_k - 1)];
+    }
+    float acc[NPB][8][4];
+#pragma unroll
+    for (int p = 0; p < NPB; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+    // the pending tile: its ds as hi + lo (zero while none is) and its K
+    // panels (the Q tile while none is: any finite tile of that shape)
+    unsigned dh[BN / 16][4], dl[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dh[kk][i] = 0u;
+        dl[kk][i] = 0u;
+      }
+    const __nv_bfloat16* qw = q_s + 64 * 64 * rg;   // the group's rows
+    const __nv_bfloat16* dow = do_s + 64 * 64 * rg;
+    const __nv_bfloat16* kp = q_s;
+    int kpanel = PQ;                          // elements between its panels
+    int pend = -1;                            // its stage (-1: none)
+    auto issue_dq = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NPB; ++p) {
+          const uint64_t db =
+              desc_mn(kp + min(pz0 + p, NP - 1) * kpanel, kk);
+          wgmma_rs(acc[p], dh[kk], db);
+          wgmma_rs(acc[p], dl[kk], db);
+        }
+    };
+    mbar_wait(qbar, 0);
+
+    int stage = 0;
+    unsigned phase = 0;
+    for (;;) {
+      mbar_wait(&full[stage], phase);
+      const int* mt = meta + 4 * stage;
+      if (mt[2]) break;
+      const int kcol0 = mt[0] * BN;
+      const bool masked = mt[1] == kTileMasked;
+      const __nv_bfloat16* ks = k_s + stage * NP * PK;
+      const __nv_bfloat16* vs = v_s + stage * NP * PK;
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+      fence_acc(s);
+      fence_acc(dp);
+#pragma unroll
+      for (int p = 0; p < NPB; ++p) fence_acc(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_ss(s, desc_k(qw + (kk / 4) * PQ, kk % 4),
+                 desc_k(ks + (kk / 4) * PK, kk % 4), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_ss(dp, desc_k(dow + (kk / 4) * PQ, kk % 4),
+                 desc_k(vs + (kk / 4) * PK, kk % 4), kk > 0);
+      wgmma_commit();
+      issue_dq();                             // the pending tile's ds K
+      wgmma_commit();
+      wgmma_wait<1>();                        // S and dP have landed
+      fence_acc(s);
+      fence_acc(dp);
+
+      // p = exp(s - lse): a masked tile's scores are masked per score
+      // (NEG_INF exactly, -inf past the keys), a full tile's take the scale
+      // in the exponent's FFMA; with DROP, ds takes the dropped dP (each
+      // 16-key group's keep words drawn here, two calls for its 8 scores);
+      // then ds = p (dP - delta), which the epilogue scales by sm_scale
+      if constexpr (DROP) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          drop_group(dr, dp[2 * kk], dp[2 * kk + 1],
+                     (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
+                     (unsigned)(b * hq + h));
+      }
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 kid = make_float2(0.f, 0.f);
+          if constexpr (SEG)
+            kid = *reinterpret_cast<const float2*>(ids_s + stage * BN + 8 * j +
+                                                   2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kcol0 + 8 * j + 2 * t + (e & 1);
+            const int row = wrow + g + 8 * (e >> 1);
+            float x = s[j][e] * scale2;
+            if (col >= s_k) x = __int_as_float(0xff800000);
+            else if (causal && row + offset < col) x = neg2;
+            else if (SEG && rid[e >> 1] != ((e & 1) ? kid.y : kid.x))
+              x = neg2;
+            s[j][e] = fast_exp2(x - lse2[e >> 1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = fast_exp2(fmaf(s[j][e], scale2, -lse2[e >> 1]));
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - dlt[e >> 1]);
+      wgmma_wait<0>();                        // the pending ds K is done
+#pragma unroll
+      for (int p = 0; p < NPB; ++p) fence_acc(acc[p]);
+      fence_frag(dh);
+      fence_frag(dl);
+      __syncwarp();
+      if (pend >= 0 && lane == 0) mbar_arrive(&empty[pend]);
+      // ds (hi + lo) is the A operand of this tile's ds K as it lies
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        split_pair(dp[2 * kk][0], dp[2 * kk][1], dh[kk][0], dl[kk][0]);
+        split_pair(dp[2 * kk][2], dp[2 * kk][3], dh[kk][1], dl[kk][1]);
+        split_pair(dp[2 * kk + 1][0], dp[2 * kk + 1][1], dh[kk][2],
+                   dl[kk][2]);
+        split_pair(dp[2 * kk + 1][2], dp[2 * kk + 1][3], dh[kk][3],
+                   dl[kk][3]);
+      }
+      pend = stage;
+      kp = ks;
+      kpanel = PK;
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NPB; ++p) fence_acc(acc[p]);
+    wgmma_fence();
+    issue_dq();                               // the last tile's ds K
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NPB; ++p) fence_acc(acc[p]);
+    fence_frag(dh);
+    fence_frag(dl);
+
+    // epilogue: dQ sm_scale, rounded once to bf16, over the group's panels
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + g + 8 * r;
+      if (row >= s_q) continue;
+      __nv_bfloat16* dqr = dq + dqv.at(b, row, h);
+#pragma unroll
+      for (int p = 0; p < NPB; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * (pz0 + p) + 8 * j + 2 * t;
+          if (pz0 + p >= NP || col >= d) continue;
+          *reinterpret_cast<unsigned*>(dqr + col) =
+              pack_bf16(acc[p][j][2 * r] * sm_scale,
+                        acc[p][j][2 * r + 1] * sm_scale);
+        }
+    }
+  }
+}
+
+
 // ---------------------------------------------------------------------------
 // host side
 struct Geometry {
@@ -2281,7 +2563,7 @@ template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
 // the launches that take the wgmma bodies: the bf16 segment branch of the
-// forward and of dK / dV, at every width (dQ keeps its mma.sync body)
+// forward, dK / dV and dQ, at every width
 template <typename T, bool SEG>
 constexpr bool kWgmmaBody = kTensorCores<T> && SEG;
 
@@ -2341,6 +2623,34 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
   kernel<<<grid, kHpThreads, smem, stream>>>(
       maps, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), view_at(st, 4), view_at(st, 5), g.hq,
+      g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr, seg, g.d);
+  return cudaGetLastError();
+}
+
+template <int W, bool SEG, bool DROP>
+cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dq, const long long* st,
+                         const Geometry& g, const Dropout& dr,
+                         const float* seg, cudaStream_t stream) {
+  constexpr int rows = hp_dq_rows<W>();
+  HpMaps maps{};
+  cudaError_t err = tile_map(&maps.q, q, st, g.batch, g.s_q, g.hq, g.d, rows);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.k, k, st + 3, g.batch, g.s_k, g.hkv, g.d, kKeyTile);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.v, v, st + 6, g.batch, g.s_k, g.hkv, g.d, kKeyTile);
+  if (err == cudaSuccess)
+    err = tile_map(&maps.dout, dout, st + 9, g.batch, g.s_q, g.hq, g.d, rows);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = hp_dq_smem<W>();
+  const auto kernel = fa_bwd_dq_wgmma_kernel<W, SEG, DROP>;
+  static std::atomic<unsigned long long> done{0};
+  err = allow_smem(done, kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows);
+  kernel<<<grid, kHpThreads, smem, stream>>>(
+      maps, lse, delta, static_cast<__nv_bfloat16*>(dq), view_at(st, 4), g.hq,
       g.hkv, g.s_q, g.s_k, g.causal, g.sm_scale, dr, seg, g.d);
   return cudaGetLastError();
 }
@@ -2435,12 +2745,15 @@ cudaError_t bwd_dq(Variant<T, W, PART, SEG, DROP>, const void* q,
                    const float* lse, const float* delta, void* dq,
                    const long long* st, const Geometry& g, const Dropout& dr,
                    const float* seg, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
+  if constexpr (kWgmmaBody<T, SEG>) {
+    return bwd_dq_wgmma<W, SEG, DROP>(q, k, v, dout, lse, delta, dq, st, g,
+                                      dr, seg, stream);
+  } else if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_DQ_WARPS;
     constexpr int smem = dq_mma_smem<W>();
-    const auto kernel = fa_bwd_dq_mma_kernel<
-        W, PART, FA_DQ_WARPS, FA_STAGES,
-        W <= 64 && (SEG ? FA_DQ_SEG_REGA64 : FA_DQ_REGA64), SEG, DROP>;
+    const auto kernel =
+        fa_bwd_dq_mma_kernel<W, PART, FA_DQ_WARPS, FA_STAGES,
+                             W <= 64 && FA_DQ_REGA64, DROP>;
     static std::atomic<unsigned long long> done{0};
     cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -2450,7 +2763,7 @@ cudaError_t bwd_dq(Variant<T, W, PART, SEG, DROP>, const void* q,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
         view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale, dr, seg, g.d);
+        g.sm_scale, dr, g.d);
     return cudaGetLastError();
   } else {
     constexpr int TR = f32_rows<W>();
@@ -2476,12 +2789,12 @@ inline bool valid(const Geometry& g, const void* seg) {
          g.s_k > 0 && (seg == nullptr || g.s_q == g.s_k);
 }
 
-// the body a launch of `which` (0 forward, 1 dK / dV, 2 dQ) takes at this
+// the body that every launch (forward, dK / dV and dQ alike) takes at this
 // instantiation: 0 the f32 CUDA-core body, 1 mma.sync, 2 wgmma
 template <typename T, int W, bool PART, bool SEG, bool DROP>
-int body_of(Variant<T, W, PART, SEG, DROP>, int which) {
+int body_of(Variant<T, W, PART, SEG, DROP>) {
   if constexpr (!kTensorCores<T>) return 0;
-  else return which < 2 && kWgmmaBody<T, SEG> ? 2 : 1;
+  else return kWgmmaBody<T, SEG> ? 2 : 1;
 }
 
 // f(Variant<...>{}) for the instantiation a launch at width W takes: dtype
@@ -2588,14 +2901,16 @@ extern "C" int flash_attention_bwd_dq_launch(
       });
 }
 
-// which body a launch takes (body_of's codes), -1 for a head dim or dtype
-// this library does not hold
+// which body a launch of `which` (0 forward, 1 dK / dV, 2 dQ) takes
+// (body_of's codes), -1 for a `which`, head dim or dtype this library does
+// not hold
 extern "C" int flash_attention_body(int which, int head_dim, int dtype,
                                     int seg, int drop) {
   int body = -1;
+  if (which < 0 || which > 2) return body;
   at_width<FA_TU_WIDTHS>(head_dim, dtype, seg != 0, drop != 0,
                          [&](auto var) {
-                           body = body_of(var, which);
+                           body = body_of(var);
                            return cudaSuccess;
                          });
   return body;

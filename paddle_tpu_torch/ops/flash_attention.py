@@ -29,10 +29,11 @@ wrapper also counts those launches in ``.segment_launches``.  They are
 how :func:`flash_attention` takes a long untileable sequence
 (:func:`_pad_to_tile`: S >= 384 padded to the 128 tile, the padding in a
 segment of its own) and how ``nn.functional.flash_attn_unpadded`` runs
-packed varlen attention.  In bf16 the forward and dK/dV launches with
+packed varlen attention.  In bf16 the forward, dK/dV and dQ launches with
 segments run wgmma bodies that class every (q tile, key tile) pair before
-loading it — skipped, full or masked, :func:`segment_tile_plan` — and
-:func:`kernel_body` names the body a launch takes.
+loading it — skipped, full or masked, :func:`segment_tile_plan` at each
+body's :func:`segment_tiles` — and :func:`kernel_body` names the body a
+launch takes.
 
 Head dims: every D that the JAX kernels take (a multiple of 8 up to 256)
 runs on the card.  The kernels are compiled at the widths
@@ -67,7 +68,8 @@ __all__ = ["HEAD_WIDTHS", "NEG_INF", "dropout_keep", "head_width", "dropout_scal
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
            "kernel_body", "pack_lse", "pack_lse_ref", "philox4x32_10",
-           "segment_tile_plan", "TILE_SKIP", "TILE_FULL", "TILE_MASKED"]
+           "segment_tile_plan", "segment_tiles", "TILE_SKIP", "TILE_FULL",
+           "TILE_MASKED"]
 
 NEG_INF = -1e30
 
@@ -427,8 +429,10 @@ def segment_tile_plan(seg, s_q, s_k, bq, bk, causal):
     key is past the frontier of the tile's first row and none past s_k;
     else :data:`TILE_MASKED`.  The kernels compute no skipped tile (nor load
     one that no consumer of the block needs), take the unmasked path on a
-    full one and mask a masked one per score: the forward at bq = 128, bk =
-    64; dK/dV at bk = 64 against q tiles of 64 rows (32 above W 64)."""
+    full one and mask a masked one per score, each at its own tiles
+    (:func:`segment_tiles`): the forward and dQ at bq = 128 q rows, bk = 64
+    keys (dQ at bq = 64 above W 128); dK/dV at bk = 64 against q tiles of
+    64 rows (32 above W 64)."""
     n_qt, n_kt = -(-s_q // bq), -(-s_k // bk)
     b = 1 if seg is None else seg.shape[0]
     r0 = torch.arange(n_qt)[:, None] * bq
@@ -463,12 +467,28 @@ def segment_tile_plan(seg, s_q, s_k, bq, bk, causal):
                        torch.where(masked, TILE_MASKED, TILE_FULL))
 
 
+def segment_tiles(which, head_dim):
+    """(bq, bk) of the bf16 segment body of ``which`` ("fwd", "bwd_dkv" or
+    "bwd_dq") at ``head_dim``: the q rows and keys of the tile pairs it
+    classes (:func:`segment_tile_plan`), as ``csrc/flash_attention.cuh``
+    sizes them from the head width W.  The forward classes 128 q rows
+    against 64 keys; dK/dV a q tile of 64 rows (32 above W 64) against
+    each consumer's 64 keys; dQ 128 q rows (64 above W 128, where a block
+    holds 64 rows) against 64 keys."""
+    w = head_width(head_dim)
+    if w is None or which not in ("fwd", "bwd_dkv", "bwd_dq"):
+        raise ValueError(f"no segment body {which!r} at head dim {head_dim}")
+    return {"fwd": (128, 64), "bwd_dkv": (64 if w <= 64 else 32, 64),
+            "bwd_dq": (128 if w <= 128 else 64, 64)}[which]
+
+
 def kernel_body(which, dtype, head_dim, segments, dropout):
     """The body that a launch of ``which`` ("fwd", "bwd_dkv" or "bwd_dq")
     takes on the card for q's ``dtype``, ``head_dim`` and the two branches
     (``segments``, ``dropout``: bools): "cuda cores" (f32), "mma.sync" or
-    "wgmma" — read from the library's own dispatch (the C entry
-    ``flash_attention_body``), so it names what the launch runs."""
+    "wgmma" (every bf16 launch with segments, at every head dim) — read
+    from the library's own dispatch (the C entry ``flash_attention_body``),
+    so it names what the launch runs."""
     code = getattr(_build.library(_build.width_library(
         "flash_attention", head_width(head_dim))), "flash_attention_body")
     code.restype = ctypes.c_int

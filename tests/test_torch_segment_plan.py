@@ -1,6 +1,6 @@
 """The tile plan of the segment kernels (``segment_tile_plan``), on the CPU.
 
-The bf16 segment forward and dK/dV kernels classify every (q tile, key
+The bf16 segment forward, dK/dV and dQ kernels classify every (q tile, key
 tile) pair before they load it: skipped (no pair shares an id, or the tile
 lies past the causal frontier), full (one id throughout, nothing past the
 frontier or the keys) or masked.  The plan is that rule in PyTorch.  Here
@@ -9,9 +9,9 @@ drawn ids — sorted varlen boundaries on and off the tiles, the
 ``_pad_to_tile`` tail of -1, ids out of order, an id that recurs in two
 spans, S off the tile, causal or not: no skipped tile holds a kept pair,
 and no full tile a masked one.  Then plain attention restricted to the
-plan's non-skipped tiles (the skipped tiles' pairs forced to NEG_INF)
-against JAX's segment kernels in interpret mode, f32, within 2e-5: skipping
-changes no value."""
+plan's non-skipped tiles (the skipped tiles' pairs forced to NEG_INF) —
+the forward, dK/dV and dQ — against JAX's segment kernels in interpret
+mode, f32, within 2e-5: skipping changes no value."""
 import importlib
 import math
 
@@ -29,8 +29,9 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-# (q tile, key tile): the forward's (128 q rows, 64 keys), and dK/dV's (64
-# keys against q tiles of 64 rows at W <= 64, of 32 above)
+# (q tile, key tile): the forward's and dQ's (128 q rows, 64 keys; dQ's 64
+# rows above W 128), and dK/dV's (64 keys against q tiles of 64 rows at
+# W <= 64, of 32 above)
 TILES = [(128, 64), (64, 64), (32, 64)]
 
 
@@ -148,14 +149,20 @@ def test_plan_without_segments_and_off_the_tile(s):
 def test_plan_counts_at_vit_and_varlen_shapes():
     """The counts phase 5d prints: ViT-L/16's 577 rows padded to 640 give 81
     full and 19 masked 64 x 64 tiles (dK/dV's), 36 full and 14 masked
-    128 x 64 tiles (the forward's); a packed row of segments of 5..300
-    skips most tiles."""
+    128 x 64 tiles (the forward's, and dQ's at D 64; dQ takes 64 x 64
+    above W 128); a packed row of segments of 5..300 skips most tiles,
+    at dK/dV's tiles and at dQ's."""
     ids = torch.tensor([[0.0] * 577 + [-1.0] * 63])
     for bq, want in ((64, [0, 81, 19]), (128, [0, 36, 14])):
         plan = tfa.segment_tile_plan(ids, 640, 640, bq, 64, False)
         counts = [int((plan == c).sum()) for c in
                   (tfa.TILE_SKIP, tfa.TILE_FULL, tfa.TILE_MASKED)]
         assert counts == want
+    for d, want in ((64, [0, 36, 14]), (160, [0, 81, 19])):
+        plan = tfa.segment_tile_plan(ids, 640, 640,
+                                     *tfa.segment_tiles("bwd_dq", d), False)
+        assert [int((plan == c).sum()) for c in
+                (tfa.TILE_SKIP, tfa.TILE_FULL, tfa.TILE_MASKED)] == want
     rng = np.random.default_rng(3)
     lens = []
     while sum(lens) < 4096:
@@ -164,6 +171,27 @@ def test_plan_counts_at_vit_and_varlen_shapes():
     ids = torch.from_numpy(np.repeat(np.arange(len(lens)), lens)[None])
     plan = _check_sound(ids.float().numpy(), 4096, False, 64, 64)
     assert int((plan == tfa.TILE_SKIP).sum()) > 0.8 * plan.numel()
+    plan = _check_sound(ids.float().numpy(), 4096, False,
+                        *tfa.segment_tiles("bwd_dq", 64))
+    assert int((plan == tfa.TILE_SKIP).sum()) > 0.8 * plan.numel()
+
+
+@pytest.mark.parametrize("d", [24, 40, 64, 72, 128, 160, 200, 256])
+def test_segment_tiles_of_each_body(d):
+    """Each body's (q rows, keys) per classed pair, from the head width:
+    the forward 128 x 64; dK/dV 64 x 64 up to W 64, then 32 x 64; dQ
+    128 x 64 up to two 64-column panels (W 128), then 64 x 64."""
+    w = tfa.head_width(d)
+    assert tfa.segment_tiles("fwd", d) == (128, 64)
+    assert tfa.segment_tiles("bwd_dkv", d) == ((64 if w <= 64 else 32), 64)
+    assert tfa.segment_tiles("bwd_dq", d) == ((128 if w <= 128 else 64), 64)
+    for tiles in (tfa.segment_tiles(x, d) for x in ("fwd", "bwd_dkv",
+                                                     "bwd_dq")):
+        assert tiles in TILES
+    with pytest.raises(ValueError):
+        tfa.segment_tiles("bwd", d)
+    with pytest.raises(ValueError):
+        tfa.segment_tiles("fwd", d + 4)
 
 
 # -- skipping changes no value: plain attention over the non-skipped tiles
@@ -232,10 +260,10 @@ SEG_ROW = np.repeat([3, 1, 0, 3, 2, 1], [64, 40, 88, 64, 56, 72])
 @pytest.mark.parametrize("bq,bk", TILES)
 @pytest.mark.parametrize("causal", [False, True])
 def test_skipped_tiles_change_no_value(_restricted, causal, bq, bk):
-    """o and lse of the restricted plain forward, and dk / dv of the
-    restricted plain dK/dV backward, against JAX's segment forward kernel
-    and ``_bwd_call`` in interpret mode (f32, S 384, GQA 4:2), within
-    2e-5."""
+    """o and lse of the restricted plain forward, dk / dv of the restricted
+    plain dK/dV backward and dq of the restricted plain dQ backward,
+    against JAX's segment forward kernel and ``_bwd_call`` in interpret
+    mode (f32, S 384, GQA 4:2), within 2e-5."""
     b, s, hq, hkv, d = 2, 384, 4, 2, 32
     q, k, v, do = _inputs((b, s, hq, hkv, d), seed=41)
     seg = np.stack([SEG_ROW, np.roll(SEG_ROW, 64)]).astype(np.float32)
@@ -245,7 +273,7 @@ def test_skipped_tiles_change_no_value(_restricted, causal, bq, bk):
     jo, jlse = jfa.flash_attention_fwd_kernel_call(
         jq, jk, jv, causal, scale, interpret=True, n_q_heads=hq,
         n_kv_heads=hkv, segment_ids=jseg)
-    _, jdk, jdv = jax.block_until_ready(jfa._bwd_call(
+    jdq, jdk, jdv = jax.block_until_ready(jfa._bwd_call(
         (jq, jk, jv, jo, jlse), _jrows(do), causal, scale, True,
         n_q_heads=hq, n_kv_heads=hkv, segment_ids=jseg))
     _restricted["bq_bk"] = (bq, bk)
@@ -261,3 +289,6 @@ def test_skipped_tiles_change_no_value(_restricted, causal, bq, bk):
                                              segment_ids=tseg)
     np.testing.assert_allclose(dk.numpy(), _bshd(jdk, b), **TOL)
     np.testing.assert_allclose(dv.numpy(), _bshd(jdv, b), **TOL)
+    dq = tfa.flash_attention_bwd_dq_ref(tq, tk, tv, tdo, lse, delta, causal,
+                                        scale, segment_ids=tseg)
+    np.testing.assert_allclose(dq.numpy(), _bshd(jdq, b), **TOL)
