@@ -15,23 +15,22 @@ weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync attention
-               kernels and of the segment branch's wgmma forward, dK/dV
-               and dQ, the RMSNorm and LayerNorm register passes, the
-               ragged paged-attention kernels and the softmax forward's
-               register pass (dQ, the wgmma forward and dK/dV, the ragged
-               kernels and the register passes of the softmax forward, the
-               RMSNorm forward and the LayerNorm backward must not spill,
-               nor the wgmma dQ at W 64 and 128; no flash-attention
-               kernel may carry ptxas's C7520, a serialised wgmma), and
-               the SASS that the dropout branch adds to each mma.sync
-               attention kernel
+               kernels and of the wgmma forward, dK/dV and dQ, the RMSNorm
+               and LayerNorm register passes, the ragged paged-attention
+               kernels and the softmax forward's register pass (dQ, the
+               wgmma bodies, the ragged kernels and the register passes of
+               the softmax forward, the RMSNorm forward and the LayerNorm
+               backward must not spill; no flash-attention kernel may
+               carry ptxas's C7520, a serialised wgmma), and the SASS that
+               the dropout branch adds to the mma.sync forward
                (``cuobjdump``; instructions per Philox call); the flash-
                attention kernels build as one library per group of head
                widths (``flash_attention.cu`` at 64 and 128, and at each of
                32, 48, 80, 96, 160, 192, 256 with ``-DFA_TU_WIDTHS=W``),
                each reported and held to the same no-spill gate, and
-               with ``--parent DIR`` the D 64 / 128 bodies' registers and
-               spills are held equal to that build's;
+               with ``--parent DIR`` the D 64 / 128 mma.sync bodies'
+               registers and spills are held equal to that build's (its
+               widths of phase 5e built beside it);
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
@@ -44,7 +43,11 @@ weights made from a seed:
                kernel over int8 and fp8 pages, its fp8 -> f32 code table
                against torch's over all 256 codes, and the split merge
                against its plain version;
-               (b) the train kernels (flash-attention forward with its
+               (b) the body every launch of rows 3/5/6 takes, at every
+               width (bf16 dK/dV and dQ wgmma, but mma.sync with dropout
+               and no segments and, for dK/dV without segments, at W
+               160; the forward wgmma only with segments; f32 the CUDA
+               cores); the train kernels (flash-attention forward with its
                lse, the lse repack, the dK/dV and dQ backward, RMSNorm
                forward and backward) against their plain versions: the
                train shape
@@ -55,7 +58,8 @@ weights made from a seed:
                causal at D = 128 and one 64-row q tile against 2,048 keys;
                for dQ's 64-row blocks, D = 128 with GQA 16:4, a q length
                of 136, s_q < s_k causal with GQA 16:4 and S 200
-               non-causal; the standalone repack on strided stats, RMSNorm
+               non-causal; GQA 8:2 at S 200 causal; the standalone
+               repack on strided stats, RMSNorm
                rows at 16,384 x 1,024 bf16 and f32, N off the backward's
                row runs with f32 w, H = 768, N = 5, H = 1,000 and 4,096
                (the general loops) and f32 x with bf16 w;
@@ -171,8 +175,9 @@ weights made from a seed:
                times at each of head dims 40 / 80 / 160, rows 12/13 at
                widths 640 and 1,280; plain attention for the
                cross-attentions and the 8 x 8 middle block, the plain
-               LayerNorm at width 320), the forward / backward / SGD split
-               and one step under torch.profiler;
+               LayerNorm at width 320), the body each launch ran per head
+               dim, the forward / backward / SGD split and one step under
+               torch.profiler;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -203,16 +208,16 @@ weights made from a seed:
                phase 3d's attention shape at rate 0 and at dropout 0.1
                (beside SDPA with dropout_p=0.1; the bound counts the mask's
                Philox work), one line per design step of
-               rows 3, 5 and 6 (variants of their tiles, ring depth and
+               the mma.sync forward (variants of its tile, ring depth and
                occupancy, each held against the plain version), the
-               wgmma forward and dK/dV without segments (built at D 64,
-               never routed) in turns with rows 3 and 5, with
+               wgmma forward without segments (built at D 64, never
+               routed) in turns with row 3, with
                ``--parent DIR`` (another commit's ``csrc``) that build's
-               rows 3, 5 and 6 at rate 0 (the train shape), RMSNorm forward
-               and LayerNorm backward timed in turns with
-               these on rotated inputs, and the LayerNorm, softmax and
-               AdamW kernels at the phase-3d/3e shapes beside F.layer_norm,
-               aten.native_layer_norm_backward, torch.softmax,
+               rows 3, 5 and 6 at rate 0 (the train shape, CUDA-graph
+               replays), RMSNorm forward and LayerNorm backward timed in
+               turns with these on rotated inputs, and the LayerNorm,
+               softmax and AdamW kernels at the phase-3d/3e shapes beside
+               F.layer_norm, aten.native_layer_norm_backward, torch.softmax,
                aten._softmax_backward_data and torch._fused_adamw_ (the
                backward-only calls held against the plain version first;
                the forward + backward through autograd printed beside
@@ -225,15 +230,18 @@ weights made from a seed:
                each body's tiles: the forward's, dK/dV's and dQ's), the
                kernels as CUDA-graph replays, with ``--parent DIR`` that
                build's rows 3s, 5s and 6s in turns with these at both
-               shapes, and one line per design step of the wgmma dQ (the
-               depth of its K / V ring); (e) rows 3/5/6 at the UNet's
+               shapes; (e) rows 3/5/6 at the UNet's
                three attention shapes ([8, S, 8, d], (S, d) = (4,096, 40),
                (1,024, 80), (256, 160), non-causal) beside the bound
                counted at d, the plain version and SDPA's forward and
                backward (the kernels and SDPA alike as CUDA-graph replays
-               over input copies that together exceed the L2), and rows
-               1-2 at head dim 80 at phase 3a's decode
-               shape beside their byte bound;
+               over input copies that together exceed the L2), with
+               ``--parent DIR`` that build's rows 3/5/6 in turns with these,
+               one line per design step of the wgmma dK/dV and dQ (dK/dV's
+               ring depth, q tile and pipelining, dQ's ring depth, at 3c's
+               and the UNet's level-0 shapes) and of dK/dV above W 128
+               (mma.sync against the wgmma body), and rows 1-2 at head dim
+               80 at phase 3a's decode shape beside their byte bound;
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
 
@@ -308,15 +316,18 @@ REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
                     "softmax_fwd_reg_kernel", "fa_fwd_wgmma_kernel",
                     "fa_bwd_dkv_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
 # kernels that hold their working set in registers by design: none may spill
+# (the wgmma bodies at every width: their accumulators and pipelined score
+# tiles fill the consumers' 232 registers)
 NO_SPILL = ("fa_bwd_dq_mma_kernel", "ragged_paged_attention_kernel",
             "ragged_paged_attention_mma_kernel",
             "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel",
             "rms_fwd_vec_kernel", "ln_bwd_vec_kernel", "fa_fwd_wgmma_kernel",
-            "fa_bwd_dkv_wgmma_kernel")
-# ... and the widths at which the wgmma dQ must not spill (its accumulators
-# and pipelined S, dP and ds fill the consumers' 232 registers; the other
-# widths are reported)
-NO_SPILL_DQ_WIDTHS = (64, 128)
+            "fa_bwd_dkv_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
+
+
+# the mma.sync bodies whose launches without dropout run the wgmma bodies
+# (``kernel_body``): only their dropout instantiations are compiled
+WGMMA_BWD_MMA_SYNC = ("fa_bwd_dkv_mma_kernel", "fa_bwd_dq_mma_kernel")
 
 
 def ptxas_lines(path):
@@ -368,13 +379,17 @@ def philox_sass_report(path):
     unsigned compare with the threshold (ISETP.GE.U32), so the compares it
     adds over the 4 words of a Philox4x32-10 call give the calls in the
     code, and the added instructions over those calls the instructions per
-    call (the bound counts ``PHILOX_OPS`` of them)."""
+    call (the bound counts ``PHILOX_OPS`` of them).  The mma.sync dK/dV
+    and dQ have no twin: their launches without dropout run the wgmma
+    bodies."""
     ops = sass_opcodes(path)
     for mangled, drop in sorted(ops.items()):
         kernel = next((k for k in REPORTED_KERNELS[:3] if k in mangled), None)
         if kernel is None or "Lb1EEEv" not in mangled:
             continue
         base = ops.get(mangled.replace("Lb1EEEv", "Lb0EEEv"))
+        if base is None and kernel in WGMMA_BWD_MMA_SYNC:
+            continue
         require(base is not None, f"no DROP = false twin of {mangled}")
         delta = {o: drop[o] - base[o] for o in drop | base
                  if drop[o] != base[o]}
@@ -420,10 +435,7 @@ def register_report(built, parent=None):
     for lib in (*fa_libs(built), "rms_norm", "layer_norm", "softmax",
                 *rpa_libs(built)):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
-            gated = kernel in NO_SPILL or (
-                kernel == "fa_bwd_dq_wgmma_kernel"
-                and template_args(args)[0] in NO_SPILL_DQ_WIDTHS)
-            require(not gated or (stores == 0 and loads == 0),
+            require(kernel not in NO_SPILL or (stores == 0 and loads == 0),
                     f"{kernel}{args} spills ({stores} B stores)")
     serialised_wgmma(built)
     if parent is not None:
@@ -462,13 +474,18 @@ def compare_parent_ptxas(built, parent):
     instantiation is matched to this build's twin with the same template
     arguments and their registers and spills must be equal.  A parent whose
     mma.sync forward, dK/dV or dQ still took the segment flag has it
-    dropped; its segment instantiations are counted apart, since this build
-    runs those launches in the wgmma bodies."""
+    dropped; its segment instantiations, and its mma.sync dK/dV and dQ
+    without dropout, are counted apart, since this build runs those
+    launches in the wgmma bodies."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
-    path = _build.build_all(["flash_attention"],
-                            csrc=Path(parent))["flash_attention"]
+    from paddle_tpu_torch.ops import flash_attention as fa
+    # with the widths that phase 5e's turns take, all started together
+    path = _build.build_all(
+        ["flash_attention"] + [_build.width_library(
+            "flash_attention", fa.head_width(d)) for d in UNET_HEAD_DIMS],
+        csrc=Path(parent))["flash_attention"]
     new = {}
     for kernel, args, regs, stores, loads in ptxas_lines(
             built["flash_attention"]):
@@ -486,6 +503,9 @@ def compare_parent_ptxas(built, parent):
                 continue
             del ta[-2]
         key = (kernel, tuple(ta))
+        if key not in new and kernel in WGMMA_BWD_MMA_SYNC and not ta[-1]:
+            moved += 1                      # DROP = false: wgmma here
+            continue
         require(key in new, f"no twin of the parent's {key}")
         print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
               f"stores {stores} B, loads {loads} B; this build "
@@ -496,9 +516,9 @@ def compare_parent_ptxas(built, parent):
         n += 1
     require(n > 0, "no parent instantiation of rows 3/5/6 in its report")
     print(f"  {n} parent instantiations of rows 3/5/6 at W 64 / 128: "
-          f"registers and spills equal to this build's; {moved} segment "
-          f"instantiations of its mma.sync bodies run in the wgmma bodies "
-          f"here")
+          f"registers and spills equal to this build's; {moved} of its "
+          f"mma.sync instantiations (segments; dK/dV and dQ without "
+          f"dropout) run in the wgmma bodies here")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -788,6 +808,8 @@ TRAIN_ATTN_CASES = [
      torch.bfloat16),
     ("dQ S=200 non-causal GQA 16:4", (2, 200, 200, 16, 4, 64), False,
      torch.bfloat16),
+    # the wgmma dK/dV and dQ without segments: GQA 8:2 causal off the tile
+    ("GQA 8:2 S=200 causal", (2, 200, 200, 8, 2, 64), True, torch.bfloat16),
 ]
 # (name, N, H, x dtype, w dtype): the forward's and backward's register
 # passes (bf16 rows of up to 1,024), N off the backward's row runs and
@@ -1079,9 +1101,62 @@ def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
         torch.cuda.empty_cache()
 
 
+# head widths whose bf16 dK/dV without segments keeps mma.sync, as
+# flash_attention.cuh kMmaSyncDkvWidth names them (phase 5e's
+# ``WIDE_VARIANTS`` time the two bodies above two 64-column panels)
+MMA_SYNC_DKV_WIDTHS = (160,)
+
+
+def want_bodies(fa, d, segments, dropout):
+    """The body each bf16 launch of rows 3, 5 and 6 must take at head dim
+    ``d``: the forward wgmma with segments, else mma.sync; dK/dV and dQ
+    wgmma but for the dropout branch without segments, which keeps
+    mma.sync, and dK/dV without segments at ``MMA_SYNC_DKV_WIDTHS``."""
+    dq = segments or not dropout
+    dkv = dq and (segments or fa.head_width(d) not in MMA_SYNC_DKV_WIDTHS)
+    return {"fwd": "wgmma" if segments else "mma.sync",
+            "bwd_dkv": "wgmma" if dkv else "mma.sync",
+            "bwd_dq": "wgmma" if dq else "mma.sync"}
+
+
+def launch_bodies(fa, d, segments, dropout, dtype=torch.bfloat16):
+    """{launch: the body the library's dispatch gives it} (``kernel_body``)
+    for rows 3, 5 and 6 at head dim ``d``."""
+    return {w: fa.kernel_body(w, dtype, d, segments, dropout)
+            for w in ("fwd", "bwd_dkv", "bwd_dq")}
+
+
+def require_bodies(fa, what, d, segments, dropout):
+    """Prints the bodies that ``what``'s launches of rows 3, 5 and 6 ran
+    (bf16, head dim ``d``) and requires ``want_bodies``'."""
+    body = launch_bodies(fa, d, segments, dropout)
+    print(f"  {what} ran the bodies: forward {body['fwd']}, dK/dV "
+          f"{body['bwd_dkv']}, dQ {body['bwd_dq']} (the library's dispatch, "
+          f"bf16, D {d}, segments {segments}, dropout {dropout})")
+    want = want_bodies(fa, d, segments, dropout)
+    require(body == want, f"{what}: bodies {body} != {want}")
+
+
 def phase_train_kernels(fa, fu):
-    """Rows 3-8 against their plain versions; returns the worst absolute
-    error of each."""
+    """Every launch of rows 3/5/6 takes its body (``want_bodies``, at every
+    head width of phase 2e and D 64 / 128, bf16 with and without segments
+    and dropout; f32 the CUDA cores); rows 3-8 against their plain
+    versions.  Returns the worst absolute error of each."""
+    dims = sorted({64, 128, *HEAD_DIMS_2E})
+    for d in dims:
+        for segments in (False, True):
+            for dropout in (False, True):
+                body = launch_bodies(fa, d, segments, dropout)
+                want = want_bodies(fa, d, segments, dropout)
+                require(body == want, f"bf16 D {d} segments {segments} "
+                        f"dropout {dropout}: bodies {body} != {want}")
+                body = launch_bodies(fa, d, segments, dropout, torch.float32)
+                require(set(body.values()) == {"cuda cores"},
+                        f"f32 D {d}: bodies {body}")
+    print(f"  at head dims {dims}: bf16 dK/dV and dQ take wgmma but for "
+          f"dropout without segments (mma.sync) and dK/dV without segments "
+          f"at widths {MMA_SYNC_DKV_WIDTHS} (mma.sync), the forward wgmma "
+          f"with segments and mma.sync without; f32 the CUDA cores")
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {r["key"]: 0.0 for r in TRAIN_ROWS}
     attention_checks(fa, gen, TRAIN_ATTN_CASES, worst)
@@ -1447,8 +1522,7 @@ def phase_segment_kernels(fa, worst):
     dims = sorted({64, 128, *HEAD_DIMS_2E})
     for d in dims:
         for drop in (False, True):
-            body = {w: fa.kernel_body(w, torch.bfloat16, d, True, drop)
-                    for w in ("fwd", "bwd_dkv", "bwd_dq")}
+            body = launch_bodies(fa, d, True, drop)
             require(set(body.values()) == {"wgmma"},
                     f"bf16 segment launches at D {d}, dropout {drop}: "
                     f"{body}")
@@ -2075,6 +2149,9 @@ def phase_train(pa, B=8, S=2048, warmup=3, steps=10):
     require(per_step == want, f"launches per step {per_step} != {want}")
     require(paged == (0, 0, 0), f"paged attention ran in the train step: "
             f"{paged}")
+    from paddle_tpu_torch.ops import flash_attention as fa
+    require_bodies(fa, "the attention launches",
+                   H // cfg.num_attention_heads, False, False)
     tokens_per_s = B * S * steps / wall
     flop_per_token = 6.0 * n_params + 6.0 * L * S * H
     mfu = flop_per_token * tokens_per_s / BF16_FLOP_PER_S
@@ -2275,6 +2352,9 @@ def phase_ernie(pa, B=64, S=512, warmup=3, steps=10, dropout=DROPOUT_RATE,
             "fa_dq_drop": n_drop, "fa_fwd_seg": 0, "fa_dkv_seg": 0,
             "fa_dq_seg": 0}
     require(per_step == want, f"launches per step {per_step} != {want}")
+    from paddle_tpu_torch.ops import flash_attention as fa
+    require_bodies(fa, "the attention launches", H // cfg.num_attention_heads,
+                   False, dropout > 0)
     require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
     require(not plain.calls, f"plain versions ran: {plain.calls}")
     tokens_per_s = B * S * steps / wall
@@ -2587,14 +2667,8 @@ def phase_vit(pa, img=384, B=32, warmup=3, steps=10):
             f"plain calls {plain.calls} != {plain_want}")
     if flash:
         from paddle_tpu_torch.ops import flash_attention as fa
-        body = {w: fa.kernel_body(w, torch.bfloat16, VIT_L["embed_dim"]
-                                  // VIT_L["num_heads"], True, False)
-                for w in ("fwd", "bwd_dkv", "bwd_dq")}
-        print(f"  the segment launches ran the bodies: forward "
-              f"{body['fwd']}, dK/dV {body['bwd_dkv']}, dQ "
-              f"{body['bwd_dq']} (the library's dispatch, bf16, D 64)")
-        require(set(body.values()) == {"wgmma"},
-                f"ViT's segment launches ran {body}")
+        require_bodies(fa, "the segment launches",
+                       VIT_L["embed_dim"] // VIT_L["num_heads"], True, False)
     images_per_s = B * steps / wall
     flop = vit_flop(B, img)
     mfu = flop * steps / wall / BF16_FLOP_PER_S
@@ -3280,9 +3354,8 @@ def parent_segment_turns(parent, fa, gen, shape, lens, label):
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
-    libs = {"parent": ctypes.CDLL(str(_build.build_all(
-        ["flash_attention"], csrc=Path(parent))["flash_attention"])),
-        "new": _build.library("flash_attention")}
+    libs = {"parent": parent_library(parent, "flash_attention"),
+            "new": _build.library("flash_attention")}
     tails = {}
     for side, path in (("parent", Path(parent)), ("new", _build.CSRC)):
         types, values = entry_tail(path)
@@ -3340,66 +3413,12 @@ VIT_ATTN_SHAPE = (32, 577, 577, 16, 16, 64)
 VARLEN_SHAPE = (2, 4096, 4096, 16, 16, 64)
 
 
-# Design steps of the segment branch's wgmma dQ at D 64 (compile-time
-# settings of flash_attention.cu, as ``FA_VARIANTS``): the depth of its
-# K / V ring (a consumer holds two stages, the tile it scores and the one
-# whose ds K is in flight, so a ring of 2 loads nothing ahead); the
-# shipped build is the first
-SEG_DQ_VARIANTS = (
-    ("shipped: a ring of 4 K / V stages", ()),
-    ("a ring of 2", ("-DFA_DQ_HP_STAGES=2",)),
-    ("a ring of 3", ("-DFA_DQ_HP_STAGES=3",)),
-    ("a ring of 6", ("-DFA_DQ_HP_STAGES=6",)),
-)
-
-
-def segment_design_steps(fa, gen, shape=VIT_ATTN_SHAPE):
-    """One line per entry of ``SEG_DQ_VARIANTS``: the variant's wgmma dQ
-    held against the plain version and timed as CUDA-graph replays on
-    ``shape``'s padded inputs, with ptxas's registers and spills of its
-    D 64 instantiation, in two turns.  A measurement only: the port loads
-    the shipped build, which is put back however this ends."""
-    import ctypes
-
-    from paddle_tpu_torch.ops import _build
-    paths = build_variants(SEG_DQ_VARIANTS)
-    b, s, _, h, _, d = shape
-    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
-    qp, kp, vp, seg, _ = fa._pad_to_tile(q, k, v, None)
-    dop = torch.nn.functional.pad(do, (0, 0, 0, 0, 0, qp.shape[1] - s))
-    args = (False, 1.0 / np.sqrt(d), 0.0, 0, seg)
-    ro, rlse = fa.flash_attention_fwd_ref(qp, kp, vp, *args)
-    delta = delta_of(dop, ro)
-    rdq = fa.flash_attention_bwd_dq_ref(qp, kp, vp, dop, rlse, delta, *args)
-    shipped = _build.library("flash_attention")
-    try:
-        for turn in (1, 2):
-            for (what, _), path in zip(SEG_DQ_VARIANTS, paths):
-                _build._LIBS["flash_attention"] = ctypes.CDLL(str(path))
-                held(f"dq [{what}]", fa.flash_attention_bwd_dq(
-                    qp, kp, vp, dop, rlse, delta, *args), rdq,
-                    TRAIN_TOL[torch.bfloat16])
-                ms = graph_ms(lambda i: fa.flash_attention_bwd_dq(
-                    qp, kp, vp, dop, rlse, delta, *args), 20)
-                regs = ", ".join(
-                    f"{r} registers, {st} B spilled" for kern, a, r, st, _
-                    in ptxas_lines(path) if kern == "fa_bwd_dq_wgmma_kernel"
-                    and template_args(a) == [64, 1, 0])
-                print(f"  design step of the wgmma dQ, turn {turn}, "
-                      f"{what}: {ms:.4f} ms ({regs})")
-    finally:
-        _build._LIBS["flash_attention"] = shipped
-    del q, k, v, do, qp, kp, vp, dop, ro, rlse, delta, rdq
-    torch.cuda.empty_cache()
-
-
 def phase_segment_timing(parent=None):
     """Phase 5d: the segment branch of rows 3, 5 and 6 at ViT-L/16's
     attention shape (phase 3g: 577 rows padded to 640), and at a packed
     varlen shape beside SDPA with the block-diagonal mask; with ``parent``
     (another commit's ``csrc``) that build's rows 3s, 5s and 6s in turns
-    with these at both shapes; then the design steps of the wgmma dQ.
-    Returns the ViT shape's numbers."""
+    with these at both shapes.  Returns the ViT shape's numbers."""
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(22)
     varlen = packed_lengths(VARLEN_SHAPE[1])
@@ -3414,67 +3433,52 @@ def phase_segment_timing(parent=None):
                              " (ViT)")
         parent_segment_turns(parent, fa, gen, VARLEN_SHAPE, varlen,
                              " (varlen)")
-    segment_design_steps(fa, gen)
     return res
 
 
-# Design steps of the bf16 forward, dK/dV and dQ kernels: compile-time
-# settings of flash_attention.cu, each built into a library of its own and
-# timed against the shipped build (the first entry) in one run.
+# Design steps of the mma.sync forward (row 3 without segments or dropout):
+# compile-time settings of flash_attention.cu, each built into a library of
+# its own and timed against the shipped build (the first entry) in one run.
+# (dK/dV and dQ run the wgmma bodies there: their steps are
+# ``BWD_VARIANTS``.)
 FA_VARIANTS = (
-    ("shipped: fwd 128 q rows, 2 blocks/SM; dK/dV 64 keys, 3 blocks/SM; "
-     "dQ 64 q rows, 3 blocks/SM; rings of 2", ()),
+    ("shipped: fwd 128 q rows, 2 blocks/SM; a ring of 2", ()),
     ("ring depth 1 (no copy overlaps the products)", ("-DFA_STAGES=1",)),
     ("ring depth 3", ("-DFA_STAGES=3",)),
-    ("first mma.sync version: 1 block/SM, dK/dV 128 keys",
-     ("-DFA_FWD_MINB=1", "-DFA_DKV_WARPS=8", "-DFA_DKV_MINB=1")),
+    ("1 block/SM", ("-DFA_FWD_MINB=1",)),
     ("fwd 64 q rows (4 warps), 4 blocks/SM",
      ("-DFA_FWD_WARPS=4", "-DFA_FWD_MINB=4")),
-    ("dK/dV q tile 32", ("-DFA_DKV_BQ64=32",)),
-    ("dQ 2 blocks/SM (no register cap)", ("-DFA_DQ_MINB=2",)),
-    ("dQ 4 blocks/SM", ("-DFA_DQ_MINB=4",)),
-    ("dQ Q, dO reloaded per k-step, 4 blocks/SM",
-     ("-DFA_DQ_REGA64=0", "-DFA_DQ_MINB=4")),
-    ("dQ 96 q rows (6 warps), 2 blocks/SM",
-     ("-DFA_DQ_WARPS=6", "-DFA_DQ_MINB=2")),
-    ("dQ 128 q rows (8 warps), 2 blocks/SM",
-     ("-DFA_DQ_WARPS=8", "-DFA_DQ_MINB=2")),
 )
 
 
-def build_variants(variants):
-    """The ``flash_attention`` library of each (what, defines) entry, one
-    ``nvcc`` each, all started together."""
+def build_variants(variants, names=("flash_attention",)):
+    """{library name: path} of the libraries ``names`` for each (what,
+    defines) entry, one ``nvcc`` each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from paddle_tpu_torch.ops import _build
     with ThreadPoolExecutor(len(variants)) as pool:
         return list(pool.map(
-            lambda var: _build.build_all(["flash_attention"], var[1])[
-                "flash_attention"], variants))
+            lambda var: _build.build_all(list(names), var[1]), variants))
 
 
 def design_steps(fa, gen, shape, causal):
-    """One line per entry of ``FA_VARIANTS``: the variant's forward, dK/dV
-    and dQ held against the plain versions and timed at ``shape``, then the
-    shipped build again.  A measurement only: the port loads the shipped
-    build, which is put back however this ends."""
+    """One line per entry of ``FA_VARIANTS``: the variant's forward held
+    against the plain version and timed at ``shape``, then the shipped
+    build again.  A measurement only: the port loads the shipped build,
+    which is put back however this ends."""
     import ctypes
 
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = build_variants(FA_VARIANTS)
+    paths = [p["flash_attention"] for p in build_variants(FA_VARIANTS)]
     print(f"  built {len(paths)} variants in {time.perf_counter() - t0:.1f} s")
     d = shape[-1]
-    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    q, k, v, _ = attn_inputs(gen, shape, torch.bfloat16)
     sc = 1.0 / np.sqrt(d)
-    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+    ro, _ = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
     p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
         q, k, v.abs(), causal, sc)[0].float()
-    delta = delta_of(do, ro)
-    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
-                                              causal, sc)
-    rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta, causal, sc)
     tol = TRAIN_TOL[torch.bfloat16]
     shipped = _build.library("flash_attention")
     runs = list(zip(FA_VARIANTS, paths)) + [(FA_VARIANTS[0], paths[0])]
@@ -3485,31 +3489,20 @@ def design_steps(fa, gen, shape, causal):
             _build._LIBS["flash_attention"] = ctypes.CDLL(str(path))
             o, _ = fa.flash_attention_fwd(q, k, v, causal, sc)
             held(f"fwd o   [{what}]", o, ro, tol, p_round)
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, rlse, delta,
-                                                causal, sc)
-            held(f"dk [{what}]", dk, rdk, tol)
-            held(f"dv [{what}]", dv, rdv, tol)
-            dq = fa.flash_attention_bwd_dq(q, k, v, do, rlse, delta, causal,
-                                           sc)
-            held(f"dq [{what}]", dq, rdq, tol)
-            del o, dk, dv, dq
+            del o
             fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(
                 q, k, v, causal, sc), 10)
-            dkv_ms = time_ms(lambda i: fa.flash_attention_bwd_dkv(
-                q, k, v, do, rlse, delta, causal, sc), 10)
-            dq_ms = time_ms(lambda i: fa.flash_attention_bwd_dq(
-                q, k, v, do, rlse, delta, causal, sc), 10)
             regs = ", ".join(
                 f"{r} registers, {st} B spilled" for kern, args, r, st, _
                 in ptxas_lines(path)
-                if kern == "fa_bwd_dq_mma_kernel"
-                and template_args(args)[:2] == [d, 0])
-            print(f"  design step {what}: fwd {fwd_ms:.4f} ms, dK/dV "
-                  f"{dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms (dQ at D {d}: "
+                if kern == "fa_fwd_mma_kernel"
+                and template_args(args)[:2] == [d, 0]
+                and not template_args(args)[-1])
+            print(f"  design step {what}: fwd {fwd_ms:.4f} ms (at D {d}: "
                   f"{regs})")
     finally:
         _build._LIBS["flash_attention"] = shipped
-    del q, k, v, do, ro, rlse, p_round, delta, rdk, rdv, rdq
+    del q, k, v, ro, p_round
     torch.cuda.empty_cache()
 
 
@@ -3652,26 +3645,38 @@ def fa_direct(lib, which, tensors, geometry, causal, sc, tail):
     require(err == 0, f"flash_attention_{which}_launch: CUDA error {err}")
 
 
-def parent_attention_turns(parent, fa, gen, shape, causal):
-    """``--parent DIR``: ``flash_attention.cu`` of another commit (DIR holds
-    its ``csrc``), built with the same flags and timed in turns with the
-    shipped build — parent, new, new, parent — at rate 0 on the same
-    inputs: rows 3, 5 and 6 through their C entries (each build with the
-    trailing arguments its source takes, ``entry_tail``).  Every output is
-    held against the plain version first."""
+def parent_library(parent, name):
+    """Library ``name`` built from another commit's sources (``parent``, a
+    ``csrc`` directory) with the same flags, loaded."""
     import ctypes
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
-    libs = {"parent": ctypes.CDLL(str(_build.build_all(
-        ["flash_attention"], csrc=Path(parent))["flash_attention"])),
-        "new": _build.library("flash_attention")}
+    return ctypes.CDLL(str(_build.build_all([name], csrc=Path(parent))[name]))
+
+
+def parent_attention_turns(parent, fa, gen, shape, causal):
+    """``--parent DIR``: rows 3, 5 and 6 of another commit's flash-attention
+    library of ``shape``'s head width (DIR holds its ``csrc``) timed in
+    turns with this build's — parent, new, new, parent — at rate 0 through
+    their C entries (each build with the trailing arguments its source
+    takes, ``entry_tail``), as CUDA-graph replays over
+    ``attention_copies``; every output is held against the plain version
+    first."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    b, s_q, s_k, hq, hkv, d = shape
+    name = _build.width_library("flash_attention", fa.head_width(d))
+    libs = {"parent": parent_library(parent, name),
+            "new": _build.library(name)}
     tails = {side: entry_tail(path) for side, path in
              (("parent", Path(parent)), ("new", _build.CSRC))}
-    b, s_q, s_k, hq, hkv, d = shape
     geometry = (b, hq, hkv, s_q, s_k, d)
-    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    copies = attention_copies(gen, shape)
+    n = len(copies)
     sc = 1.0 / np.sqrt(d)
+    q, k, v, do = copies[0]
     ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
     p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
         q, k, v.abs(), causal, sc)[0].float()
@@ -3680,39 +3685,44 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
                                             sc),
             fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta, causal,
                                           sc))
+    stats = [(rlse, delta)]
+    for c in copies[1:]:
+        o, lse = fa.flash_attention_fwd(*c[:3], causal, sc)
+        stats.append((lse, delta_of(c[3], o)))
     o, lse = torch.empty_like(q), torch.empty_like(rlse)
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     tol = TRAIN_TOL[torch.bfloat16]
     for side in ("parent", "new", "new", "parent"):
-        lib, drop = libs[side], tails[side]
+        lib, tail = libs[side], tails[side]
         calls = {
-            "fwd": lambda i: fa_direct(lib, "fwd", (q, k, v, o, lse),
-                                       geometry, causal, sc, drop),
+            "fwd": lambda i: fa_direct(lib, "fwd", (*copies[i % n][:3], o,
+                                                    lse), geometry, causal,
+                                       sc, tail),
             "bwd_dkv": lambda i: fa_direct(
-                lib, "bwd_dkv", (q, k, v, do, rlse, delta, dk, dv), geometry,
-                causal, sc, drop),
+                lib, "bwd_dkv", (*copies[i % n], *stats[i % n], dk, dv),
+                geometry, causal, sc, tail),
             "bwd_dq": lambda i: fa_direct(
-                lib, "bwd_dq", (q, k, v, do, rlse, delta, dq), geometry,
-                causal, sc, drop)}
+                lib, "bwd_dq", (*copies[i % n], *stats[i % n], dq), geometry,
+                causal, sc, tail)}
         for fn in calls.values():
             fn(0)
         held(f"fwd o   [{side}]", o, ro, tol, p_round)
         held(f"fwd lse [{side}]", lse, rlse, TRAIN_TOL[torch.float32])
         for what, got, ref in zip(("dk", "dv", "dq"), (dk, dv, dq), want):
             held(f"{what} [{side}]", got, ref, tol)
-        line = ", ".join(f"{what} {time_ms(fn, 10):.4f} ms"
+        line = ", ".join(f"{what} {graph_ms(fn, 10):.4f} ms"
                          for what, fn in calls.items())
-        print(f"  turn {side}: rows 3/5/6 at rate 0 {shape}: {line}")
-    del q, k, v, do, ro, rlse, p_round, delta, want, o, lse, dk, dv, dq
+        print(f"  turn {side}: rows 3/5/6 at rate 0 {list(shape)} "
+              f"causal={causal}, graph replays over {n} input copies: "
+              f"{line}")
+    del copies, stats, ro, rlse, p_round, delta, want, o, lse, dk, dv, dq
     torch.cuda.empty_cache()
 
 
 def wgmma_design_turns(fa, gen, shape, causal):
-    """The wgmma forward and dK/dV bodies without segments — compiled at
-    D 64 beside rows 3 and 5 and never routed
-    (``flash_attention_fwd_wgmma_launch``,
-    ``flash_attention_bwd_dkv_wgmma_launch``) — held against the plain
-    versions and timed in turns with rows 3 and 5's mma.sync bodies —
+    """The wgmma forward without segments — compiled at D 64 beside row 3
+    and never routed (``flash_attention_fwd_wgmma_launch``) — held against
+    the plain version and timed in turns with row 3's mma.sync body —
     mma.sync, wgmma, wgmma, mma.sync — through the C entries on the same
     bf16 inputs.  A measurement only."""
     from paddle_tpu_torch.ops import _build
@@ -3720,38 +3730,26 @@ def wgmma_design_turns(fa, gen, shape, causal):
     tail = entry_tail(_build.CSRC)
     b, s_q, s_k, hq, hkv, d = shape
     geometry = (b, hq, hkv, s_q, s_k, d)
-    q, k, v, do = attn_inputs(gen, shape, torch.bfloat16)
+    q, k, v, _ = attn_inputs(gen, shape, torch.bfloat16)
     sc = 1.0 / np.sqrt(d)
     ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
     p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
         q, k, v.abs(), causal, sc)[0].float()
-    delta = delta_of(do, ro)
-    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
-                                              causal, sc)
     o, lse = torch.empty_like(q), torch.empty_like(rlse)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     tol = TRAIN_TOL[torch.bfloat16]
     for body in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
         suffix = "_wgmma" if body == "wgmma" else ""
-        calls = {
-            "forward": lambda i: fa_direct(lib, "fwd" + suffix,
-                                           (q, k, v, o, lse), geometry,
-                                           causal, sc, tail),
-            "dK/dV": lambda i: fa_direct(
-                lib, "bwd_dkv" + suffix, (q, k, v, do, rlse, delta, dk, dv),
-                geometry, causal, sc, tail)}
-        for fn in calls.values():
-            fn(0)
+
+        def call(i):
+            fa_direct(lib, "fwd" + suffix, (q, k, v, o, lse), geometry,
+                      causal, sc, tail)
+        call(0)
         held(f"fwd o   [{body}, no segments]", o, ro, tol, p_round)
         held(f"fwd lse [{body}, no segments]", lse, rlse,
              TRAIN_TOL[torch.float32])
-        held(f"dk [{body}, no segments]", dk, rdk, tol)
-        held(f"dv [{body}, no segments]", dv, rdv, tol)
-        line = ", ".join(f"{what} {time_ms(fn, 10):.4f} ms"
-                         for what, fn in calls.items())
-        print(f"  turn {body}: rows 3 / 5 at rate 0 {list(shape)} "
-              f"causal={causal}: {line}")
-    del q, k, v, do, ro, rlse, p_round, delta, rdk, rdv, o, lse, dk, dv
+        print(f"  turn {body}: row 3 at rate 0 {list(shape)} "
+              f"causal={causal}: forward {time_ms(call, 10):.4f} ms")
+    del q, k, v, ro, rlse, p_round, o, lse
     torch.cuda.empty_cache()
 
 
@@ -3808,8 +3806,8 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     res.update({k + "_drop": v for k, v in drop.items()})
     print("  design steps of rows 3, 5 and 6 at the train shape:")
     design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
-    print("  the wgmma forward and dK/dV bodies without segments (built at "
-          "D 64, not routed) in turns with rows 3 and 5 at the train shape:")
+    print("  the wgmma forward without segments (built at D 64, not "
+          "routed) in turns with row 3 at the train shape:")
     wgmma_design_turns(fa, gen, (B, S, S, Hq, Hq, D), True)
     if parent is not None:
         print(f"  rows 3, 5 and 6 at rate 0 against the build of {parent}, "
@@ -4351,6 +4349,11 @@ def phase_unet(pa, B=8, warmup=3, steps=10):
         "layer_norm_ref": 3 * narrow * steps}
     require(plain.calls == plain_want,
             f"plain calls {plain.calls} != {plain_want}")
+    from paddle_tpu_torch.ops import flash_attention as fa
+    for lvl in sorted(routed):
+        d = c.block_channels[lvl] // c.num_heads
+        require_bodies(fa, f"the self-attention launches at level {lvl}", d,
+                       False, False)
     images_per_s = B * steps / wall
     flop = unet_flop(B, c)
     mfu = flop * steps / wall / BF16_FLOP_PER_S
@@ -4515,13 +4518,119 @@ def graph_attention_timing(fa, gen, shape, label, iters=10):
     return res
 
 
-def phase_unet_timing(pa, decode_kv_lens):
+# Design steps of the wgmma dK/dV and dQ without segments (compile-time
+# settings of flash_attention.cu, as ``FA_VARIANTS``; the shipped build
+# first) at the shapes where they take the longest: 3c's causal one (W 64)
+# and the UNet's level 0 (64 q tiles per key block at W 48).  A consumer
+# holds two stages of its ring (the tile it scores, and the one whose
+# products are in flight), so a ring of 3 loads one tile ahead; without
+# the pipelining it holds one.
+BWD_VARIANTS = (
+    ("shipped: dK/dV 64-row q tiles, a ring of 4; dQ a ring of 4", ()),
+    ("dK/dV a ring of 3", ("-DFA_DKV_HP_STAGES=3",)),
+    ("dK/dV a ring of 6", ("-DFA_DKV_HP_STAGES=6",)),
+    ("dK/dV 32-row q tiles", ("-DFA_DKV_HP_BQ=32",)),
+    ("dK/dV not pipelined", ("-DFA_DKV_HP_PIPELINE=0",)),
+    ("dQ a ring of 3", ("-DFA_DQ_HP_STAGES=3",)),
+    ("dQ a ring of 6", ("-DFA_DQ_HP_STAGES=6",)),
+)
+BWD_DESIGN_SHAPES = (((8, 2048, 2048, 16, 16, 64), True),
+                     (UNET_ATTN_SHAPES[0], False))
+# dK/dV without segments above two 64-column panels, mma.sync against the
+# wgmma body, which decide ``MMA_SYNC_DKV_WIDTHS``: the width whose dK/dV
+# keeps mma.sync (``FA_DKV_MMA_SYNC_W``; 0: none) at the UNet's level 2 (W
+# 160) and at the two wider widths, which no model of the repo takes, at
+# its sequence
+WIDE_VARIANTS = (
+    ("shipped: dK/dV without segments on mma.sync at W 160", ()),
+    ("on the wgmma body at every width", ("-DFA_DKV_MMA_SYNC_W=0",)),
+    ("on mma.sync at W 192", ("-DFA_DKV_MMA_SYNC_W=192",)),
+    ("on mma.sync at W 256", ("-DFA_DKV_MMA_SYNC_W=256",)),
+)
+WIDE_SHAPES = ((UNET_ATTN_SHAPES[2], False),
+               ((8, 256, 256, 8, 8, 192), False),
+               ((8, 256, 256, 8, 8, 256), False))
+
+
+def backward_design_steps(fa, gen, variants, shapes):
+    """One line per entry of ``variants`` (BWD_VARIANTS, WIDE_VARIANTS) at
+    each (shape, causal) of ``shapes``, in two turns: the variant's dK/dV
+    and dQ held against the plain versions, then timed as CUDA-graph
+    replays over ``attention_copies``, with ptxas's registers and spills of
+    the two wgmma instantiations.  A measurement only: the port loads the
+    shipped build, which is put back however this ends."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+    names = [_build.width_library("flash_attention",
+                                  fa.head_width(shape[-1]))
+             for shape, _ in shapes]
+    t0 = time.perf_counter()
+    paths = build_variants(variants, names)
+    print(f"  built {len(variants)} variants of {names} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tol = TRAIN_TOL[torch.bfloat16]
+    for (shape, causal), name in zip(shapes, names):
+        d = shape[-1]
+        w = fa.head_width(d)
+        copies = attention_copies(gen, shape)
+        n = len(copies)
+        sc = 1.0 / np.sqrt(d)
+        q, k, v, do = copies[0]
+        _, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+        o, _ = fa.flash_attention_fwd(q, k, v, causal, sc)
+        delta = delta_of(do, o)
+        want = (*fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
+                                                causal, sc),
+                fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta,
+                                              causal, sc))
+        stats = [(rlse, delta)]
+        for c in copies[1:]:
+            o, lse = fa.flash_attention_fwd(*c[:3], causal, sc)
+            stats.append((lse, delta_of(c[3], o)))
+        shipped = _build.library(name)
+        try:
+            for turn in (1, 2):
+                for (what, _), path in zip(variants, paths):
+                    _build._LIBS[name] = ctypes.CDLL(str(path[name]))
+                    if turn == 1:
+                        got = (*fa.flash_attention_bwd_dkv(
+                            q, k, v, do, rlse, delta, causal, sc),
+                            fa.flash_attention_bwd_dq(q, k, v, do, rlse,
+                                                      delta, causal, sc))
+                        for x, g, r in zip(("dk", "dv", "dq"), got, want):
+                            held(f"{x} [{what}] {list(shape)}", g, r, tol)
+                        del got
+                    dkv_ms = graph_ms(lambda i: fa.flash_attention_bwd_dkv(
+                        *copies[i % n], *stats[i % n], causal, sc), 10)
+                    dq_ms = graph_ms(lambda i: fa.flash_attention_bwd_dq(
+                        *copies[i % n], *stats[i % n], causal, sc), 10)
+                    regs = ", ".join(
+                        f"{'dK/dV' if 'dkv' in kern else 'dQ'} {r} "
+                        f"registers, {st} B spilled"
+                        for kern, a, r, st, _ in ptxas_lines(path[name])
+                        if kern in ("fa_bwd_dkv_wgmma_kernel",
+                                    "fa_bwd_dq_wgmma_kernel")
+                        and template_args(a) == [w, 0, 0])
+                    print(f"  design step of the wgmma backward, turn "
+                          f"{turn}, {what}, {list(shape)} causal={causal}: "
+                          f"dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms "
+                          f"({regs})")
+        finally:
+            _build._LIBS[name] = shipped
+        del copies, stats, q, k, v, do, o, rlse, delta, want
+        torch.cuda.empty_cache()
+
+
+def phase_unet_timing(pa, decode_kv_lens, parent=None):
     """Phase 5e: rows 3/5/6 at the three UNet shapes (non-causal,
     ``graph_attention_timing``), each beside its bound (counted at the head
     dim, not the padded width), the plain version's time and SDPA's forward
-    and backward at the same shape; then rows 1-2 at head dim 80 at phase
-    3a's decode shape (32 heads, pages of 16) beside their byte bound.
-    Returns the timings by the UNet rows' keys."""
+    and backward at the same shape, and with ``parent`` (another commit's
+    ``csrc``) that build's rows in turns with these; the design steps of
+    the wgmma dK/dV and dQ (``BWD_VARIANTS``); then rows 1-2 at head dim 80
+    at phase 3a's decode shape (32 heads, pages of 16) beside their byte
+    bound.  Returns the timings by the UNet rows' keys."""
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(23)
     res = {}
@@ -4531,6 +4640,14 @@ def phase_unet_timing(pa, decode_kv_lens):
               f"{fa.head_width(d)}), non-causal:")
         t = graph_attention_timing(fa, gen, shape, f" (d {d})")
         res.update({f"{k}_d{d}": v for k, v in t.items()})
+        if parent is not None:
+            print(f"  rows 3/5/6 at head dim {d} against the build of "
+                  f"{parent}, in turns:")
+            parent_attention_turns(parent, fa, gen, shape, False)
+    print("  design steps of the wgmma dK/dV and dQ without segments:")
+    backward_design_steps(fa, gen, BWD_VARIANTS, BWD_DESIGN_SHAPES)
+    print("  dK/dV above W 128, mma.sync against the wgmma body:")
+    backward_design_steps(fa, gen, WIDE_VARIANTS, WIDE_SHAPES)
     sh = shapes(decode_kv_lens)[0]
     for kv_dtype in (None, "int8"):
         time_shape(pa, gen, sh, kv_dtype, D=80)
@@ -4736,7 +4853,8 @@ def main():
     timing.update(phase_segment_timing(args.parent))
     say("phase 5e: flash attention at the SD-1.5 UNet's shapes (head dims "
           "40 / 80 / 160) and ragged paged attention at head dim 80")
-    timing.update(phase_unet_timing(pa, serve["decode_kv_lens"]))
+    timing.update(phase_unet_timing(pa, serve["decode_kv_lens"],
+                                    args.parent))
 
     say("phase 6: summary")
     for name, sv, what in (("bf16 KV", serve, "decode"),

@@ -43,11 +43,10 @@ extern "C" int pack_lse_launch(const void* src, void* dst, long long bh,
 }
 
 #ifdef FA_TUNED_LIBRARY
-// The wgmma forward and dK / dV bodies without segments (bf16, D 64, no
-// dropout): compiled beside the mma.sync bodies of rows 3 and 5 so that a
-// run can time the two designs on the same inputs; the wrappers never
-// launch them.  Arguments as flash_attention_fwd_launch /
-// flash_attention_bwd_dkv_launch (the dropout threshold 0, no segments).
+// The wgmma forward without segments (bf16, D 64, no dropout): compiled
+// beside the mma.sync forward of row 3 so that a run can time the two
+// designs on the same inputs; the wrappers never launch it.  Arguments as
+// flash_attention_fwd_launch (the dropout threshold 0, no segments).
 extern "C" int flash_attention_fwd_wgmma_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
@@ -63,23 +62,5 @@ extern "C" int flash_attention_fwd_wgmma_launch(
                                                          seed_lo, seed_hi},
                                      nullptr,
                                      static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int flash_attention_bwd_dkv_wgmma_launch(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv,
-    const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
-    int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
-    float drop_scale, unsigned seed_lo, unsigned seed_hi, const void* seg,
-    void* stream) {
-  const Geometry g{batch, hq, hkv, s_q, s_k, causal, head_dim, sm_scale};
-  if (!valid(g, seg) || dtype != 1 || head_dim != 64 || thresh != 0 ||
-      seg != nullptr)
-    return cudaErrorInvalidValue;
-  return bwd_dkv_wgmma<64, false, false>(
-      q, k, v, dout, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), dk, dv, strides, g,
-      Dropout{0, drop_scale, seed_lo, seed_hi}, nullptr,
-      static_cast<cudaStream_t>(stream));
 }
 #endif  // FA_TUNED_LIBRARY

@@ -13,9 +13,10 @@
 //                                                fa_bwd_dkv_kernel)
 //   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_mma_kernel,
 //                                                fa_bwd_dq_kernel)
-//   _fwd_kernel / _bwd_dkv_kernel / _bwd_dq_kernel, has_segments, bf16
-//        (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel,
-//         fa_bwd_dq_wgmma_kernel)
+//   _fwd_kernel, has_segments, bf16         (fa_fwd_wgmma_kernel)
+//   _bwd_dkv_kernel / _bwd_dq_kernel, bf16 but the dropout branch without
+//        segments                           (fa_bwd_dkv_wgmma_kernel,
+//                                            fa_bwd_dq_wgmma_kernel)
 //
 // Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
 // each is read or written through its (batch, seq, head) strides with unit
@@ -99,9 +100,15 @@
 // The bf16 forward rounds p to bf16 for P V, as the TPU kernel does
 // (`pd.astype(v.dtype)`).  The TPU backward keeps p and ds in f32; here each
 // enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
-// 2^-16 relative, with two products into one f32 accumulator.  The
-// segment branch's bf16 forward, dK / dV and dQ are warp-specialised wgmma
-// bodies fed by TMA (below); every other bf16 launch takes mma.sync.
+// 2^-16 relative, with two products into one f32 accumulator.  Which bf16
+// launch takes which body (kWgmmaFwd, kWgmmaDkv, kWgmmaDq; the C entry
+// flash_attention_body reports it per launch):
+//   forward: the segment branch the warp-specialised wgmma body fed by TMA
+//     (below), every other launch mma.sync;
+//   dK / dV and dQ: every launch the wgmma bodies, with or without
+//     segments, causal or not, but the dropout branch without segments,
+//     which keeps mma.sync, and dK / dV without segments at W 160
+//     (kMmaSyncDkvWidth), where mma.sync measured faster.
 //
 // Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
 // template flag DROP of all six bodies; the DROP = false instantiations are
@@ -125,7 +132,9 @@
 // the padding of an untileable sequence, which takes a segment of its own)
 // are the template flag SEG beside DROP of the three f32 bodies and of the
 // three bf16 wgmma bodies, which take every bf16 segment launch of rows 3,
-// 5 and 6; the SEG = false instantiations are the kernels as they were.
+// 5 and 6; the SEG = false instantiations are the kernels without the
+// mask (of the wgmma bodies, those of dK / dV and dQ run every bf16
+// launch without segments or dropout).
 // The ids of one batch row,
 // f32 [S] (S = S_q = S_k), are read from device memory where a score is
 // masked, and a score whose q row and key lie in different segments is
@@ -145,7 +154,10 @@
 // unmasked path) or masked from ids staged in shared memory beside the tile
 // (tile_class; the TPU kernel skips none, and skipping changes no value) —
 // and run wgmma on TMA-loaded tiles, a producer warp feeding consumer
-// warpgroups.  The f32 bodies mask every tile with SEG.
+// warpgroups.  Without segments the same classes are the causal frontier
+// and the end of the keys, so dK / dV and dQ take those launches too (they
+// were 2.2-2.5x slower than SDPA's backward on mma.sync at the UNet's and
+// the LLaMA step's shapes).  The f32 bodies mask every tile with SEG.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().  flash_attention.cu defines FA_TU_WIDTHS (its widths;
@@ -1420,18 +1432,18 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// The segment branch's bf16 forward, dK / dV and dQ, written for Hopper's
-// warpgroups (sm90_wgmma.cuh).  A block holds consumer warpgroups of 64
-// rows each (q rows in the forward and dQ, keys in dK / dV) and one
-// producer warp that keeps the block's ring of tiles full by TMA.  The
-// products are wgmma: S = Q K^T (and S^T = K Q^T, dP^T = V dO^T, dP = dO
-// V^T) from two shared tiles, then O += P V (and dV += p^T dO, dK += ds^T
-// Q, dQ += ds K, p and ds as hi + lo) with the score fragments in registers
-// as the A operand.  The output columns run in 64-column panels, so W 32 /
-// 48 / 80 / 96 / 160 carry zero columns up to the next panel (W 160 runs
-// three).  Above two panels, dK / dV splits its output panels between two
-// blocks (grid z), each with at most two, and dQ between the two consumers
-// of a 64-row block.
+// The wgmma bodies: the bf16 forward of the segment branch, and the bf16 dK /
+// dV and dQ of every launch but the dropout branch without segments, written
+// for Hopper's warpgroups (sm90_wgmma.cuh). A block holds consumer warpgroups
+// of 64 rows each (q rows in the forward and dQ, keys in dK / dV) and one
+// producer warp that keeps the block's ring of tiles full by TMA. The
+// products are wgmma: S = Q K^T (and S^T = K Q^T, dP^T = V dO^T, dP = dO V^T)
+// from two shared tiles, then O += P V (and dV += p^T dO, dK += ds^T Q, dQ +=
+// ds K, p and ds as hi + lo) with the score fragments in registers as the A
+// operand. The output columns run in 64-column panels, so W 32, 48, 80, 96
+// and 160 carry zero columns up to the next panel (W 160 runs three). Above
+// two panels, dK / dV splits its output panels between two blocks (grid z),
+// each with at most two, and dQ between the two consumers of a 64-row block.
 //
 // Per-tile segment classes (tile_class): before the producer loads a
 // streamed tile it reads the tile's ids (one warp, from L2), takes their
@@ -1448,7 +1460,9 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // (s_q = s_k with equal ids), so skipping changes no value: after a row's
 // first real score exp(NEG_INF - m) is 0 in f32, and before it the
 // rescale by exp(NEG_INF - m_real) clears whatever masked tiles summed.
-// ops/flash_attention.py segment_tile_plan is the same rule in PyTorch.
+// Without segments only the causal frontier skips, as the mma.sync bodies
+// skip the same tiles.  ops/flash_attention.py segment_tile_plan is the
+// same rule in PyTorch.
 //
 // The producer streams one entry per loaded tile through the ring: the
 // tile (TMA, counted in bytes on the stage's full barrier), its ids (and,
@@ -1475,7 +1489,24 @@ __host__ __device__ constexpr int hp_fwd_stages() {
   return hp_panels<W>() <= 2 ? 3 : 2;
 }
 // blocks sharing the output panels of a dK / dV key block, the panels each
-// takes (at most), its streamed q tile and its ring depth
+// takes (at most), its streamed q tile and its ring depth.  A consumer
+// holds dK and dV of its panels (64 registers a panel), S^T and dP^T of
+// the tile it scores and the hi + lo p and ds of the tile whose products
+// are in flight (BQ registers each): 192 of its 232 at one panel with
+// 64-row q tiles (FA_DKV_HP_BQ) and at two with 32-row ones.  It holds two
+// stages, so the ring loads FA_DKV_HP_STAGES - 2 tiles ahead, or as many
+// as fit the 227 KB beside K and V.
+#ifndef FA_DKV_HP_BQ
+#define FA_DKV_HP_BQ 64
+#endif
+#ifndef FA_DKV_HP_STAGES
+#define FA_DKV_HP_STAGES 4
+#endif
+// 0 builds dK / dV without the pipelining (each tile's products issued
+// after its exponentials), for the design step that times the two
+#ifndef FA_DKV_HP_PIPELINE
+#define FA_DKV_HP_PIPELINE 1
+#endif
 template <int W>
 __host__ __device__ constexpr int hp_dkv_split() {
   return hp_panels<W>() > 2 ? 2 : 1;
@@ -1486,11 +1517,14 @@ __host__ __device__ constexpr int hp_dkv_panels() {
 }
 template <int W>
 __host__ __device__ constexpr int hp_dkv_bq() {
-  return hp_dkv_panels<W>() > 1 ? 32 : 64;
+  return hp_dkv_panels<W>() > 1 ? 32 : FA_DKV_HP_BQ;
 }
 template <int W>
 __host__ __device__ constexpr int hp_dkv_stages() {
-  return hp_panels<W>() > 2 ? 2 : 3;
+  constexpr int NP = hp_panels<W>(), BQ = hp_dkv_bq<W>();
+  constexpr int fit = (232448 - 1024 - 64 - 2 * NP * 128 * 128) /
+                      (2 * NP * BQ * 128 + 3 * BQ * 4 + 48);
+  return fit < FA_DKV_HP_STAGES ? fit : FA_DKV_HP_STAGES;
 }
 // dQ: the q rows of a block and the output panels of each consumer.  Up to
 // two panels a block takes 128 rows, 64 per consumer, each with every
@@ -1919,8 +1953,23 @@ constexpr int hp_dkv_smem() {
 // computes the transposed tiles S^T = K Q^T and dP^T = V dO^T, whose
 // fragments (rows = keys) are the A operand of dV += p^T dO and dK +=
 // ds^T Q, p and ds each as hi + lo (2^-16 relative, as the TPU kernel's
-// f32).  The streamed record carries the tile's lse, delta and ids beside
-// its Q and dO tiles.  Above two panels grid z splits the output panels.
+// f32).  The streamed record carries the tile's lse (in base 2), delta and
+// ids beside its Q and dO tiles.  Each consumer pipelines the tiles as the
+// forward and dQ do: it issues S^T and dP^T of a tile, then dV and dK of
+// the tile before, so that its exponentials of the one run while the
+// tensor cores work on the other (the dropout branch, whose mask takes
+// the registers of the second tile, issues each tile's products after its
+// exponentials).  Where no tile is pending (the first of a stream, or
+// after a skipped one) a pass issues S^T and dP^T alone: each branch waits
+// for the wgmma groups it committed, so that none is in flight across a
+// branch (ptxas would serialise every wgmma of the kernel, C7520); where
+// a block has fewer panels than NPB it repeats its last and stores it
+// once.  A tile that none of a consumer's keys meets
+// (its class skip: past the causal frontier, or no id in common) is
+// released at once, after the pending tile's products, so that a consumer
+// never holds more than the tile it scores and the one before.  dK is
+// scaled by sm_scale in the epilogue.  Above two panels grid z splits the
+// output panels.
 template <int W, bool SEG, bool DROP>
 __global__ void __launch_bounds__(kHpThreads, 1)
 fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
@@ -1935,6 +1984,10 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
   constexpr int NPB = hp_dkv_panels<W>(), BQ = hp_dkv_bq<W>();
   constexpr int NC = 2, BK = 64 * NC, KS = W / 16, NQ = BQ / 8;
   constexpr int PK = BK * 64, PQ = BQ * 64;  // elements of a K / Q panel
+  static_assert(NS >= 3, "a consumer holds two stages: the ring needs three");
+  // the dropout branch does not pipeline: its mask's registers leave no room
+  // for a second tile's scores at two panels
+  constexpr bool PIPE = FA_DKV_HP_PIPELINE && !DROP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -2021,7 +2074,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
       for (int i = 0; i < BQ / 32; ++i) {
         const int row = row0 + 32 * i + lane;
         const long long at = ((long long)b * hq + h) * s_q + row;
-        st[32 * i + lane] = row < s_q ? lse[at] : 0.f;
+        st[32 * i + lane] = row < s_q ? lse[at] * kLog2e : 0.f;
         st[BQ + 32 * i + lane] = row < s_q ? delta[at] : 0.f;
         if constexpr (SEG) st[2 * BQ + 32 * i + lane] = id[i];
       }
@@ -2073,6 +2126,51 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
     const __nv_bfloat16* vw = v_s + 64 * 64 * wg;
     const unsigned kcell = (unsigned)(wk >> 4) * 4u + (g >> 1);
     const bool odd = g & 1;
+    // the pending tile: its stage (-1: none), its p and ds as hi + lo and
+    // its Q and dO panels
+    unsigned ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dlo[BQ / 16][4];
+    const __nv_bfloat16* qp = q_s;
+    const __nv_bfloat16* dop = do_s;
+    int pend = -1;
+    auto fence_accs = [&]() {
+#pragma unroll
+      for (int p = 0; p < NPB; ++p) {
+        fence_acc(dk_acc[p]);
+        fence_acc(dv_acc[p]);
+      }
+    };
+    auto fence_pending = [&]() {
+      fence_frag(ph);
+      fence_frag(pl);
+      fence_frag(dh);
+      fence_frag(dlo);
+    };
+    // dV += p^T dO and dK += ds^T Q of the pending tile, each factor as
+    // hi + lo, over the block's output panels
+    auto issue_products = [&]() {
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq)
+#pragma unroll
+        for (int p = 0; p < NPB; ++p) {
+          const int pz = min(pz0 + p, NP - 1);
+          const uint64_t bo = desc_mn(dop + pz * PQ, kq);
+          const uint64_t bq = desc_mn(qp + pz * PQ, kq);
+          wgmma_rs(dv_acc[p], ph[kq], bo);
+          wgmma_rs(dv_acc[p], pl[kq], bo);
+          wgmma_rs(dk_acc[p], dh[kq], bq);
+          wgmma_rs(dk_acc[p], dlo[kq], bq);
+        }
+    };
+    // the pending tile's products alone, waited for
+    auto finish_pending = [&]() {
+      fence_accs();
+      wgmma_fence();
+      issue_products();
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_accs();
+      fence_pending();
+    };
     mbar_wait(kvbar, 0);
 
     int stage = 0;
@@ -2082,21 +2180,39 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
       const int* mt = meta + 8 * stage;
       if (mt[4]) break;
       const int cls = mt[2 + wg];
-      if (cls != kTileSkip) {
-        const int h = mt[0], row0 = mt[1];
-        const __nv_bfloat16* qs = q_s + stage * NP * PQ;
-        const __nv_bfloat16* dos = do_s + stage * NP * PQ;
-        const float* st = stats + stage * 3 * BQ;
-        float sc[NQ][4], dp[NQ][4];         // S^T and dP^T: keys x q rows
+      if (cls == kTileSkip) {
+        // none of the group's keys meets the tile: release it, and the
+        // pending tile once its products are done
+        if (pend >= 0) {
+          finish_pending();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[pend]);
+          pend = -1;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == NS) {
+          stage = 0;
+          phase ^= 1;
+        }
+        continue;
+      }
+      const int h = mt[0], row0 = mt[1];
+      const __nv_bfloat16* qs = q_s + stage * NP * PQ;
+      const __nv_bfloat16* dos = do_s + stage * NP * PQ;
+      const float* st = stats + stage * 3 * BQ;
+      float sc[NQ][4], dp[NQ][4];           // S^T and dP^T: keys x q rows
 #pragma unroll
-        for (int j = 0; j < NQ; ++j)
+      for (int j = 0; j < NQ; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            sc[j][e] = 0.f;
-            dp[j][e] = 0.f;
-          }
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+      auto issue_scores = [&]() {
         fence_acc(sc);
         fence_acc(dp);
+        fence_accs();
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk)
@@ -2107,17 +2223,15 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
           wgmma_ss(dp, desc_k(vw + (kk / 4) * PK, kk % 4),
                    desc_k(dos + (kk / 4) * PQ, kk % 4), kk > 0);
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(sc);
-        fence_acc(dp);
-
-        // p = exp(s - lse) and ds = p (dP - delta) sm_scale.  With DROP,
-        // dV takes the dropped p and ds the dropped dP; the fragment is
-        // transposed (rows = keys), so a thread's scores of one q column
-        // lie in one Philox call but use 2 of its words: lanes g and g ^ 1
-        // (lane ^ 4) hold the same q columns and the other 2 words, so
-        // each draws the call of one of their 2 columns and they swap
-        // halves
+      };
+      auto p_and_ds = [&]() {
+        // p = exp(s - lse) and ds = p (dP - delta) (the epilogue scales dK
+        // by sm_scale).  With DROP, dV takes the dropped p and ds the
+        // dropped dP; the fragment is transposed (rows = keys), so a
+        // thread's scores of one q column lie in one Philox call but use 2
+        // of its words: lanes g and g ^ 1 (lane ^ 4) hold the same q
+        // columns and the other 2 words, so each draws the call of one of
+        // their 2 columns and they swap halves
         const bool masked = cls == kTileMasked;
         const unsigned bhq = b * hq + h;
 #pragma unroll
@@ -2128,9 +2242,11 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
               *reinterpret_cast<const float2*>(st + BQ + 8 * j + 2 * t);
           float2 qid = make_float2(0.f, 0.f);
           if constexpr (SEG)
-            qid = *reinterpret_cast<const float2*>(st + 2 * BQ + 8 * j + 2 * t);
-          unsigned kw4[4];                  // element e's word: q column
-          if constexpr (DROP) {             // 2t + (e & 1), key g + 8 (e >> 1)
+            qid = *reinterpret_cast<const float2*>(st + 2 * BQ + 8 * j +
+                                                   2 * t);
+          // element e's word: q column 2t + (e & 1), key g + 8 (e >> 1)
+          unsigned kw4[4];
+          if constexpr (DROP) {
             const uint4 w =
                 dropout_words(dr, kcell, row0 + 8 * j + 2 * t + odd, bhq);
             const unsigned ra = __shfl_xor_sync(kFull, odd ? w.x : w.y, 4);
@@ -2143,76 +2259,80 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
+            const float lse2 = (e & 1) ? l2.y : l2.x;
             const float dl = (e & 1) ? d2.y : d2.x;
-            float x = sc[j][e] * scale2;
+            float x;
             if (masked) {
               const int qrow = row0 + 8 * j + 2 * t + (e & 1);
               const int key = wk + g + 8 * (e >> 1);
+              x = sc[j][e] * scale2;
               if (key >= s_k) x = __int_as_float(0xff800000);
               else if (causal && qrow + offset < key) x = neg2;
               else if (SEG && kid[e >> 1] != ((e & 1) ? qid.y : qid.x))
                 x = neg2;
+              x -= lse2;
+            } else {
+              x = fmaf(sc[j][e], scale2, -lse2);
             }
-            const float p = fast_exp2(x - lse2);
+            const float p = fast_exp2(x);
             if constexpr (DROP) {
               sc[j][e] = dropped(dr, kw4[e], p);
-              dp[j][e] = p * (dropped(dr, kw4[e], dp[j][e]) - dl) * sm_scale;
+              dp[j][e] = p * (dropped(dr, kw4[e], dp[j][e]) - dl);
             } else {
               sc[j][e] = p;
-              dp[j][e] = p * (dp[j][e] - dl) * sm_scale;
+              dp[j][e] = p * (dp[j][e] - dl);
             }
           }
         }
-
-        // dV += p^T dO and dK += ds^T Q, each factor as hi + lo, over the
-        // block's output panels
-        unsigned ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4],
-            dlo[BQ / 16][4];
-#pragma unroll
-        for (int kq = 0; kq < BQ / 16; ++kq)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int j = 2 * kq + (i >> 1), e = 2 * (i & 1);
-            split_pair(sc[j][e], sc[j][e + 1], ph[kq][i], pl[kq][i]);
-            split_pair(dp[j][e], dp[j][e + 1], dh[kq][i], dlo[kq][i]);
-          }
-#pragma unroll
-        for (int p = 0; p < NPB; ++p) {
-          fence_acc(dk_acc[p]);
-          fence_acc(dv_acc[p]);
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int kq = 0; kq < BQ / 16; ++kq)
-#pragma unroll
-          for (int p = 0; p < NPB; ++p)
-            if (p < npb) {
-              const int pz = pz0 + p;
-              wgmma_rs(dv_acc[p], ph[kq], desc_mn(dos + pz * PQ, kq));
-              wgmma_rs(dv_acc[p], pl[kq], desc_mn(dos + pz * PQ, kq));
-              wgmma_rs(dk_acc[p], dh[kq], desc_mn(qs + pz * PQ, kq));
-              wgmma_rs(dk_acc[p], dlo[kq], desc_mn(qs + pz * PQ, kq));
-            }
+      };
+      // each branch closes its wgmma groups: with a pending tile, its
+      // products run while this tile's exponentials do; without one (the
+      // first tile of a stream, or after a skipped one, and every tile
+      // without PIPE), no product is issued
+      if (PIPE && pend >= 0) {
+        issue_scores();
+        issue_products();                     // the pending tile's dV, dK
         wgmma_commit();
+        wgmma_wait<1>();                      // S^T and dP^T have landed
+        fence_acc(sc);
+        fence_acc(dp);
+        p_and_ds();
+        wgmma_wait<0>();                      // the pending products are done
+        fence_accs();
+        fence_pending();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[pend]);
+      } else {
+        issue_scores();
         wgmma_wait<0>();
-#pragma unroll
-        for (int p = 0; p < NPB; ++p) {
-          fence_acc(dk_acc[p]);
-          fence_acc(dv_acc[p]);
-        }
-        fence_frag(ph);
-        fence_frag(pl);
-        fence_frag(dh);
-        fence_frag(dlo);
+        fence_acc(sc);
+        fence_acc(dp);
+        p_and_ds();
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
+      // p and ds (hi + lo) of this tile are the A operands of its products
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 2 * kq + (i >> 1), e = 2 * (i & 1);
+          split_pair(sc[j][e], sc[j][e + 1], ph[kq][i], pl[kq][i]);
+          split_pair(dp[j][e], dp[j][e + 1], dh[kq][i], dlo[kq][i]);
+        }
+      pend = stage;
+      qp = qs;
+      dop = dos;
+      if constexpr (!PIPE) {
+        finish_pending();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[pend]);
+        pend = -1;
+      }
       if (++stage == NS) {
         stage = 0;
         phase ^= 1;
       }
     }
+    if (pend >= 0) finish_pending();          // the last tile's products
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -2227,7 +2347,8 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
           const int col = 64 * (pz0 + p) + 8 * j + 2 * t;
           if (p >= npb || col >= d) continue;
           *reinterpret_cast<unsigned*>(dkr + col) =
-              pack_bf16(dk_acc[p][j][2 * r], dk_acc[p][j][2 * r + 1]);
+              pack_bf16(dk_acc[p][j][2 * r] * sm_scale,
+                        dk_acc[p][j][2 * r + 1] * sm_scale);
           *reinterpret_cast<unsigned*>(dvr + col) =
               pack_bf16(dv_acc[p][j][2 * r], dv_acc[p][j][2 * r + 1]);
         }
@@ -2562,10 +2683,30 @@ constexpr int dq_mma_smem() {
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-// the launches that take the wgmma bodies: the bf16 segment branch of the
-// forward, dK / dV and dQ, at every width
+// dK / dV without segments keeps mma.sync at W 160 (FA_DKV_MMA_SYNC_W):
+// above two 64-column panels the wgmma body splits the output panels
+// between two blocks that each recompute S^T and dP^T, and at W 160 it
+// repeats a panel, which left it slower than mma.sync at the UNet's level
+// 2 ([8, 256, 8, 160]); at W 192 and 256 it was the faster one at that
+// sequence (chip_smoke.py phase 5e, WIDE_VARIANTS, which build this at
+// each width and at 0, none; PERF.md §6 has the times).
+#ifndef FA_DKV_MMA_SYNC_W
+#define FA_DKV_MMA_SYNC_W 160
+#endif
+constexpr bool kMmaSyncDkvWidth(int w) { return w == FA_DKV_MMA_SYNC_W; }
+
+// The launches that take the wgmma bodies, per row: the forward's bf16
+// segment branch; every bf16 dQ launch but the dropout branch without
+// segments; every bf16 dK / dV launch but that branch and, without
+// segments, the widths of kMmaSyncDkvWidth.  The other bf16 launches take
+// mma.sync.
 template <typename T, bool SEG>
-constexpr bool kWgmmaBody = kTensorCores<T> && SEG;
+constexpr bool kWgmmaFwd = kTensorCores<T> && SEG;
+template <typename T, int W, bool SEG, bool DROP>
+constexpr bool kWgmmaDkv =
+    kTensorCores<T> && (SEG || (!DROP && !kMmaSyncDkvWidth(W)));
+template <typename T, int W, bool SEG, bool DROP>
+constexpr bool kWgmmaDq = kTensorCores<T> && (SEG || !DROP);
 
 // one instantiation of the bodies: element type, width, PART and the flags
 template <typename T, int W, bool PART, bool SEG, bool DROP>
@@ -2660,7 +2801,7 @@ cudaError_t fwd(Variant<T, W, PART, SEG, DROP>, const void* q, const void* k,
                 const void* v, void* o, float* lse, const long long* st,
                 const Geometry& g, const Dropout& dr, const float* seg,
                 cudaStream_t stream) {
-  if constexpr (kWgmmaBody<T, SEG>) {
+  if constexpr (kWgmmaFwd<T, SEG>) {
     return fwd_wgmma<W, SEG, DROP>(q, k, v, o, lse, st, g, dr, seg, stream);
   } else if constexpr (kTensorCores<T>) {
     constexpr int rows = 16 * FA_FWD_WARPS;
@@ -2699,7 +2840,7 @@ cudaError_t bwd_dkv(Variant<T, W, PART, SEG, DROP>, const void* q,
                     const float* lse, const float* delta, void* dk, void* dv,
                     const long long* st, const Geometry& g, const Dropout& dr,
                     const float* seg, cudaStream_t stream) {
-  if constexpr (kWgmmaBody<T, SEG>) {
+  if constexpr (kWgmmaDkv<T, W, SEG, DROP>) {
     return bwd_dkv_wgmma<W, SEG, DROP>(q, k, v, dout, lse, delta, dk, dv, st,
                                        g, dr, seg, stream);
   } else if constexpr (kTensorCores<T>) {
@@ -2745,7 +2886,7 @@ cudaError_t bwd_dq(Variant<T, W, PART, SEG, DROP>, const void* q,
                    const float* lse, const float* delta, void* dq,
                    const long long* st, const Geometry& g, const Dropout& dr,
                    const float* seg, cudaStream_t stream) {
-  if constexpr (kWgmmaBody<T, SEG>) {
+  if constexpr (kWgmmaDq<T, W, SEG, DROP>) {
     return bwd_dq_wgmma<W, SEG, DROP>(q, k, v, dout, lse, delta, dq, st, g,
                                       dr, seg, stream);
   } else if constexpr (kTensorCores<T>) {
@@ -2789,12 +2930,15 @@ inline bool valid(const Geometry& g, const void* seg) {
          g.s_k > 0 && (seg == nullptr || g.s_q == g.s_k);
 }
 
-// the body that every launch (forward, dK / dV and dQ alike) takes at this
-// instantiation: 0 the f32 CUDA-core body, 1 mma.sync, 2 wgmma
+// the body that a launch of `which` (0 forward, 1 dK / dV, 2 dQ) takes at
+// this instantiation: 0 the f32 CUDA-core body, 1 mma.sync, 2 wgmma
 template <typename T, int W, bool PART, bool SEG, bool DROP>
-int body_of(Variant<T, W, PART, SEG, DROP>) {
+int body_of(int which, Variant<T, W, PART, SEG, DROP>) {
   if constexpr (!kTensorCores<T>) return 0;
-  else return kWgmmaBody<T, SEG> ? 2 : 1;
+  const bool wgmma = which == 0   ? kWgmmaFwd<T, SEG>
+                     : which == 1 ? kWgmmaDkv<T, W, SEG, DROP>
+                                  : kWgmmaDq<T, W, SEG, DROP>;
+  return wgmma ? 2 : 1;
 }
 
 // f(Variant<...>{}) for the instantiation a launch at width W takes: dtype
@@ -2910,7 +3054,7 @@ extern "C" int flash_attention_body(int which, int head_dim, int dtype,
   if (which < 0 || which > 2) return body;
   at_width<FA_TU_WIDTHS>(head_dim, dtype, seg != 0, drop != 0,
                          [&](auto var) {
-                           body = body_of(var);
+                           body = body_of(which, var);
                            return cudaSuccess;
                          });
   return body;

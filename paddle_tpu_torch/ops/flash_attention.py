@@ -29,11 +29,13 @@ wrapper also counts those launches in ``.segment_launches``.  They are
 how :func:`flash_attention` takes a long untileable sequence
 (:func:`_pad_to_tile`: S >= 384 padded to the 128 tile, the padding in a
 segment of its own) and how ``nn.functional.flash_attn_unpadded`` runs
-packed varlen attention.  In bf16 the forward, dK/dV and dQ launches with
-segments run wgmma bodies that class every (q tile, key tile) pair before
-loading it — skipped, full or masked, :func:`segment_tile_plan` at each
-body's :func:`segment_tiles` — and :func:`kernel_body` names the body a
-launch takes.
+packed varlen attention.  In bf16 the forward launches with segments, and
+every dK/dV and dQ launch but the dropout branch without segments (and
+dK/dV without segments at head dims 136-160), run wgmma bodies that class
+every (q tile, key tile) pair before loading it — skipped, full or masked,
+:func:`segment_tile_plan` at each body's :func:`segment_tiles` (without
+segments only the causal frontier and the end of the keys count) — and
+:func:`kernel_body` names the body a launch takes.
 
 Head dims: every D that the JAX kernels take (a multiple of 8 up to 256)
 runs on the card.  The kernels are compiled at the widths
@@ -417,9 +419,12 @@ TILE_SKIP, TILE_FULL, TILE_MASKED = 0, 1, 2
 
 def segment_tile_plan(seg, s_q, s_k, bq, bk, causal):
     """The class of every (q tile, key tile) pair, int64 [B, ceil(s_q / bq),
-    ceil(s_k / bk)], by the rule the bf16 segment kernels apply before they
-    load a tile (``csrc/flash_attention.cuh tile_class``): ``seg`` [B, S]
-    (or None: no segments), q tiles of ``bq`` rows, key tiles of ``bk``.
+    ceil(s_k / bk)], by the rule every launch of the bf16 wgmma bodies
+    (:func:`kernel_body`) applies before it loads a tile
+    (``csrc/flash_attention.cuh tile_class``): ``seg`` [B, S] (or None: no
+    segments, the plan of the dK/dV and dQ launches without them, where
+    only the causal frontier skips and masks and the end of the keys
+    masks), q tiles of ``bq`` rows, key tiles of ``bk``.
 
     With the [min, max] of the tile's row ids and of its key ids (only rows
     inside s_q and keys inside s_k count), a pair is
@@ -468,13 +473,13 @@ def segment_tile_plan(seg, s_q, s_k, bq, bk, causal):
 
 
 def segment_tiles(which, head_dim):
-    """(bq, bk) of the bf16 segment body of ``which`` ("fwd", "bwd_dkv" or
-    "bwd_dq") at ``head_dim``: the q rows and keys of the tile pairs it
-    classes (:func:`segment_tile_plan`), as ``csrc/flash_attention.cuh``
-    sizes them from the head width W.  The forward classes 128 q rows
-    against 64 keys; dK/dV a q tile of 64 rows (32 above W 64) against
-    each consumer's 64 keys; dQ 128 q rows (64 above W 128, where a block
-    holds 64 rows) against 64 keys."""
+    """(bq, bk) of the bf16 wgmma body of ``which`` ("fwd", "bwd_dkv" or
+    "bwd_dq") at ``head_dim``, with or without segments: the q rows and
+    keys of the tile pairs it classes (:func:`segment_tile_plan`), as
+    ``csrc/flash_attention.cuh`` sizes them from the head width W.  The
+    forward classes 128 q rows against 64 keys; dK/dV a q tile of 64 rows
+    (32 above W 64) against each consumer's 64 keys; dQ 128 q rows (64
+    above W 128, where a block holds 64 rows) against 64 keys."""
     w = head_width(head_dim)
     if w is None or which not in ("fwd", "bwd_dkv", "bwd_dq"):
         raise ValueError(f"no segment body {which!r} at head dim {head_dim}")
@@ -486,9 +491,13 @@ def kernel_body(which, dtype, head_dim, segments, dropout):
     """The body that a launch of ``which`` ("fwd", "bwd_dkv" or "bwd_dq")
     takes on the card for q's ``dtype``, ``head_dim`` and the two branches
     (``segments``, ``dropout``: bools): "cuda cores" (f32), "mma.sync" or
-    "wgmma" (every bf16 launch with segments, at every head dim) — read
-    from the library's own dispatch (the C entry ``flash_attention_body``),
-    so it names what the launch runs."""
+    "wgmma".  In bf16, at every head dim: the forward takes wgmma with
+    segments and mma.sync without; dK/dV and dQ take wgmma but for the
+    dropout branch without segments, which keeps mma.sync, and dK/dV
+    without segments at width 160 (head dims 136-160), where mma.sync
+    measured faster.  Read from the library's own dispatch (the C entry
+    ``flash_attention_body``, per launch), so it names what the launch
+    runs."""
     code = getattr(_build.library(_build.width_library(
         "flash_attention", head_width(head_dim))), "flash_attention_body")
     code.restype = ctypes.c_int

@@ -441,6 +441,48 @@ def test_kernels_match_plain_versions_on_card():
                                rtol=0, atol=0)
 
 
+# the wgmma dK/dV and dQ without segments: the UNet's level-0 head dim
+# (40, at W 48) non-causal over 4 q tiles of 64 rows per key block, and
+# causal GQA 8:2 at D 64 with S off the tile
+WGMMA_BWD_CARD_CASES = [((2, 256, 256, 4, 4, 40), False),
+                        ((2, 200, 200, 8, 2, 64), True)]
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_matches_plain_versions_on_card():
+    """Each bf16 launch's body (``kernel_body``): dK/dV and dQ wgmma
+    without segments or dropout (dK/dV mma.sync at W 160), mma.sync with
+    dropout, the forward mma.sync; then the wgmma dK/dV and dQ against
+    their plain versions on ``WGMMA_BWD_CARD_CASES`` (as ``chip_smoke.py``
+    holds them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for d in (40, 64, 80, 160, 256):
+        dkv = "mma.sync" if d == 160 else "wgmma"
+        assert chip_smoke.launch_bodies(tfa, d, False, False) == {
+            "fwd": "mma.sync", "bwd_dkv": dkv, "bwd_dq": "wgmma"}
+        assert chip_smoke.launch_bodies(tfa, d, False, True) == {
+            "fwd": "mma.sync", "bwd_dkv": "mma.sync", "bwd_dq": "mma.sync"}
+    for shape, causal in WGMMA_BWD_CARD_CASES:
+        q, k, v, do = (torch.from_numpy(x).cuda().bfloat16()
+                       for x in _inputs(shape, seed=8))
+        scale = 1.0 / math.sqrt(shape[-1])
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(lse.shape).contiguous()
+        got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                          scale)
+        got += (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                           scale),)
+        want = tfa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               causal, scale)
+        want += (tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                causal, scale),)
+        torch.cuda.synchronize()
+        for a, b_ in zip(got, want):
+            _held_bf16(a, b_)
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_dropout_mask_read_out_of_each_plain_version(causal):
     """The read-out ``chip_smoke.py`` applies to the kernels on the card,

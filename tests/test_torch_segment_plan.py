@@ -292,3 +292,46 @@ def test_skipped_tiles_change_no_value(_restricted, causal, bq, bk):
     dq = tfa.flash_attention_bwd_dq_ref(tq, tk, tv, tdo, lse, delta, causal,
                                         scale, segment_ids=tseg)
     np.testing.assert_allclose(dq.numpy(), _bshd(jdq, b), **TOL)
+
+
+# (S, causal, head dim): the UNet's three self-attention shapes (phase 3h,
+# non-causal) and the LLaMA step's causal one (phase 3c), which the wgmma
+# dK/dV and dQ take without segments
+NO_SEGMENT_SHAPES = [(4096, False, 40), (1024, False, 80), (256, False, 160),
+                     (2048, True, 64)]
+# the (query, key) pairs each body executes at 3c's shape, per head: every
+# pair of a tile that is not skipped (dK/dV's 64 x 64 tiles: 528 of 1,024;
+# dQ's 128 x 64: 272 of 512)
+EXECUTED_3C = {"bwd_dkv": 528 * 64 * 64, "bwd_dq": 272 * 128 * 64}
+
+
+@pytest.mark.parametrize("which", ["bwd_dkv", "bwd_dq"])
+@pytest.mark.parametrize("s,causal,d", NO_SEGMENT_SHAPES,
+                         ids=[f"S{s}-{'causal' if c else 'full'}-d{d}"
+                              for s, c, d in NO_SEGMENT_SHAPES])
+def test_plan_without_segments_against_the_mask(s, causal, d, which):
+    """The plan of the wgmma dK/dV and dQ launches without segments, at
+    each body's tiles (``segment_tiles``), against a brute count of the
+    pairs ``_mask`` keeps per tile: no kept pair lies in a skipped tile, and
+    no masked pair in a full one; the executed pairs (those of every tile
+    not skipped) hold every kept pair, are all S^2 pairs without the causal
+    mask and ``EXECUTED_3C`` with it."""
+    bq, bk = tfa.segment_tiles(which, d)
+    plan = tfa.segment_tile_plan(None, s, s, bq, bk, causal)[0]
+    keep = tfa._mask(s, s, "cpu") if causal \
+        else torch.ones(s, s, dtype=torch.bool)
+    n_qt, n_kt = -(-s // bq), -(-s // bk)
+    assert plan.shape == (n_qt, n_kt)
+    padded = torch.zeros(n_qt * bq, n_kt * bk, dtype=torch.bool)
+    padded[:s, :s] = keep
+    kept = padded.reshape(n_qt, bq, n_kt, bk).sum((1, 3))
+    assert int(kept[plan == tfa.TILE_SKIP].sum()) == 0
+    assert bool((kept[plan == tfa.TILE_FULL] == bq * bk).all())
+    executed = int((plan != tfa.TILE_SKIP).sum()) * bq * bk
+    assert int(kept[plan != tfa.TILE_SKIP].sum()) == int(keep.sum())
+    if causal:
+        assert int(keep.sum()) == s * (s + 1) // 2
+        assert executed == EXECUTED_3C[which]
+    else:
+        assert executed == s * s
+        assert bool((plan == tfa.TILE_FULL).all())
