@@ -17,13 +17,14 @@ weights made from a seed:
                ptxas's registers and spills of the mma.sync attention
                kernels and of the wgmma forward, dK/dV and dQ, the RMSNorm
                and LayerNorm register passes, the ragged paged-attention
-               kernels and the softmax forward's register pass (dQ, the
+               kernels and the softmax forward's register pass (the
                wgmma bodies, the ragged kernels and the register passes of
                the softmax forward, the RMSNorm forward and the LayerNorm
                backward must not spill; no flash-attention kernel may
                carry ptxas's C7520, a serialised wgmma), and the SASS that
-               the dropout branch adds to the mma.sync forward
-               (``cuobjdump``; instructions per Philox call); the flash-
+               the dropout branch adds to the mma.sync forward and to the
+               wgmma forward and dQ (``cuobjdump``; instructions per
+               Philox call; the wgmma dK/dV's in phase 5e); the flash-
                attention kernels build as one library per group of head
                widths (``flash_attention.cu`` at 64 and 128, and at each of
                32, 48, 80, 96, 160, 192, 256 with ``-DFA_TU_WIDTHS=W``),
@@ -44,9 +45,9 @@ weights made from a seed:
                against torch's over all 256 codes, and the split merge
                against its plain version;
                (b) the body every launch of rows 3/5/6 takes, at every
-               width (bf16 dK/dV and dQ wgmma, but mma.sync with dropout
-               and no segments and, for dK/dV without segments, at W
-               160; the forward wgmma only with segments; f32 the CUDA
+               width (bf16 dK/dV and dQ wgmma, with or without dropout,
+               but dK/dV without segments at W 160 mma.sync;
+               the forward wgmma only with segments; f32 the CUDA
                cores); the train kernels (flash-attention forward with its
                lse, the lse repack, the dK/dV and dQ backward, RMSNorm
                forward and backward) against their plain versions: the
@@ -78,7 +79,8 @@ weights made from a seed:
                and f32, D 64 and 128, causal and not, GQA 8:2, s_k off the
                tile, s_q < s_k, S 200 causal), and the masks of o, dQ, dK
                and dV read out through one-hot inputs (bf16 and f32, D 64
-               and 128, GQA, lengths off the tile): every bit equal to
+               and 128, bf16 at D 40 and 160, GQA, lengths off the
+               tile): every bit equal to
                ``dropout_keep``, causal and not, and the keep rate over
                10.5M scores within 5 sigma of 0.9;
                (d) every bf16 segment launch of rows 3/5/6 takes a wgmma
@@ -101,9 +103,9 @@ weights made from a seed:
                (e) rows 3/5/6 at head dims 24, 40, 56, 72, 80, 96, 112,
                160, 176, 200 and 256 (every compiled width, off-width dims
                included), bf16 and f32, causal and not, GQA 8:2 at 40 / 80
-               / 160, a bf16 segment case at each (the wgmma bodies at
-               every width), and their dropout and segment branches at 40 and
-               160, and bf16 non-causal at the UNet's three attention
+               / 160, a bf16 segment case and a bf16 dropout case at each
+               (the wgmma bodies at every width), and their dropout and
+               segment branches at 40 and 160 in f32 too, and bf16 non-causal at the UNet's three attention
                shapes (phase 3h's B 8, 8 heads; S 4,096 / 1,024 / 256 at
                d 40 / 80 / 160); rows 1-2 at head dims 40, 80, 96 and 256
                over bf16, f32, int8 and fp8 pages (decode with a split,
@@ -207,7 +209,10 @@ weights made from a seed:
                aten._fused_rms_norm_backward, rows 3, 5 and 6 at
                phase 3d's attention shape at rate 0 and at dropout 0.1
                (beside SDPA with dropout_p=0.1; the bound counts the mask's
-               Philox work), one line per design step of
+               Philox work; with ``--parent DIR`` that build's rows 5d and
+               6d in turns with these, and phase 3d's MLM step at dropout
+               0.1 in turns on that build's flash-attention library and
+               this one's), one line per design step of
                the mma.sync forward (variants of its tile, ring depth and
                occupancy, each held against the plain version), the
                wgmma forward without segments (built at D 64, never
@@ -239,8 +244,10 @@ weights made from a seed:
                ``--parent DIR`` that build's rows 3/5/6 in turns with these,
                one line per design step of the wgmma dK/dV and dQ (dK/dV's
                ring depth, q tile and pipelining, dQ's ring depth, at 3c's
-               and the UNet's level-0 shapes) and of dK/dV above W 128
-               (mma.sync against the wgmma body), and rows 1-2 at head dim
+               and the UNet's level-0 shapes, and at 3d's at dropout 0.1)
+               the SASS that dropout adds to the wgmma dK/dV, and of
+               dK/dV above W 128 (mma.sync against the wgmma body, at rate
+               0 and at dropout 0.1), and rows 1-2 at head dim
                80 at phase 3a's decode shape beside their byte bound;
   6. summary   the card's name and power limit, a ``kernels`` JSON line and
                the result line.
@@ -308,32 +315,38 @@ def card_line():
 
 # -- phase 1: build ----------------------------------------------------------
 REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
-                    "fa_bwd_dq_mma_kernel", "rms_fwd_vec_kernel",
-                    "rms_bwd_vec_kernel", "ln_bwd_vec_kernel",
-                    "ragged_paged_attention_kernel",
+                    "rms_fwd_vec_kernel", "rms_bwd_vec_kernel",
+                    "ln_bwd_vec_kernel", "ragged_paged_attention_kernel",
                     "ragged_paged_attention_mma_kernel",
                     "ragged_paged_attention_combine_kernel",
                     "softmax_fwd_reg_kernel", "fa_fwd_wgmma_kernel",
                     "fa_bwd_dkv_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
+# the mma.sync flash-attention bodies (the forward, and dK/dV, which runs
+# only dK/dV without segments at W 160, with or without dropout)
+MMA_SYNC_KERNELS = REPORTED_KERNELS[:2]
+# the mma.sync backward bodies whose launches at W 64 / 128 run in the
+# wgmma bodies since the dropout backward moved there (the dQ is gone)
+MOVED_TO_WGMMA = ("fa_bwd_dkv_mma_kernel", "fa_bwd_dq_mma_kernel")
 # kernels that hold their working set in registers by design: none may spill
 # (the wgmma bodies at every width: their accumulators and pipelined score
 # tiles fill the consumers' 232 registers)
-NO_SPILL = ("fa_bwd_dq_mma_kernel", "ragged_paged_attention_kernel",
+NO_SPILL = ("ragged_paged_attention_kernel",
             "ragged_paged_attention_mma_kernel",
             "ragged_paged_attention_combine_kernel", "softmax_fwd_reg_kernel",
             "rms_fwd_vec_kernel", "ln_bwd_vec_kernel", "fa_fwd_wgmma_kernel",
             "fa_bwd_dkv_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
+# the tensor-core flash-attention bodies whose dropout instantiations have
+# their DROP = false twins, of the same structure, in the W 64 / 128
+# library; the wgmma dK/dV's twin there is pipelined and its dropout branch
+# is not, so its SASS is compared in phase 5e, in the unpipelined build
+DROP_TWINS = ("fa_fwd_mma_kernel", "fa_fwd_wgmma_kernel",
+              "fa_bwd_dq_wgmma_kernel")
 
 
-# the mma.sync bodies whose launches without dropout run the wgmma bodies
-# (``kernel_body``): only their dropout instantiations are compiled
-WGMMA_BWD_MMA_SYNC = ("fa_bwd_dkv_mma_kernel", "fa_bwd_dq_mma_kernel")
-
-
-def ptxas_lines(path):
+def ptxas_lines(path, kernels=REPORTED_KERNELS):
     """(kernel, template arguments as mangled, registers, spill stores,
-    spill loads) of every instantiation of ``REPORTED_KERNELS`` in the
-    ptxas report kept beside the library at ``path``."""
+    spill loads) of every instantiation of ``kernels`` in the ptxas report
+    kept beside the library at ``path``."""
     import re
     entry = re.compile(
         r"Compiling entry function '(\w+)'[^\n]*\n[^\n]*\n\s*(\d+) bytes "
@@ -342,7 +355,7 @@ def ptxas_lines(path):
     out = []
     for mangled, _, stores, loads, regs in entry.findall(
             path.with_suffix(".log").read_text()):
-        kernel = next((k for k in REPORTED_KERNELS if k in mangled), None)
+        kernel = next((k for k in kernels if k in mangled), None)
         if kernel is not None:
             args = mangled[mangled.index(kernel) + len(kernel):]
             out.append((kernel, args.split("EEv")[0] + "E", int(regs),
@@ -372,24 +385,20 @@ def sass_opcodes(path):
     return out
 
 
-def philox_sass_report(path):
+def philox_sass_report(path, kernels=DROP_TWINS):
     """What the dropout branch adds to each tensor-core flash-attention
-    kernel, as compiled: the SASS of every DROP = true instantiation less
-    its DROP = false twin, opcode by opcode.  Every mask word meets one
-    unsigned compare with the threshold (ISETP.GE.U32), so the compares it
-    adds over the 4 words of a Philox4x32-10 call give the calls in the
-    code, and the added instructions over those calls the instructions per
-    call (the bound counts ``PHILOX_OPS`` of them).  The mma.sync dK/dV
-    and dQ have no twin: their launches without dropout run the wgmma
-    bodies."""
+    kernel of ``kernels``, as compiled: the SASS of every DROP = true
+    instantiation less its DROP = false twin, opcode by opcode.  Every mask
+    word meets one unsigned compare with the threshold (ISETP.GE.U32), so
+    the compares it adds over the 4 words of a Philox4x32-10 call give the
+    calls in the code, and the added instructions over those calls the
+    instructions per call (the bound counts ``PHILOX_OPS`` of them)."""
     ops = sass_opcodes(path)
     for mangled, drop in sorted(ops.items()):
-        kernel = next((k for k in REPORTED_KERNELS[:3] if k in mangled), None)
+        kernel = next((k for k in kernels if k in mangled), None)
         if kernel is None or "Lb1EEEv" not in mangled:
             continue
         base = ops.get(mangled.replace("Lb1EEEv", "Lb0EEEv"))
-        if base is None and kernel in WGMMA_BWD_MMA_SYNC:
-            continue
         require(base is not None, f"no DROP = false twin of {mangled}")
         delta = {o: drop[o] - base[o] for o in drop | base
                  if drop[o] != base[o]}
@@ -473,10 +482,12 @@ def compare_parent_ptxas(built, parent):
     another commit's build of it (from the head-width slice on): each parent
     instantiation is matched to this build's twin with the same template
     arguments and their registers and spills must be equal.  A parent whose
-    mma.sync forward, dK/dV or dQ still took the segment flag has it
-    dropped; its segment instantiations, and its mma.sync dK/dV and dQ
-    without dropout, are counted apart, since this build runs those
-    launches in the wgmma bodies."""
+    mma.sync forward still took the segment flag has it dropped; its
+    segment instantiations, and its mma.sync dK/dV and dQ
+    (``MOVED_TO_WGMMA``), are counted apart, since this build runs those
+    launches in the wgmma bodies (it compiles no mma.sync dK/dV at W 64 /
+    128, and no mma.sync dQ); every other parent instantiation must have
+    its twin."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
@@ -489,23 +500,24 @@ def compare_parent_ptxas(built, parent):
     new = {}
     for kernel, args, regs, stores, loads in ptxas_lines(
             built["flash_attention"]):
-        if kernel in REPORTED_KERNELS[:3]:
+        if kernel in MMA_SYNC_KERNELS:
             new[(kernel, tuple(template_args(args)))] = (regs, stores, loads)
     arity = {kernel: len(ta) for kernel, ta in new}
     n = moved = 0
-    for kernel, args, regs, stores, loads in ptxas_lines(path):
-        if kernel not in REPORTED_KERNELS[:3]:
-            continue
+    # the parent's mma.sync dQ too, which this build no longer has
+    for kernel, args, regs, stores, loads in ptxas_lines(
+            path, MMA_SYNC_KERNELS + ("fa_bwd_dq_mma_kernel",)):
         ta = template_args(args)
+        if kernel in MOVED_TO_WGMMA:
+            moved += 1                      # wgmma here at W 64 / 128
+            continue
+        require(kernel in arity, f"this build has no {kernel} at W 64 / 128")
         if len(ta) == arity[kernel] + 1:
             if ta[-2]:                      # its segment flag, then DROP
                 moved += 1
                 continue
             del ta[-2]
         key = (kernel, tuple(ta))
-        if key not in new and kernel in WGMMA_BWD_MMA_SYNC and not ta[-1]:
-            moved += 1                      # DROP = false: wgmma here
-            continue
         require(key in new, f"no twin of the parent's {key}")
         print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
               f"stores {stores} B, loads {loads} B; this build "
@@ -517,8 +529,8 @@ def compare_parent_ptxas(built, parent):
     require(n > 0, "no parent instantiation of rows 3/5/6 in its report")
     print(f"  {n} parent instantiations of rows 3/5/6 at W 64 / 128: "
           f"registers and spills equal to this build's; {moved} of its "
-          f"mma.sync instantiations (segments; dK/dV and dQ without "
-          f"dropout) run in the wgmma bodies here")
+          f"mma.sync instantiations (segments; dK/dV and dQ) run in the "
+          f"wgmma bodies here")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -850,13 +862,21 @@ DROPOUT_ATTN_CASES = [
 ]
 # (name, (B, S_q, S_k, Hq, Hkv, D), dtype) of the masks read out of every
 # dropout kernel (``check_masks``), causal and not: the bf16 tensor-core
-# kernels at ERNIE's D 64 with GQA 8:2 and lengths off the 64-row tile and
-# at D 128 with s_q < s_k, the f32 kernels likewise, and last the f32
-# kernels over B x Hq x 128 x 128 scores (over 10^7) for the keep rate
+# kernels at ERNIE's D 64 with GQA 8:2 and lengths off the 64-row tile, at
+# D 128 with s_q < s_k (the wgmma dK/dV's 32-row q tiles), at D 40 (W 48,
+# a zero-padded panel), at D 160 (dK/dV on mma.sync, its one width there)
+# and at D 192 (the wgmma dK/dV's output panels split over two blocks,
+# two panels and one, that each draw the mask), the f32 kernels likewise,
+# and last the
+# f32 kernels over B x Hq x 128 x 128 scores (over 10^7) for the keep rate
 MASK_READOUTS = [
     ("bf16 D=64 GQA 8:2 S=200", (2, 200, 200, 8, 2, 64), torch.bfloat16),
     ("bf16 D=128 s_q 136 < s_k 200", (2, 136, 200, 4, 4, 128),
      torch.bfloat16),
+    ("bf16 D=40 GQA 4:2 S=136", (2, 136, 136, 4, 2, 40), torch.bfloat16),
+    ("bf16 D=160 s_q 72 < s_k 200", (1, 72, 200, 4, 4, 160),
+     torch.bfloat16),
+    ("bf16 D=192 GQA 4:2 S=200", (1, 200, 200, 4, 2, 192), torch.bfloat16),
     ("f32 D=64 GQA 8:2 s_q 136 < s_k 200", (2, 136, 200, 8, 2, 64),
      torch.float32),
     ("f32 D=128 GQA 16:4 S=128", (40, 128, 128, 16, 4, 128), torch.float32),
@@ -1101,22 +1121,22 @@ def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
         torch.cuda.empty_cache()
 
 
-# head widths whose bf16 dK/dV without segments keeps mma.sync, as
-# flash_attention.cuh kMmaSyncDkvWidth names them (phase 5e's
-# ``WIDE_VARIANTS`` time the two bodies above two 64-column panels)
+# head widths whose bf16 dK/dV without segments keeps mma.sync, with or
+# without dropout, as flash_attention.cuh kMmaSyncDkvWidth names them
+# (phase 5e's ``WIDE_VARIANTS`` time the two bodies above two 64-column
+# panels)
 MMA_SYNC_DKV_WIDTHS = (160,)
 
 
 def want_bodies(fa, d, segments, dropout):
     """The body each bf16 launch of rows 3, 5 and 6 must take at head dim
-    ``d``: the forward wgmma with segments, else mma.sync; dK/dV and dQ
-    wgmma but for the dropout branch without segments, which keeps
-    mma.sync, and dK/dV without segments at ``MMA_SYNC_DKV_WIDTHS``."""
-    dq = segments or not dropout
-    dkv = dq and (segments or fa.head_width(d) not in MMA_SYNC_DKV_WIDTHS)
+    ``d``: the forward wgmma with segments, else mma.sync; dQ wgmma; dK/dV
+    wgmma but without segments at ``MMA_SYNC_DKV_WIDTHS``, with or without
+    dropout."""
+    dkv = segments or fa.head_width(d) not in MMA_SYNC_DKV_WIDTHS
     return {"fwd": "wgmma" if segments else "mma.sync",
             "bwd_dkv": "wgmma" if dkv else "mma.sync",
-            "bwd_dq": "wgmma" if dq else "mma.sync"}
+            "bwd_dq": "wgmma"}
 
 
 def launch_bodies(fa, d, segments, dropout, dtype=torch.bfloat16):
@@ -1153,10 +1173,10 @@ def phase_train_kernels(fa, fu):
                 body = launch_bodies(fa, d, segments, dropout, torch.float32)
                 require(set(body.values()) == {"cuda cores"},
                         f"f32 D {d}: bodies {body}")
-    print(f"  at head dims {dims}: bf16 dK/dV and dQ take wgmma but for "
-          f"dropout without segments (mma.sync) and dK/dV without segments "
-          f"at widths {MMA_SYNC_DKV_WIDTHS} (mma.sync), the forward wgmma "
-          f"with segments and mma.sync without; f32 the CUDA cores")
+    print(f"  at head dims {dims}: bf16 dQ takes wgmma, and dK/dV too but "
+          f"without segments at widths {MMA_SYNC_DKV_WIDTHS} (mma.sync); "
+          f"the forward wgmma with segments and mma.sync without; f32 the "
+          f"CUDA cores")
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {r["key"]: 0.0 for r in TRAIN_ROWS}
     attention_checks(fa, gen, TRAIN_ATTN_CASES, worst)
@@ -1498,11 +1518,14 @@ SEG_DROPOUT_CASES = [
      torch.float32, [100, 156]),
 ]
 # (name, (B, S, S, Hq, Hkv, D), dtype, segment lengths) of the masks read
-# out of the segment and dropout kernels, causal and not
+# out of the segment and dropout kernels, causal and not (at D 160 the
+# wgmma dK/dV's output panels split over two blocks)
 SEG_MASK_READOUTS = [
     ("bf16 D=64 unsorted tile-aligned ids, id 3 recurs",
      (2, 256, 256, 8, 2, 64), torch.bfloat16, SPANS_READOUT),
     ("bf16 D=64 GQA 8:2 segments 37/100/63", (2, 200, 200, 8, 2, 64),
+     torch.bfloat16, [37, 100, 63]),
+    ("bf16 D=160 segments 37/100/63", (1, 200, 200, 4, 4, 160),
      torch.bfloat16, [37, 100, 63]),
     ("f32 D=128 segments 100/156", (1, 256, 256, 4, 4, 128), torch.float32,
      [100, 156]),
@@ -3601,13 +3624,16 @@ def parent_norm_turns(parent, fu, gen, N=16384, H=1024):
     torch.cuda.empty_cache()
 
 
-def entry_tail(csrc):
+def entry_tail(csrc, rate=0.0, seed=0):
     """(ctypes types, values) of the arguments that the C entries of the
     ``flash_attention.cu`` in ``csrc`` take after sm_scale, read off its
     source (and ``flash_attention.cuh``, where the entries live from the
-    head-width slice on): the dropout arguments (rate 0) from the dropout
-    branch on, then a null segment pointer from the segment branch on."""
+    head-width slice on): the dropout arguments (of ``rate`` and ``seed``)
+    from the dropout branch on, then a null segment pointer from the
+    segment branch on."""
     import ctypes
+
+    from paddle_tpu_torch.ops import flash_attention as fa
     source = "".join((csrc / f).read_text()
                      for f in ("flash_attention.cu", "flash_attention.cuh")
                      if (csrc / f).exists())
@@ -3615,7 +3641,9 @@ def entry_tail(csrc):
     if "unsigned thresh" in source:
         types += [ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
                   ctypes.c_uint]
-        values += [0, 1.0, 0, 0]
+        values += list(fa._dropout_args(rate, seed))
+    else:
+        require(rate == 0.0, f"{csrc} has no dropout branch")
     if "const void* seg" in source:
         types.append(ctypes.c_void_p)
         values.append(None)
@@ -3655,14 +3683,14 @@ def parent_library(parent, name):
     return ctypes.CDLL(str(_build.build_all([name], csrc=Path(parent))[name]))
 
 
-def parent_attention_turns(parent, fa, gen, shape, causal):
+def parent_attention_turns(parent, fa, gen, shape, causal, rate=0.0):
     """``--parent DIR``: rows 3, 5 and 6 of another commit's flash-attention
     library of ``shape``'s head width (DIR holds its ``csrc``) timed in
-    turns with this build's — parent, new, new, parent — at rate 0 through
-    their C entries (each build with the trailing arguments its source
-    takes, ``entry_tail``), as CUDA-graph replays over
-    ``attention_copies``; every output is held against the plain version
-    first."""
+    turns with this build's — parent, new, new, parent — at ``rate``
+    (dropout under one seed: rows 3d, 5d and 6d) through their C entries
+    (each build with the trailing arguments its source takes,
+    ``entry_tail``), as CUDA-graph replays over ``attention_copies``; every
+    output is held against the plain version first."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
@@ -3670,24 +3698,24 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
     name = _build.width_library("flash_attention", fa.head_width(d))
     libs = {"parent": parent_library(parent, name),
             "new": _build.library(name)}
-    tails = {side: entry_tail(path) for side, path in
+    seed = 4321 if rate > 0 else 0
+    tails = {side: entry_tail(path, rate, seed) for side, path in
              (("parent", Path(parent)), ("new", _build.CSRC))}
     geometry = (b, hq, hkv, s_q, s_k, d)
     copies = attention_copies(gen, shape)
     n = len(copies)
     sc = 1.0 / np.sqrt(d)
+    args = (causal, sc, rate, seed)
     q, k, v, do = copies[0]
-    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, *args)
     p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
-        q, k, v.abs(), causal, sc)[0].float()
+        q, k, v.abs(), *args)[0].float()
     delta = delta_of(do, ro)
-    want = (*fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta, causal,
-                                            sc),
-            fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta, causal,
-                                          sc))
+    want = (*fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta, *args),
+            fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta, *args))
     stats = [(rlse, delta)]
     for c in copies[1:]:
-        o, lse = fa.flash_attention_fwd(*c[:3], causal, sc)
+        o, lse = fa.flash_attention_fwd(*c[:3], *args)
         stats.append((lse, delta_of(c[3], o)))
     o, lse = torch.empty_like(q), torch.empty_like(rlse)
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
@@ -3712,10 +3740,51 @@ def parent_attention_turns(parent, fa, gen, shape, causal):
             held(f"{what} [{side}]", got, ref, tol)
         line = ", ".join(f"{what} {graph_ms(fn, 10):.4f} ms"
                          for what, fn in calls.items())
-        print(f"  turn {side}: rows 3/5/6 at rate 0 {list(shape)} "
+        print(f"  turn {side}: rows 3/5/6 at rate {rate:g} {list(shape)} "
               f"causal={causal}, graph replays over {n} input copies: "
               f"{line}")
     del copies, stats, ro, rlse, p_round, delta, want, o, lse, dk, dv, dq
+    torch.cuda.empty_cache()
+
+
+def parent_ernie_turns(parent, fa, B=64, S=512, warmup=2, steps=10):
+    """``--parent DIR``: phase 3d's MLM step (ERNIE-3.0-base, B x S, both
+    dropouts at ``DROPOUT_RATE``) on one model, timed in turns — parent,
+    new, new, parent — with the head width's flash-attention library
+    swapped between another commit's build (DIR holds its ``csrc``) and
+    this one; every other kernel is this build's.  Each turn runs
+    ``warmup`` steps, then ``steps`` timed ones, and prints ms per step
+    and its last loss.  The shipped library is put back however this
+    ends."""
+    from paddle_tpu_torch.ops import _build
+    cfg = ernie_config()
+    name = _build.width_library(
+        "flash_attention",
+        fa.head_width(cfg.hidden_size // cfg.num_attention_heads))
+    libs = {"parent": parent_library(parent, name),
+            "new": _build.library(name)}
+    step, _, _ = make_ernie_step(cfg, torch.bfloat16, True)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                           .astype(np.int32)).cuda()
+    try:
+        for side in ("parent", "new", "new", "parent"):
+            _build._LIBS[name] = libs[side]
+            for _ in range(warmup):
+                step((ids, ids))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step((ids, ids))[0] for _ in range(steps)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            loss = float(losses[-1])
+            require(np.isfinite(loss), f"3d turn {side}: loss {loss}")
+            print(f"  turn {side}: 3d MLM step at dropout {DROPOUT_RATE}, "
+                  f"B={B} S={S}: {ms:.2f} ms per step over {steps} steps, "
+                  f"last loss {loss:.4f}")
+    finally:
+        _build._LIBS[name] = libs["new"]
+    del step, ids
     torch.cuda.empty_cache()
 
 
@@ -3786,7 +3855,8 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     only; the port never calls it); rows 3, 5 and 6 also at ERNIE's
     attention shape (phase 3d, non-causal), the design steps of rows 3, 5
     and 6 at the train shape, and with ``parent`` the turns of
-    :func:`parent_norm_turns`.  Row 8's library call is the backward alone
+    :func:`parent_attention_turns` (rows 3/5/6 at the train shape, rows
+    3d/5d/6d at 3d's at dropout 0.1) and :func:`parent_norm_turns`.  Row 8's library call is the backward alone
     (``aten._fused_rms_norm_backward``), with ``F.rms_norm`` forward +
     backward printed beside it."""
     import torch.nn.functional as F
@@ -3813,6 +3883,15 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
         print(f"  rows 3, 5 and 6 at rate 0 against the build of {parent}, "
               f"in turns:")
         parent_attention_turns(parent, fa, gen, (B, S, S, Hq, Hq, D), True)
+        print(f"  rows 3d, 5d and 6d (ERNIE's attention shape, phase 3d, "
+              f"dropout {DROPOUT_RATE}) against the build of {parent}, in "
+              f"turns:")
+        parent_attention_turns(parent, fa, gen, ERNIE_ATTN_SHAPE, False,
+                               DROPOUT_RATE)
+        print(f"  phase 3d's MLM step at dropout {DROPOUT_RATE} on the "
+              f"flash-attention library of {parent} and on this one, in "
+              f"turns:")
+        parent_ernie_turns(parent, fa)
         print(f"  rows 7 and 13 against the build of {parent}, in turns:")
         parent_norm_turns(parent, fu, gen, N, H)
     elt = 2
@@ -4046,11 +4125,11 @@ def head_dim_cases(d):
 
 def head_dim_checks(fa, gen, worst=None):
     """Phase 2e for rows 3/5/6: every head dim of ``HEAD_DIMS_2E`` against
-    the plain versions under ``TRAIN_TOL`` (and a bf16 segment case each,
-    so that the wgmma bodies run at every width), and the dropout (rate
-    0.1) and segment branches at head dims 40 and 160 (SD-1.5's level 0 and
-    2),
-    bf16 and f32, and bf16 non-causal at ``UNET_ATTN_SHAPES`` (the shapes
+    the plain versions under ``TRAIN_TOL`` (and a bf16 segment case and a
+    bf16 dropout case each, so that the wgmma bodies run every branch at
+    every width), and the dropout (rate 0.1) and segment branches at head
+    dims 40 and 160 (SD-1.5's level 0 and 2), bf16 and f32, and bf16
+    non-causal at ``UNET_ATTN_SHAPES`` (the shapes
     phase 3h gives the kernels); the worst error of each head dim under
     ``head_keys``."""
     worst = {} if worst is None else worst
@@ -4062,6 +4141,11 @@ def head_dim_checks(fa, gen, worst=None):
                                     (2, 320, 320, 4, 2, d), d % 16 == 8,
                                     torch.bfloat16, [64, 10, 118, 128])],
                          worst, keys=head_keys(d))
+        # the dropout branch of the wgmma dK/dV and dQ at this width (GQA
+        # 4:2, lengths off the tile, causal at the odd multiples of 8)
+        attention_checks(fa, gen, [(f"D={d} dropout", (2, 200, 200, 4, 2, d),
+                                    d % 16 == 8, torch.bfloat16)],
+                         worst, DROPOUT_RATE, head_keys(d))
     for shape in UNET_ATTN_SHAPES:
         attention_checks(fa, gen, [(f"UNet D={shape[-1]}", shape, False,
                                     torch.bfloat16)], worst,
@@ -4520,11 +4604,13 @@ def graph_attention_timing(fa, gen, shape, label, iters=10):
 
 # Design steps of the wgmma dK/dV and dQ without segments (compile-time
 # settings of flash_attention.cu, as ``FA_VARIANTS``; the shipped build
-# first) at the shapes where they take the longest: 3c's causal one (W 64)
-# and the UNet's level 0 (64 q tiles per key block at W 48).  A consumer
-# holds two stages of its ring (the tile it scores, and the one whose
-# products are in flight), so a ring of 3 loads one tile ahead; without
-# the pipelining it holds one.
+# first) at the shapes where they take the longest: 3c's causal one (W 64),
+# the UNet's level 0 (64 q tiles per key block at W 48) and 3d's at dropout
+# 0.1 (the mask's Philox rounds against the products; the dropout branch is
+# not pipelined, at any setting).  A consumer holds
+# two stages of its ring (the tile it scores, and the one whose products
+# are in flight), so a ring of 3 loads one tile ahead; without the
+# pipelining it holds one.
 BWD_VARIANTS = (
     ("shipped: dK/dV 64-row q tiles, a ring of 4; dQ a ring of 4", ()),
     ("dK/dV a ring of 3", ("-DFA_DKV_HP_STAGES=3",)),
@@ -4534,87 +4620,96 @@ BWD_VARIANTS = (
     ("dQ a ring of 3", ("-DFA_DQ_HP_STAGES=3",)),
     ("dQ a ring of 6", ("-DFA_DQ_HP_STAGES=6",)),
 )
-BWD_DESIGN_SHAPES = (((8, 2048, 2048, 16, 16, 64), True),
-                     (UNET_ATTN_SHAPES[0], False))
+# (shape, causal, dropout rate)
+BWD_DESIGN_SHAPES = (((8, 2048, 2048, 16, 16, 64), True, 0.0),
+                     (UNET_ATTN_SHAPES[0], False, 0.0),
+                     (ERNIE_ATTN_SHAPE, False, DROPOUT_RATE))
 # dK/dV without segments above two 64-column panels, mma.sync against the
 # wgmma body, which decide ``MMA_SYNC_DKV_WIDTHS``: the width whose dK/dV
 # keeps mma.sync (``FA_DKV_MMA_SYNC_W``; 0: none) at the UNet's level 2 (W
 # 160) and at the two wider widths, which no model of the repo takes, at
-# its sequence
+# its sequence; each at rate 0 and at dropout 0.1
 WIDE_VARIANTS = (
     ("shipped: dK/dV without segments on mma.sync at W 160", ()),
     ("on the wgmma body at every width", ("-DFA_DKV_MMA_SYNC_W=0",)),
     ("on mma.sync at W 192", ("-DFA_DKV_MMA_SYNC_W=192",)),
     ("on mma.sync at W 256", ("-DFA_DKV_MMA_SYNC_W=256",)),
 )
-WIDE_SHAPES = ((UNET_ATTN_SHAPES[2], False),
-               ((8, 256, 256, 8, 8, 192), False),
-               ((8, 256, 256, 8, 8, 256), False))
+WIDE_SHAPES = tuple((shape, False, rate)
+                    for shape in (UNET_ATTN_SHAPES[2], (8, 256, 256, 8, 8, 192),
+                                  (8, 256, 256, 8, 8, 256))
+                    for rate in (0.0, DROPOUT_RATE))
 
 
 def backward_design_steps(fa, gen, variants, shapes):
     """One line per entry of ``variants`` (BWD_VARIANTS, WIDE_VARIANTS) at
-    each (shape, causal) of ``shapes``, in two turns: the variant's dK/dV
-    and dQ held against the plain versions, then timed as CUDA-graph
-    replays over ``attention_copies``, with ptxas's registers and spills of
-    the two wgmma instantiations.  A measurement only: the port loads the
-    shipped build, which is put back however this ends."""
+    each (shape, causal, dropout rate) of ``shapes``, in two turns: the
+    variant's dK/dV and dQ held against the plain versions, then timed as
+    CUDA-graph replays over ``attention_copies``, with ptxas's registers
+    and spills of the two wgmma instantiations at that rate.  A
+    measurement only: the port loads the shipped build, which is put back
+    however this ends."""
     import ctypes
 
     from paddle_tpu_torch.ops import _build
     names = [_build.width_library("flash_attention",
                                   fa.head_width(shape[-1]))
-             for shape, _ in shapes]
+             for shape, _, _ in shapes]
     t0 = time.perf_counter()
     paths = build_variants(variants, names)
-    print(f"  built {len(variants)} variants of {names} in "
+    print(f"  built {len(variants)} variants of {sorted(set(names))} in "
           f"{time.perf_counter() - t0:.1f} s")
     tol = TRAIN_TOL[torch.bfloat16]
-    for (shape, causal), name in zip(shapes, names):
+    for (shape, causal, rate), name in zip(shapes, names):
         d = shape[-1]
         w = fa.head_width(d)
+        args = (causal, 1.0 / np.sqrt(d), rate, 777 if rate > 0 else 0)
         copies = attention_copies(gen, shape)
         n = len(copies)
-        sc = 1.0 / np.sqrt(d)
         q, k, v, do = copies[0]
-        _, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
-        o, _ = fa.flash_attention_fwd(q, k, v, causal, sc)
+        _, rlse = fa.flash_attention_fwd_ref(q, k, v, *args)
+        o, _ = fa.flash_attention_fwd(q, k, v, *args)
         delta = delta_of(do, o)
         want = (*fa.flash_attention_bwd_dkv_ref(q, k, v, do, rlse, delta,
-                                                causal, sc),
+                                                *args),
                 fa.flash_attention_bwd_dq_ref(q, k, v, do, rlse, delta,
-                                              causal, sc))
+                                              *args))
         stats = [(rlse, delta)]
         for c in copies[1:]:
-            o, lse = fa.flash_attention_fwd(*c[:3], causal, sc)
+            o, lse = fa.flash_attention_fwd(*c[:3], *args)
             stats.append((lse, delta_of(c[3], o)))
         shipped = _build.library(name)
+        tag = f"{list(shape)} causal={causal} rate {rate:g}"
         try:
             for turn in (1, 2):
                 for (what, _), path in zip(variants, paths):
                     _build._LIBS[name] = ctypes.CDLL(str(path[name]))
                     if turn == 1:
                         got = (*fa.flash_attention_bwd_dkv(
-                            q, k, v, do, rlse, delta, causal, sc),
+                            q, k, v, do, rlse, delta, *args),
                             fa.flash_attention_bwd_dq(q, k, v, do, rlse,
-                                                      delta, causal, sc))
+                                                      delta, *args))
                         for x, g, r in zip(("dk", "dv", "dq"), got, want):
-                            held(f"{x} [{what}] {list(shape)}", g, r, tol)
+                            held(f"{x} [{what}] {tag}", g, r, tol)
                         del got
                     dkv_ms = graph_ms(lambda i: fa.flash_attention_bwd_dkv(
-                        *copies[i % n], *stats[i % n], causal, sc), 10)
+                        *copies[i % n], *stats[i % n], *args), 10)
                     dq_ms = graph_ms(lambda i: fa.flash_attention_bwd_dq(
-                        *copies[i % n], *stats[i % n], causal, sc), 10)
+                        *copies[i % n], *stats[i % n], *args), 10)
+                    bodies = (fa.kernel_body("bwd_dkv", torch.bfloat16, d,
+                                             False, rate > 0),
+                              fa.kernel_body("bwd_dq", torch.bfloat16, d,
+                                             False, rate > 0))
                     regs = ", ".join(
                         f"{'dK/dV' if 'dkv' in kern else 'dQ'} {r} "
                         f"registers, {st} B spilled"
                         for kern, a, r, st, _ in ptxas_lines(path[name])
                         if kern in ("fa_bwd_dkv_wgmma_kernel",
                                     "fa_bwd_dq_wgmma_kernel")
-                        and template_args(a) == [w, 0, 0])
+                        and template_args(a) == [w, 0, int(rate > 0)])
                     print(f"  design step of the wgmma backward, turn "
-                          f"{turn}, {what}, {list(shape)} causal={causal}: "
-                          f"dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms "
+                          f"{turn}, {what}, {tag}: dK/dV {dkv_ms:.4f} ms "
+                          f"({bodies[0]}), dQ {dq_ms:.4f} ms ({bodies[1]}) "
                           f"({regs})")
         finally:
             _build._LIBS[name] = shipped
@@ -4646,6 +4741,13 @@ def phase_unet_timing(pa, decode_kv_lens, parent=None):
             parent_attention_turns(parent, fa, gen, shape, False)
     print("  design steps of the wgmma dK/dV and dQ without segments:")
     backward_design_steps(fa, gen, BWD_VARIANTS, BWD_DESIGN_SHAPES)
+    (nopipe,) = build_variants([v for v in BWD_VARIANTS
+                                if v[1] == ("-DFA_DKV_HP_PIPELINE=0",)])
+    print("  the SASS that dropout adds to the wgmma dK/dV, against its "
+          "twin in the build whose dK/dV does not pipeline (as its "
+          "dropout branch never does):")
+    philox_sass_report(nopipe["flash_attention"],
+                       ("fa_bwd_dkv_wgmma_kernel",))
     print("  dK/dV above W 128, mma.sync against the wgmma body:")
     backward_design_steps(fa, gen, WIDE_VARIANTS, WIDE_SHAPES)
     sh = shapes(decode_kv_lens)[0]

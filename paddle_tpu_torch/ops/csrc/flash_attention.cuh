@@ -9,14 +9,12 @@
 //                                                         fa_fwd_kernel)
 //   _pack_lse                                            (the forward's lse
 //        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
-//   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_mma_kernel,
+//   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_wgmma_kernel,
+//                                                fa_bwd_dkv_mma_kernel,
 //                                                fa_bwd_dkv_kernel)
-//   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_mma_kernel,
+//   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_wgmma_kernel,
 //                                                fa_bwd_dq_kernel)
 //   _fwd_kernel, has_segments, bf16         (fa_fwd_wgmma_kernel)
-//   _bwd_dkv_kernel / _bwd_dq_kernel, bf16 but the dropout branch without
-//        segments                           (fa_bwd_dkv_wgmma_kernel,
-//                                            fa_bwd_dq_wgmma_kernel)
 //
 // Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
 // each is read or written through its (batch, seq, head) strides with unit
@@ -72,25 +70,20 @@
 // barriers, and loads that the products wait for.  The TPU's 512 x 1024
 // blocks do not fit Hopper's 227 KB of shared memory; the tiles here are
 // 64 to 128 rows.  Two bodies:
-//   * bf16 (the train steps; fa_fwd_mma_kernel, fa_bwd_dkv_mma_kernel,
-//     fa_bwd_dq_mma_kernel): mma.sync.m16n8k16 fed by ldmatrix, with every
-//     score, p, dP, ds and accumulator in registers, so no score tile
-//     touches shared memory, and the streamed operand arriving through a
-//     cp.async ring while the previous tile's products run, with one block
-//     barrier per tile: K / V for the forward and dQ, Q / dO / lse / delta
-//     for dK / dV.  The forward's block takes 128 q rows (8 warps of 16),
-//     so that each K / V tile it loads feeds twice the products of a
-//     64-row tile; dK / dV's takes 64 keys (4 warps) and streams 64-row q
-//     tiles (32 above W = 64, where dK and dV take more registers);
-//     dQ's takes 64 q rows (4 warps), keeps each warp's Q and dO fragments
-//     in registers for the whole key loop (up to W = 64; above, they are
-//     reloaded from shared memory per k-step, which keeps dQ from
-//     spilling) and works 16 keys at a time, so that S and dP take 16
-//     registers, not 64.  Registers bound the warps an SM holds, so the
-//     launch bounds cap them (128, 168 and 168 at D = 64) to fit 16, 12
-//     and 12 warps per SM.  Causal launches put the
-//     longest blocks first, and only the tiles that cross the causal
-//     frontier or the end of the keys are masked.
+//   * bf16 (the train steps; fa_fwd_mma_kernel, fa_bwd_dkv_mma_kernel):
+//     mma.sync.m16n8k16 fed by ldmatrix, with every score, p, dP, ds and
+//     accumulator in registers, so no score tile touches shared memory, and
+//     the streamed operand arriving through a cp.async ring while the
+//     previous tile's products run, with one block barrier per tile: K / V
+//     for the forward, Q / dO / lse / delta for dK / dV.  The forward's
+//     block takes 128 q rows (8 warps of 16), so that each K / V tile it
+//     loads feeds twice the products of a 64-row tile; dK / dV's takes 64
+//     keys (4 warps) and streams 64-row q tiles (32 above W = 64, where dK
+//     and dV take more registers).  Registers bound the warps an SM holds,
+//     so the launch bounds cap them (128 and 168 at D = 64) to fit 16 and
+//     12 warps per SM.  Causal launches put the longest blocks first, and
+//     only the tiles that cross the causal frontier or the end of the keys
+//     are masked.  (The bf16 dQ is the wgmma body's at every launch.)
 //   * f32 inputs run their products on the CUDA cores in f32, which keeps
 //     f32 inputs exact to f32 rounding (a TF32 tensor-core product would
 //     not): tiles staged in shared memory as f32 (rows padded to W + 1
@@ -101,32 +94,38 @@
 // (`pd.astype(v.dtype)`).  The TPU backward keeps p and ds in f32; here each
 // enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
 // 2^-16 relative, with two products into one f32 accumulator.  Which bf16
-// launch takes which body (kWgmmaFwd, kWgmmaDkv, kWgmmaDq; the C entry
+// launch takes which body (kWgmmaFwd, kWgmmaDkv; the C entry
 // flash_attention_body reports it per launch):
 //   forward: the segment branch the warp-specialised wgmma body fed by TMA
 //     (below), every other launch mma.sync;
 //   dK / dV and dQ: every launch the wgmma bodies, with or without
-//     segments, causal or not, but the dropout branch without segments,
-//     which keeps mma.sync, and dK / dV without segments at W 160
-//     (kMmaSyncDkvWidth), where mma.sync measured faster.
+//     segments or dropout, causal or not, but dK / dV without segments at
+//     W 160 (kMmaSyncDkvWidth), with or without dropout, where mma.sync
+//     measured faster.
 //
 // Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
-// template flag DROP of all six bodies; the DROP = false instantiations are
-// the kernels as they were.  Each score's keep word is drawn in registers
-// from Philox4x32-10 keyed by the seed and counted by the score's global
-// (q-head row, q row, key) coordinates (philox.cuh), right where the
-// score's p meets P V or dP, so every kernel rebuilds the same mask from
-// the seed whatever its tiling, and the mask never reaches device memory
-// (the TPU kernel reseeds its core PRNG per block to the same end).  As on
-// the TPU: l and lse sum the undropped p, P V takes p * keep / (1 - rate)
-// (rounded to bf16 in the bf16 forward), dK / dV and dQ take
-// dP * keep / (1 - rate) into ds = p (dP' - delta) sm_scale, and dV the
-// dropped p.  The bf16 bodies draw one call per 4 scores: a forward or dQ
-// thread's 4 scores of a 16-key group in one q row are one call's 4 words,
-// and dK / dV's transposed fragment splits each call between a lane pair
-// that swaps halves by one shuffle.  The f32 bodies draw one call per
-// score.  The mask costs integer work (some 100 operations per call), not
-// bytes; a fully masked causal tile draws nothing.
+// template flag DROP of all eight bodies; the DROP = false instantiations
+// are the kernels as they were.  Each score's keep word is drawn in
+// registers from Philox4x32-10 keyed by the seed and counted by the
+// score's global (q-head row, q row, key) coordinates (philox.cuh), so
+// every kernel rebuilds the same mask from the seed whatever its tiling,
+// and the mask never reaches device memory (the TPU kernel reseeds its core
+// PRNG per block to the same end).  As on the TPU: l and lse sum the
+// undropped p, P V takes p * keep / (1 - rate) (rounded to bf16 in the bf16
+// forward), dK / dV and dQ take dP * keep / (1 - rate) into
+// ds = p (dP' - delta) sm_scale, and dV the dropped p.  The bf16 bodies
+// draw one call per 4 scores: a forward or dQ thread's 4 scores of a
+// 16-key group in one q row are one call's 4 words, and dK / dV's
+// transposed fragment splits each call between a lane pair that swaps
+// halves by one shuffle.  The forwards draw a tile's words where its p
+// meets P V.  The wgmma dK / dV and dQ draw them once the tile's S / dP
+// (S^T / dP^T) wgmmas are issued and before they are waited for, since a
+// word depends on the coordinates alone: the Philox rounds run on the
+// integer pipe while the tensor cores work, and each word is compared with
+// the threshold at once and kept as one bit (32 scores of a tile in one
+// register, not 32 words).  The f32 bodies draw one call per score.  The
+// mask costs integer work (some 100 operations per call), not bytes; a
+// fully masked causal tile draws nothing.
 //
 // Segment ids (the TPU kernels' has_segments branch: the varlen mask, and
 // the padding of an untileable sequence, which takes a segment of its own)
@@ -134,7 +133,7 @@
 // three bf16 wgmma bodies, which take every bf16 segment launch of rows 3,
 // 5 and 6; the SEG = false instantiations are the kernels without the
 // mask (of the wgmma bodies, those of dK / dV and dQ run every bf16
-// launch without segments or dropout).
+// launch without segments).
 // The ids of one batch row,
 // f32 [S] (S = S_q = S_k), are read from device memory where a score is
 // masked, and a score whose q row and key lie in different segments is
@@ -157,7 +156,8 @@
 // warpgroups.  Without segments the same classes are the causal frontier
 // and the end of the keys, so dK / dV and dQ take those launches too (they
 // were 2.2-2.5x slower than SDPA's backward on mma.sync at the UNet's and
-// the LLaMA step's shapes).  The f32 bodies mask every tile with SEG.
+// the LLaMA step's shapes, and 2.2x at ERNIE's with dropout).  The f32
+// bodies mask every tile with SEG.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().  flash_attention.cu defines FA_TU_WIDTHS (its widths;
@@ -689,14 +689,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward, dK / dV and dQ, written for Hopper's tensor cores through
+// bf16 forward and dK / dV, written for Hopper's tensor cores through
 // mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  Every score, p,
 // dP, ds and output accumulator lives in registers: a warp owns 16 rows
-// (q rows in the forward and dQ, key rows in dK / dV), an S = A . B^T
+// (q rows in the forward, key rows in dK / dV), an S = A . B^T
 // product comes out as accumulator fragments (thread (g, t) =
 // (lane / 4, lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of
 // each 8-column n-tile), and those fragments are, with no data movement,
-// the A operand of the next product (P . V; p^T . dO and ds^T . Q; ds . K).
+// the A operand of the next product (P . V; p^T . dO and ds^T . Q).
 // Row statistics reduce over the 4 lanes of a row by shuffles.  Tiles
 // reach shared memory by cp.async
 // through a ring of stages (the copy of tile j + 1 runs while the products
@@ -707,8 +707,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Compile-time settings, measured on phase 5b of chip_smoke.py (which
 // builds variants of them for that measurement only; the port loads the
-// defaults).  At D = 64 the forward holds 16 warps on an SM, dK / dV and
-// dQ 12: the register cap of the launch bounds is what lets more than one
+// defaults).  At D = 64 the forward holds 16 warps on an SM, dK / dV 12:
+// the register cap of the launch bounds is what lets more than one
 // block in, and occupancy, more than the ring's depth, hides the loads.
 // The D = 64 settings also hold for the narrower widths (32, 48); the
 // wider ones, and W = 64 with D < 64, take no cap (one block per SM at
@@ -731,16 +731,6 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #ifndef FA_DKV_BQ64
 #define FA_DKV_BQ64 64         // dK / dV q tile at D = 64 (32 at D = 128)
 #endif
-#ifndef FA_DQ_WARPS
-#define FA_DQ_WARPS 4          // dQ q rows per block = 16 x warps
-#endif
-#ifndef FA_DQ_MINB
-#define FA_DQ_MINB 3           // dQ blocks per SM at D = 64 (4 spills)
-#endif
-#ifndef FA_DQ_REGA64
-#define FA_DQ_REGA64 1         // dQ at D = 64 holds each warp's Q and dO
-#endif                         // fragments in registers (0: reloads them
-                               // per k-step, as it always does at D = 128)
 
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kKeyTile = 64;           // keys per forward k tile
@@ -750,13 +740,10 @@ __host__ __device__ constexpr bool fa_narrow(int w, bool part) {
   return w < 64 || (w == 64 && !part);
 }
 
-// blocks sharing the output columns of one dK / dV or dQ tile: two above
-// W 160, where dK and dV would not fit the registers and dQ spilled
-// (28-48 B at W 192)
+// blocks sharing the output columns of one dK / dV tile: two above W 160,
+// where dK and dV would not fit the registers
 template <int W>
 __host__ __device__ constexpr int dkv_split() { return W > 160 ? 2 : 1; }
-template <int W>
-__host__ __device__ constexpr int dq_split() { return W > 160 ? 2 : 1; }
 
 // rows [row0, row0 + R) of a [.., d] row tile (row stride ss) -> the
 // [R][W] shared tile, 16 bytes per cp.async; rows at or past `rows`, and
@@ -1218,222 +1205,9 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// dQ, bf16.  A block takes 16 x NW q rows of one (batch, q head); warp w
-// owns rows 16 w .. 16 w + 15.  With RA their Q and dO A fragments are
-// read once from the staging tile and then stay in registers
-// (without, they are reloaded from it per k-step), as do the rows' lse and
-// delta (rows g and g + 8 of each fragment) and the dQ accumulator.
-// K and V tiles of 64 keys stream through the cp.async ring.  Per 16 keys
-// of a tile the warp computes S = Q K^T and dP = dO V^T (K and V read as
-// B^T), p = exp(s - lse) and ds = p (dP - delta) sm_scale in registers, and
-// ds — split hi + lo, its accumulator fragments already in the A layout —
-// enters dQ += ds K with K read as B (k x n, the transposed ldmatrix), so S
-// and dP live 16 keys at a time.  The q blocks with the most key tiles are
-// launched first.  dQ is rounded to bf16 once, staged in the warp's own rows
-// of the Q tile and written as 16-byte row chunks.  Above W 160, grid z
-// splits the output columns, as in dK / dV.  (The segment branch is the
-// wgmma dQ's.)
-template <int W, bool PART, int NW, int NS, bool RA, bool DROP>
-__global__ void __launch_bounds__(NW * 32,
-                                  (fa_narrow(W, PART) ? FA_DQ_MINB : 1))
-fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dq, View qv, View kv,
-                     View vv, View dov, View dqv, int hq, int hkv, int s_q,
-                     int s_k, int causal, float sm_scale, Dropout dr, int d) {
-  constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
-  constexpr int LD = tile_ld<W>();
-  constexpr int KS = W / 16;                // k-steps of Q K^T and dO V^T
-  constexpr int WO = W / dq_split<W>();     // output columns of a block
-  constexpr int NO = WO / 8;                // its n-tiles of dQ
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][W]
-  __nv_bfloat16* do_s = q_s + BM * LD;      // [BM][W]
-  __nv_bfloat16* k_s = do_s + BM * LD;      // NS x [BN][W]
-  __nv_bfloat16* v_s = k_s + NS * BN * LD;  // NS x [BN][W]
-
-  const int n_qt = (s_q + BM - 1) / BM;
-  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
-  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
-  const int c0 = dq_split<W>() > 1 ? blockIdx.z * WO : 0;  // first column
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = row0 + warp * 16;        // the warp's first q row
-  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
-  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
-  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
-  auto load_kv = [&](int kt) {
-    const int st = kt % NS;
-    copy_rows<W, BN, NTHR, PART>(k_s + st * BN * LD, kb, kv.ss, kt * BN, s_k,
-                                 d);
-    copy_rows<W, BN, NTHR, PART>(v_s + st * BN * LD, vb, vv.ss, kt * BN, s_k,
-                                 d);
-  };
-
-  // group 0: Q and dO; groups 1 .. max(NS - 1, 1): key tiles 0 .. NS - 2
-  copy_rows<W, BM, NTHR, PART>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q, d);
-  copy_rows<W, BM, NTHR, PART>(do_s, dout + dov.at(b, 0, h), dov.ss, row0,
-                               s_q, d);
-  cp_async_commit();
-#pragma unroll
-  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
-    if (s < n_kt) load_kv(s);
-    cp_async_commit();
-  }
-
-  // the rows' statistics in base 2: lse2 = lse log2 e; rows past s_q read
-  // as 0 (their q and dO rows are zeros, so their ds is 0) and are not
-  // written
-  const float scale2 = sm_scale * kLog2e;
-  const float neg2 = kNegInf * kLog2e;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wrow + g + 8 * r;
-    const long long at = ((long long)b * hq + h) * s_q + row;
-    lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
-    dlt[r] = row < s_q ? delta[at] : 0.f;
-  }
-
-  cp_async_wait<(NS > 1 ? NS - 1 : 1)>();   // Q and dO have landed
-  __syncthreads();
-  unsigned qa[RA ? KS : 1][4], da[RA ? KS : 1][4];
-  if constexpr (RA) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      load_a<W>(qa[kk], q_s, warp * 16, kk);
-      load_a<W>(da[kk], do_s, warp * 16, kk);
-    }
-  }
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if constexpr (NS == 1) {
-      if (kt > 0) {
-        __syncthreads();                    // every warp is done with kt - 1
-        load_kv(kt);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      cp_async_wait<NS - 2>();              // tile kt has landed
-      __syncthreads();                      // ... for every thread, and tile
-                                            // kt - 1's stage is free
-      if (kt + NS - 1 < n_kt) load_kv(kt + NS - 1);
-      cp_async_commit();
-    }
-    const int kcol0 = kt * BN;
-    // a tile wholly past the warp's causal frontier adds nothing
-    if (causal && kcol0 > wrow + 15 + offset) continue;
-    const __nv_bfloat16* ks = k_s + (kt % NS) * BN * LD;
-    const __nv_bfloat16* vs = v_s + (kt % NS) * BN * LD;
-    // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys: its scores are scaled first and a masked one is NEG_INF
-    // exactly (-inf past the keys); a full tile takes the scale in the
-    // exponent's FFMA
-    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
-                        kcol0 + BN > s_k;
-
-#pragma unroll
-    for (int np = 0; np < BN / 16; ++np) {  // keys kcol0 + 16 np .. + 15
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        unsigned qf[4], df[4], bf[4];
-        if constexpr (RA) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) { qf[i] = qa[kk][i]; df[i] = da[kk][i]; }
-        } else {
-          load_a<W>(qf, q_s, warp * 16, kk);
-          load_a<W>(df, do_s, warp * 16, kk);
-        }
-        load_bt<W>(bf, ks, np * 16, kk);
-        mma16816(s[0], qf, bf[0], bf[1]);
-        mma16816(s[1], qf, bf[2], bf[3]);
-        load_bt<W>(bf, vs, np * 16, kk);
-        mma16816(dp[0], df, bf[0], bf[1]);
-        mma16816(dp[1], df, bf[2], bf[3]);
-      }
-      if constexpr (DROP)                   // ds takes the dropped dP
-        drop_group(dr, dp[0], dp[1], (unsigned)(kcol0 / 16 + np) * 4u + t,
-                   wrow + g, (unsigned)(b * hq + h));
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x;
-          if (masked) {
-            const int col = kcol0 + 16 * np + 8 * j + 2 * t + (e & 1);
-            const int row = wrow + g + 8 * (e >> 1);
-            x = s[j][e] * scale2;
-            if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
-            else if (causal && row + offset < col) x = neg2;
-            x -= lse2[e >> 1];
-          } else {
-            x = fmaf(s[j][e], scale2, -lse2[e >> 1]);
-          }
-          const float p = fast_exp2(x);
-          dp[j][e] = p * (dp[j][e] - dlt[e >> 1]) * sm_scale;
-        }
-      // dQ += ds K: ds (hi + lo) is the A operand of k-step np as it lies
-      unsigned dh[4], dl[4];
-      split_pair(dp[0][0], dp[0][1], dh[0], dl[0]);
-      split_pair(dp[0][2], dp[0][3], dh[1], dl[1]);
-      split_pair(dp[1][0], dp[1][1], dh[2], dl[2]);
-      split_pair(dp[1][2], dp[1][3], dh[3], dl[3]);
-#pragma unroll
-      for (int dn = 0; dn < WO / 16; ++dn) {
-        unsigned bf[4];
-        load_b<W>(bf, ks, np * 16, c0 / 16 + dn);
-        mma16816(acc[2 * dn], dh, bf[0], bf[1]);
-        mma16816(acc[2 * dn + 1], dh, bf[2], bf[3]);
-        mma16816(acc[2 * dn], dl, bf[0], bf[1]);
-        mma16816(acc[2 * dn + 1], dl, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the warp's 16 rows of dQ, rounded once to bf16, into its own
-  // rows of the Q tile (no other warp reads them), then out as 16-byte
-  // chunks of each row
-  __nv_bfloat16* stage = q_s + warp * 16 * LD;
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<unsigned*>(stage + swz<W>(g + 8 * r, c0 / 8 + n) +
-                                   2 * t) =
-          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-  __syncwarp();
-  constexpr int NC = WO / 8;                // 16-byte chunks per row
-#pragma unroll
-  for (int i = lane; i < 16 * NC; i += 32) {
-    const int r = i / NC, c = c0 / 8 + i % NC, row = wrow + r;
-    if (row < s_q && (!PART || c * 8 < d))
-      *reinterpret_cast<uint4*>(dq + dqv.at(b, row, h) + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + swz<W>(r, c));
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The wgmma bodies: the bf16 forward of the segment branch, and the bf16 dK /
-// dV and dQ of every launch but the dropout branch without segments, written
+// dV and dQ of every launch (but dK / dV without segments at W 160), written
 // for Hopper's warpgroups (sm90_wgmma.cuh). A block holds consumer warpgroups
 // of 64 rows each (q rows in the forward and dQ, keys in dK / dV) and one
 // producer warp that keeps the block's ring of tiles full by TMA. The
@@ -1957,19 +1731,19 @@ constexpr int hp_dkv_smem() {
 // ids beside its Q and dO tiles.  Each consumer pipelines the tiles as the
 // forward and dQ do: it issues S^T and dP^T of a tile, then dV and dK of
 // the tile before, so that its exponentials of the one run while the
-// tensor cores work on the other (the dropout branch, whose mask takes
-// the registers of the second tile, issues each tile's products after its
-// exponentials).  Where no tile is pending (the first of a stream, or
-// after a skipped one) a pass issues S^T and dP^T alone: each branch waits
-// for the wgmma groups it committed, so that none is in flight across a
-// branch (ptxas would serialise every wgmma of the kernel, C7520); where
-// a block has fewer panels than NPB it repeats its last and stores it
-// once.  A tile that none of a consumer's keys meets
-// (its class skip: past the causal frontier, or no id in common) is
-// released at once, after the pending tile's products, so that a consumer
-// never holds more than the tile it scores and the one before.  dK is
-// scaled by sm_scale in the epilogue.  Above two panels grid z splits the
-// output panels.
+// tensor cores work on the other.  The dropout branch draws the tile's keep
+// bits (keep_bits_cols: one register for the tile's mask) once S^T and
+// dP^T are issued and before they are waited for, and issues each tile's
+// products after its exponentials.  Where no tile is pending (the first
+// of a stream, or after a skipped one) a pass issues S^T and dP^T alone:
+// each branch waits for the wgmma groups it committed, so that none is in
+// flight across a branch (ptxas would serialise every wgmma of the kernel,
+// C7520); where a block has fewer panels than NPB it repeats its last and
+// stores it once.  A tile that none of a consumer's keys meets (its class
+// skip: past the causal frontier, or no id in common) is released at once,
+// after the pending tile's products, so that a consumer never holds more
+// than the tile it scores and the one before.  dK is scaled by sm_scale in
+// the epilogue.  Above two panels grid z splits the output panels.
 template <int W, bool SEG, bool DROP>
 __global__ void __launch_bounds__(kHpThreads, 1)
 fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
@@ -1985,8 +1759,9 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
   constexpr int NC = 2, BK = 64 * NC, KS = W / 16, NQ = BQ / 8;
   constexpr int PK = BK * 64, PQ = BQ * 64;  // elements of a K / Q panel
   static_assert(NS >= 3, "a consumer holds two stages: the ring needs three");
-  // the dropout branch does not pipeline: its mask's registers leave no room
-  // for a second tile's scores at two panels
+  // the dropout branch does not pipeline: its keep bits, drawn while the
+  // pending tile's products run, need their Philox registers beside all
+  // 192 of the two tiles', which spilled 4-132 B at W 64-256 (PERF.md §6)
   constexpr bool PIPE = FA_DKV_HP_PIPELINE && !DROP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -2224,16 +1999,22 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
                    desc_k(dos + (kk / 4) * PQ, kk % 4), kk > 0);
         wgmma_commit();
       };
+      // the tile's keep bits (DROP), one a score: drawn once S^T and dP^T
+      // are issued and before they are waited for, since a keep word
+      // depends only on the score's coordinates, so that the Philox rounds
+      // run on the integer pipe while the tensor cores work
+      unsigned kb = 0;
+      auto draw_keep = [&]() {
+        if constexpr (DROP) {
+          kb = keep_bits_cols<NQ>(dr, kcell, row0 + 2 * t, odd, b * hq + h);
+          fence_reg(kb);
+        }
+      };
       auto p_and_ds = [&]() {
         // p = exp(s - lse) and ds = p (dP - delta) (the epilogue scales dK
         // by sm_scale).  With DROP, dV takes the dropped p and ds the
-        // dropped dP; the fragment is transposed (rows = keys), so a
-        // thread's scores of one q column lie in one Philox call but use 2
-        // of its words: lanes g and g ^ 1 (lane ^ 4) hold the same q
-        // columns and the other 2 words, so each draws the call of one of
-        // their 2 columns and they swap halves
+        // dropped dP: element e of n-tile j is keep bit 4 j + e
         const bool masked = cls == kTileMasked;
-        const unsigned bhq = b * hq + h;
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
           const float2 l2 =
@@ -2244,19 +2025,6 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
           if constexpr (SEG)
             qid = *reinterpret_cast<const float2*>(st + 2 * BQ + 8 * j +
                                                    2 * t);
-          // element e's word: q column 2t + (e & 1), key g + 8 (e >> 1)
-          unsigned kw4[4];
-          if constexpr (DROP) {
-            const uint4 w =
-                dropout_words(dr, kcell, row0 + 8 * j + 2 * t + odd, bhq);
-            const unsigned ra = __shfl_xor_sync(kFull, odd ? w.x : w.y, 4);
-            const unsigned rb = __shfl_xor_sync(kFull, odd ? w.z : w.w, 4);
-            const unsigned ma = odd ? w.y : w.x, mb = odd ? w.w : w.z;
-            kw4[0] = odd ? ra : ma;
-            kw4[1] = odd ? ma : ra;
-            kw4[2] = odd ? rb : mb;
-            kw4[3] = odd ? mb : rb;
-          }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float lse2 = (e & 1) ? l2.y : l2.x;
@@ -2276,8 +2044,10 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
             }
             const float p = fast_exp2(x);
             if constexpr (DROP) {
-              sc[j][e] = dropped(dr, kw4[e], p);
-              dp[j][e] = p * (dropped(dr, kw4[e], dp[j][e]) - dl);
+              // one factor, 1 / (1 - rate) where kept, else 0, for both
+              const float f = (kb >> (4 * j + e)) & 1u ? dr.scale : 0.f;
+              sc[j][e] = p * f;
+              dp[j][e] = p * (dp[j][e] * f - dl);
             } else {
               sc[j][e] = p;
               dp[j][e] = p * (dp[j][e] - dl);
@@ -2304,6 +2074,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ HpMaps maps,
         if (lane == 0) mbar_arrive(&empty[pend]);
       } else {
         issue_scores();
+        draw_keep();
         wgmma_wait<0>();
         fence_acc(sc);
         fence_acc(dp);
@@ -2532,22 +2303,24 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ HpMaps maps,
       wgmma_commit();
       issue_dq();                             // the pending tile's ds K
       wgmma_commit();
+      // the tile's keep bits (DROP), one a score, drawn while S, dP and the
+      // pending ds K run: a keep word depends only on the score's
+      // coordinates, so the Philox rounds need nothing that is in flight
+      unsigned kb = 0;
+      if constexpr (DROP) {
+        kb = keep_bits_rows<BN / 16>(dr, (unsigned)(kcol0 / 16) * 4u + t,
+                                     wrow + g, (unsigned)(b * hq + h));
+        fence_reg(kb);
+      }
       wgmma_wait<1>();                        // S and dP have landed
       fence_acc(s);
       fence_acc(dp);
 
       // p = exp(s - lse): a masked tile's scores are masked per score
       // (NEG_INF exactly, -inf past the keys), a full tile's take the scale
-      // in the exponent's FFMA; with DROP, ds takes the dropped dP (each
-      // 16-key group's keep words drawn here, two calls for its 8 scores);
-      // then ds = p (dP - delta), which the epilogue scales by sm_scale
-      if constexpr (DROP) {
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
-          drop_group(dr, dp[2 * kk], dp[2 * kk + 1],
-                     (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
-                     (unsigned)(b * hq + h));
-      }
+      // in the exponent's FFMA; then ds = p (dP - delta), which the
+      // epilogue scales by sm_scale, with DROP of the dropped dP (element e
+      // of n-tile j is keep bit 4 j + e)
       if (masked) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -2577,8 +2350,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ HpMaps maps,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[j][e] = s[j][e] * (dp[j][e] - dlt[e >> 1]);
+        for (int e = 0; e < 4; ++e) {
+          const float dpk =
+              DROP ? kept(dr, kb, 4 * j + e, dp[j][e]) : dp[j][e];
+          dp[j][e] = s[j][e] * (dpk - dlt[e >> 1]);
+        }
       wgmma_wait<0>();                        // the pending ds K is done
 #pragma unroll
       for (int p = 0; p < NPB; ++p) fence_acc(acc[p]);
@@ -2675,10 +2451,6 @@ constexpr int dkv_mma_smem() {
              tile_ld<W>() * 2 +
          FA_STAGES * 2 * dkv_bq<W>() * 4;
 }
-template <int W>
-constexpr int dq_mma_smem() {
-  return (2 * 16 * FA_DQ_WARPS + 2 * FA_STAGES * kKeyTile) * tile_ld<W>() * 2;
-}
 
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
@@ -2688,25 +2460,24 @@ constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 // between two blocks that each recompute S^T and dP^T, and at W 160 it
 // repeats a panel, which left it slower than mma.sync at the UNet's level
 // 2 ([8, 256, 8, 160]); at W 192 and 256 it was the faster one at that
-// sequence (chip_smoke.py phase 5e, WIDE_VARIANTS, which build this at
-// each width and at 0, none; PERF.md §6 has the times).
+// sequence.  Its dropout branch likewise (the wgmma body's two blocks
+// each draw every keep word): 15% slower at W 160, faster at W 192 and 256
+// (chip_smoke.py phase 5e, WIDE_VARIANTS, which build this at each width
+// and at 0, none, and time them at rate 0 and 0.1; PERF.md §6 has the
+// times).
 #ifndef FA_DKV_MMA_SYNC_W
 #define FA_DKV_MMA_SYNC_W 160
 #endif
 constexpr bool kMmaSyncDkvWidth(int w) { return w == FA_DKV_MMA_SYNC_W; }
 
 // The launches that take the wgmma bodies, per row: the forward's bf16
-// segment branch; every bf16 dQ launch but the dropout branch without
-// segments; every bf16 dK / dV launch but that branch and, without
-// segments, the widths of kMmaSyncDkvWidth.  The other bf16 launches take
-// mma.sync.
+// segment branch; every bf16 dQ launch; every bf16 dK / dV launch but,
+// without segments, the widths of kMmaSyncDkvWidth.  The other bf16
+// launches take mma.sync.
 template <typename T, bool SEG>
 constexpr bool kWgmmaFwd = kTensorCores<T> && SEG;
-template <typename T, int W, bool SEG, bool DROP>
-constexpr bool kWgmmaDkv =
-    kTensorCores<T> && (SEG || (!DROP && !kMmaSyncDkvWidth(W)));
-template <typename T, int W, bool SEG, bool DROP>
-constexpr bool kWgmmaDq = kTensorCores<T> && (SEG || !DROP);
+template <typename T, int W, bool SEG>
+constexpr bool kWgmmaDkv = kTensorCores<T> && (SEG || !kMmaSyncDkvWidth(W));
 
 // one instantiation of the bodies: element type, width, PART and the flags
 template <typename T, int W, bool PART, bool SEG, bool DROP>
@@ -2840,7 +2611,7 @@ cudaError_t bwd_dkv(Variant<T, W, PART, SEG, DROP>, const void* q,
                     const float* lse, const float* delta, void* dk, void* dv,
                     const long long* st, const Geometry& g, const Dropout& dr,
                     const float* seg, cudaStream_t stream) {
-  if constexpr (kWgmmaDkv<T, W, SEG, DROP>) {
+  if constexpr (kWgmmaDkv<T, W, SEG>) {
     return bwd_dkv_wgmma<W, SEG, DROP>(q, k, v, dout, lse, delta, dk, dv, st,
                                        g, dr, seg, stream);
   } else if constexpr (kTensorCores<T>) {
@@ -2886,26 +2657,9 @@ cudaError_t bwd_dq(Variant<T, W, PART, SEG, DROP>, const void* q,
                    const float* lse, const float* delta, void* dq,
                    const long long* st, const Geometry& g, const Dropout& dr,
                    const float* seg, cudaStream_t stream) {
-  if constexpr (kWgmmaDq<T, W, SEG, DROP>) {
+  if constexpr (kTensorCores<T>) {
     return bwd_dq_wgmma<W, SEG, DROP>(q, k, v, dout, lse, delta, dq, st, g,
                                       dr, seg, stream);
-  } else if constexpr (kTensorCores<T>) {
-    constexpr int rows = 16 * FA_DQ_WARPS;
-    constexpr int smem = dq_mma_smem<W>();
-    const auto kernel =
-        fa_bwd_dq_mma_kernel<W, PART, FA_DQ_WARPS, FA_STAGES,
-                             W <= 64 && FA_DQ_REGA64, DROP>;
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows, dq_split<W>());
-    kernel<<<grid, 32 * FA_DQ_WARPS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), view_at(st, 0), view_at(st, 1), view_at(st, 2),
-        view_at(st, 3), view_at(st, 4), g.hq, g.hkv, g.s_q, g.s_k, g.causal,
-        g.sm_scale, dr, g.d);
-    return cudaGetLastError();
   } else {
     constexpr int TR = f32_rows<W>();
     const dim3 grid((g.s_q + TR - 1) / TR, g.hq, g.batch);
@@ -2936,8 +2690,8 @@ template <typename T, int W, bool PART, bool SEG, bool DROP>
 int body_of(int which, Variant<T, W, PART, SEG, DROP>) {
   if constexpr (!kTensorCores<T>) return 0;
   const bool wgmma = which == 0   ? kWgmmaFwd<T, SEG>
-                     : which == 1 ? kWgmmaDkv<T, W, SEG, DROP>
-                                  : kWgmmaDq<T, W, SEG, DROP>;
+                     : which == 1 ? kWgmmaDkv<T, W, SEG>
+                                  : true;
   return wgmma ? 2 : 1;
 }
 

@@ -135,6 +135,13 @@ __device__ __forceinline__ void fence_frag(unsigned (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
+// ties a value to its place in the program: the work that computes it is
+// issued before what follows (a wgmma wait, so that it runs while the
+// tensor cores do)
+__device__ __forceinline__ void fence_reg(unsigned& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
 // the matrix descriptor of a 128-byte-swizzled operand starting at p:
 // `lead` and `stride` are the byte offsets between swizzle atoms along the
 // operand's leading dimension and between 8-row groups

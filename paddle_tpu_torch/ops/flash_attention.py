@@ -30,8 +30,8 @@ how :func:`flash_attention` takes a long untileable sequence
 (:func:`_pad_to_tile`: S >= 384 padded to the 128 tile, the padding in a
 segment of its own) and how ``nn.functional.flash_attn_unpadded`` runs
 packed varlen attention.  In bf16 the forward launches with segments, and
-every dK/dV and dQ launch but the dropout branch without segments (and
-dK/dV without segments at head dims 136-160), run wgmma bodies that class
+every dK/dV and dQ launch, with or without segments or dropout (but dK/dV
+without segments at head dims 136-160), run wgmma bodies that class
 every (q tile, key tile) pair before loading it — skipped, full or masked,
 :func:`segment_tile_plan` at each body's :func:`segment_tiles` (without
 segments only the causal frontier and the end of the keys count) — and
@@ -52,7 +52,11 @@ backward kernels rebuild the forward's mask and the mask never reaches
 device memory.  JAX's rule stays: keep iff ``word >= uint32(rate * 2**32)``
 and kept probabilities scale by ``1 / (1 - rate)``; only ``P V`` and
 ``dP`` see the mask, ``l`` and ``lse`` keep the undropped ``p``.  The bits
-are not the TPU PRNG's, which no other device can reproduce.
+are not the TPU PRNG's, which no other device can reproduce.  The wgmma
+dK/dV and dQ draw a tile's words while its score products run and keep
+one bit a score; which lane draws which call, and where its bits land, is
+pinned on the CPU by ``tests/test_torch_flash_attention.py``'s model of
+their fragments.
 """
 from __future__ import annotations
 
@@ -492,10 +496,10 @@ def kernel_body(which, dtype, head_dim, segments, dropout):
     takes on the card for q's ``dtype``, ``head_dim`` and the two branches
     (``segments``, ``dropout``: bools): "cuda cores" (f32), "mma.sync" or
     "wgmma".  In bf16, at every head dim: the forward takes wgmma with
-    segments and mma.sync without; dK/dV and dQ take wgmma but for the
-    dropout branch without segments, which keeps mma.sync, and dK/dV
-    without segments at width 160 (head dims 136-160), where mma.sync
-    measured faster.  Read from the library's own dispatch (the C entry
+    segments and mma.sync without; dK/dV and dQ take wgmma with or without
+    segments and dropout, but for dK/dV without segments at width 160
+    (head dims 136-160), with or without dropout, which keeps mma.sync,
+    where it measured faster.  Read from the library's own dispatch (the C entry
     ``flash_attention_body``, per launch), so it names what the launch
     runs."""
     code = getattr(_build.library(_build.width_library(

@@ -441,46 +441,167 @@ def test_kernels_match_plain_versions_on_card():
                                rtol=0, atol=0)
 
 
-# the wgmma dK/dV and dQ without segments: the UNet's level-0 head dim
-# (40, at W 48) non-causal over 4 q tiles of 64 rows per key block, and
-# causal GQA 8:2 at D 64 with S off the tile
-WGMMA_BWD_CARD_CASES = [((2, 256, 256, 4, 4, 40), False),
-                        ((2, 200, 200, 8, 2, 64), True)]
+# the wgmma dK/dV and dQ without segments, (shape, causal, dropout rate):
+# the UNet's level-0 head dim (40, at W 48) non-causal over 4 q tiles of 64
+# rows per key block, causal GQA 8:2 at D 64 with S off the tile, and the
+# dropout branch at rate 0.1, non-causal, at D 64 (ERNIE's head dim, GQA
+# 8:2, S off the tile) and at D 40
+WGMMA_BWD_CARD_CASES = [((2, 256, 256, 4, 4, 40), False, 0.0),
+                        ((2, 200, 200, 8, 2, 64), True, 0.0),
+                        ((2, 200, 200, 8, 2, 64), False, 0.1),
+                        ((2, 256, 256, 4, 4, 40), False, 0.1)]
 
 
 @pytest.mark.cuda
 def test_wgmma_backward_matches_plain_versions_on_card():
     """Each bf16 launch's body (``kernel_body``): dK/dV and dQ wgmma
-    without segments or dropout (dK/dV mma.sync at W 160), mma.sync with
-    dropout, the forward mma.sync; then the wgmma dK/dV and dQ against
+    without segments, with and without dropout (dK/dV mma.sync at W 160),
+    the forward mma.sync; then the wgmma dK/dV and dQ against
     their plain versions on ``WGMMA_BWD_CARD_CASES`` (as ``chip_smoke.py``
-    holds them)."""
+    holds them) and, under dropout, their masks read out against
+    ``dropout_keep``'s bits (``chip_smoke.check_masks``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     for d in (40, 64, 80, 160, 256):
         dkv = "mma.sync" if d == 160 else "wgmma"
-        assert chip_smoke.launch_bodies(tfa, d, False, False) == {
-            "fwd": "mma.sync", "bwd_dkv": dkv, "bwd_dq": "wgmma"}
-        assert chip_smoke.launch_bodies(tfa, d, False, True) == {
-            "fwd": "mma.sync", "bwd_dkv": "mma.sync", "bwd_dq": "mma.sync"}
-    for shape, causal in WGMMA_BWD_CARD_CASES:
+        for dropout in (False, True):
+            assert chip_smoke.launch_bodies(tfa, d, False, dropout) == {
+                "fwd": "mma.sync", "bwd_dkv": dkv, "bwd_dq": "wgmma"}
+    for shape, causal, rate in WGMMA_BWD_CARD_CASES:
         q, k, v, do = (torch.from_numpy(x).cuda().bfloat16()
                        for x in _inputs(shape, seed=8))
         scale = 1.0 / math.sqrt(shape[-1])
-        o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+        args = (causal, scale, rate, (5 << 32) + 99)
+        o, lse = tfa.flash_attention_fwd(q, k, v, *args)
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
             .reshape(lse.shape).contiguous()
-        got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
-                                          scale)
-        got += (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
-                                           scale),)
+        got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+        got += (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args),)
         want = tfa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                               causal, scale)
+                                               *args)
         want += (tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
-                                                causal, scale),)
+                                                *args),)
         torch.cuda.synchronize()
         for a, b_ in zip(got, want):
             _held_bf16(a, b_)
+        if rate > 0:
+            chip_smoke.check_masks(tfa, shape, torch.bfloat16, causal,
+                                   args[-1], rate)
+
+
+# -- the wgmma backward's keep bits, lane by lane ------------------------------
+# A model of where csrc/philox.cuh keep_bits_rows (the wgmma dQ) and
+# keep_bits_cols (the wgmma dK/dV) put each score's keep bit: which lane
+# draws which Philox call (cell, q row, q-head row), how the words become
+# one register of bits (bit 4 j + e: element e of 8-column n-tile j), and,
+# in dK/dV, the lane pair's one shuffle.  The mask it reassembles must be
+# dropout_keep's, so that the kernels' bits stay the forward's.
+def _nibbles(seed, cell, row, bhq, rate):
+    """The 4 keep bits (bit i: word i >= the threshold) of the Philox calls
+    at the broadcast int64 counters (cell, row, bhq, 0)."""
+    words = tfa.philox4x32_10((cell, row, bhq, 0), tfa._seed_words(seed))
+    thresh = tfa.dropout_threshold(rate)
+    return sum((w >= thresh).long() << i for i, w in enumerate(words))
+
+
+def _bit(bits, i):
+    return ((bits >> i) & 1).bool()
+
+
+def _wgmma_dq_keep(seed, bh, s_q, s_k, rate, bm, causal):
+    """keep [bh, s_q, s_k] as the wgmma dQ's lanes hold it, and the scores
+    its tiles cover (key tiles of 64 per block of ``bm`` q rows).  A lane
+    (g, t) of the warp whose 16 q rows start at ``r16`` holds rows r16 + g
+    and r16 + g + 8 and, per key tile at kcol0, keys kcol0 + 8 j + 2t +
+    (e & 1); per 16-key group kk it draws the calls (4 (kcol0 / 16 + kk) +
+    t, row + 8 r) and puts words x, y at bits 8 kk + 2 r + (0, 1) and z, w
+    at 8 kk + 4 + 2 r + (0, 1)."""
+    n16, n_kt = -(-s_q // 16), -(-s_k // 64)
+    bhq = torch.arange(bh)[:, None, None, None, None]
+    row = (16 * torch.arange(n16)[:, None] + torch.arange(8))  # r16 + g
+    row = row.reshape(-1)[None, :, None, None, None]
+    t = torch.arange(4)[None, None, :, None, None]
+    kt = torch.arange(n_kt)[None, None, None, :, None]
+    bits = torch.zeros(bh, row.shape[1], 4, n_kt, 1, dtype=torch.int64)
+    for kk in range(4):
+        for r in range(2):
+            n = _nibbles(seed, (4 * kt + kk) * 4 + t, row + 8 * r, bhq, rate)
+            bits |= ((n & 3) | (n & 12) << 2) << (8 * kk + 2 * r)
+    keep = torch.zeros(bh, n16 * 16, n_kt * 64, dtype=torch.bool)
+    for j in range(8):
+        for e in range(4):
+            rows = (row + 8 * (e >> 1)).expand_as(bits)
+            cols = (64 * kt + 8 * j + 2 * t + (e & 1)).expand_as(bits)
+            keep[torch.arange(bh)[:, None, None, None, None].expand_as(bits),
+                 rows, cols] = _bit(bits, 4 * j + e)
+    plan = tfa.segment_tile_plan(None, s_q, s_k, bm, 64, causal)
+    seen = (plan[0] != tfa.TILE_SKIP).repeat_interleave(bm, 0) \
+        .repeat_interleave(64, 1)[:s_q, :s_k]
+    return keep[:, :s_q, :s_k], seen
+
+
+def _wgmma_dkv_keep(seed, bh, s_q, s_k, rate, bq, causal):
+    """keep [bh, s_q, s_k] as the wgmma dK/dV's lanes hold it, and the
+    scores its tiles cover (64 keys per consumer, q tiles of ``bq``).  The
+    fragment is transposed: a lane (g, t) of the warp whose 16 keys start
+    at ``k16`` holds keys k16 + g and k16 + g + 8 and, per q tile at row0,
+    q rows row0 + 8 j + 2t + (e & 1).  It draws the call (4 (k16 / 16) +
+    g / 2, row0 + 8 j + 2t + (g & 1)) into nibble j of ``own``; the lane
+    pair g, g ^ 1 swaps ``own`` in one shuffle; then element e of n-tile j
+    is bit 4 j + e of ((a >> s) & 0x5..) | ((b >> s) & 0x5..) << 1, with a
+    the nibbles of q row 2t, b of 2t + 1 and s = g & 1."""
+    nq = bq // 8
+    n16, n_qt = -(-s_k // 16), -(-s_q // bq)
+    bhq = torch.arange(bh)[:, None, None, None, None]
+    k16 = 16 * torch.arange(n16)[None, :, None, None, None]
+    g = torch.arange(8)[None, None, :, None, None]
+    t = torch.arange(4)[None, None, None, :, None]
+    row0 = bq * torch.arange(n_qt)[None, None, None, None, :]
+    odd = g & 1
+    own = torch.zeros(bh, n16, 8, 4, n_qt, dtype=torch.int64)
+    for j in range(nq):
+        own |= _nibbles(seed, (k16 >> 4) * 4 + (g >> 1),
+                        row0 + 2 * t + 8 * j + odd, bhq, rate) << (4 * j)
+    other = own[:, :, torch.arange(8) ^ 1]                   # lane ^ 4
+    a = torch.where(odd.bool(), other, own)
+    b = torch.where(odd.bool(), own, other)
+    m = 0x55555555
+    bits = ((a >> odd) & m) | (((b >> odd) & m) << 1)
+    keep = torch.zeros(bh, n_qt * bq, n16 * 16, dtype=torch.bool)
+    for j in range(nq):
+        for e in range(4):
+            keys = (k16 + g + 8 * (e >> 1)).expand_as(bits)
+            rows = (row0 + 8 * j + 2 * t + (e & 1)).expand_as(bits)
+            keep[bhq.expand_as(bits), rows, keys] = _bit(bits, 4 * j + e)
+    plan = tfa.segment_tile_plan(None, s_q, s_k, bq, 64, causal)
+    seen = (plan[0] != tfa.TILE_SKIP).repeat_interleave(bq, 0) \
+        .repeat_interleave(64, 1)[:s_q, :s_k]
+    return keep[:, :s_q, :s_k], seen
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [40, 128, 256])
+@pytest.mark.parametrize("s_q,s_k", [(200, 200), (136, 200)])
+def test_wgmma_backward_keep_bits_are_dropout_keep(s_q, s_k, d, causal):
+    """The keep bits of every lane of the wgmma dQ and dK/dV fragments
+    (``_wgmma_dq_keep``, ``_wgmma_dkv_keep``: each body's tiles at head dim
+    ``d``, ``tfa.segment_tiles``), reassembled into [rows, keys], equal
+    ``dropout_keep`` on every score the tiles cover, and the tiles cover
+    every visible score; lengths off the tile, causal and not."""
+    rate, seed, bh = 0.1, (11 << 32) + 5, 2
+    want = tfa.dropout_keep(seed, range(bh), range(s_q), range(s_k), rate)
+    rows = torch.arange(s_q)[:, None]
+    visible = rows + (s_k - s_q) >= torch.arange(s_k) if causal \
+        else torch.ones(s_q, s_k, dtype=torch.bool)
+    for which, model in (("bwd_dq", _wgmma_dq_keep),
+                         ("bwd_dkv", _wgmma_dkv_keep)):
+        bq, bk = tfa.segment_tiles(which, d)
+        assert bk == 64
+        keep, seen = model(seed, bh, s_q, s_k, rate, bq, causal)
+        assert bool(seen[visible].all()), which
+        seen = seen.expand_as(keep)
+        assert torch.equal(keep[seen], want[seen]), which
+        assert 0.85 < float(keep[seen].float().mean()) < 0.95
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
