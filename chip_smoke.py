@@ -14,24 +14,22 @@ SD-1.5 UNet's train step at B 8 over 64 x 64 latents — with random
 weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
-               ptxas's registers and spills of the mma.sync attention
-               kernels and of the wgmma forward, dK/dV and dQ, the RMSNorm
+               ptxas's registers and spills of the mma.sync dK/dV and of
+               the wgmma forward, dK/dV and dQ, the RMSNorm
                and LayerNorm register passes, the ragged paged-attention
                kernels and the softmax forward's register pass (the
                wgmma bodies, the ragged kernels and the register passes of
                the softmax forward, the RMSNorm forward and the LayerNorm
                backward must not spill; no flash-attention kernel may
                carry ptxas's C7520, a serialised wgmma), and the SASS that
-               the dropout branch adds to the mma.sync forward and to the
-               wgmma forward and dQ (``cuobjdump``; instructions per
-               Philox call; the wgmma dK/dV's in phase 5e); the flash-
-               attention kernels build as one library per group of head
-               widths (``flash_attention.cu`` at 64 and 128, and at each of
-               32, 48, 80, 96, 160, 192, 256 with ``-DFA_TU_WIDTHS=W``),
-               each reported and held to the same no-spill gate, and
-               with ``--parent DIR`` the D 64 / 128 mma.sync bodies'
-               registers and spills are held equal to that build's (its
-               widths of phase 5e built beside it);
+               the dropout branch adds to the wgmma forward and dQ
+               (``cuobjdump``; instructions per Philox call; the wgmma
+               dK/dV's in phase 5e); the flash-attention kernels build as
+               one library per group of head widths (``flash_attention.cu``
+               at 64 and 128, and at each of 32, 48, 80, 96, 160, 192, 256
+               with ``-DFA_TU_WIDTHS=W``), each reported and held to the
+               same no-spill gate, and with ``--parent DIR`` that build's
+               flash-attention libraries are built beside them;
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
                chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
@@ -45,10 +43,13 @@ weights made from a seed:
                against torch's over all 256 codes, and the split merge
                against its plain version;
                (b) the body every launch of rows 3/5/6 takes, at every
-               width (bf16 dK/dV and dQ wgmma, with or without dropout,
-               but dK/dV without segments at W 160 mma.sync;
-               the forward wgmma only with segments; f32 the CUDA
-               cores); the train kernels (flash-attention forward with its
+               width (bf16 forward, dK/dV and dQ wgmma, with or without
+               dropout, but dK/dV without segments at W 160 mma.sync; f32
+               the CUDA cores), and the forward's design (q rows a block,
+               keys a tile, persistent grid) at the phase-3 launches and
+               S 200, as the dispatch reports it (the segment branch a
+               block per q tile, a persistent grid only over more q tiles
+               than SMs); the train kernels (flash-attention forward with its
                lse, the lse repack, the dK/dV and dQ backward, RMSNorm
                forward and backward) against their plain versions: the
                train shape
@@ -59,7 +60,9 @@ weights made from a seed:
                causal at D = 128 and one 64-row q tile against 2,048 keys;
                for dQ's 64-row blocks, D = 128 with GQA 16:4, a q length
                of 136, s_q < s_k causal with GQA 16:4 and S 200
-               non-causal; GQA 8:2 at S 200 causal; the standalone
+               non-causal; GQA 8:2 at S 200 causal; GQA 4:1 over 288
+               q tiles (the forward's persistent grids, 128-key tiles at
+               D 64 and 64-key tiles at D 96 off the tile); the standalone
                repack on strided stats, RMSNorm
                rows at 16,384 x 1,024 bf16 and f32, N off the backward's
                row runs with f32 w, H = 768, N = 5, H = 1,000 and 4,096
@@ -77,10 +80,12 @@ weights made from a seed:
                attention shape; their dropout branch at rate 0.1 against
                the plain versions under the same seed (ERNIE's shape, bf16
                and f32, D 64 and 128, causal and not, GQA 8:2, s_k off the
-               tile, s_q < s_k, S 200 causal), and the masks of o, dQ, dK
-               and dV read out through one-hot inputs (bf16 and f32, D 64
-               and 128, bf16 at D 40 and 160, GQA, lengths off the
-               tile): every bit equal to
+               tile, s_q < s_k, S 200 causal, GQA 4:1 on the forward's
+               persistent grids), and the masks of o, dQ, dK and dV read
+               out through one-hot inputs (bf16 and f32, D 64 and 128,
+               bf16 at D 40, 160 and 192, and on the forward's persistent
+               grids at D 64 and 80 with GQA 4:1, lengths off the tile):
+               every bit equal to
                ``dropout_keep``, causal and not, and the keep rate over
                10.5M scores within 5 sigma of 0.9;
                (d) every bf16 segment launch of rows 3/5/6 takes a wgmma
@@ -103,8 +108,9 @@ weights made from a seed:
                (e) rows 3/5/6 at head dims 24, 40, 56, 72, 80, 96, 112,
                160, 176, 200 and 256 (every compiled width, off-width dims
                included), bf16 and f32, causal and not, GQA 8:2 at 40 / 80
-               / 160, a bf16 segment case and a bf16 dropout case at each
-               (the wgmma bodies at every width), and their dropout and
+               / 160, and at each a bf16 segment case, a bf16 GQA 8:2 case
+               at S 200 and bf16 dropout cases causal and not with the
+               masks read out (the wgmma bodies at every width), and their dropout and
                segment branches at 40 and 160 in f32 too, and bf16 non-causal at the UNet's three attention
                shapes (phase 3h's B 8, 8 heads; S 4,096 / 1,024 / 256 at
                d 40 / 80 / 160); rows 1-2 at head dims 40, 80, 96 and 256
@@ -209,18 +215,18 @@ weights made from a seed:
                aten._fused_rms_norm_backward, rows 3, 5 and 6 at
                phase 3d's attention shape at rate 0 and at dropout 0.1
                (beside SDPA with dropout_p=0.1; the bound counts the mask's
-               Philox work; with ``--parent DIR`` that build's rows 5d and
-               6d in turns with these, and phase 3d's MLM step at dropout
-               0.1 in turns on that build's flash-attention library and
-               this one's), one line per design step of
-               the mma.sync forward (variants of its tile, ring depth and
-               occupancy, each held against the plain version), the
-               wgmma forward without segments (built at D 64, never
-               routed) in turns with row 3, with
-               ``--parent DIR`` (another commit's ``csrc``) that build's
-               rows 3, 5 and 6 at rate 0 (the train shape, CUDA-graph
-               replays), RMSNorm forward and LayerNorm backward timed in
-               turns with these on rotated inputs, and the LayerNorm,
+               Philox work; with ``--parent DIR`` that build's rows 3d,
+               5d and 6d in turns with these), one line per design step of
+               the wgmma forward (``FWD_VARIANTS``: 64 or 128 keys a
+               tile, a block per q tile or a persistent grid; each held
+               against the plain version and timed at
+               3c's, 3d's, 3h's and ViT's shapes), with ``--parent DIR``
+               (another commit's ``csrc``) that build's rows 3, 5 and 6 at
+               rate 0 (the train shape, CUDA-graph replays), its forward at
+               3d's shape and at the widths no model takes, the 3c and 3d
+               steps on its flash-attention library, RMSNorm forward and
+               LayerNorm backward timed in turns with these on rotated
+               inputs, and the LayerNorm,
                softmax and AdamW kernels at the phase-3d/3e shapes beside
                F.layer_norm, aten.native_layer_norm_backward, torch.softmax,
                aten._softmax_backward_data and torch._fused_adamw_ (the
@@ -241,7 +247,8 @@ weights made from a seed:
                counted at d, the plain version and SDPA's forward and
                backward (the kernels and SDPA alike as CUDA-graph replays
                over input copies that together exceed the L2), with
-               ``--parent DIR`` that build's rows 3/5/6 in turns with these,
+               ``--parent DIR`` that build's rows 3/5/6 in turns with these
+               and the 3h step on its libraries in turns with this one's,
                one line per design step of the wgmma dK/dV and dQ (dK/dV's
                ring depth, q tile and pipelining, dQ's ring depth, at 3c's
                and the UNet's level-0 shapes, and at 3d's at dropout 0.1)
@@ -314,19 +321,13 @@ def card_line():
 
 
 # -- phase 1: build ----------------------------------------------------------
-REPORTED_KERNELS = ("fa_fwd_mma_kernel", "fa_bwd_dkv_mma_kernel",
+REPORTED_KERNELS = ("fa_bwd_dkv_mma_kernel",
                     "rms_fwd_vec_kernel", "rms_bwd_vec_kernel",
                     "ln_bwd_vec_kernel", "ragged_paged_attention_kernel",
                     "ragged_paged_attention_mma_kernel",
                     "ragged_paged_attention_combine_kernel",
                     "softmax_fwd_reg_kernel", "fa_fwd_wgmma_kernel",
                     "fa_bwd_dkv_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
-# the mma.sync flash-attention bodies (the forward, and dK/dV, which runs
-# only dK/dV without segments at W 160, with or without dropout)
-MMA_SYNC_KERNELS = REPORTED_KERNELS[:2]
-# the mma.sync backward bodies whose launches at W 64 / 128 run in the
-# wgmma bodies since the dropout backward moved there (the dQ is gone)
-MOVED_TO_WGMMA = ("fa_bwd_dkv_mma_kernel", "fa_bwd_dq_mma_kernel")
 # kernels that hold their working set in registers by design: none may spill
 # (the wgmma bodies at every width: their accumulators and pipelined score
 # tiles fill the consumers' 232 registers)
@@ -339,8 +340,7 @@ NO_SPILL = ("ragged_paged_attention_kernel",
 # their DROP = false twins, of the same structure, in the W 64 / 128
 # library; the wgmma dK/dV's twin there is pipelined and its dropout branch
 # is not, so its SASS is compared in phase 5e, in the unpipelined build
-DROP_TWINS = ("fa_fwd_mma_kernel", "fa_fwd_wgmma_kernel",
-              "fa_bwd_dq_wgmma_kernel")
+DROP_TWINS = ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel")
 
 
 def ptxas_lines(path, kernels=REPORTED_KERNELS):
@@ -427,14 +427,13 @@ def rpa_libs(built):
 
 
 def register_report(built, parent=None):
-    """ptxas's registers and spills for the mma.sync flash-attention kernels
-    at every head width, the RMSNorm forward and backward register passes,
-    the LayerNorm backward's register pass, the ragged paged-attention
-    kernels and the softmax forward's register pass (one line per
-    instantiation; the ragged kernels' as their most); the kernels of
-    ``NO_SPILL`` must not spill.  With ``parent`` (another commit's
-    ``csrc``), the W 64 / 128 mma.sync instantiations of rows 3/5/6 are
-    held to that build's registers and spills."""
+    """ptxas's registers and spills for the flash-attention kernels at every
+    head width, the RMSNorm forward and backward register passes, the
+    LayerNorm backward's register pass, the ragged paged-attention kernels
+    and the softmax forward's register pass (one line per instantiation;
+    the ragged kernels' as their most); the kernels of ``NO_SPILL`` must
+    not spill.  With ``parent`` (another commit's ``csrc``), that build's
+    flash-attention libraries are built too (``build_parent``)."""
     for lib in (*fa_libs(built), "rms_norm", "layer_norm", "softmax"):
         for kernel, args, regs, stores, loads in ptxas_lines(built[lib]):
             print(f"  ptxas {kernel}{args}: {regs} registers, spill "
@@ -448,7 +447,7 @@ def register_report(built, parent=None):
                     f"{kernel}{args} spills ({stores} B stores)")
     serialised_wgmma(built)
     if parent is not None:
-        compare_parent_ptxas(built, parent)
+        build_parent(parent)
 
 
 def serialised_wgmma(built):
@@ -477,60 +476,25 @@ def template_args(args):
     return [int(x) for x in re.findall(r"L[ib](\d+)E", args)]
 
 
-def compare_parent_ptxas(built, parent):
-    """The mma.sync bodies of rows 3/5/6 in the W 64 / 128 library against
-    another commit's build of it (from the head-width slice on): each parent
-    instantiation is matched to this build's twin with the same template
-    arguments and their registers and spills must be equal.  A parent whose
-    mma.sync forward still took the segment flag has it dropped; its
-    segment instantiations, and its mma.sync dK/dV and dQ
-    (``MOVED_TO_WGMMA``), are counted apart, since this build runs those
-    launches in the wgmma bodies (it compiles no mma.sync dK/dV at W 64 /
-    128, and no mma.sync dQ); every other parent instantiation must have
-    its twin."""
+def build_parent(parent):
+    """Every flash-attention library of another commit's ``csrc``
+    (``parent``), one ``nvcc`` each, all started together, for the turns
+    of phases 5b-5e; prints the seconds they took and the registers and
+    spills of that build's bf16 forward at each width (``fa_fwd_mma_kernel``
+    or ``fa_fwd_wgmma_kernel``, whichever it has)."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import flash_attention as fa
-    # with the widths that phase 5e's turns take, all started together
-    path = _build.build_all(
-        ["flash_attention"] + [_build.width_library(
-            "flash_attention", fa.head_width(d)) for d in UNET_HEAD_DIMS],
-        csrc=Path(parent))["flash_attention"]
-    new = {}
-    for kernel, args, regs, stores, loads in ptxas_lines(
-            built["flash_attention"]):
-        if kernel in MMA_SYNC_KERNELS:
-            new[(kernel, tuple(template_args(args)))] = (regs, stores, loads)
-    arity = {kernel: len(ta) for kernel, ta in new}
-    n = moved = 0
-    # the parent's mma.sync dQ too, which this build no longer has
-    for kernel, args, regs, stores, loads in ptxas_lines(
-            path, MMA_SYNC_KERNELS + ("fa_bwd_dq_mma_kernel",)):
-        ta = template_args(args)
-        if kernel in MOVED_TO_WGMMA:
-            moved += 1                      # wgmma here at W 64 / 128
-            continue
-        require(kernel in arity, f"this build has no {kernel} at W 64 / 128")
-        if len(ta) == arity[kernel] + 1:
-            if ta[-2]:                      # its segment flag, then DROP
-                moved += 1
-                continue
-            del ta[-2]
-        key = (kernel, tuple(ta))
-        require(key in new, f"no twin of the parent's {key}")
-        print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
-              f"stores {stores} B, loads {loads} B; this build "
-              f"{new[key][0]} registers, {new[key][1]} / {new[key][2]} B")
-        require(new[key] == (regs, stores, loads),
-                f"{key}: registers / spills {new[key]} != the parent's "
-                f"{(regs, stores, loads)}")
-        n += 1
-    require(n > 0, "no parent instantiation of rows 3/5/6 in its report")
-    print(f"  {n} parent instantiations of rows 3/5/6 at W 64 / 128: "
-          f"registers and spills equal to this build's; {moved} of its "
-          f"mma.sync instantiations (segments; dK/dV and dQ) run in the "
-          f"wgmma bodies here")
+    t0 = time.perf_counter()
+    names = sorted(n for n in _build._sources(Path(parent))
+                   if n.startswith("flash_attention"))
+    paths = _build.build_all(names, csrc=Path(parent))
+    print(f"  built the parent's {names} in {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for kernel, args, regs, stores, _ in ptxas_lines(
+                paths[name], ("fa_fwd_mma_kernel", "fa_fwd_wgmma_kernel")):
+            print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
+                  f"stores {stores} B")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -822,6 +786,12 @@ TRAIN_ATTN_CASES = [
      torch.bfloat16),
     # the wgmma dK/dV and dQ without segments: GQA 8:2 causal off the tile
     ("GQA 8:2 S=200 causal", (2, 200, 200, 8, 2, 64), True, torch.bfloat16),
+    # the forward's persistent grid (288 q tiles over 132 SMs) with GQA 4:1:
+    # 128-key tiles at D 64, 64-key tiles at D 96 off the tile
+    ("GQA 4:1 persistent 128-key tiles", (2, 256, 256, 72, 18, 64), True,
+     torch.bfloat16),
+    ("GQA 4:1 persistent D=96 S=200", (2, 200, 200, 72, 18, 96), False,
+     torch.bfloat16),
 ]
 # (name, N, H, x dtype, w dtype): the forward's and backward's register
 # passes (bf16 rows of up to 1,024), N off the backward's row runs and
@@ -859,6 +829,11 @@ DROPOUT_ATTN_CASES = [
     ("S=200 causal", (2, 200, 200, 8, 8, 64), True, torch.bfloat16),
     ("f32 GQA 8:2 causal", (2, 128, 128, 8, 2, 64), True, torch.float32),
     ("f32 D=128 s_k = 200", (2, 128, 200, 4, 4, 128), False, torch.float32),
+    # the forward's persistent grid with GQA 4:1 (as TRAIN_ATTN_CASES)
+    ("GQA 4:1 persistent 128-key tiles", (2, 256, 256, 72, 18, 64), False,
+     torch.bfloat16),
+    ("GQA 4:1 persistent D=96 S=200 causal", (2, 200, 200, 72, 18, 96), True,
+     torch.bfloat16),
 ]
 # (name, (B, S_q, S_k, Hq, Hkv, D), dtype) of the masks read out of every
 # dropout kernel (``check_masks``), causal and not: the bf16 tensor-core
@@ -866,9 +841,11 @@ DROPOUT_ATTN_CASES = [
 # D 128 with s_q < s_k (the wgmma dK/dV's 32-row q tiles), at D 40 (W 48,
 # a zero-padded panel), at D 160 (dK/dV on mma.sync, its one width there)
 # and at D 192 (the wgmma dK/dV's output panels split over two blocks,
-# two panels and one, that each draw the mask), the f32 kernels likewise,
-# and last the
-# f32 kernels over B x Hq x 128 x 128 scores (over 10^7) for the keep rate
+# two panels and one, that each draw the mask); the forward's persistent
+# grids with GQA 4:1 over 288 q tiles (more than the card's SMs): 128-key
+# tiles at D 64 (two registers of keep bits) and 64-key tiles at D 80 (W
+# 96, off the tile); the f32 kernels likewise, and last the f32 kernels
+# over B x Hq x 128 x 128 scores (over 10^7) for the keep rate
 MASK_READOUTS = [
     ("bf16 D=64 GQA 8:2 S=200", (2, 200, 200, 8, 2, 64), torch.bfloat16),
     ("bf16 D=128 s_q 136 < s_k 200", (2, 136, 200, 4, 4, 128),
@@ -877,6 +854,10 @@ MASK_READOUTS = [
     ("bf16 D=160 s_q 72 < s_k 200", (1, 72, 200, 4, 4, 160),
      torch.bfloat16),
     ("bf16 D=192 GQA 4:2 S=200", (1, 200, 200, 4, 2, 192), torch.bfloat16),
+    ("bf16 D=64 GQA 4:1 persistent", (2, 256, 256, 72, 18, 64),
+     torch.bfloat16),
+    ("bf16 D=80 GQA 4:1 persistent S=200", (2, 200, 200, 72, 18, 80),
+     torch.bfloat16),
     ("f32 D=64 GQA 8:2 s_q 136 < s_k 200", (2, 136, 200, 8, 2, 64),
      torch.float32),
     ("f32 D=128 GQA 16:4 S=128", (40, 128, 128, 16, 4, 128), torch.float32),
@@ -1068,6 +1049,16 @@ def packed_lengths(total, lo=5, hi=300, seed=3):
     return lens
 
 
+def fwd_tiles(fa, shape, causal, segments):
+    """(q rows, keys, ", persistent" or "") of the design that the bf16
+    forward's dispatch gives a launch at ``shape`` (B, S_q, S_k, Hq, Hkv,
+    D)."""
+    b, s_q, s_k, hq, _, d = shape
+    bq, bk, persistent = fa.FWD_DESIGNS[fa.kernel_fwd_design(
+        b, hq, s_q, s_k, d, causal, segments)]
+    return bq, bk, ", persistent" * persistent
+
+
 def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
     """Rows 3, 5 and 6 against their plain versions over ``cases``, with
     ``rate`` > 0 the dropout branch under one seed per case (the plain
@@ -1093,6 +1084,9 @@ def attention_checks(fa, gen, cases, worst, rate=0.0, keys=None):
         seed = (i + 1) << 33 | 12345 if rate > 0 else 0
         tag = f"{name} {shape} causal={causal} [{str(dt)[6:]}]"
         tag += f" rate {rate}" if rate > 0 else ""
+        if dt == torch.bfloat16:
+            tag += " (forward %d x %d%s)" % fwd_tiles(fa, shape, causal,
+                                                      seg is not None)
         tol = TRAIN_TOL[dt]
         args = (causal, sc, rate, seed, seg)
         o, lse = fa.flash_attention_fwd(q, k, v, *args)
@@ -1130,11 +1124,10 @@ MMA_SYNC_DKV_WIDTHS = (160,)
 
 def want_bodies(fa, d, segments, dropout):
     """The body each bf16 launch of rows 3, 5 and 6 must take at head dim
-    ``d``: the forward wgmma with segments, else mma.sync; dQ wgmma; dK/dV
-    wgmma but without segments at ``MMA_SYNC_DKV_WIDTHS``, with or without
-    dropout."""
+    ``d``: the forward and dQ wgmma; dK/dV wgmma but without segments at
+    ``MMA_SYNC_DKV_WIDTHS``, with or without dropout."""
     dkv = segments or fa.head_width(d) not in MMA_SYNC_DKV_WIDTHS
-    return {"fwd": "wgmma" if segments else "mma.sync",
+    return {"fwd": "wgmma",
             "bwd_dkv": "wgmma" if dkv else "mma.sync",
             "bwd_dq": "wgmma"}
 
@@ -1157,6 +1150,44 @@ def require_bodies(fa, what, d, segments, dropout):
     require(body == want, f"{what}: bodies {body} != {want}")
 
 
+# (B, S_q, S_k, Hq, D, causal) of the forward launches whose design the
+# dispatch reports: 3c's, 3d's, 3h's, ViT's segment launch (577 rows padded
+# to 640), 512 q tiles at the widths no model takes and S 200 at every width
+FWD_DESIGN_LAUNCHES = (
+    (8, 2048, 2048, 16, 64, True), (64, 512, 512, 12, 64, False),
+    (8, 4096, 4096, 8, 40, False), (8, 1024, 1024, 8, 80, False),
+    (8, 256, 256, 8, 160, False), (32, 640, 640, 16, 64, False),
+    *((8, 1024, 1024, 8, d, False) for d in (32, 96, 128, 192, 256)),
+    *((2, 200, 200, 4, d, c) for d in (24, 40, 56, 72, 96, 112, 176, 200,
+                                       256) for c in (False, True)))
+
+
+def fwd_designs(fa):
+    """The design of each bf16 forward launch of ``FWD_DESIGN_LAUNCHES``,
+    without segments and (ViT's shape) with, read from the library's
+    dispatch (``kernel_fwd_design``): the segment branch takes a block per
+    q tile of 64-key tiles, and a launch takes a persistent grid only where
+    its q tiles outnumber the card's SMs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lines = []
+    for b, s_q, s_k, hq, d, causal in FWD_DESIGN_LAUNCHES:
+        for seg in (False, True) if s_q == 640 else (False,):
+            got = fa.kernel_fwd_design(b, hq, s_q, s_k, d, causal, seg)
+            require(got in range(len(fa.FWD_DESIGNS)),
+                    f"forward design {got} at {(b, s_q, s_k, hq, d)}")
+            bq, bk, persistent = fa.FWD_DESIGNS[got]
+            tiles = b * hq * -(-s_q // bq)
+            require(not (seg and got != 0) and (tiles > sms or not persistent),
+                    f"forward design at {(b, s_q, s_k, hq, d)} causal="
+                    f"{causal} segments={seg}: {bq} x {bk}, persistent "
+                    f"{persistent}, over {tiles} q tiles on {sms} SMs")
+            lines.append(f"[{b}, {s_q}, {hq}, {d}]{' causal' * causal}"
+                         f"{' segments' * seg}: {bq} x {bk}"
+                         f"{' persistent' * persistent}")
+    print("  forward designs (q rows x keys a tile) from the dispatch: "
+          + "; ".join(lines))
+
+
 def phase_train_kernels(fa, fu):
     """Every launch of rows 3/5/6 takes its body (``want_bodies``, at every
     head width of phase 2e and D 64 / 128, bf16 with and without segments
@@ -1173,10 +1204,10 @@ def phase_train_kernels(fa, fu):
                 body = launch_bodies(fa, d, segments, dropout, torch.float32)
                 require(set(body.values()) == {"cuda cores"},
                         f"f32 D {d}: bodies {body}")
-    print(f"  at head dims {dims}: bf16 dQ takes wgmma, and dK/dV too but "
-          f"without segments at widths {MMA_SYNC_DKV_WIDTHS} (mma.sync); "
-          f"the forward wgmma with segments and mma.sync without; f32 the "
-          f"CUDA cores")
+    print(f"  at head dims {dims}: bf16 forward and dQ take wgmma, and "
+          f"dK/dV too but without segments at widths {MMA_SYNC_DKV_WIDTHS} "
+          f"(mma.sync); f32 the CUDA cores")
+    fwd_designs(fa)
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {r["key"]: 0.0 for r in TRAIN_ROWS}
     attention_checks(fa, gen, TRAIN_ATTN_CASES, worst)
@@ -1438,9 +1469,15 @@ def mask_readout(fa):
         for causal in (False, True):
             n, kept = check_masks(fa, shape, dt, causal, seed)
             sigma = (DROPOUT_RATE * (1 - DROPOUT_RATE) / n) ** 0.5
+            tiles = ""
+            if dt == torch.bfloat16:
+                design = fwd_tiles(fa, shape, causal, False)
+                require(("persistent" in name) == bool(design[2]),
+                        f"mask read-out {name}: forward {design}")
+                tiles = ", forward %d x %d%s" % design
             print(f"  dropout masks read out of o, dq, dk and dv ({name}, "
-                  f"causal={causal}): {n:,} scores each, every bit equal "
-                  f"to dropout_keep; kept {kept:.6f} (1 - rate = "
+                  f"causal={causal}{tiles}): {n:,} scores each, every bit "
+                  f"equal to dropout_keep; kept {kept:.6f} (1 - rate = "
                   f"{1 - DROPOUT_RATE:g}, sigma {sigma:.2e})")
             if name == MASK_READOUTS[-1][0] and not causal:
                 require(n >= 10 ** 7 and abs(kept - (1 - DROPOUT_RATE))
@@ -3459,19 +3496,28 @@ def phase_segment_timing(parent=None):
     return res
 
 
-# Design steps of the mma.sync forward (row 3 without segments or dropout):
-# compile-time settings of flash_attention.cu, each built into a library of
-# its own and timed against the shipped build (the first entry) in one run.
-# (dK/dV and dQ run the wgmma bodies there: their steps are
-# ``BWD_VARIANTS``.)
-FA_VARIANTS = (
-    ("shipped: fwd 128 q rows, 2 blocks/SM; a ring of 2", ()),
-    ("ring depth 1 (no copy overlaps the products)", ("-DFA_STAGES=1",)),
-    ("ring depth 3", ("-DFA_STAGES=3",)),
-    ("1 block/SM", ("-DFA_FWD_MINB=1",)),
-    ("fwd 64 q rows (4 warps), 4 blocks/SM",
-     ("-DFA_FWD_WARPS=4", "-DFA_FWD_MINB=4")),
+# Design steps of the bf16 forward (compile-time settings of
+# flash_attention.cu: FA_FWD_HP_DESIGN makes every launch without segments
+# take one design where it fits, FA_FWD_HP_STAGES caps the ring; the
+# shipped build first): each design that the dispatch does not pick at
+# W 64, and the shipped picks with a deeper ring where it fits
+FWD_VARIANTS = (
+    ("shipped: fwd_design's pick", ()),
+    ("a block per q tile, 64 keys", ("-DFA_FWD_HP_DESIGN=0",)),
+    ("a block per q tile, 128 keys", ("-DFA_FWD_HP_DESIGN=1",)),
+    ("persistent, 64 keys", ("-DFA_FWD_HP_DESIGN=2",)),
+    ("shipped pick, a ring of up to 6", ("-DFA_FWD_HP_STAGES=6",)),
 )
+# (shape, causal, dropout rate) of the forward's design steps: 3c's
+# launch, 3d's at rate 0 and 0.1, 3h's three, and ViT's sequence without
+# segments
+FWD_DESIGN_SHAPES = (((8, 2048, 2048, 16, 16, 64), True, 0.0),
+                     ((64, 512, 512, 12, 12, 64), False, 0.0),
+                     ((64, 512, 512, 12, 12, 64), False, 0.1),
+                     ((8, 4096, 4096, 8, 8, 40), False, 0.0),
+                     ((8, 1024, 1024, 8, 8, 80), False, 0.0),
+                     ((8, 256, 256, 8, 8, 160), False, 0.0),
+                     ((32, 640, 640, 16, 16, 64), False, 0.0))
 
 
 def build_variants(variants, names=("flash_attention",)):
@@ -3485,48 +3531,114 @@ def build_variants(variants, names=("flash_attention",)):
             lambda var: _build.build_all(list(names), var[1]), variants))
 
 
-def design_steps(fa, gen, shape, causal):
-    """One line per entry of ``FA_VARIANTS``: the variant's forward held
-    against the plain version and timed at ``shape``, then the shipped
-    build again.  A measurement only: the port loads the shipped build,
-    which is put back however this ends."""
+def forward_design_steps(fa, gen, variants, shapes, turns=2):
+    """One line per entry of ``variants`` (``FWD_VARIANTS``) at each (shape,
+    causal, dropout rate) of ``shapes``, in ``turns`` turns: the variant's
+    forward held against the plain version (first turn), then timed as
+    CUDA-graph replays over ``attention_copies``, with the design it ran
+    (``kernel_fwd_design``) and ptxas's registers and spills of its
+    forward at that width and rate.  A measurement only: the port loads
+    the shipped build, which is put back however this ends."""
     import ctypes
 
     from paddle_tpu_torch.ops import _build
+    names = [_build.width_library("flash_attention",
+                                  fa.head_width(shape[-1]))
+             for shape, _, _ in shapes]
     t0 = time.perf_counter()
-    paths = [p["flash_attention"] for p in build_variants(FA_VARIANTS)]
-    print(f"  built {len(paths)} variants in {time.perf_counter() - t0:.1f} s")
-    d = shape[-1]
-    q, k, v, _ = attn_inputs(gen, shape, torch.bfloat16)
-    sc = 1.0 / np.sqrt(d)
-    ro, _ = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
-    p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
-        q, k, v.abs(), causal, sc)[0].float()
+    paths = build_variants(variants, sorted(set(names)))
+    print(f"  built {len(variants)} variants of {sorted(set(names))} in "
+          f"{time.perf_counter() - t0:.1f} s")
     tol = TRAIN_TOL[torch.bfloat16]
-    shipped = _build.library("flash_attention")
-    runs = list(zip(FA_VARIANTS, paths)) + [(FA_VARIANTS[0], paths[0])]
-    try:
-        for (what, _), path in runs:
-            # the wrappers launch through the library registered under the
-            # source's name
-            _build._LIBS["flash_attention"] = ctypes.CDLL(str(path))
-            o, _ = fa.flash_attention_fwd(q, k, v, causal, sc)
-            held(f"fwd o   [{what}]", o, ro, tol, p_round)
-            del o
-            fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(
-                q, k, v, causal, sc), 10)
-            regs = ", ".join(
-                f"{r} registers, {st} B spilled" for kern, args, r, st, _
-                in ptxas_lines(path)
-                if kern == "fa_fwd_mma_kernel"
-                and template_args(args)[:2] == [d, 0]
-                and not template_args(args)[-1])
-            print(f"  design step {what}: fwd {fwd_ms:.4f} ms (at D {d}: "
-                  f"{regs})")
-    finally:
-        _build._LIBS["flash_attention"] = shipped
-    del q, k, v, ro, p_round
-    torch.cuda.empty_cache()
+    for (shape, causal, rate), name in zip(shapes, names):
+        b, s_q, s_k, hq, _, d = shape
+        w = fa.head_width(d)
+        args = (causal, 1.0 / np.sqrt(d), rate, 777 if rate > 0 else 0)
+        copies = attention_copies(gen, shape)
+        n = len(copies)
+        q, k, v, _ = copies[0]
+        ro, _ = fa.flash_attention_fwd_ref(q, k, v, *args)
+        p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
+            q, k, v.abs(), *args)[0].float()
+        shipped = _build.library(name)
+        tag = f"{list(shape)} causal={causal} rate {rate:g}"
+        try:
+            for turn in range(1, turns + 1):
+                for (what, _), path in zip(variants, paths):
+                    _build._LIBS[name] = ctypes.CDLL(str(path[name]))
+                    if turn == 1:
+                        o, _ = fa.flash_attention_fwd(q, k, v, *args)
+                        held(f"fwd o [{what}] {tag}", o, ro, tol, p_round)
+                        del o
+                    ms = graph_ms(lambda i: fa.flash_attention_fwd(
+                        *copies[i % n][:3], *args), 10)
+                    bq, bk, persistent = fa.FWD_DESIGNS[fa.kernel_fwd_design(
+                        b, hq, s_q, s_k, d, causal, False)]
+                    regs = ", ".join(
+                        f"{r} registers, {st} B spilled"
+                        for kern, a, r, st, _ in ptxas_lines(path[name])
+                        if kern == "fa_fwd_wgmma_kernel"
+                        and template_args(a) == [w, bk, int(persistent), 0,
+                                                 int(rate > 0)])
+                    print(f"  design step of the forward, turn {turn}, "
+                          f"{what}, {tag}: {ms:.4f} ms ({bq} rows x {bk} "
+                          f"keys{', persistent' * persistent}; {regs})")
+        finally:
+            _build._LIBS[name] = shipped
+        del copies, q, k, v, ro, p_round
+        torch.cuda.empty_cache()
+
+
+# (shape, causal) of row 3's turns against the parent beside the steps'
+# shapes: 3d's at rate 0, and the widths that no model of the repo takes
+PARENT_FWD_SHAPES = (((64, 512, 512, 12, 12, 64), False),
+                     *(((8, 1024, 1024, 8, 8, d), False)
+                       for d in (32, 96, 128, 192, 256)),
+                     ((4, 2048, 2048, 16, 4, 128), True))
+
+
+def parent_forward_turns(parent, fa, gen, shapes):
+    """``--parent DIR``: row 3 (the forward alone) of another commit's
+    flash-attention libraries (DIR holds its ``csrc``; an older build's bf16
+    forward without segments runs mma.sync) timed in turns with this
+    build's — parent, new, new, parent — at each (shape, causal) of
+    ``shapes`` through the C entries, as CUDA-graph replays over
+    ``attention_copies``; each output held against the plain version
+    first."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    for shape, causal in shapes:
+        b, s_q, s_k, hq, hkv, d = shape
+        name = _build.width_library("flash_attention", fa.head_width(d))
+        libs = {"parent": parent_library(parent, name),
+                "new": _build.library(name)}
+        tails = {side: entry_tail(path) for side, path in
+                 (("parent", Path(parent)), ("new", _build.CSRC))}
+        geometry = (b, hq, hkv, s_q, s_k, d)
+        copies = attention_copies(gen, shape)
+        n = len(copies)
+        sc = 1.0 / np.sqrt(d)
+        q, k, v, _ = copies[0]
+        ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
+        p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
+            q, k, v.abs(), causal, sc)[0].float()
+        o, lse = torch.empty_like(q), torch.empty_like(rlse)
+        line = []
+        for side in ("parent", "new", "new", "parent"):
+            lib, tail = libs[side], tails[side]
+
+            def call(i):
+                fa_direct(lib, "fwd", (*copies[i % n][:3], o, lse), geometry,
+                          causal, sc, tail)
+            call(0)
+            held(f"fwd o   [{side}] {list(shape)} causal={causal}", o, ro,
+                 TRAIN_TOL[torch.bfloat16], p_round)
+            line.append(f"{side} {graph_ms(call, 10):.4f}")
+        print(f"  turns of row 3 at {list(shape)} causal={causal} (width "
+              f"{fa.head_width(d)}): " + ", ".join(line) + " ms")
+        del copies, q, k, v, ro, rlse, p_round, o, lse
+        torch.cuda.empty_cache()
 
 
 def c_entry(lib, name, n_ptrs, n_ints, n_floats=0):
@@ -3747,78 +3859,58 @@ def parent_attention_turns(parent, fa, gen, shape, causal, rate=0.0):
     torch.cuda.empty_cache()
 
 
-def parent_ernie_turns(parent, fa, B=64, S=512, warmup=2, steps=10):
-    """``--parent DIR``: phase 3d's MLM step (ERNIE-3.0-base, B x S, both
-    dropouts at ``DROPOUT_RATE``) on one model, timed in turns — parent,
-    new, new, parent — with the head width's flash-attention library
-    swapped between another commit's build (DIR holds its ``csrc``) and
-    this one; every other kernel is this build's.  Each turn runs
-    ``warmup`` steps, then ``steps`` timed ones, and prints ms per step
-    and its last loss.  The shipped library is put back however this
-    ends."""
+def parent_step_turns(parent, fa, which, warmup=2, steps=10):
+    """``--parent DIR``: the train step of phase ``which`` — "3c" (the 271M
+    LLaMA, B 8 x S 2,048), "3d" (ERNIE-3.0-base MLM, B 64 x S 512, both
+    dropouts at ``DROPOUT_RATE``) or "3h" (the SD-1.5 UNet, B 8) — on one
+    model, timed in turns — parent, new, new, parent — with the
+    flash-attention libraries of its head widths swapped between another
+    commit's build (DIR holds its ``csrc``) and this one; every other
+    kernel is this build's.  Each turn runs ``warmup`` steps, then
+    ``steps`` timed ones, and prints ms per step and its last loss.  The
+    shipped libraries are put back however this ends."""
     from paddle_tpu_torch.ops import _build
-    cfg = ernie_config()
-    name = _build.width_library(
-        "flash_attention",
-        fa.head_width(cfg.hidden_size // cfg.num_attention_heads))
-    libs = {"parent": parent_library(parent, name),
-            "new": _build.library(name)}
-    step, _, _ = make_ernie_step(cfg, torch.bfloat16, True)
-    rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
-                           .astype(np.int32)).cuda()
+    if which == "3c":
+        cfg = train_config()
+        step, _, _ = make_train_step(cfg, torch.bfloat16, True)
+        batch = train_batch(cfg, 8, 2048)
+        dims = (cfg.hidden_size // cfg.num_attention_heads,)
+        what = "3c LLaMA train step, B=8 S=2048"
+    elif which == "3d":
+        cfg = ernie_config()
+        step, _, _ = make_ernie_step(cfg, torch.bfloat16, True)
+        rng = np.random.default_rng(0)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (64, 512))
+                               .astype(np.int32)).cuda()
+        batch = (ids, ids)
+        dims = (cfg.hidden_size // cfg.num_attention_heads,)
+        what = f"3d MLM step at dropout {DROPOUT_RATE}, B=64 S=512"
+    else:
+        step, _, _ = make_unet_step(torch.bfloat16, True)
+        batch = unet_batch(8, torch.bfloat16)
+        dims = UNET_HEAD_DIMS
+        what = "3h UNet train step, B=8"
+    names = sorted({_build.width_library("flash_attention", fa.head_width(d))
+                    for d in dims})
+    libs = {"parent": {n: parent_library(parent, n) for n in names},
+            "new": {n: _build.library(n) for n in names}}
     try:
         for side in ("parent", "new", "new", "parent"):
-            _build._LIBS[name] = libs[side]
+            _build._LIBS.update(libs[side])
             for _ in range(warmup):
-                step((ids, ids))
+                step(batch)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            losses = [step((ids, ids))[0] for _ in range(steps)]
+            losses = [step(batch)[0] for _ in range(steps)]
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) / steps * 1e3
             loss = float(losses[-1])
-            require(np.isfinite(loss), f"3d turn {side}: loss {loss}")
-            print(f"  turn {side}: 3d MLM step at dropout {DROPOUT_RATE}, "
-                  f"B={B} S={S}: {ms:.2f} ms per step over {steps} steps, "
-                  f"last loss {loss:.4f}")
+            require(np.isfinite(loss), f"{which} turn {side}: loss {loss}")
+            print(f"  turn {side}: {what}: {ms:.2f} ms per step over "
+                  f"{steps} steps, last loss {loss:.4f}")
     finally:
-        _build._LIBS[name] = libs["new"]
-    del step, ids
-    torch.cuda.empty_cache()
-
-
-def wgmma_design_turns(fa, gen, shape, causal):
-    """The wgmma forward without segments — compiled at D 64 beside row 3
-    and never routed (``flash_attention_fwd_wgmma_launch``) — held against
-    the plain version and timed in turns with row 3's mma.sync body —
-    mma.sync, wgmma, wgmma, mma.sync — through the C entries on the same
-    bf16 inputs.  A measurement only."""
-    from paddle_tpu_torch.ops import _build
-    lib = _build.library("flash_attention")
-    tail = entry_tail(_build.CSRC)
-    b, s_q, s_k, hq, hkv, d = shape
-    geometry = (b, hq, hkv, s_q, s_k, d)
-    q, k, v, _ = attn_inputs(gen, shape, torch.bfloat16)
-    sc = 1.0 / np.sqrt(d)
-    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal, sc)
-    p_round = 2.0 ** -8 * fa.flash_attention_fwd_ref(
-        q, k, v.abs(), causal, sc)[0].float()
-    o, lse = torch.empty_like(q), torch.empty_like(rlse)
-    tol = TRAIN_TOL[torch.bfloat16]
-    for body in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
-        suffix = "_wgmma" if body == "wgmma" else ""
-
-        def call(i):
-            fa_direct(lib, "fwd" + suffix, (q, k, v, o, lse), geometry,
-                      causal, sc, tail)
-        call(0)
-        held(f"fwd o   [{body}, no segments]", o, ro, tol, p_round)
-        held(f"fwd lse [{body}, no segments]", lse, rlse,
-             TRAIN_TOL[torch.float32])
-        print(f"  turn {body}: row 3 at rate 0 {list(shape)} "
-              f"causal={causal}: forward {time_ms(call, 10):.4f} ms")
-    del q, k, v, ro, rlse, p_round, o, lse
+        _build._LIBS.update(libs["new"])
+    del step, batch
     torch.cuda.empty_cache()
 
 
@@ -3853,10 +3945,12 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     """Rows 3-8 at the train shape (bf16, causal; RMSNorm rows N x H): the
     kernel, its plain version, the bound and the library call (timed here
     only; the port never calls it); rows 3, 5 and 6 also at ERNIE's
-    attention shape (phase 3d, non-causal), the design steps of rows 3, 5
-    and 6 at the train shape, and with ``parent`` the turns of
+    attention shape (phase 3d, non-causal), the forward's design steps
+    (``FWD_VARIANTS``), and with ``parent`` the turns of
     :func:`parent_attention_turns` (rows 3/5/6 at the train shape, rows
-    3d/5d/6d at 3d's at dropout 0.1) and :func:`parent_norm_turns`.  Row 8's library call is the backward alone
+    3d/5d/6d at 3d's at dropout 0.1), :func:`parent_forward_turns`
+    (``PARENT_FWD_SHAPES``), :func:`parent_step_turns` (3c, 3d) and
+    :func:`parent_norm_turns`.  Row 8's library call is the backward alone
     (``aten._fused_rms_norm_backward``), with ``F.rms_norm`` forward +
     backward printed beside it."""
     import torch.nn.functional as F
@@ -3874,11 +3968,9 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
     drop = attention_timing(fa, gen, ERNIE_ATTN_SHAPE, False,
                             f" (ERNIE, dropout {DROPOUT_RATE})", DROPOUT_RATE)
     res.update({k + "_drop": v for k, v in drop.items()})
-    print("  design steps of rows 3, 5 and 6 at the train shape:")
-    design_steps(fa, gen, (B, S, S, Hq, Hq, D), True)
-    print("  the wgmma forward without segments (built at D 64, not "
-          "routed) in turns with row 3 at the train shape:")
-    wgmma_design_turns(fa, gen, (B, S, S, Hq, Hq, D), True)
+    print("  design steps of the forward (3c, 3d, 3h and ViT's "
+          "shapes):")
+    forward_design_steps(fa, gen, FWD_VARIANTS, FWD_DESIGN_SHAPES)
     if parent is not None:
         print(f"  rows 3, 5 and 6 at rate 0 against the build of {parent}, "
               f"in turns:")
@@ -3888,10 +3980,13 @@ def phase_train_timing(B=8, S=2048, Hq=16, D=64, N=16384, H=1024,
               f"turns:")
         parent_attention_turns(parent, fa, gen, ERNIE_ATTN_SHAPE, False,
                                DROPOUT_RATE)
-        print(f"  phase 3d's MLM step at dropout {DROPOUT_RATE} on the "
-              f"flash-attention library of {parent} and on this one, in "
-              f"turns:")
-        parent_ernie_turns(parent, fa)
+        print(f"  row 3 at 3d's shape at rate 0 and at the widths no model "
+              f"takes against the build of {parent}, in turns:")
+        parent_forward_turns(parent, fa, gen, PARENT_FWD_SHAPES)
+        for which in ("3c", "3d"):
+            print(f"  phase {which}'s train step on the flash-attention "
+                  f"library of {parent} and on this one, in turns:")
+            parent_step_turns(parent, fa, which)
         print(f"  rows 7 and 13 against the build of {parent}, in turns:")
         parent_norm_turns(parent, fu, gen, N, H)
     elt = 2
@@ -4125,9 +4220,10 @@ def head_dim_cases(d):
 
 def head_dim_checks(fa, gen, worst=None):
     """Phase 2e for rows 3/5/6: every head dim of ``HEAD_DIMS_2E`` against
-    the plain versions under ``TRAIN_TOL`` (and a bf16 segment case and a
-    bf16 dropout case each, so that the wgmma bodies run every branch at
-    every width), and the dropout (rate 0.1) and segment branches at head
+    the plain versions under ``TRAIN_TOL`` (and bf16 segment, GQA and
+    dropout cases each, causal and not, with the dropout masks read out,
+    so that the wgmma bodies run every branch at every width), and the
+    dropout (rate 0.1) and segment branches at head
     dims 40 and 160 (SD-1.5's level 0 and 2), bf16 and f32, and bf16
     non-causal at ``UNET_ATTN_SHAPES`` (the shapes
     phase 3h gives the kernels); the worst error of each head dim under
@@ -4141,11 +4237,24 @@ def head_dim_checks(fa, gen, worst=None):
                                     (2, 320, 320, 4, 2, d), d % 16 == 8,
                                     torch.bfloat16, [64, 10, 118, 128])],
                          worst, keys=head_keys(d))
-        # the dropout branch of the wgmma dK/dV and dQ at this width (GQA
-        # 4:2, lengths off the tile, causal at the odd multiples of 8)
+        # the wgmma bodies without segments at this width: GQA 8:2 at S 200
+        # at rate 0, and the dropout branch (GQA 4:2, lengths off the tile)
+        # causal and not, with the forward's, dK/dV's and dQ's masks read
+        # out against dropout_keep
+        attention_checks(fa, gen, [(f"D={d} GQA 8:2 S=200",
+                                    (2, 200, 200, 8, 2, d), d % 16 != 8,
+                                    torch.bfloat16)],
+                         worst, keys=head_keys(d))
         attention_checks(fa, gen, [(f"D={d} dropout", (2, 200, 200, 4, 2, d),
-                                    d % 16 == 8, torch.bfloat16)],
+                                    causal, torch.bfloat16)
+                                   for causal in (False, True)],
                          worst, DROPOUT_RATE, head_keys(d))
+        for causal in (False, True):
+            n, _ = check_masks(fa, (1, 136, 200, 4, 2, d), torch.bfloat16,
+                               causal, (d << 32) | 99)
+            print(f"  dropout masks read out of o, dq, dk and dv (D={d} GQA "
+                  f"4:2 s_q 136 < s_k 200, causal={causal}): {n:,} scores "
+                  f"each, every bit equal to dropout_keep")
     for shape in UNET_ATTN_SHAPES:
         attention_checks(fa, gen, [(f"UNet D={shape[-1]}", shape, False,
                                     torch.bfloat16)], worst,
@@ -4739,6 +4848,10 @@ def phase_unet_timing(pa, decode_kv_lens, parent=None):
             print(f"  rows 3/5/6 at head dim {d} against the build of "
                   f"{parent}, in turns:")
             parent_attention_turns(parent, fa, gen, shape, False)
+    if parent is not None:
+        print(f"  phase 3h's train step on the flash-attention libraries of "
+              f"{parent} and on these, in turns:")
+        parent_step_turns(parent, fa, "3h")
     print("  design steps of the wgmma dK/dV and dQ without segments:")
     backward_design_steps(fa, gen, BWD_VARIANTS, BWD_DESIGN_SHAPES)
     (nopipe,) = build_variants([v for v in BWD_VARIANTS
@@ -4799,12 +4912,14 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="csrc directory of another commit: phase 1 holds "
-                         "its D 64 / 128 flash-attention registers against "
-                         "these, phase 5 times its ragged paged attention "
-                         "and softmax forward, phase 5b its flash-attention "
-                         "kernels at rate 0, RMSNorm forward and LayerNorm "
-                         "backward, in turns with these")
+                    help="csrc directory of another commit: phase 1 "
+                         "builds its flash-attention libraries, phase 5 "
+                         "times its ragged paged attention and softmax "
+                         "forward, phase 5b its flash-attention kernels, "
+                         "the 3c and 3d steps on them, RMSNorm forward and "
+                         "LayerNorm backward, 5d its segment kernels and 5e "
+                         "its kernels at the UNet's head dims and the 3h "
+                         "step on them, in turns with these")
     ap.add_argument("--parent-engine", metavar="ROOT", default=None,
                     help="checkout of another commit: its phases 3a and 3b "
                          "run in a process of their own before this "

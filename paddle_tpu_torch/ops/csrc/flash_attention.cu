@@ -12,7 +12,6 @@
 
 #ifndef FA_TU_WIDTHS
 #define FA_TU_WIDTHS 64, 128
-#define FA_TUNED_LIBRARY 1
 #endif
 #include "flash_attention.cuh"
 
@@ -41,26 +40,3 @@ extern "C" int pack_lse_launch(const void* src, void* dst, long long bh,
       s_seq);
   return cudaGetLastError();
 }
-
-#ifdef FA_TUNED_LIBRARY
-// The wgmma forward without segments (bf16, D 64, no dropout): compiled
-// beside the mma.sync forward of row 3 so that a run can time the two
-// designs on the same inputs; the wrappers never launch it.  Arguments as
-// flash_attention_fwd_launch (the dropout threshold 0, no segments).
-extern "C" int flash_attention_fwd_wgmma_launch(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const long long* strides, int batch, int hq, int hkv, int s_q, int s_k,
-    int head_dim, int dtype, int causal, float sm_scale, unsigned thresh,
-    float drop_scale, unsigned seed_lo, unsigned seed_hi, const void* seg,
-    void* stream) {
-  const Geometry g{batch, hq, hkv, s_q, s_k, causal, head_dim, sm_scale};
-  if (!valid(g, seg) || dtype != 1 || head_dim != 64 || thresh != 0 ||
-      seg != nullptr)
-    return cudaErrorInvalidValue;
-  return fwd_wgmma<64, false, false>(q, k, v, o, static_cast<float*>(lse),
-                                     strides, g, Dropout{0, drop_scale,
-                                                         seed_lo, seed_hi},
-                                     nullptr,
-                                     static_cast<cudaStream_t>(stream));
-}
-#endif  // FA_TUNED_LIBRARY

@@ -5,16 +5,15 @@
 // -DFA_TU_WIDTHS=<W>; ops/_build.py WIDTH_LIBRARIES).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   flash_attention_fwd_kernel_call -> _fwd_kernel      (fa_fwd_mma_kernel,
-//                                                         fa_fwd_kernel)
-//   _pack_lse                                            (the forward's lse
+//   flash_attention_fwd_kernel_call -> _fwd_kernel    (fa_fwd_wgmma_kernel,
+//                                                       fa_fwd_kernel)
+//   _pack_lse                                          (the forward's lse
 //        epilogue, and pack_lse_kernel for 3-D [BH, S, 1] stats)
 //   _bwd_call -> _bwd_dkv_kernel                (fa_bwd_dkv_wgmma_kernel,
 //                                                fa_bwd_dkv_mma_kernel,
 //                                                fa_bwd_dkv_kernel)
 //   _bwd_call -> _bwd_dq_kernel                 (fa_bwd_dq_wgmma_kernel,
 //                                                fa_bwd_dq_kernel)
-//   _fwd_kernel, has_segments, bf16         (fa_fwd_wgmma_kernel)
 //
 // Layout: q, o, dq are [B, S_q, Hq, D]; k, v, dk, dv are [B, S_k, Hkv, D];
 // each is read or written through its (batch, seq, head) strides with unit
@@ -66,24 +65,21 @@
 // multiply-adds for 2 tiles of rows loaded, so the kernels are bound by
 // operations, not by bytes: 989 TFLOP/s of bf16 tensor-core products
 // against 3.35 TB/s.  What keeps a kernel from that rate is what stands
-// between the products: shared-memory round trips of the score tiles, block
-// barriers, and loads that the products wait for.  The TPU's 512 x 1024
-// blocks do not fit Hopper's 227 KB of shared memory; the tiles here are
-// 64 to 128 rows.  Two bodies:
-//   * bf16 (the train steps; fa_fwd_mma_kernel, fa_bwd_dkv_mma_kernel):
-//     mma.sync.m16n8k16 fed by ldmatrix, with every score, p, dP, ds and
-//     accumulator in registers, so no score tile touches shared memory, and
-//     the streamed operand arriving through a cp.async ring while the
-//     previous tile's products run, with one block barrier per tile: K / V
-//     for the forward, Q / dO / lse / delta for dK / dV.  The forward's
-//     block takes 128 q rows (8 warps of 16), so that each K / V tile it
-//     loads feeds twice the products of a 64-row tile; dK / dV's takes 64
-//     keys (4 warps) and streams 64-row q tiles (32 above W = 64, where dK
-//     and dV take more registers).  Registers bound the warps an SM holds,
-//     so the launch bounds cap them (128 and 168 at D = 64) to fit 16 and
-//     12 warps per SM.  Causal launches put the longest blocks first, and
-//     only the tiles that cross the causal frontier or the end of the keys
-//     are masked.  (The bf16 dQ is the wgmma body's at every launch.)
+// between the products: the softmax's exponentials, block barriers, and
+// loads that the products wait for.  The TPU's 512 x 1024 blocks do not fit
+// Hopper's 227 KB of shared memory; the tiles here are 64 to 128 rows.
+// Three kinds of body:
+//   * bf16 wgmma (every forward and dQ launch, and dK / dV but below):
+//     warp-specialised blocks, a producer warp feeding consumer warpgroups
+//     by TMA, wgmma products with the scores in registers (the section
+//     "The wgmma bodies" below).  The forward fits its grid and tiles to
+//     the launch (fwd_design: a block per q tile, or a persistent grid of
+//     a block an SM; 64 or 128 keys a tile).
+//   * bf16 mma.sync (fa_bwd_dkv_mma_kernel: dK / dV without segments at
+//     kMmaSyncDkvWidth alone): mma.sync.m16n8k16 fed by ldmatrix, with every
+//     score, p, dP, ds and accumulator in registers, and Q / dO arriving
+//     through a cp.async ring while the previous tile's products run, one
+//     block barrier per tile.
 //   * f32 inputs run their products on the CUDA cores in f32, which keeps
 //     f32 inputs exact to f32 rounding (a TF32 tensor-core product would
 //     not): tiles staged in shared memory as f32 (rows padded to W + 1
@@ -95,16 +91,15 @@
 // enters its product as hi = bf16(x) and lo = bf16(x - hi), which carry x to
 // 2^-16 relative, with two products into one f32 accumulator.  Which bf16
 // launch takes which body (kWgmmaFwd, kWgmmaDkv; the C entry
-// flash_attention_body reports it per launch):
-//   forward: the segment branch the warp-specialised wgmma body fed by TMA
-//     (below), every other launch mma.sync;
-//   dK / dV and dQ: every launch the wgmma bodies, with or without
-//     segments or dropout, causal or not, but dK / dV without segments at
-//     W 160 (kMmaSyncDkvWidth), with or without dropout, where mma.sync
-//     measured faster.
+// flash_attention_body reports it per launch, flash_attention_fwd_design
+// the forward's design):
+//   forward and dQ: every launch the wgmma bodies, with or without
+//     segments or dropout, causal or not, at every width;
+//   dK / dV: likewise, but without segments at W 160 (kMmaSyncDkvWidth),
+//     with or without dropout, where mma.sync measured faster.
 //
 // Attention dropout (the TPU kernels' dropout_rate > 0 branch) is the
-// template flag DROP of all eight bodies; the DROP = false instantiations
+// template flag DROP of all seven bodies; the DROP = false instantiations
 // are the kernels as they were.  Each score's keep word is drawn in
 // registers from Philox4x32-10 keyed by the seed and counted by the
 // score's global (q-head row, q row, key) coordinates (philox.cuh), so
@@ -117,13 +112,12 @@
 // draw one call per 4 scores: a forward or dQ thread's 4 scores of a
 // 16-key group in one q row are one call's 4 words, and dK / dV's
 // transposed fragment splits each call between a lane pair that swaps
-// halves by one shuffle.  The forwards draw a tile's words where its p
-// meets P V.  The wgmma dK / dV and dQ draw them once the tile's S / dP
-// (S^T / dP^T) wgmmas are issued and before they are waited for, since a
-// word depends on the coordinates alone: the Philox rounds run on the
-// integer pipe while the tensor cores work, and each word is compared with
-// the threshold at once and kept as one bit (32 scores of a tile in one
-// register, not 32 words).  The f32 bodies draw one call per score.  The
+// halves by one shuffle.  The wgmma bodies draw a tile's words once its
+// score wgmmas (S; S and dP; S^T and dP^T) are issued and before they are
+// waited for, since a word depends on the coordinates alone: the Philox
+// rounds run on the integer pipe while the tensor cores work, and each word
+// is compared with the threshold at once and kept as one bit (32 scores of
+// a 64-key tile in one register, not 32 words).  The f32 bodies draw one call per score.  The
 // mask costs integer work (some 100 operations per call), not bytes; a
 // fully masked causal tile draws nothing.
 //
@@ -132,8 +126,8 @@
 // are the template flag SEG beside DROP of the three f32 bodies and of the
 // three bf16 wgmma bodies, which take every bf16 segment launch of rows 3,
 // 5 and 6; the SEG = false instantiations are the kernels without the
-// mask (of the wgmma bodies, those of dK / dV and dQ run every bf16
-// launch without segments).
+// mask (of the wgmma bodies, they run every bf16 launch without
+// segments, but dK / dV's at kMmaSyncDkvWidth).
 // The ids of one batch row,
 // f32 [S] (S = S_q = S_k), are read from device memory where a score is
 // masked, and a score whose q row and key lie in different segments is
@@ -154,10 +148,12 @@
 // (tile_class; the TPU kernel skips none, and skipping changes no value) —
 // and run wgmma on TMA-loaded tiles, a producer warp feeding consumer
 // warpgroups.  Without segments the same classes are the causal frontier
-// and the end of the keys, so dK / dV and dQ take those launches too (they
-// were 2.2-2.5x slower than SDPA's backward on mma.sync at the UNet's and
-// the LLaMA step's shapes, and 2.2x at ERNIE's with dropout).  The f32
-// bodies mask every tile with SEG.
+// and the end of the keys, so the three bodies take those launches too
+// (on mma.sync dK / dV and dQ were 2.2-2.5x slower than SDPA's backward
+// at the UNet's and the LLaMA step's shapes, and 2.2x at ERNIE's with
+// dropout; the forward 1.3-1.9x slower than SDPA's forward at the LLaMA
+// step's, ERNIE's and the UNet's).  The f32 bodies mask every tile with
+// SEG.
 //
 // The C entries allocate nothing, launch on the caller's stream and return
 // cudaGetLastError().  flash_attention.cu defines FA_TU_WIDTHS (its widths;
@@ -170,7 +166,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
+#include <utility>
 
 #include "philox.cuh"
 #include "sm90_mma.cuh"
@@ -689,39 +687,32 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dK / dV, written for Hopper's tensor cores through
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  Every score, p,
-// dP, ds and output accumulator lives in registers: a warp owns 16 rows
-// (q rows in the forward, key rows in dK / dV), an S = A . B^T
-// product comes out as accumulator fragments (thread (g, t) =
-// (lane / 4, lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of
-// each 8-column n-tile), and those fragments are, with no data movement,
-// the A operand of the next product (P . V; p^T . dO and ds^T . Q).
-// Row statistics reduce over the 4 lanes of a row by shuffles.  Tiles
-// reach shared memory by cp.async
-// through a ring of stages (the copy of tile j + 1 runs while the products
-// of tile j do), with one block barrier per tile; their rows are stored
-// swizzled or padded (sm90_mma.cuh swz), so that every ldmatrix phase
-// reads 8 distinct bank groups.  The softmax runs in base 2
-// (scores times sm_scale * log2 e, ex2.approx), which is the same function.
+// bf16 dK / dV through mma.sync.m16n8k16 (bf16 operands, f32
+// accumulators; since the wgmma bodies came, the launches without segments
+// at kMmaSyncDkvWidth alone).  Every score, p, dP, ds and output
+// accumulator lives in registers: a warp owns 16 key rows, an S^T = K . Q^T
+// product comes out as accumulator fragments (thread (g, t) = (lane / 4,
+// lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of each 8-column
+// n-tile), and those fragments are, with no data movement, the A operand
+// of the next products (p^T . dO and ds^T . Q).  Row statistics reduce over
+// the 4 lanes of a row by shuffles.  Q / dO tiles reach shared memory by
+// cp.async through a ring of stages (the copy of tile j + 1 runs while the
+// products of tile j do), with one block barrier per tile; their rows are
+// stored swizzled or padded (sm90_mma.cuh swz), so that every ldmatrix
+// phase reads 8 distinct bank groups.  The softmax runs in base 2 (scores
+// times sm_scale * log2 e, ex2.approx), which is the same function.
 // ---------------------------------------------------------------------------
 // Compile-time settings, measured on phase 5b of chip_smoke.py (which
 // builds variants of them for that measurement only; the port loads the
-// defaults).  At D = 64 the forward holds 16 warps on an SM, dK / dV 12:
-// the register cap of the launch bounds is what lets more than one
-// block in, and occupancy, more than the ring's depth, hides the loads.
-// The D = 64 settings also hold for the narrower widths (32, 48); the
-// wider ones, and W = 64 with D < 64, take no cap (one block per SM at
-// least), so that nothing there spills for want of registers.
-#ifndef FA_FWD_WARPS
-#define FA_FWD_WARPS 8         // forward q rows per block = 16 x warps
-#endif
+// defaults).  At D = 64 dK / dV holds 12 warps on an SM: the register cap
+// of the launch bounds is what lets more than one block in, and
+// occupancy, more than the ring's depth, hides the loads.  The D = 64
+// settings also hold for the narrower widths (32, 48); the wider ones, and
+// W = 64 with D < 64, take no cap (one block per SM at least), so that
+// nothing there spills for want of registers.
 #ifndef FA_STAGES
-#define FA_STAGES 2            // depth of the K / V (forward, dQ) and Q / dO
-#endif                         // (dK / dV) rings; 1 = no copy overlaps
-#ifndef FA_FWD_MINB
-#define FA_FWD_MINB 2          // forward blocks per SM at D = 64
-#endif
+#define FA_STAGES 2            // depth of the Q / dO ring; 1 = no copy
+#endif                         // overlaps
 #ifndef FA_DKV_WARPS
 #define FA_DKV_WARPS 4         // dK / dV key rows per block = 16 x warps
 #endif
@@ -733,7 +724,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #endif
 
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kKeyTile = 64;           // keys per forward k tile
+constexpr int kKeyTile = 64;           // keys a k tile (but the forward's
+                                       // 128-key designs)
 
 // the (W, PART) bodies that take the D = 64 occupancy settings
 __host__ __device__ constexpr bool fa_narrow(int w, bool part) {
@@ -770,206 +762,13 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
   }
 }
 
-// number of 64-key tiles that a q tile of rows [row0, row0 + R) visits
+// number of bn-key tiles that a q tile of rows [row0, row0 + R) visits
 __device__ __forceinline__ int key_tiles(int row0, int R, int s_q, int s_k,
-                                         int causal) {
-  const int n = (s_k + kKeyTile - 1) / kKeyTile;
+                                         int causal, int bn = kKeyTile) {
+  const int n = (s_k + bn - 1) / bn;
   if (!causal) return n;
   const int last = min(row0 + R, s_q) - 1 + (s_k - s_q);
-  return last < 0 ? 0 : min(n, last / kKeyTile + 1);
-}
-
-// Forward, bf16.  A block takes 16 x NW q rows of one (batch, q head);
-// warp w owns rows 16 w .. 16 w + 15 and keeps their Q fragments, S, P and
-// the O accumulator in registers.  The q tiles with the most key tiles are
-// launched first (grid y counts down), so the causal tail is short.  (The
-// segment branch is the wgmma forward's.)
-template <int W, bool PART, int NW, int NS, bool DROP>
-__global__ void __launch_bounds__(NW * 32,
-                                  (fa_narrow(W, PART) ? FA_FWD_MINB : 1))
-fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  View qv, View kv, View vv, View ov, int hq, int hkv,
-                  int s_q, int s_k, int causal, float sm_scale, Dropout dr,
-                  int d) {
-  constexpr int BM = 16 * NW, BN = kKeyTile, NTHR = NW * 32;
-  constexpr int LD = tile_ld<W>();          // row stride of a shared tile
-  constexpr int KS = W / 16;                // k-steps of Q K^T
-  constexpr int NO = W / 8;                 // n-tiles of O
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][W]
-  __nv_bfloat16* k_s = q_s + BM * LD;       // NS x [BN][W]
-  __nv_bfloat16* v_s = k_s + NS * BN * LD;  // NS x [BN][W]
-
-  const int n_qt = (s_q + BM - 1) / BM;
-  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
-  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
-  const int hk = h / (hq / hkv);
-  const int offset = s_k - s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = row0 + warp * 16;        // the warp's first q row
-  const __nv_bfloat16* kb = k + kv.at(b, 0, hk);
-  const __nv_bfloat16* vb = v + vv.at(b, 0, hk);
-  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
-  auto load_kv = [&](int kt) {
-    const int st = kt % NS;
-    copy_rows<W, BN, NTHR, PART>(k_s + st * BN * LD, kb, kv.ss, kt * BN, s_k,
-                                 d);
-    copy_rows<W, BN, NTHR, PART>(v_s + st * BN * LD, vb, vv.ss, kt * BN, s_k,
-                                 d);
-  };
-
-  // group 0: Q and key tile 0; groups 1 .. NS - 2: key tiles 1 .. NS - 2
-  copy_rows<W, BM, NTHR, PART>(q_s, q + qv.at(b, 0, h), qv.ss, row0, s_q, d);
-#pragma unroll
-  for (int s = 0; s < (NS > 1 ? NS - 1 : 1); ++s) {
-    if (s < n_kt) load_kv(s);
-    cp_async_commit();
-  }
-
-  const float scale2 = sm_scale * kLog2e;
-  const float neg2 = kNegInf * kLog2e;      // NEG_INF in base-2 units
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};   // rows g, g + 8 (l: this
-                                                 // lane's columns only)
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if constexpr (NS == 1) {
-      if (kt > 0) {
-        __syncthreads();                    // every warp is done with kt - 1
-        load_kv(kt);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      cp_async_wait<NS - 2>();              // tile kt (and Q) have landed
-      __syncthreads();                      // ... for every thread, and tile
-                                            // kt - 1's stage is free
-      if (kt + NS - 1 < n_kt) load_kv(kt + NS - 1);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* ks = k_s + (kt % NS) * BN * LD;
-    const __nv_bfloat16* vs = v_s + (kt % NS) * BN * LD;
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      unsigned qa[4];                       // reloaded: registers are the
-      load_a<W>(qa, q_s, warp * 16, kk);    // scarcer resource
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        unsigned bf[4];
-        load_bt<W>(bf, ks, np * 16, kk);
-        mma16816(s[2 * np], qa, bf[0], bf[1]);
-        mma16816(s[2 * np + 1], qa, bf[2], bf[3]);
-      }
-    }
-
-    // mask only a tile that crosses the warp's causal frontier or the end
-    // of the keys (its scores are scaled here, and a masked one is NEG_INF
-    // exactly); a full tile stays raw and takes the scale in the exponent's
-    // FFMA (the scale is positive, so the max commutes with it)
-    const int kcol0 = kt * BN;
-    const bool masked = (causal && kcol0 + BN - 1 > wrow + offset) ||
-                        kcol0 + BN > s_k;
-    if (masked) {
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kcol0 + 8 * j + 2 * t + (e & 1);
-          const int row = wrow + g + 8 * (e >> 1);
-          float x = s[j][e] * scale2;
-          if (col >= s_k) x = __int_as_float(0xff800000);   // -inf
-          else if (causal && row + offset < col) x = neg2;
-          s[j][e] = x;
-        }
-    }
-    float mx[2] = {s[0][0], s[0][2]};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    const float sc = masked ? 1.f : scale2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      mx[r] = fmaxf(m[r], mx[r] * sc);
-      const float alpha = fast_exp2(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(fmaf(s[j][e], sc, -m[e >> 1]));
-        l[e >> 1] += p;
-        s[j][e] = p;
-      }
-
-    // O += P V: P (dropped, then rounded to bf16, as the TPU kernel does)
-    // is the A operand straight from the score fragments; each 16-key
-    // group's keep words are drawn here, two calls for its 8 scores
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      if constexpr (DROP)
-        drop_group(dr, s[2 * kk], s[2 * kk + 1],
-                   (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
-                   (unsigned)(b * hq + h));
-      const unsigned pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < W / 16; ++dp) {
-        unsigned bf[4];
-        load_b<W>(bf, vs, kk * 16, dp);
-        mma16816(acc[2 * dp], pa, bf[0], bf[1]);
-        mma16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // finalize: o = acc / l where l > 0 (else 0), lse = m + log(max(l, 1e-30))
-  // into the compact (= TPU-packed) [B*Hq, S_q] row
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    const int row = wrow + g + 8 * r;
-    if (row >= s_q) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* orow = o + ov.at(b, row, h);
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      if (!PART || 8 * n < d)
-        *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) =
-            pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t == 0)
-      lse[((long long)b * hq + h) * s_q + row] =
-          m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
-  }
+  return last < 0 ? 0 : min(n, last / bn + 1);
 }
 
 // dK / dV, bf16.  A block takes 16 x NW key rows of one (batch, kv head)
@@ -1206,8 +1005,8 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma bodies: the bf16 forward of the segment branch, and the bf16 dK /
-// dV and dQ of every launch (but dK / dV without segments at W 160), written
+// The wgmma bodies: the bf16 forward and dQ of every launch, and the bf16
+// dK / dV of every launch but those without segments at W 160, written
 // for Hopper's warpgroups (sm90_wgmma.cuh). A block holds consumer warpgroups
 // of 64 rows each (q rows in the forward and dQ, keys in dK / dV) and one
 // producer warp that keeps the block's ring of tiles full by TMA. The
@@ -1234,9 +1033,9 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // (s_q = s_k with equal ids), so skipping changes no value: after a row's
 // first real score exp(NEG_INF - m) is 0 in f32, and before it the
 // rescale by exp(NEG_INF - m_real) clears whatever masked tiles summed.
-// Without segments only the causal frontier skips, as the mma.sync bodies
-// skip the same tiles.  ops/flash_attention.py segment_tile_plan is the
-// same rule in PyTorch.
+// Without segments only the causal frontier skips (and the end of the keys
+// masks).  ops/flash_attention.py segment_tile_plan is the same rule in
+// PyTorch.
 //
 // The producer streams one entry per loaded tile through the ring: the
 // tile (TMA, counted in bytes on the stage's full barrier), its ids (and,
@@ -1256,12 +1055,6 @@ enum TileClass : int { kTileSkip = 0, kTileFull = 1, kTileMasked = 2 };
 // 64-column panels of a width-W tile
 template <int W>
 __host__ __device__ constexpr int hp_panels() { return (W + 63) / 64; }
-// the forward's ring depth: three tiles up to two panels, else two (the
-// 128-row Q tile and the ring must fit the 227 KB)
-template <int W>
-__host__ __device__ constexpr int hp_fwd_stages() {
-  return hp_panels<W>() <= 2 ? 3 : 2;
-}
 // blocks sharing the output panels of a dK / dV key block, the panels each
 // takes (at most), its streamed q tile and its ring depth.  A consumer
 // holds dK and dV of its panels (64 registers a panel), S^T and dP^T of
@@ -1392,37 +1185,37 @@ __device__ __forceinline__ void tile_ids(float (&id)[N / 32], float& lo,
 }
 
 // The producer warp's stream of the key tiles that q rows [row0, row0 + BM)
-// need, in order (the forward's and dQ's): each tile classed for those rows
-// (tile_class against their ids' [min, max] in range_s; a skipped tile is
-// never loaded), the others loaded into ring stage s once every consumer
-// warp has released it (empty[s]): the K and V panels by TMA, counted on
-// full[s], the tile's ids in ids_s and a {kt, class, end} record in meta;
-// then a record with the end flag.
-template <int BM, int NP, int NS, bool SEG>
+// need, in order (the forward's and dQ's): each BN-key tile classed for
+// those rows (tile_class against their ids' [min, max] in range_s; a
+// skipped tile is never loaded), the others loaded into ring stage `stage`
+// once every consumer warp has released it (empty[stage]): the K and V
+// panels by TMA, counted on full[stage], the tile's ids in ids_s and a
+// {kt, class, end} record in meta; then a record with the end flag.
+// `stage` and `phase` carry the ring's position from one call to the next
+// (the persistent forward streams one q tile after another).
+template <int BM, int BN, int NP, int NS, bool SEG>
 __device__ __forceinline__ void stream_key_tiles(
     const HpMaps& maps, __nv_bfloat16* k_s, __nv_bfloat16* v_s,
     float* ids_s, int* meta, uint64_t* full, uint64_t* empty,
     const float* segb, const float* range_s, int row0, int hk, int b,
-    int s_q, int s_k, int causal) {
-  constexpr int BN = kKeyTile, PK = BN * 64;
+    int s_q, int s_k, int causal, int& stage, unsigned& phase) {
+  constexpr int PK = BN * 64;
   const int lane = threadIdx.x % 32;
   const int offset = s_k - s_q;
   const float rlo = SEG ? range_s[0] : 0.f, rhi = SEG ? range_s[1] : 0.f;
-  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal);
-  int stage = 0;
-  unsigned phase = 0;
+  const int n_kt = key_tiles(row0, BM, s_q, s_k, causal, BN);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int c0 = kt * BN;
-    float id[2] = {0.f, 0.f}, klo = 0.f, khi = 0.f;
+    float id[BN / 32] = {}, klo = 0.f, khi = 0.f;
     if constexpr (SEG) tile_ids<BN>(id, klo, khi, segb, c0, s_k);
     const int cls = tile_class(row0, min(row0 + BM, s_q) - 1, c0, BN, s_k,
                                offset, causal, SEG, rlo, rhi, klo, khi);
     if (cls == kTileSkip) continue;
     mbar_wait(&empty[stage], phase ^ 1);
-    if constexpr (SEG) {
-      ids_s[stage * BN + lane] = id[0];
-      ids_s[stage * BN + 32 + lane] = id[1];
-    }
+    if constexpr (SEG)
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i)
+        ids_s[stage * BN + 32 * i + lane] = id[i];
     if (lane == 0) {
       int* mt = meta + 4 * stage;
       mt[0] = kt;
@@ -1446,266 +1239,364 @@ __device__ __forceinline__ void stream_key_tiles(
   mbar_wait(&empty[stage], phase ^ 1);
   if (lane == 0) meta[4 * stage + 2] = 1;   // the end of the stream
   mbar_arrive(&full[stage]);
+  if (++stage == NS) {
+    stage = 0;
+    phase ^= 1;
+  }
 }
 
-template <int W>
-constexpr int hp_fwd_smem() {
-  constexpr int NP = hp_panels<W>(), NS = hp_fwd_stages<W>();
-  return 1024 + (NP * 128 * 64 + 2 * NS * NP * kKeyTile * 64) * 2 +
-         NS * kKeyTile * 4 + 16 + NS * 16 + (2 * NS + 1) * 8;
-}
+// The forward's block shapes.  A block holds two consumer warpgroups of 64
+// q rows each (BM = 128 q rows of one (batch, q head)) and a producer
+// warpgroup, and streams BN-key tiles through a ring; with PERSIST the
+// grid holds one block per SM, which walks q tiles (fa_fwd_wgmma_kernel).
+// The ring holds as many stages as fit the 227 KB, at most
+// FA_FWD_HP_STAGES (a build setting for timing deeper rings against the
+// shipped 4: chip_smoke.py's FWD_VARIANTS); a consumer holds two of them
+// (the tile it scores and the one whose P V is in flight), so the producer
+// loads NS - 2 tiles ahead.
+// With PERSIST the Q tile is double buffered, so that the next q tile's Q
+// loads during this one's products.
+#ifndef FA_FWD_HP_STAGES
+#define FA_FWD_HP_STAGES 4
+#endif
+template <int W, int BN, bool PERSIST>
+struct HpFwd {
+  static constexpr int NP = hp_panels<W>(), BM = 128;
+  static constexpr int QB = PERSIST ? 2 : 1;         // Q buffers
+  // alignment slack, Q, the rows' ids and the Q barriers; then per stage K,
+  // V, the keys' ids, the record and the two barriers
+  static constexpr int FIXED = 1024 + QB * NP * BM * 128 + 16 + 2 * QB * 8;
+  static constexpr int STAGE = 2 * NP * BN * 128 + BN * 4 + 16 + 2 * 8;
+  static constexpr int FIT = (232448 - FIXED) / STAGE;
+  static constexpr int NS = FIT < FA_FWD_HP_STAGES ? FIT : FA_FWD_HP_STAGES;
+  static constexpr int SMEM = FIXED + NS * STAGE;
+};
 
-// Forward.  A block takes 128 q rows of one (batch, q head); consumer
-// warpgroup w owns rows 64 w .. 64 w + 63, and its warp v rows 16 v ..
-// 16 v + 15 of those, with their S, P and O accumulators in registers.
+// Forward.  A block takes 128 q rows of one (batch, q head) at a time;
+// consumer warpgroup w owns rows 64 w .. 64 w + 63 of them, and its warp v
+// rows 16 v .. 16 v + 15, with their S, P and O accumulators in registers.
 // The tiles are classed for the block's 128 rows (both consumers take
 // every streamed tile, each K / V tile feeds 128 rows), and the producer
 // streams the key tiles that the rows need, in order, so the online
-// softmax sees them as the mma.sync forward does.  Each consumer pipelines
-// them: it issues S = Q K^T of a tile and then P V of the tile before, so
-// that its softmax of the one runs while the tensor cores work on the
-// other, and rescales O once that P V is done.  Every wgmma is issued on
-// every pass (where no tile is pending, P is zero against the resident Q
-// tile), so that none sits on a branch, where the compiler would
-// serialise them.  The q tiles with the most key tiles are launched first.
-template <int W, bool SEG, bool DROP>
+// softmax sees them as the TPU kernel does.  Each consumer pipelines them:
+// it issues S = Q K^T of a tile and then P V of the tile before, so that
+// its softmax of the one runs while the tensor cores work on the other,
+// and rescales O once that P V is done.  Every wgmma is issued on every
+// pass (where no tile is pending, P is zero against the K tile at hand),
+// so that none sits on a branch, where the compiler would serialise them.
+// With DROP each tile's keep bits, one a score, are drawn once its S and
+// the pending P V are issued and before they are waited for (a keep word
+// depends only on the score's coordinates), and applied where p is packed;
+// and the two consumer groups take turns to issue their products.
+// q tiles run longest first: tile i of the order is q tile n_qt - 1 -
+// i / BH of (batch, q head) row i % BH (BH = batch x q heads).  Without
+// PERSIST block i takes tile i; with PERSIST block i takes tiles i, i +
+// grid, i + 2 grid, .., and the producer loads the next tile's Q and K / V
+// while the consumers finish this one.
+template <int W, int BN, bool PERSIST, bool SEG, bool DROP>
 __global__ void __launch_bounds__(kHpThreads, 1)
 fa_fwd_wgmma_kernel(const __grid_constant__ HpMaps maps,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     View ov, int hq, int hkv, int s_q, int s_k, int causal,
                     float sm_scale, Dropout dr, const float* __restrict__ seg,
-                    int d) {
-  constexpr int NP = hp_panels<W>(), NS = hp_fwd_stages<W>();
-  constexpr int BM = 128, BN = kKeyTile, KS = W / 16;
+                    int d, int n_tiles) {
+  using F = HpFwd<W, BN, PERSIST>;
+  static_assert(!(SEG && PERSIST), "segments take a block per q tile");
+  constexpr int NP = F::NP, NS = F::NS, BM = F::BM, QB = F::QB;
+  constexpr int KS = W / 16;
+  static_assert(NS >= 2, "a consumer holds two stages of the ring");
   constexpr int PQ = BM * 64, PK = BN * 64;  // elements of a Q / K panel
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);  // NP x PQ
-  __nv_bfloat16* k_s = q_s + NP * PQ;       // NS x NP x PK
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);  // QB x NP x PQ
+  __nv_bfloat16* k_s = q_s + QB * NP * PQ;  // NS x NP x PK
   __nv_bfloat16* v_s = k_s + NS * NP * PK;  // NS x NP x PK
   float* ids_s = reinterpret_cast<float*>(v_s + NS * NP * PK);  // NS x BN
   float* range_s = ids_s + NS * BN;         // the rows' ids [2]
   int* meta = reinterpret_cast<int*>(range_s + 4);  // NS x {kt, class, end}
   uint64_t* full = reinterpret_cast<uint64_t*>(meta + 4 * NS);
   uint64_t* empty = full + NS;
-  uint64_t* qbar = empty + NS;
+  uint64_t* qfull = empty + NS;             // QB
+  uint64_t* qempty = qfull + QB;            // QB
 
-  const int n_qt = (s_q + BM - 1) / BM;
-  const int row0 = (n_qt - 1 - blockIdx.y) * BM;
-  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
-  const int hk = h / (hq / hkv);
+  const int n_qt = (s_q + BM - 1) / BM, n_bh = n_tiles / n_qt;
   const int offset = s_k - s_q;
-  const float* segb = SEG ? seg + (long long)b * s_k : nullptr;
+  auto tile_at = [&](int tile, int& row0, int& h, int& b) {
+    row0 = (n_qt - 1 - tile / n_bh) * BM;
+    h = tile % n_bh % hq;
+    b = tile % n_bh / hq;
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS; ++s) {
       mbar_init(&full[s], 32);
       mbar_init(&empty[s], 8);
     }
-    mbar_init(qbar, 1);
+    for (int q = 0; q < QB; ++q) {
+      mbar_init(&qfull[q], 1);
+      mbar_init(&qempty[q], 8);
+    }
     mbar_fence_init();
   }
   if constexpr (SEG)
-    if (threadIdx.x < 32) seg_range<BM>(range_s, segb, row0, s_q);
+    if (threadIdx.x < 32) {
+      int row0, h, b;
+      tile_at(blockIdx.x, row0, h, b);
+      seg_range<BM>(range_s, seg + (long long)b * s_k, row0, s_q);
+    }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // producer: warp 8 loads Q, then classifies and streams the key tiles
-    // that the rows need
+    // producer: one warp loads each q tile's Q, then classifies and
+    // streams the key tiles that its rows need
     regs_dealloc<kHpProducerRegs>();
     if (threadIdx.x >= 256 + 32) return;
     const int lane = threadIdx.x % 32;
-    if (lane == 0) {
-      mbar_arrive_tx(qbar, NP * PQ * 2);
-      for (int p = 0; p < NP; ++p)
-        tma_load(q_s + p * PQ, &maps.q, qbar, 64 * p, row0, h, b);
+    int stage = 0;
+    unsigned phase = 0;
+    for (int it = 0, tile = blockIdx.x; tile < n_tiles;
+         ++it, tile += gridDim.x) {
+      int row0, h, b;
+      tile_at(tile, row0, h, b);
+      const int qb = it % QB;
+      mbar_wait(&qempty[qb], ((it / QB) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(&qfull[qb], NP * PQ * 2);
+        for (int p = 0; p < NP; ++p)
+          tma_load(q_s + (qb * NP + p) * PQ, &maps.q, &qfull[qb], 64 * p,
+                   row0, h, b);
+      }
+      stream_key_tiles<BM, BN, NP, NS, SEG>(
+          maps, k_s, v_s, ids_s, meta, full, empty,
+          SEG ? seg + (long long)b * s_k : nullptr, range_s, row0,
+          h / (hq / hkv), b, s_q, s_k, causal, stage, phase);
     }
-    stream_key_tiles<BM, NP, NS, SEG>(maps, k_s, v_s, ids_s, meta, full,
-                                      empty, segb, range_s, row0, hk, b, s_q,
-                                      s_k, causal);
   } else {
     regs_alloc<kHpConsumerRegs>();
     const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
     const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-    const int wrow = row0 + 64 * wg + 16 * warp;   // the warp's first q row
     const float scale2 = sm_scale * kLog2e;
     const float neg2 = kNegInf * kLog2e;
-    float rid[2] = {0.f, 0.f};                // ids of rows g, g + 8
-    if constexpr (SEG)
-      for (int r = 0; r < 2; ++r) rid[r] = segb[min(wrow + g + 8 * r, s_k - 1)];
-    float acc[NP][8][4];
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
-    float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};
-    // the pending tile: its P (zero while none is) and its V panels (the
-    // Q tile while none is: any finite tile of that shape)
-    unsigned pa[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
-    const __nv_bfloat16* qw = q_s + 64 * 64 * wg;  // the group's Q rows
-    const __nv_bfloat16* vp = q_s;
-    int vpanel = PQ;                          // elements between its panels
-    int pend = -1;                            // its stage (-1: none)
-    auto issue_pv = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-          wgmma_rs(acc[p], pa[kk], desc_mn(vp + p * vpanel, kk));
-    };
-    mbar_wait(qbar, 0);
-
+    // Under DROP the two groups take turns to issue their products (named
+    // barriers 1 and 2), so that one group's keep bits and softmax run
+    // while the other's products do: 7% off 3d's forward at rate 0.1; at
+    // rate 0 turns measured within 1.5% either way (PERF.md §6)
+    constexpr bool kTurns = DROP;
+    if (kTurns && wg == 1) bar_arrive(1, 256);   // group 0 issues first
     int stage = 0;
     unsigned phase = 0;
-    for (;;) {
-      mbar_wait(&full[stage], phase);
-      const int* mt = meta + 4 * stage;
-      if (mt[2]) break;
-      const int kcol0 = mt[0] * BN;
-      const bool masked = mt[1] == kTileMasked;
-      const __nv_bfloat16* ks = k_s + stage * NP * PK;
-      float s[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      fence_acc(s);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        wgmma_ss(s, desc_k(qw + (kk / 4) * PQ, kk % 4),
-                 desc_k(ks + (kk / 4) * PK, kk % 4), kk > 0);
-      wgmma_commit();
-      issue_pv();                             // the pending tile's P V
-      wgmma_commit();
-      wgmma_wait<1>();                        // S has landed, P V runs on
-      fence_acc(s);
-
-      // a masked tile's scores are scaled here (a masked one is NEG_INF
-      // exactly, -inf past the keys); a full tile stays raw and takes the
-      // scale in the exponent's FFMA
-      if (masked) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float2 kid = make_float2(0.f, 0.f);
-          if constexpr (SEG)
-            kid = *reinterpret_cast<const float2*>(ids_s + stage * BN + 8 * j +
-                                                   2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = kcol0 + 8 * j + 2 * t + (e & 1);
-            const int row = wrow + g + 8 * (e >> 1);
-            float x = s[j][e] * scale2;
-            if (col >= s_k) x = __int_as_float(0xff800000);
-            else if (causal && row + offset < col) x = neg2;
-            else if (SEG && rid[e >> 1] != ((e & 1) ? kid.y : kid.x))
-              x = neg2;
-            s[j][e] = x;
-          }
-        }
-      }
-      float mx[2] = {s[0][0], s[0][2]};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-      }
-      const float sc = masked ? 1.f : scale2;
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-        mx[r] = fmaxf(m[r], mx[r] * sc);
-        alpha[r] = fast_exp2(m[r] - mx[r]);
-        m[r] = mx[r];
-        l[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = fast_exp2(fmaf(s[j][e], sc, -m[e >> 1]));
-          l[e >> 1] += p;
-          s[j][e] = p;
-        }
-      wgmma_wait<0>();                        // the pending P V is done
-#pragma unroll
-      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
-      fence_frag(pa);
-      __syncwarp();
-      if (pend >= 0 && lane == 0) mbar_arrive(&empty[pend]);
+    for (int it = 0, tile = blockIdx.x; tile < n_tiles;
+         ++it, tile += gridDim.x) {
+      int row0, h, b;
+      tile_at(tile, row0, h, b);
+      const int qb = it % QB;
+      const int wrow = row0 + 64 * wg + 16 * warp;  // the warp's first q row
+      const unsigned bhq = (unsigned)(b * hq + h);
+      float rid[2] = {0.f, 0.f};              // ids of rows g, g + 8
+      if constexpr (SEG)
+        for (int r = 0; r < 2; ++r)
+          rid[r] = seg[(long long)b * s_k + min(wrow + g + 8 * r, s_k - 1)];
+      float acc[NP][8][4];
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            acc[p][j][2 * r] *= alpha[r];
-            acc[p][j][2 * r + 1] *= alpha[r];
-          }
-      // P (dropped, then rounded to bf16, as the TPU kernel does) is the A
-      // operand of this tile's P V, straight from the score fragments
+          for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+      float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};
+      // the pending tile: its P (zero while none is) and its V panels (while
+      // none is, the K tile at hand, or any tile when the rows see no key:
+      // their l stays 0 and the epilogue writes zeros)
+      unsigned pa[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        if constexpr (DROP)
-          drop_group(dr, s[2 * kk], s[2 * kk + 1],
-                     (unsigned)(kcol0 / 16 + kk) * 4u + t, wrow + g,
-                     (unsigned)(b * hq + h));
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      }
-      pend = stage;
-      vp = v_s + stage * NP * PK;
-      vpanel = PK;
-      if (++stage == NS) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-    for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
-    wgmma_fence();
-    issue_pv();                               // the last tile's P V
-    wgmma_commit();
-    wgmma_wait<0>();
+        for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
+      const __nv_bfloat16* qw = q_s + qb * NP * PQ + 64 * 64 * wg;
+      const __nv_bfloat16* vp = k_s;
+      int pend = -1;                          // its stage (-1: none)
+      auto issue_pv = [&]() {
 #pragma unroll
-    for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
-    fence_frag(pa);
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            wgmma_rs(acc[p], pa[kk], desc_mn(vp + p * PK, kk));
+      };
+      mbar_wait(&qfull[qb], (it / QB) & 1);
 
-    // finalize: o = acc / l where l > 0 (else 0), lse = m + log(max(l,
-    // 1e-30)) into the compact (= TPU-packed) [B*Hq, S_q] row
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(kFull, l[r], 1);
-      l[r] += __shfl_xor_sync(kFull, l[r], 2);
-      const int row = wrow + g + 8 * r;
-      if (row >= s_q) continue;
-      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-      __nv_bfloat16* orow = o + ov.at(b, row, h);
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = 64 * p + 8 * j + 2 * t;
-          if (col < d)
-            *reinterpret_cast<unsigned*>(orow + col) =
-                pack_bf16(acc[p][j][2 * r] * inv, acc[p][j][2 * r + 1] * inv);
+      for (;;) {
+        mbar_wait(&full[stage], phase);
+        const int* mt = meta + 4 * stage;
+        const bool end = mt[2] != 0;
+        const int kcol0 = mt[0] * BN;
+        const bool masked = mt[1] == kTileMasked;
+        __syncwarp();
+        if (end) {                            // release the end record
+          if (lane == 0) mbar_arrive(&empty[stage]);
+          if (++stage == NS) {
+            stage = 0;
+            phase ^= 1;
+          }
+          break;
         }
-      if (t == 0)
-        lse[((long long)b * hq + h) * s_q + row] =
-            m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
+        const __nv_bfloat16* ks = k_s + stage * NP * PK;
+        if (pend < 0) vp = ks;
+        float s[BN / 8][4];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        fence_acc(s);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+        if (kTurns) bar_sync(1 + wg, 256);    // this group's turn
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss(s, desc_k(qw + (kk / 4) * PQ, kk % 4),
+                   desc_k(ks + (kk / 4) * PK, kk % 4), kk > 0);
+        wgmma_commit();
+        issue_pv();                           // the pending tile's P V
+        wgmma_commit();
+        if (kTurns) bar_arrive(2 - wg, 256);  // the other group's turn
+        // the tile's keep bits (DROP), drawn while S and the pending P V
+        // run: bit 4 (j % 8) + e of kb[j / 8] is element e of n-tile j
+        unsigned kb[BN / 64];
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c) {
+          kb[c] = 0u;
+          if constexpr (DROP) {
+            kb[c] = keep_bits_rows<4>(dr, (unsigned)(kcol0 / 16 + 4 * c) * 4u +
+                                              t,
+                                      wrow + g, bhq);
+            fence_reg(kb[c]);
+          }
+        }
+        wgmma_wait<1>();                      // S has landed, P V runs on
+        fence_acc(s);
+
+        // a masked tile's scores are scaled here (a masked one is NEG_INF
+        // exactly, -inf past the keys); a full tile stays raw and takes the
+        // scale in the exponent's FFMA
+        if (masked) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            float2 kid = make_float2(0.f, 0.f);
+            if constexpr (SEG)
+              kid = *reinterpret_cast<const float2*>(ids_s + stage * BN +
+                                                     8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = kcol0 + 8 * j + 2 * t + (e & 1);
+              const int row = wrow + g + 8 * (e >> 1);
+              float x = s[j][e] * scale2;
+              if (col >= s_k) x = __int_as_float(0xff800000);
+              else if (causal && row + offset < col) x = neg2;
+              else if (SEG && rid[e >> 1] != ((e & 1) ? kid.y : kid.x))
+                x = neg2;
+              s[j][e] = x;
+            }
+          }
+        }
+        float mx[2] = {s[0][0], s[0][2]};
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        }
+        const float sc = masked ? 1.f : scale2;
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+          mx[r] = fmaxf(m[r], mx[r] * sc);
+          alpha[r] = fast_exp2(m[r] - mx[r]);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = fast_exp2(fmaf(s[j][e], sc, -m[e >> 1]));
+            l[e >> 1] += p;
+            s[j][e] = DROP ? kept(dr, kb[j / 8], 4 * (j % 8) + e, p) : p;
+          }
+        wgmma_wait<0>();                      // the pending P V is done
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+        fence_frag(pa);
+        __syncwarp();
+        if (pend >= 0 && lane == 0) mbar_arrive(&empty[pend]);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              acc[p][j][2 * r] *= alpha[r];
+              acc[p][j][2 * r + 1] *= alpha[r];
+            }
+        // P (dropped, then rounded to bf16, as the TPU kernel does) is the
+        // A operand of this tile's P V, straight from the score fragments
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+          pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+          pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        }
+        pend = stage;
+        vp = v_s + stage * NP * PK;
+        if (++stage == NS) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+      wgmma_fence();
+      issue_pv();                             // the last tile's P V
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_acc(acc[p]);
+      fence_frag(pa);
+      // the last V tile and the Q tile are free for the producer's next ones
+      __syncwarp();
+      if (lane == 0) {
+        if (pend >= 0) mbar_arrive(&empty[pend]);
+        mbar_arrive(&qempty[qb]);
+      }
+
+      // finalize: o = acc / l where l > 0 (else 0), lse = m + log(max(l,
+      // 1e-30)) into the compact (= TPU-packed) [B*Hq, S_q] row
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(kFull, l[r], 1);
+        l[r] += __shfl_xor_sync(kFull, l[r], 2);
+        const int row = wrow + g + 8 * r;
+        if (row >= s_q) continue;
+        const bool any = l[r] > 0.f;
+        const float inv = any ? 1.f / l[r] : 0.f;
+        __nv_bfloat16* orow = o + ov.at(b, row, h);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * p + 8 * j + 2 * t;
+            if (col < d)
+              *reinterpret_cast<unsigned*>(orow + col) =
+                  any ? pack_bf16(acc[p][j][2 * r] * inv,
+                                  acc[p][j][2 * r + 1] * inv)
+                      : 0u;
+          }
+        if (t == 0)
+          lse[((long long)b * hq + h) * s_q + row] =
+              m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
+      }
     }
   }
 }
@@ -2211,9 +2102,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ HpMaps maps,
         tma_load(do_s + p * PQ, &maps.dout, qbar, 64 * p, row0, h, b);
       }
     }
-    stream_key_tiles<BM, NP, NS, SEG>(maps, k_s, v_s, ids_s, meta, full,
-                                      empty, segb, range_s, row0, hk, b, s_q,
-                                      s_k, causal);
+    int stage = 0;
+    unsigned phase = 0;
+    stream_key_tiles<BM, BN, NP, NS, SEG>(maps, k_s, v_s, ids_s, meta, full,
+                                          empty, segb, range_s, row0, hk, b,
+                                          s_q, s_k, causal, stage, phase);
   } else {
     regs_alloc<kHpConsumerRegs>();
     const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
@@ -2440,10 +2333,6 @@ constexpr int dq_smem() {
 }
 
 template <int W>
-constexpr int fwd_mma_smem() {
-  return (16 * FA_FWD_WARPS + 2 * FA_STAGES * kKeyTile) * tile_ld<W>() * 2;
-}
-template <int W>
 constexpr int dkv_bq() { return W <= 64 ? FA_DKV_BQ64 : 32; }
 template <int W>
 constexpr int dkv_mma_smem() {
@@ -2470,12 +2359,79 @@ constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 #endif
 constexpr bool kMmaSyncDkvWidth(int w) { return w == FA_DKV_MMA_SYNC_W; }
 
-// The launches that take the wgmma bodies, per row: the forward's bf16
-// segment branch; every bf16 dQ launch; every bf16 dK / dV launch but,
-// without segments, the widths of kMmaSyncDkvWidth.  The other bf16
-// launches take mma.sync.
-template <typename T, bool SEG>
-constexpr bool kWgmmaFwd = kTensorCores<T> && SEG;
+// the SMs of the current device (the persistent forward's grid), read once
+// per device
+inline int sm_count() {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int n = cached[dev & 63].load(std::memory_order_relaxed);
+  if (n == 0 &&
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess)
+    cached[dev & 63].store(n, std::memory_order_relaxed);
+  return n;
+}
+
+// The forward's designs (HpFwd), numbered by two bits: 1 = 128 keys a tile
+// (else 64), 2 = a persistent grid (else a block per q tile).  The segment
+// branch takes design 0 at every launch; a launch without segments takes
+// the one that fwd_design picks from its shape.
+constexpr int kFwdKeys128 = 1, kFwdPersistent = 2, kFwdDesigns = 4;
+constexpr int fwd_keys(int ds) { return ds & kFwdKeys128 ? 128 : 64; }
+constexpr bool fwd_persistent(int ds) { return (ds & kFwdPersistent) != 0; }
+// whether design ds can run at width W: a ring of two stages at least (a
+// consumer holds two), and 128-key tiles only up to one 64-column panel,
+// where a consumer's 64 scores, 32 of O and 32 of packed P fit its
+// registers beside the pending tile's
+template <int W, int DS>
+constexpr bool fwd_fits() {
+  return (fwd_keys(DS) == 64 || W <= 64) &&
+         HpFwd<W, fwd_keys(DS), fwd_persistent(DS)>::NS >= 2;
+}
+// -1: fwd_design picks; a design's number: every launch without segments
+// takes it where it fits (a build for timing the designs against each
+// other; the port loads the default)
+#ifndef FA_FWD_HP_DESIGN
+#define FA_FWD_HP_DESIGN -1
+#endif
+// the persistent design at width W: 128-key tiles where they fit
+template <int W>
+constexpr int kFwdPersistentAt =
+    fwd_fits<W, kFwdPersistent | kFwdKeys128>() ? kFwdPersistent | kFwdKeys128
+                                                : kFwdPersistent;
+// the designs that fwd_design may pick at width W, and so are compiled
+template <int W, int DS>
+constexpr bool fwd_built() {
+  if (DS == 0) return true;
+  if (FA_FWD_HP_DESIGN >= 0) return DS == FA_FWD_HP_DESIGN && fwd_fits<W, DS>();
+  return DS == kFwdPersistentAt<W> && fwd_fits<W, DS>();
+}
+template <int W, int... DS>
+bool fwd_built_at(int ds, std::integer_sequence<int, DS...>) {
+  return ((ds == DS && fwd_built<W, DS>()) || ...);
+}
+// The design of a forward launch at width W without segments: the
+// persistent grid (128-key tiles up to W 64) where the launch has more q
+// tiles than the card has SMs and its ring fits (not at W 256, where two
+// Q buffers leave room for one stage), else a block per q tile.
+template <int W>
+int fwd_design(const Geometry& g, bool seg) {
+  constexpr auto all = std::make_integer_sequence<int, kFwdDesigns>{};
+  if (seg) return 0;
+  if (FA_FWD_HP_DESIGN >= 0 && fwd_built_at<W>(FA_FWD_HP_DESIGN, all))
+    return FA_FWD_HP_DESIGN;
+  const long long tiles = (long long)g.batch * g.hq * ((g.s_q + 127) / 128);
+  return fwd_built<W, kFwdPersistentAt<W>>() && tiles > sm_count()
+             ? kFwdPersistentAt<W>
+             : 0;
+}
+
+// The launches that take the wgmma bodies, per row: every bf16 forward and
+// dQ launch; every bf16 dK / dV launch but, without segments, the widths
+// of kMmaSyncDkvWidth.  The other bf16 launches take mma.sync.
+template <typename T>
+constexpr bool kWgmmaFwd = kTensorCores<T>;
 template <typename T, int W, bool SEG>
 constexpr bool kWgmmaDkv = kTensorCores<T> && (SEG || !kMmaSyncDkvWidth(W));
 
@@ -2483,28 +2439,31 @@ constexpr bool kWgmmaDkv = kTensorCores<T> && (SEG || !kMmaSyncDkvWidth(W));
 template <typename T, int W, bool PART, bool SEG, bool DROP>
 struct Variant {};
 
-template <int W, bool SEG, bool DROP>
+template <int W, int BN, bool PERSIST, bool SEG, bool DROP>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                       float* lse, const long long* st, const Geometry& g,
                       const Dropout& dr, const float* seg,
                       cudaStream_t stream) {
+  using F = HpFwd<W, BN, PERSIST>;
   HpMaps maps{};
   cudaError_t err =
-      tile_map(&maps.q, q, st, g.batch, g.s_q, g.hq, g.d, 128);
+      tile_map(&maps.q, q, st, g.batch, g.s_q, g.hq, g.d, F::BM);
   if (err == cudaSuccess)
-    err = tile_map(&maps.k, k, st + 3, g.batch, g.s_k, g.hkv, g.d, kKeyTile);
+    err = tile_map(&maps.k, k, st + 3, g.batch, g.s_k, g.hkv, g.d, BN);
   if (err == cudaSuccess)
-    err = tile_map(&maps.v, v, st + 6, g.batch, g.s_k, g.hkv, g.d, kKeyTile);
+    err = tile_map(&maps.v, v, st + 6, g.batch, g.s_k, g.hkv, g.d, BN);
   if (err != cudaSuccess) return err;
-  constexpr int smem = hp_fwd_smem<W>();
-  const auto kernel = fa_fwd_wgmma_kernel<W, SEG, DROP>;
+  const auto kernel = fa_fwd_wgmma_kernel<W, BN, PERSIST, SEG, DROP>;
   static std::atomic<unsigned long long> done{0};
-  err = allow_smem(done, kernel, smem);
+  err = allow_smem(done, kernel, F::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(g.hq * g.batch, (g.s_q + 127) / 128);
-  kernel<<<grid, kHpThreads, smem, stream>>>(
+  const int n_tiles = g.batch * g.hq * ((g.s_q + F::BM - 1) / F::BM);
+  const int sms = PERSIST ? sm_count() : 0;
+  const int grid = PERSIST && sms < n_tiles ? sms : n_tiles;
+  if (grid <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid, kHpThreads, F::SMEM, stream>>>(
       maps, static_cast<__nv_bfloat16*>(o), lse, view_at(st, 3), g.hq, g.hkv,
-      g.s_q, g.s_k, g.causal, g.sm_scale, dr, seg, g.d);
+      g.s_q, g.s_k, g.causal, g.sm_scale, dr, seg, g.d, n_tiles);
   return cudaGetLastError();
 }
 
@@ -2567,28 +2526,44 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the launch of design DS of the forward, where it is built (the segment
+// branch: design 0 alone)
+template <int W, bool SEG, bool DROP, int DS>
+cudaError_t fwd_design_launch(const void* q, const void* k, const void* v,
+                              void* o, float* lse, const long long* st,
+                              const Geometry& g, const Dropout& dr,
+                              const float* seg, cudaStream_t stream) {
+  if constexpr (fwd_built<W, DS>() && (!SEG || DS == 0))
+    return fwd_wgmma<W, fwd_keys(DS), fwd_persistent(DS), SEG, DROP>(
+        q, k, v, o, lse, st, g, dr, seg, stream);
+  else
+    return cudaErrorInvalidValue;
+}
+
+template <int W, bool SEG, bool DROP, int... DS>
+cudaError_t fwd_any_design(int ds, std::integer_sequence<int, DS...>,
+                           const void* q, const void* k, const void* v,
+                           void* o, float* lse, const long long* st,
+                           const Geometry& g, const Dropout& dr,
+                           const float* seg, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((ds == DS &&
+          ((err = fwd_design_launch<W, SEG, DROP, DS>(q, k, v, o, lse, st, g,
+                                                      dr, seg, stream)),
+           true)) ||
+         ...);
+  return err;
+}
+
 template <typename T, int W, bool PART, bool SEG, bool DROP>
 cudaError_t fwd(Variant<T, W, PART, SEG, DROP>, const void* q, const void* k,
                 const void* v, void* o, float* lse, const long long* st,
                 const Geometry& g, const Dropout& dr, const float* seg,
                 cudaStream_t stream) {
-  if constexpr (kWgmmaFwd<T, SEG>) {
-    return fwd_wgmma<W, SEG, DROP>(q, k, v, o, lse, st, g, dr, seg, stream);
-  } else if constexpr (kTensorCores<T>) {
-    constexpr int rows = 16 * FA_FWD_WARPS;
-    constexpr int smem = fwd_mma_smem<W>();
-    const auto kernel =
-        fa_fwd_mma_kernel<W, PART, FA_FWD_WARPS, FA_STAGES, DROP>;
-    static std::atomic<unsigned long long> done{0};
-    cudaError_t err = allow_smem(done, kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(g.hq * g.batch, (g.s_q + rows - 1) / rows);
-    kernel<<<grid, 32 * FA_FWD_WARPS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, view_at(st, 0),
-        view_at(st, 1), view_at(st, 2), view_at(st, 3), g.hq, g.hkv, g.s_q,
-        g.s_k, g.causal, g.sm_scale, dr, g.d);
-    return cudaGetLastError();
+  if constexpr (kWgmmaFwd<T>) {
+    return fwd_any_design<W, SEG, DROP>(
+        fwd_design<W>(g, SEG), std::make_integer_sequence<int, kFwdDesigns>{},
+        q, k, v, o, lse, st, g, dr, seg, stream);
   } else {
     constexpr int TR = f32_rows<W>();
     const dim3 grid((g.s_q + TR - 1) / TR, g.hq, g.batch);
@@ -2689,10 +2664,16 @@ inline bool valid(const Geometry& g, const void* seg) {
 template <typename T, int W, bool PART, bool SEG, bool DROP>
 int body_of(int which, Variant<T, W, PART, SEG, DROP>) {
   if constexpr (!kTensorCores<T>) return 0;
-  const bool wgmma = which == 0   ? kWgmmaFwd<T, SEG>
+  const bool wgmma = which == 0   ? kWgmmaFwd<T>
                      : which == 1 ? kWgmmaDkv<T, W, SEG>
                                   : true;
   return wgmma ? 2 : 1;
+}
+
+template <typename T, int W, bool PART, bool SEG, bool DROP>
+int fwd_design_of(Variant<T, W, PART, SEG, DROP>, const Geometry& g,
+                  bool seg) {
+  return fwd_design<W>(g, seg);
 }
 
 // f(Variant<...>{}) for the instantiation a launch at width W takes: dtype
@@ -2797,6 +2778,21 @@ extern "C" int flash_attention_bwd_dq_launch(
       head_dim, dtype, sg != nullptr, thresh != 0, [&](auto var) {
         return bwd_dq(var, q, k, v, dout, l, dl, dq, strides, g, dr, sg, s);
       });
+}
+
+// the design (kFwdKeys128 | kFwdPersistent bits) that a bf16 forward
+// launch of this geometry takes, -1 for a head dim this library does not
+// hold
+extern "C" int flash_attention_fwd_design(int batch, int hq, int s_q,
+                                          int s_k, int head_dim, int causal,
+                                          int seg) {
+  const Geometry g{batch, hq, hq, s_q, s_k, causal, head_dim, 1.f};
+  int design = -1;
+  at_width<FA_TU_WIDTHS>(head_dim, 1, seg != 0, false, [&](auto var) {
+    design = fwd_design_of(var, g, seg != 0);
+    return cudaSuccess;
+  });
+  return design;
 }
 
 // which body a launch of `which` (0 forward, 1 dK / dV, 2 dQ) takes

@@ -76,11 +76,11 @@ __device__ __forceinline__ float kept(const Dropout& dr, unsigned bits, int i,
 }
 
 // The keep bits of NG 16-key groups of a fragment whose rows are q rows
-// (the wgmma dQ's; m16n8k16's layout per 8-column n-tile): bit 4 j + e is
-// element e of n-tile j (q row `row` + 8 (e >> 1), key column 8 j + 2t +
-// (e & 1)), so byte kk holds group kk's 8 scores.  Two calls a group, of
-// rows `row` and `row` + 8, with `cell0` = the first group's 4 (col / 16)
-// + t.
+// (the wgmma forward's and dQ's; m16n8k16's layout per 8-column n-tile):
+// bit 4 j + e is element e of n-tile j (q row `row` + 8 (e >> 1), key
+// column 8 j + 2t + (e & 1)), so byte kk holds group kk's 8 scores.  Two
+// calls a group, of rows `row` and `row` + 8, with `cell0` = the first
+// group's 4 (col / 16) + t.
 template <int NG>
 __device__ __forceinline__ unsigned keep_bits_rows(const Dropout& dr,
                                                    unsigned cell0, int row,
@@ -123,23 +123,6 @@ __device__ __forceinline__ unsigned keep_bits_cols(const Dropout& dr,
   const unsigned a = odd ? other : own, b = odd ? own : other;
   const unsigned s = odd ? 1u : 0u;
   return ((a >> s) & 0x55555555u) | ((b >> s) & 0x55555555u) << 1;
-}
-
-// A 16-key group of an m16n8k16 accumulator fragment whose rows are q rows:
-// a and b are n-tiles 2np and 2np + 1 (elements 0, 1 at q row `row`, 2, 3
-// at row + 8; columns 2t + (e & 1) and 8 + 2t + (e & 1) of the group); each
-// value becomes x * scale where kept, else 0.  Two calls for 8 scores.
-__device__ __forceinline__ void drop_group(const Dropout& dr, float a[4],
-                                           float b[4], unsigned cell, int row,
-                                           unsigned bhq) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const uint4 w = dropout_words(dr, cell, row + 8 * r, bhq);
-    a[2 * r] = dropped(dr, w.x, a[2 * r]);
-    a[2 * r + 1] = dropped(dr, w.y, a[2 * r + 1]);
-    b[2 * r] = dropped(dr, w.z, b[2 * r]);
-    b[2 * r + 1] = dropped(dr, w.w, b[2 * r + 1]);
-  }
 }
 
 }  // namespace

@@ -75,7 +75,8 @@ __all__ = ["HEAD_WIDTHS", "NEG_INF", "dropout_keep", "head_width", "dropout_scal
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
            "kernel_body", "pack_lse", "pack_lse_ref", "philox4x32_10",
            "segment_tile_plan", "segment_tiles", "TILE_SKIP", "TILE_FULL",
-           "TILE_MASKED"]
+           "TILE_MASKED", "FWD_DESIGNS", "fwd_tile_order",
+           "kernel_fwd_design"]
 
 NEG_INF = -1e30
 
@@ -481,9 +482,11 @@ def segment_tiles(which, head_dim):
     "bwd_dq") at ``head_dim``, with or without segments: the q rows and
     keys of the tile pairs it classes (:func:`segment_tile_plan`), as
     ``csrc/flash_attention.cuh`` sizes them from the head width W.  The
-    forward classes 128 q rows against 64 keys; dK/dV a q tile of 64 rows
-    (32 above W 64) against each consumer's 64 keys; dQ 128 q rows (64
-    above W 128, where a block holds 64 rows) against 64 keys."""
+    forward's segment branch classes 128 q rows against 64 keys (without
+    segments, the design of the launch: :func:`kernel_fwd_design`); dK/dV
+    a q tile of 64 rows (32 above W 64) against each consumer's 64 keys; dQ
+    128 q rows (64 above W 128, where a block holds 64 rows) against 64
+    keys."""
     w = head_width(head_dim)
     if w is None or which not in ("fwd", "bwd_dkv", "bwd_dq"):
         raise ValueError(f"no segment body {which!r} at head dim {head_dim}")
@@ -491,15 +494,50 @@ def segment_tiles(which, head_dim):
             "bwd_dq": (128 if w <= 128 else 64, 64)}[which]
 
 
+# The bf16 forward's designs, numbered as ``csrc/flash_attention.cuh``
+# numbers them, by two bits (1: 128 keys a tile, else 64; 2: a persistent
+# grid): (q rows a block, keys a tile, persistent grid).  A block holds 128
+# q rows in two consumer groups, one block an SM; a persistent grid holds
+# one block an SM, which walks the q tiles (:func:`fwd_tile_order`).
+FWD_DESIGNS = tuple((128, 128 if ds & 1 else 64, bool(ds & 2))
+                    for ds in range(4))
+
+
+def fwd_tile_order(batch_heads, s_q, bq, blocks=None):
+    """The q tiles each block of the forward takes, in order: one list per
+    block of (batch x q-head row, q tile index).  Tile i of the launch is q
+    tile n_qt - 1 - i // BH of row i % BH (the tiles with the most key
+    tiles first, when causal); block j takes tile j, or with a persistent
+    grid of ``blocks`` blocks tiles j, j + blocks, j + 2 blocks, ..."""
+    n_qt = -(-s_q // bq)
+    n = batch_heads * n_qt
+    step = n if blocks is None else blocks
+    return [[(i % batch_heads, n_qt - 1 - i // batch_heads)
+             for i in range(j, n, step)] for j in range(min(step, n))]
+
+
+def kernel_fwd_design(batch, hq, s_q, s_k, head_dim, causal, segments):
+    """The design (an index of :data:`FWD_DESIGNS`) that the library's
+    dispatch gives a bf16 forward launch (the C entry
+    ``flash_attention_fwd_design``, which picks it from the launch's q
+    tiles against the card's SMs and the rings that fit its width)."""
+    fn = getattr(_build.library(_build.width_library(
+        "flash_attention", head_width(head_dim))),
+        "flash_attention_fwd_design")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7
+    return fn(batch, hq, s_q, s_k, head_dim, int(bool(causal)),
+              int(bool(segments)))
+
+
 def kernel_body(which, dtype, head_dim, segments, dropout):
     """The body that a launch of ``which`` ("fwd", "bwd_dkv" or "bwd_dq")
     takes on the card for q's ``dtype``, ``head_dim`` and the two branches
     (``segments``, ``dropout``: bools): "cuda cores" (f32), "mma.sync" or
-    "wgmma".  In bf16, at every head dim: the forward takes wgmma with
-    segments and mma.sync without; dK/dV and dQ take wgmma with or without
-    segments and dropout, but for dK/dV without segments at width 160
-    (head dims 136-160), with or without dropout, which keeps mma.sync,
-    where it measured faster.  Read from the library's own dispatch (the C entry
+    "wgmma".  In bf16, at every head dim: the forward and dQ take wgmma
+    with or without segments and dropout; dK/dV too, but for dK/dV without
+    segments at width 160 (head dims 136-160), with or without dropout,
+    which keeps mma.sync, where it measured faster.  Read from the library's own dispatch (the C entry
     ``flash_attention_body``, per launch), so it names what the launch
     runs."""
     code = getattr(_build.library(_build.width_library(

@@ -454,9 +454,9 @@ WGMMA_BWD_CARD_CASES = [((2, 256, 256, 4, 4, 40), False, 0.0),
 
 @pytest.mark.cuda
 def test_wgmma_backward_matches_plain_versions_on_card():
-    """Each bf16 launch's body (``kernel_body``): dK/dV and dQ wgmma
-    without segments, with and without dropout (dK/dV mma.sync at W 160),
-    the forward mma.sync; then the wgmma dK/dV and dQ against
+    """Each bf16 launch's body (``kernel_body``): the forward, dK/dV and dQ
+    wgmma without segments, with and without dropout (dK/dV mma.sync at W
+    160); then the wgmma dK/dV and dQ against
     their plain versions on ``WGMMA_BWD_CARD_CASES`` (as ``chip_smoke.py``
     holds them) and, under dropout, their masks read out against
     ``dropout_keep``'s bits (``chip_smoke.check_masks``)."""
@@ -466,7 +466,7 @@ def test_wgmma_backward_matches_plain_versions_on_card():
         dkv = "mma.sync" if d == 160 else "wgmma"
         for dropout in (False, True):
             assert chip_smoke.launch_bodies(tfa, d, False, dropout) == {
-                "fwd": "mma.sync", "bwd_dkv": dkv, "bwd_dq": "wgmma"}
+                "fwd": "wgmma", "bwd_dkv": dkv, "bwd_dq": "wgmma"}
     for shape, causal, rate in WGMMA_BWD_CARD_CASES:
         q, k, v, do = (torch.from_numpy(x).cuda().bfloat16()
                        for x in _inputs(shape, seed=8))
@@ -508,35 +508,39 @@ def _bit(bits, i):
     return ((bits >> i) & 1).bool()
 
 
-def _wgmma_dq_keep(seed, bh, s_q, s_k, rate, bm, causal):
-    """keep [bh, s_q, s_k] as the wgmma dQ's lanes hold it, and the scores
-    its tiles cover (key tiles of 64 per block of ``bm`` q rows).  A lane
-    (g, t) of the warp whose 16 q rows start at ``r16`` holds rows r16 + g
-    and r16 + g + 8 and, per key tile at kcol0, keys kcol0 + 8 j + 2t +
-    (e & 1); per 16-key group kk it draws the calls (4 (kcol0 / 16 + kk) +
-    t, row + 8 r) and puts words x, y at bits 8 kk + 2 r + (0, 1) and z, w
-    at 8 kk + 4 + 2 r + (0, 1)."""
-    n16, n_kt = -(-s_q // 16), -(-s_k // 64)
+def _wgmma_dq_keep(seed, bh, s_q, s_k, rate, bm, causal, bk=64):
+    """keep [bh, s_q, s_k] as the wgmma dQ's (and forward's) lanes hold it,
+    and the scores its tiles cover (key tiles of ``bk`` per block of ``bm``
+    q rows).  A lane (g, t) of the warp whose 16 q rows start at ``r16``
+    holds rows r16 + g and r16 + g + 8 and, per key tile at kcol0, keys
+    kcol0 + 8 j + 2t + (e & 1); per 64-key chunk c of the tile it keeps one
+    register of bits, in which per 16-key group kk it draws the calls
+    (4 (kcol0 / 16 + 4 c + kk) + t, row + 8 r) and puts words x, y at bits
+    8 kk + 2 r + (0, 1) and z, w at 8 kk + 4 + 2 r + (0, 1)."""
+    n16, n_kt = -(-s_q // 16), -(-s_k // bk)
     bhq = torch.arange(bh)[:, None, None, None, None]
     row = (16 * torch.arange(n16)[:, None] + torch.arange(8))  # r16 + g
     row = row.reshape(-1)[None, :, None, None, None]
     t = torch.arange(4)[None, None, :, None, None]
     kt = torch.arange(n_kt)[None, None, None, :, None]
-    bits = torch.zeros(bh, row.shape[1], 4, n_kt, 1, dtype=torch.int64)
-    for kk in range(4):
-        for r in range(2):
-            n = _nibbles(seed, (4 * kt + kk) * 4 + t, row + 8 * r, bhq, rate)
-            bits |= ((n & 3) | (n & 12) << 2) << (8 * kk + 2 * r)
-    keep = torch.zeros(bh, n16 * 16, n_kt * 64, dtype=torch.bool)
-    for j in range(8):
-        for e in range(4):
-            rows = (row + 8 * (e >> 1)).expand_as(bits)
-            cols = (64 * kt + 8 * j + 2 * t + (e & 1)).expand_as(bits)
-            keep[torch.arange(bh)[:, None, None, None, None].expand_as(bits),
-                 rows, cols] = _bit(bits, 4 * j + e)
-    plan = tfa.segment_tile_plan(None, s_q, s_k, bm, 64, causal)
+    keep = torch.zeros(bh, n16 * 16, n_kt * bk, dtype=torch.bool)
+    for c in range(bk // 64):
+        bits = torch.zeros(bh, row.shape[1], 4, n_kt, 1, dtype=torch.int64)
+        for kk in range(4):
+            for r in range(2):
+                n = _nibbles(seed, (bk // 16 * kt + 4 * c + kk) * 4 + t,
+                             row + 8 * r, bhq, rate)
+                bits |= ((n & 3) | (n & 12) << 2) << (8 * kk + 2 * r)
+        for j in range(8):
+            for e in range(4):
+                rows = (row + 8 * (e >> 1)).expand_as(bits)
+                cols = (bk * kt + 64 * c + 8 * j + 2 * t + (e & 1)) \
+                    .expand_as(bits)
+                keep[torch.arange(bh)[:, None, None, None, None]
+                     .expand_as(bits), rows, cols] = _bit(bits, 4 * j + e)
+    plan = tfa.segment_tile_plan(None, s_q, s_k, bm, bk, causal)
     seen = (plan[0] != tfa.TILE_SKIP).repeat_interleave(bm, 0) \
-        .repeat_interleave(64, 1)[:s_q, :s_k]
+        .repeat_interleave(bk, 1)[:s_q, :s_k]
     return keep[:, :s_q, :s_k], seen
 
 
@@ -602,6 +606,81 @@ def test_wgmma_backward_keep_bits_are_dropout_keep(s_q, s_k, d, causal):
         seen = seen.expand_as(keep)
         assert torch.equal(keep[seen], want[seen]), which
         assert 0.85 < float(keep[seen].float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("design", range(len(tfa.FWD_DESIGNS)))
+@pytest.mark.parametrize("s_q,s_k", [(200, 200), (136, 200), (264, 264)])
+def test_wgmma_forward_keep_bits_are_dropout_keep(s_q, s_k, design, causal):
+    """The keep bits of every lane of the wgmma forward's fragment
+    (``_wgmma_dq_keep`` at the design's q rows a block and keys a tile:
+    64-key tiles in one register of bits, 128-key tiles in two), reassembled
+    into [rows, keys], equal ``dropout_keep`` on every score the tiles
+    cover, and the tiles cover every visible score; every design of
+    ``tfa.FWD_DESIGNS`` (the segment branch's is design 0), lengths off the
+    tile, causal and not."""
+    rate, seed, bh = 0.1, (13 << 32) + 7, 2
+    want = tfa.dropout_keep(seed, range(bh), range(s_q), range(s_k), rate)
+    rows = torch.arange(s_q)[:, None]
+    visible = rows + (s_k - s_q) >= torch.arange(s_k) if causal \
+        else torch.ones(s_q, s_k, dtype=torch.bool)
+    bq, bk, _ = tfa.FWD_DESIGNS[design]
+    keep, seen = _wgmma_dq_keep(seed, bh, s_q, s_k, rate, bq, causal, bk)
+    assert bool(seen[visible].all())
+    seen = seen.expand_as(keep)
+    assert torch.equal(keep[seen], want[seen])
+    assert 0.85 < float(keep[seen].float().mean()) < 0.95
+
+
+# (B, S_q, S_k, Hq, D, causal) of the forward's launches in 3c, 3d and
+# 3h, S 200 (off the tile) causal and not at head dims 64 and 160, and
+# 512 q tiles at head dims 192 and 256
+FWD_TILE_LAUNCHES = [(8, 2048, 2048, 16, 64, True), (64, 512, 512, 12, 64,
+                                                     False),
+                     (8, 4096, 4096, 8, 40, False),
+                     (8, 1024, 1024, 8, 80, False),
+                     (8, 256, 256, 8, 160, False),
+                     (2, 200, 200, 4, 64, True), (2, 200, 200, 4, 64, False),
+                     (2, 200, 200, 4, 160, True),
+                     (8, 1024, 1024, 8, 192, False),
+                     (8, 1024, 1024, 8, 256, False)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("launch", FWD_TILE_LAUNCHES,
+                         ids=["3c", "3d", "3h-d40", "3h-d80", "3h-d160",
+                              "S200-causal", "S200", "S200-d160-causal",
+                              "d192", "d256"])
+def test_forward_tiles_cover_every_q_tile_once_longest_first(launch):
+    """The forward's tiles in every design (``tfa.FWD_DESIGNS``; the
+    segment branch's, design 0, is ``segment_tiles("fwd", d)``) and the
+    order its blocks take them at a launch (``tfa.fwd_tile_order``: a block
+    per q tile, or a persistent grid of a block an SM walking them) cover
+    every (batch x q-head row, q tile) exactly once, and the longest first:
+    down the launch order and within each block the key tiles a q tile
+    visits never grow."""
+    b, s_q, s_k, hq, d, causal = launch
+    assert tfa.FWD_DESIGNS[0][:2] == tfa.segment_tiles("fwd", d)
+    for bq, bk, persistent in tfa.FWD_DESIGNS:
+        n_qt = -(-s_q // bq)
+        plan = tfa.segment_tile_plan(None, s_q, s_k, bq, bk, causal)[0]
+        visits = (plan != tfa.TILE_SKIP).sum(1).tolist()
+        for blocks in (None, H100_SMS) if persistent else (None,):
+            order = tfa.fwd_tile_order(b * hq, s_q, bq, blocks)
+            flat = [x for blk in order for x in blk]
+            assert len(flat) == b * hq * n_qt
+            assert set(flat) == {(r, qt) for r in range(b * hq)
+                                 for qt in range(n_qt)}
+            assert len(order) == (b * hq * n_qt if blocks is None
+                                  else min(blocks, b * hq * n_qt))
+            for blk in order:
+                lens = [visits[qt] for _, qt in blk]
+                assert lens == sorted(lens, reverse=True)
+            launch_order = sorted(
+                ((j + i * len(order), qt) for j, blk in enumerate(order)
+                 for i, (_, qt) in enumerate(blk)), key=lambda x: x[0])
+            lens = [visits[qt] for _, qt in launch_order]
+            assert lens == sorted(lens, reverse=True)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
