@@ -9,9 +9,11 @@ full width of LLaMA-2 7B; the train step of the repo's 271M LLaMA at
 B 8 x S 2048; ERNIE-3.0-base MLM training at B 64 x S 512 at its published
 dropout 0.1; its sequence-classification fine-tuning at B 32 x S 128; the
 ``nn.functional.softmax`` entry; ViT-L/16 training at 384 px (577
-tokens, which attention pads to the 128 tile) and at 224 px; and the
-SD-1.5 UNet's train step at B 8 over 64 x 64 latents — with random
-weights made from a seed:
+tokens, which attention pads to the 128 tile) and at 224 px; the
+SD-1.5 UNet's train step at B 8 over 64 x 64 latents; and ResNet-50
+training at B 256 over 224 x 224 images with the BatchNorms in training
+mode, and MobileNet V1 / V2 / V3-Large — with random weights made from a
+seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync dK/dV and of
@@ -186,6 +188,20 @@ weights made from a seed:
                LayerNorm at width 320), the body each launch ran per head
                dim, the forward / backward / SGD split and one step under
                torch.profiler;
+               (j) ResNet-50 training (``resnet50``, 1,000 classes, bf16
+               parameters, f32 velocity, B 256, 224 x 224, NCHW, the
+               BatchNorms in training mode, Momentum 0.9 at lr 0.1 with L2
+               decay 1e-4 as PaddleClas's ResNet50.yaml, the loss as
+               bench.py's bench_resnet50): 3 warm-up and 10 timed steps on
+               one batch, the loss of each (finite and falling), every
+               running buffer moved, no kernel of the port launched and no
+               plain version called, images/s, the mfu share (6 x the
+               forward's multiply-adds, ``vision_macs``: 4.089 G an image,
+               checked), peak memory, the forward / backward / Momentum
+               split and the device ms by op group (convolution, batch
+               norm, pooling, matmul, Momentum, other); (j') MobileNet V1,
+               V2 and V3-Large the same way, two steps each, images/s of
+               the second;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -200,7 +216,16 @@ weights made from a seed:
                f32 ViT-L/16 step at 384 px, kernels against all knobs off;
                (e) one f32 SD-1.5 UNet step at full width, B 1, both knobs
                on against off: loss to 1e-5, gradients to 1e-4 of max
-               |grad|;
+               |grad|; (f) one ResNet-50 step at full width and depth, B 2,
+               64 x 64, on the card against the CPU from the same weights,
+               TF32 off: with eval-mode BatchNorm in f32 the loss to 1e-5,
+               every gradient to 1e-4 of max |grad| and every updated
+               parameter to 1e-4 of its largest update (plus one ulp);
+               with training-mode BatchNorm in f64 the loss to 1e-5, every
+               gradient to 1e-4 of max |grad|, the running buffers to 1e-5
+               and the updated parameters to 1e-6, and the card's f32
+               step within 1e-4 of the CPU's f64 (loss and buffers), with
+               the f32 and TF32 gaps printed;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -2249,59 +2274,111 @@ ERNIE_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("matmul", MATMUL_NAMES))
 
 
-def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS,
-                    stages=("forward", "backward", "adamw"), required=None):
-    """One train step under torch.profiler: device ms by group, the kernel
-    count, and the device busy share of an unprofiled step's wall time;
-    before it, one unprofiled step's split into ``stages`` by CUDA events.
-    Only device events count: the autograd Functions that launch the
-    kernels carry the same device time as CPU events.  Each group of
-    ``required`` (default: every group but matmul) must have seen device
-    time."""
+def profile_rows(run):
+    """``run()`` once under torch.profiler: (kernels, ops, kernel ms).
+    ``kernels`` holds a row ((name,), device ms, count) per kernel name,
+    ``ops`` a row (names, device ms, launches) per op that launched
+    kernels, ``names`` the op's and its callers', innermost first.  The
+    profiler hands a kernel to every op event that carries its launch's
+    correlation id, and a profiler event of its own ("Activity Buffer
+    Request") can run inside an op under the op's id: each id is counted
+    once, at its outermost event.  The kernels that no op claims make one
+    op row, "(no op)", of the kernels' ms less the ops' (negative if an
+    op's kernels were counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels, claims = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            row = kernels.setdefault(ev.name, [0.0, 0])
+            row[0] += ev.time_range.elapsed_us() / 1e3
+            row[1] += 1
+        elif ev.kernels and not ev.is_async:
+            claims.setdefault(ev.id, []).append(ev)
+    ops = []
+    for evs in claims.values():
+        ev = min(evs, key=lambda e: (e.time_range.start, -e.time_range.end))
+        names, up = [], ev
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        ops.append((tuple(names), sum(k.duration for k in ev.kernels) / 1e3,
+                    len(ev.kernels)))
+    device = sum(ms for ms, _ in kernels.values())
+    ops.append((("(no op)",), device - sum(ms for _, ms, _ in ops), 0))
+    return ([((n,), ms, k) for n, (ms, k) in kernels.items()], ops, device)
+
+
+def group_rows(rows, groups_of):
+    """Device ms by group of ``rows`` (:func:`profile_rows`): a row goes
+    to the group of the first of its names, innermost first, that holds
+    one of the group's patterns (the first such group of ``groups_of``),
+    else to "other".  Returns the groups and every row as (group, ms,
+    count, name)."""
+    groups = dict.fromkeys([g for g, _ in groups_of] + ["other"], 0.0)
+    named = []
+    for names, ms, count in rows:
+        g = next((g for n in names for g, pats in groups_of
+                  if any(p in n.lower() for p in pats)), "other")
+        groups[g] += ms
+        named.append((g, ms, count, names[0]))
+    return groups, named
+
+
+def largest(named, group, n=6):
+    """The ``n`` rows of ``group`` that took the most device time, as one
+    line (from :func:`group_rows`'s list)."""
+    return "; ".join(f"{ms:.2f} ms x{k} {key[:90]}" for _, ms, k, key in
+                     sorted((x for x in named if x[0] == group),
+                            key=lambda x: -x[1])[:n])
+
+
+def stage_split(step, batch, stages):
+    """One unprofiled ``step(batch, marks)`` split into ``stages`` (three)
+    by its four CUDA events, printed and returned as {stage: ms}."""
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
     step(batch, marks)
     marks[3].synchronize()
-    stages = {name: marks[i].elapsed_time(marks[i + 1])
-              for i, name in enumerate(stages)}
+    split = {name: marks[i].elapsed_time(marks[i + 1])
+             for i, name in enumerate(stages)}
     print("  one unprofiled step by stage (CUDA events): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + " ms")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(batch)
-        torch.cuda.synchronize()
-    groups = {g: 0.0 for g, _ in groups_of}
-    groups["other"] = 0.0
-    kernels, other = 0, []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if not dev_us or ev.device_type != DeviceType.CUDA:
-            continue
-        kernels += ev.count
-        key = ev.key.lower()
-        g = next((g for g, names in groups_of
-                  if any(n in key for n in names)), "other")
-        groups[g] += dev_us / 1e3
-        if g == "other":
-            other.append((dev_us / 1e3, ev.count, ev.key))
-    busy = sum(groups.values())
-    if required is None:
-        required = [g for g, _ in groups_of if g != "matmul"]
-    require(all(groups[g] > 0 for g in required),
-            f"profiler saw no train kernel: {groups}")
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " ms")
+    return split
+
+
+def busy_line(busy, step_s, groups, launches):
+    """The breakdown's line: device busy ms against an unprofiled step's
+    wall time, and the device ms of each group."""
     print(f"  one step under torch.profiler: device busy {busy:.2f} ms of an "
           f"unprofiled {step_s * 1e3:.2f} ms step ("
           f"{busy / (step_s * 1e3) * 100:.1f}%): "
           + ", ".join(f"{g} {v:.2f}" for g, v in groups.items())
-          + f" ms; {kernels} kernels")
-    print("  largest 'other' kernels: " + "; ".join(
-        f"{ms:.2f} ms x{n} {key[:60]}" for ms, n, key in
-        sorted(other, reverse=True)[:6]))
+          + f" ms; {launches} kernels")
+
+
+def train_breakdown(step, batch, step_s, groups_of=TRAIN_GROUPS,
+                    stages=("forward", "backward", "adamw"), required=None):
+    """One train step under torch.profiler: device ms by group of kernel
+    name (:func:`group_rows`), the kernel count, and the device busy share
+    of an unprofiled step's wall time; before it, one unprofiled step's
+    split into ``stages`` by CUDA events.  Each group of ``required``
+    (default: every group but matmul) must have seen device time."""
+    stages = stage_split(step, batch, stages)
+    rows, _, busy = profile_rows(lambda: step(batch))
+    groups, named = group_rows(rows, groups_of)
+    kernels = sum(k for _, _, k in rows)
+    if required is None:
+        required = [g for g, _ in groups_of if g != "matmul"]
+    require(all(groups[g] > 0 for g in required),
+            f"profiler saw no train kernel: {groups}")
+    busy_line(busy, step_s, groups, kernels)
+    print("  largest 'other' kernels: " + largest(named, "other"))
     return dict(groups, busy_ms=busy, kernels=kernels, **stages)
 
 
@@ -4613,6 +4690,375 @@ def phase_unet_check(B=1):
     torch.cuda.empty_cache()
 
 
+# -- phase 3j: ResNet-50 and the MobileNets ----------------------------------
+# PaddleClas's ResNet50.yaml, first stage: Momentum 0.9 at lr 0.1 with L2
+# decay 1e-4, over a global batch of 256
+RESNET_LR, RESNET_MOMENTUM, RESNET_DECAY = 0.1, 0.9, 1e-4
+# grouped by the ATen ops that launched each kernel (the innermost whose
+# name holds a pattern), not by kernel name: cuDNN runs some 1 x 1
+# convolutions on the GEMM kernels cuBLAS uses, and its layout transposes
+# carry no op's name; the Momentum update is timed in a profiler window of
+# its own
+RESNET_GROUPS = (("conv", ("convolution",)),
+                 ("batch norm", ("batch_norm",)),
+                 ("pooling", ("pool",)),
+                 ("matmul", ("aten::mm", "aten::addmm", "aten::bmm")))
+
+
+def vision_macs(model, img):
+    """Multiply-adds of one image's forward through ``model`` at ``img``
+    px, counted from the shapes its convolutions and Linears see in one
+    eval-mode forward of a zero image (hooks; the running buffers do not
+    move): out positions x out channels x in channels / groups x kh x kw
+    per convolution, in x out per Linear.  BatchNorm, pooling, the
+    activations and the biases are left out."""
+    from paddle_tpu_torch.nn.layers import Conv2D, Linear
+    total = []
+
+    def conv(mod, _, out):
+        total.append(out.numel() * mod.weight[0].numel())
+
+    def linear(mod, _, out):
+        total.append(out.numel() * mod.weight.shape[0])
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D)
+                                     else linear)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    was_training = model.training
+    model.eval()
+    try:
+        p = next(model.parameters())
+        with torch.no_grad():
+            model(torch.zeros(1, 3, img, img, dtype=p.dtype,
+                              device=p.device))
+    finally:
+        model.train(was_training)
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def make_vision_step(build, dtype, seed=0, device="cuda"):
+    """bench.py bench_resnet50's step on the port, with the BatchNorms in
+    training mode: ``build(num_classes=1000)`` (a ResNet or MobileNet),
+    cross-entropy through ``log_softmax`` in f32 (f64 for an f64 model),
+    and one Momentum(0.9, lr 0.1, L2 decay 1e-4) update of every parameter
+    (f32 velocity).  Returns
+    (step(batch) -> (loss, grads), model, params); ``step.forward_backward``
+    and ``step.update`` are its two halves."""
+    from paddle_tpu_torch.optimizer import Momentum
+    model = build(num_classes=1000, dtype=dtype, device=device, seed=seed)
+    model.train()
+    params = dict(model.named_parameters())
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   weight_decay=RESNET_DECAY)
+    state = opt.init_opt_state(params, device=device)
+
+    def loss_of(batch):
+        x, y = batch
+        logits = model(x)
+        logp = torch.log_softmax(logits.to(torch.promote_types(
+            logits.dtype, torch.float32)), dim=-1)
+        return -logp.gather(1, y[:, None]).mean()
+
+    def forward_backward(batch):
+        loss = loss_of(batch)
+        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+    def update(grads):
+        opt.apply_gradients_functional(params, dict(zip(params, grads)),
+                                       state)
+
+    def step(batch, marks=None):
+        mark = (lambda i: marks[i].record()) if marks else (lambda i: None)
+        mark(0)
+        loss = loss_of(batch)
+        mark(1)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        mark(2)
+        update(grads)
+        mark(3)
+        return loss.detach(), grads
+
+    step.forward_backward, step.update = forward_backward, update
+    return step, model, params
+
+
+def vision_batch(B, img, dtype, seed=0, device="cuda"):
+    """bench_resnet50's batch: N(0, 1) images [B, 3, img, img] and labels
+    of 1,000 classes from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (B, 3, img, img)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    y = torch.from_numpy(rng.integers(0, 1000, (B,))).to(device)
+    return x, y
+
+
+def vision_breakdown(step, batch, step_s):
+    """One unprofiled step's split by CUDA events (forward, backward,
+    Momentum), then the forward and backward under torch.profiler, each
+    kernel's device ms grouped by ``RESNET_GROUPS`` at the op that
+    launched it (:func:`profile_rows`, :func:`group_rows`), and the
+    Momentum update in a profiler window of its own.  Device busy is the
+    two windows' kernel ms; the ops must claim each kernel once at most.
+    Convolution, batch norm and the update must have seen device time."""
+    stages = stage_split(step, batch, ("forward", "backward", "momentum"))
+    out = {}
+    rows, ops, device = profile_rows(
+        lambda: out.update(grads=step.forward_backward(batch)[1]))
+    unclaimed = ops[-1][1]
+    print(f"  the kernels' device time {device:.2f} ms, claimed by ops "
+          f"{device - unclaimed:.2f} ms, by no op {unclaimed:.2f} ms")
+    require(unclaimed >= -1e-3 * device,
+            f"ops claim {device - unclaimed:.2f} of {device:.2f} kernel ms")
+    update_rows, _, update = profile_rows(lambda: step.update(out["grads"]))
+    groups, named = group_rows(ops, RESNET_GROUPS)
+    groups["momentum"] = update
+    busy = device + update
+    launches = sum(k for _, _, k in rows + update_rows)
+    require(groups["conv"] > 0 and groups["batch norm"] > 0
+            and groups["momentum"] > 0,
+            f"profiler saw no convolution, batch norm or update: {groups}")
+    busy_line(busy, step_s, groups, launches)
+    for g in groups:
+        if g != "momentum":
+            print(f"  largest {g} ops: {largest(named, g, 4)}")
+    return dict(groups, busy_ms=busy, kernels=launches, **stages)
+
+
+def no_kernel_ran(pa, plain, what):
+    """The train path of a CNN runs none of the port's kernels and no plain
+    version: every launch count since ``reset_counts`` is 0."""
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    launches.update(branch_counts())
+    require(not any(launches.values()) and counts(pa) == (0, 0, 0),
+            f"{what}: a kernel launched: {launches}, paged {counts(pa)}")
+    require(plain.calls == {}, f"{what}: plain calls {plain.calls}")
+    return launches
+
+
+def phase_resnet(pa, card, B=256, img=224, warmup=3, steps=10):
+    """Phase 3j: ResNet-50 training at full width and depth (``resnet50``,
+    1,000 classes), B x 3 x img x img, bf16 parameters with f32 velocity,
+    the BatchNorms in training mode (batch statistics, running buffers
+    updated every step, as dygraph ImageNet training runs them), Momentum
+    0.9 at lr 0.1 with L2 decay 1e-4 (PaddleClas ResNet50.yaml), the loss
+    as bench_resnet50's: warm-up and timed steps on one batch with the
+    loss of each (finite and falling), the running buffers moved, no
+    kernel of the port launched and no plain version called, images/s,
+    the mfu share (6 x ``vision_macs`` per image over 989 TFLOP/s), peak
+    memory, and the device ms by group (``vision_breakdown``)."""
+    from paddle_tpu_torch.vision.models import resnet50
+    torch.cuda.reset_peak_memory_stats()
+    step, model, params = make_vision_step(resnet50, torch.bfloat16)
+    n_params = sum(v.numel() for v in params.values())
+    macs = vision_macs(model, img)
+    require(4.0e9 < macs < 4.2e9,
+            f"ResNet-50 forward {macs / 1e9:.3f} G multiply-adds, not ~4.1")
+    batch = vision_batch(B, img, torch.bfloat16)
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    losses = [float(step(batch)[0]) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    with CountPlainCalls() as plain:
+        t0 = time.perf_counter()
+        out = [step(batch)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = no_kernel_ran(pa, plain, "ResNet-50")
+    losses += [float(x) for x in out]
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    still = [n for n, b in model.named_buffers() if torch.equal(b, before[n])]
+    require(not still, f"running buffers did not move: {still[:4]}")
+    images_per_s = B * steps / wall
+    flop = 6.0 * macs * B
+    mfu = flop * steps / wall / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params:,} parameters in {len(params)} tensors, "
+          f"{len(before)} running buffers (f32); B={B} x 3 x {img} x {img} "
+          f"bf16, NCHW; BatchNorm in training mode; Momentum("
+          f"{RESNET_MOMENTUM}, lr {RESNET_LR}, L2 {RESNET_DECAY}), f32 "
+          f"velocity")
+    print(f"  forward {macs / 1e9:.4f} G multiply-adds per image "
+          f"(vision_macs); model FLOP per step {flop / 1e12:.3f} T")
+    print(f"  loss per step ({warmup} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  running buffers: all {len(before)} moved; kernel launches "
+          f"{sum(launches.values())}, plain calls {len(plain.calls)}")
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {images_per_s:.1f} images/s, mfu_share {mfu:.4f} on "
+          f"{card}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB on {card}")
+    breakdown = vision_breakdown(step, batch, wall / steps)
+    print(f"  (the breakdown above on {card})")
+    return dict(images_per_s=images_per_s, mfu=mfu, step_ms=wall / steps * 1e3,
+                peak_gib=peak / 2**30, losses=losses, n_params=n_params,
+                breakdown=breakdown)
+
+
+def phase_mobilenets(pa, card, B=256, img=224):
+    """Phase 3j, second part: MobileNetV1, V2 and V3-Large at full width,
+    B x 3 x img x img, bf16, BatchNorm in training mode, the same
+    Momentum: two steps each (the second timed alone), both losses finite,
+    no kernel of the port launched and no plain version called."""
+    from paddle_tpu_torch.vision import models
+    out = {}
+    for name in ("mobilenet_v1", "mobilenet_v2", "mobilenet_v3_large"):
+        step, model, params = make_vision_step(getattr(models, name),
+                                               torch.bfloat16)
+        macs = vision_macs(model, img)
+        batch = vision_batch(B, img, torch.bfloat16)
+        reset_counts(pa)
+        with CountPlainCalls() as plain:
+            first = float(step(batch)[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            second = float(step(batch)[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        no_kernel_ran(pa, plain, name)
+        require(np.isfinite([first, second]).all(),
+                f"{name}: non-finite loss {first}, {second}")
+        mfu = 6.0 * macs * B / wall / BF16_FLOP_PER_S
+        print(f"  {name}: {sum(v.numel() for v in params.values()):,} "
+              f"parameters, {macs / 1e6:.1f} M multiply-adds per image; "
+              f"losses {first:.4f} {second:.4f}; second step "
+              f"{wall * 1e3:.1f} ms, {B / wall:.1f} images/s, mfu_share "
+              f"{mfu:.4f} on {card}")
+        out[name] = dict(images_per_s=B / wall, step_ms=wall * 1e3,
+                         losses=[first, second], mfu=mfu)
+        del step, model, params
+        torch.cuda.empty_cache()
+    return out
+
+
+class TF32Off:
+    """Within the block, cuDNN and cuBLAS run f32 in f32, not TF32; the
+    settings before are restored on exit."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def resnet_step_on(device, dtype, state, batch, train=True):
+    """One step of the seeded ResNet-50 (``state``: its state dict) on
+    ``device`` in ``dtype``, the BatchNorms in training mode or, with
+    ``train=False``, in eval mode: the loss, every gradient, the running
+    buffers after the forward, the parameters after the Momentum update
+    and before it, all on the host."""
+    from paddle_tpu_torch.vision.models import resnet50
+    step, model, params = make_vision_step(resnet50, torch.float32,
+                                           device=device)
+    model.load_state_dict(state)
+    model.to(dtype).train(train)
+    before = [p.detach().cpu().clone() for p in params.values()]
+    x, y = batch
+    loss, grads = step((x.to(device=device, dtype=dtype), y.to(device)))
+    return (float(loss), [g.detach().cpu() for g in grads],
+            [b.detach().cpu() for b in model.buffers()],
+            [p.detach().cpu() for p in params.values()], before)
+
+
+def phase_resnet_check(B=2, img=64):
+    """Phase 4f: one step of ResNet-50 at full width and depth, B x 3 x
+    img x img, on the card against the same step on the CPU from the same
+    seeded weights, buffers and batch, with TF32 off (cuDNN and cuBLAS) for
+    the check only.
+
+    With the BatchNorms in eval mode, in f32: the loss to 1e-5 relative,
+    every gradient to 1e-4 of its tensor's max |grad|, and every updated
+    parameter to 1e-4 of its tensor's largest update plus one f32 ulp of
+    its largest entry (both sides round p - lr v once).  With the
+    BatchNorms in training mode, in f64: the loss to 1e-5, every gradient
+    to 1e-4 of max |grad|, every running buffer to 1e-5 (rtol and atol)
+    and every updated parameter to 1e-6 of its tensor's max |p|.  In f32
+    this random net's training-mode step is ill-conditioned: the CPU's own
+    f32 loss lies about 1e-5 from its f64 one and its f32 gradients 1e-1
+    of max |grad| from its f64 ones, so two f32 implementations cannot
+    meet those tolerances there.  The card's training-mode f32 step is held
+    to the CPU's f64 instead, the loss and the buffers to 1e-4: an f32
+    step lands within that, a TF32 one (10 mantissa bits) does not, as the
+    same step with TF32 on, printed beside it, shows."""
+    from paddle_tpu_torch.vision.models import resnet50
+    state = {k: v.clone() for k, v in resnet50(
+        num_classes=1000, device="cpu", seed=3).state_dict().items()}
+    batch = vision_batch(B, img, torch.float32, seed=4, device="cpu")
+
+    def gaps(run, ref):
+        """(loss, buffers, grads, params, updates) of ``run`` against
+        ``ref``: the loss relative, the buffers in units of 1e-5 + 1e-5
+        |ref|, the grads and params relative to each tensor's max |ref|,
+        the params in units of 1e-4 of the tensor's largest update in
+        ``ref`` plus one f32 ulp of its largest entry."""
+        (l1, g1, b1, p1, _), (l0, g0, b0, p0, q0) = run, ref
+
+        def of_max(a, b):
+            return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                       .item() for x, y in zip(a, b))
+        return (abs(l1 - l0) / abs(l0),
+                max(((x - y).abs() / (1e-5 + 1e-5 * y.abs())).max().item()
+                    for x, y in zip(b1, b0)), of_max(g1, g0), of_max(p1, p0),
+                max(((x - y).abs().max() / (1e-4 * (y - q).abs().max()
+                                            + 2.0**-23 * y.abs().max()))
+                    .item() for x, y, q in zip(p1, p0, q0)))
+
+    runs = {}
+    with TF32Off():
+        print(f"  TF32 off for the check: cuBLAS "
+              f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+              f"{torch.backends.cudnn.allow_tf32}")
+        for device in ("cpu", "cuda"):
+            runs["eval", device] = resnet_step_on(
+                device, torch.float32, state, batch, train=False)
+        for dtype in (torch.float64, torch.float32):
+            for device in ("cpu", "cuda"):
+                runs[dtype, device] = resnet_step_on(device, dtype, state,
+                                                     batch)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        runs["tf32"] = resnet_step_on("cuda", torch.float32, state, batch)
+    ref, card = runs["eval", "cpu"], runs["eval", "cuda"]
+    loss, _, grad, _, upd = gaps(card, ref)
+    print(f"  f32 ResNet-50 step, B={B} x {img} x {img}, eval-mode "
+          f"BatchNorm, card against CPU: loss {card[0]:.9f} / {ref[0]:.9f} "
+          f"({loss:.2e}, tol 1e-5); grads max |card - CPU| / max |CPU| "
+          f"{grad:.3e} (tol 1e-4); updated params {upd:.3f} x (1e-4 max "
+          f"|update| + 1 ulp of max |p|) (tol 1)")
+    require(loss <= 1e-5 and grad <= 1e-4 and upd <= 1.0,
+            "the card's f32 eval-mode step differs from the CPU's")
+    ref, card64 = runs[torch.float64, "cpu"], runs[torch.float64, "cuda"]
+    loss, buf, grad, par, _ = gaps(card64, ref)
+    print(f"  f64 ResNet-50 step, B={B} x {img} x {img}, training-mode "
+          f"BatchNorm, card against CPU: loss {card64[0]:.12f} / "
+          f"{ref[0]:.12f} ({loss:.2e}, tol 1e-5); grads max |card "
+          f"- CPU| / max |CPU| {grad:.3e} (tol 1e-4); buffers {buf:.2e} x "
+          f"(1e-5 + 1e-5 |CPU|) (tol 1); updated params {par:.3e} of max "
+          f"|p| (tol 1e-6)")
+    require(loss <= 1e-5 and grad <= 1e-4 and buf <= 1.0 and par <= 1e-6,
+            "the card's f64 step differs from the CPU's")
+    for what, run in (("CPU f32", runs[torch.float32, "cpu"]),
+                      ("card f32", runs[torch.float32, "cuda"]),
+                      ("card f32 with TF32 on", runs["tf32"])):
+        loss, buf, grad, par, _ = gaps(run, ref)
+        print(f"  training mode, {what} against the CPU's f64: loss "
+              f"{run[0]:.9f} ({loss:.2e}), buffers {buf / 10:.3f} x (1e-4 + "
+              f"1e-4 |f64|), grads {grad:.3e} of max |grad|, updated params "
+              f"{par:.3e} of max |p|")
+        if what == "card f32":
+            require(loss <= 1e-4 and buf <= 10.0,
+                    "the card's f32 step is not within 1e-4 of f64")
+    torch.cuda.empty_cache()
+
+
 # -- phase 5e: rows 3/5/6 at the UNet's shapes, rows 1-2 at d 80 -------------
 L2_BYTES = 50e6                    # H100 SXM
 
@@ -5040,6 +5486,13 @@ def main():
           "77-token context, SGD lr 1e-4)")
     unet = phase_unet(pa)
     torch.cuda.empty_cache()
+    say("phase 3j: ResNet-50 train step (bf16, B=256, 224 x 224, "
+        "BatchNorm in training mode, Momentum 0.9, lr 0.1, L2 1e-4)")
+    resnet = phase_resnet(pa, card)
+    torch.cuda.empty_cache()
+    say("phase 3j': MobileNet V1 / V2 / V3-Large, two steps each (bf16, "
+        "B=256, 224 x 224, BatchNorm in training mode, the same Momentum)")
+    mobilenets = phase_mobilenets(pa, card)
 
     say("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
@@ -5055,6 +5508,10 @@ def main():
     say("phase 4e: SD-1.5 UNet train step (f32, B=1), kernels vs plain "
           "versions")
     phase_unet_check()
+    say("phase 4f: ResNet-50 step (B=2, 64 x 64), card against CPU: "
+        "eval-mode BatchNorm in f32, training mode in f64 and f32, TF32 "
+        "off")
+    phase_resnet_check()
 
     say("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
@@ -5107,6 +5564,14 @@ def main():
               f"{v['mfu']:.4f}, {v['step_ms']:.1f} ms per step, loss "
               f"{v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}, peak "
               f"{v['peak_gib']:.2f} GiB on {card}")
+    print(f"  ResNet-50 at 224 x 224, B 256, training-mode BatchNorm, "
+          f"Momentum: {resnet['images_per_s']:.1f} images/s, mfu_share "
+          f"{resnet['mfu']:.4f}, {resnet['step_ms']:.1f} ms per step, loss "
+          f"{resnet['losses'][0]:.4f} -> {resnet['losses'][-1]:.4f}, peak "
+          f"{resnet['peak_gib']:.2f} GiB on {card}")
+    for name, mb in mobilenets.items():
+        print(f"  {name} at 224 x 224, B 256: {mb['images_per_s']:.1f} "
+              f"images/s, mfu_share {mb['mfu']:.4f} (second step) on {card}")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")

@@ -1,5 +1,6 @@
 from .convert import (ernie_params_from_numpy, params_from_numpy,
-                      unet_params_from_numpy, vit_params_from_numpy)
+                      unet_params_from_numpy, vision_params_from_numpy,
+                      vit_params_from_numpy)
 from .ernie import (ErnieConfig, ErnieForMaskedLM,
                     ErnieForSequenceClassification, ErnieModel,
                     ernie_config_base, ernie_config_tiny)
@@ -18,4 +19,4 @@ __all__ = ["ErnieConfig", "ErnieForMaskedLM",
            "make_paged_decode_horizon", "params_from_numpy",
            "timestep_embedding", "UNet2DConditionModel", "UNetConfig",
            "unet_config_sd15", "unet_config_tiny", "unet_params_from_numpy",
-           "vit_params_from_numpy"]
+           "vision_params_from_numpy", "vit_params_from_numpy"]

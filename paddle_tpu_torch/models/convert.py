@@ -7,7 +7,11 @@ import torch
 from .. import resolve_device
 
 __all__ = ["params_from_numpy", "ernie_params_from_numpy",
-           "unet_params_from_numpy", "vit_params_from_numpy"]
+           "unet_params_from_numpy", "vision_params_from_numpy",
+           "vit_params_from_numpy"]
+
+# the running statistics of JAX's BatchNorm layers (``nn/norm.py:31-32``)
+BN_BUFFERS = ("_mean", "_variance")
 
 
 def _tensor(v, dev, dtype):
@@ -53,3 +57,19 @@ def unet_params_from_numpy(named, device=None, dtype=torch.float32):
     so each entry is a plain copy, on ``device`` (``None``: the CUDA device,
     raising without one) in ``dtype``."""
     return ernie_params_from_numpy(named, device, dtype)
+
+
+def vision_params_from_numpy(named, device=None, dtype=torch.float32):
+    """``{name: np.ndarray}`` from a JAX ResNet's or MobileNet's
+    ``named_parameters()`` and ``named_buffers()`` -> a state dict that the
+    port's model of the same config loads with ``load_state_dict``
+    (strict): the names, the ``[in, out]`` Linear layout and the ``[out,
+    in / groups, kh, kw]`` convolution layout are the same, so each entry
+    is a plain copy, on ``device`` (``None``: the CUDA device, raising
+    without one).  Parameters take ``dtype``; BatchNorm's running buffers
+    (``..._mean``, ``..._variance``) stay f32, as ``BatchNorm2D`` keeps
+    them."""
+    dev = resolve_device(device)
+    return {name: _tensor(v, dev, torch.float32
+                          if name.rsplit(".", 1)[-1] in BN_BUFFERS else dtype)
+            for name, v in named.items()}

@@ -1,12 +1,25 @@
-"""Activations (port of ``paddle_tpu.nn.functional.activation``: ``gelu``,
-``silu`` and ``softmax`` with the ``softmax`` override of
-``paddle_tpu/ops/pallas/__init__.py``)."""
+"""Activations (port of ``paddle_tpu.nn.functional.activation``: ``relu``,
+``relu6``, ``gelu``, ``silu``, ``hardsigmoid``, ``hardswish`` and
+``softmax`` with the ``softmax`` override of
+``paddle_tpu/ops/pallas/__init__.py``).  JAX computes every one but the
+softmax outside any Pallas kernel, so here they are torch ops."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gelu", "silu", "softmax"]
+__all__ = ["gelu", "hardsigmoid", "hardswish", "relu", "relu6", "silu",
+           "softmax"]
+
+
+def relu(x):
+    """max(x, 0) (JAX ``activation.py:22``, ``jax.nn.relu``)."""
+    return F.relu(x)
+
+
+def relu6(x):
+    """min(max(x, 0), 6) (JAX ``activation.py:30``, ``jax.nn.relu6``)."""
+    return F.relu6(x)
 
 
 def gelu(x, approximate=False):
@@ -18,6 +31,19 @@ def silu(x):
     """SiLU, x * sigmoid(x) (JAX ``activation.py:42``, ``jax.nn.silu``),
     computed outside any kernel there as here."""
     return F.silu(x)
+
+
+def hardsigmoid(x):
+    """clip(x * 0.1666667 + 0.5, 0, 1) (JAX ``activation.py:80``) with
+    Paddle's rounded slope, which is not the exact 1/6 of
+    ``torch.nn.functional.hardsigmoid``."""
+    return torch.clamp(x * 0.1666667 + 0.5, 0.0, 1.0)
+
+
+def hardswish(x):
+    """x * clip(x + 3, 0, 6) / 6 (JAX ``activation.py:85``), the formula of
+    ``torch.nn.functional.hardswish``."""
+    return F.hardswish(x)
 
 
 def softmax(x, axis=-1, dtype=None, kernels=True, norm_kernels=False):

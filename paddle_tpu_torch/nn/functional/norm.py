@@ -1,11 +1,12 @@
-"""RMSNorm, LayerNorm and GroupNorm (port of
+"""RMSNorm, LayerNorm, GroupNorm and BatchNorm (port of
 ``paddle_tpu.nn.functional.norm`` and of the ``layer_norm`` override in
 ``paddle_tpu/ops/pallas/__init__.py``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm_ref", "layer_norm_ref", "layer_norm", "group_norm"]
+__all__ = ["rms_norm_ref", "layer_norm_ref", "layer_norm", "group_norm",
+           "batch_norm"]
 
 
 def rms_norm_ref(v, w=None, epsilon=1e-6):
@@ -75,4 +76,36 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
         x = x.movedim(-1, 1)
     out = torch.nn.functional.group_norm(x, num_groups, weight, bias,
                                          epsilon)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5, data_format="NCHW",
+               use_global_stats=None):
+    """BatchNorm over every axis but the channels (JAX ``norm.py:19``).
+    With ``use_global_stats`` (default: not ``training``) it normalises
+    with the running buffers.  Otherwise it normalises with the batch's
+    mean and biased variance and updates the buffers in place with
+    Paddle's convention: ``running = momentum * running + (1 - momentum) *
+    batch``, from the unbiased variance (n / (n - 1)).
+    ``torch.nn.functional.batch_norm`` weighs the batch by its
+    ``momentum``, so it is handed ``1 - momentum``.  Channels are axis 1,
+    or the last axis for a channel-last ``data_format``.  An affine weight
+    and bias of another dtype than f32 buffers are cast to the buffers'
+    dtype, the mixed form torch's kernels take (a bf16 input with f32
+    statistics and affine); the output keeps the input's dtype.  JAX
+    computes it outside any Pallas kernel, so here it is torch's."""
+    if use_global_stats is None:
+        use_global_stats = not training
+    stats = running_mean if running_mean is not None else running_var
+    if stats is not None:
+        weight, bias = (t if t is None or t.dtype == stats.dtype
+                        else t.to(stats.dtype) for t in (weight, bias))
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    out = torch.nn.functional.batch_norm(
+        x, running_mean, running_var, weight, bias,
+        training=not use_global_stats, momentum=1.0 - momentum,
+        eps=epsilon)
     return out.movedim(1, -1) if channel_last else out

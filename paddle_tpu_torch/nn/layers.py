@@ -1,16 +1,20 @@
-"""Linear, Embedding, Dropout, LayerNorm, GroupNorm, Conv2D and GELU
-modules with the JAX package's parameter names, layouts and initialisers
-(``paddle_tpu/nn/common.py`` ``Linear``, ``Embedding``, ``Dropout``;
-``paddle_tpu/nn/norm.py`` ``LayerNorm``, ``GroupNorm``;
-``paddle_tpu/nn/conv.py`` ``Conv2D``; ``paddle_tpu/nn/activation.py``
-``GELU``).
+"""Linear, Embedding, Dropout, LayerNorm, GroupNorm, BatchNorm2D, Conv2D,
+the activations, the pooling layers and Flatten, with the JAX package's
+parameter and buffer names, layouts and initialisers
+(``paddle_tpu/nn/common.py`` ``Linear``, ``Embedding``, ``Dropout``,
+``Flatten``; ``paddle_tpu/nn/norm.py`` ``LayerNorm``, ``GroupNorm``,
+``BatchNorm2D``; ``paddle_tpu/nn/conv.py`` ``Conv2D``;
+``paddle_tpu/nn/activation.py`` ``GELU``, ``ReLU``, ``ReLU6``,
+``Hardswish``, ``Hardsigmoid``; ``paddle_tpu/nn/pooling.py``
+``MaxPool2D``, ``AdaptiveAvgPool2D``).  ``Sequential`` is
+``torch.nn.Sequential``: its children are named ``0``, ``1`` ... as in
+JAX's ``nn/container.py:12``.
 
 They are plain ``torch.nn.Module``s, not a port of the eager ``Layer``
 framework.  Linear weights keep the ``[in, out]`` layout (``x @ W + b``), so
 weights cross from JAX by name and value.  Initialisers draw from the
 ``torch.Generator`` the caller passes: Xavier-uniform Linear weights, zero
-biases, N(0, 1) embeddings, LayerNorm and GroupNorm weight 1 and bias 0,
-convolution
+biases, N(0, 1) embeddings, norm weights 1 and biases 0, convolution
 weights and biases uniform in +-sqrt(1 / fan_in) — the JAX package's
 defaults, though not its ``jax.random`` draws.
 """
@@ -21,12 +25,19 @@ import math
 import torch
 from torch import nn
 
-from .functional.activation import gelu
+from ..tensor.manipulation import flatten
+from .functional.activation import (gelu, hardsigmoid, hardswish, relu,
+                                    relu6)
 from .functional.common import dropout
-from .functional.norm import group_norm, layer_norm
+from .functional.norm import batch_norm, group_norm, layer_norm
+from .functional.pooling import adaptive_avg_pool2d, max_pool2d
 
 __all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "GroupNorm",
-           "Conv2D", "GELU"]
+           "BatchNorm2D", "Conv2D", "GELU", "ReLU", "ReLU6", "Hardswish",
+           "Hardsigmoid", "MaxPool2D", "AdaptiveAvgPool2D", "Flatten",
+           "Sequential"]
+
+Sequential = nn.Sequential
 
 
 class Linear(nn.Module):
@@ -122,30 +133,64 @@ class GroupNorm(nn.Module):
                           self.bias)
 
 
+class BatchNorm2D(nn.Module):
+    """JAX ``BatchNorm2D`` (``nn/norm.py:17-38``) through
+    :func:`~paddle_tpu_torch.nn.functional.norm.batch_norm`: weight 1 and
+    bias 0 of ``num_features`` in ``dtype``, and the running buffers under
+    JAX's own names, ``_mean`` (0) and ``_variance`` (1), in f32 whatever
+    ``dtype`` is, so that the state dict's names are JAX's
+    ``named_buffers()``.  Training mode normalises with the batch and
+    updates the buffers (Paddle's ``momentum``); eval mode uses them."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *, dtype,
+                 device):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.weight = nn.Parameter(torch.ones(num_features, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, dtype=dtype,
+                                             device=device))
+        self.register_buffer("_mean", torch.zeros(
+            num_features, dtype=torch.float32, device=device))
+        self.register_buffer("_variance", torch.ones(
+            num_features, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        return batch_norm(x, self._mean, self._variance, self.weight,
+                          self.bias, training=self.training,
+                          momentum=self.momentum, epsilon=self.epsilon)
+
+
 class Conv2D(nn.Module):
     """JAX ``Conv2D`` (``nn/conv.py:78``) in NCHW: weight [out_channels,
-    in_channels, kh, kw] (Paddle's layout, which is also torch's) and bias
-    [out_channels].  The convolution is ``torch.nn.functional.conv2d``: the
-    JAX package leaves it to XLA, outside any kernel of its own."""
+    in_channels / groups, kh, kw] (Paddle's layout, which is also torch's)
+    and, unless ``bias=False`` (JAX ``bias_attr=False``), bias
+    [out_channels]; both uniform in +-sqrt(1 / fan_in), fan_in = in_channels
+    / groups * kh * kw (``nn/conv.py:43-57``).  The convolution is
+    ``torch.nn.functional.conv2d``: the JAX package leaves it to XLA,
+    outside any kernel of its own."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, *, dtype, device, generator):
+                 padding=0, dilation=1, groups=1, bias=True, *, dtype,
+                 device, generator):
         super().__init__()
         kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) \
             else kernel_size
         self.stride, self.padding = stride, padding
-        bound = math.sqrt(1.0 / (in_channels * kh * kw))
+        self.dilation, self.groups = dilation, groups
+        bound = math.sqrt(1.0 / max(in_channels // groups * kh * kw, 1))
 
         def uniform(*shape):
             u = torch.rand(shape, generator=generator, device=device)
             return nn.Parameter((u * (2 * bound) - bound).to(dtype))
 
-        self.weight = uniform(out_channels, in_channels, kh, kw)
-        self.bias = uniform(out_channels)
+        self.weight = uniform(out_channels, in_channels // groups, kh, kw)
+        self.bias = uniform(out_channels) if bias else None
 
     def forward(self, x):
         return torch.nn.functional.conv2d(x, self.weight, self.bias,
-                                          self.stride, self.padding)
+                                          self.stride, self.padding,
+                                          self.dilation, self.groups)
 
 
 class GELU(nn.Module):
@@ -154,3 +199,74 @@ class GELU(nn.Module):
 
     def forward(self, x):
         return gelu(x, approximate=False)
+
+
+class ReLU(nn.Module):
+    """JAX ``ReLU``: :func:`~paddle_tpu_torch.nn.functional.activation.
+    relu`."""
+
+    def forward(self, x):
+        return relu(x)
+
+
+class ReLU6(nn.Module):
+    """JAX ``ReLU6``: :func:`~paddle_tpu_torch.nn.functional.activation.
+    relu6`."""
+
+    def forward(self, x):
+        return relu6(x)
+
+
+class Hardswish(nn.Module):
+    """JAX ``Hardswish``: :func:`~paddle_tpu_torch.nn.functional.
+    activation.hardswish`."""
+
+    def forward(self, x):
+        return hardswish(x)
+
+
+class Hardsigmoid(nn.Module):
+    """JAX ``Hardsigmoid``: :func:`~paddle_tpu_torch.nn.functional.
+    activation.hardsigmoid` at Paddle's default slope 0.1666667."""
+
+    def forward(self, x):
+        return hardsigmoid(x)
+
+
+class MaxPool2D(nn.Module):
+    """JAX ``MaxPool2D`` (``nn/pooling.py:53``): :func:`~paddle_tpu_torch.
+    nn.functional.pooling.max_pool2d`."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, \
+            padding
+        self.ceil_mode = ceil_mode
+
+    def forward(self, x):
+        return max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                          self.ceil_mode)
+
+
+class AdaptiveAvgPool2D(nn.Module):
+    """JAX ``AdaptiveAvgPool2D`` (``nn/pooling.py:74``):
+    :func:`~paddle_tpu_torch.nn.functional.pooling.adaptive_avg_pool2d`."""
+
+    def __init__(self, output_size):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return adaptive_avg_pool2d(x, self.output_size)
+
+
+class Flatten(nn.Module):
+    """JAX ``Flatten`` (``nn/common.py:116``): axes ``start_axis`` (1) to
+    ``stop_axis`` (-1) merged into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return flatten(x, self.start_axis, self.stop_axis)

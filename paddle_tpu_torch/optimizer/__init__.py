@@ -1,3 +1,3 @@
-from .optimizers import Adam, AdamW
+from .optimizers import Adam, AdamW, Momentum
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Adam", "AdamW", "Momentum"]

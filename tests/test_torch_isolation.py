@@ -246,3 +246,48 @@ def test_unet_entry_points_without_device_need_a_card(monkeypatch):
     for d in range(8, 257, 8):
         for src in ("ragged_paged_attention", "ragged_paged_attention_quant"):
             assert _build.width_library(src, tpa.head_width(d)) in libraries
+
+
+def test_vision_cnn_entry_points_without_device_need_a_card(monkeypatch):
+    """The ResNet and MobileNet constructors, ``Momentum.init_opt_state``
+    and ``vision_params_from_numpy`` resolve device=None to the card, and
+    run on the CPU only when asked; the scan covers the slice's modules."""
+    from paddle_tpu_torch.models import vision_params_from_numpy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as tvm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builds = [getattr(tvm, n) for n in (
+        "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+        "wide_resnet50_2", "wide_resnet101_2", "resnext50_32x4d",
+        "resnext101_32x4d", "mobilenet_v1", "mobilenet_v2",
+        "mobilenet_v3_small", "mobilenet_v3_large")]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(num_classes=3)
+    for build in (tvm.resnet18, tvm.mobilenet_v3_small):
+        model = build(num_classes=3, device="cpu")
+        assert {t.device for t in model.state_dict().values()} \
+            == {torch.device("cpu")}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvm.ResNet(tvm.BasicBlock, 18)
+    opt = Momentum()
+    params = {"w": torch.zeros(2, 3)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt.init_opt_state(params)
+    st = opt.init_opt_state(params, device="cpu")
+    assert st["w"]["velocity"].device == torch.device("cpu")
+    named = {"w": np.zeros((2, 3), np.float32),
+             "bn._mean": np.zeros(3, np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vision_params_from_numpy(named)
+    sd = vision_params_from_numpy(named, device="cpu", dtype=torch.bfloat16)
+    assert {t.device for t in sd.values()} == {torch.device("cpu")}
+    assert (sd["w"].dtype, sd["bn._mean"].dtype) \
+        == (torch.bfloat16, torch.float32)
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("vision/models/resnet.py", "vision/models/mobilenet.py",
+                "vision/models/__init__.py", "nn/functional/pooling.py",
+                "nn/functional/norm.py", "nn/functional/activation.py",
+                "nn/layers.py", "tensor/manipulation.py",
+                "optimizer/optimizers.py", "models/convert.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
