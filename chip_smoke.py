@@ -146,8 +146,28 @@ seed:
                import_kv, a cancel and a timeout=0.0 act with a dispatch in
                flight; every stream on the model's greedy path, the page
                accounting exact, every page back, no pool tensor moved;
+               (k) the engine's telemetry, fault points and durable
+               snapshots on the same weights at 3a's geometry: 3a's traffic
+               through telemetry-off and telemetry-on engines, with and
+               without overlap — the same streams (the greedy path), the
+               same ``jit_variants()`` and the same synchronising calls
+               (``torch.cuda.set_sync_debug_mode("warn")``), tokens/s in
+               turns, TTFT / TPOT from the histograms, the utilization
+               shares, peak occupancy and the captures; on an int8-KV
+               engine a seeded ``serve.pool_pressure`` plan (the ladder
+               submit -> admit -> evict -> preempt, every page back), a
+               ``pagepool.alloc`` trigger and a wedged step; on an
+               overlap=True engine a full-KV ``save_engine`` with a
+               dispatch in flight, a save torn by ``serve.snapshot`` and one
+               killed by ``ckpt.commit`` (the first stays the newest intact
+               snapshot), a ``serve.crash`` raise whose flight dump goes to
+               a file, and a fresh engine restored through
+               ``restore_engine`` continuing every stream; the profiler
+               bridge's ``serve.decode_dispatch`` spans around the decode
+               graph launches in a torch.profiler trace; the phase's
+               launches of rows 1-2;
                with ``--parent-engine ROOT`` another commit's (a) and (b)
-               run in a process of their own before (a) and after (i);
+               run in a process of their own before (a) and after (k);
                (c) the 271M LLaMA train step (bf16, B 8, S 2048,
                head_chunks 8, AdamW): 3 warm-up and 10 timed steps, the
                loss of each (finite and falling: labels equal the inputs),
@@ -2145,6 +2165,371 @@ def phase_lifecycle(cfg, params, succ):
           f"request dropped, the overdue one timed out, survivors on the "
           f"greedy path; invariants hold, every page back, pools unmoved "
           f"({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 3k: telemetry, fault points and durable snapshots -----------------
+def telemetry_engine(cfg, params, device="cuda", **kw):
+    """An engine of phase 3a's geometry (4 slots, 320 pages of 16, bf16,
+    horizons of 8, chunks of 256)."""
+    from paddle_tpu_torch.inference.paged import ServingEngine
+    return ServingEngine(params, cfg, **dict(dict(
+        num_slots=4, page_size=16, num_pages=320, max_pages_per_seq=72,
+        dtype=torch.bfloat16, prompt_bucket=32, decode_horizon=8,
+        prefill_chunk=256, device=device), **kw))
+
+
+def device_sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def warm_engine(eng, vocab):
+    """3a's warm-up: a dense and a chunked prefill, a few horizons (the
+    decode graph's capture)."""
+    warm = np.random.default_rng(1)
+    for n in (64, 300):
+        eng.submit(warm.integers(1, vocab, n), max_new_tokens=9)
+    eng.run()
+    device_sync(eng.device)
+
+
+def on_path(succ, reqs, streams, what):
+    """Every stream is the successor model's greedy path from its prompt."""
+    for (p, m), got in zip(reqs, streams):
+        require(list(got) == path(succ, succ[p[-1]], m),
+                f"{what}: a stream left the model's greedy path")
+
+
+def serve_turn(eng, reqs, count_syncs=False):
+    """``reqs`` through ``eng`` from an empty prefix cache: (streams, wall
+    seconds, synchronising calls or None).  With ``count_syncs`` the run is
+    under ``torch.cuda.set_sync_debug_mode("warn")`` and the calls that
+    warn are counted (not the mode's own notice, which the first switch-on
+    of a process prints: "Synchronization debug mode is a prototype
+    feature ...")."""
+    import warnings
+    eng.release_cache()
+    device_sync(eng.device)
+    syncs = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+            done = eng.run()
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode(0)
+            device_sync(eng.device)
+            wall = time.perf_counter() - t0
+        finally:
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode(0)
+    if count_syncs:
+        syncs = sum("synchroniz" in str(w.message)
+                    and "debug mode" not in str(w.message) for w in caught)
+    return [list(done[r].generated) for r in rids], wall, syncs
+
+
+def telemetry_on_off(cfg, params, succ, overlap, card):
+    """3k (a): 3a's traffic through a telemetry-off and a telemetry-on
+    engine in turns (off, on, on, off), each pass under
+    ``torch.cuda.set_sync_debug_mode("warn")``: equal streams (the greedy
+    path), equal ``jit_variants()``, equal synchronising calls in every
+    pass, tokens/s of each turn, and the on engine's reports over its last
+    turn."""
+    from paddle_tpu_torch.observability import Telemetry
+    reqs = traffic(cfg.vocab_size)
+    off = telemetry_engine(cfg, params, overlap=overlap)
+    tel = Telemetry()
+    on = telemetry_engine(cfg, params, overlap=overlap, telemetry=tel)
+    for eng in (off, on):
+        warm_engine(eng, cfg.vocab_size)
+    tps = {"off": [], "on": []}
+    syncs = []
+    for name, eng in (("off", off), ("on", on), ("on", on), ("off", off)):
+        if eng is on:
+            tel.reset_window()
+        streams, wall, n = serve_turn(eng, reqs, count_syncs=True)
+        on_path(succ, reqs, streams, f"3k overlap={overlap} telemetry {name}")
+        tps[name].append(sum(m for _, m in reqs) / wall)
+        syncs.append(n)
+    require(len(set(syncs)) == 1 and syncs[0] > 0,
+            f"telemetry changed the synchronising calls, or the debug mode "
+            f"counted none (the prefills' pageable copies synchronise): off, "
+            f"on, on, off {syncs}")
+    require(on.jit_variants() == off.jit_variants(),
+            f"jit_variants differ: {on.jit_variants()} / "
+            f"{off.jit_variants()}")
+    require_graphs(on)
+    require_graphs(off)
+    snap = tel.registry.snapshot()
+    ttft, tpot = snap["serve.ttft_s"], snap["serve.tpot_s"]
+    require(ttft["count"] == len(reqs) and tpot["count"] == len(reqs),
+            f"histogram counts {ttft['count']} / {tpot['count']}")
+    util = tel.utilization_report(window_s=sum(m for _, m in reqs)
+                                  / tps["on"][-1])
+    shares = {k: util[k] for k in ("host_busy_frac", "dispatch_frac",
+                                   "device_wait_frac", "gap_frac",
+                                   "device_idle_frac_est")}
+    require(abs(sum(shares[k] for k in ("host_busy_frac", "dispatch_frac",
+                                         "device_wait_frac", "gap_frac"))
+                - 1.0) < 0.01, f"utilization shares {shares}")
+    mem = tel.memory_report()
+    comp = tel.compile_report()
+    require(comp["total_compiles"] == sum(on.jit_variants().values()),
+            f"captures {comp} against {on.jit_variants()}")
+    pre = "overlap" if overlap else "decode"
+    phases = {k: round(v["total_s"] * 1e3, 2)
+              for k, v in util["per_phase"].items()}
+    require({f"{pre}_dispatch", f"{pre}_sync", f"{pre}_record",
+             "sched"} <= set(phases), f"phases {sorted(phases)}")
+    print(f"  overlap={overlap}: greedy streams equal, telemetry on and off "
+          f"(the model's greedy path); jit_variants {on.jit_variants()} "
+          f"both; synchronising calls a pass (off, on, on, off): {syncs}")
+    print(f"    tokens/s in turns: off {tps['off'][0]:.1f}, on "
+          f"{tps['on'][0]:.1f}, on {tps['on'][1]:.1f}, off "
+          f"{tps['off'][1]:.1f} on {card}")
+    print(f"    telemetry (last on turn): TTFT p50 {ttft['p50'] * 1e3:.1f} / "
+          f"p95 {ttft['p95'] * 1e3:.1f} ms, TPOT p50 "
+          f"{tpot['p50'] * 1e3:.2f} ms; utilization {json.dumps(shares)}; "
+          f"phase ms {json.dumps(phases)}")
+    print(f"    memory: peak occupancy {mem['peak_occupancy_frac']}, min free "
+          f"pages {mem['min_free_pages']}, device bytes "
+          f"{mem['last'].get('device_bytes_in_use')}; captures "
+          f"{comp['total_compiles']} ({json.dumps(comp['per_fn'])}), wall "
+          f"{comp['compile_s_total']:.3f} s")
+    out = dict(tps=tps, syncs=syncs, ttft_p50_ms=ttft["p50"] * 1e3,
+               ttft_p95_ms=ttft["p95"] * 1e3, tpot_p50_ms=tpot["p50"] * 1e3,
+               shares=shares, peak_occupancy=mem["peak_occupancy_frac"],
+               compiles=comp)
+    del off, on
+    return out
+
+
+# the pool-pressure drill's seed: with it the plan fires on a decode step
+# where every slot is short of a page, so the ladder reaches preemption (the
+# schedule is the greedy path's, the same at any width)
+PRESSURE_SEED = 4
+
+
+def fault_drills(cfg, params, succ, seed=PRESSURE_SEED):
+    """3k (b): on an int8-KV engine with telemetry, a seeded
+    ``serve.pool_pressure`` plan (prob 0.4, 6 fires), a ``pagepool.alloc``
+    trigger and a ``serve.wedge`` step."""
+    from paddle_tpu_torch.observability import Telemetry
+    from paddle_tpu_torch.resilience import inject
+    tel = Telemetry(flight_capacity=8192)
+    eng = telemetry_engine(cfg, params, kv_dtype="int8", telemetry=tel)
+    reqs = traffic(cfg.vocab_size)
+    with inject({"serve.pool_pressure": dict(action="trigger", prob=0.4,
+                                             count=6)}, seed=seed) as plan:
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+        done = eng.run()
+    on_path(succ, reqs, [done[r].generated for r in rids],
+            "3k pool pressure")
+    names = tel.flight.event_names()
+    require(plan.fired() >= 1 and eng.preemptions >= 1,
+            f"pressure fired {plan.fired()}, preemptions {eng.preemptions}")
+    ladder = [names.index(n) for n in ("submit", "admit", "evict",
+                                       "preempt")]
+    require(ladder == sorted(ladder), f"flight ladder order {ladder}")
+    dumps = sum(d["reason"] == "injected_fault" for d in tel.flight.dumps)
+    eng.check_invariants()
+    eng.release_cache()
+    require(eng.pool.num_free == eng.pool.num_pages, "every page came back")
+    print(f"  serve.pool_pressure (seed {seed}, prob 0.4, count 6: "
+          f"{plan.fired()} fires in {plan.hits()} consults): {len(rids)} "
+          f"streams on the greedy "
+          f"path, {eng.preemptions} preemptions, {eng.cache_evictions} "
+          f"evictions, {dumps} flight dumps; the ladder submit -> admit -> "
+          f"evict -> preempt at ring events {ladder}; every page back")
+
+    p, m = reqs[1]
+    with inject({"pagepool.alloc": dict(action="trigger", at=0)}) as plan:
+        rid = eng.submit(p, max_new_tokens=m)
+        try:
+            eng.step()
+            raise RuntimeError("chip_smoke: pagepool.alloc did not fire")
+        except RuntimeError as e:
+            require("exhausted (injected)" in str(e), f"alloc fault: {e}")
+    eng.check_invariants()
+    on_path(succ, [(p, m)], [eng.run()[rid].generated], "3k alloc fault")
+    s0 = eng.stats()
+    rid = eng.submit(p, max_new_tokens=m)
+    with inject({"serve.wedge": dict(action="trigger", at=0,
+                                     match={"engine": eng.name})}):
+        progressed = eng.step()
+    require(not progressed and eng.stats() == s0
+            and tel.flight.events()[-2]["point"] == "serve.wedge",
+            "a wedged step did work")
+    on_path(succ, [(p, m)], [eng.run()[rid].generated], "3k after wedge")
+    eng.check_invariants()
+    eng.release_cache()
+    require(eng.pool.num_free == eng.pool.num_pages, "every page came back")
+    print("  pagepool.alloc trigger: the admission raised the injected "
+          "exhaustion, no reference leaked, the request then served on the "
+          "greedy path; serve.wedge: the step returned no progress with "
+          "every counter unchanged")
+    return eng.stats()
+
+
+def durable_snapshots(cfg, params, succ, root):
+    """3k (b) crash and (c): an overlap=True bf16 engine with telemetry
+    serves phase 3i's traffic; a full-KV ``save_engine`` with a dispatch in
+    flight; a second save torn by ``serve.snapshot`` trigger and a third
+    killed by ``ckpt.commit``, after each of which the first stays the
+    newest intact snapshot; then a ``serve.crash`` raise mid-step, its
+    flight dump written to a file, and a fresh engine restored through
+    ``restore_engine`` continues every stream on the greedy path."""
+    from paddle_tpu_torch.observability import Telemetry
+    from paddle_tpu_torch.resilience import InjectedFault, inject
+    from paddle_tpu_torch.serving import EngineSnapshotManager
+    dump_path = os.path.join(root, "flight.jsonl")
+    tel = Telemetry(flight_dump_path=dump_path)
+    eng = telemetry_engine(cfg, params, num_pages=96, max_pages_per_seq=24,
+                           overlap=True, telemetry=tel)
+    reqs = [(p, m) for p, m, _ in lifecycle_traffic(cfg.vocab_size, succ)]
+    mgr = EngineSnapshotManager(os.path.join(root, "snapshots"),
+                                keep_last=None)
+    rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+    for _ in range(4):
+        eng.step()
+    require(eng.inflight_depth == 1, "a dispatch in flight at the save")
+    t0 = time.perf_counter()
+    first = mgr.save_engine(eng)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(first, f))
+                 for f in os.listdir(first))
+    meta = json.load(open(os.path.join(first, "metadata.json")))["tensors"]
+    pages = meta["kv_pages"]["shape"][0]
+    eng.step()
+    with inject({"serve.snapshot": dict(action="trigger", at=0)}):
+        torn = mgr.save_engine(eng)
+    require(mgr.find_latest_complete() == first and torn != first,
+            "the torn snapshot was taken for the newest")
+    eng.step()
+    with inject({"ckpt.commit": dict(at=0)}):
+        try:
+            mgr.save_engine(eng)
+            raise RuntimeError("chip_smoke: ckpt.commit did not fire")
+        except InjectedFault:
+            pass
+    require(mgr.find_latest_complete() == first,
+            "a killed commit displaced the newest intact snapshot")
+    with inject({"serve.crash": dict(at=0, match={"phase": "record"})}):
+        try:
+            eng.run()
+            raise RuntimeError("chip_smoke: serve.crash did not fire")
+        except InjectedFault as e:
+            tel.fault_dump("injected_fault", point="serve.crash",
+                           error=str(e)[:200])
+    eng.check_invariants()
+    with open(dump_path) as f:
+        dumps = [json.loads(line) for line in f]
+    require(dumps and dumps[-1]["extra"]["point"] == "serve.crash",
+            "the crash's flight dump is not in the file")
+    crashed_at = eng._step_seq
+    del eng
+    fresh = telemetry_engine(cfg, params, num_pages=96, max_pages_per_seq=24,
+                             overlap=True)
+    t0 = time.perf_counter()
+    got, applied = mgr.restore_engine(fresh)
+    restore_s = time.perf_counter() - t0
+    require(got == first and applied == "full_kv", f"restored {got}")
+    done = fresh.run()
+    on_path(succ, reqs, [done[r].generated for r in rids],
+            "3k restored after the crash")
+    fresh.check_invariants()
+    fresh.release_cache()
+    require(fresh.pool.num_free == fresh.pool.num_pages,
+            "every page came back")
+    print(f"  save_engine (full KV, a dispatch in flight): {pages} pages, "
+          f"{nbytes / 2**20:.1f} MiB on disk ({nbytes / pages / 2**20:.2f} "
+          f"MiB a page), {save_s:.3f} s; a save torn by serve.snapshot and "
+          f"one killed by ckpt.commit left it the newest intact snapshot")
+    print(f"  serve.crash at step {crashed_at}: flight dump of "
+          f"{len(dumps[-1]['events'])} events written "
+          f"({os.path.getsize(dump_path)} B, {len(dumps)} dumps); a fresh "
+          f"engine restored in {restore_s:.3f} s ({applied}) continued "
+          f"{len(rids)} streams on the greedy path")
+    return dict(snapshot_bytes=nbytes, pages=pages, save_s=save_s,
+                restore_s=restore_s)
+
+
+def profiler_bridge(cfg, params):
+    """3k (d): under torch.profiler, with ``Telemetry(profiler_bridge=True)``
+    the engine's ``serve.decode_dispatch`` host spans enclose its decode
+    graph launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.observability import Telemetry
+    eng = telemetry_engine(cfg, params, num_pages=96, max_pages_per_seq=24,
+                           telemetry=Telemetry(profiler_bridge=True))
+    warm_engine(eng, cfg.vocab_size)
+    r = np.random.default_rng(13)
+    for _ in range(4):
+        eng.submit(r.integers(1, cfg.vocab_size, 64), max_new_tokens=33)
+    eng.step()                                   # the admissions
+    n0 = eng.decode_model_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+    dispatches = (eng.decode_model_steps - n0) // eng.decode_horizon
+    eng.run()
+    evs = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    # the host ranges (the trace also mirrors each as a device annotation)
+    spans = [e for e in evs if e.name == "serve.decode_dispatch"
+             and e.device_type == cpu]
+    launches = [e for e in evs if e.name == "cudaGraphLaunch"]
+    inside = [e for e in launches if any(
+        s.time_range.start <= e.time_range.start
+        and e.time_range.end <= s.time_range.end for s in spans)]
+    kernels = sum(1 for e in evs if "ragged_paged_attention" in e.name
+                  and e.device_type == torch.autograd.DeviceType.CUDA)
+    require(len(spans) == dispatches > 0 and len(inside) == len(launches)
+            == dispatches and kernels > 0,
+            f"bridge spans {len(spans)}, graph launches {len(launches)} "
+            f"({len(inside)} inside a span), dispatches {dispatches}, "
+            f"attention kernels {kernels}")
+    print(f"  profiler bridge: {len(spans)} serve.decode_dispatch spans in "
+          f"the torch.profiler trace enclose all {len(launches)} decode "
+          f"graph launches; {kernels} ragged-attention kernels on the card "
+          f"in the window")
+
+
+def phase_telemetry(pa, cfg, params, succ, card):
+    """3k: the serving engine's telemetry, fault points and durable
+    snapshots at 7B widths on the successor model (parts a-d), and the
+    phase's launches of rows 1-2 (e)."""
+    import shutil
+    import tempfile
+    reset_counts(pa)
+    t_start = time.perf_counter()
+    out = {}
+    for overlap in (False, True):
+        out[overlap] = telemetry_on_off(cfg, params, succ, overlap, card)
+        torch.cuda.empty_cache()
+    fault_drills(cfg, params, succ)
+    root = tempfile.mkdtemp(prefix="chip_smoke_3k_")
+    try:
+        out["snap"] = durable_snapshots(cfg, params, succ, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    profiler_bridge(cfg, params)
+    launches, quant_launches, ref_calls = counts(pa)
+    require(launches > 0 and quant_launches > 0 and ref_calls == 0,
+            f"3k launches: row 1 {launches}, row 2 {quant_launches}, plain "
+            f"version {ref_calls}")
+    torch.cuda.empty_cache()
+    print(f"  phase 3k launches: row 1 {launches}, row 2 {quant_launches} "
+          f"(graph replays included), plain version {ref_calls}; "
+          f"{time.perf_counter() - t_start:.1f} s")
+    out["launches"] = (launches, quant_launches)
+    return out
 
 
 # -- phase 3c: the train step -------------------------------------------------
@@ -5369,7 +5754,7 @@ def main():
     ap.add_argument("--parent-engine", metavar="ROOT", default=None,
                     help="checkout of another commit: its phases 3a and 3b "
                          "run in a process of their own before this "
-                         "commit's and again after phase 3i")
+                         "commit's and again after phase 3k")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -5449,6 +5834,10 @@ def main():
         "restore, export_kv / import_kv, cancel and timeout with a dispatch "
         "in flight; two overlap=True engines sharing the weights)")
     phase_lifecycle(cfg, params, serve_q["succ"])
+    say("phase 3k: the serving engine's telemetry, fault points and durable "
+        "snapshots at LLaMA-2 7B widths (telemetry on against off, fault "
+        "drills, crash-consistent snapshots, the profiler bridge)")
+    obs = phase_telemetry(pa, cfg, params, serve_q["succ"], card)
     del params
     torch.cuda.empty_cache()
     if args.parent_engine:
@@ -5545,6 +5934,18 @@ def main():
         print(f"  serving, bf16 KV, overlap={overlap}, in turns: "
               + ", ".join(f"{t:.1f}" for t, _, _ in ts) + " tokens/s")
     print(f"  draft acceptance {serve_q['acceptance']:.3f}")
+    for overlap in (False, True):
+        o = obs[overlap]
+        print(f"  telemetry, overlap={overlap}: tokens/s off "
+              + " / ".join(f"{t:.1f}" for t in o["tps"]["off"]) + ", on "
+              + " / ".join(f"{t:.1f}" for t in o["tps"]["on"])
+              + f"; TTFT p50 {o['ttft_p50_ms']:.1f} / p95 "
+              f"{o['ttft_p95_ms']:.1f} ms, TPOT p50 {o['tpot_p50_ms']:.2f} "
+              f"ms; synchronising calls {o['syncs']} on {card}")
+    print(f"  engine snapshot: {obs['snap']['pages']} pages, "
+          f"{obs['snap']['snapshot_bytes'] / 2**20:.1f} MiB, save "
+          f"{obs['snap']['save_s']:.3f} s, restore "
+          f"{obs['snap']['restore_s']:.3f} s on {card}")
     print(f"  train step: {train['tokens_per_s']:.1f} tokens/s, mfu_share "
           f"{train['mfu']:.4f}, {train['step_ms']:.1f} ms per step, loss "
           f"{train['losses'][0]:.4f} -> {train['losses'][-1]:.4f}, peak "

@@ -66,8 +66,23 @@ requests with their pages to another engine; the state dict and packet
 keep the JAX engine's layout and numpy planes, so a packet crosses
 between the two packages.
 
-Not ported yet (later slices): telemetry, the fault points, tensor-
-parallel meshes and the durable snapshot writer.
+Observability: ``ServingEngine(..., telemetry=True)`` (or a configured
+``observability.Telemetry``) threads request-lifecycle traces, latency
+histograms (TTFT / TPOT / queue / per-phase host timing), the per-step pool
+memory series, capture accounting and a crash flight recorder through the
+step loop; ``stats_snapshot()`` returns an ``EngineStats`` whose ``delta``
+is a window's exact activity.  Telemetry reads host clocks at the points
+where the engine already syncs or launches: it adds no synchronising call
+and changes no captured graph.  Off (the default) costs one ``None`` check
+per hook site.
+
+Fault points (``resilience.faults``): ``PagePool.alloc`` consults
+``pagepool.alloc``; each ``step()`` consults ``serve.wedge``,
+``serve.pool_pressure`` and ``serve.crash`` (phases ``sched`` and
+``record``), as the JAX engine does.  ``serving.EngineSnapshotManager``
+writes snapshots durably through the checkpoint commit protocol.
+
+Not ported yet: tensor-parallel meshes.
 """
 from __future__ import annotations
 
@@ -86,8 +101,11 @@ from .. import resolve_device
 from ..models.llama import (_sample_per_request, build_llama_paged_decode,
                             gather_kv_pages, make_paged_decode_horizon,
                             scatter_kv_pages)
+from ..observability.metrics import EngineStats
+from ..observability.telemetry import Telemetry
 from ..ops.paged_attention import (ragged_paged_attention,
                                    ragged_paged_attention_ref)
+from ..resilience.faults import InjectedFault, fault_point
 from ..serving.quant import page_bytes as _page_bytes
 from ..serving.quant import quantize_params
 
@@ -107,7 +125,8 @@ class AdmissionRejected(RuntimeError):
 
 
 class EngineStalledError(RuntimeError):
-    """run() made no progress for max_stall_steps consecutive steps."""
+    """run() made no progress for max_stall_steps consecutive steps (only
+    reachable under a never-clearing injected pool fault or wedge)."""
 
 
 class PageDoubleFreeError(RuntimeError):
@@ -146,18 +165,28 @@ class PagePool:
         """Pages holding at least one reference."""
         return len(self._refs)
 
+    @property
+    def num_referenced(self) -> int:
+        """Total references across all page tables + the prefix cache
+        (>= num_allocated; the excess is prefix sharing)."""
+        return sum(self._refs.values())
+
     def refcount(self, page: int) -> int:
         return self._refs.get(int(page), 0)
 
     def alloc(self, n: int):
         """Pop n pages at refcount 1; raises RuntimeError when the pool
-        cannot satisfy the request (callers check ``num_free`` first)."""
+        cannot satisfy the request (callers check ``num_free`` first).
+        Consults the ``pagepool.alloc`` fault point: a 'trigger' spec forces
+        the exhausted path, a 'raise' spec injects InjectedFault."""
         if n < 0:
             raise ValueError("alloc(n): n must be >= 0")
-        if n > len(self._free):
+        injected = fault_point("pagepool.alloc", n=n, free=len(self._free))
+        if n > len(self._free) or injected is not None:
             raise RuntimeError(
-                f"PagePool exhausted: requested {n} pages, "
-                f"{len(self._free)} free of {self.num_pages}")
+                f"PagePool exhausted{' (injected)' if injected else ''}: "
+                f"requested {n} pages, {len(self._free)} free of "
+                f"{self.num_pages}")
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._refs[p] = 1
@@ -574,16 +603,18 @@ class _LaneRec:
 class _Inflight:
     """One decode dispatch not yet drained: its tokens on their way to the
     host (``out``, a :class:`_Fetch`), its horizon ``K``, the lane records
-    the drain replays, and ``srcs`` — slot identity per lane at dispatch
+    the drain replays, ``srcs`` — slot identity per lane at dispatch
     time, so the next dispatch carries on the device only lanes whose slot
-    is unchanged."""
-    __slots__ = ("out", "K", "lanes", "srcs")
+    is unchanged — and ``overlapped``, whether an overlap engine issued it
+    (the telemetry phase names of its drain)."""
+    __slots__ = ("out", "K", "lanes", "srcs", "overlapped")
 
-    def __init__(self, out, K, lanes, srcs):
+    def __init__(self, out, K, lanes, srcs, overlapped):
         self.out = out
         self.K = K
         self.lanes = lanes
         self.srcs = srcs
+        self.overlapped = overlapped
 
 
 class _Fetch:
@@ -633,12 +664,18 @@ class _Captured:
     the memory pool ``pool``; later calls replay the graph, whose outputs
     (``out``) the next replay of any graph of the pool may overwrite, so
     callers consume them first.  ``generator``: the torch.Generator a
-    sampling graph draws from.  A failed capture or replay raises."""
+    sampling graph draws from.  ``on_capture(name, n, dur_s)``, when given,
+    hears of each capture with the wall seconds of its warm-up run and the
+    capture together (the counterpart of a compile-cache miss).  A failed
+    capture or replay raises."""
 
-    def __init__(self, fn, pool, generator=None):
+    def __init__(self, fn, pool, generator=None, name="dispatch",
+                 on_capture=None):
         self.fn = fn
         self.pool = pool               # None: the CPU
         self.generator = generator
+        self.name = name
+        self.on_capture = on_capture
         self.graph = None
         self.out = None
         self.added = None              # launch counts one replay adds
@@ -647,8 +684,11 @@ class _Captured:
         if self.pool is None:
             return self.fn()
         if self.graph is None:
+            t0 = time.perf_counter()
             out = self.fn()
             self._capture()
+            if self.on_capture is not None:
+                self.on_capture(self.name, 1, time.perf_counter() - t0)
             return out
         self.graph.replay()
         for (fn, attr), n in zip(_COUNTED, self.added):
@@ -704,7 +744,12 @@ class ServingEngine:
     engine's device; on a CUDA device the decode horizons and the verify
     step run as captured CUDA graphs (module docstring), and a sampled
     graph's replays advance that generator, so sampled streams differ from
-    an eager engine's draws (greedy streams are equal)."""
+    an eager engine's draws (greedy streams are equal).
+    ``telemetry=True`` (or an ``observability.Telemetry``) records
+    request-lifecycle traces, latency histograms, the memory series and the
+    flight recorder without touching outputs; the engine's timestamps then
+    come from the telemetry's clock.  ``name`` rides the ``serve.crash`` /
+    ``serve.wedge`` fault-point ctx, so a drill can target one engine."""
 
     def __init__(self, params, config, num_slots: int = 4,
                  page_size: int = 16, num_pages: int | None = None,
@@ -714,9 +759,12 @@ class ServingEngine:
                  max_queue: int | None = None, prefix_cache: bool = True,
                  prefill_chunk: int | None = None,
                  speculative: int | None = None, spec_max_ngram: int = 3,
-                 overlap: bool = False, kv_dtype: str | None = None,
+                 overlap: bool = False,
+                 telemetry: "Telemetry | bool | None" = None,
+                 name: str = "engine", kv_dtype: str | None = None,
                  quantize=None, device=None):
         self.device = resolve_device(device)
+        self.name = str(name)
         self.config = config
         self.params = tuple({k: v.to(self.device) for k, v in tree.items()}
                             for tree in params)
@@ -744,8 +792,16 @@ class ServingEngine:
         self.spec_max_ngram = max(1, int(spec_max_ngram))
         self.overlap = bool(overlap)
         self._inflight: _Inflight | None = None
-        self._clock = time.perf_counter
+        # telemetry=True -> a default Telemetry; None/False -> off, where
+        # every hook site is one `is not None` check
+        self.telemetry: Telemetry | None = \
+            Telemetry() if telemetry is True else (telemetry or None)
+        # one clock domain: request timestamps and deadlines share the
+        # telemetry's clock when one is attached
+        self._clock = self.telemetry.clock if self.telemetry is not None \
+            else time.perf_counter
         self._dtype = dtype
+        self._page_bytes = None        # lazy page_bytes cache
         (init_pages, self._prefill, self._prefill_chunk_fn, decode_step,
          self._verify_fn) = build_llama_paged_decode(
             config, page_size=page_size, num_pages=num_pages, dtype=dtype,
@@ -774,6 +830,7 @@ class ServingEngine:
         self._next_rid = 0
         self.max_queue = None if max_queue is None else int(max_queue)
         self._admit_seq = 0
+        self._pressure = False         # this-step injected pool pressure
         self._step_seq = 0             # step() invocations (chunk pacing)
         self.steps_run = 0             # decode-horizon + verify dispatches
         self.decode_model_steps = 0    # decode_step calls (K per horizon)
@@ -879,7 +936,8 @@ class ServingEngine:
                 return out
 
             run = self._horizon_runs[K, greedy] = _Captured(
-                fn, self._graph_pool, None if greedy else gen)
+                fn, self._graph_pool, None if greedy else gen,
+                name="decode_step", on_capture=self._capture_hook())
         return run
 
     def _verify_exec(self) -> _Captured:
@@ -895,8 +953,22 @@ class ServingEngine:
                                               pv, d["n_q"])
                 return logits0, gtoks
 
-            self._verify_run = _Captured(fn, self._graph_pool)
+            self._verify_run = _Captured(fn, self._graph_pool,
+                                         name="verify_step",
+                                         on_capture=self._capture_hook())
         return self._verify_run
+
+    def _capture_hook(self):
+        """The capture-accounting callback of a ``_Captured``: reports a
+        capture to the telemetry (``Telemetry.compiled``), if any.  It holds
+        the engine weakly, as the dispatch closures hold no engine."""
+        ref = weakref.ref(self)
+
+        def hook(name, n, dur_s):
+            eng = ref()
+            if eng is not None and eng.telemetry is not None:
+                eng.telemetry.compiled(name, n, dur_s)
+        return hook
 
     def jit_variants(self) -> dict:
         """{model fn name: dispatch variants built}: the decode horizons
@@ -976,18 +1048,23 @@ class ServingEngine:
                 f"{self.pool.num_pages} — raise num_pages")
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             self.rejections += 1
+            if self.telemetry is not None:
+                self.telemetry.rejected(len(self._queue), self.max_queue)
             raise AdmissionRejected(
                 f"admission queue full ({len(self._queue)}/{self.max_queue} "
                 f"waiting) — backpressure, retry later")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(Request(
+        req = Request(
             rid=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
             temperature=float(temperature), top_p=float(top_p),
             eos_token_id=eos_token_id, submit_time=now, deadline=deadline,
             generated=list(generated), on_token=on_token,
             _engine=weakref.ref(self),
-            trace_id=None if trace_id is None else int(trace_id)))
+            trace_id=None if trace_id is None else int(trace_id))
+        self._queue.append(req)
+        if self.telemetry is not None:
+            self.telemetry.submitted(req, queue_depth=len(self._queue))
         return rid
 
     def lookup(self, rid: int) -> Request | None:
@@ -1033,9 +1110,18 @@ class ServingEngine:
                     self._queue.remove(r)
                     live = True
                     break
+        if live and self.telemetry is not None:
+            # a cancel terminates the live trace record (a finished rid's
+            # record already terminated at retirement)
+            self.telemetry.cancelled(rid)
         return live or self._finished.pop(rid, None) is not None
 
     # -- internals ---------------------------------------------------------
+    def _avail(self) -> int:
+        """Free pages as this step sees them: zero while an injected
+        ``serve.pool_pressure`` window is active (exhaustion drills)."""
+        return 0 if self._pressure else self.pool.num_free
+
     def _evict(self, n: int) -> int:
         """Ladder rung between stall and preempt: reclaim up to n pages
         from the prefix cache (LRU leaf-first)."""
@@ -1043,6 +1129,10 @@ class ServingEngine:
             return 0
         freed = self.cache.evict(n)
         self.cache_evictions += freed
+        if self.telemetry is not None:
+            # recorded even at freed == 0: walking this rung is what the
+            # flight-recorder ladder shows (admit -> evict -> preempt)
+            self.telemetry.evicted(requested=n, freed=freed)
         return freed
 
     def _register_pages(self, slot, valid: int, with_partial: bool):
@@ -1073,6 +1163,8 @@ class ServingEngine:
         slot = self._release_slot(s)
         slot.req.finish_time = self._clock()
         self._finished[slot.req.rid] = slot.req
+        if self.telemetry is not None:
+            self.telemetry.retired(slot.req)
 
     def _preempt(self, s: int):
         """Park the slot's written KV in the prefix cache, return its page
@@ -1083,6 +1175,9 @@ class ServingEngine:
         slot = self._release_slot(s)
         slot.req.preemptions += 1
         self.preemptions += 1
+        if self.telemetry is not None:
+            # storm detection lives in the telemetry
+            self.telemetry.preempted(slot.req, step=self._step_seq)
         self._queue.appendleft(slot.req)
 
     def _pick_victim(self) -> int:
@@ -1120,6 +1215,8 @@ class ServingEngine:
                     req.finish_time = now
                     self.timeouts += 1
                     self._finished[req.rid] = req
+                    if self.telemetry is not None:
+                        self.telemetry.retired(req)
                 else:
                     keep.append(req)
             self._queue = keep
@@ -1134,6 +1231,9 @@ class ServingEngine:
             slot.draft.append(tok)
         if req.first_token_time == 0.0:
             req.first_token_time = self._clock()
+            if self.telemetry is not None:
+                # once per request: the per-token path stays telemetry-free
+                self.telemetry.first_token(req)
         if req.on_token is not None:
             req.on_token(tok)
         self.tokens_generated += 1
@@ -1160,6 +1260,8 @@ class ServingEngine:
         self.pool.free(slot.pages)
         slot.req.finish_time = self._clock()
         self._finished[slot.req.rid] = slot.req
+        if self.telemetry is not None:
+            self.telemetry.retired(slot.req)
 
     def _cow(self, s: int, idx: int, src: int | None = None):
         """Copy-on-write: give slot s its own copy of the (shared) page at
@@ -1182,6 +1284,8 @@ class ServingEngine:
             slot.pages[idx] = dst
         self._page_tables[s, idx] = dst
         self.cow_copies += 1
+        if self.telemetry is not None:
+            self.telemetry.cow_copy(slot.req.rid, src=int(src), dst=int(dst))
 
     def _sample_one(self, logits, req):
         """First-token sample of a sampled (temperature > 0) request, on
@@ -1213,13 +1317,23 @@ class ServingEngine:
             if pin:
                 self.pool.share(pin)
             need = total_pages - n_shared
-            if need > self.pool.num_free:
-                self._evict(need - self.pool.num_free)
-            if need > self.pool.num_free:
+            if need > self._avail():
+                self._evict(need - self._avail())
+            if need > self._avail():
                 if pin:
                     self.pool.free(pin)
                 return                 # wait for retirements to free pages
-            own = self.pool.alloc(need)
+            try:
+                own = self.pool.alloc(need)
+            except BaseException as exc:
+                if pin:                # an injected pagepool.alloc fault:
+                    self.pool.free(pin)  # roll back, no reference leaks
+                if self.telemetry is not None \
+                        and isinstance(exc, InjectedFault):
+                    self.telemetry.fault_dump("injected_fault",
+                                              point="pagepool.alloc",
+                                              error=str(exc)[:200])
+                raise
             self._queue.popleft()
             s = free_slots[0]
             pages = shared + own
@@ -1252,8 +1366,17 @@ class ServingEngine:
                 self.cache_hit_tokens += matched
                 req.cached_prefix_tokens += matched
             self.prefill_tokens += T - matched
-            if req.admit_time == 0.0:
-                req.admit_time = self._clock()
+            # first admission only, so queue_time keeps meaning "wait for a
+            # slot" across preemption re-admissions
+            admit_now = self._clock()
+            first_admit = req.admit_time == 0.0
+            if first_admit:
+                req.admit_time = admit_now
+            if self.telemetry is not None:
+                self.telemetry.admitted(
+                    req, slot=s, t=admit_now, resuming=resuming,
+                    first=first_admit, cached_tokens=matched,
+                    prefill_tokens=T - matched)
             chunked = self.prefill_chunk is not None \
                 and (T - matched) > self.prefill_chunk
             if matched == 0 and not chunked:
@@ -1276,9 +1399,23 @@ class ServingEngine:
         Tb = min(Tb, self.config.max_position_embeddings)
         ids = np.zeros((1, Tb), np.int32)
         ids[0, :T] = ctx
-        logits, _, _ = self._prefill(self.params, self._tensor(ids), T,
-                                     self._tensor(row), self._pages_k,
-                                     self._pages_v)
+        tel = self.telemetry
+        if tel is not None:
+            t_pf0 = tel.clock()
+            ann = tel.bridge_begin("prefill_dense")
+        try:
+            logits, _, _ = self._prefill(self.params, self._tensor(ids), T,
+                                         self._tensor(row), self._pages_k,
+                                         self._pages_v)
+        finally:
+            if tel is not None:
+                tel.bridge_end(ann)
+        if tel is not None:
+            # the dispatch span lands before the first token is recorded,
+            # so the request record reads admitted -> prefill_dense ->
+            # first_token
+            tel.prefill_dispatch(req.rid, pos=0, tokens=T, t0=t_pf0,
+                                 kind="prefill_dense")
         if self.cache is not None:
             self.cache.register(ctx, slot.pages)
         if slot.resuming:
@@ -1323,10 +1460,20 @@ class ServingEngine:
         Pb = min(self.max_pages_per_seq, math.ceil(ctx_pages / 4) * 4)
         ids = np.zeros((1, Cb), np.int32)
         ids[0, :c] = slot.ctx[pos:pos + c]
-        logits, tok_g, _, _ = self._prefill_chunk_fn(
-            self.params, self._tensor(ids), pos, c,
-            self._tensor(self._page_tables[s, :Pb].copy()),
-            self._pages_k, self._pages_v)
+        tel = self.telemetry
+        if tel is not None:
+            t_ck0 = tel.clock()
+            ann = tel.bridge_begin("prefill_chunk")
+        try:
+            logits, tok_g, _, _ = self._prefill_chunk_fn(
+                self.params, self._tensor(ids), pos, c,
+                self._tensor(self._page_tables[s, :Pb].copy()),
+                self._pages_k, self._pages_v)
+        finally:
+            if tel is not None:
+                tel.bridge_end(ann)
+        if tel is not None:
+            tel.prefill_dispatch(req.rid, pos=pos, tokens=c, t0=t_ck0)
         self.prefill_chunks += 1
         slot.chunk_step = self._step_seq
         pos += c
@@ -1371,18 +1518,18 @@ class ServingEngine:
             w0 = int(self._lengths[s]) // self.page_size
             if w0 < len(slot.pages) \
                     and self.pool.refcount(slot.pages[w0]) > 1:
-                if self.pool.num_free < 1:
+                if self._avail() < 1:
                     self._evict(1)
-                if self.pool.num_free < 1:
+                if self._avail() < 1:
                     continue
                 self._cow(s, w0)
             m = min(want, self._remaining(s))
             need = math.ceil((int(self._lengths[s]) + m) / self.page_size)
             grow = need - len(slot.pages)
             if grow > 0:
-                if grow > self.pool.num_free:
-                    self._evict(grow - self.pool.num_free)
-                if grow > self.pool.num_free:
+                if grow > self._avail():
+                    self._evict(grow - self._avail())
+                if grow > self._avail():
                     continue
                 pages = self.pool.alloc(grow)
                 start = len(slot.pages)
@@ -1430,14 +1577,30 @@ class ServingEngine:
             h["n_q"][s] = 1 + len(d)
         h["lengths"][:] = self._lengths
         h["tables"][:] = self._page_tables
-        self._upload()
-        logits0, gtoks = self._verify_exec()()
+        tel = self.telemetry
+        if tel is not None:
+            t_v0 = tel.clock()
+            ann = tel.bridge_begin("verify_dispatch")
+        try:
+            self._upload()
+            logits0, gtoks = self._verify_exec()()
+        finally:
+            if tel is not None:
+                tel.bridge_end(ann)
+        t_v1 = tel.clock() if tel is not None else 0.0
         gtoks = gtoks.cpu().numpy()    # the one per-verify sync
         self.steps_run += 1
         self.verify_steps += 1
         if all(self._slots[s].req.temperature <= 0.0 for s in run):
             # every lane took the dispatch's own argmax row
             self.fused_sample_steps += 1
+        if tel is not None:
+            t_v2 = tel.clock()
+            tel.phase("verify_dispatch", t_v0, t_v1, slots=len(run))
+            tel.phase("verify_sync", t_v1, t_v2)
+            for s in run:
+                tel.request_event(self._slots[s].req.rid, "verify_dispatch",
+                                  drafted=len(drafts.get(s, ())))
         lens = self._lengths.tolist()
         for s in run:
             slot = self._slots[s]
@@ -1476,6 +1639,8 @@ class ServingEngine:
                 self.draft_tokens_accepted += used
                 req.draft_proposed += nd
                 req.draft_accepted += used
+        if tel is not None:
+            tel.phase("verify_record", t_v2, tel.clock())
 
     # -- the double-buffered host loop (overlap=True) ----------------------
     @property
@@ -1577,18 +1742,32 @@ class ServingEngine:
         h["tables"][:] = self._page_tables
         h["temps"][:] = self._temps
         h["top_ps"][:] = self._top_ps
-        self._upload()
-        out = self._horizon_exec(K, greedy)()
-        # the carry sources are exactly the dispatched lanes: a lane the
-        # provisioner skipped has filler rows in this dispatch and must
-        # fall back to its host state next time
-        rec = _Inflight(_Fetch(out), K, lanes,
-                        {ln.s: ln.slot for ln in lanes})
+        tel = self.telemetry
+        phase = "overlap_dispatch" if self.overlap else "decode_dispatch"
+        if tel is not None:
+            t_d0 = tel.clock()
+            ann = tel.bridge_begin(phase)
+        try:
+            self._upload()
+            out = self._horizon_exec(K, greedy)()
+            # the carry sources are exactly the dispatched lanes: a lane
+            # the provisioner skipped has filler rows in this dispatch and
+            # must fall back to its host state next time
+            rec = _Inflight(_Fetch(out), K, lanes,
+                            {ln.s: ln.slot for ln in lanes}, self.overlap)
+        finally:
+            if tel is not None:
+                tel.bridge_end(ann)
         self.steps_run += 1
         self.decode_model_steps += K
         self.fused_sample_steps += 1   # horizons choose tokens on the device
         if prev is not None:
             self.overlap_steps += 1
+        if tel is not None:
+            tel.phase(phase, t_d0, tel.clock(), slots=len(run), k=K)
+            for s in run:
+                tel.request_event(self._slots[s].req.rid, "decode_dispatch",
+                                  k=K)
         return rec
 
     def _drain(self, rec):
@@ -1598,7 +1777,10 @@ class ServingEngine:
         without reading ``lengths`` back, then retire what finished.  Lanes
         whose slot an earlier drain already retired are skipped: their rows
         hold frozen ``eos_ids`` filler."""
+        tel = self.telemetry
+        t0 = tel.clock() if tel is not None else 0.0
         out = rec.out.numpy()          # waits on this dispatch alone
+        t1 = tel.clock() if tel is not None else 0.0
         lens = self._lengths.tolist()
         for lane in rec.lanes:
             s, slot = lane.s, lane.slot
@@ -1633,6 +1815,11 @@ class ServingEngine:
                 # pending one; the device carry holds the same state
                 self._lengths[s] = base + emitted
                 slot.pending = row[emitted - 1]
+        if tel is not None:
+            pre = "overlap" if rec.overlapped else "decode"
+            t2 = tel.clock()
+            tel.phase(f"{pre}_sync", t0, t1)
+            tel.phase(f"{pre}_record", t1, t2)
 
     # -- the serving loop --------------------------------------------------
     @property
@@ -1646,9 +1833,38 @@ class ServingEngine:
         horizon, dispatch it, record the tokens and retire finished
         requests into the prefix cache (in overlap mode: the previous
         dispatch's tokens, while this one runs).  When nobody can progress
-        the engine evicts cached pages, then preempts a victim.  Returns
-        True when any slot made progress."""
+        the engine evicts cached pages, then preempts a victim; under an
+        injected pool-pressure window it parks and reports no progress.
+        Returns True when any slot made progress.
+
+        With telemetry on, the step's host wall time lands in the
+        ``engine.step_host_s`` histogram, a per-step summary in the flight
+        recorder, and an active injected pool-pressure window auto-dumps
+        the recorder."""
+        tel = self.telemetry
+        if tel is None:
+            return self._step_impl()
+        t0 = tel.clock()
+        pre_tok = self.tokens_generated
+        progressed = self._step_impl()
+        tel.step_done(self, t0, progressed,
+                      self.tokens_generated - pre_tok)
+        return progressed
+
+    def _step_impl(self) -> bool:
+        tel = self.telemetry
+        t_s0 = tel.sched_begin() if tel is not None else 0.0
         self._step_seq += 1
+        # serve.wedge: the step returns without doing any work, the stand-in
+        # for an engine that stopped responding
+        if fault_point("serve.wedge", engine=self.name,
+                       step=self._step_seq) is not None:
+            if tel is not None:
+                tel.flight.record("fault", point="serve.wedge",
+                                  step=self._step_seq)
+            return False
+        self._pressure = fault_point("serve.pool_pressure",
+                                     step=self.steps_run) is not None
         pre_tokens = self.tokens_generated
         pre_finished = len(self._finished)
         # overlap: hand budget-predicted retiring lanes to the admission
@@ -1659,6 +1875,14 @@ class ServingEngine:
         self._admit()
         if self.overlap:
             self._flush_exhausted()
+        # serve.crash phase="sched": die after admissions changed the slot
+        # and pool state but before this step produced a token
+        fault_point("serve.crash", engine=self.name, step=self._step_seq,
+                    phase="sched")
+        if tel is not None:
+            # host scheduling: deadline sweep + admissions, less the
+            # prefill dispatches inside it (they record their own spans)
+            tel.sched_done(t_s0, tel.clock())
         # chunked prefill: each mid-prefill slot advances ONE chunk per
         # step (a slot admitted this step already ran its first chunk)
         prefilled = False
@@ -1686,6 +1910,10 @@ class ServingEngine:
                     {s: 1 + len(d) for s, d in drafts.items()})
                 if run:
                     self._verify(run, drafts)
+                    # serve.crash phase="record": die after this step's
+                    # tokens were recorded, before a caller saw them
+                    fault_point("serve.crash", engine=self.name,
+                                step=self._step_seq, phase="record")
                     return True
         K = self.decode_horizon
         prev = self._inflight
@@ -1729,6 +1957,10 @@ class ServingEngine:
         if not self.overlap:
             self._inflight = None
             self._drain(rec)
+        # serve.crash phase="record": die after this horizon's tokens were
+        # recorded (and finished requests retired), before a caller saw them
+        fault_point("serve.crash", engine=self.name, step=self._step_seq,
+                    phase="record")
         return True
 
     def run(self, max_steps: int | None = None,
@@ -1741,6 +1973,13 @@ class ServingEngine:
         while self._queue or self.num_active or self._inflight is not None:
             stalled = 0 if self.step() else stalled + 1
             if stalled >= max_stall_steps:
+                if self.telemetry is not None:
+                    # dump the recent-event window before the engine dies
+                    self.telemetry.fault_dump(
+                        "engine_stalled", stalled_steps=stalled,
+                        active=self.num_active, queued=len(self._queue),
+                        free_pages=self.pool.num_free,
+                        num_pages=self.pool.num_pages)
                 raise EngineStalledError(
                     f"no engine progress for {stalled} consecutive steps "
                     f"({self.num_active} active, {len(self._queue)} queued, "
@@ -2026,11 +2265,11 @@ class ServingEngine:
                 "free slots")
         old_ids = [int(p) for p in packet["kv_pages"]]
         n = len(old_ids)
-        if n > self.pool.num_free:
-            self._evict(n - self.pool.num_free)
-        if n > self.pool.num_free:
+        if n > self._avail():
+            self._evict(n - self._avail())
+        if n > self._avail():
             raise AdmissionRejected(
-                f"import_kv: need {n} pages, {self.pool.num_free} free after "
+                f"import_kv: need {n} pages, {self._avail()} free after "
                 "eviction")
         new_ids = self.pool.alloc(n)
         remap = dict(zip(old_ids, new_ids))
@@ -2044,6 +2283,7 @@ class ServingEngine:
         if extra:
             self.pool.share(extra)
         mapping: dict[int, int] = {}
+        now = self._clock()
         for e, s in zip(entries, free_slots):
             d = dict(e["req"])
             src_rid = int(d["rid"])
@@ -2073,6 +2313,14 @@ class ServingEngine:
             self._lengths[s] = int(e["length"])
             self._temps[s] = req.temperature
             self._top_ps[s] = req.top_p
+            if self.telemetry is not None:
+                # the handed-off request opens a track on this engine's
+                # tracer; its first event carries handoff=True
+                attrs = {"handoff": True}
+                if req.trace_id is not None:
+                    attrs["trace_id"] = req.trace_id
+                self.telemetry.request_event(req.rid, "submitted", t=now,
+                                             **attrs)
         self.kv_imports += 1
         self.kv_pages_imported += n
         return mapping
@@ -2119,9 +2367,24 @@ class ServingEngine:
                 and g.get("kv_dtype") == self.kv_dtype)
         if fast:
             self._restore_full(meta, state, reqs)
-            return "full_kv"
-        self._restore_reprefill(meta, reqs)
-        return "reprefill"
+            applied = "full_kv"
+        else:
+            self._restore_reprefill(meta, reqs)
+            applied = "reprefill"
+        if self.telemetry is not None:
+            # a restored in-flight request opens a track on this engine's
+            # tracer (first event restored=True); counters stay untouched,
+            # as the request was submitted elsewhere
+            now = self._clock()
+            live = [sl.req for sl in self._slots if sl is not None]
+            live.extend(self._queue)
+            for r in live:
+                attrs = {"restored": True}
+                if r.trace_id is not None:
+                    attrs["trace_id"] = r.trace_id
+                self.telemetry.request_event(r.rid, "submitted", t=now,
+                                             **attrs)
+        return applied
 
     def _restore_full(self, meta, state, reqs):
         self._step_seq = int(meta["step_seq"])
@@ -2197,9 +2460,13 @@ class ServingEngine:
     @property
     def page_bytes(self) -> int:
         """Bytes one pool page costs on the device: K + V across all
-        layers, with the per-row scales of a quantized ``kv_dtype``."""
-        return _page_bytes(self.config, self.page_size,
-                           kv_dtype=self.kv_dtype, dtype=self._dtype)
+        layers, with the per-row scales of a quantized ``kv_dtype`` (the
+        unit of the telemetry's byte gauges; computed once)."""
+        if self._page_bytes is None:
+            self._page_bytes = _page_bytes(self.config, self.page_size,
+                                           kv_dtype=self.kv_dtype,
+                                           dtype=self._dtype)
+        return self._page_bytes
 
     def stats(self) -> dict:
         """Monotonically increasing engine counters.  ``decode_steps``
@@ -2232,6 +2499,12 @@ class ServingEngine:
             "kv_pages_exported": self.kv_pages_exported,
             "kv_pages_imported": self.kv_pages_imported,
         }
+
+    def stats_snapshot(self) -> EngineStats:
+        """Immutable flattened :class:`EngineStats` snapshot of
+        ``stats()``: ``later.delta(earlier)`` is the exact activity of the
+        window between two snapshots."""
+        return EngineStats.capture(self.stats(), clock=self._clock)
 
     def release_cache(self) -> int:
         """Drop every evictable cached page back to the free list; returns
