@@ -166,6 +166,28 @@ seed:
                bridge's ``serve.decode_dispatch`` spans around the decode
                graph launches in a torch.profiler trace; the phase's
                launches of rows 1-2;
+               (l) the in-process serving fleet and its front door on the
+               same weights (every replica reads the one parameter set):
+               a 2-replica prefix-affine ``ReplicaFleet`` serves 3a's
+               traffic and a wave that repeats cached chains (each repeat
+               lands on the replica holding its chain; the fleet's
+               tokens/s); full-KV snapshots every few rounds, a seeded
+               ``serve.crash`` on r0 revives it from its newest intact
+               snapshot while later arrivals migrate by re-prefill, then a
+               ``serve.wedge`` on r1 trips the watchdog (zero loss,
+               ``on_token`` equal to the records, ``fleet.recovery_s``);
+               ``roles=["prefill", "decode"]`` over int8 pages (one KV
+               handoff a request, its bytes and seconds); an
+               ``ElasticFleet`` grows from 1 replica under a ramp and
+               drains back to 1 with a live migration; an
+               ``AsyncFrontend`` over 2 replicas answers 4 concurrent
+               ``POST /generate`` clients over loopback as SSE, cancels a
+               client that hangs up, rejects an impossible SLO and serves
+               ``/metrics`` and ``/healthz``; ``replay_fleet`` of a seeded
+               scenario and its ``goodput_report``; every stream on the
+               greedy path, device memory back to within 64 MiB after
+               each drill's fleet is dropped, and the phase's launches of
+               rows 1-2 with no plain-version call;
                with ``--parent-engine ROOT`` another commit's (a) and (b)
                run in a process of their own before (a) and after (k);
                (c) the 271M LLaMA train step (bf16, B 8, S 2048,
@@ -2529,6 +2551,490 @@ def phase_telemetry(pa, cfg, params, succ, card):
           f"(graph replays included), plain version {ref_calls}; "
           f"{time.perf_counter() - t_start:.1f} s")
     out["launches"] = (launches, quant_launches)
+    return out
+
+
+# -- phase 3l: the in-process serving fleet and its front door ----------------
+def fleet_factory(cfg, params, device, **kw):
+    """Engines of 3a's geometry over ONE shared parameter set: the factory
+    closes over ``params`` and copies nothing, so every replica (and every
+    revival) reads the same weights."""
+    def make(role="any"):
+        return telemetry_engine(cfg, params, device=device, **kw)
+    return make
+
+
+def collect(fleet, reqs, got, frids):
+    """Submit ``reqs`` to ``fleet``, each with an ``on_token`` list in
+    ``got``; the fleet ids go to ``frids``."""
+    for p, m in reqs:
+        toks = []
+        frids.append(fleet.submit(p, max_new_tokens=m, on_token=toks.append))
+        got.append(toks)
+
+
+def fleet_on_path(succ, fleet, reqs, got, frids, what):
+    """Zero loss, every stream on the greedy path, and each ``on_token``
+    stream equal to its final record (no token emitted twice)."""
+    done = fleet.results()
+    require(all(f in done for f in frids),
+            f"{what}: lost {sum(f not in done for f in frids)} requests")
+    streams = [list(done[f].generated) for f in frids]
+    on_path(succ, reqs, streams, what)
+    require(got == streams, f"{what}: an on_token stream differs from its "
+            f"record (a token emitted twice or lost)")
+    return streams
+
+
+def warm_fleet(fleet, vocab):
+    """One 64-token request a replica (least-loaded placement puts one on
+    each): its dense prefill and first decode horizon, whose CUDA graph is
+    captured, on this thread."""
+    warm = np.random.default_rng(1)
+    for _ in fleet._replicas:
+        fleet.submit(warm.integers(1, vocab, 64), max_new_tokens=9)
+    fleet.run()
+    for rep in fleet._replicas:
+        require_graphs(rep.engine)
+
+
+def pages_back(fleet, what):
+    """Every replica idle, its page accounting exact and, its cache
+    released, every page free."""
+    for rep in fleet._replicas:
+        eng = rep.engine
+        require(not eng.num_active and not eng._queue,
+                f"{what}: a replica still holds a request")
+        eng.check_invariants()
+        eng.release_cache()
+        require(eng.pool.num_free == eng.pool.num_pages,
+                f"{what}: a request's pages did not come back")
+
+
+def memory_now(device):
+    """Bytes in live tensors on the card after a garbage collection, with
+    cuBLAS's workspaces dropped: each thread that ran a matrix product (a
+    frontend's worker) holds its own until then.  0 on the CPU."""
+    import gc
+    gc.collect()
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def device_memory_back(before, what, device):
+    """After a drill's fleet is dropped, device memory returns to within
+    64 MiB of its value before the fleet was built: a dead or retired
+    replica keeps neither its KV pool nor its graph pool.  (A replica's
+    engine refers back to its fleet through the prefix cache's listener,
+    so one live reference to any replica holds the whole fleet.)"""
+    extra = memory_now(device) - before
+    require(extra < 64 << 20, f"{what}: {extra / 2**20:.1f} MiB of device "
+            f"memory still held after the fleet was dropped")
+    print(f"    device memory with the fleet dropped: {extra / 2**20:+.1f} "
+          f"MiB against before it was built")
+    return extra
+
+
+def shared_waves(vocab):
+    """3a's 8 requests, then a second wave that repeats the shared 512-token
+    prefix twice and two earlier prompts whole, 24-48 new tokens each."""
+    first = traffic(vocab)
+    r = np.random.default_rng(21)
+    prefix = first[0][0][:512]
+    second = [(np.concatenate([prefix, r.integers(1, vocab, 60)]), 40),
+              (np.concatenate([prefix, r.integers(1, vocab, 150)]), 24),
+              (first[1][0], 32), (first[3][0], 48)]
+    return first, [(p.astype(np.int32), m) for p, m in second]
+
+
+def fleet_routing(cfg, params, succ, device):
+    """3l (a): a 2-replica fleet with prefix-affinity routing serves 3a's
+    traffic, then a wave whose prompts repeat cached chains."""
+    from paddle_tpu_torch.serving import PrefixAffinityRouter, ReplicaFleet
+    before = memory_now(device)
+    router = PrefixAffinityRouter()
+    fleet = ReplicaFleet(fleet_factory(cfg, params, device, telemetry=True),
+                         num_replicas=2, router=router)
+    warm_fleet(fleet, cfg.vocab_size)
+    first, second = shared_waves(cfg.vocab_size)
+    got, frids = [], []
+    streamed0 = fleet.tokens_streamed
+    t0 = time.perf_counter()
+    collect(fleet, first, got, frids)
+    fleet.run()
+    hits0 = router.affinity_hits
+    collect(fleet, second, got, frids)
+    fleet.run()
+    device_sync(device)
+    wall = time.perf_counter() - t0
+    reqs = first + second
+    fleet_on_path(succ, fleet, reqs, got, frids, "3l (a)")
+    homes = {}
+    for (p, _m), f in zip(first, frids):
+        homes.setdefault(p[:16].tobytes(), set()).add(
+            fleet._requests[f].replica)
+    landed = [(fleet._requests[f].replica,
+               homes.get(p[:16].tobytes(), set()))
+              for (p, _m), f in zip(second, frids[len(first):])]
+    require(all(rep in home for rep, home in landed),
+            f"3l (a): a repeat left the replica holding its chain: {landed}")
+    hit = fleet.fleet_hit_rate()
+    require(router.affinity_hits - hits0 == len(second)
+            and hit["hit_rate"] > 0,
+            f"3l (a): affinity hits {router.affinity_hits - hits0} of "
+            f"{len(second)}, fleet hit rate {hit['hit_rate']}")
+    n_tok = fleet.tokens_streamed - streamed0
+    print(f"  (a) routing: {len(reqs)} requests on 2 replicas "
+          f"(prefix-affine), {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s for the fleet; the {len(second)} "
+          f"repeats landed where their chain was cached "
+          f"({json.dumps([r for r, _ in landed])}); fleet hit "
+          f"rate {hit['hit_rate']}, per replica "
+          f"{json.dumps(hit['per_replica'])}")
+    del fleet, router
+    device_memory_back(before, "3l (a)", device)
+    return dict(tokens_per_s=n_tok / wall, tokens=n_tok, wall_s=wall,
+                hit_rate=hit["hit_rate"])
+
+
+def drill_traffic(vocab, seed, n=4):
+    """n requests of 64-128 prompt tokens and 40-56 new tokens."""
+    r = np.random.default_rng(seed)
+    return [(r.integers(1, vocab, int(r.integers(64, 129))).astype(np.int32),
+             int(r.choice([40, 48, 56]))) for _ in range(n)]
+
+
+def fleet_failover(cfg, params, succ, device, root):
+    """3l (b): snapshots every few rounds (full KV); a seeded serve.crash on
+    r0 mid-decode revives it from its newest intact snapshot while the
+    requests that arrived after that snapshot migrate by re-prefill; then a
+    serve.wedge on r1 trips the watchdog."""
+    from paddle_tpu_torch.resilience import inject
+    from paddle_tpu_torch.serving import ReplicaFleet
+    before = memory_now(device)
+    fleet = ReplicaFleet(
+        fleet_factory(cfg, params, device, telemetry=True), num_replicas=2,
+        snapshot_root=root, snapshot_every=FAILOVER_SNAPSHOT_EVERY,
+        snapshot_mode="full_kv", stall_threshold=4)
+    reqs, got, frids = [], [], []
+    with inject({"serve.crash": dict(
+            match={"engine": "r0", "phase": "record"},
+            at=FAILOVER_CRASH_AT)}) as plan:
+        wave = drill_traffic(cfg.vocab_size, 31)
+        collect(fleet, wave, got, frids)
+        reqs += wave
+        while fleet._round < FAILOVER_SNAPSHOT_EVERY:
+            fleet.step()
+        wave = drill_traffic(cfg.vocab_size, 32)
+        collect(fleet, wave, got, frids)
+        reqs += wave
+        fleet.run()
+    require(plan.fired("serve.crash") == 1, "3l (b): serve.crash never fired")
+    st = fleet.stats()
+    restores = [e for e in fleet.flight.events() if e["event"] == "restore"]
+    require(st["failovers"] == 1 and st["migrations"] >= 1 and restores
+            and restores[0]["requests"] > 0,
+            f"3l (b) crash: failovers {st['failovers']}, migrations "
+            f"{st['migrations']}, restores {restores}")
+    crash_migrations = st["migrations"]
+    with inject({"serve.wedge": dict(action="trigger",
+                                     match={"engine": "r1"}, count=4)}) \
+            as plan:
+        wave = drill_traffic(cfg.vocab_size, 33)
+        collect(fleet, wave, got, frids)
+        reqs += wave
+        fleet.run()
+    require(plan.fired("serve.wedge") == 4, "3l (b): the wedge never tripped")
+    fleet_on_path(succ, fleet, reqs, got, frids, "3l (b)")
+    st = fleet.stats()
+    kinds = [e["kind"] for e in fleet.flight.events()
+             if e["event"] == "failover"]
+    quiesced = [e["cancelled"] for e in fleet.flight.events()
+                if e["event"] == "wedge_quiesce"]
+    restores = [(e["replica"], e["requests"]) for e in fleet.flight.events()
+                if e["event"] == "restore"]
+    require(st["failovers"] == 2 and kinds == ["crash", "wedge"]
+            and quiesced and quiesced[0] >= 1 and len(restores) == 2,
+            f"3l (b): failovers {kinds}, wedge quiesce {quiesced}, "
+            f"restores {restores}")
+    rec = st["recovery"]
+    print(f"  (b) failover: serve.crash on r0 revived it from its newest "
+          f"snapshot ({restores[0][1]} requests restored, "
+          f"{crash_migrations} migrated by re-prefill); serve.wedge on r1 "
+          f"tripped the watchdog ({quiesced[0]} requests cancelled on the "
+          f"corpse, {restores[1][1]} restored from its snapshot, "
+          f"{st['migrations'] - crash_migrations} migrated); failovers "
+          f"{st['failovers']} "
+          f"({', '.join(kinds)}), migrations {st['migrations']}, torn "
+          f"snapshots {st['torn_snapshots']}; {len(reqs)} requests, zero "
+          f"lost, every stream on the greedy path, on_token equal to the "
+          f"records; fleet.recovery_s p50 {rec['p50_ms']:.1f} ms, max "
+          f"{rec['max_ms']:.1f} ms")
+    del fleet
+    device_memory_back(before, "3l (b)", device)
+    return dict(recovery_max_ms=rec["max_ms"], recovery_p50_ms=rec["p50_ms"],
+                failovers=st["failovers"], migrations=st["migrations"])
+
+
+def fleet_disagg(cfg, params, succ, device):
+    """3l (c): roles=["prefill", "decode"] over int8 KV pages (row 2): every
+    request prefills on r0 and decodes on r1 after a KV handoff."""
+    from paddle_tpu_torch.serving import ReplicaFleet
+    before = memory_now(device)
+    fleet = ReplicaFleet(fleet_factory(cfg, params, device, kv_dtype="int8"),
+                         num_replicas=2, roles=["prefill", "decode"])
+    reqs = drill_traffic(cfg.vocab_size, 34, n=6)
+    got, frids = [], []
+    t0 = time.perf_counter()
+    collect(fleet, reqs, got, frids)
+    fleet.run()
+    device_sync(device)
+    wall = time.perf_counter() - t0
+    fleet_on_path(succ, fleet, reqs, got, frids, "3l (c)")
+    st = fleet.stats()
+    kv = st["kv_transfer"]
+    require(st["handoffs"] == len(reqs) and st["handoff_fallbacks"] == 0
+            and kv["bytes"] > 0,
+            f"3l (c): handoffs {st['handoffs']} of {len(reqs)}, fallbacks "
+            f"{st['handoff_fallbacks']}")
+    t = kv["transfer_s"]
+    print(f"  (c) disaggregated roles (int8 KV): {st['handoffs']} handoffs, "
+          f"{st['handoff_fallbacks']} fallbacks, {kv['pages']} pages, "
+          f"kv_bytes_transferred {kv['bytes']} ({kv['bytes'] / 2**20:.1f} "
+          f"MiB), kv_transfer_s p50 {t['p50_ms']:.1f} ms, max "
+          f"{t['max_ms']:.1f} ms (export to import, one fleet round); "
+          f"{fleet.tokens_streamed} tokens in {wall:.3f} s")
+    del fleet
+    device_memory_back(before, "3l (c)", device)
+    return dict(kv_bytes=kv["bytes"], kv_pages=kv["pages"],
+                transfer_p50_ms=t["p50_ms"], transfer_max_ms=t["max_ms"])
+
+
+def fleet_elastic(cfg, params, succ, device):
+    """3l (d): an ElasticFleet from 1 replica: a ramp grows it to 2, and
+    idle rounds drain it back to 1 (live migration of what the victim
+    holds)."""
+    from paddle_tpu_torch.serving import AutoscalePolicy, ElasticFleet
+    before = memory_now(device)
+    fleet = ElasticFleet(
+        fleet_factory(cfg, params, device),
+        policy=AutoscalePolicy(
+            min_replicas=1, max_replicas=2, queue_growth=2.0,
+            queue_min_depth=3.0, growth_window_s=2.0, growth_fire_frac=0.34,
+            idle_per_replica=1.0, idle_window_s=6.0, min_samples=3,
+            scale_cooldown_s=1.5, dt_per_round=0.5))
+    reqs = drill_traffic(cfg.vocab_size, 35, n=12)
+    got, frids = [], []
+    for i in range(0, len(reqs), 2):
+        collect(fleet, reqs[i:i + 2], got, frids)
+        fleet.step()
+    fleet.run()
+    grew = fleet.stats()["scale_ups"]
+    # a long request on each replica: one a replica is idle by the rule,
+    # and the drain victim holds one to migrate
+    for p, _m in drill_traffic(cfg.vocab_size, 36, n=2):
+        if len(fleet._alive()) == 1:
+            break
+        collect(fleet, [(p, 160)], got, frids)
+        reqs.append((p, 160))
+    fleet.run()
+    fleet_on_path(succ, fleet, reqs, got, frids, "3l (d)")
+    st = fleet.stats()
+    require(grew >= 1 and st["scale_downs"] >= 1
+            and st["replicas_alive"] == 1 and st["drain_migrations"] >= 1,
+            f"3l (d): scale_up {grew}, scale_down {st['scale_downs']}, "
+            f"alive {st['replicas_alive']}, drain migrations "
+            f"{st['drain_migrations']}")
+    events = [(e["action"], e["replica"], e["round"])
+              for e in fleet.scale_events]
+    print(f"  (d) elastic: scale events {json.dumps(events)}; "
+          f"scale_up {st['scale_ups']}, scale_down {st['scale_downs']}, "
+          f"drain migrations {st['drain_migrations']}; {len(reqs)} requests "
+          f"on the greedy path")
+    del fleet
+    device_memory_back(before, "3l (d)", device)
+    return dict(scale_ups=st["scale_ups"], scale_downs=st["scale_downs"],
+                drain_migrations=st["drain_migrations"])
+
+
+def sse_post(port, body, read_n=None, timeout=120):
+    """One ``POST /generate`` over loopback: (status, SSE event names,
+    streamed tokens).  With ``read_n`` the client hangs up after that many
+    tokens."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", "/generate", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events, toks = [], []
+    while read_n is None or len(toks) < read_n:
+        raw = resp.fp.readline()
+        if not raw:
+            break
+        line = raw.decode().strip()
+        if line.startswith("event: "):
+            events.append(line[7:])
+        elif line.startswith("data: ") and '"token"' in line:
+            toks.append(json.loads(line[6:])["token"])
+    conn.close()
+    return resp.status, events, toks
+
+
+def fleet_front_door(cfg, params, succ, device):
+    """3l (e): an AsyncFrontend over a 2-replica fleet (overlap=False) with
+    the exporter on loopback: 4 concurrent POST /generate clients, one that
+    hangs up mid-stream, one under an SLO it cannot meet, /metrics and
+    /healthz.  Each replica's decode graph is captured before the worker
+    thread starts, and no other thread touches the device while it runs."""
+    import asyncio
+    import urllib.request
+    from paddle_tpu_torch.serving import AsyncFrontend, ReplicaFleet
+    before = memory_now(device)
+    fleet = ReplicaFleet(fleet_factory(cfg, params, device, telemetry=True),
+                         num_replicas=2)
+    warm_fleet(fleet, cfg.vocab_size)
+    reqs = drill_traffic(cfg.vocab_size, 38)
+    cut_prompt = drill_traffic(cfg.vocab_size, 39, n=1)[0][0]
+
+    async def main():
+        async with AsyncFrontend(fleet, admission="predictive") as fe:
+            ex = fe.start_exporter("127.0.0.1", 0)
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*[asyncio.to_thread(
+                sse_post, ex.port, {"prompt": p.tolist(),
+                                    "max_new_tokens": m})
+                for p, m in reqs])
+            wall = time.perf_counter() - t0
+            cut = await asyncio.to_thread(
+                sse_post, ex.port, {"prompt": cut_prompt.tolist(),
+                                    "max_new_tokens": 400}, 3)
+            for _ in range(1000):
+                await asyncio.sleep(0.02)
+                if all(fr.result is not None
+                       for fr in fleet._requests.values()):
+                    break
+            rej = await asyncio.to_thread(
+                sse_post, ex.port, {"prompt": reqs[0][0].tolist(),
+                                    "max_new_tokens": 8,
+                                    "slo_ttft_s": 1e-9})
+
+            def get(path):
+                return urllib.request.urlopen(
+                    f"{ex.url}{path}", timeout=60).read().decode()
+            metrics, hz = await asyncio.to_thread(
+                lambda: (get("/metrics"), json.loads(get("/healthz"))))
+            await fe.drain()
+            return outs, wall, cut, rej, metrics, hz
+
+    outs, wall, cut, rej, metrics, hz = asyncio.run(main())
+    for (p, m), (status, events, toks) in zip(reqs, outs):
+        require(status == 200 and events == ["start", "done"],
+                f"3l (e): SSE status {status}, events {events}")
+    on_path(succ, reqs, [t for _s, _e, t in outs], "3l (e) SSE")
+    require(cut[2] == path(succ, succ[cut_prompt[-1]], 3),
+            f"3l (e): the disconnecting client read {cut[2]}")
+    require(all(fr.result is not None for fr in fleet._requests.values()),
+            "3l (e): the disconnected request is still live")
+    pages_back(fleet, "3l (e)")
+    require(rej[1] == ["rejected"] and rej[2] == [],
+            f"3l (e): the impossible SLO answered {rej[1]}")
+    require('fleet_requests_submitted_total{component="router"}' in metrics
+            and 'fleet_failovers_total{component="router"}' in metrics
+            and 'component="r0"' in metrics and 'component="r1"' in metrics,
+            "3l (e): /metrics lacks the fleet's counters")
+    require(hz["status"] == "ok", f"3l (e): /healthz {hz}")
+    n_tok = sum(len(t) for _s, _e, t in outs)
+    print(f"  (e) front door: {len(reqs)} concurrent POST /generate clients "
+          f"over loopback read their greedy paths as SSE ({n_tok} tokens in "
+          f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s); a client that hung "
+          f"up after 3 tokens was cancelled and its pages came back; the "
+          f"impossible SLO arrived as event: {rej[1][0]}; GET /metrics "
+          f"{len(metrics)} B of Prometheus text with the fleet's counters; "
+          f"GET /healthz {hz['status']}")
+    del fleet
+    device_memory_back(before, "3l (e)", device)
+    return dict(sse_tokens_per_s=n_tok / wall)
+
+
+def fleet_replay(cfg, params, succ, device):
+    """3l (f): replay_fleet of a seeded scenario (bursty arrivals, shared-
+    prefix users) on a prefix-affine 2-replica fleet under a virtual clock;
+    goodput under the SLO from goodput_report."""
+    from paddle_tpu_torch.serving import (PrefixAffinityRouter, ReplicaFleet,
+                                          VirtualClock, make_scenario,
+                                          replay_fleet)
+    before = memory_now(device)
+    sc = make_scenario("3l", seed=11, n_requests=24, vocab=cfg.vocab_size,
+                       arrival="bursty", mean_interarrival_s=0.4,
+                       burst_every_s=3.0, burst_size=6, prompt_len=(16, 96),
+                       max_new=(16, 65), shared_prefix_users=6,
+                       system_prompt_len=64)
+    vc = VirtualClock(0.1)
+    fleet = ReplicaFleet(fleet_factory(cfg, params, device), num_replicas=2,
+                         router=PrefixAffinityRouter(), clock=vc)
+    t0 = time.perf_counter()
+    out = replay_fleet(fleet, sc, slo_ttft_s=REPLAY_SLO_S, virtual_clock=vc,
+                       collect_tokens=True)
+    device_sync(device)
+    wall = time.perf_counter() - t0
+    recs = out["records"]
+    require(all(not r["rejected"] for r in recs), "3l (f): a rejection")
+    on_path(succ, [(q.prompt, q.max_new_tokens) for q in sc.requests],
+            [r["stream"] for r in recs], "3l (f) replay")
+    rep = out["report"]
+    print(f"  (f) replay_fleet of {len(sc)} seeded requests (signature "
+          f"{sc.signature()[:12]}): goodput_report {json.dumps(rep)}; "
+          f"replica-seconds {out['replica_seconds']:.2f} (virtual), "
+          f"{sum(r['tokens'] for r in recs)} tokens in {wall:.3f} s of wall")
+    del fleet
+    device_memory_back(before, "3l (f)", device)
+    return dict(goodput=rep["goodput_under_slo"], report=rep)
+
+
+# 3l's fault plan: r0's first snapshot comes at this round, and serve.crash
+# fires at r0's consult number FAILOVER_CRASH_AT + 1 of the record phase,
+# after that snapshot and after the second wave joined (the schedule is the
+# successor model's greedy path, the same at any width)
+FAILOVER_SNAPSHOT_EVERY = 3
+FAILOVER_CRASH_AT = 4
+REPLAY_SLO_S = 0.4      # virtual seconds: 4 fleet rounds
+
+
+def phase_fleet(pa, cfg, params, succ, device="cuda"):
+    """3l: the in-process serving fleet and its front door at 7B widths on
+    the successor model, every replica on the one parameter set (parts
+    a-f), device memory back after each drill, and the phase's launches of
+    rows 1-2 (g)."""
+    import shutil
+    import tempfile
+    reset_counts(pa)
+    t_start = time.perf_counter()
+    out = {"routing": fleet_routing(cfg, params, succ, device)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_3l_")
+    try:
+        out["failover"] = fleet_failover(cfg, params, succ, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["disagg"] = fleet_disagg(cfg, params, succ, device)
+    out["elastic"] = fleet_elastic(cfg, params, succ, device)
+    out["front_door"] = fleet_front_door(cfg, params, succ, device)
+    out["replay"] = fleet_replay(cfg, params, succ, device)
+    launches, quant_launches, ref_calls = counts(pa)
+    if torch.device(device).type == "cuda":
+        require(launches > 0 and quant_launches > 0 and ref_calls == 0,
+                f"3l launches: row 1 {launches}, row 2 {quant_launches}, "
+                f"plain version {ref_calls}")
+    wall = time.perf_counter() - t_start
+    print(f"  phase 3l launches: row 1 {launches}, row 2 {quant_launches} "
+          f"(graph replays included), plain version {ref_calls}; "
+          f"{wall:.1f} s")
+    out["launches"] = (launches, quant_launches)
+    out["wall_s"] = wall
     return out
 
 
@@ -5838,6 +6344,11 @@ def main():
         "snapshots at LLaMA-2 7B widths (telemetry on against off, fault "
         "drills, crash-consistent snapshots, the profiler bridge)")
     obs = phase_telemetry(pa, cfg, params, serve_q["succ"], card)
+    say("phase 3l: the in-process serving fleet and its front door at "
+        "LLaMA-2 7B widths (prefix-affine routing, crash and wedge "
+        "failover from snapshots, prefill / decode roles over int8 pages, "
+        "elastic scaling, POST /generate over loopback, a seeded replay)")
+    fleet = phase_fleet(pa, cfg, params, serve_q["succ"])
     del params
     torch.cuda.empty_cache()
     if args.parent_engine:
@@ -5942,6 +6453,15 @@ def main():
               + f"; TTFT p50 {o['ttft_p50_ms']:.1f} / p95 "
               f"{o['ttft_p95_ms']:.1f} ms, TPOT p50 {o['tpot_p50_ms']:.2f} "
               f"ms; synchronising calls {o['syncs']} on {card}")
+    print(f"  fleet (3l, {fleet['wall_s']:.1f} s): prefix-affine routing "
+          f"{fleet['routing']['tokens_per_s']:.1f} tokens/s on 2 replicas "
+          f"(hit rate {fleet['routing']['hit_rate']}); recovery p50 "
+          f"{fleet['failover']['recovery_p50_ms']:.1f} / max "
+          f"{fleet['failover']['recovery_max_ms']:.1f} ms; KV handoffs "
+          f"{fleet['disagg']['kv_bytes']} B, transfer p50 "
+          f"{fleet['disagg']['transfer_p50_ms']:.1f} ms; POST /generate "
+          f"{fleet['front_door']['sse_tokens_per_s']:.1f} tokens/s; replay "
+          f"goodput {fleet['replay']['goodput']} on {card}")
     print(f"  engine snapshot: {obs['snap']['pages']} pages, "
           f"{obs['snap']['snapshot_bytes'] / 2**20:.1f} MiB, save "
           f"{obs['snap']['save_s']:.3f} s, restore "

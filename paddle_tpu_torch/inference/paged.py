@@ -280,6 +280,11 @@ class PrefixCache:
         self._tick = 0
         self.insertions = 0           # entries ever inserted
         self.evictions = 0            # entries ever evicted
+        # optional ``notify(kind, digests)`` listener (kind "insert" |
+        # "evict", digests = full-block chain digests): the fleet router
+        # keeps its per-replica cached-chain summary current through it.
+        # Partial tails are content-keyed, so they never notify.
+        self.notify = None
 
     def __len__(self) -> int:
         return len(self._full) + sum(len(d) for d in self._partial.values())
@@ -295,6 +300,12 @@ class PrefixCache:
     def _touch(self, e: _CacheEntry):
         self._tick += 1
         e.tick = self._tick
+
+    def chain_digests(self):
+        """Every full-block chain digest indexed now (the router summary's
+        seed for a replica whose cache was built before the listener
+        attached, e.g. a snapshot-restored engine)."""
+        return self._full.keys()
 
     def lookup(self, tokens):
         """Longest cached prefix of ``tokens`` -> (full_pages, partial):
@@ -343,6 +354,7 @@ class PrefixCache:
         ps = self.page_size
         parent = _ROOT
         n_full = len(tokens) // ps
+        inserted: list[bytes] = []
         for i in range(n_full):
             key = _chain_digest(parent, tokens[i * ps:(i + 1) * ps])
             e = self._full.get(key)
@@ -353,8 +365,11 @@ class PrefixCache:
                 if parent in self._full:
                     self._full[parent].children += 1
                 self.insertions += 1
+                inserted.append(key)
             self._touch(e)
             parent = key
+        if inserted and self.notify is not None:
+            self.notify("insert", inserted)
         if with_partial:
             tail = np.ascontiguousarray(tokens[n_full * ps:], np.int32)
             if len(tail) and n_full < len(pages):
@@ -398,6 +413,8 @@ class PrefixCache:
     def _drop(self, e: _CacheEntry):
         if e.tokens is None:
             del self._full[e.key]
+            if self.notify is not None:
+                self.notify("evict", [e.key])
         else:
             tails = self._partial[e.parent]
             del tails[e.tokens]
@@ -765,6 +782,7 @@ class ServingEngine:
                  quantize=None, device=None):
         self.device = resolve_device(device)
         self.name = str(name)
+        self.tp = 1                    # tensor-parallel degree: one card
         self.config = config
         self.params = tuple({k: v.to(self.device) for k, v in tree.items()}
                             for tree in params)
@@ -2216,7 +2234,7 @@ class ServingEngine:
             "version": self.KV_HANDOFF_VERSION,
             "page_size": self.page_size,
             "kv_dtype": self.kv_dtype,
-            "tp": 1,
+            "tp": self.tp,
             "kv_pages": [int(p) for p in ids],
             "planes": planes,
             "requests": entries,
@@ -2248,10 +2266,11 @@ class ServingEngine:
                 f"kv_dtype {packet['kv_dtype']!r} != {self.kv_dtype!r}: "
                 "stored codes/scales are the source dtype's — re-prefill "
                 "requantizes for this store")
-        if packet["tp"] != 1:
+        if packet["tp"] != self.tp:
             raise KVHandoffError(
-                f"mp degree {packet['tp']} != 1: head-sharded planes need "
-                "an engine of equal mp degree — re-prefill (adopt)")
+                f"mp degree {packet['tp']} != {self.tp}: head-sharded "
+                "planes need an engine of equal mp degree — re-prefill "
+                "(adopt)")
         entries = packet["requests"]
         if any(len(e["pages"]) > self.max_pages_per_seq for e in entries):
             raise KVHandoffError(

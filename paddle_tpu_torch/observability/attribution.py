@@ -21,13 +21,20 @@ CONSTRUCTION and their durations telescope to the traced e2e
 Tail forensics: :class:`TailRecorder` auto-captures the top-K slowest
 requests at retirement — full span chain, computed attribution, and the
 engine-state context row (pool occupancy / queue depth at the time) — as
-flight-style outlier dumps.  Capture is O(log K) per retirement (a heap
-check); the attribution itself is only computed for requests that enter
-the top K.
+flight-style outlier dumps, browsable live via the exporter's ``/slow``
+endpoint.  Capture is O(log K) per retirement (a heap check); the
+attribution itself is only computed for requests that enter the top K.
 
 Everything here is pure host code over already-recorded traces: zero
-device syncs, zero per-token work.  The cross-engine (stitched) views
-belong to the serving fleet.
+device syncs, zero per-token work.
+
+Cross-replica requests (failover, live migration, snapshot restore, KV
+handoff) attribute through the stitched view (:func:`attribute_stitched`):
+the component tracers a ``trace_id`` crossed are ordered by first touch,
+each engine residency attributes locally, and the inter-engine gaps
+classify as ``migration`` (adopt / re-prefill placement),
+``snapshot_restore`` (the successor record carries ``restored=True``) or
+``kv_transfer`` (``handoff=True``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ import time
 from bisect import bisect_left, bisect_right
 
 __all__ = ["SEGMENT_KINDS", "CriticalPath", "attribute", "attribute_trace",
-           "attribution_report", "TailRecorder"]
+           "attribute_stitched", "attribution_report",
+           "stitched_attribution_report", "TailRecorder",
+           "merge_tail_dumps"]
 
 # engine-span name -> attribution segment kind.  The overlap_* phases are
 # the double-buffered loop's decode phases (same roles, suffix convention
@@ -283,6 +292,93 @@ def attribute(source, rid: int, component: str = "engine") -> CriticalPath:
 
 
 # ---------------------------------------------------------------------------
+# stitched (cross-component) attribution
+# ---------------------------------------------------------------------------
+def _is_engine_tracer(tracer) -> bool:
+    """A component is an ENGINE residency when its tracer carries real
+    phase spans (router/frontend tracers only record request events and
+    instants)."""
+    return any(t1 is not None and name in _SPAN_KIND
+               for name, t0, t1, _a in tracer._engine)
+
+
+def attribute_stitched(components, trace_id: int) -> CriticalPath | None:
+    """Attribution for one end-to-end ``trace_id`` across stitched
+    component tracers (``components``: iterable of ``(name, tracer)`` —
+    ``ReplicaFleet.trace_components()`` / ``TraceStitcher`` order).
+
+    The request's global window spans from its FIRST touch on any
+    component to its LAST.  Engine residencies attribute locally (the
+    component's own phase spans); the gap before the first residency is
+    ``queue`` (router/frontend placement), a gap BETWEEN residencies is
+    ``kv_transfer`` when the successor record was opened by
+    ``ServingEngine.import_kv()`` (``handoff=True`` — the disaggregated
+    prefill->decode page transfer), ``snapshot_restore`` when re-recorded
+    by ``ServingEngine.restore()`` (``restored=True``), and ``migration``
+    otherwise (adopt / re-prefill placement), and the tail after the last
+    residency (the router heartbeat observing the retirement) is
+    ``host_other``.  Returns None when no component saw the trace_id."""
+    touches = []
+    for name, tracer in components:
+        spans, span_t0s, pmax = _engine_spans(tracer)
+        is_engine = bool(spans) or _is_engine_tracer(tracer)
+        for tr in tracer.traces():
+            if not tr.events or _trace_id_of(tr) != trace_id:
+                continue
+            touches.append({
+                "name": name, "tracer": tracer, "trace": tr,
+                "spans": spans, "span_t0s": span_t0s, "pmax": pmax,
+                "t0": tr.events[0][1], "t1": tr.events[-1][1],
+                "engine": is_engine,
+                "restored": bool((tr.events[0][2] or {}).get("restored")),
+                "handoff": bool((tr.events[0][2] or {}).get("handoff")),
+            })
+    if not touches:
+        return None
+    t_lo = min(t["t0"] for t in touches)
+    t_hi = max(t["t1"] for t in touches)
+    def _retired(t, cancelled):
+        last = t["trace"].events[-1]
+        return last[0] == "retired" \
+            and bool((last[2] or {}).get("cancelled")) == cancelled
+
+    done_ts = [t["t1"] for t in touches if _retired(t, False)] \
+        or [t["t1"] for t in touches if _retired(t, True)]
+    if done_ts:
+        # clamp at the LATEST REAL retirement: a snapshot-restored ZOMBIE
+        # copy of an already-resolved request (pruned via cancel by the
+        # router) must not re-open the request's window — cancelled
+        # records only set the bound when no real retirement exists
+        t_hi = max(done_ts)
+        touches = [t for t in touches if t["t0"] <= t_hi]
+        for t in touches:
+            t["t1"] = min(t["t1"], t_hi)
+    engines = sorted((t for t in touches if t["engine"]),
+                     key=lambda t: (t["t0"], t["t1"]))
+    segments: list = []
+    cursor = t_lo
+    for i, tc in enumerate(engines):
+        w_lo = max(tc["t0"], cursor)
+        w_hi = max(tc["t1"], w_lo)
+        if w_lo > cursor:
+            if i == 0:
+                kind = "queue"
+            elif tc["handoff"]:
+                kind = "kv_transfer"
+            else:
+                kind = "snapshot_restore" if tc["restored"] else "migration"
+            segments.append((kind, cursor, w_lo, "fleet"))
+        segments.extend(_window_segments(tc["trace"].events, tc["spans"],
+                                         tc["span_t0s"], tc["pmax"],
+                                         w_lo, w_hi, tc["name"]))
+        cursor = max(cursor, w_hi)
+    if cursor < t_hi:
+        segments.append(("host_other" if engines else "queue",
+                         cursor, t_hi, "fleet"))
+    return CriticalPath(trace_id, trace_id, t_lo, t_hi, segments)
+
+
+# ---------------------------------------------------------------------------
 # aggregate reports
 # ---------------------------------------------------------------------------
 def _aggregate(paths, top_k: int) -> dict:
@@ -324,6 +420,22 @@ def attribution_report(source, top_k: int = 5,
     paths = [attribute_trace(tr, tracer, component=component)
              for tr in tracer.traces()
              if tr.events and tr.events[-1][0] == "retired"]
+    return _aggregate(paths, top_k)
+
+
+def stitched_attribution_report(components, top_k: int = 5) -> dict:
+    """Aggregate attribution over every stitched end-to-end request
+    (``components`` as for :func:`attribute_stitched`): one
+    :class:`CriticalPath` per trace_id whose chain saw a retirement."""
+    components = list(components)
+    done_ids = set()
+    for _name, tracer in components:
+        for tr in tracer.traces():
+            if tr.events and tr.events[-1][0] == "retired":
+                tid = _trace_id_of(tr)
+                if tid is not None:
+                    done_ids.add(tid)
+    paths = [attribute_stitched(components, tid) for tid in sorted(done_ids)]
     return _aggregate(paths, top_k)
 
 
@@ -404,3 +516,17 @@ class TailRecorder:
             "slowest_e2e_s": ds[0]["e2e_s"] if ds else 0.0,
             "rids": [d["rid"] for d in ds],
         }
+
+
+def merge_tail_dumps(recorders, k: int = 8) -> list[dict]:
+    """Fleet-level /slow view: merge per-replica TailRecorder captures
+    into one slowest-first top-K list (``recorders``: iterable of
+    ``(label, TailRecorder)``)."""
+    rows = []
+    for label, rec in recorders:
+        for d in rec.dumps():
+            d = dict(d)
+            d["component"] = label
+            rows.append(d)
+    rows.sort(key=lambda d: -d["e2e_s"])
+    return rows[:k]

@@ -87,7 +87,7 @@ class Telemetry:
                  storm_threshold: int = 4, storm_window: int = 32,
                  profiler_bridge: bool = False, max_completed: int = 4096,
                  mem_series_capacity: int = 4096, mem_ramp_events: int = 64,
-                 tail_k: int = 8):
+                 sentinel=None, tail_k: int = 8):
         self.clock = clock
         self.registry = MetricsRegistry(clock=clock)
         self.tracer = Tracer(clock=clock, bridge=profiler_bridge,
@@ -163,6 +163,48 @@ class Telemetry:
         # retirement with span chain + attribution + engine-state context
         # (O(log K) heap check per retire; OFF with tail_k=0)
         self.tail = TailRecorder(k=tail_k, clock=clock) if tail_k else None
+        # health-sentinel metrics pre-registered (registry-freeze
+        # invariant: a fire from the engine worker thread must never
+        # create a metric)
+        self._c_alerts = r.counter("health.alerts_fired")
+        self._g_active_alerts = r.gauge("health.active_alerts")
+        # the sentinel evaluates at every step end through step_done, so
+        # telemetry-off engines pay nothing and sentinel-off telemetry
+        # pays one None check per step
+        self.sentinel = None
+        if sentinel is not None:
+            self.attach_sentinel(sentinel)
+
+    # -- health sentinel ---------------------------------------------------
+    def attach_sentinel(self, sentinel) -> "Telemetry":
+        """Attach a :class:`~paddle_tpu_torch.observability.health.
+        HealthSentinel`: it adopts this telemetry's clock (one clock
+        domain) and evaluates at every engine-step end through
+        ``step_done``."""
+        self.sentinel = sentinel.attach(self)
+        return self
+
+    def alert_fired(self, alert):
+        """Sentinel fire callback: count it, flight-record it with the
+        active fault-plan context, and dump the ring — the postmortem
+        artifact shows the ramp that tripped the rule."""
+        from .train import fault_context
+        self._c_alerts.inc()
+        self._g_active_alerts.set(
+            len(self.sentinel.active()) if self.sentinel is not None else 1)
+        self.flight.record("alert", rule=alert.rule,
+                           severity=alert.severity,
+                           value=round(alert.value, 6),
+                           threshold=alert.threshold,
+                           fault_plan=fault_context())
+        self._dump("alert", rule=alert.rule, value=round(alert.value, 6),
+                   threshold=alert.threshold, severity=alert.severity)
+
+    def alert_cleared(self, alert):
+        self._g_active_alerts.set(
+            len(self.sentinel.active()) if self.sentinel is not None else 0)
+        self.flight.record("alert_cleared", rule=alert.rule,
+                           value=round(alert.value, 6))
 
     def attribution_report(self, top_k: int = 5) -> dict:
         """Aggregate critical-path attribution over every completed
@@ -531,6 +573,18 @@ class Telemetry:
                                step=engine._step_seq)
             self._dump("injected_fault", point="serve.pool_pressure",
                        step=engine._step_seq)
+        if self.sentinel is not None:
+            # right after the memory sample, so every rule sees the fresh
+            # series row
+            self.sentinel.on_step(self)
+
+    def freeze(self):
+        """Freeze the registry (registry-freeze invariant): every metric
+        the engine's hot path can touch is pre-registered above, so a
+        frozen registry only rejects NEW names created from non-main
+        threads — the frontend / fleet / exporter wiring calls this once
+        the worker threads are about to start."""
+        self.registry.freeze()
 
     def fault_dump(self, reason: str, **extra) -> dict:
         return self._dump(reason, **extra)
@@ -553,6 +607,11 @@ class Telemetry:
             # warm-pass outliers (compile-inflated) must not shadow the
             # measured window's true tail
             self.tail.reset()
+        if self.sentinel is not None:
+            # rule windows and baselines restart with the window; active
+            # alerts are force-cleared, so the live gauge follows
+            self.sentinel.reset()
+            self._g_active_alerts.set(0)
 
     # -- readouts ----------------------------------------------------------
     def utilization_report(self, window_s: float | None = None) -> dict:

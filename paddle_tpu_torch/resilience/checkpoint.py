@@ -56,10 +56,12 @@ class CheckpointManager:
 
     ``extra_state`` passed to :meth:`save` (nested dicts of tensors, numpy
     arrays or plain values) rides along; :meth:`restore` returns the saved
-    step and leaves the extra state's plain values in ``last_extra``."""
+    step and leaves the extra state's plain values in ``last_extra``.
+    ``telemetry``: any object with a ``torn_snapshot(path, error)`` hook,
+    told of each snapshot that discovery rejects."""
 
     def __init__(self, root, save_interval: int = 1,
-                 keep_last: int | None = 3):
+                 keep_last: int | None = 3, telemetry=None):
         if save_interval < 1:
             raise ValueError("save_interval must be >= 1")
         if keep_last is not None and keep_last < 1:
@@ -68,6 +70,7 @@ class CheckpointManager:
         self.save_interval = int(save_interval)
         self.keep_last = keep_last
         self.last_extra = None
+        self.telemetry = telemetry
         os.makedirs(self.root, exist_ok=True)
 
     # -- discovery ---------------------------------------------------------
@@ -92,14 +95,19 @@ class CheckpointManager:
     def find_latest_complete(self):
         """Newest snapshot passing manifest verification, or None.  Torn or
         corrupt snapshots (killed mid-write, bit-flipped files) are skipped —
-        resume always lands on the previous intact checkpoint."""
+        resume always lands on the previous intact checkpoint.  Each
+        rejection goes to the telemetry's ``torn_snapshot`` hook, so a
+        resume that skipped a snapshot leaves a trail saying which one and
+        why."""
         from ..distributed.checkpoint import (CheckpointCorruptError,
                                               verify_checkpoint)
         for _, path in reversed(self._step_dirs()):
             try:
                 verify_checkpoint(path)
                 return path
-            except CheckpointCorruptError:
+            except CheckpointCorruptError as e:
+                if self.telemetry is not None:
+                    self.telemetry.torn_snapshot(path, e)
                 continue
         return None
 

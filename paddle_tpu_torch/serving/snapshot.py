@@ -99,8 +99,8 @@ class EngineSnapshotManager(CheckpointManager):
     train state; use :meth:`save_engine` / :meth:`restore_engine` (the
     inherited train-shaped ``save``/``restore`` are not used here)."""
 
-    def __init__(self, root, keep_last: int | None = 2):
-        super().__init__(root, keep_last=keep_last)
+    def __init__(self, root, keep_last: int | None = 2, telemetry=None):
+        super().__init__(root, keep_last=keep_last, telemetry=telemetry)
 
     def save_engine(self, engine, step: int | None = None,
                     mode: str = "full_kv") -> str:

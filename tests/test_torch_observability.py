@@ -17,8 +17,7 @@ equal too.  Two known differences are excluded by name: the JAX engine's
 compile events (jit compile-cache misses; the port's counterpart is a
 CUDA-graph capture, which the CPU never takes) and its
 ``overlap_join_sync`` phase (the wait on its dispatch thread, which the
-port does not have); the JAX registry's two health-sentinel metrics come
-with the sentinel, in the fleet slice."""
+port does not have)."""
 import json
 import time
 
@@ -40,8 +39,7 @@ OBS = pytest.mark.parametrize("obs", [jobs, tobs], ids=["jax", "torch"])
 # names only the JAX engine records (module docstring)
 JAX_ONLY_FLIGHT = {"compile"}
 JAX_ONLY_METRICS = {"engine.compile_s", "engine.compiles",
-                    "engine.phase.overlap_join_sync_s",
-                    "health.alerts_fired", "health.active_alerts"}
+                    "engine.phase.overlap_join_sync_s"}
 
 
 class _FakeClock:
