@@ -31,10 +31,14 @@ seed:
                at 64 and 128, and at each of 32, 48, 80, 96, 160, 192, 256
                with ``-DFA_TU_WIDTHS=W``), each reported and held to the
                same no-spill gate, and with ``--parent DIR`` that build's
-               flash-attention libraries are built beside them;
+               flash-attention and ragged libraries are built beside them,
+               each of its ragged instantiations held to the same ptxas
+               registers and spills as its aligned-group twin here;
   2. kernel    both kernels against their plain PyTorch version on the
                card: 7B decode (kv_len 0/5/16/1024/..), a 256-token prefill
-               chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, a
+               chunk over a cached prefix, GQA 16:4 at D = 64 / page 64, at
+               pages of 2, 4, 12 and 20 beside 16 (decode, GQA decode and
+               verify, a prefill chunk, with and without a split grid), a
                ragged q_len 0/1/3/5 mix (the verify shape), one split (a
                4-page table), GQA 16:4 decode over 1-page splits, a 37-row
                chunk with a q_len = 0 slot, and at the split length L of
@@ -188,6 +192,25 @@ seed:
                greedy path, device memory back to within 64 MiB after
                each drill's fleet is dropped, and the phase's launches of
                rows 1-2 with no plain-version call;
+               (m) the cross-process fleet: the successor weights written
+               as an npz, then a ``ProcessFleet`` of 2 worker processes
+               (``python -m paddle_tpu_torch.serving.worker``, each with
+               its own CUDA context and copy of the weights, its ragged
+               libraries loaded and 3a's warm-up captured before its
+               hello) serves 3a's 8 requests over loopback RPC; a SIGKILL
+               of the busiest worker mid-decode, the stitched trace across
+               the processes, a SIGSTOP of the busiest worker mid-decode
+               (killed after its missed heartbeats), a request on each worker (its row 1 launches
+               must grow, and no process calls the plain version), then a
+               retire of w0 and a SIGTERM drain of w1; the same drills on
+               a copy at the JAX suite's SPEC geometry (pages of 4: the
+               kernels' per-row table walk, snapshots every 3 steps) and
+               an int8-KV SPEC worker (row 2); every stream on the greedy
+               path, zero loss, no token emitted twice, every worker
+               generation's invariants report passing, and the card's free
+               memory back after each fleet; tokens/s, recovery, spawn to
+               hello per generation, the poll round trip and the phase's
+               wall;
                with ``--parent-engine ROOT`` another commit's (a) and (b)
                run in a process of their own before (a) and after (k);
                (c) the 271M LLaMA train step (bf16, B 8, S 2048,
@@ -274,6 +297,7 @@ seed:
                replays, the eager time on its own line), the split merge
                alone, one line per design step of rows 1-2 (split count,
                ring depth, warps, the tensor-core tile's row threshold),
+               rows 1-2 at 3a's decode shape over pages of 4 and 12,
                with ``--parent DIR`` that
                build's rows 1, 2 and 10 timed in turns with these, the
                train kernels at
@@ -562,6 +586,57 @@ def build_parent(parent):
                 paths[name], ("fa_fwd_mma_kernel", "fa_fwd_wgmma_kernel")):
             print(f"  ptxas parent {kernel}{args}: {regs} registers, spill "
                   f"stores {stores} B")
+    compare_parent_ragged_ptxas(parent)
+
+
+RAGGED_KERNELS = ("ragged_paged_attention_kernel",
+                  "ragged_paged_attention_mma_kernel",
+                  "ragged_paged_attention_combine_kernel")
+
+
+def compare_parent_ragged_ptxas(parent):
+    """Rows 1-2's ptxas lines against another commit's (``parent``, its
+    ``csrc``): every instantiation of that build's ragged libraries (built
+    here, one ``nvcc`` each, all started together) must have the same
+    registers and spills as this build's aligned-group twin (its template
+    arguments with AL = true, the last); the AL = false instantiations,
+    the per-row table walk, are new and counted apart."""
+    import re
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    names = sorted(n for n in _build._sources(Path(parent))
+                   if n.startswith("ragged_paged_attention"))
+    old = _build.build_all(names, csrc=Path(parent))
+    new = _build.build_all(names)
+    same = added = 0
+    differ = []
+    for name in names:
+        before = {(k, a): rest for k, a, *rest in
+                  ptxas_lines(old[name], RAGGED_KERNELS)}
+        after = {}
+        for k, a, *rest in ptxas_lines(new[name], RAGGED_KERNELS):
+            m = re.fullmatch(r"(.*)Lb([01])E(E*)", a)
+            if k == "ragged_paged_attention_combine_kernel" or m is None:
+                after[k, a] = rest
+            elif m.group(2) == "1":
+                after[k, m.group(1) + m.group(3)] = rest
+            else:
+                added += 1
+        for key, rest in before.items():
+            if after.get(key) == rest:
+                same += 1
+            else:
+                differ.append(f"{name} {key[0]}{key[1]}: {after.get(key)} "
+                              f"here, {rest} in the parent's build")
+    for line in differ:
+        print(f"  ptxas differs (registers, spill stores, loads): {line}")
+    print(f"  ptxas rows 1-2: {same} instantiations of the parent's "
+          f"{len(names)} ragged libraries equal to their aligned twins "
+          f"here (registers, spill stores, spill loads), {len(differ)} "
+          f"differ; {added} per-row (AL = false) instantiations added")
+    require(not differ, f"{len(differ)} ragged instantiations' ptxas lines "
+            f"differ from the parent's")
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -738,6 +813,48 @@ def split_cases(pa):
     ]
 
 
+# page sizes of phase 2's page-size cases: the sizes that are not a
+# multiple of 8 take the kernels' per-row table walk (AL = false), 16 the
+# aligned groups, in the same cases
+PAGE_SIZES = (2, 4, 12, 20, 16)
+
+
+def page_size_cases(ps):
+    """Rows 1-2 at page size ``ps``: decode (one row a group: the CUDA-core
+    tile), GQA 32:8 decode and a q_len 5 verify (the tensor-core tile for
+    bf16 q), and a 64-row prefill chunk over a cached prefix, over a table
+    of ~330 tokens (a split grid) and over one of <= 64 tokens (one
+    split); lengths on and beside page boundaries, a q_len = 0 slot."""
+    P = -(-320 // ps) + 1
+    L = P * ps
+    p1 = -(-48 // ps)
+    big = dict(S=4, Hq=32, D=128, ps=ps, NP=4 * P, P=P)
+    one = dict(S=3, Hq=32, D=128, ps=ps, NP=3 * p1, P=p1)
+    dec = dict(q_start=[0, 4, 2 * ps + 2, L - 2], q_len=[0, 1, 1, 1],
+               kv_len=[0, 5, 2 * ps + 3, L - 1])
+    dec1 = dict(q_start=[0, ps, p1 * ps - 1], q_len=[1, 1, 1],
+                kv_len=[1, ps + 1, p1 * ps])
+    ver = dict(q_start=[ps - 2, 3 * ps - 1, L - 6, 0], q_len=[5, 5, 5, 0],
+               kv_len=[ps + 3, 3 * ps + 4, L - 1, 0])
+    ver1 = dict(q_start=[0, ps - 1, p1 * ps - 5], q_len=[5, 5, 5],
+                kv_len=[5, ps + 4, p1 * ps])
+    return [
+        (f"ps={ps} decode (split grid)", dict(big, Qmax=1, Hkv=32, **dec)),
+        (f"ps={ps} decode (one split)", dict(one, Qmax=1, Hkv=32, **dec1)),
+        (f"ps={ps} GQA 32:8 decode (split grid)",
+         dict(big, Qmax=1, Hkv=8, **dec)),
+        (f"ps={ps} GQA 32:8 decode (one split)",
+         dict(one, Qmax=1, Hkv=8, **dec1)),
+        (f"ps={ps} verify q_len 5 (split grid)",
+         dict(big, Qmax=5, Hkv=32, **ver)),
+        (f"ps={ps} GQA 32:8 verify (one split)",
+         dict(one, Qmax=5, Hkv=8, **ver1)),
+        (f"ps={ps} chunk of 64 rows over 100 cached",
+         dict(S=1, Qmax=64, Hq=32, Hkv=32, D=128, ps=ps, NP=P, P=P,
+              q_start=[100], q_len=[64], kv_len=[164])),
+    ]
+
+
 def phase_kernel(pa):
     """Both kernels against the plain version, and the split merge against
     its plain version on random partials; returns the worst absolute error
@@ -745,7 +862,8 @@ def phase_kernel(pa):
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"plain": 0.0, "quant": 0.0}
     n0 = pa.ragged_paged_attention.combine_launches
-    for name, kw in KERNEL_CASES + split_cases(pa):
+    for name, kw in KERNEL_CASES + split_cases(pa) + [
+            c for ps in PAGE_SIZES for c in page_size_cases(ps)]:
         for dtype, out_dtype in DTYPE_PAIRS:
             args = make_case(gen, dtype=dtype, **kw)
             err = compare(pa, f"{name} [{str(dtype)[6:]}]", args, out_dtype)
@@ -3038,6 +3156,340 @@ def phase_fleet(pa, cfg, params, succ, device="cuda"):
     return out
 
 
+# -- phase 3m: the cross-process serving fleet --------------------------------
+# 3a's engine geometry as a worker spec's "engine" (a dtype by its name)
+PROC_ENGINE = dict(num_slots=4, page_size=16, num_pages=320,
+                   max_pages_per_seq=72, dtype="bfloat16", prompt_bucket=32,
+                   decode_horizon=8, prefill_chunk=256)
+# what a 7B worker serves before its hello (3a's warm-up): its horizons'
+# CUDA graphs are captured inside spawn-to-hello
+PROC_WARMUP = [[64, 9], [300, 9]]
+# the JAX suite's cross-process SPEC (tests/test_procfleet.py): its model
+# and its engine, pages of 4 (the kernels' per-row table walk)
+PROC_TINY_CONFIG = dict(vocab_size=64, hidden_size=32, intermediate_size=96,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=4, max_position_embeddings=64)
+PROC_TINY_ENGINE = dict(num_slots=2, page_size=4, num_pages=40,
+                        max_pages_per_seq=16, prompt_bucket=8,
+                        decode_horizon=2)
+PROC_TINY_SNAPSHOT_EVERY = 3          # the JAX drills' snapshot cadence
+
+
+def proc_spec(cfg, npz, dtype, engine, warmup=None):
+    """A ProcessFleet worker spec: the model's config and dtype, weights
+    from the npz at ``npz``, on the card (``"device": None``)."""
+    spec = {"device": None,
+            "model": {"config": dataclasses.asdict(cfg), "dtype": dtype,
+                      "weights": {"npz": npz}},
+            "engine": dict(engine)}
+    if warmup:
+        spec["warmup"] = warmup
+    return spec
+
+
+def card_free():
+    """The card's free bytes, as the driver counts them (every process's
+    contexts and allocations)."""
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def card_memory_back(free0, what, timeout=30.0):
+    """After a process fleet is shut down, the card's free memory is back
+    within 64 MiB of its value before the fleet was spawned: every worker
+    generation, the SIGKILLed ones included, gave its context, weights, KV
+    pool and graph pool back.  Polls while the driver reclaims the exited
+    processes' contexts."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        lost = free0 - card_free()
+        if lost < 64 << 20 or time.perf_counter() > deadline:
+            break
+        time.sleep(0.25)
+    require(lost < 64 << 20, f"{what}: {lost / 2**20:.1f} MiB of the card "
+            f"still held after the fleet was shut down")
+    print(f"    card memory with the fleet shut down: {-lost / 2**20:+.1f} "
+          f"MiB against before it was spawned")
+    return lost
+
+
+def poll_rtt_ms(fleet, n=50):
+    """p50 of an empty ``poll`` round trip (frame, handler under the
+    worker's lock, reply) to every live worker, in ms."""
+    times = []
+    for w in fleet._workers:
+        if w.alive:
+            for _ in range(n):
+                t = time.perf_counter()
+                w.client.call("poll", have={})
+                times.append((time.perf_counter() - t) * 1e3)
+    return float(np.percentile(times, 50))
+
+
+def step_until(fleet, tokens):
+    """Supervisor rounds until the fleet has streamed ``tokens`` tokens:
+    the workers are mid-decode."""
+    deadline = time.perf_counter() + 300
+    while fleet.tokens_streamed < tokens:
+        require(time.perf_counter() < deadline, "3m: the fleet streams "
+                "nothing")
+        if not fleet.step():
+            time.sleep(0.002)
+
+
+def busiest(fleet):
+    """(the live worker holding the most requests the supervisor has not
+    seen finish, how many): a kill there lands mid-decode."""
+    held = {w.name: sum(fleet._requests[f].result is None
+                        for f in fleet._assigned.get(w.name, ()))
+            for w in fleet._workers if w.alive}
+    name = max(held, key=held.get)
+    return fleet._by_name(name), held[name]
+
+
+def failovers_until(fleet, n):
+    """Supervisor rounds until ``n`` failovers are done: ``run`` returns
+    once every request is resolved, which may come before the supervisor
+    has reaped a killed worker or counted a stopped one's heartbeats."""
+    deadline = time.perf_counter() + 300
+    while fleet.stats()["failovers"] < n:
+        require(time.perf_counter() < deadline,
+                f"3m: failover {n} never happened")
+        if not fleet.step():
+            time.sleep(0.005)
+
+
+def proc_waves(vocab, tiny):
+    """(a)'s traffic and four drill waves: 3a's 8 requests and waves of 4
+    requests of 64-128 tokens at 7B; at the SPEC geometry, JAX's 6 prompts
+    of 3-7 tokens and 12 new tokens, then waves of 4 such prompts and 40
+    new tokens, so that a kill lands mid-decode."""
+    if not tiny:
+        return [traffic(vocab)] + [drill_traffic(vocab, 40 + i)
+                                   for i in range(4)]
+    waves = []
+    for i in range(5):
+        r = np.random.default_rng(7 + i)
+        waves.append([(r.integers(1, vocab, int(t)).astype(np.int32),
+                       12 if i == 0 else 40)
+                      for t in r.integers(3, 8, 6 if i == 0 else 4)])
+    return waves
+
+
+def proc_drills(spec, succ, label, waves, workdir, snapshot_every=0):
+    """3m's drills on one two-worker fleet lifetime: (a) serve ``waves[0]``
+    (tokens/s over loopback, then the poll round trip); (b) SIGKILL the
+    worker holding the most open requests, mid-decode; (e) the stitched
+    trace across the processes; (c) SIGSTOP the busiest worker mid-decode,
+    killed after its missed heartbeats; (f) a request on each worker,
+    which must add to its row 1 (row 2 over quantized pages) launches,
+    with no plain call in the process; (d) retire w0 mid-decode, then
+    SIGTERM drains w1.  Every stream on the successor model's greedy path, each
+    ``on_token`` stream equal to its record (no token emitted twice), zero
+    loss, every worker generation's invariants report passing, and the
+    card's memory back after the fleet."""
+    import signal
+
+    from paddle_tpu_torch.serving import ProcessFleet
+    key = "quant_launches" if spec["engine"].get("kv_dtype") else "launches"
+    free0 = card_free()
+    t_start = time.perf_counter()
+    fleet = ProcessFleet(spec, num_workers=2, workdir=workdir, trace_every=2,
+                         snapshot_every=snapshot_every)
+    try:
+        boot_s = time.perf_counter() - t_start
+        reqs, got, frids = [], [], []
+
+        def wave(i, n=None):
+            w = waves[i][:n]
+            collect(fleet, w, got, frids)
+            reqs.extend(w)
+            return sum(m for _, m in w)
+
+        n_a = wave(0)
+        t = time.perf_counter()
+        fleet.run()
+        wall_a = time.perf_counter() - t
+        fleet_on_path(succ, fleet, reqs, got, frids, f"3m (a) {label}")
+        rtt = poll_rtt_ms(fleet)
+        print(f"  (a) {label}: {n_a} tokens of {len(waves[0])} requests on 2 "
+              f"worker processes in {wall_a:.2f} s: {n_a / wall_a:.1f} "
+              f"tokens/s over loopback; workers booted together in "
+              f"{boot_s:.1f} s; empty poll round trip p50 {rtt:.3f} ms")
+
+        base = fleet.tokens_streamed
+        fleet.step()                 # the workers' loads are read
+        wave(1)
+        step_until(fleet, base + 8)
+        victim, held = busiest(fleet)
+        os.kill(victim.pid, signal.SIGKILL)
+        fleet.run()
+        failovers_until(fleet, 1)
+        require(held > 0, f"3m (b) {label}: {victim.name} held no open "
+                f"request when it was killed")
+        fleet_on_path(succ, fleet, reqs, got, frids, f"3m (b) {label}")
+        st = fleet.stats()
+        require(st["failovers"] == 1
+                and st["worker_restarts"][victim.name] == 1,
+                f"3m (b) {label}: {st['failovers']} failovers")
+        print(f"  (b) {label}: SIGKILL of {victim.name} mid-decode ({held} "
+              f"open requests), replaced (spawn to hello "
+              f"{fleet.spawn_s[-1]:.1f} s); zero lost, streams on the "
+              f"greedy path, no token emitted twice")
+
+        summary = fleet.stitcher().summary()
+        comps = [n for n, _ in fleet.trace_components()]
+        require(len(summary["max_chain"]) >= 2 and comps[0] == "supervisor"
+                and len(comps) >= 3, f"3m (e) {label}: stitched "
+                f"{comps}, longest chain {summary['max_chain']}")
+        print(f"  (e) {label}: stitched trace of {len(comps)} tracks "
+              f"({', '.join(comps)}), longest flow chain "
+              f"{len(summary['max_chain'])} tracks")
+
+        base = fleet.tokens_streamed
+        fleet.step()
+        wave(2)
+        step_until(fleet, base + 8)
+        victim, held = busiest(fleet)
+        os.kill(victim.pid, signal.SIGSTOP)
+        t = time.perf_counter()
+        fleet.run()
+        failovers_until(fleet, 2)
+        wedge_s = time.perf_counter() - t
+        require(held > 0, f"3m (c) {label}: {victim.name} held no open "
+                f"request when it was stopped")
+        fleet_on_path(succ, fleet, reqs, got, frids, f"3m (c) {label}")
+        kinds = [e["kind"] for e in fleet.flight.events()
+                 if e["event"] == "failover"]
+        missed = sum(e["event"] == "missed_heartbeat"
+                     for e in fleet.flight.events())
+        require(kinds == ["crash", "wedge"],
+                f"3m (c) {label}: failovers {kinds}")
+        print(f"  (c) {label}: SIGSTOP of {victim.name} mid-decode ({held} "
+              f"open requests): {missed} missed "
+              f"heartbeats of {fleet.heartbeat_timeout} s, SIGKILLed and "
+              f"replaced (spawn to hello {fleet.spawn_s[-1]:.1f} s); the "
+              f"wave done {wedge_s:.1f} s after the stop")
+
+        fleet.step()                 # both replacements' loads are read
+        before = {k: ws["kernels"] for k, ws in fleet.worker_stats().items()}
+        wave(3, 2)
+        fleet.run()
+        fleet_on_path(succ, fleet, reqs, got, frids, f"3m (f) {label}")
+        kernels = {k: ws["kernels"] for k, ws in fleet.worker_stats().items()}
+        for k, c in kernels.items():
+            require(c[key] > before[k][key] and c["plain_calls"] == 0,
+                    f"3m (f) {label}: worker {k} ran {c} (before the wave "
+                    f"{before[k]})")
+        print(f"  (f) {label}: " + "; ".join(
+            f"{k} row 1 {c['launches']}, row 2 {c['quant_launches']}, "
+            f"merges {c['combine_launches']}, plain {c['plain_calls']}"
+            for k, c in kernels.items()))
+
+        base = fleet.tokens_streamed
+        fleet.step()
+        wave(4)
+        step_until(fleet, base + 4)
+        retired = fleet._workers[0].key()
+        fleet.retire_worker("w0")
+        rep = fleet.final_reports[retired]
+        require(rep["kind"] == "retired" and rep["invariants_ok"] is True,
+                f"3m (d) {label}: retire report {rep}")
+        os.kill(os.getpid(), signal.SIGTERM)   # the fleet's drain handler
+        fleet.run()
+        require(fleet.closed, f"3m (d) {label}: SIGTERM did not drain-shut "
+                f"the fleet")
+        fleet_on_path(succ, fleet, reqs, got, frids, f"3m (d) {label}")
+        fleet.assert_worker_invariants()
+        print(f"  (d) {label}: {retired} retired (streams migrated), SIGTERM "
+              f"drained w1; {len(reqs)} requests, zero lost; final reports "
+              + ", ".join(f"{k} {r.get('kind', r.get('via'))}"
+                          for k, r in sorted(fleet.final_reports.items())))
+    finally:
+        if not fleet.closed:
+            fleet.shutdown(drain=False, force=True)
+    st = fleet.stats()
+    rec = st["recovery"]
+    print(f"  {label}: recovery p50 {rec['p50_ms']:.1f} / max "
+          f"{rec['max_ms']:.1f} ms; spawn to hello per generation "
+          + ", ".join(f"{x:.1f}" for x in fleet.spawn_s) + " s, of which "
+          + "; ".join(f"process start and torch {x - sum(b.values()):.1f}, "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in b.items())
+                      for x, b in zip(fleet.spawn_s, fleet.boot_s)) + " s")
+    card_memory_back(free0, f"3m {label}")
+    return dict(tokens_per_s=n_a / wall_a, recovery_p50_ms=rec["p50_ms"],
+                recovery_max_ms=rec["max_ms"], spawn_s=list(fleet.spawn_s),
+                boot_s=list(fleet.boot_s), poll_p50_ms=rtt, kernels=kernels)
+
+
+def proc_weights(params, root, name):
+    """The model's weights as the workers' npz under ``root``; seconds."""
+    from paddle_tpu_torch.serving.worker import save_weights_npz
+    t = time.perf_counter()
+    path = save_weights_npz(params, os.path.join(root, f"{name}.npz"))
+    return path, time.perf_counter() - t
+
+
+def phase_procfleet(pa, cfg, npz, succ, card, root):
+    """3m: the cross-process fleet on the card.  Its rows 1-2 libraries
+    (built in phase 1, loaded here first) are loaded by every worker
+    before its hello.  The drills (:func:`proc_drills`) run on 3a's
+    geometry at 7B widths over the successor weights in ``npz`` (bf16
+    pages: row 1), then on a copy at the JAX suite's SPEC geometry (pages
+    of 4, the per-row table walk) with snapshots every 3 steps, and an
+    int8-KV SPEC fleet serves one wave (row 2, pages of 4)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from paddle_tpu_torch.ops import _build
+    t_start = time.perf_counter()
+    for width in {pa.head_width(cfg.hidden_size // cfg.num_attention_heads),
+                  pa.head_width(PROC_TINY_CONFIG["hidden_size"]
+                                // PROC_TINY_CONFIG["num_attention_heads"])}:
+        for name in ("ragged_paged_attention",
+                     "ragged_paged_attention_quant"):
+            _build.library(_build.width_library(name, width))
+    out = {"7b": proc_drills(
+        proc_spec(cfg, npz, "bfloat16", PROC_ENGINE, PROC_WARMUP), succ,
+        f"7B x {cfg.num_hidden_layers} layers",
+        proc_waves(cfg.vocab_size, False), os.path.join(root, "7b"))}
+    tiny = LlamaConfig(**PROC_TINY_CONFIG)
+    tparams = init_llama_params(tiny, device="cuda", seed=1)
+    tsucc = successor_model(tparams, seed=2)
+    tnpz, _ = proc_weights(tparams, root, "spec")
+    del tparams
+    out["spec"] = proc_drills(
+        proc_spec(tiny, tnpz, "float32", PROC_TINY_ENGINE), tsucc,
+        "SPEC, pages of 4", proc_waves(tiny.vocab_size, True),
+        os.path.join(root, "spec"), snapshot_every=PROC_TINY_SNAPSHOT_EVERY)
+    from paddle_tpu_torch.serving import ProcessFleet
+    free0 = card_free()
+    fleet = ProcessFleet(proc_spec(tiny, tnpz, "float32", dict(
+        PROC_TINY_ENGINE, kv_dtype="int8")), num_workers=1,
+        workdir=os.path.join(root, "spec_int8"))
+    try:
+        reqs = proc_waves(tiny.vocab_size, True)[0]
+        got, frids = [], []
+        collect(fleet, reqs, got, frids)
+        fleet.run()
+        fleet_on_path(tsucc, fleet, reqs, got, frids, "3m int8 SPEC")
+        (wkey, ws), = fleet.worker_stats().items()
+        k = ws["kernels"]
+        require(k["quant_launches"] > 0 and k["launches"] == 0
+                and k["plain_calls"] == 0, f"3m int8 SPEC worker ran {k}")
+        fleet.shutdown()
+        fleet.assert_worker_invariants()
+    finally:
+        if not fleet.closed:
+            fleet.shutdown(drain=False, force=True)
+    print(f"  int8 pages of 4 (SPEC): {len(reqs)} requests on the greedy "
+          f"path; {wkey} row 2 {k['quant_launches']}, merges "
+          f"{k['combine_launches']}, plain {k['plain_calls']}")
+    card_memory_back(free0, "3m int8 SPEC")
+    out["int8"] = k
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"  phase 3m drills {out['wall_s']:.1f} s on {card}")
+    return out
+
+
 # -- phase 3c: the train step -------------------------------------------------
 def train_config(layers=16):
     """The repo's training model (bench.py bench_llama on the chip): vocab
@@ -3885,12 +4337,12 @@ def bound(q_len, q_start, kv_len, Hq, Hkv, D, ps, elt, flop_rate,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128):
-    """bf16 q (32 heads of D, page 16) at one segment shape, and
+def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128, ps=16):
+    """bf16 q (32 heads of D, page ``ps``) at one segment shape, and
     ``n_copies`` page pools (> the 50 MB L2 together) of bf16 pages or of
     int8 / fp8 codes with their scales; the slots' pages in a random order."""
     from paddle_tpu_torch.serving.quant import kv_spec, quantize_kv
-    dt, Hq, Hkv, ps = torch.bfloat16, 32, 32, 16
+    dt, Hq, Hkv = torch.bfloat16, 32, 32
     S, Qmax = sh["S"], sh["Qmax"]
     P = max(-(-k // ps) for k in sh["kv_len"])
     NP = S * P
@@ -3913,14 +4365,14 @@ def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128):
     return q, pools, pt, seg
 
 
-def time_shape(pa, gen, sh, kv_dtype, D=128):
+def time_shape(pa, gen, sh, kv_dtype, D=128, ps=16):
     """Kernel ms at one segment shape (32 heads of D) as a CUDA-graph
     replay (the device's time: the wrapper's host cost, tens of us per
     call, would hide it), its eager ms on a line of its own, the plain
     version's ms (eager), and the bound.  The kernel's time includes the
     split merge where the plan splits."""
-    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype, D=D)
-    Hq, Hkv, ps = 32, 32, 16
+    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype, D=D, ps=ps)
+    Hq, Hkv = 32, 32
     n_copies = len(pools)
 
     def kern(i):
@@ -3941,7 +4393,7 @@ def time_shape(pa, gen, sh, kv_dtype, D=128):
                          True, sms=torch.cuda.get_device_properties(0)
                          .multi_processor_count)
     tag = f"{kv_dtype or 'bf16':<5} {sh['name']:<6}" + \
-        ("" if D == 128 else f" D={D}")
+        ("" if D == 128 else f" D={D}") + ("" if ps == 16 else f" ps={ps}")
     print(f"  {tag} S={sh['S']} Qmax={sh['Qmax']} kv_len={sh['kv_len']}: "
           f"kernel {ms:.4f} ms (graph replay; {plan.n_splits} splits of "
           f"{plan.split_len} tokens, {plan.blocks} blocks), plain "
@@ -3975,9 +4427,15 @@ def timing_shapes(plain_kv, quant_kv):
             + [("int8", sh) for sh in quant] + [("fp8", quant[0])])
 
 
+# page sizes that phase 5 times rows 1-2 at besides 16 (the per-row walk)
+PAGE_TIMING = (4, 12)
+
+
 def phase_timing(pa, layers, plain_kv, quant_kv, parent=None):
     """Rows 1-2 at the phase-3 shapes (:func:`timing_shapes`), the split
-    merge alone at phase 3a's decode shape, one line per design step (the
+    merge alone at phase 3a's decode shape, rows 1-2 at that decode shape
+    over pages of ``PAGE_TIMING`` (the per-row table walk), one line per
+    design step (the
     split count, the ring depth, the warps of a CUDA-core block), and with
     ``parent`` (another commit's ``csrc``) that build's kernels timed in
     turns with these."""
@@ -3988,6 +4446,14 @@ def phase_timing(pa, layers, plain_kv, quant_kv, parent=None):
         if kv_dtype != "fp8":
             res["plain" if kv_dtype is None else "quant"][sh["name"]] = r
     res["combine"] = combine_timing(pa, gen, plain_kv)
+    print("  rows 1-2 at phase 3a's decode shape over pages of 4 and 12 (the "
+          "per-row table walk):")
+    for ps in PAGE_TIMING:
+        for kv_dtype in (None, "int8"):
+            r = time_shape(pa, gen, timing_shapes(plain_kv, quant_kv)[0][1],
+                           kv_dtype, ps=ps)
+            res["plain" if kv_dtype is None else "quant"][f"decode ps={ps}"] \
+                = r
     print(f"  launches: {layers} per decode step, per verify step and per "
           f"prefill chunk (one per layer), of row 1 on an f32/bf16 store "
           f"and of row 2 on an int8/fp8 store, each followed by the merge "
@@ -5241,7 +5707,9 @@ def head_dim_checks(fa, gen, worst=None):
 def ragged_head_cases(d):
     """Rows 1-2 at head dim d: a decode launch long enough to split (so the
     merge runs at d too), a ragged verify mix with GQA 8:2 (the tensor-core
-    tile for bf16 q) and a 90-row prefill chunk over a cached prefix."""
+    tile for bf16 q), a 90-row prefill chunk over a cached prefix, and a
+    verify mix over pages of 12 (the per-row table walk) whose decode slot
+    splits."""
     return [
         (f"D={d} decode kv_len 1/100/512/1001 (split)",
          dict(S=4, Qmax=1, Hq=8, Hkv=8, D=d, ps=16, NP=300, P=64,
@@ -5254,6 +5722,10 @@ def ragged_head_cases(d):
         (f"D={d} chunk of 90 rows over 64 cached",
          dict(S=1, Qmax=96, Hq=8, Hkv=8, D=d, ps=16, NP=16, P=12,
               q_start=[64], q_len=[90], kv_len=[154])),
+        (f"D={d} ps=12 verify q_len 0/1/3/5 GQA 8:2, decode split",
+         dict(S=4, Qmax=5, Hq=8, Hkv=2, D=d, ps=12, NP=120, P=90,
+              q_start=[10, 100, 63, 1000], q_len=[0, 1, 3, 1],
+              kv_len=[10, 101, 66, 1001])),
     ]
 
 
@@ -6349,8 +6821,24 @@ def main():
         "failover from snapshots, prefill / decode roles over int8 pages, "
         "elastic scaling, POST /generate over loopback, a seeded replay)")
     fleet = phase_fleet(pa, cfg, params, serve_q["succ"])
-    del params
-    torch.cuda.empty_cache()
+    say("phase 3m: the cross-process serving fleet at LLaMA-2 7B widths "
+        "(worker processes over loopback RPC: SIGKILL, SIGSTOP, retire and "
+        "SIGTERM drills, the stitched trace, each worker's launches) and "
+        "at the JAX suite's SPEC geometry (pages of 4, bf16 and int8 KV)")
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_3m_")
+    try:
+        npz, write_s = proc_weights(params, root, "7b")
+        print(f"  the successor weights as the workers' npz: "
+              f"{os.path.getsize(npz) / 2**30:.2f} GiB written in "
+              f"{write_s:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+        procs = phase_procfleet(pa, cfg, npz, serve_q["succ"], card, root)
+        procs["write_s"] = write_s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     if args.parent_engine:
         say("phase 3a/3b of the parent commit (turn 2 of 2)")
         parent_engine_turn(args.parent_engine)
@@ -6462,6 +6950,16 @@ def main():
           f"{fleet['disagg']['transfer_p50_ms']:.1f} ms; POST /generate "
           f"{fleet['front_door']['sse_tokens_per_s']:.1f} tokens/s; replay "
           f"goodput {fleet['replay']['goodput']} on {card}")
+    big = procs["7b"]
+    print(f"  process fleet (3m, {procs['wall_s']:.1f} s of drills, weights "
+          f"written in {procs['write_s']:.1f} s): {big['tokens_per_s']:.1f} "
+          f"tokens/s over loopback on 2 worker processes; recovery p50 "
+          f"{big['recovery_p50_ms']:.1f} / max {big['recovery_max_ms']:.1f} "
+          f"ms; spawn to hello "
+          + ", ".join(f"{x:.1f}" for x in big["spawn_s"])
+          + f" s; poll round trip p50 {big['poll_p50_ms']:.3f} ms; SPEC "
+          f"copy (pages of 4) {procs['spec']['tokens_per_s']:.1f} tokens/s, "
+          f"recovery p50 {procs['spec']['recovery_p50_ms']:.1f} ms on {card}")
     print(f"  engine snapshot: {obs['snap']['pages']} pages, "
           f"{obs['snap']['snapshot_bytes'] / 2**20:.1f} MiB, save "
           f"{obs['snap']['save_s']:.3f} s, restore "

@@ -25,7 +25,8 @@ import json
 import time
 from collections import deque
 
-__all__ = ["RequestTrace", "Tracer", "NULL_CONTEXT"]
+__all__ = ["RequestTrace", "Tracer", "NULL_CONTEXT", "tracer_to_wire",
+           "tracer_from_wire"]
 
 
 class _NullContext:
@@ -115,6 +116,9 @@ class Tracer:
         numbers."""
         self._counters.append((track, self.clock() if t is None else t,
                                {k: float(v) for k, v in values.items()}))
+
+    def counter_events(self) -> list[tuple]:
+        return list(self._counters)
 
     def annotation(self, name: str):
         """Context manager for the profiler bridge: when ``bridge`` is on,
@@ -236,3 +240,64 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(self.to_chrome_trace(), f)
         return path
+
+
+# -- cross-process wire form --------------------------------------------------
+# A worker process ships its Tracer to the supervisor over the `trace` RPC
+# as plain JSON; the supervisor rebuilds an equivalent Tracer so the
+# TraceStitcher sees worker tracks exactly like in-process replica tracks.
+# Both sides must run on the SAME clock domain (the process fleet uses
+# time.time end to end) or the stitched spans shear.
+
+def _py(v):
+    """JSON-safe scalar: numpy scalars and one-element tensors -> Python
+    numbers (``.item()``); anything else with an ``item`` that refuses
+    (a multi-element array or tensor) -> its ``str``."""
+    if hasattr(v, "item") and not isinstance(v, (str, bytes)):
+        try:
+            return v.item()
+        except (AttributeError, ValueError, RuntimeError):
+            return str(v)
+    return v
+
+
+def _py_attrs(attrs):
+    return None if not attrs else {str(k): _py(v) for k, v in attrs.items()}
+
+
+def tracer_to_wire(tracer: "Tracer") -> dict:
+    """Serialize a Tracer (request records, engine spans, counter tracks)
+    into a JSON-ready dict for the worker->supervisor ``trace`` RPC."""
+    return {
+        "requests": [{"rid": int(tr.rid),
+                      "events": [[n, float(t), _py_attrs(a)]
+                                 for n, t, a in tr.events]}
+                     for tr in tracer.traces()],
+        "engine": [[n, float(t0), None if t1 is None else float(t1),
+                    _py_attrs(a)] for n, t0, t1, a in tracer._engine],
+        "counters": [[track, float(t), {k: float(v) for k, v in vals.items()}]
+                     for track, t, vals in tracer._counters],
+    }
+
+
+def tracer_from_wire(data: dict, clock=time.time) -> "Tracer":
+    """Rebuild a Tracer from :func:`tracer_to_wire` output.  Records are
+    replayed structurally (not through ``request_event``) so attr keys can
+    never collide with parameter names and terminal placement matches the
+    original exactly."""
+    t = Tracer(clock=clock)
+    for r in data.get("requests", ()):
+        tr = RequestTrace(int(r["rid"]))
+        for name, ts, attrs in r.get("events", ()):
+            tr.append(name, float(ts), attrs or None)
+        if tr.events and tr.events[-1][0] in _TERMINAL:
+            t._done.append(tr)
+        else:
+            t._live[tr.rid] = tr
+    for name, t0, t1, attrs in data.get("engine", ()):
+        t._engine.append((name, float(t0),
+                          None if t1 is None else float(t1), attrs or None))
+    for track, ts, vals in data.get("counters", ()):
+        t._counters.append((track, float(ts),
+                            {k: float(v) for k, v in vals.items()}))
+    return t

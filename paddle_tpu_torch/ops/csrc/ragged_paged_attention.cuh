@@ -44,14 +44,21 @@
 //     workspace, and ragged_paged_attention_combine_kernel merges the
 //     splits in a fixed order (deterministic) and writes zeros for rows
 //     past q_len; with one split the main kernel writes `out` itself.
-//   * Pages staged through shared memory.  Tokens go in chunks of
-//     aligned 8-token groups, each inside one page (page_size is a multiple
-//     of 8), so the page-table entry is read once per group (once per page
-//     at page 16) and each group's K and V rows are one contiguous run
-//     fetched with 16-byte cp.async, neighbouring lanes on neighbouring
-//     addresses.  A warp reads the entries of its next 32 groups at once,
-//     a batch ahead and without waiting for kv_len (entries inside the
-//     table are always readable), so no copy waits on the table.  A ring of
+//   * Pages staged through shared memory.  Where page_size is a multiple
+//     of 8 (the AL = true instantiations), tokens go in chunks of aligned
+//     8-token groups, each inside one page, so the page-table entry is read
+//     once per group (once per page at page 16) and each group's K and V
+//     rows are one contiguous run fetched with 16-byte cp.async,
+//     neighbouring lanes on neighbouring addresses.  A warp reads the
+//     entries of its next 32 groups at once, a batch ahead and without
+//     waiting for kv_len (entries inside the table are always readable), so
+//     no copy waits on the table.  Any other page size (AL = false, the
+//     sizes 1-7, 12, 20, ... that the TPU kernel takes too) resolves every
+//     staged token row through the table on its own (pt[t / ps] * ps + t %
+//     ps, one lane a token, two chunks a batch ahead), since the rows of a
+//     group may then lie in two pages; the row copies stay 16-byte (a row
+//     is whole in its page), the scales of one-byte pages go 4 bytes at a
+//     time (a page's scale rows are only 4 * ps-byte aligned).  A ring of
 //     RPA_STAGES chunks lets the next chunk's copy overlap this chunk's
 //     scores and P V.  Rows past the range are zero-filled and their pages
 //     never read.
@@ -363,6 +370,52 @@ struct GroupRows {
   }
 };
 
+// GroupRows for a page size that is not a multiple of 8: the rows of an
+// 8-token group may lie in two pages, so each token row is resolved
+// through the table on its own.  Lane l holds the pool row of token l % 16
+// of chunk 2 b + l / 16 for the current batch b (cur) and for batch b + 1
+// (next); a row is fetched from its lane by a shuffle in the copy loop,
+// which every lane of the warp runs the same number of times.  Entries
+// are read as GroupRows reads them: inside the split's part of the table
+// (t_table), without waiting for kv_len.
+struct TokenRows {
+  const int* pt;
+  int page_size, first, stride, t_table, batch;
+  long long cur, next;
+
+  __device__ long long load(int b) const {
+    const int lane = threadIdx.x % 32;
+    const int t = first + (2 * b + lane / 16) * stride + lane % 16;
+    return t < t_table
+        ? (long long)pt[t / page_size] * page_size + t % page_size : 0;
+  }
+  __device__ TokenRows(const int* pt_, int page_size_, int first_,
+                       int stride_, int t_table_)
+      : pt(pt_), page_size(page_size_), first(first_), stride(stride_),
+        t_table(t_table_), batch(0) {
+    cur = load(0);
+    next = load(1);
+  }
+  struct Pick {
+    long long cur;
+    int base;
+    __device__ long long operator()(int r) const {
+      return __shfl_sync(kFull, cur, base + r);
+    }
+  };
+  __device__ Pick rows(int i) {
+    if (i / 2 != batch) {
+      cur = next;
+      next = load(++batch + 1);
+    }
+    return Pick{cur, 16 * (i % 2)};
+  }
+};
+
+// the table walk of a kernel instantiation: aligned groups (AL) or rows
+template <bool AL>
+using RowsOf = typename std::conditional<AL, GroupRows, TokenRows>::type;
+
 // One warp copies token rows [t0, t0 + 16) (the groups at pool rows g0 and
 // g1) of the block's kv head into shared memory by 16-byte cp.async: chunk
 // c of K row r at chunk kswz(r, c), of V row r at vswz(r, c), and (quant)
@@ -422,6 +475,59 @@ __device__ __forceinline__ void copy_chunk16(
   }
 }
 
+// copy_chunk16 for the per-row table walk (TokenRows): row r of the chunk
+// sits at pool row pick(r), one shuffle a pass (every lane runs the same
+// 16 NCH / 32 passes), and the scales of one-byte pages go one 4-byte
+// copy a row (lanes 0-15 the K scales of rows 0-15, 16-31 the V scales),
+// since a page's scale rows are only 4 ps-byte aligned.
+template <typename S, int W, typename KSwz, typename VSwz>
+__device__ __forceinline__ void copy_chunk16_rows(
+    unsigned char* k_dst, unsigned char* v_dst, float* ks_dst, float* vs_dst,
+    const S* k_head, const S* v_head, const float* ks_head,
+    const float* vs_head, TokenRows::Pick pick, int t0, int t_end, int d,
+    KSwz kswz, VSwz vswz) {
+  constexpr int NCH = W * (int)sizeof(S) / 16;   // 16-byte chunks of a row
+  static_assert(NCH % 2 == 0, "a warp's passes over 16 rows are uniform");
+  const int lane = threadIdx.x % 32;
+  const int row_bytes = d * (int)sizeof(S);
+  const unsigned char* kh = reinterpret_cast<const unsigned char*>(k_head);
+  const unsigned char* vh = reinterpret_cast<const unsigned char*>(v_head);
+  if (sizeof(S) == 1 && (row_bytes & 15)) {
+#pragma unroll 4
+    for (int i = lane; i < 16 * NCH; i += 32) {
+      const int r = i / NCH, c = i % NCH;
+      const bool ok = t0 + r < t_end;
+      const size_t row = (size_t)pick(r) * row_bytes;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = c * 16 + 8 * hh;
+        const bool in = at < row_bytes;
+        cp_async8(k_dst + kswz(r, c) * 16 + 8 * hh, kh + row + (in ? at : 0),
+                  ok && in);
+        cp_async8(v_dst + vswz(r, c) * 16 + 8 * hh, vh + row + (in ? at : 0),
+                  ok && in);
+      }
+    }
+  } else {
+#pragma unroll 8
+    for (int i = lane; i < 16 * NCH; i += 32) {
+      const int r = i / NCH, c = i % NCH;
+      const bool ok = t0 + r < t_end;
+      const bool in = c * 16 < row_bytes;
+      const size_t off = (size_t)pick(r) * row_bytes + (in ? c * 16 : 0);
+      cp_async16(k_dst + kswz(r, c) * 16, kh + off, ok && in);
+      cp_async16(v_dst + vswz(r, c) * 16, vh + off, ok && in);
+    }
+  }
+  if constexpr (sizeof(S) == 1) {
+    const int r = lane & 15;
+    const long long row = pick(r);
+    const bool ok = t0 + r < t_end;
+    if (lane < 16) cp_async4(ks_dst + r, ks_head + row, ok);
+    else cp_async4(vs_dst + r, vs_head + row, ok);
+  }
+}
+
 // -- few rows, CUDA cores ----------------------------------------------------
 // T: q element type; S: page element type (T itself, or a one-byte code
 // dequantized by k_scales / v_scales); TO: output element type.  R query
@@ -454,7 +560,8 @@ constexpr int core_smem() {
          (ring > merge ? ring : merge);
 }
 
-template <typename T, typename S, typename TO, int W, int NW, int NS, int R>
+template <typename T, typename S, typename TO, int W, int NW, int NS, int R,
+          bool AL>
 __global__ void __launch_bounds__(NW * 32, 1)
 ragged_paged_attention_kernel(const T* __restrict__ q,
                               const S* __restrict__ k_pages,
@@ -507,15 +614,22 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   const int mine = n_chunks > warp ? (n_chunks - warp + NW - 1) / NW : 0;
   unsigned char* wring = ring + warp * NS * St::BYTES;
   auto chunk_t0 = [&](int i) { return tl.t_begin + (warp + i * NW) * kChunk; };
-  GroupRows groups(pt, page_size, chunk_t0(0), NW * kChunk, tl.t_table);
+  RowsOf<AL> groups(pt, page_size, chunk_t0(0), NW * kChunk, tl.t_table);
   auto fetch = [&](int i) {
     unsigned char* st = wring + (i % NS) * St::BYTES;
     float* sc = reinterpret_cast<float*>(st + St::KB + St::VB);
-    long long g0, g1;
-    groups.rows(i, g0, g1);
-    copy_chunk16<S, W>(st, st + St::KB, sc, sc + kChunk, k_head, v_head,
-                       ks_head, vs_head, g0, g1, chunk_t0(i), tl.t_end, d,
-                       KeyRows<NCH>(), PlainRows<NCH>());
+    if constexpr (AL) {
+      long long g0, g1;
+      groups.rows(i, g0, g1);
+      copy_chunk16<S, W>(st, st + St::KB, sc, sc + kChunk, k_head, v_head,
+                         ks_head, vs_head, g0, g1, chunk_t0(i), tl.t_end, d,
+                         KeyRows<NCH>(), PlainRows<NCH>());
+    } else {
+      copy_chunk16_rows<S, W>(st, st + St::KB, sc, sc + kChunk, k_head,
+                              v_head, ks_head, vs_head, groups.rows(i),
+                              chunk_t0(i), tl.t_end, d, KeyRows<NCH>(),
+                              PlainRows<NCH>());
+    }
   };
   // the K / V copies go first: the q rows' load overlaps them
 #pragma unroll
@@ -711,7 +825,7 @@ constexpr int mma_smem() {
 
 // one block per SM at least: without the minimum, ptxas aims at 3 blocks
 // per SM (168 registers) and spills at W 160 / 192 over one-byte pages
-template <typename S, typename TO, int W, int NS>
+template <typename S, typename TO, int W, int NS, bool AL>
 __global__ void __launch_bounds__(kMmaWarps * 32, 1)
 ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   const S* __restrict__ k_pages,
@@ -773,21 +887,28 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_kt = (tl.t_end - tl.t_begin + BN - 1) / BN;
   // warp w copies tokens 16 w .. 16 w + 15 of a key tile (16 w is a
   // multiple of 8, so its rows keep the tile's swizzle phase)
-  GroupRows groups(pt, page_size, tl.t_begin + 16 * warp, BN, tl.t_table);
+  RowsOf<AL> groups(pt, page_size, tl.t_begin + 16 * warp, BN, tl.t_table);
   auto fetch = [&](int kt) {
     unsigned char* st = ring + (kt % NS) * St::BYTES;
     float* sc = reinterpret_cast<float*>(st + 2 * St::RAW) + 16 * warp;
     const int off = 16 * warp * St::ROW;
     const int t0 = tl.t_begin + kt * BN + 16 * warp;
-    long long g0, g1;
-    groups.rows(kt, g0, g1);
     // codes land plain (the dequant pass swizzles); bf16 rows swizzled,
     // as ldmatrix reads them
     using Rows = typename std::conditional<kQuant, PlainRows<NCH>,
                                            MmaRows<W>>::type;
-    copy_chunk16<S, W>(st + off, st + St::RAW + off, sc, sc + BN, k_head,
-                       v_head, ks_head, vs_head, g0, g1, t0, tl.t_end, d,
-                       Rows(), Rows());
+    if constexpr (AL) {
+      long long g0, g1;
+      groups.rows(kt, g0, g1);
+      copy_chunk16<S, W>(st + off, st + St::RAW + off, sc, sc + BN, k_head,
+                         v_head, ks_head, vs_head, g0, g1, t0, tl.t_end, d,
+                         Rows(), Rows());
+    } else {
+      copy_chunk16_rows<S, W>(st + off, st + St::RAW + off, sc, sc + BN,
+                              k_head, v_head, ks_head, vs_head,
+                              groups.rows(kt), t0, tl.t_end, d, Rows(),
+                              Rows());
+    }
   };
 
   // group 0: Q (rows past the real ones zero-filled) and key tile 0;
@@ -1058,12 +1179,12 @@ cudaError_t launch_combine(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, typename S, typename TO, int W, int R>
+template <typename T, typename S, typename TO, int W, int R, bool AL>
 cudaError_t launch_core(const Args& a, dim3 grid) {
   constexpr int NW = core_warps<S, W>();
   constexpr int smem = core_smem<T, S, W, NW, RPA_STAGES, R>();
   const auto kernel =
-      ragged_paged_attention_kernel<T, S, TO, W, NW, RPA_STAGES, R>;
+      ragged_paged_attention_kernel<T, S, TO, W, NW, RPA_STAGES, R, AL>;
   static std::atomic<unsigned long long> done{0};
   const cudaError_t err = allow_smem(done, kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1076,11 +1197,12 @@ cudaError_t launch_core(const Args& a, dim3 grid) {
   return cudaGetLastError();
 }
 
-template <typename T, typename S, typename TO, int W>
+template <typename T, typename S, typename TO, int W, bool AL>
 cudaError_t launch_mma(const Args& a, dim3 grid) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     constexpr int smem = mma_smem<S, W, RPA_STAGES>();
-    const auto kernel = ragged_paged_attention_mma_kernel<S, TO, W, RPA_STAGES>;
+    const auto kernel =
+        ragged_paged_attention_mma_kernel<S, TO, W, RPA_STAGES, AL>;
     static std::atomic<unsigned long long> done{0};
     const cudaError_t err = allow_smem(done, kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1096,19 +1218,26 @@ cudaError_t launch_mma(const Args& a, dim3 grid) {
   }
 }
 
-// row_tile: kMmaRows (tensor cores, bf16 q), kRows or 1 (CUDA cores)
+// row_tile: kMmaRows (tensor cores, bf16 q), kRows or 1 (CUDA cores);
+// AL: the page size is a multiple of 8 (aligned 8-token groups)
+template <typename T, typename S, typename TO, int W, bool AL>
+cudaError_t launch_tile(const Args& a, dim3 grid) {
+  if (a.row_tile == kMmaRows)
+    return launch_mma<T, S, TO, W, AL>(
+        a, dim3(grid.x * mma_split<W>(), grid.y, grid.z));
+  if (a.row_tile == kRows) return launch_core<T, S, TO, W, kRows, AL>(a, grid);
+  if (a.row_tile == 1) return launch_core<T, S, TO, W, 1, AL>(a, grid);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename S, typename TO, int W>
 cudaError_t launch(const Args& a) {
   const int rows = a.qmax * (a.hq / a.hkv);
   const dim3 grid(a.n_splits, (rows + a.row_tile - 1) / a.row_tile * a.hkv,
                   a.s_slots);
-  cudaError_t err;
-  if (a.row_tile == kMmaRows)
-    err = launch_mma<T, S, TO, W>(
-        a, dim3(grid.x * mma_split<W>(), grid.y, grid.z));
-  else if (a.row_tile == kRows) err = launch_core<T, S, TO, W, kRows>(a, grid);
-  else if (a.row_tile == 1) err = launch_core<T, S, TO, W, 1>(a, grid);
-  else return cudaErrorInvalidValue;
+  const cudaError_t err = a.page_size % 8 == 0
+                              ? launch_tile<T, S, TO, W, true>(a, grid)
+                              : launch_tile<T, S, TO, W, false>(a, grid);
   if (err != cudaSuccess || a.n_splits == 1) return err;
   return launch_combine<TO, W>(a);
 }
@@ -1139,11 +1268,10 @@ cudaError_t launch_out(int out_dtype, const Args& a) {
 }
 
 // the checks every entry makes before it launches anything: the splits
-// (split_len tokens each, a multiple of 8 and of the page) cover the table
+// (split_len tokens each, whole pages) cover the table; any page size
 inline bool valid_geometry(const Args& a) {
   return rpa_width(a.d) != 0 && a.hkv > 0 && a.hq % a.hkv == 0 &&
-         a.page_size > 0 &&
-         a.page_size % 8 == 0 && a.n_splits >= 1 && a.split_len > 0 &&
+         a.page_size > 0 && a.n_splits >= 1 && a.split_len > 0 &&
          a.split_len % a.page_size == 0 &&
          (long long)a.n_splits * a.split_len >=
              (long long)a.table_width * a.page_size &&

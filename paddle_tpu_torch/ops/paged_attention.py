@@ -87,6 +87,8 @@ BLOCKS_PER_SM = 4
 MMA_BLOCKS_PER_SM = 2
 MIN_SPLIT_TOKENS = 64
 SPLIT_TOKENS_PER_ROW = 4
+# a split's tokens are a multiple of this: the kernels' 16-token chunk
+SPLIT_ALIGN = 16
 H100_SMS = 132
 
 
@@ -114,7 +116,10 @@ def split_plan(s_slots, qmax, hq, hkv, head_dim, table_width, page_size,
     SMs, but no more splits than the table holds pieces of
     ``MIN_SPLIT_TOKENS`` tokens and of ``SPLIT_TOKENS_PER_ROW`` tokens per
     group row — one split for a short table, never more splits than
-    pages."""
+    pages.  A split holds whole pages and whole 16-token chunks of the
+    kernels' rings (``SPLIT_ALIGN``): its page count is rounded up to a
+    multiple of ``SPLIT_ALIGN / gcd(SPLIT_ALIGN, page_size)``, at every
+    page size."""
     rows = qmax * (hq // hkv)
     row_tile = MMA_ROWS if tensor_cores and rows >= MMA_MIN_ROWS else \
         CORE_ROWS if rows > 1 else 1
@@ -126,7 +131,8 @@ def split_plan(s_slots, qmax, hq, hkv, head_dim, table_width, page_size,
         else BLOCKS_PER_SM
     want = math.ceil(sms * blocks_per_sm / max(base, 1))
     n = max(1, min(want, most))
-    split_pages = max(1, -(-table_width // n))
+    align = SPLIT_ALIGN // math.gcd(SPLIT_ALIGN, page_size)
+    split_pages = -(-max(1, -(-table_width // n)) // align) * align
     n = max(1, -(-table_width // split_pages))
     return SplitPlan(row_tile, n, split_pages * page_size, n * base,
                      (n, s_slots, hkv, rows, 2),
@@ -189,9 +195,8 @@ def _launch_kernel(q, k_pages, v_pages, page_table, q_start, q_len, kv_len,
         raise ValueError(f"head dim {d} not supported on the card (a multiple "
                          f"of 8 up to 256: the kernels copy rows in 16-byte "
                          f"vectors)")
-    if page_size <= 0 or page_size % 8:
-        raise ValueError(f"page_size {page_size} must be a positive "
-                         f"multiple of 8")
+    if page_size <= 0:
+        raise ValueError(f"page_size {page_size} must be positive")
     if page_table.dim() != 2 or page_table.shape[0] != s_slots:
         raise ValueError(f"page_table must be [S={s_slots}, P], "
                          f"got {tuple(page_table.shape)}")
@@ -259,8 +264,9 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_start, q_len,
     CUDA tensors launch ``csrc/ragged_paged_attention.cu`` (f32 or bf16
     pages of q's dtype) or, with scales, ``csrc/
     ragged_paged_attention_quant.cu`` (int8 or fp8 pages, f32 or bf16 q),
-    for D a multiple of 8 up to 256 (:func:`head_width`), page_size a
-    multiple of 8, every tensor contiguous,
+    for D a multiple of 8 up to 256 (:func:`head_width`), any page_size
+    (aligned 8-token groups where it is a multiple of 8, each token row
+    through the table otherwise), every tensor contiguous,
     index tensors int32, and add one to ``ragged_paged_attention.launches``
     or ``.quant_launches``; CPU tensors run
     :func:`ragged_paged_attention_ref`."""

@@ -19,6 +19,11 @@ in-process replica fleet and its front door.
   token streams, cancel on disconnect, SLO-aware admission
   (:class:`AdmissionController` / :class:`TTFTPredictor`), and the live
   exporter with ``POST /generate`` as Server-Sent Events.
+* :class:`ProcessFleet` — the replica boundary as an OS process: each
+  worker a ``python -m paddle_tpu_torch.serving.worker`` process behind
+  the loopback RPC of :mod:`.rpc` (:class:`RpcClient`, :class:`RpcServer`:
+  deadlines, backoff, idempotent retries), SIGKILL / SIGSTOP failover
+  from snapshots, the retire and SIGTERM drain ladders, stitched traces.
 * :mod:`.traffic` — seeded, replayable scenarios (bursty / diurnal
   arrivals, shared-prefix users, abandoning clients) with engine, fleet
   and virtual-clock replays reporting goodput under an SLO.
@@ -42,6 +47,9 @@ _LAZY = {
     "SLORejected": ".frontend", "TTFTPredictor": ".frontend",
     "admission_view": ".frontend",
     "LeastLoadedRouter": ".routing", "PrefixAffinityRouter": ".routing",
+    "ProcessFleet": ".procfleet", "WorkerDiedError": ".procfleet",
+    "RpcClient": ".rpc", "RpcServer": ".rpc", "RpcError": ".rpc",
+    "RpcTimeout": ".rpc", "RpcRemoteError": ".rpc",
     "Router": ".routing", "RoutingDecision": ".routing",
     "ClientRequest": ".traffic", "Scenario": ".traffic",
     "VirtualClock": ".traffic", "goodput_report": ".traffic",
@@ -68,4 +76,5 @@ __all__ = ["ReplicaFleet", "FleetFailedError", "EngineSnapshotManager",
            "LeastLoadedRouter", "PrefixAffinityRouter", "AutoscalePolicy",
            "AutoscaleDecision", "ElasticFleet", "KV_DTYPES", "quantize_kv",
            "dequantize_kv", "kv_spec", "page_bytes", "quantize_params",
-           "KVHandoffError"]
+           "KVHandoffError", "ProcessFleet", "WorkerDiedError", "RpcClient",
+           "RpcServer", "RpcError", "RpcTimeout", "RpcRemoteError"]

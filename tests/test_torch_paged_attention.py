@@ -444,3 +444,66 @@ def test_head_dim_kernels_match_plain_version_on_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     import chip_smoke
     chip_smoke.ragged_head_dim_checks(tpa)
+
+
+# -- page sizes that are not a multiple of 8 ---------------------------------
+@pytest.mark.parametrize("tensor_cores", [False, True])
+def test_split_plan_aligns_splits_at_every_page_size(tensor_cores):
+    """At page sizes 1-32, every plan's split is whole pages and a whole
+    number of the kernels' 16-token chunks, the splits cover the table
+    (and the last one starts inside it), and a plan never has more splits
+    than pages, for decode, verify, GQA and chunk shapes over short and
+    long tables."""
+    for ps in range(1, 33):
+        for s_slots, qmax, hq, hkv in ((4, 1, 32, 32), (4, 5, 32, 32),
+                                       (4, 1, 32, 8), (1, 64, 32, 32)):
+            for width in (1, 2, 3, 7, 16, 33, 100, 257):
+                p = tpa.split_plan(s_slots, qmax, hq, hkv, 128, width, ps,
+                                   tensor_cores)
+                assert p.split_len % ps == 0 and p.split_len % 16 == 0, \
+                    (ps, width, p)
+                assert 1 <= p.n_splits <= width
+                assert (p.n_splits - 1) * p.split_len < width * ps \
+                    <= p.n_splits * p.split_len, (ps, width, p)
+    # page 16 keeps the plan it had: splits of whole pages only
+    plan = tpa.split_plan(4, 1, 32, 32, 128, 72, 16, True)
+    assert (plan.n_splits, plan.split_len) == (5, 240)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("ps", [2, 4, 12])
+def test_page_sizes_off_eight_match_jax(ps, kv_dtype):
+    """The plain version against JAX's Pallas kernel in interpret mode and
+    its reference at page sizes 2, 4 and 12 (the sizes the card's kernels
+    take through their per-row table walk): decode, verify and chunk
+    segments, GQA 8:2, lengths on and beside page boundaries, an inactive
+    slot; f32, int8 and fp8 pages."""
+    S, Hq, Hkv, D = 4, 8, 2, 64
+    P = -(-48 // ps)
+    q, kp, vp, pt = _inputs(S, 8, Hq, Hkv, D, ps, 3 * P, P, seed=19 + ps)
+    kp *= 3.0
+    _check_ragged(q, kp, vp, pt, [ps - 1, 2 * ps - 3, 10, 0],
+                  [1, 5, 8, 0], [ps, 2 * ps + 2, 18, 0], kv_dtype=kv_dtype)
+
+
+@pytest.mark.cuda
+def test_page_size_kernels_match_plain_version_on_card():
+    """Rows 1-2 at page sizes 2, 4, 12 and 20 beside 16 (decode on the CUDA
+    cores, GQA decode and verify on the tensor cores, a prefill chunk;
+    with and without a split grid; f32 and bf16 q; bf16, int8 and fp8
+    pages) against the plain version on the card, under ``chip_smoke.py``
+    phase 2's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = tpa.ragged_paged_attention.combine_launches
+    for ps in chip_smoke.PAGE_SIZES:
+        for name, kw in chip_smoke.page_size_cases(ps):
+            for dtype, out_dtype in chip_smoke.DTYPE_PAIRS:
+                args = chip_smoke.make_case(gen, dtype=dtype, **kw)
+                chip_smoke.compare(tpa, name, args, out_dtype)
+                for kv_dtype in chip_smoke.KV_DTYPES:
+                    qargs, scales = chip_smoke.quantize_pages(args, kv_dtype)
+                    chip_smoke.compare(tpa, name, qargs, out_dtype, **scales)
+    assert tpa.ragged_paged_attention.combine_launches > n
