@@ -12,8 +12,9 @@ dropout 0.1; its sequence-classification fine-tuning at B 32 x S 128; the
 tokens, which attention pads to the 128 tile) and at 224 px; the
 SD-1.5 UNet's train step at B 8 over 64 x 64 latents; and ResNet-50
 training at B 256 over 224 x 224 images with the BatchNorms in training
-mode, and MobileNet V1 / V2 / V3-Large — with random weights made from a
-seed:
+mode, MobileNet V1 / V2 / V3-Large, DenseNet-121 and Inception-v3 at
+B 256, the rest of the vision zoo and the detection ops — with random
+weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync dK/dV and of
@@ -264,9 +265,22 @@ seed:
                forward's multiply-adds, ``vision_macs``: 4.089 G an image,
                checked), peak memory, the forward / backward / Momentum
                split and the device ms by op group (convolution, batch
-               norm, pooling, matmul, Momentum, other); (j') MobileNet V1,
-               V2 and V3-Large the same way, two steps each, images/s of
-               the second;
+               norm, pooling, matmul, concat, Momentum, other); (j')
+               MobileNet V1, V2 and V3-Large the same way, two steps each,
+               images/s of the second; (n) DenseNet-121 at 224 x 224 and
+               Inception-v3 at 299 x 299, B 256 each, as (j) runs
+               ResNet-50, ``vision_macs`` held
+               to the hand-derived 2.834 G and 5.713 G, and the share of
+               the concatenations and of cuDNN's layout transposes; (n')
+               VGG-16, GoogLeNet (main loss + 0.3 x each auxiliary head's),
+               SqueezeNet 1.1, ShuffleNetV2 x1.0 and AlexNet at B 256 x
+               224 x 224 and LeNet at B 256 x 1 x 28 x 28, two steps each;
+               (o) roi_align at an FPN P2 map ([2, 256, 200, 272], 1,024
+               ROIs, sampling ratio -1 and 2), deform_conv2d at [8, 256,
+               56, 56] with a mask, nms of 2,000 boxes, box_coder both
+               ways, avg_pool2d with ceil_mode, interpolate bilinear /
+               bicubic / area at x2 and x0.5: the card against the CPU in
+               f32 and the card's ms a call;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -290,7 +304,8 @@ seed:
                gradient to 1e-4 of max |grad|, the running buffers to 1e-5
                and the updated parameters to 1e-6, and the card's f32
                step within 1e-4 of the CPU's f64 (loss and buffers), with
-               the f32 and TF32 gaps printed;
+               the f32 and TF32 gaps printed; (g) the same for DenseNet-121
+               (B 2, 64 x 64): eval mode in f32, training mode in f64;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -6065,16 +6080,19 @@ RESNET_LR, RESNET_MOMENTUM, RESNET_DECAY = 0.1, 0.9, 1e-4
 RESNET_GROUPS = (("conv", ("convolution",)),
                  ("batch norm", ("batch_norm",)),
                  ("pooling", ("pool",)),
-                 ("matmul", ("aten::mm", "aten::addmm", "aten::bmm")))
+                 ("matmul", ("aten::mm", "aten::addmm", "aten::bmm")),
+                 ("concat", ("aten::cat",)))
+# cuDNN's NCHW <-> NHWC layout transposes, by kernel name
+LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw")
 
 
-def vision_macs(model, img):
+def vision_macs(model, img, channels=3):
     """Multiply-adds of one image's forward through ``model`` at ``img``
     px, counted from the shapes its convolutions and Linears see in one
-    eval-mode forward of a zero image (hooks; the running buffers do not
-    move): out positions x out channels x in channels / groups x kh x kw
-    per convolution, in x out per Linear.  BatchNorm, pooling, the
-    activations and the biases are left out."""
+    eval-mode forward of a zero image of ``channels`` (hooks; the running
+    buffers do not move): out positions x out channels x in channels /
+    groups x kh x kw per convolution, in x out per Linear.  BatchNorm,
+    pooling, the activations and the biases are left out."""
     from paddle_tpu_torch.nn.layers import Conv2D, Linear
     total = []
 
@@ -6092,7 +6110,7 @@ def vision_macs(model, img):
     try:
         p = next(model.parameters())
         with torch.no_grad():
-            model(torch.zeros(1, 3, img, img, dtype=p.dtype,
+            model(torch.zeros(1, channels, img, img, dtype=p.dtype,
                               device=p.device))
     finally:
         model.train(was_training)
@@ -6101,28 +6119,40 @@ def vision_macs(model, img):
     return sum(total)
 
 
-def make_vision_step(build, dtype, seed=0, device="cuda"):
+# PaddleClas's GoogLeNetLoss: the main head's cross-entropy plus 0.3 of
+# each auxiliary head's
+AUX_LOSS_WEIGHT = 0.3
+
+
+def make_vision_step(build, dtype, seed=0, device="cuda", classes=1000):
     """bench.py bench_resnet50's step on the port, with the BatchNorms in
-    training mode: ``build(num_classes=1000)`` (a ResNet or MobileNet),
-    cross-entropy through ``log_softmax`` in f32 (f64 for an f64 model),
-    and one Momentum(0.9, lr 0.1, L2 decay 1e-4) update of every parameter
-    (f32 velocity).  Returns
-    (step(batch) -> (loss, grads), model, params); ``step.forward_backward``
-    and ``step.update`` are its two halves."""
+    training mode: ``build(num_classes=classes)`` (a ResNet, MobileNet or
+    another of the vision models), cross-entropy through ``log_softmax`` in
+    f32 (f64 for an f64 model) — for a model of several heads (GoogLeNet)
+    the first head's plus ``AUX_LOSS_WEIGHT`` of each other's — and one
+    Momentum(0.9, lr 0.1, L2 decay 1e-4) update of every parameter (f32
+    velocity).  Returns (step(batch) -> (loss, grads), model, params);
+    ``step.forward_backward`` and ``step.update`` are its two halves."""
     from paddle_tpu_torch.optimizer import Momentum
-    model = build(num_classes=1000, dtype=dtype, device=device, seed=seed)
+    model = build(num_classes=classes, dtype=dtype, device=device, seed=seed)
     model.train()
     params = dict(model.named_parameters())
     opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
                    weight_decay=RESNET_DECAY)
     state = opt.init_opt_state(params, device=device)
 
-    def loss_of(batch):
-        x, y = batch
-        logits = model(x)
+    def ce(logits, y):
         logp = torch.log_softmax(logits.to(torch.promote_types(
             logits.dtype, torch.float32)), dim=-1)
         return -logp.gather(1, y[:, None]).mean()
+
+    def loss_of(batch):
+        x, y = batch
+        out = model(x)
+        if not isinstance(out, tuple):
+            return ce(out, y)
+        return ce(out[0], y) + sum(AUX_LOSS_WEIGHT * ce(o, y)
+                                   for o in out[1:])
 
     def forward_backward(batch):
         loss = loss_of(batch)
@@ -6147,13 +6177,14 @@ def make_vision_step(build, dtype, seed=0, device="cuda"):
     return step, model, params
 
 
-def vision_batch(B, img, dtype, seed=0, device="cuda"):
-    """bench_resnet50's batch: N(0, 1) images [B, 3, img, img] and labels
-    of 1,000 classes from ``seed``."""
+def vision_batch(B, img, dtype, seed=0, device="cuda", channels=3,
+                 classes=1000):
+    """bench_resnet50's batch: N(0, 1) images [B, channels, img, img] and
+    labels of ``classes`` classes from ``seed``."""
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.normal(0, 1, (B, 3, img, img)).astype(
+    x = torch.from_numpy(rng.normal(0, 1, (B, channels, img, img)).astype(
         np.float32)).to(device=device, dtype=dtype)
-    y = torch.from_numpy(rng.integers(0, 1000, (B,))).to(device)
+    y = torch.from_numpy(rng.integers(0, classes, (B,))).to(device)
     return x, y
 
 
@@ -6164,7 +6195,9 @@ def vision_breakdown(step, batch, step_s):
     launched it (:func:`profile_rows`, :func:`group_rows`), and the
     Momentum update in a profiler window of its own.  Device busy is the
     two windows' kernel ms; the ops must claim each kernel once at most.
-    Convolution, batch norm and the update must have seen device time."""
+    Convolution, batch norm and the update must have seen device time.
+    The returned ``layout_ms`` is the ms of cuDNN's layout transposes
+    (``LAYOUT_KERNELS``, inside the conv group)."""
     stages = stage_split(step, batch, ("forward", "backward", "momentum"))
     out = {}
     rows, ops, device = profile_rows(
@@ -6186,7 +6219,10 @@ def vision_breakdown(step, batch, step_s):
     for g in groups:
         if g != "momentum":
             print(f"  largest {g} ops: {largest(named, g, 4)}")
-    return dict(groups, busy_ms=busy, kernels=launches, **stages)
+    layout = sum(ms for (name,), ms, _ in rows
+                 if any(k in name.lower() for k in LAYOUT_KERNELS))
+    return dict(groups, busy_ms=busy, kernels=launches, layout_ms=layout,
+                **stages)
 
 
 def no_kernel_ran(pa, plain, what):
@@ -6200,24 +6236,24 @@ def no_kernel_ran(pa, plain, what):
     return launches
 
 
-def phase_resnet(pa, card, B=256, img=224, warmup=3, steps=10):
-    """Phase 3j: ResNet-50 training at full width and depth (``resnet50``,
-    1,000 classes), B x 3 x img x img, bf16 parameters with f32 velocity,
-    the BatchNorms in training mode (batch statistics, running buffers
-    updated every step, as dygraph ImageNet training runs them), Momentum
-    0.9 at lr 0.1 with L2 decay 1e-4 (PaddleClas ResNet50.yaml), the loss
-    as bench_resnet50's: warm-up and timed steps on one batch with the
-    loss of each (finite and falling), the running buffers moved, no
-    kernel of the port launched and no plain version called, images/s,
-    the mfu share (6 x ``vision_macs`` per image over 989 TFLOP/s), peak
-    memory, and the device ms by group (``vision_breakdown``)."""
-    from paddle_tpu_torch.vision.models import resnet50
+def train_vision(pa, card, name, build, macs_band, B, img, warmup, steps):
+    """``name`` (``build``, 1,000 classes) training at full width and
+    depth, B x 3 x img x img, bf16 parameters with f32 velocity, the
+    BatchNorms in training mode, ``make_vision_step``'s Momentum and loss:
+    warm-up and timed steps on one batch with the loss of each (finite and
+    falling), the running buffers moved, no kernel of the port launched
+    and no plain version called, images/s, the mfu share (6 x
+    ``vision_macs`` per image, which must lie in ``macs_band``, over 989
+    TFLOP/s), peak memory, and the device ms by group
+    (``vision_breakdown``)."""
     torch.cuda.reset_peak_memory_stats()
-    step, model, params = make_vision_step(resnet50, torch.bfloat16)
+    step, model, params = make_vision_step(build, torch.bfloat16)
     n_params = sum(v.numel() for v in params.values())
     macs = vision_macs(model, img)
-    require(4.0e9 < macs < 4.2e9,
-            f"ResNet-50 forward {macs / 1e9:.3f} G multiply-adds, not ~4.1")
+    lo, hi = macs_band
+    require(lo < macs < hi,
+            f"{name} forward {macs / 1e9:.3f} G multiply-adds, not in "
+            f"{lo / 1e9:.2f}-{hi / 1e9:.2f}")
     batch = vision_batch(B, img, torch.bfloat16)
     before = {n: b.clone() for n, b in model.named_buffers()}
     losses = [float(step(batch)[0]) for _ in range(warmup)]
@@ -6228,7 +6264,7 @@ def phase_resnet(pa, card, B=256, img=224, warmup=3, steps=10):
         out = [step(batch)[0] for _ in range(steps)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = no_kernel_ran(pa, plain, "ResNet-50")
+    launches = no_kernel_ran(pa, plain, name)
     losses += [float(x) for x in out]
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -6257,42 +6293,196 @@ def phase_resnet(pa, card, B=256, img=224, warmup=3, steps=10):
     print(f"  (the breakdown above on {card})")
     return dict(images_per_s=images_per_s, mfu=mfu, step_ms=wall / steps * 1e3,
                 peak_gib=peak / 2**30, losses=losses, n_params=n_params,
-                breakdown=breakdown)
+                breakdown=breakdown, B=B)
+
+
+def phase_resnet(pa, card, B=256, img=224, warmup=3, steps=10):
+    """Phase 3j: ResNet-50 training at full width and depth (``resnet50``,
+    1,000 classes), B x 3 x img x img, bf16 parameters with f32 velocity,
+    the BatchNorms in training mode (batch statistics, running buffers
+    updated every step, as dygraph ImageNet training runs them), Momentum
+    0.9 at lr 0.1 with L2 decay 1e-4 (PaddleClas ResNet50.yaml), the loss
+    as bench_resnet50's, through :func:`train_vision`."""
+    from paddle_tpu_torch.vision.models import resnet50
+    return train_vision(pa, card, "ResNet-50", resnet50, (4.0e9, 4.2e9), B,
+                        img, warmup, steps)
+
+
+def two_steps(pa, card, name, build, B, img, channels=3, classes=1000):
+    """``name`` (``build``) at full width, B x channels x img x img, bf16,
+    BatchNorm in training mode, ``make_vision_step``'s Momentum and loss:
+    two steps (the second timed alone), both losses finite, no kernel of
+    the port launched and no plain version called."""
+    step, model, params = make_vision_step(build, torch.bfloat16,
+                                           classes=classes)
+    macs = vision_macs(model, img, channels)
+    batch = vision_batch(B, img, torch.bfloat16, channels=channels,
+                         classes=classes)
+    reset_counts(pa)
+    with CountPlainCalls() as plain:
+        first = float(step(batch)[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second = float(step(batch)[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    no_kernel_ran(pa, plain, name)
+    require(np.isfinite([first, second]).all(),
+            f"{name}: non-finite loss {first}, {second}")
+    mfu = 6.0 * macs * B / wall / BF16_FLOP_PER_S
+    print(f"  {name}: {sum(v.numel() for v in params.values()):,} "
+          f"parameters, {macs / 1e6:.1f} M multiply-adds per image; "
+          f"losses {first:.4f} {second:.4f}; second step "
+          f"{wall * 1e3:.1f} ms, {B / wall:.1f} images/s, mfu_share "
+          f"{mfu:.4f} on {card}")
+    del step, model, params
+    torch.cuda.empty_cache()
+    return dict(images_per_s=B / wall, step_ms=wall * 1e3,
+                losses=[first, second], mfu=mfu)
 
 
 def phase_mobilenets(pa, card, B=256, img=224):
     """Phase 3j, second part: MobileNetV1, V2 and V3-Large at full width,
-    B x 3 x img x img, bf16, BatchNorm in training mode, the same
-    Momentum: two steps each (the second timed alone), both losses finite,
-    no kernel of the port launched and no plain version called."""
+    B x 3 x img x img, two steps each (:func:`two_steps`)."""
+    from paddle_tpu_torch.vision import models
+    return {name: two_steps(pa, card, name, getattr(models, name), B, img)
+            for name in ("mobilenet_v1", "mobilenet_v2",
+                         "mobilenet_v3_large")}
+
+
+# -- phase 3n: DenseNet-121, Inception-v3 and the rest of the zoo ------------
+# forward multiply-adds per image (``vision_macs``), derived by hand from the
+# layer shapes in PERF.md section 4: DenseNet-121 at 224 px 2.834 G,
+# Inception-v3 (JAX's, no auxiliary head) at 299 px 5.713 G
+DENSE_INCEPTION = (("DenseNet-121", "densenet121", 224, (2.80e9, 2.87e9)),
+                   ("Inception-v3", "inception_v3", 299, (5.65e9, 5.78e9)))
+
+
+def phase_dense_inception(pa, card, B=256, warmup=3, steps=10):
+    """Phase 3n: DenseNet-121 at B x 3 x 224 x 224 and Inception-v3 at
+    B x 3 x 299 x 299 (both fit at B 256: peaks of 16 and 13 GiB on an
+    H100), each as phase 3j runs ResNet-50 (:func:`train_vision`), and
+    cuDNN's layout transposes' and the concatenations' share of each
+    step's device time."""
     from paddle_tpu_torch.vision import models
     out = {}
-    for name in ("mobilenet_v1", "mobilenet_v2", "mobilenet_v3_large"):
-        step, model, params = make_vision_step(getattr(models, name),
-                                               torch.bfloat16)
-        macs = vision_macs(model, img)
-        batch = vision_batch(B, img, torch.bfloat16)
-        reset_counts(pa)
-        with CountPlainCalls() as plain:
-            first = float(step(batch)[0])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            second = float(step(batch)[0])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        no_kernel_ran(pa, plain, name)
-        require(np.isfinite([first, second]).all(),
-                f"{name}: non-finite loss {first}, {second}")
-        mfu = 6.0 * macs * B / wall / BF16_FLOP_PER_S
-        print(f"  {name}: {sum(v.numel() for v in params.values()):,} "
-              f"parameters, {macs / 1e6:.1f} M multiply-adds per image; "
-              f"losses {first:.4f} {second:.4f}; second step "
-              f"{wall * 1e3:.1f} ms, {B / wall:.1f} images/s, mfu_share "
-              f"{mfu:.4f} on {card}")
-        out[name] = dict(images_per_s=B / wall, step_ms=wall * 1e3,
-                         losses=[first, second], mfu=mfu)
-        del step, model, params
+    for label, name, img, band in DENSE_INCEPTION:
+        r = train_vision(pa, card, label, getattr(models, name), band, B,
+                         img, warmup, steps)
+        bd = r["breakdown"]
+        print(f"  {label}: concat {bd['concat']:.2f} ms "
+              f"({bd['concat'] / bd['busy_ms']:.1%} of device busy), layout "
+              f"transposes {bd['layout_ms']:.2f} ms "
+              f"({bd['layout_ms'] / bd['busy_ms']:.1%}) on {card}")
+        out[label] = r
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo(pa, card, B=256, img=224):
+    """Phase 3n': VGG-16, GoogLeNet (its loss the main head's plus 0.3 of
+    each auxiliary head's), SqueezeNet 1.1, ShuffleNetV2 x1.0 and AlexNet
+    at B x 3 x img x img, and LeNet at B x 1 x 28 x 28 over 10 classes, two
+    steps each (:func:`two_steps`)."""
+    from paddle_tpu_torch.vision import models
+    out = {name: two_steps(pa, card, name, getattr(models, name), B, img)
+           for name in ("vgg16", "googlenet", "squeezenet1_1",
+                        "shufflenet_v2_x1_0", "alexnet")}
+    out["LeNet"] = two_steps(pa, card, "LeNet", models.LeNet, B, 28,
+                             channels=1, classes=10)
+    return out
+
+
+def fpn_rois(n, seed, height=800, width=1088):
+    """``n`` boxes [x1, y1, x2, y2] of an image of height x width with
+    sides of 16-112 px, the sizes FPN assigns to its P2 level."""
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform(16, 112, (n, 2))
+    xy = rng.uniform(0, 1, (n, 2)) * (np.array([width, height]) - wh)
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def vision_op_cases():
+    """(name, fn, inputs on the CPU, tolerance of max |card - CPU| / max
+    |CPU|) for phase 3o, f32 from fixed seeds."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.default_rng(40)
+
+    def t(*shape, lo=None, hi=None, scale=1.0):
+        v = rng.uniform(lo, hi, shape) if lo is not None \
+            else rng.normal(0, scale, shape)
+        return torch.from_numpy(v.astype(np.float32))
+
+    fmap = t(2, 256, 200, 272)
+    rois = torch.from_numpy(np.concatenate([fpn_rois(512, 41),
+                                            fpn_rois(512, 42)]))
+    per_image = torch.tensor([512, 512])
+    x = t(8, 256, 56, 56)
+    boxes = torch.from_numpy(fpn_rois(2000, 43))
+    scores = torch.from_numpy(rng.permutation(2000).astype(np.float32))
+    priors = torch.from_numpy(fpn_rois(600, 44))
+    targets = torch.from_numpy(fpn_rois(400, 45))
+    deltas = t(400, 600, 4, scale=0.2)
+    img = t(8, 256, 64, 64)
+    # roi_align: sample coordinates up to 272 carry an f32 ulp of 3e-5 px,
+    # and the CPU's own f32 lies 1.7e-5 of max |out| from its f64 here
+    cases = [(f"roi_align sampling_ratio {sr}",
+              lambda a, b, n, sr=sr: ops.roi_align(
+                  a, b, n, 7, spatial_scale=0.25, sampling_ratio=sr),
+              (fmap, rois, per_image), 1e-4) for sr in (-1, 2)]
+    cases += [
+        ("deform_conv2d 3x3 256->256, v2 mask",
+         lambda a, o, w, m: ops.deform_conv2d(a, o, w, padding=1, mask=m),
+         (x, t(8, 18, 56, 56, scale=2.0), t(256, 256, 3, 3, scale=0.02),
+          t(8, 9, 56, 56, lo=0.0, hi=1.0)), 1e-4),
+        ("nms 2,000 boxes at IoU 0.5",
+         lambda b, s: ops.nms(b, 0.5, s), (boxes, scores), 0.0),
+        ("box_coder encode_center_size",
+         lambda p, q: ops.box_coder(p, [0.1, 0.1, 0.2, 0.2], q),
+         (priors, targets), 1e-5),
+        ("box_coder decode_center_size",
+         lambda p, d: ops.box_coder(p, [0.1, 0.1, 0.2, 0.2], d,
+                                    code_type="decode_center_size"),
+         (priors, deltas), 1e-5),
+        ("avg_pool2d 3/2/1 ceil_mode exclusive=False",
+         lambda a: F.avg_pool2d(a, 3, 2, 1, ceil_mode=True, exclusive=False),
+         (x,), 1e-5)]
+    for mode in ("bilinear", "bicubic", "area"):
+        for sf in (2, 0.5):
+            cases.append((f"interpolate {mode} x{sf}",
+                          lambda a, mode=mode, sf=sf: F.interpolate(
+                              a, scale_factor=sf, mode=mode), (img,), 1e-5))
+    return cases
+
+
+def phase_vision_ops(card, iters=5):
+    """Phase 3o: each vision functional and detection op on the card
+    against the same call on the CPU, f32, TF32 off: max |card - CPU| over
+    max |CPU| within the case's tolerance (nms: the same indices), and
+    the card's ms a call (CUDA events, ``iters`` calls after one)."""
+    out = {}
+    with TF32Off():
+        for name, fn, inputs, tol in vision_op_cases():
+            want = fn(*inputs)
+            dev = [v.cuda() for v in inputs]
+            got = fn(*dev).cpu()
+            require(got.shape == want.shape,
+                    f"{name}: {tuple(got.shape)} on the card, "
+                    f"{tuple(want.shape)} on the CPU")
+            if tol == 0.0:
+                err = float((got != want).sum())
+            else:
+                err = float((got - want).abs().max()
+                            / want.abs().max().clamp_min(1e-30))
+            ms = time_ms(lambda i: fn(*dev), iters, warmup=1)
+            print(f"  {name}: out {tuple(got.shape)}, max |card - CPU| / "
+                  f"max |CPU| {err:.2e} (tol {tol:g}); {ms:.3f} ms on "
+                  f"{card}")
+            require(err <= tol, f"{name}: the card differs from the CPU")
+            out[name] = dict(err=err, ms=ms)
+            del dev, got, want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6312,14 +6502,14 @@ class TF32Off:
          torch.backends.cudnn.allow_tf32) = self.saved
 
 
-def resnet_step_on(device, dtype, state, batch, train=True):
-    """One step of the seeded ResNet-50 (``state``: its state dict) on
-    ``device`` in ``dtype``, the BatchNorms in training mode or, with
-    ``train=False``, in eval mode: the loss, every gradient, the running
-    buffers after the forward, the parameters after the Momentum update
-    and before it, all on the host."""
+def resnet_step_on(device, dtype, state, batch, train=True, build=None):
+    """One step of the seeded ResNet-50 (or of ``build``'s model;
+    ``state``: its state dict) on ``device`` in ``dtype``, the BatchNorms
+    in training mode or, with ``train=False``, in eval mode: the loss,
+    every gradient, the running buffers after the forward, the parameters
+    after the Momentum update and before it, all on the host."""
     from paddle_tpu_torch.vision.models import resnet50
-    step, model, params = make_vision_step(resnet50, torch.float32,
+    step, model, params = make_vision_step(build or resnet50, torch.float32,
                                            device=device)
     model.load_state_dict(state)
     model.to(dtype).train(train)
@@ -6329,6 +6519,25 @@ def resnet_step_on(device, dtype, state, batch, train=True):
     return (float(loss), [g.detach().cpu() for g in grads],
             [b.detach().cpu() for b in model.buffers()],
             [p.detach().cpu() for p in params.values()], before)
+
+
+def gaps(run, ref):
+    """(loss, buffers, grads, params, updates) of ``run`` against ``ref``
+    (:func:`resnet_step_on`'s tuples): the loss relative, the buffers in
+    units of 1e-5 + 1e-5 |ref|, the grads and params relative to each
+    tensor's max |ref|, the params in units of 1e-4 of the tensor's
+    largest update in ``ref`` plus one f32 ulp of its largest entry."""
+    (l1, g1, b1, p1, _), (l0, g0, b0, p0, q0) = run, ref
+
+    def of_max(a, b):
+        return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   .item() for x, y in zip(a, b))
+    return (abs(l1 - l0) / abs(l0),
+            max(((x - y).abs() / (1e-5 + 1e-5 * y.abs())).max().item()
+                for x, y in zip(b1, b0)), of_max(g1, g0), of_max(p1, p0),
+            max(((x - y).abs().max() / (1e-4 * (y - q).abs().max()
+                                        + 2.0**-23 * y.abs().max()))
+                .item() for x, y, q in zip(p1, p0, q0)))
 
 
 def phase_resnet_check(B=2, img=64):
@@ -6355,24 +6564,6 @@ def phase_resnet_check(B=2, img=64):
     state = {k: v.clone() for k, v in resnet50(
         num_classes=1000, device="cpu", seed=3).state_dict().items()}
     batch = vision_batch(B, img, torch.float32, seed=4, device="cpu")
-
-    def gaps(run, ref):
-        """(loss, buffers, grads, params, updates) of ``run`` against
-        ``ref``: the loss relative, the buffers in units of 1e-5 + 1e-5
-        |ref|, the grads and params relative to each tensor's max |ref|,
-        the params in units of 1e-4 of the tensor's largest update in
-        ``ref`` plus one f32 ulp of its largest entry."""
-        (l1, g1, b1, p1, _), (l0, g0, b0, p0, q0) = run, ref
-
-        def of_max(a, b):
-            return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
-                       .item() for x, y in zip(a, b))
-        return (abs(l1 - l0) / abs(l0),
-                max(((x - y).abs() / (1e-5 + 1e-5 * y.abs())).max().item()
-                    for x, y in zip(b1, b0)), of_max(g1, g0), of_max(p1, p0),
-                max(((x - y).abs().max() / (1e-4 * (y - q).abs().max()
-                                            + 2.0**-23 * y.abs().max()))
-                    .item() for x, y, q in zip(p1, p0, q0)))
 
     runs = {}
     with TF32Off():
@@ -6419,6 +6610,52 @@ def phase_resnet_check(B=2, img=64):
         if what == "card f32":
             require(loss <= 1e-4 and buf <= 10.0,
                     "the card's f32 step is not within 1e-4 of f64")
+    torch.cuda.empty_cache()
+
+
+def phase_densenet_check(B=2, img=64):
+    """Phase 4g: one step of DenseNet-121 at full width and depth, B x 3 x
+    img x img, on the card against the same step on the CPU from the same
+    seeded weights, buffers and batch, TF32 off, held as phase 4f holds
+    ResNet-50: with the BatchNorms in eval mode in f32, the loss to 1e-5
+    relative, every gradient to 1e-4 of its tensor's max |grad| and every
+    updated parameter to 1e-4 of its largest update plus one f32 ulp; in
+    training mode in f64, the loss to 1e-5, every gradient to 1e-4 of max
+    |grad|, every running buffer to 1e-5 and every updated parameter to
+    1e-6 of max |p|."""
+    from paddle_tpu_torch.vision.models import densenet121
+    state = {k: v.clone() for k, v in densenet121(
+        num_classes=1000, device="cpu", seed=5).state_dict().items()}
+    batch = vision_batch(B, img, torch.float32, seed=6, device="cpu")
+    runs = {}
+    with TF32Off():
+        for key, dtype, train in (("eval", torch.float32, False),
+                                  ("train", torch.float64, True)):
+            for device in ("cpu", "cuda"):
+                runs[key, device] = resnet_step_on(
+                    device, dtype, state, batch, train=train,
+                    build=densenet121)
+    card, ref = runs["eval", "cuda"], runs["eval", "cpu"]
+    loss, _, grad, _, upd = gaps(card, ref)
+    print(f"  f32 DenseNet-121 step, B={B} x {img} x {img}, eval-mode "
+          f"BatchNorm, card against CPU: loss {card[0]:.9f} / {ref[0]:.9f} "
+          f"({loss:.2e}, tol 1e-5); grads max |card - CPU| / max |CPU| "
+          f"{grad:.3e} over {len(ref[1])} tensors (tol 1e-4); updated "
+          f"params {upd:.3f} x (1e-4 max |update| + 1 ulp of max |p|) "
+          f"(tol 1)")
+    require(loss <= 1e-5 and grad <= 1e-4 and upd <= 1.0,
+            "the card's f32 eval-mode DenseNet-121 step differs from the "
+            "CPU's")
+    card, ref = runs["train", "cuda"], runs["train", "cpu"]
+    loss, buf, grad, par, _ = gaps(card, ref)
+    print(f"  f64 DenseNet-121 step, B={B} x {img} x {img}, training-mode "
+          f"BatchNorm, card against CPU: loss {card[0]:.12f} / "
+          f"{ref[0]:.12f} ({loss:.2e}, tol 1e-5); grads {grad:.3e} of max "
+          f"|grad| (tol 1e-4); {len(ref[2])} buffers {buf:.2e} x (1e-5 + "
+          f"1e-5 |CPU|) (tol 1); updated params {par:.3e} of max |p| "
+          f"(tol 1e-6)")
+    require(loss <= 1e-5 and grad <= 1e-4 and buf <= 1.0 and par <= 1e-6,
+            "the card's f64 DenseNet-121 step differs from the CPU's")
     torch.cuda.empty_cache()
 
 
@@ -6881,6 +7118,20 @@ def main():
     say("phase 3j': MobileNet V1 / V2 / V3-Large, two steps each (bf16, "
         "B=256, 224 x 224, BatchNorm in training mode, the same Momentum)")
     mobilenets = phase_mobilenets(pa, card)
+    torch.cuda.empty_cache()
+    t_vision = time.perf_counter()
+    say("phase 3n: DenseNet-121 (B=256, 224 x 224) and Inception-v3 (B=256, "
+        "299 x 299) train steps (bf16, BatchNorm in training mode, the same "
+        "Momentum)")
+    dense = phase_dense_inception(pa, card)
+    say("phase 3n': VGG-16, GoogLeNet, SqueezeNet 1.1, ShuffleNetV2, "
+        "AlexNet (B=256, 224 x 224) and LeNet (B=256, 28 x 28), two steps "
+        "each")
+    zoo = phase_zoo(pa, card)
+    say("phase 3o: the vision functionals and detection ops, card against "
+        "CPU (f32, TF32 off), timed on the card")
+    phase_vision_ops(card)
+    vision_s = time.perf_counter() - t_vision
 
     say("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
@@ -6900,6 +7151,11 @@ def main():
         "eval-mode BatchNorm in f32, training mode in f64 and f32, TF32 "
         "off")
     phase_resnet_check()
+    t0 = time.perf_counter()
+    say("phase 4g: DenseNet-121 step (B=2, 64 x 64), card against CPU: "
+        "eval-mode BatchNorm in f32, training mode in f64, TF32 off")
+    phase_densenet_check()
+    vision_s += time.perf_counter() - t0
 
     say("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
@@ -6991,6 +7247,15 @@ def main():
     for name, mb in mobilenets.items():
         print(f"  {name} at 224 x 224, B 256: {mb['images_per_s']:.1f} "
               f"images/s, mfu_share {mb['mfu']:.4f} (second step) on {card}")
+    for label, d in dense.items():
+        print(f"  {label} at B {d['B']}, training-mode BatchNorm, Momentum: "
+              f"{d['images_per_s']:.1f} images/s, mfu_share {d['mfu']:.4f}, "
+              f"{d['step_ms']:.1f} ms per step, loss {d['losses'][0]:.4f} -> "
+              f"{d['losses'][-1]:.4f}, peak {d['peak_gib']:.2f} GiB on {card}")
+    for name, z in zoo.items():
+        print(f"  {name}: {z['images_per_s']:.1f} images/s, mfu_share "
+              f"{z['mfu']:.4f} (second step) on {card}")
+    print(f"  phases 3n, 3n', 3o and 4g took {vision_s:.1f} s")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")

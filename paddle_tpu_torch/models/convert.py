@@ -60,9 +60,11 @@ def unet_params_from_numpy(named, device=None, dtype=torch.float32):
 
 
 def vision_params_from_numpy(named, device=None, dtype=torch.float32):
-    """``{name: np.ndarray}`` from a JAX ResNet's or MobileNet's
-    ``named_parameters()`` and ``named_buffers()`` -> a state dict that the
-    port's model of the same config loads with ``load_state_dict``
+    """``{name: np.ndarray}`` from the ``named_parameters()`` and
+    ``named_buffers()`` of a JAX vision model (ResNet, MobileNet, DenseNet,
+    SqueezeNet, ShuffleNetV2, AlexNet, VGG, LeNet, GoogLeNet or
+    Inception-v3) -> a state dict that the port's model of the same config
+    loads with ``load_state_dict``
     (strict): the names, the ``[in, out]`` Linear layout and the ``[out,
     in / groups, kh, kw]`` convolution layout are the same, so each entry
     is a plain copy, on ``device`` (``None``: the CUDA device, raising

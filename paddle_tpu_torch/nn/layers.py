@@ -6,9 +6,10 @@ parameter and buffer names, layouts and initialisers
 ``BatchNorm2D``; ``paddle_tpu/nn/conv.py`` ``Conv2D``;
 ``paddle_tpu/nn/activation.py`` ``GELU``, ``ReLU``, ``ReLU6``,
 ``Hardswish``, ``Hardsigmoid``; ``paddle_tpu/nn/pooling.py``
-``MaxPool2D``, ``AdaptiveAvgPool2D``).  ``Sequential`` is
-``torch.nn.Sequential``: its children are named ``0``, ``1`` ... as in
-JAX's ``nn/container.py:12``.
+``MaxPool2D``, ``AvgPool2D``, ``AdaptiveAvgPool2D``).  ``Sequential`` and
+``LayerList`` are ``torch.nn.Sequential`` and ``torch.nn.ModuleList``:
+their children are named ``0``, ``1`` ... as in JAX's
+``nn/container.py``.
 
 They are plain ``torch.nn.Module``s, not a port of the eager ``Layer``
 framework.  Linear weights keep the ``[in, out]`` layout (``x @ W + b``), so
@@ -30,14 +31,15 @@ from .functional.activation import (gelu, hardsigmoid, hardswish, relu,
                                     relu6)
 from .functional.common import dropout
 from .functional.norm import batch_norm, group_norm, layer_norm
-from .functional.pooling import adaptive_avg_pool2d, max_pool2d
+from .functional.pooling import adaptive_avg_pool2d, avg_pool2d, max_pool2d
 
 __all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "GroupNorm",
            "BatchNorm2D", "Conv2D", "GELU", "ReLU", "ReLU6", "Hardswish",
-           "Hardsigmoid", "MaxPool2D", "AdaptiveAvgPool2D", "Flatten",
-           "Sequential"]
+           "Hardsigmoid", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
+           "Flatten", "Sequential", "LayerList"]
 
 Sequential = nn.Sequential
+LayerList = nn.ModuleList
 
 
 class Linear(nn.Module):
@@ -246,6 +248,25 @@ class MaxPool2D(nn.Module):
     def forward(self, x):
         return max_pool2d(x, self.kernel_size, self.stride, self.padding,
                           self.ceil_mode)
+
+
+class AvgPool2D(nn.Module):
+    """JAX ``AvgPool2D`` (``nn/pooling.py:30``): :func:`~paddle_tpu_torch.
+    nn.functional.pooling.avg_pool2d`."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCHW"):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, \
+            padding
+        self.ceil_mode, self.exclusive = ceil_mode, exclusive
+        self.divisor_override, self.data_format = divisor_override, \
+            data_format
+
+    def forward(self, x):
+        return avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                          self.ceil_mode, self.exclusive,
+                          self.divisor_override, self.data_format)
 
 
 class AdaptiveAvgPool2D(nn.Module):

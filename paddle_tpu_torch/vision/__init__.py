@@ -1,3 +1,3 @@
-from . import models
+from . import models, ops, transforms
 
-__all__ = ["models"]
+__all__ = ["models", "ops", "transforms"]

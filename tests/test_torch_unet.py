@@ -120,9 +120,11 @@ def test_nearest_interpolate_matches_jax(kw):
 
 
 def test_interpolate_modes_not_ported_raise():
+    """Every mode of JAX's ``interpolate`` is ported; one that neither
+    package has raises, naming the modes."""
     with pytest.raises(ValueError, match="nearest"):
         TF.interpolate(torch.zeros(1, 1, 2, 2), scale_factor=2,
-                       mode="bilinear")
+                       mode="lanczos3")
 
 
 def test_timestep_embedding_matches_jax():
