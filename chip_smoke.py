@@ -13,7 +13,10 @@ tokens, which attention pads to the 128 tile) and at 224 px; the
 SD-1.5 UNet's train step at B 8 over 64 x 64 latents; and ResNet-50
 training at B 256 over 224 x 224 images with the BatchNorms in training
 mode, MobileNet V1 / V2 / V3-Large, DenseNet-121 and Inception-v3 at
-B 256, the rest of the vision zoo and the detection ops — with random
+B 256, the rest of the vision zoo and the detection ops; and the train
+loop's exterior — ERNIE-3.0-base through ``TrainStep`` with a checkpoint
+resumed, ResNet-50 and ERNIE fine-tuning through ``hapi.Model.fit`` over
+``io.DataLoader``, the quantized plane's parity report — with random
 weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
@@ -232,6 +235,7 @@ weights made from a seed:
                step asserted;
                (e) nn.functional.softmax through the softmax kernels,
                forward and backward, and the shapes that take the plain op;
+               ``softmax_`` in place through the forward kernel;
                (g) ViT-L/16 training at 384 px (bf16, f32 moments, B 32,
                full width and depth, fused AdamW, random images and labels
                on one fixed batch): 3 warm-up and 10 timed steps, images/s,
@@ -281,6 +285,33 @@ weights made from a seed:
                ways, avg_pool2d with ceil_mode, interpolate bilinear /
                bicubic / area at x2 and x0.5: the card against the CPU in
                f32 and the card's ms a call;
+               (p) ERNIE-3.0-base MLM through ``parallel.TrainStep`` (bf16,
+               B 64 x S 512, dropout 0.1, grad_accum 2, AdamW under
+               LinearWarmup(PolynomialDecay), fused, the non-finite guard,
+               a ``TrainTelemetry``): a warm-up call poisoned through
+               ``train.nonfinite`` is skipped with every tensor, the
+               learning rate and ``global_step`` bit-identical; launches per
+               timed step asserted; a ``CheckpointManager`` snapshot after
+               timed step 4, restored into another seed's model, replays
+               steps 5-8 bit for bit; ms per step beside 3d's bare step,
+               save and restore seconds and bytes, the telemetry report;
+               (q) ResNet-50 through ``hapi.Model.fit`` over
+               ``io.DataLoader(FakeImageNet)`` at B 256 (PaddleClas's
+               recipe: Momentum under PiecewiseDecay, L2Decay, top-1/5
+               Accuracy, the LRScheduler callback, 6 persistent workers):
+               images/s, data and compute seconds per step, peak memory;
+               stopped at iteration 4 and relaunched, ``fit(ckpt=)``
+               resumes bit for bit (cuDNN deterministic, its cost
+               printed); no kernel, no plain version;
+               (q') ERNIE-3.0-base sequence classification through
+               ``Model.fit`` on the eager path (PaddleNLP's AdamW with
+               ``apply_decay_param_fun`` and ``ClipGradByGlobalNorm(1.0)``,
+               fused): row 9's decay per tensor and the clip's scale
+               asserted;
+               (r) ``serving.quant.parity_report`` at 7B widths, 2 layers:
+               int8 pages and 8-bit weights against f32 on rows 1-2,
+               exact_match, token_match and the logit drift held to JAX's
+               test limits;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -306,6 +337,9 @@ weights made from a seed:
                step within 1e-4 of the CPU's f64 (loss and buffers), with
                the f32 and TF32 gaps printed; (g) the same for DenseNet-121
                (B 2, 64 x 64): eval mode in f32, training mode in f64;
+               (h) a 2-layer f32 ERNIE at full width through TrainStep,
+               3 steps of grad_accum 2, kernels against every knob off:
+               losses and parameters within TRAIN_TOL;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -3883,7 +3917,8 @@ def phase_softmax_entry():
     launch of each softmax kernel, the results against the kernels' plain
     versions; then an
     untileable last axis (500), ``axis=1`` and the knob off, which take the
-    plain op (no launch)."""
+    plain op (no launch); then ``softmax_`` in place with the knobs on, one
+    more launch of the forward kernel."""
     from paddle_tpu_torch.nn.functional import softmax
     from paddle_tpu_torch.ops import fused as fu
 
@@ -3927,6 +3962,17 @@ def phase_softmax_entry():
           f"backward: launches {json.dumps(launches)}, plain-version calls "
           f"0; last axis 500, axis=1 and norm_kernels=False take "
           f"torch.softmax (no launch)")
+    # the in-place entry: one more launch of row 10, x overwritten
+    from paddle_tpu_torch.nn.functional import softmax_
+    y = x.detach().clone()
+    with CountPlainCalls() as plain:
+        out_ = softmax_(y, norm_kernels=True)
+        torch.cuda.synchronize()
+    require(out_ is y and fu.softmax_fwd.launches == 2 and not plain.calls,
+            f"softmax_: launches {fu.softmax_fwd.launches}, plain "
+            f"{plain.calls}")
+    held(f"softmax_ in place {list(SOFTMAX_SHAPE)} [bfloat16]", y,
+         ref.reshape(SOFTMAX_SHAPE), TRAIN_TOL[torch.bfloat16])
     return launches
 
 
@@ -6954,6 +7000,557 @@ def parent_engine_turn(root):
             f"the parent's serving phases failed: {res.stderr[-3000:]}")
 
 
+# -- phases 3p, 3q, 3q', 3r and 4h: the train loop's exterior ----------------
+TRAIN_LOOP_LR = 1e-4          # ERNIE MLM peak (bench.py's ERNIE AdamW)
+TRAIN_LOOP_STEPS = (3, 8)     # warm-up and timed TrainStep calls
+TRAIN_LOOP_BAD_CALL = 1       # the warm-up call train.nonfinite poisons
+TRAIN_LOOP_SAVE_AT = 4        # timed step the 3p snapshot is taken after
+
+
+def warmup_schedule(peak, warmup=2, decay_steps=16, end=1e-6):
+    """LinearWarmup(PolynomialDecay(peak), warmup_steps=2, 0 -> peak): the
+    PaddleNLP ERNIE schedule's shape, decaying over ``decay_steps``."""
+    from paddle_tpu_torch.optimizer import lr as sched
+    return sched.LinearWarmup(sched.PolynomialDecay(peak, decay_steps,
+                                                    end_lr=end),
+                              warmup_steps=warmup, start_lr=0.0,
+                              end_lr=peak)
+
+
+def ernie_train_step(cfg, dtype, kernels, seed=0, peak=TRAIN_LOOP_LR,
+                     telemetry=None, device="cuda"):
+    """``ErnieForMaskedLM`` driven by ``parallel.TrainStep``: AdamW(warmup
+    schedule, weight_decay 0.01, fused with ``kernels``) without a
+    parameter list (the step gives it the model's), grad_accum 2 and the
+    non-finite guard at 3.  Returns (model, optimizer, step)."""
+    from paddle_tpu_torch.models import ErnieForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    model = ErnieForMaskedLM(cfg, dtype=dtype, device=device, seed=seed,
+                             kernels=kernels, norm_kernels=kernels)
+    opt = AdamW(learning_rate=warmup_schedule(peak), weight_decay=0.01,
+                fused=kernels)
+    step = TrainStep(model, opt, lambda m, ids, labels: m(
+        ids, labels=labels)[0], grad_accum=2, nonfinite_guard=3,
+        telemetry=telemetry, device=device)
+    return model, opt, step
+
+
+def mlm_batches(cfg, B, S, n, seed=0):
+    """``n`` host batches of random ids (labels = ids), as a loader would
+    hand them over."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                             .astype(np.int64)) for _ in range(n)]
+
+
+def state_copy(model, opt):
+    """Parameters, buffers and the optimizer's accumulators, cloned."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    for i, p in enumerate(opt._parameter_list):
+        for k, v in opt._accumulators[id(p)].items():
+            out[f"opt.p{i}.{k}"] = v.clone()
+    return out
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def phase_train_step_loop(pa, card, bare, B=64, S=512):
+    """Phase 3p: ERNIE-3.0-base MLM through ``TrainStep`` at full width
+    (bf16, f32 moments, dropout 0.1, B x S, grad_accum 2, the warmup
+    schedule, the guard, a ``TrainTelemetry``).  The second warm-up call is
+    poisoned through ``train.nonfinite``: skipped, with parameters,
+    moments, the learning rate and ``global_step`` bit-identical.  Launches
+    per timed step are asserted (rows 3/5/6 and their dropout branch at 2 x
+    layers, row 9 once per tensor, rows 12/13 at 2 x norms, no plain
+    version).  A ``CheckpointManager`` saves after timed step 4; a fresh
+    model, optimizer and step of another seed restore it and run steps
+    5-8, whose losses must equal the uninterrupted run's bit for bit.
+    ``bare`` is phase 3d's result, printed beside."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.observability import TrainTelemetry
+    from paddle_tpu_torch.resilience import CheckpointManager, inject
+    cfg = ernie_config()
+    L = cfg.num_hidden_layers
+    warm, steps = TRAIN_LOOP_STEPS
+    batches = mlm_batches(cfg, B, S, warm + steps)
+    tel = TrainTelemetry()
+    root = tempfile.mkdtemp(prefix="chip_smoke_3p_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, step = ernie_train_step(cfg, torch.bfloat16, True,
+                                            telemetry=tel)
+        mgr = CheckpointManager(root, model=model, optimizer=opt,
+                                lr_scheduler=opt._learning_rate,
+                                telemetry=tel)
+        losses, lrs = [], []
+        with inject({"train.nonfinite": dict(action="trigger",
+                                             at=TRAIN_LOOP_BAD_CALL)}):
+            for i in range(warm):
+                if i == TRAIN_LOOP_BAD_CALL:
+                    before, lr0 = state_copy(model, opt), opt.get_lr()
+                    gs0 = opt._global_step
+                losses.append(float(step(*(batches[i],) * 2)))
+                if i == TRAIN_LOOP_BAD_CALL:
+                    after = state_copy(model, opt)
+                    changed = [k for k in before
+                               if not torch.equal(before[k], after[k])]
+                    require(not step.last_step_good and np.isnan(losses[-1])
+                            and not changed and opt.get_lr() == lr0
+                            and opt._global_step == gs0,
+                            f"the poisoned step was not skipped whole: "
+                            f"changed {changed[:4]}, lr {lr0} -> "
+                            f"{opt.get_lr()}")
+                    del before, after
+        require(step.skipped_steps == 1
+                and tel.report()["nonfinite_skips"] == 1,
+                f"skips {step.skipped_steps}, telemetry "
+                f"{tel.report()['nonfinite_skips']}")
+        torch.cuda.synchronize()
+        tel.reset_window()
+        reset_counts(pa)
+        save_s = nbytes = 0.0
+        with CountPlainCalls() as plain:
+            t0 = time.perf_counter()
+            for i in range(warm, warm + steps):
+                losses.append(step(*(batches[i],) * 2))
+                lrs.append(opt.get_lr())
+                if i - warm + 1 == TRAIN_LOOP_SAVE_AT:
+                    torch.cuda.synchronize()
+                    ts = time.perf_counter()
+                    path = mgr.save(TRAIN_LOOP_SAVE_AT)
+                    save_s = time.perf_counter() - ts
+                    nbytes = dir_bytes(path)
+                    t0 += save_s          # the save is not a train step
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in train_wrappers().items()}
+        launches.update(branch_counts())
+        per_step = {k: n / steps for k, n in launches.items()}
+        losses = losses[:warm] + [float(x) for x in losses[warm:]]
+        n_norms = 2 * L + 2
+        n_tensors = len(step.params)
+        want = {"fa_fwd": 2 * L, "fa_dkv": 2 * L, "fa_dq": 2 * L,
+                "pack_lse": 0, "rms_fwd": 0, "rms_bwd": 0,
+                "adamw": n_tensors, "softmax_fwd": 0, "softmax_bwd": 0,
+                "ln_fwd": 2 * n_norms, "ln_bwd": 2 * n_norms,
+                "fa_fwd_drop": 2 * L, "fa_dkv_drop": 2 * L,
+                "fa_dq_drop": 2 * L, "fa_fwd_seg": 0, "fa_dkv_seg": 0,
+                "fa_dq_seg": 0}
+        require(per_step == want, f"launches per step {per_step} != {want}")
+        require(counts(pa) == (0, 0, 0), f"paged attention ran: "
+                f"{counts(pa)}")
+        require(not plain.calls, f"plain versions ran: {plain.calls}")
+        timed = losses[warm:]
+        require(all(np.isfinite(timed)), f"non-finite loss: {losses}")
+        rep = tel.report(window_s=wall)
+        peak = torch.cuda.max_memory_allocated()
+        del model, opt, step, mgr
+        torch.cuda.empty_cache()
+        # the relaunch: another seed, restored from the snapshot
+        model, opt, step = ernie_train_step(cfg, torch.bfloat16, True,
+                                            seed=7)
+        mgr = CheckpointManager(root, model=model, optimizer=opt,
+                                lr_scheduler=opt._learning_rate,
+                                telemetry=tel)
+        t0 = time.perf_counter()
+        restored = mgr.restore()
+        restore_s = time.perf_counter() - t0
+        require(restored == TRAIN_LOOP_SAVE_AT
+                and opt.get_lr() == lrs[TRAIN_LOOP_SAVE_AT - 1],
+                f"restored step {restored}, lr {opt.get_lr()}")
+        resumed = [float(step(*(batches[i],) * 2)) for i in range(
+            warm + TRAIN_LOOP_SAVE_AT, warm + steps)]
+        want_l = timed[TRAIN_LOOP_SAVE_AT:]
+        require(resumed == want_l, f"resumed losses {resumed} != the "
+                f"uninterrupted run's {want_l}")
+        del model, opt, step, mgr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tokens_per_s = B * S * steps / wall
+    print(f"  TrainStep(ErnieForMaskedLM, AdamW(LinearWarmup(PolynomialDecay("
+          f"{TRAIN_LOOP_LR:g}), warmup 2), wd 0.01, fused), grad_accum=2, "
+          f"nonfinite_guard=3, TrainTelemetry); B={B} S={S} bf16, dropout "
+          f"{DROPOUT_RATE}; {n_tensors} tensors")
+    print(f"  loss per call ({warm} warm-up, call {TRAIN_LOOP_BAD_CALL} "
+          f"poisoned and skipped whole, + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  learning rate after each timed step: "
+          + " ".join(f"{x:.3e}" for x in lrs))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {tokens_per_s:.1f} tokens/s; phase 3d's bare step "
+          f"{bare['step_ms']:.1f} ms, {bare['tokens_per_s']:.1f} tokens/s "
+          f"(3p does two microbatches of B {B // 2} and the guard's sync) "
+          f"on {card}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB on {card}")
+    print(f"  launches per step: {json.dumps(per_step)}; plain calls 0")
+    print(f"  snapshot at step {TRAIN_LOOP_SAVE_AT}: {nbytes / 2**30:.3f} GiB "
+          f"saved in {save_s:.2f} s, restored in {restore_s:.2f} s on {card}")
+    print(f"  resumed steps {TRAIN_LOOP_SAVE_AT + 1}-{steps} of another "
+          f"seed's model: losses equal the uninterrupted run's bit for bit")
+    print(f"  telemetry report: {json.dumps(rep)}")
+    return dict(step_ms=wall / steps * 1e3, tokens_per_s=tokens_per_s,
+                save_s=save_s, restore_s=restore_s, nbytes=nbytes,
+                report=rep, launches=launches, peak_gib=peak / 2**30)
+
+
+class ToDtype(torch.nn.Module):
+    """Casts the loader's f32 images to the network's dtype."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def forward(self, x):
+        return x.to(self.dtype)
+
+
+RESNET_FIT_B = 256
+RESNET_FIT_IMG = 224
+RESNET_FIT_ITERS = 8
+RESNET_FIT_SAVE = 4
+RESNET_FIT_WORKERS = 6
+
+
+def resnet_fit_job(seed, loader_seed, device="cuda"):
+    """PaddleClas's ResNet50 recipe on the port: ``resnet50`` in bf16 (f32
+    velocity) behind a cast of the f32 images, Momentum(0.9) under
+    PiecewiseDecay from 0.1 (a decade down after 4 and 6 iterations) with
+    L2Decay(1e-4), CrossEntropyLoss and top-1 / top-5 Accuracy, fed by a
+    shuffling DataLoader over ``FakeImageNet`` with a generator and
+    persistent workers.  Returns (model, loader, scheduler)."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer import lr as sched
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.datasets import FakeImageNet
+    from paddle_tpu_torch.vision.models import resnet50
+    net = torch.nn.Sequential(ToDtype(torch.bfloat16), resnet50(
+        num_classes=1000, dtype=torch.bfloat16, device=device, seed=seed))
+    lr = sched.PiecewiseDecay([4, 6], [RESNET_LR, RESNET_LR / 10,
+                                       RESNET_LR / 100])
+    model = Model(net, device=device)
+    model.prepare(Momentum(learning_rate=lr, momentum=RESNET_MOMENTUM,
+                           parameters=net.parameters(),
+                           weight_decay=L2Decay(RESNET_DECAY)),
+                  pnn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)))
+    loader = DataLoader(FakeImageNet(RESNET_FIT_B * RESNET_FIT_ITERS,
+                                     RESNET_FIT_IMG, 1000),
+                        batch_size=RESNET_FIT_B,
+                        shuffle=True, num_workers=RESNET_FIT_WORKERS,
+                        persistent_workers=True,
+                        generator=torch.Generator().manual_seed(loader_seed))
+    return model, loader, lr
+
+
+def fit_log():
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Log(Callback):
+        def __init__(self):
+            self.rows = []
+
+        def on_batch_end(self, mode, step, logs=None):
+            self.rows.append(dict(logs, lr=self.model._optimizer.get_lr()))
+    return Log()
+
+
+def phase_resnet_fit(pa, card):
+    """Phase 3q: ResNet-50 (BASELINE #1, single-device dygraph) through
+    ``hapi.Model.fit`` over ``io.DataLoader`` at B 256 x 224^2: 8
+    iterations with the LRScheduler callback and a ``TrainTelemetry``
+    (images/s, data and compute seconds per step, peak memory); then the
+    same fit stopped at iteration 4 with a ``CheckpointManager``
+    (save_interval 4), relaunched from a model and loader of other seeds:
+    it resumes and its iterations 5-8 equal the uninterrupted run's
+    losses bit for bit.  cuDNN runs deterministic algorithms
+    (``cudnn.deterministic``, no benchmark) for that; three more
+    iterations of the same model and workers with them off price it.  No
+    TPU kernel lies on this path: no launch, no plain version."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.hapi.callbacks import LRScheduler
+    from paddle_tpu_torch.observability import TrainTelemetry
+    from paddle_tpu_torch.resilience import CheckpointManager
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_3q_")
+    try:
+        reset_counts(pa)
+        with CountPlainCalls() as plain:
+            torch.cuda.reset_peak_memory_stats()
+            model, loader, _ = resnet_fit_job(0, 0)
+            log, tel = fit_log(), TrainTelemetry()
+            t0 = time.perf_counter()
+            model.fit(loader, epochs=1, verbose=0, telemetry=tel,
+                      num_iters=RESNET_FIT_ITERS,
+                      callbacks=[LRScheduler(), log])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            rep = tel.report(window_s=wall)
+            ref = [r["loss"] for r in log.rows]
+            lrs = [r["lr"] for r in log.rows]
+            accs = [r["acc"] for r in log.rows]
+            # the same model and workers, cuDNN free to pick: the price of
+            # the deterministic algorithms
+            torch.backends.cudnn.deterministic = False
+            tel_nd = TrainTelemetry()
+            model.fit(loader, epochs=1, verbose=0, telemetry=tel_nd,
+                      num_iters=3, callbacks=[LRScheduler()])
+            torch.backends.cudnn.deterministic = True
+            loader.close()
+            del model, loader
+            # stopped at iteration 4, then relaunched with other seeds
+            got = []
+            for seed, stop in ((0, RESNET_FIT_SAVE), (5, None)):
+                model, loader, _ = resnet_fit_job(seed, seed)
+                run = fit_log()
+                mgr = CheckpointManager(root, save_interval=RESNET_FIT_SAVE)
+                model.fit(loader, epochs=1, verbose=0, ckpt=mgr,
+                          num_iters=stop or RESNET_FIT_ITERS,
+                          callbacks=[LRScheduler(), run])
+                got += [r["loss"] for r in run.rows]
+                loader.close()
+                del model, loader
+        no_kernel_ran(pa, plain, "ResNet-50 fit")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    require(all(np.isfinite(ref)), f"non-finite loss {ref}")
+    require(got == ref, f"resumed fit {got} != uninterrupted {ref}")
+    # the learning rate after each iteration's LRScheduler tick
+    want_lr = [RESNET_LR] * 3 + [RESNET_LR / 10] * 2 + [RESNET_LR / 100] * 3
+    require(lrs == want_lr, f"the schedule {lrs} != {want_lr}")
+    det_ms = rep["compute_s"]["p50_ms"]
+    nd_ms = tel_nd.report()["compute_s"]["p50_ms"]
+    print(f"  Model(resnet50 bf16).fit over DataLoader(FakeImageNet, B "
+          f"{RESNET_FIT_B}, shuffle, generator, {RESNET_FIT_WORKERS} "
+          f"persistent workers), Momentum({RESNET_MOMENTUM}) under "
+          f"PiecewiseDecay from {RESNET_LR}, L2Decay({RESNET_DECAY}), "
+          f"CrossEntropyLoss, Accuracy(topk=(1, 5)), LRScheduler callback")
+    print(f"  loss per iteration: " + " ".join(f"{x:.4f}" for x in ref)
+          + "; lr " + " ".join(f"{x:g}" for x in lrs))
+    print(f"  top-1 / top-5 per iteration: "
+          + " ".join(f"{a[0]:.4f}/{a[1]:.4f}" for a in accs))
+    step_ms = rep["step_s"]["p50_ms"]
+    print(f"  {RESNET_FIT_ITERS} iterations in {wall:.2f} s (workers' start "
+          f"included): {RESNET_FIT_B * RESNET_FIT_ITERS / wall:.1f} images/s; "
+          f"per step p50: step {step_ms:.1f} ms "
+          f"({RESNET_FIT_B / step_ms * 1e3:.1f} images/s), data "
+          f"{rep['data_s']['p50_ms']:.1f} ms, compute {det_ms:.1f} ms "
+          f"(data_wait_frac {rep['data_wait_frac']}) on {card}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB on {card}")
+    print(f"  resumed at iteration {RESNET_FIT_SAVE} from another seed's "
+          f"model and loader: losses equal the uninterrupted run's bit for "
+          f"bit")
+    print(f"  cudnn.deterministic costs {det_ms - nd_ms:+.1f} ms of compute "
+          f"per step (p50 {det_ms:.1f} ms on, {nd_ms:.1f} ms off, 3 "
+          f"iterations) on {card}")
+    print(f"  telemetry report: {json.dumps(rep)}")
+    return dict(images_per_s=RESNET_FIT_B * RESNET_FIT_ITERS / wall,
+                step_images_per_s=RESNET_FIT_B / step_ms * 1e3, report=rep,
+                det_ms=det_ms, nd_ms=nd_ms, peak_gib=peak / 2**30)
+
+
+def exempt_from_decay(name):
+    """PaddleNLP's fine-tuning rule: no decay for biases and norms."""
+    return any(nd in name for nd in ("bias", "norm"))
+
+
+def phase_ernie_fit(pa, card, B=32, S=128, iters=4):
+    """Phase 3q': ERNIE-3.0-base sequence classification through
+    ``hapi.Model.fit`` on the eager path with PaddleNLP's fine-tuning
+    recipe: AdamW(LinearWarmup, weight_decay 0.01, ``apply_decay_param_fun``
+    exempting biases and norms, ``ClipGradByGlobalNorm(1.0)``, fused) over
+    ``model.named_parameters()``.  Every row-9 launch is recorded: an
+    exempt tensor's decay is 0, every other's 0.01; the clip's scale is
+    min(1, 1 / global norm) of each step, and below 1 in at least one;
+    rows 3/5/6 (dropout branch), 9, 12 and 13 launch per iteration and no
+    plain version runs."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import ErnieForSequenceClassification
+    from paddle_tpu_torch.ops import fused as fu
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ernie_config()
+    L = cfg.num_hidden_layers
+    net = ErnieForSequenceClassification(cfg, 2, dtype=torch.bfloat16,
+                                         device="cuda", kernels=True,
+                                         norm_kernels=True)
+    names = {p.data_ptr(): n for n, p in net.named_parameters()}
+    clip = pnn.ClipGradByGlobalNorm(1.0)
+    opt = AdamW(learning_rate=warmup_schedule(2e-5), weight_decay=0.01,
+                parameters=net.named_parameters(), grad_clip=clip,
+                apply_decay_param_fun=lambda n: not exempt_from_decay(n),
+                fused=True)
+    model = Model(net, device="cuda")
+    model.prepare(opt, pnn.CrossEntropyLoss(), metric.Accuracy())
+    rng = np.random.default_rng(3)
+    data = [(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64),
+             rng.integers(0, 2, (B,)).astype(np.int64))
+            for _ in range(iters)]
+    decays, scales = {}, []
+    real = fu.adamw_update
+
+    def recorded(p, *a, **kw):
+        decays.setdefault(names[p.data_ptr()], set()).add(
+            kw["weight_decay"])
+        return real(p, *a, **kw)
+
+    norms = []
+    real_clip = clip._clip
+
+    def clipped(pairs):
+        out = real_clip(pairs)
+        scales.append(float(clip.last_scale))
+        norms.append(float(torch.sqrt(clip._global_norm_sq(pairs))))
+        return out
+
+    clip._clip = clipped
+    fu.adamw_update = recorded
+    reset_counts(pa)
+    try:
+        with CountPlainCalls() as plain:
+            log = fit_log()
+            t0 = time.perf_counter()
+            model.fit(data, epochs=1, verbose=0, callbacks=[log])
+            wall = time.perf_counter() - t0
+        # read while patched: the wrapper counts through its module's
+        # name, which is ``recorded`` now
+        launches = {k: fn.launches for k, fn in train_wrappers().items()}
+        launches.update(branch_counts())
+    finally:
+        fu.adamw_update = real
+    n_tensors = len(names)
+    n_norms = 2 * L + 1
+    want = {"fa_fwd": L, "fa_dkv": L, "fa_dq": L, "fa_fwd_drop": L,
+            "fa_dkv_drop": L, "fa_dq_drop": L, "adamw": n_tensors,
+            "ln_fwd": n_norms, "ln_bwd": n_norms}
+    per_iter = {k: launches[k] / iters for k in want}
+    require(per_iter == want, f"launches per iteration {per_iter} != {want}")
+    require(not plain.calls, f"plain versions ran: {plain.calls}")
+    wrong = {n: d for n, d in decays.items()
+             if d != {0.0 if exempt_from_decay(n) else 0.01}}
+    require(len(decays) == n_tensors and not wrong,
+            f"row 9's decay per tensor: {wrong}")
+    require(all(abs(s - min(1.0, 1.0 / g)) <= 1e-6 * max(1.0, s)
+                for s, g in zip(scales, norms)) and min(scales) < 1.0,
+            f"clip scales {scales} for global norms {norms}")
+    losses = [r["loss"] for r in log.rows]
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    exempt = sum(exempt_from_decay(n) for n in names.values())
+    print(f"  Model(ErnieForSequenceClassification, 2 classes, bf16).fit, "
+          f"B={B} S={S}, {iters} iterations: AdamW(LinearWarmup(2e-05), wd "
+          f"0.01, apply_decay_param_fun, ClipGradByGlobalNorm(1.0), fused)")
+    print(f"  loss per iteration: " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; {wall:.2f} s in all on {card}")
+    print(f"  row 9: {exempt} of {n_tensors} tensors (biases and norms) "
+          f"launched with weight_decay 0, the rest 0.01; global grad norm "
+          + " ".join(f"{g:.3f}" for g in norms) + ", clip scale "
+          + " ".join(f"{s:.4f}" for s in scales))
+    print(f"  launches per iteration: {json.dumps(per_iter)}; plain calls 0")
+    return dict(losses=losses, scales=scales, norms=norms)
+
+
+def phase_quant_parity(pa, card):
+    """Phase 3r: ``serving.quant.parity_report`` at LLaMA-2 7B widths cut
+    to 2 layers (f32 weights from a seed): the f32 engine against the one
+    with int8 pages and 8-bit weights on the standard scenarios, both on
+    rows 1-2, and the teacher-forced logit drift.  Held to the limits
+    JAX's ``tests/test_quant.py`` applies to the same harness: the
+    scenario count, exact_match in [0, 1] and a drift above 0 (the
+    quantization is lossy), finite."""
+    from paddle_tpu_torch.models.llama import (init_llama_params,
+                                               llama_config_7b)
+    from paddle_tpu_torch.serving.quant import (parity_report,
+                                                parity_scenarios)
+    cfg = dataclasses.replace(llama_config_7b(), num_hidden_layers=2)
+    params = init_llama_params(cfg, dtype=torch.float32, device="cuda",
+                               seed=0)
+    reset_counts(pa)
+    t0 = time.perf_counter()
+    rep = parity_report(params, cfg, kv_dtype="int8", quantize=8,
+                        engine_kw=dict(device="cuda"))
+    wall = time.perf_counter() - t0
+    n = len(parity_scenarios(cfg.vocab_size))
+    require(rep["scenarios"] == n and 0.0 <= rep["exact_match"] <= 1.0
+            and 0.0 <= rep["token_match"] <= 1.0
+            and 0.0 < rep["max_logit_drift"] < float("inf"),
+            f"parity report outside JAX's limits: {rep}")
+    plain_calls = pa.ragged_paged_attention_ref.calls
+    require(pa.ragged_paged_attention.launches > 0
+            and pa.ragged_paged_attention.quant_launches > 0
+            and plain_calls == 0,
+            f"rows 1-2 launches {counts(pa)}")
+    print(f"  parity_report(int8 pages, 8-bit weights) at 7B widths, 2 "
+          f"layers, f32: {json.dumps(rep)} in {wall:.1f} s on {card}")
+    print(f"  rows 1 / 2 launches {pa.ragged_paged_attention.launches} / "
+          f"{pa.ragged_paged_attention.quant_launches}, plain calls 0")
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_train_step_check(pa, B=16, S=512):
+    """Phase 4h: a 2-layer ERNIE at full width and dropout 0 in f32 through
+    ``TrainStep`` (grad_accum 2, 3 steps), once with the kernels (flash
+    attention, the LayerNorm kernels, fused AdamW) and once with every knob
+    off, from the same seed and batches (the launches of rows 3/5/6, 9 and
+    12/13 counted on the one, none on the other): each loss and every
+    parameter within ``TRAIN_TOL``.  The warmup schedule peaks at 1e-6
+    here, so that the sign of a gradient at rounding level, which moves an
+    Adam step by up to 2 lr, stays inside the tolerance."""
+    cfg = ernie_config(layers=2, dropout=0.0)
+    batches = mlm_batches(cfg, B, S, 3, seed=1)
+    runs = []
+    for kernels in (False, True):
+        model, _, step = ernie_train_step(cfg, torch.float32, kernels,
+                                          seed=2, peak=1e-6)
+        reset_counts(pa)
+        losses = [step(*(b,) * 2) for b in batches]
+        launches = {k: train_wrappers()[k].launches
+                    for k in ("fa_fwd", "fa_dkv", "fa_dq", "adamw", "ln_fwd",
+                              "ln_bwd")}
+        n = len(batches) * 2           # calls x microbatches
+        want = dict(fa_fwd=2 * n, fa_dkv=2 * n, fa_dq=2 * n,
+                    adamw=len(batches) * len(step.params), ln_fwd=6 * n,
+                    ln_bwd=6 * n) if kernels else dict.fromkeys(launches, 0)
+        require(launches == want, f"4h launches {launches} != {want}")
+        runs.append((torch.stack(losses), {
+            n: p.detach().clone() for n, p in model.named_parameters()}))
+        del model, step
+        torch.cuda.empty_cache()
+    (l0, p0), (l1, p1) = runs
+    held("TrainStep losses, kernels vs plain (3 steps)", l1, l0,
+         TRAIN_TOL[torch.float32])
+    atol, rtol, _ = TRAIN_TOL[torch.float32]
+    bad = [n for n in p0 if not bool(
+        ((p1[n] - p0[n]).abs() <= atol + rtol * p0[n].abs()).all())]
+    require(not bad, f"parameters beyond TRAIN_TOL: {bad[:6]}")
+    worst = max(((p1[n] - p0[n]).abs().max().item(), n) for n in p0)
+    print(f"  2-layer f32 ERNIE, B={B} S={S}, grad_accum 2, 3 steps: losses "
+          f"plain " + " ".join(f"{x:.7f}" for x in l0.tolist()) + ", kernels "
+          + " ".join(f"{x:.7f}" for x in l1.tolist()) + f"; all {len(p0)} "
+          f"parameters within TRAIN_TOL (largest gap {worst[0]:.3e} in "
+          f"{worst[1]})")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -7132,6 +7729,23 @@ def main():
         "CPU (f32, TF32 off), timed on the card")
     phase_vision_ops(card)
     vision_s = time.perf_counter() - t_vision
+    t_loop = time.perf_counter()
+    say("phase 3p: ERNIE-3.0-base MLM through TrainStep (bf16, B=64, S=512, "
+        "grad_accum 2, LinearWarmup AdamW, the non-finite guard, a poisoned "
+        "step, a snapshot restored into another seed's model)")
+    loop = phase_train_step_loop(pa, card, ernie)
+    say("phase 3q: ResNet-50 through Model.fit over DataLoader(FakeImageNet) "
+        "(B=256, PaddleClas's recipe, fit(ckpt=) stopped and resumed)")
+    fit = phase_resnet_fit(pa, card)
+    say("phase 3q': ERNIE-3.0-base sequence classification through "
+        "Model.fit, PaddleNLP's AdamW with apply_decay_param_fun and "
+        "ClipGradByGlobalNorm")
+    phase_ernie_fit(pa, card)
+    torch.cuda.empty_cache()
+    say("phase 3r: the quantized serving plane's parity_report at LLaMA-2 "
+        "7B widths, 2 layers")
+    parity = phase_quant_parity(pa, card)
+    loop_s = time.perf_counter() - t_loop
 
     say("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
@@ -7156,6 +7770,11 @@ def main():
         "eval-mode BatchNorm in f32, training mode in f64, TF32 off")
     phase_densenet_check()
     vision_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    say("phase 4h: ERNIE through TrainStep (2 layers, f32, grad_accum 2, 3 "
+        "steps), kernels vs plain versions")
+    phase_train_step_check(pa)
+    loop_s += time.perf_counter() - t0
 
     say("phase 5: kernel timing at the phase-3 shapes")
     timing = phase_timing(pa, cfg.num_hidden_layers,
@@ -7256,6 +7875,16 @@ def main():
         print(f"  {name}: {z['images_per_s']:.1f} images/s, mfu_share "
               f"{z['mfu']:.4f} (second step) on {card}")
     print(f"  phases 3n, 3n', 3o and 4g took {vision_s:.1f} s")
+    print(f"  TrainStep (3p): {loop['step_ms']:.1f} ms per step, "
+          f"{loop['tokens_per_s']:.1f} tokens/s; snapshot "
+          f"{loop['nbytes'] / 2**30:.3f} GiB saved in {loop['save_s']:.2f} s, "
+          f"restored in {loop['restore_s']:.2f} s; Model.fit ResNet-50 (3q): "
+          f"{fit['images_per_s']:.1f} images/s, data p50 "
+          f"{fit['report']['data_s']['p50_ms']:.1f} ms, compute p50 "
+          f"{fit['det_ms']:.1f} ms per step; parity (3r) exact_match "
+          f"{parity['exact_match']}, max drift {parity['max_logit_drift']} "
+          f"on {card}")
+    print(f"  phases 3p, 3q, 3q', 3r and 4h took {loop_s:.1f} s")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")

@@ -17,7 +17,7 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["resolve_device", "on_device", "__version__"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +33,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
+
+
+def on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether tensor ``t`` lies on ``dev``; a CUDA device without an index
+    is the current one."""
+    if t.device.type != dev.type:
+        return False
+    if dev.type != "cuda" or dev.index is None and t.device.index is None:
+        return True
+    cur = torch.cuda.current_device()
+    return (t.device.index if t.device.index is not None else cur) \
+        == (dev.index if dev.index is not None else cur)

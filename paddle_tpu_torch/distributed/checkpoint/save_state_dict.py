@@ -29,6 +29,7 @@ import os
 import pickle
 import shutil
 import threading
+import time
 
 import numpy as np
 import torch
@@ -183,13 +184,18 @@ def recover_interrupted_commit(path):
     return False
 
 
-def save_state_dict(state_dict, path, async_save=False):
+def save_state_dict(state_dict, path, async_save=False, on_phase=None):
     """Write ``state_dict`` (nested dicts of tensors / numpy arrays / plain
     python values) as one crash-consistent checkpoint directory ``path``.
 
     ``async_save=True`` copies every tensor to the host now and runs the
     serialization, file IO and commit on writer threads
-    (:func:`wait_async_save` joins them and re-raises their first error)."""
+    (:func:`wait_async_save` joins them and re-raises their first error).
+    ``on_phase(name, dur_s)``, when given, receives the writer's two
+    sub-phase wall durations as each completes: ``ckpt.stage`` (the
+    chunked fsync'd writes into the staging dir) and ``ckpt.commit``
+    (metadata, manifest and the atomic rename); on the async path it is
+    called from the writer threads."""
     path = os.fspath(path)
     staging = path + ".tmp"
     rank = 0                     # one process: rank 0 of a world of 1
@@ -221,15 +227,19 @@ def save_state_dict(state_dict, path, async_save=False):
         shards[(name, ext)] = data
 
     def _write():
+        t0 = time.perf_counter()
         _write_durable(os.path.join(staging, f"rank{rank}.data"),
                        pickle.dumps(shards, protocol=4))
         _write_durable(os.path.join(staging, f"rank{rank}.meta.json"),
                        json.dumps(local_meta, default=str).encode())
+        if on_phase is not None:
+            on_phase("ckpt.stage", time.perf_counter() - t0)
 
     def _commit():
         """Merge metadata, write the manifest, then the commit point: rename
         staging onto the final path (the previous checkpoint, if any, stays
         intact until after the new one is durable)."""
+        t0 = time.perf_counter()
         _merge_metadata(staging)
         _write_manifest(staging)
         _fsync_dir(staging)
@@ -251,6 +261,8 @@ def save_state_dict(state_dict, path, async_save=False):
         os.rename(staging, path)
         shutil.rmtree(old, ignore_errors=True)
         _fsync_dir(os.path.dirname(os.path.abspath(path)) or ".")
+        if on_phase is not None:
+            on_phase("ckpt.commit", time.perf_counter() - t0)
 
     if not async_save:
         _write()

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["gelu", "hardsigmoid", "hardswish", "relu", "relu6", "silu",
-           "softmax"]
+           "softmax", "softmax_"]
 
 
 def relu(x):
@@ -65,3 +65,18 @@ def softmax(x, axis=-1, dtype=None, kernels=True, norm_kernels=False):
         if out is not None:
             return out
     return torch.softmax(x, dim=axis)
+
+
+@torch.no_grad()
+def softmax_(x, axis=-1, dtype=None, kernels=True, norm_kernels=False):
+    """In-place :func:`softmax` (JAX ``activation.py:151``): ``x`` takes the
+    softmax of its own values, outside autograd, and is returned; with
+    ``dtype`` it takes that dtype too.  The knobs are :func:`softmax`'s, so
+    with both on a tileable last axis goes through the softmax kernel."""
+    out = softmax(x.detach(), axis, dtype, kernels=kernels,
+                  norm_kernels=norm_kernels)
+    if out.dtype == x.dtype:
+        x.copy_(out)
+    else:
+        x.data = out
+    return x

@@ -42,11 +42,12 @@ from .metrics import (Counter, EngineStats, Gauge, GaugeSeries, Histogram,
 from .slo import burn_rate, latency_percentiles, slo_report, windowed_burn
 from .telemetry import Telemetry
 from .tracing import RequestTrace, Tracer
-from .train import fault_context
+from .train import TrainTelemetry, batch_samples, fault_context
 
 __all__ = ["Counter", "Gauge", "GaugeSeries", "Histogram", "MetricsRegistry",
            "EngineStats", "Tracer", "RequestTrace", "FlightRecorder",
-           "Telemetry", "fault_context", "latency_percentiles", "slo_report",
+           "Telemetry", "TrainTelemetry", "batch_samples", "fault_context",
+           "latency_percentiles", "slo_report",
            # fleet-wide observability plane
            "FleetTelemetry", "TraceStitcher", "new_trace_id",
            "MetricsExporter", "export_snapshot", "render_prometheus",

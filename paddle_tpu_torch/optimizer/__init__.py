@@ -1,3 +1,4 @@
-from .optimizers import Adam, AdamW, Momentum
+from . import lr
+from .optimizers import Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Adam", "AdamW", "Momentum"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "lr"]

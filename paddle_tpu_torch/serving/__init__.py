@@ -30,8 +30,9 @@ in-process replica fleet and its front door.
 """
 import importlib
 
-from .quant import (KV_DTYPES, dequantize_kv, kv_spec, page_bytes,
-                    quantize_kv, quantize_params)
+from .quant import (KV_DTYPES, dequantize_kv, kv_spec, logit_drift,
+                    page_bytes, parity_report, parity_scenarios, quantize_kv,
+                    quantize_params)
 from .snapshot import EngineSnapshotManager, load_engine_snapshot
 
 # the fleet modules import inference.paged, which imports models.llama,
@@ -76,5 +77,6 @@ __all__ = ["ReplicaFleet", "FleetFailedError", "EngineSnapshotManager",
            "LeastLoadedRouter", "PrefixAffinityRouter", "AutoscalePolicy",
            "AutoscaleDecision", "ElasticFleet", "KV_DTYPES", "quantize_kv",
            "dequantize_kv", "kv_spec", "page_bytes", "quantize_params",
+           "parity_scenarios", "logit_drift", "parity_report",
            "KVHandoffError", "ProcessFleet", "WorkerDiedError", "RpcClient",
            "RpcServer", "RpcError", "RpcTimeout", "RpcRemoteError"]

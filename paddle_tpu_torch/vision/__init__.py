@@ -1,3 +1,3 @@
-from . import models, ops, transforms
+from . import datasets, models, ops, transforms
 
-__all__ = ["models", "ops", "transforms"]
+__all__ = ["datasets", "models", "ops", "transforms"]

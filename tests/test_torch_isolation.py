@@ -291,3 +291,42 @@ def test_vision_cnn_entry_points_without_device_need_a_card(monkeypatch):
                 "nn/layers.py", "tensor/manipulation.py",
                 "optimizer/optimizers.py", "models/convert.py"):
         assert f"paddle_tpu_torch/{mod}" in names
+
+
+def test_the_scan_covers_the_train_loop_modules():
+    """The train loop's exterior: the schedules, the clips and
+    regularizers, the optimizer base, the scaler, the train telemetry,
+    TrainStep, the checkpoint manager, the loss, io, metric, hapi,
+    save / load, the datasets and the quantized parity harness."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("optimizer/lr.py", "optimizer/optimizers.py",
+                "regularizer.py", "nn/clip.py", "nn/loss.py",
+                "nn/functional/loss.py", "amp/grad_scaler.py",
+                "observability/train.py", "parallel/train_step.py",
+                "resilience/checkpoint.py", "io/__init__.py",
+                "metric/__init__.py", "hapi/model.py", "hapi/callbacks.py",
+                "framework.py", "vision/datasets.py", "serving/quant.py"):
+        assert f"paddle_tpu_torch/{mod}" in names, mod
+
+
+def test_train_loop_entry_points_without_device_need_a_card(monkeypatch):
+    """``TrainStep``, ``hapi.Model`` and the optimizers' ``init_opt_state``
+    resolve device=None to the card, and run on the CPU only when asked."""
+    from torch import nn
+
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
+    from paddle_tpu_torch.parallel import TrainStep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = nn.Linear(3, 2)
+    loss = lambda m, x: m(x).sum()  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainStep(net, Adam(0.1), loss)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(net)
+    for opt in (Adam(), AdamW(), Momentum()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            opt.init_opt_state({"w": torch.zeros(2)})
+    step = TrainStep(net, Adam(0.1), loss, device="cpu")
+    assert step(np.ones((4, 3), np.float32)).device == torch.device("cpu")
+    assert Model(net, device="cpu").device == torch.device("cpu")
