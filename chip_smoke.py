@@ -312,6 +312,18 @@ weights made from a seed:
                int8 pages and 8-bit weights against f32 on rows 1-2,
                exact_match, token_match and the logit drift held to JAX's
                test limits;
+               (t) distributed training at world 1 over NCCL, through
+               ``init_parallel_env()``: ERNIE-3.0-base MLM (3d's recipe)
+               through ``ShardedTrainStep(stage=2, bucket=True)`` — ms a
+               step and tokens/s against 3d's bare step, row 9 launches a
+               step (one a bucket), the collectives a step by kind, peak
+               memory; the 271M LLaMA (3c's) through
+               ``build_functional_llama(mp_axis="mp")`` on a
+               ``build_mesh({"dp": 1, "mp": 1})`` with the Megatron
+               collectives in place — ms a step against 3c's, rows 3-8
+               launches equal to 3c's; and one gang through ``python -m
+               paddle_tpu_torch.distributed.launch --nproc_per_node=1``
+               (NCCL, an all-reduce and a DataParallel step on the card);
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -339,7 +351,12 @@ weights made from a seed:
                (B 2, 64 x 64): eval mode in f32, training mode in f64;
                (h) a 2-layer f32 ERNIE at full width through TrainStep,
                3 steps of grad_accum 2, kernels against every knob off:
-               losses and parameters within TRAIN_TOL;
+               losses and parameters within TRAIN_TOL; (i) at world 1 over
+               NCCL, the 2-layer f32 ERNIE through ShardedTrainStep at
+               stages 0-3 against TrainStep (losses within 1e-5, every
+               parameter within 1e-5 of its max |param| after 3 steps),
+               and the 2-layer f32 LLaMA's mp path against its dense path
+               within TRAIN_TOL;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -3550,18 +3567,19 @@ def train_config(layers=16):
                        max_position_embeddings=2048)
 
 
-def make_train_step(cfg, dtype, kernels, seed=0):
+def make_train_step(cfg, dtype, kernels, seed=0, mp_axis=None):
     """bench.py's step: build_functional_llama(n_micro=1, head_chunks=8),
     loss = embed -> L blocks -> chunked head, gradients of every leaf, then
-    one AdamW(lr=1e-4, weight_decay=0.01) update per parameter tree.
-    Returns (step(batch) -> (loss, grads), trees, n_params)."""
+    one AdamW(lr=1e-4, weight_decay=0.01) update per parameter tree
+    (``mp_axis``: the blocks tensor-parallel over that axis of the default
+    mesh).  Returns (step(batch) -> (loss, grads), trees, n_params)."""
     from paddle_tpu_torch.models.llama import build_functional_llama
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import _flatten
 
     ep, bp, hp, ea, ba, hl = build_functional_llama(
         cfg, dtype=dtype, n_micro=1, head_chunks=8, device="cuda", seed=seed,
-        kernels=kernels)
+        kernels=kernels, mp_axis=mp_axis)
     trees = (ep, bp, hp)
     leaves = [v.requires_grad_(True) for t in trees for v in t.values()]
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
@@ -7550,6 +7568,305 @@ def phase_train_step_check(pa, B=16, S=512):
           f"parameters within TRAIN_TOL (largest gap {worst[0]:.3e} in "
           f"{worst[1]})")
 
+# -- phases 3t and 4i: distributed training at world 1 over NCCL -------------
+DIST_STEPS = (3, 10)          # warm-up and timed steps of 3t (a) and (b)
+
+
+def ernie_sharded_step(cfg, dtype, stage, bucket=True, seed=0, lr=1e-4,
+                       kernels=True):
+    """3d's ERNIE MLM loss through ``ShardedTrainStep`` over the default
+    mesh's dp axis: the model's parameters go in as the module (rebound onto
+    the flat buckets at stages 0-2) and the loss runs through
+    ``torch.func.functional_call``.  Returns (model, step)."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.models import ErnieForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    model = ErnieForMaskedLM(cfg, dtype=dtype, device="cuda", seed=seed,
+                             kernels=kernels, norm_kernels=kernels)
+
+    def loss_fn(params, batch):
+        ids, labels = batch
+        return functional_call(model, params, (ids,), {"labels": labels})[0]
+    step = ShardedTrainStep(None, loss_fn, model, AdamW(
+        learning_rate=lr, weight_decay=0.01, fused=kernels), stage=stage,
+        bucket=bucket, device="cuda")
+    return model, step
+
+
+def collectives_per_step(dist, steps):
+    return {k: v / steps for k, v in dist.collective_counts().items()}
+
+
+def dist_ernie(pa, dist, bare, card, B=64, S=512):
+    """3t (a): BASELINE #3's recipe at one rank — 3d's ERNIE-3.0-base MLM
+    (bf16, dropout 0.1, fused AdamW) through ShardedTrainStep(stage=2,
+    bucket=True).  Row 9 launches once a bucket a step, the collectives a
+    step are one reduce-scatter and one all-gather a bucket and the loss's
+    all-reduce, rows 3/5/6 (dropout) and 12/13 as in 3d; no plain
+    version."""
+    cfg = ernie_config()
+    L = cfg.num_hidden_layers
+    warm, steps = DIST_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    model, step = ernie_sharded_step(cfg, torch.bfloat16, stage=2)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                           .astype(np.int32)).cuda()
+    batch = (ids, ids)
+    losses = [float(step(batch)) for _ in range(warm)]
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    dist.reset_collective_counts()
+    with CountPlainCalls() as plain:
+        t0 = time.perf_counter()
+        out = [step(batch) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    launches.update(branch_counts())
+    per_step = {k: n / steps for k, n in launches.items()}
+    comm = collectives_per_step(dist, steps)
+    losses += [float(x) for x in out]
+    buckets = len(step.flat_params)
+    n_norms = 2 * L + 2
+    want = {"fa_fwd": L, "fa_dkv": L, "fa_dq": L, "pack_lse": 0,
+            "rms_fwd": 0, "rms_bwd": 0, "adamw": buckets,
+            "softmax_fwd": 0, "softmax_bwd": 0, "ln_fwd": n_norms,
+            "ln_bwd": n_norms, "fa_fwd_drop": L, "fa_dkv_drop": L,
+            "fa_dq_drop": L, "fa_fwd_seg": 0, "fa_dkv_seg": 0,
+            "fa_dq_seg": 0}
+    require(per_step == want, f"3t (a) launches per step {per_step} != "
+            f"{want}")
+    require(comm == {"reduce_scatter": buckets, "all_gather": buckets,
+                     "all_reduce": 1.0},
+            f"3t (a) collectives per step {comm}")
+    require(not plain.calls, f"plain versions ran: {plain.calls}")
+    require(counts(pa) == (0, 0, 0), f"paged attention ran: {counts(pa)}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"3t (a) losses {losses}")
+    require(dist.get_backend() == "nccl", "3t (a) backend is not nccl")
+    tokens_per_s = B * S * steps / wall
+    peak = torch.cuda.max_memory_allocated()
+    pbytes, obytes = step.bytes_per_device()
+    print(f"  ShardedTrainStep(stage=2, bucket=True) over ErnieForMaskedLM "
+          f"(functional_call), AdamW(lr 1e-4, wd 0.01, fused); B={B} "
+          f"S={S} bf16, dropout {DROPOUT_RATE}; {len(step.leaf_names)} "
+          f"tensors in {buckets} bucket(s) "
+          + ", ".join(f"{k} {v:,}" for k, v in step._padded_of.items())
+          + f"; world {dist.get_world_size()} over {dist.get_backend()}")
+    print(f"  loss per step ({warm} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {tokens_per_s:.1f} tokens/s; phase 3d's bare step "
+          f"{bare['step_ms']:.1f} ms, {bare['tokens_per_s']:.1f} tokens/s "
+          f"on {card}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB; held: parameters "
+          f"{pbytes / 2**30:.3f} GiB, optimizer state {obytes / 2**30:.3f} "
+          f"GiB")
+    print(f"  launches per step: {json.dumps(per_step)} (row 9 once a "
+          f"bucket: 3d launches it {bare['launches']['adamw'] // 10} times "
+          f"a step); collectives per step {json.dumps(comm)}; plain calls 0")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=wall / steps * 1e3, tokens_per_s=tokens_per_s,
+                launches=launches, comm=comm, peak_gib=peak / 2**30,
+                losses=losses)
+
+
+def dist_llama(pa, dist, bare, card, B=8, S=2048):
+    """3t (b): 3c's 271M LLaMA through build_functional_llama(mp_axis="mp")
+    on build_mesh({"dp": 1, "mp": 1}): the blocks issue their Megatron
+    collectives (four all-reduces a layer a step); rows 3-8 launch as in
+    3c."""
+    from paddle_tpu_torch.distributed import topology
+    topology.set_default_mesh(topology.build_mesh({"dp": 1, "mp": 1}))
+    cfg = train_config()
+    L = cfg.num_hidden_layers
+    warm, steps = DIST_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    step, _, n_params = make_train_step(cfg, torch.bfloat16, True,
+                                        mp_axis="mp")
+    batch = train_batch(cfg, B, S)
+    losses = [float(step(batch)[0]) for _ in range(warm)]
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    dist.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = [step(batch)[0] for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {k: fn.launches / steps for k, fn in train_wrappers().items()}
+    comm = collectives_per_step(dist, steps)
+    losses += [float(x) for x in out]
+    want = {k: v / 10 for k, v in bare["launches"].items()}
+    require(per_step == want, f"3t (b) launches per step {per_step} != 3c's "
+            f"{want}")
+    require(comm == {"all_reduce": 4.0 * L}, f"3t (b) collectives {comm}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"3t (b) losses {losses}")
+    tokens_per_s = B * S * steps / wall
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params / 1e6:.1f}M parameters, B={B} S={S} bf16, "
+          f"mp_axis='mp' on a dp 1 x mp 1 mesh over {dist.get_backend()}")
+    print(f"  loss per step ({warm} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms per "
+          f"step, {tokens_per_s:.1f} tokens/s; phase 3c's step "
+          f"{bare['step_ms']:.1f} ms on {card}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB; launches per step "
+          f"{json.dumps(per_step)} (= 3c's); collectives per step "
+          f"{json.dumps(comm)}")
+    topology.reset_default_mesh()
+    del step
+    torch.cuda.empty_cache()
+    return dict(step_ms=wall / steps * 1e3, tokens_per_s=tokens_per_s,
+                per_step=per_step, comm=comm, peak_gib=peak / 2**30)
+
+
+GANG_RANK_SCRIPT = """
+import json, sys
+import torch
+import paddle_tpu_torch.distributed as dist
+dev = dist.init_parallel_env()
+t = torch.full((4,), float(dist.get_rank() + 1), device=dev)
+dist.all_reduce(t)
+gen = torch.Generator(device=dev).manual_seed(0)
+net = torch.nn.Linear(64, 16).to(dev)
+model = dist.DataParallel(net)
+x = torch.randn(32, 64, device=dev, generator=gen)
+loss = model(x).square().mean()
+loss.backward()
+with torch.no_grad():
+    for p in model.parameters():
+        p -= 0.1 * p.grad
+after = model(x).square().mean()
+out = {"device": str(dev), "card": torch.cuda.get_device_name(dev),
+       "backend": dist.get_backend(), "world": dist.get_world_size(),
+       "sum": t.tolist(), "loss": [float(loss), float(after)],
+       "counts": dist.collective_counts()}
+json.dump(out, open(sys.argv[1], "w"))
+dist.destroy_process_group()
+"""
+
+
+def dist_gang(card, timeout=300):
+    """3t (c): one gang through the launcher's CLI on the card: a rank
+    joins NCCL, all-reduces a CUDA tensor and takes a DataParallel step;
+    its report and its log come back."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3t_") as d:
+        script = os.path.join(d, "gang_rank.py")
+        with open(script, "w") as f:
+            f.write(GANG_RANK_SCRIPT)
+        out = os.path.join(d, "rank0.json")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node=1", f"--log_dir={d}", script, out],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        log = open(os.path.join(d, "workerlog.0")).read() \
+            if os.path.exists(os.path.join(d, "workerlog.0")) else ""
+        require(proc.returncode == 0, f"3t (c) gang rc {proc.returncode}:\n"
+                f"{proc.stdout}\n{log}")
+        rep = json.load(open(out))
+    require(rep["backend"] == "nccl" and rep["device"].startswith("cuda")
+            and rep["sum"] == [1.0] * 4 and rep["world"] == 1
+            and rep["loss"][1] < rep["loss"][0],
+            f"3t (c) rank report {rep}")
+    print(f"  python -m paddle_tpu_torch.distributed.launch "
+          f"--nproc_per_node=1: rc 0 in {wall:.1f} s; the rank: "
+          f"{json.dumps(rep)}")
+    return dict(wall_s=wall, report=rep)
+
+
+def phase_distributed(pa, ernie, train, card):
+    """Phase 3t: the distributed layer at world 1 over NCCL (NCCL takes one
+    rank a card; multi-rank parity runs on gloo in the CPU tests)."""
+    import paddle_tpu_torch.distributed as dist
+    t0 = time.perf_counter()
+    dev = dist.init_parallel_env()
+    require(dist.get_backend() == "nccl" and dev.type == "cuda",
+            f"init_parallel_env: {dist.get_backend()} on {dev}")
+    print(f"  init_parallel_env(): {dist.get_backend()} on {dev}, world "
+          f"{dist.get_world_size()}, in {time.perf_counter() - t0:.2f} s")
+    out = {"ernie": dist_ernie(pa, dist, ernie, card),
+           "llama": dist_llama(pa, dist, train, card),
+           "gang": dist_gang(card)}
+    return out
+
+
+def phase_distributed_check(pa, B=16, S=512):
+    """Phase 4i: at world 1 over NCCL, a 2-layer f32 ERNIE at full width
+    (dropout 0) through ShardedTrainStep at stages 0-3 against TrainStep
+    from the same seed and batches (3 steps, fused AdamW lr 1e-4): each
+    loss within 1e-5 and every parameter within 1e-5 of its max |param|;
+    then the 2-layer f32 LLaMA's mp path against its dense path (one step:
+    loss, gradients and updated parameters within TRAIN_TOL)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models import ErnieForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    cfg = ernie_config(layers=2, dropout=0.0)
+    batches = mlm_batches(cfg, B, S, 3, seed=1)
+    model = ErnieForMaskedLM(cfg, dtype=torch.float32, device="cuda",
+                             seed=2, kernels=True, norm_kernels=True)
+    ts = TrainStep(model, AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                fused=True),
+                   lambda m, ids, labels: m(ids, labels=labels)[0],
+                   device="cuda")
+    ref_l = [float(ts(b, b)) for b in batches]
+    ref_p = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, ts
+    lines = []
+    for stage in (0, 1, 2, 3):
+        model, step = ernie_sharded_step(cfg, torch.float32, stage, seed=2)
+        losses = [float(step((b.cuda(), b.cuda()))) for b in batches]
+        got = step.materialized_params()
+        worst = max(((got[n] - p).abs().max() / p.abs().max()).item()
+                    for n, p in ref_p.items())
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_l))
+        require(l_err <= 1e-5 and worst <= 1e-5,
+                f"4i stage {stage}: loss gap {l_err:.3e}, parameter gap "
+                f"{worst:.3e} of max |param|")
+        lines.append(f"stage {stage}: loss gap {l_err:.2e}, largest "
+                     f"parameter gap {worst:.2e} of its max |param|")
+        del model, step, got
+        torch.cuda.empty_cache()
+    print(f"  2-layer f32 ERNIE, B={B} S={S}, 3 steps, TrainStep losses "
+          + " ".join(f"{x:.7f}" for x in ref_l) + "; ShardedTrainStep "
+          + "; ".join(lines))
+    topology.set_default_mesh(topology.build_mesh({"dp": 1, "mp": 1}))
+    lcfg = train_config(layers=2)
+    batch = train_batch(lcfg, 8, 2048, seed=1)
+    runs = []
+    for mp_axis in (None, "mp"):
+        step, trees, _ = make_train_step(lcfg, torch.float32, True, seed=2,
+                                         mp_axis=mp_axis)
+        loss, grads = step(batch)
+        runs.append((loss.reshape(1), [g.detach() for g in grads],
+                     [v.detach() for t in trees for v in t.values()]))
+        del step, trees
+    topology.reset_default_mesh()
+    (l0, g0, p0), (l1, g1, p1) = runs
+    tol = TRAIN_TOL[torch.float32]
+    held("LLaMA mp path loss vs dense (2 layers f32)", l1, l0, tol)
+    for i, (a, b) in enumerate(zip(g1, g0)):
+        held(f"LLaMA mp path gradient {i} vs dense", a, b, tol)
+    for i, (a, b) in enumerate(zip(p1, p0)):
+        held(f"LLaMA mp path updated parameter {i} vs dense", a, b, tol)
+    print(f"  2-layer f32 LLaMA at full width, B=8 S=2048: mp path loss "
+          f"{l1.item():.7f}, dense {l0.item():.7f}; every gradient and "
+          f"updated parameter within TRAIN_TOL")
+    dist.destroy_process_group()
+
 
 def main():
     import argparse
@@ -7746,6 +8063,18 @@ def main():
         "7B widths, 2 layers")
     parity = phase_quant_parity(pa, card)
     loop_s = time.perf_counter() - t_loop
+    torch.cuda.empty_cache()
+    t_dist = time.perf_counter()
+    say("phase 3t: distributed training at world 1 over NCCL (ERNIE-3.0-base "
+        "through ShardedTrainStep(stage=2, bucket=True), the 271M LLaMA "
+        "with mp_axis='mp', a gang through the launcher)")
+    dist_run = phase_distributed(pa, ernie, train, card)
+    say("phase 4i: ShardedTrainStep stages 0-3 against TrainStep (2-layer "
+        "f32 ERNIE) and the LLaMA mp path against its dense path, at world "
+        "1 over NCCL")
+    phase_distributed_check(pa)
+    dist_s = time.perf_counter() - t_dist
+    torch.cuda.empty_cache()
 
     say("phase 4: engine checks, kernels vs plain version")
     phase_engine(pa, cfg)
@@ -7885,6 +8214,16 @@ def main():
           f"{parity['exact_match']}, max drift {parity['max_logit_drift']} "
           f"on {card}")
     print(f"  phases 3p, 3q, 3q', 3r and 4h took {loop_s:.1f} s")
+    de, dl = dist_run["ernie"], dist_run["llama"]
+    print(f"  distributed (3t, world 1, nccl): ERNIE ShardedTrainStep(stage "
+          f"2, bucket) {de['step_ms']:.1f} ms per step, "
+          f"{de['tokens_per_s']:.1f} tokens/s against 3d's "
+          f"{ernie['step_ms']:.1f} ms; row 9 {de['launches']['adamw'] / 10:g} "
+          f"launch(es) a step; collectives a step {json.dumps(de['comm'])}; "
+          f"peak {de['peak_gib']:.2f} GiB; LLaMA mp_axis {dl['step_ms']:.1f} "
+          f"ms per step against 3c's {train['step_ms']:.1f} ms; launcher "
+          f"gang {dist_run['gang']['wall_s']:.1f} s on {card}")
+    print(f"  phases 3t and 4i took {dist_s:.1f} s")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")

@@ -1,7 +1,10 @@
 """Distributed-checkpoint load: reassembles global tensors from the shard
 files a :func:`~.save_state_dict.save_state_dict` directory holds (this
-package's or the JAX package's: the layout is the same) and writes them
-into the destination state dict's tensors in place.
+package's or the JAX package's, at any world size: the layout is the same)
+and writes them into the destination state dict's tensors in place; a
+:class:`~.save_state_dict.ShardView` destination receives its extent of
+the global tensor, so a rank loads its shard of a state another world
+wrote.
 
 Shard payloads are keyed by (name, global extent) so files from different
 ranks never collide.
@@ -21,7 +24,7 @@ import pickle
 import numpy as np
 import torch
 
-from .save_state_dict import _sha256, recover_interrupted_commit
+from .save_state_dict import ShardView, _sha256, recover_interrupted_commit
 
 __all__ = ["load_state_dict", "verify_checkpoint", "CheckpointCorruptError"]
 
@@ -106,10 +109,10 @@ def _flat_targets(state_dict, prefix=""):
 
 
 def load_state_dict(state_dict, path):
-    """Fill ``state_dict``'s tensors (``torch.Tensor`` or numpy arrays,
-    nested dicts allowed) in place from the checkpoint at ``path``; keys the
-    checkpoint lacks, and non-tensor leaves, are left as they are.  Returns
-    ``state_dict``."""
+    """Fill ``state_dict``'s tensors (``torch.Tensor``, numpy arrays or
+    ``ShardView`` s, nested dicts allowed) in place from the checkpoint at
+    ``path``; keys the checkpoint lacks, and non-tensor leaves, are left
+    as they are.  Returns ``state_dict``."""
     recover_interrupted_commit(path)
     # verify ONLY what this load reads (manifest-covered metadata + the
     # referenced shard files)
@@ -138,7 +141,7 @@ def load_state_dict(state_dict, path):
     for name, t in targets.items():
         entry = meta["tensors"].get(name)
         if entry is None or entry.get("py") \
-                or not isinstance(t, (torch.Tensor, np.ndarray)):
+                or not isinstance(t, (torch.Tensor, np.ndarray, ShardView)):
             continue
         np_dtype = entry["dtype"]
         if np_dtype == "bfloat16":
@@ -163,6 +166,13 @@ def load_state_dict(state_dict, path):
                 f"checkpoint shard(s) missing for '{name}': only "
                 f"{int(filled.sum())}/{filled.size} elements present in "
                 f"{path} — incomplete save or mismatched rank files")
+        if isinstance(t, ShardView):
+            if tuple(entry["shape"]) != t.global_shape:
+                raise RuntimeError(
+                    f"'{name}': checkpoint shape {entry['shape']} != the "
+                    f"shard's global shape {list(t.global_shape)}")
+            full = full[tuple(slice(a, b) for a, b in t.extent())]
+            t = t.local
         if isinstance(t, torch.Tensor):
             with torch.no_grad():
                 t.copy_(torch.from_numpy(full).to(t.dtype))

@@ -1,15 +1,18 @@
 """Distributed-checkpoint save: per-rank shard files + a metadata file
 recording global shapes, the layout the reference package writes.
 
-This port runs one process: rank 0 of a world of 1, so every tensor is one
-shard holding its whole extent and ``_barrier`` is a no-op.  Shard payloads
-are keyed by (name, global extent), the rank writes a sidecar
-``rank0.meta.json`` describing its extents, and the coordinator merges the
-sidecars into the single ``metadata.json`` — the same on-disk layout the
-JAX package writes, so each package's ``verify_checkpoint`` accepts the
-other's directory.  Tensors land as numpy arrays in ``rank0.data`` (a
-pickle); a bfloat16 tensor (numpy has no such type) is stored as its f32
-values under the dtype name ``bfloat16``.
+At world N (``torch.distributed`` initialised) every rank calls it.  A
+plain tensor is replicated over the world and only the coordinator writes
+it; a :class:`ShardView` is the extent of a global tensor this rank holds,
+and each rank writes its own.  Shard payloads are keyed by (name, global
+extent), each rank writes a sidecar ``rank{r}.meta.json`` describing its
+extents, and after a barrier (``torch.distributed.barrier``) the
+coordinator merges the sidecars into the single ``metadata.json``,
+dropping duplicated extents — the same on-disk layout the JAX package
+writes, so each package's loader reads the other's directory.  Tensors
+land as numpy arrays in ``rank{r}.data`` (a pickle); a bfloat16 tensor
+(numpy has no such type) is stored as its f32 values under the dtype name
+``bfloat16``.
 
 Crash consistency: every file is staged into ``<path>.tmp`` with chunked
 writes + fsync, the coordinator records a per-file SHA-256
@@ -37,7 +40,7 @@ import torch
 from ...resilience.faults import fault_point
 
 __all__ = ["save_state_dict", "wait_async_save", "recover_interrupted_commit",
-           "WRITE_CHUNK"]
+           "ShardView", "WRITE_CHUNK"]
 
 # bytes written between ckpt.write fault-point consults (tests shrink this to
 # tear tiny files mid-write)
@@ -67,8 +70,36 @@ def _flat(state_dict, prefix=""):
     return out
 
 
-def _barrier():
-    """Cross-rank barrier; the port saves from one process (world 1)."""
+class ShardView:
+    """``local`` holds the extent of a global tensor of ``global_shape``
+    that starts at ``offsets`` (one per axis) — what a rank of a sharded
+    state saves, and what a load fills in place."""
+
+    def __init__(self, local, global_shape, offsets):
+        self.local = local
+        self.global_shape = tuple(int(d) for d in global_shape)
+        self.offsets = tuple(int(o) for o in offsets)
+
+    def extent(self):
+        return tuple((o, o + int(d))
+                     for o, d in zip(self.offsets, self.local.shape))
+
+
+def _world(process_group=None):
+    """(this rank, world size) of the saving group (0, 1 without
+    ``torch.distributed``)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return (dist.get_rank(process_group),
+            dist.get_world_size(process_group))
+
+
+def _barrier(process_group=None):
+    """Every rank of the saving group reaches this point."""
+    if _world(process_group)[1] > 1:
+        import torch.distributed as dist
+        dist.barrier(group=process_group)
 
 
 def _host_array(v) -> np.ndarray:
@@ -184,13 +215,17 @@ def recover_interrupted_commit(path):
     return False
 
 
-def save_state_dict(state_dict, path, async_save=False, on_phase=None):
-    """Write ``state_dict`` (nested dicts of tensors / numpy arrays / plain
-    python values) as one crash-consistent checkpoint directory ``path``.
+def save_state_dict(state_dict, path, async_save=False, on_phase=None,
+                    process_group=None, coordinator_rank=0):
+    """Write ``state_dict`` (nested dicts of tensors / numpy arrays /
+    :class:`ShardView` s / plain python values) as one crash-consistent
+    checkpoint directory ``path``; at world N every rank of
+    ``process_group`` (the world's) calls it with its own state.
 
     ``async_save=True`` copies every tensor to the host now and runs the
     serialization, file IO and commit on writer threads
-    (:func:`wait_async_save` joins them and re-raises their first error).
+    (:func:`wait_async_save` joins them and re-raises their first error);
+    at world N the writes are joined before the cross-rank barrier.
     ``on_phase(name, dur_s)``, when given, receives the writer's two
     sub-phase wall durations as each completes: ``ckpt.stage`` (the
     chunked fsync'd writes into the staging dir) and ``ckpt.commit``
@@ -198,30 +233,39 @@ def save_state_dict(state_dict, path, async_save=False, on_phase=None):
     called from the writer threads."""
     path = os.fspath(path)
     staging = path + ".tmp"
-    rank = 0                     # one process: rank 0 of a world of 1
-    recover_interrupted_commit(path)
-    for stale in (staging, path + ".old"):
-        shutil.rmtree(stale, ignore_errors=True)
-    with _digest_lock:   # digests of a previous torn attempt are stale
-        _staged_digests.pop(os.path.abspath(staging), None)
-    _barrier()  # nobody writes into staging before the stale sweep
+    rank, world = _world(process_group)
+    coordinator = rank == coordinator_rank
+    if coordinator:
+        recover_interrupted_commit(path)
+        for stale in (staging, path + ".old"):
+            shutil.rmtree(stale, ignore_errors=True)
+        with _digest_lock:   # digests of a previous torn attempt are stale
+            _staged_digests.pop(os.path.abspath(staging), None)
+    _barrier(process_group)  # nobody writes into staging before the sweep
     os.makedirs(staging, exist_ok=True)
     flat = _flat(state_dict)
     # this rank's view of the metadata; merged by the coordinator at the end
     local_meta = {"version": 2, "tensors": {}}
     shards = {}
     for name, t in flat.items():
-        if not isinstance(t, (torch.Tensor, np.ndarray)):
-            local_meta["tensors"][name] = {"py": True, "value": t} \
-                if isinstance(t, (int, float, str, bool, list)) \
-                else {"py": True, "value": None}
+        if isinstance(t, ShardView):
+            src, shape, ext = t.local, t.global_shape, t.extent()
+        elif isinstance(t, (torch.Tensor, np.ndarray)):
+            if not coordinator:
+                continue            # replicated: the coordinator writes it
+            src, shape = t, tuple(t.shape)
+            ext = tuple((0, int(d)) for d in shape)
+        else:
+            if coordinator:
+                local_meta["tensors"][name] = {"py": True, "value": t} \
+                    if isinstance(t, (int, float, str, bool, list)) \
+                    else {"py": True, "value": None}
             continue
-        data = _host_array(t)
-        dtype = "bfloat16" if isinstance(t, torch.Tensor) \
-            and t.dtype == torch.bfloat16 else str(data.dtype)
-        ext = tuple((0, int(d)) for d in data.shape)
+        data = _host_array(src)
+        dtype = "bfloat16" if isinstance(src, torch.Tensor) \
+            and src.dtype == torch.bfloat16 else str(data.dtype)
         local_meta["tensors"][name] = {
-            "shape": list(data.shape), "dtype": dtype,
+            "shape": list(shape), "dtype": dtype,
             "shards": [{"index": [[a, b] for a, b in ext],
                         "file": f"rank{rank}.data"}]}
         shards[(name, ext)] = data
@@ -240,7 +284,7 @@ def save_state_dict(state_dict, path, async_save=False, on_phase=None):
         staging onto the final path (the previous checkpoint, if any, stays
         intact until after the new one is durable)."""
         t0 = time.perf_counter()
-        _merge_metadata(staging)
+        _merge_metadata(staging, world)
         _write_manifest(staging)
         _fsync_dir(staging)
         # the PARENT directory entry for the staging dir must be durable
@@ -264,10 +308,12 @@ def save_state_dict(state_dict, path, async_save=False, on_phase=None):
         if on_phase is not None:
             on_phase("ckpt.commit", time.perf_counter() - t0)
 
-    if not async_save:
+    if not async_save or world > 1:
         _write()
-        _barrier()  # all ranks' sidecars must be on disk before the merge
-        _commit()
+        _barrier(process_group)  # every sidecar on disk before the merge
+        if coordinator:
+            _commit()
+        _barrier(process_group)  # nobody returns before the final dir
         return
     # the host copies happened above; only the serialization and file IO
     # run in the background.  A failed write is never committed (torn
@@ -298,14 +344,13 @@ def save_state_dict(state_dict, path, async_save=False, on_phase=None):
     _async_threads.extend((th, fin))
 
 
-def _merge_metadata(path):
+def _merge_metadata(path, world):
     """Merge the current world's rank sidecars into the global metadata.json,
     deduplicating replicated extents across ranks (keep the lowest-rank copy).
     Only ranks [0, world) are merged, and stale rank files from a previous
     larger-world save into the same directory are removed so a subsequent
     load cannot mix checkpoints."""
     import glob as _glob
-    world = 1
     merged = {"version": 2, "tensors": {}}
     files = []
     for fn in _glob.glob(os.path.join(path, "rank*.meta.json")):

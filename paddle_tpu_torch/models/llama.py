@@ -26,7 +26,8 @@ from ..serving.quant import dequantize_kv, kv_spec, quantize_kv
 from ..tensor.search import _top_p_mask
 
 __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
-           "init_llama_params", "build_functional_llama",
+           "init_llama_params", "llama_block_specs",
+           "shard_llama_block_params", "build_functional_llama",
            "build_llama_paged_decode", "make_paged_decode_horizon",
            "gather_kv_pages", "scatter_kv_pages"]
 
@@ -110,6 +111,49 @@ def _apply_rope(x, sin, cos):
     return x * cos[None, :, None, :] + rot * sin[None, :, None, :]
 
 
+def llama_block_specs(mp_axis: str = "mp", moe: bool = False,
+                      ep_axis: str = None):
+    """Per-leaf sharding of the block weights (the entries after the
+    leading layer axis) for Megatron tensor parallelism over ``mp_axis``, as
+    JAX's function gives them: ``wq wk wv wgate wup`` column-parallel
+    (output axis split), ``wo wdown`` row-parallel (input axis split),
+    ``ln1 ln2`` replicated.  The MoE leaves are the next slice's."""
+    if moe or ep_axis is not None:
+        raise NotImplementedError(
+            "llama_block_specs: MoE blocks and expert parallelism are the "
+            "next slice (ROADMAP A item 5)")
+    col = (None, mp_axis)
+    row = (mp_axis, None)
+    return {"ln1": (None,), "wq": col, "wk": col, "wv": col, "wo": row,
+            "ln2": (None,), "wgate": col, "wup": col, "wdown": row}
+
+
+def shard_llama_block_params(bp, rank: int, size: int,
+                             specs: dict = None):
+    """Rank ``rank``'s shards, of ``size``, of the stacked block weights
+    ``bp`` per ``specs`` (:func:`llama_block_specs`): the column-parallel
+    leaves cut on their last axis, the row-parallel ones on the first
+    after the layer axis; the cut leaves are contiguous copies marked
+    ``is_distributed``, the replicated ones pass as they are."""
+    specs = llama_block_specs() if specs is None else specs
+    out = {}
+    for k, v in bp.items():
+        entries = specs.get(k, ())
+        axes = [i for i, e in enumerate(entries) if e is not None]
+        if not axes or size == 1:
+            out[k] = v
+            continue
+        dim = 1 + axes[0]
+        if v.shape[dim] % size:
+            raise ValueError(f"{k}: axis {dim} of {tuple(v.shape)} does not "
+                             f"split over {size} ranks")
+        w = v.shape[dim] // size
+        t = v.detach().narrow(dim, rank * w, w).contiguous()
+        t.is_distributed = True
+        out[k] = t
+    return out
+
+
 def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
                            mp_axis: str = None, ep_axis: str = None,
                            init_params: bool = True, head_chunks: int = 0,
@@ -135,13 +179,24 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
     plain attention / ``rms_norm_ref`` on the shapes those decline, as the
     JAX dispatch does; ``kernels=False`` runs plain attention and
     ``rms_norm_ref`` under autograd everywhere.  ``device=None`` means the
-    CUDA device and raises without one.  Tensor / expert parallelism
-    (``mp_axis``, ``ep_axis``) and MoE blocks are not ported yet."""
-    if mp_axis is not None or ep_axis is not None \
-            or getattr(config, "num_experts", 1) > 1:
+    CUDA device and raises without one.
+
+    With ``mp_axis`` the blocks are tensor-parallel over that axis of the
+    default mesh (``distributed.topology``; this rank alone without one):
+    the returned block parameters are this rank's shards
+    (:func:`shard_llama_block_params` of the seed's full weights, so every
+    mp size makes one model), head counts come from the local shapes, and
+    each block issues the Megatron collectives — ``copy_to_group`` before
+    the column-parallel products (its backward all-reduces the input's
+    gradient, so the replicated norm weights get whole gradients) and
+    ``reduce_from_group`` after ``wo`` and ``wdown`` (JAX's
+    ``_mp_reduce``).  The embedding and the head stay replicated, as in
+    JAX.  Requires heads and KV heads divisible by the mp size.  Expert
+    parallelism (``ep_axis``) and MoE blocks are the next slice."""
+    if ep_axis is not None or getattr(config, "num_experts", 1) > 1:
         raise NotImplementedError(
-            "build_functional_llama: tensor/expert parallelism and MoE "
-            "blocks are not ported yet")
+            "build_functional_llama: expert parallelism and MoE blocks are "
+            "the next slice (ROADMAP A item 5)")
     from ..incubate.nn.functional import fused_linear_cross_entropy_impl
     from ..ops.flash_attention import flash_attention
     from ..ops.fused import rms_norm
@@ -151,8 +206,20 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
     dev = resolve_device(device)
     head_dim = c.hidden_size // c.num_attention_heads
     eps = c.rms_norm_eps
+    mp_group = None
+    if mp_axis is not None:
+        from ..distributed.topology import axis_group
+        mp_group = axis_group(mp_axis)
+        if c.num_attention_heads % mp_group.nranks \
+                or c.num_key_value_heads % mp_group.nranks:
+            raise ValueError(f"heads {c.num_attention_heads} / KV heads "
+                             f"{c.num_key_value_heads} do not split over "
+                             f"mp = {mp_group.nranks}")
     if init_params:
         ep, bp, hp = init_llama_params(c, dtype=d, device=dev, seed=seed)
+        if mp_group is not None:
+            bp = shard_llama_block_params(bp, max(mp_group.rank, 0),
+                                          mp_group.nranks)
     else:
         ep = bp = hp = None
     sin_t, cos_t = _rope_tables(c.max_position_embeddings, head_dim,
@@ -171,11 +238,25 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
         mbs = x.shape[0] // n_micro
         return x.reshape((n_micro, mbs) + tuple(x.shape[1:]))
 
+    if mp_group is not None:
+        from ..distributed.communication.differentiable import (
+            copy_to_group, reduce_from_group)
+
+        def mp_in(h):
+            return copy_to_group(h, mp_group)
+
+        def mp_out(y):
+            return reduce_from_group(y, mp_group)
+    else:
+        def mp_in(h):
+            return h
+        mp_out = mp_in
+
     def block_apply(lp, x):
         B, S, _ = x.shape
         nh = lp["wq"].shape[-1] // head_dim
         nkv = lp["wk"].shape[-1] // head_dim
-        h = rms(x, lp["ln1"])
+        h = mp_in(rms(x, lp["ln1"]))
         q = (h @ lp["wq"]).reshape(B, S, nh, head_dim)
         k = (h @ lp["wk"]).reshape(B, S, nkv, head_dim)
         v = (h @ lp["wv"]).reshape(B, S, nkv, head_dim)
@@ -196,10 +277,10 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
             logits = logits.float().masked_fill(~mask, float("-inf"))
             w = torch.softmax(logits, dim=-1).to(x.dtype)
             o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        x = x + o.reshape(B, S, nh * head_dim) @ lp["wo"]
-        h = rms(x, lp["ln2"])
+        x = x + mp_out(o.reshape(B, S, nh * head_dim) @ lp["wo"])
+        h = mp_in(rms(x, lp["ln2"]))
         ff = F.silu(h @ lp["wgate"]) * (h @ lp["wup"])
-        return x + ff @ lp["wdown"]
+        return x + mp_out(ff @ lp["wdown"])
 
     def head_loss_apply(p, y, batch):
         # y: [n_micro, mbs, S, H]

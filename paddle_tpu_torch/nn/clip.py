@@ -69,6 +69,10 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.last_scale = None
 
+    def scale_for(self, global_norm):
+        """The factor every clipped gradient is multiplied by."""
+        return self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
+
     def _global_norm_sq(self, params_grads):
         total = None
         for p, g in params_grads:
@@ -82,8 +86,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         total = self._global_norm_sq(params_grads)
         if total is None:
             return list(params_grads)
-        global_norm = torch.sqrt(total)
-        scale = self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
+        scale = self.scale_for(torch.sqrt(total))
         self.last_scale = scale
         out = []
         for p, g in params_grads:

@@ -28,6 +28,9 @@ the LR schedule and ``global_step`` stay bit-identical.
 ``train.nonfinite`` fault point (``resilience/faults.py``) poisons a step's
 loss and gradients with NaN on demand.
 
+``in_shardings`` is accepted and ignored, as JAX's ``TrainStep`` ignores
+it (the sharded step is ``parallel.ShardedTrainStep``).
+
 The step runs on ``device`` (``None``: the CUDA device, raising without
 one), where the model's parameters must be; batches (tensors or numpy
 arrays) are moved there.  The optimizer's learning rate is read each call
@@ -70,10 +73,6 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(with_amp=True): amp.auto_cast is not ported "
                 "(ROADMAP A item 7)")
-        if in_shardings is not None:
-            raise NotImplementedError(
-                "TrainStep(in_shardings=...): sharded steps are ROADMAP A "
-                "item 5")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if nonfinite_guard is not None and nonfinite_guard < 1:

@@ -94,7 +94,8 @@ def _jax_loss_and_grads(variant):
                             labels=Tensor(jnp.asarray(labels)), **kw)
         return loss._value.astype(jnp.float32)
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    # jitted: eager JAX compiles every op of the forward and backward alone
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return float(loss), {k: np.asarray(v) for k, v in grads.items()}
 
 
@@ -359,7 +360,7 @@ def test_sequence_classification_matches_jax(dropout):
         loss = JF.cross_entropy(logits, Tensor(jnp.asarray(labels)))
         return loss._value.astype(jnp.float32)
 
-    jloss, jgrads = jax.value_and_grad(loss_fn)(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
     logits = tmodel(torch.from_numpy(ids))
     tloss = torch.nn.functional.cross_entropy(logits.float(),
                                               torch.from_numpy(labels).long())

@@ -330,3 +330,67 @@ def test_train_loop_entry_points_without_device_need_a_card(monkeypatch):
     step = TrainStep(net, Adam(0.1), loss, device="cpu")
     assert step(np.ones((4, 3), np.float32)).device == torch.device("cpu")
     assert Model(net, device="cpu").device == torch.device("cpu")
+
+
+def test_the_scan_covers_the_distributed_modules():
+    """Distributed training: the environment, groups, collectives, the
+    watchdog and the differentiated collectives, the mesh, the launcher,
+    DataParallel, fleet and its tensor-parallel layers, eager ZeRO, the
+    ZeRO step and the checkpoint at world N."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("distributed/__init__.py", "distributed/env.py",
+                "distributed/utils.py", "distributed/topology.py",
+                "distributed/parallel.py",
+                "distributed/communication/__init__.py",
+                "distributed/communication/group.py",
+                "distributed/communication/collectives.py",
+                "distributed/communication/watchdog.py",
+                "distributed/communication/differentiable.py",
+                "distributed/communication/stream.py",
+                "distributed/launch/main.py", "distributed/launch/__main__.py",
+                "distributed/fleet/__init__.py",
+                "distributed/fleet/fleet_api.py",
+                "distributed/fleet/hybrid_optimizer.py",
+                "distributed/fleet/base/distributed_strategy.py",
+                "distributed/fleet/utils/hybrid_parallel_util.py",
+                "distributed/fleet/meta_parallel/__init__.py",
+                "distributed/fleet/meta_parallel/mp_layers.py",
+                "distributed/sharding/__init__.py",
+                "distributed/checkpoint/save_state_dict.py",
+                "distributed/checkpoint/load_state_dict.py",
+                "parallel/sharded.py", "models/llama.py"):
+        assert f"paddle_tpu_torch/{mod}" in names, mod
+
+
+def test_distributed_entry_points_without_device_need_a_card(monkeypatch):
+    """``init_parallel_env`` and ``ShardedTrainStep`` resolve device=None to
+    the card, and NCCL's backend is refused for the CPU; ``build_mesh``
+    needs the environment first.  With ``device="cpu"`` a world of one
+    rank runs them on gloo."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"w": torch.ones(4, 2)}
+    loss = lambda p, batch: (batch[0] @ p["w"]).sum()  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist.init_parallel_env()
+    with pytest.raises(ValueError, match="gloo"):
+        dist.init_parallel_env(device="cpu", backend="nccl")
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
+        topology.build_mesh({"dp": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedTrainStep(None, loss, params, AdamW(0.1))
+    try:
+        assert dist.init_parallel_env(device="cpu") == torch.device("cpu")
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        mesh = topology.build_mesh({"dp": 1, "mp": 1})
+        assert mesh.mesh_dim_names == ("dp", "mp")
+        step = ShardedTrainStep(mesh, loss, params, AdamW(0.1), stage=3,
+                                device="cpu")
+        assert step(np.ones((2, 4), np.float32)).device \
+            == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()

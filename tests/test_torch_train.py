@@ -78,7 +78,9 @@ def _jax_loss_and_grads(kv_heads, seed, head_chunks):
             x = ba(jax.tree_util.tree_map(lambda v: v[i], bp), x)
         return hl(hp, x[None], batch)
 
-    loss, grads = jax.value_and_grad(loss_fn, argnums=(0, 1, 2))(ep, bp, hp)
+    # jitted: eager JAX compiles every op of the forward and backward alone
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1, 2)))(
+        ep, bp, hp)
     to_np = lambda t: {k: np.asarray(v) for k, v in t.items()}
     return (float(loss), [to_np(t) for t in (ep, bp, hp)],
             [to_np(g) for g in grads])
@@ -266,8 +268,15 @@ def test_three_steps_lower_the_loss():
 
 
 def test_not_ported_options_raise():
+    """Expert parallelism and MoE blocks raise, naming the next slice;
+    ``mp_axis`` is ported (without a mesh its group is this process
+    alone, and the blocks are whole)."""
     _, tcfg = _configs(4)
-    with pytest.raises(NotImplementedError):
-        tbuild(tcfg, device="cpu", mp_axis="mp")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="next slice"):
         tbuild(dataclasses.replace(tcfg), device="cpu", ep_axis="ep")
+    moe = dataclasses.replace(tcfg)
+    moe.num_experts = 2
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tbuild(moe, device="cpu")
+    _, bp, *_ = tbuild(tcfg, device="cpu", mp_axis="mp")
+    assert bp["wq"].shape[-1] == tcfg.hidden_size

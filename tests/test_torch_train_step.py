@@ -128,7 +128,7 @@ def test_train_step_matches_jax(grad_accum):
 
 def test_train_step_keeps_grad_buffers_and_checks_device(monkeypatch):
     """No ``.grad`` is written; the model must be on the step's device;
-    unported options raise naming their ROADMAP item."""
+    an unported option raises naming its ROADMAP item."""
     tnet = port_net()
     tts = TrainStep(tnet, Adam(0.01), port_ce, grad_accum=2, device="cpu")
     tts(*batch(0))
@@ -137,11 +137,38 @@ def test_train_step_keeps_grad_buffers_and_checks_device(monkeypatch):
         tts(*batch(1, n=7))
     with pytest.raises(NotImplementedError, match="item 7"):
         TrainStep(tnet, Adam(0.01), port_ce, with_amp=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TrainStep(tnet, Adam(0.01), port_ce, in_shardings=(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="is on cpu"):
         TrainStep(tnet, Adam(0.01), port_ce)
+
+
+def test_in_shardings_is_accepted_and_ignored_like_jax():
+    """``in_shardings`` changes nothing on either side: one seeded step
+    with it equals the step without it, bit for bit, in JAX and in the
+    port, and the two packages agree within 1e-5."""
+    x, y = batch(0)
+    losses, params = {}, {}
+    for given in (None, ()):
+        jnet = jax_net()
+        tnet = port_net(like=jnet)
+        jts = jcompile(jnet, joptim.Adam(learning_rate=0.01, parameters=[]),
+                       jax_ce, in_shardings=given)
+        tts = TrainStep(tnet, Adam(0.01), port_ce, in_shardings=given,
+                        device="cpu")
+        losses[given] = (float(jts(x, y).numpy()), float(tts(x, y)))
+        jts.sync_to_model()
+        params[given] = (
+            {k: np.asarray(v.numpy()) for k, v in jnet.state_dict().items()},
+            {k: v.numpy().copy() for k, v in tnet.state_dict().items()})
+    assert losses[()] == losses[None]
+    for side in (0, 1):
+        for k, v in params[None][side].items():
+            np.testing.assert_array_equal(params[()][side][k], v, err_msg=k)
+    a, b = losses[None]
+    assert abs(a - b) <= 1e-5 * max(1.0, abs(a))
+    for k, v in params[None][0].items():
+        np.testing.assert_allclose(params[None][1][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
 
 
 # ---------------------------------------------------------------------------

@@ -220,7 +220,9 @@ def _jax_loss_and_grads():
         return jnp.mean((pred._value.astype(jnp.float32)
                          - jnp.asarray(noise)) ** 2)
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    # jitted: eager JAX compiles every op of the forward and backward on
+    # its own (a minute and a half on the CPU, against seconds traced once)
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return float(loss), {k: np.asarray(v) for k, v in grads.items()}
 
 

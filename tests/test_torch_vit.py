@@ -102,7 +102,8 @@ def _jax_loss_and_grads(kind):
         return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(y)[:, None],
                                              -1))
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    # jitted: eager JAX compiles every op of the forward and backward alone
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return float(loss), {k: np.asarray(v) for k, v in grads.items()}
 
 
@@ -270,7 +271,7 @@ def test_qkv_without_bias_matches_jax():
         return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(y)[:, None],
                                              -1))
 
-    jloss, jgrads = jax.value_and_grad(loss_fn)(jparams)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jparams)
     tloss, tgrads = _port_loss_and_grads(model, "short")
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_RTOL)
     assert tgrads.keys() == jgrads.keys()
