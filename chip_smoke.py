@@ -324,6 +324,16 @@ weights made from a seed:
                launches equal to 3c's; and one gang through ``python -m
                paddle_tpu_torch.distributed.launch --nproc_per_node=1``
                (NCCL, an all-reduce and a DataParallel step on the card);
+               (w) pipeline parallelism at world 1 over NCCL on a
+               ``{"pp": 1}`` mesh, 3c's 271M LLaMA at B 8 x S 2048 in 4
+               microbatches, fused AdamW: ``Pipeline1F1BTrainStep`` under
+               1F1B, with 2 chunks (two virtual stages on the one rank,
+               their hop a handoff) and under zero bubble, and the GPipe
+               ``PipelineTrainStep`` — ms a step against 3c's, peak
+               memory, ``max_in_flight``, rows 3/5/6/7/8/9 launches a step
+               asserted from the schedule, the collectives a step (no
+               send or receive at pp 1), one step under torch.profiler
+               (device busy by group); 1F1B's peak below GPipe's;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -356,7 +366,18 @@ weights made from a seed:
                stages 0-3 against TrainStep (losses within 1e-5, every
                parameter within 1e-5 of its max |param| after 3 steps),
                and the 2-layer f32 LLaMA's mp path against its dense path
-               within TRAIN_TOL;
+               within TRAIN_TOL; (j) at world 1 over NCCL, every schedule
+               of 3w on the 2-layer f32 LLaMA at full width (B 8 x S 2048,
+               3 steps on 3 batches) against ``make_train_step``'s dense
+               step: losses within 1e-5 relative, every parameter within
+               TRAIN_TOL but those whose dense gradient came within 100
+               AdamW eps of 0 (not at 0) at some step, held within the 2 lr
+               a step AdamW can move them (the size of such a step turns on
+               the gradient's rounding); ``PipelineParallel.train_batch``
+               (pp 1: the micro-batch accumulation) and
+               ``GenericPipeline1F1BTrainStep``
+               on a ``PipelineLayer`` of four ``Linear``s against the same
+               model's eager steps;
   5. timing    each kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
@@ -7802,7 +7823,7 @@ def phase_distributed(pa, ernie, train, card):
     return out
 
 
-def phase_distributed_check(pa, B=16, S=512):
+def phase_distributed_check(pa, B=16, S=512, finish=True):
     """Phase 4i: at world 1 over NCCL, a 2-layer f32 ERNIE at full width
     (dropout 0) through ShardedTrainStep at stages 0-3 against TrainStep
     from the same seed and batches (3 steps, fused AdamW lr 1e-4): each
@@ -7865,6 +7886,373 @@ def phase_distributed_check(pa, B=16, S=512):
     print(f"  2-layer f32 LLaMA at full width, B=8 S=2048: mp path loss "
           f"{l1.item():.7f}, dense {l0.item():.7f}; every gradient and "
           f"updated parameter within TRAIN_TOL")
+    if finish:
+        dist.destroy_process_group()
+
+
+# -- phases 3w / 4j: pipeline parallelism -------------------------------------
+PIPE_STEPS = (2, 5)          # warm-up and timed steps of 3w
+PIPE_MICRO = 4               # microbatches of 3w and 4j
+PIPE_KINDS = ("1f1b", "vpp", "zero_bubble", "gpipe")
+PIPE_GROUPS = TRAIN_GROUPS + (("adamw", ("adamw_kernel",)),)
+PIPE_LABELS = {"1f1b": "Pipeline1F1BTrainStep, 1F1B",
+               "vpp": "Pipeline1F1BTrainStep, n_chunks=2",
+               "zero_bubble": "Pipeline1F1BTrainStep, zero bubble",
+               "gpipe": "PipelineTrainStep (GPipe)"}
+
+
+def pipeline_step(cfg, dtype, kind, seed=0, fused=True, M=PIPE_MICRO):
+    """One of 3w's steps on a ``{"pp": 1}`` mesh: the LLaMA of
+    ``init_llama_params(seed)`` (make_train_step's weights) with
+    head_chunks 8 and AdamW(lr 1e-4, wd 0.01, ``fused``), in M
+    microbatches."""
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models.llama import (build_functional_llama,
+                                               init_llama_params,
+                                               llama_microbatch_fns)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import (Pipeline1F1BTrainStep,
+                                           PipelineTrainStep)
+    mesh = topology.build_mesh({"pp": 1})
+    ep, bp, hp = init_llama_params(cfg, dtype=dtype, device="cuda",
+                                   seed=seed)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, fused=fused)
+    if kind == "gpipe":
+        _, _, _, ea, ba, hl = build_functional_llama(
+            cfg, dtype=dtype, n_micro=M, init_params=False, head_chunks=8,
+            device="cuda")
+        return PipelineTrainStep(mesh, ea, ba, hl, ep, bp, hp, opt,
+                                 n_micro=M, device="cuda")
+    ea, ba, hl = llama_microbatch_fns(cfg, dtype=dtype, head_chunks=8,
+                                      device="cuda")
+    kw = {"1f1b": {}, "vpp": dict(n_chunks=2),
+          "zero_bubble": dict(schedule="zero_bubble")}[kind]
+    return Pipeline1F1BTrainStep(mesh, ea, ba, hl, ep, bp, hp, opt,
+                                 n_micro=M, device="cuda", **kw)
+
+
+def pipeline_launches(kind, L, M, leaves):
+    """Rows 3-13's launches a step at pp 1, written from the schedule: each
+    microbatch's forward launches row 3 once a layer and row 7 twice a
+    layer and once for the head's norm, its backward rows 5, 6 and 8 as
+    often (zero bubble's B has nothing to compute on stage 0, so its W is
+    the one backward); GPipe's head runs once over the whole batch; row 9
+    once a parameter tensor."""
+    norms = (2 * L + 1) * M if kind != "gpipe" else 2 * L * M + 1
+    want = {k: 0 for k in train_wrappers()}
+    want.update(fa_fwd=L * M, fa_dkv=L * M, fa_dq=L * M, rms_fwd=norms,
+                rms_bwd=norms, adamw=leaves)
+    return want
+
+
+def phase_pipeline(pa, train, card, B=8, S=2048):
+    """Phase 3w: 3c's 271M LLaMA (bf16, B x S) through every pipeline
+    schedule at world 1 over NCCL on a {"pp": 1} mesh; no plain
+    version."""
+    import paddle_tpu_torch.distributed as dist
+    cfg = train_config()
+    L = cfg.num_hidden_layers
+    warm, steps = PIPE_STEPS
+    batch = train_batch(cfg, B, S)
+    require(dist.get_backend() == "nccl", "3w: the world is not on nccl")
+    out = {}
+    for kind in PIPE_KINDS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = pipeline_step(cfg, torch.bfloat16, kind)
+        leaves = sum(len(t) for t in step.trees)
+        losses = [float(step(batch)) for _ in range(warm)]
+        torch.cuda.synchronize()
+        reset_counts(pa)
+        dist.reset_collective_counts()
+        with CountPlainCalls() as plain:
+            t0 = time.perf_counter()
+            got = [step(batch) for _ in range(steps)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        losses += [float(x) for x in got]
+        per_step = {k: fn.launches / steps
+                    for k, fn in train_wrappers().items()}
+        comm = collectives_per_step(dist, steps)
+        peak = torch.cuda.max_memory_allocated()
+        want = pipeline_launches(kind, L, PIPE_MICRO, leaves)
+        label = f"3w {PIPE_LABELS[kind]}"
+        require(per_step == want, f"{label}: launches per step {per_step} "
+                f"!= {want}")
+        require(not plain.calls, f"{label}: plain versions ran: "
+                f"{plain.calls}")
+        require(counts(pa) == (0, 0, 0), f"{label}: paged attention ran")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"{label}: losses {losses}")
+        require(comm.get("send", 0) == comm.get("recv", 0) == 0,
+                f"{label}: a P2P call at pp 1: {comm}")
+        bound = {"1f1b": 1, "vpp": 3}.get(kind)
+        require(bound is None or step.max_in_flight <= bound,
+                f"{label}: max_in_flight {step.max_in_flight} > {bound}")
+        ms = wall / steps * 1e3
+        print(f"  {label}: {PIPE_MICRO} microbatches of {B // PIPE_MICRO} x "
+              f"{S}, bf16, fused AdamW; loss per step ({warm} warm-up + "
+              f"{steps} timed): " + " ".join(f"{x:.4f}" for x in losses))
+        print(f"    {ms:.1f} ms per step, {B * S / (ms / 1e3):.1f} tokens/s "
+              f"(3c's step {train['step_ms']:.1f} ms: "
+              f"{ms / train['step_ms']:.3f}x); peak {peak / 2**30:.2f} GiB; "
+              f"max_in_flight {step.max_in_flight}; collectives per step "
+              f"{json.dumps(comm)}")
+        print(f"    launches per step {json.dumps(per_step)} (= the "
+              f"schedule's)")
+        rows, _, busy = profile_rows(lambda: step(batch))
+        groups, named = group_rows(rows, PIPE_GROUPS)
+        kernels = sum(k for _, _, k in rows)
+        print("  ", end="")
+        busy_line(busy, ms / 1e3, groups, kernels)
+        print("    largest 'other' kernels: " + largest(named, "other", 4))
+        out[kind] = dict(step_ms=ms, peak_gib=peak / 2**30, losses=losses,
+                         per_step=per_step, comm=comm, busy_ms=busy,
+                         kernels=kernels, in_flight=step.max_in_flight)
+        del step, got
+    torch.cuda.empty_cache()
+    require(out["1f1b"]["peak_gib"] < out["gpipe"]["peak_gib"],
+            f"3w: 1F1B's peak {out['1f1b']['peak_gib']:.2f} GiB is not below "
+            f"GPipe's {out['gpipe']['peak_gib']:.2f} GiB")
+    print(f"  1F1B's peak {out['1f1b']['peak_gib']:.2f} GiB < GPipe's "
+          f"{out['gpipe']['peak_gib']:.2f} GiB on {card}")
+    return out
+
+
+# AdamW steps by m / (sqrt(v) + eps): where its bias-corrected sqrt(v) is
+# nonzero but within a few eps of 0 the step's size turns on the gradient's
+# rounding, which micro-batching changes (on an H100, 4j's ep.tok once ended
+# 1.32e-5 off after 3 steps at lr 1e-4 with the losses bit-equal), so such an
+# element is held to what the steps can move it, 2 lr a step, and every
+# other to TRAIN_TOL; at most ILL_SHARE of a model's elements may be so
+# held (4j's 2-layer LLaMA: 406,914 of 91.2M on an H100), and every
+# gradient is held to TRAIN_TOL all the same
+ADAM_ILL = 10 * 1e-8
+ILL_SHARE = 1e-2
+
+
+def within(got, want, tol, ill, reach):
+    """Parameters after AdamW steps against the reference's: (every
+    element within TRAIN_TOL-style ``tol`` — those of the mask ``ill``
+    within ``reach`` —, the largest gap elsewhere, the largest on
+    ``ill``)."""
+    atol, rtol, _ = tol
+    gap = (got.float() - want.float()).abs()
+    bound = torch.where(ill, torch.full_like(gap, reach),
+                        atol + rtol * want.float().abs())
+    ok = bool((gap <= bound).all())
+    return (ok, torch.where(ill, 0.0, gap).max().item(),
+            torch.where(ill, gap, 0.0).max().item())
+
+
+def ill_mask(grads, beta2=0.999):
+    """Where AdamW's bias-corrected sqrt(v) after any of ``grads`` (one
+    step's gradient each, in order) is nonzero but below ``ADAM_ILL``."""
+    v = torch.zeros_like(grads[0], dtype=torch.float32)
+    ill = torch.zeros_like(v, dtype=torch.bool)
+    for k, g in enumerate(grads, 1):
+        v = beta2 * v + (1 - beta2) * g.float() ** 2
+        vh = v / (1 - beta2 ** k)
+        ill |= (vh > 0) & (vh < ADAM_ILL ** 2)
+    return ill
+
+
+def grad_gap(got, want, tol):
+    """One step's gradients (dicts by name) against the reference's, each
+    element within TRAIN_TOL-style ``tol``: (ok, the largest gap over the
+    bound's atol + rtol |ref|, its name)."""
+    atol, rtol, _ = tol
+    ok, worst, name = True, 0.0, ""
+    for k, w in want.items():
+        gap = (got[k].float() - w.float()).abs()
+        over = (gap / (atol + rtol * w.float().abs())).max().item()
+        ok = ok and over <= 1.0
+        if over > worst:
+            worst, name = over, k
+    return ok, worst, name
+
+
+def linear_pipeline_check(tol):
+    """4j's ``PipelineLayer`` of four ``Linear(1024, 1024)``s (f32, MSE,
+    AdamW lr 1e-4) through ``PipelineParallel.train_batch`` (pp 1: 2
+    microbatches accumulated) and ``GenericPipeline1F1BTrainStep`` (4
+    microbatches) against the same model's eager steps on the whole
+    batch, 3 steps each: every step's gradients and the parameters after
+    within TRAIN_TOL (``ill_mask``'s elements within 2 lr a step)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer, PipelineParallel)
+    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import GenericPipeline1F1BTrainStep
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(64, 1024, device="cuda", generator=gen)
+    y = torch.randn(64, 1024, device="cuda", generator=gen)
+
+    def model():
+        g = torch.Generator(device="cuda").manual_seed(6)
+        return PipelineLayer(
+            [LayerDesc(Linear, 1024, 1024, dtype=torch.float32,
+                       device="cuda", generator=g) for _ in range(4)],
+            num_stages=1, loss_fn=lambda o, t: ((o - t) ** 2).mean())
+    runs = {}
+    for how in ("eager", "train_batch", "generic"):
+        pl = model()
+        opt = AdamW(learning_rate=1e-4, parameters=pl.parameters())
+        grads = []
+        if how == "generic":
+            step = GenericPipeline1F1BTrainStep(
+                None, pl, opt, n_micro=4, example_input=x, device="cuda")
+            losses = []
+            for _ in range(3):
+                losses.append(float(step((x, y))))
+                grads.append({k: g.clone() for k, g in step._grads.items()})
+        else:
+            update = opt.step
+
+            def keep_and_step():
+                grads.append({k: p.grad.clone()
+                              for k, p in pl.named_parameters()})
+                update()
+            opt.step = keep_and_step
+            if how == "train_batch":
+                strategy = fleet.DistributedStrategy()
+                strategy.hybrid_configs = {"pp_configs": {
+                    "micro_batch_size": 32, "accumulate_steps": 2}}
+                pp = PipelineParallel(pl, None, strategy)
+                losses = [float(pp.train_batch((x, y), opt))
+                          for _ in range(3)]
+                require(pp._step is None, "4j: PipelineParallel at pp 1 "
+                        "built a pipeline step")
+            else:
+                losses = []
+                for _ in range(3):
+                    loss = pl.loss_fn(pl(x), y)
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                    losses.append(float(loss.detach()))
+        runs[how] = (losses, grads, {k: p.detach().clone()
+                                     for k, p in pl.named_parameters()})
+    ref_l, ref_g, ref_p = runs["eager"]
+    ill = {k: ill_mask([g[k] for g in ref_g]) for k in ref_p}
+    n_ill = sum(int(m.sum()) for m in ill.values())
+    n_all = sum(p.numel() for p in ref_p.values())
+    require(n_ill <= ILL_SHARE * n_all, f"4j: {n_ill} of {n_all} elements "
+            f"have an ill AdamW denominator")
+    for how in ("train_batch", "generic"):
+        losses, grads, params = runs[how]
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_l))
+        g_ok, g_over = True, 0.0
+        for got, want in zip(grads, ref_g):
+            o, over, _ = grad_gap(got, want, tol)
+            g_ok, g_over = g_ok and o, max(g_over, over)
+        ok, gap, ill_gap = True, 0.0, 0.0
+        for k, p in params.items():
+            o, g, gi = within(p, ref_p[k], tol, ill[k], 2 * 1e-4 * 3)
+            ok, gap, ill_gap = ok and o, max(gap, g), max(ill_gap, gi)
+        require(l_err <= 1e-5 and g_ok and ok and len(grads) == 3,
+                f"4j {how}: loss gap {l_err:.3e}, gradients at "
+                f"{g_over:.3f} of TRAIN_TOL, parameter gap {gap:.3e} "
+                f"(ill denominators: {ill_gap:.3e})")
+        print(f"  PipelineLayer of 4 Linear(1024, 1024), B 64, f32: {how} "
+              f"loss gap {l_err:.2e}, every step's gradients within "
+              f"{g_over:.3f} of TRAIN_TOL, largest parameter gap {gap:.2e} "
+              f"(TRAIN_TOL), {ill_gap:.2e} on the {n_ill} of {n_all} "
+              f"elements with an ill AdamW denominator, against the eager "
+              f"steps")
+
+
+def phase_pipeline_check(pa, B=8, S=2048):
+    """Phase 4j: at world 1 over NCCL, each schedule of 3w on the 2-layer
+    f32 LLaMA at full width (3 steps on 3 batches, AdamW lr 1e-4 unfused
+    as ``make_train_step``'s) against ``make_train_step``'s dense step from
+    the same seed: each loss within 1e-5 relative, each step's combined
+    gradients within TRAIN_TOL, the parameters after within TRAIN_TOL of
+    the dense step's (``ill_mask``'s elements, at most ILL_SHARE of them,
+    within 2 lr a step) and of AdamW replayed on the schedule's own
+    gradients from the same start (every element); then the
+    ``PipelineLayer`` checks."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.models.llama import init_llama_params
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import _flatten
+    cfg = train_config(layers=2)
+    batches = [train_batch(cfg, B, S, seed=s) for s in (1, 2, 3)]
+    tol = TRAIN_TOL[torch.float32]
+    step, trees, _ = make_train_step(cfg, torch.float32, True, seed=2)
+    names = [f"{t}.{k}" for t, tree in zip(("ep", "bp", "hp"), trees)
+             for k in tree]
+    ref_l, ref_g = [], []
+    for b in batches:
+        loss, grads = step(b)
+        ref_l.append(float(loss))
+        ref_g.append({k: g.detach().clone() for k, g in zip(names, grads)})
+    ill = {k: ill_mask([g[k] for g in ref_g]) for k in names}
+    n_ill = sum(int(m.sum()) for m in ill.values())
+    n_all = sum(m.numel() for m in ill.values())
+    require(n_ill <= ILL_SHARE * n_all, f"4j: {n_ill} of {n_all} elements "
+            f"have an ill AdamW denominator")
+    ref_p = {f"{t}.{k}": v.detach().clone()
+             for t, tree in zip(("ep", "bp", "hp"), trees)
+             for k, v in tree.items()}
+    del step, trees
+    torch.cuda.empty_cache()
+    lines = []
+    for kind in PIPE_KINDS:
+        step = pipeline_step(cfg, torch.float32, kind, seed=2, fused=False)
+        replay = init_llama_params(cfg, dtype=torch.float32, device="cuda",
+                                   seed=2)
+        r_opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+        r_states = [r_opt.init_opt_state(_flatten(t), device="cuda")
+                    for t in replay]
+        losses, g_ok, g_over, g_worst = [], True, 0.0, ""
+        for b, want in zip(batches, ref_g):
+            losses.append(float(step(b)))
+            got = {f"{t}.{k}": g for t, tree in zip(("ep", "bp", "hp"),
+                                                    step._grads)
+                   for k, g in tree.items()}
+            o, over, name = grad_gap(got, want, tol)
+            g_ok = g_ok and o
+            if over > g_over:
+                g_over, g_worst = over, name
+            for t, g, st in zip(replay, step._grads, r_states):
+                r_opt.apply_gradients_functional(_flatten(t), _flatten(g), st)
+        got = {f"{t}.{k}": v for t, tree in zip(
+            ("ep", "bp", "hp"), step.materialized_params())
+            for k, v in tree.items()}
+        r_ok, r_over, _ = grad_gap(got, {
+            f"{t}.{k}": v for t, tree in zip(("ep", "bp", "hp"), replay)
+            for k, v in tree.items()}, tol)
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_l))
+        ok, gap, worst, ill_gap = True, 0.0, "", 0.0
+        for k, want in ref_p.items():
+            o, g, gi = within(got[k], want, tol, ill[k], 2 * 1e-4 * 3)
+            if g > gap:
+                gap, worst = g, k
+            ok, ill_gap = ok and o, max(ill_gap, gi)
+        require(l_err <= 1e-5 and g_ok and ok and r_ok,
+                f"4j {PIPE_LABELS[kind]}: loss gap {l_err:.3e}, gradients "
+                f"at {g_over:.3f} of TRAIN_TOL ({g_worst}), parameter gap "
+                f"{gap:.3e} ({worst}), ill denominators {ill_gap:.3e}, "
+                f"against the dense step; parameters at {r_over:.3f} of "
+                f"TRAIN_TOL against AdamW on its own gradients")
+        lines.append(f"{kind}: loss gap {l_err:.2e}, gradients within "
+                     f"{g_over:.3f} of TRAIN_TOL ({g_worst}), largest "
+                     f"parameter gap {gap:.2e} ({worst}), {ill_gap:.2e} "
+                     f"where the denominator was ill, {r_over:.3f} of "
+                     f"TRAIN_TOL from AdamW on its own gradients")
+        del step, got, replay, r_states
+        torch.cuda.empty_cache()
+    print(f"  2-layer f32 LLaMA at full width, B={B} S={S}, 3 steps in "
+          f"{PIPE_MICRO} microbatches; dense losses "
+          + " ".join(f"{x:.7f}" for x in ref_l) + "; " + "; ".join(lines)
+          + f" (every step's gradients within TRAIN_TOL; the parameters "
+          f"after within TRAIN_TOL of the dense step's, but the {n_ill} of "
+          f"{n_all} whose AdamW sqrt(v) came within {ADAM_ILL:g} of 0, not "
+          f"at 0, within 2 lr a step, and every one within TRAIN_TOL of "
+          f"AdamW replayed on the schedule's own gradients)")
+    linear_pipeline_check(tol)
     dist.destroy_process_group()
 
 
@@ -8072,8 +8460,18 @@ def main():
     say("phase 4i: ShardedTrainStep stages 0-3 against TrainStep (2-layer "
         "f32 ERNIE) and the LLaMA mp path against its dense path, at world "
         "1 over NCCL")
-    phase_distributed_check(pa)
+    phase_distributed_check(pa, finish=False)
     dist_s = time.perf_counter() - t_dist
+    t_pipe = time.perf_counter()
+    say("phase 3w: pipeline parallelism at world 1 over NCCL (the 271M "
+        "LLaMA in 4 microbatches through 1F1B, 1F1B with 2 chunks, zero "
+        "bubble and GPipe on a {'pp': 1} mesh)")
+    pipe = phase_pipeline(pa, train, card)
+    say("phase 4j: every pipeline schedule against the dense step (2-layer "
+        "f32 LLaMA), PipelineParallel and the generic step against eager "
+        "steps, at world 1 over NCCL")
+    phase_pipeline_check(pa)
+    pipe_s = time.perf_counter() - t_pipe
     torch.cuda.empty_cache()
 
     say("phase 4: engine checks, kernels vs plain version")
@@ -8224,6 +8622,14 @@ def main():
           f"ms per step against 3c's {train['step_ms']:.1f} ms; launcher "
           f"gang {dist_run['gang']['wall_s']:.1f} s on {card}")
     print(f"  phases 3t and 4i took {dist_s:.1f} s")
+    print("  pipeline (3w, world 1, nccl, pp 1, 4 microbatches): "
+          + "; ".join(f"{PIPE_LABELS[k]} {p['step_ms']:.1f} ms per step, "
+                      f"peak {p['peak_gib']:.2f} GiB, max_in_flight "
+                      f"{p['in_flight']}" for k, p in pipe.items())
+          + f" against 3c's {train['step_ms']:.1f} ms on {card}; device "
+          "busy " + ", ".join(f"{k} {p['busy_ms'] / p['step_ms']:.1%}"
+                              for k, p in pipe.items()))
+    print(f"  phases 3w and 4j took {pipe_s:.1f} s")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")

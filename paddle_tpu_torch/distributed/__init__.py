@@ -7,10 +7,12 @@ and the collectives, counted by kind; the rank mesh (``topology``:
 groups, the tensor-parallel layers, the hybrid optimizer, the elastic
 membership manager); ``sharding`` (eager ZeRO); and the crash-consistent
 checkpoint at any world size (``checkpoint``).  The compiled-step
-counterparts are ``paddle_tpu_torch.parallel.ShardedTrainStep`` and the
-tensor-parallel ``models.llama.build_functional_llama(mp_axis=...)``.
-Pipeline parallelism, ``auto_parallel`` and the quantized collectives are
-not ported yet."""
+counterparts are ``paddle_tpu_torch.parallel.ShardedTrainStep``, the
+tensor-parallel ``models.llama.build_functional_llama(mp_axis=...)`` and
+the pipeline steps (``parallel.PipelineTrainStep``,
+``Pipeline1F1BTrainStep``, ``GenericPipeline1F1BTrainStep``; ``fleet``'s
+``PipelineLayer`` / ``PipelineParallel`` / ``recompute``).
+``auto_parallel`` and the quantized collectives are not ported yet."""
 from __future__ import annotations
 
 from .env import init_parallel_env, get_rank, get_world_size, is_initialized

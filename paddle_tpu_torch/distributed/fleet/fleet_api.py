@@ -76,14 +76,15 @@ def barrier_worker():
 
 
 def distributed_model(model):
-    """reference model.py:33: ``TensorParallel`` when mp > 1,
-    ``DataParallel`` over the dp group when dp > 1, else the model."""
+    """reference model.py:33: ``PipelineParallel`` for a ``PipelineLayer``
+    when pp > 1, else ``TensorParallel`` when mp > 1, ``DataParallel`` over
+    the dp group when dp > 1, else the model."""
     hcg = get_hybrid_communicate_group()
     from ..parallel import DataParallel
-    from .meta_parallel import TensorParallel
-    if hcg.get_pipe_parallel_world_size() > 1:
-        raise NotImplementedError(
-            "distributed_model: pipeline parallelism is not ported yet")
+    from .meta_parallel import PipelineLayer, PipelineParallel, TensorParallel
+    if hcg.get_pipe_parallel_world_size() > 1 \
+            and isinstance(model, PipelineLayer):
+        return PipelineParallel(model, hcg, _state["strategy"])
     if hcg.get_model_parallel_world_size() > 1:
         return TensorParallel(model, hcg, _state["strategy"])
     if hcg.get_data_parallel_world_size() > 1:

@@ -1,16 +1,23 @@
 """meta_parallel (port of ``paddle_tpu/distributed/fleet/meta_parallel``;
 reference fleet/meta_parallel/): the tensor-parallel layers and the
-``TensorParallel`` wrapper.  The pipeline layers are not ported yet."""
+``TensorParallel`` wrapper, the pipeline layer description
+(``PipelineLayer``, ``LayerDesc``, ``SharedLayerDesc``, ``SegmentLayers``)
+and the ``PipelineParallel`` runtime."""
 from __future__ import annotations
 
 from torch import nn
 
 from .mp_layers import (VocabParallelEmbedding, ColumnParallelLinear,  # noqa: F401
                         RowParallelLinear, ParallelCrossEntropy)
+from .pp_layers import (PipelineLayer, LayerDesc, SharedLayerDesc,  # noqa: F401
+                        SegmentLayers)
+from .pipeline_parallel import PipelineParallel  # noqa: F401
 from ..utils.hybrid_parallel_util import _broadcast_params
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
-           "RowParallelLinear", "ParallelCrossEntropy", "TensorParallel"]
+           "RowParallelLinear", "ParallelCrossEntropy", "TensorParallel",
+           "PipelineLayer", "LayerDesc", "SharedLayerDesc", "SegmentLayers",
+           "PipelineParallel"]
 
 
 class TensorParallel(nn.Module):

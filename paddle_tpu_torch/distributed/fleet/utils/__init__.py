@@ -1,1 +1,2 @@
 from . import hybrid_parallel_util  # noqa: F401
+from ..recompute import recompute, recompute_sequential  # noqa: F401

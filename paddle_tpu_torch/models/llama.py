@@ -28,6 +28,7 @@ from ..tensor.search import _top_p_mask
 __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
            "init_llama_params", "llama_block_specs",
            "shard_llama_block_params", "build_functional_llama",
+           "llama_microbatch_fns",
            "build_llama_paged_decode", "make_paged_decode_horizon",
            "gather_kv_pages", "scatter_kv_pages"]
 
@@ -295,6 +296,34 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
         return -logp.reshape(-1, c.vocab_size).gather(1, lab[:, None]).mean()
 
     return ep, bp, hp, embed_apply, block_apply, head_loss_apply
+
+
+def llama_microbatch_fns(config: LlamaConfig, mp_axis: str = None,
+                         dtype=None, ep_axis: str = None,
+                         head_chunks: int = 0, device=None,
+                         kernels: bool = True):
+    """The per-microbatch (embed, block, head) functions of the pipeline
+    steps (``parallel.Pipeline1F1BTrainStep``; JAX ``models/llama.py:324``),
+    made by :func:`build_functional_llama` with ``init_params=False`` (no
+    second parameter set): ``embed(ep, mb)`` gives one microbatch's ``[mbs,
+    S, H]``, ``head(hp, y, mb)`` its mean loss on one activation.
+    ``mp_axis``, ``dtype``, ``head_chunks``, ``device`` and ``kernels`` are
+    :func:`build_functional_llama`'s; ``ep_axis`` (expert parallelism)
+    raises."""
+    if ep_axis is not None:
+        raise NotImplementedError(
+            "llama_microbatch_fns: expert parallelism (ep_axis) is ROADMAP "
+            "A item 5d")
+    _, _, _, ea1, ba1, hl1 = build_functional_llama(
+        config, dtype=dtype, n_micro=1, mp_axis=mp_axis, init_params=False,
+        head_chunks=head_chunks, device=device, kernels=kernels)
+
+    def embed_mb(p, mb):
+        return ea1(p, mb)[0]
+
+    def head_mb(p, y, mb):
+        return hl1(p, y[None], mb)
+    return embed_mb, ba1, head_mb
 
 
 def gather_kv_pages(store, idx):
