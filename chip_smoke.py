@@ -334,6 +334,20 @@ weights made from a seed:
                asserted from the schedule, the collectives a step (no
                send or receive at pp 1), one step under torch.profiler
                (device busy by group); 1F1B's peak below GPipe's;
+               (x) tensor-parallel serving at world 1 over NCCL: 3a's and
+               3b's traffic through ``ServingEngine(mesh=build_mesh(
+               {"mp": 1}))`` on 3a's weights drawn again — greedy streams
+               and rows 1-2 launches equal to 3a's and 3b's, tokens/s
+               beside theirs, no collective issued; then rows 1-2 at the
+               per-rank shapes of mp 2 and mp 4 (16 and 8 of the 32 heads,
+               512-token contexts, decode / verify / chunk) held against
+               the plain version and timed as in phase 5 over pools more
+               than twice the L2, with the bound and the split plan;
+               (y) ``ring_flash_attention`` on a ``{"sep": 1}`` mesh at
+               3c's attention shape: forward and q / k / v gradients to
+               TRAIN_TOL against a direct ``flash_attention`` call, rows
+               3 / 5 / 6 once each per call; ``ulysses_attention`` against
+               the same call; forward + backward ms in turns;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -378,7 +392,10 @@ weights made from a seed:
                ``GenericPipeline1F1BTrainStep``
                on a ``PipelineLayer`` of four ``Linear``s against the same
                model's eager steps;
-  5. timing    each kernel, its plain version and the bound (bytes over
+  5. timing    (the design steps' compile-time variants build at nice 19
+               in a process of their own from phase 2 on, stopped while
+               anything host-bound is timed; phase 5 waits for them) each
+               kernel, its plain version and the bound (bytes over
                3.35 TB/s, operations over 989 TFLOP/s bf16) at the decode,
                verify and chunk shapes of phase 3 (rows 1-2 as CUDA-graph
                replays, the eager time on its own line), the split merge
@@ -1943,17 +1960,20 @@ def require_graphs(eng, verify=False):
             f"dispatches captured as CUDA graphs: {eng.jit_variants()}")
 
 
-def phase_serving(pa, cfg, params, overlap=False, want=None):
+def phase_serving(pa, cfg, params, overlap=False, want=None, mesh=None,
+                  breakdown=True):
     """3a: the bf16 engine serves ``traffic``; with ``overlap`` the same
-    traffic through ``overlap=True``, whose greedy streams must equal
-    ``want`` (3a's synchronous streams)."""
+    traffic through ``overlap=True``, or with ``mesh`` through the engine
+    of a tensor-parallel mesh (3x), whose greedy streams must equal
+    ``want`` (3a's synchronous streams).  ``breakdown``: profile a decode
+    step after."""
     from paddle_tpu_torch.inference.paged import ServingEngine
 
     eng = ServingEngine(params, cfg, num_slots=4, page_size=16,
                         num_pages=320, max_pages_per_seq=72,
                         dtype=torch.bfloat16, prompt_bucket=32,
                         decode_horizon=8, prefill_chunk=256, overlap=overlap,
-                        device="cuda")
+                        device="cuda", mesh=mesh)
     # warm-up (cuBLAS handles, allocator, kernel load, the graphs'
     # captures): one dense and one chunked prefill, a few horizons
     warm = np.random.default_rng(1)
@@ -1999,7 +2019,9 @@ def phase_serving(pa, cfg, params, overlap=False, want=None):
     streams = [list(r.generated) for r in out]
     if overlap:
         require(delta["overlap_steps"] > 0, "the pipeline never overlapped")
-        require(streams == want, "overlap=True changed 3a's greedy streams")
+    if want is not None:
+        require(streams == want, f"{'the mesh engine' if mesh else 'overlap'}"
+                f" changed 3a's greedy streams")
 
     n_tok = sum(len(r.generated) for r in out)
     ttft = np.array([r.ttft for r in out]) * 1e3
@@ -2013,11 +2035,11 @@ def phase_serving(pa, cfg, params, overlap=False, want=None):
           f"{delta['prefill_chunks']} chunks), graph replays included), "
           f"plain-version calls {ref_calls}, split merges {combines}; "
           f"captured graphs {eng.jit_variants()}")
-    if overlap:
+    if want is not None:
         print("  greedy streams equal to the synchronous engine's: True")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
-    step = decode_breakdown(eng, cfg)
+    step = decode_breakdown(eng, cfg) if breakdown else None
     return dict(launches=launches, combines=combines, tokens=n_tok,
                 wall_s=wall, streams=streams, step=step, engine=eng,
                 kv_bytes=eng.pool.num_pages * eng.page_bytes,
@@ -2214,9 +2236,12 @@ def spec_traffic(vocab, succ):
             (prompt(300, 36), 32), (prompt(96, 24), 64)]
 
 
-def phase_serving_quant(pa, cfg, params, kv_bytes):
+def phase_serving_quant(pa, cfg, params, kv_bytes, mesh=None,
+                        breakdown=True):
     """The int8-KV + speculative=4 engine at 7B widths, its pool holding the
-    same KV bytes as phase 3a's."""
+    same KV bytes as phase 3a's (``params`` turned into the successor
+    model first); with ``mesh`` the engine of a tensor-parallel mesh (3x).
+    ``breakdown``: profile a verify step after."""
     from paddle_tpu_torch.inference.paged import ServingEngine
     from paddle_tpu_torch.serving.quant import page_bytes
 
@@ -2226,7 +2251,8 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
                         num_pages=num_pages, max_pages_per_seq=72,
                         dtype=torch.bfloat16, prompt_bucket=32,
                         decode_horizon=8, prefill_chunk=256,
-                        kv_dtype="int8", speculative=4, device="cuda")
+                        kv_dtype="int8", speculative=4, device="cuda",
+                        mesh=mesh)
     require(eng._pages_k["q"].dtype == torch.int8, "int8 page store")
     print(f"  pool {num_pages} int8 pages x {eng.page_bytes} B = "
           f"{num_pages * eng.page_bytes / 1e9:.3f} GB (phase 3a: "
@@ -2294,9 +2320,10 @@ def phase_serving_quant(pa, cfg, params, kv_bytes):
           f"graphs {eng.jit_variants()}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
-    step = verify_breakdown(eng, cfg, succ)
+    step = verify_breakdown(eng, cfg, succ) if breakdown else None
     return dict(quant_launches=quant_launches, combines=combines, succ=succ,
                 tokens_per_s=n_tok / wall, step=step,
+                streams=[list(r.generated) for r in out],
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 ttft_p95_ms=float(np.percentile(ttft, 95)), acceptance=acc,
                 decode_kv_lens=[len(reqs[i][0]) + reqs[i][1] // 2
@@ -4437,12 +4464,13 @@ def bound(q_len, q_start, kv_len, Hq, Hkv, D, ps, elt, flop_rate,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128, ps=16):
-    """bf16 q (32 heads of D, page ``ps``) at one segment shape, and
-    ``n_copies`` page pools (> the 50 MB L2 together) of bf16 pages or of
-    int8 / fp8 codes with their scales; the slots' pages in a random order."""
+def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128, ps=16, H=32):
+    """bf16 q (``H`` heads of D, as many KV heads, page ``ps``) at one
+    segment shape, and ``n_copies`` page pools (> the 50 MB L2 together at
+    the phase-3 shapes) of bf16 pages or of int8 / fp8 codes with their
+    scales; the slots' pages in a random order."""
     from paddle_tpu_torch.serving.quant import kv_spec, quantize_kv
-    dt, Hq, Hkv = torch.bfloat16, 32, 32
+    dt, Hq, Hkv = torch.bfloat16, H, H
     S, Qmax = sh["S"], sh["Qmax"]
     P = max(-(-k // ps) for k in sh["kv_len"])
     NP = S * P
@@ -4465,14 +4493,15 @@ def shape_inputs(gen, sh, kv_dtype, n_copies=4, D=128, ps=16):
     return q, pools, pt, seg
 
 
-def time_shape(pa, gen, sh, kv_dtype, D=128, ps=16):
-    """Kernel ms at one segment shape (32 heads of D) as a CUDA-graph
-    replay (the device's time: the wrapper's host cost, tens of us per
-    call, would hide it), its eager ms on a line of its own, the plain
-    version's ms (eager), and the bound.  The kernel's time includes the
-    split merge where the plan splits."""
-    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype, D=D, ps=ps)
-    Hq, Hkv = 32, 32
+def time_shape(pa, gen, sh, kv_dtype, D=128, ps=16, H=32, n_copies=4):
+    """Kernel ms at one segment shape (``H`` heads of D, 32 by default) as
+    a CUDA-graph replay (the device's time: the wrapper's host cost, tens
+    of us per call, would hide it) over ``n_copies`` page pools, its eager
+    ms on a line of its own, the plain version's ms (eager), and the bound.
+    The kernel's time includes the split merge where the plan splits."""
+    q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype, D=D, ps=ps, H=H,
+                                     n_copies=n_copies)
+    Hq, Hkv = H, H
     n_copies = len(pools)
 
     def kern(i):
@@ -4493,7 +4522,8 @@ def time_shape(pa, gen, sh, kv_dtype, D=128, ps=16):
                          True, sms=torch.cuda.get_device_properties(0)
                          .multi_processor_count)
     tag = f"{kv_dtype or 'bf16':<5} {sh['name']:<6}" + \
-        ("" if D == 128 else f" D={D}") + ("" if ps == 16 else f" ps={ps}")
+        ("" if D == 128 else f" D={D}") + ("" if ps == 16 else f" ps={ps}") \
+        + ("" if H == 32 else f" H={H}")
     print(f"  {tag} S={sh['S']} Qmax={sh['Qmax']} kv_len={sh['kv_len']}: "
           f"kernel {ms:.4f} ms (graph replay; {plan.n_splits} splits of "
           f"{plan.split_len} tokens, {plan.blocks} blocks), plain "
@@ -6881,6 +6911,104 @@ WIDE_SHAPES = tuple((shape, False, rate)
                     for rate in (0.0, DROPOUT_RATE))
 
 
+# The design steps' variants build in a process of their own, at the
+# lowest CPU priority, while the script only checks results or runs train
+# steps bound by the card (phases 2-2e, 3c-3d, 3g-3g', 3j, 3n, 4-4h); it is
+# stopped while anything that the host's CPU can move is timed.  The steps
+# of phases 5, 5b and 5e then find their libraries built (``_build``'s
+# libraries are keyed by source and flags) instead of waiting minutes of
+# ``nvcc`` there.  The groups build one after another, each one's
+# variants all together (at most 16 ``nvcc``, whose memory a stop keeps).
+VARIANT_BUILD = """\
+import json, sys
+from concurrent.futures import ThreadPoolExecutor
+from paddle_tpu_torch.ops import _build
+for names, defines in json.loads(sys.argv[1]):
+    with ThreadPoolExecutor(len(defines)) as pool:
+        list(pool.map(lambda d: _build.build_all(names, tuple(d)), defines))
+"""
+
+
+def variant_builds(fa):
+    """[(library names, [the -D flags of each variant])] of the design
+    steps (``RPA_VARIANTS``, ``FWD_VARIANTS``, ``BWD_VARIANTS``,
+    ``WIDE_VARIANTS``), the shipped builds left out: phase 1 built them."""
+    from paddle_tpu_torch.ops import _build
+
+    def libs(shapes):
+        return sorted({_build.width_library("flash_attention",
+                                            fa.head_width(shape[-1]))
+                       for shape, _, _ in shapes})
+    return [(names, [list(d) for _, d in variants if d])
+            for names, variants in (
+                (list(RPA_LIBS), RPA_VARIANTS),
+                (libs(FWD_DESIGN_SHAPES), FWD_VARIANTS),
+                (libs(BWD_DESIGN_SHAPES), BWD_VARIANTS),
+                (libs(WIDE_SHAPES), WIDE_VARIANTS))]
+
+
+class VariantBuilds:
+    """``VARIANT_BUILD`` on ``variant_builds`` at nice 19 in a session of
+    its own, started running: ``hold`` stops it (SIGSTOP to the session),
+    ``go`` lets it go on, ``finish`` lets it run to its end and fails with
+    its log if a build failed.  Its ``nvcc`` processes are killed however
+    the script ends."""
+
+    def __init__(self, fa):
+        import atexit
+
+        from paddle_tpu_torch.ops import _build
+        groups = variant_builds(fa)
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.log = open(_build.BUILD_DIR / "variants.log", "w")
+        self.proc = subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-c", VARIANT_BUILD,
+             json.dumps(groups)], cwd=os.path.dirname(os.path.abspath(
+                 __file__)), stdout=self.log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        self.ran, self.since = 0.0, time.perf_counter()
+        atexit.register(self._kill)
+        print(f"  the design steps' {sum(len(d) for _, d in groups)} "
+              f"variants ({sum(len(n) * len(d) for n, d in groups)} "
+              f"libraries) building at nice 19, while nothing host-bound "
+              f"is timed")
+
+    def _signal(self, sig):
+        import signal
+        try:
+            os.killpg(self.proc.pid, getattr(signal, sig))
+        except ProcessLookupError:      # the build is over
+            pass
+
+    def _kill(self):
+        if self.proc.poll() is None:
+            self._signal("SIGKILL")
+            self.proc.wait()
+
+    def hold(self):
+        if self.since is not None:
+            self._signal("SIGSTOP")
+            self.ran += time.perf_counter() - self.since
+            self.since = None
+
+    def go(self):
+        if self.since is None:
+            self.since = time.perf_counter()
+            self._signal("SIGCONT")
+
+    def finish(self):
+        self.go()
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        self.log.close()
+        self.ran += time.perf_counter() - self.since
+        require(rc == 0, f"the design steps' variant builds failed (exit "
+                f"{rc}):\n{open(self.log.name).read()[-8000:]}")
+        print(f"  the design steps' variants built: {self.ran:.1f} s of "
+              f"running, {time.perf_counter() - t0:.1f} s of it waited for "
+              f"here")
+
+
 def backward_design_steps(fa, gen, variants, shapes):
     """One line per entry of ``variants`` (BWD_VARIANTS, WIDE_VARIANTS) at
     each (shape, causal, dropout rate) of ``shapes``, in two turns: the
@@ -8163,7 +8291,7 @@ def linear_pipeline_check(tol):
               f"steps")
 
 
-def phase_pipeline_check(pa, B=8, S=2048):
+def phase_pipeline_check(pa, B=8, S=2048, finish=True):
     """Phase 4j: at world 1 over NCCL, each schedule of 3w on the 2-layer
     f32 LLaMA at full width (3 steps on 3 batches, AdamW lr 1e-4 unfused
     as ``make_train_step``'s) against ``make_train_step``'s dense step from
@@ -8253,7 +8381,180 @@ def phase_pipeline_check(pa, B=8, S=2048):
           f"at 0, within 2 lr a step, and every one within TRAIN_TOL of "
           f"AdamW replayed on the schedule's own gradients)")
     linear_pipeline_check(tol)
-    dist.destroy_process_group()
+    if finish:
+        dist.destroy_process_group()
+
+
+# -- phases 3x and 3y: tensor-parallel serving and ring attention ------------
+# the per-rank head counts of LLaMA-2 7B's 32 (KV) heads at mp 2 and mp 4,
+# at 512-token contexts
+TP_DEGREES = (2, 4)
+TP_KV_LENS = (512, 512, 512, 512)
+L2_BYTES = 50e6                    # H100 SXM
+
+
+def phase_tp_serving(pa, cfg, serve, serve_q):
+    """3x: 3a's traffic and 3b's int8 + speculative=4 traffic through
+    ``ServingEngine(mesh=build_mesh({"mp": 1}))`` at world 1 over NCCL, on
+    3a's weights drawn again from its seed: greedy streams equal to 3a's and
+    3b's engines' in this run, rows 1-2 launched as often (the same
+    dispatches, one launch a layer each), tokens/s beside theirs.  At world
+    1 the mp group is this rank alone: no collective is issued."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models.llama import init_llama_params
+    require(dist.is_initialized() and dist.get_backend() == "nccl",
+            "3x: the NCCL process group of 3t is not up")
+    mesh = topology.build_mesh({"mp": 1})
+    params = init_llama_params(cfg, dtype=torch.bfloat16, device="cuda",
+                               seed=0)
+    dist.reset_collective_counts()
+    tp = phase_serving(pa, cfg, params, want=serve["streams"], mesh=mesh,
+                       breakdown=False)
+    del tp["engine"]
+    require(tp["launches"] == serve["launches"]
+            and tp["combines"] == serve["combines"],
+            f"3x: row 1 launches {tp['launches']} / merges {tp['combines']} "
+            f"against 3a's {serve['launches']} / {serve['combines']}")
+    tq = phase_serving_quant(pa, cfg, params, serve["kv_bytes"], mesh=mesh,
+                             breakdown=False)
+    require(tq["streams"] == serve_q["streams"],
+            "3x: the mesh engine changed 3b's greedy streams")
+    require(tq["quant_launches"] == serve_q["quant_launches"],
+            f"3x: row 2 launches {tq['quant_launches']} against 3b's "
+            f"{serve_q['quant_launches']}")
+    comm = dist.collective_counts()
+    require(not comm, f"3x: collectives at world 1: {comm}")
+    del params
+    torch.cuda.empty_cache()
+    print(f"  mesh {{'mp': 1}}: tp_degree 1; bf16 KV {tp['tokens_per_s']:.1f} "
+          f"tokens/s against 3a's {serve['tokens_per_s']:.1f}, row 1 "
+          f"launches {tp['launches']} (= 3a's); int8 KV + speculative=4 "
+          f"{tq['tokens_per_s']:.1f} tokens/s against 3b's "
+          f"{serve_q['tokens_per_s']:.1f}, row 2 launches "
+          f"{tq['quant_launches']} (= 3b's); greedy streams equal; no "
+          f"collective issued")
+    return dict(launches=tp["launches"], quant_launches=tq["quant_launches"],
+                tokens_per_s=tp["tokens_per_s"],
+                quant_tokens_per_s=tq["tokens_per_s"])
+
+
+def pool_copies(sh, kv_dtype, H, D=128, ps=16):
+    """Page pools of one segment shape (``shape_inputs``' layout) enough to
+    hold more than twice the L2 together."""
+    P = max(-(-k // ps) for k in sh["kv_len"])
+    rows = 2 * H * sh["S"] * P * ps
+    nbytes = rows * (D * 2 if kv_dtype is None else D + 4)
+    return max(2, int(2 * L2_BYTES // nbytes) + 1)
+
+
+def phase_tp_kernels(pa):
+    """3x kernel check: rows 1 (bf16 pages) and 2 (int8 pages) at the
+    per-rank shapes of mp 2 and mp 4 — 16 and 8 of 7B's 32 heads, 512-token
+    contexts, the decode, verify and chunk shapes — held against the plain
+    version, then timed as phase 5 times them (CUDA-graph replays over page
+    pools more than twice the L2), with the bound and the split plan."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for mp in TP_DEGREES:
+        H = 32 // mp
+        for row, kv_dtype in (("1", None), ("2", "int8")):
+            key = f"{row} mp{mp}"
+            errs, timed = [], {}
+            for sh in shapes(TP_KV_LENS):
+                q, pools, pt, seg = shape_inputs(gen, sh, kv_dtype, H=H,
+                                                 n_copies=1)
+                (k, v), sc = pools[0]
+                errs.append(compare(pa, f"row {key} {sh['name']} ({H} heads)",
+                                    (q, k, v, pt, *seg), torch.bfloat16,
+                                    **sc))
+                del q, pools
+                timed[sh["name"]] = time_shape(
+                    pa, gen, sh, kv_dtype, H=H,
+                    n_copies=pool_copies(sh, kv_dtype, H))
+            out[key] = dict(timed["decode"], max_abs_err=max(errs),
+                            shapes=timed)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ring_attention(pa, fa, B=8, S=2048, H=16, D=64):
+    """3y: ``ring_flash_attention`` at world 1 over NCCL on a ``{'sep':
+    1}`` mesh at 3c's attention shape (bf16, causal): forward and the
+    gradients of q, k, v held to TRAIN_TOL against a direct
+    ``flash_attention`` call on the same inputs, rows 3 / 5 / 6 launched
+    once each per call (the one hop is the causal diagonal); Ulysses
+    attention (dense inside, in f32) held against the same call's output
+    with phase 2b's allowance for the flash forward's rounding of p, its
+    gradients' gaps printed; the ms of each, forward and backward, in
+    turns."""
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention, ulysses_attention)
+    mesh = topology.build_mesh({"sep": 1})
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    q, k, v, do = attn_inputs(gen, (B, S, S, H, H, D), torch.bfloat16)
+    tol = TRAIN_TOL[torch.bfloat16]
+    calls = {"direct": lambda a, b, c: fa.flash_attention(a, b, c,
+                                                          causal=True),
+             "ring": lambda a, b, c: ring_flash_attention(
+                 a, b, c, axis="sep", causal=True, mesh=mesh),
+             "ulysses": lambda a, b, c: ulysses_attention(
+                 a, b, c, axis="sep", causal=True, mesh=mesh)}
+    w = train_wrappers()
+
+    def run(name):
+        xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = calls[name](*xs)
+        o.backward(do)
+        return o.detach(), [x.grad for x in xs]
+
+    res, launches = {}, {}
+    for name in calls:
+        reset_counts(pa)
+        res[name] = run(name)
+        torch.cuda.synchronize()
+        launches[name] = {key: w[key].launches
+                          for key in ("fa_fwd", "fa_dkv", "fa_dq",
+                                      "pack_lse")}
+    once = {"fa_fwd": 1, "fa_dkv": 1, "fa_dq": 1, "pack_lse": 0}
+    require(launches["ring"] == once and launches["direct"] == once,
+            f"3y launches: ring {launches['ring']}, direct "
+            f"{launches['direct']} (want {once})")
+    require(not any(launches["ulysses"].values()),
+            f"3y: Ulysses launched {launches['ulysses']}")
+    o_ref, g_ref = res["direct"]
+    # the flash forward rounds p to bf16 before P V (term j may move by
+    # 2**-8 p_j |v_j|) where Ulysses' dense attention keeps f32: o may move
+    # by 2**-8 times the forward of |v| (phase 2b's allowance)
+    p_round = {"ring": None, "ulysses": 2.0 ** -8 * fa.flash_attention_fwd(
+        q, k, v.abs(), True, 1.0 / np.sqrt(D))[0].float()}
+    err = {}
+    for name in ("ring", "ulysses"):
+        o, g = res[name]
+        err[name] = [held(f"3y {name} out", o, o_ref, tol, p_round[name])]
+        if name == "ring":
+            err[name] += [held(f"3y {name} d{x}", a, b, tol)
+                          for x, a, b in zip("qkv", g, g_ref)]
+    # Ulysses' f32 gradients against the flash backward's, which builds ds
+    # from the bf16 o and p (printed, not held: the gap is the flash
+    # path's rounding, not Ulysses')
+    print("  3y ulysses gradients against the direct call's: " + ", ".join(
+        f"d{x} max abs {float((a.float() - b.float()).abs().max()):.3e} "
+        f"(|ref| max {float(b.float().abs().max()):.3e})"
+        for x, a, b in zip("qkv", res["ulysses"][1], g_ref)))
+    del res
+    torch.cuda.empty_cache()
+    ms = {name: [] for name in calls}
+    for name in ("direct", "ring", "ulysses", "ulysses", "ring", "direct"):
+        ms[name].append(time_ms(lambda i, n=name: run(n), 10, warmup=2))
+    print(f"  B={B} S={S} {H} heads of {D}, bf16, causal; rows 3 / 5 / 6 "
+          f"launched {launches['ring']} by the ring and "
+          f"{launches['direct']} by the direct call; forward + backward ms "
+          f"in turns: " + "; ".join(f"{n} " + " / ".join(f"{t:.3f}"
+                                                          for t in v)
+                                    for n, v in ms.items()))
+    return dict(ms=ms, launches=launches["ring"], max_abs_err=err)
 
 
 def main():
@@ -8305,6 +8606,7 @@ def main():
     register_report(built, args.parent)
 
     say("phase 2: kernels vs plain version on the card")
+    builds = VariantBuilds(fa)
     max_err = phase_kernel(pa)
     say("phase 2b: train kernels vs plain version on the card")
     max_err.update(phase_train_kernels(fa, fu))
@@ -8321,6 +8623,7 @@ def main():
     head_dim_checks(fa, torch.Generator(device="cuda").manual_seed(29),
                     max_err)
     ragged_head_dim_checks(pa)
+    builds.hold()
 
     if args.parent_engine:
         say("phase 3a/3b of the parent commit (turn 1 of 2)")
@@ -8383,6 +8686,7 @@ def main():
         parent_engine_turn(args.parent_engine)
     say("phase 3c: train step of the 271M LLaMA (bf16, B=8, S=2048, "
           "16 layers)")
+    builds.go()
     train = phase_train(pa)
     torch.cuda.empty_cache()
     say(f"phase 3d: ERNIE-3.0-base MLM train step (bf16, B=64, S=512, "
@@ -8393,6 +8697,7 @@ def main():
           "card)")
     ernie0 = phase_ernie(pa, warmup=2, steps=5, dropout=0.0)
     torch.cuda.empty_cache()
+    builds.hold()
     say(f"phase 3f: ERNIE-3.0-base sequence classification fine-tuning "
           f"step (2 classes, bf16, B=32, S=128, dropout {DROPOUT_RATE}, "
           f"AdamW lr 2e-5)")
@@ -8401,6 +8706,7 @@ def main():
     torch.cuda.empty_cache()
     say("phase 3e: nn.functional.softmax through the softmax kernels")
     softmax_launches = phase_softmax_entry()
+    builds.go()
     say("phase 3g: ViT-L/16 train step at 384 px (bf16, B=32, 577 tokens, "
           "24 layers)")
     vit = phase_vit(pa)
@@ -8409,23 +8715,28 @@ def main():
           "tokens), as bench.py's bench_vit_l16 runs it")
     vit224 = phase_vit(pa, img=224, B=64, warmup=2, steps=3)
     torch.cuda.empty_cache()
+    builds.hold()
     say("phase 3h: SD-1.5 UNet train step (bf16, B=8, 64 x 64 latents, "
           "77-token context, SGD lr 1e-4)")
     unet = phase_unet(pa)
     torch.cuda.empty_cache()
+    builds.go()
     say("phase 3j: ResNet-50 train step (bf16, B=256, 224 x 224, "
         "BatchNorm in training mode, Momentum 0.9, lr 0.1, L2 1e-4)")
     resnet = phase_resnet(pa, card)
     torch.cuda.empty_cache()
+    builds.hold()
     say("phase 3j': MobileNet V1 / V2 / V3-Large, two steps each (bf16, "
         "B=256, 224 x 224, BatchNorm in training mode, the same Momentum)")
     mobilenets = phase_mobilenets(pa, card)
     torch.cuda.empty_cache()
     t_vision = time.perf_counter()
+    builds.go()
     say("phase 3n: DenseNet-121 (B=256, 224 x 224) and Inception-v3 (B=256, "
         "299 x 299) train steps (bf16, BatchNorm in training mode, the same "
         "Momentum)")
     dense = phase_dense_inception(pa, card)
+    builds.hold()
     say("phase 3n': VGG-16, GoogLeNet, SqueezeNet 1.1, ShuffleNetV2, "
         "AlexNet (B=256, 224 x 224) and LeNet (B=256, 28 x 28), two steps "
         "each")
@@ -8470,11 +8781,25 @@ def main():
     say("phase 4j: every pipeline schedule against the dense step (2-layer "
         "f32 LLaMA), PipelineParallel and the generic step against eager "
         "steps, at world 1 over NCCL")
-    phase_pipeline_check(pa)
+    phase_pipeline_check(pa, finish=False)
     pipe_s = time.perf_counter() - t_pipe
     torch.cuda.empty_cache()
+    t_tp = time.perf_counter()
+    say("phase 3x: tensor-parallel serving at world 1 over NCCL (3a's and "
+        "3b's traffic through ServingEngine(mesh=build_mesh({'mp': 1})))")
+    tp_serve = phase_tp_serving(pa, cfg, serve, serve_q)
+    say("phase 3x, kernel check: rows 1-2 at the per-rank shapes of mp 2 "
+        "and mp 4 (16 and 8 heads) vs plain version, timed")
+    tp_kern = phase_tp_kernels(pa)
+    say("phase 3y: ring flash and Ulysses attention at world 1 over NCCL "
+        "(3c's attention shape) against a direct flash_attention call")
+    ring = phase_ring_attention(pa, fa)
+    import paddle_tpu_torch.distributed as dist
+    dist.destroy_process_group()
+    tp_s = time.perf_counter() - t_tp
 
     say("phase 4: engine checks, kernels vs plain version")
+    builds.go()
     phase_engine(pa, cfg)
     say("phase 4b: train step, kernels vs plain versions")
     phase_train_check()
@@ -8504,6 +8829,7 @@ def main():
     loop_s += time.perf_counter() - t0
 
     say("phase 5: kernel timing at the phase-3 shapes")
+    builds.finish()
     timing = phase_timing(pa, cfg.num_hidden_layers,
                           serve["decode_kv_lens"], serve_q["decode_kv_lens"],
                           parent=args.parent)
@@ -8630,6 +8956,19 @@ def main():
           "busy " + ", ".join(f"{k} {p['busy_ms'] / p['step_ms']:.1%}"
                               for k, p in pipe.items()))
     print(f"  phases 3w and 4j took {pipe_s:.1f} s")
+    print(f"  TP serving (3x, world 1, nccl, mesh {{'mp': 1}}): bf16 KV "
+          f"{tp_serve['tokens_per_s']:.1f} tokens/s against 3a's "
+          f"{serve['tokens_per_s']:.1f}, int8 KV + speculative=4 "
+          f"{tp_serve['quant_tokens_per_s']:.1f} against 3b's "
+          f"{serve_q['tokens_per_s']:.1f}; per-rank rows 1-2 at the decode "
+          f"shape: " + ", ".join(
+              f"row {key} {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} "
+              f"of bound)" for key, r in tp_kern.items())
+          + f"; ring flash (3y) forward + backward "
+          f"{min(ring['ms']['ring']):.3f} ms against the direct call's "
+          f"{min(ring['ms']['direct']):.3f}, Ulysses "
+          f"{min(ring['ms']['ulysses']):.3f} on {card}")
+    print(f"  phases 3x and 3y took {tp_s:.1f} s")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")
@@ -8673,6 +9012,21 @@ def main():
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=launches, max_abs_err=max_err[key],
                          **timing[key]))
+    for key, r in tp_kern.items():
+        row, mp = key.split(" mp")
+        meta = PLAIN if row == "1" else QUANT
+        # one card runs the mesh engine at mp 1 alone: the launches are
+        # 3x's, at 32 heads a rank, which the row says
+        rows.append(dict(meta, name=f"{meta['name']} (mp {mp} rank: "
+                         f"{32 // int(mp)} heads)",
+                         launches=tp_serve["launches" if row == "1"
+                                           else "quant_launches"],
+                         launches_from="3x at mp 1 (32 heads a rank): the "
+                         f"{32 // int(mp)}-head shape ran only in the "
+                         "kernel check",
+                         max_abs_err=r["max_abs_err"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=None))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

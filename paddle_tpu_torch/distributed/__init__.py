@@ -11,8 +11,9 @@ counterparts are ``paddle_tpu_torch.parallel.ShardedTrainStep``, the
 tensor-parallel ``models.llama.build_functional_llama(mp_axis=...)`` and
 the pipeline steps (``parallel.PipelineTrainStep``,
 ``Pipeline1F1BTrainStep``, ``GenericPipeline1F1BTrainStep``; ``fleet``'s
-``PipelineLayer`` / ``PipelineParallel`` / ``recompute``).
-``auto_parallel`` and the quantized collectives are not ported yet."""
+``PipelineLayer`` / ``PipelineParallel`` / ``recompute``); the quantized
+all-reduce of tensor-parallel serving (``quant_collectives``).
+``auto_parallel`` is not ported yet."""
 from __future__ import annotations
 
 from .env import init_parallel_env, get_rank, get_world_size, is_initialized
@@ -26,6 +27,9 @@ from .communication import (Group, new_group, get_group,
                             P2POp, gather, ReduceOp, collective_counts,
                             reset_collective_counts)
 from . import topology
+from .quant_collectives import (fake_quant_chunks, quantized_allreduce,
+                                quantized_allreduce_ref)
+from . import quant_collectives
 from . import fleet
 from . import checkpoint
 from .checkpoint.save_state_dict import save_state_dict
@@ -42,5 +46,6 @@ __all__ = [
     "reduce_scatter", "all_to_all", "all_to_all_single", "send", "recv",
     "isend", "irecv", "batch_isend_irecv", "P2POp", "gather", "ReduceOp",
     "fleet", "save_state_dict", "load_state_dict", "collective_counts",
-    "reset_collective_counts",
+    "reset_collective_counts", "fake_quant_chunks", "quantized_allreduce",
+    "quantized_allreduce_ref", "quant_collectives",
 ]

@@ -5,7 +5,8 @@ process_group_nccl.h:37).
 
 Eager calls on ``torch.distributed`` with Paddle's signatures: ``tensor``
 arguments are updated in place, a ``src`` / ``dst`` / peer is a global rank,
-``sync_op=False`` returns a task whose ``wait()`` goes through the watchdog.
+``sync_op=False`` returns a task whose ``wait()`` goes through the watchdog
+(``ReduceOp.AVG`` divides by the group's size when the task is waited on).
 JAX's traced path (collectives inside ``shard_map``) has no counterpart:
 every call here issues its collective when it is made.  Before
 ``init_parallel_env`` (one participant), and over a ``solo`` group (this
@@ -84,16 +85,22 @@ def _nranks(group):
 
 
 class _Task:
-    """An issued collective; ``wait()`` waits through the watchdog."""
+    """An issued collective; ``wait()`` waits through the watchdog, then
+    runs the call's finishing step once (``ReduceOp.AVG``'s division, a
+    copy back into a strided output), after the collective has landed."""
 
     def __init__(self, work, kind, on_card, result=None):
         self.work, self.kind, self.on_card = work, kind, on_card
         self.result = result
+        self.finish = None
 
     def wait(self, timeout=None):
         from ..env import comm_timeout_s
         wait_with_timeout(self.work, timeout or comm_timeout_s(), self.kind,
                           on_card=self.on_card)
+        finish, self.finish = self.finish, None
+        if finish is not None:
+            finish()
         return self.result
 
     def is_completed(self):
@@ -121,15 +128,28 @@ def _issue(kind, fn, sync_op, *args, result=None, **kw):
     return task
 
 
-def _avg(tensor, op, group, sync_op):
-    if op == ReduceOp.AVG:
-        if not sync_op:
-            raise NotImplementedError("ReduceOp.AVG with sync_op=False")
+def _then(out, step):
+    """Run ``step`` now after a synchronous call (``out`` its result), or
+    when the task ``out`` of an asynchronous one is waited on."""
+    if isinstance(out, _Task):
+        out.finish = step
+    else:
+        step()
+    return out
+
+
+def _avg_step(tensor, op, group):
+    """``ReduceOp.AVG``'s division of the summed ``tensor`` by the group's
+    size (a no-op for the other ops)."""
+    def step():
+        if op != ReduceOp.AVG:
+            return
         n = _nranks(group)
         if tensor.is_floating_point():
             tensor.div_(n)
         else:
             tensor.floor_divide_(n)
+    return step
 
 
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
@@ -138,8 +158,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
         return tensor
     out = _issue("all_reduce", dist.all_reduce, sync_op, tensor,
                  op=_TORCH_OP[op], group=_pg(group), result=tensor)
-    _avg(tensor, op, group, sync_op)
-    return out
+    return _then(out, _avg_step(tensor, op, group))
 
 
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
@@ -149,9 +168,9 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
         return tensor
     out = _issue("reduce", dist.reduce, sync_op, tensor, dst,
                  op=_TORCH_OP[op], group=_pg(group), result=tensor)
-    if dist.get_rank() == dst:
-        _avg(tensor, op, group, sync_op)
-    return out
+    if dist.get_rank() != dst:
+        return out
+    return _then(out, _avg_step(tensor, op, group))
 
 
 def all_gather(tensor_list, tensor, group=None, sync_op=True):
@@ -230,10 +249,13 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
     out = _issue("reduce_scatter", _reduce_scatter_single, sync_op,
                  dst.view(-1), src, op=_TORCH_OP[op], group=_pg(group),
                  result=tensor)
-    if dst is not tensor:
-        tensor.copy_(dst)
-    _avg(tensor, op, group, sync_op)
-    return out
+    avg = _avg_step(tensor, op, group)
+
+    def step():
+        if dst is not tensor:
+            tensor.copy_(dst)
+        avg()
+    return _then(out, step)
 
 
 def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):

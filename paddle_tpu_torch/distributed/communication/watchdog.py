@@ -69,8 +69,9 @@ def wait_with_timeout(value, timeout: float, op_name: str = "collective",
     if value is None:
         return value
     if hasattr(value, "work") and hasattr(value, "on_card"):
-        # a task of ``collectives``: wait on its work handle
-        wait_with_timeout(value.work, timeout, op_name, value.on_card)
+        # a task of ``collectives``: its wait goes through this function
+        # on its work handle, then finishes the call (AVG's division)
+        value.wait(timeout)
         return value
     if on_card:
         value.wait()

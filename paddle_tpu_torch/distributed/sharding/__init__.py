@@ -19,11 +19,13 @@ same ``parallel.sharded.FlatLayout`` with one buffer a parameter):
 
 The update is the inner optimizer's ``apply_gradients_functional`` on the
 slices (coupled and decoupled weight decay apply; as on that path,
-``apply_decay_param_fun`` does not), then its step count advances.  A
-``ClipGradByGlobalNorm`` clip takes the norm over the slices, summed over
-the group, and scales by its own rule (``clip_norm / max(norm,
-clip_norm)``, as JAX's eager optimizer under ``group_sharded_parallel``
-applies it; ``ShardedTrainStep`` keeps JAX's compiled step's rule).  The group is the default mesh's ``sharding`` axis where it has
+``apply_decay_param_fun`` does not), then its step count advances.  The
+inner optimizer's clip applies as JAX's eager step applies it: a
+``ClipGradByValue`` to each slice as it is, a ``ClipGradByNorm`` with each
+tensor's whole norm (the squares of its slices summed over the group), a
+``ClipGradByGlobalNorm`` with the norm over every slice, summed over the
+group, by its own rule (``clip_norm / max(norm, clip_norm)``;
+``ShardedTrainStep`` keeps JAX's compiled step's rule).  The group is the default mesh's ``sharding`` axis where it has
 more than one rank, else its ``dp`` axis; with one rank the model and the
 optimizer come back as they are.  The compiled-step counterpart is
 ``paddle_tpu_torch.parallel.ShardedTrainStep``.
@@ -129,17 +131,7 @@ class _GroupShardedOptimizer:
             stage)
         clip = inner._grad_clip
         if clip is not None:
-            if not isinstance(clip, ClipGradByGlobalNorm):
-                raise NotImplementedError(
-                    "group_sharded_parallel: only ClipGradByGlobalNorm "
-                    "clips sliced gradients")
-            clipped = {k: gs[k] for (k, _), p in zip(lay.layout,
-                                                     self._params)
-                       if k in gs and _need_clip(p)}
-            if clipped:
-                scale = clip.scale_for(lay.global_norm(clipped, True))
-                for g in clipped.values():
-                    g.mul_(scale)
+            self._clip(clip, gs)
         key_name = {k: nm for (k, _), nm in zip(lay.layout, self._names)}
         params = {key_name[k]: self._slices[k] for k in gs}
         grads = {key_name[k]: g for k, g in gs.items()}
@@ -155,6 +147,41 @@ class _GroupShardedOptimizer:
         for (k, _), p in zip(lay.layout, self._params):
             if k in whole:
                 p.data.copy_(whole[k])
+
+    def _clip(self, clip, gs):
+        """Apply the inner optimizer's clip to the gradient slices ``gs``
+        (f32, one flat buffer a parameter), in place: by value on each
+        slice as it is; by norm with each tensor's whole norm (its slices'
+        sums of squares, summed over the group, in one all-reduce); by
+        global norm over every slice, summed over the group."""
+        from ...nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                                ClipGradByValue, _need_clip)
+        from ..communication.collectives import ReduceOp, all_reduce
+        lay = self._lay
+        if isinstance(clip, ClipGradByValue):
+            for g in gs.values():
+                g.clamp_(clip.min, clip.max)
+            return
+        if isinstance(clip, ClipGradByNorm):
+            keys = list(gs)
+            sq = torch.stack([torch.sum(torch.square(gs[k])) for k in keys])
+            all_reduce(sq, ReduceOp.SUM, self._group)
+            scale = torch.clamp(clip.clip_norm
+                                / torch.clamp(torch.sqrt(sq), min=1e-12),
+                                max=1.0)
+            for k, s in zip(keys, scale):
+                gs[k].mul_(s)
+            return
+        if not isinstance(clip, ClipGradByGlobalNorm):
+            raise NotImplementedError(
+                f"group_sharded_parallel: no rule for {type(clip).__name__} "
+                "on sliced gradients")
+        clipped = {k: gs[k] for (k, _), p in zip(lay.layout, self._params)
+                   if k in gs and _need_clip(p)}
+        if clipped:
+            scale = clip.scale_for(lay.global_norm(clipped, True))
+            for g in clipped.values():
+                g.mul_(scale)
 
     @torch.no_grad()
     def state_dict(self):
@@ -189,9 +216,9 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
                            sync_comm=False, dp_group=None,
                            exclude_layer=None):
     """reference group_sharded.py group_sharded_parallel(level='os' |
-    'os_g' | 'p_g_os'); returns ``(model, optimizer, scaler)``."""
-    if offload:
-        raise NotImplementedError("group_sharded_parallel(offload=True)")
+    'os_g' | 'p_g_os'); returns ``(model, optimizer, scaler)``.
+    ``offload`` is accepted and ignored, as JAX's is: the slices and their
+    state stay on the parameters' device."""
     g = group if group is not None else _zero_group()
     if g.nranks <= 1:
         return model, optimizer, scaler

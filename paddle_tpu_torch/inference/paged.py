@@ -82,7 +82,15 @@ Fault points (``resilience.faults``): ``PagePool.alloc`` consults
 ``record``), as the JAX engine does.  ``serving.EngineSnapshotManager``
 writes snapshots durably through the checkpoint commit protocol.
 
-Not ported yet: tensor-parallel meshes.
+Tensor-parallel serving (``mesh=build_mesh({"mp": n})`` after
+``init_parallel_env``): one engine a rank, each holding its shard of the
+heads, the MLP and the pages; every rank runs the same host scheduler in
+lockstep on the same submissions (the JAX engine is one controller over
+the mesh).  Logits come out of each layer's all-reduce replicated, so
+greedy tokens agree on every rank, and sampled ones too since every
+rank's generator is seeded alike.  At tp > 1 the decode horizons and the
+verify step run eagerly, not as CUDA graphs: collectives inside a
+captured graph are not exercised on the card (one rank a card).
 """
 from __future__ import annotations
 
@@ -98,9 +106,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.llama import (_sample_per_request, build_llama_paged_decode,
-                            gather_kv_pages, make_paged_decode_horizon,
-                            scatter_kv_pages)
+from ..distributed.topology import axis_group
+from ..models.llama import (_mp_degree, _sample_per_request,
+                            build_llama_paged_decode, gather_kv_pages,
+                            make_paged_decode_horizon, scatter_kv_pages,
+                            shard_llama_paged_params)
 from ..observability.metrics import EngineStats
 from ..observability.telemetry import Telemetry
 from ..ops.paged_attention import (ragged_paged_attention,
@@ -766,7 +776,17 @@ class ServingEngine:
     request-lifecycle traces, latency histograms, the memory series and the
     flight recorder without touching outputs; the engine's timestamps then
     come from the telemetry's clock.  ``name`` rides the ``serve.crash`` /
-    ``serve.wedge`` fault-point ctx, so a drill can target one engine."""
+    ``serve.wedge`` fault-point ctx, so a drill can target one engine.
+    ``mesh`` (a ``distributed.topology.build_mesh`` mesh) with more than one
+    rank on ``mp_axis`` makes this rank's engine one part of a
+    tensor-parallel model (``models.llama.build_llama_paged_decode``): it
+    takes the full parameters and keeps its shard, its pages hold its KV
+    heads (``page_bytes`` is one rank's), and ``quantized_allreduce``
+    (on only at tp > 1) sends each layer's all-reduce through the EQuARX
+    int8 grid.  Every rank constructs its engine alike and makes the same
+    calls in the same order; KV packets and snapshots gather the heads into
+    JAX's whole planes, stamped with ``tp``.  At tp > 1 nothing is captured
+    as a CUDA graph (module docstring)."""
 
     def __init__(self, params, config, num_slots: int = 4,
                  page_size: int = 16, num_pages: int | None = None,
@@ -779,10 +799,17 @@ class ServingEngine:
                  overlap: bool = False,
                  telemetry: "Telemetry | bool | None" = None,
                  name: str = "engine", kv_dtype: str | None = None,
-                 quantize=None, device=None):
+                 quantize=None, device=None, mesh=None, mp_axis: str = "mp",
+                 quantized_allreduce: bool = False):
         self.device = resolve_device(device)
         self.name = str(name)
-        self.tp = 1                    # tensor-parallel degree: one card
+        # tensor-parallel serving: the mesh's degree over mp_axis; the
+        # scheduler below never reads it (every host scalar is replicated)
+        self.mesh = mesh
+        self.mp_axis = str(mp_axis)
+        self.tp = _mp_degree(mesh, self.mp_axis)
+        self.quantized_allreduce = bool(quantized_allreduce and self.tp > 1)
+        self._group = axis_group(self.mp_axis, mesh) if self.tp > 1 else None
         self.config = config
         self.params = tuple({k: v.to(self.device) for k, v in tree.items()}
                             for tree in params)
@@ -824,14 +851,21 @@ class ServingEngine:
          self._verify_fn) = build_llama_paged_decode(
             config, page_size=page_size, num_pages=num_pages, dtype=dtype,
             attention_impl=attention_impl, device=self.device,
-            kv_dtype=self.kv_dtype)
+            kv_dtype=self.kv_dtype, mesh=mesh, mp_axis=self.mp_axis,
+            quantized_allreduce=self.quantized_allreduce)
+        if self.tp > 1:
+            # the engine takes the full parameters, as JAX's does, and keeps
+            # this rank's shard (after the build's head-divisibility guard)
+            self.params = shard_llama_paged_params(
+                self.params, self._group.rank, self.tp)
         pages = init_pages()
         self._pages_k, self._pages_v = pages["k"], pages["v"]
         self._horizon = make_paged_decode_horizon(decode_step)
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        # the captured graphs' one memory pool (None: the CPU, eager)
+        # the captured graphs' one memory pool (None: eager, on the CPU and
+        # at tp > 1, where a graph would hold the layers' collectives)
         self._graph_pool = torch.cuda.graph_pool_handle() \
-            if self.device.type == "cuda" else None
+            if self.device.type == "cuda" and self.tp == 1 else None
         self._horizon_runs: dict = {}  # (K, greedy) -> _Captured
         self._verify_run = None        # _Captured verify step
         self._init_buffers()
@@ -2113,6 +2147,7 @@ class ServingEngine:
                 "max_pages_per_seq": self.max_pages_per_seq,
                 "prefix_cache": self.cache is not None,
                 "kv_dtype": self.kv_dtype,
+                "tp": self.tp,
             },
             "requests": requests,
             "slots": slots,
@@ -2166,17 +2201,48 @@ class ServingEngine:
                 t = t.view(torch.uint8)
             return t.cpu().numpy()
 
-        gk = gather_kv_pages(self._pages_k, idx)
-        gv = gather_kv_pages(self._pages_v, idx)
+        gk = self._whole_heads(gather_kv_pages(self._pages_k, idx))
+        gv = self._whole_heads(gather_kv_pages(self._pages_v, idx))
         if self.kv_dtype is not None:
             return {"kv_k_q": host(gk["q"]), "kv_k_s": host(gk["s"]),
                     "kv_v_q": host(gv["q"]), "kv_v_s": host(gv["s"])}
         return {"kv_k": host(gk), "kv_v": host(gv)}
 
+    def _whole_heads(self, planes):
+        """Gathered page planes (a tensor or a ``{"q", "s"}`` dict) of this
+        rank's KV heads -> the planes of every head, all-gathered over the
+        mp group in global head order (every rank calls it), so a packet or
+        snapshot keeps the one-card layout JAX's engine writes."""
+        if self.tp == 1:
+            return planes
+        if isinstance(planes, dict):
+            return {k: self._whole_heads(v) for k, v in planes.items()}
+        from ..distributed.communication.collectives import all_gather
+        t = planes.contiguous()
+        fp8 = t.dtype == torch.float8_e4m3fn    # gathered as its bytes
+        parts = all_gather(None, t.view(torch.uint8) if fp8 else t,
+                           self._group)
+        whole = torch.cat(parts.unbind(0), dim=1)
+        return whole.view(torch.float8_e4m3fn) if fp8 else whole
+
+    def _own_heads(self, plane):
+        """This rank's block of the KV-head axis (axis 1) of a whole host
+        plane."""
+        if self.tp == 1:
+            return plane
+        a = np.asarray(plane)
+        w = a.shape[1] // self.tp
+        r = self._group.rank
+        return a[:, r * w:(r + 1) * w]
+
     def _scatter_pages(self, ids, planes: dict):
         """Write host planes (a ``_gather_pages`` result, same page order)
         into this engine's pool at page ids ``ids``, in place — the write
-        half of the transfer restore and import_kv share."""
+        half of the transfer restore and import_kv share.  At tp > 1 the
+        planes hold every head and this rank writes its own block."""
+        planes = {k: self._own_heads(planes[k])
+                  for k in ("kv_k_q", "kv_k_s", "kv_v_q", "kv_v_s", "kv_k",
+                            "kv_v") if k in planes}
         if self.kv_dtype is not None:
             scatter_kv_pages(self._pages_k, ids,
                              {"q": planes["kv_k_q"], "s": planes["kv_k_s"]})
@@ -2269,8 +2335,8 @@ class ServingEngine:
         if packet["tp"] != self.tp:
             raise KVHandoffError(
                 f"mp degree {packet['tp']} != {self.tp}: head-sharded "
-                "planes need an engine of equal mp degree — re-prefill "
-                "(adopt)")
+                "planes are rank-local only at equal mp degree — "
+                "re-prefill (adopt) reshards for this submesh")
         entries = packet["requests"]
         if any(len(e["pages"]) > self.max_pages_per_seq for e in entries):
             raise KVHandoffError(
@@ -2383,7 +2449,8 @@ class ServingEngine:
                 and g["num_pages"] == self.pool.num_pages
                 and g["max_pages_per_seq"] == self.max_pages_per_seq
                 and bool(g["prefix_cache"]) == (self.cache is not None)
-                and g.get("kv_dtype") == self.kv_dtype)
+                and g.get("kv_dtype") == self.kv_dtype
+                and g.get("tp", 1) == self.tp)
         if fast:
             self._restore_full(meta, state, reqs)
             applied = "full_kv"
@@ -2480,11 +2547,12 @@ class ServingEngine:
     def page_bytes(self) -> int:
         """Bytes one pool page costs on the device: K + V across all
         layers, with the per-row scales of a quantized ``kv_dtype`` (the
-        unit of the telemetry's byte gauges; computed once)."""
+        unit of the telemetry's byte gauges; computed once).  At tp > 1 it
+        is one rank's cost: each holds 1/tp of the KV heads."""
         if self._page_bytes is None:
             self._page_bytes = _page_bytes(self.config, self.page_size,
                                            kv_dtype=self.kv_dtype,
-                                           dtype=self._dtype)
+                                           dtype=self._dtype) // self.tp
         return self._page_bytes
 
     def stats(self) -> dict:
@@ -2517,6 +2585,9 @@ class ServingEngine:
             "kv_imports": self.kv_imports,
             "kv_pages_exported": self.kv_pages_exported,
             "kv_pages_imported": self.kv_pages_imported,
+            # tensor-parallel serving: the mp degree (1: one card)
+            "tp_degree": self.tp,
+            "quantized_allreduce": self.quantized_allreduce,
         }
 
     def stats_snapshot(self) -> EngineStats:

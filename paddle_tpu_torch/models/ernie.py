@@ -38,6 +38,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..nn import functional
 from ..nn.functional.activation import gelu
 from ..nn.functional.attention import scaled_dot_product_attention
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
@@ -165,9 +166,13 @@ class ErnieLayer(nn.Module):
     def __init__(self, parts: _Parts):
         super().__init__()
         c = parts.c
-        if c.hidden_act != "gelu":
+        # the activation by name from the port's functional, as JAX's
+        # ``getattr(F, c.hidden_act)``
+        self.act = getattr(functional, c.hidden_act, None)
+        if self.act is None:
             raise NotImplementedError(
-                f"hidden_act {c.hidden_act!r}: only gelu is ported")
+                f"hidden_act {c.hidden_act!r}: the port's nn.functional has "
+                "no such function yet (ROADMAP A item 7)")
         self.attention = ErnieSelfAttention(parts)
         self.norm1 = parts.norm()
         self.fc1 = parts.linear(c.hidden_size, c.intermediate_size)
@@ -177,7 +182,7 @@ class ErnieLayer(nn.Module):
 
     def forward(self, x, attn_mask=None):
         x = self.norm1(x + self.dropout(self.attention(x, attn_mask)))
-        return self.norm2(x + self.dropout(self.fc2(gelu(self.fc1(x)))))
+        return self.norm2(x + self.dropout(self.fc2(self.act(self.fc1(x)))))
 
 
 class ErnieModel(nn.Module):

@@ -28,7 +28,8 @@ from ..tensor.search import _top_p_mask
 __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
            "init_llama_params", "llama_block_specs",
            "shard_llama_block_params", "build_functional_llama",
-           "llama_microbatch_fns",
+           "llama_microbatch_fns", "llama_paged_param_specs",
+           "llama_paged_page_spec", "shard_llama_paged_params",
            "build_llama_paged_decode", "make_paged_decode_horizon",
            "gather_kv_pages", "scatter_kv_pages"]
 
@@ -326,6 +327,55 @@ def llama_microbatch_fns(config: LlamaConfig, mp_axis: str = None,
     return embed_mb, ba1, head_mb
 
 
+def llama_paged_param_specs(mp_axis: str = "mp"):
+    """Per-leaf sharding of the paged-decode ``(ep, bp, hp)`` parameters
+    under tensor parallelism over ``mp_axis`` (JAX
+    ``llama_paged_param_specs``), in :func:`llama_block_specs`' style: the
+    entries after the leading layer axis of each block leaf.  ``wq wk wv
+    wgate wup`` column-parallel (heads / FFN columns split), ``wdown``
+    row-parallel (its product gives the partial sums the layer's one
+    all-reduce combines), ``wo`` REPLICATED (it multiplies the all-gathered
+    head outputs, so its product equals one card's), the norms, ``tok``
+    and ``lm`` replicated."""
+    col = (None, mp_axis)
+    rep2 = (None, None)
+    bp = {"ln1": (None,), "wq": col, "wk": col, "wv": col, "wo": rep2,
+          "ln2": (None,), "wgate": col, "wup": col,
+          "wdown": (mp_axis, None)}
+    return {"tok": rep2}, bp, {"ln_f": (None,), "lm": rep2}
+
+
+def llama_paged_page_spec(mp_axis: str = "mp"):
+    """The sharding of one side of the paged-KV store (JAX
+    ``llama_paged_page_spec``): the KV-head axis, axis 1 of the ``[L, Hkv,
+    NP + 1, ps, D]`` data pages and of the ``[L, Hkv, NP + 1, ps]`` scale
+    pages, split over ``mp_axis``; one spec for the raw and the quantized
+    store alike."""
+    return (None, mp_axis)
+
+
+def shard_llama_paged_params(params, rank: int, size: int):
+    """Rank ``rank``'s shard, of ``size``, of the full paged-decode
+    parameters ``(ep, bp, hp)`` per :func:`llama_paged_param_specs`:
+    ``wq wk wv wgate wup`` cut into column blocks, ``wdown`` into row
+    blocks, ``wo``, the norms, ``tok`` and ``lm`` passed as they are.  A
+    rank's column block r holds heads ``r * nh / size ..``, the global head
+    order the attention all-gather restores."""
+    ep, bp, hp = params
+    specs = llama_paged_param_specs()[1]
+    return ep, shard_llama_block_params(bp, rank, size, specs), hp
+
+
+def _mp_degree(mesh, mp_axis):
+    """The size of ``mp_axis`` of ``mesh`` (1 without a mesh); raises where
+    the mesh lacks the axis, as JAX's ``mesh.shape[mp_axis]`` does."""
+    if mesh is None:
+        return 1
+    from ..distributed.topology import require_axis
+    require_axis(mesh, mp_axis)
+    return int(mesh.size(list(mesh.mesh_dim_names).index(mp_axis)))
+
+
 def gather_kv_pages(store, idx):
     """Pages ``idx`` of one side of the paged-KV store (a raw tensor or a
     quantized ``{"q", "s"}`` dict alike), in ``idx`` order.  The page axis
@@ -369,7 +419,8 @@ def _copy_pages(leaf, ids, plane):
 def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
                              num_pages: int = 64, dtype=None,
                              attention_impl: str = "auto", device=None,
-                             kv_dtype=None):
+                             kv_dtype=None, mesh=None, mp_axis: str = "mp",
+                             quantized_allreduce: bool = False):
     """Paged-KV serving functions; returns
     ``(init_pages, prefill, prefill_chunk, decode_step, verify_step)``.
 
@@ -425,22 +476,55 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
 
     Every gather whose result the JAX code masks afterwards is clamped
     here: JAX clips or fills an out-of-range index where torch raises, and
-    the rows it touches (padding positions) go only to the trash page."""
+    the rows it touches (padding positions) go only to the trash page.
+
+    ``mesh`` (tensor-parallel serving): a ``topology.build_mesh`` mesh whose
+    ``mp_axis`` has tp > 1 ranks makes every function this rank's part of
+    the head-sharded model.  The functions then take this rank's shard of
+    the parameters (:func:`shard_llama_paged_params`; JAX's take the full
+    parameters and ``shard_map`` cuts them), the pages hold this rank's
+    ``Hkv / tp`` KV heads (``[L, Hkv / tp, NP + 1, ps, D]``, scale planes
+    alike), and each layer pushes its local heads through the one ragged
+    attention call, then pays two collectives over the axis's group
+    (``topology.axis_group``): an all-gather of the heads' outputs in
+    global head order before the replicated ``wo`` (exact: ``wo``'s
+    product equals one card's), and the ONE all-reduce of the ``wdown``
+    partials (the f32 sum, or the EQuARX int8 grid with
+    ``quantized_allreduce``; ``distributed.quant_collectives``).  Logits
+    come out replicated, so every rank samples the same greedy token.
+    Requires tp | num_key_value_heads (hence tp | num_attention_heads);
+    MoE blocks are not supported.  Every rank calls every function in the
+    same order (the collectives pair up across ranks)."""
     if attention_impl not in ("auto", "kernel", "ref"):
         raise ValueError(f"attention_impl must be auto, kernel or ref, "
                          f"got {attention_impl!r}")
     attend = ragged_paged_attention_ref if attention_impl == "ref" \
         else ragged_paged_attention
     c = config
+    tp = _mp_degree(mesh, mp_axis)
+    if tp > 1:
+        if getattr(c, "num_experts", 1) > 1:
+            raise NotImplementedError(
+                "tensor-parallel paged decode does not support MoE blocks")
+        if c.num_key_value_heads % tp or c.num_attention_heads % tp:
+            raise ValueError(
+                f"mp={tp} must divide num_key_value_heads="
+                f"{c.num_key_value_heads} (and num_attention_heads="
+                f"{c.num_attention_heads}) to head-shard paged decode")
+        from ..distributed.communication.collectives import all_gather
+        from ..distributed.quant_collectives import allreduce
+        from ..distributed.topology import axis_group
+        group = axis_group(mp_axis, mesh)
     d = torch.float32 if dtype is None else dtype
     dev = resolve_device(device)
     if kv_dtype is not None:
         kv_storage, kv_qmax = kv_spec(kv_dtype)
     head_dim = c.hidden_size // c.num_attention_heads
     L = c.num_hidden_layers
-    nkv = c.num_key_value_heads
     nh = c.num_attention_heads
-    rep = nh // nkv
+    rep = nh // c.num_key_value_heads
+    nkv = c.num_key_value_heads // tp          # this rank's heads
+    nh_l = nh // tp
     eps = c.rms_norm_eps
     max_pos = c.max_position_embeddings
     TRASH = num_pages
@@ -473,15 +557,27 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
     def _qkv(x, lp, sin, cos):
         lead = x.shape[:-1]
         h = rms_norm_ref(x, lp["ln1"], eps)
-        q = (h @ lp["wq"]).reshape(*lead, nh, head_dim)
+        q = (h @ lp["wq"]).reshape(*lead, nh_l, head_dim)
         k = (h @ lp["wk"]).reshape(*lead, nkv, head_dim)
         v = (h @ lp["wv"]).reshape(*lead, nkv, head_dim)
         return _rope_at(q, sin, cos), _rope_at(k, sin, cos), v
 
+    def _out(o, lp):
+        """The heads' outputs ``o [..., nh_l, D]`` through ``wo``: at tp > 1
+        first all-gathered over the group into ``[..., nh, D]``, rank r's
+        block r in global head order (JAX's ``_gather_heads``)."""
+        if tp > 1:
+            o = torch.cat(all_gather(None, o.contiguous(), group).unbind(0),
+                          dim=-2)
+        return o.reshape(*o.shape[:-2], nh * head_dim) @ lp["wo"]
+
     def _mlp(x, lp):
         h = rms_norm_ref(x, lp["ln2"], eps)
         ff = F.silu(h @ lp["wgate"]) * (h @ lp["wup"])
-        return x + ff @ lp["wdown"]
+        y = ff @ lp["wdown"]
+        if tp > 1:                 # the layer's one all-reduce
+            y = allreduce(y, group, quantized=quantized_allreduce)
+        return x + y
 
     def _scatter(store_l, vals, page, off):
         """Write rows ``vals [..., Hkv, D]`` into the layer's store at
@@ -538,7 +634,7 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
             s = s.masked_fill(~mask[None], float("-inf"))
             p = torch.softmax(s, dim=-1).to(x.dtype)
             o = torch.einsum("hqk,khd->qhd", p, vf)
-            x = x + o.reshape(T, nh * head_dim) @ lp["wo"]
+            x = x + _out(o, lp)
             x = _mlp(x, lp)
         return _head(hp, x[int(true_len) - 1]), pages_k, pages_v
 
@@ -570,7 +666,7 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
             _scatter(vc_l, v, page, off)
             o = _attn(q[None], kc_l, vc_l, page_tab, start_r, clen_r,
                       kvlen_r)[0]
-            x = x + o.reshape(C, nh * head_dim) @ lp["wo"]
+            x = x + _out(o, lp)
             x = _mlp(x, lp)
         logits = _head(hp, x[int(chunk_len) - 1])
         return logits, torch.argmax(logits).to(torch.int32), pages_k, pages_v
@@ -601,7 +697,7 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
             _scatter(vc_l, v, page, off)
             o = _attn(q[:, None], kc_l, vc_l, tables, pos32, n_q,
                       eff_len)[:, 0]
-            x = x + o.reshape(S, nh * head_dim) @ lp["wo"]
+            x = x + _out(o, lp)
             x = _mlp(x, lp)
         return _head(hp, x), pages_k, pages_v
 
@@ -632,7 +728,7 @@ def build_llama_paged_decode(config: LlamaConfig, page_size: int = 16,
             _scatter(kc_l, k, page, off)
             _scatter(vc_l, v, page, off)
             o = _attn(q, kc_l, vc_l, tables, q_start, q_len, kv_len)
-            x = x + o.reshape(S, Q, nh * head_dim) @ lp["wo"]
+            x = x + _out(o, lp)
             x = _mlp(x, lp)
         logits = _head(hp, x)                              # [S, Q, V] f32
         return (logits[:, 0], torch.argmax(logits, dim=-1).to(torch.int32),

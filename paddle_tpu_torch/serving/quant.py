@@ -129,24 +129,48 @@ def _run_engine(factory, scenarios):
     return [[int(t) for t in done[r].generated] for r in rids], eng
 
 
+def _build_params(params, build_kw):
+    """``params`` as the functions a ``build_kw`` build makes take them:
+    this rank's shard where the build is tensor-parallel (a ``mesh`` whose
+    ``mp_axis`` has more than one rank), else as they are."""
+    from ..distributed.topology import axis_group
+    from ..models.llama import _mp_degree, shard_llama_paged_params
+    mesh = build_kw.get("mesh")
+    axis = build_kw.get("mp_axis", "mp")
+    tp = _mp_degree(mesh, axis)
+    if tp == 1:
+        return params
+    return shard_llama_paged_params(params, axis_group(axis, mesh).rank, tp)
+
+
 def logit_drift(params_ref, params_q, config, prompts, *, kv_dtype,
                 page_size: int = 8, steps: int = 8, dtype=None,
-                attention_impl: str = "auto", device=None):
+                attention_impl: str = "auto", device=None,
+                ref_build_kw=None, q_build_kw=None):
     """Max |logits_q - logits_ref| over a TEACHER-FORCED greedy decode:
     both page stores replay the reference's token trajectory, so the drift
     measures each step's quantization error on its own (a free-running
     comparison would conflate one early argmax flip with everything after
-    it).  Returns (max drift, per-prompt lists of per-step drifts)."""
+    it).  Returns (max drift, per-prompt lists of per-step drifts).
+
+    ``ref_build_kw`` / ``q_build_kw``: extra ``build_llama_paged_decode``
+    arguments per arm — how the quantized all-reduce is drifted against
+    the f32-collective build: both arms ``mesh=<mesh>``, the q arm also
+    ``quantized_allreduce=True``, with ``kv_dtype=None``.  A
+    tensor-parallel arm takes this rank's shard of its parameters, and
+    every rank of the mesh calls this function alike."""
     from .. import resolve_device
     from ..models.llama import build_llama_paged_decode
 
     dev = resolve_device(device)
     per = max(math.ceil((len(p) + steps) / page_size) for p in prompts)
+    bkw = {"ref": dict(ref_build_kw or {}), "q": dict(q_build_kw or {})}
     builds = {tag: build_llama_paged_decode(
         config, page_size=page_size, num_pages=per + 1, dtype=dtype,
-        attention_impl=attention_impl, device=dev, kv_dtype=kvd)
+        attention_impl=attention_impl, device=dev, kv_dtype=kvd, **bkw[tag])
         for tag, kvd in (("ref", None), ("q", kv_dtype))}
-    prm = {"ref": params_ref, "q": params_q}
+    prm = {"ref": _build_params(params_ref, bkw["ref"]),
+           "q": _build_params(params_q, bkw["q"])}
     i32 = dict(dtype=torch.int32, device=dev)
     drifts = []
     for prompt in prompts:
@@ -179,7 +203,7 @@ def logit_drift(params_ref, params_q, config, prompts, *, kv_dtype,
 def parity_report(params, config, *, kv_dtype="int8", quantize=8,
                   scenarios=None, engine_kw=None, drift_steps=8,
                   drift_prompts=2, ref_engine_kw=None, q_engine_kw=None,
-                  device=None):
+                  ref_build_kw=None, q_build_kw=None, device=None):
     """Greedy exact-match rate and max logit drift of the quantized serving
     plane against the unquantized engine on the standard scenarios.
 
@@ -191,7 +215,11 @@ def parity_report(params, config, *, kv_dtype="int8", quantize=8,
     ``max_logit_drift`` (:func:`logit_drift` over the first
     ``drift_prompts`` scenarios), with ``mismatched`` request indices.
     ``ref_engine_kw`` / ``q_engine_kw`` merge per arm on top of
-    ``engine_kw``.  Deterministic for given params, config and scenarios."""
+    ``engine_kw`` — with both arms ``mesh=<mesh>``, the q arm
+    ``quantized_allreduce=True`` and ``kv_dtype=None, quantize=None``, the
+    report measures the quantized all-reduce alone; ``ref_build_kw`` /
+    ``q_build_kw`` forward to :func:`logit_drift` the same way.
+    Deterministic for given params, config and scenarios."""
     from ..inference.paged import ServingEngine
 
     kw = dict(num_slots=4, page_size=8, attention_impl="auto",
@@ -227,7 +255,8 @@ def parity_report(params, config, *, kv_dtype="int8", quantize=8,
             [p for p, _m in scenarios[:drift_prompts]], kv_dtype=kv_dtype,
             page_size=kw["page_size"], steps=drift_steps,
             dtype=kw.get("dtype"), attention_impl=kw["attention_impl"],
-            device=ref_eng.device)
+            device=ref_eng.device, ref_build_kw=ref_build_kw,
+            q_build_kw=q_build_kw)
     ref_eng.check_invariants()
     q_eng.check_invariants()
     return {

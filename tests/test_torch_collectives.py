@@ -20,6 +20,45 @@ def gang(tmp_path_factory):
                     str(tmp_path_factory.mktemp("collectives")))
 
 
+def _jax_avg(rows):
+    """JAX's eager ``all_reduce(op=AVG, sync_op=False)`` of a tensor whose
+    rows (one a rank) are sharded over a 2-device ``dp`` mesh: every
+    rank's row after the call."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import paddle_tpu.distributed as jdist
+    from paddle_tpu.core.tensor import Tensor
+    from paddle_tpu.distributed.topology import build_mesh
+    mesh = build_mesh({"dp": 2}, devices=jax.devices()[:2])
+    v = jax.device_put(jnp.asarray(rows, jnp.float32),
+                       NamedSharding(mesh, P("dp")))
+    t = Tensor(v)
+    jdist.all_reduce(t, op=jdist.ReduceOp.AVG, sync_op=False)
+    return np.asarray(t._value).tolist()
+
+
+@pytest.mark.parametrize("name", ["async_avg_all_reduce",
+                                  "async_avg_tracked", "async_avg_reduce",
+                                  "async_avg_reduce_scatter"])
+def test_avg_without_sync_op_divides_on_wait(gang, name):
+    """``ReduceOp.AVG`` with ``sync_op=False`` gives the mean once its task
+    is waited on (directly or through the watchdog's manager), as JAX's
+    eager ``all_reduce`` gives it for the same rows (JAX's ``reduce`` is
+    its ``all_reduce``).  JAX's ``reduce_scatter`` sums whatever the op,
+    so that case is held against the port's own synchronous AVG and the
+    analytic mean of the rows ``arange(4) + rank``."""
+    if name == "async_avg_reduce_scatter":
+        for r in gang:
+            assert r[name] == r["sync_avg_reduce_scatter"]
+        assert gang[0][name] == [0.5, 1.5] and gang[1][name] == [2.5, 3.5]
+        return
+    want = _jax_avg([[2.0, -1.0], [3.0, -2.0]])
+    assert gang[0][name] == want[0]
+    if name != "async_avg_reduce":
+        assert gang[1][name] == want[1]
+
+
 def test_all_reduce_sums_over_two_processes(gang):
     for r in gang:
         assert r["backend"] == "gloo" and r["world"] == 2

@@ -372,3 +372,26 @@ def test_sequence_classification_matches_jax(dropout):
     for n, g in zip(names, tgrads):
         np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[n]),
                                    err_msg=n, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("act", ["relu", "silu"])
+def test_hidden_act_by_name_matches_jax(act):
+    """``hidden_act`` names any activation of the functional module, as
+    JAX's ``getattr(F, c.hidden_act)`` does: the tiny ERNIE with ``relu``
+    or ``silu`` gives JAX's MLM logits within 1e-4 (eval mode)."""
+    kw = dict(KW, hidden_act=act)
+    paddle.seed(0)
+    jmodel = JMaskedLM(JConfig(**kw))
+    jmodel.eval()
+    tmodel = ErnieForMaskedLM(ErnieConfig(**kw), device="cpu")
+    _crossed(jmodel, tmodel)
+    tmodel.eval()
+    ids, _, _ = _batch("plain")
+    want = np.asarray(jax.jit(lambda i: jmodel(Tensor(i))._value)(
+        jnp.asarray(ids)))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="no_such_act"):
+        ErnieForMaskedLM(ErnieConfig(**dict(KW, hidden_act="no_such_act")),
+                         device="cpu")

@@ -141,6 +141,38 @@ def _jax_group_sharded(out_root, steps=3):
     return out
 
 
+def _jax_clipped(clip, steps=3):
+    """JAX's eager ``group_sharded_parallel("os_g", offload=True)`` on a
+    2-device ``dp`` mesh with ``clip`` on the AdamW (the rank script's
+    ``eager_clipped``), the whole batch a step: the parameters after
+    ``steps`` steps."""
+    import paddle_tpu as paddle
+    from paddle_tpu import optimizer
+    from paddle_tpu.distributed import topology
+    from paddle_tpu.distributed.sharding import group_sharded_parallel
+    from paddle_tpu.nn.clip import ClipGradByNorm, ClipGradByValue
+    init = _init_params(jax.random.PRNGKey(0))
+    x, y = (paddle.to_tensor(np.asarray(a)) for a in _data())
+    prev = topology._DEFAULT_MESH
+    topology.set_default_mesh(topology.build_mesh(
+        {"dp": 2}, devices=jax.devices()[:2]))
+    try:
+        model = _jax_mlp(init)
+        opt = optimizer.AdamW(
+            learning_rate=1e-2, parameters=model.parameters(),
+            grad_clip=ClipGradByNorm(0.05) if clip == "norm"
+            else ClipGradByValue(0.01))
+        model, opt, _ = group_sharded_parallel(model, opt, "os_g",
+                                               offload=True)
+        for _ in range(steps):
+            model(x, y).backward()
+            opt.step()
+            opt.clear_grad()
+        return {k: np.asarray(getattr(model, k).numpy()) for k in NAMES}
+    finally:
+        topology._DEFAULT_MESH = prev
+
+
 def _jax_oracle(out_root):
     """JAX's ShardedTrainStep on a 2-device mesh: each stage's losses,
     parameters after 3 steps and bytes per device; the clipped stage-2
@@ -158,6 +190,7 @@ def _jax_oracle(out_root):
         clip = _jax_step(2, clip_norm=0.05)
         out["clip"] = [float(clip(data)) for _ in range(4)]
         out["eager"] = _jax_group_sharded(out_root)
+        out["clipped"] = {c: _jax_clipped(c) for c in ("norm", "value")}
     return out
 
 
@@ -275,6 +308,23 @@ def test_group_sharded_parallel_levels(gang, jax_ref, level, want):
                                        want_params[k], err_msg=k, **TOL)
         assert got["gap"] < 1e-5
         assert got["counts"] == want
+
+
+@pytest.mark.parametrize("clip", ["norm", "value"])
+def test_group_sharded_parallel_applies_each_clip_like_jax(gang, jax_ref,
+                                                          clip):
+    """``group_sharded_parallel("os_g", offload=True)`` (``offload``
+    accepted and ignored, as JAX's is) under a ``ClipGradByNorm`` (each
+    tensor's whole norm from its slices) or a ``ClipGradByValue`` (each
+    slice clipped as it is) on the optimizer ends where JAX's
+    ``group_sharded_parallel`` with the same clip on a 2-device mesh ends
+    after 3 steps (the clips act: 0.05 and 0.01 are under the gradients'
+    norms and largest elements)."""
+    want = jax_ref["clipped"][clip]
+    for r in gang:
+        for k in NAMES:
+            np.testing.assert_allclose(np.asarray(r[f"clip_{clip}"][k]),
+                                       want[k], err_msg=k, **TOL)
 
 
 @pytest.mark.parametrize("level", LEVELS)

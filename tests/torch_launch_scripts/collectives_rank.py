@@ -111,6 +111,28 @@ def main(out_dir):
     mgr.track("all_reduce", dist.all_reduce(t, sync_op=False), t)
     mgr.wait_all()
     res["tracked"] = as_list(t)
+    # ReduceOp.AVG with sync_op=False: the mean lands when the task is
+    # waited on (directly, or through the watchdog's manager)
+    t = torch.tensor([rank + 2.0, -rank - 1.0])
+    dist.all_reduce(t, op=dist.ReduceOp.AVG, sync_op=False).wait()
+    res["async_avg_all_reduce"] = as_list(t)
+    t = torch.tensor([rank + 2.0, -rank - 1.0])
+    mgr.track("all_reduce", dist.all_reduce(t, op=dist.ReduceOp.AVG,
+                                            sync_op=False), t)
+    mgr.wait_all()
+    res["async_avg_tracked"] = as_list(t)
+    t = torch.tensor([rank + 2.0, -rank - 1.0])
+    task = dist.reduce(t, dst=0, op=dist.ReduceOp.AVG, sync_op=False)
+    task.wait()
+    res["async_avg_reduce"] = as_list(t) if rank == 0 else None
+    t = torch.zeros(2)
+    dist.reduce_scatter(t, torch.arange(4.0).reshape(2, 2) + rank,
+                        op=dist.ReduceOp.AVG, sync_op=False).wait()
+    res["async_avg_reduce_scatter"] = as_list(t)
+    t = torch.zeros(2)
+    dist.reduce_scatter(t, torch.arange(4.0).reshape(2, 2) + rank,
+                        op=dist.ReduceOp.AVG)
+    res["sync_avg_reduce_scatter"] = as_list(t)
     # last (a timed-out gloo pair is not used again): rank 0 waits on a
     # receive rank 1 never sends; rank 1 stays alive past the deadline
     if rank == 0:

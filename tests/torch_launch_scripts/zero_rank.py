@@ -109,6 +109,28 @@ def eager_level(params, level, x, y, out_dir, steps=3):
             "released": released, "saved": saved}
 
 
+def eager_clipped(params, clip, x, y, steps=3):
+    """``group_sharded_parallel("os_g", offload=True)`` on this rank's half
+    of the batch with ``clip`` ("norm": ``ClipGradByNorm(0.05)``, "value":
+    ``ClipGradByValue(0.01)``) on the inner AdamW; the parameters after
+    ``steps`` steps."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.nn.clip import ClipGradByNorm, ClipGradByValue
+    rank, world = dist.get_rank(), dist.get_world_size()
+    half = len(x) // world
+    xs, ys = x[rank * half:(rank + 1) * half], y[rank * half:(rank + 1) * half]
+    model = MLP(params)
+    opt = AdamW(learning_rate=1e-2, parameters=list(model.parameters()),
+                grad_clip=ClipGradByNorm(0.05) if clip == "norm"
+                else ClipGradByValue(0.01))
+    model, opt, _ = group_sharded_parallel(model, opt, "os_g", offload=True)
+    for _ in range(steps):
+        model(xs, ys).backward()
+        opt.step()
+        opt.clear_grad()
+    return {k: as_list(getattr(model, k)) for k in NAMES}
+
+
 def main(out_dir):
     rank, world = start()
     npz = np.load(os.path.join(out_dir, "params.npz"))
@@ -139,6 +161,8 @@ def main(out_dir):
     res["s3_bucket_remat_counts"] = dist.collective_counts()
     for level in ("os", "os_g", "p_g_os"):
         res[f"eager_{level}"] = eager_level(params, level, x, y, out_dir)
+    for clip in ("norm", "value"):
+        res[f"clip_{clip}"] = eager_clipped(params, clip, x, y)
     dump(out_dir, res)
 
 
