@@ -16,8 +16,10 @@ mode, MobileNet V1 / V2 / V3-Large, DenseNet-121 and Inception-v3 at
 B 256, the rest of the vision zoo and the detection ops; and the train
 loop's exterior — ERNIE-3.0-base through ``TrainStep`` with a checkpoint
 resumed, ResNet-50 and ERNIE fine-tuning through ``hapi.Model.fit`` over
-``io.DataLoader``, the quantized plane's parity report — with random
-weights made from a seed:
+``io.DataLoader``, the quantized plane's parity report; the distributed,
+pipeline, tensor- and sequence-parallel paths at world 1; and the
+Mixtral-style MoE LLaMA at Mixtral-8x7B's widths, 2 layers deep — with
+random weights made from a seed:
 
   1. build     nvcc for every kernel source, all started together, and
                ptxas's registers and spills of the mma.sync dK/dV and of
@@ -348,6 +350,24 @@ weights made from a seed:
                TRAIN_TOL against a direct ``flash_attention`` call, rows
                3 / 5 / 6 once each per call; ``ulysses_attention`` against
                the same call; forward + backward ms in turns;
+               (z) the Mixtral-style MoE LLaMA at Mixtral-8x7B's widths
+               (hidden 4,096, 8 experts of 14,336, top-2, GQA 32:8 at D
+               128, vocab 32,000, rope theta 1e6), 2 layers (the first
+               step must peak below 75 GiB), B 4 x S 2,048, capacity
+               factor 1.25: (a) ``build_functional_llama`` through
+               ``make_train_step`` (bf16, head_chunks 8, fused AdamW) — ms
+               a step, tokens/s, mfu_share on the active parameters, peak
+               memory, each layer's share of token-slots dropped, one
+               step under torch.profiler with a "moe route" group, rows
+               3/5/6/7/8/9 launches and the wgmma bodies at D 128
+               asserted; (b) the same through ``Pipeline1F1BTrainStep`` on
+               ``{"pp": 1, "ep": 1}`` over NCCL in 4 microbatches — ms a
+               step against (a)'s, the collectives a step (two
+               all-to-alls a layer a microbatch each way), launches from
+               the schedule; (c) the eager ``LlamaForCausalLM``, 1 layer,
+               two steps with its balance loss and fused AdamW — each
+               loss finite, the balance term and the gate's gradient
+               nonzero;
   4. engine    a 2-layer f32 engine at 7B widths with margin-engineered
                weights gives the same greedy tokens with the kernel as with
                the plain version, and with overlap=True, for f32, int8 and
@@ -391,7 +411,13 @@ weights made from a seed:
                (pp 1: the micro-batch accumulation) and
                ``GenericPipeline1F1BTrainStep``
                on a ``PipelineLayer`` of four ``Linear``s against the same
-               model's eager steps;
+               model's eager steps; (k) one f32 MoE step at
+               Mixtral-8x7B's widths, 1 layer, B 1 x S 1,024 (the gate's
+               logits x16), kernels against plain versions under (b)'s
+               gates, and on that step's tensors the routed dispatch
+               against the einsum over ``top_k_gating``'s mask (bit for
+               bit) and the routed combine against its einsum (1e-6 of
+               the largest);
   5. timing    (the design steps' compile-time variants build at nice 19
                in a process of their own from phase 2 on, stopped while
                anything host-bound is timed; phase 5 waits for them) each
@@ -1049,6 +1075,8 @@ def fp8_code_table(pa):
 TRAIN_ATTN_CASES = [
     ("train shape", (8, 2048, 2048, 16, 16, 64), True, torch.bfloat16),
     ("GQA 16:4 D=128", (2, 512, 512, 16, 4, 128), True, torch.bfloat16),
+    # 3z's attention: Mixtral-8x7B's GQA 32:8 at D 128, B 4 x S 2,048
+    ("3z GQA 32:8 D=128", (4, 2048, 2048, 32, 8, 128), True, torch.bfloat16),
     ("f32 GQA 4:2", (2, 256, 256, 4, 2, 64), True, torch.float32),
     ("s_q < s_k non-causal", (2, 128, 384, 8, 4, 64), False, torch.float32),
     ("s_q < s_k causal", (1, 128, 384, 4, 4, 128), True, torch.float32),
@@ -3615,12 +3643,13 @@ def train_config(layers=16):
                        max_position_embeddings=2048)
 
 
-def make_train_step(cfg, dtype, kernels, seed=0, mp_axis=None):
+def make_train_step(cfg, dtype, kernels, seed=0, mp_axis=None, fused=False):
     """bench.py's step: build_functional_llama(n_micro=1, head_chunks=8),
     loss = embed -> L blocks -> chunked head, gradients of every leaf, then
-    one AdamW(lr=1e-4, weight_decay=0.01) update per parameter tree
-    (``mp_axis``: the blocks tensor-parallel over that axis of the default
-    mesh).  Returns (step(batch) -> (loss, grads), trees, n_params)."""
+    one AdamW(lr=1e-4, weight_decay=0.01, ``fused``: row 9 a tensor)
+    update per parameter tree (``mp_axis``: the blocks tensor-parallel over
+    that axis of the default mesh).  Returns (step(batch) -> (loss,
+    grads), trees, n_params)."""
     from paddle_tpu_torch.models.llama import build_functional_llama
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import _flatten
@@ -3630,7 +3659,7 @@ def make_train_step(cfg, dtype, kernels, seed=0, mp_axis=None):
         kernels=kernels, mp_axis=mp_axis)
     trees = (ep, bp, hp)
     leaves = [v.requires_grad_(True) for t in trees for v in t.values()]
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, fused=fused)
     states = [opt.init_opt_state(_flatten(t), device="cuda") for t in trees]
 
     def step(batch, marks=None):
@@ -3732,7 +3761,32 @@ ERNIE_GROUPS = (("fa_fwd", ("fa_fwd_",)),
                 ("matmul", MATMUL_NAMES))
 
 
-def profile_rows(run):
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+def linked_sequence_numbers(events, link):
+    """The sequence numbers of the autograd nodes that ops inside a
+    ``link`` range of the forward made.  An op that makes no node records
+    the number the next node will take, so a number belongs to the op that
+    carried it last; the backward's ops (under a ``BACKWARD_NODE`` event)
+    are not the forward's."""
+    last = {}
+    for ev in events:
+        if ev.sequence_nr < 0:
+            continue
+        chain, up = [], ev
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        if any(n.startswith(BACKWARD_NODE) for n in chain):
+            continue
+        start = ev.time_range.start
+        if ev.sequence_nr not in last or start >= last[ev.sequence_nr][0]:
+            last[ev.sequence_nr] = (start, link in chain)
+    return {n for n, (_, inside) in last.items() if inside}
+
+
+def profile_rows(run, link=None):
     """``run()`` once under torch.profiler: (kernels, ops, kernel ms).
     ``kernels`` holds a row ((name,), device ms, count) per kernel name,
     ``ops`` a row (names, device ms, launches) per op that launched
@@ -3742,7 +3796,10 @@ def profile_rows(run):
     Request") can run inside an op under the op's id: each id is counted
     once, at its outermost event.  The kernels that no op claims make one
     op row, "(no op)", of the kernels' ms less the ops' (negative if an
-    op's kernels were counted twice)."""
+    op's kernels were counted twice).  With ``link``, the name of a
+    ``record_function`` range, an op of the backward whose autograd node
+    an op inside such a range made (:func:`linked_sequence_numbers`) takes
+    ``link`` as its outermost name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3750,8 +3807,12 @@ def profile_rows(run):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    events = prof.events()
+    linked = linked_sequence_numbers(events, link) if link else set()
     kernels, claims = {}, {}
-    for ev in prof.events():
+    for ev in events:
+        if getattr(ev, "is_user_annotation", False):
+            continue            # a record_function range, not a kernel
         if ev.device_type == DeviceType.CUDA:
             row = kernels.setdefault(ev.name, [0.0, 0])
             row[0] += ev.time_range.elapsed_us() / 1e3
@@ -3761,10 +3822,13 @@ def profile_rows(run):
     ops = []
     for evs in claims.values():
         ev = min(evs, key=lambda e: (e.time_range.start, -e.time_range.end))
-        names, up = [], ev
+        names, up, tagged = [], ev, False
         while up is not None:
             names.append(up.name)
+            tagged |= up.name.startswith(BACKWARD_NODE) \
+                and up.sequence_nr in linked
             up = up.cpu_parent
+        names += [link] if tagged else []
         ops.append((tuple(names), sum(k.duration for k in ev.kernels) / 1e3,
                     len(ev.kernels)))
     device = sum(ms for ms, _ in kernels.values())
@@ -4056,9 +4120,15 @@ def phase_train_check(B=8, S=2048):
         runs.append((float(loss), [g.detach() for g in grads],
                      [v.detach() for t in trees for v in t.values()]))
         del step, trees
-    (l0, g0, p0), (l1, g1, p1) = runs
-    print(f"  2-layer f32 step at full width, B={B} S={S}: loss plain "
-          f"{l0:.7f}, kernels {l1:.7f}")
+    hold_train_pair(f"2-layer f32 step at full width, B={B} S={S}", *runs)
+
+
+def hold_train_pair(what, plain, kern):
+    """Phase 4b's (and 4k's) gates on two f32 train steps from the same
+    weights and batch, each (loss, gradients, updated parameters): the
+    loss, every gradient and every updated parameter."""
+    (l0, g0, p0), (l1, g1, p1) = plain, kern
+    print(f"  {what}: loss plain {l0:.7f}, kernels {l1:.7f}")
     require(abs(l1 - l0) <= 1e-5 * abs(l0), "loss differs (rtol 1e-5)")
     # gradients: max abs difference within 1e-4 of the tensor's max |grad|
     # (f32 sums in other orders through two layers)
@@ -8557,6 +8627,410 @@ def phase_ring_attention(pa, fa, B=8, S=2048, H=16, D=64):
     return dict(ms=ms, launches=launches["ring"], max_abs_err=err)
 
 
+# -- phase 3z / 4k: the Mixtral-style MoE LLaMA -------------------------------
+# Mixtral-8x7B-v0.1's published config.json widths; the depth is cut from 32
+# layers to fit one card, the context (32,768 there) to 3c's 2,048, and the
+# capacity factor stays at the repo's 1.25 (Mixtral routes without drops)
+MIXTRAL_WIDTHS = dict(vocab_size=32000, hidden_size=4096,
+                      intermediate_size=14336, num_attention_heads=32,
+                      num_key_value_heads=8, rope_theta=1e6,
+                      rms_norm_eps=1e-5, num_experts=8, moe_topk=2,
+                      max_position_embeddings=2048)
+MOE_LAYERS = 2
+MOE_PEAK_GIB = 75.0          # 3z (a)'s first step peaks below it
+MOE_STEPS = (3, 10)          # warm-up and timed steps of 3z (a)
+MOE_PIPE_STEPS = (2, 3)      # of 3z (b)
+MOE_MICRO = 4
+MOE_GROUPS = TRAIN_GROUPS + (("adamw", ("adamw_kernel",)),)
+# the backward nodes that the routing's ranges (gating, dispatch, combine)
+# must make at least: a profile that links none of them to the forward
+# measured no backward of the routing
+MOE_ROUTE_NODES = {"SoftmaxBackward0", "TopkBackward0", "IndexCopyBackward0",
+                   "IndexSelectBackward0"}
+# 4k's gate logits scaled so that no top-2 choice sits within f32's reach
+# of a tie (JAX's 0.02 gives ~1 logit of spread at H 4,096)
+MOE_CHECK_GATE_GAIN = 16.0
+
+
+def moe_config(layers=MOE_LAYERS):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(num_hidden_layers=layers, **MIXTRAL_WIDTHS)
+
+
+def moe_active_params(cfg):
+    """The parameters a token's products run through: attention's q, k, v
+    and o, the gate and k of the E experts a layer, and the LM head (the
+    embedding is a lookup; the norms are left out)."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * H // cfg.num_attention_heads
+    layer = 2 * H * H + 2 * H * kv + H * cfg.num_experts \
+        + cfg.moe_topk * 3 * H * I
+    return cfg.num_hidden_layers * layer + H * cfg.vocab_size
+
+
+class RoutingTaps:
+    """Within the block, every routing the MoE blocks compute (``gate.
+    route``, looked up where the blocks call it) and, with ``keep``, its
+    logits and the inputs of every routed dispatch and combine."""
+
+    def __init__(self, keep=False):
+        self.keep = keep
+        self.routes, self.logits = [], []
+        self.dispatches, self.combines = [], []
+
+    def __enter__(self):
+        from paddle_tpu_torch.incubate.distributed.models.moe import (
+            gate, moe_layer)
+        self.saved = [(gate, "route"), (moe_layer, "dispatch_routed"),
+                      (moe_layer, "combine_routed")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        route, dispatch, combine = (fn for _, _, fn in self.saved)
+
+        def tap_route(logits, *a, **kw):
+            r = route(logits, *a, **kw)
+            self.routes.append(r)
+            if self.keep:
+                self.logits.append(logits.detach())
+            return r
+
+        def tap_dispatch(x, r):
+            if self.keep:
+                self.dispatches.append((x.detach(), r))
+            return dispatch(x, r)
+
+        def tap_combine(y, r):
+            if self.keep:
+                self.combines.append((y.detach(), r))
+            return combine(y, r)
+        gate.route = tap_route
+        moe_layer.dispatch_routed = tap_dispatch
+        moe_layer.combine_routed = tap_combine
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+    def dropped(self):
+        """Each routing's share of (choice, token) pairs past capacity."""
+        return [1.0 - int(r.kept()) / r.weight.numel() for r in self.routes]
+
+    def margin(self):
+        """The smallest gap, in log-probabilities, between a token's k-th
+        and (k+1)-th choice over every routing."""
+        out = float("inf")
+        for r in self.routes:
+            lp = torch.sort(r.probs.detach().double().log(), dim=-1,
+                            descending=True).values
+            k = r.top_k
+            out = min(out, float((lp[:, k - 1] - lp[:, k]).min()))
+        return out
+
+
+def moe_route_ms(ops):
+    """Device ms of the routing in :func:`profile_rows`' op rows (made with
+    ``link="moe_route"``): the ops inside its ``moe_route`` ranges and the
+    backward ops of the nodes those made; and the backward nodes' kinds."""
+    rows = [(names, ms) for names, ms, _ in ops if "moe_route" in names]
+    kinds = {n[len(BACKWARD_NODE):] for names, _ in rows for n in names
+             if n.startswith(BACKWARD_NODE)}
+    return sum(ms for _, ms in rows), kinds
+
+
+def moe_functional(pa, fa, cfg, B, S, card):
+    """3z (a): ``build_functional_llama`` of ``cfg`` through
+    ``make_train_step`` (bf16, head_chunks 8, fused AdamW); returns the
+    step's numbers.  Its first step must peak below ``MOE_PEAK_GIB``."""
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    warm, steps = MOE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, trees, n_params = make_train_step(cfg, torch.bfloat16, True,
+                                            fused=True)
+    batch = train_batch(cfg, B, S)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    losses = [float(step(batch)[0])]
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(first_peak <= MOE_PEAK_GIB, f"3z (a): {L} layers peaked at "
+            f"{first_peak:.2f} GiB after one step (> {MOE_PEAK_GIB:g} GiB)")
+    losses += [float(step(batch)[0]) for _ in range(warm - 1)]
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    with CountPlainCalls() as plain:
+        t0 = time.perf_counter()
+        out = [step(batch)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    per_step = {k: v / steps for k, v in launches.items()}
+    losses += [float(x) for x in out]
+    leaves = sum(len(t) for t in trees)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"3z (a) losses {losses}")
+    want = dict({k: 0 for k in per_step}, fa_fwd=L, fa_dkv=L, fa_dq=L,
+                rms_fwd=2 * L + 1, rms_bwd=2 * L + 1, adamw=leaves)
+    require(per_step == want, f"3z (a) launches per step {per_step} != "
+            f"{want}")
+    require(not plain.calls, f"3z (a): plain versions ran: {plain.calls}")
+    require(counts(pa) == (0, 0, 0), "3z (a): paged attention ran")
+    require_bodies(fa, "3z's attention launches",
+                   H // cfg.num_attention_heads, False, False)
+    step_s = wall / steps
+    tokens_per_s = B * S / step_s
+    n_active = moe_active_params(cfg)
+    flop_per_token = 6.0 * n_active + 6.0 * L * S * H
+    mfu = flop_per_token * tokens_per_s / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with RoutingTaps() as taps:
+        step(batch)
+        torch.cuda.synchronize()
+    dropped = taps.dropped()
+    T = B * S
+    C = taps.routes[0].capacity
+    print(f"  {n_params / 1e9:.3f} B parameters ({L} layers: "
+          f"{cfg.num_experts} experts of {H} x {cfg.intermediate_size}, "
+          f"top-{cfg.moe_topk}, GQA {cfg.num_attention_heads}:"
+          f"{cfg.num_key_value_heads} at D {H // cfg.num_attention_heads}), "
+          f"{n_active / 1e9:.3f} B active a token; built in {build_s:.1f} s; "
+          f"B={B} S={S} bf16, T={T} tokens a layer, capacity {C} a "
+          f"expert (factor {cfg.moe_capacity_factor}), head_chunks=8, "
+          f"fused AdamW(lr=1e-4, wd=0.01)")
+    print(f"  loss per step ({warm} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {steps} steps in {wall:.3f} s: {step_s * 1e3:.1f} ms per "
+          f"step, {tokens_per_s:.1f} tokens/s, mfu_share {mfu:.4f} = "
+          f"(6 x {n_active / 1e9:.4f} B active + 6 x L {L} x S {S} x H {H}) "
+          f"= {flop_per_token / 1e9:.3f} GFLOP a token x tokens/s / 989 "
+          f"TFLOP/s, on {card}")
+    print(f"  peak device memory {peak:.2f} GiB (after one step "
+          f"{first_peak:.2f}); token-slots dropped by capacity, per layer: "
+          + ", ".join(f"{d:.4f}" for d in dropped))
+    print(f"  launches per step: {json.dumps(per_step)} (rows 3/5/6 = {L} "
+          f"layers, rows 7/8 = 2 x {L} + 1 norms, row 9 = {leaves} tensors)")
+    stages = stage_split(step, batch, ("forward", "backward", "adamw"))
+    rows, ops, busy = profile_rows(lambda: step(batch), link="moe_route")
+    groups, named = group_rows(rows, MOE_GROUPS)
+    groups["moe route"], kinds = moe_route_ms(ops)
+    groups["other"] -= groups["moe route"]
+    kernels = sum(k for _, _, k in rows)
+    require(all(groups[g] > 0 for g in ("fa_fwd", "fa_bwd", "rmsnorm",
+                                        "adamw", "moe route")),
+            f"3z (a): profiler groups {groups}")
+    require(MOE_ROUTE_NODES <= kinds, f"3z (a): the routing's backward "
+            f"nodes {sorted(kinds)} lack {sorted(MOE_ROUTE_NODES - kinds)}")
+    busy_line(busy, step_s, groups, kernels)
+    print("  'moe route' holds the ops in the moe_route ranges and the "
+          "backward of the nodes they made: " + ", ".join(sorted(kinds)))
+    print("  largest 'other' kernels: " + largest(named, "other"))
+    del step, trees, out
+    torch.cuda.empty_cache()
+    return dict(layers=L, step_ms=step_s * 1e3, tokens_per_s=tokens_per_s,
+                mfu=mfu, peak_gib=peak, losses=losses, launches=launches,
+                dropped=dropped, busy_ms=busy, groups=groups,
+                n_params=n_params, n_active=n_active, **stages)
+
+
+def moe_pipeline(pa, dist, cfg, B, S, a, card):
+    """3z (b): the same model and batch through ``Pipeline1F1BTrainStep``
+    on ``build_mesh({"pp": 1, "ep": 1})`` with the expert stacks split over
+    ep (``llama_block_specs(mp_axis=None, moe=True, ep_axis="ep")``), in
+    ``MOE_MICRO`` microbatches: two all-to-alls a layer a microbatch each
+    way, rows 3-9 as the schedule launches them."""
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models.llama import (init_llama_params,
+                                               llama_block_specs,
+                                               llama_microbatch_fns)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import Pipeline1F1BTrainStep
+    L, M = cfg.num_hidden_layers, MOE_MICRO
+    warm, steps = MOE_PIPE_STEPS
+    mesh = topology.set_default_mesh(topology.build_mesh({"pp": 1,
+                                                          "ep": 1}))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ep, bp, hp = init_llama_params(cfg, dtype=torch.bfloat16, device="cuda",
+                                   seed=0)
+    ea, ba, hl = llama_microbatch_fns(cfg, dtype=torch.bfloat16,
+                                      head_chunks=8, device="cuda",
+                                      ep_axis="ep")
+    step = Pipeline1F1BTrainStep(
+        mesh, ea, ba, hl, ep, bp, hp,
+        AdamW(learning_rate=1e-4, weight_decay=0.01, fused=True),
+        n_micro=M, device="cuda",
+        block_specs=llama_block_specs(mp_axis=None, moe=True, ep_axis="ep"))
+    del ep, bp, hp
+    batch = train_batch(cfg, B, S)
+    losses = [float(step(batch)) for _ in range(warm)]
+    torch.cuda.synchronize()
+    reset_counts(pa)
+    dist.reset_collective_counts()
+    with CountPlainCalls() as plain:
+        t0 = time.perf_counter()
+        got = [step(batch) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses += [float(x) for x in got]
+    per_step = {k: fn.launches / steps for k, fn in train_wrappers().items()}
+    comm = collectives_per_step(dist, steps)
+    leaves = sum(len(t) for t in step.trees)
+    want = pipeline_launches("1f1b", L, M, leaves)
+    require(per_step == want, f"3z (b) launches per step {per_step} != "
+            f"{want}")
+    require(not plain.calls, f"3z (b): plain versions ran: {plain.calls}")
+    require(comm.get("all_to_all") == 4.0 * L * M
+            and not comm.get("send") and not comm.get("recv"),
+            f"3z (b) collectives per step {comm}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"3z (b) losses {losses}")
+    ms = wall / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  Pipeline1F1BTrainStep on {{'pp': 1, 'ep': 1}} over "
+          f"{dist.get_backend()}, {M} microbatches of {B // M} x {S}; loss "
+          f"per step ({warm} warm-up + {steps} timed): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"    {ms:.1f} ms per step against (a)'s {a['step_ms']:.1f} "
+          f"({ms / a['step_ms']:.3f}x), {B * S / (ms / 1e3):.1f} tokens/s; "
+          f"peak {peak:.2f} GiB; collectives per step {json.dumps(comm)}; "
+          f"launches per step {json.dumps(per_step)} (= the schedule's) on "
+          f"{card}")
+    topology.reset_default_mesh()
+    del step, got
+    torch.cuda.empty_cache()
+    return dict(step_ms=ms, comm=comm, per_step=per_step, peak_gib=peak,
+                losses=losses)
+
+
+def moe_eager(pa, S, card, steps=2):
+    """3z (c): the eager ``LlamaForCausalLM`` at the same widths, 1 layer,
+    bf16, B 1 x S, the balance loss on (weight 0.01, GShard's random
+    routing in training), eager fused AdamW: each loss finite, the aux
+    term positive, the gate weight's gradient nonzero, rows 3/5/6/7/8/9
+    launched."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = moe_config(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01, fused=True)
+    ids = train_batch(cfg, 1, S)[0]
+    n_tensors = len(list(model.parameters()))
+    gate = model.model.layers[0].mlp.moe.gate
+    reset_counts(pa)
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, logits = model(ids, ids)
+        ce = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, cfg.vocab_size), ids.reshape(-1).long())
+        loss.backward()
+        g = float(gate.gate_weight.grad.float().abs().sum())
+        opt.step()
+        opt.clear_grad()
+        out.append((float(loss.detach()), float((loss - ce).detach())
+                    / cfg.moe_aux_loss_weight, g))
+        del logits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in train_wrappers().items()}
+    want = dict({k: 0 for k in launches}, fa_fwd=steps, fa_dkv=steps,
+                fa_dq=steps, rms_fwd=3 * steps, rms_bwd=3 * steps,
+                adamw=n_tensors * steps)
+    require(launches == want, f"3z (c) launches {launches} != {want}")
+    require(all(np.isfinite(l) and a > 0 and g > 0 for l, a, g in out),
+            f"3z (c) (loss, aux, |gate grad|) {out}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  eager LlamaForCausalLM, 1 layer, bf16, B=1 S={S}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+          f"parameters in {n_tensors} tensors; per step (loss, balance loss, "
+          f"sum |d gate_weight|): " + "; ".join(
+              f"({l:.4f}, {a:.4f}, {g:.3e})" for l, a, g in out)
+          + f"; {steps} steps in {wall:.2f} s; peak {peak:.2f} GiB; "
+          f"launches {json.dumps(launches)} on {card}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(steps=out, launches=launches, wall_s=wall)
+
+
+def phase_moe(pa, fa, card, B=4, S=2048):
+    """Phase 3z: the Mixtral-style MoE LLaMA at Mixtral-8x7B's widths on one
+    card: (a) the functional train step, (b) the same through the 1F1B
+    pipeline on a pp 1 x ep 1 mesh over NCCL, (c) the eager model with its
+    balance loss."""
+    import paddle_tpu_torch.distributed as dist
+    require(dist.get_backend() == "nccl", "3z: the world is not on nccl")
+    torch.cuda.empty_cache()
+    print(f"  device memory still held by earlier phases: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = moe_config()
+    a = moe_functional(pa, fa, cfg, B, S, card)
+    b = moe_pipeline(pa, dist, cfg, B, S, a, card)
+    c = moe_eager(pa, S, card)
+    return dict(a, pipeline=b, eager=c)
+
+
+def moe_check_step(cfg, batch, kernels, taps=None):
+    """One f32 step of ``make_train_step`` on the MoE model (seed 2, the
+    gate's logits scaled by ``MOE_CHECK_GATE_GAIN``), kernels and fused
+    AdamW on or both off: (loss, grads, updated parameters)."""
+    step, trees, _ = make_train_step(cfg, torch.float32, kernels, seed=2,
+                                     fused=kernels)
+    with torch.no_grad():
+        trees[1]["gate_w"].mul_(MOE_CHECK_GATE_GAIN)
+    if taps is None:
+        loss, grads = step(batch)
+    else:
+        with taps:
+            loss, grads = step(batch)
+    return (float(loss), [g.detach() for g in grads],
+            [v.detach() for t in trees for v in t.values()])
+
+
+def phase_moe_check(B=1, S=1024):
+    """Phase 4k: one f32 MoE step at Mixtral-8x7B's widths, 1 layer, with
+    rows 3/5/6/7/8/9 against the same step on their plain versions (4b's
+    gates); then, on the kernel step's own tensors, the routed dispatch
+    against JAX's einsum over ``top_k_gating``'s mask (bit for bit) and
+    the routed combine against its einsum over the combine weights."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        moe_layer, top_k_gating)
+    cfg = moe_config(1)
+    batch = train_batch(cfg, B, S, seed=1)
+    plain = moe_check_step(cfg, batch, False)
+    torch.cuda.empty_cache()
+    taps = RoutingTaps(keep=True)
+    kern = moe_check_step(cfg, batch, True, taps)
+    margin = taps.margin()
+    require(margin > 1e-4, f"4k: a top-2 choice within {margin:.2e} of a "
+            "tie (log-probabilities)")
+    hold_train_pair(f"4k: 1-layer f32 MoE step at Mixtral widths, B={B} "
+                    f"S={S} (gate x{MOE_CHECK_GATE_GAIN:g}; top-2 margin "
+                    f"{margin:.3e} in log-probabilities)", plain, kern)
+    del plain, kern
+    (x, r), = taps.dispatches
+    (y, r2), = taps.combines
+    logits, = taps.logits
+    require(r2 is r, "4k: the combine took another routing")
+    combine, dispatch, _, _ = top_k_gating(logits, r.top_k, r.capacity)
+    require(torch.equal(combine, r.combine_weights()),
+            "4k: top_k_gating's combine weights are not the routing's")
+    got = moe_layer.dispatch_routed(x, r)
+    want = moe_layer.moe_dispatch(x, dispatch)
+    require(torch.equal(got, want), "4k: the routed dispatch differs from "
+            f"the einsum (max {float((got - want).abs().max()):.3e})")
+    got = moe_layer.combine_routed(y, r)
+    want = moe_layer.moe_combine(y, combine)
+    err = float((got - want).abs().max() / want.abs().max())
+    require(err <= 1e-6, f"4k: routed combine vs einsum {err:.3e} of max")
+    print(f"  routed dispatch [{r.num_experts}, {r.capacity}, "
+          f"{x.shape[-1]}] == einsum td,tec->ecd bit for bit; routed combine "
+          f"vs einsum ecd,tec->td: max |diff| / max |ref| {err:.3e} (tol "
+          f"1e-6); {int(r.kept())} of {r.weight.numel()} choices kept")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -8794,15 +9268,31 @@ def main():
     say("phase 3y: ring flash and Ulysses attention at world 1 over NCCL "
         "(3c's attention shape) against a direct flash_attention call")
     ring = phase_ring_attention(pa, fa)
+    tp_s = time.perf_counter() - t_tp
+    t_moe = time.perf_counter()
+    say("phase 3z: the Mixtral-style MoE LLaMA at Mixtral-8x7B's widths, "
+        f"{MOE_LAYERS} layers (bf16, B=4, S=2048): the functional train "
+        "step, the same through Pipeline1F1BTrainStep on {'pp': 1, 'ep': 1} "
+        "over NCCL, the eager LlamaForCausalLM with its balance loss")
+    builds.go()
+    moe = phase_moe(pa, fa, card)
+    builds.hold()
     import paddle_tpu_torch.distributed as dist
     dist.destroy_process_group()
-    tp_s = time.perf_counter() - t_tp
+    moe_s = time.perf_counter() - t_moe
 
     say("phase 4: engine checks, kernels vs plain version")
     builds.go()
     phase_engine(pa, cfg)
     say("phase 4b: train step, kernels vs plain versions")
     phase_train_check()
+    t0 = time.perf_counter()
+    say("phase 4k: one f32 MoE step at Mixtral-8x7B's widths (1 layer, "
+        "B=1, S=1024), kernels vs plain versions; the routed dispatch and "
+        "combine vs the einsums over top_k_gating's masks")
+    phase_moe_check()
+    torch.cuda.empty_cache()
+    moe_s += time.perf_counter() - t0
     say("phase 4c: ERNIE train step, kernels vs plain versions, at "
           "dropout 0 and 0.1")
     phase_ernie_check()
@@ -8969,6 +9459,20 @@ def main():
           f"{min(ring['ms']['direct']):.3f}, Ulysses "
           f"{min(ring['ms']['ulysses']):.3f} on {card}")
     print(f"  phases 3x and 3y took {tp_s:.1f} s")
+    mp_, me = moe["pipeline"], moe["eager"]
+    print(f"  MoE (3z, Mixtral-8x7B widths, {moe['layers']} layers, B 4 x S "
+          f"2048, bf16): {moe['step_ms']:.1f} ms per step, "
+          f"{moe['tokens_per_s']:.1f} tokens/s, mfu_share {moe['mfu']:.4f} "
+          f"(active parameters), peak {moe['peak_gib']:.2f} GiB, loss "
+          f"{moe['losses'][0]:.4f} -> {moe['losses'][-1]:.4f}, dropped "
+          + "/".join(f"{d:.4f}" for d in moe["dropped"])
+          + f"; device busy {moe['busy_ms']:.1f} ms: " + ", ".join(
+              f"{g} {v:.2f}" for g, v in moe["groups"].items())
+          + f" ms; pipeline pp 1 x ep 1 {mp_['step_ms']:.1f} ms per step, "
+          f"collectives {json.dumps(mp_['comm'])}; eager 1 layer losses "
+          + " / ".join(f"{l:.4f}" for l, _, _ in me["steps"])
+          + f" on {card}")
+    print(f"  phases 3z and 4k took {moe_s:.1f} s")
     cost = ernie["step_ms"] - ernie0["step_ms"]
     print(f"  dropout {DROPOUT_RATE} costs {cost:.1f} ms per MLM step "
           f"({cost / ernie0['step_ms']:+.1%})")
@@ -8989,6 +9493,8 @@ def main():
         key = meta["key"]
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=train["launches"][key],
+                         launches_from=f"3c's 10 timed steps; 3z (a)'s 10 "
+                         f"timed steps: {moe['launches'][key]}",
                          max_abs_err=max_err[key], **timing[key]))
     for meta in DROP_ROWS:
         key = meta["key"]
@@ -9009,9 +9515,11 @@ def main():
         key = meta["key"]
         launches = softmax_launches[key] if key.startswith("softmax") \
             else ernie["launches"][key]
+        extra = {"launches_from": "3d's 10 timed steps; 3z (a)'s 10 timed "
+                 f"steps: {moe['launches'][key]}"} if key == "adamw" else {}
         rows.append(dict({k: v for k, v in meta.items() if k != "key"},
                          launches=launches, max_abs_err=max_err[key],
-                         **timing[key]))
+                         **extra, **timing[key]))
     for key, r in tp_kern.items():
         row, mp = key.split(" mp")
         meta = PLAIN if row == "1" else QUANT

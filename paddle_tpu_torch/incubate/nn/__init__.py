@@ -1,4 +1,5 @@
 from .functional import (fused_linear_cross_entropy,
-                         fused_linear_cross_entropy_impl)
+                         fused_linear_cross_entropy_impl, fused_moe)
 
-__all__ = ["fused_linear_cross_entropy", "fused_linear_cross_entropy_impl"]
+__all__ = ["fused_linear_cross_entropy", "fused_linear_cross_entropy_impl",
+           "fused_moe"]

@@ -1,11 +1,12 @@
-"""Vocab-chunked linear cross-entropy (port of
-``paddle_tpu.incubate.nn.functional.fused_linear_cross_entropy_impl`` and
-``fused_linear_cross_entropy``)."""
+"""Vocab-chunked linear cross-entropy and the dense MoE (port of
+``paddle_tpu.incubate.nn.functional.fused_linear_cross_entropy_impl``,
+``fused_linear_cross_entropy`` and ``fused_moe``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_linear_cross_entropy_impl", "fused_linear_cross_entropy"]
+__all__ = ["fused_linear_cross_entropy_impl", "fused_linear_cross_entropy",
+           "fused_moe"]
 
 
 def _logits_f32(x, w):
@@ -111,3 +112,32 @@ def fused_linear_cross_entropy(x, weight, labels, n_chunks=8, bias=None,
         return nll.mean()
     valid = (lab != ignore_index).float()
     return (nll * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def fused_moe(x, gate_weight, expert_weights1, expert_bias1, expert_weights2,
+              expert_bias2, quant_method="None", moe_topk=2,
+              norm_topk_prob=True):
+    """JAX ``fused_moe`` (``incubate/nn/functional.py:252``; reference
+    incubate/nn/functional/fused_moe.py): every token through every expert,
+    the outputs weighted by the top-k gate probabilities (renormalised
+    when ``norm_topk_prob``) and summed.  ``expert_weights1`` [E, d, h]:
+    SwiGLU on its two halves when h is twice ``expert_weights2``'s [E,
+    h', d] h', else GELU (tanh form, ``jax.nn.gelu``'s).  The routed,
+    capacity-bounded form is ``incubate.distributed.models.moe``."""
+    import torch.nn.functional as F
+    logits = x @ gate_weight
+    E = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, moe_topk, dim=-1)
+    if norm_topk_prob:
+        topv = topv / topv.sum(-1, keepdim=True)
+    h = torch.einsum("...d,edh->...eh", x, expert_weights1) + expert_bias1
+    if expert_weights2.shape[-2] * 2 == h.shape[-1]:
+        half = h.shape[-1] // 2
+        h = F.silu(h[..., :half]) * h[..., half:]
+    else:
+        h = F.gelu(h, approximate="tanh")
+    out_e = torch.einsum("...eh,ehd->...ed", h, expert_weights2) \
+        + expert_bias2
+    mask = (F.one_hot(topi, E).to(x.dtype) * topv[..., None]).sum(-2)
+    return torch.einsum("...ed,...e->...d", out_e, mask)

@@ -7,6 +7,7 @@ import torch
 from .. import resolve_device
 
 __all__ = ["params_from_numpy", "ernie_params_from_numpy",
+           "llama_params_from_numpy",
            "unet_params_from_numpy", "vision_params_from_numpy",
            "vit_params_from_numpy"]
 
@@ -25,7 +26,9 @@ def params_from_numpy(ep, bp, hp, device=None, dtype=torch.float32):
     package's parameters passed through ``np.asarray``) into the port's
     dicts of tensors on ``device`` (``None``: the CUDA device, raising
     without one) in ``dtype``.  The two packages share leaf names, stacking
-    and the ``[in, out]`` weight layout, so each leaf is a plain copy."""
+    and the ``[in, out]`` weight layout — the MoE stacks ``gate_w``,
+    ``we_gate``, ``we_up`` and ``we_down`` included — so each leaf is a
+    plain copy."""
     dev = resolve_device(device)
     return tuple({k: _tensor(v, dev, dtype) for k, v in tree.items()}
                  for tree in (ep, bp, hp))
@@ -40,6 +43,18 @@ def ernie_params_from_numpy(named, device=None, dtype=torch.float32):
     device, raising without one) in ``dtype``."""
     dev = resolve_device(device)
     return {name: _tensor(v, dev, dtype) for name, v in named.items()}
+
+
+def llama_params_from_numpy(named, device=None, dtype=torch.float32):
+    """``{name: np.ndarray}`` from the JAX eager ``LlamaForCausalLM``'s
+    ``named_parameters()`` (dense or MoE) -> a state dict that the port's
+    :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM` of the same
+    config loads with ``load_state_dict``: the names (``llama.layers.0.
+    mlp.moe.experts.1.up_proj.weight``, ``llama.layers.0.mlp.moe.gate.
+    gate_weight`` ...) and the ``[in, out]`` Linear layout are the same, so
+    each entry is a plain copy, on ``device`` (``None``: the CUDA device,
+    raising without one) in ``dtype``."""
+    return ernie_params_from_numpy(named, device, dtype)
 
 
 # ViT's names are the JAX model's too; a qkv projection without a bias

@@ -1,6 +1,7 @@
-"""LLaMA train and paged-KV serving functions (port of
-``paddle_tpu.models.llama``: ``build_functional_llama`` and
-``build_llama_paged_decode``).
+"""LLaMA train and paged-KV serving functions and the eager model (port of
+``paddle_tpu.models.llama``: ``build_functional_llama``,
+``build_llama_paged_decode``, ``LlamaForCausalLM`` and its layers), dense
+or Mixtral-style MoE (``num_experts`` > 1).
 
 Parameters are the JAX package's ``(embed, block, head)`` dicts with the
 same leaf names — ``tok``; ``ln1 wq wk wv wo ln2 wgate wup wdown`` stacked
@@ -31,7 +32,9 @@ __all__ = ["LlamaConfig", "llama_config_7b", "llama_config_tiny",
            "llama_microbatch_fns", "llama_paged_param_specs",
            "llama_paged_page_spec", "shard_llama_paged_params",
            "build_llama_paged_decode", "make_paged_decode_horizon",
-           "gather_kv_pages", "scatter_kv_pages"]
+           "gather_kv_pages", "scatter_kv_pages", "LlamaAttention",
+           "LlamaMLP", "LlamaMoEBlock", "LlamaDecoderLayer", "LlamaModel",
+           "LlamaForCausalLM", "functional_params_from_layer"]
 
 
 @dataclass
@@ -45,6 +48,16 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
+    tensor_parallel_degree: int = 1
+    dtype: str = "float32"
+    # the MoE variant (LLaMA-MoE / Mixtral): num_experts > 1 swaps the
+    # dense MLP for top-k routed SwiGLU experts
+    num_experts: int = 1
+    moe_topk: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
 
 
 def llama_config_7b():
@@ -69,12 +82,15 @@ def _rope_tables(seq_len, head_dim, theta, dtype=torch.float32, device=None):
 
 def init_llama_params(config: LlamaConfig, dtype=torch.float32, device=None,
                       seed: int = 0):
-    """Random dense parameters with the shapes and scales of the JAX
+    """Random parameters with the shapes and scales of the JAX
     ``build_functional_llama`` initialiser (normal / sqrt(fan_in) for block
     weights, 0.02 for the embedding and LM head, ones for the norms), drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device``
-    (``None``: the CUDA device, raising without one).  Each layer is drawn
-    and cast on its own, so a 7B model never holds a second f32 copy of its
+    (``None``: the CUDA device, raising without one).  With
+    ``num_experts`` > 1 the MLP leaves are JAX's expert stacks: ``gate_w``
+    [L, H, E] at 0.02, ``we_gate`` / ``we_up`` [L, E, H, I] at 1 / sqrt(H)
+    and ``we_down`` [L, E, I, H] at 1 / sqrt(I).  Each layer is drawn and
+    cast on its own, so a 7B model never holds a second f32 copy of its
     weights."""
     c = config
     dev = resolve_device(device)
@@ -88,19 +104,26 @@ def init_llama_params(config: LlamaConfig, dtype=torch.float32, device=None,
         return (torch.randn(shape, generator=gen, device=dev) * scale) \
             .to(dtype)
 
-    def stacked(shape):
+    def stacked(shape, scale=None):
         out = torch.empty((L,) + shape, dtype=dtype, device=dev)
         for i in range(L):
-            out[i] = draw(shape)
+            out[i] = draw(shape, scale)
         return out
 
     ep = {"tok": draw((c.vocab_size, H), 0.02)}
     bp = {"ln1": torch.ones((L, H), dtype=dtype, device=dev),
           "wq": stacked((H, H)), "wk": stacked((H, kv_dim)),
           "wv": stacked((H, kv_dim)), "wo": stacked((H, H)),
-          "ln2": torch.ones((L, H), dtype=dtype, device=dev),
-          "wgate": stacked((H, I)), "wup": stacked((H, I)),
-          "wdown": stacked((I, H))}
+          "ln2": torch.ones((L, H), dtype=dtype, device=dev)}
+    if c.num_experts > 1:
+        E = c.num_experts
+        bp.update(gate_w=stacked((H, E), 0.02),
+                  we_gate=stacked((E, H, I), 1.0 / math.sqrt(H)),
+                  we_up=stacked((E, H, I), 1.0 / math.sqrt(H)),
+                  we_down=stacked((E, I, H), 1.0 / math.sqrt(I)))
+    else:
+        bp.update(wgate=stacked((H, I)), wup=stacked((H, I)),
+                  wdown=stacked((I, H)))
     hp = {"ln_f": torch.ones((H,), dtype=dtype, device=dev),
           "lm": draw((H, c.vocab_size), 0.02)}
     return ep, bp, hp
@@ -119,29 +142,37 @@ def llama_block_specs(mp_axis: str = "mp", moe: bool = False,
     leading layer axis) for Megatron tensor parallelism over ``mp_axis``, as
     JAX's function gives them: ``wq wk wv wgate wup`` column-parallel
     (output axis split), ``wo wdown`` row-parallel (input axis split),
-    ``ln1 ln2`` replicated.  The MoE leaves are the next slice's."""
-    if moe or ep_axis is not None:
-        raise NotImplementedError(
-            "llama_block_specs: MoE blocks and expert parallelism are the "
-            "next slice (ROADMAP A item 5)")
+    ``ln1 ln2`` replicated.  With ``moe`` the MLP leaves are the expert
+    stacks: ``gate_w`` replicated, ``we_gate we_up we_down`` split on their
+    expert axis over ``ep_axis`` (expert parallelism)."""
     col = (None, mp_axis)
     row = (mp_axis, None)
-    return {"ln1": (None,), "wq": col, "wk": col, "wv": col, "wo": row,
-            "ln2": (None,), "wgate": col, "wup": col, "wdown": row}
+    specs = {"ln1": (None,), "wq": col, "wk": col, "wv": col, "wo": row,
+             "ln2": (None,)}
+    if moe:
+        exp = (ep_axis, None, None)
+        specs.update({"gate_w": (None, None), "we_gate": exp, "we_up": exp,
+                      "we_down": exp})
+    else:
+        specs.update({"wgate": col, "wup": col, "wdown": row})
+    return specs
 
 
 def shard_llama_block_params(bp, rank: int, size: int,
-                             specs: dict = None):
+                             specs: dict = None, axis: str = None):
     """Rank ``rank``'s shards, of ``size``, of the stacked block weights
     ``bp`` per ``specs`` (:func:`llama_block_specs`): the column-parallel
     leaves cut on their last axis, the row-parallel ones on the first
-    after the layer axis; the cut leaves are contiguous copies marked
-    ``is_distributed``, the replicated ones pass as they are."""
+    after the layer axis, the expert stacks on their expert axis; with
+    ``axis``, only the leaves split over that mesh axis are cut.  The cut
+    leaves are contiguous copies marked ``is_distributed``, the others
+    pass as they are."""
     specs = llama_block_specs() if specs is None else specs
     out = {}
     for k, v in bp.items():
         entries = specs.get(k, ())
-        axes = [i for i, e in enumerate(entries) if e is not None]
+        axes = [i for i, e in enumerate(entries)
+                if e is not None and (axis is None or e == axis)]
         if not axes or size == 1:
             out[k] = v
             continue
@@ -193,12 +224,24 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
     gradient, so the replicated norm weights get whole gradients) and
     ``reduce_from_group`` after ``wo`` and ``wdown`` (JAX's
     ``_mp_reduce``).  The embedding and the head stay replicated, as in
-    JAX.  Requires heads and KV heads divisible by the mp size.  Expert
-    parallelism (``ep_axis``) and MoE blocks are the next slice."""
-    if ep_axis is not None or getattr(config, "num_experts", 1) > 1:
-        raise NotImplementedError(
-            "build_functional_llama: expert parallelism and MoE blocks are "
-            "the next slice (ROADMAP A item 5)")
+    JAX.  Requires heads and KV heads divisible by the mp size.
+
+    With ``num_experts`` > 1 the MLP is JAX's ``_moe_ffn_block``: the gate
+    ``gate_w`` routes each layer's T tokens top-``moe_topk`` into C =
+    ``compute_capacity(T, E, k, moe_capacity_factor)`` slots an expert
+    (``incubate.distributed.models.moe``; the dispatch and combine by slot
+    index), and each expert is a SwiGLU of batched matmuls over the
+    ``we_gate`` / ``we_up`` / ``we_down`` stacks.  The balance loss is
+    dropped, as JAX drops it here (weight 0: the eager
+    :class:`LlamaForCausalLM` trains it).  With ``ep_axis`` the experts are
+    split over that axis of the default mesh: the returned stacks are this
+    rank's experts (``shard_llama_block_params(axis=ep_axis)`` of the
+    seed's full weights), the batch is this rank's, and the slots travel
+    to their experts' ranks and back by :func:`~paddle_tpu_torch.incubate.
+    distributed.models.moe.ep_all_to_all`, whose backward is the reverse
+    all-to-all.  The MoE MLP has no mp collective (JAX's has none)."""
+    from ..incubate.distributed.models.moe import gate as moe_gate
+    from ..incubate.distributed.models.moe import moe_layer
     from ..incubate.nn.functional import fused_linear_cross_entropy_impl
     from ..ops.flash_attention import flash_attention
     from ..ops.fused import rms_norm
@@ -217,11 +260,21 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
             raise ValueError(f"heads {c.num_attention_heads} / KV heads "
                              f"{c.num_key_value_heads} do not split over "
                              f"mp = {mp_group.nranks}")
+    moe = c.num_experts > 1
+    ep_group = None
+    if ep_axis is not None:
+        from ..distributed.topology import axis_group
+        ep_group = axis_group(ep_axis)
+        if c.num_experts % ep_group.nranks:
+            raise ValueError(f"{c.num_experts} experts do not split over "
+                             f"ep = {ep_group.nranks}")
     if init_params:
         ep, bp, hp = init_llama_params(c, dtype=d, device=dev, seed=seed)
-        if mp_group is not None:
-            bp = shard_llama_block_params(bp, max(mp_group.rank, 0),
-                                          mp_group.nranks)
+        specs = llama_block_specs(mp_axis, moe=moe, ep_axis=ep_axis)
+        for group, ax in ((mp_group, mp_axis), (ep_group, ep_axis)):
+            if group is not None:
+                bp = shard_llama_block_params(bp, max(group.rank, 0),
+                                              group.nranks, specs, axis=ax)
     else:
         ep = bp = hp = None
     sin_t, cos_t = _rope_tables(c.max_position_embeddings, head_dim,
@@ -280,9 +333,30 @@ def build_functional_llama(config: LlamaConfig, dtype=None, n_micro: int = 1,
             w = torch.softmax(logits, dim=-1).to(x.dtype)
             o = torch.einsum("bhqk,bkhd->bqhd", w, v)
         x = x + mp_out(o.reshape(B, S, nh * head_dim) @ lp["wo"])
+        if moe:
+            return x + moe_ffn_block(lp, rms(x, lp["ln2"]))
         h = mp_in(rms(x, lp["ln2"]))
         ff = F.silu(h @ lp["wgate"]) * (h @ lp["wup"])
         return x + mp_out(ff @ lp["wdown"])
+
+    def moe_ffn_block(lp, h):
+        """JAX's ``_moe_ffn_block`` on h [B, S, H]: the sparse SwiGLU over
+        the expert stacks (this rank's under ``ep_axis``)."""
+        B, S, _ = h.shape
+        xf = h.reshape(B * S, -1)
+        E = lp["gate_w"].shape[-1]
+        logits = (xf @ lp["gate_w"].to(xf.dtype)).float()
+
+        def swiglu(disp):
+            ff = F.silu(torch.bmm(disp, lp["we_gate"].to(disp.dtype))) \
+                * torch.bmm(disp, lp["we_up"].to(disp.dtype))
+            return torch.bmm(ff, lp["we_down"].to(ff.dtype))
+        out, _ = moe_layer.routed_ffn(
+            xf, logits, swiglu, top_k=c.moe_topk,
+            capacity=moe_gate.compute_capacity(B * S, E, c.moe_topk,
+                                               c.moe_capacity_factor),
+            ep_axis=ep_group, balance_loss_weight=0.0)
+        return out.reshape(B, S, -1).to(h.dtype)
 
     def head_loss_apply(p, y, batch):
         # y: [n_micro, mbs, S, H]
@@ -309,14 +383,11 @@ def llama_microbatch_fns(config: LlamaConfig, mp_axis: str = None,
     second parameter set): ``embed(ep, mb)`` gives one microbatch's ``[mbs,
     S, H]``, ``head(hp, y, mb)`` its mean loss on one activation.
     ``mp_axis``, ``dtype``, ``head_chunks``, ``device`` and ``kernels`` are
-    :func:`build_functional_llama`'s; ``ep_axis`` (expert parallelism)
-    raises."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "llama_microbatch_fns: expert parallelism (ep_axis) is ROADMAP "
-            "A item 5d")
+    :func:`build_functional_llama`'s, and so is ``ep_axis`` (the blocks'
+    experts split over that axis)."""
     _, _, _, ea1, ba1, hl1 = build_functional_llama(
-        config, dtype=dtype, n_micro=1, mp_axis=mp_axis, init_params=False,
+        config, dtype=dtype, n_micro=1, mp_axis=mp_axis, ep_axis=ep_axis,
+        init_params=False,
         head_chunks=head_chunks, device=device, kernels=kernels)
 
     def embed_mb(p, mb):
@@ -796,3 +867,287 @@ def make_paged_decode_horizon(decode_step, sample_fn=None):
         return out, toks, lengths, rem, done, pk, pv
 
     return horizon
+
+
+# -- the eager model ----------------------------------------------------------
+class _Parts:
+    """What every eager submodule needs at construction: the parameters'
+    generator (seeded with ``seed``), the routing generator (random
+    routing's draws, seeded from it apart from the parameters' stream),
+    the dtype, the device and the kernels knob."""
+
+    def __init__(self, c, dtype, device, seed, kernels):
+        dev = resolve_device(device)
+        if dtype is None:
+            dtype = getattr(torch, str(c.dtype).replace("paddle.", ""))
+        self.c, self.kernels, self.dtype, self.device = c, kernels, dtype, dev
+        self.generator = torch.Generator(device=dev).manual_seed(int(seed))
+        self.routing_generator = torch.Generator(device=dev).manual_seed(
+            int(seed) + 1)
+        self.mk = dict(dtype=dtype, device=dev, generator=self.generator)
+
+    def linear(self, n_in, n_out):
+        from ..nn.layers import Linear
+        return Linear(n_in, n_out, bias=False, **self.mk)
+
+    def parallel(self, kind, n_in, n_out):
+        """A ``ColumnParallelLinear`` (``kind`` "col", output not gathered)
+        or a ``RowParallelLinear`` ("row", input already split) without
+        bias, its full weight drawn from a seed of this model's
+        generator."""
+        from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                                       RowParallelLinear)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self.generator,
+                                 device=self.device))
+        kw = dict(has_bias=False, dtype=self.dtype, device=self.device,
+                  seed=seed)
+        if kind == "col":
+            return ColumnParallelLinear(n_in, n_out, gather_output=False,
+                                        **kw)
+        return RowParallelLinear(n_in, n_out, input_is_parallel=True, **kw)
+
+    def norm(self):
+        from ..nn.layers import RMSNorm
+        return RMSNorm(self.c.hidden_size, self.c.rms_norm_eps,
+                       dtype=self.dtype, device=self.device,
+                       kernels=self.kernels)
+
+
+class LlamaAttention(torch.nn.Module):
+    """JAX ``LlamaAttention`` (``models/llama.py:86``): q / k / v / o
+    projections without bias (column- / row-parallel over the ``mp`` group
+    at ``tensor_parallel_degree`` > 1), RoPE, causal GQA attention through
+    ``nn.functional.scaled_dot_product_attention`` (rows 3 / 5 / 6 on CUDA
+    tensors when ``kernels`` and ``use_flash_attention``)."""
+
+    def __init__(self, config: LlamaConfig, parts: _Parts):
+        super().__init__()
+        c = config
+        self.num_heads = c.num_attention_heads
+        self.num_kv = c.num_key_value_heads
+        self.head_dim = c.hidden_size // c.num_attention_heads
+        self.kernels = parts.kernels and c.use_flash_attention
+        q_dim, kv_dim = self.num_heads * self.head_dim, \
+            self.num_kv * self.head_dim
+        if c.tensor_parallel_degree > 1:
+            self.q_proj = parts.parallel("col", c.hidden_size, q_dim)
+            self.k_proj = parts.parallel("col", c.hidden_size, kv_dim)
+            self.v_proj = parts.parallel("col", c.hidden_size, kv_dim)
+            self.o_proj = parts.parallel("row", q_dim, c.hidden_size)
+        else:
+            self.q_proj = parts.linear(c.hidden_size, q_dim)
+            self.k_proj = parts.linear(c.hidden_size, kv_dim)
+            self.v_proj = parts.linear(c.hidden_size, kv_dim)
+            self.o_proj = parts.linear(q_dim, c.hidden_size)
+
+    def forward(self, x, sin=None, cos=None):
+        from ..nn.functional.attention import scaled_dot_product_attention
+        b, s, _ = x.shape
+        q = self.q_proj(x).reshape(b, s, -1, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, -1, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, -1, self.head_dim)
+        if sin is not None:
+            sin, cos = sin.to(q.dtype), cos.to(q.dtype)
+            q = _apply_rope(q, sin, cos)
+            k = _apply_rope(k, sin, cos)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           training=self.training,
+                                           kernels=self.kernels)
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+class LlamaMLP(torch.nn.Module):
+    """JAX ``LlamaMLP``: down(swiglu(gate(x), up(x))), column- / row-parallel
+    at ``tensor_parallel_degree`` > 1."""
+
+    def __init__(self, config: LlamaConfig, parts: _Parts):
+        super().__init__()
+        H, I = config.hidden_size, config.intermediate_size
+        if config.tensor_parallel_degree > 1:
+            self.gate_proj = parts.parallel("col", H, I)
+            self.up_proj = parts.parallel("col", H, I)
+            self.down_proj = parts.parallel("row", I, H)
+        else:
+            self.gate_proj = parts.linear(H, I)
+            self.up_proj = parts.linear(H, I)
+            self.down_proj = parts.linear(I, H)
+
+    def forward(self, x):
+        from ..nn.functional.activation import swiglu
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaMoEBlock(torch.nn.Module):
+    """JAX ``LlamaMoEBlock`` (Mixtral / LLaMA-MoE): a ``MoELayer`` of
+    ``num_experts`` SwiGLU experts behind a GShard top-``moe_topk`` gate at
+    ``moe_capacity_factor``; in training the gate routes its second choice
+    at random (GShard's), drawing from the model's routing generator.  Each
+    expert is a :class:`LlamaMLP` (JAX's ``_Expert``: the same three
+    projections)."""
+
+    def __init__(self, config: LlamaConfig, parts: _Parts):
+        super().__init__()
+        if config.tensor_parallel_degree > 1:
+            raise NotImplementedError(
+                "LlamaMoEBlock: tensor-parallel experts are not implemented "
+                "— use expert parallelism (incubate moe ep_axis / moe_ffn "
+                "over an 'ep' mesh axis) instead of mp for the MoE variant")
+        from ..incubate.distributed.models.moe import MoELayer
+        self.moe = MoELayer(
+            d_model=config.hidden_size,
+            experts=[LlamaMLP(config, parts)
+                     for _ in range(config.num_experts)],
+            gate={"type": "gshard", "top_k": config.moe_topk},
+            capacity_factor=config.moe_capacity_factor, **parts.mk)
+        self.moe.generator = parts.routing_generator
+
+    def forward(self, x):
+        return self.moe(x)
+
+    def aux_loss(self):
+        return self.moe.gate.get_loss()
+
+
+class LlamaDecoderLayer(torch.nn.Module):
+    def __init__(self, config: LlamaConfig, parts: _Parts):
+        super().__init__()
+        self.input_layernorm = parts.norm()
+        self.self_attn = LlamaAttention(config, parts)
+        self.post_attention_layernorm = parts.norm()
+        self.mlp = LlamaMoEBlock(config, parts) if config.num_experts > 1 \
+            else LlamaMLP(config, parts)
+
+    def forward(self, x, sin=None, cos=None):
+        x = x + self.self_attn(self.input_layernorm(x), sin, cos)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(torch.nn.Module):
+    """The embedding (vocab-parallel at ``tensor_parallel_degree`` > 1), the
+    decoder layers and the final norm; the RoPE tables are f32 buffers
+    outside the state dict, cast to the activations' dtype where they are
+    applied."""
+
+    def __init__(self, config: LlamaConfig, dtype=None, device=None,
+                 seed: int = 0, kernels: bool = True, parts=None):
+        super().__init__()
+        parts = parts or _Parts(config, dtype, device, seed, kernels)
+        self.config = config
+        if config.tensor_parallel_degree > 1:
+            from ..distributed.fleet.meta_parallel import \
+                VocabParallelEmbedding
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, dtype=parts.dtype,
+                device=parts.device, seed=int(seed))
+        else:
+            from ..nn.layers import Embedding
+            self.embed_tokens = Embedding(config.vocab_size,
+                                          config.hidden_size, **parts.mk)
+        self.layers = torch.nn.ModuleList(
+            LlamaDecoderLayer(config, parts)
+            for _ in range(config.num_hidden_layers))
+        self.norm = parts.norm()
+        head_dim = config.hidden_size // config.num_attention_heads
+        sin, cos = _rope_tables(config.max_position_embeddings, head_dim,
+                                config.rope_theta, device=parts.device)
+        self.register_buffer("_sin", sin, persistent=False)
+        self.register_buffer("_cos", cos, persistent=False)
+
+    def forward(self, input_ids):
+        x = self.embed_tokens(input_ids)
+        s = x.shape[1]
+        sin, cos = self._sin[:s], self._cos[:s]
+        for layer in self.layers:
+            x = layer(x, sin, cos)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(torch.nn.Module):
+    """JAX ``LlamaForCausalLM`` (``models/llama.py:236``): :class:`LlamaModel`
+    (``.llama``, also ``.model``) and the LM head.  ``named_parameters()``
+    are the JAX model's (``llama.layers.0.self_attn.q_proj.weight``,
+    ``llama.layers.0.mlp.moe.experts.0.gate_proj.weight``,
+    ``llama.layers.0.mlp.moe.gate.gate_weight``, ``lm_head.weight``),
+    Linear weights ``[in, out]``, so weights cross by name
+    (:func:`~paddle_tpu_torch.models.convert.llama_params_from_numpy`).
+    Parameters are drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (``None``: the CUDA device, raising without one) in
+    ``dtype`` (``None``: the config's).  ``kernels`` sends attention and
+    RMSNorm to the flash-attention and RMSNorm kernels on CUDA tensors.
+    With ``tie_word_embeddings`` there is no ``lm_head``: the logits are h
+    @ the embedding's transpose (JAX assigns the ``[V, H]`` embedding as
+    the ``[H, V]`` head's weight, which computes only where V = H)."""
+
+    def __init__(self, config: LlamaConfig, dtype=None, device=None,
+                 seed: int = 0, kernels: bool = True):
+        super().__init__()
+        parts = _Parts(config, dtype, device, seed, kernels)
+        self.config = config
+        self.llama = LlamaModel(config, seed=seed, parts=parts)
+        self.lm_head = None if config.tie_word_embeddings else \
+            parts.linear(config.hidden_size, config.vocab_size)
+
+    @property
+    def model(self):
+        return self.llama
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, seed=0):
+        if self.config.num_experts > 1:
+            raise NotImplementedError(
+                "generate() does not support the MoE variant — the "
+                "functional decode path computes the dense FFN")
+        raise NotImplementedError(
+            "LlamaForCausalLM.generate: the dense KV-cache generate path "
+            "(build_llama_decode, llama_generate, llama_generate_fused) is "
+            "ROADMAP A item 3, 5h")
+
+    def forward(self, input_ids, labels=None):
+        from ..nn.functional.loss import cross_entropy
+        h = self.llama(input_ids)
+        logits = h @ self.llama.embed_tokens.weight.t() \
+            if self.lm_head is None else self.lm_head(h)
+        if labels is None:
+            return logits
+        V = self.config.vocab_size
+        loss = cross_entropy(logits.reshape(-1, V), labels.reshape(-1))
+        if self.config.num_experts > 1:
+            # each layer's balance loss (Mixtral's aux loss)
+            for layer in self.llama.layers:
+                aux = layer.mlp.aux_loss()
+                if aux is not None:
+                    loss = loss + self.config.moe_aux_loss_weight * aux
+        return loss, logits
+
+
+def functional_params_from_layer(model: LlamaForCausalLM):
+    """The eager model's weights stacked into the ``(embed, block, head)``
+    dicts of :func:`build_functional_llama` (detached; the dense variant
+    with full weights on this rank only, as in JAX)."""
+    if model.config.num_experts > 1:
+        raise NotImplementedError(
+            "functional_params_from_layer: MoE experts do not map onto the "
+            "dense wgate/wup/wdown leaves")
+    if model.config.tensor_parallel_degree > 1:
+        raise NotImplementedError(
+            "functional_params_from_layer needs full weights on this rank "
+            "(tensor_parallel_degree == 1)")
+    m = model.llama
+
+    def stack(get):
+        return torch.stack([get(layer).detach() for layer in m.layers])
+
+    bp = {"ln1": stack(lambda l: l.input_layernorm.weight),
+          "wq": stack(lambda l: l.self_attn.q_proj.weight),
+          "wk": stack(lambda l: l.self_attn.k_proj.weight),
+          "wv": stack(lambda l: l.self_attn.v_proj.weight),
+          "wo": stack(lambda l: l.self_attn.o_proj.weight),
+          "ln2": stack(lambda l: l.post_attention_layernorm.weight),
+          "wgate": stack(lambda l: l.mlp.gate_proj.weight),
+          "wup": stack(lambda l: l.mlp.up_proj.weight),
+          "wdown": stack(lambda l: l.mlp.down_proj.weight)}
+    lm = m.embed_tokens.weight.t() if model.lm_head is None \
+        else model.lm_head.weight
+    return ({"tok": m.embed_tokens.weight.detach()}, bp,
+            {"ln_f": m.norm.weight.detach(), "lm": lm.detach()})

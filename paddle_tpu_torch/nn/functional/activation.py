@@ -1,6 +1,6 @@
 """Activations (port of ``paddle_tpu.nn.functional.activation``: ``relu``,
-``relu6``, ``gelu``, ``silu``, ``hardsigmoid``, ``hardswish`` and
-``softmax`` with the ``softmax`` override of
+``relu6``, ``gelu``, ``silu``, ``swiglu``, ``hardsigmoid``, ``hardswish``
+and ``softmax`` with the ``softmax`` override of
 ``paddle_tpu/ops/pallas/__init__.py``).  JAX computes every one but the
 softmax outside any Pallas kernel, so here they are torch ops."""
 from __future__ import annotations
@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["gelu", "hardsigmoid", "hardswish", "relu", "relu6", "silu",
-           "softmax", "softmax_"]
+           "softmax", "softmax_", "swiglu"]
 
 
 def relu(x):
@@ -31,6 +31,14 @@ def silu(x):
     """SiLU, x * sigmoid(x) (JAX ``activation.py:42``, ``jax.nn.silu``),
     computed outside any kernel there as here."""
     return F.silu(x)
+
+
+def swiglu(x, y=None, name=None):
+    """silu(x) * y (JAX ``activation.py:205``, the reference's fused
+    SwiGLU); without ``y``, x is split in half along the last axis."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return F.silu(x) * y
 
 
 def hardsigmoid(x):

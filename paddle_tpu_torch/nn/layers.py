@@ -1,9 +1,9 @@
-"""Linear, Embedding, Dropout, LayerNorm, GroupNorm, BatchNorm2D, Conv2D,
-the activations, the pooling layers and Flatten, with the JAX package's
+"""Linear, Embedding, Dropout, LayerNorm, RMSNorm, GroupNorm, BatchNorm2D,
+Conv2D, the activations, the pooling layers and Flatten, with the JAX package's
 parameter and buffer names, layouts and initialisers
 (``paddle_tpu/nn/common.py`` ``Linear``, ``Embedding``, ``Dropout``,
-``Flatten``; ``paddle_tpu/nn/norm.py`` ``LayerNorm``, ``GroupNorm``,
-``BatchNorm2D``; ``paddle_tpu/nn/conv.py`` ``Conv2D``;
+``Flatten``; ``paddle_tpu/nn/norm.py`` ``LayerNorm``, ``RMSNorm``,
+``GroupNorm``, ``BatchNorm2D``; ``paddle_tpu/nn/conv.py`` ``Conv2D``;
 ``paddle_tpu/nn/activation.py`` ``GELU``, ``ReLU``, ``ReLU6``,
 ``Hardswish``, ``Hardsigmoid``; ``paddle_tpu/nn/pooling.py``
 ``MaxPool2D``, ``AvgPool2D``, ``AdaptiveAvgPool2D``).  ``Sequential`` and
@@ -30,10 +30,12 @@ from ..tensor.manipulation import flatten
 from .functional.activation import (gelu, hardsigmoid, hardswish, relu,
                                     relu6)
 from .functional.common import dropout
-from .functional.norm import batch_norm, group_norm, layer_norm
+from .functional.norm import (batch_norm, group_norm, layer_norm,
+                              rms_norm_ref)
 from .functional.pooling import adaptive_avg_pool2d, avg_pool2d, max_pool2d
 
-__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "GroupNorm",
+__all__ = ["Linear", "Embedding", "Dropout", "LayerNorm", "RMSNorm",
+           "GroupNorm",
            "BatchNorm2D", "Conv2D", "GELU", "ReLU", "ReLU6", "Hardswish",
            "Hardsigmoid", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
            "Flatten", "Sequential", "LayerList"]
@@ -113,6 +115,32 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight.shape, self.weight, self.bias,
                           self.epsilon, kernels=self.kernels,
                           norm_kernels=self.norm_kernels)
+
+
+class RMSNorm(nn.Module):
+    """JAX ``RMSNorm`` (``nn/norm.py:126``): weight 1 over the last axis,
+    through :func:`~paddle_tpu_torch.ops.fused.rms_norm` — rows 7 / 8's
+    CUDA kernels for CUDA tensors, their plain versions on the CPU — and
+    ``rms_norm_ref`` on the shapes it declines, as JAX's ``F.rms_norm``
+    dispatch does; ``kernels=False`` (the JAX flag ``use_pallas_kernels``)
+    runs ``rms_norm_ref`` always."""
+
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None, *, dtype, device, kernels=True):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.epsilon, self.kernels = epsilon, kernels
+        self.weight = nn.Parameter(torch.ones(tuple(normalized_shape),
+                                              dtype=dtype, device=device))
+
+    def forward(self, x):
+        if self.kernels:
+            from ..ops.fused import rms_norm
+            out = rms_norm(x, self.weight, self.epsilon)
+            if out is not None:
+                return out
+        return rms_norm_ref(x, self.weight, self.epsilon)
 
 
 class GroupNorm(nn.Module):

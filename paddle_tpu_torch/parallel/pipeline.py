@@ -251,12 +251,18 @@ def _backward(rec, g, want_input):
 
 # -- the gradient combine and the LM step's parameters ----------------------
 @torch.no_grad()
-def _combine(pipe, mesh, loss_sum, scale, grads, pp_summed, avg_axes):
+def _combine(pipe, mesh, loss_sum, scale, grads, pp_summed, avg_axes,
+             split=None):
     """JAX's combine of a pipeline step's loss and gradients: the loss
     (``loss_sum * scale``, nonzero on the last stage) summed over pp and
     averaged over every other axis; the gradients (``grads``, dicts of
     tensors, in place) scaled, those of ``pp_summed`` summed over pp, and
-    every one averaged over ``avg_axes``.  Returns the loss."""
+    every one averaged over ``avg_axes`` — except a leaf split over that
+    axis (``split``: per tree of ``grads``, a dict of each leaf's axes, as
+    ``block_specs`` gives them), which is scaled by 1 / the axis's size
+    with no collective (JAX ``pipeline_schedules.py:329-346``: each rank
+    holds other experts, and every rank's loss reached them).  Returns the
+    loss."""
     from ..distributed.topology import axis_group
     loss = (loss_sum * scale).reshape(())
     all_reduce(loss, ReduceOp.SUM, pipe.group)
@@ -269,12 +275,17 @@ def _combine(pipe, mesh, loss_sum, scale, grads, pp_summed, avg_axes):
     for t in pp_summed:
         for g in t.values():
             all_reduce(g, ReduceOp.SUM, pipe.group)
+    split = split or [{}] * len(grads)
     for ax in avg_axes:
-        if _axis_size(mesh, ax) > 1:
+        n = _axis_size(mesh, ax)
+        if n > 1:
             grp = axis_group(ax, mesh)
-            for t in grads:
-                for g in t.values():
-                    all_reduce(g, ReduceOp.AVG, grp)
+            for t, axes in zip(grads, split):
+                for name, g in t.items():
+                    if ax in axes.get(name, ()):
+                        g.mul_(1.0 / n)
+                    else:
+                        all_reduce(g, ReduceOp.AVG, grp)
     return loss
 
 
@@ -368,15 +379,17 @@ class _LMPipelineStep:
     def _combine_and_update(self, loss_sum, grads, scale):
         """:func:`_combine` with embed's and head's gradients summed over
         pp (each lives on its owning stage) and every one averaged over the
-        batch's axes.  Under mp the blocks' own ``copy_to_group`` /
-        ``reduce_from_group`` already give each rank the whole gradient of
-        its replicated leaves and the true gradient of its shards, so JAX's
-        pmean over mp and its 1/n_ax rescale of sharded leaves (the
-        transposes inside ``shard_map`` over-count) have nothing to do
-        here.  Then the update."""
+        batch's axes, but the block leaves split over ``ep`` (the
+        experts), which are scaled by 1 / ep.  Under mp the blocks' own
+        ``copy_to_group`` / ``reduce_from_group`` already give each rank
+        the whole gradient of its replicated leaves and the true gradient
+        of its shards, so JAX's pmean over mp and its 1/n_ax rescale of
+        sharded leaves (the transposes inside ``shard_map`` over-count)
+        have nothing to do here.  Then the update."""
         ge, gb, gh = grads
         loss = _combine(self.pipe, self.mesh, loss_sum, scale, grads,
-                        (ge, gh), self._batch_axes)
+                        (ge, gh), self._batch_axes,
+                        ({}, self._block_specs, {}))
         with torch.no_grad():
             lr = self.opt.get_lr()
             for name, p, g in zip(("embed", "block", "head"), self.trees,

@@ -187,10 +187,13 @@ class Pipeline1F1BTrainStep(_LMPipelineStep):
     ``block_params`` is the full ``[L, ...]`` stack (L a multiple of
     ``n_pp * n_chunks``); this rank keeps its chunks' layers (chunk c holds
     virtual stage c * n_pp + r, JAX's ``vpp_order``), and with
-    ``block_specs`` (``llama_block_specs("mp")``) the leaves sharded over mp
-    are cut to this rank's shard (leaves already marked
-    ``is_distributed``, as ``build_functional_llama(mp_axis=)`` gives them,
-    are kept as they are).  The tensors kept may share storage with those
+    ``block_specs`` (``llama_block_specs("mp")``, or ``llama_block_specs(
+    mp_axis=None, moe=True, ep_axis="ep")`` for the expert stacks) the
+    leaves sharded over mp or ep are cut to this rank's shard (leaves
+    already marked ``is_distributed``, as ``build_functional_llama(
+    mp_axis=, ep_axis=)`` gives them, are kept as they are); an expert
+    shard's gradient is scaled by 1 / ep, every other leaf's averaged over
+    ep, as in JAX.  The tensors kept may share storage with those
     given and are updated in place.  The update goes through
     ``optimizer.apply_gradients_functional`` (``AdamW(fused=True)``: one
     launch of row 9 a tensor).  ``batch_spec`` names the axes the global
@@ -215,10 +218,6 @@ class Pipeline1F1BTrainStep(_LMPipelineStep):
         if bad:
             raise ValueError(
                 f"block_specs may only shard over 'mp'/'ep', got {bad}")
-        if any("ep" in sfx for sfx in (block_specs or {}).values()):
-            raise NotImplementedError(
-                "block_specs over 'ep': expert parallelism is ROADMAP A "
-                "item 5d")
         self.schedule = schedule
         self._place(mesh, embed_params, block_params, head_params,
                     optimizer, n_micro, n_chunks, batch_spec, block_specs,

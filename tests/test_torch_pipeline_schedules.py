@@ -450,8 +450,6 @@ ERRORS = {
                          "only shard over 'mp'/'ep'"),
     "layers_not_divisible": (dict(n_chunks=3), ValueError,
                              "not divisible by n_pp\\*n_chunks"),
-    "block_specs_ep": (dict(block_specs={"wq": (None, "ep")}),
-                       NotImplementedError, "5d"),
 }
 
 
@@ -467,14 +465,6 @@ def test_microbatches_must_split_the_batch():
     ids = torch.zeros((3, 16), dtype=torch.long)
     with pytest.raises(ValueError, match="2 microbatches"):
         step((ids, ids))
-
-
-def test_llama_microbatch_fns_refuses_expert_parallelism():
-    from paddle_tpu_torch.models.llama import (llama_config_tiny,
-                                               llama_microbatch_fns)
-    with pytest.raises(NotImplementedError, match="5d"):
-        llama_microbatch_fns(llama_config_tiny(), ep_axis="ep",
-                             device="cpu")
 
 
 def test_generic_step_raises_as_jax():

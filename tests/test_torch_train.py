@@ -268,15 +268,20 @@ def test_three_steps_lower_the_loss():
 
 
 def test_not_ported_options_raise():
-    """Expert parallelism and MoE blocks raise, naming the next slice;
-    ``mp_axis`` is ported (without a mesh its group is this process
-    alone, and the blocks are whole)."""
+    """The dense KV-cache generate path raises, naming its ROADMAP item;
+    expert parallelism, MoE blocks and ``mp_axis`` are ported (without a
+    mesh their groups are this process alone: whole blocks, every
+    expert)."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
     _, tcfg = _configs(4)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tbuild(dataclasses.replace(tcfg), device="cpu", ep_axis="ep")
-    moe = dataclasses.replace(tcfg)
-    moe.num_experts = 2
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tbuild(moe, device="cpu")
+    _, bp, *_ = tbuild(dataclasses.replace(tcfg), device="cpu",
+                       ep_axis="ep")
+    assert "wgate" in bp and "we_gate" not in bp
+    moe = dataclasses.replace(tcfg, num_experts=2)
+    _, bp, *_ = tbuild(moe, device="cpu", ep_axis="ep")
+    assert bp["we_gate"].shape[1] == 2 and "wgate" not in bp
     _, bp, *_ = tbuild(tcfg, device="cpu", mp_axis="mp")
     assert bp["wq"].shape[-1] == tcfg.hidden_size
+    with pytest.raises(NotImplementedError, match="5h"):
+        LlamaForCausalLM(tcfg, device="cpu").generate(
+            torch.zeros((1, 4), dtype=torch.long))
